@@ -1,0 +1,769 @@
+// Fused frame megakernel for NVIDIA Hopper (sm_90a): opaque pass, v2
+// atmosphere with analytic sun optical depth, procedural cloud march and
+// composite, in one launch per frame.
+//
+// Replaces the TPU Pallas kernel
+//   godot_atmosphere_shader_tpu/ops/pallas/megakernel.py::_make_kernel
+// (launched by _render_pallas_jit, pallas_call at megakernel.py:636) for
+// one fullscreen layer with the fused opaque pass and procedural clouds.
+// Its plain PyTorch version is
+//   godot_atmosphere_shader_tpu_torch/render/renderer.py::render_frame,
+// and every formula below follows that code's operation order.
+//
+// What bounds it on an H100: fp32 and SFU throughput (expf, sqrtf, floorf
+// and the uint32 lattice hashes of the cloud noise) plus warp divergence at
+// shell silhouettes and culled pixels.  Not memory: a 1080p frame writes
+// 16 bytes per pixel (about 33 MB, ~10 us at 3.35 TB/s) and reads only the
+// 256 KB blue-noise tile.  What the design does about it:
+//   * one thread per column and per group of cloud_lod * coverage_lod rows,
+//     so the coarse cloud inputs, the coverage knots and the march are
+//     computed once per group without any cross-thread exchange;
+//   * the K + 1 coverage knots stay in registers (K is a template
+//     parameter): each march step picks its two live knots with an unrolled
+//     chain of predicated moves, never an indexed local array;
+//   * the conservative density-bound cull exits before the march per
+//     coarse pixel (output-equivalent: a culled pixel marches to exact
+//     zeros), as does every pixel whose ray misses the shell;
+//   * no intermediate goes to device memory; per-row state lives in the
+//     thread's stack frame (L1).
+//
+// Build (no fast math: the cloud density chain (...)*50-20 amplifies ulp
+// differences and floorf in the noise flips lattice cells at knife edges):
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC -fmad=true -o libmegakernel.so megakernel.cu
+// The launcher has a plain C interface and is bound with ctypes.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define MK_MAX_SPHERES 8
+#define MK_MAX_BOXES 4
+#define MK_MAX_OCTAVES 8
+#define MK_MAX_GROUP 8
+#define MK_QUAD_POINTS 8
+#define MK_KNOTS 8  // coverage knots: the K of the K + 1 knot registers
+
+// ---------------------------------------------------------------------------
+// Launch parameters.  The Python wrapper mirrors these two structs field for
+// field with ctypes (ops/kernels/megakernel.py: NoiseParams, MegakernelParams);
+// a test checks that both declare the same fields in the same order.
+
+struct NoiseParams {
+  int noise_type;     // 0 value, 1 simplex_smooth
+  int fractal_type;   // 0 none, 1 fbm, 2 ridged
+  int octaves;
+  int seed;
+  float frequency;
+  float lacunarity;
+  float amp[MK_MAX_OCTAVES];        // per-octave amplitude, bounding * gain^o
+  int warp_enabled;
+  int warp_octaves;
+  float warp_amp[MK_MAX_OCTAVES];   // warp_amplitude * warp_gain^o
+  float warp_freq[MK_MAX_OCTAVES];  // warp_frequency * warp_lacunarity^o
+  float scale[3];                   // field domain scale
+};
+
+struct MegakernelParams {
+  int height;
+  int width;
+  // camera: position, view->world rotation (row-major), ray preamble
+  float cam_pos[3];
+  float cam_rot[9];
+  float ray_sx;
+  float ray_sy;
+  // opaque scene
+  int with_opaque;
+  int n_spheres;
+  int n_boxes;
+  float sphere_center[MK_MAX_SPHERES * 3];
+  float sphere_radius2[MK_MAX_SPHERES];  // radius^2
+  float sphere_albedo[MK_MAX_SPHERES * 3];
+  float sphere_unshaded[MK_MAX_SPHERES];
+  float box_w2b[MK_MAX_BOXES * 16];
+  float box_origin[MK_MAX_BOXES * 3];  // camera position in box space
+  float box_half[MK_MAX_BOXES * 3];
+  float box_albedo[MK_MAX_BOXES * 3];
+  float light_dir[3];
+  float ambient;
+  float sky_color[3];
+  float star_intensity;
+  // atmosphere (v2, analytic sun optical depth)
+  int atmosphere_steps;
+  float planet_center[3];
+  float planet_radius;
+  float atmosphere_height;
+  float atmosphere_radius;   // R + H
+  float atmosphere_radius2;  // (R + H)^2
+  float planet_radius2;      // R^2
+  float inv_height;          // 1 / H
+  float density;
+  float density2;            // density^2
+  float sphere_depth_factor;
+  float scatter[3];          // pow4(400 / lambda) * strength
+  float ambient_color[3];
+  float modulate[3];
+  float sun_dir[3];          // world space
+  float quad_x[MK_QUAD_POINTS];
+  float quad_w[MK_QUAD_POINTS];
+  // clouds
+  int clouds_enabled;
+  int cloud_steps;
+  int cloud_lod;
+  int coverage_lod;
+  int coverage_knots;
+  float cloud_bottom_radius;
+  float cloud_top_radius;
+  float cloud_bottom_radius2;
+  float cloud_top_radius2;
+  float cloud_layer;         // top - bottom
+  float cloud_density_scale;
+  float cloud_blend;
+  float cloud_shape_invert;
+  float cloud_coverage_bias;
+  float cloud_shape_factor;
+  float cloud_shape_scale;
+  float cloud_shape_bound;   // 0.5 + 0.575 * |shape_factor|
+  float cloud_detail_term;   // 0.1 in always-low mode
+  float march_max_distance;
+  float coverage_rot[4];
+  float world_to_model[16];
+  float ro_model[3];         // camera position in model space
+  float sd_model[3];         // sun direction in model space
+  NoiseParams shape;
+  NoiseParams coverage;
+};
+
+// ---------------------------------------------------------------------------
+// Vector helpers (plain C++ arithmetic; the build lets the compiler contract
+// a*b+c into an FMA, -fmad=true).
+
+struct V3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ V3 v3(float x, float y, float z) { return V3{x, y, z}; }
+__device__ __forceinline__ V3 add(V3 a, V3 b) { return v3(a.x + b.x, a.y + b.y, a.z + b.z); }
+__device__ __forceinline__ V3 sub(V3 a, V3 b) { return v3(a.x - b.x, a.y - b.y, a.z - b.z); }
+__device__ __forceinline__ V3 mul(V3 a, float s) { return v3(a.x * s, a.y * s, a.z * s); }
+__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+__device__ __forceinline__ V3 normalize(V3 a) { return mul(a, rsqrtf(dot(a, a))); }
+__device__ __forceinline__ float saturate(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
+__device__ __forceinline__ float fsign(float x) { return (float)((x > 0.0f) - (x < 0.0f)); }
+
+__device__ __forceinline__ V3 load3(const float* p) { return v3(p[0], p[1], p[2]); }
+
+// 3x3 linear part of a row-major 4x4 (or the 3x3 itself with stride 3)
+__device__ __forceinline__ V3 xform_dir(const float* m, int stride, V3 d) {
+  return v3(m[0] * d.x + m[1] * d.y + m[2] * d.z,
+            m[stride] * d.x + m[stride + 1] * d.y + m[stride + 2] * d.z,
+            m[2 * stride] * d.x + m[2 * stride + 1] * d.y + m[2 * stride + 2] * d.z);
+}
+
+// (t0, t1) with the reference's (1e6, 1e6) miss sentinel; hit <=> t0 != t1
+__device__ __forceinline__ void ray_sphere(V3 center, float radius2, V3 ro, V3 rd,
+                                           float& t0, float& t1) {
+  V3 oc = sub(ro, center);
+  float b = dot(oc, rd);
+  V3 qc = sub(oc, mul(rd, b));
+  float h = radius2 - dot(qc, qc);
+  bool miss = h < 0.0f;
+  float sq = sqrtf(miss ? 1.0f : fmaxf(h, 1e-12f));
+  t0 = miss ? 1.0e6f : -b - sq;
+  t1 = miss ? 1.0e6f : -b + sq;
+}
+
+// ---------------------------------------------------------------------------
+// Lattice noise (ops/noise.py), uint32 arithmetic as in the JAX package.
+
+__device__ __forceinline__ uint32_t mix_fast(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x7FEB352Du;
+  h ^= h >> 15;
+  h *= 0x846CA68Bu;
+  return h;
+}
+
+__device__ __forceinline__ uint32_t mix(uint32_t h) {
+  h = mix_fast(h);
+  return h ^ (h >> 16);
+}
+
+__device__ __forceinline__ uint32_t hash3(int ix, int iy, int iz, uint32_t seed) {
+  return mix((uint32_t)ix * 0x9E3779B1u + (uint32_t)iy * 0x85EBCA77u +
+             (uint32_t)iz * 0xC2B2AE3Du + seed);
+}
+
+__device__ __forceinline__ float hash_to_unit(uint32_t h) {
+  return (float)(h >> 8) * (1.0f / 16777216.0f);
+}
+
+__device__ __forceinline__ float full_to_signed(uint32_t h) {
+  return (float)(int32_t)h * 4.656612873077392578125e-10f;  // 2^-31
+}
+
+__device__ __forceinline__ float bits_to_signed(uint32_t h, int shift) {
+  return (float)((h >> shift) & 1023u) * (1.0f / 512.0f) - 1.0f;
+}
+
+__device__ __forceinline__ float floor_split(float x, int& i) {
+  float f = floorf(x);
+  i = (int)f;
+  return x - f;
+}
+
+__device__ __forceinline__ float cubic(float t) { return t * t * (3.0f - 2.0f * t); }
+
+// corner hashes ordered c000, c100, c010, c110, c001, c101, c011, c111
+__device__ __forceinline__ void corner_hashes(int ix, int iy, int iz, uint32_t seed,
+                                              uint32_t h[8]) {
+  uint32_t hx0 = (uint32_t)ix * 0x9E3779B1u;
+  uint32_t hy0 = (uint32_t)iy * 0x85EBCA77u;
+  uint32_t hz0 = (uint32_t)iz * 0xC2B2AE3Du + seed;
+  uint32_t hx1 = hx0 + 0x9E3779B1u;
+  uint32_t hy1 = hy0 + 0x85EBCA77u;
+  uint32_t hz1 = hz0 + 0xC2B2AE3Du;
+  h[0] = mix_fast(hx0 + hy0 + hz0);
+  h[1] = mix_fast(hx1 + hy0 + hz0);
+  h[2] = mix_fast(hx0 + hy1 + hz0);
+  h[3] = mix_fast(hx1 + hy1 + hz0);
+  h[4] = mix_fast(hx0 + hy0 + hz1);
+  h[5] = mix_fast(hx1 + hy0 + hz1);
+  h[6] = mix_fast(hx0 + hy1 + hz1);
+  h[7] = mix_fast(hx1 + hy1 + hz1);
+}
+
+__device__ __forceinline__ float trilerp(const float c[8], float ux, float uy, float uz) {
+  float x00 = c[0] + (c[1] - c[0]) * ux;
+  float x10 = c[2] + (c[3] - c[2]) * ux;
+  float x01 = c[4] + (c[5] - c[4]) * ux;
+  float x11 = c[6] + (c[7] - c[6]) * ux;
+  float y0 = x00 + (x10 - x00) * uy;
+  float y1 = x01 + (x11 - x01) * uy;
+  return y0 + (y1 - y0) * uz;
+}
+
+__device__ float value_noise3(float x, float y, float z, uint32_t seed) {
+  int ix, iy, iz;
+  float fx = floor_split(x, ix), fy = floor_split(y, iy), fz = floor_split(z, iz);
+  uint32_t h[8];
+  corner_hashes(ix, iy, iz, seed, h);
+  float c[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) c[k] = full_to_signed(h[k]);
+  return trilerp(c, cubic(fx), cubic(fy), cubic(fz));
+}
+
+__device__ void value_noise3_vec3(float x, float y, float z, uint32_t seed,
+                                  float& ox, float& oy, float& oz) {
+  int ix, iy, iz;
+  float fx = floor_split(x, ix), fy = floor_split(y, iy), fz = floor_split(z, iz);
+  float ux = cubic(fx), uy = cubic(fy), uz = cubic(fz);
+  uint32_t h[8];
+  corner_hashes(ix, iy, iz, seed, h);
+  float c[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) c[k] = bits_to_signed(h[k], 0);
+  ox = trilerp(c, ux, uy, uz);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) c[k] = bits_to_signed(h[k], 10);
+  oy = trilerp(c, ux, uy, uz);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) c[k] = bits_to_signed(h[k], 20);
+  oz = trilerp(c, ux, uy, uz);
+}
+
+__device__ __forceinline__ float lattice_sum(int jx, int jy, int jz, float gx, float gy,
+                                             float gz, uint32_t seed) {
+  uint32_t h[8];
+  corner_hashes(jx, jy, jz, seed, h);
+  float total = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    float cx = gx - (float)(k & 1);
+    float cy = gy - (float)((k >> 1) & 1);
+    float cz = gz - (float)((k >> 2) & 1);
+    float a = fmaxf(0.75f - cx * cx - cy * cy - cz * cz, 0.0f);
+    float a2 = a * a;
+    float g = bits_to_signed(h[k], 0) * cx + bits_to_signed(h[k], 10) * cy +
+              bits_to_signed(h[k], 20) * cz;
+    float c = a2 * a2 * g;
+    total = (k == 0) ? c : total + c;
+  }
+  return total;
+}
+
+__device__ float simplex_smooth_noise3(float x, float y, float z, uint32_t seed) {
+  const float r3 = (float)(2.0 / 3.0);
+  float r = (x + y + z) * r3;
+  int ix, iy, iz;
+  float fx = floor_split(r - x, ix), fy = floor_split(r - y, iy), fz = floor_split(r - z, iz);
+  float n = lattice_sum(ix, iy, iz, fx, fy, fz, seed);
+  int bx = fx < 0.5f, by = fy < 0.5f, bz = fz < 0.5f;
+  n = n + lattice_sum(ix - bx, iy - by, iz - bz, fx + (float)bx - 0.5f,
+                      fy + (float)by - 0.5f, fz + (float)bz - 0.5f, seed + 1293373u);
+  return n * 7.3f;
+}
+
+__device__ __forceinline__ float base_noise(const NoiseParams& s, float x, float y, float z,
+                                            uint32_t seed) {
+  return s.noise_type == 0 ? value_noise3(x, y, z, seed)
+                           : simplex_smooth_noise3(x, y, z, seed);
+}
+
+// sample_noise3: domain warp -> fractal -> base, at field coordinates
+__device__ float sample_noise3(const NoiseParams& s, float x, float y, float z) {
+  if (s.warp_enabled) {
+    for (int o = 0; o < s.warp_octaves; ++o) {
+      float f = s.warp_freq[o];
+      float sx, sy, sz;
+      value_noise3_vec3(x * f, y * f, z * f, (uint32_t)(s.seed + 1000 + o), sx, sy, sz);
+      float a = s.warp_amp[o];
+      x = x + sx * a;
+      y = y + sy * a;
+      z = z + sz * a;
+    }
+  }
+  x = x * s.frequency;
+  y = y * s.frequency;
+  z = z * s.frequency;
+  if (s.fractal_type == 0) return base_noise(s, x, y, z, (uint32_t)s.seed);
+  float total = 0.0f;
+  for (int o = 0; o < s.octaves; ++o) {
+    float n = base_noise(s, x, y, z, (uint32_t)(s.seed + o));
+    if (s.fractal_type == 1) {
+      total = total + n * s.amp[o];
+    } else {
+      n = fabsf(n);
+      total = total + (n * -2.0f + 1.0f) * s.amp[o];
+    }
+    x = x * s.lacunarity;
+    y = y * s.lacunarity;
+    z = z * s.lacunarity;
+  }
+  return total;
+}
+
+// procedural field 0.5 + 0.5 * noise(p * scale)
+__device__ __forceinline__ float field(const NoiseParams& s, V3 p) {
+  return 0.5f + 0.5f * sample_noise3(s, p.x * s.scale[0], p.y * s.scale[1], p.z * s.scale[2]);
+}
+
+// ---------------------------------------------------------------------------
+// Opaque pass (render/opaque.py)
+
+__device__ void opaque_pass(const MegakernelParams& p, V3 ro, V3 rd, V3& rgb,
+                            float& linear_depth) {
+  const float big = 3.0e38f;
+  float best_t = big;
+  V3 n = v3(0.0f, 0.0f, 0.0f), alb = v3(0.0f, 0.0f, 0.0f);
+  float unshaded = 0.0f;
+  for (int i = 0; i < p.n_spheres; ++i) {
+    V3 c = load3(p.sphere_center + 3 * i);
+    float t0, t1;
+    ray_sphere(c, p.sphere_radius2[i], ro, rd, t0, t1);
+    bool hit = (t0 != t1) && (t1 > 0.0f);
+    float t = t0 > 0.0f ? t0 : t1;
+    if (hit && t < best_t) {
+      best_t = t;
+      n = normalize(sub(add(ro, mul(rd, t)), c));
+      alb = load3(p.sphere_albedo + 3 * i);
+      unshaded = p.sphere_unshaded[i];
+    }
+  }
+  for (int i = 0; i < p.n_boxes; ++i) {
+    const float* m = p.box_w2b + 16 * i;
+    V3 ro_b = load3(p.box_origin + 3 * i);
+    V3 rd_b = xform_dir(m, 4, rd);
+    V3 hs = load3(p.box_half + 3 * i);
+    // safe reciprocal: axis-aligned rays get a huge finite slope
+    float d[3] = {rd_b.x, rd_b.y, rd_b.z};
+    float inv[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      float dk = fabsf(d[k]) < 1e-12f ? (d[k] < 0.0f ? -1e-12f : 1e-12f) : d[k];
+      inv[k] = 1.0f / dk;
+    }
+    V3 nn = v3(inv[0] * ro_b.x, inv[1] * ro_b.y, inv[2] * ro_b.z);
+    V3 kk = v3(fabsf(inv[0]) * hs.x, fabsf(inv[1]) * hs.y, fabsf(inv[2]) * hs.z);
+    V3 t1 = sub(v3(-nn.x, -nn.y, -nn.z), kk);
+    V3 t2 = add(v3(-nn.x, -nn.y, -nn.z), kk);
+    float t_near = fmaxf(fmaxf(t1.x, t1.y), t1.z);
+    float t_far = fminf(fminf(t2.x, t2.y), t2.z);
+    bool hit = (t_near <= t_far) && (t_far >= 0.0f);
+    if (!hit) {
+      t_near = -1.0f;
+      t_far = -1.0f;
+    }
+    float t = t_near > 0.0f ? t_near : t_far;
+    if (hit && t > 0.0f && t < best_t) {
+      V3 pb = add(ro_b, mul(rd_b, t));
+      float axx = fabsf(pb.x / hs.x), ayy = fabsf(pb.y / hs.y), azz = fabsf(pb.z / hs.z);
+      V3 nl = v3((axx >= ayy && axx >= azz) ? fsign(pb.x) : 0.0f,
+                 (ayy > axx && ayy >= azz) ? fsign(pb.y) : 0.0f,
+                 (azz > axx && azz > ayy) ? fsign(pb.z) : 0.0f);
+      best_t = t;
+      n = v3(m[0] * nl.x + m[4] * nl.y + m[8] * nl.z,
+             m[1] * nl.x + m[5] * nl.y + m[9] * nl.z,
+             m[2] * nl.x + m[6] * nl.y + m[10] * nl.z);
+      alb = load3(p.box_albedo + 3 * i);
+      unshaded = 0.0f;
+    }
+  }
+  bool hit_any = best_t < big;
+  if (hit_any) {
+    float ndotl = fmaxf(-(n.x * p.light_dir[0] + n.y * p.light_dir[1] + n.z * p.light_dir[2]),
+                        0.0f);
+    float shade = p.ambient + (1.0f - p.ambient) * ndotl;
+    if (unshaded > 0.5f) shade = 1.0f;
+    rgb = mul(alb, shade);
+    linear_depth = best_t;
+  } else {
+    // hashed starfield from the quantized ray direction
+    uint32_t h = hash3((int)floorf(rd.x * 220.0f), (int)floorf(rd.y * 220.0f),
+                       (int)floorf(rd.z * 220.0f), 77u);
+    float b = hash_to_unit(h);
+    float b2 = b * b, b4 = b2 * b2, b16 = b4 * b4;
+    b16 = b16 * b16;
+    float star = fmaxf(b16 - 0.7f, 0.0f) * (float)(1.0 / 0.3) * p.star_intensity;
+    rgb = v3(p.sky_color[0] + star, p.sky_color[1] + star, p.sky_color[2] + star);
+    linear_depth = 1.0e7f;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// v2 atmosphere (ops/atmosphere_v2.py, ops/optical_depth.py)
+
+__device__ __forceinline__ float atmo_density(const MegakernelParams& p, float dist) {
+  float h = saturate((dist - p.planet_radius) / p.atmosphere_height);
+  float y = 1.0f - h;
+  return y * y * y * p.density;
+}
+
+__device__ float od_segment(const MegakernelParams& p, float a0, float a1, float b, float q2) {
+  float seg = a1 - a0;
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < MK_QUAD_POINTS; ++k) {
+    float t = a0 + seg * p.quad_x[k];
+    float x = t + b;
+    float r = sqrtf(x * x + q2);
+    float y = 1.0f - fminf(fmaxf((r - p.planet_radius) * p.inv_height, 0.0f), 1.0f);
+    acc = acc + p.quad_w[k] * (y * y * y);
+  }
+  return acc * seg * p.density2;
+}
+
+__device__ float optical_depth_analytic(const MegakernelParams& p, V3 pos, V3 dir) {
+  V3 rel = sub(pos, load3(p.planet_center));
+  float r = sqrtf(rel.x * rel.x + rel.y * rel.y + rel.z * rel.z);
+  float r_cl = fminf(fmaxf(r, p.planet_radius), p.atmosphere_radius);
+  rel = mul(rel, r_cl / fmaxf(r, 1e-20f));
+  float b = rel.x * dir.x + rel.y * dir.y + rel.z * dir.z;
+  float c0 = rel.x * rel.x + rel.y * rel.y + rel.z * rel.z;
+  float q2 = fmaxf(c0 - b * b, 0.0f);
+  float ha = p.atmosphere_radius2 - q2;
+  bool shell_hit = ha > 0.0f;
+  float sq_a = shell_hit ? sqrtf(fmaxf(ha, 1e-12f)) : 0.0f;
+  float s = fmaxf(-b - sq_a, 0.0f);
+  float e = fmaxf(-b + sq_a, 0.0f);
+  if (!shell_hit) e = s;
+  float hg = p.planet_radius2 - q2;
+  bool ground_hit = hg > 0.0f;
+  float sq_g = ground_hit ? sqrtf(fmaxf(hg, 1e-12f)) : 0.0f;
+  float g0 = ground_hit ? -b - sq_g : e;
+  float g1 = ground_hit ? -b + sq_g : e;
+  g0 = fminf(fmaxf(g0, s), e);
+  g1 = fminf(fmaxf(g1, s), e);
+  float below = (g1 - g0) * p.density2;
+  return od_segment(p, s, g0, b, q2) + od_segment(p, g1, e, b, q2) + below;
+}
+
+__device__ void atmosphere_v2(const MegakernelParams& p, V3 ro, V3 rd, float t_begin,
+                              float t_end, float jitter, float out[4]) {
+  V3 pc = load3(p.planet_center);
+  V3 sun = load3(p.sun_dir);
+  float step_len = (t_end - t_begin) / (float)p.atmosphere_steps;
+  V3 pos = add(ro, mul(rd, t_begin));
+  float tr = 0.0f, tg = 0.0f, tb = 0.0f, view_od = 0.0f, alpha = 0.0f;
+  for (int i = 0; i < p.atmosphere_steps; ++i) {
+    float sun_od = optical_depth_analytic(p, pos, sun);
+    V3 rel = sub(pos, pc);
+    float height = sqrtf(rel.x * rel.x + rel.y * rel.y + rel.z * rel.z);
+    float local_density = atmo_density(p, height) * p.density;
+    view_od = view_od + local_density * step_len;
+    float od = sun_od + view_od;
+    tr = tr + local_density * step_len * expf(-od * p.scatter[0]) * p.scatter[0];
+    tg = tg + local_density * step_len * expf(-od * p.scatter[1]) * p.scatter[1];
+    tb = tb + local_density * step_len * expf(-od * p.scatter[2]) * p.scatter[2];
+    float vt = expf(-local_density * step_len);
+    alpha = alpha + (1.0f - vt) * (1.0f - alpha);
+    pos = add(pos, mul(rd, step_len));
+  }
+  out[0] = saturate(tr + p.ambient_color[0]) * p.modulate[0];
+  out[1] = saturate(tg + p.ambient_color[1]) * p.modulate[1];
+  out[2] = saturate(tb + p.ambient_color[2]) * p.modulate[2];
+  out[3] = fminf(fmaxf(alpha + jitter * 0.02f, 0.0f), 0.99f);
+}
+
+// ---------------------------------------------------------------------------
+// Clouds (ops/clouds.py)
+
+__device__ __forceinline__ float raw_coverage(const MegakernelParams& p, V3 pos) {
+  V3 q = v3(p.coverage_rot[0] * pos.x + p.coverage_rot[1] * pos.z, pos.y,
+            p.coverage_rot[2] * pos.x + p.coverage_rot[3] * pos.z);
+  return field(p.coverage, normalize(q));
+}
+
+// One cloud march step: returns the scaled density, updates light.
+__device__ float cloud_step(const MegakernelParams& p, V3 pos, V3 rd, float alpha, float cov,
+                           float& light) {
+  V3 sd = load3(p.sd_model);
+  float pos_len = sqrtf(dot(pos, pos));
+  // cheap lighting: height ratio plus a pow16 sun glow through thin cloud
+  float hr = (pos_len - p.cloud_bottom_radius) / p.cloud_layer;
+  float dp = rd.x * sd.x + rd.y * sd.y + rd.z * sd.z;
+  float dp2 = dp * dp, dp4 = dp2 * dp2, dp8 = dp4 * dp4;
+  float glow = dp > 0.0f ? dp8 * dp8 : 0.0f;
+  float l = hr + glow * (1.0f - alpha);
+  // planet shadow
+  float d = -(pos.x * sd.x + pos.y * sd.y + pos.z * sd.z) * (1.0f / pos_len);
+  float st = saturate((d - (-0.3f)) / 0.6f);
+  float shadow = st * st * (3.0f - 2.0f * st);
+  light = l * (1.0f + (float)(0.002 - 1.0) * shadow);
+  // density, always-low quality (detail = 0.5)
+  float hc = 2.0f * hr - 1.0f;
+  hc = fmaxf(1.0f - hc * hc, 0.0f);
+  float coverage = cov - 0.25f * hr + p.cloud_coverage_bias;
+  float shape_raw = field(p.shape, mul(pos, p.cloud_shape_scale));
+  float shape = 0.5f + (shape_raw - 0.5f) * p.cloud_shape_factor;
+  if (p.cloud_shape_invert == 1.0f) shape = 1.0f - shape;
+  float density = (shape - (float)(0.2 * 0.5) + (-1.2f + (float)(1.5 - -1.2) * coverage)) * hc;
+  density = saturate(density * 50.0f - 20.0f);
+  return density * p.cloud_density_scale;
+}
+
+// The march over [t_begin, t_end] (model space).  The K + 1 knots stay in
+// registers: each step selects its two live knots with an unrolled chain of
+// predicated moves instead of indexing an array.
+template <int K>
+__device__ __forceinline__ void cloud_march(const MegakernelParams& p, V3 rd, float t_begin,
+                                            float t_end, float jitter,
+                                            const float (&knots)[K + 1], float& light_out,
+                                            float& alpha_out) {
+  V3 ro = load3(p.ro_model);
+  t_end = t_begin + fminf(t_end - t_begin, p.march_max_distance);
+  const int steps = p.cloud_steps;
+  const float inv_steps = (float)(1.0 / (double)steps);
+  float step_len = (t_end - t_begin) * inv_steps;
+  V3 start = add(add(ro, mul(rd, jitter * step_len)), mul(rd, t_begin));
+  float prod = 1.0f, total_t = 1.0f, total_light = 0.0f;
+  for (int i = 0; i < steps; ++i) {
+    float u01 = ((float)i + 0.5f) * inv_steps;
+    float us = u01 * (float)K;
+    float i0 = fminf(fmaxf(floorf(us), 0.0f), (float)(K - 1));
+    const int seg = (int)i0;
+    float ka = knots[0], kb = knots[1];
+#pragma unroll
+    for (int k = 1; k < K; ++k) {
+      if (seg == k) {
+        ka = knots[k];
+        kb = knots[k + 1];
+      }
+    }
+    const float f = us - i0;
+    const float cov = ka * (1.0f - f) + kb * f;  // knot_dynamic interpolation
+    V3 pos = add(start, mul(rd, (float)i * step_len));
+    float light;
+    float density = cloud_step(p, pos, rd, 1.0f - prod, cov, light);
+    float tr = expf(-density * step_len);
+    total_t = fmaxf(total_t * tr, 0.005f);
+    total_light = total_light + light * density * step_len * total_t;
+    prod = prod * tr;
+  }
+  light_out = total_light;
+  alpha_out = 1.0f - prod;
+}
+
+// ---------------------------------------------------------------------------
+// The frame kernel: one thread per column and per group of rows.
+
+template <int K>
+__global__ void __launch_bounds__(128) megakernel(const MegakernelParams p,
+                                                  const float* __restrict__ blue,
+                                                  float* __restrict__ color,
+                                                  float* __restrict__ alpha_out) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  if (x >= p.width) return;
+  const int L = p.clouds_enabled ? p.cloud_lod : 1;
+  const int C = p.clouds_enabled ? p.coverage_lod : 1;
+  const int G = L * C;
+  const int y0 = blockIdx.y * G;
+
+  const V3 ro = load3(p.cam_pos);
+  const V3 pc = load3(p.planet_center);
+  const float ndc_x = 2.0f * ((float)x + 0.5f) / (float)p.width - 1.0f;
+
+  // per-row state, kept until the clouds are blended
+  V3 bg[MK_MAX_GROUP];
+  float atm[MK_MAX_GROUP][4];
+  bool hit[MK_MAX_GROUP];
+  // coarse (cloud_lod) row inputs
+  V3 rd_sum[MK_MAX_GROUP];
+  float depth_min[MK_MAX_GROUP];
+  float jit_first[MK_MAX_GROUP];
+
+  for (int r = 0; r < G; ++r) {
+    const int y = y0 + r;
+    const float ndc_y = 1.0f - 2.0f * ((float)y + 0.5f) / (float)p.height;
+    V3 dv = normalize(v3(ndc_x * p.ray_sx, ndc_y * p.ray_sy, -1.0f));
+    V3 rd = xform_dir(p.cam_rot, 3, dv);
+    float linear_depth = 1.0e7f;
+    V3 b = v3(0.0f, 0.0f, 0.0f);
+    if (p.with_opaque) opaque_pass(p, ro, rd, b, linear_depth);
+    bg[r] = b;
+    const float jitter = blue[(y & 255) * 256 + (x & 255)];
+
+    // shell intersection, sphere-depth blend, march span
+    float rs0, rs1, g0, g1;
+    ray_sphere(pc, p.atmosphere_radius2, ro, rd, rs0, rs1);
+    const bool h = rs0 != rs1;
+    float t_begin = h ? fmaxf(rs0, 0.0f) : 0.0f;
+    float t_end = h ? fmaxf(rs1, 0.0f) : 0.0f;
+    ray_sphere(pc, p.planet_radius2, ro, rd, g0, g1);
+    const float gd = g0 != g1 ? g0 : 1.0e7f;
+    linear_depth = linear_depth + (gd - linear_depth) * p.sphere_depth_factor;
+    t_end = fmaxf(fminf(t_end, linear_depth), t_begin);
+    hit[r] = h;
+    if (h) atmosphere_v2(p, ro, rd, t_begin, t_end, jitter, atm[r]);
+
+    const int c = r / L;
+    if (r % L == 0) {
+      rd_sum[c] = rd;
+      depth_min[c] = linear_depth;
+      jit_first[c] = jitter;
+    } else {
+      rd_sum[c] = add(rd_sum[c], rd);
+      depth_min[c] = fminf(depth_min[c], linear_depth);
+    }
+  }
+
+  if (p.clouds_enabled) {
+    // coarse rays, shell spans and visibility per cloud_lod group
+    V3 rd_model[MK_MAX_GROUP];
+    float tb[MK_MAX_GROUP], tem[MK_MAX_GROUP];
+    bool vis[MK_MAX_GROUP];
+    bool any_vis = false;
+    for (int c = 0; c < C; ++c) {
+      const V3 rdm = v3(rd_sum[c].x / (float)L, rd_sum[c].y / (float)L, rd_sum[c].z / (float)L);
+      float inv = 1.0f / sqrtf(rdm.x * rdm.x + rdm.y * rdm.y + rdm.z * rdm.z);
+      V3 rdc = mul(rdm, inv);
+      const float depth_c = depth_min[c];
+      float top0, top1, bot0, bot1;
+      ray_sphere(pc, p.cloud_top_radius2, ro, rdc, top0, top1);
+      ray_sphere(pc, p.cloud_bottom_radius2, ro, rdc, bot0, bot1);
+      const float t_begin = fmaxf(top0, 0.0f);
+      const float t_end = fminf(top1, depth_c);
+      vis[c] = (top0 != top1) && (t_begin < depth_c) && ((depth_c > bot1) || (bot0 > 0.0f));
+      any_vis = any_vis || vis[c];
+      rd_model[c] = xform_dir(p.world_to_model, 4, rdc);
+      tb[c] = t_begin;
+      float te = vis[c] ? t_end : t_begin;
+      tem[c] = t_begin + fminf(te - t_begin, p.march_max_distance);
+    }
+
+    float light_c[MK_MAX_GROUP], calpha_c[MK_MAX_GROUP];
+    for (int c = 0; c < C; ++c) light_c[c] = calpha_c[c] = 0.0f;
+    if (any_vis) {
+      // coverage knots once per coverage group: mean model-space ray (not
+      // renormalized) and mean span
+      V3 rk = rd_model[0];
+      float t0k = tb[0], t1k = tem[0];
+      if (C > 1) {
+        for (int c = 1; c < C; ++c) {
+          rk = add(rk, rd_model[c]);
+          t0k = t0k + tb[c];
+          t1k = t1k + tem[c];
+        }
+        rk = v3(rk.x / (float)C, rk.y / (float)C, rk.z / (float)C);
+        t0k = t0k / (float)C;
+        t1k = t1k / (float)C;
+      }
+      const V3 rom = load3(p.ro_model);
+      float knots[K + 1];
+      float cov_max = 0.0f;
+#pragma unroll
+      for (int k = 0; k <= K; ++k) {
+        const float s = (float)((double)k / (double)K);
+        knots[k] = raw_coverage(p, add(rom, mul(rk, t0k + (t1k - t0k) * s)));
+        cov_max = k == 0 ? knots[0] : fmaxf(cov_max, knots[k]);
+      }
+      // conservative density bound: a pixel at or below zero marches to
+      // exact zeros, so it is skipped
+      cov_max = cov_max + p.cloud_coverage_bias;
+      const float bound = (p.cloud_shape_bound - p.cloud_detail_term +
+                           (-1.2f + (float)(1.5 - -1.2) * cov_max)) * 50.0f - 20.0f;
+      if (bound > 0.0f) {
+        for (int c = 0; c < C; ++c) {
+          if (vis[c])
+            cloud_march<K>(p, rd_model[c], tb[c], tem[c], jit_first[c], knots, light_c[c],
+                           calpha_c[c]);
+        }
+      }
+    }
+
+    // blend each full-resolution row with its group's cloud light/alpha
+    for (int r = 0; r < G; ++r) {
+      const int c = r / L;
+      if (!hit[r] || !vis[c]) continue;
+      const float la = light_c[c], ca = calpha_c[c];
+      float* a = atm[r];
+      const float sa = 1.0f - ca;
+      const float ab = a[3] * sa + ca;
+      const float inv = 1.0f / (ab == 0.0f ? 1.0f : ab);
+      const float add_a = fmaxf(a[3], ca);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        float blended = ab == 0.0f ? 0.0f : (a[k] * (a[3] * sa) + la * ca) * inv;
+        float added = a[k] + la * ca;
+        a[k] = blended + (added - blended) * p.cloud_blend;
+      }
+      a[3] = ab + (add_a - ab) * p.cloud_blend;
+    }
+  }
+
+  // composite over the opaque background; missed-shell pixels pass through
+  for (int r = 0; r < G; ++r) {
+    const int y = y0 + r;
+    const size_t o = (size_t)y * p.width + x;
+    if (hit[r]) {
+      const float a = atm[r][3];
+      color[o * 3 + 0] = bg[r].x * (1.0f - a) + atm[r][0] * a;
+      color[o * 3 + 1] = bg[r].y * (1.0f - a) + atm[r][1] * a;
+      color[o * 3 + 2] = bg[r].z * (1.0f - a) + atm[r][2] * a;
+      alpha_out[o] = fmaxf(a, 0.0f);
+    } else {
+      color[o * 3 + 0] = bg[r].x;
+      color[o * 3 + 1] = bg[r].y;
+      color[o * 3 + 2] = bg[r].z;
+      alpha_out[o] = 0.0f;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launcher: plain C interface for ctypes.  Returns cudaGetLastError() after
+// the launch (0 on success); a knot count other than MK_KNOTS returns -1.
+
+extern "C" int megakernel_launch(const MegakernelParams* params, const float* blue,
+                                 float* color, float* alpha, void* stream) {
+  if (params->clouds_enabled && params->coverage_knots != MK_KNOTS) return -1;
+  const int G = params->clouds_enabled ? params->cloud_lod * params->coverage_lod : 1;
+  dim3 block(128, 1, 1);
+  dim3 grid((params->width + 127) / 128, params->height / G, 1);
+  megakernel<MK_KNOTS><<<grid, block, 0, (cudaStream_t)stream>>>(*params, blue, color, alpha);
+  return (int)cudaGetLastError();
+}
+
+// sizeof the launch structs, so the wrapper can check its ctypes mirror
+extern "C" int megakernel_params_size(void) { return (int)sizeof(MegakernelParams); }
+extern "C" int megakernel_noise_params_size(void) { return (int)sizeof(NoiseParams); }

@@ -1,0 +1,128 @@
+"""The golden demo scene, node for node as the JAX package's
+``models/demo.py``: planet R=100 with atmosphere H=8 and procedural clouds,
+sun sphere and light at z≈598.7, moon, tumbling box, and the named camera
+poses.  Only the procedural field mode is ported (baked textures are not).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from ..ops.noise import NoiseSpec
+from ..render.opaque import OpaqueScene
+from ..utils.camera import Camera, look_at
+from ..utils.color import srgb_to_linear
+from .params import VARIANTS, ProceduralField, VariantConfig
+from .scene import Node3D, PlanetAtmosphere, Scene
+
+#: in-march cloud shape: value basis, ridged, 3 octaves (the demo's
+#: NoiseTexture3D stand-in)
+SHAPE_NOISE_FAST = NoiseSpec(noise_type="value", frequency=0.1,
+                             fractal_type="ridged", octaves=3, gain=0.665,
+                             seed=3)
+#: the demo NoiseCubemap: default FastNoiseLite with domain warp
+COVERAGE_NOISE = NoiseSpec(noise_type="simplex_smooth", frequency=0.01,
+                           fractal_type="fbm", octaves=5,
+                           warp_enabled=True, warp_amplitude=90.0,
+                           warp_frequency=0.01, warp_octaves=3, seed=11)
+COVERAGE_SCALE = (100.0, 200.0, 100.0)
+SHAPE_TEXTURE_SIZE = 64
+
+
+def demo_variant(name: str = "clouds", procedural: bool = True) -> VariantConfig:
+    """The demo's shader variant with its procedural fast profile: 8
+    coverage knots, coverage and cloud LOD 2, interior LOD 4, dynamic knots."""
+    cfg = VARIANTS[name]
+    if not cfg.clouds_enabled:
+        return cfg
+    if not procedural:
+        raise NotImplementedError("baked-texture clouds are not ported yet")
+    return dataclasses.replace(
+        cfg,
+        cloud_shape_noise=ProceduralField(
+            noise=SHAPE_NOISE_FAST, scale=(float(SHAPE_TEXTURE_SIZE),) * 3),
+        cloud_coverage_noise=ProceduralField(
+            noise=COVERAGE_NOISE, scale=COVERAGE_SCALE),
+        cloud_coverage_interp=True,
+        cloud_coverage_knots=8,
+        cloud_coverage_lod=2,
+        cloud_lod=2,
+        cloud_lod_interior=4,
+        knot_dynamic=True,
+    )
+
+
+def build_demo_scene(variant: str = "clouds", procedural: bool = True, *,
+                     device) -> Scene:
+    """Planet + sun + moon + cube demo scene on ``device``."""
+    sun = Node3D(position=(0.0, 0.0, 598.677), name="Sun")
+    atmo = PlanetAtmosphere(
+        planet_radius=100.0, atmosphere_height=8.0, sun=sun,
+        custom_shader=demo_variant(variant, procedural),
+        name="PlanetAthmosphere",  # sic, as in the tscn
+        device=device)
+    # shader_params block (planet_atmosphere_test.tscn:101-114)
+    atmo.set_shader_parameter("u_density", 0.5)
+    atmo.set_shader_parameter("u_scattering_strength", 1.0)
+    atmo.set_shader_parameter("u_atmosphere_modulate", (1.0, 0.980392, 0.964706))
+    atmo.set_shader_parameter("u_atmosphere_ambient_color",
+                              (0.0196078, 0.0196078, 0.0431373))
+    atmo.set_shader_parameter("u_cloud_density_scale", 2.0)
+    atmo.set_shader_parameter("u_cloud_bottom", 0.2)
+    atmo.set_shader_parameter("u_cloud_top", 0.6)
+    atmo.set_shader_parameter("u_cloud_blend", 0.5)
+    atmo.set_shader_parameter("u_cloud_shape_invert", 1.0)
+    atmo.set_shader_parameter("u_cloud_coverage_bias", 0.0)
+    atmo.set_shader_parameter("u_cloud_shape_factor", 0.5)
+    atmo.set_shader_parameter("u_cloud_shape_scale", 0.1)
+
+    # opaque geometry (planet_atmosphere_test.tscn:78-125)
+    ground_albedo = tuple(srgb_to_linear(
+        np.array([0.27451, 0.364706, 0.431373], np.float32), device="cpu").tolist())
+    box_transform_world = np.array([
+        [0.737148, 2.23517e-08, -0.675732, 74.2016],
+        [0.662773, 0.194902, 0.723011, 13.2348],
+        [0.131701, -0.980823, 0.143672, 80.2044],
+        [0.0, 0.0, 0.0, 1.0],
+    ], np.float32)
+    r = box_transform_world[:3, :3]
+    t = box_transform_world[:3, 3]
+    w2b = np.eye(4, dtype=np.float32)
+    w2b[:3, :3] = r.T
+    w2b[:3, 3] = -(r[0] * t[0] + r[1] * t[1] + r[2] * t[2])  # -Rᵀt
+
+    opaque = OpaqueScene.create(
+        spheres=[
+            ((0.0, 0.0, 0.0), 100.0, ground_albedo),  # Ground
+            ((0.0, 0.0, 598.677), 20.0, (4.0, 4.0, 4.0), 1.0),  # Sun (unshaded)
+            ((-188.991, 0.0, 192.584), 10.0, (0.6, 0.6, 0.6)),  # Moon
+        ],
+        boxes=[(w2b, (5.0, 15.0, 5.0), (0.7, 0.7, 0.7))],
+        light_dir=(0.0, 0.0, -1.0),
+        ambient=0.02,
+        sky_color=(0.001, 0.001, 0.002),
+        star_intensity=1.0,
+        device=device,
+    )
+    return Scene(atmospheres=[atmo], opaque=opaque, device=device)
+
+
+_POSES = {
+    "avatar": ((0.0, 0.0, 156.425), (0.0, 0.0, 0.0)),  # flying-avatar start
+    "exterior": ((180.0, 60.0, 180.0), (0.0, 0.0, 0.0)),
+    "interior": ((0.0, 104.0, 0.0), (100.0, 100.0, 0.0)),  # inside the shell
+    "space": ((0.0, 150.0, 420.0), (0.0, 0.0, 0.0)),
+    "sunrise": ((0.0, 103.0, 0.0), (0.0, 30.0, 598.677)),
+    "sunward": ((0.0, 130.0, 300.0), (0.0, 0.0, 598.677)),
+}
+
+
+def demo_camera(pose: str = "avatar", *, device) -> Camera:
+    """Named camera poses of the demo (70° fov, near 0.1, far 800)."""
+    if pose not in _POSES:
+        raise ValueError(f"unknown pose {pose!r}")
+    eye, target = _POSES[pose]
+    return Camera.create(look_at(eye, target, device=device), fov_y_deg=70.0,
+                         near=0.1, far=800.0, device=device)

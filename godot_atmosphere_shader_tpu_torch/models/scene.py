@@ -1,0 +1,292 @@
+"""Scene API: the ``PlanetAtmosphere`` node as a parameter manager.
+
+Counterpart of ``godot_atmosphere_shader_tpu/models/scene.py``: the
+reference node's properties and ``u_*`` uniform surface, the near/far mode
+switch with its 1.1 hysteresis margin, the interior cloud-LOD policy, and
+``Scene.render``, which sends CUDA tensors to the megakernel and CPU tensors
+to its plain version (``ops/kernels/megakernel.py``).
+
+Outside this slice, ``Scene.render`` raises ``NotImplementedError``: more
+than one layer, a far-mode layer, v1, baked textures, ``od_mode="lut"`` and
+large-world rebasing are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..ops.kernels.megakernel import render_frame_megakernel
+from ..render.opaque import OpaqueScene
+from ..utils.camera import Camera
+from ..utils.color import linear_to_srgb, srgb_to_linear
+from .params import DEFAULT_VARIANT, VARIANTS, AtmosphereParams, VariantConfig
+
+MODE_NEAR = 0
+MODE_FAR = 1
+SWITCH_MARGIN_RATIO = 1.1  # planet_atmosphere.gd:11
+#: beyond this distance from the world origin the JAX package rebases the
+#: world around the camera (not ported yet: such scenes raise)
+LARGE_WORLD_THRESHOLD = 32768.0
+
+#: ``source_color`` uniforms: sRGB in, linear stored
+_COLOR_PARAMS = frozenset({
+    "u_atmosphere_modulate", "u_atmosphere_ambient_color",
+    "u_day_color0", "u_day_color1", "u_night_color0", "u_night_color1",
+})
+#: baked media uniforms, not ported yet
+_TEXTURE_PARAMS = frozenset({
+    "u_cloud_shape_texture", "u_cloud_coverage_cubemap", "u_optical_depth_texture",
+})
+
+#: uniform name → AtmosphereParams field
+_UNIFORM_TO_FIELD = {
+    "u_planet_radius": "planet_radius",
+    "u_atmosphere_height": "atmosphere_height",
+    "u_sun_position": "sun_position",
+    "u_density": "density",
+    "u_sphere_depth_factor": "sphere_depth_factor",
+    "u_scattering_strength": "scattering_strength",
+    "u_scattering_wavelengths": "scattering_wavelengths",
+    "u_atmosphere_modulate": "atmosphere_modulate",
+    "u_atmosphere_ambient_color": "atmosphere_ambient_color",
+    "u_day_color0": "day_color0",
+    "u_day_color1": "day_color1",
+    "u_night_color0": "night_color0",
+    "u_night_color1": "night_color1",
+    "u_day_night_transition_scale": "day_night_transition_scale",
+    "u_cloud_density_scale": "cloud_density_scale",
+    "u_cloud_bottom": "cloud_bottom",
+    "u_cloud_top": "cloud_top",
+    "u_cloud_blend": "cloud_blend",
+    "u_cloud_shape_invert": "cloud_shape_invert",
+    "u_cloud_coverage_bias": "cloud_coverage_bias",
+    "u_cloud_shape_factor": "cloud_shape_factor",
+    "u_cloud_shape_scale": "cloud_shape_scale",
+    "u_cloud_shape_texture": "cloud_shape_texture",
+    "u_cloud_coverage_cubemap": "cloud_coverage_cubemap",
+    "u_world_to_model_matrix": "world_to_model",
+    "u_cloud_coverage_rotation": "cloud_coverage_rotation",
+    "u_optical_depth_texture": "optical_depth_lut",
+}
+
+
+class Node3D:
+    """Minimal scene-tree node: a global transform, host float64."""
+
+    def __init__(self, position=(0.0, 0.0, 0.0), transform=None, name=""):
+        if transform is None:
+            transform = np.eye(4)
+            transform[:3, 3] = position
+        self.transform = np.asarray(transform, np.float64)
+        self.name = name
+
+    @property
+    def position(self):
+        return self.transform[:3, 3]
+
+
+class PlanetAtmosphere(Node3D):
+    """The reference node's API over an :class:`AtmosphereParams` on an
+    explicit device."""
+
+    def __init__(self, planet_radius: float = 1.0, atmosphere_height: float = 0.1,
+                 sun: Optional[Node3D] = None, custom_shader=None,
+                 clouds_rotation_speed: float = 1.0,
+                 force_fullscreen: bool = False, position=(0.0, 0.0, 0.0),
+                 transform=None, name="PlanetAtmosphere", *, device,
+                 **shader_params):
+        super().__init__(position=position, transform=transform, name=name)
+        self.device = torch.device(device)
+        # host copies of the two radii: the mode switch reads them per frame
+        self._radius = max(float(planet_radius), 0.0)
+        self._height = max(float(atmosphere_height), 0.0)
+        self._params = AtmosphereParams.create(
+            planet_radius=self._radius, atmosphere_height=self._height,
+            device=self.device)
+        self._sun_position_host = np.array([5000.0, 0.0, 0.0], np.float32)
+        self._config = VARIANTS[DEFAULT_VARIANT]
+        self.clouds_rotation_speed = clouds_rotation_speed
+        self.force_fullscreen = force_fullscreen
+        self.sun = sun
+        self.mode = MODE_FAR
+        self.atmo_clip_distance = 0.0
+        self._interior_lod_active = False
+        if custom_shader is not None:
+            self.set_custom_shader(custom_shader)
+        for k, v in shader_params.items():
+            self.set_shader_parameter(k if k.startswith("u_") else "u_" + k, v)
+
+    # -- exported properties (planet_atmosphere.gd:20-54) --------------------
+
+    @property
+    def planet_radius(self) -> float:
+        return self._radius
+
+    @planet_radius.setter
+    def planet_radius(self, value: float):
+        self.set_shader_parameter("u_planet_radius", max(float(value), 0.0))
+
+    @property
+    def atmosphere_height(self) -> float:
+        return self._height
+
+    @atmosphere_height.setter
+    def atmosphere_height(self, value: float):
+        self.set_shader_parameter("u_atmosphere_height", max(float(value), 0.0))
+
+    def set_custom_shader(self, shader):
+        """Variant switch: a variant name or a :class:`VariantConfig`."""
+        self._config = VARIANTS[shader] if isinstance(shader, str) else shader
+
+    @property
+    def config(self) -> VariantConfig:
+        return self._config
+
+    # -- shader parameter surface (planet_atmosphere.gd:175-218) -------------
+
+    def set_shader_parameter(self, param_name: str, value):
+        field = _UNIFORM_TO_FIELD.get(param_name)
+        if field is None:
+            raise KeyError(f"unknown shader parameter {param_name!r}")
+        if param_name in _TEXTURE_PARAMS:
+            raise NotImplementedError(f"{param_name}: baked media are not "
+                                      "ported yet (procedural fields only)")
+        if param_name == "u_sun_position":
+            self._sun_position_host = np.asarray(value, np.float32)
+        if param_name == "u_planet_radius":
+            self._radius = float(value)
+        if param_name == "u_atmosphere_height":
+            self._height = float(value)
+        if param_name in _COLOR_PARAMS:
+            value = srgb_to_linear(np.asarray(value, np.float32)[:3], device=self.device)
+        else:
+            value = torch.as_tensor(np.asarray(value, np.float32), device=self.device)
+        self._params = dataclasses.replace(self._params, **{field: value})
+
+    def get_shader_parameter(self, param_name: str):
+        field = _UNIFORM_TO_FIELD.get(param_name)
+        if field is None:
+            raise KeyError(f"unknown shader parameter {param_name!r}")
+        params = self._params.resolve_frame_state()
+        value = getattr(params, field)
+        if param_name in _COLOR_PARAMS and value is not None:
+            return linear_to_srgb(value)
+        return value
+
+    # -- per-frame update (planet_atmosphere.gd:285-341) ----------------------
+
+    def update(self, time_s: float, cam_pos, cam_near: float = 0.1):
+        """Per-frame uniform refresh from the host camera position: near/far
+        mode, the interior cloud-LOD hysteresis, and the packed frame state."""
+        cam_pos = np.asarray(cam_pos, np.float64)
+
+        # 1.75 ≈ sqrt(3): cube far-mesh corner distance (:300-303)
+        self.atmo_clip_distance = (1.75 * (self._radius + self._height + cam_near)
+                                   * SWITCH_MARGIN_RATIO)
+        d = float(np.linalg.norm(self.position - cam_pos))
+        is_near = d < self.atmo_clip_distance
+        self.mode = MODE_NEAR if (is_near or self.force_fullscreen) else MODE_FAR
+
+        # interior cloud LOD: engage inside the shell, release at 1.1·(R+H)
+        shell = self._radius + self._height
+        if self._interior_lod_active:
+            self._interior_lod_active = d < shell * SWITCH_MARGIN_RATIO
+        else:
+            self._interior_lod_active = d < shell
+
+        if self.sun is not None:
+            sun_pos = np.asarray(self.sun.position)
+            self._sun_position_host = sun_pos
+        else:
+            sun_pos = self._sun_position_host
+        r = self.transform[:3, :3]
+        t = self.transform[:3, 3]
+        w2m = np.eye(4)
+        w2m[:3, :3] = r.T
+        w2m[:3, 3] = -(r[0] * t[0] + r[1] * t[1] + r[2] * t[2])  # -Rᵀt
+        angle = time_s * math.radians(self.clouds_rotation_speed)
+        c, s = math.cos(angle), math.sin(angle)
+        # Transform2D().rotated(a) acts as [[c, -s], [s, c]] on xz (:338-341)
+        rot = np.array([[c, -s], [s, c]], np.float32)
+        fs = AtmosphereParams.pack_frame_state(sun_pos, w2m, rot, time_s)
+        self._params = dataclasses.replace(
+            self._params, frame_state=torch.as_tensor(fs, device=self.device))
+
+    def build_params(self) -> AtmosphereParams:
+        return self._params
+
+    def effective_config(self) -> VariantConfig:
+        """The user config with the camera-conditional interior cloud LOD
+        applied (``cloud_lod_interior``)."""
+        c = self._config
+        if c.cloud_lod_interior and c.clouds_enabled and self._interior_lod_active:
+            return dataclasses.replace(c, cloud_lod=c.cloud_lod_interior)
+        return c
+
+
+class Scene:
+    """A renderable collection: atmospheres + opaque geometry, on one
+    explicit device."""
+
+    def __init__(self, atmospheres=(), opaque: Optional[OpaqueScene] = None,
+                 *, device):
+        self.device = torch.device(device)
+        self.atmospheres = list(atmospheres)
+        self.opaque = opaque
+
+    @staticmethod
+    def _cam_pos(camera: Camera) -> np.ndarray:
+        return camera.view_to_world.detach().cpu().numpy()[:3, 3].astype(np.float64)
+
+    def _check_world_scale(self, cam_pos):
+        m = float(np.max(np.abs(cam_pos)))
+        for a in self.atmospheres:
+            m = max(m, float(np.max(np.abs(a.position))))
+        if m > LARGE_WORLD_THRESHOLD:
+            raise NotImplementedError(
+                "large-world (camera-relative) rendering is not ported yet")
+
+    def update(self, time_s: float, camera: Camera):
+        cam_pos = self._cam_pos(camera)
+        cam_near = float(camera.near)
+        for atmo in self.atmospheres:
+            atmo.update(time_s, cam_pos, cam_near=cam_near)
+
+    def _sorted_layers(self, camera: Camera):
+        """Atmospheres far → near (Godot's transparent-pass sorting)."""
+        cam_pos = self._cam_pos(camera)
+        order = sorted(self.atmospheres,
+                       key=lambda a: -float(np.linalg.norm(a.position - cam_pos)))
+        return (order, tuple(a.build_params() for a in order),
+                tuple(a.effective_config() for a in order))
+
+    def render(self, camera: Camera, height: int, width: int) -> dict:
+        """Render one frame: ``{"color": (H, W, 3), "alpha": (H, W)}``.
+
+        CUDA tensors go to the megakernel, CPU tensors to its plain version;
+        both return the same keys."""
+        self._check_world_scale(self._cam_pos(camera))
+        order, params, configs = self._sorted_layers(camera)
+        if len(order) != 1:
+            raise NotImplementedError(
+                f"{len(order)} atmosphere layers: only single-layer scenes "
+                "are ported yet (the far→near layer chain is not)")
+        atmo, config = order[0], configs[0]
+        if atmo.mode == MODE_FAR:
+            raise NotImplementedError(
+                "far-mode (banded) layers are not ported yet; the layer "
+                "renders fullscreen with force_fullscreen=True or from near")
+        if config.model != "v2":
+            raise NotImplementedError(f"model {config.model!r} is not ported yet")
+        if config.od_mode != "analytic":
+            raise NotImplementedError(f"od_mode={config.od_mode!r} is not ported yet")
+        if config.clouds_enabled and (config.cloud_shape_noise is None
+                                      or config.cloud_coverage_noise is None):
+            raise NotImplementedError("baked cloud textures are not ported yet")
+        return render_frame_megakernel(params[0], config, camera, self.opaque,
+                                       height, width)

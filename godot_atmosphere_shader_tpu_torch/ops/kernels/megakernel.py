@@ -1,0 +1,521 @@
+"""The fused frame megakernel: wrapper, plain version and build.
+
+Counterpart of ``godot_atmosphere_shader_tpu/ops/pallas/megakernel.py``
+(the Pallas kernel ``_make_kernel``).  One CUDA kernel
+(``csrc/megakernel.cu``) renders a whole single-layer frame: ray
+generation, the opaque pass, the v2 atmosphere with analytic sun optical
+depth, the procedural cloud march and the composite.
+
+* :func:`render_frame_megakernel` is the wrapper.  Given tensors on the CPU
+  it runs the plain version; given CUDA tensors it launches the kernel or
+  raises.  Nothing falls back.  :func:`launch` is its last step: one
+  launch on a prepared launch struct into preallocated outputs.
+* :func:`render_frame_plain` is the plain PyTorch version
+  (``render/renderer.py::render_frame``), the reference the kernel is held
+  against.
+* :data:`counters` counts kernel launches and plain calls, so a run can
+  show which path it took.
+
+The kernel builds at first use with ``nvcc`` (``sm_90a``, plain C
+interface, bound with ``ctypes``) from the package's own source into
+``build/`` beside the package; the library name carries a hash of the
+source and flags, so an edit rebuilds.
+
+The per-frame scalar preamble (ray scale, planet center, sun direction,
+radii, model-space camera, march clamp, noise amplitudes) is computed once
+on the host by :func:`frame_constants`, with the same PyTorch functions the
+plain path uses.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+from typing import Optional
+
+import torch
+
+from ...models.params import AtmosphereParams, VariantConfig
+from ...render.jitter import blue_noise_tensor
+from ...render.opaque import OpaqueScene
+from ...render.renderer import planet_center, render_frame
+from ...utils.camera import Camera, ray_scale, transform_point, transform_dir
+from ...utils.vecmath import Vec3, normalize
+from ..atmosphere_v2 import scattering_coefficients
+from ..clouds import cloud_settings, march_distance_limit
+from ..noise import NoiseSpec, fractal_bounding
+from ..optical_depth import gauss_legendre_01
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+SOURCE = os.path.join(_PKG_DIR, "csrc", "megakernel.cu")
+#: Build directory: ``build/`` at the root of the checkout.
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+
+# limits of the launch structs (the #defines of csrc/megakernel.cu)
+MAX_SPHERES = 8
+MAX_BOXES = 4
+MAX_OCTAVES = 8
+MAX_GROUP = 8
+QUAD_POINTS = 8
+#: the coverage knot count the kernel is built for (template parameter K)
+KNOTS = 8
+#: noise bases and fractals the kernel implements, by their integer codes
+NOISE_TYPES = {"value": 0, "simplex_smooth": 1}
+FRACTAL_TYPES = {"none": 0, "fbm": 1, "ridged": 2}
+
+
+class Counters:
+    """Plain integer counters: kernel launches and plain-path calls."""
+
+    def __init__(self):
+        self.megakernel_launches = 0
+        self.plain_calls = 0
+
+    def reset(self):
+        self.megakernel_launches = 0
+        self.plain_calls = 0
+
+
+counters = Counters()
+
+
+def _floats(n):
+    return ctypes.c_float * n
+
+
+class NoiseParams(ctypes.Structure):
+    """Mirror of ``struct NoiseParams`` in ``csrc/megakernel.cu``."""
+
+    _fields_ = [
+        ("noise_type", ctypes.c_int),
+        ("fractal_type", ctypes.c_int),
+        ("octaves", ctypes.c_int),
+        ("seed", ctypes.c_int),
+        ("frequency", ctypes.c_float),
+        ("lacunarity", ctypes.c_float),
+        ("amp", _floats(MAX_OCTAVES)),
+        ("warp_enabled", ctypes.c_int),
+        ("warp_octaves", ctypes.c_int),
+        ("warp_amp", _floats(MAX_OCTAVES)),
+        ("warp_freq", _floats(MAX_OCTAVES)),
+        ("scale", _floats(3)),
+    ]
+
+
+class MegakernelParams(ctypes.Structure):
+    """Mirror of ``struct MegakernelParams`` in ``csrc/megakernel.cu``."""
+
+    _fields_ = [
+        ("height", ctypes.c_int),
+        ("width", ctypes.c_int),
+        ("cam_pos", _floats(3)),
+        ("cam_rot", _floats(9)),
+        ("ray_sx", ctypes.c_float),
+        ("ray_sy", ctypes.c_float),
+        ("with_opaque", ctypes.c_int),
+        ("n_spheres", ctypes.c_int),
+        ("n_boxes", ctypes.c_int),
+        ("sphere_center", _floats(MAX_SPHERES * 3)),
+        ("sphere_radius2", _floats(MAX_SPHERES)),
+        ("sphere_albedo", _floats(MAX_SPHERES * 3)),
+        ("sphere_unshaded", _floats(MAX_SPHERES)),
+        ("box_w2b", _floats(MAX_BOXES * 16)),
+        ("box_origin", _floats(MAX_BOXES * 3)),
+        ("box_half", _floats(MAX_BOXES * 3)),
+        ("box_albedo", _floats(MAX_BOXES * 3)),
+        ("light_dir", _floats(3)),
+        ("ambient", ctypes.c_float),
+        ("sky_color", _floats(3)),
+        ("star_intensity", ctypes.c_float),
+        ("atmosphere_steps", ctypes.c_int),
+        ("planet_center", _floats(3)),
+        ("planet_radius", ctypes.c_float),
+        ("atmosphere_height", ctypes.c_float),
+        ("atmosphere_radius", ctypes.c_float),
+        ("atmosphere_radius2", ctypes.c_float),
+        ("planet_radius2", ctypes.c_float),
+        ("inv_height", ctypes.c_float),
+        ("density", ctypes.c_float),
+        ("density2", ctypes.c_float),
+        ("sphere_depth_factor", ctypes.c_float),
+        ("scatter", _floats(3)),
+        ("ambient_color", _floats(3)),
+        ("modulate", _floats(3)),
+        ("sun_dir", _floats(3)),
+        ("quad_x", _floats(QUAD_POINTS)),
+        ("quad_w", _floats(QUAD_POINTS)),
+        ("clouds_enabled", ctypes.c_int),
+        ("cloud_steps", ctypes.c_int),
+        ("cloud_lod", ctypes.c_int),
+        ("coverage_lod", ctypes.c_int),
+        ("coverage_knots", ctypes.c_int),
+        ("cloud_bottom_radius", ctypes.c_float),
+        ("cloud_top_radius", ctypes.c_float),
+        ("cloud_bottom_radius2", ctypes.c_float),
+        ("cloud_top_radius2", ctypes.c_float),
+        ("cloud_layer", ctypes.c_float),
+        ("cloud_density_scale", ctypes.c_float),
+        ("cloud_blend", ctypes.c_float),
+        ("cloud_shape_invert", ctypes.c_float),
+        ("cloud_coverage_bias", ctypes.c_float),
+        ("cloud_shape_factor", ctypes.c_float),
+        ("cloud_shape_scale", ctypes.c_float),
+        ("cloud_shape_bound", ctypes.c_float),
+        ("cloud_detail_term", ctypes.c_float),
+        ("march_max_distance", ctypes.c_float),
+        ("coverage_rot", _floats(4)),
+        ("world_to_model", _floats(16)),
+        ("ro_model", _floats(3)),
+        ("sd_model", _floats(3)),
+        ("shape", NoiseParams),
+        ("coverage", NoiseParams),
+    ]
+
+
+#: The launcher's C signature, as the ctypes binding declares it.
+LAUNCHER_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.c_void_p,
+                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
+
+
+# -- build ------------------------------------------------------------------
+
+
+def nvcc_command(output: str, ptxas_info: bool = False) -> list:
+    """The ``nvcc`` command line that builds the launcher library.  No fast
+    math; ``a*b + c`` contracts into FMAs (``-fmad=true``, measured against
+    ``-fmad=false`` in PERF.md)."""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-fmad=true"]
+    if ptxas_info:
+        cmd.append("-Xptxas=-v")
+    return cmd + ["-o", output, SOURCE]
+
+
+def library_path(build_dir: str = BUILD_DIR) -> str:
+    """Where the library for this source and these flags is built."""
+    with open(SOURCE, "rb") as f:
+        digest = hashlib.sha256(f.read())
+    digest.update(" ".join(nvcc_command("")[1:]).encode())
+    return os.path.join(build_dir, f"libmegakernel-{digest.hexdigest()[:16]}.so")
+
+
+def build(build_dir: str = BUILD_DIR, ptxas_info: bool = False) -> tuple:
+    """Compile the kernel library unless it is already built.  Returns
+    ``(path, compiler log)``; a failed ``nvcc`` raises with its stderr."""
+    path = library_path(build_dir)
+    if os.path.exists(path) and not ptxas_info:
+        return path, ""
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    proc = subprocess.run(nvcc_command(tmp, ptxas_info), capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}) building "
+                           f"{SOURCE}:\n{proc.stderr}")
+    os.replace(tmp, path)
+    return path, proc.stderr
+
+
+_LIBRARY = None
+
+
+def load_library():
+    """Build (if needed) and load the kernel library; cached per process."""
+    global _LIBRARY
+    if _LIBRARY is not None:
+        return _LIBRARY
+    path, _ = build()
+    lib = ctypes.CDLL(path)
+    lib.megakernel_launch.argtypes = LAUNCHER_ARGTYPES
+    lib.megakernel_launch.restype = ctypes.c_int
+    for name, struct in (("megakernel_params_size", MegakernelParams),
+                         ("megakernel_noise_params_size", NoiseParams)):
+        fn = getattr(lib, name)
+        fn.argtypes = ()
+        fn.restype = ctypes.c_int
+        if fn() != ctypes.sizeof(struct):
+            raise RuntimeError(f"{struct.__name__} mirror is {ctypes.sizeof(struct)}"
+                               f" bytes, the kernel's struct {fn()}")
+    _LIBRARY = lib
+    return lib
+
+
+# -- what the kernel takes ----------------------------------------------------
+
+
+def check_config(config: VariantConfig):
+    """Raise ``ValueError`` for any config outside what the kernel renders:
+    v2, analytic optical depth, and (with clouds) procedural value or
+    simplex-smooth fields with cheap always-low lighting and coverage knots."""
+    bad = []
+    if config.model != "v2":
+        bad.append(f"model={config.model!r} (v2 only)")
+    if config.od_mode != "analytic":
+        bad.append(f"od_mode={config.od_mode!r} (analytic only)")
+    if config.temporal_jitter:
+        bad.append("temporal_jitter")
+    if config.clouds_enabled:
+        if config.cloud_shape_noise is None or config.cloud_coverage_noise is None:
+            bad.append("baked cloud textures (procedural fields only)")
+        if (config.cloud_shape_tex_meta is not None
+                or config.cloud_coverage_tex_meta is not None):
+            bad.append("texture pyramids")
+        if config.raymarched_lighting:
+            bad.append("raymarched_lighting")
+        if not config.clouds_always_low_quality:
+            bad.append("clouds_always_low_quality=False")
+        if config.cloud_shape_interp:
+            bad.append("cloud_shape_interp")
+        if not config.cloud_coverage_interp:
+            bad.append("cloud_coverage_interp=False")
+        if config.cloud_coverage_knots != KNOTS:
+            bad.append(f"cloud_coverage_knots={config.cloud_coverage_knots} "
+                       f"(the kernel is built for {KNOTS})")
+        if not config.knot_dynamic:
+            bad.append("knot_dynamic=False (hat-sum interpolation)")
+        if config.cloud_lod < 1 or config.cloud_coverage_lod < 1 or (
+                config.cloud_lod * config.cloud_coverage_lod > MAX_GROUP):
+            bad.append(f"cloud_lod·cloud_coverage_lod > {MAX_GROUP}")
+        for name in ("cloud_shape_noise", "cloud_coverage_noise"):
+            field = getattr(config, name)
+            if field is not None:
+                bad.extend(f"{name}: {why}" for why in _noise_problems(field.noise))
+    if bad:
+        raise ValueError("megakernel does not render: " + "; ".join(bad))
+
+
+def _noise_problems(spec: NoiseSpec):
+    if spec.noise_type not in NOISE_TYPES:
+        yield f"noise_type={spec.noise_type!r}"
+    if spec.fractal_type not in FRACTAL_TYPES:
+        yield f"fractal_type={spec.fractal_type!r}"
+    if spec.octaves > MAX_OCTAVES or (spec.warp_enabled
+                                      and spec.warp_octaves > MAX_OCTAVES):
+        yield f"more than {MAX_OCTAVES} octaves"
+    if spec.weighted_strength:
+        yield "weighted_strength"
+
+
+def _noise_params(spec: NoiseSpec, scale) -> NoiseParams:
+    """Static noise spec → launch struct; amplitude and frequency chains in
+    host doubles, as the plain path's Python loop computes them."""
+    out = NoiseParams()
+    out.noise_type = NOISE_TYPES[spec.noise_type]
+    out.fractal_type = FRACTAL_TYPES[spec.fractal_type]
+    out.octaves = spec.octaves
+    out.seed = spec.seed
+    out.frequency = spec.frequency
+    out.lacunarity = spec.lacunarity
+    amp = fractal_bounding(spec)
+    for o in range(spec.octaves):
+        out.amp[o] = amp
+        amp *= spec.gain
+    out.warp_enabled = int(spec.warp_enabled)
+    out.warp_octaves = spec.warp_octaves if spec.warp_enabled else 0
+    wa, wf = spec.warp_amplitude, spec.warp_frequency
+    for o in range(out.warp_octaves):
+        out.warp_amp[o], out.warp_freq[o] = wa, wf
+        wa *= spec.warp_gain
+        wf *= spec.warp_lacunarity
+    out.scale[:] = [float(s) for s in scale]
+    return out
+
+
+def _to_cpu(obj, names):
+    """Copy the named tensor fields of a dataclass to the CPU in one
+    transfer (one device sync instead of one per field)."""
+    tensors = [getattr(obj, n) for n in names]
+    flat = torch.cat([t.detach().reshape(-1).to(torch.float32) for t in tensors]).cpu()
+    out, i = {}, 0
+    for n, t in zip(names, tensors):
+        out[n] = flat[i:i + t.numel()].reshape(t.shape)
+        i += t.numel()
+    return dataclasses.replace(obj, **out)
+
+
+def _set(arr, values):
+    for i, v in enumerate(values):
+        arr[i] = float(v)
+
+
+def _floats_of(v) -> list:
+    if isinstance(v, Vec3):
+        return [float(c) for c in v]
+    return [float(c) for c in torch.as_tensor(v).reshape(-1)]
+
+
+_PARAM_FIELDS = ("planet_radius", "atmosphere_height", "sun_position",
+                 "density", "sphere_depth_factor", "scattering_strength",
+                 "scattering_wavelengths", "atmosphere_modulate",
+                 "atmosphere_ambient_color", "cloud_density_scale",
+                 "cloud_bottom", "cloud_top", "cloud_blend",
+                 "cloud_shape_invert", "cloud_coverage_bias",
+                 "cloud_shape_factor", "cloud_shape_scale",
+                 "cloud_coverage_rotation", "world_to_model", "time")
+_OPAQUE_FIELDS = tuple(f.name for f in dataclasses.fields(OpaqueScene))
+
+
+def frame_constants(params: AtmosphereParams, config: VariantConfig,
+                    camera: Camera, opaque: Optional[OpaqueScene],
+                    height: int, width: int) -> MegakernelParams:
+    """The kernel's launch struct: the frame's scalar preamble, computed on
+    the host with the plain path's own functions."""
+    p = _to_cpu(params.resolve_frame_state(), _PARAM_FIELDS)
+    cam = _to_cpu(camera, ("view_to_world", "fov_y_rad", "near", "far"))
+    s = MegakernelParams()
+    s.height, s.width = height, width
+    ro = cam.position
+    _set(s.cam_pos, _floats_of(ro))
+    _set(s.cam_rot, cam.view_to_world[:3, :3].reshape(-1).tolist())
+    s.ray_sx, s.ray_sy = ray_scale(cam, height, width)
+
+    if opaque is not None:
+        o = _to_cpu(opaque, _OPAQUE_FIELDS)
+        ns, nb = o.sphere_centers.shape[0], o.box_world_to_box.shape[0]
+        if ns > MAX_SPHERES or nb > MAX_BOXES:
+            raise ValueError(f"megakernel takes at most {MAX_SPHERES} spheres "
+                             f"and {MAX_BOXES} boxes (got {ns}, {nb})")
+        s.with_opaque, s.n_spheres, s.n_boxes = 1, ns, nb
+        _set(s.sphere_center, o.sphere_centers.reshape(-1).tolist())
+        _set(s.sphere_radius2, (o.sphere_radii * o.sphere_radii).tolist())
+        _set(s.sphere_albedo, o.sphere_albedos.reshape(-1).tolist())
+        _set(s.sphere_unshaded, o.sphere_unshaded.tolist())
+        _set(s.box_w2b, o.box_world_to_box.reshape(-1).tolist())
+        _set(s.box_half, o.box_half_sizes.reshape(-1).tolist())
+        _set(s.box_albedo, o.box_albedos.reshape(-1).tolist())
+        for i in range(nb):
+            for k, v in enumerate(_floats_of(transform_point(o.box_world_to_box[i], ro))):
+                s.box_origin[3 * i + k] = v
+        _set(s.light_dir, o.light_dir.tolist())
+        s.ambient = float(o.ambient)
+        _set(s.sky_color, o.sky_color.tolist())
+        s.star_intensity = float(o.star_intensity)
+
+    pc = planet_center(p)
+    sp = p.sun_position
+    sun_dir = normalize(Vec3(sp[0], sp[1], sp[2]) - pc)
+    ra = p.planet_radius + p.atmosphere_height
+    s.atmosphere_steps = config.atmosphere_steps
+    _set(s.planet_center, _floats_of(pc))
+    s.planet_radius = float(p.planet_radius)
+    s.atmosphere_height = float(p.atmosphere_height)
+    s.atmosphere_radius = float(ra)
+    s.atmosphere_radius2 = float(ra * ra)
+    s.planet_radius2 = float(p.planet_radius * p.planet_radius)
+    s.inv_height = float(1.0 / p.atmosphere_height)
+    s.density = float(p.density)
+    s.density2 = float(p.density * p.density)
+    s.sphere_depth_factor = float(p.sphere_depth_factor)
+    _set(s.scatter, [float(c) for c in scattering_coefficients(p)])
+    _set(s.ambient_color, p.atmosphere_ambient_color.tolist())
+    _set(s.modulate, p.atmosphere_modulate.tolist())
+    _set(s.sun_dir, _floats_of(sun_dir))
+    nodes, weights = gauss_legendre_01(QUAD_POINTS)
+    _set(s.quad_x, nodes)
+    _set(s.quad_w, weights)
+
+    if config.clouds_enabled:
+        st = cloud_settings(p)
+        s.clouds_enabled = 1
+        s.cloud_steps = config.cloud_steps
+        s.cloud_lod = config.cloud_lod
+        s.coverage_lod = config.cloud_coverage_lod
+        s.coverage_knots = config.cloud_coverage_knots
+        s.cloud_bottom_radius = float(st.bottom_height)
+        s.cloud_top_radius = float(st.top_height)
+        s.cloud_bottom_radius2 = float(st.bottom_height * st.bottom_height)
+        s.cloud_top_radius2 = float(st.top_height * st.top_height)
+        s.cloud_layer = float(st.top_height - st.bottom_height)
+        s.cloud_density_scale = float(p.cloud_density_scale)
+        s.cloud_blend = float(p.cloud_blend)
+        s.cloud_shape_invert = float(p.cloud_shape_invert)
+        s.cloud_coverage_bias = float(p.cloud_coverage_bias)
+        s.cloud_shape_factor = float(p.cloud_shape_factor)
+        s.cloud_shape_scale = float(p.cloud_shape_scale)
+        s.cloud_shape_bound = float(0.5 + 0.575 * p.cloud_shape_factor.abs())
+        s.cloud_detail_term = 0.1
+        ro_model = transform_point(p.world_to_model, ro)
+        s.march_max_distance = float(march_distance_limit(ro_model, st))
+        _set(s.coverage_rot, p.cloud_coverage_rotation.reshape(-1).tolist())
+        _set(s.world_to_model, p.world_to_model.reshape(-1).tolist())
+        _set(s.ro_model, _floats_of(ro_model))
+        _set(s.sd_model, _floats_of(transform_dir(p.world_to_model, sun_dir)))
+        s.shape = _noise_params(config.cloud_shape_noise.noise,
+                                config.cloud_shape_noise.scale)
+        s.coverage = _noise_params(config.cloud_coverage_noise.noise,
+                                   config.cloud_coverage_noise.scale)
+    return s
+
+
+# -- entry points ---------------------------------------------------------------
+
+
+def render_frame_plain(params: AtmosphereParams, config: VariantConfig,
+                       camera: Camera, opaque: Optional[OpaqueScene],
+                       height: int, width: int) -> dict:
+    """The kernel's plain PyTorch version (counted in
+    ``counters.plain_calls``); runs on any device."""
+    counters.plain_calls += 1
+    return render_frame(params, config, camera, opaque, height, width)
+
+
+_BLUE_NOISE = {}
+
+
+def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor):
+    """Launch the kernel for one launch struct into preallocated CUDA
+    outputs (``color`` (H, W, 3), ``alpha`` (H, W), float32) on the current
+    stream of their device; counted in ``counters.megakernel_launches``."""
+    device = color.device
+    blue = _BLUE_NOISE.get(str(device))
+    if blue is None:
+        blue = _BLUE_NOISE[str(device)] = blue_noise_tensor(device=device)
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.megakernel_launch(ctypes.byref(struct),
+                                   ctypes.c_void_p(blue.data_ptr()),
+                                   ctypes.c_void_p(color.data_ptr()),
+                                   ctypes.c_void_p(alpha.data_ptr()),
+                                   ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"megakernel launch failed: CUDA error {rc}")
+    counters.megakernel_launches += 1
+
+
+def render_frame_megakernel(params: AtmosphereParams, config: VariantConfig,
+                            camera: Camera, opaque: Optional[OpaqueScene],
+                            height: int, width: int) -> dict:
+    """Render one single-layer frame: ``{"color": (H, W, 3), "alpha": (H, W)}``.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (built on first use); any other device raises.
+    """
+    check_config(config)
+    device = camera.view_to_world.device
+    devices = {params.planet_radius.device, device}
+    if opaque is not None:
+        devices.add(opaque.sphere_centers.device)
+    if len(devices) != 1:
+        raise ValueError(f"params, camera and opaque scene must share one "
+                         f"device (got {sorted(map(str, devices))})")
+    if device.type == "cpu":
+        out = render_frame_plain(params, config, camera, opaque, height, width)
+        return {"color": out["color"], "alpha": out["alpha"]}
+    if device.type != "cuda":
+        raise ValueError(f"megakernel runs on CUDA devices (got {device})")
+    group = config.cloud_lod * config.cloud_coverage_lod if config.clouds_enabled else 1
+    if height % group:
+        raise ValueError(f"frame height {height} must be divisible by "
+                         f"cloud_lod·cloud_coverage_lod = {group}")
+
+    struct = frame_constants(params, config, camera, opaque, height, width)
+    color = torch.empty((height, width, 3), dtype=torch.float32, device=device)
+    alpha = torch.empty((height, width), dtype=torch.float32, device=device)
+    launch(struct, color, alpha)
+    return {"color": color, "alpha": alpha}

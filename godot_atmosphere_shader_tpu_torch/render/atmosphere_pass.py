@@ -1,0 +1,109 @@
+"""Whole-frame atmosphere pass: the ``atmosphere_fragment`` analog
+(``planet_atmosphere_main.gdshaderinc:106-197``) in world space.
+
+Counterpart of ``godot_atmosphere_shader_tpu/render/atmosphere_pass.py`` for
+procedural cloud fields (textures and v1 are not ported yet).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..ops.atmosphere_v2 import compute_atmosphere_v2
+from ..ops.clouds import render_clouds, render_clouds_lod
+from ..ops.noise import sample_noise3
+from ..utils.vecmath import Vec3, lerp, normalize, ray_sphere
+
+
+def make_shape_fn(config, params):
+    """Procedural cloud shape field ``0.5 + 0.5·noise(p·scale)``; ``p`` is the
+    reference's 3D texture coordinate (model position × shape scale)."""
+    spec = config.cloud_shape_noise
+    if spec is None:
+        raise NotImplementedError("baked cloud shape textures are not ported "
+                                  "yet; use a procedural cloud_shape_noise")
+    sx, sy, sz = spec.scale
+
+    def shape_fn(p: Vec3):
+        return 0.5 + 0.5 * sample_noise3(spec.noise, p.x * sx, p.y * sy, p.z * sz)
+
+    return shape_fn
+
+
+def make_coverage_fn(config, params):
+    """Procedural coverage: the NoiseCubemap generator formula
+    ``0.5 + 0.5·noise(normalize(p)·scale)`` evaluated directly."""
+    spec = config.cloud_coverage_noise
+    if spec is None:
+        raise NotImplementedError("baked coverage cubemaps are not ported "
+                                  "yet; use a procedural cloud_coverage_noise")
+    sx, sy, sz = spec.scale
+
+    def coverage_fn(p: Vec3):
+        d = normalize(p)
+        return 0.5 + 0.5 * sample_noise3(spec.noise, d.x * sx, d.y * sy, d.z * sz)
+
+    return coverage_fn
+
+
+def shade_atmosphere(params, config, ray_origin: Vec3, ray_dir: Vec3,
+                     linear_depth: torch.Tensor, jitter: torch.Tensor,
+                     planet_center: Vec3) -> Tuple[Vec3, torch.Tensor, torch.Tensor]:
+    """Everything from the shell intersection (:144) on: returns
+    ``(rgb, alpha, hit_mask)`` of one layer, clouds included."""
+    if config.model != "v2":
+        raise NotImplementedError(f"atmosphere model {config.model!r} is not "
+                                  "ported yet (v2 only)")
+    atmosphere_radius = params.planet_radius + params.atmosphere_height
+    rs0, rs1 = ray_sphere(planet_center, atmosphere_radius, ray_origin, ray_dir)
+    hit = rs0 != rs1
+
+    # keep missed pixels finite: a zero-length march at the camera
+    t_begin = torch.where(hit, torch.clamp(rs0, min=0.0), 0.0)
+    t_end = torch.where(hit, torch.clamp(rs1, min=0.0), 0.0)
+
+    g0, g1 = ray_sphere(planet_center, params.planet_radius, ray_origin, ray_dir)
+    gd = torch.where(g0 != g1, g0, 1e7)
+    linear_depth = lerp(linear_depth, gd, params.sphere_depth_factor)
+    t_end = torch.maximum(torch.minimum(t_end, linear_depth), t_begin)
+
+    sp = params.sun_position
+    sun_dir = normalize(Vec3(sp[0], sp[1], sp[2]) - planet_center)
+
+    zero = torch.zeros_like(t_begin)
+    if config.tile_cull and not bool(hit.any()):
+        # no pixel reaches the shell: the integrators are skipped outright
+        return Vec3(zero, zero, zero), zero, hit
+
+    rgb, alpha = compute_atmosphere_v2(
+        ray_origin, ray_dir, planet_center, t_begin, t_end, sun_dir, jitter,
+        params, config.atmosphere_steps, od_mode=config.od_mode)
+
+    if config.clouds_enabled:
+        kw = dict(coverage_interp=config.cloud_coverage_interp,
+                  cull=config.tile_cull,
+                  coverage_knots=config.cloud_coverage_knots,
+                  coverage_lod=config.cloud_coverage_lod,
+                  shape_interp=config.cloud_shape_interp,
+                  knot_dynamic=config.knot_dynamic)
+        args = (rgb, alpha, planet_center, ray_origin, ray_dir, linear_depth,
+                params.world_to_model, sun_dir, jitter, params.time, params,
+                make_shape_fn(config, params), make_coverage_fn(config, params),
+                config.cloud_steps, config.raymarched_lighting,
+                config.clouds_always_low_quality)
+        if config.cloud_lod > 1:
+            rgb, alpha = render_clouds_lod(*args, config.cloud_lod, **kw)
+        else:
+            rgb, alpha = render_clouds(*args, **kw)
+    return rgb, alpha, hit
+
+
+def composite_over(background: Vec3, rgb: Vec3, alpha, mask) -> Vec3:
+    """Blend the atmosphere surface over the frame; missed-shell pixels
+    ``discard`` (:191-196), leaving the background untouched."""
+    a = torch.where(mask, alpha, 0.0)
+    return Vec3(background.x * (1.0 - a) + rgb.x * a,
+                background.y * (1.0 - a) + rgb.y * a,
+                background.z * (1.0 - a) + rgb.z * a)

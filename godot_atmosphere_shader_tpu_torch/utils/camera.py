@@ -1,0 +1,173 @@
+"""Camera model and per-pixel ray generation (reverse-Z, Godot view space:
+right-handed, looking down ``-Z``, ``Y`` up; ``linear_depth`` is the
+Euclidean camera→point distance).
+
+Counterpart of ``godot_atmosphere_shader_tpu/utils/camera.py``.  Every 3×3
+and 4×4 transform is written as explicit multiply-adds (no ``@``), so no
+reduced-precision matrix unit ever enters.
+
+The scalar preamble of ray generation, ``tan(fov/2)`` and the aspect scale,
+is computed once on the host by :func:`ray_scale` and shared by the plain
+PyTorch path and the CUDA megakernel, so both build bit-identical inputs
+for the per-pixel normalize.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from .vecmath import Vec3, normalize
+
+
+@dataclasses.dataclass(frozen=True)
+class Camera:
+    """Pinhole camera.  ``view_to_world`` is the camera's global transform."""
+
+    view_to_world: torch.Tensor  # (4, 4) f32, rigid transform
+    fov_y_rad: torch.Tensor  # 0-d
+    near: torch.Tensor  # 0-d
+    far: torch.Tensor  # 0-d
+
+    @staticmethod
+    def create(view_to_world=None, fov_y_deg: float = 70.0, near: float = 0.1,
+               far: float = 800.0, *, device) -> "Camera":
+        """Defaults match the demo avatar camera; ``fov_y_deg`` is degrees."""
+        if view_to_world is None:
+            view_to_world = torch.eye(4, dtype=torch.float32)
+        f32 = dict(dtype=torch.float32, device=device)
+        return Camera(
+            view_to_world=torch.as_tensor(view_to_world, **f32),
+            fov_y_rad=torch.deg2rad(torch.as_tensor(fov_y_deg, **f32)),
+            near=torch.as_tensor(near, **f32),
+            far=torch.as_tensor(far, **f32),
+        )
+
+    @property
+    def world_to_view(self) -> torch.Tensor:
+        return rigid_inverse(self.view_to_world)
+
+    @property
+    def position(self) -> Vec3:
+        t = self.view_to_world[:3, 3]
+        return Vec3(t[0], t[1], t[2])
+
+
+def look_at(eye, target, up=(0.0, 1.0, 0.0), *, device) -> torch.Tensor:
+    """Camera (view→world) transform looking from ``eye`` toward ``target``
+    (camera basis: X = right, Y = up, Z = −forward)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    eye = torch.as_tensor(eye, **f32)
+    target = torch.as_tensor(target, **f32)
+    up = torch.as_tensor(up, **f32)
+
+    def norm(v):
+        return torch.sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
+
+    def cross3(a, b):
+        return torch.stack([a[1] * b[2] - a[2] * b[1],
+                            a[2] * b[0] - a[0] * b[2],
+                            a[0] * b[1] - a[1] * b[0]])
+
+    fwd = target - eye
+    fwd = fwd / norm(fwd)
+    right = cross3(fwd, up)
+    right = right / norm(right)
+    true_up = cross3(right, fwd)
+    m = torch.eye(4, **f32)
+    m[:3, 0] = right
+    m[:3, 1] = true_up
+    m[:3, 2] = -fwd
+    m[:3, 3] = eye
+    return m
+
+
+def rigid_inverse(m: torch.Tensor) -> torch.Tensor:
+    """Inverse of a rigid (rotation + translation) 4×4 transform, with the
+    translation as explicit scalar multiply-adds."""
+    rt = m[:3, :3].T
+    t = m[:3, 3]
+    nt = -(rt[:, 0] * t[0] + rt[:, 1] * t[1] + rt[:, 2] * t[2])
+    out = torch.eye(4, dtype=m.dtype, device=m.device)
+    out[:3, :3] = rt
+    out[:3, 3] = nt
+    return out
+
+
+def ray_scale(camera: Camera, height: int, width: int) -> Tuple[float, float]:
+    """The ray-generation preamble, computed once on the host.
+
+    Returns ``(sx, sy)`` with ``sy = tan(fov_y / 2)`` (correctly rounded to
+    f32) and ``sx = f32(f32(width / height) · sy)``: view-space ray
+    directions are ``normalize(ndc_x · sx, ndc_y · sy, −1)``.  Both the plain
+    path and the kernel consume these two numbers, never their own ``tan``.
+    """
+    half = np.float32(float(camera.fov_y_rad)) * np.float32(0.5)
+    sy = np.float32(math.tan(float(half)))
+    sx = np.float32(np.float32(width / height) * sy)
+    return float(sx), float(sy)
+
+
+def pixel_ndc(height: int, width: int, *, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """NDC x per column ``(W,)`` and y per row ``(H,)`` at pixel centers;
+    ``(0, 0)`` is the top-left pixel."""
+    ix = torch.arange(width, dtype=torch.float32, device=device)
+    iy = torch.arange(height, dtype=torch.float32, device=device)
+    ndc_x = 2.0 * (ix + 0.5) / width - 1.0
+    ndc_y = 1.0 - 2.0 * (iy + 0.5) / height
+    return ndc_x, ndc_y
+
+
+def world_ray_dirs(camera: Camera, height: int, width: int) -> Vec3:
+    """Normalized per-pixel ray directions rotated into world space."""
+    device = camera.view_to_world.device
+    sx, sy = ray_scale(camera, height, width)
+    ndc_x, ndc_y = pixel_ndc(height, width, device=device)
+    d = normalize(Vec3((ndc_x * sx).expand(height, width),
+                       (ndc_y * sy)[:, None].expand(height, width),
+                       torch.full((height, width), -1.0, device=device)))
+    r = camera.view_to_world.cpu().tolist()
+    return transform_dir(r, d)
+
+
+def transform_point(m, p: Vec3) -> Vec3:
+    """Apply a 4×4 affine transform (w assumed 1); ``m`` is indexable as
+    ``m[i][j]`` (a tensor or nested lists of host floats)."""
+    return Vec3(
+        m[0][0] * p.x + m[0][1] * p.y + m[0][2] * p.z + m[0][3],
+        m[1][0] * p.x + m[1][1] * p.y + m[1][2] * p.z + m[1][3],
+        m[2][0] * p.x + m[2][1] * p.y + m[2][2] * p.z + m[2][3],
+    )
+
+
+def transform_dir(m, d: Vec3) -> Vec3:
+    """Apply only the linear part (w = 0)."""
+    return Vec3(
+        m[0][0] * d.x + m[0][1] * d.y + m[0][2] * d.z,
+        m[1][0] * d.x + m[1][1] * d.y + m[1][2] * d.z,
+        m[2][0] * d.x + m[2][1] * d.y + m[2][2] * d.z,
+    )
+
+
+def projection_coeffs(camera: Camera, reverse_z: bool):
+    """``(A, B)`` of the projection's depth row: ``clip_z = A·z_view + B·w``."""
+    n, f = camera.near, camera.far
+    if reverse_z:
+        return n / (f - n), n * f / (f - n)
+    return -f / (f - n), -f * n / (f - n)
+
+
+def nonlinear_depth_from_view_z(camera: Camera, z_view: torch.Tensor,
+                                reverse_z: bool = True) -> torch.Tensor:
+    """Encode a (negative) view-space z into the nonlinear depth value."""
+    a, b = projection_coeffs(camera, reverse_z)
+    return (a * z_view + b) / (-z_view)
+
+
+def background_depth(reverse_z: bool = True) -> float:
+    """Depth-buffer clear value (the far plane)."""
+    return 0.0 if reverse_z else 1.0

@@ -1,0 +1,206 @@
+"""The megakernel module: plain version vs JAX, dispatch, build, binding.
+
+On the CPU the wrapper runs the kernel's plain version; the CUDA kernel
+itself runs only on a card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+The JAX reference frame is the XLA path (``render_frame``), which
+``tests/test_pallas.py`` pins to the TPU megakernel at 1e-5.
+"""
+
+import ctypes
+import dataclasses
+import re
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from godot_atmosphere_shader_tpu.models.demo import build_demo_scene, demo_camera
+from godot_atmosphere_shader_tpu.render.renderer import render_frame
+from godot_atmosphere_shader_tpu_torch.models.convert import (
+    atmosphere_params_from_numpy, camera_from_numpy, opaque_from_numpy,
+    variant_config_from_fields)
+from godot_atmosphere_shader_tpu_torch.models.demo import demo_variant
+from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+torch.set_num_threads(2)
+
+H, W = 48, 64
+
+
+def _fields(obj):
+    return {f.name: None if getattr(obj, f.name) is None else np.asarray(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)}
+
+
+def _frame(variant, pose="exterior"):
+    """JAX demo inputs and their port twins (carried across by convert)."""
+    scene = build_demo_scene(variant)
+    cam = demo_camera(pose)
+    scene.update(0.5, cam)
+    atmo = scene.atmospheres[0]
+    jp, cfg = atmo.build_params(), atmo.effective_config()
+    port = (atmosphere_params_from_numpy(_fields(jp), device="cpu"),
+            variant_config_from_fields(dataclasses.asdict(cfg)),
+            camera_from_numpy(_fields(cam), device="cpu"),
+            opaque_from_numpy(_fields(scene.opaque), device="cpu"))
+    return (jp, cfg, cam, scene.opaque), port
+
+
+def _image(out):
+    return np.concatenate([np.asarray(out["color"]), np.asarray(out["alpha"])[..., None]],
+                          axis=-1)
+
+
+@pytest.fixture(scope="module")
+def clouds_high():
+    jax_in, port_in = _frame("clouds_high")
+    jp, cfg, cam, opaque = jax_in
+    ref = _image(render_frame((jp,), (cfg,), cam, opaque, H, W))
+    return ref, port_in
+
+
+def test_plain_matches_jax_clouds_high(clouds_high):
+    ref, port_in = clouds_high
+    mk.counters.reset()
+    got = _image({k: v.numpy() for k, v in mk.render_frame_megakernel(*port_in, H, W).items()})
+    assert mk.counters.plain_calls == 1 and mk.counters.megakernel_launches == 0
+    assert np.isfinite(got).all()
+    d = np.abs(got.astype(np.float64) - ref)
+    # cloud tolerance: knife-edge noise cells flip on ulp-level differences
+    assert np.percentile(d, 99.9) <= 1e-3
+    assert d.mean() <= 1e-4
+    assert (d.max(axis=-1) > 1e-2).mean() <= 1e-3
+
+
+@pytest.mark.parametrize("pose", ["exterior", "avatar"])
+def test_plain_matches_jax_no_clouds(pose):
+    (jp, cfg, cam, opaque), port_in = _frame("no_clouds", pose)
+    ref = _image(render_frame((jp,), (cfg,), cam, opaque, H, W))
+    got = _image({k: v.numpy() for k, v in mk.render_frame_plain(*port_in, H, W).items()})
+    # the tolerance tests/test_pallas.py holds the TPU kernel to against the
+    # same XLA frame: grazing limb rays amplify FMA-contraction differences
+    # in the shell chord to ~1e-5 relative in alpha
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
+
+
+def test_plain_returns_depth_buffer(clouds_high):
+    out = mk.render_frame_plain(*clouds_high[1], H, W)
+    assert out["depth"].shape == (H, W) and out["color"].shape == (H, W, 3)
+    # the wrapper returns the same keys on every device
+    assert set(mk.render_frame_megakernel(*clouds_high[1], 8, 16)) == {"color", "alpha"}
+
+
+def test_cpu_tensors_take_the_plain_path(clouds_high):
+    mk.counters.reset()
+    mk.render_frame_megakernel(*clouds_high[1], 8, 16)
+    mk.render_frame_megakernel(*clouds_high[1], 8, 16)
+    assert (mk.counters.plain_calls, mk.counters.megakernel_launches) == (2, 0)
+
+
+@pytest.mark.parametrize("change", [
+    dict(od_mode="lut"), dict(model="v1"), dict(cloud_shape_noise=None),
+    dict(cloud_coverage_noise=None), dict(raymarched_lighting=True),
+    dict(cloud_coverage_interp=False), dict(cloud_shape_interp=True),
+    dict(cloud_coverage_knots=7), dict(cloud_lod=8), dict(temporal_jitter=True),
+    dict(clouds_always_low_quality=False), dict(cloud_shape_tex_meta=object()),
+    dict(knot_dynamic=False),
+])
+def test_wrapper_rejects_unsupported_config(clouds_high, change):
+    params, cfg, cam, opaque = clouds_high[1]
+    with pytest.raises(ValueError):
+        mk.render_frame_megakernel(params, dataclasses.replace(cfg, **change), cam, opaque, H, W)
+
+
+def test_wrapper_rejects_unported_noise(clouds_high):
+    params, cfg, cam, opaque = clouds_high[1]
+    field = dataclasses.replace(cfg.cloud_shape_noise, noise=dataclasses.replace(
+        cfg.cloud_shape_noise.noise, noise_type="cellular_fast"))
+    with pytest.raises(ValueError):
+        mk.check_config(dataclasses.replace(cfg, cloud_shape_noise=field))
+
+
+def test_demo_profile_is_in_the_kernel_slice():
+    for variant in ("no_clouds", "clouds", "clouds_high"):
+        mk.check_config(demo_variant(variant))
+
+
+# -- the CUDA source and its ctypes binding ------------------------------------
+
+_CTYPE = {"int": ctypes.c_int, "float": ctypes.c_float}
+
+
+def _cu_source():
+    with open(mk.SOURCE) as f:
+        return f.read()
+
+
+def _cu_struct(name):
+    body = re.search(r"struct %s \{(.*?)\n\};" % name, _cu_source(), re.S).group(1)
+    defines = {k: int(v) for k, v in re.findall(r"#define (MK_\w+) (\d+)", _cu_source())}
+    fields = []
+    for line in body.splitlines():
+        line = line.split("//")[0].strip()
+        if not line:
+            continue
+        m = re.fullmatch(r"(\w+) (\w+)(?:\[(.+)\])?;", line)
+        assert m, line
+        ctype, fname, size = m.groups()
+        n = eval(size, {}, defines) if size else None  # e.g. MK_MAX_SPHERES * 3
+        fields.append((fname, ctype, n))
+    return fields
+
+
+@pytest.mark.parametrize("struct", [mk.MegakernelParams, mk.NoiseParams])
+def test_cu_structs_match_ctypes_mirror(struct):
+    """Same fields, order, types and array lengths on both sides."""
+    want = []
+    for fname, ctype, n in _cu_struct(struct.__name__):
+        if ctype in _CTYPE:
+            want.append((fname, _CTYPE[ctype] if n is None else _CTYPE[ctype] * n))
+        else:
+            want.append((fname, getattr(mk, ctype)))
+    got = list(struct._fields_)
+    assert [f for f, _ in got] == [f for f, _ in want]
+    for (fname, t_got), (_, t_want) in zip(got, want):
+        assert t_got == t_want or (
+            issubclass(t_got, ctypes.Array) and t_got._type_ == t_want._type_
+            and t_got._length_ == t_want._length_), fname
+
+
+def test_cu_limits_match_wrapper():
+    defines = {k: int(v) for k, v in re.findall(r"#define (MK_\w+) (\d+)", _cu_source())}
+    assert defines == {"MK_MAX_SPHERES": mk.MAX_SPHERES, "MK_MAX_BOXES": mk.MAX_BOXES,
+                       "MK_MAX_OCTAVES": mk.MAX_OCTAVES, "MK_MAX_GROUP": mk.MAX_GROUP,
+                       "MK_QUAD_POINTS": mk.QUAD_POINTS, "MK_KNOTS": mk.KNOTS}
+
+
+def test_cu_launcher_signature_matches_argtypes():
+    sig = re.search(r'extern "C" int megakernel_launch\((.*?)\)', _cu_source(), re.S).group(1)
+    params = [" ".join(p.split()) for p in sig.split(",")]
+    assert params == ["const MegakernelParams* params", "const float* blue",
+                      "float* color", "float* alpha", "void* stream"]
+    want = (ctypes.POINTER(mk.MegakernelParams),) + (ctypes.c_void_p,) * 4
+    assert mk.LAUNCHER_ARGTYPES == want
+
+
+def test_build_command_and_cache_key(monkeypatch, tmp_path):
+    cmd = mk.nvcc_command("out.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd and "-O3" in cmd
+    assert "--use_fast_math" not in cmd and "-fmad=true" in cmd
+    assert mk.library_path().startswith(mk.BUILD_DIR)
+    # an edit of the source gives the library a new name, so it rebuilds
+    edited = tmp_path / "megakernel.cu"
+    edited.write_text(_cu_source() + "\n// edit\n")
+    before = mk.library_path()
+    monkeypatch.setattr(mk, "SOURCE", str(edited))
+    assert mk.library_path() != before
+
+
+def test_failed_build_raises_with_compiler_stderr(monkeypatch, tmp_path):
+    def failing(output, ptxas_info=False):
+        return [sys.executable, "-c", "import sys; sys.stderr.write('bad kernel'); sys.exit(2)"]
+
+    monkeypatch.setattr(mk, "nvcc_command", failing)
+    with pytest.raises(RuntimeError, match="bad kernel"):
+        mk.build(build_dir=str(tmp_path))
