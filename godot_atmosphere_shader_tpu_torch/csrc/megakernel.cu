@@ -1,13 +1,18 @@
 // Fused frame megakernel for NVIDIA Hopper (sm_90a): opaque pass, v2
-// atmosphere with analytic sun optical depth, procedural cloud march and
-// composite, in one launch per frame.
+// atmosphere with analytic sun optical depth, cloud march and composite, in
+// one launch per frame.  Two instances: procedural cloud fields, and
+// texture mode, whose cloud fields are baked textures sampled through mip
+// pyramids by the K2 device functions below.
 //
-// Replaces the TPU Pallas kernel
+// Replaces the TPU Pallas kernels
 //   godot_atmosphere_shader_tpu/ops/pallas/megakernel.py::_make_kernel
 // (launched by _render_pallas_jit, pallas_call at megakernel.py:636) for
-// one fullscreen layer with the fused opaque pass and procedural clouds.
-// Its plain PyTorch version is
-//   godot_atmosphere_shader_tpu_torch/render/renderer.py::render_frame,
+// one fullscreen layer with the fused opaque pass, and, inside it,
+//   godot_atmosphere_shader_tpu/ops/pallas/texsample.py::sample_tex3d (:348)
+//   and ::sample_latlong (:544), with their _window_lookup (:275).
+// Their plain PyTorch versions are
+//   godot_atmosphere_shader_tpu_torch/render/renderer.py::render_frame and
+//   godot_atmosphere_shader_tpu_torch/ops/kernels/texsample.py,
 // and every formula below follows that code's operation order.
 //
 // What bounds it on an H100: fp32 and SFU throughput (expf, sqrtf, floorf
@@ -27,11 +32,32 @@
 //   * no intermediate goes to device memory; per-row state lives in the
 //     thread's stack frame (L1).
 //
+// Texture mode (K2).  The TPU has no per-lane gather, so its samplers scan
+// a VMEM window row by row with lane gathers; the window machinery is why a
+// batch of positions must share one mip level and mode.  Hopper gathers
+// directly, so here every lookup is one __ldg from the flat pyramid in
+// global memory (1.2 MiB shape + 0.7 MiB lat-long, L2-resident), and only
+// the batch semantics are kept, because they decide the result: a batch is
+// one 32 x 128 TPU tile's knot positions of one knot group (up to 8 knots),
+// its level and mode come from a block-wide min/max of the wrapped
+// coordinates, and the samples are trilinear (bilinear) at that level or
+// nearest from the floor level.  What bounds the texture path: the same
+// arithmetic as above minus the procedural noise, plus 5 block-wide
+// reductions (__syncthreads) per tile and ~26 x 8 dependent L2 loads per
+// coverage group.  What the design does about it: one block per tile
+// (128 x 32 / G threads, 1024 at the avatar pose), knots evaluated once per
+// coverage group into dynamic shared memory (26 floats per thread, knot-
+// major: no bank conflicts in the march), and the tile's visibility gate
+// skips knots and march for tiles with no visible pixel, as the TPU does.
+// Sampler arithmetic is uncontracted (__fmul_rn/__fadd_rn), so a batch's
+// level choice and weights follow the plain version bit for bit given the
+// same positions.
+//
 // Build (no fast math: the cloud density chain (...)*50-20 amplifies ulp
 // differences and floorf in the noise flips lattice cells at knife edges):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -fmad=true -o libmegakernel.so megakernel.cu
-// The launcher has a plain C interface and is bound with ctypes.
+// The launchers have a plain C interface and are bound with ctypes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,11 +68,30 @@
 #define MK_MAX_GROUP 8
 #define MK_QUAD_POINTS 8
 #define MK_KNOTS 8  // coverage knots: the K of the K + 1 knot registers
+#define MK_SHAPE_KNOTS 16  // texture mode's shape knots
+#define MK_MAX_LEVELS 8    // mip levels of a pyramid
+#define MK_TILE_ROWS 32    // texture mode: one block per TPU tile
+#define MK_TILE_COLS 128
+// batch modes of the texture samplers (texsample.py WINDOWED, BANDED, FLOOR)
+#define MK_WINDOWED 0
+#define MK_BANDED 1
+#define MK_FLOOR 2
+// work counter slots (megakernel.py WORK_SLOTS)
+#define MK_WORK_PIXELS 0
+#define MK_WORK_ATMOSPHERE 1
+#define MK_WORK_KNOT_GROUPS 2
+#define MK_WORK_MARCH 3
+#define MK_WORK_TEX3D 4
+#define MK_WORK_TEX3D_FLOOR 5
+#define MK_WORK_LATLONG 6
+#define MK_WORK_LATLONG_FLOOR 7
+#define MK_WORK_SLOTS 8
 
 // ---------------------------------------------------------------------------
-// Launch parameters.  The Python wrapper mirrors these two structs field for
-// field with ctypes (ops/kernels/megakernel.py: NoiseParams, MegakernelParams);
-// a test checks that both declare the same fields in the same order.
+// Launch parameters.  The Python wrapper mirrors these structs field for
+// field with ctypes (ops/kernels/megakernel.py: NoiseParams, MegakernelParams,
+// TexParams); a test checks that both declare the same fields in the same
+// order.
 
 struct NoiseParams {
   int noise_type;     // 0 value, 1 simplex_smooth
@@ -131,6 +176,25 @@ struct MegakernelParams {
   float sd_model[3];         // sun direction in model space
   NoiseParams shape;
   NoiseParams coverage;
+};
+
+// Texture mode: the two pyramids' levels (finest first) and the sampler
+// settings of VariantConfig.
+struct TexParams {
+  int shape_levels;
+  int shape_size[MK_MAX_LEVELS];   // S of an S^3 level
+  int shape_base[MK_MAX_LEVELS];   // first row of the level in the table
+  int shape_floor;                 // TexMeta.floor_level(window_rows)
+  int cov_levels;
+  int cov_height[MK_MAX_LEVELS];
+  int cov_width[MK_MAX_LEVELS];
+  int cov_base[MK_MAX_LEVELS];
+  int cov_floor;
+  int window_rows;
+  int band_rows;                   // 0: no banded mode
+  int band_max_slices;
+  int knot_group;                  // knots per batch
+  int shape_knots;                 // must be MK_SHAPE_KNOTS
 };
 
 // ---------------------------------------------------------------------------
@@ -515,8 +579,9 @@ __device__ __forceinline__ float raw_coverage(const MegakernelParams& p, V3 pos)
 }
 
 // One cloud march step: returns the scaled density, updates light.
+// shape_raw is the raw shape field at the step (procedural or from knots).
 __device__ float cloud_step(const MegakernelParams& p, V3 pos, V3 rd, float alpha, float cov,
-                           float& light) {
+                           float shape_raw, float& light) {
   V3 sd = load3(p.sd_model);
   float pos_len = sqrtf(dot(pos, pos));
   // cheap lighting: height ratio plus a pow16 sun glow through thin cloud
@@ -534,7 +599,6 @@ __device__ float cloud_step(const MegakernelParams& p, V3 pos, V3 rd, float alph
   float hc = 2.0f * hr - 1.0f;
   hc = fmaxf(1.0f - hc * hc, 0.0f);
   float coverage = cov - 0.25f * hr + p.cloud_coverage_bias;
-  float shape_raw = field(p.shape, mul(pos, p.cloud_shape_scale));
   float shape = 0.5f + (shape_raw - 0.5f) * p.cloud_shape_factor;
   if (p.cloud_shape_invert == 1.0f) shape = 1.0f - shape;
   float density = (shape - (float)(0.2 * 0.5) + (-1.2f + (float)(1.5 - -1.2) * coverage)) * hc;
@@ -542,13 +606,51 @@ __device__ float cloud_step(const MegakernelParams& p, V3 pos, V3 rd, float alph
   return density * p.cloud_density_scale;
 }
 
-// The march over [t_begin, t_end] (model space).  The K + 1 knots stay in
-// registers: each step selects its two live knots with an unrolled chain of
-// predicated moves instead of indexing an array.
+// Knots of a field, read in the march.  Procedural mode keeps the K + 1
+// coverage knots in registers (an unrolled chain of predicated moves picks
+// the two live ones); texture mode reads them from shared memory, stored
+// knot-major with a stride of one block (bank-conflict free).
 template <int K>
+struct RegKnots {
+  const float (&k)[K + 1];
+  __device__ __forceinline__ float interp(float u01) const {
+    float us = u01 * (float)K;
+    float i0 = fminf(fmaxf(floorf(us), 0.0f), (float)(K - 1));
+    const int seg = (int)i0;
+    float ka = k[0], kb = k[1];
+#pragma unroll
+    for (int j = 1; j < K; ++j) {
+      if (seg == j) {
+        ka = k[j];
+        kb = k[j + 1];
+      }
+    }
+    const float f = us - i0;
+    return ka * (1.0f - f) + kb * f;  // knot_dynamic interpolation
+  }
+};
+
+template <int K>
+struct SmemKnots {
+  const float* k;  // knot j at k[j * stride]
+  int stride;
+  // the plain version's two-live-knot sum, uncontracted
+  __device__ __forceinline__ float interp(float u01) const {
+    float us = u01 * (float)K;
+    float i0 = fminf(fmaxf(floorf(us), 0.0f), (float)(K - 1));
+    const int seg = (int)i0;
+    const float f = us - i0;
+    return __fadd_rn(__fmul_rn(k[seg * stride], 1.0f - f), __fmul_rn(k[(seg + 1) * stride], f));
+  }
+};
+
+// The march over [t_begin, t_end] (model space).  COV interpolates the
+// coverage knots; SHP, when not null, the shape knots (texture mode);
+// otherwise the shape field is evaluated procedurally per step.
+template <class COV, class SHP>
 __device__ __forceinline__ void cloud_march(const MegakernelParams& p, V3 rd, float t_begin,
-                                            float t_end, float jitter,
-                                            const float (&knots)[K + 1], float& light_out,
+                                            float t_end, float jitter, const COV& cov_knots,
+                                            const SHP* shp_knots, float& light_out,
                                             float& alpha_out) {
   V3 ro = load3(p.ro_model);
   t_end = t_begin + fminf(t_end - t_begin, p.march_max_distance);
@@ -559,22 +661,12 @@ __device__ __forceinline__ void cloud_march(const MegakernelParams& p, V3 rd, fl
   float prod = 1.0f, total_t = 1.0f, total_light = 0.0f;
   for (int i = 0; i < steps; ++i) {
     float u01 = ((float)i + 0.5f) * inv_steps;
-    float us = u01 * (float)K;
-    float i0 = fminf(fmaxf(floorf(us), 0.0f), (float)(K - 1));
-    const int seg = (int)i0;
-    float ka = knots[0], kb = knots[1];
-#pragma unroll
-    for (int k = 1; k < K; ++k) {
-      if (seg == k) {
-        ka = knots[k];
-        kb = knots[k + 1];
-      }
-    }
-    const float f = us - i0;
-    const float cov = ka * (1.0f - f) + kb * f;  // knot_dynamic interpolation
+    const float cov = cov_knots.interp(u01);
     V3 pos = add(start, mul(rd, (float)i * step_len));
+    const float shape_raw = shp_knots ? shp_knots->interp(u01)
+                                      : field(p.shape, mul(pos, p.cloud_shape_scale));
     float light;
-    float density = cloud_step(p, pos, rd, 1.0f - prod, cov, light);
+    float density = cloud_step(p, pos, rd, 1.0f - prod, cov, shape_raw, light);
     float tr = expf(-density * step_len);
     total_t = fmaxf(total_t * tr, 0.005f);
     total_light = total_light + light * density * step_len * total_t;
@@ -584,26 +676,20 @@ __device__ __forceinline__ void cloud_march(const MegakernelParams& p, V3 rd, fl
   alpha_out = 1.0f - prod;
 }
 
+// conservative density bound of a coverage group from its knots' maximum:
+// a pixel at or below zero marches to exact zeros, so it is skipped
+__device__ __forceinline__ bool cloud_may_form(const MegakernelParams& p, float cov_max) {
+  cov_max = cov_max + p.cloud_coverage_bias;
+  const float bound = (p.cloud_shape_bound - p.cloud_detail_term +
+                       (-1.2f + (float)(1.5 - -1.2) * cov_max)) * 50.0f - 20.0f;
+  return bound > 0.0f;
+}
+
 // ---------------------------------------------------------------------------
-// The frame kernel: one thread per column and per group of rows.
+// Per-thread frame state: one column and one group of G = cloud_lod *
+// coverage_lod rows (one coverage group of cloud_lod-row coarse pixels).
 
-template <int K>
-__global__ void __launch_bounds__(128) megakernel(const MegakernelParams p,
-                                                  const float* __restrict__ blue,
-                                                  float* __restrict__ color,
-                                                  float* __restrict__ alpha_out) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= p.width) return;
-  const int L = p.clouds_enabled ? p.cloud_lod : 1;
-  const int C = p.clouds_enabled ? p.coverage_lod : 1;
-  const int G = L * C;
-  const int y0 = blockIdx.y * G;
-
-  const V3 ro = load3(p.cam_pos);
-  const V3 pc = load3(p.planet_center);
-  const float ndc_x = 2.0f * ((float)x + 0.5f) / (float)p.width - 1.0f;
-
-  // per-row state, kept until the clouds are blended
+struct Rows {
   V3 bg[MK_MAX_GROUP];
   float atm[MK_MAX_GROUP][4];
   bool hit[MK_MAX_GROUP];
@@ -611,7 +697,27 @@ __global__ void __launch_bounds__(128) megakernel(const MegakernelParams p,
   V3 rd_sum[MK_MAX_GROUP];
   float depth_min[MK_MAX_GROUP];
   float jit_first[MK_MAX_GROUP];
+};
 
+struct Coarse {
+  V3 rd_model[MK_MAX_GROUP];
+  float tb[MK_MAX_GROUP], tem[MK_MAX_GROUP];
+  bool vis[MK_MAX_GROUP];
+  bool any_vis;
+  // coverage-group knot inputs: mean model-space ray (not renormalized)
+  // and mean span
+  V3 rk;
+  float t0k, t1k;
+};
+
+// rays, opaque pass and atmosphere of the G rows from y0 (rows and columns
+// past the frame edge are computed too: they belong to their tile)
+__device__ __forceinline__ void shade_rows(const MegakernelParams& p, const float* blue, int x,
+                                           int y0, int G, int L, Rows& s, unsigned long long* work,
+                                           unsigned& n_atmo) {
+  const V3 ro = load3(p.cam_pos);
+  const V3 pc = load3(p.planet_center);
+  const float ndc_x = 2.0f * ((float)x + 0.5f) / (float)p.width - 1.0f;
   for (int r = 0; r < G; ++r) {
     const int y = y0 + r;
     const float ndc_y = 1.0f - 2.0f * ((float)y + 0.5f) / (float)p.height;
@@ -620,7 +726,7 @@ __global__ void __launch_bounds__(128) megakernel(const MegakernelParams p,
     float linear_depth = 1.0e7f;
     V3 b = v3(0.0f, 0.0f, 0.0f);
     if (p.with_opaque) opaque_pass(p, ro, rd, b, linear_depth);
-    bg[r] = b;
+    s.bg[r] = b;
     const float jitter = blue[(y & 255) * 256 + (x & 255)];
 
     // shell intersection, sphere-depth blend, march span
@@ -633,90 +739,76 @@ __global__ void __launch_bounds__(128) megakernel(const MegakernelParams p,
     const float gd = g0 != g1 ? g0 : 1.0e7f;
     linear_depth = linear_depth + (gd - linear_depth) * p.sphere_depth_factor;
     t_end = fmaxf(fminf(t_end, linear_depth), t_begin);
-    hit[r] = h;
-    if (h) atmosphere_v2(p, ro, rd, t_begin, t_end, jitter, atm[r]);
+    s.hit[r] = h;
+    if (h) {
+      atmosphere_v2(p, ro, rd, t_begin, t_end, jitter, s.atm[r]);
+      if (work) ++n_atmo;
+    }
 
     const int c = r / L;
     if (r % L == 0) {
-      rd_sum[c] = rd;
-      depth_min[c] = linear_depth;
-      jit_first[c] = jitter;
+      s.rd_sum[c] = rd;
+      s.depth_min[c] = linear_depth;
+      s.jit_first[c] = jitter;
     } else {
-      rd_sum[c] = add(rd_sum[c], rd);
-      depth_min[c] = fminf(depth_min[c], linear_depth);
+      s.rd_sum[c] = add(s.rd_sum[c], rd);
+      s.depth_min[c] = fminf(s.depth_min[c], linear_depth);
     }
   }
+}
 
+// coarse rays, shell spans and visibility per cloud_lod group, and the
+// coverage group's knot inputs
+__device__ __forceinline__ void coarse_rays(const MegakernelParams& p, int L, int C,
+                                            const Rows& s, Coarse& c) {
+  const V3 ro = load3(p.cam_pos);
+  const V3 pc = load3(p.planet_center);
+  c.any_vis = false;
+  for (int k = 0; k < C; ++k) {
+    const V3 rdm = v3(s.rd_sum[k].x / (float)L, s.rd_sum[k].y / (float)L, s.rd_sum[k].z / (float)L);
+    float inv = 1.0f / sqrtf(rdm.x * rdm.x + rdm.y * rdm.y + rdm.z * rdm.z);
+    V3 rdc = mul(rdm, inv);
+    const float depth_c = s.depth_min[k];
+    float top0, top1, bot0, bot1;
+    ray_sphere(pc, p.cloud_top_radius2, ro, rdc, top0, top1);
+    ray_sphere(pc, p.cloud_bottom_radius2, ro, rdc, bot0, bot1);
+    const float t_begin = fmaxf(top0, 0.0f);
+    const float t_end = fminf(top1, depth_c);
+    c.vis[k] = (top0 != top1) && (t_begin < depth_c) && ((depth_c > bot1) || (bot0 > 0.0f));
+    c.any_vis = c.any_vis || c.vis[k];
+    c.rd_model[k] = xform_dir(p.world_to_model, 4, rdc);
+    c.tb[k] = t_begin;
+    float te = c.vis[k] ? t_end : t_begin;
+    c.tem[k] = t_begin + fminf(te - t_begin, p.march_max_distance);
+  }
+  c.rk = c.rd_model[0];
+  c.t0k = c.tb[0];
+  c.t1k = c.tem[0];
+  if (C > 1) {
+    for (int k = 1; k < C; ++k) {
+      c.rk = add(c.rk, c.rd_model[k]);
+      c.t0k = c.t0k + c.tb[k];
+      c.t1k = c.t1k + c.tem[k];
+    }
+    c.rk = v3(c.rk.x / (float)C, c.rk.y / (float)C, c.rk.z / (float)C);
+    c.t0k = c.t0k / (float)C;
+    c.t1k = c.t1k / (float)C;
+  }
+}
+
+// blend each full-resolution row with its group's cloud light/alpha, then
+// composite over the opaque background; missed-shell pixels pass through
+__device__ __forceinline__ void blend_and_store(const MegakernelParams& p, int x, int y0, int G,
+                                                int L, Rows& s, const bool* vis,
+                                                const float* light_c, const float* calpha_c,
+                                                float* __restrict__ color,
+                                                float* __restrict__ alpha_out) {
   if (p.clouds_enabled) {
-    // coarse rays, shell spans and visibility per cloud_lod group
-    V3 rd_model[MK_MAX_GROUP];
-    float tb[MK_MAX_GROUP], tem[MK_MAX_GROUP];
-    bool vis[MK_MAX_GROUP];
-    bool any_vis = false;
-    for (int c = 0; c < C; ++c) {
-      const V3 rdm = v3(rd_sum[c].x / (float)L, rd_sum[c].y / (float)L, rd_sum[c].z / (float)L);
-      float inv = 1.0f / sqrtf(rdm.x * rdm.x + rdm.y * rdm.y + rdm.z * rdm.z);
-      V3 rdc = mul(rdm, inv);
-      const float depth_c = depth_min[c];
-      float top0, top1, bot0, bot1;
-      ray_sphere(pc, p.cloud_top_radius2, ro, rdc, top0, top1);
-      ray_sphere(pc, p.cloud_bottom_radius2, ro, rdc, bot0, bot1);
-      const float t_begin = fmaxf(top0, 0.0f);
-      const float t_end = fminf(top1, depth_c);
-      vis[c] = (top0 != top1) && (t_begin < depth_c) && ((depth_c > bot1) || (bot0 > 0.0f));
-      any_vis = any_vis || vis[c];
-      rd_model[c] = xform_dir(p.world_to_model, 4, rdc);
-      tb[c] = t_begin;
-      float te = vis[c] ? t_end : t_begin;
-      tem[c] = t_begin + fminf(te - t_begin, p.march_max_distance);
-    }
-
-    float light_c[MK_MAX_GROUP], calpha_c[MK_MAX_GROUP];
-    for (int c = 0; c < C; ++c) light_c[c] = calpha_c[c] = 0.0f;
-    if (any_vis) {
-      // coverage knots once per coverage group: mean model-space ray (not
-      // renormalized) and mean span
-      V3 rk = rd_model[0];
-      float t0k = tb[0], t1k = tem[0];
-      if (C > 1) {
-        for (int c = 1; c < C; ++c) {
-          rk = add(rk, rd_model[c]);
-          t0k = t0k + tb[c];
-          t1k = t1k + tem[c];
-        }
-        rk = v3(rk.x / (float)C, rk.y / (float)C, rk.z / (float)C);
-        t0k = t0k / (float)C;
-        t1k = t1k / (float)C;
-      }
-      const V3 rom = load3(p.ro_model);
-      float knots[K + 1];
-      float cov_max = 0.0f;
-#pragma unroll
-      for (int k = 0; k <= K; ++k) {
-        const float s = (float)((double)k / (double)K);
-        knots[k] = raw_coverage(p, add(rom, mul(rk, t0k + (t1k - t0k) * s)));
-        cov_max = k == 0 ? knots[0] : fmaxf(cov_max, knots[k]);
-      }
-      // conservative density bound: a pixel at or below zero marches to
-      // exact zeros, so it is skipped
-      cov_max = cov_max + p.cloud_coverage_bias;
-      const float bound = (p.cloud_shape_bound - p.cloud_detail_term +
-                           (-1.2f + (float)(1.5 - -1.2) * cov_max)) * 50.0f - 20.0f;
-      if (bound > 0.0f) {
-        for (int c = 0; c < C; ++c) {
-          if (vis[c])
-            cloud_march<K>(p, rd_model[c], tb[c], tem[c], jit_first[c], knots, light_c[c],
-                           calpha_c[c]);
-        }
-      }
-    }
-
-    // blend each full-resolution row with its group's cloud light/alpha
     for (int r = 0; r < G; ++r) {
       const int c = r / L;
-      if (!hit[r] || !vis[c]) continue;
+      if (!s.hit[r] || !vis[c]) continue;
       const float la = light_c[c], ca = calpha_c[c];
-      float* a = atm[r];
+      float* a = s.atm[r];
       const float sa = 1.0f - ca;
       const float ab = a[3] * sa + ca;
       const float inv = 1.0f / (ab == 0.0f ? 1.0f : ab);
@@ -730,40 +822,554 @@ __global__ void __launch_bounds__(128) megakernel(const MegakernelParams p,
       a[3] = ab + (add_a - ab) * p.cloud_blend;
     }
   }
-
-  // composite over the opaque background; missed-shell pixels pass through
+  if (x >= p.width) return;
   for (int r = 0; r < G; ++r) {
     const int y = y0 + r;
+    if (y >= p.height) break;
     const size_t o = (size_t)y * p.width + x;
-    if (hit[r]) {
-      const float a = atm[r][3];
-      color[o * 3 + 0] = bg[r].x * (1.0f - a) + atm[r][0] * a;
-      color[o * 3 + 1] = bg[r].y * (1.0f - a) + atm[r][1] * a;
-      color[o * 3 + 2] = bg[r].z * (1.0f - a) + atm[r][2] * a;
+    if (s.hit[r]) {
+      const float a = s.atm[r][3];
+      color[o * 3 + 0] = s.bg[r].x * (1.0f - a) + s.atm[r][0] * a;
+      color[o * 3 + 1] = s.bg[r].y * (1.0f - a) + s.atm[r][1] * a;
+      color[o * 3 + 2] = s.bg[r].z * (1.0f - a) + s.atm[r][2] * a;
       alpha_out[o] = fmaxf(a, 0.0f);
     } else {
-      color[o * 3 + 0] = bg[r].x;
-      color[o * 3 + 1] = bg[r].y;
-      color[o * 3 + 2] = bg[r].z;
+      color[o * 3 + 0] = s.bg[r].x;
+      color[o * 3 + 1] = s.bg[r].y;
+      color[o * 3 + 2] = s.bg[r].z;
       alpha_out[o] = 0.0f;
     }
   }
 }
 
+// Optional work counters (nullptr: off): one warp-aggregated atomic per
+// category and warp.  chip_smoke.py turns this run's counts into the
+// operation count of the roofline bound.
+__device__ __forceinline__ void count_work(unsigned long long* work, int slot, unsigned n) {
+  const unsigned total = __reduce_add_sync(0xffffffffu, n);
+  if ((threadIdx.x & 31) == 0 && total) atomicAdd(work + slot, (unsigned long long)total);
+}
+
 // ---------------------------------------------------------------------------
-// Launcher: plain C interface for ctypes.  Returns cudaGetLastError() after
-// the launch (0 on success); a knot count other than MK_KNOTS returns -1.
+// The procedural frame kernel: one thread per column and per group of rows.
+
+template <int K>
+__global__ void __launch_bounds__(128) megakernel(const MegakernelParams p,
+                                                  const float* __restrict__ blue,
+                                                  float* __restrict__ color,
+                                                  float* __restrict__ alpha_out,
+                                                  unsigned long long* work) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int L = p.clouds_enabled ? p.cloud_lod : 1;
+  const int C = p.clouds_enabled ? p.coverage_lod : 1;
+  const int G = L * C;
+  const int y0 = blockIdx.y * G;
+  const bool live = x < p.width;
+
+  Rows s;
+  unsigned n_atmo = 0, n_groups = 0, n_march = 0;
+  if (live) shade_rows(p, blue, x, y0, G, L, s, work, n_atmo);
+
+  Coarse c;
+  float light_c[MK_MAX_GROUP], calpha_c[MK_MAX_GROUP];
+  for (int k = 0; k < C; ++k) light_c[k] = calpha_c[k] = 0.0f;
+  c.any_vis = false;
+  if (live && p.clouds_enabled) {
+    coarse_rays(p, L, C, s, c);
+    if (c.any_vis) {
+      // coverage knots once per coverage group
+      const V3 rom = load3(p.ro_model);
+      float knots[K + 1];
+      float cov_max = 0.0f;
+#pragma unroll
+      for (int k = 0; k <= K; ++k) {
+        const float sk = (float)((double)k / (double)K);
+        knots[k] = raw_coverage(p, add(rom, mul(c.rk, c.t0k + (c.t1k - c.t0k) * sk)));
+        cov_max = k == 0 ? knots[0] : fmaxf(cov_max, knots[k]);
+      }
+      ++n_groups;
+      if (cloud_may_form(p, cov_max)) {
+        const RegKnots<K> cov{knots};
+        for (int k = 0; k < C; ++k) {
+          if (c.vis[k]) {
+            cloud_march(p, c.rd_model[k], c.tb[k], c.tem[k], s.jit_first[k], cov,
+                        (const RegKnots<1>*)nullptr, light_c[k], calpha_c[k]);
+            ++n_march;
+          }
+        }
+      }
+    }
+  }
+  if (live) blend_and_store(p, x, y0, G, L, s, c.vis, light_c, calpha_c, color, alpha_out);
+  if (work) {
+    count_work(work, MK_WORK_PIXELS, live ? G : 0);
+    count_work(work, MK_WORK_ATMOSPHERE, n_atmo);
+    count_work(work, MK_WORK_KNOT_GROUPS, n_groups);
+    count_work(work, MK_WORK_MARCH, n_march);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2: the texture samplers (ops/pallas/texsample.py::sample_tex3d,
+// sample_latlong).  A batch is one thread block's positions at one knot
+// group; its level and mode come from the min and max of the wrapped
+// coordinates over the whole batch, with exactly the float comparisons of
+// the TPU kernel, and every lookup is a direct __ldg gather from the flat
+// pyramid (the TPU's windowed lane-gather scan equals it, given the fit
+// checks).  Sums keep the TPU's order, uncontracted.
+
+// Block-wide min and max of N values per thread; every thread receives the
+// result.  red: 2 * N floats per warp of shared scratch.
+template <int N>
+__device__ __forceinline__ void block_minmax(float (&mn)[N], float (&mx)[N], float* red) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nwarps = (blockDim.x * blockDim.y + 31) >> 5;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    for (int off = 16; off > 0; off >>= 1) {
+      mn[k] = fminf(mn[k], __shfl_xor_sync(0xffffffffu, mn[k], off));
+      mx[k] = fmaxf(mx[k], __shfl_xor_sync(0xffffffffu, mx[k], off));
+    }
+  }
+  __syncthreads();  // the previous batch's readers are done with red
+  if ((tid & 31) == 0) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      red[(tid >> 5) * 2 * N + k] = mn[k];
+      red[(tid >> 5) * 2 * N + N + k] = mx[k];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    mn[k] = red[k];
+    mx[k] = red[N + k];
+  }
+  for (int w = 1; w < nwarps; ++w) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      mn[k] = fminf(mn[k], red[w * 2 * N + k]);
+      mx[k] = fmaxf(mx[k], red[w * 2 * N + N + k]);
+    }
+  }
+}
+
+struct TexChoice {
+  int mode;  // MK_WINDOWED, MK_BANDED or MK_FLOOR
+  int level;
+};
+
+__device__ __forceinline__ TexChoice tex3d_choose(const TexParams& t, const float mn[3],
+                                                  const float mx[3]) {
+  int sel = t.shape_floor, sel_b = t.shape_floor;
+  bool windowed = false, banded = false;
+  for (int i = t.shape_levels - 1; i >= 0; --i) {  // coarse to fine: finest wins
+    const float S = (float)t.shape_size[i];
+    bool ok = true;
+    float span = 0.0f, pitch = 1.0f, sp[3];
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      const float i_lo = floorf(mn[ax] * S - 0.5f);  // S is a power of two: exact product
+      const float i_hi = floorf(mx[ax] * S - 0.5f) + 1.0f;
+      ok = ok && i_lo >= 0.0f && i_hi <= S - 1.0f;
+      span = span + (i_hi - i_lo) * pitch;  // integers: exact
+      sp[ax] = i_hi - i_lo;
+      pitch = pitch * S;
+    }
+    if (ok && span + 127.0f <= (float)(t.window_rows * 128 - 1)) {
+      sel = i;
+      windowed = true;
+    }
+    if (t.band_rows && ok && sp[1] * S + sp[0] + 127.0f <= (float)(t.band_rows * 128 - 1) &&
+        sp[2] + 1.0f <= (float)t.band_max_slices) {
+      sel_b = i;
+      banded = true;
+    }
+  }
+  if (banded && (!windowed || sel_b < sel)) return TexChoice{MK_BANDED, sel_b};
+  if (windowed) return TexChoice{MK_WINDOWED, sel};
+  return TexChoice{MK_FLOOR, t.shape_floor};
+}
+
+__device__ __forceinline__ TexChoice latlong_choose(const TexParams& t, float umin, float umax,
+                                                    float vmin, float vmax) {
+  int sel = t.cov_floor;
+  bool windowed = false;
+  for (int i = t.cov_levels - 1; i >= 0; --i) {
+    const float Hl = (float)t.cov_height[i], Wl = (float)t.cov_width[i];
+    const float iu_lo = floorf(umin * Wl - 0.5f);
+    const float iu_hi = floorf(umax * Wl - 0.5f) + 1.0f;
+    const float iv_lo = fmaxf(floorf(vmin * Hl - 0.5f), 0.0f);
+    const float iv_hi = fminf(floorf(vmax * Hl - 0.5f) + 1.0f, Hl - 1.0f);
+    const bool ok = iu_lo >= 0.0f && iu_hi <= Wl - 1.0f;
+    const float span = (iv_hi - iv_lo) * Wl + (iu_hi - iu_lo);
+    if (ok && span + 127.0f <= (float)(t.window_rows * 128 - 1)) {
+      sel = i;
+      windowed = true;
+    }
+  }
+  return windowed ? TexChoice{MK_WINDOWED, sel} : TexChoice{MK_FLOOR, t.cov_floor};
+}
+
+__device__ __forceinline__ float wrap01(float c) { return c - floorf(c); }
+
+// one 3D sample at wrapped coordinates f (x, y, z) with the batch's choice
+__device__ __forceinline__ float tex3d_sample(const TexParams& t, const float* __restrict__ tab,
+                                              TexChoice ch, float fx, float fy, float fz) {
+  if (ch.mode == MK_FLOOR) {
+    const int S = t.shape_size[ch.level];
+    const int m = S - 1;
+    const int nx = (int)floorf(fx * (float)S) & m;
+    const int ny = (int)floorf(fy * (float)S) & m;
+    const int nz = (int)floorf(fz * (float)S) & m;
+    return __ldg(tab + t.shape_base[ch.level] * 128 + (nz * S + ny) * S + nx);
+  }
+  const int S = t.shape_size[ch.level];
+  const float Sf = (float)S;
+  const float tx = fx * Sf - 0.5f, ty = fy * Sf - 0.5f, tz = fz * Sf - 0.5f;
+  const float ix = floorf(tx), iy = floorf(ty), iz = floorf(tz);
+  const float wx = tx - ix, wy = ty - iy, wz = tz - iz;
+  const int x0 = (int)ix, y0 = (int)iy, z0 = (int)iz;  // no wrap by construction
+  const float* b = tab + t.shape_base[ch.level] * 128;
+  const int l00 = (z0 * S + y0) * S + x0, l01 = (z0 * S + y0 + 1) * S + x0;
+  const int l10 = ((z0 + 1) * S + y0) * S + x0, l11 = ((z0 + 1) * S + y0 + 1) * S + x0;
+  const float ax = 1.0f - wx, ay = 1.0f - wy, az = 1.0f - wz;
+  const float c[8] = {__ldg(b + l00), __ldg(b + l00 + 1), __ldg(b + l01), __ldg(b + l01 + 1),
+                      __ldg(b + l10), __ldg(b + l10 + 1), __ldg(b + l11), __ldg(b + l11 + 1)};
+  const float w[8] = {__fmul_rn(__fmul_rn(az, ay), ax), __fmul_rn(__fmul_rn(az, ay), wx),
+                      __fmul_rn(__fmul_rn(az, wy), ax), __fmul_rn(__fmul_rn(az, wy), wx),
+                      __fmul_rn(__fmul_rn(wz, ay), ax), __fmul_rn(__fmul_rn(wz, ay), wx),
+                      __fmul_rn(__fmul_rn(wz, wy), ax), __fmul_rn(__fmul_rn(wz, wy), wx)};
+  float lo = __fmul_rn(c[0], w[0]);
+#pragma unroll
+  for (int k = 1; k < 4; ++k) lo = __fadd_rn(lo, __fmul_rn(c[k], w[k]));
+  if (ch.mode == MK_BANDED) {  // the two z-slices' partial sums
+    float hi = __fmul_rn(c[4], w[4]);
+#pragma unroll
+    for (int k = 5; k < 8; ++k) hi = __fadd_rn(hi, __fmul_rn(c[k], w[k]));
+    return __fadd_rn(lo, hi);
+  }
+#pragma unroll
+  for (int k = 4; k < 8; ++k) lo = __fadd_rn(lo, __fmul_rn(c[k], w[k]));
+  return lo;
+}
+
+// the TPU kernel's polynomial atan2 and asin (texsample.py:243-269), with
+// each multiply-add fused as the compiled JAX samplers evaluate it (the
+// plain version rounds them once the same way)
+__device__ __forceinline__ float atan2_poly(float y, float x) {
+  const float ax = fabsf(x), ay = fabsf(y);
+  const float t = fminf(ax, ay) / fmaxf(fmaxf(ax, ay), 1e-30f);
+  const float t2 = __fmul_rn(t, t);
+  float q = __fmaf_rn(t2, 0.0208351f, -0.0851330f);
+  q = __fmaf_rn(t2, q, 0.1801410f);
+  q = __fmaf_rn(t2, q, -0.3302995f);
+  q = __fmaf_rn(t2, q, 0.9998660f);
+  float a = __fmul_rn(t, q);
+  if (ay > ax) a = (float)(3.14159265358979323846 / 2.0) - a;
+  if (x < 0.0f) a = (float)3.14159265358979323846 - a;
+  return y < 0.0f ? -a : a;
+}
+
+__device__ __forceinline__ float asin_poly(float y) {
+  y = fminf(fmaxf(y, -1.0f), 1.0f);
+  return atan2_poly(y, __fsqrt_rn(fmaxf(__fmaf_rn(-y, y, 1.0f), 0.0f)));
+}
+
+// unit direction -> lat-long (wrapped u, v)
+__device__ __forceinline__ void latlong_uv(float dx, float dy, float dz, float& fu, float& v) {
+  const float u = __fmaf_rn(atan2_poly(dz, dx), (float)(1.0 / (2.0 * 3.14159265358979323846)), 0.5f);
+  v = __fmaf_rn(-asin_poly(dy), (float)(1.0 / 3.14159265358979323846), 0.5f);
+  fu = u - floorf(u);
+}
+
+__device__ __forceinline__ float latlong_sample(const TexParams& t, const float* __restrict__ tab,
+                                                TexChoice ch, float fu, float v) {
+  const int Hi = t.cov_height[ch.level], Wi = t.cov_width[ch.level];
+  const float Hs = (float)Hi, Ws = (float)Wi;
+  const float* b = tab + t.cov_base[ch.level] * 128;
+  if (ch.mode == MK_FLOOR) {
+    const int un = (int)floorf(fu * Ws) & (Wi - 1);
+    const int vn = min(max((int)floorf(v * Hs), 0), Hi - 1);
+    return __ldg(b + vn * Wi + un);
+  }
+  const float tu = fu * Ws - 0.5f;
+  const float u0f = floorf(tu);
+  const float wu = tu - u0f;
+  const int u0 = (int)u0f;
+  const float tv = v * Hs - 0.5f;
+  const float v0f = fminf(fmaxf(floorf(tv), 0.0f), Hs - 1.0f);
+  const float wv = fminf(fmaxf(tv - v0f, 0.0f), 1.0f);
+  const int v0 = (int)v0f;
+  const int v1 = min(v0 + 1, Hi - 1);
+  const float au = 1.0f - wu, av = 1.0f - wv;
+  float s = __fmul_rn(__ldg(b + v0 * Wi + u0), __fmul_rn(av, au));
+  s = __fadd_rn(s, __fmul_rn(__ldg(b + v0 * Wi + u0 + 1), __fmul_rn(av, wu)));
+  s = __fadd_rn(s, __fmul_rn(__ldg(b + v1 * Wi + u0), __fmul_rn(wv, au)));
+  return __fadd_rn(s, __fmul_rn(__ldg(b + v1 * Wi + u0 + 1), __fmul_rn(wv, wu)));
+}
+
+// ---------------------------------------------------------------------------
+// Texture mode: K1 with K2 inside.  One thread block per 32 x 128 TPU tile
+// (its batches are the TPU kernel's), one thread per column and coverage
+// group: 128 x 32 / G threads.  The 9 coverage and 17 shape knots of each
+// thread live in dynamic shared memory, knot-major.
+
+// knot position of a coverage group, as the plain version computes it
+__device__ __forceinline__ V3 knot_pos(const V3& rom, const Coarse& c, float s) {
+  const float tk = __fadd_rn(c.t0k, __fmul_rn(__fsub_rn(c.t1k, c.t0k), s));
+  return v3(__fadd_rn(rom.x, __fmul_rn(c.rk.x, tk)), __fadd_rn(rom.y, __fmul_rn(c.rk.y, tk)),
+            __fadd_rn(rom.z, __fmul_rn(c.rk.z, tk)));
+}
+
+// coverage direction of a model-space position: the animated xz rotation,
+// normalized
+__device__ __forceinline__ void coverage_dir(const MegakernelParams& p, V3 pos, float& dx,
+                                             float& dy, float& dz) {
+  const float qx = __fadd_rn(__fmul_rn(p.coverage_rot[0], pos.x), __fmul_rn(p.coverage_rot[1], pos.z));
+  const float qz = __fadd_rn(__fmul_rn(p.coverage_rot[2], pos.x), __fmul_rn(p.coverage_rot[3], pos.z));
+  const float qy = pos.y;
+  const float inv = rsqrtf(__fadd_rn(__fadd_rn(__fmul_rn(qx, qx), __fmul_rn(qy, qy)), __fmul_rn(qz, qz)));
+  dx = __fmul_rn(qx, inv);
+  dy = __fmul_rn(qy, inv);
+  dz = __fmul_rn(qz, inv);
+}
+
+// Evaluate one field's K + 1 knots, knot_group knots per batch, into
+// knots[k * nt + tid].  SHAPE: the 3D shape texture at pos * shape_scale;
+// else the lat-long coverage map.
+template <bool SHAPE>
+__device__ void eval_knots(const MegakernelParams& p, const TexParams& t,
+                           const float* __restrict__ tab, const Coarse& c, int K, float* knots,
+                           float* red, unsigned* n_samples) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nt = blockDim.x * blockDim.y;
+  const V3 rom = load3(p.ro_model);
+  for (int g0 = 0; g0 <= K; g0 += t.knot_group) {
+    const int g1 = min(g0 + t.knot_group, K + 1);
+    constexpr int N = SHAPE ? 3 : 2;
+    float mn[N], mx[N];
+#pragma unroll
+    for (int a = 0; a < N; ++a) {
+      mn[a] = 3.0e38f;
+      mx[a] = -3.0e38f;
+    }
+    for (int k = g0; k < g1; ++k) {
+      const V3 pos = knot_pos(rom, c, (float)((double)k / (double)K));
+      float f[N];
+      if (SHAPE) {
+        f[0] = wrap01(pos.x * p.cloud_shape_scale);
+        f[1] = wrap01(pos.y * p.cloud_shape_scale);
+        f[N - 1] = wrap01(pos.z * p.cloud_shape_scale);
+      } else {
+        float dx, dy, dz;
+        coverage_dir(p, pos, dx, dy, dz);
+        latlong_uv(dx, dy, dz, f[0], f[N - 1]);
+      }
+#pragma unroll
+      for (int a = 0; a < N; ++a) {
+        mn[a] = fminf(mn[a], f[a]);
+        mx[a] = fmaxf(mx[a], f[a]);
+      }
+    }
+    block_minmax<N>(mn, mx, red);
+    const TexChoice ch = SHAPE ? tex3d_choose(t, mn, mx)
+                               : latlong_choose(t, mn[0], mx[0], mn[N - 1], mx[N - 1]);
+    for (int k = g0; k < g1; ++k) {
+      const V3 pos = knot_pos(rom, c, (float)((double)k / (double)K));
+      float value;
+      if (SHAPE) {
+        value = tex3d_sample(t, tab, ch, wrap01(pos.x * p.cloud_shape_scale),
+                             wrap01(pos.y * p.cloud_shape_scale),
+                             wrap01(pos.z * p.cloud_shape_scale));
+      } else {
+        float dx, dy, dz, fu, v;
+        coverage_dir(p, pos, dx, dy, dz);
+        latlong_uv(dx, dy, dz, fu, v);
+        value = latlong_sample(t, tab, ch, fu, v);
+      }
+      knots[k * nt + tid] = value;
+    }
+    n_samples[ch.mode == MK_FLOOR] += g1 - g0;
+  }
+}
+
+template <int K, int KS, int G>
+__global__ void __launch_bounds__(128 * (MK_TILE_ROWS / G), 1)
+    megakernel_tex(const MegakernelParams p, const TexParams t, const float* __restrict__ blue,
+                   const float* __restrict__ shape_tab, const float* __restrict__ cov_tab,
+                   float* __restrict__ color, float* __restrict__ alpha_out,
+                   unsigned long long* work) {
+  extern __shared__ float smem[];
+  const int nt = blockDim.x * blockDim.y;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  float* cov_knots = smem;                    // (K + 1) * nt
+  float* shp_knots = smem + (K + 1) * nt;     // (KS + 1) * nt
+  float* red = smem + (K + KS + 2) * nt;      // block_minmax scratch
+
+  const int x = blockIdx.x * MK_TILE_COLS + threadIdx.x;
+  const int y0 = blockIdx.y * MK_TILE_ROWS + threadIdx.y * G;
+  const int L = p.cloud_lod;
+  const int C = G / L;
+
+  Rows s;
+  unsigned n_atmo = 0, n_march = 0, tex_samples[2] = {0, 0}, cov_samples[2] = {0, 0};
+  shade_rows(p, blue, x, y0, G, L, s, work, n_atmo);
+  Coarse c;
+  coarse_rays(p, L, C, s, c);
+
+  float light_c[MK_MAX_GROUP], calpha_c[MK_MAX_GROUP];
+  for (int k = 0; k < C; ++k) light_c[k] = calpha_c[k] = 0.0f;
+  // the tile's gate (clouds.py:573): no visible pixel, no knots, no march
+  const bool tile_vis = __syncthreads_or(c.any_vis);
+  if (tile_vis) {
+    eval_knots<false>(p, t, cov_tab, c, K, cov_knots, red, cov_samples);
+    eval_knots<true>(p, t, shape_tab, c, KS, shp_knots, red, tex_samples);
+    float cov_max = cov_knots[tid];
+    for (int k = 1; k <= K; ++k) cov_max = fmaxf(cov_max, cov_knots[k * nt + tid]);
+    if (c.any_vis && cloud_may_form(p, cov_max)) {
+      const SmemKnots<K> cov{cov_knots + tid, nt};
+      const SmemKnots<KS> shp{shp_knots + tid, nt};
+      for (int k = 0; k < C; ++k) {
+        if (c.vis[k]) {
+          cloud_march(p, c.rd_model[k], c.tb[k], c.tem[k], s.jit_first[k], cov, &shp,
+                      light_c[k], calpha_c[k]);
+          ++n_march;
+        }
+      }
+    }
+  }
+  blend_and_store(p, x, y0, G, L, s, c.vis, light_c, calpha_c, color, alpha_out);
+  if (work) {
+    count_work(work, MK_WORK_PIXELS, G);
+    count_work(work, MK_WORK_ATMOSPHERE, n_atmo);
+    count_work(work, MK_WORK_KNOT_GROUPS, tile_vis ? 1 : 0);
+    count_work(work, MK_WORK_MARCH, n_march);
+    count_work(work, MK_WORK_TEX3D, tex_samples[0]);
+    count_work(work, MK_WORK_TEX3D_FLOOR, tex_samples[1]);
+    count_work(work, MK_WORK_LATLONG, cov_samples[0]);
+    count_work(work, MK_WORK_LATLONG_FLOOR, cov_samples[1]);
+  }
+}
+
+// K2 alone: one block per caller-given batch of n samples (coordinates in
+// periods for the 3D texture, unit directions for the lat-long map), the
+// same choice and lookups as the texture-mode frame.
+template <bool SHAPE>
+__global__ void __launch_bounds__(256) texsample_kernel(const TexParams t,
+                                                        const float* __restrict__ tab,
+                                                        const float* __restrict__ a,
+                                                        const float* __restrict__ b,
+                                                        const float* __restrict__ c, int n,
+                                                        float* __restrict__ out,
+                                                        int* __restrict__ choice) {
+  __shared__ float red[2 * 3 * 8];
+  const size_t off = (size_t)blockIdx.x * n;
+  constexpr int N = SHAPE ? 3 : 2;
+  float mn[N], mx[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    mn[k] = 3.0e38f;
+    mx[k] = -3.0e38f;
+  }
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    float f[N];
+    if (SHAPE) {
+      f[0] = wrap01(a[off + i]);
+      f[1] = wrap01(b[off + i]);
+      f[N - 1] = wrap01(c[off + i]);
+    } else {
+      latlong_uv(a[off + i], b[off + i], c[off + i], f[0], f[N - 1]);
+    }
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      mn[k] = fminf(mn[k], f[k]);
+      mx[k] = fmaxf(mx[k], f[k]);
+    }
+  }
+  block_minmax<N>(mn, mx, red);
+  const TexChoice ch = SHAPE ? tex3d_choose(t, mn, mx)
+                             : latlong_choose(t, mn[0], mx[0], mn[N - 1], mx[N - 1]);
+  if (threadIdx.x == 0) {
+    choice[2 * blockIdx.x] = ch.mode;
+    choice[2 * blockIdx.x + 1] = ch.level;
+  }
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    if (SHAPE) {
+      out[off + i] = tex3d_sample(t, tab, ch, wrap01(a[off + i]), wrap01(b[off + i]),
+                                  wrap01(c[off + i]));
+    } else {
+      float fu, v;
+      latlong_uv(a[off + i], b[off + i], c[off + i], fu, v);
+      out[off + i] = latlong_sample(t, tab, ch, fu, v);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launchers: plain C interface for ctypes.  Each returns cudaGetLastError()
+// after the launch (0 on success), or -1 for a configuration the kernel is
+// not built for.  work: nullptr, or MK_WORK_SLOTS zeroed counters.
 
 extern "C" int megakernel_launch(const MegakernelParams* params, const float* blue,
-                                 float* color, float* alpha, void* stream) {
+                                 float* color, float* alpha, void* stream, void* work) {
   if (params->clouds_enabled && params->coverage_knots != MK_KNOTS) return -1;
   const int G = params->clouds_enabled ? params->cloud_lod * params->coverage_lod : 1;
   dim3 block(128, 1, 1);
   dim3 grid((params->width + 127) / 128, params->height / G, 1);
-  megakernel<MK_KNOTS><<<grid, block, 0, (cudaStream_t)stream>>>(*params, blue, color, alpha);
+  megakernel<MK_KNOTS><<<grid, block, 0, (cudaStream_t)stream>>>(
+      *params, blue, color, alpha, (unsigned long long*)work);
+  return (int)cudaGetLastError();
+}
+
+template <int G>
+static int launch_tex(const MegakernelParams* p, const TexParams* t, const float* blue,
+                      const float* shape_tab, const float* cov_tab, float* color, float* alpha,
+                      cudaStream_t stream, unsigned long long* work) {
+  const int nt = 128 * (MK_TILE_ROWS / G);
+  const size_t smem = (size_t)(MK_KNOTS + MK_SHAPE_KNOTS + 2) * nt * sizeof(float) +
+                      (size_t)(nt / 32) * 2 * 3 * sizeof(float);
+  auto kernel = megakernel_tex<MK_KNOTS, MK_SHAPE_KNOTS, G>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 block(128, MK_TILE_ROWS / G, 1);
+  dim3 grid((p->width + MK_TILE_COLS - 1) / MK_TILE_COLS,
+            (p->height + MK_TILE_ROWS - 1) / MK_TILE_ROWS, 1);
+  kernel<<<grid, block, smem, stream>>>(*p, *t, blue, shape_tab, cov_tab, color, alpha, work);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int megakernel_tex_launch(const MegakernelParams* params, const TexParams* tex,
+                                     const float* blue, const float* shape_tab,
+                                     const float* cov_tab, float* color, float* alpha,
+                                     void* stream, void* work) {
+  if (!params->clouds_enabled || params->coverage_knots != MK_KNOTS ||
+      tex->shape_knots != MK_SHAPE_KNOTS || tex->knot_group < 1 ||
+      tex->knot_group > MK_MAX_GROUP)
+    return -1;
+  const int G = params->cloud_lod * params->coverage_lod;
+  cudaStream_t s = (cudaStream_t)stream;
+  unsigned long long* w = (unsigned long long*)work;
+  if (G == 4) return launch_tex<4>(params, tex, blue, shape_tab, cov_tab, color, alpha, s, w);
+  if (G == 8) return launch_tex<8>(params, tex, blue, shape_tab, cov_tab, color, alpha, s, w);
+  return -1;
+}
+
+extern "C" int texsample_launch(const TexParams* tex, int shape, const float* table,
+                                const float* a, const float* b, const float* c,
+                                int n_batches, int batch_size, float* out, int* choice,
+                                void* stream) {
+  if (n_batches < 1 || batch_size < 1) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (shape)
+    texsample_kernel<true><<<n_batches, 256, 0, s>>>(*tex, table, a, b, c, batch_size, out, choice);
+  else
+    texsample_kernel<false><<<n_batches, 256, 0, s>>>(*tex, table, a, b, c, batch_size, out, choice);
   return (int)cudaGetLastError();
 }
 
 // sizeof the launch structs, so the wrapper can check its ctypes mirror
 extern "C" int megakernel_params_size(void) { return (int)sizeof(MegakernelParams); }
 extern "C" int megakernel_noise_params_size(void) { return (int)sizeof(NoiseParams); }
+extern "C" int megakernel_tex_params_size(void) { return (int)sizeof(TexParams); }

@@ -14,6 +14,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from ..ops.kernels.texsample import TexMeta
 from ..ops.noise import NoiseSpec
 from ..render.opaque import OpaqueScene
 from ..utils.camera import Camera
@@ -35,7 +36,9 @@ def _build(cls, fields: Mapping[str, np.ndarray], device):
 
 def atmosphere_params_from_numpy(fields: Mapping[str, np.ndarray], *,
                                  device) -> AtmosphereParams:
-    """AtmosphereParams from its fields; ``None`` fields stay ``None``."""
+    """AtmosphereParams from its fields, the baked ``cloud_shape_texture``
+    (S³) and ``cloud_coverage_cubemap`` (6, R, R) included; ``None`` fields
+    stay ``None``."""
     return _build(AtmosphereParams, fields, device)
 
 
@@ -61,11 +64,18 @@ def to_numpy(obj) -> dict:
 
 def variant_config_from_fields(fields: Mapping) -> VariantConfig:
     """VariantConfig from ``dataclasses.asdict`` of a JAX config (nested
-    procedural-field specs included)."""
+    procedural-field specs and pyramid metas included; a meta becomes the
+    port's own :class:`TexMeta`)."""
     fields = dict(fields)
     for key in ("cloud_shape_noise", "cloud_coverage_noise"):
         spec = fields.get(key)
         if spec is not None:
             fields[key] = ProceduralField(noise=NoiseSpec(**spec["noise"]),
                                           scale=tuple(spec["scale"]))
+    for key in ("cloud_shape_tex_meta", "cloud_coverage_tex_meta"):
+        meta = fields.get(key)
+        if meta is not None:
+            fields[key] = TexMeta(kind=meta["kind"], rows=int(meta["rows"]),
+                                  levels=tuple(tuple(int(v) for v in lv)
+                                               for lv in meta["levels"]))
     return VariantConfig(**fields)

@@ -1,7 +1,11 @@
 """The golden demo scene, node for node as the JAX package's
-``models/demo.py``: planet R=100 with atmosphere H=8 and procedural clouds,
-sun sphere and light at z≈598.7, moon, tumbling box, and the named camera
-poses.  Only the procedural field mode is ported (baked textures are not).
+``models/demo.py``: planet R=100 with atmosphere H=8 and clouds, sun sphere
+and light at z≈598.7, moon, tumbling box, and the named camera poses.
+
+Two field modes, as in the JAX package: procedural fields evaluated in the
+march (the fast profile), or the reference's asset pipeline — a 64³ shape
+texture and a 256² coverage cubemap baked from the same noise specs
+(:func:`bake_demo_textures`) and sampled through mip pyramids.
 """
 
 from __future__ import annotations
@@ -11,12 +15,18 @@ import dataclasses
 import numpy as np
 
 from ..ops.noise import NoiseSpec
+from ..ops.sampling import bake_noise_cubemap, bake_noise_texture3d
 from ..render.opaque import OpaqueScene
 from ..utils.camera import Camera, look_at
 from ..utils.color import srgb_to_linear
 from .params import VARIANTS, ProceduralField, VariantConfig
 from .scene import Node3D, PlanetAtmosphere, Scene
 
+#: the demo NoiseTexture3D source (planet_atmosphere_test.tscn:48-57):
+#: cellular, ridged, 8 octaves, gain 0.665 — the shape-texture bake
+SHAPE_NOISE_BAKE = NoiseSpec(noise_type="cellular", frequency=0.1,
+                             fractal_type="ridged", octaves=8, gain=0.665,
+                             cellular_return="distance", seed=3)
 #: in-march cloud shape: value basis, ridged, 3 octaves (the demo's
 #: NoiseTexture3D stand-in)
 SHAPE_NOISE_FAST = NoiseSpec(noise_type="value", frequency=0.1,
@@ -28,35 +38,47 @@ COVERAGE_NOISE = NoiseSpec(noise_type="simplex_smooth", frequency=0.01,
                            warp_enabled=True, warp_amplitude=90.0,
                            warp_frequency=0.01, warp_octaves=3, seed=11)
 COVERAGE_SCALE = (100.0, 200.0, 100.0)
+COVERAGE_RESOLUTION = 256
 SHAPE_TEXTURE_SIZE = 64
 
 
 def demo_variant(name: str = "clouds", procedural: bool = True) -> VariantConfig:
-    """The demo's shader variant with its procedural fast profile: 8
-    coverage knots, coverage and cloud LOD 2, interior LOD 4, dynamic knots."""
+    """The demo's shader variant with its fast profile: 8 coverage knots,
+    coverage and cloud LOD 2, interior LOD 4, dynamic knots; procedural
+    field specs, or none with ``procedural=False`` (baked textures)."""
     cfg = VARIANTS[name]
     if not cfg.clouds_enabled:
         return cfg
+    profile = dict(cloud_coverage_interp=True, cloud_coverage_knots=8,
+                   cloud_coverage_lod=2, cloud_lod=2, cloud_lod_interior=4,
+                   knot_dynamic=True)
     if not procedural:
-        raise NotImplementedError("baked-texture clouds are not ported yet")
+        return dataclasses.replace(cfg, **profile)
     return dataclasses.replace(
         cfg,
         cloud_shape_noise=ProceduralField(
             noise=SHAPE_NOISE_FAST, scale=(float(SHAPE_TEXTURE_SIZE),) * 3),
         cloud_coverage_noise=ProceduralField(
             noise=COVERAGE_NOISE, scale=COVERAGE_SCALE),
-        cloud_coverage_interp=True,
-        cloud_coverage_knots=8,
-        cloud_coverage_lod=2,
-        cloud_lod=2,
-        cloud_lod_interior=4,
-        knot_dynamic=True,
-    )
+        **profile)
+
+
+def bake_demo_textures(*, device, shape_size: int = SHAPE_TEXTURE_SIZE,
+                       cubemap_size: int = COVERAGE_RESOLUTION):
+    """The demo's baked assets on ``device``: the ``(S, S, S)`` shape texture
+    (``SHAPE_NOISE_BAKE``, seamless) and the ``(6, R, R)`` coverage cubemap
+    (``COVERAGE_NOISE`` at ``COVERAGE_SCALE``)."""
+    return (bake_noise_texture3d(SHAPE_NOISE_BAKE, shape_size, device=device),
+            bake_noise_cubemap(COVERAGE_NOISE, COVERAGE_SCALE, cubemap_size,
+                               device=device))
 
 
 def build_demo_scene(variant: str = "clouds", procedural: bool = True, *,
-                     device) -> Scene:
-    """Planet + sun + moon + cube demo scene on ``device``."""
+                     device, textures=None) -> Scene:
+    """Planet + sun + moon + cube demo scene on ``device``.  With
+    ``procedural=False`` a clouds variant samples baked textures:
+    ``textures`` = ``(shape, cubemap)`` if given (e.g. carried across from
+    the JAX package), else :func:`bake_demo_textures` on ``device``."""
     sun = Node3D(position=(0.0, 0.0, 598.677), name="Sun")
     atmo = PlanetAtmosphere(
         planet_radius=100.0, atmosphere_height=8.0, sun=sun,
@@ -77,6 +99,10 @@ def build_demo_scene(variant: str = "clouds", procedural: bool = True, *,
     atmo.set_shader_parameter("u_cloud_coverage_bias", 0.0)
     atmo.set_shader_parameter("u_cloud_shape_factor", 0.5)
     atmo.set_shader_parameter("u_cloud_shape_scale", 0.1)
+    if not procedural and atmo.config.clouds_enabled:
+        shape, cubemap = textures if textures is not None else bake_demo_textures(device=device)
+        atmo.set_shader_parameter("u_cloud_shape_texture", shape)
+        atmo.set_shader_parameter("u_cloud_coverage_cubemap", cubemap)
 
     # opaque geometry (planet_atmosphere_test.tscn:78-125)
     ground_albedo = tuple(srgb_to_linear(

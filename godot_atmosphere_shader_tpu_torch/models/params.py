@@ -55,10 +55,11 @@ class AtmosphereParams:
     cloud_coverage_rotation: torch.Tensor  # (2, 2)
     world_to_model: torch.Tensor  # (4, 4)
     time: torch.Tensor
-    # baked media (not ported yet; None ⇒ procedural per config)
+    # baked media (None ⇒ procedural per config); the optical-depth LUT is
+    # not ported yet
     optical_depth_lut: Optional[torch.Tensor] = None
-    cloud_shape_texture: Optional[torch.Tensor] = None
-    cloud_coverage_cubemap: Optional[torch.Tensor] = None
+    cloud_shape_texture: Optional[torch.Tensor] = None  # (S, S, S)
+    cloud_coverage_cubemap: Optional[torch.Tensor] = None  # (6, R, R)
     # packed per-frame dynamics: (24,) = sun_position(3) ‖ world_to_model(16)
     # ‖ coverage_rotation(4) ‖ time(1); overrides those four fields
     frame_state: Optional[torch.Tensor] = None
@@ -158,9 +159,11 @@ class VariantConfig:
 
     Field for field the JAX package's ``VariantConfig`` (its docstrings
     explain each one).  The port's render paths honour the v2 model,
-    analytic optical depth, procedural cloud fields with cheap lighting,
-    coverage knots (``cloud_coverage_interp``/``_knots``/``_lod``,
-    ``knot_dynamic``), ``tile_cull``, ``cloud_lod`` and
+    analytic optical depth, procedural or baked-texture cloud fields with
+    cheap lighting, coverage and shape knots (``cloud_coverage_interp``/
+    ``_knots``/``_lod``, ``cloud_shape_interp``/``_knots``, ``knot_dynamic``),
+    the pyramid metas and ``texture_*`` settings of texture mode,
+    ``cubemap_seamless``, ``tile_cull``, ``cloud_lod`` and
     ``cloud_lod_interior``; the rest raise until ported.
     """
 

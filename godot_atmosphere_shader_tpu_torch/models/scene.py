@@ -4,11 +4,15 @@ Counterpart of ``godot_atmosphere_shader_tpu/models/scene.py``: the
 reference node's properties and ``u_*`` uniform surface, the near/far mode
 switch with its 1.1 hysteresis margin, the interior cloud-LOD policy, and
 ``Scene.render``, which sends CUDA tensors to the megakernel and CPU tensors
-to its plain version (``ops/kernels/megakernel.py``).
+to its plain version (``ops/kernels/megakernel.py``).  A layer with baked
+cloud textures renders in the megakernel's texture mode: its textures are
+packed into mip pyramids once per texture object (kept on the scene's
+device) and the config gains their metas and the shape and coverage knot
+flags, as the JAX package's ``Scene._pallas_plan`` does.
 
 Outside this slice, ``Scene.render`` raises ``NotImplementedError``: more
-than one layer, a far-mode layer, v1, baked textures, ``od_mode="lut"`` and
-large-world rebasing are not ported yet.
+than one layer, a far-mode layer, v1, ``od_mode="lut"`` and large-world
+rebasing are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 
 from ..ops.kernels.megakernel import render_frame_megakernel
+from ..ops.kernels.texsample import build_latlong_pyramid, build_tex3d_pyramid
 from ..render.opaque import OpaqueScene
 from ..utils.camera import Camera
 from ..utils.color import linear_to_srgb, srgb_to_linear
@@ -38,10 +43,8 @@ _COLOR_PARAMS = frozenset({
     "u_atmosphere_modulate", "u_atmosphere_ambient_color",
     "u_day_color0", "u_day_color1", "u_night_color0", "u_night_color1",
 })
-#: baked media uniforms, not ported yet
-_TEXTURE_PARAMS = frozenset({
-    "u_cloud_shape_texture", "u_cloud_coverage_cubemap", "u_optical_depth_texture",
-})
+#: baked cloud textures (stored as f32 tensors on the layer's device, or None)
+_TEXTURE_PARAMS = frozenset({"u_cloud_shape_texture", "u_cloud_coverage_cubemap"})
 
 #: uniform name → AtmosphereParams field
 _UNIFORM_TO_FIELD = {
@@ -153,9 +156,15 @@ class PlanetAtmosphere(Node3D):
         field = _UNIFORM_TO_FIELD.get(param_name)
         if field is None:
             raise KeyError(f"unknown shader parameter {param_name!r}")
+        if param_name == "u_optical_depth_texture":
+            raise NotImplementedError(f"{param_name}: the optical-depth LUT is "
+                                      "not ported yet (od_mode='analytic' only)")
         if param_name in _TEXTURE_PARAMS:
-            raise NotImplementedError(f"{param_name}: baked media are not "
-                                      "ported yet (procedural fields only)")
+            if value is not None:
+                value = torch.as_tensor(value, dtype=torch.float32,
+                                        device=self.device).contiguous()
+            self._params = dataclasses.replace(self._params, **{field: value})
+            return
         if param_name == "u_sun_position":
             self._sun_position_host = np.asarray(value, np.float32)
         if param_name == "u_planet_radius":
@@ -238,6 +247,7 @@ class Scene:
         self.device = torch.device(device)
         self.atmospheres = list(atmospheres)
         self.opaque = opaque
+        self._tex_pyr_cache = {}
 
     @staticmethod
     def _cam_pos(camera: Camera) -> np.ndarray:
@@ -265,6 +275,42 @@ class Scene:
         return (order, tuple(a.build_params() for a in order),
                 tuple(a.effective_config() for a in order))
 
+    def _tex_pyramid(self, t, kind: str):
+        """``(table on the scene's device, TexMeta)`` for a baked texture,
+        built once per texture object.  A texture that cannot be packed
+        raises ``ValueError``."""
+        key = (id(t), kind)
+        hit = self._tex_pyr_cache.get(key)
+        if hit is not None and hit[0] is t:
+            return hit[1]
+        host = t.detach().cpu().numpy()
+        data, meta = (build_tex3d_pyramid(host) if kind == "tex3d"
+                      else build_latlong_pyramid(host))
+        built = (torch.as_tensor(data, device=self.device), meta)
+        self._tex_pyr_cache[key] = (t, built)
+        return built
+
+    def _texture_plan(self, params, config):
+        """Texture mode for a layer with baked cloud textures: the config
+        with the pyramid metas and both knot flags, and the ``(shape,
+        coverage)`` tables (``scene.py:621-661``)."""
+        if not config.clouds_enabled or (config.cloud_shape_noise is not None
+                                         and config.cloud_coverage_noise is not None):
+            return config, None
+        if params.cloud_shape_texture is None and config.cloud_shape_noise is None:
+            raise ValueError("clouds need cloud_shape_texture or a procedural spec")
+        if params.cloud_coverage_cubemap is None and config.cloud_coverage_noise is None:
+            raise ValueError("clouds need cloud_coverage_cubemap or a procedural spec")
+        if config.cloud_shape_noise is not None or config.cloud_coverage_noise is not None:
+            raise NotImplementedError("one baked and one procedural cloud field is "
+                                      "not ported yet (both baked or both procedural)")
+        shape_table, shape_meta = self._tex_pyramid(params.cloud_shape_texture, "tex3d")
+        cov_table, cov_meta = self._tex_pyramid(params.cloud_coverage_cubemap, "latlong")
+        config = dataclasses.replace(
+            config, cloud_shape_tex_meta=shape_meta, cloud_shape_interp=True,
+            cloud_coverage_tex_meta=cov_meta, cloud_coverage_interp=True)
+        return config, (shape_table, cov_table)
+
     def render(self, camera: Camera, height: int, width: int) -> dict:
         """Render one frame: ``{"color": (H, W, 3), "alpha": (H, W)}``.
 
@@ -285,8 +331,6 @@ class Scene:
             raise NotImplementedError(f"model {config.model!r} is not ported yet")
         if config.od_mode != "analytic":
             raise NotImplementedError(f"od_mode={config.od_mode!r} is not ported yet")
-        if config.clouds_enabled and (config.cloud_shape_noise is None
-                                      or config.cloud_coverage_noise is None):
-            raise NotImplementedError("baked cloud textures are not ported yet")
+        config, tex_data = self._texture_plan(params[0], config)
         return render_frame_megakernel(params[0], config, camera, self.opaque,
-                                       height, width)
+                                       height, width, tex_data=tex_data)

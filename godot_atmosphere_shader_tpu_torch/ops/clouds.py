@@ -1,15 +1,18 @@
 """Volumetric cloud layer between two spheres (``cloud_funcs.gdshaderinc``).
 
 Counterpart of ``godot_atmosphere_shader_tpu/ops/clouds.py`` for the demo's
-fast profile: procedural coverage sampled at ``K + 1`` ray knots (optionally
-every ``coverage_lod`` coarse rows) and interpolated per step, cheap
+fast profiles: coverage sampled at ``K + 1`` ray knots (optionally every
+``coverage_lod`` coarse rows) and interpolated per step, the shape field
+likewise at ``cloud_shape_knots + 1`` knots (texture mode), cheap
 lighting, the conservative density-bound cull, and the vertical cloud LOD.
 The per-step march is a Python loop over whole pixel planes; the CUDA
-megakernel runs the same arithmetic per coarse pixel.
+megakernel runs the same arithmetic per coarse pixel.  Knot fields are
+evaluated ``knot_group`` knots per field call, which matters only for the
+pyramid samplers, whose result depends on the batch.
 
 Not ported yet (they raise ``NotImplementedError``): the 6-step sun-marched
-lighting (``raymarched_lighting``) and the shape/detail knot fields
-(``cloud_shape_interp``).
+lighting (``raymarched_lighting``) and the detail field of full-quality
+density (``clouds_always_low_quality=False``).
 """
 
 from __future__ import annotations
@@ -60,10 +63,12 @@ def raw_coverage(pos: Vec3, params, coverage_fn: Callable):
 
 def get_density_full(pos: Vec3, time, settings: CloudSettings, params,
                      shape_fn: Callable, coverage_fn: Callable, low: bool,
-                     always_low: bool, coverage_value=None, pos_len=None):
+                     always_low: bool, coverage_value=None, pos_len=None,
+                     shape_value=None):
     """``get_density_full`` (:31-68), low-quality branch (detail = 0.5, as
-    ``CLOUDS_ALWAYS_LOW_QUALITY`` forces); ``pos`` is in planet model space
-    and ``coverage_value`` an interpolated raw coverage from the ray knots."""
+    ``CLOUDS_ALWAYS_LOW_QUALITY`` forces); ``pos`` is in planet model space,
+    ``coverage_value``/``shape_value`` raw field values interpolated from
+    the ray knots."""
     if not (low or always_low):
         raise NotImplementedError("full-quality cloud density (the detail "
                                   "field) is not ported yet")
@@ -77,8 +82,9 @@ def get_density_full(pos: Vec3, time, settings: CloudSettings, params,
                 else raw_coverage(pos, params, coverage_fn))
     coverage = coverage - 0.25 * height_ratio + params.cloud_coverage_bias
 
-    shape = lerp(0.5, shape_fn(pos * params.cloud_shape_scale),
-                 params.cloud_shape_factor)
+    shape_raw = (shape_value if shape_value is not None
+                 else shape_fn(pos * params.cloud_shape_scale))
+    shape = lerp(0.5, shape_raw, params.cloud_shape_factor)
     detail = 0.5
 
     # u_cloud_shape_invert is a float switch in the shader (:57-59)
@@ -173,7 +179,8 @@ def raymarch_cloud(ray_origin: Vec3, ray_dir: Vec3, t_begin, t_end, jitter,
                    shape_fn, coverage_fn, steps: int,
                    raymarched_lighting: bool, always_low: bool,
                    coverage_interp: bool = False, coverage_endpoints=None,
-                   coverage_knots: int = 8, knot_dynamic: bool = False):
+                   coverage_knots: int = 8, knot_dynamic: bool = False,
+                   shape_endpoints=None):
     """``raymarch_cloud`` (:175-247).  Returns ``(total_light, alpha)``."""
     if raymarched_lighting:
         get_light_raymarched()
@@ -199,10 +206,13 @@ def raymarch_cloud(ray_origin: Vec3, ray_dir: Vec3, t_begin, t_end, jitter,
         pos = start + ray_dir * (float(i) * step_len)
         pos_len = length(pos)
         alpha = 1.0 - prod
+        u01 = step_phase(i, steps)
         coverage_value = None
         if knots is not None:
-            coverage_value = interp_knots(knots, step_phase(i, steps),
-                                          knot_dynamic)
+            coverage_value = interp_knots(knots, u01, knot_dynamic)
+        shape_value = None
+        if shape_endpoints is not None:
+            shape_value = interp_knots(shape_endpoints, u01, knot_dynamic)
         light = get_light_cheap(pos, ray_dir, sun_dir, alpha, settings,
                                 pos_len=pos_len)
         light = light * lerp(1.0, 0.002,
@@ -210,7 +220,7 @@ def raymarch_cloud(ray_origin: Vec3, ray_dir: Vec3, t_begin, t_end, jitter,
         density = get_density_full(pos, time, settings, params, shape_fn,
                                    coverage_fn, False, always_low,
                                    coverage_value=coverage_value,
-                                   pos_len=pos_len)
+                                   pos_len=pos_len, shape_value=shape_value)
         density = density * settings.density_scale
 
         transmittance = torch.exp(-density * step_len)
@@ -253,13 +263,15 @@ def render_clouds(albedo: Vec3, alpha, planet_center: Vec3,
                   coverage_interp: bool = False, cull: bool = False,
                   return_raw: bool = False, coverage_knots: int = 8,
                   coverage_lod: int = 1, shape_interp: bool = False,
+                  shape_knots: int = 16, knot_group: int = 1,
                   knot_dynamic: bool = False):
     """``render_clouds`` (:249-324) over whole pixel planes, in world space
     (converted to planet model space with ``world_to_model``).  Returns the
     blended ``(albedo, alpha)``, or ``(light, alpha, visible)`` raw."""
-    if shape_interp:
+    if shape_interp and not always_low:
         raise NotImplementedError(
-            "shape/detail knot fields (cloud_shape_interp) are not ported yet")
+            "the detail knot field (clouds_always_low_quality=False) is not "
+            "ported yet")
     settings = cloud_settings(params)
 
     top0, top1 = ray_sphere(planet_center, settings.top_height, ray_origin, ray_dir)
@@ -280,8 +292,33 @@ def render_clouds(albedo: Vec3, alpha, planet_center: Vec3,
     t_end_m = torch.where(visible, t_end, t_begin)
     t_end_m = clamp_march_distance(ro_model, t_begin, t_end_m, settings)
 
+    # knot fields, all sampled at the same ray positions (:419-442)
+    plan = []
+    if coverage_interp:
+        plan.append(("cov", lambda pos: raw_coverage(pos, params, coverage_fn),
+                     max(int(coverage_knots), 1)))
+    if shape_interp:
+        plan.append(("shp", lambda pos: shape_fn(pos * params.cloud_shape_scale),
+                     max(int(shape_knots), 1)))
+
+    def eval_knots(field, K, rd, t0, t1):
+        """``field`` at the K + 1 ray knots, ``knot_group`` knots' planes
+        stacked into one field call (:444-471)."""
+        pts = [ro_model + rd * lerp(t0, t1, k / float(K)) for k in range(K + 1)]
+        G = max(int(knot_group), 1)
+        if G <= 1:
+            return tuple(field(p) for p in pts)
+        out = []
+        for g0 in range(0, K + 1, G):
+            grp = pts[g0:g0 + G]
+            vals = field(Vec3(*(torch.stack([getattr(p, c) for p in grp])
+                                for c in "xyz")))
+            out.extend(vals.unbind(0))
+        return tuple(out)
+
     def compute_knots():
-        K = max(int(coverage_knots), 1)
+        if not plan:
+            return {}
         rd, t0, t1 = rd_model, t_begin, t_end_m
         if coverage_lod > 1:
             # knots every `coverage_lod` rows, nearest-upsampled; the mean
@@ -293,36 +330,35 @@ def render_clouds(albedo: Vec3, alpha, planet_center: Vec3,
             rd = Vec3(*(_down_mean(c, coverage_lod) for c in rd_model))
             t0 = _down_mean(t_begin, coverage_lod)
             t1 = _down_mean(t_end_m, coverage_lod)
-        knots = tuple(
-            raw_coverage(ro_model + rd * lerp(t0, t1, k / float(K)), params,
-                         coverage_fn)
-            for k in range(K + 1))
-        if coverage_lod > 1:
-            knots = tuple(torch.repeat_interleave(c, coverage_lod, dim=0)
-                          for c in knots)
-        return knots
+        out = {}
+        for name, field, K in plan:
+            knots = eval_knots(field, K, rd, t0, t1)
+            if coverage_lod > 1:
+                knots = tuple(torch.repeat_interleave(c, coverage_lod, dim=0)
+                              for c in knots)
+            out[name] = knots
+        return out
 
     def march(knots):
         return raymarch_cloud(
             ro_model, rd_model, t_begin, t_end_m, jitter, sd_model, time,
             settings, params, shape_fn, coverage_fn, steps,
             raymarched_lighting, always_low, coverage_interp=coverage_interp,
-            coverage_endpoints=knots, coverage_knots=coverage_knots,
-            knot_dynamic=knot_dynamic)
+            coverage_endpoints=knots.get("cov"), coverage_knots=coverage_knots,
+            knot_dynamic=knot_dynamic, shape_endpoints=knots.get("shp"))
 
     zero = torch.zeros_like(t_begin)
     if not cull:
-        cloud_light, cloud_alpha = march(compute_knots() if coverage_interp
-                                         else None)
+        cloud_light, cloud_alpha = march(compute_knots())
     elif not bool(visible.any()):
         cloud_light, cloud_alpha = zero, zero
     elif not coverage_interp:
-        cloud_light, cloud_alpha = march(None)
+        cloud_light, cloud_alpha = march(compute_knots())
     else:
         # the march only runs when some pixel can hold nonzero density; a
         # pixel whose bound is ≤ 0 marches to exact zeros either way
         knots = compute_knots()
-        cull_mask = visible & (cull_bound(knots, params, always_low) > 0.0)
+        cull_mask = visible & (cull_bound(knots["cov"], params, always_low) > 0.0)
         if bool(cull_mask.any()):
             cloud_light, cloud_alpha = march(knots)
         else:
@@ -342,6 +378,7 @@ def render_clouds_lod(albedo: Vec3, alpha, planet_center: Vec3,
                       lod: int, coverage_interp: bool = False,
                       cull: bool = False, coverage_knots: int = 8,
                       coverage_lod: int = 1, shape_interp: bool = False,
+                      shape_knots: int = 16, knot_group: int = 1,
                       knot_dynamic: bool = False):
     """Vertical cloud LOD: march once per ``lod``-row group, blend at full
     resolution.  Coarse inputs per group: the renormalized mean of the
@@ -366,7 +403,8 @@ def render_clouds_lod(albedo: Vec3, alpha, planet_center: Vec3,
         shape_fn, coverage_fn, steps, raymarched_lighting, always_low,
         coverage_interp=coverage_interp, cull=cull, return_raw=True,
         coverage_knots=coverage_knots, coverage_lod=coverage_lod,
-        shape_interp=shape_interp, knot_dynamic=knot_dynamic)
+        shape_interp=shape_interp, shape_knots=shape_knots,
+        knot_group=knot_group, knot_dynamic=knot_dynamic)
 
     def up(x):
         return torch.repeat_interleave(x, lod, dim=0)

@@ -1,10 +1,13 @@
 """The fused frame megakernel: wrapper, plain version and build.
 
 Counterpart of ``godot_atmosphere_shader_tpu/ops/pallas/megakernel.py``
-(the Pallas kernel ``_make_kernel``).  One CUDA kernel
+(the Pallas kernel ``_make_kernel``) with the texture samplers of
+``ops/pallas/texsample.py`` inside it.  One CUDA kernel
 (``csrc/megakernel.cu``) renders a whole single-layer frame: ray
 generation, the opaque pass, the v2 atmosphere with analytic sun optical
-depth, the procedural cloud march and the composite.
+depth, the cloud march and the composite.  It has two instances:
+procedural cloud fields, and texture mode (baked textures sampled through
+mip pyramids by the K2 device functions, one thread block per 32×128 tile).
 
 * :func:`render_frame_megakernel` is the wrapper.  Given tensors on the CPU
   it runs the plain version; given CUDA tensors it launches the kernel or
@@ -13,6 +16,9 @@ depth, the procedural cloud march and the composite.
 * :func:`render_frame_plain` is the plain PyTorch version
   (``render/renderer.py::render_frame``), the reference the kernel is held
   against.
+* :func:`sample_batches` runs K2 alone on caller-given batches (the
+  counterpart of the TPU test harness around the samplers): the plain
+  samplers on the CPU, the kernel's device functions on a card.
 * :data:`counters` counts kernel launches and plain calls, so a run can
   show which path it took.
 
@@ -42,13 +48,14 @@ import torch
 from ...models.params import AtmosphereParams, VariantConfig
 from ...render.jitter import blue_noise_tensor
 from ...render.opaque import OpaqueScene
-from ...render.renderer import planet_center, render_frame
+from ...render.renderer import TILE_COLS, TILE_ROWS, planet_center, render_frame
 from ...utils.camera import Camera, ray_scale, transform_point, transform_dir
 from ...utils.vecmath import Vec3, normalize
 from ..atmosphere_v2 import scattering_coefficients
 from ..clouds import cloud_settings, march_distance_limit
 from ..noise import NoiseSpec, fractal_bounding
 from ..optical_depth import gauss_legendre_01
+from . import texsample
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "megakernel.cu")
@@ -64,20 +71,35 @@ MAX_GROUP = 8
 QUAD_POINTS = 8
 #: the coverage knot count the kernel is built for (template parameter K)
 KNOTS = 8
+#: texture mode: the shape knot count it is built for, pyramid levels and
+#: batch modes (as ``texsample.py`` numbers them); its tile is the plain
+#: renderer's ``TILE_ROWS × TILE_COLS``
+SHAPE_KNOTS = 16
+MAX_LEVELS = 8
+WINDOWED, BANDED, FLOOR = texsample.WINDOWED, texsample.BANDED, texsample.FLOOR
+#: texture mode's rows per thread, cloud_lod·cloud_coverage_lod (a block
+#: of 128 × 32 / G threads must fit 1024)
+TEXTURE_GROUPS = (4, 8)
+#: work counter slots, in the kernel's order (``MK_WORK_*``)
+WORK_SLOTS = ("pixels", "atmosphere", "knot_groups", "march", "tex3d",
+              "tex3d_floor", "latlong", "latlong_floor")
 #: noise bases and fractals the kernel implements, by their integer codes
 NOISE_TYPES = {"value": 0, "simplex_smooth": 1}
 FRACTAL_TYPES = {"none": 0, "fbm": 1, "ridged": 2}
 
 
 class Counters:
-    """Plain integer counters: kernel launches and plain-path calls."""
+    """Plain integer counters: frame-kernel launches (both instances;
+    ``texture_launches`` counts the texture instance alone), launches of
+    the K2-alone entry, and plain-path frames (procedural and texture)."""
 
     def __init__(self):
-        self.megakernel_launches = 0
-        self.plain_calls = 0
+        self.reset()
 
     def reset(self):
         self.megakernel_launches = 0
+        self.texture_launches = 0
+        self.texsample_launches = 0
         self.plain_calls = 0
 
 
@@ -177,9 +199,39 @@ class MegakernelParams(ctypes.Structure):
     ]
 
 
-#: The launcher's C signature, as the ctypes binding declares it.
+def _ints(n):
+    return ctypes.c_int * n
+
+
+class TexParams(ctypes.Structure):
+    """Mirror of ``struct TexParams`` in ``csrc/megakernel.cu``."""
+
+    _fields_ = [
+        ("shape_levels", ctypes.c_int),
+        ("shape_size", _ints(MAX_LEVELS)),
+        ("shape_base", _ints(MAX_LEVELS)),
+        ("shape_floor", ctypes.c_int),
+        ("cov_levels", ctypes.c_int),
+        ("cov_height", _ints(MAX_LEVELS)),
+        ("cov_width", _ints(MAX_LEVELS)),
+        ("cov_base", _ints(MAX_LEVELS)),
+        ("cov_floor", ctypes.c_int),
+        ("window_rows", ctypes.c_int),
+        ("band_rows", ctypes.c_int),
+        ("band_max_slices", ctypes.c_int),
+        ("knot_group", ctypes.c_int),
+        ("shape_knots", ctypes.c_int),
+    ]
+
+
+#: The launchers' C signatures, as the ctypes binding declares them.
 LAUNCHER_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.c_void_p,
-                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
+                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_void_p)
+TEX_LAUNCHER_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.POINTER(TexParams),
+                         *(ctypes.c_void_p,) * 7)
+TEXSAMPLE_ARGTYPES = (ctypes.POINTER(TexParams), ctypes.c_int, *(ctypes.c_void_p,) * 4,
+                      ctypes.c_int, ctypes.c_int, *(ctypes.c_void_p,) * 3)
 
 
 # -- build ------------------------------------------------------------------
@@ -231,10 +283,14 @@ def load_library():
         return _LIBRARY
     path, _ = build()
     lib = ctypes.CDLL(path)
-    lib.megakernel_launch.argtypes = LAUNCHER_ARGTYPES
-    lib.megakernel_launch.restype = ctypes.c_int
+    for fn, argtypes in ((lib.megakernel_launch, LAUNCHER_ARGTYPES),
+                         (lib.megakernel_tex_launch, TEX_LAUNCHER_ARGTYPES),
+                         (lib.texsample_launch, TEXSAMPLE_ARGTYPES)):
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     for name, struct in (("megakernel_params_size", MegakernelParams),
-                         ("megakernel_noise_params_size", NoiseParams)):
+                         ("megakernel_noise_params_size", NoiseParams),
+                         ("megakernel_tex_params_size", TexParams)):
         fn = getattr(lib, name)
         fn.argtypes = ()
         fn.restype = ctypes.c_int
@@ -248,10 +304,17 @@ def load_library():
 # -- what the kernel takes ----------------------------------------------------
 
 
+def texture_mode(config: VariantConfig) -> bool:
+    """Whether the config asks for the texture instance (pyramid metas)."""
+    return config.clouds_enabled and (config.cloud_shape_tex_meta is not None
+                                      or config.cloud_coverage_tex_meta is not None)
+
+
 def check_config(config: VariantConfig):
     """Raise ``ValueError`` for any config outside what the kernel renders:
-    v2, analytic optical depth, and (with clouds) procedural value or
-    simplex-smooth fields with cheap always-low lighting and coverage knots."""
+    v2, analytic optical depth, and (with clouds) cheap always-low lighting
+    with dynamic coverage knots, the fields either procedural (value or
+    simplex-smooth) or both baked textures in texture mode."""
     bad = []
     if config.model != "v2":
         bad.append(f"model={config.model!r} (v2 only)")
@@ -260,17 +323,18 @@ def check_config(config: VariantConfig):
     if config.temporal_jitter:
         bad.append("temporal_jitter")
     if config.clouds_enabled:
-        if config.cloud_shape_noise is None or config.cloud_coverage_noise is None:
-            bad.append("baked cloud textures (procedural fields only)")
-        if (config.cloud_shape_tex_meta is not None
-                or config.cloud_coverage_tex_meta is not None):
-            bad.append("texture pyramids")
+        if texture_mode(config):
+            bad.extend(_texture_problems(config))
+        else:
+            if config.cloud_shape_noise is None or config.cloud_coverage_noise is None:
+                bad.append("baked cloud textures without pyramid metas (Scene.render "
+                           "builds them)")
+            if config.cloud_shape_interp:
+                bad.append("cloud_shape_interp with procedural fields")
         if config.raymarched_lighting:
             bad.append("raymarched_lighting")
         if not config.clouds_always_low_quality:
             bad.append("clouds_always_low_quality=False")
-        if config.cloud_shape_interp:
-            bad.append("cloud_shape_interp")
         if not config.cloud_coverage_interp:
             bad.append("cloud_coverage_interp=False")
         if config.cloud_coverage_knots != KNOTS:
@@ -287,6 +351,36 @@ def check_config(config: VariantConfig):
                 bad.extend(f"{name}: {why}" for why in _noise_problems(field.noise))
     if bad:
         raise ValueError("megakernel does not render: " + "; ".join(bad))
+
+
+def _texture_problems(config: VariantConfig):
+    shape, cov = config.cloud_shape_tex_meta, config.cloud_coverage_tex_meta
+    if not (isinstance(shape, texsample.TexMeta) and shape.kind == "tex3d"):
+        yield "cloud_shape_tex_meta is not a tex3d TexMeta"
+    elif len(shape.levels) > MAX_LEVELS:
+        yield f"more than {MAX_LEVELS} shape pyramid levels"
+    if not (isinstance(cov, texsample.TexMeta) and cov.kind == "latlong"):
+        yield "cloud_coverage_tex_meta is not a latlong TexMeta"
+    elif len(cov.levels) > MAX_LEVELS:
+        yield f"more than {MAX_LEVELS} coverage pyramid levels"
+    if config.cloud_shape_noise is not None or config.cloud_coverage_noise is not None:
+        yield "procedural field specs in texture mode (both fields must be baked)"
+    if not config.cloud_shape_interp:
+        yield "texture mode needs cloud_shape_interp"
+    if config.cloud_shape_knots != SHAPE_KNOTS:
+        yield (f"cloud_shape_knots={config.cloud_shape_knots} (the kernel is "
+               f"built for {SHAPE_KNOTS})")
+    if config.cloud_lod * config.cloud_coverage_lod not in TEXTURE_GROUPS:
+        yield (f"cloud_lod·cloud_coverage_lod = "
+               f"{config.cloud_lod * config.cloud_coverage_lod} (texture mode takes "
+               f"{' or '.join(map(str, TEXTURE_GROUPS))})")
+    if not 1 <= config.texture_knot_group <= MAX_GROUP:
+        yield f"texture_knot_group={config.texture_knot_group} (1..{MAX_GROUP})"
+    if config.texture_window_rows < 1:
+        yield f"texture_window_rows={config.texture_window_rows}"
+    if config.texture_band_rows < 0 or (config.texture_band_rows
+                                        and config.texture_band_max_slices < 1):
+        yield "texture_band_rows < 0 or texture_band_max_slices < 1"
 
 
 def _noise_problems(spec: NoiseSpec):
@@ -445,11 +539,38 @@ def frame_constants(params: AtmosphereParams, config: VariantConfig,
         _set(s.world_to_model, p.world_to_model.reshape(-1).tolist())
         _set(s.ro_model, _floats_of(ro_model))
         _set(s.sd_model, _floats_of(transform_dir(p.world_to_model, sun_dir)))
-        s.shape = _noise_params(config.cloud_shape_noise.noise,
-                                config.cloud_shape_noise.scale)
-        s.coverage = _noise_params(config.cloud_coverage_noise.noise,
-                                   config.cloud_coverage_noise.scale)
+        # procedural fields (texture mode samples its pyramids instead)
+        for name, field in (("shape", config.cloud_shape_noise),
+                            ("coverage", config.cloud_coverage_noise)):
+            if field is not None:
+                setattr(s, name, _noise_params(field.noise, field.scale))
     return s
+
+
+def tex_constants(config: VariantConfig, shape: Optional[texsample.TexMeta] = None,
+                  coverage: Optional[texsample.TexMeta] = None) -> TexParams:
+    """Texture mode's launch struct: the pyramids' levels and the sampler
+    settings (metas default to the config's)."""
+    shape = shape or config.cloud_shape_tex_meta
+    coverage = coverage or config.cloud_coverage_tex_meta
+    t = TexParams()
+    w_rows = config.texture_window_rows
+    if shape is not None:
+        t.shape_levels = len(shape.levels)
+        for i, (size, base) in enumerate(shape.levels):
+            t.shape_size[i], t.shape_base[i] = size, base
+        t.shape_floor = shape.floor_level(w_rows)
+    if coverage is not None:
+        t.cov_levels = len(coverage.levels)
+        for i, (h, w, base) in enumerate(coverage.levels):
+            t.cov_height[i], t.cov_width[i], t.cov_base[i] = h, w, base
+        t.cov_floor = coverage.floor_level(w_rows)
+    t.window_rows = w_rows
+    t.band_rows = config.texture_band_rows
+    t.band_max_slices = config.texture_band_max_slices
+    t.knot_group = config.texture_knot_group
+    t.shape_knots = config.cloud_shape_knots
+    return t
 
 
 # -- entry points ---------------------------------------------------------------
@@ -457,44 +578,68 @@ def frame_constants(params: AtmosphereParams, config: VariantConfig,
 
 def render_frame_plain(params: AtmosphereParams, config: VariantConfig,
                        camera: Camera, opaque: Optional[OpaqueScene],
-                       height: int, width: int) -> dict:
+                       height: int, width: int, tex_data=None) -> dict:
     """The kernel's plain PyTorch version (counted in
-    ``counters.plain_calls``); runs on any device."""
+    ``counters.plain_calls``); runs on any device.  ``tex_data``: the
+    ``(shape, coverage)`` pyramid tables of texture mode."""
     counters.plain_calls += 1
-    return render_frame(params, config, camera, opaque, height, width)
+    return render_frame(params, config, camera, opaque, height, width, tex_data=tex_data)
 
 
 _BLUE_NOISE = {}
 
 
-def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor):
+def _ptr(t: Optional[torch.Tensor]):
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
+           tex=None, work: Optional[torch.Tensor] = None):
     """Launch the kernel for one launch struct into preallocated CUDA
     outputs (``color`` (H, W, 3), ``alpha`` (H, W), float32) on the current
-    stream of their device; counted in ``counters.megakernel_launches``."""
+    stream of their device; counted in ``counters.megakernel_launches``.
+    ``tex``: ``(TexParams, shape table, coverage table)`` for the texture
+    instance (also counted in ``counters.texture_launches``).  ``work``:
+    ``len(WORK_SLOTS)`` zeroed int64 counters that the kernel adds its work
+    to (see :func:`work_counts`)."""
     device = color.device
     blue = _BLUE_NOISE.get(str(device))
     if blue is None:
         blue = _BLUE_NOISE[str(device)] = blue_noise_tensor(device=device)
     lib = load_library()
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.megakernel_launch(ctypes.byref(struct),
-                                   ctypes.c_void_p(blue.data_ptr()),
-                                   ctypes.c_void_p(color.data_ptr()),
-                                   ctypes.c_void_p(alpha.data_ptr()),
-                                   ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+        if tex is None:
+            rc = lib.megakernel_launch(ctypes.byref(struct), _ptr(blue), _ptr(color),
+                                       _ptr(alpha), stream, _ptr(work))
+        else:
+            tparams, shape_table, cov_table = tex
+            rc = lib.megakernel_tex_launch(ctypes.byref(struct), ctypes.byref(tparams),
+                                           _ptr(blue), _ptr(shape_table), _ptr(cov_table),
+                                           _ptr(color), _ptr(alpha), stream, _ptr(work))
     if rc != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {rc}")
     counters.megakernel_launches += 1
+    if tex is not None:
+        counters.texture_launches += 1
+
+
+def _check_table(t: torch.Tensor, meta: texsample.TexMeta, device):
+    if (t.device != device or t.dtype != torch.float32 or not t.is_contiguous()
+            or tuple(t.shape) != (meta.rows, texsample.LANES)):
+        raise ValueError(f"pyramid table must be a contiguous float32 ({meta.rows}, "
+                         f"{texsample.LANES}) tensor on {device}, got "
+                         f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
 def render_frame_megakernel(params: AtmosphereParams, config: VariantConfig,
                             camera: Camera, opaque: Optional[OpaqueScene],
-                            height: int, width: int) -> dict:
+                            height: int, width: int, tex_data=None) -> dict:
     """Render one single-layer frame: ``{"color": (H, W, 3), "alpha": (H, W)}``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (built on first use); any other device raises.
+    (built on first use); any other device raises.  A texture-mode config
+    needs ``tex_data``, its ``(shape, coverage)`` pyramid tables.
     """
     check_config(config)
     device = camera.view_to_world.device
@@ -504,18 +649,83 @@ def render_frame_megakernel(params: AtmosphereParams, config: VariantConfig,
     if len(devices) != 1:
         raise ValueError(f"params, camera and opaque scene must share one "
                          f"device (got {sorted(map(str, devices))})")
+    textured = texture_mode(config)
+    if textured:
+        if tex_data is None or len(tex_data) != 2:
+            raise ValueError("texture mode needs tex_data = (shape, coverage) tables")
+        _check_table(tex_data[0], config.cloud_shape_tex_meta, device)
+        _check_table(tex_data[1], config.cloud_coverage_tex_meta, device)
+    elif tex_data is not None:
+        raise ValueError("tex_data given for a config without pyramid metas")
     if device.type == "cpu":
-        out = render_frame_plain(params, config, camera, opaque, height, width)
+        out = render_frame_plain(params, config, camera, opaque, height, width,
+                                 tex_data=tex_data)
         return {"color": out["color"], "alpha": out["alpha"]}
     if device.type != "cuda":
         raise ValueError(f"megakernel runs on CUDA devices (got {device})")
     group = config.cloud_lod * config.cloud_coverage_lod if config.clouds_enabled else 1
-    if height % group:
+    if not textured and height % group:
         raise ValueError(f"frame height {height} must be divisible by "
                          f"cloud_lod·cloud_coverage_lod = {group}")
 
     struct = frame_constants(params, config, camera, opaque, height, width)
+    tex = (tex_constants(config), *tex_data) if textured else None
     color = torch.empty((height, width, 3), dtype=torch.float32, device=device)
     alpha = torch.empty((height, width), dtype=torch.float32, device=device)
-    launch(struct, color, alpha)
+    launch(struct, color, alpha, tex=tex)
     return {"color": color, "alpha": alpha}
+
+
+def work_counts(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
+                tex=None) -> dict:
+    """One launch with the kernel's work counters on: how many pixels,
+    atmosphere integrations, knot groups, marched coarse pixels and texture
+    samples (trilinear or bilinear, and floor-mode nearest) this frame's
+    inputs needed.  Counted in the launch counters like any launch."""
+    work = torch.zeros(len(WORK_SLOTS), dtype=torch.int64, device=color.device)
+    launch(struct, color, alpha, tex=tex, work=work)
+    return dict(zip(WORK_SLOTS, work.cpu().tolist()))
+
+
+# -- K2 alone -------------------------------------------------------------------
+
+
+def sample_batches(table: torch.Tensor, meta: texsample.TexMeta, a, b, c,
+                   window_rows: int = 16, band_rows: int = 16,
+                   band_max_slices: int = 32) -> tuple:
+    """K2 on caller-given batches: ``a, b, c`` are ``(B, N)`` float32
+    planes, one batch per row — coordinates in periods for a ``tex3d``
+    pyramid, unit directions for a ``latlong`` one.  Returns ``(values
+    (B, N), mode (B,), level (B,))``.  CPU tensors take the plain samplers;
+    CUDA tensors launch the kernel's device functions (counted in
+    ``counters.texsample_launches``)."""
+    device = a.device
+    if any(t.shape != a.shape or t.dim() != 2 or t.device != device for t in (a, b, c)):
+        raise ValueError("a, b, c must be (B, N) planes on one device")
+    shape = meta.kind == "tex3d"
+    if device.type == "cpu":
+        if shape:
+            return texsample._tex3d_batches(table.reshape(-1), meta, a, b, c, window_rows,
+                                            band_rows, band_max_slices)
+        return texsample._latlong_batches(table.reshape(-1), meta, texsample.Vec3(a, b, c),
+                                          window_rows)
+    if device.type != "cuda":
+        raise ValueError(f"K2 runs on CUDA devices (got {device})")
+    _check_table(table, meta, device)
+    a, b, c = (t.to(torch.float32).contiguous() for t in (a, b, c))
+    cfg = VariantConfig(texture_window_rows=window_rows, texture_band_rows=band_rows,
+                        texture_band_max_slices=band_max_slices)
+    tparams = (tex_constants(cfg, shape=meta) if shape
+               else tex_constants(cfg, coverage=meta))
+    out = torch.empty_like(a)
+    choice = torch.empty((a.shape[0], 2), dtype=torch.int32, device=device)
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+        rc = lib.texsample_launch(ctypes.byref(tparams), int(shape), _ptr(table), _ptr(a),
+                                  _ptr(b), _ptr(c), a.shape[0], a.shape[1], _ptr(out),
+                                  _ptr(choice), stream)
+    if rc != 0:
+        raise RuntimeError(f"texsample launch failed: CUDA error {rc}")
+    counters.texsample_launches += 1
+    return out, choice[:, 0].long(), choice[:, 1].long()

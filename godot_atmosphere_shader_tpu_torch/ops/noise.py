@@ -8,9 +8,10 @@ pattern: every multiply is split into 16-bit halves so no intermediate
 leaves int64 range, and results are masked back to 32 bits.  The CUDA
 megakernel uses ``uint32_t`` natively; both agree bit for bit with JAX.
 
-Only the bases and fractals of the demo's fast profile are ported
-(``value``, ``simplex_smooth``; ``none``/``fbm``/``ridged``; the domain
-warp).  The other bases raise ``NotImplementedError``.
+Ported: the bases and fractals of the demo's fast profile (``value``,
+``simplex_smooth``; ``none``/``fbm``/``ridged``; the domain warp) and the
+27-cell ``cellular`` basis that the demo's shape-texture bake uses.  The
+other bases raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -67,6 +68,11 @@ def hash3(ix, iy, iz, seed: int):
 def _hash_to_unit(h):
     """uint32 → float32 in [0, 1) from the top 24 bits."""
     return (h >> 8).to(torch.float32) * (1.0 / 16777216.0)
+
+
+def _hash_to_signed(h):
+    """uint32 → float32 in [-1, 1)."""
+    return _hash_to_unit(h) * 2.0 - 1.0
 
 
 def _full_to_signed(h):
@@ -194,6 +200,42 @@ def simplex_smooth_noise3(x, y, z, seed: int = 0):
     return n * _OS2S_NORM
 
 
+def cellular_noise3(x, y, z, seed: int = 0, jitter: float = 1.0,
+                    return_type: str = "distance"):
+    """Cellular (Worley) noise over the 3×3×3 cell neighbourhood:
+    ``distance`` (F1 mapped to ≈[-1, 1]), ``cell_value`` (the closest
+    cell's hashed value) or ``distance2`` (F2 − F1).  The bake basis."""
+    ix, fx = _floor_int(x)
+    iy, fy = _floor_int(y)
+    iz, fz = _floor_int(z)
+    ix, iy, iz = (i.to(torch.int64) for i in (ix, iy, iz))
+
+    f1 = torch.full_like(x, 1e10)
+    f2 = torch.full_like(x, 1e10)
+    closest_h = torch.zeros_like(ix)
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                h = hash3(ix + dx, iy + dy, iz + dz, seed)
+                ox = _hash_to_unit(h) * jitter
+                oy = _hash_to_unit(_mix(h ^ 0xABCD1234)) * jitter
+                oz = _hash_to_unit(_mix(h ^ 0x1B56C4E9)) * jitter
+                ddx = dx + ox - fx
+                ddy = dy + oy - fy
+                ddz = dz + oz - fz
+                d = ddx * ddx + ddy * ddy + ddz * ddz
+                is_closer = d < f1
+                f2 = torch.where(is_closer, f1, torch.minimum(f2, d))
+                closest_h = torch.where(is_closer, h, closest_h)
+                f1 = torch.where(is_closer, d, f1)
+
+    if return_type == "cell_value":
+        return _hash_to_signed(closest_h)
+    if return_type == "distance2":
+        return torch.sqrt(f2) - torch.sqrt(f1) - 1.0
+    return torch.sqrt(f1) * 2.0 - 1.0
+
+
 def _not_ported(name):
     def fn(*args, **kwargs):
         raise NotImplementedError(
@@ -206,7 +248,7 @@ _BASES = {
     "simplex_smooth": simplex_smooth_noise3,
     "perlin": _not_ported("perlin"),
     "simplex": _not_ported("simplex"),
-    "cellular": _not_ported("cellular"),
+    "cellular": cellular_noise3,
     "cellular_fast": _not_ported("cellular_fast"),
 }
 
@@ -236,7 +278,11 @@ class NoiseSpec:
 
 
 def _eval_base(spec: NoiseSpec, x, y, z, seed_offset: int = 0):
-    return _BASES[spec.noise_type](x, y, z, seed=spec.seed + seed_offset)
+    fn = _BASES[spec.noise_type]
+    if spec.noise_type == "cellular":
+        return fn(x, y, z, seed=spec.seed + seed_offset,
+                  jitter=spec.cellular_jitter, return_type=spec.cellular_return)
+    return fn(x, y, z, seed=spec.seed + seed_offset)
 
 
 def fractal_bounding(spec: NoiseSpec) -> float:

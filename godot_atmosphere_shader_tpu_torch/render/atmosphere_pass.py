@@ -1,8 +1,10 @@
 """Whole-frame atmosphere pass: the ``atmosphere_fragment`` analog
 (``planet_atmosphere_main.gdshaderinc:106-197``) in world space.
 
-Counterpart of ``godot_atmosphere_shader_tpu/render/atmosphere_pass.py`` for
-procedural cloud fields (textures and v1 are not ported yet).
+Counterpart of ``godot_atmosphere_shader_tpu/render/atmosphere_pass.py``
+(v2 only).  Cloud fields are procedural noise or baked textures sampled
+exactly (trilinear shape texture, seamless coverage cubemap); the
+megakernel's plain version passes its pyramid samplers in instead.
 """
 
 from __future__ import annotations
@@ -14,16 +16,21 @@ import torch
 from ..ops.atmosphere_v2 import compute_atmosphere_v2
 from ..ops.clouds import render_clouds, render_clouds_lod
 from ..ops.noise import sample_noise3
+from ..ops.sampling import (extend_cubemap_borders, sample_cubemap_bilinear,
+                            sample_cubemap_seamless, sample_trilinear_repeat)
 from ..utils.vecmath import Vec3, lerp, normalize, ray_sphere
 
 
 def make_shape_fn(config, params):
-    """Procedural cloud shape field ``0.5 + 0.5·noise(p·scale)``; ``p`` is the
-    reference's 3D texture coordinate (model position × shape scale)."""
+    """Cloud shape field at the reference's 3D texture coordinates (model
+    position × shape scale): procedural ``0.5 + 0.5·noise(p·scale)`` or the
+    trilinear repeat-wrapped shape texture."""
     spec = config.cloud_shape_noise
     if spec is None:
-        raise NotImplementedError("baked cloud shape textures are not ported "
-                                  "yet; use a procedural cloud_shape_noise")
+        tex = params.cloud_shape_texture
+        if tex is None:
+            raise ValueError("clouds need cloud_shape_texture or a procedural spec")
+        return lambda p: sample_trilinear_repeat(tex, p.x, p.y, p.z)
     sx, sy, sz = spec.scale
 
     def shape_fn(p: Vec3):
@@ -33,12 +40,18 @@ def make_shape_fn(config, params):
 
 
 def make_coverage_fn(config, params):
-    """Procedural coverage: the NoiseCubemap generator formula
-    ``0.5 + 0.5·noise(normalize(p)·scale)`` evaluated directly."""
+    """Coverage: the NoiseCubemap generator formula
+    ``0.5 + 0.5·noise(normalize(p)·scale)`` evaluated directly, or the baked
+    cubemap (seamless across faces with ``cubemap_seamless``)."""
     spec = config.cloud_coverage_noise
     if spec is None:
-        raise NotImplementedError("baked coverage cubemaps are not ported "
-                                  "yet; use a procedural cloud_coverage_noise")
+        faces = params.cloud_coverage_cubemap
+        if faces is None:
+            raise ValueError("clouds need cloud_coverage_cubemap or a procedural spec")
+        if config.cubemap_seamless:
+            faces_ext = extend_cubemap_borders(faces)
+            return lambda p: sample_cubemap_seamless(faces_ext, p)
+        return lambda p: sample_cubemap_bilinear(faces, p)
     sx, sy, sz = spec.scale
 
     def coverage_fn(p: Vec3):
@@ -50,9 +63,13 @@ def make_coverage_fn(config, params):
 
 def shade_atmosphere(params, config, ray_origin: Vec3, ray_dir: Vec3,
                      linear_depth: torch.Tensor, jitter: torch.Tensor,
-                     planet_center: Vec3) -> Tuple[Vec3, torch.Tensor, torch.Tensor]:
+                     planet_center: Vec3, shape_fn=None,
+                     coverage_fn=None) -> Tuple[Vec3, torch.Tensor, torch.Tensor]:
     """Everything from the shell intersection (:144) on: returns
-    ``(rgb, alpha, hit_mask)`` of one layer, clouds included."""
+    ``(rgb, alpha, hit_mask)`` of one layer, clouds included.  ``shape_fn``
+    and ``coverage_fn`` replace the config's field closures (the pyramid
+    samplers); only then are knots evaluated ``texture_knot_group`` at a
+    time, as the megakernel does."""
     if config.model != "v2":
         raise NotImplementedError(f"atmosphere model {config.model!r} is not "
                                   "ported yet (v2 only)")
@@ -82,15 +99,19 @@ def shade_atmosphere(params, config, ray_origin: Vec3, ray_dir: Vec3,
         params, config.atmosphere_steps, od_mode=config.od_mode)
 
     if config.clouds_enabled:
+        overridden = shape_fn is not None or coverage_fn is not None
         kw = dict(coverage_interp=config.cloud_coverage_interp,
                   cull=config.tile_cull,
                   coverage_knots=config.cloud_coverage_knots,
                   coverage_lod=config.cloud_coverage_lod,
                   shape_interp=config.cloud_shape_interp,
+                  shape_knots=config.cloud_shape_knots,
+                  knot_group=config.texture_knot_group if overridden else 1,
                   knot_dynamic=config.knot_dynamic)
         args = (rgb, alpha, planet_center, ray_origin, ray_dir, linear_depth,
                 params.world_to_model, sun_dir, jitter, params.time, params,
-                make_shape_fn(config, params), make_coverage_fn(config, params),
+                shape_fn or make_shape_fn(config, params),
+                coverage_fn or make_coverage_fn(config, params),
                 config.cloud_steps, config.raymarched_lighting,
                 config.clouds_always_low_quality)
         if config.cloud_lod > 1:

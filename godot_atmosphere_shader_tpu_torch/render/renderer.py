@@ -4,7 +4,16 @@ included) composited over it.
 Counterpart of ``godot_atmosphere_shader_tpu/render/renderer.py::
 render_frame_impl`` for a single layer.  This is the plain version the CUDA
 megakernel (``ops/kernels/megakernel.py``) is held against, and the path
-CPU tensors take.
+CPU tensors take.  Baked cloud textures come in two forms:
+
+* exact sampling (no ``tex_data``): the textures of ``params`` are sampled
+  per knot with the exact samplers, the twin of the JAX ``renderer="xla"``;
+* pyramid sampling (a config carrying ``TexMeta``s and ``tex_data``): the
+  megakernel's texture mode, whose samplers choose a mip level per batch —
+  per 32×128 tile of the megakernel's grid and knot group.  The frame is
+  then rendered on that grid padded to whole tiles (the last tile's extra
+  rows and columns are real rays past the frame edge, part of its
+  batches) and cropped.
 """
 
 from __future__ import annotations
@@ -14,6 +23,7 @@ from typing import Optional
 import torch
 
 from ..models.params import AtmosphereParams, VariantConfig
+from ..ops.kernels.texsample import pyramid_samplers
 from ..utils.camera import Camera, rigid_inverse, world_ray_dirs
 from ..utils.vecmath import Vec3
 from .atmosphere_pass import composite_over, shade_atmosphere
@@ -27,35 +37,55 @@ def planet_center(params: AtmosphereParams) -> Vec3:
     return Vec3(pc[0], pc[1], pc[2])
 
 
+#: the megakernel's tile: one batch of the pyramid samplers per knot group
+TILE_ROWS, TILE_COLS = 32, 128
+
+
 def render_frame(params: AtmosphereParams, config: VariantConfig,
                  camera: Camera, opaque: Optional[OpaqueScene],
-                 height: int, width: int) -> dict:
+                 height: int, width: int, tex_data=None) -> dict:
     """Render one single-layer frame.  Returns ``color`` ``(H, W, 3)``,
     ``alpha`` ``(H, W)`` and, with an opaque scene, the nonlinear
-    ``depth`` buffer — on the device of ``camera``."""
+    ``depth`` buffer — on the device of ``camera``.  ``tex_data`` is the
+    ``(shape, coverage)`` pyramid tables of a config with ``TexMeta``s."""
     device = camera.view_to_world.device
     params = params.resolve_frame_state()
-    ray_dir = world_ray_dirs(camera, height, width)
+    shape_fn = coverage_fn = None
+    rows, cols = height, width
+    metas = (config.cloud_shape_tex_meta, config.cloud_coverage_tex_meta)
+    if any(m is not None for m in metas):
+        if tex_data is None or None in metas:
+            raise ValueError("pyramid sampling needs both TexMetas and their "
+                             "(shape, coverage) tables")
+        group = config.cloud_lod * max(config.cloud_coverage_lod, 1)
+        if TILE_ROWS % group:
+            raise ValueError(f"cloud_lod·cloud_coverage_lod = {group} must "
+                             f"divide the tile height {TILE_ROWS}")
+        rows = -(-height // TILE_ROWS) * TILE_ROWS
+        cols = -(-width // TILE_COLS) * TILE_COLS
+        shape_fn, coverage_fn = pyramid_samplers(config, *tex_data, TILE_ROWS // group)
+    ray_dir = world_ray_dirs(camera, height, width, rows=rows, cols=cols)
     if opaque is not None:
         bg, depth, linear_depth = render_opaque(
-            opaque, camera, height, width, reverse_z=config.reverse_z,
+            opaque, camera, rows, cols, reverse_z=config.reverse_z,
             ray_dir=ray_dir)
     else:
-        bg = Vec3(*(torch.zeros((height, width), device=device)
+        bg = Vec3(*(torch.zeros((rows, cols), device=device)
                     for _ in range(3)))
         depth = None
-        linear_depth = torch.full((height, width), 1e7, device=device)
+        linear_depth = torch.full((rows, cols), 1e7, device=device)
 
     if config.temporal_jitter:
         raise NotImplementedError("temporal_jitter (flight/TAA) is not ported yet")
-    jitter = jitter_plane(height, width, device=device)
+    jitter = jitter_plane(rows, cols, device=device)
 
     rgb, alpha, mask = shade_atmosphere(params, config, camera.position,
                                         ray_dir, linear_depth, jitter,
-                                        planet_center(params))
+                                        planet_center(params), shape_fn=shape_fn,
+                                        coverage_fn=coverage_fn)
     color = composite_over(bg, rgb, alpha, mask)
     out = {"color": torch.stack([color.x, color.y, color.z], dim=-1),
            "alpha": torch.clamp(torch.where(mask, alpha, 0.0), min=0.0)}
     if depth is not None:
         out["depth"] = depth
-    return out
+    return {k: v[:height, :width] for k, v in out.items()}

@@ -128,9 +128,14 @@ def test_row_count_must_divide_the_lod():
 
 
 def test_unported_cloud_features_raise():
+    """Raymarched lighting and the detail knot field are not ported; a
+    shape field with neither a spec nor a texture is a user error, as in
+    JAX."""
     d = _inputs("avatar", True)
     with pytest.raises(NotImplementedError):
         tc.get_light_raymarched()
-    cfg = dataclasses.replace(d["tcfg"], cloud_shape_noise=None)
     with pytest.raises(NotImplementedError):
+        tc.render_clouds(*([None] * 13), 8, False, False, shape_interp=True)
+    cfg = dataclasses.replace(d["tcfg"], cloud_shape_noise=None)
+    with pytest.raises(ValueError):
         tpass.make_shape_fn(cfg, d["tp"])

@@ -104,7 +104,7 @@ def test_cpu_tensors_take_the_plain_path(clouds_high):
     dict(cloud_coverage_interp=False), dict(cloud_shape_interp=True),
     dict(cloud_coverage_knots=7), dict(cloud_lod=8), dict(temporal_jitter=True),
     dict(clouds_always_low_quality=False), dict(cloud_shape_tex_meta=object()),
-    dict(knot_dynamic=False),
+    dict(knot_dynamic=False), dict(cloud_coverage_tex_meta=object()),
 ])
 def test_wrapper_rejects_unsupported_config(clouds_high, change):
     params, cfg, cam, opaque = clouds_high[1]
@@ -151,7 +151,7 @@ def _cu_struct(name):
     return fields
 
 
-@pytest.mark.parametrize("struct", [mk.MegakernelParams, mk.NoiseParams])
+@pytest.mark.parametrize("struct", [mk.MegakernelParams, mk.NoiseParams, mk.TexParams])
 def test_cu_structs_match_ctypes_mirror(struct):
     """Same fields, order, types and array lengths on both sides."""
     want = []
@@ -170,18 +170,33 @@ def test_cu_structs_match_ctypes_mirror(struct):
 
 def test_cu_limits_match_wrapper():
     defines = {k: int(v) for k, v in re.findall(r"#define (MK_\w+) (\d+)", _cu_source())}
+    work = {f"MK_WORK_{name.upper()}": i for i, name in enumerate(mk.WORK_SLOTS)}
     assert defines == {"MK_MAX_SPHERES": mk.MAX_SPHERES, "MK_MAX_BOXES": mk.MAX_BOXES,
                        "MK_MAX_OCTAVES": mk.MAX_OCTAVES, "MK_MAX_GROUP": mk.MAX_GROUP,
-                       "MK_QUAD_POINTS": mk.QUAD_POINTS, "MK_KNOTS": mk.KNOTS}
+                       "MK_QUAD_POINTS": mk.QUAD_POINTS, "MK_KNOTS": mk.KNOTS,
+                       "MK_SHAPE_KNOTS": mk.SHAPE_KNOTS, "MK_MAX_LEVELS": mk.MAX_LEVELS,
+                       "MK_TILE_ROWS": mk.TILE_ROWS, "MK_TILE_COLS": mk.TILE_COLS,
+                       "MK_WINDOWED": mk.WINDOWED, "MK_BANDED": mk.BANDED,
+                       "MK_FLOOR": mk.FLOOR, **work, "MK_WORK_SLOTS": len(mk.WORK_SLOTS)}
 
 
-def test_cu_launcher_signature_matches_argtypes():
-    sig = re.search(r'extern "C" int megakernel_launch\((.*?)\)', _cu_source(), re.S).group(1)
+_CPARAM = {"int": ctypes.c_int, "const MegakernelParams*": ctypes.POINTER(mk.MegakernelParams),
+           "const TexParams*": ctypes.POINTER(mk.TexParams)}
+
+
+@pytest.mark.parametrize("name,argtypes", [("megakernel_launch", mk.LAUNCHER_ARGTYPES),
+                                           ("megakernel_tex_launch", mk.TEX_LAUNCHER_ARGTYPES),
+                                           ("texsample_launch", mk.TEXSAMPLE_ARGTYPES)])
+def test_cu_launcher_signature_matches_argtypes(name, argtypes):
+    """Each launcher's C parameters against its ctypes argtypes: structs by
+    pointer, ints as c_int, every other pointer (and the stream) c_void_p."""
+    sig = re.search(r'extern "C" int %s\((.*?)\)' % name, _cu_source(), re.S).group(1)
     params = [" ".join(p.split()) for p in sig.split(",")]
-    assert params == ["const MegakernelParams* params", "const float* blue",
-                      "float* color", "float* alpha", "void* stream"]
-    want = (ctypes.POINTER(mk.MegakernelParams),) + (ctypes.c_void_p,) * 4
-    assert mk.LAUNCHER_ARGTYPES == want
+    want = tuple(_CPARAM.get(p.rsplit(" ", 1)[0], ctypes.c_void_p) for p in params)
+    assert argtypes == want, params
+    if name == "megakernel_launch":
+        assert params == ["const MegakernelParams* params", "const float* blue",
+                          "float* color", "float* alpha", "void* stream", "void* work"]
 
 
 def test_build_command_and_cache_key(monkeypatch, tmp_path):

@@ -127,7 +127,9 @@ def test_sample_noise3_demo_specs(name, scale):
 @pytest.mark.parametrize("spec", [
     tn.NoiseSpec(noise_type="perlin", fractal_type="none"),
     tn.NoiseSpec(noise_type="simplex", fractal_type="none"),
-    tn.NoiseSpec(noise_type="cellular", fractal_type="none"),
+    # the 27-cell cellular basis is ported (tests/test_torch_sampling.py);
+    # its ping-pong fractal is not
+    tn.NoiseSpec(noise_type="cellular", fractal_type="ping_pong"),
     tn.NoiseSpec(noise_type="cellular_fast", fractal_type="none"),
     tn.NoiseSpec(noise_type="value", fractal_type="ping_pong"),
     tn.NoiseSpec(noise_type="value", weighted_strength=0.5),

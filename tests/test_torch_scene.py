@@ -179,10 +179,13 @@ def test_render_refuses_multiple_layers():
 @pytest.mark.parametrize("change", [dict(model="v1"), dict(od_mode="lut"),
                                     dict(cloud_coverage_noise=None)])
 def test_render_refuses_unported_configs(change):
+    """v1 and the LUT are not ported; clouds without a coverage field (no
+    procedural spec and no cubemap) are a user error, as in JAX."""
     scene, cam = _scene()
     atmo = scene.atmospheres[0]
     atmo.set_custom_shader(dataclasses.replace(atmo.config, **change))
-    with pytest.raises(NotImplementedError):
+    error = ValueError if "cloud_coverage_noise" in change else NotImplementedError
+    with pytest.raises(error):
         scene.render(cam, 8, 16)
 
 
@@ -195,11 +198,18 @@ def test_render_refuses_large_worlds():
 
 
 def test_textures_are_not_ported():
-    scene, _ = _scene()
+    """The cloud textures are ported (tests/test_torch_texture_scene.py);
+    the optical-depth LUT texture is not, and one baked field beside one
+    procedural field is not either."""
+    scene, cam = _scene()
+    atmo = scene.atmospheres[0]
     with pytest.raises(NotImplementedError):
-        scene.atmospheres[0].set_shader_parameter("u_cloud_shape_texture", np.zeros((4, 4, 4)))
+        atmo.set_shader_parameter("u_optical_depth_texture", np.zeros((4, 4, 3)))
+    atmo.set_shader_parameter("u_cloud_shape_texture", np.zeros((8, 8, 8)))
+    assert atmo.get_shader_parameter("u_cloud_shape_texture").shape == (8, 8, 8)
+    atmo.set_custom_shader(dataclasses.replace(atmo.config, cloud_shape_noise=None))
     with pytest.raises(NotImplementedError):
-        tdemo.build_demo_scene("clouds", procedural=False, device="cpu")
+        scene.render(cam, 8, 16)
 
 
 def test_shader_parameter_surface():
