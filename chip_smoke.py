@@ -5,8 +5,9 @@ on one CUDA card and checks every step:
 
 1. device: a CUDA card must be present; prints its ``nvidia-smi`` name and
    power limit;
-2. build: compiles the megakernel from ``csrc/megakernel.cu`` with ``nvcc``
-   (``sm_90a``) and prints the compiler's register report;
+2. build: compiles the port's kernels (``csrc/megakernel.cu``, ``taa.cu``,
+   ``probes.cu``, one ``nvcc`` each, started together, then linked into one
+   library) for ``sm_90a`` and prints the compiler's register report;
 3. kernel against plain, small: at 256×384, ``no_clouds``/avatar,
    ``clouds``/avatar, ``clouds_high``/avatar and ``clouds_high``/interior
    through the kernel and through its plain PyTorch version on the same
@@ -17,6 +18,11 @@ on one CUDA card and checks every step:
    (same mode and level, atol 2e-6); then the ``clouds_high`` texture scene
    (textures baked on the card) at avatar and interior, 256×384, kernel
    against plain at the cloud tolerance;
+3c. flight mode, small: the TAA resolve K3 alone at 1080×1920 against its
+   plain version on the cases of ``tests/test_torch_taa.py`` (max |Δ| ≤ 1e-4
+   where validity agrees, validity flips ≤ 0.01 % of pixels); a 4-frame TAA
+   flight at 256×384 through ``Scene.render_flight`` against the plain
+   flight, frame by frame (cloud tolerance);
 4. the procedural slice at 1080p: ``Scene.render`` for
    ``clouds_high``/avatar, ``clouds_high``/interior and ``clouds``/avatar,
    with the launch counters showing that every frame went through the
@@ -31,13 +37,25 @@ on one CUDA card and checks every step:
    against the port's CPU bake at 16³ and 32² faces (atol 1e-5);
 5. timing at 1080p with CUDA events: kernel launches alone, ``Scene.render``
    end to end (``update`` per frame) and the plain version; the device's
-   idle share during ``Scene.render`` from a ``torch.profiler`` trace.
+   idle share during ``Scene.render`` from a ``torch.profiler`` trace;
+6. the flight slice at 1080p: three 8-frame flights through
+   ``Scene.render_flight`` along a fly path from the avatar pose (forward at
+   10 units/s with a small yaw, 1/60 s per frame): procedural
+   ``clouds_high`` with TAA (blend 0.15), texture ``clouds_high`` with TAA,
+   procedural without TAA.  Counters: 8 K1 launches per flight, 8 K3
+   launches per TAA flight, no plain call; every frame held against the
+   plain flight on the same CUDA inputs (cloud tolerance); a
+   ``torch.profiler`` trace shows no device→host copy between a flight's
+   first launch and its last;
+7. flight timing: each flight's ms per frame end to end, its host ms per
+   frame and the device's idle share; K3 alone at 1080p with its bound; the
+   launch floor T3 (``probes.py``'s fill kernel, launched back to back).
 
 Prints a JSON line describing each kernel (with its roofline bound from
 this run's work counters), then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
 line.  Run from the repository root: ``python3 chip_smoke.py``
-(``--quick`` stops after phase 3b).
+(``--quick`` stops after phase 3c).
 """
 
 from __future__ import annotations
@@ -83,6 +101,19 @@ OPS_TEX3D = 110            # trilinear sample, position and footprint pass
 OPS_TEX3D_FLOOR = 57       # nearest floor-level sample
 OPS_LATLONG = 205          # polynomial (u, v) twice and a bilinear sample
 OPS_LATLONG_FLOOR = 190
+# The TAA resolve per pixel (csrc/taa.cu, counted the same way): ray and
+# reprojection ~75, window and bilinear of 4 planes ~70, 3×3 clamp of 3
+# channels ~145, blend ~12.  Bytes per pixel: current rgb and depth read,
+# history rgb and depth read once, rgb and depth written.
+OPS_TAA_PIXEL = 300
+BYTES_TAA_PIXEL = 48
+TAA_MAX_ERR = 1e-4       # max |Δ| where kernel and plain agree on validity
+TAA_MAX_FLIPS = 1e-4     # share of pixels whose validity may differ
+FLIGHT_FRAMES = 8
+FLIGHT_BLEND = 0.15
+FLIGHT_REPS = 3
+SMALL_FLIGHT_FRAMES = 4
+FILL_LAUNCHES = 32
 
 
 def log(*args):
@@ -183,13 +214,18 @@ def device_busy_ms(fn, frames: int, first: int) -> tuple:
             fn(first + i)
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernel = sum(e.time_range.elapsed_us() for e in events if "megakernel" in e.name)
+    return busy_us(events) / 1e3 / frames, kernel / 1e3 / frames
+
+
+def busy_us(events) -> float:
+    """Microseconds covered by the union of the events' device intervals."""
     busy, end = 0.0, float("-inf")
     for s, e in sorted((e.time_range.start, e.time_range.end) for e in events):
         if e > end:
             busy += e - max(s, end)
             end = e
-    kernel = sum(e.time_range.elapsed_us() for e in events if "megakernel" in e.name)
-    return busy / 1e3 / frames, kernel / 1e3 / frames
+    return busy
 
 
 def roofline(work: dict, config, height: int, width: int, table_bytes: int = 0) -> dict:
@@ -280,10 +316,196 @@ def _k2_compare(what, got, ref, got_choice, ref_choice) -> float:
     return err
 
 
+# -- K3 alone: the cases of tests/test_torch_taa.py at 1080p ---------------------
+
+
+def pose_matrix(eye, yaw=0.0, pitch=0.0) -> np.ndarray:
+    """A view→world matrix at ``eye`` looking down −Z, turned by ``yaw``
+    about +Y and ``pitch`` about +X (float32)."""
+    cy, sy, cp, sp = np.cos(yaw), np.sin(yaw), np.cos(pitch), np.sin(pitch)
+    m = np.eye(4)
+    m[:3, :3] = (np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+                 @ np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]]))
+    m[:3, 3] = eye
+    return m.astype(np.float32)
+
+
+# name: (previous pose, current pose, blend, options)
+_ORIGIN = pose_matrix((0, 0, 0))
+TAA_CASES = (
+    ("identity", _ORIGIN, _ORIGIN, 0.25, {}),
+    ("sideways_shift", pose_matrix((0.8, 0.05, 0)), _ORIGIN, 0.1, {}),
+    ("turn_and_climb", pose_matrix((0.2, 0.0, 0.5), yaw=0.02),
+     pose_matrix((0, 0.3, 0), pitch=-0.01), 0.3, {}),
+    ("window_exit", pose_matrix((1.0, 0.1, 0)), _ORIGIN, 0.2,
+     dict(near_far=(0.5, 60.0), depth_eps=1e6)),
+    ("partial_tile", pose_matrix((0.5, -0.4, 0)), pose_matrix((0, 0, 0.3)), 0.2, {}),
+    ("disocclusion", pose_matrix((0.5, 0.07, 0)), _ORIGIN, 0.2, dict(occluder=True)),
+    ("no_history_depth", pose_matrix((0.5, 0.2, 0)), _ORIGIN, 0.2, dict(history_depth=False)),
+    ("variance", pose_matrix((0.6, 0.1, 0)), _ORIGIN, 0.15,
+     dict(clamp_mode="variance", clamp_gamma=1.0)),
+)
+
+
+def smooth_planes(h, w, seed, device, channels):
+    """Seeded smooth planes (bilinear upsampling of a coarse random grid)."""
+    g = torch.Generator().manual_seed(seed)
+    coarse = torch.rand((1, channels, h // 16 + 2, w // 16 + 2), generator=g)
+    up = torch.nn.functional.interpolate(coarse, size=(h, w), mode="bilinear",
+                                         align_corners=False)[0]
+    return up.permute(1, 2, 0).contiguous().to(device)
+
+
+def taa_case_inputs(case, h, w, device):
+    name, prev, cur, blend, opt = case
+    seed = sum(map(ord, name))
+    color, hist = smooth_planes(h, w, seed, device, 3), smooth_planes(h, w, seed + 1, device, 3)
+    field = smooth_planes(h, w, seed + 2, device, 1)[..., 0]
+    near, far = opt.get("near_far", (20.0, 80.0))
+    ld = (torch.where(field < 0.5, near, far) if "near_far" in opt
+          else near + (far - near) * field).contiguous()
+    ld[64:72, 256:384] = 3.0e7  # sky above the 1e7 clamp
+    hd = ld.clone()
+    if opt.get("occluder"):
+        hd[h // 4:h // 2, w // 4:w // 2] *= 3.0
+    if opt.get("history_depth") is False:
+        hd = ld
+    return color, ld, hist, hd
+
+
+def taa_check(device, h, w):
+    """K3 against its plain version on every case; returns the worst
+    max |Δ| where validity agrees and the most flips (share of pixels)."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import taa
+    from godot_atmosphere_shader_tpu_torch.utils.camera import Camera
+
+    worst, worst_flips = 0.0, 0.0
+    for case in TAA_CASES:
+        name, prev, cur, blend, opt = case
+        color, ld, hist, hd = taa_case_inputs(case, h, w, device)
+        p = taa.taa_constants(Camera.create(prev, device="cpu"), Camera.create(cur, device="cpu"),
+                              blend, h, w, h, opt.get("depth_eps", 0.2),
+                              opt.get("clamp_mode", "minmax"), opt.get("clamp_gamma", 1.25))
+        out, depth = torch.empty_like(color), torch.empty_like(ld)
+        valid = torch.empty((h, w), dtype=torch.uint8, device=device)
+        taa.launch(p, color, ld, hist, hd, out, depth, valid)
+        ref, ref_depth, ref_valid = taa.resolve_plain(p, color, ld, hist, hd)
+        torch.cuda.synchronize()
+        flips = valid.bool() != ref_valid
+        err = float((out - ref).abs().amax(dim=-1)[~flips].max())
+        share = float(flips.double().mean())
+        log(f"[taa] {name} {h}x{w}: max |Δ| {err:.3g} where validity agrees, validity flips "
+            f"{int(flips.sum())} ({share:.3g} of pixels), valid share "
+            f"{float(ref_valid.double().mean()):.3f}, depth equal {torch.equal(depth, ref_depth)}")
+        if not (err <= TAA_MAX_ERR and share <= TAA_MAX_FLIPS and torch.equal(depth, ref_depth)):
+            raise RuntimeError(f"K3 disagrees with its plain version on {name}")
+        worst, worst_flips = max(worst, err), max(worst_flips, share)
+    return worst, worst_flips
+
+
+# -- flights ------------------------------------------------------------------------
+
+
+def fly_path(frames: int) -> np.ndarray:
+    """The avatar's flight: from the avatar pose forward at its speed (10
+    units/s) with a small yaw, 1/60 s per frame; (K, 4, 4) host transforms."""
+    from godot_atmosphere_shader_tpu_torch.utils.flight import FlyCamera
+
+    fly = FlyCamera(position=(0.0, 0.0, 156.425), speed=10.0)
+    stack = []
+    for _ in range(frames):
+        stack.append(fly.view_to_world())
+        fly.look(0.002, 0.0).move((0.0, 0.0, -1.0), dt=1.0 / 60.0)
+    return np.stack(stack)
+
+
+def flight_times(frames: int, t0: float = 0.5) -> list:
+    return [t0 + i / 60.0 for i in range(frames)]
+
+
+def plain_flight(scene, cam, times, stack, h, w, blend):
+    """The plain flight on the same CUDA inputs as ``Scene.render_flight``:
+    the same config (texture plan included), per-frame state rows and
+    transforms, through ``render_flight_plain``."""
+    import dataclasses
+
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import taa
+    from godot_atmosphere_shader_tpu_torch.render.renderer import render_flight_plain
+
+    _, params, configs = scene._sorted_layers(cam)
+    config, tex = scene._texture_plan(params[0], configs[0])
+    settings = None
+    if blend is not None:
+        config = dataclasses.replace(config, temporal_jitter=True)
+        settings = taa.TaaSettings(blend=blend)
+    near = float(cam.near)
+    rows = np.stack([scene.atmospheres[0].frame_state_row(float(t), m[:3, 3].astype(np.float64),
+                                                          near)
+                     for t, m in zip(np.asarray(times, np.float32), stack)])
+    return render_flight_plain(params[0], rows, config, cam, scene.opaque, h, w,
+                               cam_stack=stack, tex_data=tex, taa=settings)
+
+
+def check_flight(label, out, ref) -> float:
+    """Each frame against the plain flight (cloud tolerance); returns the
+    largest |Δ|."""
+    worst = 0.0
+    for i in range(out["color"].shape[0]):
+        got = frame_array({"color": out["color"][i], "alpha": out["alpha"][i]})
+        want = frame_array({"color": ref["color"][i], "alpha": ref["alpha"][i]})
+        check_frame(got, f"{label} frame {i}")
+        st = cloud_deltas(got, want)
+        log(f"[flight] {label} frame {i} kernel vs plain: {json.dumps(st)}")
+        if not cloud_tolerance_ok(st):
+            raise RuntimeError(f"{label}: frame {i} disagrees with the plain flight")
+        worst = max(worst, st["max"])
+    return worst
+
+
+def kernel_trace(fn, name: str) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: how many kernels whose
+    name holds ``name`` ran, their mean device time and the mean interval
+    between the starts of consecutive ones (µs)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    runs = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and name in e.name)
+    starts = [s for s, _ in runs]
+    return {"kernels": len(runs),
+            "device_us": sum(e - s for s, e in runs) / max(len(runs), 1),
+            "interval_us": ((starts[-1] - starts[0]) / (len(starts) - 1)
+                            if len(starts) > 1 else None)}
+
+
+def flight_trace(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: device busy ms (union of
+    device intervals), and the device→host copies in all and between the
+    first and the last frame kernel (K1 or K3) of the flight."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    frames = [e for e in events if "megakernel" in e.name or "taa_kernel" in e.name]
+    first = min(e.time_range.start for e in frames)
+    last = max(e.time_range.end for e in frames)
+    d2h = [e for e in events if "DtoH" in e.name]
+    inside = [e for e in d2h if first <= e.time_range.start <= last]
+    return {"device_busy_ms": busy_us(events) / 1e3, "frame_kernels": len(frames),
+            "d2h_copies": len(d2h), "d2h_copies_in_loop": len(inside)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
-                    help="stop after the texture-mode checks at 256×384 (phase 3b)")
+                    help="stop after the small checks: 256×384 frames, K2 alone, K3 alone "
+                         "and a 4-frame TAA flight (phase 3c)")
     args = ap.parse_args(argv)
 
     # -- 1. device ----------------------------------------------------------
@@ -302,11 +524,13 @@ def main(argv=None) -> int:
                                                                COVERAGE_SCALE,
                                                                bake_demo_textures)
     from godot_atmosphere_shader_tpu_torch.ops import sampling
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import library, probes, taa
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+    from godot_atmosphere_shader_tpu_torch.utils.camera import Camera
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.time()
-    path, ptxas = mk.build(ptxas_info=True)
+    path, ptxas = library.build(ptxas_info=True)
     log(f"[build] {os.path.relpath(path, ROOT)} in {time.time() - t0:.1f} s")
     for line in ptxas.splitlines():
         if any(k in line for k in ("Compiling entry", "registers", "spill", "stack", "smem")):
@@ -347,6 +571,24 @@ def main(argv=None) -> int:
         log(f"[check] clouds_high texture/{pose} {h}x{w} kernel vs plain: {json.dumps(st)}")
         if not cloud_tolerance_ok(st):
             raise RuntimeError(f"texture kernel disagrees with plain on {pose}")
+    # -- 3c. flight mode, small: K3 alone at 1080p, a 4-frame TAA flight -------
+    taa_err, taa_flips = taa_check(device, *FULL_SIZE)
+    scene, _ = scene_and_camera("clouds_high", "avatar", device)
+    stack = fly_path(SMALL_FLIGHT_FRAMES)
+    cam = Camera.create(stack[0], device=device)
+    times = flight_times(SMALL_FLIGHT_FRAMES)
+    mk.counters.reset()
+    taa.counters.reset()
+    out = scene.render_flight(cam, times, h, w, cam_transforms=stack, taa_blend=FLIGHT_BLEND)
+    torch.cuda.synchronize()
+    counts = (mk.counters.megakernel_launches, taa.counters.launches,
+              mk.counters.plain_calls + taa.counters.plain_calls)
+    log(f"[flight] 4-frame TAA flight {h}x{w}: counters K1 {counts[0]}, K3 {counts[1]}, "
+        f"plain {counts[2]}")
+    if counts != (SMALL_FLIGHT_FRAMES, SMALL_FLIGHT_FRAMES, 0):
+        raise RuntimeError("the small TAA flight did not go through K1 and K3 only")
+    check_flight(f"clouds_high TAA {h}x{w}", out,
+                 plain_flight(scene, cam, times, stack, h, w, FLIGHT_BLEND))
     if args.quick:
         return 1
 
@@ -485,6 +727,119 @@ def main(argv=None) -> int:
         log(f"[bound] {label}: {json.dumps(bounds[label])}")
     log(f"[time] after timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
+    # -- 6. the flight slice at 1080p through Scene.render_flight ----------------
+    K = FLIGHT_FRAMES
+    stack = fly_path(K)
+    flights = {"clouds_high TAA": (None, FLIGHT_BLEND),
+               "clouds_high texture TAA": (textures, FLIGHT_BLEND),
+               "clouds_high": (None, None)}
+    scenes, flight_err = {}, {}
+    mk.counters.reset()
+    taa.counters.reset()
+    for label, (tx, blend) in flights.items():
+        scene, _ = scene_and_camera("clouds_high", "avatar", device, textures=tx)
+        cam = Camera.create(stack[0], device=device)
+        before = (mk.counters.megakernel_launches, taa.counters.launches)
+        out = scene.render_flight(cam, flight_times(K), H, W, cam_transforms=stack,
+                                  taa_blend=blend)
+        torch.cuda.synchronize()
+        k1 = mk.counters.megakernel_launches - before[0]
+        k3 = taa.counters.launches - before[1]
+        plain = mk.counters.plain_calls + taa.counters.plain_calls
+        log(f"[flight] {label} 1080p K={K}: counters K1 {k1}, K3 {k3}, plain {plain}")
+        if (k1, k3, plain) != (K, K if blend else 0, 0):
+            raise RuntimeError(f"{label}: the flight did not go through K1 and K3 only")
+        scenes[label] = (scene, cam)
+        flight_err[label] = check_flight(f"{label} 1080p", out,
+                                         plain_flight(scene, cam, flight_times(K), stack, H, W,
+                                                      blend))
+    flight_k1 = mk.counters.megakernel_launches
+    flight_tex = mk.counters.texture_launches
+    flight_k3 = taa.counters.launches
+
+    # -- 7. flight timing, K3 alone, the launch floor -----------------------------
+    flight_timing = {}
+    for label, (tx, blend) in flights.items():
+        scene, cam = scenes[label]
+        best = None
+        for r in range(FLIGHT_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scene.render_flight(cam, flight_times(K, 1.0 + r), H, W, cam_transforms=stack,
+                                taa_blend=blend)
+            t_host = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t_all = time.perf_counter() - t0
+            if best is None or t_all < best[1]:
+                best = (t_host, t_all)
+        trace = flight_trace(lambda: scene.render_flight(cam, flight_times(K, 5.0), H, W,
+                                                         cam_transforms=stack, taa_blend=blend))
+        t = {"flight_ms_per_frame": best[1] / K * 1e3, "host_ms_per_frame": best[0] / K * 1e3,
+             "device_busy_ms_per_frame": trace["device_busy_ms"] / K,
+             "idle_share": 1.0 - trace["device_busy_ms"] / (best[1] * 1e3),
+             "frame_kernels_in_trace": trace["frame_kernels"],
+             "d2h_copies": trace["d2h_copies"], "d2h_copies_in_loop": trace["d2h_copies_in_loop"]}
+        flight_timing[label] = t
+        log(f"[flight-time] {label} 1080p K={K} on {card}: {json.dumps(t)}")
+        if trace["d2h_copies_in_loop"] or trace["frame_kernels"] != K * (2 if blend else 1):
+            raise RuntimeError(f"{label}: device->host copies inside the flight's launch loop "
+                               "(or a trace without the flight's kernels)")
+    log(f"[flight-time] Scene.render for comparison (phase 5): clouds_high/avatar "
+        f"{timings['clouds_high/avatar']['scene_ms']:.3f} ms, texture/avatar "
+        f"{timings['clouds_high/texture/avatar']['scene_ms']:.3f} ms")
+
+    # K3 alone on the flight's own second frame: its raw frame, depth and history
+    scene, cam = scenes["clouds_high TAA"]
+    inputs, _ = frame_inputs(scene, cam)
+    resolve = taa.flight_constants(cam, stack, taa.TaaSettings(blend=FLIGHT_BLEND), H, W)[1]
+    raw = mk.render_frame_plain(inputs[0], inputs[1], cam, inputs[3], H, W)
+    hist = torch.rand((H, W, 3), device=device)
+    hist_depth = raw["linear_depth"].clone()
+    taa_out, taa_depth = torch.empty_like(hist), torch.empty_like(hist_depth)
+
+    def k3(i):
+        taa.launch(resolve, raw["color"], raw["linear_depth"], hist, hist_depth, taa_out,
+                   taa_depth)
+
+    def k3_plain(i):
+        taa.resolve_plain(resolve, raw["color"], raw["linear_depth"], hist, hist_depth)
+
+    taa_t = {"kernel_ms": time_cuda(k3, KERNEL_FRAMES), "plain_ms": time_cuda(k3_plain, 3)}
+    t_bytes = H * W * BYTES_TAA_PIXEL / PEAK_BYTES * 1e3
+    t_ops = H * W * OPS_TAA_PIXEL / PEAK_FP32 * 1e3
+    taa_t.update(bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+    log(f"[taa-time] K3 alone 1080p on {card}: {json.dumps(taa_t)}")
+
+    # T3: the fill kernel K times back to back into K planes, as lax.map did
+    planes = torch.empty((FILL_LAUNCHES, H, W), device=device)
+    probes.launch_fill(0.0, planes[0])  # warm: the first launch loads the module
+    torch.cuda.synchronize()
+    probes.counters.reset()
+    fill_t = {"kernel_ms": time_cuda(lambda i: probes.launch_fill(float(i), planes[i]),
+                                     FILL_LAUNCHES, warmup=0),
+              "plain_ms": time_cuda(lambda i: probes.fill_plain(float(i), H, W, device=device),
+                                    FILL_LAUNCHES),
+              "library_ms": time_cuda(lambda i: planes[i % FILL_LAUNCHES].fill_(float(i)),
+                                      FILL_LAUNCHES)}
+    fill_launches = probes.counters.launches
+    fill_trace = kernel_trace(lambda: [probes.launch_fill(float(i), planes[i])
+                                       for i in range(FILL_LAUNCHES)], "fill_kernel")
+    library_trace = kernel_trace(lambda: [planes[i].fill_(float(i))
+                                          for i in range(FILL_LAUNCHES)], "")
+    probes.launch_fill(0.25, planes[0])
+    fill_err = float((planes[0] - probes.fill_plain(0.25, H, W, device=device)).abs().max())
+    fill_t.update(us_per_launch=fill_t["kernel_ms"] * 1e3, launches=fill_launches,
+                  device_us=fill_trace["device_us"],
+                  device_interval_us=fill_trace["interval_us"],
+                  library_device_us=library_trace["device_us"],
+                  library_device_interval_us=library_trace["interval_us"],
+                  bound_ms=(H * W * 4 + 4) / PEAK_BYTES * 1e3, max_abs_err=fill_err)
+    log(f"[fill-time] T3 launch floor 1080p on {card}: {json.dumps(fill_t)}")
+    if fill_err != 0.0 or fill_launches != FILL_LAUNCHES:
+        raise RuntimeError("the fill kernel disagrees with torch.full")
+    log(f"[flight-time] after timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+
     flagship, tex_flagship = "clouds_high/avatar", "clouds_high/texture/avatar"
     log(json.dumps({"kernels": [{
         "name": "megakernel",
@@ -492,6 +847,7 @@ def main(argv=None) -> int:
         "source": "godot_atmosphere_shader_tpu_torch/csrc/megakernel.cu",
         "replaces": "godot_atmosphere_shader_tpu/ops/pallas/megakernel.py:171",
         "launches": launches,
+        "flight_launches": flight_k1 - flight_tex,
         "max_abs_err": max_err,
         "ms": timings[flagship]["kernel_ms"],
         "plain_ms": timings[flagship]["plain_ms"],
@@ -506,6 +862,7 @@ def main(argv=None) -> int:
                      "godot_atmosphere_shader_tpu/ops/pallas/texsample.py:544 (inside "
                      "godot_atmosphere_shader_tpu/ops/pallas/megakernel.py:171)"),
         "launches": tex_launches,
+        "flight_launches": flight_tex,
         "max_abs_err": tex_err,
         "k2_alone_max_abs_err": k2_err,
         "ms": timings[tex_flagship]["kernel_ms"],
@@ -513,6 +870,32 @@ def main(argv=None) -> int:
         "bound_ms": bounds[tex_flagship]["bound_ms"],
         "bound_by": bounds[tex_flagship]["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "taa",
+        "route": "cuda",
+        "source": "godot_atmosphere_shader_tpu_torch/csrc/taa.cu",
+        "replaces": "godot_atmosphere_shader_tpu/ops/pallas/taa.py:345",
+        "launches": flight_k3,
+        "max_abs_err": taa_err,
+        "validity_flip_share": taa_flips,
+        "flight_max_abs_err": max(flight_err.values()),
+        "ms": taa_t["kernel_ms"],
+        "plain_ms": taa_t["plain_ms"],
+        "bound_ms": taa_t["bound_ms"],
+        "bound_by": taa_t["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "launch_floor",
+        "route": "cuda",
+        "source": "godot_atmosphere_shader_tpu_torch/csrc/probes.cu",
+        "replaces": "tools/profile_small.py:101",
+        "launches": fill_launches,
+        "max_abs_err": fill_err,
+        "ms": fill_t["kernel_ms"],
+        "plain_ms": fill_t["plain_ms"],
+        "bound_ms": fill_t["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": fill_t["library_ms"],
     }]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -53,10 +53,17 @@
 // level choice and weights follow the plain version bit for bit given the
 // same positions.
 //
+// Flight mode adds two things the TAA resolve needs (megakernel.py:385-390,
+// :348-349, :402-403): per-frame temporal jitter, and an optional output of
+// the opaque pass's linear depth (before the sphere-depth blend), for the
+// reprojection.
+//
 // Build (no fast math: the cloud density chain (...)*50-20 amplifies ulp
-// differences and floorf in the noise flips lattice cells at knife edges):
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -fmad=true -o libmegakernel.so megakernel.cu
+// differences and floorf in the noise flips lattice cells at knife edges),
+// one object per source, linked with the other kernels' into one library
+// (ops/kernels/library.py):
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+//        -Xcompiler -fPIC -fmad=true -c -o megakernel.o megakernel.cu
 // The launchers have a plain C interface and are bound with ctypes.
 
 #include <cuda_runtime.h>
@@ -116,6 +123,10 @@ struct MegakernelParams {
   float cam_rot[9];
   float ray_sx;
   float ray_sy;
+  // the pixel's jitter is frac(blue + jitter_offset): flight mode's temporal
+  // jitter, frac(time * 38.196601125) rounded on the host in f32, or 0 (the
+  // blue-noise values lie in [0, 1), so then the jitter is the blue noise)
+  float jitter_offset;
   // opaque scene
   int with_opaque;
   int n_spheres;
@@ -711,9 +722,12 @@ struct Coarse {
 };
 
 // rays, opaque pass and atmosphere of the G rows from y0 (rows and columns
-// past the frame edge are computed too: they belong to their tile)
+// past the frame edge are computed too: they belong to their tile).  depth:
+// nullptr, or the (H, W) plane that takes the opaque pass's linear depth
+// (before the sphere-depth blend) of the in-frame pixels.
 __device__ __forceinline__ void shade_rows(const MegakernelParams& p, const float* blue, int x,
-                                           int y0, int G, int L, Rows& s, unsigned long long* work,
+                                           int y0, int G, int L, Rows& s,
+                                           float* __restrict__ depth, unsigned long long* work,
                                            unsigned& n_atmo) {
   const V3 ro = load3(p.cam_pos);
   const V3 pc = load3(p.planet_center);
@@ -726,8 +740,10 @@ __device__ __forceinline__ void shade_rows(const MegakernelParams& p, const floa
     float linear_depth = 1.0e7f;
     V3 b = v3(0.0f, 0.0f, 0.0f);
     if (p.with_opaque) opaque_pass(p, ro, rd, b, linear_depth);
+    if (depth && x < p.width && y < p.height) depth[(size_t)y * p.width + x] = linear_depth;
     s.bg[r] = b;
-    const float jitter = blue[(y & 255) * 256 + (x & 255)];
+    float jitter = blue[(y & 255) * 256 + (x & 255)] + p.jitter_offset;
+    jitter = jitter - floorf(jitter);
 
     // shell intersection, sphere-depth blend, march span
     float rs0, rs1, g0, g1;
@@ -858,6 +874,7 @@ __global__ void __launch_bounds__(128) megakernel(const MegakernelParams p,
                                                   const float* __restrict__ blue,
                                                   float* __restrict__ color,
                                                   float* __restrict__ alpha_out,
+                                                  float* __restrict__ depth,
                                                   unsigned long long* work) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int L = p.clouds_enabled ? p.cloud_lod : 1;
@@ -868,7 +885,7 @@ __global__ void __launch_bounds__(128) megakernel(const MegakernelParams p,
 
   Rows s;
   unsigned n_atmo = 0, n_groups = 0, n_march = 0;
-  if (live) shade_rows(p, blue, x, y0, G, L, s, work, n_atmo);
+  if (live) shade_rows(p, blue, x, y0, G, L, s, depth, work, n_atmo);
 
   Coarse c;
   float light_c[MK_MAX_GROUP], calpha_c[MK_MAX_GROUP];
@@ -1199,7 +1216,7 @@ __global__ void __launch_bounds__(128 * (MK_TILE_ROWS / G), 1)
     megakernel_tex(const MegakernelParams p, const TexParams t, const float* __restrict__ blue,
                    const float* __restrict__ shape_tab, const float* __restrict__ cov_tab,
                    float* __restrict__ color, float* __restrict__ alpha_out,
-                   unsigned long long* work) {
+                   float* __restrict__ depth, unsigned long long* work) {
   extern __shared__ float smem[];
   const int nt = blockDim.x * blockDim.y;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -1214,7 +1231,7 @@ __global__ void __launch_bounds__(128 * (MK_TILE_ROWS / G), 1)
 
   Rows s;
   unsigned n_atmo = 0, n_march = 0, tex_samples[2] = {0, 0}, cov_samples[2] = {0, 0};
-  shade_rows(p, blue, x, y0, G, L, s, work, n_atmo);
+  shade_rows(p, blue, x, y0, G, L, s, depth, work, n_atmo);
   Coarse c;
   coarse_rays(p, L, C, s, c);
 
@@ -1309,23 +1326,25 @@ __global__ void __launch_bounds__(256) texsample_kernel(const TexParams t,
 // ---------------------------------------------------------------------------
 // Launchers: plain C interface for ctypes.  Each returns cudaGetLastError()
 // after the launch (0 on success), or -1 for a configuration the kernel is
-// not built for.  work: nullptr, or MK_WORK_SLOTS zeroed counters.
+// not built for.  depth: nullptr, or an (H, W) plane for the opaque pass's
+// linear depth.  work: nullptr, or MK_WORK_SLOTS zeroed counters.
 
 extern "C" int megakernel_launch(const MegakernelParams* params, const float* blue,
-                                 float* color, float* alpha, void* stream, void* work) {
+                                 float* color, float* alpha, float* depth, void* stream,
+                                 void* work) {
   if (params->clouds_enabled && params->coverage_knots != MK_KNOTS) return -1;
   const int G = params->clouds_enabled ? params->cloud_lod * params->coverage_lod : 1;
   dim3 block(128, 1, 1);
   dim3 grid((params->width + 127) / 128, params->height / G, 1);
   megakernel<MK_KNOTS><<<grid, block, 0, (cudaStream_t)stream>>>(
-      *params, blue, color, alpha, (unsigned long long*)work);
+      *params, blue, color, alpha, depth, (unsigned long long*)work);
   return (int)cudaGetLastError();
 }
 
 template <int G>
 static int launch_tex(const MegakernelParams* p, const TexParams* t, const float* blue,
                       const float* shape_tab, const float* cov_tab, float* color, float* alpha,
-                      cudaStream_t stream, unsigned long long* work) {
+                      float* depth, cudaStream_t stream, unsigned long long* work) {
   const int nt = 128 * (MK_TILE_ROWS / G);
   const size_t smem = (size_t)(MK_KNOTS + MK_SHAPE_KNOTS + 2) * nt * sizeof(float) +
                       (size_t)(nt / 32) * 2 * 3 * sizeof(float);
@@ -1336,14 +1355,15 @@ static int launch_tex(const MegakernelParams* p, const TexParams* t, const float
   dim3 block(128, MK_TILE_ROWS / G, 1);
   dim3 grid((p->width + MK_TILE_COLS - 1) / MK_TILE_COLS,
             (p->height + MK_TILE_ROWS - 1) / MK_TILE_ROWS, 1);
-  kernel<<<grid, block, smem, stream>>>(*p, *t, blue, shape_tab, cov_tab, color, alpha, work);
+  kernel<<<grid, block, smem, stream>>>(*p, *t, blue, shape_tab, cov_tab, color, alpha, depth,
+                                        work);
   return (int)cudaGetLastError();
 }
 
 extern "C" int megakernel_tex_launch(const MegakernelParams* params, const TexParams* tex,
                                      const float* blue, const float* shape_tab,
                                      const float* cov_tab, float* color, float* alpha,
-                                     void* stream, void* work) {
+                                     float* depth, void* stream, void* work) {
   if (!params->clouds_enabled || params->coverage_knots != MK_KNOTS ||
       tex->shape_knots != MK_SHAPE_KNOTS || tex->knot_group < 1 ||
       tex->knot_group > MK_MAX_GROUP)
@@ -1351,8 +1371,10 @@ extern "C" int megakernel_tex_launch(const MegakernelParams* params, const TexPa
   const int G = params->cloud_lod * params->coverage_lod;
   cudaStream_t s = (cudaStream_t)stream;
   unsigned long long* w = (unsigned long long*)work;
-  if (G == 4) return launch_tex<4>(params, tex, blue, shape_tab, cov_tab, color, alpha, s, w);
-  if (G == 8) return launch_tex<8>(params, tex, blue, shape_tab, cov_tab, color, alpha, s, w);
+  if (G == 4)
+    return launch_tex<4>(params, tex, blue, shape_tab, cov_tab, color, alpha, depth, s, w);
+  if (G == 8)
+    return launch_tex<8>(params, tex, blue, shape_tab, cov_tab, color, alpha, depth, s, w);
   return -1;
 }
 

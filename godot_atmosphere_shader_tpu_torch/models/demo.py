@@ -63,7 +63,7 @@ def demo_variant(name: str = "clouds", procedural: bool = True) -> VariantConfig
         **profile)
 
 
-def bake_demo_textures(*, device, shape_size: int = SHAPE_TEXTURE_SIZE,
+def bake_demo_textures(*, device="cuda", shape_size: int = SHAPE_TEXTURE_SIZE,
                        cubemap_size: int = COVERAGE_RESOLUTION):
     """The demo's baked assets on ``device``: the ``(S, S, S)`` shape texture
     (``SHAPE_NOISE_BAKE``, seamless) and the ``(6, R, R)`` coverage cubemap
@@ -74,7 +74,7 @@ def bake_demo_textures(*, device, shape_size: int = SHAPE_TEXTURE_SIZE,
 
 
 def build_demo_scene(variant: str = "clouds", procedural: bool = True, *,
-                     device, textures=None) -> Scene:
+                     device="cuda", textures=None) -> Scene:
     """Planet + sun + moon + cube demo scene on ``device``.  With
     ``procedural=False`` a clouds variant samples baked textures:
     ``textures`` = ``(shape, cubemap)`` if given (e.g. carried across from
@@ -145,7 +145,7 @@ _POSES = {
 }
 
 
-def demo_camera(pose: str = "avatar", *, device) -> Camera:
+def demo_camera(pose: str = "avatar", *, device="cuda") -> Camera:
     """Named camera poses of the demo (70° fov, near 0.1, far 800)."""
     if pose not in _POSES:
         raise ValueError(f"unknown pose {pose!r}")

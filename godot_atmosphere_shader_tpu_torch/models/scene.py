@@ -4,7 +4,11 @@ Counterpart of ``godot_atmosphere_shader_tpu/models/scene.py``: the
 reference node's properties and ``u_*`` uniform surface, the near/far mode
 switch with its 1.1 hysteresis margin, the interior cloud-LOD policy, and
 ``Scene.render``, which sends CUDA tensors to the megakernel and CPU tensors
-to its plain version (``ops/kernels/megakernel.py``).  A layer with baked
+to its plain version (``ops/kernels/megakernel.py``), and
+``Scene.render_flight``, which renders K frames of a camera path and time
+sequence, plain or temporally accumulated (the TAA resolve,
+``ops/kernels/taa.py``).  Entry points run on the card unless the caller
+asks for the CPU (``device="cpu"``).  A layer with baked
 cloud textures renders in the megakernel's texture mode: its textures are
 packed into mip pyramids once per texture object (kept on the scene's
 device) and the config gains their metas and the shape and coverage knot
@@ -12,7 +16,9 @@ flags, as the JAX package's ``Scene._pallas_plan`` does.
 
 Outside this slice, ``Scene.render`` raises ``NotImplementedError``: more
 than one layer, a far-mode layer, v1, ``od_mode="lut"`` and large-world
-rebasing are not ported yet.
+rebasing are not ported yet.  ``Scene.render_flight`` renders every layer
+fullscreen, as the JAX flight does (no far-mode bands, so a far layer does
+not raise there); its sharded form (``mesh=``) is not ported.
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.kernels.megakernel import render_frame_megakernel
+from ..ops.kernels.megakernel import (render_flight_megakernel, render_flight_taa,
+                                      render_frame_megakernel)
 from ..ops.kernels.texsample import build_latlong_pyramid, build_tex3d_pyramid
 from ..render.opaque import OpaqueScene
 from ..utils.camera import Camera
@@ -94,14 +101,14 @@ class Node3D:
 
 
 class PlanetAtmosphere(Node3D):
-    """The reference node's API over an :class:`AtmosphereParams` on an
-    explicit device."""
+    """The reference node's API over an :class:`AtmosphereParams` on
+    ``device`` (the card unless the caller asks for the CPU)."""
 
     def __init__(self, planet_radius: float = 1.0, atmosphere_height: float = 0.1,
                  sun: Optional[Node3D] = None, custom_shader=None,
                  clouds_rotation_speed: float = 1.0,
                  force_fullscreen: bool = False, position=(0.0, 0.0, 0.0),
-                 transform=None, name="PlanetAtmosphere", *, device,
+                 transform=None, name="PlanetAtmosphere", *, device="cuda",
                  **shader_params):
         super().__init__(position=position, transform=transform, name=name)
         self.device = torch.device(device)
@@ -191,7 +198,20 @@ class PlanetAtmosphere(Node3D):
 
     def update(self, time_s: float, cam_pos, cam_near: float = 0.1):
         """Per-frame uniform refresh from the host camera position: near/far
-        mode, the interior cloud-LOD hysteresis, and the packed frame state."""
+        mode, the interior cloud-LOD hysteresis, and the packed frame state
+        (uploaded to the device)."""
+        self.set_frame_state(self.frame_state_row(time_s, cam_pos, cam_near))
+
+    def set_frame_state(self, row: np.ndarray):
+        """Upload one packed frame-state row (24 f32) to the device."""
+        self._params = dataclasses.replace(
+            self._params, frame_state=torch.as_tensor(row, device=self.device))
+
+    def frame_state_row(self, time_s: float, cam_pos, cam_near: float = 0.1) -> np.ndarray:
+        """:meth:`update`'s work without the upload: advance the near/far
+        mode and the interior-LOD hysteresis to this camera position and
+        return the frame's packed state as a host row (a flight packs every
+        frame's row before its first launch)."""
         cam_pos = np.asarray(cam_pos, np.float64)
 
         # 1.75 ≈ sqrt(3): cube far-mesh corner distance (:300-303)
@@ -222,9 +242,7 @@ class PlanetAtmosphere(Node3D):
         c, s = math.cos(angle), math.sin(angle)
         # Transform2D().rotated(a) acts as [[c, -s], [s, c]] on xz (:338-341)
         rot = np.array([[c, -s], [s, c]], np.float32)
-        fs = AtmosphereParams.pack_frame_state(sun_pos, w2m, rot, time_s)
-        self._params = dataclasses.replace(
-            self._params, frame_state=torch.as_tensor(fs, device=self.device))
+        return AtmosphereParams.pack_frame_state(sun_pos, w2m, rot, time_s)
 
     def build_params(self) -> AtmosphereParams:
         return self._params
@@ -240,10 +258,10 @@ class PlanetAtmosphere(Node3D):
 
 class Scene:
     """A renderable collection: atmospheres + opaque geometry, on one
-    explicit device."""
+    device (the card unless the caller asks for the CPU)."""
 
     def __init__(self, atmospheres=(), opaque: Optional[OpaqueScene] = None,
-                 *, device):
+                 *, device="cuda"):
         self.device = torch.device(device)
         self.atmospheres = list(atmospheres)
         self.opaque = opaque
@@ -311,6 +329,20 @@ class Scene:
             cloud_coverage_tex_meta=cov_meta, cloud_coverage_interp=True)
         return config, (shape_table, cov_table)
 
+    @staticmethod
+    def _single_layer(order, configs):
+        """The one layer this slice renders, or ``NotImplementedError``."""
+        if len(order) != 1:
+            raise NotImplementedError(
+                f"{len(order)} atmosphere layers: only single-layer scenes "
+                "are ported yet (the far→near layer chain is not)")
+        config = configs[0]
+        if config.model != "v2":
+            raise NotImplementedError(f"model {config.model!r} is not ported yet")
+        if config.od_mode != "analytic":
+            raise NotImplementedError(f"od_mode={config.od_mode!r} is not ported yet")
+        return order[0], config
+
     def render(self, camera: Camera, height: int, width: int) -> dict:
         """Render one frame: ``{"color": (H, W, 3), "alpha": (H, W)}``.
 
@@ -318,19 +350,59 @@ class Scene:
         both return the same keys."""
         self._check_world_scale(self._cam_pos(camera))
         order, params, configs = self._sorted_layers(camera)
-        if len(order) != 1:
-            raise NotImplementedError(
-                f"{len(order)} atmosphere layers: only single-layer scenes "
-                "are ported yet (the far→near layer chain is not)")
-        atmo, config = order[0], configs[0]
+        atmo, config = self._single_layer(order, configs)
         if atmo.mode == MODE_FAR:
             raise NotImplementedError(
                 "far-mode (banded) layers are not ported yet; the layer "
                 "renders fullscreen with force_fullscreen=True or from near")
-        if config.model != "v2":
-            raise NotImplementedError(f"model {config.model!r} is not ported yet")
-        if config.od_mode != "analytic":
-            raise NotImplementedError(f"od_mode={config.od_mode!r} is not ported yet")
         config, tex_data = self._texture_plan(params[0], config)
         return render_frame_megakernel(params[0], config, camera, self.opaque,
                                        height, width, tex_data=tex_data)
+
+    def render_flight(self, camera: Camera, times, height: int, width: int,
+                      cam_transforms=None, taa_blend=None, taa_depth_eps: float = 0.2,
+                      taa_clamp: str = "minmax", taa_clamp_gamma: float = 1.25,
+                      mesh=None) -> dict:
+        """Render K frames of a flight: ``{"color": (K, H, W, 3), "alpha":
+        (K, H, W)}`` on the scene's device (``scene.py:663-789``).
+
+        ``times``: (K,) scene times (cast to float32); ``cam_transforms``:
+        optional (K, 4, 4) per-frame ``view_to_world`` transforms of
+        ``camera`` (host arrays; default: ``camera``'s for every frame).
+        Every frame's packed state is computed on the host first (the
+        layer's config is fixed once, from ``camera``, before the per-frame
+        updates; the mode and interior-LOD state left behind are the last
+        frame's).  Every layer renders fullscreen.  ``taa_blend``: resolve
+        each frame against the previous one (``render_flight_taa``, with
+        temporal jitter) with that blend, ``taa_depth_eps``, ``taa_clamp``
+        (``"minmax"`` or ``"variance"``) and ``taa_clamp_gamma``.  ``mesh``
+        (the sharded TAA flight) is not ported."""
+        if mesh is not None:
+            raise NotImplementedError("the sharded TAA flight (row bands with a halo "
+                                      "exchange) is not ported yet")
+        times = np.asarray(times, np.float32)
+        cam_pos = self._cam_pos(camera)
+        self._check_world_scale(cam_pos)
+        cam_near = float(camera.near)
+        order, params, configs = self._sorted_layers(camera)
+        atmo, config = self._single_layer(order, configs)
+        if cam_transforms is not None:
+            if isinstance(cam_transforms, torch.Tensor):
+                cam_transforms = cam_transforms.detach().cpu().numpy()
+            cam_transforms = np.asarray(cam_transforms, np.float32)
+            if cam_transforms.shape != (len(times), 4, 4):
+                raise ValueError(f"cam_transforms must be ({len(times)}, 4, 4), got "
+                                 f"{cam_transforms.shape}")
+        rows = []
+        for i, t in enumerate(times):
+            cp = (cam_transforms[i, :3, 3].astype(np.float64) if cam_transforms is not None
+                  else cam_pos)
+            rows.append(atmo.frame_state_row(float(t), cp, cam_near))
+        atmo.set_frame_state(rows[-1])
+        config, tex_data = self._texture_plan(params[0], config)
+        args = (params[0], np.stack(rows), config, camera, self.opaque, height, width)
+        if taa_blend is None:
+            return render_flight_megakernel(*args, cam_stack=cam_transforms, tex_data=tex_data)
+        return render_flight_taa(*args, cam_stack=cam_transforms, blend=float(taa_blend),
+                                 tex_data=tex_data, depth_eps=float(taa_depth_eps),
+                                 clamp_mode=taa_clamp, clamp_gamma=float(taa_clamp_gamma))

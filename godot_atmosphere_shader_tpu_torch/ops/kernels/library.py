@@ -1,0 +1,108 @@
+"""Build and load the port's CUDA kernels: one shared library from every
+source under ``csrc/``.
+
+Each source compiles on its own ``nvcc`` process (``sm_90a``, plain C
+interface), all started together, into an object; one more ``nvcc`` links
+the objects into ``build/torch_kernels/libkernels-<hash>.so`` at the root of
+the checkout.  The hash covers every source and the flags, so an edit of
+any source rebuilds.  The library is loaded with ``ctypes``; each wrapper
+module binds its own launchers (:func:`function`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CSRC = os.path.join(_PKG_DIR, "csrc")
+#: the kernel sources, one ``nvcc`` each
+SOURCES = tuple(os.path.join(CSRC, name) for name in ("megakernel.cu", "taa.cu", "probes.cu"))
+#: Build directory: ``build/`` at the root of the checkout.
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+
+
+def _nvcc() -> str:
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+def nvcc_command(output: str, source: str, ptxas_info: bool = False) -> list:
+    """The ``nvcc`` command line that compiles one source into the object
+    ``output``.  No fast math; ``a*b + c`` contracts into FMAs
+    (``-fmad=true``, measured against ``-fmad=false`` in PERF.md)."""
+    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+           "-fmad=true", "-c"]
+    if ptxas_info:
+        cmd.append("-Xptxas=-v")
+    return cmd + ["-o", output, source]
+
+
+def link_command(output: str, objects) -> list:
+    return [_nvcc(), *ARCH_FLAGS, "-shared", "-o", output, *objects]
+
+
+def library_path(build_dir: str = BUILD_DIR) -> str:
+    """Where the library for these sources and flags is built."""
+    digest = hashlib.sha256()
+    for source in SOURCES:
+        with open(source, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(nvcc_command("", "")[1:]).encode())
+    return os.path.join(build_dir, f"libkernels-{digest.hexdigest()[:16]}.so")
+
+
+def _run_all(commands) -> str:
+    """Run the commands in parallel; raise with the stderr of the first
+    that fails, else return their stderr joined."""
+    procs = [subprocess.Popen(c, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+             for c in commands]
+    logs = [p.communicate()[1] for p in procs]
+    for cmd, proc, log in zip(commands, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {proc.returncode}) building "
+                               f"{cmd[-1]}:\n{log}")
+    return "".join(logs)
+
+
+def build(build_dir: str = BUILD_DIR, ptxas_info: bool = False) -> tuple:
+    """Compile the kernel library unless it is already built.  Returns
+    ``(path, compiler log)``; a failed ``nvcc`` raises with its stderr."""
+    path = library_path(build_dir)
+    if os.path.exists(path) and not ptxas_info:
+        return path, ""
+    os.makedirs(build_dir, exist_ok=True)
+    stem = f"{path}.{os.getpid()}"
+    objects = [f"{stem}.{i}.o" for i in range(len(SOURCES))]
+    try:
+        log = _run_all([nvcc_command(o, s, ptxas_info) for o, s in zip(objects, SOURCES)])
+        log += _run_all([link_command(f"{stem}.tmp", objects)])
+        os.replace(f"{stem}.tmp", path)
+    finally:
+        for o in objects:
+            if os.path.exists(o):
+                os.remove(o)
+    return path, log
+
+
+_LIBRARY = None
+
+
+def load_library():
+    """Build (if needed) and load the kernel library; cached per process."""
+    global _LIBRARY
+    if _LIBRARY is None:
+        _LIBRARY = ctypes.CDLL(build()[0])
+    return _LIBRARY
+
+
+def function(name: str, argtypes):
+    """The library's C function ``name`` with its ``argtypes`` bound;
+    every launcher returns an ``int`` (a CUDA error code, 0 on success)."""
+    fn = getattr(load_library(), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn

@@ -16,16 +16,21 @@ mip pyramids by the K2 device functions, one thread block per 32×128 tile).
 * :func:`render_frame_plain` is the plain PyTorch version
   (``render/renderer.py::render_frame``), the reference the kernel is held
   against.
+* :func:`render_flight_megakernel` and :func:`render_flight_taa` render
+  K frames of a flight (counterparts of ``render_flight_pallas`` and
+  ``render_flight_taa``): every frame's launch struct is computed on the
+  host first, then the launches (and, with TAA, the resolve K3 of
+  ``taa.py`` after each frame) go back to back on one stream, with no
+  device→host copy between the first launch and the last.
 * :func:`sample_batches` runs K2 alone on caller-given batches (the
   counterpart of the TPU test harness around the samplers): the plain
   samplers on the CPU, the kernel's device functions on a card.
 * :data:`counters` counts kernel launches and plain calls, so a run can
   show which path it took.
 
-The kernel builds at first use with ``nvcc`` (``sm_90a``, plain C
-interface, bound with ``ctypes``) from the package's own source into
-``build/`` beside the package; the library name carries a hash of the
-source and flags, so an edit rebuilds.
+The kernel builds at first use with the port's other kernels
+(``library.py``: ``nvcc`` for ``sm_90a``, plain C interface, bound with
+``ctypes``) into ``build/`` at the root of the checkout.
 
 The per-frame scalar preamble (ray scale, planet center, sun direction,
 radii, model-space camera, march clamp, noise amplitudes) is computed once
@@ -37,31 +42,26 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
 import os
-import shutil
-import subprocess
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ...models.params import AtmosphereParams, VariantConfig
-from ...render.jitter import blue_noise_tensor
+from ...render.jitter import blue_noise_tensor, temporal_offset
 from ...render.opaque import OpaqueScene
-from ...render.renderer import TILE_COLS, TILE_ROWS, planet_center, render_frame
+from ...render.renderer import (TILE_COLS, TILE_ROWS, planet_center, render_flight_plain,
+                                render_frame)
 from ...utils.camera import Camera, ray_scale, transform_point, transform_dir
 from ...utils.vecmath import Vec3, normalize
 from ..atmosphere_v2 import scattering_coefficients
 from ..clouds import cloud_settings, march_distance_limit
 from ..noise import NoiseSpec, fractal_bounding
 from ..optical_depth import gauss_legendre_01
-from . import texsample
+from . import library, taa, texsample
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "megakernel.cu")
-#: Build directory: ``build/`` at the root of the checkout.
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
-ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+SOURCE = os.path.join(library.CSRC, "megakernel.cu")
 
 # limits of the launch structs (the #defines of csrc/megakernel.cu)
 MAX_SPHERES = 8
@@ -139,6 +139,7 @@ class MegakernelParams(ctypes.Structure):
         ("cam_rot", _floats(9)),
         ("ray_sx", ctypes.c_float),
         ("ray_sy", ctypes.c_float),
+        ("jitter_offset", ctypes.c_float),
         ("with_opaque", ctypes.c_int),
         ("n_spheres", ctypes.c_int),
         ("n_boxes", ctypes.c_int),
@@ -225,78 +226,37 @@ class TexParams(ctypes.Structure):
 
 
 #: The launchers' C signatures, as the ctypes binding declares them.
-LAUNCHER_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.c_void_p,
-                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                     ctypes.c_void_p)
+LAUNCHER_ARGTYPES = (ctypes.POINTER(MegakernelParams), *(ctypes.c_void_p,) * 6)
 TEX_LAUNCHER_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.POINTER(TexParams),
-                         *(ctypes.c_void_p,) * 7)
+                         *(ctypes.c_void_p,) * 8)
 TEXSAMPLE_ARGTYPES = (ctypes.POINTER(TexParams), ctypes.c_int, *(ctypes.c_void_p,) * 4,
                       ctypes.c_int, ctypes.c_int, *(ctypes.c_void_p,) * 3)
 
 
-# -- build ------------------------------------------------------------------
-
-
-def nvcc_command(output: str, ptxas_info: bool = False) -> list:
-    """The ``nvcc`` command line that builds the launcher library.  No fast
-    math; ``a*b + c`` contracts into FMAs (``-fmad=true``, measured against
-    ``-fmad=false`` in PERF.md)."""
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-fmad=true"]
-    if ptxas_info:
-        cmd.append("-Xptxas=-v")
-    return cmd + ["-o", output, SOURCE]
-
-
-def library_path(build_dir: str = BUILD_DIR) -> str:
-    """Where the library for this source and these flags is built."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read())
-    digest.update(" ".join(nvcc_command("")[1:]).encode())
-    return os.path.join(build_dir, f"libmegakernel-{digest.hexdigest()[:16]}.so")
-
-
-def build(build_dir: str = BUILD_DIR, ptxas_info: bool = False) -> tuple:
-    """Compile the kernel library unless it is already built.  Returns
-    ``(path, compiler log)``; a failed ``nvcc`` raises with its stderr."""
-    path = library_path(build_dir)
-    if os.path.exists(path) and not ptxas_info:
-        return path, ""
-    os.makedirs(build_dir, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    proc = subprocess.run(nvcc_command(tmp, ptxas_info), capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}) building "
-                           f"{SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, path)
-    return path, proc.stderr
+# -- binding --------------------------------------------------------------------
 
 
 _LIBRARY = None
 
 
 def load_library():
-    """Build (if needed) and load the kernel library; cached per process."""
+    """Build (if needed) and load the kernel library, bind the megakernel's
+    launchers and check the launch structs' mirrors; cached per process."""
     global _LIBRARY
     if _LIBRARY is not None:
         return _LIBRARY
-    path, _ = build()
-    lib = ctypes.CDLL(path)
-    for fn, argtypes in ((lib.megakernel_launch, LAUNCHER_ARGTYPES),
-                         (lib.megakernel_tex_launch, TEX_LAUNCHER_ARGTYPES),
-                         (lib.texsample_launch, TEXSAMPLE_ARGTYPES)):
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    lib = library.load_library()
+    for name, argtypes in (("megakernel_launch", LAUNCHER_ARGTYPES),
+                           ("megakernel_tex_launch", TEX_LAUNCHER_ARGTYPES),
+                           ("texsample_launch", TEXSAMPLE_ARGTYPES)):
+        library.function(name, argtypes)
     for name, struct in (("megakernel_params_size", MegakernelParams),
                          ("megakernel_noise_params_size", NoiseParams),
                          ("megakernel_tex_params_size", TexParams)):
-        fn = getattr(lib, name)
-        fn.argtypes = ()
-        fn.restype = ctypes.c_int
-        if fn() != ctypes.sizeof(struct):
+        size = library.function(name, ())()
+        if size != ctypes.sizeof(struct):
             raise RuntimeError(f"{struct.__name__} mirror is {ctypes.sizeof(struct)}"
-                               f" bytes, the kernel's struct {fn()}")
+                               f" bytes, the kernel's struct {size}")
     _LIBRARY = lib
     return lib
 
@@ -320,8 +280,6 @@ def check_config(config: VariantConfig):
         bad.append(f"model={config.model!r} (v2 only)")
     if config.od_mode != "analytic":
         bad.append(f"od_mode={config.od_mode!r} (analytic only)")
-    if config.temporal_jitter:
-        bad.append("temporal_jitter")
     if config.clouds_enabled:
         if texture_mode(config):
             bad.extend(_texture_problems(config))
@@ -452,6 +410,7 @@ _PARAM_FIELDS = ("planet_radius", "atmosphere_height", "sun_position",
                  "cloud_shape_factor", "cloud_shape_scale",
                  "cloud_coverage_rotation", "world_to_model", "time")
 _OPAQUE_FIELDS = tuple(f.name for f in dataclasses.fields(OpaqueScene))
+_CAMERA_FIELDS = ("view_to_world", "fov_y_rad", "near", "far")
 
 
 def frame_constants(params: AtmosphereParams, config: VariantConfig,
@@ -460,16 +419,13 @@ def frame_constants(params: AtmosphereParams, config: VariantConfig,
     """The kernel's launch struct: the frame's scalar preamble, computed on
     the host with the plain path's own functions."""
     p = _to_cpu(params.resolve_frame_state(), _PARAM_FIELDS)
-    cam = _to_cpu(camera, ("view_to_world", "fov_y_rad", "near", "far"))
+    cam = _to_cpu(camera, _CAMERA_FIELDS)
+    o = None if opaque is None else _to_cpu(opaque, _OPAQUE_FIELDS)
     s = MegakernelParams()
     s.height, s.width = height, width
-    ro = cam.position
-    _set(s.cam_pos, _floats_of(ro))
-    _set(s.cam_rot, cam.view_to_world[:3, :3].reshape(-1).tolist())
     s.ray_sx, s.ray_sy = ray_scale(cam, height, width)
 
-    if opaque is not None:
-        o = _to_cpu(opaque, _OPAQUE_FIELDS)
+    if o is not None:
         ns, nb = o.sphere_centers.shape[0], o.box_world_to_box.shape[0]
         if ns > MAX_SPHERES or nb > MAX_BOXES:
             raise ValueError(f"megakernel takes at most {MAX_SPHERES} spheres "
@@ -482,20 +438,13 @@ def frame_constants(params: AtmosphereParams, config: VariantConfig,
         _set(s.box_w2b, o.box_world_to_box.reshape(-1).tolist())
         _set(s.box_half, o.box_half_sizes.reshape(-1).tolist())
         _set(s.box_albedo, o.box_albedos.reshape(-1).tolist())
-        for i in range(nb):
-            for k, v in enumerate(_floats_of(transform_point(o.box_world_to_box[i], ro))):
-                s.box_origin[3 * i + k] = v
         _set(s.light_dir, o.light_dir.tolist())
         s.ambient = float(o.ambient)
         _set(s.sky_color, o.sky_color.tolist())
         s.star_intensity = float(o.star_intensity)
 
-    pc = planet_center(p)
-    sp = p.sun_position
-    sun_dir = normalize(Vec3(sp[0], sp[1], sp[2]) - pc)
     ra = p.planet_radius + p.atmosphere_height
     s.atmosphere_steps = config.atmosphere_steps
-    _set(s.planet_center, _floats_of(pc))
     s.planet_radius = float(p.planet_radius)
     s.atmosphere_height = float(p.atmosphere_height)
     s.atmosphere_radius = float(ra)
@@ -508,7 +457,6 @@ def frame_constants(params: AtmosphereParams, config: VariantConfig,
     _set(s.scatter, [float(c) for c in scattering_coefficients(p)])
     _set(s.ambient_color, p.atmosphere_ambient_color.tolist())
     _set(s.modulate, p.atmosphere_modulate.tolist())
-    _set(s.sun_dir, _floats_of(sun_dir))
     nodes, weights = gauss_legendre_01(QUAD_POINTS)
     _set(s.quad_x, nodes)
     _set(s.quad_w, weights)
@@ -533,18 +481,64 @@ def frame_constants(params: AtmosphereParams, config: VariantConfig,
         s.cloud_shape_scale = float(p.cloud_shape_scale)
         s.cloud_shape_bound = float(0.5 + 0.575 * p.cloud_shape_factor.abs())
         s.cloud_detail_term = 0.1
-        ro_model = transform_point(p.world_to_model, ro)
-        s.march_max_distance = float(march_distance_limit(ro_model, st))
-        _set(s.coverage_rot, p.cloud_coverage_rotation.reshape(-1).tolist())
-        _set(s.world_to_model, p.world_to_model.reshape(-1).tolist())
-        _set(s.ro_model, _floats_of(ro_model))
-        _set(s.sd_model, _floats_of(transform_dir(p.world_to_model, sun_dir)))
         # procedural fields (texture mode samples its pyramids instead)
         for name, field in (("shape", config.cloud_shape_noise),
                             ("coverage", config.cloud_coverage_noise)):
             if field is not None:
                 setattr(s, name, _noise_params(field.noise, field.scale))
+    _frame_fields(s, p, config, cam, o)
     return s
+
+
+def _frame_fields(s: MegakernelParams, p: AtmosphereParams, config: VariantConfig,
+                  cam: Camera, o: Optional[OpaqueScene]):
+    """Set the struct's per-frame fields in place, from host (CPU) params
+    with their frame state resolved and a host camera: everything that
+    depends on the camera's transform, the sun, the world→model transform,
+    the coverage rotation or the time.  A flight patches these alone."""
+    ro = cam.position
+    _set(s.cam_pos, _floats_of(ro))
+    _set(s.cam_rot, cam.view_to_world[:3, :3].reshape(-1).tolist())
+    if o is not None:
+        for i in range(o.box_world_to_box.shape[0]):
+            for k, v in enumerate(_floats_of(transform_point(o.box_world_to_box[i], ro))):
+                s.box_origin[3 * i + k] = v
+    pc = planet_center(p)
+    sp = p.sun_position
+    sun_dir = normalize(Vec3(sp[0], sp[1], sp[2]) - pc)
+    _set(s.planet_center, _floats_of(pc))
+    _set(s.sun_dir, _floats_of(sun_dir))
+    s.jitter_offset = temporal_offset(float(p.time)) if config.temporal_jitter else 0.0
+    if config.clouds_enabled:
+        ro_model = transform_point(p.world_to_model, ro)
+        s.march_max_distance = float(march_distance_limit(ro_model, cloud_settings(p)))
+        _set(s.coverage_rot, p.cloud_coverage_rotation.reshape(-1).tolist())
+        _set(s.world_to_model, p.world_to_model.reshape(-1).tolist())
+        _set(s.ro_model, _floats_of(ro_model))
+        _set(s.sd_model, _floats_of(transform_dir(p.world_to_model, sun_dir)))
+
+
+def flight_constants(params: AtmosphereParams, config: VariantConfig, camera: Camera,
+                     opaque: Optional[OpaqueScene], height: int, width: int,
+                     frame_states: np.ndarray, cam_stack: np.ndarray) -> list:
+    """Every frame's launch struct of a flight, on the host: frame 0's
+    whole, then per frame a copy with its per-frame fields patched from the
+    host rows ``frame_states`` (K, 24) and transforms ``cam_stack``
+    (K, 4, 4).  ``params``' own frame state is ignored."""
+    p = _to_cpu(dataclasses.replace(params, frame_state=None), _PARAM_FIELDS)
+    cam = _to_cpu(camera, _CAMERA_FIELDS)
+    o = None if opaque is None else _to_cpu(opaque, _OPAQUE_FIELDS)
+    structs = []
+    for fs, vtw in zip(frame_states, cam_stack):
+        p_i = dataclasses.replace(p, frame_state=torch.from_numpy(fs)).resolve_frame_state()
+        cam_i = dataclasses.replace(cam, view_to_world=torch.from_numpy(vtw))
+        if not structs:
+            structs.append(frame_constants(p_i, config, cam_i, o, height, width))
+            continue
+        s = MegakernelParams.from_buffer_copy(structs[0])
+        _frame_fields(s, p_i, config, cam_i, o)
+        structs.append(s)
+    return structs
 
 
 def tex_constants(config: VariantConfig, shape: Optional[texsample.TexMeta] = None,
@@ -594,14 +588,16 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
-           tex=None, work: Optional[torch.Tensor] = None):
+           tex=None, work: Optional[torch.Tensor] = None,
+           depth: Optional[torch.Tensor] = None):
     """Launch the kernel for one launch struct into preallocated CUDA
     outputs (``color`` (H, W, 3), ``alpha`` (H, W), float32) on the current
     stream of their device; counted in ``counters.megakernel_launches``.
     ``tex``: ``(TexParams, shape table, coverage table)`` for the texture
     instance (also counted in ``counters.texture_launches``).  ``work``:
     ``len(WORK_SLOTS)`` zeroed int64 counters that the kernel adds its work
-    to (see :func:`work_counts`)."""
+    to (see :func:`work_counts`).  ``depth``: an optional (H, W) float32
+    plane that takes the opaque pass's linear depth."""
     device = color.device
     blue = _BLUE_NOISE.get(str(device))
     if blue is None:
@@ -611,12 +607,13 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
         stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
         if tex is None:
             rc = lib.megakernel_launch(ctypes.byref(struct), _ptr(blue), _ptr(color),
-                                       _ptr(alpha), stream, _ptr(work))
+                                       _ptr(alpha), _ptr(depth), stream, _ptr(work))
         else:
             tparams, shape_table, cov_table = tex
             rc = lib.megakernel_tex_launch(ctypes.byref(struct), ctypes.byref(tparams),
                                            _ptr(blue), _ptr(shape_table), _ptr(cov_table),
-                                           _ptr(color), _ptr(alpha), stream, _ptr(work))
+                                           _ptr(color), _ptr(alpha), _ptr(depth), stream,
+                                           _ptr(work))
     if rc != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {rc}")
     counters.megakernel_launches += 1
@@ -632,15 +629,10 @@ def _check_table(t: torch.Tensor, meta: texsample.TexMeta, device):
                          f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def render_frame_megakernel(params: AtmosphereParams, config: VariantConfig,
-                            camera: Camera, opaque: Optional[OpaqueScene],
-                            height: int, width: int, tex_data=None) -> dict:
-    """Render one single-layer frame: ``{"color": (H, W, 3), "alpha": (H, W)}``.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (built on first use); any other device raises.  A texture-mode config
-    needs ``tex_data``, its ``(shape, coverage)`` pyramid tables.
-    """
+def _check_inputs(params: AtmosphereParams, config: VariantConfig, camera: Camera,
+                  opaque: Optional[OpaqueScene], height: int, tex_data) -> tuple:
+    """What the wrapper refuses, for a frame or a flight.  Returns
+    ``(device, texture mode?)``."""
     check_config(config)
     device = camera.view_to_world.device
     devices = {params.planet_radius.device, device}
@@ -657,22 +649,115 @@ def render_frame_megakernel(params: AtmosphereParams, config: VariantConfig,
         _check_table(tex_data[1], config.cloud_coverage_tex_meta, device)
     elif tex_data is not None:
         raise ValueError("tex_data given for a config without pyramid metas")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"megakernel runs on CUDA devices (got {device})")
+    group = config.cloud_lod * config.cloud_coverage_lod if config.clouds_enabled else 1
+    if device.type == "cuda" and not textured and height % group:
+        raise ValueError(f"frame height {height} must be divisible by "
+                         f"cloud_lod·cloud_coverage_lod = {group}")
+    return device, textured
+
+
+def render_frame_megakernel(params: AtmosphereParams, config: VariantConfig,
+                            camera: Camera, opaque: Optional[OpaqueScene],
+                            height: int, width: int, tex_data=None) -> dict:
+    """Render one single-layer frame: ``{"color": (H, W, 3), "alpha": (H, W)}``.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (built on first use); any other device raises.  A texture-mode config
+    needs ``tex_data``, its ``(shape, coverage)`` pyramid tables.
+    """
+    device, textured = _check_inputs(params, config, camera, opaque, height, tex_data)
     if device.type == "cpu":
         out = render_frame_plain(params, config, camera, opaque, height, width,
                                  tex_data=tex_data)
         return {"color": out["color"], "alpha": out["alpha"]}
-    if device.type != "cuda":
-        raise ValueError(f"megakernel runs on CUDA devices (got {device})")
-    group = config.cloud_lod * config.cloud_coverage_lod if config.clouds_enabled else 1
-    if not textured and height % group:
-        raise ValueError(f"frame height {height} must be divisible by "
-                         f"cloud_lod·cloud_coverage_lod = {group}")
-
     struct = frame_constants(params, config, camera, opaque, height, width)
     tex = (tex_constants(config), *tex_data) if textured else None
     color = torch.empty((height, width, 3), dtype=torch.float32, device=device)
     alpha = torch.empty((height, width), dtype=torch.float32, device=device)
     launch(struct, color, alpha, tex=tex)
+    return {"color": color, "alpha": alpha}
+
+
+def render_flight_megakernel(params: AtmosphereParams, frame_states, config: VariantConfig,
+                             camera: Camera, opaque: Optional[OpaqueScene], height: int,
+                             width: int, cam_stack=None, tex_data=None) -> dict:
+    """Render K frames of a flight: ``{"color": (K, H, W, 3), "alpha":
+    (K, H, W)}``.
+
+    ``frame_states``: (K, 24) host rows of packed frame state
+    (``PlanetAtmosphere.frame_state_row``); ``cam_stack``: optional
+    (K, 4, 4) host ``view_to_world`` transforms (default: ``camera``'s for
+    every frame).  CPU tensors take the plain flight (one plain frame per
+    frame); CUDA tensors compute every frame's launch struct on the host,
+    then launch the kernel K times back to back into preallocated outputs.
+    """
+    return _flight(params, frame_states, config, camera, opaque, height, width, cam_stack,
+                   tex_data, None)
+
+
+def render_flight_taa(params: AtmosphereParams, frame_states, config: VariantConfig,
+                      camera: Camera, opaque: Optional[OpaqueScene], height: int, width: int,
+                      cam_stack=None, blend: float = 0.15, tex_data=None,
+                      depth_eps: float = 0.2, clamp_mode: str = "minmax",
+                      clamp_gamma: float = 1.25) -> dict:
+    """The temporally accumulated flight: as :func:`render_flight_megakernel`,
+    but each output frame is the TAA resolve (``taa.py``) of the frame
+    rendered with temporal jitter (forced on) against the previous resolved
+    frame.  Frame 0 resolves with blend 1.0 against zero history at depth
+    1e7; the returned alpha is each raw frame's.  On a card every frame is
+    one K1 launch (with its depth output) and one K3 launch."""
+    config = dataclasses.replace(config, temporal_jitter=True)
+    settings = taa.TaaSettings(float(blend), float(depth_eps), clamp_mode, float(clamp_gamma))
+    return _flight(params, frame_states, config, camera, opaque, height, width, cam_stack,
+                   tex_data, settings)
+
+
+def _flight(params, frame_states, config, camera, opaque, height, width, cam_stack, tex_data,
+            settings: Optional[taa.TaaSettings]) -> dict:
+    device, textured = _check_inputs(params, config, camera, opaque, height, tex_data)
+    frame_states = np.ascontiguousarray(frame_states, np.float32)
+    k = frame_states.shape[0]
+    if cam_stack is None:
+        vtw = camera.view_to_world.detach().cpu().numpy()
+        cam_stack = np.broadcast_to(vtw, (k, 4, 4))
+    cam_stack = np.ascontiguousarray(cam_stack, np.float32)
+    if frame_states.shape != (k, 24) or cam_stack.shape != (k, 4, 4) or k < 1:
+        raise ValueError(f"a flight needs (K, 24) frame states and (K, 4, 4) transforms, "
+                         f"got {frame_states.shape} and {cam_stack.shape}")
+    if settings is not None:
+        taa.check_shapes(height, height, width, settings.clamp_mode)
+    if device.type == "cpu":
+        counters.plain_calls += k
+        if settings is not None:
+            taa.counters.plain_calls += k
+        return render_flight_plain(params, frame_states, config, camera, opaque, height, width,
+                                   cam_stack=cam_stack, tex_data=tex_data, taa=settings)
+
+    # every launch struct on the host first: no device->host copy from the
+    # first launch to the last
+    structs = flight_constants(params, config, camera, opaque, height, width, frame_states,
+                               cam_stack)
+    tex = (tex_constants(config), *tex_data) if textured else None
+    f32 = dict(dtype=torch.float32, device=device)
+    color = torch.empty((k, height, width, 3), **f32)
+    alpha = torch.empty((k, height, width), **f32)
+    if settings is None:
+        for i in range(k):
+            launch(structs[i], color[i], alpha[i], tex=tex)
+        return {"color": color, "alpha": alpha}
+    resolves = taa.flight_constants(camera, cam_stack, settings, height, width)
+    raw = torch.empty((height, width, 3), **f32)
+    depth = torch.empty((height, width), **f32)
+    no_history = torch.zeros((height, width, 3), **f32)
+    # history depth ping-pong: frame i reads depths[i % 2], writes the other
+    depths = (torch.full((height, width), taa.DEPTH_CLAMP, **f32),
+              torch.empty((height, width), **f32))
+    for i in range(k):
+        launch(structs[i], raw, alpha[i], tex=tex, depth=depth)
+        taa.launch(resolves[i], raw, depth, color[i - 1] if i else no_history,
+                   depths[i % 2], color[i], depths[(i + 1) % 2])
     return {"color": color, "alpha": alpha}
 
 

@@ -1,4 +1,4 @@
-"""Card-only checks of the CUDA megakernel against its plain version.
+"""Card-only checks of the CUDA kernels against their plain versions.
 
 Marked ``cuda``: on a machine without a CUDA device each test skips with a
 reason.  This file imports only the port, so it runs wherever the port
@@ -7,6 +7,7 @@ does.  ``chip_smoke.py`` covers the same ground at full size.
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -134,3 +135,116 @@ def test_texture_kernel_matches_plain(cuda, baked, pose):
     assert torch.quantile(d.flatten(), 0.999) <= 1e-3
     assert d.mean() <= 1e-4
     assert (d.amax(dim=-1) > 1e-2).double().mean() <= 1e-3
+
+
+# -- flight mode: K1's depth output and temporal jitter, K3, T3 -------------------
+
+
+def _cloud_ok(got, ref):
+    d = (got.double() - ref.double()).abs()
+    return (torch.quantile(d.flatten(), 0.999) <= 1e-3 and d.mean() <= 1e-4
+            and (d.amax(dim=-1) > 1e-2).double().mean() <= 1e-3)
+
+
+@pytest.mark.cuda
+def test_depth_output_and_temporal_jitter_match_plain(cuda):
+    """The kernel's optional depth plane is the opaque pass's linear depth
+    (the demo's sphere_depth_factor is 0, so it is set nonzero here), and
+    a temporal-jitter frame matches the plain version."""
+    scene = build_demo_scene("clouds_high", device=cuda)
+    scene.atmospheres[0].set_shader_parameter("u_sphere_depth_factor", 0.5)
+    cam = demo_camera("interior", device=cuda)
+    scene.update(0.37, cam)
+    _, params, configs = scene._sorted_layers(cam)
+    config = dataclasses.replace(configs[0], temporal_jitter=True)
+    struct = mk.frame_constants(params[0], config, cam, scene.opaque, H, W)
+    assert 0.0 < struct.jitter_offset < 1.0
+    color = torch.empty((H, W, 3), device=cuda)
+    alpha = torch.empty((H, W), device=cuda)
+    depth = torch.empty((H, W), device=cuda)
+    mk.launch(struct, color, alpha, depth=depth)
+    ref = mk.render_frame_plain(params[0], config, cam, scene.opaque, H, W)
+    assert _cloud_ok(_image({"color": color, "alpha": alpha}), _image(ref))
+    rel = ((depth - ref["linear_depth"]).abs() / ref["linear_depth"]).cpu()
+    assert (rel > 1e-5).double().mean() <= 1e-3  # silhouette knife edges only
+    assert bool((ref["linear_depth"] < 1e7).any()) and bool((ref["linear_depth"] == 1e7).any())
+
+
+def _taa_planes(h, w, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    coarse = torch.rand((2, 3, h // 8, w // 8), generator=g)
+    img = torch.nn.functional.interpolate(coarse, size=(h, w), mode="bilinear",
+                                          align_corners=False)
+    cur, hist = (x.permute(1, 2, 0).contiguous().to(device) for x in img)
+    depth = 20.0 + 60.0 * torch.rand((1, 1, h // 8, w // 16), generator=g)
+    depth = torch.nn.functional.interpolate(depth, size=(h, w), mode="nearest")[0, 0]
+    return cur, depth.contiguous().to(device), hist
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,h,w", [("minmax", 64, 128), ("variance", 72, 256),
+                                      ("minmax", 96, 512)])
+def test_taa_kernel_matches_plain(cuda, mode, h, w):
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import taa
+    from godot_atmosphere_shader_tpu_torch.utils.camera import Camera, look_at
+
+    cur, ld, hist = _taa_planes(h, w, 7, cuda)
+    hd = ld * torch.where(torch.rand(ld.shape, device=cuda) < 0.1, 3.0, 1.0)
+    prev = Camera.create(look_at((0.6, 0.15, 0.2), (0.5, 0.1, -10.0), device=cuda), device=cuda)
+    now = Camera.create(look_at((0.0, 0.0, 0.0), (0.0, 0.0, -10.0), device=cuda), device=cuda)
+    p = taa.taa_constants(prev, now, 0.2, h, w, h, 0.2, mode, 1.25)
+    out, depth = torch.empty_like(cur), torch.empty_like(ld)
+    valid = torch.empty((h, w), dtype=torch.uint8, device=cuda)
+    taa.counters.reset()
+    taa.launch(p, cur, ld, hist, hd, out, depth, valid)
+    ref, ref_depth, ref_valid = taa.resolve_plain(p, cur, ld, hist, hd)
+    assert taa.counters.launches == 1
+    flips = valid.bool() != ref_valid
+    assert int(flips.sum()) <= 1e-4 * h * w and bool(ref_valid.any()) and not bool(ref_valid.all())
+    assert float((out - ref).abs().amax(dim=-1)[~flips].max()) <= 1e-4
+    assert torch.equal(depth, ref_depth)
+
+
+@pytest.mark.cuda
+def test_taa_flight_matches_plain_flight(cuda):
+    """Four TAA frames at 64×128 along a moving path: K1 and K3 four times
+    each, no plain call, each frame within the cloud tolerance of the plain
+    flight on the same CUDA inputs."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import taa
+    from godot_atmosphere_shader_tpu_torch.render.renderer import render_flight_plain
+    from godot_atmosphere_shader_tpu_torch.utils.flight import FlyCamera
+
+    scene = build_demo_scene("clouds_high", device=cuda)
+    fly = FlyCamera(position=(0.0, 0.0, 156.425))
+    stack = []
+    for _ in range(4):
+        stack.append(fly.view_to_world())
+        fly.look(0.01, 0.0).move((0.0, 0.0, -1.0))
+    cam = fly.camera(device=cuda)
+    times = [0.5 + i / 60.0 for i in range(4)]
+    mk.counters.reset()
+    taa.counters.reset()
+    out = scene.render_flight(cam, times, H, W, cam_transforms=np.stack(stack), taa_blend=0.2)
+    torch.cuda.synchronize()
+    assert (mk.counters.megakernel_launches, taa.counters.launches) == (4, 4)
+    assert mk.counters.plain_calls == 0 and taa.counters.plain_calls == 0
+    _, params, configs = scene._sorted_layers(cam)
+    rows = np.stack([scene.atmospheres[0].frame_state_row(t, s[:3, 3].astype(np.float64), 0.1)
+                     for t, s in zip(times, stack)])
+    ref = render_flight_plain(params[0], rows, dataclasses.replace(configs[0],
+                                                                   temporal_jitter=True),
+                              cam, scene.opaque, H, W, cam_stack=np.stack(stack),
+                              taa=taa.TaaSettings(blend=0.2))
+    for i in range(4):
+        assert _cloud_ok(_image({"color": out["color"][i], "alpha": out["alpha"][i]}),
+                         _image({"color": ref["color"][i], "alpha": ref["alpha"][i]})), i
+
+
+@pytest.mark.cuda
+def test_fill_probe_matches_torch_full(cuda):
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import probes
+
+    probes.counters.reset()
+    got = probes.fill(0.25, 1080, 1920, device=cuda)
+    assert probes.counters.launches == 1
+    assert torch.equal(got, torch.full((1080, 1920), 0.25, device=cuda))

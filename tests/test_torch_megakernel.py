@@ -8,6 +8,7 @@ The JAX reference frame is the XLA path (``render_frame``), which
 
 import ctypes
 import dataclasses
+import os
 import re
 import sys
 
@@ -21,6 +22,7 @@ from godot_atmosphere_shader_tpu_torch.models.convert import (
     atmosphere_params_from_numpy, camera_from_numpy, opaque_from_numpy,
     variant_config_from_fields)
 from godot_atmosphere_shader_tpu_torch.models.demo import demo_variant
+from godot_atmosphere_shader_tpu_torch.ops.kernels import library
 from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
 torch.set_num_threads(2)
@@ -102,7 +104,7 @@ def test_cpu_tensors_take_the_plain_path(clouds_high):
     dict(od_mode="lut"), dict(model="v1"), dict(cloud_shape_noise=None),
     dict(cloud_coverage_noise=None), dict(raymarched_lighting=True),
     dict(cloud_coverage_interp=False), dict(cloud_shape_interp=True),
-    dict(cloud_coverage_knots=7), dict(cloud_lod=8), dict(temporal_jitter=True),
+    dict(cloud_coverage_knots=7), dict(cloud_lod=8), dict(cloud_coverage_lod=0),
     dict(clouds_always_low_quality=False), dict(cloud_shape_tex_meta=object()),
     dict(knot_dynamic=False), dict(cloud_coverage_tex_meta=object()),
 ])
@@ -110,6 +112,12 @@ def test_wrapper_rejects_unsupported_config(clouds_high, change):
     params, cfg, cam, opaque = clouds_high[1]
     with pytest.raises(ValueError):
         mk.render_frame_megakernel(params, dataclasses.replace(cfg, **change), cam, opaque, H, W)
+
+
+def test_wrapper_takes_temporal_jitter(clouds_high):
+    """Flight mode's per-frame jitter is in the kernel slice."""
+    params, cfg, cam, opaque = clouds_high[1]
+    mk.check_config(dataclasses.replace(cfg, temporal_jitter=True))
 
 
 def test_wrapper_rejects_unported_noise(clouds_high):
@@ -196,26 +204,34 @@ def test_cu_launcher_signature_matches_argtypes(name, argtypes):
     assert argtypes == want, params
     if name == "megakernel_launch":
         assert params == ["const MegakernelParams* params", "const float* blue",
-                          "float* color", "float* alpha", "void* stream", "void* work"]
+                          "float* color", "float* alpha", "float* depth", "void* stream",
+                          "void* work"]
 
 
 def test_build_command_and_cache_key(monkeypatch, tmp_path):
-    cmd = mk.nvcc_command("out.so")
+    cmd = library.nvcc_command("out.o", mk.SOURCE)
     assert "arch=compute_90a,code=sm_90a" in cmd and "-O3" in cmd
     assert "--use_fast_math" not in cmd and "-fmad=true" in cmd
-    assert mk.library_path().startswith(mk.BUILD_DIR)
-    # an edit of the source gives the library a new name, so it rebuilds
-    edited = tmp_path / "megakernel.cu"
-    edited.write_text(_cu_source() + "\n// edit\n")
-    before = mk.library_path()
-    monkeypatch.setattr(mk, "SOURCE", str(edited))
-    assert mk.library_path() != before
+    assert library.library_path().startswith(library.BUILD_DIR)
+    assert mk.SOURCE in library.SOURCES
+    # an edit of any source gives the library a new name, so it rebuilds
+    before = library.library_path()
+    for i, source in enumerate(library.SOURCES):
+        edited = tmp_path / os.path.basename(source)
+        with open(source) as f:
+            edited.write_text(f.read() + "\n// edit\n")
+        sources = list(library.SOURCES)
+        sources[i] = str(edited)
+        monkeypatch.setattr(library, "SOURCES", tuple(sources))
+        assert library.library_path() != before, source
+        monkeypatch.undo()
 
 
 def test_failed_build_raises_with_compiler_stderr(monkeypatch, tmp_path):
-    def failing(output, ptxas_info=False):
+    def failing(output, source, ptxas_info=False):
         return [sys.executable, "-c", "import sys; sys.stderr.write('bad kernel'); sys.exit(2)"]
 
-    monkeypatch.setattr(mk, "nvcc_command", failing)
+    monkeypatch.setattr(library, "nvcc_command", failing)
     with pytest.raises(RuntimeError, match="bad kernel"):
-        mk.build(build_dir=str(tmp_path))
+        library.build(build_dir=str(tmp_path))
+    assert not os.listdir(tmp_path)  # no object or library left behind
