@@ -17,7 +17,8 @@ on one CUDA card and checks every step:
    the plain samplers on the planes of ``tests/test_torch_texsample.py``
    (same mode and level, atol 2e-6); then the ``clouds_high`` texture scene
    (textures baked on the card) at avatar and interior, 256×384, kernel
-   against plain at the cloud tolerance;
+   against plain at the cloud tolerance; K2 alone timed on 1080p-sized
+   batches with its bound (T1);
 3c. flight mode, small: the TAA resolve K3 alone at 1080×1920 against its
    plain version on the cases of ``tests/test_torch_taa.py`` (max |Δ| ≤ 1e-4
    where validity agrees, validity flips ≤ 0.01 % of pixels); a 4-frame TAA
@@ -51,11 +52,32 @@ on one CUDA card and checks every step:
    frame and the device's idle share; K3 alone at 1080p with its bound; the
    launch floor T3 (``probes.py``'s fill kernel, launched back to back).
 
+The exterior and multi-planet frames (far-mode row bands, the opaque-only
+pass, the far→near layer chain, v1, raymarched cloud lighting) run in three
+more phases:
+
+3d. small (256×384), kernel against plain at the cloud tolerance, with the
+   launch counters (one K1 launch per kept layer, one more when the
+   opaque-only pass runs, no plain call): the opaque-only pass alone,
+   ``v1_no_clouds``/exterior, ``no_clouds``/exterior, ``clouds``/space, the
+   JAX bench cell 5 scene (``clouds_high_rm`` and the moon's ``no_clouds``
+   atmosphere) and the golden's chain (a ``v1_no_clouds`` moon) at space, a
+   far-mode ``clouds_high`` texture layer at space, and a 4-frame two-layer
+   TAA flight against the plain flight (K1 = 2·K, K3 = K launches);
+4c. the JAX bench cells 1 (``v1_no_clouds``/exterior, 256²), 2
+   (``no_clouds``/exterior, 512²), 5 (cell 5's scene at space, 1080p) and 7
+   (the gas giant at its limb pose, 1080p) through ``Scene.render``, each
+   with its band plan and held against the plain chain;
+5b. per cell: kernel ms per launch (opaque-only, fullscreen or banded
+   layer) with each launch's roofline bound from its work counters,
+   ``Scene.render`` ms and idle share, plain ms; on cell 5 the frame with
+   ``bands=None`` forced and the planet band without raymarched lighting.
+
 Prints a JSON line describing each kernel (with its roofline bound from
 this run's work counters), then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
 line.  Run from the repository root: ``python3 chip_smoke.py``
-(``--quick`` stops after phase 3c).
+(``--quick`` stops after phase 3d).
 """
 
 from __future__ import annotations
@@ -101,6 +123,23 @@ OPS_TEX3D = 110            # trilinear sample, position and footprint pass
 OPS_TEX3D_FLOOR = 57       # nearest floor-level sample
 OPS_LATLONG = 205          # polynomial (u, v) twice and a bilinear sample
 OPS_LATLONG_FLOOR = 190
+# one sun-march sample of raymarched lighting (sun_march): position 7,
+# length 6, height ratio 3, low-quality density 23, exp 5, alpha and step
+# 6; plus the procedural shape field (OPS_SHAPE_NOISE) where it is evaluated
+OPS_SUN_SAMPLE = 50
+# one v1 integration (atmosphere_v1): 16 steps of ~42 (distance 10,
+# direction 4, cubic density 8, sun term 10, light sum and factor 5, advance
+# 6) and the four-color mix ~30
+OPS_V1_ATMOSPHERE = 700
+# one opaque-only pixel: ray 25, three spheres 3 × 22, the box slab test 55,
+# shading or the star hash 50
+OPS_OPAQUE_PIXEL = 200
+# frame-plane bytes per pixel: a fused layer writes color and alpha (16); a
+# chained layer reads color, alpha and depth and writes color and alpha
+# (36); the opaque-only pass writes color, alpha and depth (20)
+BYTES_LAYER_PIXEL = 16
+BYTES_CHAINED_PIXEL = 36
+BYTES_OPAQUE_PIXEL = 20
 # The TAA resolve per pixel (csrc/taa.cu, counted the same way): ray and
 # reprojection ~75, window and bilinear of 4 planes ~70, 3×3 clamp of 3
 # channels ~145, blend ~12.  Bytes per pixel: current rgb and depth read,
@@ -114,6 +153,17 @@ FLIGHT_BLEND = 0.15
 FLIGHT_REPS = 3
 SMALL_FLIGHT_FRAMES = 4
 FILL_LAUNCHES = 32
+# the moon's atmosphere of the multi-planet cells (bench.py:270-274)
+MOON = dict(planet_radius=10.0, atmosphere_height=2.0, position=(-188.991, 0.0, 192.584))
+# JAX bench cells (bench.py:75-94): (cell, scene, pose, height, width)
+BENCH_CELLS = (("1", "v1_no_clouds", "exterior", 256, 256),
+               ("2", "no_clouds", "exterior", 512, 512),
+               ("5", "cell5", "space", 1080, 1920),
+               ("7", "gas_giant", "limb", 1080, 1920))
+# phase 3d's scenes at 256x384: (scene, pose)
+SCENE_CASES = (("v1_no_clouds", "exterior"), ("no_clouds", "exterior"), ("clouds", "space"),
+               ("cell5", "space"), ("golden_chain", "space"))
+SCENE_PLAIN_FRAMES = 1
 
 
 def log(*args):
@@ -228,19 +278,28 @@ def busy_us(events) -> float:
     return busy
 
 
-def roofline(work: dict, config, height: int, width: int, table_bytes: int = 0) -> dict:
-    """The least time the card could take for this frame's work: the
-    larger of its operations over the fp32 peak and its bytes (outputs
-    written once, blue noise and pyramids read once) over the HBM rate."""
+def roofline(work: dict, config, height: int, width: int, table_bytes: int = 0,
+             frame_bytes=None) -> dict:
+    """The least time the card could take for this launch's work: the
+    larger of its operations over the fp32 peak and its bytes (frame planes
+    read and written once, ``frame_bytes``, by default the outputs of a
+    fullscreen layer; blue noise and pyramids read once) over the HBM
+    rate."""
     steps = config.cloud_steps
     textured = table_bytes > 0
+    sun_ops = OPS_SUN_SAMPLE + (0 if textured else OPS_SHAPE_NOISE)
     ops = (work["pixels"] * OPS_PIXEL + work["atmosphere"] * OPS_ATMOSPHERE
+           + work["v1_atmosphere"] * OPS_V1_ATMOSPHERE
+           + work["opaque_pixels"] * OPS_OPAQUE_PIXEL
            + work["march"] * steps * (OPS_STEP + (0 if textured else OPS_SHAPE_NOISE))
+           + work["sun_samples"] * sun_ops
            + work["tex3d"] * OPS_TEX3D + work["tex3d_floor"] * OPS_TEX3D_FLOOR
            + work["latlong"] * OPS_LATLONG + work["latlong_floor"] * OPS_LATLONG_FLOOR)
     if not textured:
         ops += work["knot_groups"] * (config.cloud_coverage_knots + 1) * OPS_COVERAGE_KNOT
-    nbytes = height * width * 16 + 256 * 256 * 4 + table_bytes
+    if frame_bytes is None:
+        frame_bytes = height * width * BYTES_LAYER_PIXEL
+    nbytes = frame_bytes + 256 * 256 * 4 + table_bytes
     t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
     return {"ops": ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -425,25 +484,25 @@ def flight_times(frames: int, t0: float = 0.5) -> list:
 
 def plain_flight(scene, cam, times, stack, h, w, blend):
     """The plain flight on the same CUDA inputs as ``Scene.render_flight``:
-    the same config (texture plan included), per-frame state rows and
-    transforms, through ``render_flight_plain``."""
+    the same layers and configs (texture plans included), per-frame state
+    rows and transforms, through ``render_flight_plain``."""
     import dataclasses
 
     from godot_atmosphere_shader_tpu_torch.ops.kernels import taa
     from godot_atmosphere_shader_tpu_torch.render.renderer import render_flight_plain
 
-    _, params, configs = scene._sorted_layers(cam)
-    config, tex = scene._texture_plan(params[0], configs[0])
+    order, params, configs = scene._sorted_layers(cam)
+    plans = [scene._texture_plan(p, c) for p, c in zip(params, configs)]
+    configs = [c for c, _ in plans]
     settings = None
     if blend is not None:
-        config = dataclasses.replace(config, temporal_jitter=True)
+        configs = [dataclasses.replace(c, temporal_jitter=True) for c in configs]
         settings = taa.TaaSettings(blend=blend)
     near = float(cam.near)
-    rows = np.stack([scene.atmospheres[0].frame_state_row(float(t), m[:3, 3].astype(np.float64),
-                                                          near)
-                     for t, m in zip(np.asarray(times, np.float32), stack)])
-    return render_flight_plain(params[0], rows, config, cam, scene.opaque, h, w,
-                               cam_stack=stack, tex_data=tex, taa=settings)
+    fs = [np.stack([atmo.frame_state_row(float(t), m[:3, 3].astype(np.float64), near)
+                    for t, m in zip(np.asarray(times, np.float32), stack)]) for atmo in order]
+    return render_flight_plain(params, fs, configs, cam, scene.opaque, h, w, cam_stack=stack,
+                               tex_data=[t for _, t in plans], taa=settings)
 
 
 def check_flight(label, out, ref) -> float:
@@ -499,6 +558,202 @@ def flight_trace(fn) -> dict:
     inside = [e for e in d2h if first <= e.time_range.start <= last]
     return {"device_busy_ms": busy_us(events) / 1e3, "frame_kernels": len(frames),
             "d2h_copies": len(d2h), "d2h_copies_in_loop": len(inside)}
+
+
+# -- multi-layer scenes: the JAX bench cells ------------------------------------
+
+
+def build_scene(kind: str, device, textures=None):
+    """A demo variant's scene (``textures``: texture mode), ``"cell5"``
+    (``clouds_high_rm`` and the moon's ``no_clouds`` atmosphere, JAX bench
+    cell 5), ``"golden_chain"`` (the same with a ``v1_no_clouds`` moon, as
+    ``tests/golden_images/rm_multiplanet_space.png``) or ``"gas_giant"``."""
+    from godot_atmosphere_shader_tpu_torch.models.demo import (build_demo_scene,
+                                                               build_gas_giant_scene)
+    from godot_atmosphere_shader_tpu_torch.models.scene import PlanetAtmosphere
+
+    if kind == "gas_giant":
+        return build_gas_giant_scene(device=device)
+    if kind in ("cell5", "golden_chain"):
+        scene = build_demo_scene("clouds_high_rm", device=device)
+        scene.atmospheres.append(PlanetAtmosphere(
+            sun=scene.atmospheres[0].sun, device=device,
+            custom_shader="no_clouds" if kind == "cell5" else "v1_no_clouds", **MOON))
+        return scene
+    return build_demo_scene(kind, procedural=textures is None, device=device, textures=textures)
+
+
+def scene_camera(kind: str, pose: str, device):
+    from godot_atmosphere_shader_tpu_torch.models.demo import demo_camera, gas_giant_camera
+
+    return (gas_giant_camera if kind == "gas_giant" else demo_camera)(pose, device=device)
+
+
+def scene_plan(scene, cam, h: int) -> tuple:
+    """What ``Scene.render`` hands the layer chain for this frame:
+    ``(params, configs, tex_data, bands, band_rows)`` of the kept layers."""
+    order, params, configs = scene._sorted_layers(cam)
+    plans = [scene._texture_plan(p, c) for p, c in zip(params, configs)]
+    _, params, configs, tex, bands, rows = scene._layer_bands(
+        order, params, tuple(c for c, _ in plans), tuple(t for _, t in plans), cam, h)
+    return params, configs, tex, bands, rows
+
+
+def plan_text(plan) -> str:
+    _, configs, _, bands, rows = plan
+    parts = [] if bands is None or bands[0] is None else ["opaque-only"]
+    for i, c in enumerate(configs):
+        band = "fullscreen" if bands is None or bands[i] is None else (
+            f"rows {int(rows[i])}+{int(bands[i])}")
+        parts.append(f"{c.model}{'/clouds' if c.clouds_enabled else ''}: {band}")
+    return ", ".join(parts)
+
+
+def expected_launches(plan) -> int:
+    _, configs, _, bands, _ = plan
+    return len(configs) + int(bands is not None and bands[0] is not None)
+
+
+def check_scene(label: str, scene, cam, h: int, w: int) -> float:
+    """``Scene.render`` through the kernel (counters: the planned launches,
+    no plain call) against the plain chain on the same inputs (cloud
+    tolerance); returns the largest |Δ|."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    plan = scene_plan(scene, cam, h)
+    mk.counters.reset()
+    got = frame_array(scene.render(cam, h, w))
+    counts = (mk.counters.megakernel_launches, mk.counters.plain_calls)
+    params, configs, tex, bands, rows = plan
+    ref = frame_array(mk.render_scene_plain(params, configs, cam, scene.opaque, h, w,
+                                            tex_data=tex, bands=bands, band_rows=rows))
+    check_frame(got, f"kernel {label}")
+    check_frame(ref, f"plain {label}")
+    st = cloud_deltas(got, ref)
+    log(f"[scene] {label} {h}x{w}: plan [{plan_text(plan)}], counters K1 {counts[0]}, "
+        f"plain {counts[1]}; kernel vs plain: {json.dumps(st)}")
+    if counts != (expected_launches(plan), 0):
+        raise RuntimeError(f"{label}: the frame did not go through the planned K1 launches only")
+    if not cloud_tolerance_ok(st):
+        raise RuntimeError(f"{label}: kernel disagrees with plain")
+    return st["max"]
+
+
+def opaque_only_check(device, h: int, w: int) -> float:
+    """The opaque-only launch of cell 5's plan alone against the plain
+    opaque-only frame (color, alpha 0, linear depth)."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+    from godot_atmosphere_shader_tpu_torch.render.renderer import opaque_only_config, render_frame
+
+    scene = build_scene("cell5", device)
+    cam = scene_camera("cell5", "space", device)
+    scene.update(0.5, cam)
+    params, configs, tex, bands, rows = scene_plan(scene, cam, h)
+    kind, struct, _ = mk.scene_launches(params, configs, cam, scene.opaque, h, w, tex_data=tex,
+                                        bands=bands, band_rows=rows)[0]
+    if kind != "opaque":
+        raise RuntimeError("cell 5's plan does not start with the opaque-only pass")
+    color = torch.empty((h, w, 3), device=device)
+    alpha = torch.empty((h, w), device=device)
+    depth = torch.empty((h, w), device=device)
+    mk.launch(struct, color, alpha, depth=depth)
+    ref = render_frame(params[0], opaque_only_config(configs[0]), cam, scene.opaque, h, w,
+                       with_atmosphere=False)
+    got = frame_array({"color": color, "alpha": alpha})
+    st = cloud_deltas(got, frame_array(ref))
+    depth_off = float(((depth - ref["linear_depth"]).abs() > 1e-3 * ref["linear_depth"])
+                      .double().mean())
+    log(f"[scene] opaque-only pass {h}x{w} kernel vs plain: {json.dumps(st)}, alpha max "
+        f"{float(alpha.abs().max())}, depth off by > 1e-3 rel on {depth_off:.3g} of pixels")
+    if not cloud_tolerance_ok(st) or float(alpha.abs().max()) != 0.0 or depth_off > 1e-3:
+        raise RuntimeError("the opaque-only pass disagrees with plain")
+    return st["max"]
+
+
+def space_path(frames: int) -> np.ndarray:
+    """From the space pose, sliding sideways and in while looking at the
+    planet, both atmospheres in view; (K, 4, 4) host transforms."""
+    from godot_atmosphere_shader_tpu_torch.utils.camera import look_at
+
+    return np.stack([look_at((0.4 * i, 150.0, 420.0 - 0.6 * i), (0.0, 0.0, 0.0),
+                             device="cpu").numpy().astype(np.float32)
+                     for i in range(frames)])
+
+
+def launch_timing(plan, scene, cam, h, w, device) -> dict:
+    """Each launch of a frame's plan timed alone (CUDA events) with its
+    roofline bound from its work counters, and the whole sequence."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    params, configs, tex, bands, rows = plan
+    launches = mk.scene_launches(params, configs, cam, scene.opaque, h, w, tex_data=tex,
+                                 bands=bands, band_rows=rows)
+    color = torch.empty((h, w, 3), device=device)
+    alpha = torch.empty((h, w), device=device)
+    depth = torch.empty((h, w), device=device)
+    for _, struct, tl in launches:  # the planes the chained launches read
+        mk.launch(struct, color, alpha, tex=tl, depth=depth)
+    layer_of = ([0] if launches[0][0] == "opaque" else []) + list(range(len(configs)))
+    out, bound = [], 0.0
+    for (kind, struct, tl), li in zip(launches, layer_of):
+        ms = time_cuda(lambda i, st=struct, t=tl: mk.launch(st, color, alpha, tex=t, depth=depth),
+                       KERNEL_FRAMES)
+        work = mk.work_counts(struct, color, alpha, tex=tl, depth=depth)
+        per_px = (BYTES_OPAQUE_PIXEL if kind == "opaque" else BYTES_CHAINED_PIXEL
+                  if struct.with_background else BYTES_LAYER_PIXEL)
+        table_bytes = 0 if tl is None else sum(x.numel() * 4 for x in tl[1:])
+        b = roofline(work, configs[li], h, w, table_bytes, frame_bytes=struct.rows * w * per_px)
+        bound += b["bound_ms"]
+        out.append({"kind": kind, "layer": li, "row0": struct.row0, "rows": struct.rows,
+                    "ms": ms, **b, "work": work})
+
+    def frame(i):
+        for _, st, tl in launches:
+            mk.launch(st, color, alpha, tex=tl, depth=depth)
+
+    return {"launches": out, "frame_kernel_ms": time_cuda(frame, KERNEL_FRAMES),
+            "frame_bound_ms": bound, "launches_per_frame": len(launches)}
+
+
+def k2_timing(device) -> dict:
+    """K2 alone (T1: ``sample_batches``) on the demo's 64³ shape pyramid at
+    1080p-sized batches: one per 32×128 tile and shape knot group (34 × 15
+    tiles × 3 groups of up to 8 knots), 8 × 1024 samples each, on the
+    banded case's coordinate range; its plain samplers on the same planes;
+    the bound from the samples' operations and bytes."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import texsample as ts
+
+    data, meta = ts.build_tex3d_pyramid(
+        np.random.default_rng(5).random((64, 64, 64)).astype(np.float32))
+    table = torch.as_tensor(data, device=device)
+    name, _, lo, ext, _, kw = K2_TEX3D_CASES[2]
+    b, n = 34 * 15 * 3, 8 * 1024
+    g = torch.Generator(device=device).manual_seed(11)
+    planes = [lo[a] + ext[a] * torch.rand((b, n), device=device, generator=g) for a in range(3)]
+    mk.counters.reset()
+    got, mode, level = mk.sample_batches(table, meta, *planes, **kw)
+    ref = ts._tex3d_batches(table.reshape(-1), meta, *planes, kw["window_rows"],
+                            kw["band_rows"], kw.get("band_max_slices", 32))
+    torch.cuda.synchronize()
+    err = float((got - ref[0]).abs().max())
+    same = bool(torch.equal(mode, ref[1].to(mode.device).long().reshape(mode.shape))
+                and torch.equal(level, ref[2].to(level.device).long().reshape(level.shape)))
+    t = {"batches": b, "samples_per_batch": n, "case": name, "max_abs_err": err,
+         "same_mode_and_level": same,
+         "modes": {int(m): int((mode == m).sum()) for m in mode.unique()},
+         "ms": time_cuda(lambda i: mk.sample_batches(table, meta, *planes, **kw), KERNEL_FRAMES),
+         "plain_ms": time_cuda(lambda i: ts._tex3d_batches(
+             table.reshape(-1), meta, *planes, kw["window_rows"], kw["band_rows"],
+             kw.get("band_max_slices", 32)), 1, warmup=0),
+         "library_ms": None, "launches": mk.counters.texsample_launches}
+    samples = b * n
+    t_ops = samples * OPS_TEX3D / PEAK_FP32 * 1e3
+    t_bytes = (samples * 16 + table.numel() * 4) / PEAK_BYTES * 1e3
+    t.update(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
+    if not (err <= K2_ATOL and same):
+        raise RuntimeError("K2 alone disagrees with its plain samplers at 1080p-sized batches")
+    return t
 
 
 def main(argv=None) -> int:
@@ -571,6 +826,8 @@ def main(argv=None) -> int:
         log(f"[check] clouds_high texture/{pose} {h}x{w} kernel vs plain: {json.dumps(st)}")
         if not cloud_tolerance_ok(st):
             raise RuntimeError(f"texture kernel disagrees with plain on {pose}")
+    k2_t = k2_timing(device)
+    log(f"[k2-time] K2 alone, 1080p-sized batches on {card}: {json.dumps(k2_t)}")
     # -- 3c. flight mode, small: K3 alone at 1080p, a 4-frame TAA flight -------
     taa_err, taa_flips = taa_check(device, *FULL_SIZE)
     scene, _ = scene_and_camera("clouds_high", "avatar", device)
@@ -589,6 +846,34 @@ def main(argv=None) -> int:
         raise RuntimeError("the small TAA flight did not go through K1 and K3 only")
     check_flight(f"clouds_high TAA {h}x{w}", out,
                  plain_flight(scene, cam, times, stack, h, w, FLIGHT_BLEND))
+
+    # -- 3d. exterior and multi-planet frames, small ------------------------------
+    scene_err = opaque_only_check(device, h, w)
+    for kind, pose in SCENE_CASES:
+        scene = build_scene(kind, device)
+        cam = scene_camera(kind, pose, device)
+        scene.update(0.5, cam)
+        scene_err = max(scene_err, check_scene(f"{kind}/{pose}", scene, cam, h, w))
+    scene = build_scene("clouds_high", device, textures=textures)
+    cam = scene_camera("clouds_high", "space", device)
+    scene.update(0.5, cam)
+    scene_err = max(scene_err, check_scene("clouds_high texture/space", scene, cam, h, w))
+    scene = build_scene("cell5", device)
+    stack = space_path(SMALL_FLIGHT_FRAMES)
+    cam = Camera.create(stack[0], device=device)
+    mk.counters.reset()
+    taa.counters.reset()
+    out = scene.render_flight(cam, times, h, w, cam_transforms=stack, taa_blend=FLIGHT_BLEND)
+    torch.cuda.synchronize()
+    counts = (mk.counters.megakernel_launches, taa.counters.launches,
+              mk.counters.plain_calls + taa.counters.plain_calls)
+    log(f"[flight] 4-frame two-layer TAA flight {h}x{w}: counters K1 {counts[0]}, "
+        f"K3 {counts[1]}, plain {counts[2]}")
+    if counts != (2 * SMALL_FLIGHT_FRAMES, SMALL_FLIGHT_FRAMES, 0):
+        raise RuntimeError("the two-layer TAA flight did not go through K1 and K3 only")
+    scene_err = max(scene_err, check_flight(f"cell5 two-layer TAA {h}x{w}", out,
+                                            plain_flight(scene, cam, times, stack, h, w,
+                                                         FLIGHT_BLEND)))
     if args.quick:
         return 1
 
@@ -683,6 +968,19 @@ def main(argv=None) -> int:
         if not err <= BAKE_ATOL:
             raise RuntimeError(f"the card's bake disagrees with the CPU bake at {size}")
 
+    # -- 4c. the JAX bench cells 1, 2, 5 and 7 through Scene.render ---------------
+    cells = {}
+    mk.counters.reset()
+    cell_launches = 0
+    for cell, kind, pose, ch, cw in BENCH_CELLS:
+        scene = build_scene(kind, device)
+        cam = scene_camera(kind, pose, device)
+        scene.update(0.5, cam)
+        scene_err = max(scene_err, check_scene(f"cell {cell} {kind}/{pose}", scene, cam, ch, cw))
+        plan = scene_plan(scene, cam, ch)
+        cell_launches += expected_launches(plan)
+        cells[cell] = (kind, scene, cam, ch, cw, plan)
+
     # -- 5. timing -------------------------------------------------------------
     timings, bounds = {}, {}
     cases = [("clouds_high", "avatar", None), ("clouds_high", "interior", None),
@@ -726,6 +1024,53 @@ def main(argv=None) -> int:
         log(f"[time] {label} 1080p on {card}: {json.dumps(t)}")
         log(f"[bound] {label}: {json.dumps(bounds[label])}")
     log(f"[time] after timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+
+    # -- 5b. the bench cells' timing: per launch, per frame, plain ---------------------
+    import dataclasses
+
+    cell_t = {}
+    for cell, (kind, scene, cam, ch, cw, plan) in cells.items():
+        t = launch_timing(plan, scene, cam, ch, cw, device)
+
+        def frame(i, scene=scene, cam=cam, ch=ch, cw=cw):
+            scene.update(0.5 + 0.05 * i, cam)
+            scene.render(cam, ch, cw)
+
+        def plain(i, scene=scene, cam=cam, ch=ch, cw=cw):
+            scene.update(0.5 + 0.05 * i, cam)
+            params, configs, tex, bands, rows = scene_plan(scene, cam, ch)
+            mk.render_scene_plain(params, configs, cam, scene.opaque, ch, cw, tex_data=tex,
+                                  bands=bands, band_rows=rows)
+
+        t["scene_ms"] = time_cuda(frame, KERNEL_FRAMES)
+        busy, kernel = device_busy_ms(frame, KERNEL_FRAMES, first=2 + KERNEL_FRAMES)
+        t["scene_device_busy_ms"] = busy
+        t["scene_megakernel_device_ms"] = kernel
+        t["scene_idle_share"] = 1.0 - busy / t["scene_ms"] if busy > 0 else None
+        t["plain_ms"] = time_cuda(plain, SCENE_PLAIN_FRAMES, warmup=0)
+        t["plan"] = plan_text(plan)
+        scene.update(0.5, cam)
+        cell_t[cell] = t
+        log(f"[cell-time] cell {cell} {kind} {ch}x{cw} on {card}: {json.dumps(t)}")
+    # cell 5: the same frame with bands=None forced, and the planet band
+    # without raymarched lighting
+    kind, scene, cam, ch, cw, plan = cells["5"]
+    params, configs, tex, bands, rows = plan
+    full = launch_timing((params, configs, tex, None, None), scene, cam, ch, cw, device)
+    cheap = list(configs)
+    cheap[0] = dataclasses.replace(configs[0], raymarched_lighting=False)
+    no_rm = launch_timing((params, tuple(cheap), tex, bands, rows), scene, cam, ch, cw, device)
+    planet = [x for x in cell_t["5"]["launches"] if x["layer"] == 0 and x["kind"] != "opaque"]
+    planet_cheap = [x for x in no_rm["launches"] if x["layer"] == 0 and x["kind"] != "opaque"]
+    cell5_cmp = {"banded_frame_kernel_ms": cell_t["5"]["frame_kernel_ms"],
+                 "fullscreen_frame_kernel_ms": full["frame_kernel_ms"],
+                 "fullscreen_launches": [{k: x[k] for k in ("kind", "rows", "ms", "bound_ms")}
+                                         for x in full["launches"]],
+                 "planet_band_rm_ms": planet[0]["ms"],
+                 "planet_band_cheap_light_ms": planet_cheap[0]["ms"],
+                 "planet_band_cheap_light_bound_ms": planet_cheap[0]["bound_ms"]}
+    log(f"[cell-time] cell 5 comparisons on {card}: {json.dumps(cell5_cmp)}")
+    log(f"[cell-time] after timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
     # -- 6. the flight slice at 1080p through Scene.render_flight ----------------
     K = FLIGHT_FRAMES
@@ -848,6 +1193,11 @@ def main(argv=None) -> int:
         "replaces": "godot_atmosphere_shader_tpu/ops/pallas/megakernel.py:171",
         "launches": launches,
         "flight_launches": flight_k1 - flight_tex,
+        "bench_cell_launches": cell_launches,
+        "cell5_ms": cell_t["5"]["frame_kernel_ms"],
+        "cell5_launches_per_frame": cell_t["5"]["launches_per_frame"],
+        "cell5_bound_ms": cell_t["5"]["frame_bound_ms"],
+        "scene_max_abs_err": scene_err,
         "max_abs_err": max_err,
         "ms": timings[flagship]["kernel_ms"],
         "plain_ms": timings[flagship]["plain_ms"],

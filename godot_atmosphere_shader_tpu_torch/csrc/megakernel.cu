@@ -1,13 +1,16 @@
-// Fused frame megakernel for NVIDIA Hopper (sm_90a): opaque pass, v2
-// atmosphere with analytic sun optical depth, cloud march and composite, in
-// one launch per frame.  Two instances: procedural cloud fields, and
-// texture mode, whose cloud fields are baked textures sampled through mip
-// pyramids by the K2 device functions below.
+// Fused frame megakernel for NVIDIA Hopper (sm_90a): opaque pass, v1 or v2
+// atmosphere (v2 with analytic sun optical depth), cloud march (cheap or
+// sun-marched light) and composite, in one launch per atmosphere layer.
+// Two instances: procedural cloud fields, and texture mode, whose cloud
+// fields are baked textures sampled through mip pyramids by the K2 device
+// functions below.
 //
 // Replaces the TPU Pallas kernels
 //   godot_atmosphere_shader_tpu/ops/pallas/megakernel.py::_make_kernel
-// (launched by _render_pallas_jit, pallas_call at megakernel.py:636) for
-// one fullscreen layer with the fused opaque pass, and, inside it,
+// (launched by _render_pallas_jit, pallas_call at megakernel.py:636): a
+// layer over the fused opaque pass or over the layers below (the far->near
+// chain of _chain_layers), on the whole frame or on a far-mode row band,
+// or the opaque pass alone; and, inside it,
 //   godot_atmosphere_shader_tpu/ops/pallas/texsample.py::sample_tex3d (:348)
 //   and ::sample_latlong (:544), with their _window_lookup (:275).
 // Their plain PyTorch versions are
@@ -58,6 +61,29 @@
 // the opaque pass's linear depth (before the sphere-depth blend), for the
 // reprojection.
 //
+// Scenes of several layers (megakernel.py:770-849) are one launch per
+// layer, far to near, on one stream:
+//   * bands: a far-mode layer's grid covers its rows [row0, row0 + rows)
+//     only; ray directions still use the full frame height, the jitter is
+//     read at the global row (the blue-noise tiling is 256-periodic, so
+//     this equals the TPU's slice of the full-frame jitter plane), and the
+//     outputs go straight into the frame's rows;
+//   * chaining (with_background): a later layer reads the composite so far
+//     and the carried linear depth from the frame planes instead of running
+//     the opaque pass, composites over it in place and writes
+//     alpha = max(alpha below, its own).  In place, each pixel is read and
+//     written by the one thread that owns it, and through one pointer per
+//     plane (color, alpha, depth are each passed once), so no two pointers
+//     alias and the __restrict__ qualifiers stay valid; no ping-pong buffer
+//     and none of the TPU's slice/update copies (megakernel.py:831-846) is
+//     needed;
+//   * the opaque-only pass (with_atmosphere = 0, one row per thread): the
+//     base frame of a chain whose layer 0 is banded: background color,
+//     alpha 0 and linear depth.
+// The v1 model is a run-time field (atmosphere_v1 beside atmosphere_v2),
+// and so is raymarched lighting (a 6-step sun march per cloud step, kept
+// rolled).
+//
 // Build (no fast math: the cloud density chain (...)*50-20 amplifies ulp
 // differences and floorf in the noise flips lattice cells at knife edges),
 // one object per source, linked with the other kernels' into one library
@@ -92,7 +118,11 @@
 #define MK_WORK_TEX3D_FLOOR 5
 #define MK_WORK_LATLONG 6
 #define MK_WORK_LATLONG_FLOOR 7
-#define MK_WORK_SLOTS 8
+#define MK_WORK_SUN_SAMPLES 8
+#define MK_WORK_V1_ATMOSPHERE 9
+#define MK_WORK_OPAQUE_PIXELS 10
+#define MK_WORK_SLOTS 11
+#define MK_SUN_STEPS 6  // raymarched lighting's sun march
 
 // ---------------------------------------------------------------------------
 // Launch parameters.  The Python wrapper mirrors these structs field for
@@ -118,6 +148,10 @@ struct NoiseParams {
 struct MegakernelParams {
   int height;
   int width;
+  // the frame rows this launch renders: [row0, row0 + rows) (a far-mode
+  // band, or 0 and height)
+  int row0;
+  int rows;
   // camera: position, view->world rotation (row-major), ray preamble
   float cam_pos[3];
   float cam_rot[9];
@@ -127,6 +161,11 @@ struct MegakernelParams {
   // jitter, frac(time * 38.196601125) rounded on the host in f32, or 0 (the
   // blue-noise values lie in [0, 1), so then the jitter is the blue noise)
   float jitter_offset;
+  // 0: the opaque-only pass (background color, alpha 0, linear depth out)
+  int with_atmosphere;
+  // 1: a chained layer: color, alpha and depth hold the layers below on
+  // entry (no opaque pass), the composite on exit
+  int with_background;
   // opaque scene
   int with_opaque;
   int n_spheres;
@@ -143,7 +182,8 @@ struct MegakernelParams {
   float ambient;
   float sky_color[3];
   float star_intensity;
-  // atmosphere (v2, analytic sun optical depth)
+  // atmosphere (v2 with analytic sun optical depth, or v1)
+  int model;                 // 0 v2, 1 v1
   int atmosphere_steps;
   float planet_center[3];
   float planet_radius;
@@ -161,9 +201,16 @@ struct MegakernelParams {
   float sun_dir[3];          // world space
   float quad_x[MK_QUAD_POINTS];
   float quad_w[MK_QUAD_POINTS];
+  // v1: the day and night color pairs (linear) and the transition scale
+  float day_color0[3];
+  float day_color1[3];
+  float night_color0[3];
+  float night_color1[3];
+  float day_night_transition_scale;
   // clouds
   int clouds_enabled;
   int cloud_steps;
+  int raymarched_lighting;   // 1: the sun march instead of cheap light
   int cloud_lod;
   int coverage_lod;
   int coverage_knots;
@@ -181,6 +228,7 @@ struct MegakernelParams {
   float cloud_shape_bound;   // 0.5 + 0.575 * |shape_factor|
   float cloud_detail_term;   // 0.1 in always-low mode
   float march_max_distance;
+  float sun_step0;           // raymarched lighting's first step, 0.15 * layer / 6
   float coverage_rot[4];
   float world_to_model[16];
   float ro_model[3];         // camera position in model space
@@ -581,6 +629,40 @@ __device__ void atmosphere_v2(const MegakernelParams& p, V3 ro, V3 rd, float t_b
 }
 
 // ---------------------------------------------------------------------------
+// v1 atmosphere (ops/atmosphere_v1.py): a fixed-step march of the extinction
+// factor and a squared sun-facing term, then the four-color mix
+
+__device__ void atmosphere_v1(const MegakernelParams& p, V3 ro, V3 rd, float t_begin,
+                              float t_end, float out[4]) {
+  const V3 pc = load3(p.planet_center);
+  const V3 sun = load3(p.sun_dir);
+  const float inv_steps = (float)(1.0 / (double)p.atmosphere_steps);
+  const float step_len = (t_end - t_begin) * inv_steps;
+  V3 pos = add(ro, mul(rd, t_begin));
+  float factor = 1.0f, light_sum = 0.0f;
+  for (int i = 0; i < p.atmosphere_steps; ++i) {
+    const V3 rel = sub(pos, pc);
+    const float d = sqrtf(rel.x * rel.x + rel.y * rel.y + rel.z * rel.z);
+    const V3 up = mul(rel, 1.0f / d);
+    const float dens = atmo_density(p, d);
+    float light = saturate(1.2f * (sun.x * up.x + sun.y * up.y + sun.z * up.z) + 0.5f);
+    light = light * light;
+    light_sum = light_sum + light * inv_steps;
+    factor = factor * (1.0f - dens * step_len);
+    pos = add(pos, mul(rd, step_len));
+  }
+  const float af = 1.0f - factor;
+  const float day_factor = saturate(light_sum * p.day_night_transition_scale);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float night = p.night_color0[c] + (p.night_color1[c] - p.night_color0[c]) * af;
+    const float day = p.day_color0[c] + (p.day_color1[c] - p.day_color0[c]) * af;
+    out[c] = night + (day - night) * day_factor;
+  }
+  out[3] = saturate(af);
+}
+
+// ---------------------------------------------------------------------------
 // Clouds (ops/clouds.py)
 
 __device__ __forceinline__ float raw_coverage(const MegakernelParams& p, V3 pos) {
@@ -589,32 +671,63 @@ __device__ __forceinline__ float raw_coverage(const MegakernelParams& p, V3 pos)
   return field(p.coverage, normalize(q));
 }
 
-// One cloud march step: returns the scaled density, updates light.
-// shape_raw is the raw shape field at the step (procedural or from knots).
-__device__ float cloud_step(const MegakernelParams& p, V3 pos, V3 rd, float alpha, float cov,
-                           float shape_raw, float& light) {
-  V3 sd = load3(p.sd_model);
-  float pos_len = sqrtf(dot(pos, pos));
-  // cheap lighting: height ratio plus a pow16 sun glow through thin cloud
-  float hr = (pos_len - p.cloud_bottom_radius) / p.cloud_layer;
-  float dp = rd.x * sd.x + rd.y * sd.y + rd.z * sd.z;
-  float dp2 = dp * dp, dp4 = dp2 * dp2, dp8 = dp4 * dp4;
-  float glow = dp > 0.0f ? dp8 * dp8 : 0.0f;
-  float l = hr + glow * (1.0f - alpha);
-  // planet shadow
-  float d = -(pos.x * sd.x + pos.y * sd.y + pos.z * sd.z) * (1.0f / pos_len);
-  float st = saturate((d - (-0.3f)) / 0.6f);
-  float shadow = st * st * (3.0f - 2.0f * st);
-  light = l * (1.0f + (float)(0.002 - 1.0) * shadow);
-  // density, always-low quality (detail = 0.5)
+// Cloud density at height ratio hr, always-low quality (detail = 0.5),
+// saturated, before the density scale (clouds.py::get_density_full).
+__device__ __forceinline__ float cloud_density(const MegakernelParams& p, float hr, float cov,
+                                               float shape_raw) {
   float hc = 2.0f * hr - 1.0f;
   hc = fmaxf(1.0f - hc * hc, 0.0f);
   float coverage = cov - 0.25f * hr + p.cloud_coverage_bias;
   float shape = 0.5f + (shape_raw - 0.5f) * p.cloud_shape_factor;
   if (p.cloud_shape_invert == 1.0f) shape = 1.0f - shape;
   float density = (shape - (float)(0.2 * 0.5) + (-1.2f + (float)(1.5 - -1.2) * coverage)) * hc;
-  density = saturate(density * 50.0f - 20.0f);
-  return density * p.cloud_density_scale;
+  return saturate(density * 50.0f - 20.0f);
+}
+
+// Raymarched lighting (clouds.py::get_light_raymarched): MK_SUN_STEPS sun
+// samples, sample i at pos0 + sd * (i * len_i) with len_i = sun_step0 *
+// 1.2^i (the sample's own length, not a cumulative sum).  Every sample
+// reuses the march step's coverage; texture mode also its shape value,
+// procedural mode evaluates the shape field per sample.  Kept rolled.
+__device__ float sun_march(const MegakernelParams& p, V3 pos0, float hr0, float cov,
+                           float shape_raw, bool procedural) {
+  const V3 sd = load3(p.sd_model);
+  float len = p.sun_step0, alpha = 0.0f;
+#pragma unroll 1
+  for (int i = 0; i < MK_SUN_STEPS; ++i) {
+    const V3 pos = add(pos0, mul(sd, (float)i * len));
+    const float hr = (sqrtf(dot(pos, pos)) - p.cloud_bottom_radius) / p.cloud_layer;
+    const float shape = procedural ? field(p.shape, mul(pos, p.cloud_shape_scale)) : shape_raw;
+    const float tr = expf(-(cloud_density(p, hr, cov, shape) * (len * p.cloud_density_scale)));
+    alpha = alpha + (1.0f - tr) * (1.0f - alpha);
+    len = len * 1.2f;
+  }
+  return 1.0f + (hr0 * 0.2f - 1.0f) * alpha;
+}
+
+// One cloud march step: returns the scaled density, updates light.
+// shape_raw is the raw shape field at the step (procedural or from knots).
+__device__ float cloud_step(const MegakernelParams& p, V3 pos, V3 rd, float alpha, float cov,
+                           float shape_raw, bool procedural, float& light) {
+  V3 sd = load3(p.sd_model);
+  float pos_len = sqrtf(dot(pos, pos));
+  float hr = (pos_len - p.cloud_bottom_radius) / p.cloud_layer;
+  float l;
+  if (p.raymarched_lighting) {
+    l = sun_march(p, pos, hr, cov, shape_raw, procedural);
+  } else {
+    // cheap lighting: height ratio plus a pow16 sun glow through thin cloud
+    float dp = rd.x * sd.x + rd.y * sd.y + rd.z * sd.z;
+    float dp2 = dp * dp, dp4 = dp2 * dp2, dp8 = dp4 * dp4;
+    float glow = dp > 0.0f ? dp8 * dp8 : 0.0f;
+    l = hr + glow * (1.0f - alpha);
+  }
+  // planet shadow
+  float d = -(pos.x * sd.x + pos.y * sd.y + pos.z * sd.z) * (1.0f / pos_len);
+  float st = saturate((d - (-0.3f)) / 0.6f);
+  float shadow = st * st * (3.0f - 2.0f * st);
+  light = l * (1.0f + (float)(0.002 - 1.0) * shadow);
+  return cloud_density(p, hr, cov, shape_raw) * p.cloud_density_scale;
 }
 
 // Knots of a field, read in the march.  Procedural mode keeps the K + 1
@@ -677,7 +790,7 @@ __device__ __forceinline__ void cloud_march(const MegakernelParams& p, V3 rd, fl
     const float shape_raw = shp_knots ? shp_knots->interp(u01)
                                       : field(p.shape, mul(pos, p.cloud_shape_scale));
     float light;
-    float density = cloud_step(p, pos, rd, 1.0f - prod, cov, shape_raw, light);
+    float density = cloud_step(p, pos, rd, 1.0f - prod, cov, shape_raw, !shp_knots, light);
     float tr = expf(-density * step_len);
     total_t = fmaxf(total_t * tr, 0.005f);
     total_light = total_light + light * density * step_len * total_t;
@@ -721,14 +834,16 @@ struct Coarse {
   float t0k, t1k;
 };
 
-// rays, opaque pass and atmosphere of the G rows from y0 (rows and columns
-// past the frame edge are computed too: they belong to their tile).  depth:
-// nullptr, or the (H, W) plane that takes the opaque pass's linear depth
-// (before the sphere-depth blend) of the in-frame pixels.
+// rays, background and atmosphere of the G rows from y0 (rows and columns
+// past the launch's rows or the frame edge are computed too: they belong to
+// their tile; chained, they see no geometry).  The background is the opaque
+// pass, whose linear depth (before the sphere-depth blend) goes to depth
+// when it is not nullptr, or, for a chained layer, the color and linear
+// depth of the layers below, read from color and depth.
 __device__ __forceinline__ void shade_rows(const MegakernelParams& p, const float* blue, int x,
-                                           int y0, int G, int L, Rows& s,
-                                           float* __restrict__ depth, unsigned long long* work,
-                                           unsigned& n_atmo) {
+                                           int y0, int G, int L, Rows& s, const float* color,
+                                           float* depth, unsigned long long* work,
+                                           unsigned& n_atmo, unsigned& n_v1) {
   const V3 ro = load3(p.cam_pos);
   const V3 pc = load3(p.planet_center);
   const float ndc_x = 2.0f * ((float)x + 0.5f) / (float)p.width - 1.0f;
@@ -737,11 +852,24 @@ __device__ __forceinline__ void shade_rows(const MegakernelParams& p, const floa
     const float ndc_y = 1.0f - 2.0f * ((float)y + 0.5f) / (float)p.height;
     V3 dv = normalize(v3(ndc_x * p.ray_sx, ndc_y * p.ray_sy, -1.0f));
     V3 rd = xform_dir(p.cam_rot, 3, dv);
+    const bool in_rows = x < p.width && y < p.row0 + p.rows;
+    const size_t o = (size_t)y * p.width + x;
     float linear_depth = 1.0e7f;
     V3 b = v3(0.0f, 0.0f, 0.0f);
-    if (p.with_opaque) opaque_pass(p, ro, rd, b, linear_depth);
-    if (depth && x < p.width && y < p.height) depth[(size_t)y * p.width + x] = linear_depth;
+    if (p.with_background) {
+      if (in_rows) {
+        b = v3(color[o * 3 + 0], color[o * 3 + 1], color[o * 3 + 2]);
+        linear_depth = depth[o];
+      }
+    } else {
+      if (p.with_opaque) opaque_pass(p, ro, rd, b, linear_depth);
+      if (depth && in_rows) depth[o] = linear_depth;
+    }
     s.bg[r] = b;
+    if (!p.with_atmosphere) {  // the opaque-only pass
+      s.hit[r] = false;
+      continue;
+    }
     float jitter = blue[(y & 255) * 256 + (x & 255)] + p.jitter_offset;
     jitter = jitter - floorf(jitter);
 
@@ -757,8 +885,13 @@ __device__ __forceinline__ void shade_rows(const MegakernelParams& p, const floa
     t_end = fmaxf(fminf(t_end, linear_depth), t_begin);
     s.hit[r] = h;
     if (h) {
-      atmosphere_v2(p, ro, rd, t_begin, t_end, jitter, s.atm[r]);
-      if (work) ++n_atmo;
+      if (p.model == 1) {
+        atmosphere_v1(p, ro, rd, t_begin, t_end, s.atm[r]);
+        if (work) ++n_v1;
+      } else {
+        atmosphere_v2(p, ro, rd, t_begin, t_end, jitter, s.atm[r]);
+        if (work) ++n_atmo;
+      }
     }
 
     const int c = r / L;
@@ -813,12 +946,12 @@ __device__ __forceinline__ void coarse_rays(const MegakernelParams& p, int L, in
 }
 
 // blend each full-resolution row with its group's cloud light/alpha, then
-// composite over the opaque background; missed-shell pixels pass through
+// composite over the background; missed-shell pixels pass through.  A
+// chained layer keeps the larger of its alpha and the layers' below.
 __device__ __forceinline__ void blend_and_store(const MegakernelParams& p, int x, int y0, int G,
                                                 int L, Rows& s, const bool* vis,
                                                 const float* light_c, const float* calpha_c,
-                                                float* __restrict__ color,
-                                                float* __restrict__ alpha_out) {
+                                                float* color, float* alpha_out) {
   if (p.clouds_enabled) {
     for (int r = 0; r < G; ++r) {
       const int c = r / L;
@@ -841,20 +974,21 @@ __device__ __forceinline__ void blend_and_store(const MegakernelParams& p, int x
   if (x >= p.width) return;
   for (int r = 0; r < G; ++r) {
     const int y = y0 + r;
-    if (y >= p.height) break;
+    if (y >= p.row0 + p.rows) break;
     const size_t o = (size_t)y * p.width + x;
+    float a_out = 0.0f;
     if (s.hit[r]) {
       const float a = s.atm[r][3];
       color[o * 3 + 0] = s.bg[r].x * (1.0f - a) + s.atm[r][0] * a;
       color[o * 3 + 1] = s.bg[r].y * (1.0f - a) + s.atm[r][1] * a;
       color[o * 3 + 2] = s.bg[r].z * (1.0f - a) + s.atm[r][2] * a;
-      alpha_out[o] = fmaxf(a, 0.0f);
+      a_out = fmaxf(a, 0.0f);
     } else {
       color[o * 3 + 0] = s.bg[r].x;
       color[o * 3 + 1] = s.bg[r].y;
       color[o * 3 + 2] = s.bg[r].z;
-      alpha_out[o] = 0.0f;
     }
+    alpha_out[o] = p.with_background ? fmaxf(alpha_out[o], a_out) : a_out;
   }
 }
 
@@ -880,12 +1014,12 @@ __global__ void __launch_bounds__(128) megakernel(const MegakernelParams p,
   const int L = p.clouds_enabled ? p.cloud_lod : 1;
   const int C = p.clouds_enabled ? p.coverage_lod : 1;
   const int G = L * C;
-  const int y0 = blockIdx.y * G;
+  const int y0 = p.row0 + blockIdx.y * G;
   const bool live = x < p.width;
 
   Rows s;
-  unsigned n_atmo = 0, n_groups = 0, n_march = 0;
-  if (live) shade_rows(p, blue, x, y0, G, L, s, depth, work, n_atmo);
+  unsigned n_atmo = 0, n_v1 = 0, n_groups = 0, n_march = 0, n_sun = 0;
+  if (live) shade_rows(p, blue, x, y0, G, L, s, color, depth, work, n_atmo, n_v1);
 
   Coarse c;
   float light_c[MK_MAX_GROUP], calpha_c[MK_MAX_GROUP];
@@ -912,6 +1046,7 @@ __global__ void __launch_bounds__(128) megakernel(const MegakernelParams p,
             cloud_march(p, c.rd_model[k], c.tb[k], c.tem[k], s.jit_first[k], cov,
                         (const RegKnots<1>*)nullptr, light_c[k], calpha_c[k]);
             ++n_march;
+            if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
           }
         }
       }
@@ -919,10 +1054,12 @@ __global__ void __launch_bounds__(128) megakernel(const MegakernelParams p,
   }
   if (live) blend_and_store(p, x, y0, G, L, s, c.vis, light_c, calpha_c, color, alpha_out);
   if (work) {
-    count_work(work, MK_WORK_PIXELS, live ? G : 0);
+    count_work(work, p.with_atmosphere ? MK_WORK_PIXELS : MK_WORK_OPAQUE_PIXELS, live ? G : 0);
     count_work(work, MK_WORK_ATMOSPHERE, n_atmo);
+    count_work(work, MK_WORK_V1_ATMOSPHERE, n_v1);
     count_work(work, MK_WORK_KNOT_GROUPS, n_groups);
     count_work(work, MK_WORK_MARCH, n_march);
+    count_work(work, MK_WORK_SUN_SAMPLES, n_sun);
   }
 }
 
@@ -1225,13 +1362,14 @@ __global__ void __launch_bounds__(128 * (MK_TILE_ROWS / G), 1)
   float* red = smem + (K + KS + 2) * nt;      // block_minmax scratch
 
   const int x = blockIdx.x * MK_TILE_COLS + threadIdx.x;
-  const int y0 = blockIdx.y * MK_TILE_ROWS + threadIdx.y * G;
+  const int y0 = p.row0 + blockIdx.y * MK_TILE_ROWS + threadIdx.y * G;
   const int L = p.cloud_lod;
   const int C = G / L;
 
   Rows s;
-  unsigned n_atmo = 0, n_march = 0, tex_samples[2] = {0, 0}, cov_samples[2] = {0, 0};
-  shade_rows(p, blue, x, y0, G, L, s, depth, work, n_atmo);
+  unsigned n_atmo = 0, n_v1 = 0, n_march = 0, n_sun = 0, tex_samples[2] = {0, 0},
+           cov_samples[2] = {0, 0};
+  shade_rows(p, blue, x, y0, G, L, s, color, depth, work, n_atmo, n_v1);
   Coarse c;
   coarse_rays(p, L, C, s, c);
 
@@ -1252,6 +1390,7 @@ __global__ void __launch_bounds__(128 * (MK_TILE_ROWS / G), 1)
           cloud_march(p, c.rd_model[k], c.tb[k], c.tem[k], s.jit_first[k], cov, &shp,
                       light_c[k], calpha_c[k]);
           ++n_march;
+          if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
         }
       }
     }
@@ -1260,8 +1399,10 @@ __global__ void __launch_bounds__(128 * (MK_TILE_ROWS / G), 1)
   if (work) {
     count_work(work, MK_WORK_PIXELS, G);
     count_work(work, MK_WORK_ATMOSPHERE, n_atmo);
+    count_work(work, MK_WORK_V1_ATMOSPHERE, n_v1);
     count_work(work, MK_WORK_KNOT_GROUPS, tile_vis ? 1 : 0);
     count_work(work, MK_WORK_MARCH, n_march);
+    count_work(work, MK_WORK_SUN_SAMPLES, n_sun);
     count_work(work, MK_WORK_TEX3D, tex_samples[0]);
     count_work(work, MK_WORK_TEX3D_FLOOR, tex_samples[1]);
     count_work(work, MK_WORK_LATLONG, cov_samples[0]);
@@ -1326,16 +1467,24 @@ __global__ void __launch_bounds__(256) texsample_kernel(const TexParams t,
 // ---------------------------------------------------------------------------
 // Launchers: plain C interface for ctypes.  Each returns cudaGetLastError()
 // after the launch (0 on success), or -1 for a configuration the kernel is
-// not built for.  depth: nullptr, or an (H, W) plane for the opaque pass's
-// linear depth.  work: nullptr, or MK_WORK_SLOTS zeroed counters.
+// not built for.  color, alpha: the (H, W, 3) and (H, W) frame planes (a
+// chained layer reads them too); depth: nullptr, or an (H, W) plane of
+// linear depth (written by the opaque pass, read by a chained layer).
+// work: nullptr, or MK_WORK_SLOTS zeroed counters.
+
+static bool rows_ok(const MegakernelParams* p) {
+  return p->row0 >= 0 && p->rows >= 1 && p->row0 + p->rows <= p->height;
+}
 
 extern "C" int megakernel_launch(const MegakernelParams* params, const float* blue,
                                  float* color, float* alpha, float* depth, void* stream,
                                  void* work) {
   if (params->clouds_enabled && params->coverage_knots != MK_KNOTS) return -1;
   const int G = params->clouds_enabled ? params->cloud_lod * params->coverage_lod : 1;
+  if (!rows_ok(params) || params->rows % G) return -1;
+  if ((params->with_background || !params->with_atmosphere) && !depth) return -1;
   dim3 block(128, 1, 1);
-  dim3 grid((params->width + 127) / 128, params->height / G, 1);
+  dim3 grid((params->width + 127) / 128, params->rows / G, 1);
   megakernel<MK_KNOTS><<<grid, block, 0, (cudaStream_t)stream>>>(
       *params, blue, color, alpha, depth, (unsigned long long*)work);
   return (int)cudaGetLastError();
@@ -1354,7 +1503,7 @@ static int launch_tex(const MegakernelParams* p, const TexParams* t, const float
   if (err != cudaSuccess) return (int)err;
   dim3 block(128, MK_TILE_ROWS / G, 1);
   dim3 grid((p->width + MK_TILE_COLS - 1) / MK_TILE_COLS,
-            (p->height + MK_TILE_ROWS - 1) / MK_TILE_ROWS, 1);
+            (p->rows + MK_TILE_ROWS - 1) / MK_TILE_ROWS, 1);
   kernel<<<grid, block, smem, stream>>>(*p, *t, blue, shape_tab, cov_tab, color, alpha, depth,
                                         work);
   return (int)cudaGetLastError();
@@ -1364,9 +1513,10 @@ extern "C" int megakernel_tex_launch(const MegakernelParams* params, const TexPa
                                      const float* blue, const float* shape_tab,
                                      const float* cov_tab, float* color, float* alpha,
                                      float* depth, void* stream, void* work) {
-  if (!params->clouds_enabled || params->coverage_knots != MK_KNOTS ||
-      tex->shape_knots != MK_SHAPE_KNOTS || tex->knot_group < 1 ||
-      tex->knot_group > MK_MAX_GROUP)
+  if (!params->clouds_enabled || !params->with_atmosphere ||
+      params->coverage_knots != MK_KNOTS || tex->shape_knots != MK_SHAPE_KNOTS ||
+      tex->knot_group < 1 || tex->knot_group > MK_MAX_GROUP || !rows_ok(params) ||
+      (params->with_background && !depth))
     return -1;
   const int G = params->cloud_lod * params->coverage_lod;
   cudaStream_t s = (cudaStream_t)stream;

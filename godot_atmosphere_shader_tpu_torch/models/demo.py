@@ -1,6 +1,7 @@
 """The golden demo scene, node for node as the JAX package's
 ``models/demo.py``: planet R=100 with atmosphere H=8 and clouds, sun sphere
-and light at z≈598.7, moon, tumbling box, and the named camera poses.
+and light at z≈598.7, moon, tumbling box, and the named camera poses; and
+the gas-giant scene (R=1000, H=25, 64 atmosphere steps) with its poses.
 
 Two field modes, as in the JAX package: procedural fields evaluated in the
 march (the fast profile), or the reference's asset pipeline — a 64³ shape
@@ -19,7 +20,7 @@ from ..ops.sampling import bake_noise_cubemap, bake_noise_texture3d
 from ..render.opaque import OpaqueScene
 from ..utils.camera import Camera, look_at
 from ..utils.color import srgb_to_linear
-from .params import VARIANTS, ProceduralField, VariantConfig
+from .params import PROFILES, VARIANTS, ProceduralField, VariantConfig
 from .scene import Node3D, PlanetAtmosphere, Scene
 
 #: the demo NoiseTexture3D source (planet_atmosphere_test.tscn:48-57):
@@ -152,3 +153,50 @@ def demo_camera(pose: str = "avatar", *, device="cuda") -> Camera:
     eye, target = _POSES[pose]
     return Camera.create(look_at(eye, target, device=device), fov_y_deg=70.0,
                          near=0.1, far=800.0, device=device)
+
+
+def build_gas_giant_scene(*, device="cuda") -> Scene:
+    """The gas-giant scene on ``device`` (``PROFILES['gas_giant']``, 64
+    atmosphere steps): R/H = 40 (R=1000, H=25) with ``u_density = 2.0``,
+    optically thick, no clouds; an opaque R=1000 deck below the shell and
+    the sun at z≈5986.8."""
+    sun = Node3D(position=(0.0, 0.0, 5986.77), name="Sun")
+    atmo = PlanetAtmosphere(planet_radius=1000.0, atmosphere_height=25.0, sun=sun,
+                            custom_shader=PROFILES["gas_giant"], name="GasGiant",
+                            device=device)
+    atmo.set_shader_parameter("u_density", 2.0)
+    atmo.set_shader_parameter("u_scattering_strength", 1.0)
+    atmo.set_shader_parameter("u_atmosphere_modulate", (1.0, 0.95, 0.85))
+    atmo.set_shader_parameter("u_atmosphere_ambient_color", (0.02, 0.015, 0.01))
+    deck_albedo = tuple(srgb_to_linear(
+        np.array([0.76, 0.64, 0.47], np.float32), device="cpu").tolist())
+    opaque = OpaqueScene.create(
+        spheres=[
+            ((0.0, 0.0, 0.0), 1000.0, deck_albedo),  # opaque deck
+            ((0.0, 0.0, 5986.77), 200.0, (4.0, 4.0, 4.0), 1.0),  # sun
+        ],
+        light_dir=(0.0, 0.0, -1.0),
+        ambient=0.02,
+        sky_color=(0.001, 0.001, 0.002),
+        star_intensity=1.0,
+        device=device,
+    )
+    return Scene(atmospheres=[atmo], opaque=opaque, device=device)
+
+
+_GAS_GIANT_POSES = {
+    # every ray through the shell is a full-traversal, optically thick chord
+    "limb": ((0.0, 0.0, 3000.0), (0.0, 1012.0, 0.0)),
+    "exterior": ((1800.0, 600.0, 1800.0), (0.0, 0.0, 0.0)),
+    "interior": ((0.0, 1020.0, 0.0), (1000.0, 1012.0, 0.0)),
+    "space": ((0.0, 1500.0, 4200.0), (0.0, 0.0, 0.0)),
+}
+
+
+def gas_giant_camera(pose: str = "limb", *, device="cuda") -> Camera:
+    """Named poses of the gas-giant scene (70° fov, near 1, far 8000)."""
+    if pose not in _GAS_GIANT_POSES:
+        raise ValueError(f"unknown gas-giant pose {pose!r}")
+    eye, target = _GAS_GIANT_POSES[pose]
+    return Camera.create(look_at(eye, target, device=device), fov_y_deg=70.0,
+                         near=1.0, far=8000.0, device=device)

@@ -3,22 +3,22 @@
 Counterpart of ``godot_atmosphere_shader_tpu/models/scene.py``: the
 reference node's properties and ``u_*`` uniform surface, the near/far mode
 switch with its 1.1 hysteresis margin, the interior cloud-LOD policy, and
-``Scene.render``, which sends CUDA tensors to the megakernel and CPU tensors
-to its plain version (``ops/kernels/megakernel.py``), and
-``Scene.render_flight``, which renders K frames of a camera path and time
-sequence, plain or temporally accumulated (the TAA resolve,
-``ops/kernels/taa.py``).  Entry points run on the card unless the caller
-asks for the CPU (``device="cpu"``).  A layer with baked
-cloud textures renders in the megakernel's texture mode: its textures are
-packed into mip pyramids once per texture object (kept on the scene's
-device) and the config gains their metas and the shape and coverage knot
-flags, as the JAX package's ``Scene._pallas_plan`` does.
+``Scene.render``, which sorts the layers far to near, plans the far-mode
+row bands (``render/lod.py``) and sends CUDA tensors to the megakernel's
+layer chain and CPU tensors to its plain version
+(``ops/kernels/megakernel.py``), and ``Scene.render_flight``, which renders
+K frames of a camera path and time sequence, every layer fullscreen, plain
+or temporally accumulated (the TAA resolve, ``ops/kernels/taa.py``).
+Entry points run on the card unless the caller asks for the CPU
+(``device="cpu"``).  A layer with baked cloud textures renders in the
+megakernel's texture mode: its textures are packed into mip pyramids once
+per texture object (kept on the scene's device) and the config gains their
+metas and the shape and coverage knot flags, as the JAX package's
+``Scene._pallas_plan`` does.
 
-Outside this slice, ``Scene.render`` raises ``NotImplementedError``: more
-than one layer, a far-mode layer, v1, ``od_mode="lut"`` and large-world
-rebasing are not ported yet.  ``Scene.render_flight`` renders every layer
-fullscreen, as the JAX flight does (no far-mode bands, so a far layer does
-not raise there); its sharded form (``mesh=``) is not ported.
+Not ported yet (they raise ``NotImplementedError``): ``od_mode="lut"``,
+large-world rebasing, one baked cloud field beside one procedural field,
+the detail field, and the sharded flight (``mesh=``).
 """
 
 from __future__ import annotations
@@ -31,9 +31,11 @@ import numpy as np
 import torch
 
 from ..ops.kernels.megakernel import (render_flight_megakernel, render_flight_taa,
-                                      render_frame_megakernel)
+                                      render_scene_megakernel)
 from ..ops.kernels.texsample import build_latlong_pyramid, build_tex3d_pyramid
+from ..render.lod import EMPTY, layer_band
 from ..render.opaque import OpaqueScene
+from ..render.renderer import shared_reverse_z
 from ..utils.camera import Camera
 from ..utils.color import linear_to_srgb, srgb_to_linear
 from .params import DEFAULT_VARIANT, VARIANTS, AtmosphereParams, VariantConfig
@@ -125,6 +127,8 @@ class PlanetAtmosphere(Node3D):
         self.sun = sun
         self.mode = MODE_FAR
         self.atmo_clip_distance = 0.0
+        # the far-mode cull sphere's radius (scene.py:132,163-164)
+        self.extra_cull_margin = self._radius + self._height
         self._interior_lod_active = False
         if custom_shader is not None:
             self.set_custom_shader(custom_shader)
@@ -140,6 +144,7 @@ class PlanetAtmosphere(Node3D):
     @planet_radius.setter
     def planet_radius(self, value: float):
         self.set_shader_parameter("u_planet_radius", max(float(value), 0.0))
+        self._update_cull_margin()
 
     @property
     def atmosphere_height(self) -> float:
@@ -148,6 +153,12 @@ class PlanetAtmosphere(Node3D):
     @atmosphere_height.setter
     def atmosphere_height(self, value: float):
         self.set_shader_parameter("u_atmosphere_height", max(float(value), 0.0))
+        self._update_cull_margin()
+
+    def _update_cull_margin(self):
+        # the radii as the device holds them (f32), as the JAX node reads them
+        self.extra_cull_margin = (float(np.float32(self._radius))
+                                  + float(np.float32(self._height)))
 
     def set_custom_shader(self, shader):
         """Variant switch: a variant name or a :class:`VariantConfig`."""
@@ -266,10 +277,23 @@ class Scene:
         self.atmospheres = list(atmospheres)
         self.opaque = opaque
         self._tex_pyr_cache = {}
+        self._cam_cache = None
 
-    @staticmethod
-    def _cam_pos(camera: Camera) -> np.ndarray:
-        return camera.view_to_world.detach().cpu().numpy()[:3, 3].astype(np.float64)
+    def _cam_host(self, camera: Camera) -> tuple:
+        """The camera's ``view_to_world`` (float64) and vertical fov on the
+        host: one device→host copy per distinct camera (the JAX package's
+        ``_cam_info`` cache; the tensors' versions see in-place edits)."""
+        t, f = camera.view_to_world, camera.fov_y_rad
+        key = (id(t), t._version, id(f), f._version)
+        if self._cam_cache is None or self._cam_cache[0] != key:
+            host = torch.cat([t.detach().reshape(-1), f.detach().reshape(-1)]).cpu().numpy()
+            # the entry holds the tensors, so their ids are not reused meanwhile
+            self._cam_cache = (key, (t, f), host[:16].reshape(4, 4).astype(np.float64),
+                               float(host[16]))
+        return self._cam_cache[2], self._cam_cache[3]
+
+    def _cam_pos(self, camera: Camera) -> np.ndarray:
+        return self._cam_host(camera)[0][:3, 3]
 
     def _check_world_scale(self, cam_pos):
         m = float(np.max(np.abs(cam_pos)))
@@ -330,34 +354,66 @@ class Scene:
         return config, (shape_table, cov_table)
 
     @staticmethod
-    def _single_layer(order, configs):
-        """The one layer this slice renders, or ``NotImplementedError``."""
-        if len(order) != 1:
-            raise NotImplementedError(
-                f"{len(order)} atmosphere layers: only single-layer scenes "
-                "are ported yet (the far→near layer chain is not)")
-        config = configs[0]
-        if config.model != "v2":
-            raise NotImplementedError(f"model {config.model!r} is not ported yet")
-        if config.od_mode != "analytic":
-            raise NotImplementedError(f"od_mode={config.od_mode!r} is not ported yet")
-        return order[0], config
+    def _check_layers(configs):
+        """What the scene refuses for its layers: none, a layer mix that
+        disagrees on ``reverse_z`` (``ValueError``, as the JAX
+        ``shared_reverse_z``), and what is not ported: the optical-depth LUT
+        and full-quality cloud density (the detail field)."""
+        if not configs:
+            raise ValueError("the scene has no atmosphere layer")
+        shared_reverse_z(configs)
+        for config in configs:
+            if config.od_mode != "analytic":
+                raise NotImplementedError(f"od_mode={config.od_mode!r} is not ported yet")
+            if config.clouds_enabled and not config.clouds_always_low_quality:
+                raise NotImplementedError("full-quality cloud density (the detail field) "
+                                          "is not ported yet")
+
+    def _layer_bands(self, order, params, configs, tex_data, camera: Camera, height: int):
+        """The far-LOD plan (``scene.py:497-546``): per layer, the screen-row
+        band its shell can touch (``render/lod.py``).  Near-mode (or
+        ``force_fullscreen``) layers stay fullscreen; layers whose shell
+        no row can see are dropped; when every layer is dropped the nearest
+        one stays, fullscreen (it shades nothing).  Returns ``(order,
+        params, configs, tex_data, bands, band_rows)``, bands and rows
+        ``None`` when no layer is banded."""
+        v2w, fov = self._cam_host(camera)
+        keep, bands, rows = [], [], []
+        for i, atmo in enumerate(order):
+            band = layer_band(atmo.mode, v2w, fov, height,
+                              np.asarray(atmo.position, np.float64),
+                              atmo.extra_cull_margin, 0.0, mode_far=MODE_FAR)
+            if band == EMPTY:
+                continue
+            keep.append(i)
+            bands.append(None if band is None else band[1])
+            rows.append(0 if band is None else band[0])
+        if not keep:
+            keep, bands, rows = [len(order) - 1], [None], [0]
+        sel = lambda seq: tuple(seq[i] for i in keep)  # noqa: E731
+        if all(b is None for b in bands):
+            return sel(order), sel(params), sel(configs), sel(tex_data), None, None
+        return (sel(order), sel(params), sel(configs), sel(tex_data), tuple(bands),
+                np.asarray(rows, np.int32))
 
     def render(self, camera: Camera, height: int, width: int) -> dict:
-        """Render one frame: ``{"color": (H, W, 3), "alpha": (H, W)}``.
+        """Render one frame: ``{"color": (H, W, 3), "alpha": (H, W)}``
+        (alpha: the maximum over the layers).
 
-        CUDA tensors go to the megakernel, CPU tensors to its plain version;
-        both return the same keys."""
+        The layers render far to near, each far-mode layer on its row band;
+        CUDA tensors go to the megakernel (one launch per layer, plus the
+        opaque-only pass when the farthest layer is banded), CPU tensors to
+        its plain version; both return the same keys."""
         self._check_world_scale(self._cam_pos(camera))
         order, params, configs = self._sorted_layers(camera)
-        atmo, config = self._single_layer(order, configs)
-        if atmo.mode == MODE_FAR:
-            raise NotImplementedError(
-                "far-mode (banded) layers are not ported yet; the layer "
-                "renders fullscreen with force_fullscreen=True or from near")
-        config, tex_data = self._texture_plan(params[0], config)
-        return render_frame_megakernel(params[0], config, camera, self.opaque,
-                                       height, width, tex_data=tex_data)
+        self._check_layers(configs)
+        plans = [self._texture_plan(p, c) for p, c in zip(params, configs)]
+        configs = tuple(c for c, _ in plans)
+        tex_data = tuple(t for _, t in plans)
+        _, params, configs, tex_data, bands, band_rows = self._layer_bands(
+            order, params, configs, tex_data, camera, height)
+        return render_scene_megakernel(params, configs, camera, self.opaque, height, width,
+                                       tex_data=tex_data, bands=bands, band_rows=band_rows)
 
     def render_flight(self, camera: Camera, times, height: int, width: int,
                       cam_transforms=None, taa_blend=None, taa_depth_eps: float = 0.2,
@@ -369,14 +425,15 @@ class Scene:
         ``times``: (K,) scene times (cast to float32); ``cam_transforms``:
         optional (K, 4, 4) per-frame ``view_to_world`` transforms of
         ``camera`` (host arrays; default: ``camera``'s for every frame).
-        Every frame's packed state is computed on the host first (the
-        layer's config is fixed once, from ``camera``, before the per-frame
-        updates; the mode and interior-LOD state left behind are the last
-        frame's).  Every layer renders fullscreen.  ``taa_blend``: resolve
-        each frame against the previous one (``render_flight_taa``, with
-        temporal jitter) with that blend, ``taa_depth_eps``, ``taa_clamp``
-        (``"minmax"`` or ``"variance"``) and ``taa_clamp_gamma``.  ``mesh``
-        (the sharded TAA flight) is not ported."""
+        Every frame's packed state is computed on the host first, per layer
+        (the layers' order and configs are fixed once, from ``camera``,
+        before the per-frame updates; the mode and interior-LOD state left
+        behind are the last frame's).  Every layer renders fullscreen, far
+        to near.  ``taa_blend``: resolve each frame against the previous
+        one (``render_flight_taa``, with temporal jitter) with that blend,
+        ``taa_depth_eps``, ``taa_clamp`` (``"minmax"`` or ``"variance"``)
+        and ``taa_clamp_gamma``.  ``mesh`` (the sharded TAA flight) is not
+        ported."""
         if mesh is not None:
             raise NotImplementedError("the sharded TAA flight (row bands with a halo "
                                       "exchange) is not ported yet")
@@ -385,7 +442,7 @@ class Scene:
         self._check_world_scale(cam_pos)
         cam_near = float(camera.near)
         order, params, configs = self._sorted_layers(camera)
-        atmo, config = self._single_layer(order, configs)
+        self._check_layers(configs)
         if cam_transforms is not None:
             if isinstance(cam_transforms, torch.Tensor):
                 cam_transforms = cam_transforms.detach().cpu().numpy()
@@ -393,14 +450,19 @@ class Scene:
             if cam_transforms.shape != (len(times), 4, 4):
                 raise ValueError(f"cam_transforms must be ({len(times)}, 4, 4), got "
                                  f"{cam_transforms.shape}")
-        rows = []
-        for i, t in enumerate(times):
-            cp = (cam_transforms[i, :3, 3].astype(np.float64) if cam_transforms is not None
-                  else cam_pos)
-            rows.append(atmo.frame_state_row(float(t), cp, cam_near))
-        atmo.set_frame_state(rows[-1])
-        config, tex_data = self._texture_plan(params[0], config)
-        args = (params[0], np.stack(rows), config, camera, self.opaque, height, width)
+        fs_stacks = []
+        for atmo in order:
+            rows = []
+            for i, t in enumerate(times):
+                cp = (cam_transforms[i, :3, 3].astype(np.float64) if cam_transforms is not None
+                      else cam_pos)
+                rows.append(atmo.frame_state_row(float(t), cp, cam_near))
+            atmo.set_frame_state(rows[-1])
+            fs_stacks.append(np.stack(rows))
+        plans = [self._texture_plan(p, c) for p, c in zip(params, configs)]
+        args = (params, fs_stacks, tuple(c for c, _ in plans), camera, self.opaque, height,
+                width)
+        tex_data = tuple(t for _, t in plans)
         if taa_blend is None:
             return render_flight_megakernel(*args, cam_stack=cam_transforms, tex_data=tex_data)
         return render_flight_taa(*args, cam_stack=cam_transforms, blend=float(taa_blend),

@@ -3,16 +3,16 @@
 Counterpart of ``godot_atmosphere_shader_tpu/ops/clouds.py`` for the demo's
 fast profiles: coverage sampled at ``K + 1`` ray knots (optionally every
 ``coverage_lod`` coarse rows) and interpolated per step, the shape field
-likewise at ``cloud_shape_knots + 1`` knots (texture mode), cheap
-lighting, the conservative density-bound cull, and the vertical cloud LOD.
+likewise at ``cloud_shape_knots + 1`` knots (texture mode), cheap or
+sun-marched (``raymarched_lighting``) light, the conservative density-bound
+cull, and the vertical cloud LOD.
 The per-step march is a Python loop over whole pixel planes; the CUDA
 megakernel runs the same arithmetic per coarse pixel.  Knot fields are
 evaluated ``knot_group`` knots per field call, which matters only for the
 pyramid samplers, whose result depends on the batch.
 
-Not ported yet (they raise ``NotImplementedError``): the 6-step sun-marched
-lighting (``raymarched_lighting``) and the detail field of full-quality
-density (``clouds_always_low_quality=False``).
+Not ported yet (it raises ``NotImplementedError``): the detail field of
+full-quality density (``clouds_always_low_quality=False``).
 """
 
 from __future__ import annotations
@@ -120,9 +120,56 @@ def get_light_cheap(pos: Vec3, ray_dir: Vec3, sun_dir: Vec3, alpha,
     return height_ratio + glow * (1.0 - alpha)
 
 
-def get_light_raymarched(*args, **kwargs):
-    raise NotImplementedError(
-        "raymarched cloud lighting is not ported yet (see ROADMAP.md)")
+#: the sun march of raymarched lighting: steps, and its reach in layers
+SUN_STEPS = 6
+SUN_REACH = 0.15
+
+
+def get_light_raymarched(pos0: Vec3, sun_dir: Vec3, jitter, alpha0, time,
+                         settings: CloudSettings, params, shape_fn: Callable,
+                         coverage_fn: Callable, always_low: bool,
+                         coverage_value=None, shape_value=None):
+    """The 6-step sun march (:104-151): step ``i`` samples the density at
+    ``pos0 + sun_dir · (i · len_i)`` with ``len_i = (0.15 · layer / 6) ·
+    1.2^i`` (the step's own length, not a cumulative sum), and the light is
+    ``lerp(1, 0.2 · height_ratio(pos0), alpha)`` of the accumulated alpha.
+    Density is low quality; ``coverage_value`` (the march step's
+    interpolated coverage) is reused by every sun sample, and so is
+    ``shape_value`` where given (texture mode); otherwise the shape field is
+    evaluated at each sun sample.  ``jitter`` is unused, as in the
+    reference."""
+    if not always_low:
+        raise NotImplementedError("full-quality cloud density (the detail "
+                                  "field) is not ported yet")
+    layer = settings.top_height - settings.bottom_height
+    reach = layer * SUN_REACH
+    pos0_height_ratio = (length(pos0) - settings.bottom_height) / layer
+    step_len = reach / float(SUN_STEPS)
+    alpha = torch.zeros_like(alpha0)
+    for i in range(SUN_STEPS):
+        pos = pos0 + sun_dir * (float(i) * step_len)
+        density = get_density_full(pos, time, settings, params, shape_fn, coverage_fn,
+                                   True, True, coverage_value=coverage_value,
+                                   shape_value=shape_value)
+        density = density * (step_len * settings.density_scale)
+        transmittance = torch.exp(-density)
+        alpha = alpha + (1.0 - transmittance) * (1.0 - alpha)
+        step_len = step_len * 1.2
+    return lerp(1.0, pos0_height_ratio * 0.2, alpha)
+
+
+def get_light(pos: Vec3, ray_dir: Vec3, sun_dir: Vec3, jitter, alpha, time,
+              settings: CloudSettings, params, shape_fn: Callable,
+              coverage_fn: Callable, raymarched: bool, always_low: bool,
+              pos_len=None, coverage_value=None, shape_value=None):
+    """(:153-167): the lighting model, then the planet shadow (× 0.002)."""
+    if raymarched:
+        light = get_light_raymarched(pos, sun_dir, jitter, alpha, time, settings, params,
+                                     shape_fn, coverage_fn, always_low,
+                                     coverage_value=coverage_value, shape_value=shape_value)
+    else:
+        light = get_light_cheap(pos, ray_dir, sun_dir, alpha, settings, pos_len=pos_len)
+    return light * lerp(1.0, 0.002, get_planet_shadow(pos, sun_dir, pos_len=pos_len))
 
 
 def march_distance_limit(ray_origin: Vec3, settings: CloudSettings):
@@ -182,8 +229,6 @@ def raymarch_cloud(ray_origin: Vec3, ray_dir: Vec3, t_begin, t_end, jitter,
                    coverage_knots: int = 8, knot_dynamic: bool = False,
                    shape_endpoints=None):
     """``raymarch_cloud`` (:175-247).  Returns ``(total_light, alpha)``."""
-    if raymarched_lighting:
-        get_light_raymarched()
     t_end = clamp_march_distance(ray_origin, t_begin, t_end, settings)
     step_len = (t_end - t_begin) * (1.0 / float(steps))
     start = ray_origin + ray_dir * (jitter * step_len) + ray_dir * t_begin
@@ -213,10 +258,10 @@ def raymarch_cloud(ray_origin: Vec3, ray_dir: Vec3, t_begin, t_end, jitter,
         shape_value = None
         if shape_endpoints is not None:
             shape_value = interp_knots(shape_endpoints, u01, knot_dynamic)
-        light = get_light_cheap(pos, ray_dir, sun_dir, alpha, settings,
-                                pos_len=pos_len)
-        light = light * lerp(1.0, 0.002,
-                             get_planet_shadow(pos, sun_dir, pos_len=pos_len))
+        light = get_light(pos, ray_dir, sun_dir, jitter, alpha, time, settings, params,
+                          shape_fn, coverage_fn, raymarched_lighting, always_low,
+                          pos_len=pos_len, coverage_value=coverage_value,
+                          shape_value=shape_value)
         density = get_density_full(pos, time, settings, params, shape_fn,
                                    coverage_fn, False, always_low,
                                    coverage_value=coverage_value,

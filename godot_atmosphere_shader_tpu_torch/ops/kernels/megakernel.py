@@ -2,26 +2,32 @@
 
 Counterpart of ``godot_atmosphere_shader_tpu/ops/pallas/megakernel.py``
 (the Pallas kernel ``_make_kernel``) with the texture samplers of
-``ops/pallas/texsample.py`` inside it.  One CUDA kernel
-(``csrc/megakernel.cu``) renders a whole single-layer frame: ray
-generation, the opaque pass, the v2 atmosphere with analytic sun optical
-depth, the cloud march and the composite.  It has two instances:
-procedural cloud fields, and texture mode (baked textures sampled through
-mip pyramids by the K2 device functions, one thread block per 32×128 tile).
+``ops/pallas/texsample.py`` inside it.  One launch of the CUDA kernel
+(``csrc/megakernel.cu``) renders one atmosphere layer over the whole frame
+or over a far-mode row band: ray generation, the opaque pass (or, for a
+chained layer, the layers below read back from the frame), the v1 or v2
+atmosphere (analytic sun optical depth), the cloud march with cheap or
+sun-marched light, and the composite; or the opaque pass alone.  It has
+two instances: procedural cloud fields, and texture mode (baked textures
+sampled through mip pyramids by the K2 device functions, one thread block
+per 32×128 tile).
 
-* :func:`render_frame_megakernel` is the wrapper.  Given tensors on the CPU
-  it runs the plain version; given CUDA tensors it launches the kernel or
-  raises.  Nothing falls back.  :func:`launch` is its last step: one
-  launch on a prepared launch struct into preallocated outputs.
-* :func:`render_frame_plain` is the plain PyTorch version
-  (``render/renderer.py::render_frame``), the reference the kernel is held
-  against.
+* :func:`render_scene_megakernel` renders a frame of any number of layers
+  (the counterpart of ``render_scene_pallas``): CPU tensors take the plain
+  chain, CUDA tensors launch the kernel once per layer (plus the
+  opaque-only pass when layer 0 is banded) into preallocated outputs, or
+  raise.  Nothing falls back.  :func:`render_frame_megakernel` is the same
+  for one fullscreen layer.  :func:`launch` is one launch on a prepared
+  launch struct.
+* :func:`render_frame_plain` and :func:`render_scene_plain` are the plain
+  PyTorch versions (``render/renderer.py``), the reference the kernel is
+  held against.
 * :func:`render_flight_megakernel` and :func:`render_flight_taa` render
   K frames of a flight (counterparts of ``render_flight_pallas`` and
-  ``render_flight_taa``): every frame's launch struct is computed on the
-  host first, then the launches (and, with TAA, the resolve K3 of
-  ``taa.py`` after each frame) go back to back on one stream, with no
-  device→host copy between the first launch and the last.
+  ``render_flight_taa``): every frame's launch structs are computed on the
+  host first, then the launches (one per layer, and, with TAA, the resolve
+  K3 of ``taa.py`` after each frame) go back to back on one stream, with
+  no device→host copy between the first launch and the last.
 * :func:`sample_batches` runs K2 alone on caller-given batches (the
   counterpart of the TPU test harness around the samplers): the plain
   samplers on the CPU, the kernel's device functions on a card.
@@ -51,12 +57,13 @@ import torch
 from ...models.params import AtmosphereParams, VariantConfig
 from ...render.jitter import blue_noise_tensor, temporal_offset
 from ...render.opaque import OpaqueScene
-from ...render.renderer import (TILE_COLS, TILE_ROWS, planet_center, render_flight_plain,
-                                render_frame)
+from ...render.renderer import (TILE_COLS, TILE_ROWS, opaque_only_config, planet_center,
+                                render_flight_plain, render_frame, render_scene,
+                                shared_reverse_z)
 from ...utils.camera import Camera, ray_scale, transform_point, transform_dir
 from ...utils.vecmath import Vec3, normalize
 from ..atmosphere_v2 import scattering_coefficients
-from ..clouds import cloud_settings, march_distance_limit
+from ..clouds import SUN_REACH, SUN_STEPS, cloud_settings, march_distance_limit
 from ..noise import NoiseSpec, fractal_bounding
 from ..optical_depth import gauss_legendre_01
 from . import library, taa, texsample
@@ -82,16 +89,20 @@ WINDOWED, BANDED, FLOOR = texsample.WINDOWED, texsample.BANDED, texsample.FLOOR
 TEXTURE_GROUPS = (4, 8)
 #: work counter slots, in the kernel's order (``MK_WORK_*``)
 WORK_SLOTS = ("pixels", "atmosphere", "knot_groups", "march", "tex3d",
-              "tex3d_floor", "latlong", "latlong_floor")
+              "tex3d_floor", "latlong", "latlong_floor", "sun_samples",
+              "v1_atmosphere", "opaque_pixels")
+#: atmosphere models, by their integer codes
+MODELS = {"v2": 0, "v1": 1}
 #: noise bases and fractals the kernel implements, by their integer codes
 NOISE_TYPES = {"value": 0, "simplex_smooth": 1}
 FRACTAL_TYPES = {"none": 0, "fbm": 1, "ridged": 2}
 
 
 class Counters:
-    """Plain integer counters: frame-kernel launches (both instances;
-    ``texture_launches`` counts the texture instance alone), launches of
-    the K2-alone entry, and plain-path frames (procedural and texture)."""
+    """Plain integer counters: frame-kernel launches (both instances, every
+    layer and the opaque-only pass; ``texture_launches`` counts the texture
+    instance alone), launches of the K2-alone entry, and plain-path frames
+    (one per frame, whatever its layers)."""
 
     def __init__(self):
         self.reset()
@@ -135,11 +146,15 @@ class MegakernelParams(ctypes.Structure):
     _fields_ = [
         ("height", ctypes.c_int),
         ("width", ctypes.c_int),
+        ("row0", ctypes.c_int),
+        ("rows", ctypes.c_int),
         ("cam_pos", _floats(3)),
         ("cam_rot", _floats(9)),
         ("ray_sx", ctypes.c_float),
         ("ray_sy", ctypes.c_float),
         ("jitter_offset", ctypes.c_float),
+        ("with_atmosphere", ctypes.c_int),
+        ("with_background", ctypes.c_int),
         ("with_opaque", ctypes.c_int),
         ("n_spheres", ctypes.c_int),
         ("n_boxes", ctypes.c_int),
@@ -155,6 +170,7 @@ class MegakernelParams(ctypes.Structure):
         ("ambient", ctypes.c_float),
         ("sky_color", _floats(3)),
         ("star_intensity", ctypes.c_float),
+        ("model", ctypes.c_int),
         ("atmosphere_steps", ctypes.c_int),
         ("planet_center", _floats(3)),
         ("planet_radius", ctypes.c_float),
@@ -172,8 +188,14 @@ class MegakernelParams(ctypes.Structure):
         ("sun_dir", _floats(3)),
         ("quad_x", _floats(QUAD_POINTS)),
         ("quad_w", _floats(QUAD_POINTS)),
+        ("day_color0", _floats(3)),
+        ("day_color1", _floats(3)),
+        ("night_color0", _floats(3)),
+        ("night_color1", _floats(3)),
+        ("day_night_transition_scale", ctypes.c_float),
         ("clouds_enabled", ctypes.c_int),
         ("cloud_steps", ctypes.c_int),
+        ("raymarched_lighting", ctypes.c_int),
         ("cloud_lod", ctypes.c_int),
         ("coverage_lod", ctypes.c_int),
         ("coverage_knots", ctypes.c_int),
@@ -191,6 +213,7 @@ class MegakernelParams(ctypes.Structure):
         ("cloud_shape_bound", ctypes.c_float),
         ("cloud_detail_term", ctypes.c_float),
         ("march_max_distance", ctypes.c_float),
+        ("sun_step0", ctypes.c_float),
         ("coverage_rot", _floats(4)),
         ("world_to_model", _floats(16)),
         ("ro_model", _floats(3)),
@@ -272,12 +295,13 @@ def texture_mode(config: VariantConfig) -> bool:
 
 def check_config(config: VariantConfig):
     """Raise ``ValueError`` for any config outside what the kernel renders:
-    v2, analytic optical depth, and (with clouds) cheap always-low lighting
-    with dynamic coverage knots, the fields either procedural (value or
-    simplex-smooth) or both baked textures in texture mode."""
+    v1 or v2, analytic optical depth, and (with clouds) always-low density
+    with cheap or sun-marched light and dynamic coverage knots, the fields
+    either procedural (value or simplex-smooth) or both baked textures in
+    texture mode."""
     bad = []
-    if config.model != "v2":
-        bad.append(f"model={config.model!r} (v2 only)")
+    if config.model not in MODELS:
+        bad.append(f"model={config.model!r} (v1 or v2)")
     if config.od_mode != "analytic":
         bad.append(f"od_mode={config.od_mode!r} (analytic only)")
     if config.clouds_enabled:
@@ -289,8 +313,6 @@ def check_config(config: VariantConfig):
                            "builds them)")
             if config.cloud_shape_interp:
                 bad.append("cloud_shape_interp with procedural fields")
-        if config.raymarched_lighting:
-            bad.append("raymarched_lighting")
         if not config.clouds_always_low_quality:
             bad.append("clouds_always_low_quality=False")
         if not config.cloud_coverage_interp:
@@ -408,7 +430,9 @@ _PARAM_FIELDS = ("planet_radius", "atmosphere_height", "sun_position",
                  "cloud_bottom", "cloud_top", "cloud_blend",
                  "cloud_shape_invert", "cloud_coverage_bias",
                  "cloud_shape_factor", "cloud_shape_scale",
-                 "cloud_coverage_rotation", "world_to_model", "time")
+                 "cloud_coverage_rotation", "world_to_model", "time",
+                 "day_color0", "day_color1", "night_color0", "night_color1",
+                 "day_night_transition_scale")
 _OPAQUE_FIELDS = tuple(f.name for f in dataclasses.fields(OpaqueScene))
 _CAMERA_FIELDS = ("view_to_world", "fov_y_rad", "near", "far")
 
@@ -423,6 +447,8 @@ def frame_constants(params: AtmosphereParams, config: VariantConfig,
     o = None if opaque is None else _to_cpu(opaque, _OPAQUE_FIELDS)
     s = MegakernelParams()
     s.height, s.width = height, width
+    s.row0, s.rows = 0, height
+    s.with_atmosphere = 1
     s.ray_sx, s.ray_sy = ray_scale(cam, height, width)
 
     if o is not None:
@@ -444,6 +470,7 @@ def frame_constants(params: AtmosphereParams, config: VariantConfig,
         s.star_intensity = float(o.star_intensity)
 
     ra = p.planet_radius + p.atmosphere_height
+    s.model = MODELS[config.model]
     s.atmosphere_steps = config.atmosphere_steps
     s.planet_radius = float(p.planet_radius)
     s.atmosphere_height = float(p.atmosphere_height)
@@ -460,11 +487,15 @@ def frame_constants(params: AtmosphereParams, config: VariantConfig,
     nodes, weights = gauss_legendre_01(QUAD_POINTS)
     _set(s.quad_x, nodes)
     _set(s.quad_w, weights)
+    for name in ("day_color0", "day_color1", "night_color0", "night_color1"):
+        _set(getattr(s, name), getattr(p, name).tolist())
+    s.day_night_transition_scale = float(p.day_night_transition_scale)
 
     if config.clouds_enabled:
         st = cloud_settings(p)
         s.clouds_enabled = 1
         s.cloud_steps = config.cloud_steps
+        s.raymarched_lighting = int(config.raymarched_lighting)
         s.cloud_lod = config.cloud_lod
         s.coverage_lod = config.cloud_coverage_lod
         s.coverage_knots = config.cloud_coverage_knots
@@ -481,6 +512,10 @@ def frame_constants(params: AtmosphereParams, config: VariantConfig,
         s.cloud_shape_scale = float(p.cloud_shape_scale)
         s.cloud_shape_bound = float(0.5 + 0.575 * p.cloud_shape_factor.abs())
         s.cloud_detail_term = 0.1
+        # the sun march's first step, (0.15 · layer) / 6 in f32 as
+        # clouds.py::get_light_raymarched computes it
+        layer = st.top_height - st.bottom_height
+        s.sun_step0 = float((layer * SUN_REACH) / float(SUN_STEPS))
         # procedural fields (texture mode samples its pyramids instead)
         for name, field in (("shape", config.cloud_shape_noise),
                             ("coverage", config.cloud_coverage_noise)):
@@ -573,11 +608,23 @@ def tex_constants(config: VariantConfig, shape: Optional[texsample.TexMeta] = No
 def render_frame_plain(params: AtmosphereParams, config: VariantConfig,
                        camera: Camera, opaque: Optional[OpaqueScene],
                        height: int, width: int, tex_data=None) -> dict:
-    """The kernel's plain PyTorch version (counted in
-    ``counters.plain_calls``); runs on any device.  ``tex_data``: the
-    ``(shape, coverage)`` pyramid tables of texture mode."""
+    """One fullscreen layer over the opaque pass, the kernel's plain
+    PyTorch version (counted in ``counters.plain_calls``); runs on any
+    device.  ``tex_data``: the ``(shape, coverage)`` pyramid tables of
+    texture mode."""
     counters.plain_calls += 1
     return render_frame(params, config, camera, opaque, height, width, tex_data=tex_data)
+
+
+def render_scene_plain(params_seq, configs, camera: Camera, opaque: Optional[OpaqueScene],
+                       height: int, width: int, tex_data=None, bands=None,
+                       band_rows=None) -> dict:
+    """The layer chain's plain PyTorch version (``renderer.py::
+    render_scene``, counted once in ``counters.plain_calls``); runs on any
+    device."""
+    counters.plain_calls += 1
+    return render_scene(params_seq, configs, camera, opaque, height, width, tex_data=tex_data,
+                        bands=bands, band_rows=band_rows)
 
 
 _BLUE_NOISE = {}
@@ -591,13 +638,21 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
            tex=None, work: Optional[torch.Tensor] = None,
            depth: Optional[torch.Tensor] = None):
     """Launch the kernel for one launch struct into preallocated CUDA
-    outputs (``color`` (H, W, 3), ``alpha`` (H, W), float32) on the current
-    stream of their device; counted in ``counters.megakernel_launches``.
-    ``tex``: ``(TexParams, shape table, coverage table)`` for the texture
-    instance (also counted in ``counters.texture_launches``).  ``work``:
-    ``len(WORK_SLOTS)`` zeroed int64 counters that the kernel adds its work
-    to (see :func:`work_counts`).  ``depth``: an optional (H, W) float32
-    plane that takes the opaque pass's linear depth."""
+    frame planes (``color`` (H, W, 3), ``alpha`` (H, W), float32) on the
+    current stream of their device; counted in
+    ``counters.megakernel_launches``.  It writes the struct's rows
+    ``[row0, row0 + rows)`` only.  ``tex``: ``(TexParams, shape table,
+    coverage table)`` for the texture instance (also counted in
+    ``counters.texture_launches``).  ``work``: ``len(WORK_SLOTS)`` zeroed
+    int64 counters that the kernel adds its work to (see
+    :func:`work_counts`).  ``depth``: an (H, W) float32 plane of linear
+    depth: written by a launch with the opaque pass (optional), read by a
+    chained layer (``with_background``), whose ``color`` and ``alpha`` hold
+    the layers below on entry and the composite on exit."""
+    if struct.with_background and depth is None:
+        raise ValueError("a chained layer reads the carried linear depth: depth is required")
+    if not struct.with_atmosphere and depth is None:
+        raise ValueError("the opaque-only pass writes the linear depth: depth is required")
     device = color.device
     blue = _BLUE_NOISE.get(str(device))
     if blue is None:
@@ -630,8 +685,8 @@ def _check_table(t: torch.Tensor, meta: texsample.TexMeta, device):
 
 
 def _check_inputs(params: AtmosphereParams, config: VariantConfig, camera: Camera,
-                  opaque: Optional[OpaqueScene], height: int, tex_data) -> tuple:
-    """What the wrapper refuses, for a frame or a flight.  Returns
+                  opaque: Optional[OpaqueScene], rows: int, tex_data) -> tuple:
+    """What the wrapper refuses, for one launch of ``rows`` rows.  Returns
     ``(device, texture mode?)``."""
     check_config(config)
     device = camera.view_to_world.device
@@ -652,123 +707,218 @@ def _check_inputs(params: AtmosphereParams, config: VariantConfig, camera: Camer
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"megakernel runs on CUDA devices (got {device})")
     group = config.cloud_lod * config.cloud_coverage_lod if config.clouds_enabled else 1
-    if device.type == "cuda" and not textured and height % group:
-        raise ValueError(f"frame height {height} must be divisible by "
+    if device.type == "cuda" and not textured and rows % group:
+        raise ValueError(f"frame or band height {rows} must be divisible by "
                          f"cloud_lod·cloud_coverage_lod = {group}")
     return device, textured
+
+
+def _check_layers(params_seq, configs, camera: Camera, opaque: Optional[OpaqueScene],
+                  height: int, tex_data, bands, band_rows) -> tuple:
+    """What the wrapper refuses for a frame of layers.  Returns ``(device,
+    per-layer tex_data, per-layer bands, per-layer first rows)``."""
+    n = len(configs)
+    if n < 1 or len(params_seq) != n:
+        raise ValueError(f"{len(params_seq)} params for {n} layer configs (at least one)")
+    tex = tuple(tex_data) if tex_data is not None else (None,) * n
+    bands = tuple(bands) if bands is not None else (None,) * n
+    rows0 = ([0] * n if band_rows is None else [int(r) for r in np.asarray(band_rows)])
+    if len(tex) != n or len(bands) != n or len(rows0) != n:
+        raise ValueError("tex_data, bands and band_rows need one entry per layer")
+    shared_reverse_z(configs)
+    device = None
+    for i in range(n):
+        rows = height if bands[i] is None else int(bands[i])
+        r0 = 0 if bands[i] is None else rows0[i]
+        if r0 < 0 or rows < 1 or r0 + rows > height:
+            raise ValueError(f"layer {i}: band rows [{r0}, {r0 + rows}) outside a "
+                             f"{height}-row frame")
+        device, _ = _check_inputs(params_seq[i], configs[i], camera,
+                                  opaque if i == 0 else None, rows, tex[i])
+    return device, tex, bands, rows0
+
+
+def _tex_launch(config: VariantConfig, tex_data):
+    return (tex_constants(config), *tex_data) if texture_mode(config) else None
+
+
+def scene_launches(params_seq, configs, camera: Camera, opaque: Optional[OpaqueScene],
+                   height: int, width: int, tex_data=None, bands=None,
+                   band_rows=None) -> list:
+    """The launches of one frame, as ``(kind, struct, tex)`` in launch
+    order (``_chain_layers``): ``"opaque"`` (the opaque-only pass, when
+    layer 0 is banded), ``"layer"`` (a fullscreen layer: layer 0 fuses the
+    opaque pass, later ones composite over the frame) and ``"band"`` (a
+    chained layer over its row band)."""
+    n = len(configs)
+    tex = tex_data or (None,) * n
+    bands = bands or (None,) * n
+    out = []
+    if bands[0] is None:
+        out.append(("layer", frame_constants(params_seq[0], configs[0], camera, opaque,
+                                             height, width), _tex_launch(configs[0], tex[0])))
+        start = 1
+    else:
+        s = frame_constants(params_seq[0], opaque_only_config(configs[0]), camera, opaque,
+                            height, width)
+        s.with_atmosphere = 0
+        out.append(("opaque", s, None))
+        start = 0
+    for i in range(start, n):
+        s = frame_constants(params_seq[i], configs[i], camera, None, height, width)
+        s.with_background = 1
+        if bands[i] is not None:
+            s.row0, s.rows = int(band_rows[i]), int(bands[i])
+        out.append(("layer" if bands[i] is None else "band", s, _tex_launch(configs[i], tex[i])))
+    return out
+
+
+def render_scene_megakernel(params_seq, configs, camera: Camera,
+                            opaque: Optional[OpaqueScene], height: int, width: int,
+                            tex_data=None, bands=None, band_rows=None) -> dict:
+    """Render one frame of layers (far to near): ``{"color": (H, W, 3),
+    "alpha": (H, W)}``.
+
+    ``tex_data``: per layer its ``(shape, coverage)`` pyramid tables (a
+    texture-mode config) or ``None``; ``bands``: per layer ``None``
+    (fullscreen) or its band height, ``band_rows`` its first row
+    (``Scene._layer_bands``).  CPU tensors take the plain chain; CUDA
+    tensors launch the kernel once per layer, plus the opaque-only pass
+    when layer 0 is banded, on one stream into preallocated planes, with
+    nothing between the launches; any other device raises."""
+    device, tex, bands, rows0 = _check_layers(params_seq, configs, camera, opaque, height,
+                                              tex_data, bands, band_rows)
+    if device.type == "cpu":
+        out = render_scene_plain(params_seq, configs, camera, opaque, height, width,
+                                 tex_data=tex, bands=bands, band_rows=rows0)
+        return {"color": out["color"], "alpha": out["alpha"]}
+    plan = scene_launches(params_seq, configs, camera, opaque, height, width, tex_data=tex,
+                          bands=bands, band_rows=rows0)
+    color = torch.empty((height, width, 3), dtype=torch.float32, device=device)
+    alpha = torch.empty((height, width), dtype=torch.float32, device=device)
+    depth = (torch.empty((height, width), dtype=torch.float32, device=device)
+             if len(plan) > 1 else None)
+    for _, struct, tex_launch in plan:
+        launch(struct, color, alpha, tex=tex_launch, depth=depth)
+    return {"color": color, "alpha": alpha}
 
 
 def render_frame_megakernel(params: AtmosphereParams, config: VariantConfig,
                             camera: Camera, opaque: Optional[OpaqueScene],
                             height: int, width: int, tex_data=None) -> dict:
-    """Render one single-layer frame: ``{"color": (H, W, 3), "alpha": (H, W)}``.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (built on first use); any other device raises.  A texture-mode config
-    needs ``tex_data``, its ``(shape, coverage)`` pyramid tables.
-    """
-    device, textured = _check_inputs(params, config, camera, opaque, height, tex_data)
-    if device.type == "cpu":
-        out = render_frame_plain(params, config, camera, opaque, height, width,
-                                 tex_data=tex_data)
-        return {"color": out["color"], "alpha": out["alpha"]}
-    struct = frame_constants(params, config, camera, opaque, height, width)
-    tex = (tex_constants(config), *tex_data) if textured else None
-    color = torch.empty((height, width, 3), dtype=torch.float32, device=device)
-    alpha = torch.empty((height, width), dtype=torch.float32, device=device)
-    launch(struct, color, alpha, tex=tex)
-    return {"color": color, "alpha": alpha}
+    """Render one fullscreen layer over the opaque pass: ``{"color":
+    (H, W, 3), "alpha": (H, W)}`` (:func:`render_scene_megakernel` of one
+    layer).  A texture-mode config needs ``tex_data``, its ``(shape,
+    coverage)`` pyramid tables."""
+    return render_scene_megakernel((params,), (config,), camera, opaque, height, width,
+                                   tex_data=(tex_data,))
 
 
-def render_flight_megakernel(params: AtmosphereParams, frame_states, config: VariantConfig,
-                             camera: Camera, opaque: Optional[OpaqueScene], height: int,
-                             width: int, cam_stack=None, tex_data=None) -> dict:
+def render_flight_megakernel(params_seq, fs_stacks, configs, camera: Camera,
+                             opaque: Optional[OpaqueScene], height: int, width: int,
+                             cam_stack=None, tex_data=None) -> dict:
     """Render K frames of a flight: ``{"color": (K, H, W, 3), "alpha":
     (K, H, W)}``.
 
-    ``frame_states``: (K, 24) host rows of packed frame state
-    (``PlanetAtmosphere.frame_state_row``); ``cam_stack``: optional
+    ``params_seq``/``configs``: the layers, far to near, each rendered
+    fullscreen; ``fs_stacks``: per layer (K, 24) host rows of packed frame
+    state (``PlanetAtmosphere.frame_state_row``); ``cam_stack``: optional
     (K, 4, 4) host ``view_to_world`` transforms (default: ``camera``'s for
-    every frame).  CPU tensors take the plain flight (one plain frame per
-    frame); CUDA tensors compute every frame's launch struct on the host,
-    then launch the kernel K times back to back into preallocated outputs.
+    every frame); ``tex_data``: per layer, as in
+    :func:`render_scene_megakernel`.  CPU tensors take the plain flight;
+    CUDA tensors compute every frame's launch structs on the host, then
+    launch the kernel once per layer and frame back to back into
+    preallocated outputs.
     """
-    return _flight(params, frame_states, config, camera, opaque, height, width, cam_stack,
+    return _flight(params_seq, fs_stacks, configs, camera, opaque, height, width, cam_stack,
                    tex_data, None)
 
 
-def render_flight_taa(params: AtmosphereParams, frame_states, config: VariantConfig,
-                      camera: Camera, opaque: Optional[OpaqueScene], height: int, width: int,
+def render_flight_taa(params_seq, fs_stacks, configs, camera: Camera,
+                      opaque: Optional[OpaqueScene], height: int, width: int,
                       cam_stack=None, blend: float = 0.15, tex_data=None,
                       depth_eps: float = 0.2, clamp_mode: str = "minmax",
                       clamp_gamma: float = 1.25) -> dict:
     """The temporally accumulated flight: as :func:`render_flight_megakernel`,
     but each output frame is the TAA resolve (``taa.py``) of the frame
     rendered with temporal jitter (forced on) against the previous resolved
-    frame.  Frame 0 resolves with blend 1.0 against zero history at depth
-    1e7; the returned alpha is each raw frame's.  On a card every frame is
-    one K1 launch (with its depth output) and one K3 launch."""
-    config = dataclasses.replace(config, temporal_jitter=True)
+    frame, with the chain's linear depth (layer 0's opaque pass).  Frame 0
+    resolves with blend 1.0 against zero history at depth 1e7; the returned
+    alpha is each raw frame's.  On a card every frame is one K1 launch per
+    layer and one K3 launch."""
+    configs = tuple(dataclasses.replace(c, temporal_jitter=True) for c in configs)
     settings = taa.TaaSettings(float(blend), float(depth_eps), clamp_mode, float(clamp_gamma))
-    return _flight(params, frame_states, config, camera, opaque, height, width, cam_stack,
+    return _flight(params_seq, fs_stacks, configs, camera, opaque, height, width, cam_stack,
                    tex_data, settings)
 
 
-def _flight(params, frame_states, config, camera, opaque, height, width, cam_stack, tex_data,
+def _flight(params_seq, fs_stacks, configs, camera, opaque, height, width, cam_stack, tex_data,
             settings: Optional[taa.TaaSettings]) -> dict:
-    device, textured = _check_inputs(params, config, camera, opaque, height, tex_data)
-    frame_states = np.ascontiguousarray(frame_states, np.float32)
-    k = frame_states.shape[0]
+    device, tex, _, _ = _check_layers(params_seq, configs, camera, opaque, height, tex_data,
+                                      None, None)
+    fs_stacks = [np.ascontiguousarray(fs, np.float32) for fs in fs_stacks]
+    k = fs_stacks[0].shape[0]
     if cam_stack is None:
         vtw = camera.view_to_world.detach().cpu().numpy()
         cam_stack = np.broadcast_to(vtw, (k, 4, 4))
     cam_stack = np.ascontiguousarray(cam_stack, np.float32)
-    if frame_states.shape != (k, 24) or cam_stack.shape != (k, 4, 4) or k < 1:
-        raise ValueError(f"a flight needs (K, 24) frame states and (K, 4, 4) transforms, "
-                         f"got {frame_states.shape} and {cam_stack.shape}")
+    if (len(fs_stacks) != len(configs) or k < 1 or cam_stack.shape != (k, 4, 4)
+            or any(fs.shape != (k, 24) for fs in fs_stacks)):
+        raise ValueError(f"a flight needs per layer (K, 24) frame states and (K, 4, 4) "
+                         f"transforms, got {[fs.shape for fs in fs_stacks]} and "
+                         f"{cam_stack.shape}")
     if settings is not None:
         taa.check_shapes(height, height, width, settings.clamp_mode)
     if device.type == "cpu":
         counters.plain_calls += k
         if settings is not None:
             taa.counters.plain_calls += k
-        return render_flight_plain(params, frame_states, config, camera, opaque, height, width,
-                                   cam_stack=cam_stack, tex_data=tex_data, taa=settings)
+        return render_flight_plain(params_seq, fs_stacks, configs, camera, opaque, height,
+                                   width, cam_stack=cam_stack, tex_data=tex, taa=settings)
 
     # every launch struct on the host first: no device->host copy from the
     # first launch to the last
-    structs = flight_constants(params, config, camera, opaque, height, width, frame_states,
-                               cam_stack)
-    tex = (tex_constants(config), *tex_data) if textured else None
+    structs = [flight_constants(p, c, camera, opaque if i == 0 else None, height, width, fs,
+                                cam_stack)
+               for i, (p, c, fs) in enumerate(zip(params_seq, configs, fs_stacks))]
+    for layer in structs[1:]:
+        for s in layer:
+            s.with_background = 1
+    texl = [_tex_launch(c, t) for c, t in zip(configs, tex)]
+    n = len(configs)
     f32 = dict(dtype=torch.float32, device=device)
     color = torch.empty((k, height, width, 3), **f32)
     alpha = torch.empty((k, height, width), **f32)
+    depth = torch.empty((height, width), **f32) if n > 1 or settings is not None else None
     if settings is None:
         for i in range(k):
-            launch(structs[i], color[i], alpha[i], tex=tex)
+            for layer in range(n):
+                launch(structs[layer][i], color[i], alpha[i], tex=texl[layer], depth=depth)
         return {"color": color, "alpha": alpha}
     resolves = taa.flight_constants(camera, cam_stack, settings, height, width)
     raw = torch.empty((height, width, 3), **f32)
-    depth = torch.empty((height, width), **f32)
     no_history = torch.zeros((height, width, 3), **f32)
     # history depth ping-pong: frame i reads depths[i % 2], writes the other
     depths = (torch.full((height, width), taa.DEPTH_CLAMP, **f32),
               torch.empty((height, width), **f32))
     for i in range(k):
-        launch(structs[i], raw, alpha[i], tex=tex, depth=depth)
+        for layer in range(n):
+            launch(structs[layer][i], raw, alpha[i], tex=texl[layer], depth=depth)
         taa.launch(resolves[i], raw, depth, color[i - 1] if i else no_history,
                    depths[i % 2], color[i], depths[(i + 1) % 2])
     return {"color": color, "alpha": alpha}
 
 
 def work_counts(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
-                tex=None) -> dict:
+                tex=None, depth: Optional[torch.Tensor] = None) -> dict:
     """One launch with the kernel's work counters on: how many pixels,
-    atmosphere integrations, knot groups, marched coarse pixels and texture
-    samples (trilinear or bilinear, and floor-mode nearest) this frame's
-    inputs needed.  Counted in the launch counters like any launch."""
+    atmosphere integrations (v2 and v1), knot groups, marched coarse
+    pixels, sun-march samples, texture samples (trilinear or bilinear, and
+    floor-mode nearest) and opaque-only pixels this launch's inputs needed.
+    Counted in the launch counters like any launch; a chained layer
+    composites over ``color`` again."""
     work = torch.zeros(len(WORK_SLOTS), dtype=torch.int64, device=color.device)
-    launch(struct, color, alpha, tex=tex, work=work)
+    launch(struct, color, alpha, tex=tex, work=work, depth=depth)
     return dict(zip(WORK_SLOTS, work.cpu().tolist()))
 
 

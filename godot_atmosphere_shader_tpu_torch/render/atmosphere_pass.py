@@ -2,7 +2,7 @@
 (``planet_atmosphere_main.gdshaderinc:106-197``) in world space.
 
 Counterpart of ``godot_atmosphere_shader_tpu/render/atmosphere_pass.py``
-(v2 only).  Cloud fields are procedural noise or baked textures sampled
+(v1 or v2).  Cloud fields are procedural noise or baked textures sampled
 exactly (trilinear shape texture, seamless coverage cubemap); the
 megakernel's plain version passes its pyramid samplers in instead.
 """
@@ -13,6 +13,7 @@ from typing import Tuple
 
 import torch
 
+from ..ops.atmosphere_v1 import compute_atmosphere_v1
 from ..ops.atmosphere_v2 import compute_atmosphere_v2
 from ..ops.clouds import render_clouds, render_clouds_lod
 from ..ops.noise import sample_noise3
@@ -70,9 +71,8 @@ def shade_atmosphere(params, config, ray_origin: Vec3, ray_dir: Vec3,
     and ``coverage_fn`` replace the config's field closures (the pyramid
     samplers); only then are knots evaluated ``texture_knot_group`` at a
     time, as the megakernel does."""
-    if config.model != "v2":
-        raise NotImplementedError(f"atmosphere model {config.model!r} is not "
-                                  "ported yet (v2 only)")
+    if config.model not in ("v1", "v2"):
+        raise ValueError(f"unknown atmosphere model {config.model!r}")
     atmosphere_radius = params.planet_radius + params.atmosphere_height
     rs0, rs1 = ray_sphere(planet_center, atmosphere_radius, ray_origin, ray_dir)
     hit = rs0 != rs1
@@ -94,9 +94,14 @@ def shade_atmosphere(params, config, ray_origin: Vec3, ray_dir: Vec3,
         # no pixel reaches the shell: the integrators are skipped outright
         return Vec3(zero, zero, zero), zero, hit
 
-    rgb, alpha = compute_atmosphere_v2(
-        ray_origin, ray_dir, planet_center, t_begin, t_end, sun_dir, jitter,
-        params, config.atmosphere_steps, od_mode=config.od_mode)
+    if config.model == "v1":
+        rgb, alpha = compute_atmosphere_v1(
+            ray_origin, ray_dir, planet_center, t_begin, t_end, sun_dir, params,
+            config.atmosphere_steps)
+    else:
+        rgb, alpha = compute_atmosphere_v2(
+            ray_origin, ray_dir, planet_center, t_begin, t_end, sun_dir, jitter,
+            params, config.atmosphere_steps, od_mode=config.od_mode)
 
     if config.clouds_enabled:
         overridden = shape_fn is not None or coverage_fn is not None

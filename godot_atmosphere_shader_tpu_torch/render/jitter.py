@@ -34,9 +34,12 @@ def blue_noise_tensor(*, device) -> torch.Tensor:
     return torch.as_tensor(blue_noise_256(), device=device).contiguous()
 
 
-def jitter_plane(height: int, width: int, *, device) -> torch.Tensor:
-    """Full-frame jitter: the asset tiled across the framebuffer."""
+def jitter_plane(height: int, width: int, *, device, row0: int = 0) -> torch.Tensor:
+    """Jitter of ``height`` rows from frame row ``row0``: the asset tiled
+    across the framebuffer (256-periodic, so a band's rows equal the full
+    frame's rows there)."""
     tile = blue_noise_tensor(device=device)
+    tile = torch.roll(tile, -(row0 % 256), dims=0)
     reps_y = -(-height // 256)
     reps_x = -(-width // 256)
     return tile.repeat(reps_y, reps_x)[:height, :width]

@@ -113,27 +113,29 @@ def ray_scale(camera: Camera, height: int, width: int) -> Tuple[float, float]:
 
 
 def pixel_ndc(height: int, width: int, *, device, rows=None,
-              cols=None) -> Tuple[torch.Tensor, torch.Tensor]:
+              cols=None, row0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """NDC x per column ``(cols,)`` and y per row ``(rows,)`` at pixel
-    centers of a ``height × width`` frame (``rows``/``cols`` default to it
-    and may run past its edge); ``(0, 0)`` is the top-left pixel."""
+    centers of a ``height × width`` frame, from frame row ``row0``
+    (``rows``/``cols`` default to the frame and may run past its edge);
+    ``(0, 0)`` is the top-left pixel."""
     ix = torch.arange(width if cols is None else cols, dtype=torch.float32, device=device)
     iy = torch.arange(height if rows is None else rows, dtype=torch.float32, device=device)
+    iy = iy + float(row0)
     ndc_x = 2.0 * (ix + 0.5) / width - 1.0
     ndc_y = 1.0 - 2.0 * (iy + 0.5) / height
     return ndc_x, ndc_y
 
 
 def world_ray_dirs(camera: Camera, height: int, width: int, rows=None,
-                   cols=None) -> Vec3:
+                   cols=None, row0: int = 0) -> Vec3:
     """Normalized per-pixel ray directions rotated into world space, on a
-    ``rows × cols`` grid of the ``height × width`` frame (default: the
-    frame itself)."""
+    ``rows × cols`` grid of the ``height × width`` frame from frame row
+    ``row0`` (default: the frame itself)."""
     device = camera.view_to_world.device
     rows = height if rows is None else rows
     cols = width if cols is None else cols
     sx, sy = ray_scale(camera, height, width)
-    ndc_x, ndc_y = pixel_ndc(height, width, device=device, rows=rows, cols=cols)
+    ndc_x, ndc_y = pixel_ndc(height, width, device=device, rows=rows, cols=cols, row0=row0)
     d = normalize(Vec3((ndc_x * sx).expand(rows, cols),
                        (ndc_y * sy)[:, None].expand(rows, cols),
                        torch.full((rows, cols), -1.0, device=device)))

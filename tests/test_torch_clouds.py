@@ -128,12 +128,14 @@ def test_row_count_must_divide_the_lod():
 
 
 def test_unported_cloud_features_raise():
-    """Raymarched lighting and the detail knot field are not ported; a
-    shape field with neither a spec nor a texture is a user error, as in
-    JAX."""
+    """The detail field is not ported (the detail knots, and full-quality
+    density in the sun march of raymarched lighting); a shape field with
+    neither a spec nor a texture is a user error, as in JAX."""
     d = _inputs("avatar", True)
     with pytest.raises(NotImplementedError):
-        tc.get_light_raymarched()
+        tc.get_light_raymarched(TVec3(0.0, 0.0, 102.0), TVec3(0.0, 0.0, 1.0), None,
+                                torch.zeros(()), d["tp"].time, tc.cloud_settings(d["tp"]),
+                                d["tp"], None, None, False)
     with pytest.raises(NotImplementedError):
         tc.render_clouds(*([None] * 13), 8, False, False, shape_interp=True)
     cfg = dataclasses.replace(d["tcfg"], cloud_shape_noise=None)

@@ -231,11 +231,129 @@ def test_taa_flight_matches_plain_flight(cuda):
     _, params, configs = scene._sorted_layers(cam)
     rows = np.stack([scene.atmospheres[0].frame_state_row(t, s[:3, 3].astype(np.float64), 0.1)
                      for t, s in zip(times, stack)])
-    ref = render_flight_plain(params[0], rows, dataclasses.replace(configs[0],
-                                                                   temporal_jitter=True),
+    ref = render_flight_plain(params, [rows], [dataclasses.replace(configs[0],
+                                                                   temporal_jitter=True)],
                               cam, scene.opaque, H, W, cam_stack=np.stack(stack),
                               taa=taa.TaaSettings(blend=0.2))
     for i in range(4):
+        assert _cloud_ok(_image({"color": out["color"][i], "alpha": out["alpha"][i]}),
+                         _image({"color": ref["color"][i], "alpha": ref["alpha"][i]})), i
+
+
+# -- exterior and multi-planet frames: bands, the chain, the opaque-only pass,
+# v1, raymarched lighting ----------------------------------------------------------
+
+
+def _two_layer_scene(device, planet="clouds_high_rm", moon="no_clouds"):
+    from godot_atmosphere_shader_tpu_torch.models.scene import PlanetAtmosphere
+
+    scene = build_demo_scene(planet, device=device)
+    scene.atmospheres.append(PlanetAtmosphere(
+        planet_radius=10.0, atmosphere_height=2.0, sun=scene.atmospheres[0].sun,
+        custom_shader=moon, position=(-188.991, 0.0, 192.584), device=device))
+    return scene
+
+
+def _plan(scene, cam, h):
+    order, params, configs = scene._sorted_layers(cam)
+    plans = [scene._texture_plan(p, c) for p, c in zip(params, configs)]
+    return scene._layer_bands(order, params, tuple(c for c, _ in plans),
+                              tuple(t for _, t in plans), cam, h)[1:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planet,moon,pose", [
+    ("v1_no_clouds", None, "exterior"),  # a banded v1 layer
+    ("clouds", None, "space"),  # a banded cloud layer over the opaque-only pass
+    ("clouds_high_rm", "no_clouds", "space"),  # the chain, raymarched light
+    ("clouds_high_rm", "v1_no_clouds", "space"),  # the golden's v1 moon
+])
+def test_scene_kernel_matches_plain_chain(cuda, planet, moon, pose):
+    """Scene.render through K1 (one launch per layer and the opaque-only
+    pass) against the plain chain on the same CUDA inputs, cloud
+    tolerance, at 256×384 where the layers are banded."""
+    h, w = 256, 384
+    scene = (build_demo_scene(planet, device=cuda) if moon is None
+             else _two_layer_scene(cuda, planet, moon))
+    cam = demo_camera(pose, device=cuda)
+    scene.update(0.5, cam)
+    params, configs, tex, bands, rows = _plan(scene, cam, h)
+    assert bands is not None and all(b is not None for b in bands)
+    mk.counters.reset()
+    got = _image(scene.render(cam, h, w))
+    assert (mk.counters.megakernel_launches, mk.counters.plain_calls) == (len(configs) + 1, 0)
+    ref = _image(mk.render_scene_plain(params, configs, cam, scene.opaque, h, w, tex_data=tex,
+                                       bands=bands, band_rows=rows))
+    assert torch.isfinite(got).all() and _cloud_ok(got, ref)
+
+
+@pytest.mark.cuda
+def test_opaque_only_pass_matches_plain(cuda):
+    from godot_atmosphere_shader_tpu_torch.render.renderer import opaque_only_config, render_frame
+
+    scene = _two_layer_scene(cuda)
+    cam = demo_camera("space", device=cuda)
+    scene.update(0.5, cam)
+    params, configs, tex, bands, rows = _plan(scene, cam, 256)
+    kind, struct, _ = mk.scene_launches(params, configs, cam, scene.opaque, 256, 384,
+                                        tex_data=tex, bands=bands, band_rows=rows)[0]
+    assert kind == "opaque" and struct.with_atmosphere == 0
+    color = torch.empty((256, 384, 3), device=cuda)
+    alpha = torch.full((256, 384), 7.0, device=cuda)
+    depth = torch.empty((256, 384), device=cuda)
+    mk.launch(struct, color, alpha, depth=depth)
+    ref = render_frame(params[0], opaque_only_config(configs[0]), cam, scene.opaque, 256, 384,
+                       with_atmosphere=False)
+    assert float(alpha.abs().max()) == 0.0
+    assert _cloud_ok(_image({"color": color, "alpha": alpha}), _image(ref))
+    rel = ((depth - ref["linear_depth"]).abs() / ref["linear_depth"]).cpu()
+    assert (rel > 1e-5).double().mean() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_banded_layer_writes_only_its_rows(cuda):
+    """A chained band composites in place: rows outside it keep the planes'
+    values, and its alpha is the maximum with the alpha below."""
+    scene = build_demo_scene("clouds", device=cuda)
+    cam = demo_camera("space", device=cuda)
+    scene.update(0.5, cam)
+    params, configs, tex, bands, rows = _plan(scene, cam, 256)
+    _, struct, _ = mk.scene_launches(params, configs, cam, scene.opaque, 256, 384,
+                                     tex_data=tex, bands=bands, band_rows=rows)[1]
+    color = torch.full((256, 384, 3), 0.25, device=cuda)
+    alpha = torch.full((256, 384), 0.5, device=cuda)
+    depth = torch.full((256, 384), 1e7, device=cuda)
+    mk.launch(struct, color, alpha, depth=depth)
+    r0, r1 = struct.row0, struct.row0 + struct.rows
+    outside = torch.cat([color[:r0], color[r1:]])
+    assert bool((outside == 0.25).all()) and bool((torch.cat([alpha[:r0], alpha[r1:]]) == 0.5).all())
+    assert float(alpha[r0:r1].min()) >= 0.5 and bool((color[r0:r1] != 0.25).any())
+
+
+@pytest.mark.cuda
+def test_two_layer_taa_flight_matches_plain_flight(cuda):
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import taa
+    from godot_atmosphere_shader_tpu_torch.render.renderer import render_flight_plain
+    from godot_atmosphere_shader_tpu_torch.utils.camera import Camera, look_at
+
+    scene = _two_layer_scene(cuda, "clouds")
+    stack = np.stack([look_at((0.4 * i, 150.0, 420.0 - 0.6 * i), (0.0, 0.0, 0.0),
+                              device="cpu").numpy() for i in range(3)])
+    cam = Camera.create(stack[0], device=cuda)
+    times = [0.5 + i / 60.0 for i in range(3)]
+    mk.counters.reset()
+    taa.counters.reset()
+    out = scene.render_flight(cam, times, H, W, cam_transforms=stack, taa_blend=0.2)
+    torch.cuda.synchronize()
+    assert (mk.counters.megakernel_launches, taa.counters.launches) == (6, 3)
+    order, params, configs = scene._sorted_layers(cam)
+    fs = [np.stack([a.frame_state_row(t, s[:3, 3].astype(np.float64), 0.1)
+                    for t, s in zip(times, stack)]) for a in order]
+    ref = render_flight_plain(params, fs, [dataclasses.replace(c, temporal_jitter=True)
+                                           for c in configs],
+                              cam, scene.opaque, H, W, cam_stack=stack,
+                              taa=taa.TaaSettings(blend=0.2))
+    for i in range(3):
         assert _cloud_ok(_image({"color": out["color"][i], "alpha": out["alpha"][i]}),
                          _image({"color": ref["color"][i], "alpha": ref["alpha"][i]})), i
 

@@ -101,8 +101,8 @@ def test_cpu_tensors_take_the_plain_path(clouds_high):
 
 
 @pytest.mark.parametrize("change", [
-    dict(od_mode="lut"), dict(model="v1"), dict(cloud_shape_noise=None),
-    dict(cloud_coverage_noise=None), dict(raymarched_lighting=True),
+    dict(od_mode="lut"), dict(model="v3"), dict(cloud_shape_noise=None),
+    dict(cloud_coverage_noise=None), dict(cloud_lod=0),
     dict(cloud_coverage_interp=False), dict(cloud_shape_interp=True),
     dict(cloud_coverage_knots=7), dict(cloud_lod=8), dict(cloud_coverage_lod=0),
     dict(clouds_always_low_quality=False), dict(cloud_shape_tex_meta=object()),
@@ -129,7 +129,8 @@ def test_wrapper_rejects_unported_noise(clouds_high):
 
 
 def test_demo_profile_is_in_the_kernel_slice():
-    for variant in ("no_clouds", "clouds", "clouds_high"):
+    for variant in ("no_clouds", "clouds", "clouds_high", "clouds_high_rm", "v1_no_clouds",
+                    "v1_clouds", "v1_clouds_high"):
         mk.check_config(demo_variant(variant))
 
 
@@ -185,7 +186,8 @@ def test_cu_limits_match_wrapper():
                        "MK_SHAPE_KNOTS": mk.SHAPE_KNOTS, "MK_MAX_LEVELS": mk.MAX_LEVELS,
                        "MK_TILE_ROWS": mk.TILE_ROWS, "MK_TILE_COLS": mk.TILE_COLS,
                        "MK_WINDOWED": mk.WINDOWED, "MK_BANDED": mk.BANDED,
-                       "MK_FLOOR": mk.FLOOR, **work, "MK_WORK_SLOTS": len(mk.WORK_SLOTS)}
+                       "MK_FLOOR": mk.FLOOR, **work, "MK_WORK_SLOTS": len(mk.WORK_SLOTS),
+                       "MK_SUN_STEPS": mk.SUN_STEPS}
 
 
 _CPARAM = {"int": ctypes.c_int, "const MegakernelParams*": ctypes.POINTER(mk.MegakernelParams),

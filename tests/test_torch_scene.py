@@ -4,8 +4,9 @@ Both packages build the demo scene their own way, update it at t = 0.5 and
 render 48×64 on the CPU (the port: its plain version; JAX: its XLA path).
 Cloud tolerance: p99.9 |Δ| ≤ 1e-3, mean |Δ| ≤ 1e-4, at most 0.1 % of pixels
 above 1e-2.  Also: the ``models/convert.py`` round trip, the near/far and
-interior-LOD switches along a camera path, what ``Scene.render`` refuses,
-and that the port package never imports JAX.
+interior-LOD switches along a camera path, far-mode and multi-layer frames,
+what ``Scene.render`` refuses, and that the port package never imports
+JAX.
 """
 
 import dataclasses
@@ -157,30 +158,46 @@ def _scene(variant="clouds_high", pose="avatar"):
 
 
 def test_render_refuses_far_mode_layers():
-    scene, cam = _scene(pose="space")
+    """Far-mode layers are no longer refused: such a layer renders on its
+    row band, and the banded frame equals the fullscreen one (the layer
+    forced fullscreen)."""
+    scene, cam = _scene("no_clouds", pose="space")
     assert scene.atmospheres[0].mode == tscene.MODE_FAR
-    with pytest.raises(NotImplementedError):
-        scene.render(cam, 8, 16)
+    order, params, configs = scene._sorted_layers(cam)
+    bands = scene._layer_bands(order, params, configs, (None,), cam, 128)[4:]
+    assert bands[0] is not None and bands[1] is not None
+    mk.counters.reset()
+    banded = scene.render(cam, 128, 192)
     scene.atmospheres[0].force_fullscreen = True
     scene.update(0.5, cam)
-    assert scene.render(cam, 8, 16)["color"].shape == (8, 16, 3)
+    assert scene.atmospheres[0].mode == tscene.MODE_NEAR
+    full = scene.render(cam, 128, 192)
+    assert mk.counters.plain_calls == 2
+    for k in ("color", "alpha"):
+        np.testing.assert_allclose(banded[k].numpy(), full[k].numpy(), atol=2e-6)
 
 
 def test_render_refuses_multiple_layers():
-    scene, cam = _scene()
+    """Several layers render (far to near), unless they disagree on the
+    engine-global ``reverse_z`` depth convention (``ValueError``, as JAX)."""
+    scene, cam = _scene("no_clouds")
     scene.atmospheres.append(tscene.PlanetAtmosphere(
         planet_radius=10.0, atmosphere_height=1.0, position=(300.0, 0.0, 0.0),
         device="cpu"))
     scene.update(0.5, cam)
-    with pytest.raises(NotImplementedError):
+    assert scene.render(cam, 8, 16)["color"].shape == (8, 16, 3)
+    moon = scene.atmospheres[1]
+    moon.set_custom_shader(dataclasses.replace(moon.config, reverse_z=False))
+    with pytest.raises(ValueError):
         scene.render(cam, 8, 16)
 
 
-@pytest.mark.parametrize("change", [dict(model="v1"), dict(od_mode="lut"),
+@pytest.mark.parametrize("change", [dict(clouds_always_low_quality=False), dict(od_mode="lut"),
                                     dict(cloud_coverage_noise=None)])
 def test_render_refuses_unported_configs(change):
-    """v1 and the LUT are not ported; clouds without a coverage field (no
-    procedural spec and no cubemap) are a user error, as in JAX."""
+    """The detail field and the LUT are not ported; clouds without a
+    coverage field (no procedural spec and no cubemap) are a user error, as
+    in JAX."""
     scene, cam = _scene()
     atmo = scene.atmospheres[0]
     atmo.set_custom_shader(dataclasses.replace(atmo.config, **change))

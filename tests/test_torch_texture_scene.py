@@ -15,7 +15,11 @@ size in ``tests/test_torch_sampling.py`` and runs full size on the card.
   (cloud LOD 4), 64×128, cloud tolerance: p99.9 |Δ| ≤ 1e-3, mean |Δ| ≤
   1e-4, at most 0.1 % of pixels above 1e-2.
 * Port pyramid against port exact at the interior pose: mean |Δ| < 2e-3
-  (the JAX package's own bound, ``tests/test_texture_mode.py``).
+  (the JAX package's own bound, ``tests/test_texture_mode.py``); and a
+  far-mode ``clouds_high`` texture layer at the space pose (192×256,
+  banded on rows [56, 184): its pyramid batches are the band's own 32×128
+  tiles from row 56) against the fullscreen exact-sampling frame, the same
+  bound.
 * What the texture path refuses, the pyramid cache, and the host side of a
   texture launch (the ``.cu`` structs against their ctypes mirrors are
   checked with the others in ``tests/test_torch_megakernel.py``).
@@ -117,6 +121,25 @@ def test_exact_sampling_matches_jax_xla(interior):
 def test_pyramid_sampling_near_exact_at_interior(interior):
     _, exact, pyramid = interior
     assert float(np.abs(pyramid[..., :3] - exact[..., :3]).mean()) < 2e-3
+
+
+def test_far_mode_texture_layer_near_exact(textures):
+    scene = tdemo.build_demo_scene("clouds_high", procedural=False, device="cpu",
+                                   textures=textures)
+    cam = tdemo.demo_camera("space", device="cpu")
+    scene.update(0.0, cam)
+    order, params, configs = scene._sorted_layers(cam)
+    config, tex = scene._texture_plan(params[0], configs[0])
+    plan = scene._layer_bands(order, params, (config,), (tex,), cam, 192)
+    assert plan[4] == (128,) and plan[5].tolist() == [56]
+    mk.counters.reset()
+    banded = _image(scene.render(cam, 192, 256))
+    assert mk.counters.plain_calls == 1
+    exact_cfg = dataclasses.replace(configs[0], cloud_shape_interp=True,
+                                    cloud_coverage_interp=True)
+    exact = _image(render_frame(params[0], exact_cfg, cam, scene.opaque, 192, 256))
+    assert np.isfinite(banded).all() and np.abs(exact[..., 3]).max() > 0.3
+    assert float(np.abs(banded[..., :3] - exact[..., :3]).mean()) < 2e-3
 
 
 @pytest.mark.parametrize("size", [(48, 128), (32, 96)])
