@@ -73,16 +73,42 @@ more phases:
    ``Scene.render`` ms and idle share, plain ms; on cell 5 the frame with
    ``bands=None`` forced and the planet band without raymarched lighting.
 
+The panorama sky (K1 slice (f): the launch that runs the opaque pass
+samples three channel pyramids, one level and mode per 32×128 tile) and
+the glow output stage run in three more phases, with a synthetic 1024×2048
+panorama made from a seed:
+
+3e. small (256×384), kernel against plain at the cloud tolerance, with the
+   counters (the planned K1 launches, one of them drawing the sky, no plain
+   call and no call of the plain sky sampler): the opaque-only pass with
+   the sky alone; ``no_clouds``, procedural ``clouds_high`` and texture
+   ``clouds_high`` at avatar, each fused with the sky; the everything-on
+   frame (``tools/tpu_checks.py:318-342``: texture clouds, the check's own
+   32×64 panorama, a far-mode moon) at avatar, also against
+   ``tests/golden_allon_sig.npz``, and at space (the opaque-only pass draws
+   the sky); a 4-frame TAA flight with the sky;
+4d. 1080p through ``Scene.render``: the everything-on frame at avatar and
+   at space and ``clouds_high`` at avatar and at sunward, each with the
+   1024×2048 panorama and held against the plain chain; then
+   ``Scene.apply_environment`` with ``GlowSettings.demo()`` on the card
+   against the plain glow of the CPU copy (atol 1e-5), on the
+   everything-on frame and on the sunward frame, whose HDR sun disc must
+   bloom;
+5c. per frame: kernel ms per launch with its bound, ``Scene.render`` ms and
+   idle share, plain ms, glow ms, and the opaque-only pass at 1080p with
+   and without the sky.
+
 Prints a JSON line describing each kernel (with its roofline bound from
 this run's work counters), then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
 line.  Run from the repository root: ``python3 chip_smoke.py``
-(``--quick`` stops after phase 3d).
+(``--quick`` stops after phase 3e).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -94,6 +120,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SIG_PATH = os.path.join(ROOT, "tests", "golden_1080p_sig.npz")
+ALLON_SIG_PATH = os.path.join(ROOT, "tests", "golden_allon_sig.npz")
 SIG_BLOCK = (8, 128)
 SIG_MEAN_TOL = 3e-3
 SIG_MAX_TOL = 3e-2
@@ -134,6 +161,17 @@ OPS_V1_ATMOSPHERE = 700
 # one opaque-only pixel: ray 25, three spheres 3 × 22, the box slab test 55,
 # shading or the star hash 50
 OPS_OPAQUE_PIXEL = 200
+# the panorama sky: every ray of a sky launch's tiles takes part in its
+# tile's choice (polynomial atan2 and asin, the (u, v) map, min and max: 66);
+# a sky pixel adds three bilinear channels sharing their indices and
+# weights (60; floor mode: three nearest taps, 20).  The taps gather 12
+# floats (48 bytes; floor mode 12), counted at the HBM rate, although the
+# pyramids (3 × ~11 MB at a 2048-wide base) sit in the 50 MB L2.
+OPS_SKY_UV = 66
+OPS_SKY_SAMPLE = 60
+OPS_SKY_FLOOR = 20
+BYTES_SKY_SAMPLE = 48
+BYTES_SKY_FLOOR = 12
 # frame-plane bytes per pixel: a fused layer writes color and alpha (16); a
 # chained layer reads color, alpha and depth and writes color and alpha
 # (36); the opaque-only pass writes color, alpha and depth (20)
@@ -164,6 +202,17 @@ BENCH_CELLS = (("1", "v1_no_clouds", "exterior", 256, 256),
 SCENE_CASES = (("v1_no_clouds", "exterior"), ("no_clouds", "exterior"), ("clouds", "space"),
                ("cell5", "space"), ("golden_chain", "space"))
 SCENE_PLAIN_FRAMES = 1
+# the panorama sky: the synthetic panorama's size, phase 3e's fused scenes
+# (scene, pose, texture mode?) and phase 4d's 1080p frames (label, scene,
+# pose, texture mode?)
+PANO_SIZE = (1024, 2048)
+SKY_SCENES = (("no_clouds", "avatar", False), ("clouds_high", "avatar", False),
+              ("clouds_high", "avatar", True))
+SKY_FRAMES = (("everything-on/avatar", "allon", "avatar", True),
+              ("everything-on/space", "allon", "space", True),
+              ("clouds_high/avatar", "clouds_high", "avatar", False),
+              ("clouds_high/sunward", "clouds_high", "sunward", False))
+GLOW_ATOL = 1e-5
 
 
 def log(*args):
@@ -208,6 +257,62 @@ def block_signature(img: np.ndarray):
     blocks = img.reshape(h // bh, bh, w // bw, bw, c)
     return (blocks.mean(axis=(1, 3)).astype(np.float16),
             blocks.max(axis=(1, 3)).astype(np.float16))
+
+
+def check_signature(img: np.ndarray, path: str, label: str):
+    """An (H, W, 3) frame against a committed block signature (block mean
+    ≤ 3e-3, block max ≤ 3e-2); logs the worst blocks."""
+    mean_sig, max_sig = block_signature(img)
+    ref = np.load(path)
+    dmean = np.abs(mean_sig.astype(np.float32) - ref["mean"].astype(np.float32))
+    dmax = np.abs(max_sig.astype(np.float32) - ref["max"].astype(np.float32))
+    log(f"[signature] {label}: block mean delta max {dmean.max():.6g} (tol {SIG_MEAN_TOL}), "
+        f"block max delta max {dmax.max():.6g} (tol {SIG_MAX_TOL}), "
+        f"blocks over: mean {int((dmean > SIG_MEAN_TOL).sum())}, "
+        f"max {int((dmax > SIG_MAX_TOL).sum())}")
+    for name, d in (("mean", dmean), ("max", dmax)):
+        worst = np.argsort(d.reshape(-1))[::-1][:5]
+        for f in worst:
+            by, bx, c = np.unravel_index(f, d.shape)
+            log(f"[signature]   worst block-{name}: rows {by * 8}-{by * 8 + 7} "
+                f"cols {bx * 128}-{bx * 128 + 127} ch {c}: {d[by, bx, c]:.6g}")
+    if dmean.max() > SIG_MEAN_TOL or dmax.max() > SIG_MAX_TOL:
+        raise RuntimeError(f"{label} disagrees with the committed signature")
+    return float(dmean.max()), float(dmax.max())
+
+
+def synthetic_panorama(height: int, width: int, seed: int = 0) -> np.ndarray:
+    """A seeded (H, W, 3) linear space panorama: a dim nebula (a coarse
+    random grid upsampled bilinearly) and a few thousand stars, some of
+    them HDR."""
+    rng = np.random.default_rng(seed)
+    coarse = rng.random((3, 17, 33)).astype(np.float32)
+    ys = np.linspace(0.0, 16.0, height)
+    xs = np.linspace(0.0, 32.0, width)
+    y0 = np.minimum(ys.astype(np.int64), 15)
+    x0 = np.minimum(xs.astype(np.int64), 31)
+    fy = (ys - y0)[:, None]
+    fx = (xs - x0)[None, :]
+    top = coarse[:, y0][:, :, x0] * (1 - fx) + coarse[:, y0][:, :, x0 + 1] * fx
+    bot = coarse[:, y0 + 1][:, :, x0] * (1 - fx) + coarse[:, y0 + 1][:, :, x0 + 1] * fx
+    img = (0.005 + 0.06 * (top * (1 - fy) + bot * fy) ** 2).transpose(1, 2, 0)
+    n = height * width // 500
+    img[rng.integers(0, height, n), rng.integers(0, width, n)] = rng.uniform(0.2, 2.0, (n, 1))
+    return np.ascontiguousarray(img, np.float32)
+
+
+def allon_panorama() -> np.ndarray:
+    """The everything-on check's own 32×64 panorama (``tools/tpu_checks.py:331-334``)."""
+    return np.stack([np.tile((np.arange(64) + 0.5) / 64, (32, 1)),
+                     np.tile(((np.arange(32) + 0.5) / 32)[:, None], (1, 64)),
+                     np.full((32, 64), 0.25)], -1).astype(np.float32)
+
+
+def with_panorama(scene, pano: np.ndarray):
+    """The scene with ``pano`` as its opaque scene's panorama sky."""
+    scene.opaque = dataclasses.replace(scene.opaque,
+                                       panorama=torch.as_tensor(pano, device=scene.device))
+    return scene
 
 
 def smi(query: str) -> str:
@@ -279,12 +384,12 @@ def busy_us(events) -> float:
 
 
 def roofline(work: dict, config, height: int, width: int, table_bytes: int = 0,
-             frame_bytes=None) -> dict:
+             frame_bytes=None, with_sky: bool = False) -> dict:
     """The least time the card could take for this launch's work: the
     larger of its operations over the fp32 peak and its bytes (frame planes
     read and written once, ``frame_bytes``, by default the outputs of a
-    fullscreen layer; blue noise and pyramids read once) over the HBM
-    rate."""
+    fullscreen layer; blue noise and pyramids read once; the sky's gathered
+    texels) over the HBM rate."""
     steps = config.cloud_steps
     textured = table_bytes > 0
     sun_ops = OPS_SUN_SAMPLE + (0 if textured else OPS_SHAPE_NOISE)
@@ -297,9 +402,13 @@ def roofline(work: dict, config, height: int, width: int, table_bytes: int = 0,
            + work["latlong"] * OPS_LATLONG + work["latlong_floor"] * OPS_LATLONG_FLOOR)
     if not textured:
         ops += work["knot_groups"] * (config.cloud_coverage_knots + 1) * OPS_COVERAGE_KNOT
+    if with_sky:
+        ops += ((work["pixels"] + work["opaque_pixels"]) * OPS_SKY_UV
+                + work["sky"] * OPS_SKY_SAMPLE + work["sky_floor"] * OPS_SKY_FLOOR)
     if frame_bytes is None:
         frame_bytes = height * width * BYTES_LAYER_PIXEL
-    nbytes = frame_bytes + 256 * 256 * 4 + table_bytes
+    nbytes = (frame_bytes + 256 * 256 * 4 + table_bytes + work["sky"] * BYTES_SKY_SAMPLE
+              + work["sky_floor"] * BYTES_SKY_FLOOR)
     t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
     return {"ops": ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -484,10 +593,9 @@ def flight_times(frames: int, t0: float = 0.5) -> list:
 
 def plain_flight(scene, cam, times, stack, h, w, blend):
     """The plain flight on the same CUDA inputs as ``Scene.render_flight``:
-    the same layers and configs (texture plans included), per-frame state
-    rows and transforms, through ``render_flight_plain``."""
-    import dataclasses
-
+    the same layers and configs (texture plans and the sky's pyramids
+    included), per-frame state rows and transforms, through
+    ``render_flight_plain``."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import taa
     from godot_atmosphere_shader_tpu_torch.render.renderer import render_flight_plain
 
@@ -501,8 +609,10 @@ def plain_flight(scene, cam, times, stack, h, w, blend):
     near = float(cam.near)
     fs = [np.stack([atmo.frame_state_row(float(t), m[:3, 3].astype(np.float64), near)
                     for t, m in zip(np.asarray(times, np.float32), stack)]) for atmo in order]
+    pano_data, pano_meta = scene._pano_plan() or (None, None)
     return render_flight_plain(params, fs, configs, cam, scene.opaque, h, w, cam_stack=stack,
-                               tex_data=[t for _, t in plans], taa=settings)
+                               tex_data=[t for _, t in plans], taa=settings,
+                               pano_data=pano_data, pano_meta=pano_meta)
 
 
 def check_flight(label, out, ref) -> float:
@@ -567,18 +677,22 @@ def build_scene(kind: str, device, textures=None):
     """A demo variant's scene (``textures``: texture mode), ``"cell5"``
     (``clouds_high_rm`` and the moon's ``no_clouds`` atmosphere, JAX bench
     cell 5), ``"golden_chain"`` (the same with a ``v1_no_clouds`` moon, as
-    ``tests/golden_images/rm_multiplanet_space.png``) or ``"gas_giant"``."""
+    ``tests/golden_images/rm_multiplanet_space.png``), ``"allon"`` (the
+    everything-on scene's layers: texture ``clouds`` and the moon's
+    ``no_clouds`` atmosphere; the caller sets its panorama) or
+    ``"gas_giant"``."""
     from godot_atmosphere_shader_tpu_torch.models.demo import (build_demo_scene,
                                                                build_gas_giant_scene)
     from godot_atmosphere_shader_tpu_torch.models.scene import PlanetAtmosphere
 
     if kind == "gas_giant":
         return build_gas_giant_scene(device=device)
-    if kind in ("cell5", "golden_chain"):
-        scene = build_demo_scene("clouds_high_rm", device=device)
+    if kind in ("cell5", "golden_chain", "allon"):
+        scene = (build_demo_scene("clouds", procedural=False, device=device, textures=textures)
+                 if kind == "allon" else build_demo_scene("clouds_high_rm", device=device))
         scene.atmospheres.append(PlanetAtmosphere(
             sun=scene.atmospheres[0].sun, device=device,
-            custom_shader="no_clouds" if kind == "cell5" else "v1_no_clouds", **MOON))
+            custom_shader="v1_no_clouds" if kind == "golden_chain" else "no_clouds", **MOON))
         return scene
     return build_demo_scene(kind, procedural=textures is None, device=device, textures=textures)
 
@@ -614,56 +728,68 @@ def expected_launches(plan) -> int:
     return len(configs) + int(bands is not None and bands[0] is not None)
 
 
-def check_scene(label: str, scene, cam, h: int, w: int) -> float:
+def check_scene(label: str, scene, cam, h: int, w: int) -> tuple:
     """``Scene.render`` through the kernel (counters: the planned launches,
-    no plain call) against the plain chain on the same inputs (cloud
-    tolerance); returns the largest |Δ|."""
+    one drawing the sky when the scene has a panorama, no plain call, no
+    plain sky sampler call) against the plain chain on the same inputs
+    (cloud tolerance); returns the largest |Δ| and the kernel's frame."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import texsample as ts
 
     plan = scene_plan(scene, cam, h)
+    pano_data, pano_meta = scene._pano_plan() or (None, None)
     mk.counters.reset()
+    ts.counters.reset()
     got = frame_array(scene.render(cam, h, w))
-    counts = (mk.counters.megakernel_launches, mk.counters.plain_calls)
+    counts = (mk.counters.megakernel_launches, mk.counters.sky_launches,
+              mk.counters.plain_calls + ts.counters.plain_sky_calls)
     params, configs, tex, bands, rows = plan
     ref = frame_array(mk.render_scene_plain(params, configs, cam, scene.opaque, h, w,
-                                            tex_data=tex, bands=bands, band_rows=rows))
+                                            tex_data=tex, bands=bands, band_rows=rows,
+                                            pano_data=pano_data, pano_meta=pano_meta))
     check_frame(got, f"kernel {label}")
     check_frame(ref, f"plain {label}")
     st = cloud_deltas(got, ref)
     log(f"[scene] {label} {h}x{w}: plan [{plan_text(plan)}], counters K1 {counts[0]}, "
-        f"plain {counts[1]}; kernel vs plain: {json.dumps(st)}")
-    if counts != (expected_launches(plan), 0):
+        f"sky {counts[1]}, plain {counts[2]}; kernel vs plain: {json.dumps(st)}")
+    if counts != (expected_launches(plan), int(pano_data is not None), 0):
         raise RuntimeError(f"{label}: the frame did not go through the planned K1 launches only")
     if not cloud_tolerance_ok(st):
         raise RuntimeError(f"{label}: kernel disagrees with plain")
-    return st["max"]
+    return st["max"], got
 
 
-def opaque_only_check(device, h: int, w: int) -> float:
-    """The opaque-only launch of cell 5's plan alone against the plain
-    opaque-only frame (color, alpha 0, linear depth)."""
+def opaque_only_check(device, h: int, w: int, pano=None) -> float:
+    """The opaque-only launch of cell 5's plan alone (with ``pano`` as its
+    panorama sky, if given) against the plain opaque-only frame (color,
+    alpha 0, linear depth)."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
     from godot_atmosphere_shader_tpu_torch.render.renderer import opaque_only_config, render_frame
 
     scene = build_scene("cell5", device)
+    if pano is not None:
+        with_panorama(scene, pano)
     cam = scene_camera("cell5", "space", device)
     scene.update(0.5, cam)
     params, configs, tex, bands, rows = scene_plan(scene, cam, h)
-    kind, struct, _ = mk.scene_launches(params, configs, cam, scene.opaque, h, w, tex_data=tex,
-                                        bands=bands, band_rows=rows)[0]
-    if kind != "opaque":
+    pano_data, pano_meta = scene._pano_plan() or (None, None)
+    kind, struct, args = mk.scene_launches(params, configs, cam, scene.opaque, h, w,
+                                           tex_data=tex, bands=bands, band_rows=rows,
+                                           pano_data=pano_data, pano_meta=pano_meta)[0]
+    if kind != "opaque" or struct.with_sky != int(pano is not None):
         raise RuntimeError("cell 5's plan does not start with the opaque-only pass")
     color = torch.empty((h, w, 3), device=device)
     alpha = torch.empty((h, w), device=device)
     depth = torch.empty((h, w), device=device)
-    mk.launch(struct, color, alpha, depth=depth)
+    mk.launch(struct, color, alpha, depth=depth, **args)
     ref = render_frame(params[0], opaque_only_config(configs[0]), cam, scene.opaque, h, w,
-                       with_atmosphere=False)
+                       with_atmosphere=False, pano_data=pano_data, pano_meta=pano_meta)
     got = frame_array({"color": color, "alpha": alpha})
     st = cloud_deltas(got, frame_array(ref))
     depth_off = float(((depth - ref["linear_depth"]).abs() > 1e-3 * ref["linear_depth"])
                       .double().mean())
-    log(f"[scene] opaque-only pass {h}x{w} kernel vs plain: {json.dumps(st)}, alpha max "
+    log(f"[scene] opaque-only pass{' with the sky' if pano is not None else ''} {h}x{w} "
+        f"kernel vs plain: {json.dumps(st)}, alpha max "
         f"{float(alpha.abs().max())}, depth off by > 1e-3 rel on {depth_off:.3g} of pixels")
     if not cloud_tolerance_ok(st) or float(alpha.abs().max()) != 0.0 or depth_off > 1e-3:
         raise RuntimeError("the opaque-only pass disagrees with plain")
@@ -686,30 +812,34 @@ def launch_timing(plan, scene, cam, h, w, device) -> dict:
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     params, configs, tex, bands, rows = plan
+    pano_data, pano_meta = scene._pano_plan() or (None, None)
     launches = mk.scene_launches(params, configs, cam, scene.opaque, h, w, tex_data=tex,
-                                 bands=bands, band_rows=rows)
+                                 bands=bands, band_rows=rows, pano_data=pano_data,
+                                 pano_meta=pano_meta)
     color = torch.empty((h, w, 3), device=device)
     alpha = torch.empty((h, w), device=device)
     depth = torch.empty((h, w), device=device)
-    for _, struct, tl in launches:  # the planes the chained launches read
-        mk.launch(struct, color, alpha, tex=tl, depth=depth)
+    for _, struct, args in launches:  # the planes the chained launches read
+        mk.launch(struct, color, alpha, depth=depth, **args)
     layer_of = ([0] if launches[0][0] == "opaque" else []) + list(range(len(configs)))
     out, bound = [], 0.0
-    for (kind, struct, tl), li in zip(launches, layer_of):
-        ms = time_cuda(lambda i, st=struct, t=tl: mk.launch(st, color, alpha, tex=t, depth=depth),
+    for (kind, struct, args), li in zip(launches, layer_of):
+        ms = time_cuda(lambda i, st=struct, a=args: mk.launch(st, color, alpha, depth=depth, **a),
                        KERNEL_FRAMES)
-        work = mk.work_counts(struct, color, alpha, tex=tl, depth=depth)
+        work = mk.work_counts(struct, color, alpha, depth=depth, **args)
         per_px = (BYTES_OPAQUE_PIXEL if kind == "opaque" else BYTES_CHAINED_PIXEL
                   if struct.with_background else BYTES_LAYER_PIXEL)
+        tl = args["tex"]
         table_bytes = 0 if tl is None else sum(x.numel() * 4 for x in tl[1:])
-        b = roofline(work, configs[li], h, w, table_bytes, frame_bytes=struct.rows * w * per_px)
+        b = roofline(work, configs[li], h, w, table_bytes, frame_bytes=struct.rows * w * per_px,
+                     with_sky=bool(struct.with_sky))
         bound += b["bound_ms"]
         out.append({"kind": kind, "layer": li, "row0": struct.row0, "rows": struct.rows,
-                    "ms": ms, **b, "work": work})
+                    "sky": bool(struct.with_sky), "ms": ms, **b, "work": work})
 
     def frame(i):
-        for _, st, tl in launches:
-            mk.launch(st, color, alpha, tex=tl, depth=depth)
+        for _, st, args in launches:
+            mk.launch(st, color, alpha, depth=depth, **args)
 
     return {"launches": out, "frame_kernel_ms": time_cuda(frame, KERNEL_FRAMES),
             "frame_bound_ms": bound, "launches_per_frame": len(launches)}
@@ -759,8 +889,9 @@ def k2_timing(device) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
-                    help="stop after the small checks: 256×384 frames, K2 alone, K3 alone "
-                         "and a 4-frame TAA flight (phase 3c)")
+                    help="stop after the small checks: 256×384 frames, K2 alone, K3 alone, "
+                         "TAA flights, the exterior and multi-planet frames and the sky "
+                         "(phases 3 to 3e)")
     args = ap.parse_args(argv)
 
     # -- 1. device ----------------------------------------------------------
@@ -781,6 +912,8 @@ def main(argv=None) -> int:
     from godot_atmosphere_shader_tpu_torch.ops import sampling
     from godot_atmosphere_shader_tpu_torch.ops.kernels import library, probes, taa
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import texsample as ts
+    from godot_atmosphere_shader_tpu_torch.render.glow import GlowSettings, apply_glow
     from godot_atmosphere_shader_tpu_torch.utils.camera import Camera
 
     # -- 2. build -----------------------------------------------------------
@@ -853,11 +986,11 @@ def main(argv=None) -> int:
         scene = build_scene(kind, device)
         cam = scene_camera(kind, pose, device)
         scene.update(0.5, cam)
-        scene_err = max(scene_err, check_scene(f"{kind}/{pose}", scene, cam, h, w))
+        scene_err = max(scene_err, check_scene(f"{kind}/{pose}", scene, cam, h, w)[0])
     scene = build_scene("clouds_high", device, textures=textures)
     cam = scene_camera("clouds_high", "space", device)
     scene.update(0.5, cam)
-    scene_err = max(scene_err, check_scene("clouds_high texture/space", scene, cam, h, w))
+    scene_err = max(scene_err, check_scene("clouds_high texture/space", scene, cam, h, w)[0])
     scene = build_scene("cell5", device)
     stack = space_path(SMALL_FLIGHT_FRAMES)
     cam = Camera.create(stack[0], device=device)
@@ -874,6 +1007,46 @@ def main(argv=None) -> int:
     scene_err = max(scene_err, check_flight(f"cell5 two-layer TAA {h}x{w}", out,
                                             plain_flight(scene, cam, times, stack, h, w,
                                                          FLIGHT_BLEND)))
+
+    # -- 3e. the panorama sky, small ------------------------------------------------
+    t0 = time.time()
+    pano = synthetic_panorama(*PANO_SIZE)
+    log(f"[sky] synthetic {PANO_SIZE[0]}x{PANO_SIZE[1]} panorama: {time.time() - t0:.2f} s")
+    sky_err = opaque_only_check(device, h, w, pano)
+    for kind, pose, textured in SKY_SCENES:
+        scene = with_panorama(build_scene(kind, device, textures if textured else None), pano)
+        cam = scene_camera(kind, pose, device)
+        scene.update(0.5, cam)
+        label = f"{kind}{'/texture' if textured else ''}/{pose} with the sky"
+        sky_err = max(sky_err, check_scene(label, scene, cam, h, w)[0])
+    allon_sig = {}
+    for pose in ("avatar", "space"):
+        scene = with_panorama(build_scene("allon", device, textures), allon_panorama())
+        cam = scene_camera("allon", pose, device)
+        scene.update(0.25, cam)
+        err, img = check_scene(f"everything-on/{pose}", scene, cam, h, w)
+        sky_err = max(sky_err, err)
+        if pose == "avatar":
+            allon_sig = dict(zip(("block_mean_delta", "block_max_delta"),
+                                 check_signature(img[..., :3], ALLON_SIG_PATH,
+                                                 f"everything-on/avatar {h}x{w}")))
+    scene = with_panorama(build_scene("clouds_high", device), pano)
+    stack = fly_path(SMALL_FLIGHT_FRAMES)
+    cam = Camera.create(stack[0], device=device)
+    mk.counters.reset()
+    taa.counters.reset()
+    ts.counters.reset()
+    out = scene.render_flight(cam, times, h, w, cam_transforms=stack, taa_blend=FLIGHT_BLEND)
+    torch.cuda.synchronize()
+    counts = (mk.counters.megakernel_launches, mk.counters.sky_launches, taa.counters.launches,
+              mk.counters.plain_calls + taa.counters.plain_calls + ts.counters.plain_sky_calls)
+    log(f"[sky] 4-frame TAA flight with the sky {h}x{w}: counters K1 {counts[0]}, sky "
+        f"{counts[1]}, K3 {counts[2]}, plain {counts[3]}")
+    if counts != (SMALL_FLIGHT_FRAMES,) * 3 + (0,):
+        raise RuntimeError("the TAA flight with the sky did not go through K1 and K3 only")
+    sky_err = max(sky_err, check_flight(f"clouds_high TAA with the sky {h}x{w}", out,
+                                        plain_flight(scene, cam, times, stack, h, w,
+                                                     FLIGHT_BLEND)))
     if args.quick:
         return 1
 
@@ -904,23 +1077,8 @@ def main(argv=None) -> int:
         if not cloud_tolerance_ok(st):
             raise RuntimeError(f"1080p kernel disagrees with plain on {variant}/{pose}")
         max_err = max(max_err, st["max"])
-    img = frame_array(runs[("clouds_high", "avatar")][2])[..., :3]
-    mean_sig, max_sig = block_signature(img)
-    ref = np.load(SIG_PATH)
-    dmean = np.abs(mean_sig.astype(np.float32) - ref["mean"].astype(np.float32))
-    dmax = np.abs(max_sig.astype(np.float32) - ref["max"].astype(np.float32))
-    log(f"[signature] block mean delta max {dmean.max():.6g} (tol {SIG_MEAN_TOL}), "
-        f"block max delta max {dmax.max():.6g} (tol {SIG_MAX_TOL}), "
-        f"blocks over: mean {int((dmean > SIG_MEAN_TOL).sum())}, "
-        f"max {int((dmax > SIG_MAX_TOL).sum())}")
-    for name, d in (("mean", dmean), ("max", dmax)):
-        worst = np.argsort(d.reshape(-1))[::-1][:5]
-        for f in worst:
-            by, bx, c = np.unravel_index(f, d.shape)
-            log(f"[signature]   worst block-{name}: rows {by * 8}-{by * 8 + 7} "
-                f"cols {bx * 128}-{bx * 128 + 127} ch {c}: {d[by, bx, c]:.6g}")
-    if dmean.max() > SIG_MEAN_TOL or dmax.max() > SIG_MAX_TOL:
-        raise RuntimeError("1080p frame disagrees with the committed signature")
+    check_signature(frame_array(runs[("clouds_high", "avatar")][2])[..., :3], SIG_PATH,
+                    "clouds_high/avatar 1080p")
 
     # -- 4b. the texture slice at 1080p through Scene.render ---------------------
     tex_runs = {}
@@ -976,10 +1134,69 @@ def main(argv=None) -> int:
         scene = build_scene(kind, device)
         cam = scene_camera(kind, pose, device)
         scene.update(0.5, cam)
-        scene_err = max(scene_err, check_scene(f"cell {cell} {kind}/{pose}", scene, cam, ch, cw))
+        scene_err = max(scene_err,
+                        check_scene(f"cell {cell} {kind}/{pose}", scene, cam, ch, cw)[0])
         plan = scene_plan(scene, cam, ch)
         cell_launches += expected_launches(plan)
         cells[cell] = (kind, scene, cam, ch, cw, plan)
+
+    # -- 4d. the panorama sky at 1080p through Scene.render, and the glow ----------
+    sky_runs, sky_launches = {}, 0
+    pyramid_s = {}
+    mk.counters.reset()
+    ts.counters.reset()
+    for label, kind, pose, textured in SKY_FRAMES:
+        scene = with_panorama(build_scene(kind, device, textures if textured else None), pano)
+        cam = scene_camera(kind, pose, device)
+        scene.update(0.25 if kind == "allon" else 0.5, cam)
+        plan = scene_plan(scene, cam, H)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        scene._pano_plan()  # builds and uploads the sky's pyramids
+        torch.cuda.synchronize()
+        pyramid_s[label] = time.time() - t0
+        sky_runs[label] = (scene, cam, plan, scene.render(cam, H, W))
+        sky_launches += expected_launches(plan)
+    torch.cuda.synchronize()
+    sky_counts = (mk.counters.megakernel_launches, mk.counters.sky_launches,
+                  mk.counters.plain_calls + ts.counters.plain_sky_calls)
+    log(f"[sky] counters after {len(SKY_FRAMES)} 1080p Scene.render frames with the sky: K1 "
+        f"{sky_counts[0]} (texture {mk.counters.texture_launches}), sky {sky_counts[1]}, "
+        f"plain {sky_counts[2]}; pyramid build and upload " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in pyramid_s.items()))
+    if sky_counts != (sky_launches, len(SKY_FRAMES), 0):
+        raise RuntimeError("the 1080p frames with the sky did not go through K1 only")
+    sky_frame_err = 0.0
+    for label, (scene, cam, plan, out) in sky_runs.items():
+        img = frame_array(out)
+        check_frame(img, f"1080p {label} with the sky")
+        params, configs, tex, bands, rows = plan
+        pano_data, pano_meta = scene._pano_plan()
+        ref = frame_array(mk.render_scene_plain(params, configs, cam, scene.opaque, H, W,
+                                                tex_data=tex, bands=bands, band_rows=rows,
+                                                pano_data=pano_data, pano_meta=pano_meta))
+        check_frame(ref, f"plain 1080p {label} with the sky")
+        st = cloud_deltas(img, ref)
+        log(f"[sky] {label} 1080p: plan [{plan_text(plan)}], mean {img[..., :3].mean():.6f}, "
+            f"alpha mean {img[..., 3].mean():.6f}; kernel vs plain: {json.dumps(st)}")
+        if not cloud_tolerance_ok(st):
+            raise RuntimeError(f"1080p {label} with the sky disagrees with plain")
+        sky_frame_err = max(sky_frame_err, st["max"])
+    glow_err, glow_change = 0.0, {}
+    for label in ("everything-on/avatar", "clouds_high/sunward"):
+        scene, _, _, out = sky_runs[label]
+        scene.environment = GlowSettings.demo()
+        glowed = scene.apply_environment(out["color"])
+        ref = apply_glow(out["color"].cpu(), GlowSettings.demo())
+        err = float((glowed.cpu() - ref).abs().max())
+        glow_change[label] = float((glowed - out["color"]).abs().max())
+        log(f"[glow] {label} 1080p: card vs CPU max |Δ| {err:.3g} (atol {GLOW_ATOL}), the glow "
+            f"adds up to {glow_change[label]:.4g}")
+        if not err <= GLOW_ATOL or not torch.isfinite(glowed).all():
+            raise RuntimeError(f"the glow of {label} disagrees between the card and the CPU")
+        glow_err = max(glow_err, err)
+    if not glow_change["clouds_high/sunward"] > 1e-2:
+        raise RuntimeError("the sunward frame's HDR sun disc did not bloom")
 
     # -- 5. timing -------------------------------------------------------------
     timings, bounds = {}, {}
@@ -1026,8 +1243,6 @@ def main(argv=None) -> int:
     log(f"[time] after timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
     # -- 5b. the bench cells' timing: per launch, per frame, plain ---------------------
-    import dataclasses
-
     cell_t = {}
     for cell, (kind, scene, cam, ch, cw, plan) in cells.items():
         t = launch_timing(plan, scene, cam, ch, cw, device)
@@ -1071,6 +1286,76 @@ def main(argv=None) -> int:
                  "planet_band_cheap_light_bound_ms": planet_cheap[0]["bound_ms"]}
     log(f"[cell-time] cell 5 comparisons on {card}: {json.dumps(cell5_cmp)}")
     log(f"[cell-time] after timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+
+    # -- 5c. the sky's timing: per launch, per frame, plain; glow; the sky's cost ------
+    from godot_atmosphere_shader_tpu_torch.render.renderer import opaque_only_config, render_frame
+
+    sky_t = {}
+    for label, (scene, cam, plan, out) in sky_runs.items():
+        t = launch_timing(plan, scene, cam, H, W, device)
+        base = 0.25 if label.startswith("everything-on") else 0.5
+
+        def frame(i, scene=scene, cam=cam, base=base):
+            scene.update(base + 0.05 * i, cam)
+            scene.render(cam, H, W)
+
+        def plain(i, scene=scene, cam=cam, base=base):
+            scene.update(base + 0.05 * i, cam)
+            params, configs, tex, bands, rows = scene_plan(scene, cam, H)
+            pano_data, pano_meta = scene._pano_plan()
+            mk.render_scene_plain(params, configs, cam, scene.opaque, H, W, tex_data=tex,
+                                  bands=bands, band_rows=rows, pano_data=pano_data,
+                                  pano_meta=pano_meta)
+
+        t["scene_ms"] = time_cuda(frame, KERNEL_FRAMES)
+        busy, kernel = device_busy_ms(frame, KERNEL_FRAMES, first=2 + KERNEL_FRAMES)
+        t["scene_device_busy_ms"] = busy
+        t["scene_megakernel_device_ms"] = kernel
+        t["scene_idle_share"] = 1.0 - busy / t["scene_ms"] if busy > 0 else None
+        t["plain_ms"] = time_cuda(plain, SCENE_PLAIN_FRAMES, warmup=0)
+        t["plan"] = plan_text(plan)
+        scene.update(base, cam)
+        sky_t[label] = t
+        log(f"[sky-time] {label} 1080p on {card}: {json.dumps(t)}")
+    scene, _, _, out = sky_runs["everything-on/avatar"]
+    glow_t = {"ms": time_cuda(lambda i: scene.apply_environment(out["color"]), KERNEL_FRAMES),
+              "cpu_ms": time_cuda(lambda i: apply_glow(out["color"].cpu(), scene.environment),
+                                  1, warmup=0)}
+    log(f"[glow-time] GlowSettings.demo() at 1080p on {card}: {json.dumps(glow_t)}")
+    # the opaque-only pass of the everything-on/space plan, with the sky and
+    # without (the same struct, with_sky off), in turns: sky, none, none, sky
+    scene, cam, plan, _ = sky_runs["everything-on/space"]
+    params, configs, tex, bands, rows = plan
+    pano_data, pano_meta = scene._pano_plan()
+    kind, struct, args = mk.scene_launches(params, configs, cam, scene.opaque, H, W,
+                                           tex_data=tex, bands=bands, band_rows=rows,
+                                           pano_data=pano_data, pano_meta=pano_meta)[0]
+    if kind != "opaque" or not struct.with_sky:
+        raise RuntimeError("the everything-on/space plan does not start with the sky's "
+                           "opaque-only pass")
+    no_sky = mk.MegakernelParams.from_buffer_copy(struct)
+    no_sky.with_sky = 0
+    color = torch.empty((H, W, 3), device=device)
+    alpha = torch.empty((H, W), device=device)
+    depth = torch.empty((H, W), device=device)
+    runs_ms = {"sky": [], "none": []}
+    for which in ("sky", "none", "none", "sky"):
+        st, a = (struct, args) if which == "sky" else (no_sky, {})
+        runs_ms[which].append(time_cuda(lambda i, st=st, a=a: mk.launch(
+            st, color, alpha, depth=depth, **a), KERNEL_FRAMES))
+    opaque_sky = {"sky_ms": runs_ms["sky"], "no_sky_ms": runs_ms["none"]}
+    for which, st, a in (("sky", struct, args), ("no_sky", no_sky, {})):
+        work = mk.work_counts(st, color, alpha, depth=depth, **a)
+        b = roofline(work, opaque_only_config(configs[0]), H, W,
+                     frame_bytes=H * W * BYTES_OPAQUE_PIXEL, with_sky=which == "sky")
+        opaque_sky.update({f"{which}_bound_ms": b["bound_ms"], f"{which}_bound_by": b["bound_by"],
+                           f"{which}_work": work})
+    opaque_sky["plain_ms"] = time_cuda(lambda i: render_frame(
+        params[0], opaque_only_config(configs[0]), cam, scene.opaque, H, W,
+        with_atmosphere=False, pano_data=pano_data, pano_meta=pano_meta), 1, warmup=1)
+    log(f"[sky-time] opaque-only pass 1080p with and without the sky on {card}: "
+        f"{json.dumps(opaque_sky)}")
+    log(f"[sky-time] after timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
     # -- 6. the flight slice at 1080p through Scene.render_flight ----------------
     K = FLIGHT_FRAMES
@@ -1219,6 +1504,29 @@ def main(argv=None) -> int:
         "plain_ms": timings[tex_flagship]["plain_ms"],
         "bound_ms": bounds[tex_flagship]["bound_ms"],
         "bound_by": bounds[tex_flagship]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "megakernel_sky",
+        "slice": "K1 slice (f): the panorama sky, K2's lat-long sampler on three channel "
+                 "pyramids, one choice per 32x128 tile (ms: the opaque-only pass with the "
+                 "sky at 1080p)",
+        "route": "cuda",
+        "source": "godot_atmosphere_shader_tpu_torch/csrc/megakernel.cu",
+        "replaces": ("godot_atmosphere_shader_tpu/ops/pallas/texsample.py:544 (sample_latlong "
+                     "as the sky, godot_atmosphere_shader_tpu/ops/pallas/megakernel.py:212) "
+                     "inside godot_atmosphere_shader_tpu/ops/pallas/megakernel.py:636"),
+        "launches": sky_counts[1],
+        "max_abs_err": sky_frame_err,
+        "small_max_abs_err": sky_err,
+        "allon_signature": allon_sig,
+        "ms": min(opaque_sky["sky_ms"]),
+        "no_sky_ms": min(opaque_sky["no_sky_ms"]),
+        "plain_ms": opaque_sky["plain_ms"],
+        "bound_ms": opaque_sky["sky_bound_ms"],
+        "bound_by": opaque_sky["sky_bound_by"],
+        "frame_kernel_ms": {k: v["frame_kernel_ms"] for k, v in sky_t.items()},
+        "glow_ms": glow_t["ms"],
+        "glow_max_abs_err": glow_err,
         "library_ms": None,
     }, {
         "name": "taa",

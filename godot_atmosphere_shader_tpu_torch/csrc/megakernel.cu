@@ -1,6 +1,7 @@
-// Fused frame megakernel for NVIDIA Hopper (sm_90a): opaque pass, v1 or v2
-// atmosphere (v2 with analytic sun optical depth), cloud march (cheap or
-// sun-marched light) and composite, in one launch per atmosphere layer.
+// Fused frame megakernel for NVIDIA Hopper (sm_90a): opaque pass (with a
+// starfield or the panorama sky), v1 or v2 atmosphere (v2 with analytic sun
+// optical depth), cloud march (cheap or sun-marched light) and composite, in
+// one launch per atmosphere layer.
 // Two instances: procedural cloud fields, and texture mode, whose cloud
 // fields are baked textures sampled through mip pyramids by the K2 device
 // functions below.
@@ -84,6 +85,23 @@
 // and so is raymarched lighting (a 6-step sun march per cloud step, kept
 // rolled).
 //
+// The panorama sky (megakernel.py:212-222, :334-336; with_sky): the launch
+// that runs the opaque pass (a fused layer or the opaque-only pass) samples
+// three channel lat-long pyramids for rays that miss all geometry, with
+// K2's latlong_sample.  On the TPU one sample_latlong(window_rows = 32)
+// call per channel covers a 32 x 128 block of rays, and that block's min
+// and max of (fu, v), hit or miss, choose one level and mode for all of
+// them; the choice decides the result, so it is kept.  The texture instance
+// already has one block per tile: a block-wide min/max before the opaque
+// pass.  In the procedural instance and the opaque-only pass a block is 128
+// columns x G rows, so each block recomputes its whole tile's 32 x 128 ray
+// directions (32 per thread) for the same min/max: redundant polynomial
+// work (32 / G pairs per pixel) bought for one launch per layer and no
+// scratch between launches.  Ray directions are computed uncontracted
+// (pixel_dir), so the choice's rays and the sampled rays agree bit for bit.
+// The pyramids (three channels of about 11 MB at a 2048-wide base) are
+// L2-resident; a sky pixel gathers 12 floats.
+//
 // Build (no fast math: the cloud density chain (...)*50-20 amplifies ulp
 // differences and floorf in the noise flips lattice cells at knife edges),
 // one object per source, linked with the other kernels' into one library
@@ -121,7 +139,9 @@
 #define MK_WORK_SUN_SAMPLES 8
 #define MK_WORK_V1_ATMOSPHERE 9
 #define MK_WORK_OPAQUE_PIXELS 10
-#define MK_WORK_SLOTS 11
+#define MK_WORK_SKY 11
+#define MK_WORK_SKY_FLOOR 12
+#define MK_WORK_SLOTS 13
 #define MK_SUN_STEPS 6  // raymarched lighting's sun march
 
 // ---------------------------------------------------------------------------
@@ -182,6 +202,9 @@ struct MegakernelParams {
   float ambient;
   float sky_color[3];
   float star_intensity;
+  // 1: misses sample the panorama sky's pyramids instead of sky_color and
+  // the starfield (the launch's sky TexParams and r, g, b tables)
+  int with_sky;
   // atmosphere (v2 with analytic sun optical depth, or v1)
   int model;                 // 0 v2, 1 v1
   int atmosphere_steps;
@@ -238,7 +261,8 @@ struct MegakernelParams {
 };
 
 // Texture mode: the two pyramids' levels (finest first) and the sampler
-// settings of VariantConfig.
+// settings of VariantConfig.  The panorama sky uses the lat-long fields
+// (cov_*) of its own instance, with window_rows = 32.
 struct TexParams {
   int shape_levels;
   int shape_size[MK_MAX_LEVELS];   // S of an S^3 level
@@ -474,7 +498,25 @@ __device__ __forceinline__ float field(const NoiseParams& s, V3 p) {
 // ---------------------------------------------------------------------------
 // Opaque pass (render/opaque.py)
 
-__device__ void opaque_pass(const MegakernelParams& p, V3 ro, V3 rd, V3& rgb,
+// world-space ray direction of pixel (x, y), uncontracted in the plain
+// version's operation order: every caller gets the same bits for a pixel
+// (the sky's tile choice recomputes the rays the opaque pass samples)
+__device__ __forceinline__ V3 pixel_dir(const MegakernelParams& p, int x, int y) {
+  const float ndc_x = 2.0f * ((float)x + 0.5f) / (float)p.width - 1.0f;
+  const float ndc_y = 1.0f - 2.0f * ((float)y + 0.5f) / (float)p.height;
+  const float vx = __fmul_rn(ndc_x, p.ray_sx), vy = __fmul_rn(ndc_y, p.ray_sy);
+  const float inv = rsqrtf(__fadd_rn(__fadd_rn(__fmul_rn(vx, vx), __fmul_rn(vy, vy)), 1.0f));
+  const float dx = __fmul_rn(vx, inv), dy = __fmul_rn(vy, inv), dz = -inv;
+  const float* m = p.cam_rot;
+  return v3(__fadd_rn(__fadd_rn(__fmul_rn(m[0], dx), __fmul_rn(m[1], dy)), __fmul_rn(m[2], dz)),
+            __fadd_rn(__fadd_rn(__fmul_rn(m[3], dx), __fmul_rn(m[4], dy)), __fmul_rn(m[5], dz)),
+            __fadd_rn(__fadd_rn(__fmul_rn(m[6], dx), __fmul_rn(m[7], dy)), __fmul_rn(m[8], dz)));
+}
+
+// the closest hit's shaded color and distance; a miss gets linear depth 1e7
+// and, without a sky, sky_color plus the starfield (with one, the caller
+// samples it).  Returns whether the ray hit.
+__device__ bool opaque_pass(const MegakernelParams& p, V3 ro, V3 rd, V3& rgb,
                             float& linear_depth) {
   const float big = 3.0e38f;
   float best_t = big;
@@ -541,16 +583,19 @@ __device__ void opaque_pass(const MegakernelParams& p, V3 ro, V3 rd, V3& rgb,
     rgb = mul(alb, shade);
     linear_depth = best_t;
   } else {
-    // hashed starfield from the quantized ray direction
-    uint32_t h = hash3((int)floorf(rd.x * 220.0f), (int)floorf(rd.y * 220.0f),
-                       (int)floorf(rd.z * 220.0f), 77u);
-    float b = hash_to_unit(h);
-    float b2 = b * b, b4 = b2 * b2, b16 = b4 * b4;
-    b16 = b16 * b16;
-    float star = fmaxf(b16 - 0.7f, 0.0f) * (float)(1.0 / 0.3) * p.star_intensity;
-    rgb = v3(p.sky_color[0] + star, p.sky_color[1] + star, p.sky_color[2] + star);
+    if (!p.with_sky) {
+      // hashed starfield from the quantized ray direction
+      uint32_t h = hash3((int)floorf(rd.x * 220.0f), (int)floorf(rd.y * 220.0f),
+                         (int)floorf(rd.z * 220.0f), 77u);
+      float b = hash_to_unit(h);
+      float b2 = b * b, b4 = b2 * b2, b16 = b4 * b4;
+      b16 = b16 * b16;
+      float star = fmaxf(b16 - 0.7f, 0.0f) * (float)(1.0 / 0.3) * p.star_intensity;
+      rgb = v3(p.sky_color[0] + star, p.sky_color[1] + star, p.sky_color[2] + star);
+    }
     linear_depth = 1.0e7f;
   }
+  return hit_any;
 }
 
 // ---------------------------------------------------------------------------
@@ -810,260 +855,6 @@ __device__ __forceinline__ bool cloud_may_form(const MegakernelParams& p, float 
 }
 
 // ---------------------------------------------------------------------------
-// Per-thread frame state: one column and one group of G = cloud_lod *
-// coverage_lod rows (one coverage group of cloud_lod-row coarse pixels).
-
-struct Rows {
-  V3 bg[MK_MAX_GROUP];
-  float atm[MK_MAX_GROUP][4];
-  bool hit[MK_MAX_GROUP];
-  // coarse (cloud_lod) row inputs
-  V3 rd_sum[MK_MAX_GROUP];
-  float depth_min[MK_MAX_GROUP];
-  float jit_first[MK_MAX_GROUP];
-};
-
-struct Coarse {
-  V3 rd_model[MK_MAX_GROUP];
-  float tb[MK_MAX_GROUP], tem[MK_MAX_GROUP];
-  bool vis[MK_MAX_GROUP];
-  bool any_vis;
-  // coverage-group knot inputs: mean model-space ray (not renormalized)
-  // and mean span
-  V3 rk;
-  float t0k, t1k;
-};
-
-// rays, background and atmosphere of the G rows from y0 (rows and columns
-// past the launch's rows or the frame edge are computed too: they belong to
-// their tile; chained, they see no geometry).  The background is the opaque
-// pass, whose linear depth (before the sphere-depth blend) goes to depth
-// when it is not nullptr, or, for a chained layer, the color and linear
-// depth of the layers below, read from color and depth.
-__device__ __forceinline__ void shade_rows(const MegakernelParams& p, const float* blue, int x,
-                                           int y0, int G, int L, Rows& s, const float* color,
-                                           float* depth, unsigned long long* work,
-                                           unsigned& n_atmo, unsigned& n_v1) {
-  const V3 ro = load3(p.cam_pos);
-  const V3 pc = load3(p.planet_center);
-  const float ndc_x = 2.0f * ((float)x + 0.5f) / (float)p.width - 1.0f;
-  for (int r = 0; r < G; ++r) {
-    const int y = y0 + r;
-    const float ndc_y = 1.0f - 2.0f * ((float)y + 0.5f) / (float)p.height;
-    V3 dv = normalize(v3(ndc_x * p.ray_sx, ndc_y * p.ray_sy, -1.0f));
-    V3 rd = xform_dir(p.cam_rot, 3, dv);
-    const bool in_rows = x < p.width && y < p.row0 + p.rows;
-    const size_t o = (size_t)y * p.width + x;
-    float linear_depth = 1.0e7f;
-    V3 b = v3(0.0f, 0.0f, 0.0f);
-    if (p.with_background) {
-      if (in_rows) {
-        b = v3(color[o * 3 + 0], color[o * 3 + 1], color[o * 3 + 2]);
-        linear_depth = depth[o];
-      }
-    } else {
-      if (p.with_opaque) opaque_pass(p, ro, rd, b, linear_depth);
-      if (depth && in_rows) depth[o] = linear_depth;
-    }
-    s.bg[r] = b;
-    if (!p.with_atmosphere) {  // the opaque-only pass
-      s.hit[r] = false;
-      continue;
-    }
-    float jitter = blue[(y & 255) * 256 + (x & 255)] + p.jitter_offset;
-    jitter = jitter - floorf(jitter);
-
-    // shell intersection, sphere-depth blend, march span
-    float rs0, rs1, g0, g1;
-    ray_sphere(pc, p.atmosphere_radius2, ro, rd, rs0, rs1);
-    const bool h = rs0 != rs1;
-    float t_begin = h ? fmaxf(rs0, 0.0f) : 0.0f;
-    float t_end = h ? fmaxf(rs1, 0.0f) : 0.0f;
-    ray_sphere(pc, p.planet_radius2, ro, rd, g0, g1);
-    const float gd = g0 != g1 ? g0 : 1.0e7f;
-    linear_depth = linear_depth + (gd - linear_depth) * p.sphere_depth_factor;
-    t_end = fmaxf(fminf(t_end, linear_depth), t_begin);
-    s.hit[r] = h;
-    if (h) {
-      if (p.model == 1) {
-        atmosphere_v1(p, ro, rd, t_begin, t_end, s.atm[r]);
-        if (work) ++n_v1;
-      } else {
-        atmosphere_v2(p, ro, rd, t_begin, t_end, jitter, s.atm[r]);
-        if (work) ++n_atmo;
-      }
-    }
-
-    const int c = r / L;
-    if (r % L == 0) {
-      s.rd_sum[c] = rd;
-      s.depth_min[c] = linear_depth;
-      s.jit_first[c] = jitter;
-    } else {
-      s.rd_sum[c] = add(s.rd_sum[c], rd);
-      s.depth_min[c] = fminf(s.depth_min[c], linear_depth);
-    }
-  }
-}
-
-// coarse rays, shell spans and visibility per cloud_lod group, and the
-// coverage group's knot inputs
-__device__ __forceinline__ void coarse_rays(const MegakernelParams& p, int L, int C,
-                                            const Rows& s, Coarse& c) {
-  const V3 ro = load3(p.cam_pos);
-  const V3 pc = load3(p.planet_center);
-  c.any_vis = false;
-  for (int k = 0; k < C; ++k) {
-    const V3 rdm = v3(s.rd_sum[k].x / (float)L, s.rd_sum[k].y / (float)L, s.rd_sum[k].z / (float)L);
-    float inv = 1.0f / sqrtf(rdm.x * rdm.x + rdm.y * rdm.y + rdm.z * rdm.z);
-    V3 rdc = mul(rdm, inv);
-    const float depth_c = s.depth_min[k];
-    float top0, top1, bot0, bot1;
-    ray_sphere(pc, p.cloud_top_radius2, ro, rdc, top0, top1);
-    ray_sphere(pc, p.cloud_bottom_radius2, ro, rdc, bot0, bot1);
-    const float t_begin = fmaxf(top0, 0.0f);
-    const float t_end = fminf(top1, depth_c);
-    c.vis[k] = (top0 != top1) && (t_begin < depth_c) && ((depth_c > bot1) || (bot0 > 0.0f));
-    c.any_vis = c.any_vis || c.vis[k];
-    c.rd_model[k] = xform_dir(p.world_to_model, 4, rdc);
-    c.tb[k] = t_begin;
-    float te = c.vis[k] ? t_end : t_begin;
-    c.tem[k] = t_begin + fminf(te - t_begin, p.march_max_distance);
-  }
-  c.rk = c.rd_model[0];
-  c.t0k = c.tb[0];
-  c.t1k = c.tem[0];
-  if (C > 1) {
-    for (int k = 1; k < C; ++k) {
-      c.rk = add(c.rk, c.rd_model[k]);
-      c.t0k = c.t0k + c.tb[k];
-      c.t1k = c.t1k + c.tem[k];
-    }
-    c.rk = v3(c.rk.x / (float)C, c.rk.y / (float)C, c.rk.z / (float)C);
-    c.t0k = c.t0k / (float)C;
-    c.t1k = c.t1k / (float)C;
-  }
-}
-
-// blend each full-resolution row with its group's cloud light/alpha, then
-// composite over the background; missed-shell pixels pass through.  A
-// chained layer keeps the larger of its alpha and the layers' below.
-__device__ __forceinline__ void blend_and_store(const MegakernelParams& p, int x, int y0, int G,
-                                                int L, Rows& s, const bool* vis,
-                                                const float* light_c, const float* calpha_c,
-                                                float* color, float* alpha_out) {
-  if (p.clouds_enabled) {
-    for (int r = 0; r < G; ++r) {
-      const int c = r / L;
-      if (!s.hit[r] || !vis[c]) continue;
-      const float la = light_c[c], ca = calpha_c[c];
-      float* a = s.atm[r];
-      const float sa = 1.0f - ca;
-      const float ab = a[3] * sa + ca;
-      const float inv = 1.0f / (ab == 0.0f ? 1.0f : ab);
-      const float add_a = fmaxf(a[3], ca);
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        float blended = ab == 0.0f ? 0.0f : (a[k] * (a[3] * sa) + la * ca) * inv;
-        float added = a[k] + la * ca;
-        a[k] = blended + (added - blended) * p.cloud_blend;
-      }
-      a[3] = ab + (add_a - ab) * p.cloud_blend;
-    }
-  }
-  if (x >= p.width) return;
-  for (int r = 0; r < G; ++r) {
-    const int y = y0 + r;
-    if (y >= p.row0 + p.rows) break;
-    const size_t o = (size_t)y * p.width + x;
-    float a_out = 0.0f;
-    if (s.hit[r]) {
-      const float a = s.atm[r][3];
-      color[o * 3 + 0] = s.bg[r].x * (1.0f - a) + s.atm[r][0] * a;
-      color[o * 3 + 1] = s.bg[r].y * (1.0f - a) + s.atm[r][1] * a;
-      color[o * 3 + 2] = s.bg[r].z * (1.0f - a) + s.atm[r][2] * a;
-      a_out = fmaxf(a, 0.0f);
-    } else {
-      color[o * 3 + 0] = s.bg[r].x;
-      color[o * 3 + 1] = s.bg[r].y;
-      color[o * 3 + 2] = s.bg[r].z;
-    }
-    alpha_out[o] = p.with_background ? fmaxf(alpha_out[o], a_out) : a_out;
-  }
-}
-
-// Optional work counters (nullptr: off): one warp-aggregated atomic per
-// category and warp.  chip_smoke.py turns this run's counts into the
-// operation count of the roofline bound.
-__device__ __forceinline__ void count_work(unsigned long long* work, int slot, unsigned n) {
-  const unsigned total = __reduce_add_sync(0xffffffffu, n);
-  if ((threadIdx.x & 31) == 0 && total) atomicAdd(work + slot, (unsigned long long)total);
-}
-
-// ---------------------------------------------------------------------------
-// The procedural frame kernel: one thread per column and per group of rows.
-
-template <int K>
-__global__ void __launch_bounds__(128) megakernel(const MegakernelParams p,
-                                                  const float* __restrict__ blue,
-                                                  float* __restrict__ color,
-                                                  float* __restrict__ alpha_out,
-                                                  float* __restrict__ depth,
-                                                  unsigned long long* work) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int L = p.clouds_enabled ? p.cloud_lod : 1;
-  const int C = p.clouds_enabled ? p.coverage_lod : 1;
-  const int G = L * C;
-  const int y0 = p.row0 + blockIdx.y * G;
-  const bool live = x < p.width;
-
-  Rows s;
-  unsigned n_atmo = 0, n_v1 = 0, n_groups = 0, n_march = 0, n_sun = 0;
-  if (live) shade_rows(p, blue, x, y0, G, L, s, color, depth, work, n_atmo, n_v1);
-
-  Coarse c;
-  float light_c[MK_MAX_GROUP], calpha_c[MK_MAX_GROUP];
-  for (int k = 0; k < C; ++k) light_c[k] = calpha_c[k] = 0.0f;
-  c.any_vis = false;
-  if (live && p.clouds_enabled) {
-    coarse_rays(p, L, C, s, c);
-    if (c.any_vis) {
-      // coverage knots once per coverage group
-      const V3 rom = load3(p.ro_model);
-      float knots[K + 1];
-      float cov_max = 0.0f;
-#pragma unroll
-      for (int k = 0; k <= K; ++k) {
-        const float sk = (float)((double)k / (double)K);
-        knots[k] = raw_coverage(p, add(rom, mul(c.rk, c.t0k + (c.t1k - c.t0k) * sk)));
-        cov_max = k == 0 ? knots[0] : fmaxf(cov_max, knots[k]);
-      }
-      ++n_groups;
-      if (cloud_may_form(p, cov_max)) {
-        const RegKnots<K> cov{knots};
-        for (int k = 0; k < C; ++k) {
-          if (c.vis[k]) {
-            cloud_march(p, c.rd_model[k], c.tb[k], c.tem[k], s.jit_first[k], cov,
-                        (const RegKnots<1>*)nullptr, light_c[k], calpha_c[k]);
-            ++n_march;
-            if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
-          }
-        }
-      }
-    }
-  }
-  if (live) blend_and_store(p, x, y0, G, L, s, c.vis, light_c, calpha_c, color, alpha_out);
-  if (work) {
-    count_work(work, p.with_atmosphere ? MK_WORK_PIXELS : MK_WORK_OPAQUE_PIXELS, live ? G : 0);
-    count_work(work, MK_WORK_ATMOSPHERE, n_atmo);
-    count_work(work, MK_WORK_V1_ATMOSPHERE, n_v1);
-    count_work(work, MK_WORK_KNOT_GROUPS, n_groups);
-    count_work(work, MK_WORK_MARCH, n_march);
-    count_work(work, MK_WORK_SUN_SAMPLES, n_sun);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // K2: the texture samplers (ops/pallas/texsample.py::sample_tex3d,
 // sample_latlong).  A batch is one thread block's positions at one knot
 // group; its level and mode come from the min and max of the wrapped
@@ -1264,6 +1055,313 @@ __device__ __forceinline__ float latlong_sample(const TexParams& t, const float*
 }
 
 // ---------------------------------------------------------------------------
+// The panorama sky: three channel pyramids sharing one meta (the sky's
+// TexParams) and one choice per 32 x 128 tile of rays.
+
+struct Sky {
+  const TexParams& t;
+  const float* r;
+  const float* g;
+  const float* b;
+  TexChoice ch;
+};
+
+// The tile's level and mode: the min and max of (fu, v) over the rays of
+// n rows from y0 in column x of every thread of the block (the block's
+// rays are the tile's), with the lat-long sampler's window test.
+__device__ __forceinline__ TexChoice sky_choice(const MegakernelParams& p, const TexParams& t,
+                                                int x, int y0, int n, float* red) {
+  float mn[2] = {3.0e38f, 3.0e38f}, mx[2] = {-3.0e38f, -3.0e38f};
+  for (int r = 0; r < n; ++r) {
+    const V3 rd = pixel_dir(p, x, y0 + r);
+    float fu, v;
+    latlong_uv(rd.x, rd.y, rd.z, fu, v);
+    mn[0] = fminf(mn[0], fu);
+    mx[0] = fmaxf(mx[0], fu);
+    mn[1] = fminf(mn[1], v);
+    mx[1] = fmaxf(mx[1], v);
+  }
+  block_minmax<2>(mn, mx, red);
+  return latlong_choose(t, mn[0], mx[0], mn[1], mx[1]);
+}
+
+__device__ __forceinline__ V3 sky_rgb(const Sky& sky, V3 rd) {
+  float fu, v;
+  latlong_uv(rd.x, rd.y, rd.z, fu, v);
+  return v3(latlong_sample(sky.t, sky.r, sky.ch, fu, v), latlong_sample(sky.t, sky.g, sky.ch, fu, v),
+            latlong_sample(sky.t, sky.b, sky.ch, fu, v));
+}
+
+// ---------------------------------------------------------------------------
+// Per-thread frame state: one column and one group of G = cloud_lod *
+// coverage_lod rows (one coverage group of cloud_lod-row coarse pixels).
+
+struct Rows {
+  V3 bg[MK_MAX_GROUP];
+  float atm[MK_MAX_GROUP][4];
+  bool hit[MK_MAX_GROUP];
+  // coarse (cloud_lod) row inputs
+  V3 rd_sum[MK_MAX_GROUP];
+  float depth_min[MK_MAX_GROUP];
+  float jit_first[MK_MAX_GROUP];
+};
+
+struct Coarse {
+  V3 rd_model[MK_MAX_GROUP];
+  float tb[MK_MAX_GROUP], tem[MK_MAX_GROUP];
+  bool vis[MK_MAX_GROUP];
+  bool any_vis;
+  // coverage-group knot inputs: mean model-space ray (not renormalized)
+  // and mean span
+  V3 rk;
+  float t0k, t1k;
+};
+
+// rays, background and atmosphere of the G rows from y0 (rows and columns
+// past the launch's rows or the frame edge are computed too: they belong to
+// their tile; chained, they see no geometry).  The background is the opaque
+// pass (its misses sample the sky with its tile's choice when with_sky),
+// whose linear depth (before the sphere-depth blend) goes to depth when it
+// is not nullptr, or, for a chained layer, the color and linear depth of
+// the layers below, read from color and depth.
+__device__ __forceinline__ void shade_rows(const MegakernelParams& p, const float* blue, int x,
+                                           int y0, int G, int L, Rows& s, const float* color,
+                                           float* depth, const Sky& sky,
+                                           unsigned long long* work, unsigned& n_atmo,
+                                           unsigned& n_v1, unsigned& n_sky) {
+  const V3 ro = load3(p.cam_pos);
+  const V3 pc = load3(p.planet_center);
+  for (int r = 0; r < G; ++r) {
+    const int y = y0 + r;
+    const V3 rd = pixel_dir(p, x, y);
+    const bool in_rows = x < p.width && y < p.row0 + p.rows;
+    const size_t o = (size_t)y * p.width + x;
+    float linear_depth = 1.0e7f;
+    V3 b = v3(0.0f, 0.0f, 0.0f);
+    if (p.with_background) {
+      if (in_rows) {
+        b = v3(color[o * 3 + 0], color[o * 3 + 1], color[o * 3 + 2]);
+        linear_depth = depth[o];
+      }
+    } else {
+      if (p.with_opaque && !opaque_pass(p, ro, rd, b, linear_depth) && p.with_sky) {
+        b = sky_rgb(sky, rd);
+        if (work && in_rows) ++n_sky;
+      }
+      if (depth && in_rows) depth[o] = linear_depth;
+    }
+    s.bg[r] = b;
+    if (!p.with_atmosphere) {  // the opaque-only pass
+      s.hit[r] = false;
+      continue;
+    }
+    float jitter = blue[(y & 255) * 256 + (x & 255)] + p.jitter_offset;
+    jitter = jitter - floorf(jitter);
+
+    // shell intersection, sphere-depth blend, march span
+    float rs0, rs1, g0, g1;
+    ray_sphere(pc, p.atmosphere_radius2, ro, rd, rs0, rs1);
+    const bool h = rs0 != rs1;
+    float t_begin = h ? fmaxf(rs0, 0.0f) : 0.0f;
+    float t_end = h ? fmaxf(rs1, 0.0f) : 0.0f;
+    ray_sphere(pc, p.planet_radius2, ro, rd, g0, g1);
+    const float gd = g0 != g1 ? g0 : 1.0e7f;
+    linear_depth = linear_depth + (gd - linear_depth) * p.sphere_depth_factor;
+    t_end = fmaxf(fminf(t_end, linear_depth), t_begin);
+    s.hit[r] = h;
+    if (h) {
+      if (p.model == 1) {
+        atmosphere_v1(p, ro, rd, t_begin, t_end, s.atm[r]);
+        if (work) ++n_v1;
+      } else {
+        atmosphere_v2(p, ro, rd, t_begin, t_end, jitter, s.atm[r]);
+        if (work) ++n_atmo;
+      }
+    }
+
+    const int c = r / L;
+    if (r % L == 0) {
+      s.rd_sum[c] = rd;
+      s.depth_min[c] = linear_depth;
+      s.jit_first[c] = jitter;
+    } else {
+      s.rd_sum[c] = add(s.rd_sum[c], rd);
+      s.depth_min[c] = fminf(s.depth_min[c], linear_depth);
+    }
+  }
+}
+
+// coarse rays, shell spans and visibility per cloud_lod group, and the
+// coverage group's knot inputs
+__device__ __forceinline__ void coarse_rays(const MegakernelParams& p, int L, int C,
+                                            const Rows& s, Coarse& c) {
+  const V3 ro = load3(p.cam_pos);
+  const V3 pc = load3(p.planet_center);
+  c.any_vis = false;
+  for (int k = 0; k < C; ++k) {
+    const V3 rdm = v3(s.rd_sum[k].x / (float)L, s.rd_sum[k].y / (float)L, s.rd_sum[k].z / (float)L);
+    float inv = 1.0f / sqrtf(rdm.x * rdm.x + rdm.y * rdm.y + rdm.z * rdm.z);
+    V3 rdc = mul(rdm, inv);
+    const float depth_c = s.depth_min[k];
+    float top0, top1, bot0, bot1;
+    ray_sphere(pc, p.cloud_top_radius2, ro, rdc, top0, top1);
+    ray_sphere(pc, p.cloud_bottom_radius2, ro, rdc, bot0, bot1);
+    const float t_begin = fmaxf(top0, 0.0f);
+    const float t_end = fminf(top1, depth_c);
+    c.vis[k] = (top0 != top1) && (t_begin < depth_c) && ((depth_c > bot1) || (bot0 > 0.0f));
+    c.any_vis = c.any_vis || c.vis[k];
+    c.rd_model[k] = xform_dir(p.world_to_model, 4, rdc);
+    c.tb[k] = t_begin;
+    float te = c.vis[k] ? t_end : t_begin;
+    c.tem[k] = t_begin + fminf(te - t_begin, p.march_max_distance);
+  }
+  c.rk = c.rd_model[0];
+  c.t0k = c.tb[0];
+  c.t1k = c.tem[0];
+  if (C > 1) {
+    for (int k = 1; k < C; ++k) {
+      c.rk = add(c.rk, c.rd_model[k]);
+      c.t0k = c.t0k + c.tb[k];
+      c.t1k = c.t1k + c.tem[k];
+    }
+    c.rk = v3(c.rk.x / (float)C, c.rk.y / (float)C, c.rk.z / (float)C);
+    c.t0k = c.t0k / (float)C;
+    c.t1k = c.t1k / (float)C;
+  }
+}
+
+// blend each full-resolution row with its group's cloud light/alpha, then
+// composite over the background; missed-shell pixels pass through.  A
+// chained layer keeps the larger of its alpha and the layers' below.
+__device__ __forceinline__ void blend_and_store(const MegakernelParams& p, int x, int y0, int G,
+                                                int L, Rows& s, const bool* vis,
+                                                const float* light_c, const float* calpha_c,
+                                                float* color, float* alpha_out) {
+  if (p.clouds_enabled) {
+    for (int r = 0; r < G; ++r) {
+      const int c = r / L;
+      if (!s.hit[r] || !vis[c]) continue;
+      const float la = light_c[c], ca = calpha_c[c];
+      float* a = s.atm[r];
+      const float sa = 1.0f - ca;
+      const float ab = a[3] * sa + ca;
+      const float inv = 1.0f / (ab == 0.0f ? 1.0f : ab);
+      const float add_a = fmaxf(a[3], ca);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        float blended = ab == 0.0f ? 0.0f : (a[k] * (a[3] * sa) + la * ca) * inv;
+        float added = a[k] + la * ca;
+        a[k] = blended + (added - blended) * p.cloud_blend;
+      }
+      a[3] = ab + (add_a - ab) * p.cloud_blend;
+    }
+  }
+  if (x >= p.width) return;
+  for (int r = 0; r < G; ++r) {
+    const int y = y0 + r;
+    if (y >= p.row0 + p.rows) break;
+    const size_t o = (size_t)y * p.width + x;
+    float a_out = 0.0f;
+    if (s.hit[r]) {
+      const float a = s.atm[r][3];
+      color[o * 3 + 0] = s.bg[r].x * (1.0f - a) + s.atm[r][0] * a;
+      color[o * 3 + 1] = s.bg[r].y * (1.0f - a) + s.atm[r][1] * a;
+      color[o * 3 + 2] = s.bg[r].z * (1.0f - a) + s.atm[r][2] * a;
+      a_out = fmaxf(a, 0.0f);
+    } else {
+      color[o * 3 + 0] = s.bg[r].x;
+      color[o * 3 + 1] = s.bg[r].y;
+      color[o * 3 + 2] = s.bg[r].z;
+    }
+    alpha_out[o] = p.with_background ? fmaxf(alpha_out[o], a_out) : a_out;
+  }
+}
+
+// Optional work counters (nullptr: off): one warp-aggregated atomic per
+// category and warp.  chip_smoke.py turns this run's counts into the
+// operation count of the roofline bound.
+__device__ __forceinline__ void count_work(unsigned long long* work, int slot, unsigned n) {
+  const unsigned total = __reduce_add_sync(0xffffffffu, n);
+  if ((threadIdx.x & 31) == 0 && total) atomicAdd(work + slot, (unsigned long long)total);
+}
+
+// ---------------------------------------------------------------------------
+// The procedural frame kernel: one thread per column and per group of rows.
+
+template <int K>
+__global__ void __launch_bounds__(128) megakernel(const MegakernelParams p, const TexParams sky_t,
+                                                  const float* __restrict__ blue,
+                                                  const float* __restrict__ sky_r,
+                                                  const float* __restrict__ sky_g,
+                                                  const float* __restrict__ sky_b,
+                                                  float* __restrict__ color,
+                                                  float* __restrict__ alpha_out,
+                                                  float* __restrict__ depth,
+                                                  unsigned long long* work) {
+  __shared__ float red[2 * 2 * 4];  // block_minmax scratch of the sky's choice
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int L = p.clouds_enabled ? p.cloud_lod : 1;
+  const int C = p.clouds_enabled ? p.coverage_lod : 1;
+  const int G = L * C;
+  const int y0 = p.row0 + blockIdx.y * G;
+  const bool live = x < p.width;
+
+  // the sky's choice over the block's whole tile (G divides the tile
+  // height): every thread, live or not, takes the 32 rays of its column
+  Sky sky{sky_t, sky_r, sky_g, sky_b, TexChoice{MK_WINDOWED, 0}};
+  if (p.with_sky) {
+    const int tile_y0 = p.row0 + (blockIdx.y * G) / MK_TILE_ROWS * MK_TILE_ROWS;
+    sky.ch = sky_choice(p, sky_t, x, tile_y0, MK_TILE_ROWS, red);
+  }
+  Rows s;
+  unsigned n_atmo = 0, n_v1 = 0, n_groups = 0, n_march = 0, n_sun = 0, n_sky = 0;
+  if (live) shade_rows(p, blue, x, y0, G, L, s, color, depth, sky, work, n_atmo, n_v1, n_sky);
+
+  Coarse c;
+  float light_c[MK_MAX_GROUP], calpha_c[MK_MAX_GROUP];
+  for (int k = 0; k < C; ++k) light_c[k] = calpha_c[k] = 0.0f;
+  c.any_vis = false;
+  if (live && p.clouds_enabled) {
+    coarse_rays(p, L, C, s, c);
+    if (c.any_vis) {
+      // coverage knots once per coverage group
+      const V3 rom = load3(p.ro_model);
+      float knots[K + 1];
+      float cov_max = 0.0f;
+#pragma unroll
+      for (int k = 0; k <= K; ++k) {
+        const float sk = (float)((double)k / (double)K);
+        knots[k] = raw_coverage(p, add(rom, mul(c.rk, c.t0k + (c.t1k - c.t0k) * sk)));
+        cov_max = k == 0 ? knots[0] : fmaxf(cov_max, knots[k]);
+      }
+      ++n_groups;
+      if (cloud_may_form(p, cov_max)) {
+        const RegKnots<K> cov{knots};
+        for (int k = 0; k < C; ++k) {
+          if (c.vis[k]) {
+            cloud_march(p, c.rd_model[k], c.tb[k], c.tem[k], s.jit_first[k], cov,
+                        (const RegKnots<1>*)nullptr, light_c[k], calpha_c[k]);
+            ++n_march;
+            if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
+          }
+        }
+      }
+    }
+  }
+  if (live) blend_and_store(p, x, y0, G, L, s, c.vis, light_c, calpha_c, color, alpha_out);
+  if (work) {
+    count_work(work, p.with_atmosphere ? MK_WORK_PIXELS : MK_WORK_OPAQUE_PIXELS, live ? G : 0);
+    count_work(work, MK_WORK_ATMOSPHERE, n_atmo);
+    count_work(work, MK_WORK_V1_ATMOSPHERE, n_v1);
+    count_work(work, MK_WORK_KNOT_GROUPS, n_groups);
+    count_work(work, MK_WORK_MARCH, n_march);
+    count_work(work, MK_WORK_SUN_SAMPLES, n_sun);
+    count_work(work, MK_WORK_SKY, sky.ch.mode == MK_FLOOR ? 0 : n_sky);
+    count_work(work, MK_WORK_SKY_FLOOR, sky.ch.mode == MK_FLOOR ? n_sky : 0);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Texture mode: K1 with K2 inside.  One thread block per 32 x 128 TPU tile
 // (its batches are the TPU kernel's), one thread per column and coverage
 // group: 128 x 32 / G threads.  The 9 coverage and 17 shape knots of each
@@ -1350,8 +1448,10 @@ __device__ void eval_knots(const MegakernelParams& p, const TexParams& t,
 
 template <int K, int KS, int G>
 __global__ void __launch_bounds__(128 * (MK_TILE_ROWS / G), 1)
-    megakernel_tex(const MegakernelParams p, const TexParams t, const float* __restrict__ blue,
-                   const float* __restrict__ shape_tab, const float* __restrict__ cov_tab,
+    megakernel_tex(const MegakernelParams p, const TexParams t, const TexParams sky_t,
+                   const float* __restrict__ blue, const float* __restrict__ shape_tab,
+                   const float* __restrict__ cov_tab, const float* __restrict__ sky_r,
+                   const float* __restrict__ sky_g, const float* __restrict__ sky_b,
                    float* __restrict__ color, float* __restrict__ alpha_out,
                    float* __restrict__ depth, unsigned long long* work) {
   extern __shared__ float smem[];
@@ -1366,10 +1466,13 @@ __global__ void __launch_bounds__(128 * (MK_TILE_ROWS / G), 1)
   const int L = p.cloud_lod;
   const int C = G / L;
 
+  // the sky's choice: the block's rays are its tile's
+  Sky sky{sky_t, sky_r, sky_g, sky_b, TexChoice{MK_WINDOWED, 0}};
+  if (p.with_sky) sky.ch = sky_choice(p, sky_t, x, y0, G, red);
   Rows s;
-  unsigned n_atmo = 0, n_v1 = 0, n_march = 0, n_sun = 0, tex_samples[2] = {0, 0},
+  unsigned n_atmo = 0, n_v1 = 0, n_march = 0, n_sun = 0, n_sky = 0, tex_samples[2] = {0, 0},
            cov_samples[2] = {0, 0};
-  shade_rows(p, blue, x, y0, G, L, s, color, depth, work, n_atmo, n_v1);
+  shade_rows(p, blue, x, y0, G, L, s, color, depth, sky, work, n_atmo, n_v1, n_sky);
   Coarse c;
   coarse_rays(p, L, C, s, c);
 
@@ -1407,6 +1510,8 @@ __global__ void __launch_bounds__(128 * (MK_TILE_ROWS / G), 1)
     count_work(work, MK_WORK_TEX3D_FLOOR, tex_samples[1]);
     count_work(work, MK_WORK_LATLONG, cov_samples[0]);
     count_work(work, MK_WORK_LATLONG_FLOOR, cov_samples[1]);
+    count_work(work, MK_WORK_SKY, sky.ch.mode == MK_FLOOR ? 0 : n_sky);
+    count_work(work, MK_WORK_SKY_FLOOR, sky.ch.mode == MK_FLOOR ? n_sky : 0);
   }
 }
 
@@ -1470,30 +1575,45 @@ __global__ void __launch_bounds__(256) texsample_kernel(const TexParams t,
 // not built for.  color, alpha: the (H, W, 3) and (H, W) frame planes (a
 // chained layer reads them too); depth: nullptr, or an (H, W) plane of
 // linear depth (written by the opaque pass, read by a chained layer).
-// work: nullptr, or MK_WORK_SLOTS zeroed counters.
+// sky, sky_r, sky_g, sky_b: the panorama sky's pyramid struct and channel
+// tables when params->with_sky, else nullptr.  work: nullptr, or
+// MK_WORK_SLOTS zeroed counters.
 
 static bool rows_ok(const MegakernelParams* p) {
   return p->row0 >= 0 && p->rows >= 1 && p->row0 + p->rows <= p->height;
 }
 
-extern "C" int megakernel_launch(const MegakernelParams* params, const float* blue,
-                                 float* color, float* alpha, float* depth, void* stream,
-                                 void* work) {
+// the sky needs the opaque pass, its tables and a lat-long pyramid struct
+static bool sky_ok(const MegakernelParams* p, const TexParams* sky, const float* r,
+                   const float* g, const float* b) {
+  return !p->with_sky || (p->with_opaque && !p->with_background && sky && r && g && b &&
+                          sky->cov_levels >= 1 && sky->cov_levels <= MK_MAX_LEVELS);
+}
+
+extern "C" int megakernel_launch(const MegakernelParams* params, const TexParams* sky,
+                                 const float* blue, const float* sky_r, const float* sky_g,
+                                 const float* sky_b, float* color, float* alpha, float* depth,
+                                 void* stream, void* work) {
   if (params->clouds_enabled && params->coverage_knots != MK_KNOTS) return -1;
   const int G = params->clouds_enabled ? params->cloud_lod * params->coverage_lod : 1;
   if (!rows_ok(params) || params->rows % G) return -1;
   if ((params->with_background || !params->with_atmosphere) && !depth) return -1;
+  if (!sky_ok(params, sky, sky_r, sky_g, sky_b) || (params->with_sky && MK_TILE_ROWS % G))
+    return -1;
   dim3 block(128, 1, 1);
   dim3 grid((params->width + 127) / 128, params->rows / G, 1);
   megakernel<MK_KNOTS><<<grid, block, 0, (cudaStream_t)stream>>>(
-      *params, blue, color, alpha, depth, (unsigned long long*)work);
+      *params, sky ? *sky : TexParams{}, blue, sky_r, sky_g, sky_b, color, alpha, depth,
+      (unsigned long long*)work);
   return (int)cudaGetLastError();
 }
 
 template <int G>
-static int launch_tex(const MegakernelParams* p, const TexParams* t, const float* blue,
-                      const float* shape_tab, const float* cov_tab, float* color, float* alpha,
-                      float* depth, cudaStream_t stream, unsigned long long* work) {
+static int launch_tex(const MegakernelParams* p, const TexParams* t, const TexParams& sky,
+                      const float* blue, const float* shape_tab, const float* cov_tab,
+                      const float* sky_r, const float* sky_g, const float* sky_b, float* color,
+                      float* alpha, float* depth, cudaStream_t stream,
+                      unsigned long long* work) {
   const int nt = 128 * (MK_TILE_ROWS / G);
   const size_t smem = (size_t)(MK_KNOTS + MK_SHAPE_KNOTS + 2) * nt * sizeof(float) +
                       (size_t)(nt / 32) * 2 * 3 * sizeof(float);
@@ -1504,27 +1624,32 @@ static int launch_tex(const MegakernelParams* p, const TexParams* t, const float
   dim3 block(128, MK_TILE_ROWS / G, 1);
   dim3 grid((p->width + MK_TILE_COLS - 1) / MK_TILE_COLS,
             (p->rows + MK_TILE_ROWS - 1) / MK_TILE_ROWS, 1);
-  kernel<<<grid, block, smem, stream>>>(*p, *t, blue, shape_tab, cov_tab, color, alpha, depth,
-                                        work);
+  kernel<<<grid, block, smem, stream>>>(*p, *t, sky, blue, shape_tab, cov_tab, sky_r, sky_g,
+                                        sky_b, color, alpha, depth, work);
   return (int)cudaGetLastError();
 }
 
 extern "C" int megakernel_tex_launch(const MegakernelParams* params, const TexParams* tex,
-                                     const float* blue, const float* shape_tab,
-                                     const float* cov_tab, float* color, float* alpha,
-                                     float* depth, void* stream, void* work) {
+                                     const TexParams* sky, const float* blue,
+                                     const float* shape_tab, const float* cov_tab,
+                                     const float* sky_r, const float* sky_g, const float* sky_b,
+                                     float* color, float* alpha, float* depth, void* stream,
+                                     void* work) {
   if (!params->clouds_enabled || !params->with_atmosphere ||
       params->coverage_knots != MK_KNOTS || tex->shape_knots != MK_SHAPE_KNOTS ||
       tex->knot_group < 1 || tex->knot_group > MK_MAX_GROUP || !rows_ok(params) ||
-      (params->with_background && !depth))
+      (params->with_background && !depth) || !sky_ok(params, sky, sky_r, sky_g, sky_b))
     return -1;
   const int G = params->cloud_lod * params->coverage_lod;
+  const TexParams sky_t = sky ? *sky : TexParams{};
   cudaStream_t s = (cudaStream_t)stream;
   unsigned long long* w = (unsigned long long*)work;
   if (G == 4)
-    return launch_tex<4>(params, tex, blue, shape_tab, cov_tab, color, alpha, depth, s, w);
+    return launch_tex<4>(params, tex, sky_t, blue, shape_tab, cov_tab, sky_r, sky_g, sky_b, color,
+                         alpha, depth, s, w);
   if (G == 8)
-    return launch_tex<8>(params, tex, blue, shape_tab, cov_tab, color, alpha, depth, s, w);
+    return launch_tex<8>(params, tex, sky_t, blue, shape_tab, cov_tab, sky_r, sky_g, sky_b, color,
+                         alpha, depth, s, w);
   return -1;
 }
 

@@ -48,10 +48,7 @@ def camera_from_numpy(fields: Mapping[str, np.ndarray], *, device) -> Camera:
 
 
 def opaque_from_numpy(fields: Mapping[str, np.ndarray], *, device) -> OpaqueScene:
-    """OpaqueScene from its stacked arrays (a panorama is not ported yet)."""
-    fields = dict(fields)
-    if fields.pop("panorama", None) is not None:
-        raise NotImplementedError("panorama skies are not ported yet")
+    """OpaqueScene from its stacked arrays and its panorama (or None)."""
     return _build(OpaqueScene, fields, device)
 
 

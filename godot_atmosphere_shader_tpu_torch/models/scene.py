@@ -14,7 +14,11 @@ Entry points run on the card unless the caller asks for the CPU
 megakernel's texture mode: its textures are packed into mip pyramids once
 per texture object (kept on the scene's device) and the config gains their
 metas and the shape and coverage knot flags, as the JAX package's
-``Scene._pallas_plan`` does.
+``Scene._pallas_plan`` does.  A panorama sky (``OpaqueScene.panorama``) is
+packed the same way, into three channel pyramids once per panorama object
+(``Scene._pano_plan``), which the pass that runs the opaque scene samples.
+``Scene.apply_environment`` runs the scene's output stage, the
+environment's HDR glow (``render/glow.py``), on a rendered frame.
 
 Not ported yet (they raise ``NotImplementedError``): ``od_mode="lut"``,
 large-world rebasing, one baked cloud field beside one procedural field,
@@ -32,7 +36,9 @@ import torch
 
 from ..ops.kernels.megakernel import (render_flight_megakernel, render_flight_taa,
                                       render_scene_megakernel)
-from ..ops.kernels.texsample import build_latlong_pyramid, build_tex3d_pyramid
+from ..ops.kernels.texsample import (build_equirect_pyramid, build_latlong_pyramid,
+                                     build_tex3d_pyramid)
+from ..render.glow import GlowSettings, apply_glow
 from ..render.lod import EMPTY, layer_band
 from ..render.opaque import OpaqueScene
 from ..render.renderer import shared_reverse_z
@@ -269,13 +275,16 @@ class PlanetAtmosphere(Node3D):
 
 class Scene:
     """A renderable collection: atmospheres + opaque geometry, on one
-    device (the card unless the caller asks for the CPU)."""
+    device (the card unless the caller asks for the CPU), and an optional
+    environment (:class:`GlowSettings`, the Godot Environment's glow block)
+    for :meth:`apply_environment`."""
 
     def __init__(self, atmospheres=(), opaque: Optional[OpaqueScene] = None,
-                 *, device="cuda"):
+                 environment: Optional[GlowSettings] = None, *, device="cuda"):
         self.device = torch.device(device)
         self.atmospheres = list(atmospheres)
         self.opaque = opaque
+        self.environment = environment
         self._tex_pyr_cache = {}
         self._cam_cache = None
 
@@ -331,6 +340,36 @@ class Scene:
         built = (torch.as_tensor(data, device=self.device), meta)
         self._tex_pyr_cache[key] = (t, built)
         return built
+
+    def _pano_plan(self):
+        """``((r, g, b) tables on the scene's device, TexMeta)`` of the
+        panorama sky, built once per panorama object, or ``None`` without
+        one (``scene.py:594-619``).  The pyramid's width is the power of two
+        at or below the image's, within [64, 2048]; a panorama that cannot
+        be packed raises ``ValueError``."""
+        t = self.opaque.panorama if self.opaque is not None else None
+        if t is None:
+            return None
+        key = (id(t), "equirect")
+        hit = self._tex_pyr_cache.get(key)
+        if hit is not None and hit[0] is t:
+            return hit[1]
+        host = t.detach().cpu().numpy()
+        if host.ndim != 3:
+            raise ValueError(f"panorama must be (H, W, 3), got {host.shape}")
+        width = 1 << int(np.log2(min(2048, max(64, host.shape[1]))))
+        datas, meta = build_equirect_pyramid(host, width=width)
+        built = (tuple(torch.as_tensor(d, device=self.device) for d in datas), meta)
+        self._tex_pyr_cache[key] = (t, built)
+        return built
+
+    def apply_environment(self, color: torch.Tensor) -> torch.Tensor:
+        """A rendered linear frame (H, W, 3) through the scene's environment
+        (the HDR glow; ``scene.py:457-465``); unchanged without one or when
+        it is disabled."""
+        if self.environment is None or not self.environment.enabled:
+            return color
+        return apply_glow(color, self.environment)
 
     def _texture_plan(self, params, config):
         """Texture mode for a layer with baked cloud textures: the config
@@ -402,8 +441,9 @@ class Scene:
 
         The layers render far to near, each far-mode layer on its row band;
         CUDA tensors go to the megakernel (one launch per layer, plus the
-        opaque-only pass when the farthest layer is banded), CPU tensors to
-        its plain version; both return the same keys."""
+        opaque-only pass when the farthest layer is banded; the launch that
+        runs the opaque pass draws the panorama sky), CPU tensors to its
+        plain version; both return the same keys."""
         self._check_world_scale(self._cam_pos(camera))
         order, params, configs = self._sorted_layers(camera)
         self._check_layers(configs)
@@ -412,8 +452,10 @@ class Scene:
         tex_data = tuple(t for _, t in plans)
         _, params, configs, tex_data, bands, band_rows = self._layer_bands(
             order, params, configs, tex_data, camera, height)
+        pano_data, pano_meta = self._pano_plan() or (None, None)
         return render_scene_megakernel(params, configs, camera, self.opaque, height, width,
-                                       tex_data=tex_data, bands=bands, band_rows=band_rows)
+                                       tex_data=tex_data, bands=bands, band_rows=band_rows,
+                                       pano_data=pano_data, pano_meta=pano_meta)
 
     def render_flight(self, camera: Camera, times, height: int, width: int,
                       cam_transforms=None, taa_blend=None, taa_depth_eps: float = 0.2,
@@ -462,9 +504,10 @@ class Scene:
         plans = [self._texture_plan(p, c) for p, c in zip(params, configs)]
         args = (params, fs_stacks, tuple(c for c, _ in plans), camera, self.opaque, height,
                 width)
-        tex_data = tuple(t for _, t in plans)
+        pano_data, pano_meta = self._pano_plan() or (None, None)
+        kw = dict(cam_stack=cam_transforms, tex_data=tuple(t for _, t in plans),
+                  pano_data=pano_data, pano_meta=pano_meta)
         if taa_blend is None:
-            return render_flight_megakernel(*args, cam_stack=cam_transforms, tex_data=tex_data)
-        return render_flight_taa(*args, cam_stack=cam_transforms, blend=float(taa_blend),
-                                 tex_data=tex_data, depth_eps=float(taa_depth_eps),
-                                 clamp_mode=taa_clamp, clamp_gamma=float(taa_clamp_gamma))
+            return render_flight_megakernel(*args, **kw)
+        return render_flight_taa(*args, blend=float(taa_blend), depth_eps=float(taa_depth_eps),
+                                 clamp_mode=taa_clamp, clamp_gamma=float(taa_clamp_gamma), **kw)

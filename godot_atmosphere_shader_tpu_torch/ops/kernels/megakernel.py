@@ -7,10 +7,13 @@ Counterpart of ``godot_atmosphere_shader_tpu/ops/pallas/megakernel.py``
 or over a far-mode row band: ray generation, the opaque pass (or, for a
 chained layer, the layers below read back from the frame), the v1 or v2
 atmosphere (analytic sun optical depth), the cloud march with cheap or
-sun-marched light, and the composite; or the opaque pass alone.  It has
-two instances: procedural cloud fields, and texture mode (baked textures
-sampled through mip pyramids by the K2 device functions, one thread block
-per 32×128 tile).
+sun-marched light, and the composite; or the opaque pass alone.  The
+launch that runs the opaque pass draws the panorama sky (three channel
+pyramids sampled by K2's lat-long device functions, one level and mode per
+32×128 tile of rays) where a scene has one.  It has two instances:
+procedural cloud fields, and texture mode (baked textures sampled through
+mip pyramids by the K2 device functions, one thread block per 32×128
+tile).
 
 * :func:`render_scene_megakernel` renders a frame of any number of layers
   (the counterpart of ``render_scene_pallas``): CPU tensors take the plain
@@ -90,7 +93,7 @@ TEXTURE_GROUPS = (4, 8)
 #: work counter slots, in the kernel's order (``MK_WORK_*``)
 WORK_SLOTS = ("pixels", "atmosphere", "knot_groups", "march", "tex3d",
               "tex3d_floor", "latlong", "latlong_floor", "sun_samples",
-              "v1_atmosphere", "opaque_pixels")
+              "v1_atmosphere", "opaque_pixels", "sky", "sky_floor")
 #: atmosphere models, by their integer codes
 MODELS = {"v2": 0, "v1": 1}
 #: noise bases and fractals the kernel implements, by their integer codes
@@ -101,8 +104,9 @@ FRACTAL_TYPES = {"none": 0, "fbm": 1, "ridged": 2}
 class Counters:
     """Plain integer counters: frame-kernel launches (both instances, every
     layer and the opaque-only pass; ``texture_launches`` counts the texture
-    instance alone), launches of the K2-alone entry, and plain-path frames
-    (one per frame, whatever its layers)."""
+    instance alone, ``sky_launches`` the launches that draw the panorama
+    sky), launches of the K2-alone entry, and plain-path frames (one per
+    frame, whatever its layers)."""
 
     def __init__(self):
         self.reset()
@@ -110,6 +114,7 @@ class Counters:
     def reset(self):
         self.megakernel_launches = 0
         self.texture_launches = 0
+        self.sky_launches = 0
         self.texsample_launches = 0
         self.plain_calls = 0
 
@@ -170,6 +175,7 @@ class MegakernelParams(ctypes.Structure):
         ("ambient", ctypes.c_float),
         ("sky_color", _floats(3)),
         ("star_intensity", ctypes.c_float),
+        ("with_sky", ctypes.c_int),
         ("model", ctypes.c_int),
         ("atmosphere_steps", ctypes.c_int),
         ("planet_center", _floats(3)),
@@ -248,10 +254,12 @@ class TexParams(ctypes.Structure):
     ]
 
 
-#: The launchers' C signatures, as the ctypes binding declares them.
-LAUNCHER_ARGTYPES = (ctypes.POINTER(MegakernelParams), *(ctypes.c_void_p,) * 6)
+#: The launchers' C signatures, as the ctypes binding declares them (the
+#: second TexParams is the sky's, NULL without a sky).
+LAUNCHER_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.POINTER(TexParams),
+                     *(ctypes.c_void_p,) * 9)
 TEX_LAUNCHER_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.POINTER(TexParams),
-                         *(ctypes.c_void_p,) * 8)
+                         ctypes.POINTER(TexParams), *(ctypes.c_void_p,) * 11)
 TEXSAMPLE_ARGTYPES = (ctypes.POINTER(TexParams), ctypes.c_int, *(ctypes.c_void_p,) * 4,
                       ctypes.c_int, ctypes.c_int, *(ctypes.c_void_p,) * 3)
 
@@ -433,7 +441,8 @@ _PARAM_FIELDS = ("planet_radius", "atmosphere_height", "sun_position",
                  "cloud_coverage_rotation", "world_to_model", "time",
                  "day_color0", "day_color1", "night_color0", "night_color1",
                  "day_night_transition_scale")
-_OPAQUE_FIELDS = tuple(f.name for f in dataclasses.fields(OpaqueScene))
+_OPAQUE_FIELDS = tuple(f.name for f in dataclasses.fields(OpaqueScene)
+                       if f.name != "panorama")
 _CAMERA_FIELDS = ("view_to_world", "fov_y_rad", "near", "far")
 
 
@@ -602,29 +611,43 @@ def tex_constants(config: VariantConfig, shape: Optional[texsample.TexMeta] = No
     return t
 
 
+def sky_constants(meta: texsample.TexMeta) -> TexParams:
+    """The panorama sky's pyramid struct: its levels in the lat-long fields
+    and the sky's fixed 32-row window."""
+    cfg = VariantConfig(texture_window_rows=texsample.SKY_WINDOW_ROWS)
+    return tex_constants(cfg, coverage=meta)
+
+
+def _sky_launch(pano_data, pano_meta):
+    return None if pano_data is None else (sky_constants(pano_meta), *pano_data)
+
+
 # -- entry points ---------------------------------------------------------------
 
 
 def render_frame_plain(params: AtmosphereParams, config: VariantConfig,
                        camera: Camera, opaque: Optional[OpaqueScene],
-                       height: int, width: int, tex_data=None) -> dict:
+                       height: int, width: int, tex_data=None, pano_data=None,
+                       pano_meta=None) -> dict:
     """One fullscreen layer over the opaque pass, the kernel's plain
     PyTorch version (counted in ``counters.plain_calls``); runs on any
     device.  ``tex_data``: the ``(shape, coverage)`` pyramid tables of
-    texture mode."""
+    texture mode; ``pano_data``/``pano_meta``: the panorama sky's."""
     counters.plain_calls += 1
-    return render_frame(params, config, camera, opaque, height, width, tex_data=tex_data)
+    return render_frame(params, config, camera, opaque, height, width, tex_data=tex_data,
+                        pano_data=pano_data, pano_meta=pano_meta)
 
 
 def render_scene_plain(params_seq, configs, camera: Camera, opaque: Optional[OpaqueScene],
                        height: int, width: int, tex_data=None, bands=None,
-                       band_rows=None) -> dict:
+                       band_rows=None, pano_data=None, pano_meta=None) -> dict:
     """The layer chain's plain PyTorch version (``renderer.py::
     render_scene``, counted once in ``counters.plain_calls``); runs on any
     device."""
     counters.plain_calls += 1
     return render_scene(params_seq, configs, camera, opaque, height, width, tex_data=tex_data,
-                        bands=bands, band_rows=band_rows)
+                        bands=bands, band_rows=band_rows, pano_data=pano_data,
+                        pano_meta=pano_meta)
 
 
 _BLUE_NOISE = {}
@@ -636,7 +659,7 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
            tex=None, work: Optional[torch.Tensor] = None,
-           depth: Optional[torch.Tensor] = None):
+           depth: Optional[torch.Tensor] = None, sky=None):
     """Launch the kernel for one launch struct into preallocated CUDA
     frame planes (``color`` (H, W, 3), ``alpha`` (H, W), float32) on the
     current stream of their device; counted in
@@ -648,7 +671,11 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
     :func:`work_counts`).  ``depth``: an (H, W) float32 plane of linear
     depth: written by a launch with the opaque pass (optional), read by a
     chained layer (``with_background``), whose ``color`` and ``alpha`` hold
-    the layers below on entry and the composite on exit."""
+    the layers below on entry and the composite on exit.  ``sky``:
+    ``(TexParams, r, g, b tables)`` of the panorama sky, exactly when the
+    struct's ``with_sky`` is set."""
+    if bool(struct.with_sky) != (sky is not None):
+        raise ValueError("a sky launch needs its (TexParams, r, g, b) pyramids, and only it")
     if struct.with_background and depth is None:
         raise ValueError("a chained layer reads the carried linear depth: depth is required")
     if not struct.with_atmosphere and depth is None:
@@ -658,22 +685,28 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
     if blue is None:
         blue = _BLUE_NOISE[str(device)] = blue_noise_tensor(device=device)
     lib = load_library()
+    sky_params, sky_r, sky_g, sky_b = sky if sky is not None else (None, None, None, None)
+    sky_ref = None if sky_params is None else ctypes.byref(sky_params)
     with torch.cuda.device(device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
         if tex is None:
-            rc = lib.megakernel_launch(ctypes.byref(struct), _ptr(blue), _ptr(color),
-                                       _ptr(alpha), _ptr(depth), stream, _ptr(work))
+            rc = lib.megakernel_launch(ctypes.byref(struct), sky_ref, _ptr(blue), _ptr(sky_r),
+                                       _ptr(sky_g), _ptr(sky_b), _ptr(color), _ptr(alpha),
+                                       _ptr(depth), stream, _ptr(work))
         else:
             tparams, shape_table, cov_table = tex
             rc = lib.megakernel_tex_launch(ctypes.byref(struct), ctypes.byref(tparams),
-                                           _ptr(blue), _ptr(shape_table), _ptr(cov_table),
-                                           _ptr(color), _ptr(alpha), _ptr(depth), stream,
-                                           _ptr(work))
+                                           sky_ref, _ptr(blue), _ptr(shape_table),
+                                           _ptr(cov_table), _ptr(sky_r), _ptr(sky_g),
+                                           _ptr(sky_b), _ptr(color), _ptr(alpha), _ptr(depth),
+                                           stream, _ptr(work))
     if rc != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {rc}")
     counters.megakernel_launches += 1
     if tex is not None:
         counters.texture_launches += 1
+    if sky is not None:
+        counters.sky_launches += 1
 
 
 def _check_table(t: torch.Tensor, meta: texsample.TexMeta, device):
@@ -685,9 +718,10 @@ def _check_table(t: torch.Tensor, meta: texsample.TexMeta, device):
 
 
 def _check_inputs(params: AtmosphereParams, config: VariantConfig, camera: Camera,
-                  opaque: Optional[OpaqueScene], rows: int, tex_data) -> tuple:
-    """What the wrapper refuses, for one launch of ``rows`` rows.  Returns
-    ``(device, texture mode?)``."""
+                  opaque: Optional[OpaqueScene], rows: int, tex_data,
+                  sky: bool = False) -> tuple:
+    """What the wrapper refuses, for one launch of ``rows`` rows (``sky``:
+    it draws the panorama sky).  Returns ``(device, texture mode?)``."""
     check_config(config)
     device = camera.view_to_world.device
     devices = {params.planet_radius.device, device}
@@ -710,11 +744,34 @@ def _check_inputs(params: AtmosphereParams, config: VariantConfig, camera: Camer
     if device.type == "cuda" and not textured and rows % group:
         raise ValueError(f"frame or band height {rows} must be divisible by "
                          f"cloud_lod·cloud_coverage_lod = {group}")
+    if device.type == "cuda" and sky and TILE_ROWS % group:
+        raise ValueError(f"a sky launch needs cloud_lod·cloud_coverage_lod = {group} to "
+                         f"divide the tile height {TILE_ROWS}")
     return device, textured
 
 
+def _check_sky(opaque: Optional[OpaqueScene], pano_data, pano_meta, device):
+    """What the wrapper refuses for the panorama sky: a panorama without its
+    pyramids (on every device: the kernel's plain version samples the
+    pyramids too), a meta the kernel does not take, and tables that are not
+    the meta's, on the layers' device."""
+    if pano_data is None:
+        if opaque is not None and opaque.panorama is not None:
+            raise ValueError("a panorama sky needs its pyramid tables (pano_data, pano_meta); "
+                             "Scene.render builds them")
+        return
+    if not (isinstance(pano_meta, texsample.TexMeta) and pano_meta.kind == "latlong"
+            and len(pano_meta.levels) <= MAX_LEVELS):
+        raise ValueError(f"pano_meta must be a latlong TexMeta of at most {MAX_LEVELS} levels")
+    if len(pano_data) != 3:
+        raise ValueError("pano_data must be the (r, g, b) pyramid tables")
+    for t in pano_data:
+        _check_table(t, pano_meta, device)
+
+
 def _check_layers(params_seq, configs, camera: Camera, opaque: Optional[OpaqueScene],
-                  height: int, tex_data, bands, band_rows) -> tuple:
+                  height: int, tex_data, bands, band_rows, pano_data=None,
+                  pano_meta=None) -> tuple:
     """What the wrapper refuses for a frame of layers.  Returns ``(device,
     per-layer tex_data, per-layer bands, per-layer first rows)``."""
     n = len(configs)
@@ -727,6 +784,7 @@ def _check_layers(params_seq, configs, camera: Camera, opaque: Optional[OpaqueSc
         raise ValueError("tex_data, bands and band_rows need one entry per layer")
     shared_reverse_z(configs)
     device = None
+    sky = pano_data is not None and opaque is not None
     for i in range(n):
         rows = height if bands[i] is None else int(bands[i])
         r0 = 0 if bands[i] is None else rows0[i]
@@ -734,7 +792,9 @@ def _check_layers(params_seq, configs, camera: Camera, opaque: Optional[OpaqueSc
             raise ValueError(f"layer {i}: band rows [{r0}, {r0 + rows}) outside a "
                              f"{height}-row frame")
         device, _ = _check_inputs(params_seq[i], configs[i], camera,
-                                  opaque if i == 0 else None, rows, tex[i])
+                                  opaque if i == 0 else None, rows, tex[i],
+                                  sky=sky and i == 0 and bands[0] is None)
+    _check_sky(opaque, pano_data, pano_meta, device)
     return device, tex, bands, rows0
 
 
@@ -744,79 +804,92 @@ def _tex_launch(config: VariantConfig, tex_data):
 
 def scene_launches(params_seq, configs, camera: Camera, opaque: Optional[OpaqueScene],
                    height: int, width: int, tex_data=None, bands=None,
-                   band_rows=None) -> list:
-    """The launches of one frame, as ``(kind, struct, tex)`` in launch
+                   band_rows=None, pano_data=None, pano_meta=None) -> list:
+    """The launches of one frame, as ``(kind, struct, args)`` in launch
     order (``_chain_layers``): ``"opaque"`` (the opaque-only pass, when
     layer 0 is banded), ``"layer"`` (a fullscreen layer: layer 0 fuses the
     opaque pass, later ones composite over the frame) and ``"band"`` (a
-    chained layer over its row band)."""
+    chained layer over its row band); ``args`` holds the :func:`launch`
+    keywords ``tex`` and ``sky``.  The launch that runs the opaque pass
+    draws the panorama sky (``pano_data``, ``pano_meta``)."""
     n = len(configs)
     tex = tex_data or (None,) * n
     bands = bands or (None,) * n
+    sky = _sky_launch(pano_data, pano_meta) if opaque is not None else None
     out = []
     if bands[0] is None:
-        out.append(("layer", frame_constants(params_seq[0], configs[0], camera, opaque,
-                                             height, width), _tex_launch(configs[0], tex[0])))
+        s = frame_constants(params_seq[0], configs[0], camera, opaque, height, width)
+        out.append(("layer", s, dict(tex=_tex_launch(configs[0], tex[0]), sky=sky)))
         start = 1
     else:
         s = frame_constants(params_seq[0], opaque_only_config(configs[0]), camera, opaque,
                             height, width)
         s.with_atmosphere = 0
-        out.append(("opaque", s, None))
+        out.append(("opaque", s, dict(tex=None, sky=sky)))
         start = 0
+    s.with_sky = int(sky is not None)
     for i in range(start, n):
         s = frame_constants(params_seq[i], configs[i], camera, None, height, width)
         s.with_background = 1
         if bands[i] is not None:
             s.row0, s.rows = int(band_rows[i]), int(bands[i])
-        out.append(("layer" if bands[i] is None else "band", s, _tex_launch(configs[i], tex[i])))
+        out.append(("layer" if bands[i] is None else "band", s,
+                    dict(tex=_tex_launch(configs[i], tex[i]), sky=None)))
     return out
 
 
 def render_scene_megakernel(params_seq, configs, camera: Camera,
                             opaque: Optional[OpaqueScene], height: int, width: int,
-                            tex_data=None, bands=None, band_rows=None) -> dict:
+                            tex_data=None, bands=None, band_rows=None, pano_data=None,
+                            pano_meta=None) -> dict:
     """Render one frame of layers (far to near): ``{"color": (H, W, 3),
     "alpha": (H, W)}``.
 
     ``tex_data``: per layer its ``(shape, coverage)`` pyramid tables (a
     texture-mode config) or ``None``; ``bands``: per layer ``None``
     (fullscreen) or its band height, ``band_rows`` its first row
-    (``Scene._layer_bands``).  CPU tensors take the plain chain; CUDA
-    tensors launch the kernel once per layer, plus the opaque-only pass
-    when layer 0 is banded, on one stream into preallocated planes, with
-    nothing between the launches; any other device raises."""
+    (``Scene._layer_bands``); ``pano_data``/``pano_meta``: the panorama
+    sky's (r, g, b) pyramid tables and meta (required when the opaque
+    scene has a panorama).  CPU tensors take the plain chain; CUDA tensors
+    launch the kernel once per layer, plus the opaque-only pass when layer
+    0 is banded, on one stream into preallocated planes, with nothing
+    between the launches; any other device raises."""
     device, tex, bands, rows0 = _check_layers(params_seq, configs, camera, opaque, height,
-                                              tex_data, bands, band_rows)
+                                              tex_data, bands, band_rows, pano_data, pano_meta)
     if device.type == "cpu":
         out = render_scene_plain(params_seq, configs, camera, opaque, height, width,
-                                 tex_data=tex, bands=bands, band_rows=rows0)
+                                 tex_data=tex, bands=bands, band_rows=rows0,
+                                 pano_data=pano_data, pano_meta=pano_meta)
         return {"color": out["color"], "alpha": out["alpha"]}
     plan = scene_launches(params_seq, configs, camera, opaque, height, width, tex_data=tex,
-                          bands=bands, band_rows=rows0)
+                          bands=bands, band_rows=rows0, pano_data=pano_data,
+                          pano_meta=pano_meta)
     color = torch.empty((height, width, 3), dtype=torch.float32, device=device)
     alpha = torch.empty((height, width), dtype=torch.float32, device=device)
     depth = (torch.empty((height, width), dtype=torch.float32, device=device)
              if len(plan) > 1 else None)
-    for _, struct, tex_launch in plan:
-        launch(struct, color, alpha, tex=tex_launch, depth=depth)
+    for _, struct, args in plan:
+        launch(struct, color, alpha, depth=depth, **args)
     return {"color": color, "alpha": alpha}
 
 
 def render_frame_megakernel(params: AtmosphereParams, config: VariantConfig,
                             camera: Camera, opaque: Optional[OpaqueScene],
-                            height: int, width: int, tex_data=None) -> dict:
+                            height: int, width: int, tex_data=None, pano_data=None,
+                            pano_meta=None) -> dict:
     """Render one fullscreen layer over the opaque pass: ``{"color":
     (H, W, 3), "alpha": (H, W)}`` (:func:`render_scene_megakernel` of one
     layer).  A texture-mode config needs ``tex_data``, its ``(shape,
-    coverage)`` pyramid tables."""
+    coverage)`` pyramid tables; a panorama its ``pano_data``, ``pano_meta``."""
     return render_scene_megakernel((params,), (config,), camera, opaque, height, width,
-                                   tex_data=(tex_data,))
+                                   tex_data=(tex_data,), pano_data=pano_data,
+                                   pano_meta=pano_meta)
 
 
 def render_flight_megakernel(params_seq, fs_stacks, configs, camera: Camera,
                              opaque: Optional[OpaqueScene], height: int, width: int,
-                             cam_stack=None, tex_data=None) -> dict:
+                             cam_stack=None, tex_data=None, pano_data=None,
+                             pano_meta=None) -> dict:
     """Render K frames of a flight: ``{"color": (K, H, W, 3), "alpha":
     (K, H, W)}``.
 
@@ -824,21 +897,21 @@ def render_flight_megakernel(params_seq, fs_stacks, configs, camera: Camera,
     fullscreen; ``fs_stacks``: per layer (K, 24) host rows of packed frame
     state (``PlanetAtmosphere.frame_state_row``); ``cam_stack``: optional
     (K, 4, 4) host ``view_to_world`` transforms (default: ``camera``'s for
-    every frame); ``tex_data``: per layer, as in
+    every frame); ``tex_data``, ``pano_data``, ``pano_meta``: as in
     :func:`render_scene_megakernel`.  CPU tensors take the plain flight;
     CUDA tensors compute every frame's launch structs on the host, then
     launch the kernel once per layer and frame back to back into
     preallocated outputs.
     """
     return _flight(params_seq, fs_stacks, configs, camera, opaque, height, width, cam_stack,
-                   tex_data, None)
+                   tex_data, None, pano_data, pano_meta)
 
 
 def render_flight_taa(params_seq, fs_stacks, configs, camera: Camera,
                       opaque: Optional[OpaqueScene], height: int, width: int,
                       cam_stack=None, blend: float = 0.15, tex_data=None,
                       depth_eps: float = 0.2, clamp_mode: str = "minmax",
-                      clamp_gamma: float = 1.25) -> dict:
+                      clamp_gamma: float = 1.25, pano_data=None, pano_meta=None) -> dict:
     """The temporally accumulated flight: as :func:`render_flight_megakernel`,
     but each output frame is the TAA resolve (``taa.py``) of the frame
     rendered with temporal jitter (forced on) against the previous resolved
@@ -849,13 +922,13 @@ def render_flight_taa(params_seq, fs_stacks, configs, camera: Camera,
     configs = tuple(dataclasses.replace(c, temporal_jitter=True) for c in configs)
     settings = taa.TaaSettings(float(blend), float(depth_eps), clamp_mode, float(clamp_gamma))
     return _flight(params_seq, fs_stacks, configs, camera, opaque, height, width, cam_stack,
-                   tex_data, settings)
+                   tex_data, settings, pano_data, pano_meta)
 
 
 def _flight(params_seq, fs_stacks, configs, camera, opaque, height, width, cam_stack, tex_data,
-            settings: Optional[taa.TaaSettings]) -> dict:
+            settings: Optional[taa.TaaSettings], pano_data, pano_meta) -> dict:
     device, tex, _, _ = _check_layers(params_seq, configs, camera, opaque, height, tex_data,
-                                      None, None)
+                                      None, None, pano_data, pano_meta)
     fs_stacks = [np.ascontiguousarray(fs, np.float32) for fs in fs_stacks]
     k = fs_stacks[0].shape[0]
     if cam_stack is None:
@@ -874,7 +947,8 @@ def _flight(params_seq, fs_stacks, configs, camera, opaque, height, width, cam_s
         if settings is not None:
             taa.counters.plain_calls += k
         return render_flight_plain(params_seq, fs_stacks, configs, camera, opaque, height,
-                                   width, cam_stack=cam_stack, tex_data=tex, taa=settings)
+                                   width, cam_stack=cam_stack, tex_data=tex, taa=settings,
+                                   pano_data=pano_data, pano_meta=pano_meta)
 
     # every launch struct on the host first: no device->host copy from the
     # first launch to the last
@@ -884,7 +958,11 @@ def _flight(params_seq, fs_stacks, configs, camera, opaque, height, width, cam_s
     for layer in structs[1:]:
         for s in layer:
             s.with_background = 1
-    texl = [_tex_launch(c, t) for c, t in zip(configs, tex)]
+    sky = _sky_launch(pano_data, pano_meta) if opaque is not None else None
+    for s in structs[0]:
+        s.with_sky = int(sky is not None)
+    args = [dict(tex=_tex_launch(c, t), sky=sky if i == 0 else None)
+            for i, (c, t) in enumerate(zip(configs, tex))]
     n = len(configs)
     f32 = dict(dtype=torch.float32, device=device)
     color = torch.empty((k, height, width, 3), **f32)
@@ -893,7 +971,7 @@ def _flight(params_seq, fs_stacks, configs, camera, opaque, height, width, cam_s
     if settings is None:
         for i in range(k):
             for layer in range(n):
-                launch(structs[layer][i], color[i], alpha[i], tex=texl[layer], depth=depth)
+                launch(structs[layer][i], color[i], alpha[i], depth=depth, **args[layer])
         return {"color": color, "alpha": alpha}
     resolves = taa.flight_constants(camera, cam_stack, settings, height, width)
     raw = torch.empty((height, width, 3), **f32)
@@ -903,22 +981,23 @@ def _flight(params_seq, fs_stacks, configs, camera, opaque, height, width, cam_s
               torch.empty((height, width), **f32))
     for i in range(k):
         for layer in range(n):
-            launch(structs[layer][i], raw, alpha[i], tex=texl[layer], depth=depth)
+            launch(structs[layer][i], raw, alpha[i], depth=depth, **args[layer])
         taa.launch(resolves[i], raw, depth, color[i - 1] if i else no_history,
                    depths[i % 2], color[i], depths[(i + 1) % 2])
     return {"color": color, "alpha": alpha}
 
 
 def work_counts(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
-                tex=None, depth: Optional[torch.Tensor] = None) -> dict:
+                tex=None, depth: Optional[torch.Tensor] = None, sky=None) -> dict:
     """One launch with the kernel's work counters on: how many pixels,
     atmosphere integrations (v2 and v1), knot groups, marched coarse
     pixels, sun-march samples, texture samples (trilinear or bilinear, and
-    floor-mode nearest) and opaque-only pixels this launch's inputs needed.
-    Counted in the launch counters like any launch; a chained layer
-    composites over ``color`` again."""
+    floor-mode nearest), opaque-only pixels and sky samples (three-channel
+    bilinear, and floor-mode nearest) this launch's inputs needed.  Counted
+    in the launch counters like any launch; a chained layer composites over
+    ``color`` again."""
     work = torch.zeros(len(WORK_SLOTS), dtype=torch.int64, device=color.device)
-    launch(struct, color, alpha, tex=tex, work=work, depth=depth)
+    launch(struct, color, alpha, tex=tex, work=work, depth=depth, sky=sky)
     return dict(zip(WORK_SLOTS, work.cpu().tolist()))
 
 

@@ -7,14 +7,20 @@ Counterpart of ``godot_atmosphere_shader_tpu/ops/pallas/texsample.py``.
 * Host-side builders (numpy, copied from the JAX package):
   :class:`TexMeta`, :func:`build_tex3d_pyramid` (64³ → 8³ box-filtered
   levels), :func:`build_latlong_pyramid` (cube faces resampled to a
-  lat-long map, 512×256 → 32×16).  Every level is stored flat
+  lat-long map, 512×256 → 32×16), :func:`build_equirect_pyramid` (an RGB
+  panorama resampled to a power-of-two lat-long map, one pyramid per
+  channel sharing one meta).  Every level is stored flat
   (``lin = (z·S + y)·S + x`` or ``v·W + u``), levels concatenated into one
   ``(rows, 128)`` f32 table with ``PAD_ROWS`` zero rows at the end.
 * The plain versions of K2: :func:`sample_tex3d` and :func:`sample_latlong`
   over one batch, and :func:`sample_tex3d_batched` /
   :func:`sample_latlong_batched` over knot planes cut into the kernel's
-  batches.  The result depends on the batch: the wrapped coordinates'
-  min and max over the whole batch choose one level and one mode for it —
+  batches, and :func:`sample_sky_batched`, the panorama sky of the
+  megakernel's opaque pass (three channel pyramids, one choice per 32×128
+  tile of rays, a fixed 32-row window; its calls are counted in
+  :data:`counters`).  The result depends on the batch:
+  the wrapped coordinates' min and max over the whole batch choose one
+  level and one mode for it —
   *windowed* (the finest level whose footprint does not wrap and whose
   flat span fits ``window_rows`` rows of 128), *banded* (a strictly finer
   level whose (y, x) span fits ``band_rows`` rows and whose z span is at
@@ -48,6 +54,21 @@ LANES = 128
 PAD_ROWS = 64
 #: the batch modes, as ``sample_tex3d(..., return_choice=True)`` reports them
 WINDOWED, BANDED, FLOOR = 0, 1, 2
+#: the panorama sky's window, whatever the config's (``megakernel.py:221``)
+SKY_WINDOW_ROWS = 32
+
+
+class Counters:
+    """Calls of the plain sky sampler: a frame on the card makes none."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.plain_sky_calls = 0
+
+
+counters = Counters()
 
 
 # -- host-side pyramid packing ------------------------------------------------
@@ -143,6 +164,42 @@ def build_latlong_pyramid(faces, width: int = 512) -> Tuple[np.ndarray, TexMeta]
         extend_cubemap_borders(torch.from_numpy(faces)),
         latlong_dirs(width // 2, width)).numpy()
     return _pack_latlong_mips(base_img)
+
+
+def build_equirect_pyramid(img, width: int = 512):
+    """Equirect RGB panorama ``(H, W, 3)`` → per-channel lat-long pyramids
+    ``((data_r, data_g, data_b), meta)``: the image is resampled on the host
+    to the ``width × width/2`` grid (bilinear, u wraps, v clamps, texel
+    centers at ``(i + 0.5)/N``), then each channel is packed like the
+    coverage map.  Raises ``ValueError`` for another shape or a width
+    outside the powers of two in [64, 2048]."""
+    img = np.asarray(img, np.float32)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"panorama must be (H, W, 3), got {img.shape}")
+    if width & (width - 1) or width < 64 or width > 2048:
+        raise ValueError(f"latlong width must be a power of two in "
+                         f"[64, 2048], got {width}")
+    height = width // 2
+    h_in, w_in, _ = img.shape
+    u = (np.arange(width) + 0.5) / width
+    v = (np.arange(height) + 0.5) / height
+    pu = u * w_in - 0.5
+    pv = np.clip(v * h_in - 0.5, 0.0, h_in - 1.0)
+    x0 = np.floor(pu).astype(np.int64)
+    y0 = np.floor(pv).astype(np.int64)
+    fx = (pu - x0)[None, :, None]
+    fy = (pv - y0)[:, None, None]
+    x0w = np.mod(x0, w_in)
+    x1w = np.mod(x0 + 1, w_in)
+    y1 = np.minimum(y0 + 1, h_in - 1)
+    top = img[y0][:, x0w] * (1 - fx) + img[y0][:, x1w] * fx
+    bot = img[y1][:, x0w] * (1 - fx) + img[y1][:, x1w] * fx
+    resampled = top * (1 - fy) + bot * fy
+    datas, meta = [], None
+    for c in range(3):
+        d, meta = _pack_latlong_mips(np.ascontiguousarray(resampled[..., c]))
+        datas.append(d)
+    return tuple(datas), meta
 
 
 def _pack_latlong_mips(base_img: np.ndarray):
@@ -356,12 +413,25 @@ def _tex3d_batches(flat, meta: TexMeta, x, y, z, window_rows, band_rows,
     return out, mode, level
 
 
-def _latlong_batches(flat, meta: TexMeta, d: Vec3, window_rows):
-    """K2's lat-long sampler over ``(B, N)`` unit directions."""
+def _latlong_coords(meta: TexMeta, d: Vec3, window_rows):
+    """Wrapped ``(fu, v)`` of ``(B, N)`` unit directions and each batch's
+    ``(mode, level)``."""
     u, v = latlong_uv(d)
     fu = u - torch.floor(u)
     mode, level = _latlong_choice(meta, fu.amin(dim=1), fu.amax(dim=1),
                                   v.amin(dim=1), v.amax(dim=1), window_rows)
+    return fu, v, mode, level
+
+
+def _latlong_batches(flat, meta: TexMeta, d: Vec3, window_rows):
+    """K2's lat-long sampler over ``(B, N)`` unit directions."""
+    fu, v, mode, level = _latlong_coords(meta, d, window_rows)
+    return _latlong_lookup(flat, meta, fu, v, mode, level, window_rows), mode, level
+
+
+def _latlong_lookup(flat, meta: TexMeta, fu, v, mode, level, window_rows):
+    """The samples of one pyramid at each batch's choice: bilinear at its
+    level, or nearest from the floor level."""
     Hs = _level_table(meta, level, 0)[:, None]
     Ws = _level_table(meta, level, 1)[:, None]
     base = _level_table(meta, level, 2)[:, None]
@@ -386,7 +456,7 @@ def _latlong_batches(flat, meta: TexMeta, d: Vec3, window_rows):
     un = torch.floor(fu * W_f).to(torch.int64) & (W_f - 1)
     vn = torch.clamp(torch.floor(v * H_f).to(torch.int64), 0, H_f - 1)
     floor = _gather(flat, base_f, vn * W_f + un)
-    return torch.where(mode[:, None] == WINDOWED, windowed, floor), mode, level
+    return torch.where(mode[:, None] == WINDOWED, windowed, floor)
 
 
 # -- entry points -----------------------------------------------------------------
@@ -470,6 +540,23 @@ def sample_latlong_batched(table, meta: TexMeta, d: Vec3, batch_rows: int,
         _flat(table), meta, Vec3(*(_to_batches(c, batch_rows) for c in planes)),
         window_rows)
     return _from_batches(out, planes[0].shape, batch_rows).reshape(shape)
+
+
+def sample_sky_batched(tables, meta: TexMeta, d: Vec3, batch_rows: int) -> Vec3:
+    """The panorama sky's plain sampler (``megakernel.py:212-222``): ray
+    directions ``(rows, W)`` (rows and W whole multiples of ``batch_rows``
+    and 128) cut into ``batch_rows × 128`` batches, each choosing one level
+    and mode with the sky's 32-row window; the three channel pyramids
+    ``tables`` share that choice.  Returns the (r, g, b) planes."""
+    counters.plain_sky_calls += 1
+    shape = d.x.shape
+    planes = [_planes(c) for c in d]
+    fu, v, mode, level = _latlong_coords(
+        meta, Vec3(*(_to_batches(c, batch_rows) for c in planes)), SKY_WINDOW_ROWS)
+    return Vec3(*(_from_batches(_latlong_lookup(_flat(t), meta, fu, v, mode, level,
+                                                SKY_WINDOW_ROWS),
+                                planes[0].shape, batch_rows).reshape(shape)
+                  for t in tables))
 
 
 def pyramid_samplers(config, shape_table, coverage_table, batch_rows: int):

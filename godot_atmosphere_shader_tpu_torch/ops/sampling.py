@@ -1,6 +1,7 @@
 """Texture sampling and bakes: trilinear 3D with repeat, cubemap bilinear
-(per-face clamp, or seamless through a border-extended stack), and the
-noise bakes that make the demo's shape texture and coverage cubemap.
+(per-face clamp, or seamless through a border-extended stack), equirect
+bilinear (the panorama sky), and the noise bakes that make the demo's
+shape texture and coverage cubemap.
 
 Counterpart of ``godot_atmosphere_shader_tpu/ops/sampling.py``, same
 formulas in the same operation order.  These are the exact samplers of the
@@ -8,15 +9,15 @@ plain texture path (the JAX package's ``renderer="xla"``); the megakernel
 samples mip pyramids instead (``ops/kernels/texsample.py``).  Cube faces are
 ordered +X, -X, +Y, -Y, +Z, -Z with the reference generator's basis
 swizzles (``noise_cubemap.gd:110-128``).
-
-Not ported yet: ``sample_equirect_bilinear`` (the panorama sky).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from ..utils.vecmath import Vec3
+from ..utils.vecmath import Vec3, normalize
 from .noise import NoiseSpec, sample_noise3
 
 
@@ -155,6 +156,35 @@ def sample_cubemap_seamless(faces_ext: torch.Tensor, direction: Vec3) -> torch.T
     px = (u + 1.0) * half - 0.5 + 1.0  # +1: the border ring
     py = res - 0.5 - (v + 1.0) * half + 1.0
     return _bilinear_faces(faces_ext, face, px, py)
+
+
+def sample_equirect_bilinear(tex: torch.Tensor, direction: Vec3) -> Vec3:
+    """Equirect (lat-long) panorama sample, the ``PanoramaSkyMaterial``
+    analog: ``tex`` is ``(H, W, 3)`` linear RGB; the direction is
+    normalized, u = atan2(z, x)/2π + 0.5 wraps, v = 0.5 − asin(y)/π clamps
+    at the poles, texel centers at ``(i + 0.5)/N``.  Exact trigonometry (the
+    megakernel's pyramid sampler uses the polynomial one)."""
+    h, w, _ = tex.shape
+    d = normalize(direction)
+    u = torch.atan2(d.z, d.x) * (1.0 / (2.0 * math.pi)) + 0.5
+    v = 0.5 - torch.asin(torch.clamp(d.y, -1.0, 1.0)) * (1.0 / math.pi)
+    pu = u * w - 0.5
+    pv = torch.clamp(v * h - 0.5, 0.0, h - 1.0)
+    x0f = torch.floor(pu)
+    y0 = torch.floor(pv).to(torch.int64)
+    fx = pu - x0f
+    fy = pv - y0.to(torch.float32)
+    x0 = torch.remainder(x0f.to(torch.int64), w)
+    x1 = torch.remainder(x0 + 1, w)  # the azimuth seam wraps
+    y1 = torch.clamp(y0 + 1, max=h - 1)  # the poles clamp
+    flat = tex.reshape(-1, 3)
+    out = []
+    for c in range(3):
+        ch = flat[:, c]
+        top = ch[y0 * w + x0] * (1.0 - fx) + ch[y0 * w + x1] * fx
+        bot = ch[y1 * w + x0] * (1.0 - fx) + ch[y1 * w + x1] * fx
+        out.append(top * (1.0 - fy) + bot * fy)
+    return Vec3(*out)
 
 
 # -- bakes --------------------------------------------------------------------

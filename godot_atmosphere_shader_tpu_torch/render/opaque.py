@@ -1,9 +1,10 @@
 """Analytic opaque pass: the stand-in for Godot's rasterized scene.
 
 Counterpart of ``godot_atmosphere_shader_tpu/render/opaque.py``: spheres,
-boxes, a directional light with ambient, a sky color with a hashed
-starfield, and the depth buffers the atmosphere composites against.  The
-panorama sky is not ported yet.
+boxes, a directional light with ambient, a sky (a color with a hashed
+starfield, or an equirect panorama: the reference demo's
+``PanoramaSkyMaterial``) and the depth buffers the atmosphere composites
+against.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from ..ops.noise import _hash_to_unit, hash3
+from ..ops.sampling import sample_equirect_bilinear
 from ..utils.camera import (Camera, background_depth,
                             nonlinear_depth_from_view_z, transform_dir,
                             transform_point, world_ray_dirs)
@@ -42,13 +44,19 @@ class OpaqueScene:
     ambient: torch.Tensor  # 0-d
     sky_color: torch.Tensor  # (3,) linear
     star_intensity: torch.Tensor  # 0-d; 0 disables the starfield
+    # equirect sky (H, W, 3) linear RGB, or None: when set it replaces
+    # sky_color + starfield on rays that miss all geometry (sampled exactly
+    # by ops/sampling.py::sample_equirect_bilinear, or through the mip
+    # pyramids the megakernel samples, ops/kernels/texsample.py)
+    panorama: Optional[torch.Tensor] = None
 
     @staticmethod
     def create(spheres=(), boxes=(), light_dir=(0.0, 0.0, -1.0),
                ambient=0.02, sky_color=(0.0, 0.0, 0.0), star_intensity=0.0,
-               *, device) -> "OpaqueScene":
+               panorama=None, *, device) -> "OpaqueScene":
         """``spheres``: list of (center, radius, albedo[, unshaded]);
-        ``boxes``: list of (world_to_box 4×4, half_size, albedo)."""
+        ``boxes``: list of (world_to_box 4×4, half_size, albedo);
+        ``panorama``: an optional (H, W, 3) linear equirect sky."""
         if spheres:
             sc = np.array([s[0] for s in spheres], np.float32)
             sr = np.array([s[1] for s in spheres], np.float32)
@@ -73,7 +81,8 @@ class OpaqueScene:
             sphere_centers=t(sc), sphere_radii=t(sr), sphere_albedos=t(sa),
             sphere_unshaded=t(su), box_world_to_box=t(bm), box_half_sizes=t(bh),
             box_albedos=t(ba), light_dir=t(light_dir), ambient=t(ambient),
-            sky_color=t(sky_color), star_intensity=t(star_intensity))
+            sky_color=t(sky_color), star_intensity=t(star_intensity),
+            panorama=None if panorama is None else t(panorama))
 
 
 def starfield(ray_dir: Vec3, star_intensity):
@@ -90,8 +99,14 @@ def starfield(ray_dir: Vec3, star_intensity):
 
 
 def render_opaque(scene: OpaqueScene, camera: Camera, height: int, width: int,
-                  reverse_z: bool = True, ray_dir: Optional[Vec3] = None):
-    """Returns ``(rgb: Vec3, depth: nonlinear buffer, linear_depth)``."""
+                  reverse_z: bool = True, ray_dir: Optional[Vec3] = None,
+                  sky_fn=None):
+    """Returns ``(rgb: Vec3, depth: nonlinear buffer, linear_depth)``.
+
+    ``sky_fn(ray_dir: Vec3) -> Vec3``: the sky of rays that miss all
+    geometry, in place of ``sky_color`` + starfield; it is called on every
+    ray as given (not renormalized).  Without one, a scene with a panorama
+    samples it exactly (:func:`sample_equirect_bilinear`)."""
     if ray_dir is None:
         ray_dir = world_ray_dirs(camera, height, width)
     ray_origin = camera.position
@@ -154,17 +169,23 @@ def render_opaque(scene: OpaqueScene, camera: Camera, height: int, width: int,
         unshaded = torch.where(closer, 0.0, unshaded)
 
     hit_any = best_t < big
-    star = starfield(ray_dir, scene.star_intensity)
+    if sky_fn is None and scene.panorama is not None:
+        def sky_fn(d, _tex=scene.panorama):
+            return sample_equirect_bilinear(_tex, d)
+    if sky_fn is not None:
+        sky = sky_fn(ray_dir)
+    else:
+        star = starfield(ray_dir, scene.star_intensity)
+        sky = Vec3(*(c + star for c in scene.sky_color))
 
     # lambert + ambient, unshaded passthrough
     ld = scene.light_dir
     ndotl = torch.clamp(-(nx * ld[0] + ny * ld[1] + nz * ld[2]), min=0.0)
     shade = scene.ambient + (1.0 - scene.ambient) * ndotl
     shade = torch.where(unshaded > 0.5, 1.0, shade)
-    sky = scene.sky_color
-    rgb = Vec3(torch.where(hit_any, ar * shade, sky[0] + star),
-               torch.where(hit_any, ag * shade, sky[1] + star),
-               torch.where(hit_any, ab * shade, sky[2] + star))
+    rgb = Vec3(torch.where(hit_any, ar * shade, sky.x),
+               torch.where(hit_any, ag * shade, sky.y),
+               torch.where(hit_any, ab * shade, sky.z))
 
     # depth buffer: view-space z of hits, clear value elsewhere
     hit_pos = ray_origin + ray_dir * torch.where(hit_any, best_t, 1.0)

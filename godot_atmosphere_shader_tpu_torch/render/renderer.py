@@ -27,6 +27,13 @@ Baked cloud textures come in two forms:
   to whole tiles (the last tile's extra rows and columns are real rays past
   the edge, part of its batches), and cropped.
 
+A panorama sky comes in the same two forms: sampled exactly
+(``OpaqueScene.panorama`` without ``pano_data``, the twin of the JAX
+``renderer="xla"``), or through the megakernel's three channel pyramids
+(``pano_data``, ``pano_meta``), one level and mode per 32×128 tile of the
+opaque pass's rays; the opaque pass then runs on that tile grid from the
+frame's first row, padded and cropped in the same way.
+
 :func:`render_flight_plain` is the counterpart of ``render_flight_xla``: K
 frames of a flight by a host loop over :func:`render_scene` (every layer
 fullscreen), optionally each resolved against the previous one by the
@@ -43,7 +50,7 @@ import torch
 
 from ..models.params import AtmosphereParams, VariantConfig
 from ..ops.kernels import taa as taa_mod
-from ..ops.kernels.texsample import pyramid_samplers
+from ..ops.kernels.texsample import pyramid_samplers, sample_sky_batched
 from ..utils.camera import Camera, rigid_inverse, world_ray_dirs
 from ..utils.vecmath import Vec3
 from .atmosphere_pass import composite_over, shade_atmosphere
@@ -95,7 +102,7 @@ def render_frame(params: AtmosphereParams, config: VariantConfig,
                  camera: Camera, opaque: Optional[OpaqueScene],
                  height: int, width: int, tex_data=None, background=None,
                  row0: int = 0, rows: Optional[int] = None,
-                 with_atmosphere: bool = True) -> dict:
+                 with_atmosphere: bool = True, pano_data=None, pano_meta=None) -> dict:
     """One layer over rows ``[row0, row0 + rows)`` of a ``height × width``
     frame (default: all of it), as one megakernel launch renders it.
 
@@ -108,7 +115,9 @@ def render_frame(params: AtmosphereParams, config: VariantConfig,
     returned alpha is this layer's).  ``with_atmosphere=False``: the
     opaque-only pass (background color, alpha 0, linear depth).
     ``tex_data`` is the ``(shape, coverage)`` pyramid tables of a config
-    with ``TexMeta``s."""
+    with ``TexMeta``s; ``pano_data``/``pano_meta`` the panorama sky's
+    (r, g, b) pyramid tables and their meta, sampled by the opaque pass
+    (without them a panorama is sampled exactly)."""
     device = camera.view_to_world.device
     params = params.resolve_frame_state()
     rows = height - row0 if rows is None else rows
@@ -128,6 +137,13 @@ def render_frame(params: AtmosphereParams, config: VariantConfig,
         grid_rows = -(-rows // TILE_ROWS) * TILE_ROWS
         cols = -(-width // TILE_COLS) * TILE_COLS
         shape_fn, coverage_fn = pyramid_samplers(config, *tex_data, TILE_ROWS // group)
+    sky_fn = None
+    if pano_data is not None and background is None and opaque is not None:
+        grid_rows = -(-rows // TILE_ROWS) * TILE_ROWS
+        cols = -(-width // TILE_COLS) * TILE_COLS
+
+        def sky_fn(d):
+            return sample_sky_batched(pano_data, pano_meta, d, TILE_ROWS)
     ray_dir = world_ray_dirs(camera, height, width, rows=grid_rows, cols=cols, row0=row0)
     depth = None
     if background is not None:
@@ -138,7 +154,7 @@ def render_frame(params: AtmosphereParams, config: VariantConfig,
     elif opaque is not None:
         bg, depth, linear_depth = render_opaque(
             opaque, camera, grid_rows, cols, reverse_z=config.reverse_z,
-            ray_dir=ray_dir)
+            ray_dir=ray_dir, sky_fn=sky_fn)
     else:
         bg = Vec3(*(torch.zeros((grid_rows, cols), device=device)
                     for _ in range(3)))
@@ -167,7 +183,7 @@ def render_frame(params: AtmosphereParams, config: VariantConfig,
 
 def render_scene(params_seq, configs, camera: Camera, opaque: Optional[OpaqueScene],
                  height: int, width: int, tex_data=None, bands=None,
-                 band_rows=None) -> dict:
+                 band_rows=None, pano_data=None, pano_meta=None) -> dict:
     """The far→near layer chain (``megakernel.py:770-849``): ``{"color":
     (H, W, 3), "alpha": (H, W), "linear_depth": (H, W)}``.
 
@@ -177,18 +193,21 @@ def render_scene(params_seq, configs, camera: Camera, opaque: Optional[OpaqueSce
     fuses the opaque pass when it is fullscreen; otherwise the opaque-only
     pass renders the base frame.  Every later layer composites over the
     carried color with the carried linear depth (the opaque pass's), on its
-    rows; alpha is the maximum over the layers."""
+    rows; alpha is the maximum over the layers.  ``pano_data``/``pano_meta``:
+    the panorama sky's pyramids, sampled by whichever pass runs the opaque
+    pass."""
     n = len(configs)
     shared_reverse_z(configs)
     tex = tex_data or (None,) * n
     bands = bands or (None,) * n
     if bands[0] is None:
         out = render_frame(params_seq[0], configs[0], camera, opaque, height, width,
-                           tex_data=tex[0])
+                           tex_data=tex[0], pano_data=pano_data, pano_meta=pano_meta)
         start = 1
     else:
         out = render_frame(params_seq[0], opaque_only_config(configs[0]), camera, opaque,
-                           height, width, with_atmosphere=False)
+                           height, width, with_atmosphere=False, pano_data=pano_data,
+                           pano_meta=pano_meta)
         start = 0
     color, alpha, linear_depth = out["color"], out["alpha"], out["linear_depth"]
     for i in range(start, n):
@@ -205,7 +224,8 @@ def render_scene(params_seq, configs, camera: Camera, opaque: Optional[OpaqueSce
 def render_flight_plain(params_seq, fs_stacks, configs, camera: Camera,
                         opaque: Optional[OpaqueScene], height: int, width: int,
                         cam_stack=None, tex_data=None,
-                        taa: Optional[taa_mod.TaaSettings] = None) -> dict:
+                        taa: Optional[taa_mod.TaaSettings] = None, pano_data=None,
+                        pano_meta=None) -> dict:
     """K frames of a flight on the device of ``camera``: ``{"color":
     (K, H, W, 3), "alpha": (K, H, W)}``.  ``params_seq``/``configs``: the
     layers, far to near; ``fs_stacks``: per layer, (K, 24) host rows of
@@ -215,7 +235,8 @@ def render_flight_plain(params_seq, fs_stacks, configs, camera: Camera,
     (rendered with the configs as given: the TAA flight forces
     ``temporal_jitter``) is resolved against the previous resolved frame,
     with the chain's linear depth; frame 0 against zero history at depth
-    1e7 with blend 1.0."""
+    1e7 with blend 1.0.  ``pano_data``/``pano_meta``: the panorama sky's
+    pyramids, as in :func:`render_scene`."""
     device = camera.view_to_world.device
     fs_stacks = [np.asarray(fs, np.float32) for fs in fs_stacks]
     k = fs_stacks[0].shape[0]
@@ -233,7 +254,8 @@ def render_flight_plain(params_seq, fs_stacks, configs, camera: Camera,
               for p, fs in zip(params_seq, fs_stacks)]
         cam_i = dataclasses.replace(camera, view_to_world=torch.as_tensor(
             np.asarray(vtw, np.float32), device=device))
-        out = render_scene(ps, configs, cam_i, opaque, height, width, tex_data=tex_data)
+        out = render_scene(ps, configs, cam_i, opaque, height, width, tex_data=tex_data,
+                           pano_data=pano_data, pano_meta=pano_meta)
         color = out["color"]
         if taa is not None:
             color, history_depth, _ = taa_mod.resolve_plain(

@@ -366,3 +366,75 @@ def test_fill_probe_matches_torch_full(cuda):
     got = probes.fill(0.25, 1080, 1920, device=cuda)
     assert probes.counters.launches == 1
     assert torch.equal(got, torch.full((1080, 1920), 0.25, device=cuda))
+
+
+# -- the panorama sky (K1 slice (f)) ---------------------------------------------
+
+
+def _with_panorama(scene, device, shape=(256, 512, 3)):
+    pano = np.random.default_rng(0).random(shape).astype(np.float32) * 0.5
+    scene.opaque = dataclasses.replace(scene.opaque, panorama=torch.as_tensor(pano, device=device))
+    return scene
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planet,moon,pose", [
+    ("no_clouds", None, "avatar"),  # the procedural instance fuses the sky
+    ("clouds_high", None, "avatar"),
+    ("clouds_high_rm", "no_clouds", "space"),  # the opaque-only pass draws it
+])
+def test_sky_kernel_matches_plain(cuda, planet, moon, pose):
+    """Scene.render with a panorama through K1 only (no plain call, no
+    plain sky sampler call) against the plain chain on the same CUDA
+    inputs, cloud tolerance, 256×384."""
+    h, w = 256, 384
+    scene = (build_demo_scene(planet, device=cuda) if moon is None
+             else _two_layer_scene(cuda, planet, moon))
+    _with_panorama(scene, cuda)
+    cam = demo_camera(pose, device=cuda)
+    scene.update(0.5, cam)
+    params, configs, tex, bands, rows = _plan(scene, cam, h)
+    pdata, pmeta = scene._pano_plan()
+    mk.counters.reset()
+    ts.counters.reset()
+    got = _image(scene.render(cam, h, w))
+    torch.cuda.synchronize()
+    launches = len(configs) + int(bands is not None and bands[0] is not None)
+    assert (mk.counters.megakernel_launches, mk.counters.sky_launches) == (launches, 1)
+    assert mk.counters.plain_calls == 0 and ts.counters.plain_sky_calls == 0
+    ref = _image(mk.render_scene_plain(params, configs, cam, scene.opaque, h, w, tex_data=tex,
+                                       bands=bands, band_rows=rows, pano_data=pdata,
+                                       pano_meta=pmeta))
+    assert torch.isfinite(got).all() and _cloud_ok(got, ref)
+
+
+@pytest.mark.cuda
+def test_sky_texture_kernel_matches_plain(cuda, baked):
+    scene = _with_panorama(build_demo_scene("clouds_high", procedural=False, device=cuda,
+                                            textures=baked), cuda)
+    cam = demo_camera("avatar", device=cuda)
+    scene.update(0.5, cam)
+    params, configs, tex, _, _ = _plan(scene, cam, H)
+    pdata, pmeta = scene._pano_plan()
+    mk.counters.reset()
+    ts.counters.reset()
+    got = _image(scene.render(cam, H, W))
+    assert (mk.counters.texture_launches, mk.counters.sky_launches) == (1, 1)
+    assert mk.counters.plain_calls == 0 and ts.counters.plain_sky_calls == 0
+    ref = _image(mk.render_scene_plain(params, configs, cam, scene.opaque, H, W, tex_data=tex,
+                                       pano_data=pdata, pano_meta=pmeta))
+    assert _cloud_ok(got, ref)
+
+
+@pytest.mark.cuda
+def test_sky_tables_on_another_device_raise(cuda):
+    scene = _with_panorama(build_demo_scene("no_clouds", device=cuda), cuda)
+    cam = demo_camera("avatar", device=cuda)
+    scene.update(0.5, cam)
+    _, params, configs = scene._sorted_layers(cam)
+    pdata, pmeta = scene._pano_plan()
+    with pytest.raises(ValueError):
+        mk.render_scene_megakernel(params, configs, cam, scene.opaque, H, W,
+                                   pano_data=tuple(t.cpu() for t in pdata), pano_meta=pmeta)
+    with pytest.raises(ValueError):  # a panorama never falls back to the exact sampler
+        mk.render_scene_megakernel(params, configs, cam, scene.opaque, H, W)

@@ -205,9 +205,14 @@ def test_cu_launcher_signature_matches_argtypes(name, argtypes):
     want = tuple(_CPARAM.get(p.rsplit(" ", 1)[0], ctypes.c_void_p) for p in params)
     assert argtypes == want, params
     if name == "megakernel_launch":
-        assert params == ["const MegakernelParams* params", "const float* blue",
-                          "float* color", "float* alpha", "float* depth", "void* stream",
-                          "void* work"]
+        assert params == ["const MegakernelParams* params", "const TexParams* sky",
+                          "const float* blue", "const float* sky_r", "const float* sky_g",
+                          "const float* sky_b", "float* color", "float* alpha", "float* depth",
+                          "void* stream", "void* work"]
+    if name == "megakernel_tex_launch":
+        assert params[:3] == ["const MegakernelParams* params", "const TexParams* tex",
+                              "const TexParams* sky"]
+        assert params[6:9] == ["const float* sky_r", "const float* sky_g", "const float* sky_b"]
 
 
 def test_build_command_and_cache_key(monkeypatch, tmp_path):

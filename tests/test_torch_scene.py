@@ -146,6 +146,9 @@ def test_port_scene_params_match_jax_scene():
         if value is not None:
             np.testing.assert_allclose(value, jp[name], rtol=1e-6, atol=1e-7, err_msg=name)
     for name, value in convert.to_numpy(ts.opaque).items():
+        if value is None:  # no panorama on either side
+            assert _fields(js.opaque)[name] is None, name
+            continue
         np.testing.assert_allclose(value, _fields(js.opaque)[name], rtol=1e-6, atol=1e-7,
                                    err_msg=name)
 
