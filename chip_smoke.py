@@ -74,29 +74,35 @@ more phases:
    ``bands=None`` forced and the planet band without raymarched lighting.
 
 The panorama sky (K1 slice (f): the launch that runs the opaque pass
-samples three channel pyramids, one level and mode per 32×128 tile) and
-the glow output stage run in three more phases, with a synthetic 1024×2048
-panorama made from a seed:
+samples three channel pyramids, one level and mode per 32×128 tile; the
+procedural instance and the opaque-only pass read the tiles' choices from
+the pre-pass ``sky_choice_kernel``) and the glow output stage run in three
+more phases, with a synthetic 1024×2048 panorama made from a seed:
 
 3e. small (256×384), kernel against plain at the cloud tolerance, with the
-   counters (the planned K1 launches, one of them drawing the sky, no plain
-   call and no call of the plain sky sampler): the opaque-only pass with
-   the sky alone; ``no_clouds``, procedural ``clouds_high`` and texture
-   ``clouds_high`` at avatar, each fused with the sky; the everything-on
-   frame (``tools/tpu_checks.py:318-342``: texture clouds, the check's own
-   32×64 panorama, a far-mode moon) at avatar, also against
+   counters (the planned K1 launches, one of them drawing the sky, one
+   pre-pass unless the texture instance draws it, no plain call and no call
+   of the plain sky sampler): the opaque-only pass with the sky alone;
+   ``no_clouds``, procedural ``clouds_high`` and texture ``clouds_high`` at
+   avatar, each fused with the sky; the everything-on frame
+   (``tools/tpu_checks.py:318-342``: texture clouds, the check's own 32×64
+   panorama, a far-mode moon) at avatar, also against
    ``tests/golden_allon_sig.npz``, and at space (the opaque-only pass draws
-   the sky); a 4-frame TAA flight with the sky;
+   the sky), then both again with the seeded star panorama, whose stars
+   show a wrong level; a 4-frame TAA flight with the sky;
 4d. 1080p through ``Scene.render``: the everything-on frame at avatar and
    at space and ``clouds_high`` at avatar and at sunward, each with the
-   1024×2048 panorama and held against the plain chain; then
-   ``Scene.apply_environment`` with ``GlowSettings.demo()`` on the card
-   against the plain glow of the CPU copy (atol 1e-5), on the
-   everything-on frame and on the sunward frame, whose HDR sun disc must
-   bloom;
-5c. per frame: kernel ms per launch with its bound, ``Scene.render`` ms and
-   idle share, plain ms, glow ms, and the opaque-only pass at 1080p with
-   and without the sky.
+   1024×2048 panorama and held against the plain chain; the pre-pass alone
+   against its plain version on each of these frames (the same mode and
+   level in every tile); then ``Scene.apply_environment`` with
+   ``GlowSettings.demo()`` on the card against the plain glow of the CPU
+   copy (atol 1e-5), on the everything-on frame (no pixel over the
+   threshold: the glow adds nothing there) and on the sunward frame, whose
+   HDR sun disc must bloom;
+5c. per frame: kernel ms per launch with its bound, each sky launch also
+   with the sky off (the sky's cost), ``Scene.render`` ms and idle share,
+   plain ms, glow ms; the pre-pass alone (events and device time) and its
+   plain version; the opaque-only pass's plain ms.
 
 Prints a JSON line describing each kernel (with its roofline bound from
 this run's work counters), then, as the last line,
@@ -161,17 +167,17 @@ OPS_V1_ATMOSPHERE = 700
 # one opaque-only pixel: ray 25, three spheres 3 × 22, the box slab test 55,
 # shading or the star hash 50
 OPS_OPAQUE_PIXEL = 200
-# the panorama sky: every ray of a sky launch's tiles takes part in its
-# tile's choice (polynomial atan2 and asin, the (u, v) map, min and max: 66);
-# a sky pixel adds three bilinear channels sharing their indices and
-# weights (60; floor mode: three nearest taps, 20).  The taps gather 12
-# floats (48 bytes; floor mode 12), counted at the HBM rate, although the
-# pyramids (3 × ~11 MB at a 2048-wide base) sit in the 50 MB L2.
+# the panorama sky: every ray of a tile takes part in its choice once
+# (polynomial atan2 and asin, the (u, v) map, min and max: 66; in the
+# pre-pass also its ray, 25); a sky pixel computes its (u, v) again (62)
+# and three bilinear channels sharing their indices and weights (60; floor
+# mode: three nearest taps, 20).  Bytes: each pyramid level that a tile
+# chose, read once from HBM in its three channels; the taps' 12 gathered
+# floats per pixel come from L2 and add no HBM bytes.
 OPS_SKY_UV = 66
-OPS_SKY_SAMPLE = 60
-OPS_SKY_FLOOR = 20
-BYTES_SKY_SAMPLE = 48
-BYTES_SKY_FLOOR = 12
+OPS_SKY_CHOICE_RAY = 25 + OPS_SKY_UV
+OPS_SKY_SAMPLE = 62 + 60
+OPS_SKY_FLOOR = 62 + 20
 # frame-plane bytes per pixel: a fused layer writes color and alpha (16); a
 # chained layer reads color, alpha and depth and writes color and alpha
 # (36); the opaque-only pass writes color, alpha and depth (20)
@@ -384,12 +390,13 @@ def busy_us(events) -> float:
 
 
 def roofline(work: dict, config, height: int, width: int, table_bytes: int = 0,
-             frame_bytes=None, with_sky: bool = False) -> dict:
+             frame_bytes=None, sky_bytes: int = 0, sky_choice_ops: int = 0) -> dict:
     """The least time the card could take for this launch's work: the
     larger of its operations over the fp32 peak and its bytes (frame planes
     read and written once, ``frame_bytes``, by default the outputs of a
-    fullscreen layer; blue noise and pyramids read once; the sky's gathered
-    texels) over the HBM rate."""
+    fullscreen layer; blue noise and pyramids read once; ``sky_bytes``: the
+    sky levels its tiles chose) over the HBM rate.  ``sky_choice_ops``: the
+    operations of the sky's per-tile choice (:func:`sky_cost`)."""
     steps = config.cloud_steps
     textured = table_bytes > 0
     sun_ops = OPS_SUN_SAMPLE + (0 if textured else OPS_SHAPE_NOISE)
@@ -402,16 +409,32 @@ def roofline(work: dict, config, height: int, width: int, table_bytes: int = 0,
            + work["latlong"] * OPS_LATLONG + work["latlong_floor"] * OPS_LATLONG_FLOOR)
     if not textured:
         ops += work["knot_groups"] * (config.cloud_coverage_knots + 1) * OPS_COVERAGE_KNOT
-    if with_sky:
-        ops += ((work["pixels"] + work["opaque_pixels"]) * OPS_SKY_UV
-                + work["sky"] * OPS_SKY_SAMPLE + work["sky_floor"] * OPS_SKY_FLOOR)
+    ops += (sky_choice_ops + work["sky"] * OPS_SKY_SAMPLE
+            + work["sky_floor"] * OPS_SKY_FLOOR)
     if frame_bytes is None:
         frame_bytes = height * width * BYTES_LAYER_PIXEL
-    nbytes = (frame_bytes + 256 * 256 * 4 + table_bytes + work["sky"] * BYTES_SKY_SAMPLE
-              + work["sky_floor"] * BYTES_SKY_FLOOR)
+    nbytes = frame_bytes + 256 * 256 * 4 + table_bytes + sky_bytes
     t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
     return {"ops": ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def sky_cost(cam, height: int, width: int, meta, in_block: bool) -> dict:
+    """What the sky adds to the bound of the launch that draws it: the
+    bytes of the pyramid levels its tiles chose (three channels, each read
+    once), and the operations of the choice: every ray of the padded tile
+    grid once, with its ray in the pre-pass (the procedural instance and
+    the opaque-only pass) or sharing it with the frame (``in_block``: the
+    texture instance)."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    choices = mk.sky_choices_plain(cam, height, width, meta)
+    levels = sorted(set(choices[:, 1].tolist()))
+    ty, tx = mk.tile_grid(height, width)
+    rays = ty * tx * 32 * 128
+    return {"sky_bytes": 3 * 4 * sum(meta.levels[l][0] * meta.levels[l][1] for l in levels),
+            "sky_choice_ops": rays * (OPS_SKY_UV if in_block else OPS_SKY_CHOICE_RAY),
+            "sky_levels": levels}
 
 
 # -- K2 alone: the planes of tests/test_torch_texsample.py ----------------------
@@ -653,11 +676,15 @@ def kernel_trace(fn, name: str) -> dict:
 def flight_trace(fn) -> dict:
     """One call of ``fn`` under ``torch.profiler``: device busy ms (union of
     device intervals), and the device→host copies in all and between the
-    first and the last frame kernel (K1 or K3) of the flight."""
+    first and the last frame kernel (K1 or K3) of the flight.  A small
+    kernel and a synchronisation come first inside the trace: a trace can
+    miss its first device events otherwise."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1.0)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -728,11 +755,34 @@ def expected_launches(plan) -> int:
     return len(configs) + int(bands is not None and bands[0] is not None)
 
 
+def sky_launch(scene, cam, plan, h: int, w: int) -> tuple:
+    """The first launch of a frame's plan, ``(kind, struct, args)``: the one
+    that draws the sky when the scene has a panorama."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    params, configs, tex, bands, rows = plan
+    pano_data, pano_meta = scene._pano_plan() or (None, None)
+    return mk.scene_launches(params, configs, cam, scene.opaque, h, w, tex_data=tex,
+                             bands=bands, band_rows=rows, pano_data=pano_data,
+                             pano_meta=pano_meta)[0]
+
+
+def expected_choice_launches(plan, sky: bool) -> int:
+    """The sky's pre-pass runs once per frame with a sky, unless a fused
+    texture layer draws it (its block is the tile)."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    _, configs, _, bands, _ = plan
+    fused = bands is None or bands[0] is None
+    return int(sky and not (fused and mk.texture_mode(configs[0])))
+
+
 def check_scene(label: str, scene, cam, h: int, w: int) -> tuple:
     """``Scene.render`` through the kernel (counters: the planned launches,
-    one drawing the sky when the scene has a panorama, no plain call, no
-    plain sky sampler call) against the plain chain on the same inputs
-    (cloud tolerance); returns the largest |Δ| and the kernel's frame."""
+    one drawing the sky when the scene has a panorama and the sky's
+    pre-pass where planned, no plain call, no plain sky sampler call)
+    against the plain chain on the same inputs (cloud tolerance); returns
+    the largest |Δ| and the kernel's frame."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
     from godot_atmosphere_shader_tpu_torch.ops.kernels import texsample as ts
 
@@ -742,6 +792,7 @@ def check_scene(label: str, scene, cam, h: int, w: int) -> tuple:
     ts.counters.reset()
     got = frame_array(scene.render(cam, h, w))
     counts = (mk.counters.megakernel_launches, mk.counters.sky_launches,
+              mk.counters.sky_choice_launches,
               mk.counters.plain_calls + ts.counters.plain_sky_calls)
     params, configs, tex, bands, rows = plan
     ref = frame_array(mk.render_scene_plain(params, configs, cam, scene.opaque, h, w,
@@ -751,8 +802,10 @@ def check_scene(label: str, scene, cam, h: int, w: int) -> tuple:
     check_frame(ref, f"plain {label}")
     st = cloud_deltas(got, ref)
     log(f"[scene] {label} {h}x{w}: plan [{plan_text(plan)}], counters K1 {counts[0]}, "
-        f"sky {counts[1]}, plain {counts[2]}; kernel vs plain: {json.dumps(st)}")
-    if counts != (expected_launches(plan), int(pano_data is not None), 0):
+        f"sky {counts[1]}, sky pre-pass {counts[2]}, plain {counts[3]}; kernel vs plain: "
+        f"{json.dumps(st)}")
+    sky = pano_data is not None
+    if counts != (expected_launches(plan), int(sky), expected_choice_launches(plan, sky), 0):
         raise RuntimeError(f"{label}: the frame did not go through the planned K1 launches only")
     if not cloud_tolerance_ok(st):
         raise RuntimeError(f"{label}: kernel disagrees with plain")
@@ -808,7 +861,10 @@ def space_path(frames: int) -> np.ndarray:
 
 def launch_timing(plan, scene, cam, h, w, device) -> dict:
     """Each launch of a frame's plan timed alone (CUDA events) with its
-    roofline bound from its work counters, and the whole sequence."""
+    roofline bound from its work counters, and the whole sequence.  A
+    launch that draws the sky (its pre-pass included) is also timed with
+    the sky off (the same struct, ``with_sky`` 0), in turns: sky, none,
+    none, sky."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     params, configs, tex, bands, rows = plan
@@ -823,19 +879,36 @@ def launch_timing(plan, scene, cam, h, w, device) -> dict:
         mk.launch(struct, color, alpha, depth=depth, **args)
     layer_of = ([0] if launches[0][0] == "opaque" else []) + list(range(len(configs)))
     out, bound = [], 0.0
+    def timed(st, a):
+        return time_cuda(lambda i: mk.launch(st, color, alpha, depth=depth, **a), KERNEL_FRAMES)
+
     for (kind, struct, args), li in zip(launches, layer_of):
-        ms = time_cuda(lambda i, st=struct, a=args: mk.launch(st, color, alpha, depth=depth, **a),
-                       KERNEL_FRAMES)
+        extra, cost = {}, {}
+        if struct.with_sky:
+            no_sky = mk.MegakernelParams.from_buffer_copy(struct)
+            no_sky.with_sky = 0
+            runs = {"sky": [], "none": []}
+            for which in ("sky", "none", "none", "sky"):
+                runs[which].append(timed(struct, args) if which == "sky"
+                                   else timed(no_sky, dict(args, sky=None)))
+            ms = min(runs["sky"])
+            extra = {"sky_runs_ms": runs["sky"], "no_sky_ms": min(runs["none"]),
+                     "no_sky_runs_ms": runs["none"]}
+            cost = sky_cost(cam, h, w, pano_meta, in_block=args["tex"] is not None)
+        else:
+            ms = timed(struct, args)
         work = mk.work_counts(struct, color, alpha, depth=depth, **args)
         per_px = (BYTES_OPAQUE_PIXEL if kind == "opaque" else BYTES_CHAINED_PIXEL
                   if struct.with_background else BYTES_LAYER_PIXEL)
         tl = args["tex"]
         table_bytes = 0 if tl is None else sum(x.numel() * 4 for x in tl[1:])
         b = roofline(work, configs[li], h, w, table_bytes, frame_bytes=struct.rows * w * per_px,
-                     with_sky=bool(struct.with_sky))
+                     sky_bytes=cost.get("sky_bytes", 0),
+                     sky_choice_ops=cost.get("sky_choice_ops", 0))
         bound += b["bound_ms"]
         out.append({"kind": kind, "layer": li, "row0": struct.row0, "rows": struct.rows,
-                    "sky": bool(struct.with_sky), "ms": ms, **b, "work": work})
+                    "sky": bool(struct.with_sky), "ms": ms, **extra, **b,
+                    "sky_levels": cost.get("sky_levels"), "work": work})
 
     def frame(i):
         for _, st, args in launches:
@@ -1020,13 +1093,17 @@ def main(argv=None) -> int:
         label = f"{kind}{'/texture' if textured else ''}/{pose} with the sky"
         sky_err = max(sky_err, check_scene(label, scene, cam, h, w)[0])
     allon_sig = {}
-    for pose in ("avatar", "space"):
-        scene = with_panorama(build_scene("allon", device, textures), allon_panorama())
+    # the check's own panorama is a gradient that every level reproduces;
+    # the star panorama's stars show a level or mode that differs from plain
+    for (pose, sky_name), sky_img in zip(
+            (("avatar", "check"), ("space", "check"), ("avatar", "stars"), ("space", "stars")),
+            (allon_panorama(),) * 2 + (pano,) * 2):
+        scene = with_panorama(build_scene("allon", device, textures), sky_img)
         cam = scene_camera("allon", pose, device)
         scene.update(0.25, cam)
-        err, img = check_scene(f"everything-on/{pose}", scene, cam, h, w)
+        err, img = check_scene(f"everything-on/{pose} ({sky_name} panorama)", scene, cam, h, w)
         sky_err = max(sky_err, err)
-        if pose == "avatar":
+        if (pose, sky_name) == ("avatar", "check"):
             allon_sig = dict(zip(("block_mean_delta", "block_max_delta"),
                                  check_signature(img[..., :3], ALLON_SIG_PATH,
                                                  f"everything-on/avatar {h}x{w}")))
@@ -1038,11 +1115,12 @@ def main(argv=None) -> int:
     ts.counters.reset()
     out = scene.render_flight(cam, times, h, w, cam_transforms=stack, taa_blend=FLIGHT_BLEND)
     torch.cuda.synchronize()
-    counts = (mk.counters.megakernel_launches, mk.counters.sky_launches, taa.counters.launches,
+    counts = (mk.counters.megakernel_launches, mk.counters.sky_launches,
+              mk.counters.sky_choice_launches, taa.counters.launches,
               mk.counters.plain_calls + taa.counters.plain_calls + ts.counters.plain_sky_calls)
     log(f"[sky] 4-frame TAA flight with the sky {h}x{w}: counters K1 {counts[0]}, sky "
-        f"{counts[1]}, K3 {counts[2]}, plain {counts[3]}")
-    if counts != (SMALL_FLIGHT_FRAMES,) * 3 + (0,):
+        f"{counts[1]}, sky pre-pass {counts[2]}, K3 {counts[3]}, plain {counts[4]}")
+    if counts != (SMALL_FLIGHT_FRAMES,) * 4 + (0,):
         raise RuntimeError("the TAA flight with the sky did not go through K1 and K3 only")
     sky_err = max(sky_err, check_flight(f"clouds_high TAA with the sky {h}x{w}", out,
                                         plain_flight(scene, cam, times, stack, h, w,
@@ -1141,7 +1219,7 @@ def main(argv=None) -> int:
         cells[cell] = (kind, scene, cam, ch, cw, plan)
 
     # -- 4d. the panorama sky at 1080p through Scene.render, and the glow ----------
-    sky_runs, sky_launches = {}, 0
+    sky_runs, sky_launches, choice_launches = {}, 0, 0
     pyramid_s = {}
     mk.counters.reset()
     ts.counters.reset()
@@ -1157,14 +1235,16 @@ def main(argv=None) -> int:
         pyramid_s[label] = time.time() - t0
         sky_runs[label] = (scene, cam, plan, scene.render(cam, H, W))
         sky_launches += expected_launches(plan)
+        choice_launches += expected_choice_launches(plan, True)
     torch.cuda.synchronize()
     sky_counts = (mk.counters.megakernel_launches, mk.counters.sky_launches,
+                  mk.counters.sky_choice_launches,
                   mk.counters.plain_calls + ts.counters.plain_sky_calls)
     log(f"[sky] counters after {len(SKY_FRAMES)} 1080p Scene.render frames with the sky: K1 "
         f"{sky_counts[0]} (texture {mk.counters.texture_launches}), sky {sky_counts[1]}, "
-        f"plain {sky_counts[2]}; pyramid build and upload " + ", ".join(
-            f"{k} {v:.3f} s" for k, v in pyramid_s.items()))
-    if sky_counts != (sky_launches, len(SKY_FRAMES), 0):
+        f"sky pre-pass {sky_counts[2]}, plain {sky_counts[3]}; pyramid build and upload "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in pyramid_s.items()))
+    if sky_counts != (sky_launches, len(SKY_FRAMES), choice_launches, 0):
         raise RuntimeError("the 1080p frames with the sky did not go through K1 only")
     sky_frame_err = 0.0
     for label, (scene, cam, plan, out) in sky_runs.items():
@@ -1182,6 +1262,23 @@ def main(argv=None) -> int:
         if not cloud_tolerance_ok(st):
             raise RuntimeError(f"1080p {label} with the sky disagrees with plain")
         sky_frame_err = max(sky_frame_err, st["max"])
+    # the pre-pass alone against its plain version on each frame it serves
+    choice_err, choice_inputs = 0, {}
+    for label, (scene, cam, plan, _) in sky_runs.items():
+        kind, struct, args = sky_launch(scene, cam, plan, H, W)
+        if args["tex"] is not None:
+            continue
+        sky_params = args["sky"][0]
+        got = mk.sky_choices(struct, sky_params, device).cpu()
+        ref = mk.sky_choices_plain(cam, H, W, scene._pano_plan()[1]).cpu()
+        err = int((got - ref).abs().max())
+        log(f"[sky] pre-pass alone on {label} 1080p ({kind}): {got.shape[0]} tiles, levels "
+            f"{sorted(set(got[:, 1].tolist()))}, floor tiles {int((got[:, 0] == ts.FLOOR).sum())}, "
+            f"max |Δ| against plain {err}")
+        if err:
+            raise RuntimeError(f"the sky's pre-pass disagrees with plain on {label}")
+        choice_err = max(choice_err, err)
+        choice_inputs[label] = (struct, sky_params, cam, scene._pano_plan()[1])
     glow_err, glow_change = 0.0, {}
     for label in ("everything-on/avatar", "clouds_high/sunward"):
         scene, _, _, out = sky_runs[label]
@@ -1322,39 +1419,43 @@ def main(argv=None) -> int:
               "cpu_ms": time_cuda(lambda i: apply_glow(out["color"].cpu(), scene.environment),
                                   1, warmup=0)}
     log(f"[glow-time] GlowSettings.demo() at 1080p on {card}: {json.dumps(glow_t)}")
-    # the opaque-only pass of the everything-on/space plan, with the sky and
-    # without (the same struct, with_sky off), in turns: sky, none, none, sky
+    # the opaque-only pass of the everything-on/space plan (timed with the
+    # sky and without above) and its plain version alone
     scene, cam, plan, _ = sky_runs["everything-on/space"]
-    params, configs, tex, bands, rows = plan
+    params, configs = plan[0], plan[1]
     pano_data, pano_meta = scene._pano_plan()
-    kind, struct, args = mk.scene_launches(params, configs, cam, scene.opaque, H, W,
-                                           tex_data=tex, bands=bands, band_rows=rows,
-                                           pano_data=pano_data, pano_meta=pano_meta)[0]
-    if kind != "opaque" or not struct.with_sky:
+    opaque_sky = sky_t["everything-on/space"]["launches"][0]
+    if opaque_sky["kind"] != "opaque" or not opaque_sky["sky"]:
         raise RuntimeError("the everything-on/space plan does not start with the sky's "
                            "opaque-only pass")
-    no_sky = mk.MegakernelParams.from_buffer_copy(struct)
-    no_sky.with_sky = 0
-    color = torch.empty((H, W, 3), device=device)
-    alpha = torch.empty((H, W), device=device)
-    depth = torch.empty((H, W), device=device)
-    runs_ms = {"sky": [], "none": []}
-    for which in ("sky", "none", "none", "sky"):
-        st, a = (struct, args) if which == "sky" else (no_sky, {})
-        runs_ms[which].append(time_cuda(lambda i, st=st, a=a: mk.launch(
-            st, color, alpha, depth=depth, **a), KERNEL_FRAMES))
-    opaque_sky = {"sky_ms": runs_ms["sky"], "no_sky_ms": runs_ms["none"]}
-    for which, st, a in (("sky", struct, args), ("no_sky", no_sky, {})):
-        work = mk.work_counts(st, color, alpha, depth=depth, **a)
-        b = roofline(work, opaque_only_config(configs[0]), H, W,
-                     frame_bytes=H * W * BYTES_OPAQUE_PIXEL, with_sky=which == "sky")
-        opaque_sky.update({f"{which}_bound_ms": b["bound_ms"], f"{which}_bound_by": b["bound_by"],
-                           f"{which}_work": work})
     opaque_sky["plain_ms"] = time_cuda(lambda i: render_frame(
         params[0], opaque_only_config(configs[0]), cam, scene.opaque, H, W,
         with_atmosphere=False, pano_data=pano_data, pano_meta=pano_meta), 1, warmup=1)
-    log(f"[sky-time] opaque-only pass 1080p with and without the sky on {card}: "
-        f"{json.dumps(opaque_sky)}")
+    sky_cost_ms = {label: [x["ms"] - x["no_sky_ms"] for x in t["launches"] if x["sky"]][0]
+                   for label, t in sky_t.items()}
+    log(f"[sky-time] the sky's cost per frame (sky launch with the sky minus without) on "
+        f"{card}: {json.dumps(sky_cost_ms)}; opaque-only pass plain ms "
+        f"{opaque_sky['plain_ms']:.3f}")
+    # the sky's pre-pass alone on each frame it serves: CUDA events (the
+    # ctypes launch included), its kernel's device time in a trace, its
+    # plain version on the card, its bound
+    ty, tx = mk.tile_grid(H, W)
+    t_ops = ty * tx * 32 * 128 * OPS_SKY_CHOICE_RAY / PEAK_FP32 * 1e3
+    t_bytes = ty * tx * 8 / PEAK_BYTES * 1e3
+    choice_t = {}
+    for label, (struct, sky_params, cam, meta) in choice_inputs.items():
+        def run(i, st=struct, sp=sky_params):
+            mk.sky_choices(st, sp, device)
+
+        choice_t[label] = {
+            "ms": time_cuda(run, KERNEL_FRAMES),
+            "device_ms": kernel_trace(lambda: [run(i) for i in range(KERNEL_FRAMES)],
+                                      "sky_choice_kernel")["device_us"] / 1e3,
+            "plain_ms": time_cuda(lambda i, c=cam, m=meta: mk.sky_choices_plain(c, H, W, m),
+                                  PLAIN_FRAMES),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        log(f"[sky-time] pre-pass alone on {label} 1080p on {card}: {json.dumps(choice_t[label])}")
     log(f"[sky-time] after timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
     # -- 6. the flight slice at 1080p through Scene.render_flight ----------------
@@ -1402,8 +1503,15 @@ def main(argv=None) -> int:
             t_all = time.perf_counter() - t0
             if best is None or t_all < best[1]:
                 best = (t_host, t_all)
-        trace = flight_trace(lambda: scene.render_flight(cam, flight_times(K, 5.0), H, W,
-                                                         cam_transforms=stack, taa_blend=blend))
+        def traced(t0, scene=scene, cam=cam, blend=blend):
+            return flight_trace(lambda: scene.render_flight(
+                cam, flight_times(K, t0), H, W, cam_transforms=stack, taa_blend=blend))
+
+        trace = traced(5.0)
+        if trace["frame_kernels"] != K * (2 if blend else 1):  # the trace missed events
+            log(f"[flight-time] {label}: a trace caught {trace['frame_kernels']} of the "
+                f"flight's kernels; tracing once more")
+            trace = traced(6.0)
         t = {"flight_ms_per_frame": best[1] / K * 1e3, "host_ms_per_frame": best[0] / K * 1e3,
              "device_busy_ms_per_frame": trace["device_busy_ms"] / K,
              "idle_share": 1.0 - trace["device_busy_ms"] / (best[1] * 1e3),
@@ -1519,14 +1627,33 @@ def main(argv=None) -> int:
         "max_abs_err": sky_frame_err,
         "small_max_abs_err": sky_err,
         "allon_signature": allon_sig,
-        "ms": min(opaque_sky["sky_ms"]),
-        "no_sky_ms": min(opaque_sky["no_sky_ms"]),
+        "ms": opaque_sky["ms"],
+        "no_sky_ms": opaque_sky["no_sky_ms"],
         "plain_ms": opaque_sky["plain_ms"],
-        "bound_ms": opaque_sky["sky_bound_ms"],
-        "bound_by": opaque_sky["sky_bound_by"],
+        "bound_ms": opaque_sky["bound_ms"],
+        "bound_by": opaque_sky["bound_by"],
+        "sky_cost_ms": sky_cost_ms,
         "frame_kernel_ms": {k: v["frame_kernel_ms"] for k, v in sky_t.items()},
         "glow_ms": glow_t["ms"],
         "glow_max_abs_err": glow_err,
+        "library_ms": None,
+    }, {
+        "name": "sky_choice",
+        "slice": ("K1 slice (f): the sky's per-tile level and mode for the procedural "
+                  "instance and the opaque-only pass (ms: the everything-on/space "
+                  "opaque-only pass's tiles at 1080p)"),
+        "route": "cuda",
+        "source": "godot_atmosphere_shader_tpu_torch/csrc/megakernel.cu",
+        "replaces": ("godot_atmosphere_shader_tpu/ops/pallas/texsample.py:544 (sample_latlong's "
+                     "per-block choice, as the sky inside "
+                     "godot_atmosphere_shader_tpu/ops/pallas/megakernel.py:636)"),
+        "launches": sky_counts[2],
+        "max_abs_err": choice_err,
+        "ms": choice_t["everything-on/space"]["ms"],
+        "device_ms": {k: v["device_ms"] for k, v in choice_t.items()},
+        "plain_ms": choice_t["everything-on/space"]["plain_ms"],
+        "bound_ms": choice_t["everything-on/space"]["bound_ms"],
+        "bound_by": choice_t["everything-on/space"]["bound_by"],
         "library_ms": None,
     }, {
         "name": "taa",

@@ -94,13 +94,12 @@
 // them; the choice decides the result, so it is kept.  The texture instance
 // already has one block per tile: a block-wide min/max before the opaque
 // pass.  In the procedural instance and the opaque-only pass a block is 128
-// columns x G rows, so each block recomputes its whole tile's 32 x 128 ray
-// directions (32 per thread) for the same min/max: redundant polynomial
-// work (32 / G pairs per pixel) bought for one launch per layer and no
-// scratch between launches.  Ray directions are computed uncontracted
+// columns x G rows and no block sees its whole tile, so a pre-pass
+// (sky_choice_kernel, one 128 x 8 block per tile, 4 rays per thread) writes
+// each tile's choice first and the frame kernel reads it: one choice ray
+// per pixel instead of 32 / G.  Ray directions are computed uncontracted
 // (pixel_dir), so the choice's rays and the sampled rays agree bit for bit.
-// The pyramids (three channels of about 11 MB at a 2048-wide base) are
-// L2-resident; a sky pixel gathers 12 floats.
+// A sky pixel gathers 12 floats from its tile's level (L2-resident).
 //
 // Build (no fast math: the cloud density chain (...)*50-20 amplifies ulp
 // differences and floorf in the noise flips lattice cells at knife edges),
@@ -123,6 +122,9 @@
 #define MK_MAX_LEVELS 8    // mip levels of a pyramid
 #define MK_TILE_ROWS 32    // texture mode: one block per TPU tile
 #define MK_TILE_COLS 128
+// the sky's pre-pass: threads per column of a tile, and rows per thread
+constexpr int MK_SKY_CHOICE_THREADS_Y = 8;
+constexpr int MK_SKY_CHOICE_RAYS = MK_TILE_ROWS / MK_SKY_CHOICE_THREADS_Y;
 // batch modes of the texture samplers (texsample.py WINDOWED, BANDED, FLOOR)
 #define MK_WINDOWED 0
 #define MK_BANDED 1
@@ -1067,12 +1069,13 @@ struct Sky {
 };
 
 // The tile's level and mode: the min and max of (fu, v) over the rays of
-// n rows from y0 in column x of every thread of the block (the block's
+// N rows from y0 in column x of every thread of the block (the block's
 // rays are the tile's), with the lat-long sampler's window test.
+template <int N>
 __device__ __forceinline__ TexChoice sky_choice(const MegakernelParams& p, const TexParams& t,
-                                                int x, int y0, int n, float* red) {
+                                                int x, int y0, float* red) {
   float mn[2] = {3.0e38f, 3.0e38f}, mx[2] = {-3.0e38f, -3.0e38f};
-  for (int r = 0; r < n; ++r) {
+  for (int r = 0; r < N; ++r) {
     const V3 rd = pixel_dir(p, x, y0 + r);
     float fu, v;
     latlong_uv(rd.x, rd.y, rd.z, fu, v);
@@ -1294,11 +1297,11 @@ __global__ void __launch_bounds__(128) megakernel(const MegakernelParams p, cons
                                                   const float* __restrict__ sky_r,
                                                   const float* __restrict__ sky_g,
                                                   const float* __restrict__ sky_b,
+                                                  const int* __restrict__ sky_choices,
                                                   float* __restrict__ color,
                                                   float* __restrict__ alpha_out,
                                                   float* __restrict__ depth,
                                                   unsigned long long* work) {
-  __shared__ float red[2 * 2 * 4];  // block_minmax scratch of the sky's choice
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int L = p.clouds_enabled ? p.cloud_lod : 1;
   const int C = p.clouds_enabled ? p.coverage_lod : 1;
@@ -1306,12 +1309,12 @@ __global__ void __launch_bounds__(128) megakernel(const MegakernelParams p, cons
   const int y0 = p.row0 + blockIdx.y * G;
   const bool live = x < p.width;
 
-  // the sky's choice over the block's whole tile (G divides the tile
-  // height): every thread, live or not, takes the 32 rays of its column
+  // the sky's choice for the block's tile (G divides the tile height), as
+  // sky_choice_kernel wrote it
   Sky sky{sky_t, sky_r, sky_g, sky_b, TexChoice{MK_WINDOWED, 0}};
   if (p.with_sky) {
-    const int tile_y0 = p.row0 + (blockIdx.y * G) / MK_TILE_ROWS * MK_TILE_ROWS;
-    sky.ch = sky_choice(p, sky_t, x, tile_y0, MK_TILE_ROWS, red);
+    const int tile = (blockIdx.y * G) / MK_TILE_ROWS * gridDim.x + blockIdx.x;
+    sky.ch = TexChoice{__ldg(sky_choices + 2 * tile), __ldg(sky_choices + 2 * tile + 1)};
   }
   Rows s;
   unsigned n_atmo = 0, n_v1 = 0, n_groups = 0, n_march = 0, n_sun = 0, n_sky = 0;
@@ -1468,7 +1471,7 @@ __global__ void __launch_bounds__(128 * (MK_TILE_ROWS / G), 1)
 
   // the sky's choice: the block's rays are its tile's
   Sky sky{sky_t, sky_r, sky_g, sky_b, TexChoice{MK_WINDOWED, 0}};
-  if (p.with_sky) sky.ch = sky_choice(p, sky_t, x, y0, G, red);
+  if (p.with_sky) sky.ch = sky_choice<G>(p, sky_t, x, y0, red);
   Rows s;
   unsigned n_atmo = 0, n_v1 = 0, n_march = 0, n_sun = 0, n_sky = 0, tex_samples[2] = {0, 0},
            cov_samples[2] = {0, 0};
@@ -1512,6 +1515,24 @@ __global__ void __launch_bounds__(128 * (MK_TILE_ROWS / G), 1)
     count_work(work, MK_WORK_LATLONG_FLOOR, cov_samples[1]);
     count_work(work, MK_WORK_SKY, sky.ch.mode == MK_FLOOR ? 0 : n_sky);
     count_work(work, MK_WORK_SKY_FLOOR, sky.ch.mode == MK_FLOOR ? n_sky : 0);
+  }
+}
+
+// The sky's pre-pass for the procedural instance and the opaque-only pass:
+// one block of 128 x MK_SKY_CHOICE_THREADS_Y threads per 32 x 128 tile of
+// the launch's grid (from row0), each thread taking MK_SKY_CHOICE_RAYS rows
+// of its column, rows and columns past the frame included.  It writes the
+// tile's (mode, level) to choices[2 * tile], tiles row-major.
+__global__ void __launch_bounds__(128 * MK_SKY_CHOICE_THREADS_Y)
+    sky_choice_kernel(const MegakernelParams p, const TexParams sky_t, int* __restrict__ choices) {
+  __shared__ float red[2 * 2 * MK_SKY_CHOICE_THREADS_Y * 4];
+  const int x = blockIdx.x * MK_TILE_COLS + threadIdx.x;
+  const int y0 = p.row0 + blockIdx.y * MK_TILE_ROWS + threadIdx.y * MK_SKY_CHOICE_RAYS;
+  const TexChoice ch = sky_choice<MK_SKY_CHOICE_RAYS>(p, sky_t, x, y0, red);
+  if (threadIdx.x == 0 && threadIdx.y == 0) {
+    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+    choices[2 * tile] = ch.mode;
+    choices[2 * tile + 1] = ch.level;
   }
 }
 
@@ -1576,8 +1597,9 @@ __global__ void __launch_bounds__(256) texsample_kernel(const TexParams t,
 // chained layer reads them too); depth: nullptr, or an (H, W) plane of
 // linear depth (written by the opaque pass, read by a chained layer).
 // sky, sky_r, sky_g, sky_b: the panorama sky's pyramid struct and channel
-// tables when params->with_sky, else nullptr.  work: nullptr, or
-// MK_WORK_SLOTS zeroed counters.
+// tables when params->with_sky, else nullptr; sky_choices: the tiles'
+// choices that sky_choice_launch wrote for the same params (the procedural
+// instance).  work: nullptr, or MK_WORK_SLOTS zeroed counters.
 
 static bool rows_ok(const MegakernelParams* p) {
   return p->row0 >= 0 && p->rows >= 1 && p->row0 + p->rows <= p->height;
@@ -1590,21 +1612,38 @@ static bool sky_ok(const MegakernelParams* p, const TexParams* sky, const float*
                           sky->cov_levels >= 1 && sky->cov_levels <= MK_MAX_LEVELS);
 }
 
+// the tiles of a launch's grid, (width / 128) x (rows / 32) rounded up
+static dim3 tile_grid(const MegakernelParams* p) {
+  return dim3((p->width + MK_TILE_COLS - 1) / MK_TILE_COLS,
+              (p->rows + MK_TILE_ROWS - 1) / MK_TILE_ROWS, 1);
+}
+
+extern "C" int sky_choice_launch(const MegakernelParams* params, const TexParams* sky,
+                                 int* choices, void* stream) {
+  if (!rows_ok(params) || !sky || !choices || sky->cov_levels < 1 ||
+      sky->cov_levels > MK_MAX_LEVELS)
+    return -1;
+  sky_choice_kernel<<<tile_grid(params), dim3(128, MK_SKY_CHOICE_THREADS_Y, 1), 0,
+                      (cudaStream_t)stream>>>(*params, *sky, choices);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int megakernel_launch(const MegakernelParams* params, const TexParams* sky,
                                  const float* blue, const float* sky_r, const float* sky_g,
-                                 const float* sky_b, float* color, float* alpha, float* depth,
-                                 void* stream, void* work) {
+                                 const float* sky_b, const int* sky_choices, float* color,
+                                 float* alpha, float* depth, void* stream, void* work) {
   if (params->clouds_enabled && params->coverage_knots != MK_KNOTS) return -1;
   const int G = params->clouds_enabled ? params->cloud_lod * params->coverage_lod : 1;
   if (!rows_ok(params) || params->rows % G) return -1;
   if ((params->with_background || !params->with_atmosphere) && !depth) return -1;
-  if (!sky_ok(params, sky, sky_r, sky_g, sky_b) || (params->with_sky && MK_TILE_ROWS % G))
+  if (!sky_ok(params, sky, sky_r, sky_g, sky_b) ||
+      (params->with_sky && (MK_TILE_ROWS % G || !sky_choices)))
     return -1;
   dim3 block(128, 1, 1);
   dim3 grid((params->width + 127) / 128, params->rows / G, 1);
   megakernel<MK_KNOTS><<<grid, block, 0, (cudaStream_t)stream>>>(
-      *params, sky ? *sky : TexParams{}, blue, sky_r, sky_g, sky_b, color, alpha, depth,
-      (unsigned long long*)work);
+      *params, sky ? *sky : TexParams{}, blue, sky_r, sky_g, sky_b, sky_choices, color, alpha,
+      depth, (unsigned long long*)work);
   return (int)cudaGetLastError();
 }
 
@@ -1622,9 +1661,7 @@ static int launch_tex(const MegakernelParams* p, const TexParams* t, const TexPa
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 block(128, MK_TILE_ROWS / G, 1);
-  dim3 grid((p->width + MK_TILE_COLS - 1) / MK_TILE_COLS,
-            (p->rows + MK_TILE_ROWS - 1) / MK_TILE_ROWS, 1);
-  kernel<<<grid, block, smem, stream>>>(*p, *t, sky, blue, shape_tab, cov_tab, sky_r, sky_g,
+  kernel<<<tile_grid(p), block, smem, stream>>>(*p, *t, sky, blue, shape_tab, cov_tab, sky_r, sky_g,
                                         sky_b, color, alpha, depth, work);
   return (int)cudaGetLastError();
 }

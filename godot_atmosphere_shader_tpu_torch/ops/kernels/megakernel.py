@@ -10,7 +10,8 @@ atmosphere (analytic sun optical depth), the cloud march with cheap or
 sun-marched light, and the composite; or the opaque pass alone.  The
 launch that runs the opaque pass draws the panorama sky (three channel
 pyramids sampled by K2's lat-long device functions, one level and mode per
-32×128 tile of rays) where a scene has one.  It has two instances:
+32×128 tile of rays; the procedural instance reads them from a per-tile
+pre-pass, :func:`sky_choices`) where a scene has one.  It has two instances:
 procedural cloud fields, and texture mode (baked textures sampled through
 mip pyramids by the K2 device functions, one thread block per 32×128
 tile).
@@ -63,7 +64,7 @@ from ...render.opaque import OpaqueScene
 from ...render.renderer import (TILE_COLS, TILE_ROWS, opaque_only_config, planet_center,
                                 render_flight_plain, render_frame, render_scene,
                                 shared_reverse_z)
-from ...utils.camera import Camera, ray_scale, transform_point, transform_dir
+from ...utils.camera import Camera, ray_scale, transform_dir, transform_point, world_ray_dirs
 from ...utils.vecmath import Vec3, normalize
 from ..atmosphere_v2 import scattering_coefficients
 from ..clouds import SUN_REACH, SUN_STEPS, cloud_settings, march_distance_limit
@@ -105,8 +106,8 @@ class Counters:
     """Plain integer counters: frame-kernel launches (both instances, every
     layer and the opaque-only pass; ``texture_launches`` counts the texture
     instance alone, ``sky_launches`` the launches that draw the panorama
-    sky), launches of the K2-alone entry, and plain-path frames (one per
-    frame, whatever its layers)."""
+    sky), launches of the sky's per-tile choice pre-pass, of the K2-alone
+    entry, and plain-path frames (one per frame, whatever its layers)."""
 
     def __init__(self):
         self.reset()
@@ -115,6 +116,7 @@ class Counters:
         self.megakernel_launches = 0
         self.texture_launches = 0
         self.sky_launches = 0
+        self.sky_choice_launches = 0
         self.texsample_launches = 0
         self.plain_calls = 0
 
@@ -257,7 +259,9 @@ class TexParams(ctypes.Structure):
 #: The launchers' C signatures, as the ctypes binding declares them (the
 #: second TexParams is the sky's, NULL without a sky).
 LAUNCHER_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.POINTER(TexParams),
-                     *(ctypes.c_void_p,) * 9)
+                     *(ctypes.c_void_p,) * 10)
+SKY_CHOICE_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.POINTER(TexParams),
+                       ctypes.c_void_p, ctypes.c_void_p)
 TEX_LAUNCHER_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.POINTER(TexParams),
                          ctypes.POINTER(TexParams), *(ctypes.c_void_p,) * 11)
 TEXSAMPLE_ARGTYPES = (ctypes.POINTER(TexParams), ctypes.c_int, *(ctypes.c_void_p,) * 4,
@@ -278,6 +282,7 @@ def load_library():
         return _LIBRARY
     lib = library.load_library()
     for name, argtypes in (("megakernel_launch", LAUNCHER_ARGTYPES),
+                           ("sky_choice_launch", SKY_CHOICE_ARGTYPES),
                            ("megakernel_tex_launch", TEX_LAUNCHER_ARGTYPES),
                            ("texsample_launch", TEXSAMPLE_ARGTYPES)):
         library.function(name, argtypes)
@@ -673,7 +678,8 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
     chained layer (``with_background``), whose ``color`` and ``alpha`` hold
     the layers below on entry and the composite on exit.  ``sky``:
     ``(TexParams, r, g, b tables)`` of the panorama sky, exactly when the
-    struct's ``with_sky`` is set."""
+    struct's ``with_sky`` is set; the procedural instance first runs the
+    sky's per-tile choice pre-pass (:func:`sky_choices`)."""
     if bool(struct.with_sky) != (sky is not None):
         raise ValueError("a sky launch needs its (TexParams, r, g, b) pyramids, and only it")
     if struct.with_background and depth is None:
@@ -687,12 +693,15 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
     lib = load_library()
     sky_params, sky_r, sky_g, sky_b = sky if sky is not None else (None, None, None, None)
     sky_ref = None if sky_params is None else ctypes.byref(sky_params)
+    choices = None
+    if sky is not None and tex is None:
+        choices = sky_choices(struct, sky_params, device)
     with torch.cuda.device(device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
         if tex is None:
             rc = lib.megakernel_launch(ctypes.byref(struct), sky_ref, _ptr(blue), _ptr(sky_r),
-                                       _ptr(sky_g), _ptr(sky_b), _ptr(color), _ptr(alpha),
-                                       _ptr(depth), stream, _ptr(work))
+                                       _ptr(sky_g), _ptr(sky_b), _ptr(choices), _ptr(color),
+                                       _ptr(alpha), _ptr(depth), stream, _ptr(work))
         else:
             tparams, shape_table, cov_table = tex
             rc = lib.megakernel_tex_launch(ctypes.byref(struct), ctypes.byref(tparams),
@@ -707,6 +716,43 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
         counters.texture_launches += 1
     if sky is not None:
         counters.sky_launches += 1
+
+
+def tile_grid(height_rows: int, width: int) -> tuple:
+    """The ``(rows, columns)`` of 32×128 tiles over ``height_rows × width``."""
+    return -(-height_rows // TILE_ROWS), -(-width // TILE_COLS)
+
+
+def sky_choices(struct: MegakernelParams, sky_params: TexParams, device) -> torch.Tensor:
+    """Launch the sky's per-tile choice pre-pass for one launch struct on
+    the current stream of ``device`` (a CUDA device): each 32×128 tile of
+    the struct's rows, from ``row0``, padded past the frame, gets the level
+    and mode of the panorama sky's lat-long sampler.  Returns ``(tiles, 2)``
+    int32 ``(mode, level)`` rows, tiles row-major; counted in
+    ``counters.sky_choice_launches``.  :func:`sky_choices_plain` is its
+    plain version."""
+    ty, tx = tile_grid(struct.rows, struct.width)
+    out = torch.empty((ty * tx, 2), dtype=torch.int32, device=device)
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+        rc = lib.sky_choice_launch(ctypes.byref(struct), ctypes.byref(sky_params), _ptr(out),
+                                   stream)
+    if rc != 0:
+        raise RuntimeError(f"sky choice launch failed: CUDA error {rc}")
+    counters.sky_choice_launches += 1
+    return out
+
+
+def sky_choices_plain(camera: Camera, height: int, width: int,
+                      meta: texsample.TexMeta) -> torch.Tensor:
+    """The plain version of :func:`sky_choices` for a frame's opaque pass
+    (rows from 0), on the device of ``camera``: the tile grid's rays, as
+    the plain opaque pass samples the sky."""
+    ty, tx = tile_grid(height, width)
+    d = world_ray_dirs(camera, height, width, rows=ty * TILE_ROWS, cols=tx * TILE_COLS)
+    mode, level = texsample.sky_tile_choices(meta, d, TILE_ROWS)
+    return torch.stack([mode, level], dim=1).to(torch.int32)
 
 
 def _check_table(t: torch.Tensor, meta: texsample.TexMeta, device):

@@ -559,6 +559,16 @@ def sample_sky_batched(tables, meta: TexMeta, d: Vec3, batch_rows: int) -> Vec3:
                   for t in tables))
 
 
+def sky_tile_choices(meta: TexMeta, d: Vec3, batch_rows: int) -> tuple:
+    """Each ``batch_rows × 128`` batch's ``(mode, level)`` (``(B,)`` each,
+    batches row-major) of the sky's plain sampler over ray directions
+    ``(rows, W)``, as :func:`sample_sky_batched` chooses them."""
+    planes = [_planes(c) for c in d]
+    _, _, mode, level = _latlong_coords(
+        meta, Vec3(*(_to_batches(c, batch_rows) for c in planes)), SKY_WINDOW_ROWS)
+    return mode, level
+
+
 def pyramid_samplers(config, shape_table, coverage_table, batch_rows: int):
     """The megakernel's field closures over the pyramids (the in-kernel
     samplers of ``megakernel.py:187-211``): shape at texture coordinates,

@@ -400,7 +400,8 @@ def test_sky_kernel_matches_plain(cuda, planet, moon, pose):
     got = _image(scene.render(cam, h, w))
     torch.cuda.synchronize()
     launches = len(configs) + int(bands is not None and bands[0] is not None)
-    assert (mk.counters.megakernel_launches, mk.counters.sky_launches) == (launches, 1)
+    assert (mk.counters.megakernel_launches, mk.counters.sky_launches,
+            mk.counters.sky_choice_launches) == (launches, 1, 1)
     assert mk.counters.plain_calls == 0 and ts.counters.plain_sky_calls == 0
     ref = _image(mk.render_scene_plain(params, configs, cam, scene.opaque, h, w, tex_data=tex,
                                        bands=bands, band_rows=rows, pano_data=pdata,
@@ -419,7 +420,8 @@ def test_sky_texture_kernel_matches_plain(cuda, baked):
     mk.counters.reset()
     ts.counters.reset()
     got = _image(scene.render(cam, H, W))
-    assert (mk.counters.texture_launches, mk.counters.sky_launches) == (1, 1)
+    assert (mk.counters.texture_launches, mk.counters.sky_launches,
+            mk.counters.sky_choice_launches) == (1, 1, 0)  # the tile is the block
     assert mk.counters.plain_calls == 0 and ts.counters.plain_sky_calls == 0
     ref = _image(mk.render_scene_plain(params, configs, cam, scene.opaque, H, W, tex_data=tex,
                                        pano_data=pdata, pano_meta=pmeta))
@@ -438,3 +440,23 @@ def test_sky_tables_on_another_device_raise(cuda):
                                    pano_data=tuple(t.cpu() for t in pdata), pano_meta=pmeta)
     with pytest.raises(ValueError):  # a panorama never falls back to the exact sampler
         mk.render_scene_megakernel(params, configs, cam, scene.opaque, H, W)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pose,h,w", [("avatar", 256, 384), ("space", 72, 200),
+                                      ("avatar", 1080, 1920)])
+def test_sky_choice_prepass_matches_plain(cuda, pose, h, w):
+    """The sky's per-tile choice pre-pass alone against its plain version on
+    the same camera: the same mode and level in every tile."""
+    scene = _with_panorama(build_demo_scene("no_clouds", device=cuda), cuda, (1024, 2048, 3))
+    cam = demo_camera(pose, device=cuda)
+    scene.update(0.5, cam)
+    _, params, configs = scene._sorted_layers(cam)
+    pdata, pmeta = scene._pano_plan()
+    struct = mk.frame_constants(params[0], configs[0], cam, scene.opaque, h, w)
+    mk.counters.reset()
+    got = mk.sky_choices(struct, mk.sky_constants(pmeta), cuda)
+    assert mk.counters.sky_choice_launches == 1
+    ref = mk.sky_choices_plain(cam, h, w, pmeta)
+    assert got.shape == (-(-h // 32) * -(-w // 128), 2)
+    assert torch.equal(got.cpu(), ref.cpu())

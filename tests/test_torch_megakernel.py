@@ -195,6 +195,7 @@ _CPARAM = {"int": ctypes.c_int, "const MegakernelParams*": ctypes.POINTER(mk.Meg
 
 
 @pytest.mark.parametrize("name,argtypes", [("megakernel_launch", mk.LAUNCHER_ARGTYPES),
+                                           ("sky_choice_launch", mk.SKY_CHOICE_ARGTYPES),
                                            ("megakernel_tex_launch", mk.TEX_LAUNCHER_ARGTYPES),
                                            ("texsample_launch", mk.TEXSAMPLE_ARGTYPES)])
 def test_cu_launcher_signature_matches_argtypes(name, argtypes):
@@ -207,8 +208,11 @@ def test_cu_launcher_signature_matches_argtypes(name, argtypes):
     if name == "megakernel_launch":
         assert params == ["const MegakernelParams* params", "const TexParams* sky",
                           "const float* blue", "const float* sky_r", "const float* sky_g",
-                          "const float* sky_b", "float* color", "float* alpha", "float* depth",
-                          "void* stream", "void* work"]
+                          "const float* sky_b", "const int* sky_choices", "float* color",
+                          "float* alpha", "float* depth", "void* stream", "void* work"]
+    if name == "sky_choice_launch":
+        assert params == ["const MegakernelParams* params", "const TexParams* sky",
+                          "int* choices", "void* stream"]
     if name == "megakernel_tex_launch":
         assert params[:3] == ["const MegakernelParams* params", "const TexParams* tex",
                               "const TexParams* sky"]

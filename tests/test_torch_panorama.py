@@ -7,7 +7,8 @@
   ``sample_latlong(window_rows=32)`` run through an interpret-mode
   ``pl.pallas_call`` harness (as ``tests/test_torch_texsample.py`` runs K2),
   atol 2e-6, with the chosen mode and level asserted: a windowed tile, a
-  tile on the azimuth seam (floor mode) and polar tiles.
+  tile on the azimuth seam (floor mode) and polar tiles; the plain version
+  of the kernel's per-tile choice pre-pass gives each tile that choice.
 * ``sample_equirect_bilinear`` (the exact sampler) against JAX at atol 1e-5.
 * Cloud-free frames with a panorama against JAX ``render_scene_pallas(...,
   pano_data, pano_meta, interpret=True)`` at ``tests/test_pallas.py:38``'s
@@ -48,7 +49,7 @@ from godot_atmosphere_shader_tpu_torch.ops import sampling as tsampling
 from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 from godot_atmosphere_shader_tpu_torch.ops.kernels import texsample as tts
 from godot_atmosphere_shader_tpu_torch.render.renderer import render_scene
-from godot_atmosphere_shader_tpu_torch.utils.camera import Camera, look_at
+from godot_atmosphere_shader_tpu_torch.utils.camera import Camera, look_at, world_ray_dirs
 from godot_atmosphere_shader_tpu_torch.utils.flight import FlyCamera
 from godot_atmosphere_shader_tpu_torch.utils.vecmath import Vec3
 
@@ -196,6 +197,27 @@ def test_plain_sky_sampler_is_per_tile(sky_pyramid):
                                          Vec3(*map(_t, tiles[i][j])), window_rows=32,
                                          return_choice=True)[1:])
     assert {m for m, _ in modes} == {tts.WINDOWED, tts.FLOOR}
+    mode, level = tts.sky_tile_choices(tts.TexMeta(**dataclasses.asdict(jmeta)),
+                                       Vec3(*map(_t, planes)), 32)
+    assert set(zip(mode.tolist(), level.tolist())) == modes
+
+
+@pytest.mark.parametrize("pose,h,w", [("avatar", 64, 128), ("space", 72, 200)])
+def test_sky_choices_plain_is_each_tiles_choice(sky_pyramid, pose, h, w):
+    """The plain version of the sky's per-tile choice pre-pass: each tile of
+    the padded grid gets the choice of the plain sampler (held to JAX above)
+    on that tile's rays alone, tiles row-major."""
+    _, jmeta = sky_pyramid
+    meta = tts.TexMeta(**dataclasses.asdict(jmeta))
+    cam = tdemo.demo_camera(pose, device="cpu")
+    got = mk.sky_choices_plain(cam, h, w, meta)
+    ty, tx = -(-h // 32), -(-w // 128)
+    d = world_ray_dirs(cam, h, w, rows=32 * ty, cols=128 * tx)
+    want = [tts.sample_latlong(torch.zeros((meta.rows, 128)), meta,
+                               Vec3(*(c[32 * i:32 * i + 32, 128 * j:128 * j + 128] for c in d)),
+                               window_rows=32, return_choice=True)[1:]
+            for i in range(ty) for j in range(tx)]
+    assert got.dtype == torch.int32 and got.tolist() == [list(c) for c in want]
 
 
 def test_exact_equirect_sampler_matches_jax():
