@@ -104,11 +104,40 @@ more phases, with a synthetic 1024×2048 panorama made from a seed:
    plain ms, glow ms; the pre-pass alone (events and device time) and its
    plain version; the opaque-only pass's plain ms.
 
+Row-sharded rendering (K1 slice (g): the band entries, layer 0 fusing the
+opaque pass and the sky over a shard's rows; K3's band mode; the sharded
+TAA flight with its halo exchange; n > 1 shards on one card are the local
+mesh, ``parallel/sharding.py``) runs in three more phases:
+
+3f. small (256×384, 2 shards): procedural and texture ``clouds_high`` with
+   the sky at avatar and the everything-on frame at avatar and space
+   through the band entries, each shard against its plain version (cloud
+   tolerance) with the counters (one K1 launch per layer and shard, one sky
+   launch and pre-pass per shard unless the texture instance draws the
+   sky, no plain call), each shard's pre-pass against
+   ``sky_choices_plain(row0=)`` (the same choice in every tile), the
+   assembled frame against ``Scene.render``; a 4-frame sharded TAA flight
+   with the sky against the plain sharded flight (K1 and K3 2·K launches);
+4e. 1920×1024 on 4 shards: the everything-on frame
+   (``render_scene_megakernel_sharded``) and an 8-frame sharded TAA flight
+   (``Scene.render_flight(mesh=)``, the phase 6 fly path), each against its
+   plain version and the single-card frame or flight (cloud tolerance, max
+   recorded), and ``clouds_high``/avatar at 1080p on 2 shards of 540 rows;
+   the main path's counters (n K1 launches per layer, n sky launches and
+   pre-passes; the flight K·n K1 and K·n K3; no plain call);
+   ``torch.distributed`` world size 1 on NCCL against the local mesh of one
+   shard, bit for bit; K3's band mode alone on 4 shards with a 32-row halo,
+   bit-equal to its plain version and, put together, to the full-frame K3,
+   with its ms per shard and bound;
+5d. per-shard K1 ms with bounds from the work counters, the sharded
+   frame's kernel ms against the single-card frame's, the plain band
+   chain's ms, the sharded flight's ms per frame, host ms and idle share.
+
 Prints a JSON line describing each kernel (with its roofline bound from
 this run's work counters), then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
 line.  Run from the repository root: ``python3 chip_smoke.py``
-(``--quick`` stops after phase 3e).
+(``--quick`` stops after phase 3f).
 """
 
 from __future__ import annotations
@@ -219,6 +248,17 @@ SKY_FRAMES = (("everything-on/avatar", "allon", "avatar", True),
               ("clouds_high/avatar", "clouds_high", "avatar", False),
               ("clouds_high/sunward", "clouds_high", "sunward", False))
 GLOW_ATOL = 1e-5
+# row shards: a fused layer over a shard writes color, alpha and depth (20 B
+# per pixel); the sharded frame and flight at 1024 rows (the tallest frame
+# under 1080 whose rows per shard are a multiple of the resolve's 32-row
+# tile for 4 shards), the flagship at 1080p on 2 shards of 540 rows; K3's
+# band mode alone with a 32-row halo
+BYTES_BAND_PIXEL = 20
+SMALL_SHARDS = 2
+SHARD_SIZE = (1024, 1920)
+SHARDS = 4
+FLAGSHIP_SHARDS = 2
+TAA_HALO = 32
 
 
 def log(*args):
@@ -419,18 +459,21 @@ def roofline(work: dict, config, height: int, width: int, table_bytes: int = 0,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def sky_cost(cam, height: int, width: int, meta, in_block: bool) -> dict:
-    """What the sky adds to the bound of the launch that draws it: the
-    bytes of the pyramid levels its tiles chose (three channels, each read
-    once), and the operations of the choice: every ray of the padded tile
-    grid once, with its ray in the pre-pass (the procedural instance and
-    the opaque-only pass) or sharing it with the frame (``in_block``: the
+def sky_cost(cam, height: int, width: int, meta, in_block: bool, row0: int = 0,
+             rows=None) -> dict:
+    """What the sky adds to the bound of the launch that draws it (over
+    rows ``[row0, row0 + rows)``, by default the frame): the bytes of the
+    pyramid levels its tiles chose (three channels, each read once), and
+    the operations of the choice: every ray of the padded tile grid once,
+    with its ray in the pre-pass (the procedural instance and the
+    opaque-only pass) or sharing it with the frame (``in_block``: the
     texture instance)."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
-    choices = mk.sky_choices_plain(cam, height, width, meta)
+    rows = height - row0 if rows is None else rows
+    choices = mk.sky_choices_plain(cam, height, width, meta, row0=row0, rows=rows)
     levels = sorted(set(choices[:, 1].tolist()))
-    ty, tx = mk.tile_grid(height, width)
+    ty, tx = mk.tile_grid(rows, width)
     rays = ty * tx * 32 * 128
     return {"sky_bytes": 3 * 4 * sum(meta.levels[l][0] * meta.levels[l][1] for l in levels),
             "sky_choice_ops": rays * (OPS_SKY_UV if in_block else OPS_SKY_CHOICE_RAY),
@@ -614,12 +657,15 @@ def flight_times(frames: int, t0: float = 0.5) -> list:
     return [t0 + i / 60.0 for i in range(frames)]
 
 
-def plain_flight(scene, cam, times, stack, h, w, blend):
+def plain_flight(scene, cam, times, stack, h, w, blend, mesh=None):
     """The plain flight on the same CUDA inputs as ``Scene.render_flight``:
     the same layers and configs (texture plans and the sky's pyramids
     included), per-frame state rows and transforms, through
-    ``render_flight_plain``."""
+    ``render_flight_plain`` (with ``mesh``: the plain sharded TAA flight,
+    ``render_flight_taa_sharded_plain``)."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import taa
+    from godot_atmosphere_shader_tpu_torch.parallel.sharding import (
+        render_flight_taa_sharded_plain)
     from godot_atmosphere_shader_tpu_torch.render.renderer import render_flight_plain
 
     order, params, configs = scene._sorted_layers(cam)
@@ -633,6 +679,11 @@ def plain_flight(scene, cam, times, stack, h, w, blend):
     fs = [np.stack([atmo.frame_state_row(float(t), m[:3, 3].astype(np.float64), near)
                     for t, m in zip(np.asarray(times, np.float32), stack)]) for atmo in order]
     pano_data, pano_meta = scene._pano_plan() or (None, None)
+    if mesh is not None:
+        return render_flight_taa_sharded_plain(params, fs, configs, cam, scene.opaque, h, w,
+                                               mesh, cam_stack=stack, blend=blend,
+                                               tex_data=[t for _, t in plans],
+                                               pano_data=pano_data, pano_meta=pano_meta)
     return render_flight_plain(params, fs, configs, cam, scene.opaque, h, w, cam_stack=stack,
                                tex_data=[t for _, t in plans], taa=settings,
                                pano_data=pano_data, pano_meta=pano_meta)
@@ -959,12 +1010,259 @@ def k2_timing(device) -> dict:
     return t
 
 
+# -- row shards (K1 slice (g)) and K3's band mode ------------------------------------
+
+
+def shard_inputs(scene, cam) -> tuple:
+    """What the band entries take for a frame of ``scene``: every layer far
+    to near (the shard split takes the band plan's place), each with its
+    texture plan, and the sky's pyramids: ``(params, configs, tex_data,
+    pano_data, pano_meta)``."""
+    _, params, configs = scene._sorted_layers(cam)
+    plans = [scene._texture_plan(p, c) for p, c in zip(params, configs)]
+    pano_data, pano_meta = scene._pano_plan() or (None, None)
+    return params, tuple(c for c, _ in plans), tuple(t for _, t in plans), pano_data, pano_meta
+
+
+def band_counts() -> tuple:
+    """(K1, sky, sky pre-pass launches, plain calls) since the last reset."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import texsample as ts
+
+    return (mk.counters.megakernel_launches, mk.counters.sky_launches,
+            mk.counters.sky_choice_launches,
+            mk.counters.plain_calls + ts.counters.plain_sky_calls)
+
+
+def expected_band_counts(configs, n: int, sky: bool) -> tuple:
+    """n shards of a frame: one K1 launch per layer and shard, layer 0
+    drawing the sky with its pre-pass unless the texture instance draws it,
+    no plain call."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    return (n * len(configs), n * int(sky), n * int(sky and not mk.texture_mode(configs[0])), 0)
+
+
+def shard_frames(inputs, scene, cam, h: int, w: int, n: int, plain: bool = False) -> dict:
+    """n shards of a frame through the band entries (``plain``: their plain
+    version) put together: ``{"color", "alpha"}``."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    params, configs, tex, pdata, pmeta = inputs
+    fn = mk.render_scene_band_plain if plain else mk.render_scene_band_megakernel
+    rows = h // n
+    outs = [fn(params, configs, cam, scene.opaque, h, w, s * rows, rows, tex_data=tex,
+               pano_data=pdata, pano_meta=pmeta) for s in range(n)]
+    return {k: torch.cat([o[k] for o in outs]) for k in ("color", "alpha")}
+
+
+def check_shards(label: str, scene, cam, h: int, w: int, n: int, device) -> dict:
+    """n shards of a frame through the band entries: the counters; each
+    shard against its plain version on the same CUDA inputs (cloud
+    tolerance); the pre-pass of each procedural sky shard against its plain
+    version (the same choice in every tile); the assembled frame against
+    ``Scene.render`` of the same frame (cloud tolerance).  Returns the
+    largest |Δ| against plain and the statistics against ``Scene.render``."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import texsample as ts
+
+    inputs = shard_inputs(scene, cam)
+    params, configs, tex, pdata, pmeta = inputs
+    rows = h // n
+    mk.counters.reset()
+    ts.counters.reset()
+    got = shard_frames(inputs, scene, cam, h, w, n)
+    torch.cuda.synchronize()
+    counts = band_counts()
+    want = expected_band_counts(configs, n, pdata is not None)
+    worst = 0.0
+    for s in range(n):
+        part = {k: v[s * rows:(s + 1) * rows] for k, v in got.items()}
+        ref = mk.render_scene_band_plain(params, configs, cam, scene.opaque, h, w, s * rows,
+                                         rows, tex_data=tex, pano_data=pdata, pano_meta=pmeta)
+        st = cloud_deltas(frame_array(part), frame_array(ref))
+        log(f"[shard] {label} {h}x{w} shard {s}/{n} kernel vs plain: {json.dumps(st)}")
+        if not cloud_tolerance_ok(st):
+            raise RuntimeError(f"{label}: shard {s} disagrees with its plain version")
+        worst = max(worst, st["max"])
+        if pdata is not None and not mk.texture_mode(configs[0]):
+            _, struct, args = mk.band_launches(params, configs, cam, scene.opaque, h, w,
+                                               s * rows, rows, tex_data=tex, pano_data=pdata,
+                                               pano_meta=pmeta)[0]
+            choice = mk.sky_choices(struct, args["sky"][0], device).cpu()
+            ref_choice = mk.sky_choices_plain(cam, h, w, pmeta, row0=s * rows, rows=rows).cpu()
+            if not torch.equal(choice, ref_choice):
+                raise RuntimeError(f"{label}: the sky's pre-pass on shard {s} disagrees with "
+                                   "its plain version")
+    img = frame_array(got)
+    check_frame(img, f"{label} shards")
+    st = cloud_deltas(img, frame_array(scene.render(cam, h, w)))
+    log(f"[shard] {label} {h}x{w} on {n} shards: counters K1 {counts[0]}, sky {counts[1]}, "
+        f"sky pre-pass {counts[2]}, plain {counts[3]} (planned {want}); assembled vs "
+        f"Scene.render: {json.dumps(st)}")
+    if counts != want:
+        raise RuntimeError(f"{label}: the shards did not go through the planned K1 launches")
+    if not cloud_tolerance_ok(st):
+        raise RuntimeError(f"{label}: the assembled shards disagree with Scene.render")
+    return {"vs_plain_max": worst, "vs_scene_render": st}
+
+
+def sharded_flight(scene, cam, stack, h: int, w: int, mesh, t0: float = 0.5) -> dict:
+    """``Scene.render_flight`` with TAA over ``mesh``, the flight's counters
+    reset just before and read just after: ``(out, (K1, K3, plain))``."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import taa
+
+    mk.counters.reset()
+    taa.counters.reset()
+    out = scene.render_flight(cam, flight_times(len(stack), t0), h, w, cam_transforms=stack,
+                              taa_blend=FLIGHT_BLEND, mesh=mesh)
+    torch.cuda.synchronize()
+    return out, (mk.counters.megakernel_launches, taa.counters.launches,
+                 mk.counters.plain_calls + taa.counters.plain_calls)
+
+
+def band_timing(scene, cam, h: int, w: int, n: int, device) -> dict:
+    """Each K1 launch of n shards of a frame timed alone (CUDA events) with
+    its roofline bound from its work counters; all of them in sequence (the
+    sharded frame's kernel ms); the plain band chain of every shard."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    inputs = shard_inputs(scene, cam)
+    params, configs, tex, pdata, pmeta = inputs
+    rows = h // n
+    shards, out, bound = [], [], 0.0
+    for s in range(n):
+        launches = mk.band_launches(params, configs, cam, scene.opaque, h, w, s * rows, rows,
+                                    tex_data=tex, pano_data=pdata, pano_meta=pmeta)
+        planes = (torch.empty((rows, w, 3), device=device), torch.empty((rows, w), device=device),
+                  torch.empty((rows, w), device=device))
+        for _, struct, args in launches:  # the planes the chained launches read
+            mk.launch(struct, planes[0], planes[1], depth=planes[2], **args)
+        for layer, (_, struct, args) in enumerate(launches):
+            ms = time_cuda(lambda i, st=struct, a=args, p=planes: mk.launch(
+                st, p[0], p[1], depth=p[2], **a), KERNEL_FRAMES)
+            work = mk.work_counts(struct, planes[0], planes[1], depth=planes[2], **args)
+            cost = (sky_cost(cam, h, w, pmeta, in_block=args["tex"] is not None, row0=s * rows,
+                             rows=rows) if struct.with_sky else {})
+            tl = args["tex"]
+            table_bytes = 0 if tl is None else sum(x.numel() * 4 for x in tl[1:])
+            per_px = BYTES_CHAINED_PIXEL if struct.with_background else BYTES_BAND_PIXEL
+            b = roofline(work, configs[layer], h, w, table_bytes, frame_bytes=rows * w * per_px,
+                         sky_bytes=cost.get("sky_bytes", 0),
+                         sky_choice_ops=cost.get("sky_choice_ops", 0))
+            bound += b["bound_ms"]
+            out.append({"shard": s, "layer": layer, "row0": struct.row0, "rows": rows,
+                        "sky": bool(struct.with_sky), "ms": ms, **b,
+                        "sky_levels": cost.get("sky_levels"), "work": work})
+        shards.append((launches, planes))
+
+    def frame(i):
+        for launches, p in shards:
+            for _, st, a in launches:
+                mk.launch(st, p[0], p[1], depth=p[2], **a)
+
+    return {"launches": out, "frame_kernel_ms": time_cuda(frame, KERNEL_FRAMES),
+            "frame_bound_ms": bound,
+            "plain_ms": time_cuda(lambda i: shard_frames(inputs, scene, cam, h, w, n, plain=True),
+                                  1, warmup=0)}
+
+
+def taa_band_check(device, h: int, w: int, n: int, halo: int) -> dict:
+    """K3 alone on n shards of an h × w frame, each against a history band
+    of its rows and ``halo`` rows above and below (zeros past the frame's
+    edges), on the partial-tile case: each shard against its plain
+    version and the shards put together against the full-frame K3, bit for
+    bit; each shard's launch timed (CUDA events) beside its plain version
+    and its bound (48 B and ~300 operations per pixel, plus the halo rows'
+    color and depth read once).  The case keeps every reprojection within
+    the halo and off the frame's last row (where the whole frame's window,
+    clamped at the frame's edge, cannot reach and a shard's zero halo can):
+    only then are the two bit-equal, in the JAX package as here."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import taa
+    from godot_atmosphere_shader_tpu_torch.utils.camera import Camera
+
+    case = next(c for c in TAA_CASES if c[0] == "partial_tile")
+    _, prev, cur, blend, opt = case
+    color, ld, hist, hd = taa_case_inputs(case, h, w, device)
+    cams = (Camera.create(prev, device="cpu"), Camera.create(cur, device="cpu"))
+    full, full_depth = torch.empty_like(color), torch.empty_like(ld)
+    taa.launch(taa.taa_constants(*cams, blend, h, w, h), color, ld, hist, hd, full, full_depth)
+
+    def pad(t):
+        z = torch.zeros((halo,) + tuple(t.shape[1:]), device=device)
+        return torch.cat([z, t, z])
+
+    hp, dp = pad(hist), pad(hd)
+    rows = h // n
+    bands, err, exact, ms, plain_ms = [], 0.0, True, [], []
+    for s in range(n):
+        r0 = s * rows
+        p = taa.taa_constants(*cams, blend, h, w, rows + 2 * halo, rows=rows, row0=r0,
+                              hist_row0=r0 - halo)
+        args = (color[r0:r0 + rows], ld[r0:r0 + rows], hp[r0:r0 + rows + 2 * halo],
+                dp[r0:r0 + rows + 2 * halo])
+        out, depth = torch.empty_like(args[0]), torch.empty_like(args[1])
+        valid = torch.empty((rows, w), dtype=torch.uint8, device=device)
+        taa.launch(p, *args, out, depth, valid)
+        ref, ref_depth, ref_valid = taa.resolve_plain(p, *args)
+        torch.cuda.synchronize()
+        err = max(err, float((out - ref).abs().max()))
+        exact = exact and bool(torch.equal(out, ref) and torch.equal(depth, ref_depth)
+                               and torch.equal(valid.bool(), ref_valid))
+        bands.append(out)
+        ms.append(time_cuda(lambda i, p=p, a=args, o=out, d=depth: taa.launch(p, *a, o, d),
+                            KERNEL_FRAMES))
+        plain_ms.append(time_cuda(lambda i, p=p, a=args: taa.resolve_plain(p, *a), 3))
+    reassembled = bool(torch.equal(torch.cat(bands), full))
+    t_bytes = (rows * w * BYTES_TAA_PIXEL + 2 * halo * w * 16) / PEAK_BYTES * 1e3
+    t_ops = rows * w * OPS_TAA_PIXEL / PEAK_FP32 * 1e3
+    t = {"shards": n, "rows": rows, "halo": halo, "max_abs_err": err,
+         "equal_to_plain": exact, "reassembled_equal_to_full": reassembled,
+         "ms_per_shard": ms, "ms": sum(ms) / n, "plain_ms": sum(plain_ms) / n,
+         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if not (exact and reassembled):
+        raise RuntimeError("K3's band mode is not bit-equal to its plain version and to the "
+                           "full-frame launch")
+    return t
+
+
+def nccl_world_of_one(device, frame, flight) -> dict:
+    """The distributed mesh of one rank on NCCL (file rendezvous under
+    ``build/``) against the local mesh of one shard: ``frame(mesh)`` and
+    ``flight(mesh)`` must be equal bit for bit.  A failed initialisation
+    raises."""
+    import torch.distributed as dist
+
+    from godot_atmosphere_shader_tpu_torch.parallel.sharding import make_mesh
+
+    rendezvous = os.path.join(ROOT, "build", "chip_smoke_rendezvous")
+    os.makedirs(os.path.dirname(rendezvous), exist_ok=True)
+    if os.path.exists(rendezvous):
+        os.remove(rendezvous)
+    torch.cuda.set_device(device)
+    dist.init_process_group("nccl", init_method=f"file://{rendezvous}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(group=dist.group.WORLD)
+        got = (frame(mesh), flight(mesh))
+        torch.cuda.synchronize()
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    local = (frame(make_mesh(1)), flight(make_mesh(1)))
+    same = {name: all(bool(torch.equal(a[k], b[k])) for k in ("color", "alpha"))
+            for name, a, b in zip(("frame", "flight"), got, local)}
+    if not all(same.values()):
+        raise RuntimeError(f"NCCL world size 1 differs from the local mesh of one shard: {same}")
+    return {"backend": backend, "mesh_size": mesh.size, "bit_equal": same}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="stop after the small checks: 256×384 frames, K2 alone, K3 alone, "
-                         "TAA flights, the exterior and multi-planet frames and the sky "
-                         "(phases 3 to 3e)")
+                         "TAA flights, the exterior and multi-planet frames, the sky and the "
+                         "row shards (phases 3 to 3f)")
     args = ap.parse_args(argv)
 
     # -- 1. device ----------------------------------------------------------
@@ -1125,6 +1423,33 @@ def main(argv=None) -> int:
     sky_err = max(sky_err, check_flight(f"clouds_high TAA with the sky {h}x{w}", out,
                                         plain_flight(scene, cam, times, stack, h, w,
                                                      FLIGHT_BLEND)))
+
+    # -- 3f. row shards (K1 slice (g)) and the sharded TAA flight, small ----------
+    from godot_atmosphere_shader_tpu_torch.parallel import sharding
+
+    shard_err = 0.0
+    for label, kind, pose, textured in (
+            ("clouds_high/avatar with the sky", "clouds_high", "avatar", False),
+            ("clouds_high texture/avatar with the sky", "clouds_high", "avatar", True),
+            ("everything-on/avatar", "allon", "avatar", True),
+            ("everything-on/space", "allon", "space", True)):
+        scene = with_panorama(build_scene(kind, device, textures if textured else None), pano)
+        cam = scene_camera(kind, pose, device)
+        scene.update(0.25 if kind == "allon" else 0.5, cam)
+        shard_err = max(shard_err, check_shards(label, scene, cam, h, w, SMALL_SHARDS,
+                                                device)["vs_plain_max"])
+    scene = with_panorama(build_scene("clouds_high", device), pano)
+    stack = fly_path(SMALL_FLIGHT_FRAMES)
+    cam = Camera.create(stack[0], device=device)
+    mesh = sharding.make_mesh(SMALL_SHARDS)
+    out, counts = sharded_flight(scene, cam, stack, h, w, mesh)
+    log(f"[shard] 4-frame sharded TAA flight with the sky {h}x{w} on {SMALL_SHARDS} shards: "
+        f"counters K1 {counts[0]}, K3 {counts[1]}, plain {counts[2]}")
+    if counts != (SMALL_FLIGHT_FRAMES * SMALL_SHARDS,) * 2 + (0,):
+        raise RuntimeError("the small sharded TAA flight did not go through K1 and K3 only")
+    shard_err = max(shard_err, check_flight(
+        f"clouds_high sharded TAA with the sky {h}x{w}", out,
+        plain_flight(scene, cam, times, stack, h, w, FLIGHT_BLEND, mesh=mesh)))
     if args.quick:
         return 1
 
@@ -1295,6 +1620,102 @@ def main(argv=None) -> int:
     if not glow_change["clouds_high/sunward"] > 1e-2:
         raise RuntimeError("the sunward frame's HDR sun disc did not bloom")
 
+    # -- 4e. row shards at full size: the sharded frame, the 1080p flagship on
+    # two shards, the sharded TAA flight, NCCL world size 1, K3's band mode ----
+    SH, SW = SHARD_SIZE
+    mesh = sharding.make_mesh(SHARDS)
+    allon = with_panorama(build_scene("allon", device, textures), pano)
+    allon_cam = scene_camera("allon", "avatar", device)
+    allon.update(0.25, allon_cam)
+    allon_in = shard_inputs(allon, allon_cam)
+    flag_scene, flag_cam = scene_and_camera("clouds_high", "avatar", device)
+    flag_in = shard_inputs(flag_scene, flag_cam)
+    flight_scene, _ = scene_and_camera("clouds_high", "avatar", device)
+    shard_stack = fly_path(FLIGHT_FRAMES)
+    flight_cam = Camera.create(shard_stack[0], device=device)
+    # the main path, its counters set to 0 just before and read just after
+    mk.counters.reset()
+    ts.counters.reset()
+    taa.counters.reset()
+    shard_frame = sharding.render_scene_megakernel_sharded(
+        *allon_in[:2], allon_cam, allon.opaque, SH, SW, mesh, tex_data=allon_in[2],
+        pano_data=allon_in[3], pano_meta=allon_in[4])
+    torch.cuda.synchronize()
+    frame_counts = band_counts()
+    flag_color = sharding.render_frame_megakernel_sharded(
+        flag_in[0][0], flag_in[1][0], flag_cam, flag_scene.opaque, H, W,
+        sharding.make_mesh(FLAGSHIP_SHARDS))
+    torch.cuda.synchronize()
+    flag_counts = tuple(a - b for a, b in zip(band_counts(), frame_counts))
+    mk.counters.reset()
+    taa.counters.reset()
+    shard_out = flight_scene.render_flight(flight_cam, flight_times(FLIGHT_FRAMES), SH, SW,
+                                           cam_transforms=shard_stack, taa_blend=FLIGHT_BLEND,
+                                           mesh=mesh)
+    torch.cuda.synchronize()
+    flight_counts = (mk.counters.megakernel_launches, taa.counters.launches,
+                     mk.counters.plain_calls + taa.counters.plain_calls)
+    band_k1 = frame_counts[0] + flag_counts[0] + flight_counts[0]
+    band_k3 = flight_counts[1]
+    log(f"[shard] main path counters: everything-on {SH}x{SW} on {SHARDS} shards K1/sky/"
+        f"pre-pass/plain {frame_counts}, clouds_high/avatar {H}x{W} on {FLAGSHIP_SHARDS} "
+        f"shards {flag_counts}, {FLIGHT_FRAMES}-frame sharded TAA flight K1/K3/plain "
+        f"{flight_counts}")
+    if (frame_counts != expected_band_counts(allon_in[1], SHARDS, True)
+            or flag_counts != (FLAGSHIP_SHARDS, 0, 0, 0)
+            or flight_counts != (FLIGHT_FRAMES * SHARDS, FLIGHT_FRAMES * SHARDS, 0)):
+        raise RuntimeError("the sharded main path did not go through the planned K1 and K3 "
+                           "launches only")
+    shard_cmp = {}
+    img = frame_array(shard_frame)
+    check_frame(img, "sharded everything-on")
+    for name, ref in (("plain", shard_frames(allon_in, allon, allon_cam, SH, SW, SHARDS,
+                                             plain=True)),
+                      ("single-card Scene.render", allon.render(allon_cam, SH, SW))):
+        st = cloud_deltas(img, frame_array(ref))
+        shard_cmp[f"everything-on vs {name}"] = st
+        log(f"[shard] everything-on/avatar {SH}x{SW} on {SHARDS} shards vs {name}: "
+            f"{json.dumps(st)}")
+        if not cloud_tolerance_ok(st):
+            raise RuntimeError(f"the sharded everything-on frame disagrees with {name}")
+    img = flag_color.cpu().numpy()
+    for name, ref in (("plain", shard_frames(flag_in, flag_scene, flag_cam, H, W,
+                                             FLAGSHIP_SHARDS, plain=True)["color"]),
+                      ("single-card Scene.render", flag_scene.render(flag_cam, H, W)["color"])):
+        st = cloud_deltas(img, ref.cpu().numpy())
+        shard_cmp[f"clouds_high/avatar 1080p vs {name}"] = st
+        log(f"[shard] clouds_high/avatar {H}x{W} on {FLAGSHIP_SHARDS} shards vs {name}: "
+            f"{json.dumps(st)}")
+        if not cloud_tolerance_ok(st):
+            raise RuntimeError(f"the sharded 1080p flagship disagrees with {name}")
+    shard_flight_err = check_flight(
+        f"clouds_high sharded TAA {SH}x{SW}", shard_out,
+        plain_flight(flight_scene, flight_cam, flight_times(FLIGHT_FRAMES), shard_stack, SH, SW,
+                     FLIGHT_BLEND, mesh=mesh))
+    single = flight_scene.render_flight(flight_cam, flight_times(FLIGHT_FRAMES), SH, SW,
+                                        cam_transforms=shard_stack, taa_blend=FLIGHT_BLEND)
+    shard_cmp["flight vs single-card flight"] = check_flight(
+        f"clouds_high sharded TAA {SH}x{SW} vs the single-card flight", shard_out, single)
+    shard_err = max(shard_err, shard_flight_err,
+                    *(v["max"] for k, v in shard_cmp.items() if k.endswith("plain")))
+
+    def nccl_frame(m):
+        return sharding.render_scene_megakernel_sharded(
+            *allon_in[:2], allon_cam, allon.opaque, SH, SW, m, tex_data=allon_in[2],
+            pano_data=allon_in[3], pano_meta=allon_in[4])
+
+    def nccl_flight(m):
+        return flight_scene.render_flight(flight_cam, flight_times(FLIGHT_FRAMES), SH, SW,
+                                          cam_transforms=shard_stack, taa_blend=FLIGHT_BLEND,
+                                          mesh=m)
+
+    nccl = nccl_world_of_one(device, nccl_frame, nccl_flight)
+    log(f"[shard] torch.distributed world size 1 against the local mesh of one shard: "
+        f"{json.dumps(nccl)}")
+    taa_band = taa_band_check(device, SH, SW, SHARDS, TAA_HALO)
+    log(f"[taa-band] K3 band mode alone {SH}x{SW}, {SHARDS} shards, halo {TAA_HALO} on "
+        f"{card}: {json.dumps(taa_band)}")
+
     # -- 5. timing -------------------------------------------------------------
     timings, bounds = {}, {}
     cases = [("clouds_high", "avatar", None), ("clouds_high", "interior", None),
@@ -1457,6 +1878,43 @@ def main(argv=None) -> int:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
         log(f"[sky-time] pre-pass alone on {label} 1080p on {card}: {json.dumps(choice_t[label])}")
     log(f"[sky-time] after timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+
+    # -- 5d. row shards' timing: per-shard K1 with its bound, the sharded frame
+    # against the single-card frame, the sharded flight ------------------------
+    shard_t = {"everything-on": band_timing(allon, allon_cam, SH, SW, SHARDS, device),
+               "clouds_high/avatar 1080p": band_timing(flag_scene, flag_cam, H, W,
+                                                      FLAGSHIP_SHARDS, device)}
+    shard_t["everything-on"]["single_card"] = launch_timing(
+        scene_plan(allon, allon_cam, SH), allon, allon_cam, SH, SW, device)
+    shard_t["clouds_high/avatar 1080p"]["single_card_kernel_ms"] = (
+        timings["clouds_high/avatar"]["kernel_ms"])
+    for label, t in shard_t.items():
+        log(f"[shard-time] {label} on {card}: {json.dumps(t)}")
+    best = None
+    for r in range(FLIGHT_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flight_scene.render_flight(flight_cam, flight_times(FLIGHT_FRAMES, 1.0 + r), SH, SW,
+                                   cam_transforms=shard_stack, taa_blend=FLIGHT_BLEND, mesh=mesh)
+        t_host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t_all = time.perf_counter() - t0
+        if best is None or t_all < best[1]:
+            best = (t_host, t_all)
+    trace = flight_trace(lambda: flight_scene.render_flight(
+        flight_cam, flight_times(FLIGHT_FRAMES, 5.0), SH, SW, cam_transforms=shard_stack,
+        taa_blend=FLIGHT_BLEND, mesh=mesh))
+    shard_flight_t = {"flight_ms_per_frame": best[1] / FLIGHT_FRAMES * 1e3,
+                      "host_ms_per_frame": best[0] / FLIGHT_FRAMES * 1e3,
+                      "device_busy_ms_per_frame": trace["device_busy_ms"] / FLIGHT_FRAMES,
+                      "idle_share": 1.0 - trace["device_busy_ms"] / (best[1] * 1e3),
+                      "frame_kernels_in_trace": trace["frame_kernels"],
+                      "d2h_copies": trace["d2h_copies"],
+                      "d2h_copies_in_loop": trace["d2h_copies_in_loop"]}
+    log(f"[shard-time] {FLIGHT_FRAMES}-frame sharded TAA flight {SH}x{SW} on {SHARDS} shards on "
+        f"{card}: {json.dumps(shard_flight_t)}")
+    log(f"[shard-time] after timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    band_flag = shard_t["clouds_high/avatar 1080p"]
 
     # -- 6. the flight slice at 1080p through Scene.render_flight ----------------
     K = FLIGHT_FRAMES
@@ -1668,6 +2126,48 @@ def main(argv=None) -> int:
         "plain_ms": taa_t["plain_ms"],
         "bound_ms": taa_t["bound_ms"],
         "bound_by": taa_t["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "megakernel_band",
+        "slice": ("K1 slice (g): a row shard of the frame, layer 0 fusing the opaque pass and "
+                  "the sky over the shard's rows, later layers chained over them (ms: "
+                  f"clouds_high/avatar at 1080p on {FLAGSHIP_SHARDS} shards, both shards' "
+                  "launches in sequence)"),
+        "route": "cuda",
+        "source": "godot_atmosphere_shader_tpu_torch/csrc/megakernel.cu",
+        "replaces": ("godot_atmosphere_shader_tpu/ops/pallas/megakernel.py:655 "
+                     "(render_band_pallas), godot_atmosphere_shader_tpu/ops/pallas/"
+                     "megakernel.py:686 (render_scene_band_pallas), through "
+                     "godot_atmosphere_shader_tpu/ops/pallas/megakernel.py:636"),
+        "launches": band_k1,
+        "max_abs_err": shard_err,
+        "vs_single_card_max": {k: v["max"] for k, v in shard_cmp.items() if isinstance(v, dict)},
+        "ms": band_flag["frame_kernel_ms"],
+        "per_shard_ms": [x["ms"] for x in band_flag["launches"]],
+        "single_card_ms": band_flag["single_card_kernel_ms"],
+        "plain_ms": band_flag["plain_ms"],
+        "bound_ms": band_flag["frame_bound_ms"],
+        "bound_by": max(band_flag["launches"], key=lambda x: x["bound_ms"])["bound_by"],
+        "everything_on_ms": shard_t["everything-on"]["frame_kernel_ms"],
+        "everything_on_single_card_ms": shard_t["everything-on"]["single_card"]["frame_kernel_ms"],
+        "nccl_world_size_1": nccl,
+        "library_ms": None,
+    }, {
+        "name": "taa_band",
+        "slice": (f"K3 band mode: a shard's rows against its history band (ms: one "
+                  f"{SH // SHARDS}-row shard of {SH}x{SW}, halo {TAA_HALO})"),
+        "route": "cuda",
+        "source": "godot_atmosphere_shader_tpu_torch/csrc/taa.cu",
+        "replaces": ("godot_atmosphere_shader_tpu/ops/pallas/taa.py:345 (band mode, "
+                     "godot_atmosphere_shader_tpu/ops/pallas/taa.py:65-134)"),
+        "launches": band_k3,
+        "max_abs_err": taa_band["max_abs_err"],
+        "flight_max_abs_err": shard_flight_err,
+        "ms": taa_band["ms"],
+        "plain_ms": taa_band["plain_ms"],
+        "bound_ms": taa_band["bound_ms"],
+        "bound_by": taa_band["bound_by"],
+        "sharded_flight": shard_flight_t,
         "library_ms": None,
     }, {
         "name": "launch_floor",

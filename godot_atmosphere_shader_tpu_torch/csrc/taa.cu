@@ -4,8 +4,10 @@
 // Replaces the TPU Pallas kernel
 //   godot_atmosphere_shader_tpu/ops/pallas/taa.py::taa_resolve (pallas_call
 //   at taa.py:345; kernel body _taa_kernel, :57)
-// on one chip (its band mode, row0 = hist_row0 = 0, is not ported).  Its
-// plain PyTorch version is
+// with its band mode (row sharding: the current planes hold a shard's rows
+// from global row row0, the history planes its history band from global row
+// hist_row0; a whole frame is row0 = hist_row0 = 0).  Its plain PyTorch
+// version is
 //   godot_atmosphere_shader_tpu_torch/ops/kernels/taa.py::resolve_plain,
 // and every formula below follows that code's operation order with
 // uncontracted arithmetic (__fmul_rn, __fadd_rn, ...) and correctly
@@ -13,9 +15,10 @@
 // inputs.
 //
 // What it computes, per pixel of a 32 x 128 tile: the world position at the
-// current linear depth (pad rows of a partial last tile take depth 1.0, as
-// on the TPU), its projection into the previous camera, validity (in front
-// of the camera, inside the frame, inside the tile's history window, and
+// current linear depth (pad rows of a partial last tile, past the band's own
+// rows, take depth 1.0, as on the TPU), its projection into the previous
+// camera at the pixel's global row, validity (in front of the camera, inside
+// the frame, inside the tile's history window in the history band's rows, and
 // the bilinear history depth within depth_eps of the current depth), the
 // bilinear history colour, a 3 x 3 tile-local neighbourhood clamp (min/max
 // box or mean +- gamma sigma; taps across the tile edge or on pad rows take
@@ -52,9 +55,12 @@
 // Launch parameters; mirrored field for field by ctypes
 // (ops/kernels/taa.py: TaaParams, checked by a test that parses this file).
 struct TaaParams {
-  int height;           // rows of the current frame
+  int height;           // rows of the whole frame (the projection's)
   int width;
+  int rows;             // rows of the current planes: the band's, or height
+  int row0;             // global row of the current planes' first row
   int hist_rows;        // rows of the history planes
+  int hist_row0;        // global row of the history planes' first row
   int win_rows;         // the TPU window: min(64, hist_rows // 8 * 8)
   int win_cols;         // min(384, width // 128 * 128)
   int variance;         // clamp: 0 the 3 x 3 min/max box, 1 mean +- gamma sigma
@@ -118,6 +124,7 @@ __global__ void __launch_bounds__(TAA_TILE_COLS * (TAA_TILE_ROWS / TAA_ROWS_PER_
   const int tile_y = blockIdx.y * TAA_TILE_ROWS;
   const float W = (float)p.width, H = (float)p.height;
   const float xf = (float)x;
+  const float hist_r0 = (float)p.hist_row0;
 
   // ---- reprojection of this thread's pixels into the previous camera ----
   const float ndc_x = sub(dvd(mul(2.0f, add(xf, 0.5f)), W), 1.0f);
@@ -128,10 +135,10 @@ __global__ void __launch_bounds__(TAA_TILE_COLS * (TAA_TILE_ROWS / TAA_ROWS_PER_
   float base_y = 3.0e38f, base_x = 3.0e38f;
 #pragma unroll
   for (int k = 0; k < TAA_ROWS_PER_THREAD; ++k) {
-    const int y = tile_y + threadIdx.y + 8 * k;
-    const bool in_frame = y < p.height;
+    const int y = tile_y + threadIdx.y + 8 * k;  // the band's row
+    const bool in_frame = y < p.rows;            // the band's own extent
     const size_t o = (size_t)y * p.width + x;
-    const float yf = (float)y;
+    const float yf = (float)(y + p.row0);        // the global row
     const float ndc_y = sub(1.0f, dvd(mul(2.0f, add(yf, 0.5f)), H));
     const float dvy = mul(ndc_y, p.sy_cur);
     const float inv = dvd(1.0f, __fsqrt_rn(add(add(mul(dvx, dvx), mul(dvy, dvy)), 1.0f)));
@@ -156,8 +163,10 @@ __global__ void __launch_bounds__(TAA_TILE_COLS * (TAA_TILE_ROWS / TAA_ROWS_PER_
     py[k] = sub(mul(mul(sub(1.0f, pndc_y), 0.5f), H), 0.5f);
     valid[k] = vz < -1e-3f && px[k] >= 0.0f && px[k] <= W - 1.0f && py[k] >= 0.0f &&
                py[k] <= H - 1.0f;
-    // the window base sees valid reprojections; the rest their own pixel
-    base_y = fminf(base_y, valid[k] ? py[k] : yf);
+    // the window base, in the history band's rows, sees valid
+    // reprojections; the rest their own pixel
+    py[k] = sub(py[k], hist_r0);
+    base_y = fminf(base_y, valid[k] ? py[k] : sub(yf, hist_r0));
     base_x = fminf(base_x, valid[k] ? px[k] : xf);
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) c[k][ch] = in_frame ? cur[o * 3 + ch] : 0.0f;
@@ -220,7 +229,7 @@ __global__ void __launch_bounds__(TAA_TILE_COLS * (TAA_TILE_ROWS / TAA_ROWS_PER_
           if (a == 1 && b == 1) continue;
           const int ny = ly + 1 - a, nx = tx + 1 - b;
           const bool ok = ny >= 0 && ny < TAA_TILE_ROWS && nx >= 0 && nx < TAA_TILE_COLS &&
-                          tile_y + ny < p.height;
+                          tile_y + ny < p.rows;
           const float n = ok ? plane[ny][nx] : centre;
           if (p.variance) {
             m1 = add(m1, n);
@@ -240,14 +249,14 @@ __global__ void __launch_bounds__(TAA_TILE_COLS * (TAA_TILE_ROWS / TAA_ROWS_PER_
       const float hc = fminf(fmaxf(h[k][ch], lo), hi);
       const float a = valid[k] ? p.blend : 1.0f;
       const int y = tile_y + ly;
-      if (y < p.height)
+      if (y < p.rows)
         out[((size_t)y * p.width + x) * 3 + ch] = add(mul(centre, a), mul(hc, sub(1.0f, a)));
     }
   }
 #pragma unroll
   for (int k = 0; k < TAA_ROWS_PER_THREAD; ++k) {
     const int y = tile_y + threadIdx.y + 8 * k;
-    if (y >= p.height) continue;
+    if (y >= p.rows) continue;
     const size_t o = (size_t)y * p.width + x;
     depth_out[o] = ld[k];  // min(linear depth, 1e7): the next frame's history depth
     if (valid_out) valid_out[o] = valid[k];
@@ -256,18 +265,20 @@ __global__ void __launch_bounds__(TAA_TILE_COLS * (TAA_TILE_ROWS / TAA_ROWS_PER_
 
 // Launcher: plain C interface for ctypes.  Returns cudaGetLastError() after
 // the launch (0 on success), or -1 for shapes the kernel does not take.
-// history_depth may be linear_depth itself (no history depth yet); valid:
-// nullptr, or an (H, W) byte plane that takes each pixel's validity.
+// cur, linear_depth, out, depth_out (and valid): planes of the struct's rows;
+// history, history_depth: planes of its hist_rows.  history_depth may be
+// linear_depth itself (no history depth yet); valid: nullptr, or a byte
+// plane that takes each pixel's validity.
 extern "C" int taa_launch(const TaaParams* params, const float* cur, const float* linear_depth,
                           const float* history, const float* history_depth, float* out,
                           float* depth_out, unsigned char* valid, void* stream) {
   const TaaParams& p = *params;
-  if (p.height < 1 || p.height % 8 || p.width < 128 || p.width % 128 || p.hist_rows < 8 ||
-      p.hist_rows % 8 || p.win_rows < 8 || p.win_rows > p.hist_rows || p.win_cols < 128 ||
-      p.win_cols > p.width)
+  if (p.height < 1 || p.rows < 8 || p.rows % 8 || p.width < 128 || p.width % 128 ||
+      p.hist_rows < 8 || p.hist_rows % 8 || p.win_rows < 8 || p.win_rows > p.hist_rows ||
+      p.win_cols < 128 || p.win_cols > p.width)
     return -1;
   dim3 block(TAA_TILE_COLS, TAA_TILE_ROWS / TAA_ROWS_PER_THREAD, 1);
-  dim3 grid(p.width / TAA_TILE_COLS, (p.height + TAA_TILE_ROWS - 1) / TAA_TILE_ROWS, 1);
+  dim3 grid(p.width / TAA_TILE_COLS, (p.rows + TAA_TILE_ROWS - 1) / TAA_TILE_ROWS, 1);
   taa_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(p, cur, linear_depth, history,
                                                         history_depth, out, depth_out, valid);
   return (int)cudaGetLastError();

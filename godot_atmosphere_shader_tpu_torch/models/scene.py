@@ -8,7 +8,8 @@ row bands (``render/lod.py``) and sends CUDA tensors to the megakernel's
 layer chain and CPU tensors to its plain version
 (``ops/kernels/megakernel.py``), and ``Scene.render_flight``, which renders
 K frames of a camera path and time sequence, every layer fullscreen, plain
-or temporally accumulated (the TAA resolve, ``ops/kernels/taa.py``).
+or temporally accumulated (the TAA resolve, ``ops/kernels/taa.py``), on one
+device or row-sharded over a mesh (``parallel/sharding.py``).
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``).  A layer with baked cloud textures renders in the
 megakernel's texture mode: its textures are packed into mip pyramids once
@@ -22,7 +23,7 @@ environment's HDR glow (``render/glow.py``), on a rendered frame.
 
 Not ported yet (they raise ``NotImplementedError``): ``od_mode="lut"``,
 large-world rebasing, one baked cloud field beside one procedural field,
-the detail field, and the sharded flight (``mesh=``).
+and the detail field.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from ..ops.kernels.megakernel import (render_flight_megakernel, render_flight_ta
                                       render_scene_megakernel)
 from ..ops.kernels.texsample import (build_equirect_pyramid, build_latlong_pyramid,
                                      build_tex3d_pyramid)
+from ..parallel.sharding import render_flight_taa_sharded
 from ..render.glow import GlowSettings, apply_glow
 from ..render.lod import EMPTY, layer_band
 from ..render.opaque import OpaqueScene
@@ -328,16 +330,20 @@ class Scene:
 
     def _tex_pyramid(self, t, kind: str):
         """``(table on the scene's device, TexMeta)`` for a baked texture,
-        built once per texture object.  A texture that cannot be packed
-        raises ``ValueError``."""
+        built once per texture object, or ``None`` for a texture the
+        pyramid builders refuse (``scene.py:566-592``): its layer is then
+        sampled exactly, which only the plain chain does."""
         key = (id(t), kind)
         hit = self._tex_pyr_cache.get(key)
         if hit is not None and hit[0] is t:
             return hit[1]
         host = t.detach().cpu().numpy()
-        data, meta = (build_tex3d_pyramid(host) if kind == "tex3d"
-                      else build_latlong_pyramid(host))
-        built = (torch.as_tensor(data, device=self.device), meta)
+        try:
+            data, meta = (build_tex3d_pyramid(host) if kind == "tex3d"
+                          else build_latlong_pyramid(host))
+            built = (torch.as_tensor(data, device=self.device), meta)
+        except ValueError:
+            built = None
         self._tex_pyr_cache[key] = (t, built)
         return built
 
@@ -374,7 +380,9 @@ class Scene:
     def _texture_plan(self, params, config):
         """Texture mode for a layer with baked cloud textures: the config
         with the pyramid metas and both knot flags, and the ``(shape,
-        coverage)`` tables (``scene.py:621-661``)."""
+        coverage)`` tables (``scene.py:621-661``).  A texture that cannot be
+        packed leaves the layer as it is, its textures sampled exactly: the
+        plain chain renders it, the kernel refuses it (no pyramid metas)."""
         if not config.clouds_enabled or (config.cloud_shape_noise is not None
                                          and config.cloud_coverage_noise is not None):
             return config, None
@@ -385,8 +393,11 @@ class Scene:
         if config.cloud_shape_noise is not None or config.cloud_coverage_noise is not None:
             raise NotImplementedError("one baked and one procedural cloud field is "
                                       "not ported yet (both baked or both procedural)")
-        shape_table, shape_meta = self._tex_pyramid(params.cloud_shape_texture, "tex3d")
-        cov_table, cov_meta = self._tex_pyramid(params.cloud_coverage_cubemap, "latlong")
+        shape = self._tex_pyramid(params.cloud_shape_texture, "tex3d")
+        cov = self._tex_pyramid(params.cloud_coverage_cubemap, "latlong")
+        if shape is None or cov is None:
+            return config, None
+        (shape_table, shape_meta), (cov_table, cov_meta) = shape, cov
         config = dataclasses.replace(
             config, cloud_shape_tex_meta=shape_meta, cloud_shape_interp=True,
             cloud_coverage_tex_meta=cov_meta, cloud_coverage_interp=True)
@@ -460,7 +471,7 @@ class Scene:
     def render_flight(self, camera: Camera, times, height: int, width: int,
                       cam_transforms=None, taa_blend=None, taa_depth_eps: float = 0.2,
                       taa_clamp: str = "minmax", taa_clamp_gamma: float = 1.25,
-                      mesh=None) -> dict:
+                      mesh=None, taa_halo="auto") -> dict:
         """Render K frames of a flight: ``{"color": (K, H, W, 3), "alpha":
         (K, H, W)}`` on the scene's device (``scene.py:663-789``).
 
@@ -474,11 +485,15 @@ class Scene:
         to near.  ``taa_blend``: resolve each frame against the previous
         one (``render_flight_taa``, with temporal jitter) with that blend,
         ``taa_depth_eps``, ``taa_clamp`` (``"minmax"`` or ``"variance"``)
-        and ``taa_clamp_gamma``.  ``mesh`` (the sharded TAA flight) is not
-        ported."""
-        if mesh is not None:
-            raise NotImplementedError("the sharded TAA flight (row bands with a halo "
-                                      "exchange) is not ported yet")
+        and ``taa_clamp_gamma``.  ``mesh`` (a ``parallel.sharding.RowMesh``,
+        with ``taa_blend``): row-shard the TAA flight over the mesh, each
+        shard exchanging ``taa_halo`` history rows with its neighbours per
+        frame (``render_flight_taa_sharded``; ``"auto"`` sizes the halo from
+        the camera motion, an int is checked against it)."""
+        if mesh is not None and taa_blend is None:
+            raise ValueError("mesh is only honored with taa_blend (the sharded TAA flight); "
+                             "for a sharded non-TAA frame use "
+                             "parallel.sharding.render_scene_megakernel_sharded per frame")
         times = np.asarray(times, np.float32)
         cam_pos = self._cam_pos(camera)
         self._check_world_scale(cam_pos)
@@ -509,5 +524,8 @@ class Scene:
                   pano_data=pano_data, pano_meta=pano_meta)
         if taa_blend is None:
             return render_flight_megakernel(*args, **kw)
-        return render_flight_taa(*args, blend=float(taa_blend), depth_eps=float(taa_depth_eps),
-                                 clamp_mode=taa_clamp, clamp_gamma=float(taa_clamp_gamma), **kw)
+        taa_kw = dict(blend=float(taa_blend), depth_eps=float(taa_depth_eps),
+                      clamp_mode=taa_clamp, clamp_gamma=float(taa_clamp_gamma), **kw)
+        if mesh is not None:
+            return render_flight_taa_sharded(*args, mesh, halo=taa_halo, **taa_kw)
+        return render_flight_taa(*args, **taa_kw)

@@ -3,8 +3,8 @@
 Counterpart of ``godot_atmosphere_shader_tpu/ops/pallas/megakernel.py``
 (the Pallas kernel ``_make_kernel``) with the texture samplers of
 ``ops/pallas/texsample.py`` inside it.  One launch of the CUDA kernel
-(``csrc/megakernel.cu``) renders one atmosphere layer over the whole frame
-or over a far-mode row band: ray generation, the opaque pass (or, for a
+(``csrc/megakernel.cu``) renders one atmosphere layer over the whole frame,
+a far-mode row band or a row shard: ray generation, the opaque pass (or, for a
 chained layer, the layers below read back from the frame), the v1 or v2
 atmosphere (analytic sun optical depth), the cloud march with cheap or
 sun-marched light, and the composite; or the opaque pass alone.  The
@@ -23,9 +23,15 @@ tile).
   raise.  Nothing falls back.  :func:`render_frame_megakernel` is the same
   for one fullscreen layer.  :func:`launch` is one launch on a prepared
   launch struct.
-* :func:`render_frame_plain` and :func:`render_scene_plain` are the plain
-  PyTorch versions (``render/renderer.py``), the reference the kernel is
-  held against.
+* :func:`render_scene_band_megakernel` and :func:`render_band_megakernel`
+  render one row shard of a frame (the counterparts of
+  ``render_scene_band_pallas`` and ``render_band_pallas``): layer 0 fuses
+  the opaque pass and the sky over the shard's rows, the later layers
+  composite over them (:func:`band_launches`); ``parallel/sharding.py``
+  puts the shards together.
+* :func:`render_frame_plain`, :func:`render_scene_plain` and
+  :func:`render_scene_band_plain` are the plain PyTorch versions
+  (``render/renderer.py``), the reference the kernel is held against.
 * :func:`render_flight_megakernel` and :func:`render_flight_taa` render
   K frames of a flight (counterparts of ``render_flight_pallas`` and
   ``render_flight_taa``): every frame's launch structs are computed on the
@@ -63,7 +69,7 @@ from ...render.jitter import blue_noise_tensor, temporal_offset
 from ...render.opaque import OpaqueScene
 from ...render.renderer import (TILE_COLS, TILE_ROWS, opaque_only_config, planet_center,
                                 render_flight_plain, render_frame, render_scene,
-                                shared_reverse_z)
+                                render_scene_band, shared_reverse_z)
 from ...utils.camera import Camera, ray_scale, transform_dir, transform_point, world_ray_dirs
 from ...utils.vecmath import Vec3, normalize
 from ..atmosphere_v2 import scattering_coefficients
@@ -662,6 +668,21 @@ def _ptr(t: Optional[torch.Tensor]):
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
+def _plane_ptr(t: Optional[torch.Tensor], struct: MegakernelParams):
+    """A frame plane's address as the kernel indexes it, by global row: a
+    plane of the whole frame as it is, a plane of the launch's rows alone
+    shifted back by ``row0`` rows (the kernel touches only rows ``[row0,
+    row0 + rows)``, so every address it forms lies inside the plane)."""
+    if t is None:
+        return _ptr(None)
+    if t.shape[0] == struct.height:
+        return _ptr(t)
+    if t.shape[0] != struct.rows or not t.is_contiguous():
+        raise ValueError(f"a frame plane holds the frame's {struct.height} rows or the "
+                         f"launch's {struct.rows}, contiguous; got {tuple(t.shape)}")
+    return ctypes.c_void_p(t.data_ptr() - struct.row0 * t.stride(0) * t.element_size())
+
+
 def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
            tex=None, work: Optional[torch.Tensor] = None,
            depth: Optional[torch.Tensor] = None, sky=None):
@@ -669,7 +690,8 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
     frame planes (``color`` (H, W, 3), ``alpha`` (H, W), float32) on the
     current stream of their device; counted in
     ``counters.megakernel_launches``.  It writes the struct's rows
-    ``[row0, row0 + rows)`` only.  ``tex``: ``(TexParams, shape table,
+    ``[row0, row0 + rows)`` only; each plane holds either the whole frame
+    or just those rows (a row shard's planes).  ``tex``: ``(TexParams, shape table,
     coverage table)`` for the texture instance (also counted in
     ``counters.texture_launches``).  ``work``: ``len(WORK_SLOTS)`` zeroed
     int64 counters that the kernel adds its work to (see
@@ -698,17 +720,17 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
         choices = sky_choices(struct, sky_params, device)
     with torch.cuda.device(device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+        planes = [_plane_ptr(t, struct) for t in (color, alpha, depth)]
         if tex is None:
             rc = lib.megakernel_launch(ctypes.byref(struct), sky_ref, _ptr(blue), _ptr(sky_r),
-                                       _ptr(sky_g), _ptr(sky_b), _ptr(choices), _ptr(color),
-                                       _ptr(alpha), _ptr(depth), stream, _ptr(work))
+                                       _ptr(sky_g), _ptr(sky_b), _ptr(choices), *planes, stream,
+                                       _ptr(work))
         else:
             tparams, shape_table, cov_table = tex
             rc = lib.megakernel_tex_launch(ctypes.byref(struct), ctypes.byref(tparams),
                                            sky_ref, _ptr(blue), _ptr(shape_table),
                                            _ptr(cov_table), _ptr(sky_r), _ptr(sky_g),
-                                           _ptr(sky_b), _ptr(color), _ptr(alpha), _ptr(depth),
-                                           stream, _ptr(work))
+                                           _ptr(sky_b), *planes, stream, _ptr(work))
     if rc != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {rc}")
     counters.megakernel_launches += 1
@@ -744,13 +766,15 @@ def sky_choices(struct: MegakernelParams, sky_params: TexParams, device) -> torc
     return out
 
 
-def sky_choices_plain(camera: Camera, height: int, width: int,
-                      meta: texsample.TexMeta) -> torch.Tensor:
-    """The plain version of :func:`sky_choices` for a frame's opaque pass
-    (rows from 0), on the device of ``camera``: the tile grid's rays, as
-    the plain opaque pass samples the sky."""
-    ty, tx = tile_grid(height, width)
-    d = world_ray_dirs(camera, height, width, rows=ty * TILE_ROWS, cols=tx * TILE_COLS)
+def sky_choices_plain(camera: Camera, height: int, width: int, meta: texsample.TexMeta,
+                      row0: int = 0, rows: Optional[int] = None) -> torch.Tensor:
+    """The plain version of :func:`sky_choices` for an opaque pass over
+    rows ``[row0, row0 + rows)`` (default: the whole frame), on the device
+    of ``camera``: the tile grid's rays from ``row0``, as the plain opaque
+    pass samples the sky."""
+    ty, tx = tile_grid(height - row0 if rows is None else rows, width)
+    d = world_ray_dirs(camera, height, width, rows=ty * TILE_ROWS, cols=tx * TILE_COLS,
+                       row0=row0)
     mode, level = texsample.sky_tile_choices(meta, d, TILE_ROWS)
     return torch.stack([mode, level], dim=1).to(torch.int32)
 
@@ -767,9 +791,12 @@ def _check_inputs(params: AtmosphereParams, config: VariantConfig, camera: Camer
                   opaque: Optional[OpaqueScene], rows: int, tex_data,
                   sky: bool = False) -> tuple:
     """What the wrapper refuses, for one launch of ``rows`` rows (``sky``:
-    it draws the panorama sky).  Returns ``(device, texture mode?)``."""
-    check_config(config)
+    it draws the panorama sky).  The kernel's envelope (:func:`check_config`)
+    holds for CUDA tensors only: on the CPU the plain chain refuses what the
+    plain ops do not take.  Returns ``(device, texture mode?)``."""
     device = camera.view_to_world.device
+    if device.type == "cuda":
+        check_config(config)
     devices = {params.planet_radius.device, device}
     if opaque is not None:
         devices.add(opaque.sphere_centers.device)
@@ -817,13 +844,17 @@ def _check_sky(opaque: Optional[OpaqueScene], pano_data, pano_meta, device):
 
 def _check_layers(params_seq, configs, camera: Camera, opaque: Optional[OpaqueScene],
                   height: int, tex_data, bands, band_rows, pano_data=None,
-                  pano_meta=None) -> tuple:
-    """What the wrapper refuses for a frame of layers.  Returns ``(device,
+                  pano_meta=None, shard=None) -> tuple:
+    """What the wrapper refuses for a frame of layers, or with ``shard =
+    (row0, rows)`` for a row shard of it (every layer over the shard's
+    rows, layer 0 fusing the opaque pass and the sky).  Returns ``(device,
     per-layer tex_data, per-layer bands, per-layer first rows)``."""
     n = len(configs)
     if n < 1 or len(params_seq) != n:
         raise ValueError(f"{len(params_seq)} params for {n} layer configs (at least one)")
     tex = tuple(tex_data) if tex_data is not None else (None,) * n
+    if shard is not None:
+        bands, band_rows = (int(shard[1]),) * n, [int(shard[0])] * n
     bands = tuple(bands) if bands is not None else (None,) * n
     rows0 = ([0] * n if band_rows is None else [int(r) for r in np.asarray(band_rows)])
     if len(tex) != n or len(bands) != n or len(rows0) != n:
@@ -831,6 +862,7 @@ def _check_layers(params_seq, configs, camera: Camera, opaque: Optional[OpaqueSc
     shared_reverse_z(configs)
     device = None
     sky = pano_data is not None and opaque is not None
+    fused = shard is not None or bands[0] is None  # layer 0 runs the opaque pass
     for i in range(n):
         rows = height if bands[i] is None else int(bands[i])
         r0 = 0 if bands[i] is None else rows0[i]
@@ -839,7 +871,7 @@ def _check_layers(params_seq, configs, camera: Camera, opaque: Optional[OpaqueSc
                              f"{height}-row frame")
         device, _ = _check_inputs(params_seq[i], configs[i], camera,
                                   opaque if i == 0 else None, rows, tex[i],
-                                  sky=sky and i == 0 and bands[0] is None)
+                                  sky=sky and i == 0 and fused)
     _check_sky(opaque, pano_data, pano_meta, device)
     return device, tex, bands, rows0
 
@@ -930,6 +962,126 @@ def render_frame_megakernel(params: AtmosphereParams, config: VariantConfig,
     return render_scene_megakernel((params,), (config,), camera, opaque, height, width,
                                    tex_data=(tex_data,), pano_data=pano_data,
                                    pano_meta=pano_meta)
+
+
+# -- row shards (K1 slice (g)) ----------------------------------------------------
+
+
+def _as_band(s: MegakernelParams, layer: int, row0: int, rows: int, sky: bool):
+    """Set a layer's launch struct to a row shard's rows: layer 0 fuses the
+    opaque pass (and draws the sky), every later layer is chained."""
+    s.row0, s.rows = int(row0), int(rows)
+    s.with_background = int(layer > 0)
+    s.with_sky = int(layer == 0 and sky)
+
+
+def band_launches(params_seq, configs, camera: Camera, opaque: Optional[OpaqueScene],
+                  height: int, width: int, row0: int, rows: int, tex_data=None,
+                  pano_data=None, pano_meta=None) -> list:
+    """The launches of rows ``[row0, row0 + rows)`` of a frame, a row
+    shard's share (``render_scene_band_pallas``), as ``(kind, struct,
+    args)`` with kind ``"band"``, one per layer in launch order: layer 0
+    fuses the opaque pass and draws the panorama sky (``pano_data``,
+    ``pano_meta``) over the shard's rows, every later layer composites over
+    them.  No opaque-only pass and no per-layer far band: the shard split
+    takes their place."""
+    n = len(configs)
+    tex = tex_data or (None,) * n
+    sky = _sky_launch(pano_data, pano_meta) if opaque is not None else None
+    out = []
+    for i in range(n):
+        s = frame_constants(params_seq[i], configs[i], camera, opaque if i == 0 else None,
+                            height, width)
+        _as_band(s, i, row0, rows, sky is not None)
+        out.append(("band", s, dict(tex=_tex_launch(configs[i], tex[i]),
+                                    sky=sky if i == 0 else None)))
+    return out
+
+
+def band_flight_launches(params_seq, fs_stacks, configs, camera: Camera,
+                         opaque: Optional[OpaqueScene], height: int, width: int,
+                         cam_stack: np.ndarray, shards, tex_data=None, pano_data=None,
+                         pano_meta=None) -> list:
+    """Every K1 launch of a row-sharded flight, on the host:
+    ``launches[frame][shard]`` is the list of ``(struct, args)`` of
+    :func:`band_launches` for ``shards[shard] = (row0, rows)``, from the
+    per-layer (K, 24) frame states and (K, 4, 4) transforms, as
+    :func:`flight_constants` patches them."""
+    n = len(configs)
+    tex = tex_data or (None,) * n
+    sky = _sky_launch(pano_data, pano_meta) if opaque is not None else None
+    structs = [flight_constants(p, c, camera, opaque if i == 0 else None, height, width, fs,
+                                cam_stack)
+               for i, (p, c, fs) in enumerate(zip(params_seq, configs, fs_stacks))]
+    args = [dict(tex=_tex_launch(c, t), sky=sky if i == 0 else None)
+            for i, (c, t) in enumerate(zip(configs, tex))]
+    out = []
+    for f in range(len(cam_stack)):
+        frame = []
+        for row0, rows in shards:
+            shard = []
+            for layer in range(n):
+                s = MegakernelParams.from_buffer_copy(structs[layer][f])
+                _as_band(s, layer, row0, rows, sky is not None)
+                shard.append((s, args[layer]))
+            frame.append(shard)
+        out.append(frame)
+    return out
+
+
+def render_scene_band_plain(params_seq, configs, camera: Camera,
+                            opaque: Optional[OpaqueScene], height: int, width: int, row0: int,
+                            band_height: int, tex_data=None, pano_data=None,
+                            pano_meta=None) -> dict:
+    """The row shard's plain PyTorch version (``renderer.py::
+    render_scene_band``, counted once in ``counters.plain_calls``); runs on
+    any device."""
+    counters.plain_calls += 1
+    return render_scene_band(params_seq, configs, camera, opaque, height, width, row0,
+                             band_height, tex_data=tex_data, pano_data=pano_data,
+                             pano_meta=pano_meta)
+
+
+def render_scene_band_megakernel(params_seq, configs, camera: Camera,
+                                 opaque: Optional[OpaqueScene], height: int, width: int,
+                                 row0: int, band_height: int, tex_data=None, pano_data=None,
+                                 pano_meta=None) -> dict:
+    """Rows ``[row0, row0 + band_height)`` of the far→near layer chain, the
+    counterpart of ``render_scene_band_pallas``: ``{"color": (band_height,
+    W, 3), "alpha": (band_height, W), "linear_depth": (band_height, W)}``
+    (linear depth: the opaque pass's).  Arguments as in
+    :func:`render_scene_megakernel`, without bands.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel once per layer
+    (:func:`band_launches`) into planes of the shard's rows; any other
+    device raises."""
+    device, tex, _, _ = _check_layers(params_seq, configs, camera, opaque, height, tex_data,
+                                      None, None, pano_data, pano_meta,
+                                      shard=(row0, band_height))
+    if device.type == "cpu":
+        return render_scene_band_plain(params_seq, configs, camera, opaque, height, width,
+                                       row0, band_height, tex_data=tex, pano_data=pano_data,
+                                       pano_meta=pano_meta)
+    f32 = dict(dtype=torch.float32, device=device)
+    out = {"color": torch.empty((band_height, width, 3), **f32),
+           "alpha": torch.empty((band_height, width), **f32),
+           "linear_depth": torch.empty((band_height, width), **f32)}
+    for _, struct, args in band_launches(params_seq, configs, camera, opaque, height, width,
+                                         row0, band_height, tex_data=tex,
+                                         pano_data=pano_data, pano_meta=pano_meta):
+        launch(struct, out["color"], out["alpha"], depth=out["linear_depth"], **args)
+    return out
+
+
+def render_band_megakernel(params: AtmosphereParams, config: VariantConfig, camera: Camera,
+                           opaque: Optional[OpaqueScene], height: int, width: int, row0: int,
+                           band_height: int, tex_data=None, pano_data=None,
+                           pano_meta=None) -> dict:
+    """Rows ``[row0, row0 + band_height)`` of one layer over the fused
+    opaque pass, the counterpart of ``render_band_pallas``
+    (:func:`render_scene_band_megakernel` of one layer)."""
+    return render_scene_band_megakernel((params,), (config,), camera, opaque, height, width,
+                                        row0, band_height, tex_data=(tex_data,),
+                                        pano_data=pano_data, pano_meta=pano_meta)
 
 
 def render_flight_megakernel(params_seq, fs_stacks, configs, camera: Camera,

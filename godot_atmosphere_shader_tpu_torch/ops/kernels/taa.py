@@ -7,8 +7,14 @@ from the current linear depth, projection into the previous camera,
 validity (in front of the camera, inside the frame, inside the tile's
 64×384 history window, and history depth within ``depth_eps``), bilinear
 history, a 3×3 tile-local neighbourhood clamp (``"minmax"`` box or
-``"variance"`` μ ± γσ), and the blend.  Single chip: the JAX kernel's band
-mode (``row0``/``hist_row0``, for row sharding) is not ported.
+``"variance"`` μ ± γσ), and the blend.  Band mode (row sharding,
+``parallel/sharding.py``): the current planes may be one shard's rows of a
+taller frame, from global row ``row0``, against a history band whose first
+row is global row ``hist_row0`` (the shard's rows and a halo above and
+below); pixels keep their global rows for the projection and the frame's
+bounds, the pad rows are those past the shard's own rows, and the window
+and the bilinear read address the history band.  A full frame is the band
+``row0 = hist_row0 = 0``.
 
 * :func:`taa_resolve` is the wrapper: CPU tensors take the plain version
   (:func:`taa_resolve_plain`), CUDA tensors launch ``csrc/taa.cu`` (built
@@ -59,7 +65,10 @@ class TaaParams(ctypes.Structure):
     _fields_ = [
         ("height", ctypes.c_int),
         ("width", ctypes.c_int),
+        ("rows", ctypes.c_int),
+        ("row0", ctypes.c_int),
         ("hist_rows", ctypes.c_int),
+        ("hist_row0", ctypes.c_int),
         ("win_rows", ctypes.c_int),
         ("win_cols", ctypes.c_int),
         ("variance", ctypes.c_int),
@@ -120,18 +129,29 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu", torch.float32)
 
 
+def _row(v) -> int:
+    """A band offset (JAX passes it as a float): a whole number of rows."""
+    if float(v) != int(v):
+        raise ValueError(f"row offsets are whole rows, got {v}")
+    return int(v)
+
+
 def taa_constants(cam_prev: Camera, cam_cur: Camera, blend, height: int, width: int,
                   hist_rows: int, depth_eps=0.2, clamp_mode: str = "minmax",
-                  clamp_gamma=1.25) -> TaaParams:
+                  clamp_gamma=1.25, rows=None, row0=0, hist_row0=0) -> TaaParams:
     """The resolve's launch struct, computed on the host: the previous
     camera's world→view, the current camera's rotation and position, both
     ray preambles (``utils/camera.py::ray_scale``), the window and the
-    settings."""
-    check_shapes(height, hist_rows, width, clamp_mode)
+    settings.  ``height``/``width`` are the whole frame's; band mode:
+    ``rows`` current rows (default ``height``) from global row ``row0``,
+    the history's ``hist_rows`` rows from global row ``hist_row0``."""
+    rows = height if rows is None else rows
+    check_shapes(rows, hist_rows, width, clamp_mode)
     prev = _host(cam_prev.view_to_world)
     cur = _host(cam_cur.view_to_world)
     s = TaaParams()
     s.height, s.width, s.hist_rows = height, width, hist_rows
+    s.rows, s.row0, s.hist_row0 = rows, _row(row0), _row(hist_row0)
     s.win_rows = min(WIN_ROWS, hist_rows // 8 * 8)
     s.win_cols = min(WIN_COLS, width // 128 * 128)
     s.variance = int(clamp_mode == "variance")
@@ -161,20 +181,25 @@ def _lerp(v0, v1, w):
 
 def resolve_plain(p: TaaParams, cur: torch.Tensor, linear_depth: torch.Tensor,
                   history: torch.Tensor, history_depth: torch.Tensor) -> tuple:
-    """The plain PyTorch resolve on launch struct ``p``: ``cur`` (H, W, 3),
-    ``linear_depth`` (H, W), ``history`` (Hh, W, 3), ``history_depth``
-    (Hh, W), all on one device.  Returns ``(resolved (H, W, 3), depth
-    (H, W), valid (H, W) bool)``; ``depth`` is ``min(linear_depth, 1e7)``,
-    the next frame's history depth.  Works on the tile-padded grid (pad
-    rows take depth 1.0 and count in the window base, as on the TPU)."""
+    """The plain PyTorch resolve on launch struct ``p``: ``cur`` (R, W, 3),
+    ``linear_depth`` (R, W), ``history`` (Hh, W, 3), ``history_depth``
+    (Hh, W), all on one device (R = ``p.rows``, the whole frame's height
+    outside band mode).  Returns ``(resolved (R, W, 3), depth (R, W), valid
+    (R, W) bool)``; ``depth`` is ``min(linear_depth, 1e7)``, the next
+    frame's history depth.  Works on the tile-padded grid (pad rows, past
+    the band's own rows, take depth 1.0 and count in the window base, as on
+    the TPU)."""
     dev = cur.device
     f32 = dict(dtype=torch.float32, device=dev)
     height, width, hist_rows = p.height, p.width, p.hist_rows
-    rows = -(-height // TILE_ROWS) * TILE_ROWS
-    pad = rows - height
-    iy = torch.arange(rows, **f32)[:, None].expand(rows, width)
+    rows = -(-p.rows // TILE_ROWS) * TILE_ROWS
+    pad = rows - p.rows
+    local = torch.arange(rows, **f32)
+    # global rows (taa.py:75-76); the pad bound is the band's own extent,
+    # not the frame's (taa.py:89-95)
+    iy = (local + float(p.row0))[:, None].expand(rows, width)
     ix = torch.arange(width, **f32)[None, :].expand(rows, width)
-    in_frame = iy < height
+    in_frame = (local < p.rows)[:, None].expand(rows, width)
 
     # ---- reprojection into the previous camera.  Divisors are tensors on
     # the device and the normalisation is 1 / sqrt: on a card, PyTorch
@@ -203,17 +228,19 @@ def resolve_plain(p: TaaParams, cur: torch.Tensor, linear_depth: torch.Tensor,
     valid = ((v.z < -1e-3) & (px >= 0.0) & (px <= width - 1.0) & (py >= 0.0)
              & (py <= height - 1.0))
 
-    # ---- the TPU's history window: base and validity rule ----
+    # ---- the TPU's history window: base and validity rule, in the
+    # history band's rows (taa.py:130-136) ----
     def base(coord, own, margin, align, limit):
         lo = _per_tile(torch.where(valid, coord, own), rows, width).amin(dim=(1, 3))
         b = torch.clamp(torch.floor(lo).to(torch.int64) - margin, 0, limit)
         return _per_pixel(b // align * align, rows, width)
 
-    ry0 = base(py, iy, 2, 8, hist_rows - p.win_rows)
+    pyl = py - float(p.hist_row0)
+    ry0 = base(pyl, iy - float(p.hist_row0), 2, 8, hist_rows - p.win_rows)
     rx0 = base(px, ix, 8, 128, width - p.win_cols)
     rmax = float(np.float32(p.win_rows - 1.001))
     cmax = float(np.float32(p.win_cols - 1.001))
-    ryf = py - ry0.to(torch.float32)
+    ryf = pyl - ry0.to(torch.float32)
     rxf = px - rx0.to(torch.float32)
     valid = valid & (ryf >= 0.0) & (ryf <= rmax) & (rxf >= 0.0) & (rxf <= cmax)
     ryf = torch.clamp(ryf, 0.0, rmax)
@@ -269,7 +296,7 @@ def resolve_plain(p: TaaParams, cur: torch.Tensor, linear_depth: torch.Tensor,
     h = torch.minimum(torch.maximum(hist, lo), hi)
     a = torch.where(valid, p.blend, 1.0)[..., None]
     out = c * a + h * (1.0 - a)
-    return (out[:height], torch.clamp(linear_depth, max=DEPTH_CLAMP), valid[:height])
+    return (out[:p.rows], torch.clamp(linear_depth, max=DEPTH_CLAMP), valid[:p.rows])
 
 
 _LAUNCHER = None
@@ -309,17 +336,22 @@ def launch(p: TaaParams, cur: torch.Tensor, linear_depth: torch.Tensor,
 
 
 def flight_constants(camera: Camera, cam_stack: np.ndarray, settings: TaaSettings,
-                     height: int, width: int) -> list:
+                     height: int, width: int, row0: int = 0, rows=None,
+                     halo: int = 0) -> list:
     """Every frame's launch struct of a TAA flight, on the host: frame i
     resolves against frame i − 1's camera (frame 0 against its own, with
-    blend 1.0: it has no history)."""
+    blend 1.0: it has no history).  A row shard's flight: ``rows`` rows
+    from ``row0``, against a history of those rows and ``halo`` more above
+    and below."""
+    rows = height if rows is None else rows
     cam = Camera(view_to_world=_host(camera.view_to_world), fov_y_rad=_host(camera.fov_y_rad),
                  near=_host(camera.near), far=_host(camera.far))
     cams = [dataclasses.replace(cam, view_to_world=torch.from_numpy(np.asarray(m, np.float32)))
             for m in cam_stack]
     return [taa_constants(cams[max(i - 1, 0)], cams[i], 1.0 if i == 0 else settings.blend,
-                          height, width, height, settings.depth_eps, settings.clamp_mode,
-                          settings.clamp_gamma) for i in range(len(cams))]
+                          height, width, rows + 2 * halo, settings.depth_eps,
+                          settings.clamp_mode, settings.clamp_gamma, rows=rows, row0=row0,
+                          hist_row0=row0 - halo) for i in range(len(cams))]
 
 
 def _check_planes(cur, linear_depth, history, history_depth, width):
@@ -334,28 +366,27 @@ def _check_planes(cur, linear_depth, history, history_depth, width):
 
 
 def _prepare(cur_color, linear_depth, history, cam_prev, cam_cur, blend, height, width,
-             history_depth, depth_eps, clamp_mode, clamp_gamma) -> tuple:
+             history_depth, depth_eps, clamp_mode, clamp_gamma, row0, hist_row0) -> tuple:
     """The JAX wrapper's checks, then ``(launch struct, history depth)``."""
-    check_shapes(int(cur_color.shape[0]), int(history.shape[0]), width, clamp_mode)
-    if int(cur_color.shape[0]) != height:
-        raise NotImplementedError("band mode (a shard's rows of a taller frame) is not "
-                                  "ported: cur_color must hold the whole frame")
+    rows, hist_rows = int(cur_color.shape[0]), int(history.shape[0])
+    check_shapes(rows, hist_rows, width, clamp_mode)
     if history_depth is None:
         history_depth = linear_depth
     _check_planes(cur_color, linear_depth, history, history_depth, width)
-    p = taa_constants(cam_prev, cam_cur, blend, height, width, int(history.shape[0]),
-                      depth_eps, clamp_mode, clamp_gamma)
+    p = taa_constants(cam_prev, cam_cur, blend, height, width, hist_rows, depth_eps, clamp_mode,
+                      clamp_gamma, rows=rows, row0=row0, hist_row0=hist_row0)
     return p, history_depth
 
 
 def taa_resolve_plain(cur_color, linear_depth, history, cam_prev: Camera, cam_cur: Camera,
                       blend, height: int, width: int, history_depth=None, depth_eps=0.2,
-                      clamp_mode: str = "minmax", clamp_gamma=1.25) -> tuple:
+                      clamp_mode: str = "minmax", clamp_gamma=1.25, row0=0,
+                      hist_row0=0) -> tuple:
     """:func:`taa_resolve`'s plain version, on tensors on any device
     (counted in ``counters.plain_calls``)."""
     p, history_depth = _prepare(cur_color, linear_depth, history, cam_prev, cam_cur, blend,
                                 height, width, history_depth, depth_eps, clamp_mode,
-                                clamp_gamma)
+                                clamp_gamma, row0, hist_row0)
     counters.plain_calls += 1
     out, depth, _ = resolve_plain(p, *(t.float() for t in (cur_color, linear_depth, history,
                                                            history_depth)))
@@ -364,12 +395,18 @@ def taa_resolve_plain(cur_color, linear_depth, history, cam_prev: Camera, cam_cu
 
 def taa_resolve(cur_color, linear_depth, history, cam_prev: Camera, cam_cur: Camera,
                 blend, height: int, width: int, history_depth=None, depth_eps=0.2,
-                clamp_mode: str = "minmax", clamp_gamma=1.25) -> tuple:
+                clamp_mode: str = "minmax", clamp_gamma=1.25, row0=0, hist_row0=0) -> tuple:
     """Blend ``cur_color`` (H, W, 3) with ``history`` (Hh, W, 3)
     reprojected from ``cam_prev`` to ``cam_cur``.  Returns ``(resolved,
     depth)``: the resolved (H, W, 3) frame and the clamped linear depth to
     carry as the next frame's ``history_depth``.  ``history_depth=None``
     (first frame) compares the depth against itself.
+
+    Band mode (row sharding): ``cur_color``/``linear_depth`` are one
+    shard's rows of a ``height``-row frame from global row ``row0``, and
+    ``history``/``history_depth`` its history band from global row
+    ``hist_row0`` (the shard's first row minus the halo); ``height`` and
+    ``width`` stay the whole frame's.  Both offsets are 0 for a whole frame.
 
     CPU tensors take the plain version (:func:`taa_resolve_plain`); CUDA
     tensors launch the kernel (``counters.launches``).  Raises
@@ -379,12 +416,12 @@ def taa_resolve(cur_color, linear_depth, history, cam_prev: Camera, cam_cur: Cam
     if device.type == "cpu":
         return taa_resolve_plain(cur_color, linear_depth, history, cam_prev, cam_cur, blend,
                                  height, width, history_depth, depth_eps, clamp_mode,
-                                 clamp_gamma)
+                                 clamp_gamma, row0, hist_row0)
     if device.type != "cuda":
         raise ValueError(f"taa_resolve runs on CUDA devices (got {device})")
     p, history_depth = _prepare(cur_color, linear_depth, history, cam_prev, cam_cur, blend,
                                 height, width, history_depth, depth_eps, clamp_mode,
-                                clamp_gamma)
+                                clamp_gamma, row0, hist_row0)
     cur_color, linear_depth, history, history_depth = (
         t.to(torch.float32).contiguous()
         for t in (cur_color, linear_depth, history, history_depth))

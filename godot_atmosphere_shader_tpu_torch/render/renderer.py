@@ -14,7 +14,10 @@ the path CPU tensors take.
   fuses the opaque pass when it is fullscreen, otherwise the opaque-only
   pass runs first; each later layer composites over the carried color with
   the carried linear depth, on its band or the whole frame; alpha is the
-  maximum over the layers.
+  maximum over the layers;
+* :func:`render_scene_band` is the same chain over one row shard of the
+  frame (``render_scene_band_pallas``): layer 0 fuses the opaque pass and
+  the sky over the shard's rows, the later layers composite over them.
 
 Baked cloud textures come in two forms:
 
@@ -218,6 +221,33 @@ def render_scene(params_seq, configs, camera: Camera, opaque: Optional[OpaqueSce
                            row0=r0, rows=r1 - r0)
         color = torch.cat([color[:r0], res["color"], color[r1:]])
         alpha = torch.cat([alpha[:r0], torch.maximum(alpha[r0:r1], res["alpha"]), alpha[r1:]])
+    return {"color": color, "alpha": alpha, "linear_depth": linear_depth}
+
+
+def render_scene_band(params_seq, configs, camera: Camera, opaque: Optional[OpaqueScene],
+                      height: int, width: int, row0: int, rows: int, tex_data=None,
+                      pano_data=None, pano_meta=None) -> dict:
+    """Rows ``[row0, row0 + rows)`` of the far→near layer chain, a row
+    shard's share of the frame (``megakernel.py:686-737``): ``{"color":
+    (rows, W, 3), "alpha": (rows, W), "linear_depth": (rows, W)}``.
+
+    Layer 0 fuses the opaque pass (and the panorama sky, ``pano_data``/
+    ``pano_meta``) over the band; every later layer composites over the
+    band's color with the carried linear depth (the opaque pass's).  There
+    is no opaque-only pass and no per-layer far band: the shard split takes
+    their place.  Alpha is the maximum over the layers."""
+    n = len(configs)
+    shared_reverse_z(configs)
+    tex = tex_data or (None,) * n
+    out = render_frame(params_seq[0], configs[0], camera, opaque, height, width,
+                       tex_data=tex[0], row0=row0, rows=rows, pano_data=pano_data,
+                       pano_meta=pano_meta)
+    color, alpha, linear_depth = out["color"], out["alpha"], out["linear_depth"]
+    for i in range(1, n):
+        res = render_frame(params_seq[i], configs[i], camera, None, height, width,
+                           tex_data=tex[i], background=(color, linear_depth), row0=row0,
+                           rows=rows)
+        color, alpha = res["color"], torch.maximum(alpha, res["alpha"])
     return {"color": color, "alpha": alpha, "linear_depth": linear_depth}
 
 

@@ -460,3 +460,164 @@ def test_sky_choice_prepass_matches_plain(cuda, pose, h, w):
     ref = mk.sky_choices_plain(cam, h, w, pmeta)
     assert got.shape == (-(-h // 32) * -(-w // 128), 2)
     assert torch.equal(got.cpu(), ref.cpu())
+
+
+# -- row shards (K1 slice (g)) and K3's band mode ---------------------------------
+
+
+def _shard_scene(device, textures=None):
+    """``clouds_high`` (texture mode with ``textures``) with a far moon and a
+    panorama at the avatar pose: what the band entries take for it."""
+    scene = _with_panorama(_two_layer_scene(device, "clouds_high") if textures is None else
+                           build_demo_scene("clouds_high", procedural=False, device=device,
+                                            textures=textures), device)
+    if textures is not None:
+        from godot_atmosphere_shader_tpu_torch.models.scene import PlanetAtmosphere
+
+        scene.atmospheres.append(PlanetAtmosphere(
+            planet_radius=10.0, atmosphere_height=2.0, sun=scene.atmospheres[0].sun,
+            custom_shader="no_clouds", position=(-188.991, 0.0, 192.584), device=device))
+    cam = demo_camera("avatar", device=device)
+    scene.update(0.5, cam)
+    _, params, configs = scene._sorted_layers(cam)
+    plans = [scene._texture_plan(p, c) for p, c in zip(params, configs)]
+    pdata, pmeta = scene._pano_plan()
+    return (scene, cam, params, tuple(c for c, _ in plans), tuple(t for _, t in plans), pdata,
+            pmeta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("textured", [False, True])
+def test_band_entries_match_plain(cuda, baked, textured):
+    """Two 32-row shards of a 64×128 frame through ``render_scene_band_megakernel``:
+    one K1 launch per layer (the moon's fused with the sky and its
+    pre-pass), no plain call; each within the cloud tolerance of the plain
+    band chain on the same CUDA inputs, its depth the opaque pass's."""
+    scene, cam, params, configs, tex, pdata, pmeta = _shard_scene(cuda, baked if textured else None)
+    for r0 in (0, 32):
+        mk.counters.reset()
+        ts.counters.reset()
+        got = mk.render_scene_band_megakernel(params, configs, cam, scene.opaque, H, W, r0, 32,
+                                              tex_data=tex, pano_data=pdata, pano_meta=pmeta)
+        torch.cuda.synchronize()
+        assert (mk.counters.megakernel_launches, mk.counters.sky_launches,
+                mk.counters.sky_choice_launches, mk.counters.texture_launches) == (
+                    2, 1, 1, int(textured))
+        assert mk.counters.plain_calls == 0 and ts.counters.plain_sky_calls == 0
+        ref = mk.render_scene_band_plain(params, configs, cam, scene.opaque, H, W, r0, 32,
+                                         tex_data=tex, pano_data=pdata, pano_meta=pmeta)
+        assert got["color"].shape == (32, W, 3) and _cloud_ok(_image(got), _image(ref))
+        rel = ((got["linear_depth"] - ref["linear_depth"]).abs() / ref["linear_depth"]).cpu()
+        assert (rel > 1e-5).double().mean() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row0,rows", [(540, 540), (256, 256), (0, 1080)])
+def test_sky_choice_prepass_on_a_band_matches_plain(cuda, row0, rows):
+    scene, cam, params, configs, tex, pdata, pmeta = _shard_scene(cuda)
+    _, struct, args = mk.band_launches(params, configs, cam, scene.opaque, 1080, 1920, row0, rows,
+                                       tex_data=tex, pano_data=pdata, pano_meta=pmeta)[0]
+    got = mk.sky_choices(struct, args["sky"][0], cuda)
+    ref = mk.sky_choices_plain(cam, 1080, 1920, pmeta, row0=row0, rows=rows)
+    assert torch.equal(got.cpu(), ref.cpu())
+
+
+@pytest.mark.cuda
+def test_taa_band_mode_matches_plain_and_reassembles_the_full_frame(cuda):
+    """K3 on four 64-row shards with 32 halo rows (zeros past the frame's
+    edges) against its plain version, bit for bit, and put together equal
+    to the full-frame launch, bit for bit."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import taa
+    from godot_atmosphere_shader_tpu_torch.utils.camera import Camera, look_at
+
+    h, w, rows, halo = 256, 384, 64, 32
+    cur, ld, hist = _taa_planes(h, w, 11, cuda)
+    prev = Camera.create(look_at((0.3, 0.4, 0.2), (0.3, 0.2, -10.0), device=cuda), device=cuda)
+    now = Camera.create(look_at((0.0, 0.0, 0.0), (0.0, 0.0, -10.0), device=cuda), device=cuda)
+    p = taa.taa_constants(prev, now, 0.2, h, w, h)
+    full, full_depth = torch.empty_like(cur), torch.empty_like(ld)
+    taa.launch(p, cur, ld, hist, ld, full, full_depth)
+    zeros = lambda t: torch.zeros((halo,) + tuple(t.shape[1:]), device=cuda)  # noqa: E731
+    hp = torch.cat([zeros(hist), hist, zeros(hist)])
+    dp = torch.cat([zeros(ld), ld, zeros(ld)])
+    taa.counters.reset()
+    bands = []
+    for r0 in range(0, h, rows):
+        pb = taa.taa_constants(prev, now, 0.2, h, w, rows + 2 * halo, rows=rows, row0=r0,
+                               hist_row0=r0 - halo)
+        args = (cur[r0:r0 + rows], ld[r0:r0 + rows], hp[r0:r0 + rows + 2 * halo].contiguous(),
+                dp[r0:r0 + rows + 2 * halo].contiguous())
+        out, depth = torch.empty_like(args[0]), torch.empty_like(args[1])
+        taa.launch(pb, *args, out, depth)
+        ref, ref_depth, _ = taa.resolve_plain(pb, *args)
+        assert torch.equal(out, ref) and torch.equal(depth, ref_depth)
+        bands.append(out)
+    assert taa.counters.launches == h // rows
+    assert torch.equal(torch.cat(bands), full)
+
+
+@pytest.mark.cuda
+def test_sharded_taa_flight_matches_plain(cuda):
+    """Three frames on 2 shards of 32 rows: K1 2·layers·K and K3 2·K launches,
+    no plain call, each frame within the cloud tolerance of the plain
+    sharded flight on the same CUDA inputs."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import taa
+    from godot_atmosphere_shader_tpu_torch.parallel import sharding
+    from godot_atmosphere_shader_tpu_torch.utils.flight import FlyCamera
+
+    scene = _with_panorama(build_demo_scene("clouds_high", device=cuda), cuda)
+    fly = FlyCamera(position=(0.0, 0.0, 156.425), speed=10.0)
+    stack = []
+    for _ in range(3):
+        stack.append(fly.view_to_world())
+        fly.look(0.004, 0.003).move((0.0, 0.0, -1.0), dt=1 / 60)
+    stack = np.stack(stack)
+    cam = fly.camera(device=cuda)
+    times = [0.5 + i / 60.0 for i in range(3)]
+    mesh = sharding.make_mesh(2)
+    mk.counters.reset()
+    taa.counters.reset()
+    out = scene.render_flight(cam, times, H, W, cam_transforms=stack, taa_blend=0.2, mesh=mesh)
+    torch.cuda.synchronize()
+    assert (mk.counters.megakernel_launches, taa.counters.launches) == (6, 6)
+    assert mk.counters.plain_calls == 0 and taa.counters.plain_calls == 0
+    order, params, configs = scene._sorted_layers(cam)
+    fs = [np.stack([a.frame_state_row(t, s[:3, 3].astype(np.float64), 0.1)
+                    for t, s in zip(times, stack)]) for a in order]
+    pdata, pmeta = scene._pano_plan()
+    ref = sharding.render_flight_taa_sharded_plain(params, fs, configs, cam, scene.opaque, H, W,
+                                                   mesh, cam_stack=stack, blend=0.2,
+                                                   pano_data=pdata, pano_meta=pmeta)
+    for i in range(3):
+        assert _cloud_ok(_image({"color": out["color"][i], "alpha": out["alpha"][i]}),
+                         _image({"color": ref["color"][i], "alpha": ref["alpha"][i]})), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("change", [dict(knot_dynamic=False), dict(cloud_coverage_interp=False)])
+def test_card_refuses_configs_outside_the_kernel(cuda, change):
+    """The plain chain renders these on the CPU; the card raises."""
+    params, config, cam, opaque = _inputs("clouds", "avatar", cuda)
+    with pytest.raises(ValueError):
+        mk.render_frame_megakernel(params, dataclasses.replace(config, **change), cam, opaque,
+                                   H, W)
+
+
+@pytest.mark.cuda
+def test_card_refuses_an_unpackable_texture(cuda):
+    scene = build_demo_scene("clouds", procedural=False, device=cuda, textures=(
+        torch.rand((12, 12, 12), device=cuda), torch.rand((6, 32, 32), device=cuda)))
+    cam = demo_camera("avatar", device=cuda)
+    scene.update(0.5, cam)
+    with pytest.raises(ValueError, match="pyramid metas"):
+        scene.render(cam, H, W)
+
+
+@pytest.mark.cuda
+def test_launch_struct_mirrors_match_the_built_kernels(cuda):
+    """The library's own sizes of the launch structs against the ctypes
+    mirrors (``TaaParams`` with its band fields)."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import taa
+
+    mk.load_library()
+    taa._launcher()

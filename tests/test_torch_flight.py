@@ -33,6 +33,7 @@ from godot_atmosphere_shader_tpu_torch.models import demo as tdemo
 from godot_atmosphere_shader_tpu_torch.models import scene as tscene
 from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 from godot_atmosphere_shader_tpu_torch.ops.kernels import taa
+from godot_atmosphere_shader_tpu_torch.parallel.sharding import make_mesh
 from godot_atmosphere_shader_tpu_torch.render import jitter as tjitter
 from godot_atmosphere_shader_tpu_torch.render.opaque import render_opaque
 from godot_atmosphere_shader_tpu_torch.render.renderer import render_frame
@@ -220,8 +221,10 @@ def test_plain_depth_output_is_the_opaque_pass():
 def test_render_flight_refusals():
     scene = tdemo.build_demo_scene("clouds_high", device="cpu")
     cam = tdemo.demo_camera("avatar", device="cpu")
-    with pytest.raises(NotImplementedError):
-        scene.render_flight(cam, TIMES, 8, 128, taa_blend=0.2, mesh=object())
+    with pytest.raises(ValueError):  # a mesh shards the TAA flight only (as JAX)
+        scene.render_flight(cam, TIMES, 64, 128, mesh=make_mesh(2))
+    with pytest.raises(ValueError):  # not a mesh
+        scene.render_flight(cam, TIMES, 64, 128, taa_blend=0.2, mesh=object())
     far = tdemo.Camera.create(tdemo.look_at((0.0, 0.0, 5.0e4), (0.0, 0.0, 0.0), device="cpu"),
                               device="cpu")
     with pytest.raises(NotImplementedError):

@@ -109,9 +109,12 @@ def test_cpu_tensors_take_the_plain_path(clouds_high):
     dict(knot_dynamic=False), dict(cloud_coverage_tex_meta=object()),
 ])
 def test_wrapper_rejects_unsupported_config(clouds_high, change):
+    """The kernel's envelope: ``check_config`` refuses each of these (the
+    wrapper applies it to CUDA tensors; on the CPU the plain chain refuses
+    only what the plain ops do not take)."""
     params, cfg, cam, opaque = clouds_high[1]
     with pytest.raises(ValueError):
-        mk.render_frame_megakernel(params, dataclasses.replace(cfg, **change), cam, opaque, H, W)
+        mk.check_config(dataclasses.replace(cfg, **change))
 
 
 def test_wrapper_takes_temporal_jitter(clouds_high):

@@ -181,6 +181,79 @@ def test_cases_exercise_their_rules():
     assert not bool(_valid("sideways_shift").all())
 
 
+# -- band mode: one row shard's rows against its halo'd history band ---------------
+
+
+BAND_H, BAND_ROWS, HALO = 128, 32, 32
+
+
+def _band_case():
+    """``tests/test_sharding_taa.py:34-63``: blocky planes at depth 50, the
+    camera moved by (0, 0.1, 0.2); 32-row shards whose history bands carry
+    32 halo rows, zeros past the frame's edges."""
+    def blocky(seed):
+        g = np.random.default_rng(seed).random((BAND_H // 8 + 2, BAND_H // 8 + 2))
+        img = np.kron(g, np.ones((8, 8)))[:BAND_H, :BAND_H]
+        return np.stack([img, img * 0.5 + 0.2, 1.0 - img], -1).astype(np.float32)
+
+    prev = _look((0.0, 0.1, 0.2), (0.0, 0.0, -1.0))
+    cur = _look((0.0, 0.0, 0.0), (0.0, 0.0, -1.0))
+    depth = np.full((BAND_H, BAND_H), 50.0, np.float32)
+    return blocky(1), depth, blocky(2), prev, cur
+
+
+def _look(eye, target):
+    from godot_atmosphere_shader_tpu_torch.utils.camera import look_at
+
+    return look_at(eye, target, device="cpu").numpy().astype(np.float32)
+
+
+def _bands(cur, depth, hist):
+    """Per shard: (row0, its rows, its history band, its history depth band)."""
+    pad = lambda a: np.concatenate([np.zeros((HALO,) + a.shape[1:], a.dtype), a,  # noqa: E731
+                                    np.zeros((HALO,) + a.shape[1:], a.dtype)])
+    hp, dp = pad(hist), pad(depth)
+    for r0 in range(0, BAND_H, BAND_ROWS):
+        yield (r0, cur[r0:r0 + BAND_ROWS], depth[r0:r0 + BAND_ROWS],
+               hp[r0:r0 + BAND_ROWS + 2 * HALO], dp[r0:r0 + BAND_ROWS + 2 * HALO])
+
+
+def test_band_mode_reassembles_the_full_frame_bit_for_bit():
+    cur, depth, hist, prev, now = _band_case()
+    t = torch.from_numpy
+    cams = [Camera.create(m, device="cpu") for m in (prev, now)]
+    full, full_depth = taa.taa_resolve(t(cur), t(depth), t(hist), *cams, 0.25, BAND_H, BAND_H,
+                                       history_depth=t(depth))
+    bands, depths = [], []
+    for r0, c, d, hb, db in _bands(cur, depth, hist):
+        out, dout = taa.taa_resolve(t(c), t(d), t(hb), *cams, 0.25, BAND_H, BAND_H,
+                                    history_depth=t(db), row0=r0, hist_row0=r0 - HALO)
+        bands.append(out)
+        depths.append(dout)
+    assert torch.equal(torch.cat(bands), full)
+    assert torch.equal(torch.cat(depths), full_depth)
+    p = taa.taa_constants(*cams, 0.25, BAND_H, BAND_H, BAND_ROWS + 2 * HALO, rows=BAND_ROWS,
+                          row0=64, hist_row0=64 - HALO)
+    assert (p.rows, p.row0, p.hist_rows, p.hist_row0, p.win_rows) == (32, 64, 96, 32, 64)
+
+
+def test_band_mode_matches_jax():
+    cur, depth, hist, prev, now = _band_case()
+    jcams = [JaxCamera.create(jnp.asarray(m)) for m in (prev, now)]
+    cams = [Camera.create(m, device="cpu") for m in (prev, now)]
+    t = torch.from_numpy
+    for r0, c, d, hb, db in _bands(cur, depth, hist):
+        ref, ref_depth = jax_taa_resolve(jnp.asarray(c), jnp.asarray(d), jnp.asarray(hb), *jcams,
+                                         0.25, BAND_H, BAND_H, interpret=True,
+                                         history_depth=jnp.asarray(db), row0=float(r0),
+                                         hist_row0=float(r0 - HALO))
+        got, got_depth = taa.taa_resolve_plain(t(c), t(d), t(hb), *cams, 0.25, BAND_H, BAND_H,
+                                               history_depth=t(db), row0=r0,
+                                               hist_row0=r0 - HALO)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=ATOL)
+        np.testing.assert_array_equal(got_depth.numpy(), np.asarray(ref_depth))
+
+
 @pytest.mark.parametrize("rows,hist_rows,width,mode", [
     (60, 64, 128, "minmax"), (64, 60, 128, "minmax"), (64, 64, 100, "minmax"),
     (64, 64, 128, "bogus")])

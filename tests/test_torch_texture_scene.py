@@ -154,11 +154,20 @@ def test_partial_tiles_render(textures, size):
 
 
 def test_unpackable_texture_raises(textures):
+    """A 48³ shape texture the pyramid builder refuses: the layer keeps no
+    pyramid metas, which the kernel's envelope refuses (the card raises);
+    on the CPU the plain chain samples it exactly."""
     scene, cam = _port_scene(textures, "avatar")
     scene.atmospheres[0].set_shader_parameter("u_cloud_shape_texture",
                                               np.zeros((48, 48, 48), np.float32))
+    _, params, configs = scene._sorted_layers(cam)
+    cfg, tex = scene._texture_plan(params[0], configs[0])
+    assert tex is None and cfg.cloud_shape_tex_meta is None
     with pytest.raises(ValueError):
-        scene.render(cam, H, W)
+        mk.check_config(cfg)
+    out = scene.render(cam, H, W)
+    exact = render_frame(params[0], cfg, cam, scene.opaque, H, W)
+    assert torch.equal(out["color"], exact["color"])
 
 
 def test_pyramids_are_built_once_per_texture(textures):
@@ -211,9 +220,10 @@ def test_texture_config_converts_from_jax(jax_scene, textures):
                                     dict(texture_knot_group=9),
                                     dict(cloud_coverage_tex_meta=None, cloud_coverage_noise=None)])
 def test_wrapper_rejects_texture_configs_outside_the_kernel(textures, change):
+    """The texture instance's envelope (``check_config``, which the wrapper
+    applies to CUDA tensors)."""
     scene, cam = _port_scene(textures, "avatar")
     _, params, configs = scene._sorted_layers(cam)
     cfg, tex = scene._texture_plan(params[0], configs[0])
     with pytest.raises(ValueError):
-        mk.render_frame_megakernel(params[0], dataclasses.replace(cfg, **change), cam,
-                                   scene.opaque, H, W, tex_data=tex)
+        mk.check_config(dataclasses.replace(cfg, **change))
