@@ -133,11 +133,45 @@ mesh, ``parallel/sharding.py``) runs in three more phases:
    frame's kernel ms against the single-card frame's, the plain band
    chain's ms, the sharded flight's ms per frame, host ms and idle share.
 
+K1's procedural envelope (slice (h): the general instance, every noise
+basis and fractal, per-step fields, the detail field, any knot count and
+LOD group) and the peak probe T2 run in four more phases:
+
+7b. (run right after the build: every bound divides by its rates) T2's
+   fma, expf, __expf and uint32 multiply-add chains against their plain
+   version (fmaf against a multiply then an add: atol 1e-5; expf 1e-5;
+   __expf 1e-4; uint32 exact), then timed on the card: the fp32 FLOP/s
+   (an FMA is 2), exp/s, __expf/s and INT32 instructions/s beside the data
+   sheet's 67 TFLOP/s and the INT32 rate derived from it, with the SM
+   clock, power and limit sampled under load; the bounds take the measured
+   rates (fp32 and int32 operations apart);
+3g. small (256×384): 26 envelope configs on the demo scene (each basis
+   as shape and as coverage, cellular with its three returns; ping-pong;
+   weighted fbm, ridged, ping-pong; coverage
+   K = 4, 16; shape knots K_s = 8, 16, 32; full quality with shape and
+   detail knots under cheap and raymarched light; LOD groups of 16 and 32
+   rows, the 16-row one also over 248 rows, its last group partial; the
+   demo profile's hat-sum twin) through ``Scene.render`` (one K1
+   launch, the planned instance, no plain call) against plain: the cloud
+   tolerance, at full quality the detail tolerance (p99 for p99.9), whose
+   reason is measured first: the plain frame against itself with the
+   camera one ulp away;
+4f. 1080p through ``Scene.render``: the cellular tier, the reference
+   shader's per-step profile, the ``.tscn`` importer's profile and full
+   quality (4 general-instance launches, no plain call), each against the
+   plain frame, or against three 64-row plain bands (top, middle, bottom)
+   where one band projects the plain frame past 30 s;
+5e. per 4f frame: kernel ms with its bound (work counters under the
+   measured peak), ``Scene.render`` ms and idle share, plain ms (or the
+   band's, projected); the flagship through the register instance against
+   the same config forced through the general one (knots in registers or
+   in shared memory), in turns.
+
 Prints a JSON line describing each kernel (with its roofline bound from
 this run's work counters), then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
 line.  Run from the repository root: ``python3 chip_smoke.py``
-(``--quick`` stops after phase 3f).
+(``--quick`` stops after phase 3g).
 """
 
 from __future__ import annotations
@@ -166,28 +200,49 @@ CHECK_CASES = (("no_clouds", "avatar"), ("clouds", "avatar"),
 TEXTURE_POSES = ("avatar", "interior")
 K2_ATOL = 2e-6
 BAKE_ATOL = 1e-5
-KERNEL_FRAMES = 20
-PLAIN_FRAMES = 3
+KERNEL_FRAMES = 10
+PLAIN_FRAMES = 2
 
-# One H100 SXM (NVIDIA data sheet): fp32 outside the tensor cores, HBM rate.
-PEAK_FP32 = 67e12
+# One H100 SXM (NVIDIA data sheet): fp32 outside the tensor cores, HBM rate;
+# the INT32 rate derived from the SM's 64 INT32 lanes (half its 128 FP32
+# lanes) at the data sheet's 1.98 GHz, in instructions per second.  Every
+# bound divides by the rates that phase 7b measures on this card (PEAK,
+# set before the first bound); the spec values are printed beside them.
+SPEC_FP32 = 67e12
+SPEC_INT32 = 132 * 64 * 1.98e9
+PEAK = {"fp32": SPEC_FP32, "int32": SPEC_INT32}
 PEAK_BYTES = 3.35e12
 # Arithmetic operations per unit of work, counted by hand from
-# csrc/megakernel.cu (one per add, multiply, compare, select, integer op or
-# special function; a fused multiply-add counts 2; loads count 0).  The
-# kernel's work counters say how many units this run's inputs needed.
+# csrc/megakernel.cu (one per add, multiply, compare, select, conversion or
+# special function; a fused multiply-add counts 2; loads count 0), fp32
+# apart from int32 (one per integer instruction).  The kernel's work
+# counters say how many units this run's inputs needed.
 OPS_PIXEL = 260            # ray, opaque pass, shell and ground hits, composite
 OPS_ATMOSPHERE = 2740      # 8 steps of v2 with 2 × 8-node analytic sun depth
-OPS_COVERAGE_KNOT = 4020   # procedural: 3-octave warp + 5-octave simplex FBM
-OPS_STEP = 115             # one march step with knot-interpolated fields
-OPS_SHAPE_NOISE = 392      # procedural shape field (3-octave ridged value)
+OPS_STEP = 115             # one march step with interpolated or given fields
+# One evaluation of each noise basis, (fp32, int32): corner hashes
+# (mix_fast 6 integer ops, mix 8), gradients from 10-bit hash fields,
+# fades and lerps; cellular: 27 cells of a hash, a feature point (two more
+# mixes) and a distance; cellular_fast: 8 cells.
+BASIS_OPS = {"value": (58, 71), "simplex_smooth": (475, 245), "perlin": (164, 119),
+             "simplex": (147, 103), "cellular": (663, 949), "cellular_fast": (192, 282)}
+# per octave of each fractal (the octave's amplitude, the lacunarity), and
+# what weighted_strength adds; one warp octave (a value-noise vec3 and the
+# offset); a field (scale, frequency, 0.5 + 0.5 n); the coverage field's
+# rotation and normalisation; the detail field's position
+FRACTAL_OPS = {"none": 0, "fbm": 5, "ridged": 8, "ping_pong": 15}
+WEIGHTED_OPS = 5
+WARP_OPS = (165, 119)
+FIELD_OPS = 8
+COVERAGE_POINT_OPS = 22
+DETAIL_POINT_OPS = 6
 OPS_TEX3D = 110            # trilinear sample, position and footprint pass
 OPS_TEX3D_FLOOR = 57       # nearest floor-level sample
 OPS_LATLONG = 205          # polynomial (u, v) twice and a bilinear sample
 OPS_LATLONG_FLOOR = 190
 # one sun-march sample of raymarched lighting (sun_march): position 7,
-# length 6, height ratio 3, low-quality density 23, exp 5, alpha and step
-# 6; plus the procedural shape field (OPS_SHAPE_NOISE) where it is evaluated
+# length 6, height ratio 3, density 23, exp 5, alpha and step 6; plus the
+# procedural fields where they are evaluated
 OPS_SUN_SAMPLE = 50
 # one v1 integration (atmosphere_v1): 16 steps of ~42 (distance 10,
 # direction 4, cubic density 8, sun term 10, light sum and factor 5, advance
@@ -223,7 +278,7 @@ TAA_MAX_ERR = 1e-4       # max |Δ| where kernel and plain agree on validity
 TAA_MAX_FLIPS = 1e-4     # share of pixels whose validity may differ
 FLIGHT_FRAMES = 8
 FLIGHT_BLEND = 0.15
-FLIGHT_REPS = 3
+FLIGHT_REPS = 2
 SMALL_FLIGHT_FRAMES = 4
 FILL_LAUNCHES = 32
 # the moon's atmosphere of the multi-planet cells (bench.py:270-274)
@@ -254,6 +309,25 @@ GLOW_ATOL = 1e-5
 # tile for 4 shards), the flagship at 1080p on 2 shards of 540 rows; K3's
 # band mode alone with a 32-row halo
 BYTES_BAND_PIXEL = 20
+# K1 slice (h), the procedural envelope: the four 1080p frames of phase 4f,
+# and the plain check of a frame that costs more than PLAIN_FULL_LIMIT_S on
+# the card: three 64-row bands (top, horizon, bottom) of the plain band
+# renderer against the kernel's full frame
+ENVELOPE_FRAMES = ("cellular_tier", "reference_profile", "tscn_profile", "full_quality")
+PLAIN_BAND_ROWS = 64
+PLAIN_FULL_LIMIT_S = 30.0
+# the peak probe (T2): blocks per SM of 256 threads (4 waves at 8 resident
+# blocks), loop iterations per launch (tens of ms each), iterations of the
+# check against the plain chains and each op's tolerance there: fmaf
+# against a multiply then an add (the chains contract towards their fixed
+# point, so the gap stays a few ulps per chain, ~2e-6 over 16), the
+# accurate expf against torch.exp, __expf's few-ulp error, uint32 exact
+PEAK_BLOCKS_PER_SM = 32
+PEAK_ITERS = {"fma": 8192, "exp": 512, "fast_exp": 1024, "imad": 4096}
+PEAK_CHECK_ITERS = 16
+PEAK_TOL = {"fma": 1e-5, "exp": 1e-5, "fast_exp": 1e-4, "imad": 0.0}
+PEAK_REPS = 3
+ENVELOPE_KERNEL_FRAMES = 5
 SMALL_SHARDS = 2
 SHARD_SIZE = (1024, 1920)
 SHARDS = 4
@@ -271,13 +345,23 @@ def cloud_deltas(got: np.ndarray, ref: np.ndarray) -> dict:
     per_pixel = d.reshape(d.shape[0], d.shape[1], -1).max(axis=-1)
     worst = np.unravel_index(int(per_pixel.argmax()), per_pixel.shape)
     return {"max": float(d.max()), "mean": float(d.mean()),
-            "p999": float(np.percentile(d, 99.9)),
+            "p99": float(np.percentile(d, 99.0)), "p999": float(np.percentile(d, 99.9)),
             "frac_above_1e-2": float((per_pixel > 1e-2).mean()),
             "worst_pixel": [int(worst[0]), int(worst[1])]}
 
 
 def cloud_tolerance_ok(st: dict) -> bool:
     return (st["p999"] <= 1e-3 and st["mean"] <= 1e-4
+            and st["frac_above_1e-2"] <= 1e-3)
+
+
+def detail_tolerance_ok(st: dict) -> bool:
+    """Full-quality frames: the detail field samples the shape field at
+    pos·15, so one ulp of a march position moves a cloud pixel by ~1e-3
+    (phase 3g measures it: the plain frame against itself with the camera
+    one ulp away).  p99 takes the place of p99.9; the rest is the cloud
+    tolerance."""
+    return (st["p99"] <= 1e-3 and st["mean"] <= 1e-4
             and st["frac_above_1e-2"] <= 1e-3)
 
 
@@ -429,33 +513,73 @@ def busy_us(events) -> float:
     return busy
 
 
+def noise_ops(field, coverage: bool = False) -> tuple:
+    """(fp32, int32) operations of one evaluation of a procedural field
+    (``ProceduralField``): its warp, each octave's basis and fractal step,
+    the field's own arithmetic (and the coverage field's rotation)."""
+    spec = field.noise
+    fp, it = BASIS_OPS[spec.noise_type]
+    octaves = 1 if spec.fractal_type == "none" else spec.octaves
+    per = FRACTAL_OPS[spec.fractal_type] + (WEIGHTED_OPS if spec.weighted_strength else 0)
+    warp = spec.warp_octaves if spec.warp_enabled else 0
+    return (octaves * (fp + per) + warp * WARP_OPS[0] + FIELD_OPS
+            + (COVERAGE_POINT_OPS if coverage else 0),
+            octaves * it + warp * WARP_OPS[1])
+
+
+def ops_time_ms(fp_ops: float, int_ops: float = 0.0) -> float:
+    """The least time of these operations on this card: fp32 operations
+    over the measured fp32 peak, int32 instructions over the measured INT32
+    rate, where both share the warp schedulers' one dispatch per clock and
+    INT32 has half the lanes: max(t_fp + t_int / 2, t_int)."""
+    t_fp = fp_ops / PEAK["fp32"] * 1e3
+    t_int = int_ops / PEAK["int32"] * 1e3
+    return max(t_fp + t_int / 2.0, t_int)
+
+
 def roofline(work: dict, config, height: int, width: int, table_bytes: int = 0,
              frame_bytes=None, sky_bytes: int = 0, sky_choice_ops: int = 0) -> dict:
     """The least time the card could take for this launch's work: the
-    larger of its operations over the fp32 peak and its bytes (frame planes
-    read and written once, ``frame_bytes``, by default the outputs of a
-    fullscreen layer; blue noise and pyramids read once; ``sky_bytes``: the
-    sky levels its tiles chose) over the HBM rate.  ``sky_choice_ops``: the
-    operations of the sky's per-tile choice (:func:`sky_cost`)."""
+    larger of its operations' time (:func:`ops_time_ms`, fp32 and int32
+    apart) and its bytes (frame planes read and written once,
+    ``frame_bytes``, by default the outputs of a fullscreen layer; blue
+    noise and pyramids read once; ``sky_bytes``: the sky levels its tiles
+    chose) over the HBM rate.  ``sky_choice_ops``: the operations of the
+    sky's per-tile choice (:func:`sky_cost`).  A procedural layer's noise
+    comes from the work counters: the register instance evaluates the
+    coverage at its knots and the shape at every step and sun sample; the
+    general instance counts each field's evaluations and knots itself."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
     steps = config.cloud_steps
-    textured = table_bytes > 0
-    sun_ops = OPS_SUN_SAMPLE + (0 if textured else OPS_SHAPE_NOISE)
+    procedural = config.clouds_enabled and config.cloud_shape_noise is not None
     ops = (work["pixels"] * OPS_PIXEL + work["atmosphere"] * OPS_ATMOSPHERE
            + work["v1_atmosphere"] * OPS_V1_ATMOSPHERE
            + work["opaque_pixels"] * OPS_OPAQUE_PIXEL
-           + work["march"] * steps * (OPS_STEP + (0 if textured else OPS_SHAPE_NOISE))
-           + work["sun_samples"] * sun_ops
+           + work["march"] * steps * OPS_STEP + work["sun_samples"] * OPS_SUN_SAMPLE
            + work["tex3d"] * OPS_TEX3D + work["tex3d_floor"] * OPS_TEX3D_FLOOR
            + work["latlong"] * OPS_LATLONG + work["latlong_floor"] * OPS_LATLONG_FLOOR)
-    if not textured:
-        ops += work["knot_groups"] * (config.cloud_coverage_knots + 1) * OPS_COVERAGE_KNOT
+    int_ops = 0
+    if procedural:
+        cov = noise_ops(config.cloud_coverage_noise, coverage=True)
+        shape = noise_ops(config.cloud_shape_noise)
+        detail = (shape[0] + DETAIL_POINT_OPS, shape[1])
+        units = [(cov, work["knot_groups"] * (max(config.cloud_coverage_knots, 1) + 1))]
+        if mk.register_instance(config):
+            units.append((shape, work["march"] * steps + work["sun_samples"]))
+        else:
+            units += [(cov, work["coverage_evals"]), (shape, work["shape_evals"]),
+                      (detail, work["detail_evals"]), (shape, work["shape_knots"]),
+                      (detail, work["detail_knots"])]
+        ops += sum(u[0] * n for u, n in units)
+        int_ops = sum(u[1] * n for u, n in units)
     ops += (sky_choice_ops + work["sky"] * OPS_SKY_SAMPLE
             + work["sky_floor"] * OPS_SKY_FLOOR)
     if frame_bytes is None:
         frame_bytes = height * width * BYTES_LAYER_PIXEL
     nbytes = frame_bytes + 256 * 256 * 4 + table_bytes + sky_bytes
-    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    return {"ops": ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+    t_ops, t_bytes = ops_time_ms(ops, int_ops), nbytes / PEAK_BYTES * 1e3
+    return {"ops": ops, "int_ops": int_ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
@@ -828,12 +952,12 @@ def expected_choice_launches(plan, sky: bool) -> int:
     return int(sky and not (fused and mk.texture_mode(configs[0])))
 
 
-def check_scene(label: str, scene, cam, h: int, w: int) -> tuple:
+def check_scene(label: str, scene, cam, h: int, w: int, ok=cloud_tolerance_ok) -> tuple:
     """``Scene.render`` through the kernel (counters: the planned launches,
     one drawing the sky when the scene has a panorama and the sky's
     pre-pass where planned, no plain call, no plain sky sampler call)
-    against the plain chain on the same inputs (cloud tolerance); returns
-    the largest |Δ| and the kernel's frame."""
+    against the plain chain on the same inputs (``ok``: the cloud
+    tolerance); returns the largest |Δ| and the kernel's frame."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
     from godot_atmosphere_shader_tpu_torch.ops.kernels import texsample as ts
 
@@ -858,7 +982,7 @@ def check_scene(label: str, scene, cam, h: int, w: int) -> tuple:
     sky = pano_data is not None
     if counts != (expected_launches(plan), int(sky), expected_choice_launches(plan, sky), 0):
         raise RuntimeError(f"{label}: the frame did not go through the planned K1 launches only")
-    if not cloud_tolerance_ok(st):
+    if not ok(st):
         raise RuntimeError(f"{label}: kernel disagrees with plain")
     return st["max"], got
 
@@ -1002,7 +1126,7 @@ def k2_timing(device) -> dict:
              kw.get("band_max_slices", 32)), 1, warmup=0),
          "library_ms": None, "launches": mk.counters.texsample_launches}
     samples = b * n
-    t_ops = samples * OPS_TEX3D / PEAK_FP32 * 1e3
+    t_ops = ops_time_ms(samples * OPS_TEX3D)
     t_bytes = (samples * 16 + table.numel() * 4) / PEAK_BYTES * 1e3
     t.update(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
     if not (err <= K2_ATOL and same):
@@ -1216,7 +1340,7 @@ def taa_band_check(device, h: int, w: int, n: int, halo: int) -> dict:
         plain_ms.append(time_cuda(lambda i, p=p, a=args: taa.resolve_plain(p, *a), 3))
     reassembled = bool(torch.equal(torch.cat(bands), full))
     t_bytes = (rows * w * BYTES_TAA_PIXEL + 2 * halo * w * 16) / PEAK_BYTES * 1e3
-    t_ops = rows * w * OPS_TAA_PIXEL / PEAK_FP32 * 1e3
+    t_ops = ops_time_ms(rows * w * OPS_TAA_PIXEL)
     t = {"shards": n, "rows": rows, "halo": halo, "max_abs_err": err,
          "equal_to_plain": exact, "reassembled_equal_to_full": reassembled,
          "ms_per_shard": ms, "ms": sum(ms) / n, "plain_ms": sum(plain_ms) / n,
@@ -1257,12 +1381,319 @@ def nccl_world_of_one(device, frame, flight) -> dict:
     return {"backend": backend, "mesh_size": mesh.size, "bit_equal": same}
 
 
+# -- K1 slice (h): the procedural envelope ----------------------------------------
+
+
+def envelope_config(name: str):
+    """A config of K1's procedural envelope on the demo scene, from the
+    flagship ``clouds_high`` (``dataclasses.replace``, as the users' own
+    configs are built): the four frames of phase 4f (:data:`ENVELOPE_FRAMES`)
+    and the small cases of phase 3g (:func:`envelope_cases`)."""
+    from godot_atmosphere_shader_tpu_torch.models import demo
+    from godot_atmosphere_shader_tpu_torch.models.params import VARIANTS, ProceduralField
+
+    flagship = demo.demo_variant("clouds_high")
+    if name == "cellular_tier":  # render --shape-basis cellular
+        return demo.demo_variant("clouds_high", shape_basis="cellular")
+    if name == "reference_profile":  # the reference shader: every field per step
+        return dataclasses.replace(flagship, cloud_coverage_interp=False, cloud_coverage_lod=1,
+                                   cloud_lod=1, cloud_lod_interior=0, knot_dynamic=False)
+    if name == "tscn_profile":  # what models/tscn.py:503-512 builds from the demo's .tscn
+        return dataclasses.replace(
+            VARIANTS["clouds"],
+            cloud_shape_noise=ProceduralField(noise=demo.SHAPE_NOISE_BAKE,
+                                              scale=(float(demo.SHAPE_TEXTURE_SIZE),) * 3),
+            cloud_coverage_noise=ProceduralField(noise=demo.COVERAGE_NOISE,
+                                                 scale=demo.COVERAGE_SCALE),
+            cloud_coverage_interp=True)
+    if name == "full_quality":  # the detail field per step
+        return dataclasses.replace(flagship, clouds_always_low_quality=False)
+    return envelope_cases()[name]
+
+
+def envelope_cases() -> dict:
+    """Phase 3g's small cases beyond the four frames: each basis as the
+    shape and as the coverage (cellular with its three returns), the
+    ping-pong fractal, weighted_strength under fbm, ridged and ping-pong,
+    coverage K = 4 and 16, procedural shape knots K_s = 8, 16, 32, full
+    quality with shape and detail knots under cheap and raymarched light,
+    LOD groups of 16 and 32 rows, and hat-sum knots on the demo profile."""
+    from godot_atmosphere_shader_tpu_torch.models import demo
+
+    flagship = demo.demo_variant("clouds_high")
+    shape, cov = flagship.cloud_shape_noise, flagship.cloud_coverage_noise
+
+    def field(f, **kw):
+        return dataclasses.replace(f, noise=dataclasses.replace(f.noise, **kw))
+
+    cases = {}
+    for basis, ret in (("perlin", "distance"), ("simplex", "distance"), ("cellular", "distance"),
+                       ("cellular", "distance2"), ("cellular", "cell_value"),
+                       ("cellular_fast", "distance")):
+        label = basis if basis != "cellular" else f"cellular_{ret}"
+        cases[f"shape_{label}"] = dict(cloud_shape_noise=field(shape, noise_type=basis,
+                                                               cellular_return=ret))
+        cases[f"coverage_{label}"] = dict(cloud_coverage_noise=field(cov, noise_type=basis,
+                                                                     cellular_return=ret))
+    cases["shape_ping_pong"] = dict(cloud_shape_noise=field(shape, fractal_type="ping_pong"))
+    cases["coverage_fbm_weighted"] = dict(cloud_coverage_noise=field(cov, weighted_strength=0.5))
+    cases["shape_ridged_weighted"] = dict(cloud_shape_noise=field(shape, weighted_strength=0.5))
+    cases["shape_ping_pong_weighted"] = dict(cloud_shape_noise=field(
+        shape, fractal_type="ping_pong", weighted_strength=0.5))
+    for k in (4, 16):
+        cases[f"coverage_k{k}"] = dict(cloud_coverage_knots=k)
+    for k in (8, 16, 32):
+        cases[f"shape_knots_{k}"] = dict(cloud_shape_interp=True, cloud_shape_knots=k)
+    cases["detail_knots_cheap"] = dict(cloud_shape_interp=True, clouds_always_low_quality=False)
+    cases["detail_knots_raymarched"] = dict(cloud_shape_interp=True,
+                                            clouds_always_low_quality=False,
+                                            raymarched_lighting=True)
+    cases["group_16"] = dict(cloud_lod=8, cloud_coverage_lod=2, cloud_lod_interior=0)
+    cases["group_32"] = dict(cloud_lod=16, cloud_coverage_lod=2, cloud_lod_interior=0)
+    cases["hat_sum_knots"] = dict(knot_dynamic=False)
+    return {k: dataclasses.replace(flagship, **v) for k, v in cases.items()}
+
+
+def envelope_scene(name: str, device, pose: str = "avatar", t: float = 0.5):
+    """The demo scene with an envelope config on its planet, updated."""
+    from godot_atmosphere_shader_tpu_torch.models.demo import build_demo_scene, demo_camera
+
+    scene = build_demo_scene("clouds_high", device=device)
+    scene.atmospheres[0].set_custom_shader(envelope_config(name))
+    cam = demo_camera(pose, device=device)
+    scene.update(t, cam)
+    return scene, cam
+
+
+def full_quality(scene, cam) -> bool:
+    _, _, configs = scene._sorted_layers(cam)
+    return not configs[0].clouds_always_low_quality
+
+
+def detail_conditioning(device, h: int, w: int) -> dict:
+    """How far one ulp of the camera's position moves a frame: the plain
+    frame against itself with the camera one ulp further along z, at full
+    quality (the detail field) and at low quality, on the card."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    out = {}
+    for name in ("full_quality", "hat_sum_knots"):
+        scene, cam = envelope_scene(name, device)
+        inputs, _ = frame_inputs(scene, cam)
+        a = frame_array(mk.render_frame_plain(*inputs, h, w))
+        v2w = cam.view_to_world.clone()
+        v2w[2, 3] = torch.nextafter(v2w[2, 3], torch.tensor(1e9, device=device))
+        cam2 = dataclasses.replace(cam, view_to_world=v2w)
+        scene.update(0.5, cam2)
+        inputs2, _ = frame_inputs(scene, cam2)
+        b = frame_array(mk.render_frame_plain(*inputs2, h, w))
+        out["full quality" if name == "full_quality" else "low quality"] = cloud_deltas(a, b)
+    return out
+
+
+def envelope_check(device, h: int, w: int) -> dict:
+    """Phase 3g: every small envelope case (:func:`envelope_cases`; the
+    four frames are phase 4f's) at ``h × w`` through ``Scene.render``
+    (one K1 launch, no plain call), held against the plain chain on the same
+    inputs: the cloud tolerance, the detail tolerance at full quality.
+    Returns per case the instance that rendered it and the statistics."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    out = {}
+    for name in envelope_cases():
+        scene, cam = envelope_scene(name, device)
+        _, _, configs = scene._sorted_layers(cam)
+        mk.check_config(configs[0])
+        general = not mk.register_instance(configs[0])
+        err, _ = check_scene(f"envelope {name}", scene, cam, h, w,
+                             detail_tolerance_ok if full_quality(scene, cam)
+                             else cloud_tolerance_ok)
+        # check_scene sets the counters to 0 before its frame
+        if mk.counters.general_launches != int(general):
+            raise RuntimeError(f"envelope {name}: not rendered by the planned instance")
+        out[name] = {"instance": "general" if general else "register", "max": err}
+    # a partial last LOD group: 16-row groups over h - 8 rows
+    scene, cam = envelope_scene("group_16", device)
+    err, _ = check_scene(f"envelope group_16, {h - 8} rows", scene, cam, h - 8, w)
+    out["group_16_partial"] = {"instance": "general", "max": err}
+    return out
+
+
+def plain_rows(scene, cam, h: int, w: int, row0: int, rows: int) -> np.ndarray:
+    """Rows ``[row0, row0 + rows)`` of the plain frame (the band renderer)
+    on the same inputs as ``Scene.render``."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    params, configs, tex, _, _ = scene_plan(scene, cam, h)
+    return frame_array(mk.render_scene_band_plain(params, configs, cam, scene.opaque, h, w, row0,
+                                                  rows, tex_data=tex))
+
+
+def plain_band_starts(h: int) -> tuple:
+    """The plain check's three bands: the top, the middle (on a group
+    boundary) and the bottom.  At the avatar pose the planet and its cloud
+    shell fill the frame's height, so every band marches clouds."""
+    r = PLAIN_BAND_ROWS
+    return 0, (h // 2 - r // 2) // 32 * 32, h - r
+
+
+def check_envelope_frame(label: str, scene, cam, img: np.ndarray, h: int, w: int) -> dict:
+    """Phase 4f's check of one kernel frame: against the whole plain frame
+    when the plain band renderer, timed on one 64-row band, projects it
+    under PLAIN_FULL_LIMIT_S, else against three 64-row plain bands (top,
+    middle, bottom); detail or cloud tolerance as in 3g."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    ok = detail_tolerance_ok if full_quality(scene, cam) else cloud_tolerance_ok
+    starts = plain_band_starts(h)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    bands = {starts[1]: plain_rows(scene, cam, h, w, starts[1], PLAIN_BAND_ROWS)}
+    band_s = time.time() - t0
+    projected = band_s * h / PLAIN_BAND_ROWS
+    res = {"plain_band_s": band_s, "plain_projected_s": projected}
+    if projected <= PLAIN_FULL_LIMIT_S:
+        t0 = time.time()
+        ref = frame_array(mk.render_frame_plain(*frame_inputs(scene, cam)[0], h, w))
+        res["plain_s"] = time.time() - t0
+        res["against"] = "whole frame"
+        st = cloud_deltas(img, ref)
+    else:
+        for r0 in starts:
+            if r0 not in bands:
+                bands[r0] = plain_rows(scene, cam, h, w, r0, PLAIN_BAND_ROWS)
+        got = np.concatenate([img[r0:r0 + PLAIN_BAND_ROWS] for r0 in sorted(bands)])
+        ref = np.concatenate([bands[r0] for r0 in sorted(bands)])
+        res["against"] = f"plain bands at rows {sorted(bands)} ({PLAIN_BAND_ROWS} each)"
+        st = cloud_deltas(got, ref)
+    res.update(st)
+    log(f"[envelope] {label} {h}x{w} kernel vs plain ({res['against']}): {json.dumps(res)}")
+    if not ok(st):
+        raise RuntimeError(f"{label}: the 1080p kernel frame disagrees with plain")
+    return res
+
+
+def envelope_timing(scene, cam, h: int, w: int, device, check: dict) -> dict:
+    """Phase 5e for one frame: the kernel launch alone (CUDA events) with
+    its bound from its work counters under the measured peak,
+    ``Scene.render`` ms and idle share, and the plain ms that phase 4f's
+    ``check`` took (wall time to the frame on the host: the whole frame, or
+    one 64-row plain band and its projection to the frame)."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    inputs, _ = frame_inputs(scene, cam)
+    struct = mk.frame_constants(*inputs, h, w)
+    color = torch.empty((h, w, 3), device=device)
+    alpha = torch.empty((h, w), device=device)
+    base = 0.5
+
+    def frame(i):
+        scene.update(base + 0.05 * i, cam)
+        scene.render(cam, h, w)
+
+    t = {"instance": "general" if struct.general_instance else "register",
+         "kernel_ms": time_cuda(lambda i: mk.launch(struct, color, alpha), ENVELOPE_KERNEL_FRAMES),
+         "scene_ms": time_cuda(frame, ENVELOPE_KERNEL_FRAMES)}
+    busy, kernel = device_busy_ms(frame, ENVELOPE_KERNEL_FRAMES, first=2 + ENVELOPE_KERNEL_FRAMES)
+    t["scene_device_busy_ms"] = busy
+    t["scene_megakernel_device_ms"] = kernel
+    t["scene_idle_share"] = 1.0 - busy / t["scene_ms"] if busy > 0 else None
+    scene.update(base, cam)
+    work = mk.work_counts(struct, color, alpha)
+    t.update(roofline(work, inputs[1], h, w), work=work)
+    t["plain_band_ms"] = check["plain_band_s"] * 1e3
+    t["plain_projected_ms"] = check["plain_projected_s"] * 1e3
+    if "plain_s" in check:
+        t["plain_ms"] = check["plain_s"] * 1e3
+    return t
+
+
+def register_vs_general(scene, cam, h: int, w: int, device) -> dict:
+    """The knots' home, measured: the flagship config through the register
+    instance (its 9 coverage knots in registers) and forced through the
+    general instance (the same knots in shared memory), in turns (register,
+    general, general, register), with the general frame held against the
+    register one (cloud tolerance)."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    inputs, _ = frame_inputs(scene, cam)
+    reg = mk.frame_constants(*inputs, h, w)
+    gen = mk.MegakernelParams.from_buffer_copy(reg)
+    gen.general_instance = 1
+    planes = {}
+    runs = {"register": [], "general": []}
+    for which in ("register", "general", "general", "register"):
+        st = reg if which == "register" else gen
+        color = torch.empty((h, w, 3), device=device)
+        alpha = torch.empty((h, w), device=device)
+        runs[which].append(time_cuda(lambda i: mk.launch(st, color, alpha), KERNEL_FRAMES))
+        planes[which] = frame_array({"color": color, "alpha": alpha})
+    st = cloud_deltas(planes["general"], planes["register"])
+    if not cloud_tolerance_ok(st):
+        raise RuntimeError("the general instance disagrees with the register instance")
+    return {"register_ms": min(runs["register"]), "general_ms": min(runs["general"]),
+            "runs": runs, "general_vs_register": st}
+
+
+# -- T2: the card's arithmetic ceilings ---------------------------------------------
+
+
+def peak_probe(device) -> dict:
+    """T2 (``probes.peak_chains``): each chain op against its plain version
+    at PEAK_CHECK_ITERS (PEAK_TOL), then timed with CUDA events at
+    PEAK_ITERS on SMs × PEAK_BLOCKS_PER_SM blocks (best of PEAK_REPS
+    launches), with the clocks, power and limit sampled by ``nvidia-smi``
+    while fma launches run.  Rates: fp32 FLOP/s (an FMA is 2), exp/s,
+    __expf/s, INT32 IMAD instructions/s; the spec values beside them."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import probes
+
+    g = np.random.default_rng(3)
+    a = torch.as_tensor((g.random(probes.PEAK_PLANE) * 0.5 + 0.25).astype(np.float32),
+                        device=device)
+    b = torch.as_tensor((g.random(probes.PEAK_PLANE) * 0.1).astype(np.float32), device=device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks = sms * PEAK_BLOCKS_PER_SM
+    threads = blocks * probes.PEAK_THREADS
+    probes.counters.reset()
+    out = {"sms": sms, "blocks": blocks, "threads": threads, "check": {}, "ms": {}}
+    for op in probes.PEAK_OPS:
+        got = probes.peak_chains(a, b, op, PEAK_CHECK_ITERS, 8)
+        ref = probes.chains_plain(a, b, op, PEAK_CHECK_ITERS)
+        torch.cuda.synchronize()
+        err = float((got.reshape(-1, probes.PEAK_PLANE) - ref).abs().max())
+        out["check"][op] = err
+        if not err <= PEAK_TOL[op]:
+            raise RuntimeError(f"the peak probe's {op} chains disagree with plain: {err}")
+    rates = {}
+    for op, iters in PEAK_ITERS.items():
+        probes.peak_chains(a, b, op, iters, blocks)  # warm
+        ms = min(time_cuda(lambda i: probes.peak_chains(a, b, op, iters, blocks), 1, warmup=0)
+                 for _ in range(PEAK_REPS))
+        out["ms"][op] = ms
+        rates[op] = threads * probes.PEAK_CHAINS * probes.PEAK_INNER * iters / (ms * 1e-3)
+    for _ in range(8):  # ~0.3 s of fma in flight while nvidia-smi samples
+        probes.peak_chains(a, b, "fma", PEAK_ITERS["fma"], blocks)
+    out["clocks_under_load"] = smi("clocks.sm,power.draw,power.limit,temperature.gpu")
+    torch.cuda.synchronize()
+    out.update(fp32_flops=2.0 * rates["fma"], exp_per_s=rates["exp"],
+               fast_exp_per_s=rates["fast_exp"], int32_per_s=rates["imad"],
+               spec_fp32_flops=SPEC_FP32, spec_int32_per_s=SPEC_INT32,
+               fp32_spec_ratio=2.0 * rates["fma"] / SPEC_FP32,
+               int32_spec_ratio=rates["imad"] / SPEC_INT32,
+               launches=probes.counters.peak_launches,
+               max_abs_err=max(out["check"].values()),
+               # the fma launch's operations over the data sheet's fp32 peak
+               bound_ms=threads * probes.PEAK_CHAINS * probes.PEAK_INNER * PEAK_ITERS["fma"]
+               * 2.0 / SPEC_FP32 * 1e3)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="stop after the small checks: 256×384 frames, K2 alone, K3 alone, "
-                         "TAA flights, the exterior and multi-planet frames, the sky and the "
-                         "row shards (phases 3 to 3f)")
+                         "TAA flights, the exterior and multi-planet frames, the sky, the "
+                         "row shards and the procedural envelope (phases 7b, 3 to 3g)")
     args = ap.parse_args(argv)
 
     # -- 1. device ----------------------------------------------------------
@@ -1295,6 +1726,15 @@ def main(argv=None) -> int:
         if any(k in line for k in ("Compiling entry", "registers", "spill", "stack", "smem")):
             log(f"[ptxas] {line.strip()}")
     mk.load_library()
+
+    # -- 7b (run first: every bound divides by its rates). T2, the peak probe:
+    # each chain against its plain version, then the measured rates ------------
+    peak = peak_probe(device)
+    PEAK.update(fp32=peak["fp32_flops"], int32=peak["int32_per_s"])
+    log(f"[peak] T2 on {card}: {json.dumps(peak)}")
+    log(f"[peak] bounds divide by the measured fp32 {PEAK['fp32'] / 1e12:.2f} TFLOP/s (spec "
+        f"{SPEC_FP32 / 1e12:.0f}) and INT32 {PEAK['int32'] / 1e12:.2f} Tinstr/s (spec-derived "
+        f"{SPEC_INT32 / 1e12:.2f}); the clocks under load: {peak['clocks_under_load']}")
 
     # -- 3. kernel against plain, small --------------------------------------
     h, w = CHECK_SIZE
@@ -1450,6 +1890,14 @@ def main(argv=None) -> int:
     shard_err = max(shard_err, check_flight(
         f"clouds_high sharded TAA with the sky {h}x{w}", out,
         plain_flight(scene, cam, times, stack, h, w, FLIGHT_BLEND, mesh=mesh)))
+
+    # -- 3g. K1 slice (h), the procedural envelope, small -------------------------
+    conditioning = detail_conditioning(device, h, w)
+    log(f"[envelope] one ulp of the camera's z, plain against plain {h}x{w}: "
+        f"{json.dumps(conditioning)}")
+    envelope_small = envelope_check(device, h, w)
+    log(f"[envelope] {len(envelope_small)} cases {h}x{w}, one K1 launch each, no plain call: "
+        f"{json.dumps(envelope_small)}")
     if args.quick:
         return 1
 
@@ -1716,6 +2164,27 @@ def main(argv=None) -> int:
     log(f"[taa-band] K3 band mode alone {SH}x{SW}, {SHARDS} shards, halo {TAA_HALO} on "
         f"{card}: {json.dumps(taa_band)}")
 
+    # -- 4f. K1 slice (h): the envelope's four frames at 1080p through Scene.render
+    env_runs = {}
+    mk.counters.reset()
+    ts.counters.reset()
+    for name in ENVELOPE_FRAMES:
+        scene, cam = envelope_scene(name, device)
+        env_runs[name] = (scene, cam, scene.render(cam, H, W))
+    torch.cuda.synchronize()
+    env_counts = (mk.counters.megakernel_launches, mk.counters.general_launches,
+                  mk.counters.plain_calls + ts.counters.plain_sky_calls)
+    log(f"[envelope] counters after {len(ENVELOPE_FRAMES)} 1080p Scene.render frames: K1 "
+        f"{env_counts[0]} (general {env_counts[1]}), plain {env_counts[2]}")
+    if env_counts != (len(ENVELOPE_FRAMES),) * 2 + (0,):
+        raise RuntimeError("the envelope's 1080p frames did not all go through the general "
+                           "instance")
+    env_check = {}
+    for name, (scene, cam, out) in env_runs.items():
+        img = frame_array(out)
+        check_frame(img, f"1080p {name}")
+        env_check[name] = check_envelope_frame(name, scene, cam, img, H, W)
+
     # -- 5. timing -------------------------------------------------------------
     timings, bounds = {}, {}
     cases = [("clouds_high", "avatar", None), ("clouds_high", "interior", None),
@@ -1861,7 +2330,7 @@ def main(argv=None) -> int:
     # ctypes launch included), its kernel's device time in a trace, its
     # plain version on the card, its bound
     ty, tx = mk.tile_grid(H, W)
-    t_ops = ty * tx * 32 * 128 * OPS_SKY_CHOICE_RAY / PEAK_FP32 * 1e3
+    t_ops = ops_time_ms(ty * tx * 32 * 128 * OPS_SKY_CHOICE_RAY)
     t_bytes = ty * tx * 8 / PEAK_BYTES * 1e3
     choice_t = {}
     for label, (struct, sky_params, cam, meta) in choice_inputs.items():
@@ -1915,6 +2384,19 @@ def main(argv=None) -> int:
         f"{card}: {json.dumps(shard_flight_t)}")
     log(f"[shard-time] after timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
     band_flag = shard_t["clouds_high/avatar 1080p"]
+
+    # -- 5e. the envelope's timing: per frame kernel ms and bound, Scene.render ms
+    # and idle share, plain ms; the knots' home (registers or shared memory) -----
+    env_t = {}
+    for name, (scene, cam, _) in env_runs.items():
+        env_t[name] = envelope_timing(scene, cam, H, W, device, env_check[name])
+        log(f"[envelope-time] {name} 1080p on {card}: {json.dumps(env_t[name])}")
+    env_plain_ms = {k: v.get("plain_ms", v["plain_projected_ms"]) for k, v in env_t.items()}
+    scene, cam = scene_and_camera("clouds_high", "avatar", device)
+    knots_home = register_vs_general(scene, cam, H, W, device)
+    log(f"[envelope-time] the flagship's coverage knots in registers or shared memory on "
+        f"{card}: {json.dumps(knots_home)}")
+    log(f"[envelope-time] after timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
     # -- 6. the flight slice at 1080p through Scene.render_flight ----------------
     K = FLIGHT_FRAMES
@@ -2002,7 +2484,7 @@ def main(argv=None) -> int:
 
     taa_t = {"kernel_ms": time_cuda(k3, KERNEL_FRAMES), "plain_ms": time_cuda(k3_plain, 3)}
     t_bytes = H * W * BYTES_TAA_PIXEL / PEAK_BYTES * 1e3
-    t_ops = H * W * OPS_TAA_PIXEL / PEAK_FP32 * 1e3
+    t_ops = ops_time_ms(H * W * OPS_TAA_PIXEL)
     taa_t.update(bound_ms=max(t_bytes, t_ops),
                  bound_by="bytes" if t_bytes >= t_ops else "operations")
     log(f"[taa-time] K3 alone 1080p on {card}: {json.dumps(taa_t)}")
@@ -2035,6 +2517,20 @@ def main(argv=None) -> int:
     if fill_err != 0.0 or fill_launches != FILL_LAUNCHES:
         raise RuntimeError("the fill kernel disagrees with torch.full")
     log(f"[flight-time] after timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+
+    # 7b: T2 (measured before phase 3; every bound above divides by it), and
+    # its plain chains on the card at the check's size
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import probes as _probes
+
+    g = np.random.default_rng(3)
+    pa = torch.as_tensor(g.random(_probes.PEAK_PLANE).astype(np.float32), device=device)
+    peak_plain_ms = time_cuda(lambda i: _probes.chains_plain(pa, pa, "fma", PEAK_CHECK_ITERS), 1)
+    log(f"[peak] T2 on {card}: fp32 {peak['fp32_flops'] / 1e12:.3f} TFLOP/s "
+        f"({peak['fp32_spec_ratio']:.3f} of {SPEC_FP32 / 1e12:.0f}), expf "
+        f"{peak['exp_per_s'] / 1e12:.3f} T/s, __expf {peak['fast_exp_per_s'] / 1e12:.3f} T/s, "
+        f"INT32 {peak['int32_per_s'] / 1e12:.3f} Tinstr/s; plain fma chains "
+        f"({PEAK_CHECK_ITERS} iterations, one thread per element) {peak_plain_ms:.3f} ms; "
+        f"clocks {peak['clocks_under_load']}")
 
     flagship, tex_flagship = "clouds_high/avatar", "clouds_high/texture/avatar"
     log(json.dumps({"kernels": [{
@@ -2168,6 +2664,52 @@ def main(argv=None) -> int:
         "bound_ms": taa_band["bound_ms"],
         "bound_by": taa_band["bound_by"],
         "sharded_flight": shard_flight_t,
+        "library_ms": None,
+    }, {
+        "name": "megakernel_envelope",
+        "slice": ("K1 slice (h): the general procedural instance, every noise basis, per-step "
+                  "fields, the detail field, any knot count and LOD group (ms, bound_ms, "
+                  "plain_ms: the cellular tier at 1080p; frames: each 4f frame's, where the "
+                  "plain ms of a frame too costly in full is its 64-row plain band projected "
+                  "to the frame)"),
+        "route": "cuda",
+        "source": "godot_atmosphere_shader_tpu_torch/csrc/megakernel.cu",
+        "replaces": ("godot_atmosphere_shader_tpu/ops/pallas/megakernel.py:171 (the procedural "
+                     "envelope of _check_config, :468-496, through :636)"),
+        "launches": env_counts[1],
+        "max_abs_err": max(v["max"] for v in env_check.values()),
+        "small_max_abs_err": max(v["max"] for v in envelope_small.values()),
+        "ms": env_t["cellular_tier"]["kernel_ms"],
+        "plain_ms": env_plain_ms["cellular_tier"],
+        "bound_ms": env_t["cellular_tier"]["bound_ms"],
+        "bound_by": env_t["cellular_tier"]["bound_by"],
+        "frames": {k: {"ms": v["kernel_ms"], "bound_ms": v["bound_ms"],
+                       "bound_by": v["bound_by"], "plain_ms": env_plain_ms[k],
+                       "scene_ms": v["scene_ms"], "idle_share": v["scene_idle_share"]}
+                   for k, v in env_t.items()},
+        "knots_in_registers_ms": knots_home["register_ms"],
+        "knots_in_shared_memory_ms": knots_home["general_ms"],
+        "library_ms": None,
+    }, {
+        "name": "fp32_peak",
+        "slice": ("T2: register-resident fma, expf, __expf and uint32 multiply-add chains; "
+                  "ms: the fma launch, bound_ms: its operations over the data sheet's fp32 "
+                  "peak"),
+        "route": "cuda",
+        "source": "godot_atmosphere_shader_tpu_torch/csrc/probes.cu",
+        "replaces": "tools/vpu_peak.py:86",
+        "launches": peak["launches"],
+        "max_abs_err": peak["max_abs_err"],
+        "ms": peak["ms"]["fma"],
+        "plain_ms": peak_plain_ms,
+        "bound_ms": peak["bound_ms"],
+        "bound_by": "operations",
+        "fp32_tflops": peak["fp32_flops"] / 1e12,
+        "exp_per_s": peak["exp_per_s"],
+        "fast_exp_per_s": peak["fast_exp_per_s"],
+        "int32_per_s": peak["int32_per_s"],
+        "fp32_spec_ratio": peak["fp32_spec_ratio"],
+        "clocks_under_load": peak["clocks_under_load"],
         "library_ms": None,
     }, {
         "name": "launch_floor",

@@ -2,8 +2,10 @@
 // starfield or the panorama sky), v1 or v2 atmosphere (v2 with analytic sun
 // optical depth), cloud march (cheap or sun-marched light) and composite, in
 // one launch per atmosphere layer.
-// Two instances: procedural cloud fields, and texture mode, whose cloud
-// fields are baked textures sampled through mip pyramids by the K2 device
+// Three instances: two for procedural cloud fields, the register instance
+// (the demo profile: 8 coverage knots in registers) and the general one
+// (every procedural config, below), and texture mode, whose cloud fields
+// are baked textures sampled through mip pyramids by the K2 device
 // functions below.
 //
 // Replaces the TPU Pallas kernels
@@ -85,6 +87,26 @@
 // and so is raymarched lighting (a 6-step sun march per cloud step, kept
 // rolled).
 //
+// The general procedural instance (megakernel_gen, K1 slice (h)) takes
+// every procedural config the TPU kernel renders (its body is the shared
+// XLA shading code, so _check_config, megakernel.py:468-496, is the
+// envelope): every noise basis (value, perlin, simplex, simplex-smooth, the
+// 27-cell cellular with its three returns, the 8-cell cellular_fast),
+// every fractal (ping-pong, weighted_strength), coverage and shape per step
+// or from any number of knots, full-quality density (the detail field, the
+// shape field at pos * 15 + time * 0.01, per step or from its knots), and
+// LOD groups of up to the 32-row tile.  What bounds it: the noise, fp32
+// and, for the cellular bases, INT32 (each of the 27 cells is three
+// uint32 avalanches; Hopper's INT32 lanes are half its FP32 lanes).  What
+// the design does about it: the knots live in dynamic shared memory,
+// knot-major with a stride of the block (conflict-free, any count); the
+// noise is one called function (field_all, on the __grid_constant__
+// launch struct) instead of nine inlined copies; the rows of a group take
+// two passes so per-row state never exceeds one row; hat-sum knots read the
+// same two live knots as dynamic ones (the other terms are exact zeros).
+// The full-quality frame is ill-conditioned: the detail field turns one
+// ulp of a march position into ~1e-3 of a cloud pixel.
+//
 // The panorama sky (megakernel.py:212-222, :334-336; with_sky): the launch
 // that runs the opaque pass (a fused layer or the opaque-only pass) samples
 // three channel lat-long pyramids for rays that miss all geometry, with
@@ -115,9 +137,10 @@
 #define MK_MAX_SPHERES 8
 #define MK_MAX_BOXES 4
 #define MK_MAX_OCTAVES 8
-#define MK_MAX_GROUP 8
+#define MK_MAX_GROUP 8  // rows per thread (register and texture instances)
 #define MK_QUAD_POINTS 8
 #define MK_KNOTS 8  // coverage knots: the K of the K + 1 knot registers
+#define MK_MAX_KNOT_ROWS 448  // the general instance's knots in shared memory
 #define MK_SHAPE_KNOTS 16  // texture mode's shape knots
 #define MK_MAX_LEVELS 8    // mip levels of a pyramid
 #define MK_TILE_ROWS 32    // texture mode: one block per TPU tile
@@ -143,7 +166,12 @@ constexpr int MK_SKY_CHOICE_RAYS = MK_TILE_ROWS / MK_SKY_CHOICE_THREADS_Y;
 #define MK_WORK_OPAQUE_PIXELS 10
 #define MK_WORK_SKY 11
 #define MK_WORK_SKY_FLOOR 12
-#define MK_WORK_SLOTS 13
+#define MK_WORK_COVERAGE_EVALS 13
+#define MK_WORK_SHAPE_EVALS 14
+#define MK_WORK_DETAIL_EVALS 15
+#define MK_WORK_SHAPE_KNOTS 16
+#define MK_WORK_DETAIL_KNOTS 17
+#define MK_WORK_SLOTS 18
 #define MK_SUN_STEPS 6  // raymarched lighting's sun march
 
 // ---------------------------------------------------------------------------
@@ -153,12 +181,17 @@ constexpr int MK_SKY_CHOICE_RAYS = MK_TILE_ROWS / MK_SKY_CHOICE_THREADS_Y;
 // order.
 
 struct NoiseParams {
-  int noise_type;     // 0 value, 1 simplex_smooth
-  int fractal_type;   // 0 none, 1 fbm, 2 ridged
+  int noise_type;     // 0 value, 1 simplex_smooth, 2 perlin, 3 simplex, 4 cellular, 5 cellular_fast
+  int fractal_type;   // 0 none, 1 fbm, 2 ridged, 3 ping_pong
   int octaves;
   int seed;
   float frequency;
   float lacunarity;
+  float gain;
+  float ping_pong_strength;
+  float weighted_strength;          // 0: the amplitudes below; else a per-sample chain
+  float cellular_jitter;
+  int cellular_return;              // 0 distance, 1 distance2, 2 cell_value
   float amp[MK_MAX_OCTAVES];        // per-octave amplitude, bounding * gain^o
   int warp_enabled;
   int warp_octaves;
@@ -239,6 +272,13 @@ struct MegakernelParams {
   int cloud_lod;
   int coverage_lod;
   int coverage_knots;
+  // 0: the register instance (the demo profile); 1: the general instance
+  int general_instance;
+  int coverage_interp;       // 0: coverage per step and per sun sample
+  int shape_interp;          // 1: shape (and detail) from shape_knots + 1 knots
+  int shape_knots;
+  int always_low;            // 0: full quality, the detail field
+  float time;                // the detail field's offset is time * 0.01
   float cloud_bottom_radius;
   float cloud_top_radius;
   float cloud_bottom_radius2;
@@ -251,7 +291,7 @@ struct MegakernelParams {
   float cloud_shape_factor;
   float cloud_shape_scale;
   float cloud_shape_bound;   // 0.5 + 0.575 * |shape_factor|
-  float cloud_detail_term;   // 0.1 in always-low mode
+  float cloud_detail_term;   // 0.1 in always-low mode, 0 at full quality
   float march_max_distance;
   float sun_step0;           // raymarched lighting's first step, 0.15 * layer / 6
   float coverage_rot[4];
@@ -453,13 +493,148 @@ __device__ float simplex_smooth_noise3(float x, float y, float z, uint32_t seed)
   return n * 7.3f;
 }
 
-__device__ __forceinline__ float base_noise(const NoiseParams& s, float x, float y, float z,
-                                            uint32_t seed) {
-  return s.noise_type == 0 ? value_noise3(x, y, z, seed)
-                           : simplex_smooth_noise3(x, y, z, seed);
+__device__ __forceinline__ float quintic(float t) {
+  return t * t * t * (t * (t * 6.0f - 15.0f) + 10.0f);
 }
 
-// sample_noise3: domain warp -> fractal -> base, at field coordinates
+__device__ __forceinline__ float grad_dot(uint32_t h, float x, float y, float z) {
+  return bits_to_signed(h, 0) * x + bits_to_signed(h, 10) * y + bits_to_signed(h, 20) * z;
+}
+
+__device__ float perlin_noise3(float x, float y, float z, uint32_t seed) {
+  int ix, iy, iz;
+  float fx = floor_split(x, ix), fy = floor_split(y, iy), fz = floor_split(z, iz);
+  uint32_t h[8];
+  corner_hashes(ix, iy, iz, seed, h);
+  float c[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    c[k] = grad_dot(h[k], fx - (float)(k & 1), fy - (float)((k >> 1) & 1),
+                    fz - (float)((k >> 2) & 1));
+  return trilerp(c, quintic(fx), quintic(fy), quintic(fz)) * 1.15f;
+}
+
+// classic 3D simplex: 4 corners, ranked branch-free (ties broken x > y > z)
+__device__ float simplex_noise3(float x, float y, float z, uint32_t seed) {
+  const float F3 = (float)(1.0 / 3.0), G3 = (float)(1.0 / 6.0);
+  const float s = (x + y + z) * F3;
+  const int ix = (int)floorf(x + s), iy = (int)floorf(y + s), iz = (int)floorf(z + s);
+  const float t = (float)(ix + iy + iz) * G3;
+  const float x0 = x - ((float)ix - t), y0 = y - ((float)iy - t), z0 = z - ((float)iz - t);
+  const int rx = (x0 < y0) + (x0 < z0), ry = (x0 >= y0) + (y0 < z0), rz = (x0 >= z0) + (y0 >= z0);
+  const int i1 = rx == 0, j1 = ry == 0, k1 = rz == 0, i2 = rx <= 1, j2 = ry <= 1, k2 = rz <= 1;
+  const float c[4][3] = {
+      {x0, y0, z0},
+      {x0 - (float)i1 + G3, y0 - (float)j1 + G3, z0 - (float)k1 + G3},
+      {x0 - (float)i2 + (float)(2.0 * (1.0 / 6.0)), y0 - (float)j2 + (float)(2.0 * (1.0 / 6.0)),
+       z0 - (float)k2 + (float)(2.0 * (1.0 / 6.0))},
+      {x0 - 1.0f + (float)(3.0 * (1.0 / 6.0)), y0 - 1.0f + (float)(3.0 * (1.0 / 6.0)),
+       z0 - 1.0f + (float)(3.0 * (1.0 / 6.0))}};
+  const int d[4][3] = {{0, 0, 0}, {i1, j1, k1}, {i2, j2, k2}, {1, 1, 1}};
+  float n = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    float tt = fmaxf(0.6f - c[k][0] * c[k][0] - c[k][1] * c[k][1] - c[k][2] * c[k][2], 0.0f);
+    tt = tt * tt;
+    const uint32_t h = hash3(ix + d[k][0], iy + d[k][1], iz + d[k][2], seed);
+    const float v = tt * tt * grad_dot(h, c[k][0], c[k][1], c[k][2]);
+    n = k == 0 ? v : n + v;
+  }
+  return n * 32.0f;
+}
+
+// the jittered feature point of the cell whose hash3 is h, as an offset
+__device__ __forceinline__ void feature_offset(uint32_t h, float jitter, float& ox, float& oy,
+                                               float& oz) {
+  ox = hash_to_unit(h) * jitter;
+  oy = hash_to_unit(mix(h ^ 0xABCD1234u)) * jitter;
+  oz = hash_to_unit(mix(h ^ 0x1B56C4E9u)) * jitter;
+}
+
+// Worley noise over the 3 x 3 x 3 cells: F1 (distance), F2 - F1
+// (distance2) or the closest cell's hashed value (cell_value).  The
+// coordinate multiplies of hash3 are hoisted (uint32 arithmetic is
+// modular, so (ix + dx) * A = ix * A + dx * A bit for bit).
+__device__ float cellular_noise3(float x, float y, float z, uint32_t seed, float jitter,
+                                 int ret) {
+  int ix, iy, iz;
+  const float fx = floor_split(x, ix), fy = floor_split(y, iy), fz = floor_split(z, iz);
+  const uint32_t hx = (uint32_t)ix * 0x9E3779B1u, hy = (uint32_t)iy * 0x85EBCA77u;
+  const uint32_t hz = (uint32_t)iz * 0xC2B2AE3Du + seed;
+  float f1 = 1e10f, f2 = 1e10f;
+  uint32_t closest = 0u;
+#pragma unroll
+  for (int dz = -1; dz <= 1; ++dz) {
+#pragma unroll
+    for (int dy = -1; dy <= 1; ++dy) {
+#pragma unroll
+      for (int dx = -1; dx <= 1; ++dx) {
+        const uint32_t h = mix(hx + (uint32_t)dx * 0x9E3779B1u + hy + (uint32_t)dy * 0x85EBCA77u +
+                               hz + (uint32_t)dz * 0xC2B2AE3Du);
+        float ox, oy, oz;
+        feature_offset(h, jitter, ox, oy, oz);
+        const float ddx = (float)dx + ox - fx, ddy = (float)dy + oy - fy, ddz = (float)dz + oz - fz;
+        const float dd = ddx * ddx + ddy * ddy + ddz * ddz;
+        const bool closer = dd < f1;
+        f2 = closer ? f1 : fminf(f2, dd);
+        closest = closer ? h : closest;
+        f1 = closer ? dd : f1;
+      }
+    }
+  }
+  if (ret == 2) return hash_to_unit(closest) * 2.0f - 1.0f;
+  if (ret == 1) return sqrtf(f2) - sqrtf(f1) - 1.0f;
+  return sqrtf(f1) * 2.0f - 1.0f;
+}
+
+// 8-cell Worley F1: the 2 x 2 x 2 cells around the nearest lattice corner,
+// the feature points of cellular_noise3
+__device__ float cellular_noise3_fast(float x, float y, float z, uint32_t seed, float jitter) {
+  int ix, iy, iz;
+  const float fx = floor_split(x, ix), fy = floor_split(y, iy), fz = floor_split(z, iz);
+  const int bx = (fx >= 0.5f) - 1, by = (fy >= 0.5f) - 1, bz = (fz >= 0.5f) - 1;
+  const uint32_t hx0 = (uint32_t)(ix + bx) * 0x9E3779B1u, hy0 = (uint32_t)(iy + by) * 0x85EBCA77u;
+  const uint32_t hz0 = (uint32_t)(iz + bz) * 0xC2B2AE3Du + seed;
+  const float fbx = (float)bx - fx, fby = (float)by - fy, fbz = (float)bz - fz;
+  float f1 = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int dx = k & 1, dy = (k >> 1) & 1, dz = (k >> 2) & 1;
+    const uint32_t h = mix(hx0 + (dx ? 0x9E3779B1u : 0u) + hy0 + (dy ? 0x85EBCA77u : 0u) + hz0 +
+                           (dz ? 0xC2B2AE3Du : 0u));
+    float ox, oy, oz;
+    feature_offset(h, jitter, ox, oy, oz);
+    const float ddx = fbx + (float)dx + ox, ddy = fby + (float)dy + oy, ddz = fbz + (float)dz + oz;
+    const float dd = ddx * ddx + ddy * ddy + ddz * ddz;
+    f1 = k == 0 ? dd : fminf(f1, dd);
+  }
+  return sqrtf(f1) * 2.0f - 1.0f;
+}
+
+// The noise basis of a spec.  ALL: every basis (the general instance);
+// otherwise value and simplex-smooth only (the register instance's fields).
+template <bool ALL>
+__device__ __forceinline__ float base_noise(const NoiseParams& s, float x, float y, float z,
+                                            uint32_t seed) {
+  if (!ALL)
+    return s.noise_type == 0 ? value_noise3(x, y, z, seed)
+                             : simplex_smooth_noise3(x, y, z, seed);
+  switch (s.noise_type) {
+    case 0: return value_noise3(x, y, z, seed);
+    case 1: return simplex_smooth_noise3(x, y, z, seed);
+    case 2: return perlin_noise3(x, y, z, seed);
+    case 3: return simplex_noise3(x, y, z, seed);
+    case 4: return cellular_noise3(x, y, z, seed, s.cellular_jitter, s.cellular_return);
+    default: return cellular_noise3_fast(x, y, z, seed, s.cellular_jitter);
+  }
+}
+
+// sample_noise3: domain warp -> fractal -> base, at field coordinates.
+// ALL adds every basis, the ping-pong fractal and weighted_strength, which
+// scales each next octave's amplitude by a weight of this octave's value
+// (JAX ops/noise.py:505-518: the amplitude is then a per-sample f32 chain,
+// amp * weight * gain).
+template <bool ALL>
 __device__ float sample_noise3(const NoiseParams& s, float x, float y, float z) {
   if (s.warp_enabled) {
     for (int o = 0; o < s.warp_octaves; ++o) {
@@ -475,16 +650,44 @@ __device__ float sample_noise3(const NoiseParams& s, float x, float y, float z) 
   x = x * s.frequency;
   y = y * s.frequency;
   z = z * s.frequency;
-  if (s.fractal_type == 0) return base_noise(s, x, y, z, (uint32_t)s.seed);
+  if (s.fractal_type == 0) return base_noise<ALL>(s, x, y, z, (uint32_t)s.seed);
   float total = 0.0f;
-  for (int o = 0; o < s.octaves; ++o) {
-    float n = base_noise(s, x, y, z, (uint32_t)(s.seed + o));
-    if (s.fractal_type == 1) {
-      total = total + n * s.amp[o];
-    } else {
-      n = fabsf(n);
-      total = total + (n * -2.0f + 1.0f) * s.amp[o];
+  if (!ALL) {
+    for (int o = 0; o < s.octaves; ++o) {
+      float n = base_noise<ALL>(s, x, y, z, (uint32_t)(s.seed + o));
+      if (s.fractal_type == 1) {
+        total = total + n * s.amp[o];
+      } else {
+        n = fabsf(n);
+        total = total + (n * -2.0f + 1.0f) * s.amp[o];
+      }
+      x = x * s.lacunarity;
+      y = y * s.lacunarity;
+      z = z * s.lacunarity;
     }
+    return total;
+  }
+  const bool weighted = s.weighted_strength != 0.0f;
+  float amp = s.amp[0];
+  for (int o = 0; o < s.octaves; ++o) {
+    float n = base_noise<ALL>(s, x, y, z, (uint32_t)(s.seed + o));
+    const float a = weighted ? amp : s.amp[o];
+    float w;  // the weight's value term
+    if (s.fractal_type == 1) {
+      total = total + n * a;
+      w = fminf(n + 1.0f, 2.0f) * 0.5f - 1.0f;
+    } else if (s.fractal_type == 2) {
+      n = fabsf(n);
+      total = total + (n * -2.0f + 1.0f) * a;
+      w = (1.0f - n) - 1.0f;
+    } else {
+      float t = (n + 1.0f) * s.ping_pong_strength;
+      t = t - floorf(t * 0.5f) * 2.0f;
+      t = t < 1.0f ? t : 2.0f - t;
+      total = total + (t - 0.5f) * 2.0f * a;
+      w = t - 1.0f;
+    }
+    if (weighted) amp = amp * (1.0f + w * s.weighted_strength) * s.gain;
     x = x * s.lacunarity;
     y = y * s.lacunarity;
     z = z * s.lacunarity;
@@ -494,7 +697,14 @@ __device__ float sample_noise3(const NoiseParams& s, float x, float y, float z) 
 
 // procedural field 0.5 + 0.5 * noise(p * scale)
 __device__ __forceinline__ float field(const NoiseParams& s, V3 p) {
-  return 0.5f + 0.5f * sample_noise3(s, p.x * s.scale[0], p.y * s.scale[1], p.z * s.scale[2]);
+  return 0.5f + 0.5f * sample_noise3<false>(s, p.x * s.scale[0], p.y * s.scale[1], p.z * s.scale[2]);
+}
+
+// the general instance's field: every basis, one copy of the code (called,
+// not inlined, at each of its sites; the launch struct is a
+// __grid_constant__, so its noise specs are read in place)
+__device__ __noinline__ float field_all(const NoiseParams& s, V3 p) {
+  return 0.5f + 0.5f * sample_noise3<true>(s, p.x * s.scale[0], p.y * s.scale[1], p.z * s.scale[2]);
 }
 
 // ---------------------------------------------------------------------------
@@ -712,75 +922,41 @@ __device__ void atmosphere_v1(const MegakernelParams& p, V3 ro, V3 rd, float t_b
 // ---------------------------------------------------------------------------
 // Clouds (ops/clouds.py)
 
-__device__ __forceinline__ float raw_coverage(const MegakernelParams& p, V3 pos) {
-  V3 q = v3(p.coverage_rot[0] * pos.x + p.coverage_rot[1] * pos.z, pos.y,
-            p.coverage_rot[2] * pos.x + p.coverage_rot[3] * pos.z);
-  return field(p.coverage, normalize(q));
+__device__ __forceinline__ V3 coverage_point(const MegakernelParams& p, V3 pos) {
+  return normalize(v3(p.coverage_rot[0] * pos.x + p.coverage_rot[1] * pos.z, pos.y,
+                      p.coverage_rot[2] * pos.x + p.coverage_rot[3] * pos.z));
 }
 
-// Cloud density at height ratio hr, always-low quality (detail = 0.5),
-// saturated, before the density scale (clouds.py::get_density_full).
+__device__ __forceinline__ float raw_coverage(const MegakernelParams& p, V3 pos) {
+  return field(p.coverage, coverage_point(p, pos));
+}
+
+// where the detail field samples the shape field: pos * 15 + time * 0.01
+__device__ __forceinline__ V3 detail_point(const MegakernelParams& p, V3 pos) {
+  const float t = p.time * 0.01f;
+  return v3(pos.x * 15.0f + t, pos.y * 15.0f + t, pos.z * 15.0f + t);
+}
+
+// Cloud density at height ratio hr, saturated, before the density scale
+// (clouds.py::get_density_full); detail is 0.5 at low quality.
 __device__ __forceinline__ float cloud_density(const MegakernelParams& p, float hr, float cov,
-                                               float shape_raw) {
+                                               float shape_raw, float detail) {
   float hc = 2.0f * hr - 1.0f;
   hc = fmaxf(1.0f - hc * hc, 0.0f);
   float coverage = cov - 0.25f * hr + p.cloud_coverage_bias;
   float shape = 0.5f + (shape_raw - 0.5f) * p.cloud_shape_factor;
   if (p.cloud_shape_invert == 1.0f) shape = 1.0f - shape;
-  float density = (shape - (float)(0.2 * 0.5) + (-1.2f + (float)(1.5 - -1.2) * coverage)) * hc;
+  float density = (shape - 0.2f * detail + (-1.2f + (float)(1.5 - -1.2) * coverage)) * hc;
   return saturate(density * 50.0f - 20.0f);
 }
 
-// Raymarched lighting (clouds.py::get_light_raymarched): MK_SUN_STEPS sun
-// samples, sample i at pos0 + sd * (i * len_i) with len_i = sun_step0 *
-// 1.2^i (the sample's own length, not a cumulative sum).  Every sample
-// reuses the march step's coverage; texture mode also its shape value,
-// procedural mode evaluates the shape field per sample.  Kept rolled.
-__device__ float sun_march(const MegakernelParams& p, V3 pos0, float hr0, float cov,
-                           float shape_raw, bool procedural) {
-  const V3 sd = load3(p.sd_model);
-  float len = p.sun_step0, alpha = 0.0f;
-#pragma unroll 1
-  for (int i = 0; i < MK_SUN_STEPS; ++i) {
-    const V3 pos = add(pos0, mul(sd, (float)i * len));
-    const float hr = (sqrtf(dot(pos, pos)) - p.cloud_bottom_radius) / p.cloud_layer;
-    const float shape = procedural ? field(p.shape, mul(pos, p.cloud_shape_scale)) : shape_raw;
-    const float tr = expf(-(cloud_density(p, hr, cov, shape) * (len * p.cloud_density_scale)));
-    alpha = alpha + (1.0f - tr) * (1.0f - alpha);
-    len = len * 1.2f;
-  }
-  return 1.0f + (hr0 * 0.2f - 1.0f) * alpha;
-}
-
-// One cloud march step: returns the scaled density, updates light.
-// shape_raw is the raw shape field at the step (procedural or from knots).
-__device__ float cloud_step(const MegakernelParams& p, V3 pos, V3 rd, float alpha, float cov,
-                           float shape_raw, bool procedural, float& light) {
-  V3 sd = load3(p.sd_model);
-  float pos_len = sqrtf(dot(pos, pos));
-  float hr = (pos_len - p.cloud_bottom_radius) / p.cloud_layer;
-  float l;
-  if (p.raymarched_lighting) {
-    l = sun_march(p, pos, hr, cov, shape_raw, procedural);
-  } else {
-    // cheap lighting: height ratio plus a pow16 sun glow through thin cloud
-    float dp = rd.x * sd.x + rd.y * sd.y + rd.z * sd.z;
-    float dp2 = dp * dp, dp4 = dp2 * dp2, dp8 = dp4 * dp4;
-    float glow = dp > 0.0f ? dp8 * dp8 : 0.0f;
-    l = hr + glow * (1.0f - alpha);
-  }
-  // planet shadow
-  float d = -(pos.x * sd.x + pos.y * sd.y + pos.z * sd.z) * (1.0f / pos_len);
-  float st = saturate((d - (-0.3f)) / 0.6f);
-  float shadow = st * st * (3.0f - 2.0f * st);
-  light = l * (1.0f + (float)(0.002 - 1.0) * shadow);
-  return cloud_density(p, hr, cov, shape_raw) * p.cloud_density_scale;
-}
-
-// Knots of a field, read in the march.  Procedural mode keeps the K + 1
-// coverage knots in registers (an unrolled chain of predicated moves picks
-// the two live ones); texture mode reads them from shared memory, stored
-// knot-major with a stride of one block (bank-conflict free).
+// Knots of a field, read in the march.  The register instance keeps the
+// K + 1 coverage knots in registers (an unrolled chain of predicated moves
+// picks the two live ones); the texture and general instances read them
+// from shared memory, stored knot-major with a stride of one block
+// (bank-conflict free), the texture instance for a fixed K, the general
+// one for the launch's.  Hat-sum knots (knot_dynamic = False) read the
+// same two live knots: the hat sum's other terms are exact zeros.
 template <int K>
 struct RegKnots {
   const float (&k)[K + 1];
@@ -815,14 +991,164 @@ struct SmemKnots {
   }
 };
 
-// The march over [t_begin, t_end] (model space).  COV interpolates the
-// coverage knots; SHP, when not null, the shape knots (texture mode);
-// otherwise the shape field is evaluated procedurally per step.
-template <class COV, class SHP>
-__device__ __forceinline__ void cloud_march(const MegakernelParams& p, V3 rd, float t_begin,
-                                            float t_end, float jitter, const COV& cov_knots,
-                                            const SHP* shp_knots, float& light_out,
-                                            float& alpha_out) {
+struct GenKnots {
+  const float* k;  // knot j at k[j * MK_TILE_COLS]; nullptr: the field per step
+  int K;
+  __device__ __forceinline__ float interp(float u01) const {
+    const float us = u01 * (float)K;
+    const float i0 = fminf(fmaxf(floorf(us), 0.0f), (float)(K - 1));
+    const int seg = (int)i0;
+    const float f = us - i0;
+    return k[seg * MK_TILE_COLS] * (1.0f - f) + k[(seg + 1) * MK_TILE_COLS] * f;
+  }
+};
+
+// Where a march step and its sun samples take their field values (raw
+// coverage, raw shape, detail); sun_* get the step's value and the sample's
+// position.
+// The register instance: coverage from its register knots, reused by the
+// sun samples; the shape per step and per sun sample; always-low density.
+template <int K>
+struct RegFields {
+  RegKnots<K> cov_knots;
+  __device__ __forceinline__ float cov(const MegakernelParams&, float u01, V3) const {
+    return cov_knots.interp(u01);
+  }
+  __device__ __forceinline__ float shape(const MegakernelParams& p, float, V3 pos) const {
+    return field(p.shape, mul(pos, p.cloud_shape_scale));
+  }
+  __device__ __forceinline__ float detail(const MegakernelParams&, float, V3) const { return 0.5f; }
+  __device__ __forceinline__ float sun_cov(const MegakernelParams&, float c, V3) const { return c; }
+  __device__ __forceinline__ float sun_shape(const MegakernelParams& p, float, V3 pos) const {
+    return shape(p, 0.0f, pos);
+  }
+  __device__ __forceinline__ float sun_detail(const MegakernelParams&, float, V3, float) const {
+    return 0.5f;
+  }
+};
+
+// The texture instance: coverage and shape from shared-memory knots, both
+// reused by the sun samples; always-low density.
+template <int K, int KS>
+struct TexFields {
+  SmemKnots<K> cov_knots;
+  SmemKnots<KS> shape_knots;
+  __device__ __forceinline__ float cov(const MegakernelParams&, float u01, V3) const {
+    return cov_knots.interp(u01);
+  }
+  __device__ __forceinline__ float shape(const MegakernelParams&, float u01, V3) const {
+    return shape_knots.interp(u01);
+  }
+  __device__ __forceinline__ float detail(const MegakernelParams&, float, V3) const { return 0.5f; }
+  __device__ __forceinline__ float sun_cov(const MegakernelParams&, float c, V3) const { return c; }
+  __device__ __forceinline__ float sun_shape(const MegakernelParams&, float s, V3) const {
+    return s;
+  }
+  __device__ __forceinline__ float sun_detail(const MegakernelParams&, float, V3, float) const {
+    return 0.5f;
+  }
+};
+
+// the general instance's procedural field evaluations (work counters)
+struct FieldWork {
+  unsigned cov, shape, detail;
+};
+
+// The general instance: each field from its knots, or evaluated per step
+// and per sun sample (every basis); at full quality the detail field,
+// whose sun samples take it only where the march's alpha is below 0.3
+// (clouds.py:165-175: d_full or d_low).
+struct GenFields {
+  GenKnots cov_knots, shape_knots, detail_knots;
+  bool full;
+  FieldWork* work;
+  __device__ __forceinline__ float cov_at(const MegakernelParams& p, V3 pos) const {
+    ++work->cov;
+    return field_all(p.coverage, coverage_point(p, pos));
+  }
+  __device__ __forceinline__ float shape_at(const MegakernelParams& p, V3 pos) const {
+    ++work->shape;
+    return field_all(p.shape, mul(pos, p.cloud_shape_scale));
+  }
+  __device__ __forceinline__ float detail_at(const MegakernelParams& p, V3 pos) const {
+    ++work->detail;
+    return field_all(p.shape, detail_point(p, pos));
+  }
+  __device__ __forceinline__ float cov(const MegakernelParams& p, float u01, V3 pos) const {
+    return cov_knots.k ? cov_knots.interp(u01) : cov_at(p, pos);
+  }
+  __device__ __forceinline__ float shape(const MegakernelParams& p, float u01, V3 pos) const {
+    return shape_knots.k ? shape_knots.interp(u01) : shape_at(p, pos);
+  }
+  __device__ __forceinline__ float detail(const MegakernelParams& p, float u01, V3 pos) const {
+    if (!full) return 0.5f;
+    return detail_knots.k ? detail_knots.interp(u01) : detail_at(p, pos);
+  }
+  __device__ __forceinline__ float sun_cov(const MegakernelParams& p, float c, V3 pos) const {
+    return cov_knots.k ? c : cov_at(p, pos);
+  }
+  __device__ __forceinline__ float sun_shape(const MegakernelParams& p, float s, V3 pos) const {
+    return shape_knots.k ? s : shape_at(p, pos);
+  }
+  __device__ __forceinline__ float sun_detail(const MegakernelParams& p, float d, V3 pos,
+                                              float alpha0) const {
+    if (!full || !(alpha0 < 0.3f)) return 0.5f;
+    return detail_knots.k ? d : detail_at(p, pos);
+  }
+};
+
+// Raymarched lighting (clouds.py::get_light_raymarched): MK_SUN_STEPS sun
+// samples, sample i at pos0 + sd * (i * len_i) with len_i = sun_step0 *
+// 1.2^i (the sample's own length, not a cumulative sum), each field's
+// value from F (the step's, or evaluated at the sample).  Kept rolled.
+template <class F>
+__device__ float sun_march(const MegakernelParams& p, const F& f, V3 pos0, float hr0, float cov,
+                           float shape_raw, float detail, float alpha0) {
+  const V3 sd = load3(p.sd_model);
+  float len = p.sun_step0, alpha = 0.0f;
+#pragma unroll 1
+  for (int i = 0; i < MK_SUN_STEPS; ++i) {
+    const V3 pos = add(pos0, mul(sd, (float)i * len));
+    const float hr = (sqrtf(dot(pos, pos)) - p.cloud_bottom_radius) / p.cloud_layer;
+    const float d = cloud_density(p, hr, f.sun_cov(p, cov, pos), f.sun_shape(p, shape_raw, pos),
+                                  f.sun_detail(p, detail, pos, alpha0));
+    const float tr = expf(-(d * (len * p.cloud_density_scale)));
+    alpha = alpha + (1.0f - tr) * (1.0f - alpha);
+    len = len * 1.2f;
+  }
+  return 1.0f + (hr0 * 0.2f - 1.0f) * alpha;
+}
+
+// One cloud march step: returns the scaled density, updates light.
+template <class F>
+__device__ float cloud_step(const MegakernelParams& p, const F& f, V3 pos, V3 rd, float alpha,
+                            float cov, float shape_raw, float detail, float& light) {
+  V3 sd = load3(p.sd_model);
+  float pos_len = sqrtf(dot(pos, pos));
+  float hr = (pos_len - p.cloud_bottom_radius) / p.cloud_layer;
+  float l;
+  if (p.raymarched_lighting) {
+    l = sun_march(p, f, pos, hr, cov, shape_raw, detail, alpha);
+  } else {
+    // cheap lighting: height ratio plus a pow16 sun glow through thin cloud
+    float dp = rd.x * sd.x + rd.y * sd.y + rd.z * sd.z;
+    float dp2 = dp * dp, dp4 = dp2 * dp2, dp8 = dp4 * dp4;
+    float glow = dp > 0.0f ? dp8 * dp8 : 0.0f;
+    l = hr + glow * (1.0f - alpha);
+  }
+  // planet shadow
+  float d = -(pos.x * sd.x + pos.y * sd.y + pos.z * sd.z) * (1.0f / pos_len);
+  float st = saturate((d - (-0.3f)) / 0.6f);
+  float shadow = st * st * (3.0f - 2.0f * st);
+  light = l * (1.0f + (float)(0.002 - 1.0) * shadow);
+  return cloud_density(p, hr, cov, shape_raw, detail) * p.cloud_density_scale;
+}
+
+// The march over [t_begin, t_end] (model space), its fields from F.
+template <class F>
+__device__ __forceinline__ void cloud_march(const MegakernelParams& p, const F& f, V3 rd,
+                                            float t_begin, float t_end, float jitter,
+                                            float& light_out, float& alpha_out) {
   V3 ro = load3(p.ro_model);
   t_end = t_begin + fminf(t_end - t_begin, p.march_max_distance);
   const int steps = p.cloud_steps;
@@ -832,12 +1158,12 @@ __device__ __forceinline__ void cloud_march(const MegakernelParams& p, V3 rd, fl
   float prod = 1.0f, total_t = 1.0f, total_light = 0.0f;
   for (int i = 0; i < steps; ++i) {
     float u01 = ((float)i + 0.5f) * inv_steps;
-    const float cov = cov_knots.interp(u01);
     V3 pos = add(start, mul(rd, (float)i * step_len));
-    const float shape_raw = shp_knots ? shp_knots->interp(u01)
-                                      : field(p.shape, mul(pos, p.cloud_shape_scale));
+    const float cov = f.cov(p, u01, pos);
+    const float shape_raw = f.shape(p, u01, pos);
+    const float detail = f.detail(p, u01, pos);
     float light;
-    float density = cloud_step(p, pos, rd, 1.0f - prod, cov, shape_raw, !shp_knots, light);
+    float density = cloud_step(p, f, pos, rd, 1.0f - prod, cov, shape_raw, detail, light);
     float tr = expf(-density * step_len);
     total_t = fmaxf(total_t * tr, 0.005f);
     total_light = total_light + light * density * step_len * total_t;
@@ -848,7 +1174,8 @@ __device__ __forceinline__ void cloud_march(const MegakernelParams& p, V3 rd, fl
 }
 
 // conservative density bound of a coverage group from its knots' maximum:
-// a pixel at or below zero marches to exact zeros, so it is skipped
+// a pixel at or below zero marches to exact zeros, so it is skipped (the
+// detail term is 0.2 * 0.5 at low quality, 0 at full)
 __device__ __forceinline__ bool cloud_may_form(const MegakernelParams& p, float cov_max) {
   cov_max = cov_max + p.cloud_coverage_bias;
   const float bound = (p.cloud_shape_bound - p.cloud_detail_term +
@@ -1099,20 +1426,27 @@ __device__ __forceinline__ V3 sky_rgb(const Sky& sky, V3 rd) {
 // Per-thread frame state: one column and one group of G = cloud_lod *
 // coverage_lod rows (one coverage group of cloud_lod-row coarse pixels).
 
-struct Rows {
-  V3 bg[MK_MAX_GROUP];
-  float atm[MK_MAX_GROUP][4];
-  bool hit[MK_MAX_GROUP];
-  // coarse (cloud_lod) row inputs
-  V3 rd_sum[MK_MAX_GROUP];
-  float depth_min[MK_MAX_GROUP];
-  float jit_first[MK_MAX_GROUP];
+// per-row shading of up to N rows
+template <int N>
+struct RowPix {
+  V3 bg[N];
+  float atm[N][4];
+  bool hit[N];
 };
 
+// coarse (cloud_lod) row inputs of up to N coarse rows
+template <int N>
+struct CoarseIn {
+  V3 rd_sum[N];
+  float depth_min[N];
+  float jit_first[N];
+};
+
+template <int N>
 struct Coarse {
-  V3 rd_model[MK_MAX_GROUP];
-  float tb[MK_MAX_GROUP], tem[MK_MAX_GROUP];
-  bool vis[MK_MAX_GROUP];
+  V3 rd_model[N];
+  float tb[N], tem[N];
+  bool vis[N];
   bool any_vis;
   // coverage-group knot inputs: mean model-space ray (not renormalized)
   // and mean span
@@ -1126,10 +1460,12 @@ struct Coarse {
 // pass (its misses sample the sky with its tile's choice when with_sky),
 // whose linear depth (before the sphere-depth blend) goes to depth when it
 // is not nullptr, or, for a chained layer, the color and linear depth of
-// the layers below, read from color and depth.
+// the layers below, read from color and depth.  SHADE = false computes the
+// coarse inputs alone: no sky, no depth output, no atmosphere.
+template <int N, int NC, bool SHADE = true>
 __device__ __forceinline__ void shade_rows(const MegakernelParams& p, const float* blue, int x,
-                                           int y0, int G, int L, Rows& s, const float* color,
-                                           float* depth, const Sky& sky,
+                                           int y0, int G, int L, RowPix<N>& s, CoarseIn<NC>& ci,
+                                           const float* color, float* depth, const Sky& sky,
                                            unsigned long long* work, unsigned& n_atmo,
                                            unsigned& n_v1, unsigned& n_sky) {
   const V3 ro = load3(p.cam_pos);
@@ -1143,19 +1479,19 @@ __device__ __forceinline__ void shade_rows(const MegakernelParams& p, const floa
     V3 b = v3(0.0f, 0.0f, 0.0f);
     if (p.with_background) {
       if (in_rows) {
-        b = v3(color[o * 3 + 0], color[o * 3 + 1], color[o * 3 + 2]);
+        if (SHADE) b = v3(color[o * 3 + 0], color[o * 3 + 1], color[o * 3 + 2]);
         linear_depth = depth[o];
       }
     } else {
-      if (p.with_opaque && !opaque_pass(p, ro, rd, b, linear_depth) && p.with_sky) {
+      if (p.with_opaque && !opaque_pass(p, ro, rd, b, linear_depth) && p.with_sky && SHADE) {
         b = sky_rgb(sky, rd);
         if (work && in_rows) ++n_sky;
       }
-      if (depth && in_rows) depth[o] = linear_depth;
+      if (SHADE && depth && in_rows) depth[o] = linear_depth;
     }
-    s.bg[r] = b;
+    if (SHADE) s.bg[r] = b;
     if (!p.with_atmosphere) {  // the opaque-only pass
-      s.hit[r] = false;
+      if (SHADE) s.hit[r] = false;
       continue;
     }
     float jitter = blue[(y & 255) * 256 + (x & 255)] + p.jitter_offset;
@@ -1171,41 +1507,45 @@ __device__ __forceinline__ void shade_rows(const MegakernelParams& p, const floa
     const float gd = g0 != g1 ? g0 : 1.0e7f;
     linear_depth = linear_depth + (gd - linear_depth) * p.sphere_depth_factor;
     t_end = fmaxf(fminf(t_end, linear_depth), t_begin);
-    s.hit[r] = h;
-    if (h) {
-      if (p.model == 1) {
-        atmosphere_v1(p, ro, rd, t_begin, t_end, s.atm[r]);
-        if (work) ++n_v1;
-      } else {
-        atmosphere_v2(p, ro, rd, t_begin, t_end, jitter, s.atm[r]);
-        if (work) ++n_atmo;
+    if (SHADE) {
+      s.hit[r] = h;
+      if (h) {
+        if (p.model == 1) {
+          atmosphere_v1(p, ro, rd, t_begin, t_end, s.atm[r]);
+          if (work) ++n_v1;
+        } else {
+          atmosphere_v2(p, ro, rd, t_begin, t_end, jitter, s.atm[r]);
+          if (work) ++n_atmo;
+        }
       }
     }
 
     const int c = r / L;
     if (r % L == 0) {
-      s.rd_sum[c] = rd;
-      s.depth_min[c] = linear_depth;
-      s.jit_first[c] = jitter;
+      ci.rd_sum[c] = rd;
+      ci.depth_min[c] = linear_depth;
+      ci.jit_first[c] = jitter;
     } else {
-      s.rd_sum[c] = add(s.rd_sum[c], rd);
-      s.depth_min[c] = fminf(s.depth_min[c], linear_depth);
+      ci.rd_sum[c] = add(ci.rd_sum[c], rd);
+      ci.depth_min[c] = fminf(ci.depth_min[c], linear_depth);
     }
   }
 }
 
 // coarse rays, shell spans and visibility per cloud_lod group, and the
 // coverage group's knot inputs
+template <int N>
 __device__ __forceinline__ void coarse_rays(const MegakernelParams& p, int L, int C,
-                                            const Rows& s, Coarse& c) {
+                                            const CoarseIn<N>& ci, Coarse<N>& c) {
   const V3 ro = load3(p.cam_pos);
   const V3 pc = load3(p.planet_center);
   c.any_vis = false;
   for (int k = 0; k < C; ++k) {
-    const V3 rdm = v3(s.rd_sum[k].x / (float)L, s.rd_sum[k].y / (float)L, s.rd_sum[k].z / (float)L);
+    const V3 rdm = v3(ci.rd_sum[k].x / (float)L, ci.rd_sum[k].y / (float)L,
+                      ci.rd_sum[k].z / (float)L);
     float inv = 1.0f / sqrtf(rdm.x * rdm.x + rdm.y * rdm.y + rdm.z * rdm.z);
     V3 rdc = mul(rdm, inv);
-    const float depth_c = s.depth_min[k];
+    const float depth_c = ci.depth_min[k];
     float top0, top1, bot0, bot1;
     ray_sphere(pc, p.cloud_top_radius2, ro, rdc, top0, top1);
     ray_sphere(pc, p.cloud_bottom_radius2, ro, rdc, bot0, bot1);
@@ -1236,8 +1576,9 @@ __device__ __forceinline__ void coarse_rays(const MegakernelParams& p, int L, in
 // blend each full-resolution row with its group's cloud light/alpha, then
 // composite over the background; missed-shell pixels pass through.  A
 // chained layer keeps the larger of its alpha and the layers' below.
+template <int N>
 __device__ __forceinline__ void blend_and_store(const MegakernelParams& p, int x, int y0, int G,
-                                                int L, Rows& s, const bool* vis,
+                                                int L, RowPix<N>& s, const bool* vis,
                                                 const float* light_c, const float* calpha_c,
                                                 float* color, float* alpha_out) {
   if (p.clouds_enabled) {
@@ -1288,8 +1629,17 @@ __device__ __forceinline__ void count_work(unsigned long long* work, int slot, u
   if ((threadIdx.x & 31) == 0 && total) atomicAdd(work + slot, (unsigned long long)total);
 }
 
+// the knot position of a coverage group at s in [0, 1], as the plain
+// version computes it: ro + rk * lerp(t0k, t1k, s)
+template <int N>
+__device__ __forceinline__ V3 group_knot_pos(const V3& rom, const Coarse<N>& c, float s) {
+  return add(rom, mul(c.rk, c.t0k + (c.t1k - c.t0k) * s));
+}
+
 // ---------------------------------------------------------------------------
-// The procedural frame kernel: one thread per column and per group of rows.
+// The procedural frame kernel, register instance: one thread per column
+// and per group of at most MK_MAX_GROUP rows, the K + 1 coverage knots in
+// registers (the demo profile).
 
 template <int K>
 __global__ void __launch_bounds__(128) megakernel(const MegakernelParams p, const TexParams sky_t,
@@ -1316,16 +1666,17 @@ __global__ void __launch_bounds__(128) megakernel(const MegakernelParams p, cons
     const int tile = (blockIdx.y * G) / MK_TILE_ROWS * gridDim.x + blockIdx.x;
     sky.ch = TexChoice{__ldg(sky_choices + 2 * tile), __ldg(sky_choices + 2 * tile + 1)};
   }
-  Rows s;
+  RowPix<MK_MAX_GROUP> s;
+  CoarseIn<MK_MAX_GROUP> ci;
   unsigned n_atmo = 0, n_v1 = 0, n_groups = 0, n_march = 0, n_sun = 0, n_sky = 0;
-  if (live) shade_rows(p, blue, x, y0, G, L, s, color, depth, sky, work, n_atmo, n_v1, n_sky);
+  if (live) shade_rows(p, blue, x, y0, G, L, s, ci, color, depth, sky, work, n_atmo, n_v1, n_sky);
 
-  Coarse c;
+  Coarse<MK_MAX_GROUP> c;
   float light_c[MK_MAX_GROUP], calpha_c[MK_MAX_GROUP];
   for (int k = 0; k < C; ++k) light_c[k] = calpha_c[k] = 0.0f;
   c.any_vis = false;
   if (live && p.clouds_enabled) {
-    coarse_rays(p, L, C, s, c);
+    coarse_rays(p, L, C, ci, c);
     if (c.any_vis) {
       // coverage knots once per coverage group
       const V3 rom = load3(p.ro_model);
@@ -1333,17 +1684,16 @@ __global__ void __launch_bounds__(128) megakernel(const MegakernelParams p, cons
       float cov_max = 0.0f;
 #pragma unroll
       for (int k = 0; k <= K; ++k) {
-        const float sk = (float)((double)k / (double)K);
-        knots[k] = raw_coverage(p, add(rom, mul(c.rk, c.t0k + (c.t1k - c.t0k) * sk)));
+        knots[k] = raw_coverage(p, group_knot_pos(rom, c, (float)((double)k / (double)K)));
         cov_max = k == 0 ? knots[0] : fmaxf(cov_max, knots[k]);
       }
       ++n_groups;
       if (cloud_may_form(p, cov_max)) {
-        const RegKnots<K> cov{knots};
+        const RegFields<K> fields{RegKnots<K>{knots}};
         for (int k = 0; k < C; ++k) {
           if (c.vis[k]) {
-            cloud_march(p, c.rd_model[k], c.tb[k], c.tem[k], s.jit_first[k], cov,
-                        (const RegKnots<1>*)nullptr, light_c[k], calpha_c[k]);
+            cloud_march(p, fields, c.rd_model[k], c.tb[k], c.tem[k], ci.jit_first[k], light_c[k],
+                        calpha_c[k]);
             ++n_march;
             if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
           }
@@ -1365,13 +1715,131 @@ __global__ void __launch_bounds__(128) megakernel(const MegakernelParams p, cons
 }
 
 // ---------------------------------------------------------------------------
+// The procedural frame kernel, general instance (K1 slice (h)): every
+// procedural config the JAX megakernel renders.  One thread per column and
+// per group of G = cloud_lod * coverage_lod rows, G dividing the 32-row
+// tile.  Knots (coverage, shape, detail: any counts) live in dynamic shared
+// memory, knot-major with a stride of the block's 128 threads; a field
+// without knots is evaluated per march step and per sun sample, with every
+// noise basis and fractal (field_all).  The group's rows take two passes,
+// so that a thread holds per-row state of one row only: the first computes
+// the coarse inputs (ray, linear depth, jitter), the second shades each
+// row, blends it with its coarse pixel's clouds and stores it.
+
+__global__ void __launch_bounds__(128) megakernel_gen(const __grid_constant__ MegakernelParams p,
+                                                      const TexParams sky_t,
+                                                      const float* __restrict__ blue,
+                                                      const float* __restrict__ sky_r,
+                                                      const float* __restrict__ sky_g,
+                                                      const float* __restrict__ sky_b,
+                                                      const int* __restrict__ sky_choices,
+                                                      float* __restrict__ color,
+                                                      float* __restrict__ alpha_out,
+                                                      float* __restrict__ depth,
+                                                      unsigned long long* work) {
+  extern __shared__ float knot_smem[];
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int L = p.cloud_lod, C = p.coverage_lod, G = L * C;
+  const int y0 = p.row0 + blockIdx.y * G;
+  const bool live = x < p.width;
+
+  Sky sky{sky_t, sky_r, sky_g, sky_b, TexChoice{MK_WINDOWED, 0}};
+  if (p.with_sky) {
+    const int tile = (blockIdx.y * G) / MK_TILE_ROWS * gridDim.x + blockIdx.x;
+    sky.ch = TexChoice{__ldg(sky_choices + 2 * tile), __ldg(sky_choices + 2 * tile + 1)};
+  }
+  unsigned n_atmo = 0, n_v1 = 0, n_groups = 0, n_march = 0, n_sun = 0, n_sky = 0;
+  unsigned n_shape_knots = 0, n_detail_knots = 0;
+  FieldWork fw{0u, 0u, 0u};
+  Coarse<MK_TILE_ROWS> c;
+  float light_c[MK_TILE_ROWS], calpha_c[MK_TILE_ROWS];
+  for (int k = 0; k < C; ++k) light_c[k] = calpha_c[k] = 0.0f;
+  c.any_vis = false;
+  if (live) {
+    RowPix<1> unused;
+    CoarseIn<MK_TILE_ROWS> ci;
+    shade_rows<1, MK_TILE_ROWS, false>(p, blue, x, y0, G, L, unused, ci, color, depth, sky, work,
+                                       n_atmo, n_v1, n_sky);
+    coarse_rays(p, L, C, ci, c);
+    if (c.any_vis) {
+      const V3 rom = load3(p.ro_model);
+      const bool full = !p.always_low;
+      float* kn = knot_smem + threadIdx.x;
+      GenKnots cov{nullptr, p.coverage_knots}, shp{nullptr, p.shape_knots},
+          det{nullptr, p.shape_knots};
+      float cov_max = 0.0f;
+      if (p.coverage_interp) {
+        cov.k = kn;
+        for (int k = 0; k <= cov.K; ++k) {
+          const float v = field_all(p.coverage, coverage_point(
+              p, group_knot_pos(rom, c, (float)((double)k / (double)cov.K))));
+          kn[k * MK_TILE_COLS] = v;
+          cov_max = k == 0 ? v : fmaxf(cov_max, v);
+        }
+        kn += (cov.K + 1) * MK_TILE_COLS;
+        ++n_groups;
+      }
+      if (p.shape_interp) {
+        float* dk = kn + (shp.K + 1) * MK_TILE_COLS;
+        shp.k = kn;
+        det.k = full ? dk : nullptr;
+        for (int k = 0; k <= shp.K; ++k) {
+          const V3 pos = group_knot_pos(rom, c, (float)((double)k / (double)shp.K));
+          kn[k * MK_TILE_COLS] = field_all(p.shape, mul(pos, p.cloud_shape_scale));
+          if (full) dk[k * MK_TILE_COLS] = field_all(p.shape, detail_point(p, pos));
+        }
+        n_shape_knots += shp.K + 1;
+        if (full) n_detail_knots += shp.K + 1;
+      }
+      // no coverage knots, no bound: every visible coarse pixel marches
+      if (!p.coverage_interp || cloud_may_form(p, cov_max)) {
+        const GenFields fields{cov, shp, det, full, &fw};
+        for (int k = 0; k < C; ++k) {
+          if (c.vis[k]) {
+            cloud_march(p, fields, c.rd_model[k], c.tb[k], c.tem[k], ci.jit_first[k], light_c[k],
+                        calpha_c[k]);
+            ++n_march;
+            if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
+          }
+        }
+      }
+    }
+    for (int r = 0; r < G; ++r) {
+      RowPix<1> s;
+      CoarseIn<1> unused_c;
+      const int k = r / L;
+      shade_rows(p, blue, x, y0 + r, 1, 1, s, unused_c, color, depth, sky, work, n_atmo, n_v1,
+                 n_sky);
+      blend_and_store(p, x, y0 + r, 1, 1, s, c.vis + k, light_c + k, calpha_c + k, color,
+                      alpha_out);
+    }
+  }
+  if (work) {
+    count_work(work, MK_WORK_PIXELS, live ? G : 0);
+    count_work(work, MK_WORK_ATMOSPHERE, n_atmo);
+    count_work(work, MK_WORK_V1_ATMOSPHERE, n_v1);
+    count_work(work, MK_WORK_KNOT_GROUPS, n_groups);
+    count_work(work, MK_WORK_MARCH, n_march);
+    count_work(work, MK_WORK_SUN_SAMPLES, n_sun);
+    count_work(work, MK_WORK_SKY, sky.ch.mode == MK_FLOOR ? 0 : n_sky);
+    count_work(work, MK_WORK_SKY_FLOOR, sky.ch.mode == MK_FLOOR ? n_sky : 0);
+    count_work(work, MK_WORK_COVERAGE_EVALS, fw.cov);
+    count_work(work, MK_WORK_SHAPE_EVALS, fw.shape);
+    count_work(work, MK_WORK_DETAIL_EVALS, fw.detail);
+    count_work(work, MK_WORK_SHAPE_KNOTS, n_shape_knots);
+    count_work(work, MK_WORK_DETAIL_KNOTS, n_detail_knots);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Texture mode: K1 with K2 inside.  One thread block per 32 x 128 TPU tile
 // (its batches are the TPU kernel's), one thread per column and coverage
 // group: 128 x 32 / G threads.  The 9 coverage and 17 shape knots of each
 // thread live in dynamic shared memory, knot-major.
 
-// knot position of a coverage group, as the plain version computes it
-__device__ __forceinline__ V3 knot_pos(const V3& rom, const Coarse& c, float s) {
+// knot position of a coverage group, as the plain version computes it,
+// uncontracted
+__device__ __forceinline__ V3 knot_pos(const V3& rom, const Coarse<MK_MAX_GROUP>& c, float s) {
   const float tk = __fadd_rn(c.t0k, __fmul_rn(__fsub_rn(c.t1k, c.t0k), s));
   return v3(__fadd_rn(rom.x, __fmul_rn(c.rk.x, tk)), __fadd_rn(rom.y, __fmul_rn(c.rk.y, tk)),
             __fadd_rn(rom.z, __fmul_rn(c.rk.z, tk)));
@@ -1395,7 +1863,8 @@ __device__ __forceinline__ void coverage_dir(const MegakernelParams& p, V3 pos, 
 // else the lat-long coverage map.
 template <bool SHAPE>
 __device__ void eval_knots(const MegakernelParams& p, const TexParams& t,
-                           const float* __restrict__ tab, const Coarse& c, int K, float* knots,
+                           const float* __restrict__ tab, const Coarse<MK_MAX_GROUP>& c, int K,
+                           float* knots,
                            float* red, unsigned* n_samples) {
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nt = blockDim.x * blockDim.y;
@@ -1472,12 +1941,13 @@ __global__ void __launch_bounds__(128 * (MK_TILE_ROWS / G), 1)
   // the sky's choice: the block's rays are its tile's
   Sky sky{sky_t, sky_r, sky_g, sky_b, TexChoice{MK_WINDOWED, 0}};
   if (p.with_sky) sky.ch = sky_choice<G>(p, sky_t, x, y0, red);
-  Rows s;
+  RowPix<MK_MAX_GROUP> s;
+  CoarseIn<MK_MAX_GROUP> ci;
   unsigned n_atmo = 0, n_v1 = 0, n_march = 0, n_sun = 0, n_sky = 0, tex_samples[2] = {0, 0},
            cov_samples[2] = {0, 0};
-  shade_rows(p, blue, x, y0, G, L, s, color, depth, sky, work, n_atmo, n_v1, n_sky);
-  Coarse c;
-  coarse_rays(p, L, C, s, c);
+  shade_rows(p, blue, x, y0, G, L, s, ci, color, depth, sky, work, n_atmo, n_v1, n_sky);
+  Coarse<MK_MAX_GROUP> c;
+  coarse_rays(p, L, C, ci, c);
 
   float light_c[MK_MAX_GROUP], calpha_c[MK_MAX_GROUP];
   for (int k = 0; k < C; ++k) light_c[k] = calpha_c[k] = 0.0f;
@@ -1489,12 +1959,12 @@ __global__ void __launch_bounds__(128 * (MK_TILE_ROWS / G), 1)
     float cov_max = cov_knots[tid];
     for (int k = 1; k <= K; ++k) cov_max = fmaxf(cov_max, cov_knots[k * nt + tid]);
     if (c.any_vis && cloud_may_form(p, cov_max)) {
-      const SmemKnots<K> cov{cov_knots + tid, nt};
-      const SmemKnots<KS> shp{shp_knots + tid, nt};
+      const TexFields<K, KS> fields{SmemKnots<K>{cov_knots + tid, nt},
+                                    SmemKnots<KS>{shp_knots + tid, nt}};
       for (int k = 0; k < C; ++k) {
         if (c.vis[k]) {
-          cloud_march(p, c.rd_model[k], c.tb[k], c.tem[k], s.jit_first[k], cov, &shp,
-                      light_c[k], calpha_c[k]);
+          cloud_march(p, fields, c.rd_model[k], c.tb[k], c.tem[k], ci.jit_first[k], light_c[k],
+                      calpha_c[k]);
           ++n_march;
           if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
         }
@@ -1628,22 +2098,48 @@ extern "C" int sky_choice_launch(const MegakernelParams* params, const TexParams
   return (int)cudaGetLastError();
 }
 
+// the general instance's knot rows: coverage, shape and detail knots
+static int knot_rows(const MegakernelParams* p) {
+  const int shape = p->shape_interp ? (p->shape_knots + 1) * (p->always_low ? 1 : 2) : 0;
+  return (p->coverage_interp ? p->coverage_knots + 1 : 0) + shape;
+}
+
 extern "C" int megakernel_launch(const MegakernelParams* params, const TexParams* sky,
                                  const float* blue, const float* sky_r, const float* sky_g,
                                  const float* sky_b, const int* sky_choices, float* color,
                                  float* alpha, float* depth, void* stream, void* work) {
-  if (params->clouds_enabled && params->coverage_knots != MK_KNOTS) return -1;
+  const bool general = params->clouds_enabled && params->general_instance;
   const int G = params->clouds_enabled ? params->cloud_lod * params->coverage_lod : 1;
-  if (!rows_ok(params) || params->rows % G) return -1;
+  if (general ? (G < 1 || MK_TILE_ROWS % G || params->coverage_knots < 1 ||
+                 params->shape_knots < 1 || knot_rows(params) > MK_MAX_KNOT_ROWS)
+              : (params->clouds_enabled &&
+                 (params->coverage_knots != MK_KNOTS || G > MK_MAX_GROUP)))
+    return -1;
+  if (!rows_ok(params)) return -1;
   if ((params->with_background || !params->with_atmosphere) && !depth) return -1;
   if (!sky_ok(params, sky, sky_r, sky_g, sky_b) ||
       (params->with_sky && (MK_TILE_ROWS % G || !sky_choices)))
     return -1;
-  dim3 block(128, 1, 1);
-  dim3 grid((params->width + 127) / 128, params->rows / G, 1);
-  megakernel<MK_KNOTS><<<grid, block, 0, (cudaStream_t)stream>>>(
-      *params, sky ? *sky : TexParams{}, blue, sky_r, sky_g, sky_b, sky_choices, color, alpha,
-      depth, (unsigned long long*)work);
+  // a partial last group is rendered whole (its rows past the launch are
+  // computed, not stored), as the TPU kernel pads its last 32-row tile
+  dim3 block(MK_TILE_COLS, 1, 1);
+  dim3 grid((params->width + MK_TILE_COLS - 1) / MK_TILE_COLS, (params->rows + G - 1) / G, 1);
+  const TexParams sky_t = sky ? *sky : TexParams{};
+  cudaStream_t s = (cudaStream_t)stream;
+  unsigned long long* w = (unsigned long long*)work;
+  if (!general) {
+    megakernel<MK_KNOTS><<<grid, block, 0, s>>>(*params, sky_t, blue, sky_r, sky_g, sky_b,
+                                                sky_choices, color, alpha, depth, w);
+    return (int)cudaGetLastError();
+  }
+  const int smem = knot_rows(params) * MK_TILE_COLS * (int)sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t err =
+        cudaFuncSetAttribute(megakernel_gen, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  megakernel_gen<<<grid, block, smem, s>>>(*params, sky_t, blue, sky_r, sky_g, sky_b, sky_choices,
+                                           color, alpha, depth, w);
   return (int)cudaGetLastError();
 }
 

@@ -33,6 +33,13 @@ SHAPE_NOISE_BAKE = NoiseSpec(noise_type="cellular", frequency=0.1,
 SHAPE_NOISE_FAST = NoiseSpec(noise_type="value", frequency=0.1,
                              fractal_type="ridged", octaves=3, gain=0.665,
                              seed=3)
+#: the cellular quality tier of the in-march shape: the 8-cell Worley F1
+#: window (``cellular_fast``, the bake's feature points), ridged, 3 octaves
+SHAPE_NOISE_FAST_CELL = NoiseSpec(noise_type="cellular_fast", frequency=0.1,
+                                  fractal_type="ridged", octaves=3, gain=0.665,
+                                  cellular_return="distance", seed=3)
+#: the in-march shape bases of ``demo_variant(shape_basis=)``
+SHAPE_BASES = {"value": SHAPE_NOISE_FAST, "cellular": SHAPE_NOISE_FAST_CELL}
 #: the demo NoiseCubemap: default FastNoiseLite with domain warp
 COVERAGE_NOISE = NoiseSpec(noise_type="simplex_smooth", frequency=0.01,
                            fractal_type="fbm", octaves=5,
@@ -43,10 +50,13 @@ COVERAGE_RESOLUTION = 256
 SHAPE_TEXTURE_SIZE = 64
 
 
-def demo_variant(name: str = "clouds", procedural: bool = True) -> VariantConfig:
+def demo_variant(name: str = "clouds", procedural: bool = True,
+                 shape_basis: str = "value") -> VariantConfig:
     """The demo's shader variant with its fast profile: 8 coverage knots,
     coverage and cloud LOD 2, interior LOD 4, dynamic knots; procedural
-    field specs, or none with ``procedural=False`` (baked textures)."""
+    field specs, or none with ``procedural=False`` (baked textures).
+    ``shape_basis``: the in-march shape, ``"value"`` (the fast spec) or
+    ``"cellular"`` (``SHAPE_NOISE_FAST_CELL``)."""
     cfg = VARIANTS[name]
     if not cfg.clouds_enabled:
         return cfg
@@ -58,7 +68,7 @@ def demo_variant(name: str = "clouds", procedural: bool = True) -> VariantConfig
     return dataclasses.replace(
         cfg,
         cloud_shape_noise=ProceduralField(
-            noise=SHAPE_NOISE_FAST, scale=(float(SHAPE_TEXTURE_SIZE),) * 3),
+            noise=SHAPE_BASES[shape_basis], scale=(float(SHAPE_TEXTURE_SIZE),) * 3),
         cloud_coverage_noise=ProceduralField(
             noise=COVERAGE_NOISE, scale=COVERAGE_SCALE),
         **profile)
@@ -74,16 +84,17 @@ def bake_demo_textures(*, device="cuda", shape_size: int = SHAPE_TEXTURE_SIZE,
                                device=device))
 
 
-def build_demo_scene(variant: str = "clouds", procedural: bool = True, *,
-                     device="cuda", textures=None) -> Scene:
+def build_demo_scene(variant: str = "clouds", procedural: bool = True,
+                     shape_basis: str = "value", *, device="cuda", textures=None) -> Scene:
     """Planet + sun + moon + cube demo scene on ``device``.  With
     ``procedural=False`` a clouds variant samples baked textures:
     ``textures`` = ``(shape, cubemap)`` if given (e.g. carried across from
-    the JAX package), else :func:`bake_demo_textures` on ``device``."""
+    the JAX package), else :func:`bake_demo_textures` on ``device``;
+    ``shape_basis`` as in :func:`demo_variant`."""
     sun = Node3D(position=(0.0, 0.0, 598.677), name="Sun")
     atmo = PlanetAtmosphere(
         planet_radius=100.0, atmosphere_height=8.0, sun=sun,
-        custom_shader=demo_variant(variant, procedural),
+        custom_shader=demo_variant(variant, procedural, shape_basis),
         name="PlanetAthmosphere",  # sic, as in the tscn
         device=device)
     # shader_params block (planet_atmosphere_test.tscn:101-114)

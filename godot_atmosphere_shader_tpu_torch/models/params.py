@@ -158,13 +158,9 @@ class VariantConfig:
     """Compile-time variant switches — the reference's ``#define`` matrix.
 
     Field for field the JAX package's ``VariantConfig`` (its docstrings
-    explain each one).  The port's render paths honour the v2 model,
-    analytic optical depth, procedural or baked-texture cloud fields with
-    cheap lighting, coverage and shape knots (``cloud_coverage_interp``/
-    ``_knots``/``_lod``, ``cloud_shape_interp``/``_knots``, ``knot_dynamic``),
-    the pyramid metas and ``texture_*`` settings of texture mode,
-    ``cubemap_seamless``, ``tile_cull``, ``cloud_lod`` and
-    ``cloud_lod_interior``; the rest raise until ported.
+    explain each one).  The port's render paths honour every field but
+    ``od_mode="lut"`` (which raises until ported) and ``march_unroll`` (a
+    TPU compile setting, ignored).
     """
 
     model: str = "v2"

@@ -22,8 +22,7 @@ packed the same way, into three channel pyramids once per panorama object
 environment's HDR glow (``render/glow.py``), on a rendered frame.
 
 Not ported yet (they raise ``NotImplementedError``): ``od_mode="lut"``,
-large-world rebasing, one baked cloud field beside one procedural field,
-and the detail field.
+large-world rebasing, and one baked cloud field beside one procedural field.
 """
 
 from __future__ import annotations
@@ -407,17 +406,13 @@ class Scene:
     def _check_layers(configs):
         """What the scene refuses for its layers: none, a layer mix that
         disagrees on ``reverse_z`` (``ValueError``, as the JAX
-        ``shared_reverse_z``), and what is not ported: the optical-depth LUT
-        and full-quality cloud density (the detail field)."""
+        ``shared_reverse_z``), and what is not ported: the optical-depth LUT."""
         if not configs:
             raise ValueError("the scene has no atmosphere layer")
         shared_reverse_z(configs)
         for config in configs:
             if config.od_mode != "analytic":
                 raise NotImplementedError(f"od_mode={config.od_mode!r} is not ported yet")
-            if config.clouds_enabled and not config.clouds_always_low_quality:
-                raise NotImplementedError("full-quality cloud density (the detail field) "
-                                          "is not ported yet")
 
     def _layer_bands(self, order, params, configs, tex_data, camera: Camera, height: int):
         """The far-LOD plan (``scene.py:497-546``): per layer, the screen-row

@@ -1,18 +1,17 @@
 """Volumetric cloud layer between two spheres (``cloud_funcs.gdshaderinc``).
 
-Counterpart of ``godot_atmosphere_shader_tpu/ops/clouds.py`` for the demo's
-fast profiles: coverage sampled at ``K + 1`` ray knots (optionally every
-``coverage_lod`` coarse rows) and interpolated per step, the shape field
-likewise at ``cloud_shape_knots + 1`` knots (texture mode), cheap or
-sun-marched (``raymarched_lighting``) light, the conservative density-bound
-cull, and the vertical cloud LOD.
+Counterpart of ``godot_atmosphere_shader_tpu/ops/clouds.py``: coverage per
+step or sampled at ``K + 1`` ray knots (optionally every ``coverage_lod``
+coarse rows) and interpolated per step, the shape field per step or likewise
+at ``cloud_shape_knots + 1`` knots, and at full quality
+(``clouds_always_low_quality=False``) the detail field (the shape field at
+``pos·15 + time·0.01``) per step or at its own knots; cheap or sun-marched
+(``raymarched_lighting``) light, the conservative density-bound cull, and
+the vertical cloud LOD.
 The per-step march is a Python loop over whole pixel planes; the CUDA
 megakernel runs the same arithmetic per coarse pixel.  Knot fields are
 evaluated ``knot_group`` knots per field call, which matters only for the
 pyramid samplers, whose result depends on the batch.
-
-Not ported yet (it raises ``NotImplementedError``): the detail field of
-full-quality density (``clouds_always_low_quality=False``).
 """
 
 from __future__ import annotations
@@ -61,17 +60,24 @@ def raw_coverage(pos: Vec3, params, coverage_fn: Callable):
     return coverage_fn(Vec3(cov_x, pos.y, cov_z))
 
 
+def detail_position(pos: Vec3, time) -> Vec3:
+    """Where the detail field samples the shape field: ``pos·15 +
+    time·0.01`` (:60)."""
+    t = time * 0.01
+    return pos * 15.0 + Vec3(t, t, t)
+
+
 def get_density_full(pos: Vec3, time, settings: CloudSettings, params,
                      shape_fn: Callable, coverage_fn: Callable, low: bool,
                      always_low: bool, coverage_value=None, pos_len=None,
-                     shape_value=None):
-    """``get_density_full`` (:31-68), low-quality branch (detail = 0.5, as
-    ``CLOUDS_ALWAYS_LOW_QUALITY`` forces); ``pos`` is in planet model space,
-    ``coverage_value``/``shape_value`` raw field values interpolated from
-    the ray knots."""
-    if not (low or always_low):
-        raise NotImplementedError("full-quality cloud density (the detail "
-                                  "field) is not ported yet")
+                     shape_value=None, detail_value=None):
+    """``get_density_full`` (:31-68); ``pos`` is in planet model space.
+    Low quality (``low`` or ``always_low``) takes detail = 0.5, full quality
+    the detail field: ``detail_value`` (interpolated from its knots) or the
+    shape field at :func:`detail_position`.  ``coverage_value``/
+    ``shape_value`` are raw field values interpolated from the ray knots."""
+    if always_low:
+        low = True
     if pos_len is None:
         pos_len = length(pos)
     h = pos_len - settings.bottom_height
@@ -85,7 +91,12 @@ def get_density_full(pos: Vec3, time, settings: CloudSettings, params,
     shape_raw = (shape_value if shape_value is not None
                  else shape_fn(pos * params.cloud_shape_scale))
     shape = lerp(0.5, shape_raw, params.cloud_shape_factor)
-    detail = 0.5
+    if low:
+        detail = 0.5
+    elif detail_value is not None:
+        detail = detail_value
+    else:
+        detail = shape_fn(detail_position(pos, time))
 
     # u_cloud_shape_invert is a float switch in the shader (:57-59)
     shape = torch.where(params.cloud_shape_invert == 1.0, 1.0 - shape, shape)
@@ -128,19 +139,17 @@ SUN_REACH = 0.15
 def get_light_raymarched(pos0: Vec3, sun_dir: Vec3, jitter, alpha0, time,
                          settings: CloudSettings, params, shape_fn: Callable,
                          coverage_fn: Callable, always_low: bool,
-                         coverage_value=None, shape_value=None):
+                         coverage_value=None, shape_value=None, detail_value=None):
     """The 6-step sun march (:104-151): step ``i`` samples the density at
     ``pos0 + sun_dir · (i · len_i)`` with ``len_i = (0.15 · layer / 6) ·
     1.2^i`` (the step's own length, not a cumulative sum), and the light is
     ``lerp(1, 0.2 · height_ratio(pos0), alpha)`` of the accumulated alpha.
-    Density is low quality; ``coverage_value`` (the march step's
-    interpolated coverage) is reused by every sun sample, and so is
-    ``shape_value`` where given (texture mode); otherwise the shape field is
-    evaluated at each sun sample.  ``jitter`` is unused, as in the
-    reference."""
-    if not always_low:
-        raise NotImplementedError("full-quality cloud density (the detail "
-                                  "field) is not ported yet")
+    ``coverage_value``, ``shape_value`` and ``detail_value`` (the march
+    step's interpolated knots) are reused by every sun sample where given;
+    otherwise each field is evaluated at each sun sample.  At full quality
+    a pixel whose march alpha ``alpha0`` is below 0.3 takes the full
+    density, the others the low one (both computed, then selected).
+    ``jitter`` is unused, as in the reference."""
     layer = settings.top_height - settings.bottom_height
     reach = layer * SUN_REACH
     pos0_height_ratio = (length(pos0) - settings.bottom_height) / layer
@@ -149,8 +158,13 @@ def get_light_raymarched(pos0: Vec3, sun_dir: Vec3, jitter, alpha0, time,
     for i in range(SUN_STEPS):
         pos = pos0 + sun_dir * (float(i) * step_len)
         density = get_density_full(pos, time, settings, params, shape_fn, coverage_fn,
-                                   True, True, coverage_value=coverage_value,
+                                   True, always_low, coverage_value=coverage_value,
                                    shape_value=shape_value)
+        if not always_low:
+            full = get_density_full(pos, time, settings, params, shape_fn, coverage_fn,
+                                    False, False, coverage_value=coverage_value,
+                                    shape_value=shape_value, detail_value=detail_value)
+            density = torch.where(alpha0 < 0.3, full, density)
         density = density * (step_len * settings.density_scale)
         transmittance = torch.exp(-density)
         alpha = alpha + (1.0 - transmittance) * (1.0 - alpha)
@@ -161,12 +175,13 @@ def get_light_raymarched(pos0: Vec3, sun_dir: Vec3, jitter, alpha0, time,
 def get_light(pos: Vec3, ray_dir: Vec3, sun_dir: Vec3, jitter, alpha, time,
               settings: CloudSettings, params, shape_fn: Callable,
               coverage_fn: Callable, raymarched: bool, always_low: bool,
-              pos_len=None, coverage_value=None, shape_value=None):
+              pos_len=None, coverage_value=None, shape_value=None, detail_value=None):
     """(:153-167): the lighting model, then the planet shadow (× 0.002)."""
     if raymarched:
         light = get_light_raymarched(pos, sun_dir, jitter, alpha, time, settings, params,
                                      shape_fn, coverage_fn, always_low,
-                                     coverage_value=coverage_value, shape_value=shape_value)
+                                     coverage_value=coverage_value, shape_value=shape_value,
+                                     detail_value=detail_value)
     else:
         light = get_light_cheap(pos, ray_dir, sun_dir, alpha, settings, pos_len=pos_len)
     return light * lerp(1.0, 0.002, get_planet_shadow(pos, sun_dir, pos_len=pos_len))
@@ -227,7 +242,7 @@ def raymarch_cloud(ray_origin: Vec3, ray_dir: Vec3, t_begin, t_end, jitter,
                    raymarched_lighting: bool, always_low: bool,
                    coverage_interp: bool = False, coverage_endpoints=None,
                    coverage_knots: int = 8, knot_dynamic: bool = False,
-                   shape_endpoints=None):
+                   shape_endpoints=None, detail_endpoints=None):
     """``raymarch_cloud`` (:175-247).  Returns ``(total_light, alpha)``."""
     t_end = clamp_march_distance(ray_origin, t_begin, t_end, settings)
     step_len = (t_end - t_begin) * (1.0 / float(steps))
@@ -255,17 +270,20 @@ def raymarch_cloud(ray_origin: Vec3, ray_dir: Vec3, t_begin, t_end, jitter,
         coverage_value = None
         if knots is not None:
             coverage_value = interp_knots(knots, u01, knot_dynamic)
-        shape_value = None
+        shape_value = detail_value = None
         if shape_endpoints is not None:
             shape_value = interp_knots(shape_endpoints, u01, knot_dynamic)
+        if detail_endpoints is not None:
+            detail_value = interp_knots(detail_endpoints, u01, knot_dynamic)
         light = get_light(pos, ray_dir, sun_dir, jitter, alpha, time, settings, params,
                           shape_fn, coverage_fn, raymarched_lighting, always_low,
                           pos_len=pos_len, coverage_value=coverage_value,
-                          shape_value=shape_value)
+                          shape_value=shape_value, detail_value=detail_value)
         density = get_density_full(pos, time, settings, params, shape_fn,
                                    coverage_fn, False, always_low,
                                    coverage_value=coverage_value,
-                                   pos_len=pos_len, shape_value=shape_value)
+                                   pos_len=pos_len, shape_value=shape_value,
+                                   detail_value=detail_value)
         density = density * settings.density_scale
 
         transmittance = torch.exp(-density * step_len)
@@ -313,10 +331,6 @@ def render_clouds(albedo: Vec3, alpha, planet_center: Vec3,
     """``render_clouds`` (:249-324) over whole pixel planes, in world space
     (converted to planet model space with ``world_to_model``).  Returns the
     blended ``(albedo, alpha)``, or ``(light, alpha, visible)`` raw."""
-    if shape_interp and not always_low:
-        raise NotImplementedError(
-            "the detail knot field (clouds_always_low_quality=False) is not "
-            "ported yet")
     settings = cloud_settings(params)
 
     top0, top1 = ray_sphere(planet_center, settings.top_height, ray_origin, ray_dir)
@@ -345,6 +359,9 @@ def render_clouds(albedo: Vec3, alpha, planet_center: Vec3,
     if shape_interp:
         plan.append(("shp", lambda pos: shape_fn(pos * params.cloud_shape_scale),
                      max(int(shape_knots), 1)))
+        if not always_low:
+            plan.append(("det", lambda pos: shape_fn(detail_position(pos, time)),
+                         max(int(shape_knots), 1)))
 
     def eval_knots(field, K, rd, t0, t1):
         """``field`` at the K + 1 ray knots, ``knot_group`` knots' planes
@@ -390,7 +407,8 @@ def render_clouds(albedo: Vec3, alpha, planet_center: Vec3,
             settings, params, shape_fn, coverage_fn, steps,
             raymarched_lighting, always_low, coverage_interp=coverage_interp,
             coverage_endpoints=knots.get("cov"), coverage_knots=coverage_knots,
-            knot_dynamic=knot_dynamic, shape_endpoints=knots.get("shp"))
+            knot_dynamic=knot_dynamic, shape_endpoints=knots.get("shp"),
+            detail_endpoints=knots.get("det"))
 
     zero = torch.zeros_like(t_begin)
     if not cull:

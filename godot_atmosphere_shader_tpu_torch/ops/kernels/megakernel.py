@@ -11,10 +11,14 @@ sun-marched light, and the composite; or the opaque pass alone.  The
 launch that runs the opaque pass draws the panorama sky (three channel
 pyramids sampled by K2's lat-long device functions, one level and mode per
 32×128 tile of rays; the procedural instance reads them from a per-tile
-pre-pass, :func:`sky_choices`) where a scene has one.  It has two instances:
-procedural cloud fields, and texture mode (baked textures sampled through
-mip pyramids by the K2 device functions, one thread block per 32×128
-tile).
+pre-pass, :func:`sky_choices`) where a scene has one.  It has three
+instances: the register instance for the demo profile's procedural fields
+(8 coverage knots in registers), the general procedural instance for every
+other procedural config the JAX megakernel renders (every basis and
+fractal, fields per step or from knots in shared memory, the detail field,
+LOD groups up to 32 rows; :func:`register_instance` picks), and texture
+mode (baked textures sampled through mip pyramids by the K2 device
+functions, one thread block per 32×128 tile).
 
 * :func:`render_scene_megakernel` renders a frame of any number of layers
   (the counterpart of ``render_scene_pallas``): CPU tensors take the plain
@@ -84,10 +88,15 @@ SOURCE = os.path.join(library.CSRC, "megakernel.cu")
 MAX_SPHERES = 8
 MAX_BOXES = 4
 MAX_OCTAVES = 8
+#: rows per thread of the register instance and the texture instance's
+#: knots per batch
 MAX_GROUP = 8
 QUAD_POINTS = 8
-#: the coverage knot count the kernel is built for (template parameter K)
+#: the register instance's coverage knot count (template parameter K)
 KNOTS = 8
+#: the general instance's knot rows in shared memory (coverage, shape and
+#: detail knots of a block's 128 threads: 448 × 512 B fits 227 KB)
+MAX_KNOT_ROWS = 448
 #: texture mode: the shape knot count it is built for, pyramid levels and
 #: batch modes (as ``texsample.py`` numbers them); its tile is the plain
 #: renderer's ``TILE_ROWS × TILE_COLS``
@@ -97,29 +106,41 @@ WINDOWED, BANDED, FLOOR = texsample.WINDOWED, texsample.BANDED, texsample.FLOOR
 #: texture mode's rows per thread, cloud_lod·cloud_coverage_lod (a block
 #: of 128 × 32 / G threads must fit 1024)
 TEXTURE_GROUPS = (4, 8)
-#: work counter slots, in the kernel's order (``MK_WORK_*``)
+#: work counter slots, in the kernel's order (``MK_WORK_*``); the general
+#: instance also counts its procedural field evaluations: coverage per step
+#: and per sun sample, shape and detail per step and per sun sample, and the
+#: shape and detail knots
 WORK_SLOTS = ("pixels", "atmosphere", "knot_groups", "march", "tex3d",
               "tex3d_floor", "latlong", "latlong_floor", "sun_samples",
-              "v1_atmosphere", "opaque_pixels", "sky", "sky_floor")
+              "v1_atmosphere", "opaque_pixels", "sky", "sky_floor",
+              "coverage_evals", "shape_evals", "detail_evals", "shape_knots",
+              "detail_knots")
 #: atmosphere models, by their integer codes
 MODELS = {"v2": 0, "v1": 1}
-#: noise bases and fractals the kernel implements, by their integer codes
-NOISE_TYPES = {"value": 0, "simplex_smooth": 1}
-FRACTAL_TYPES = {"none": 0, "fbm": 1, "ridged": 2}
+#: noise bases, fractals and cellular returns, by their integer codes
+NOISE_TYPES = {"value": 0, "simplex_smooth": 1, "perlin": 2, "simplex": 3, "cellular": 4,
+               "cellular_fast": 5}
+FRACTAL_TYPES = {"none": 0, "fbm": 1, "ridged": 2, "ping_pong": 3}
+CELLULAR_RETURNS = {"distance": 0, "distance2": 1, "cell_value": 2}
+#: what the register instance's noise takes (the demo profile's fields)
+REGISTER_NOISE_TYPES = ("value", "simplex_smooth")
+REGISTER_FRACTAL_TYPES = ("none", "fbm", "ridged")
 
 
 class Counters:
-    """Plain integer counters: frame-kernel launches (both instances, every
-    layer and the opaque-only pass; ``texture_launches`` counts the texture
-    instance alone, ``sky_launches`` the launches that draw the panorama
-    sky), launches of the sky's per-tile choice pre-pass, of the K2-alone
-    entry, and plain-path frames (one per frame, whatever its layers)."""
+    """Plain integer counters: frame-kernel launches (every instance, every
+    layer and the opaque-only pass; ``general_launches`` counts the general
+    procedural instance alone, ``texture_launches`` the texture instance,
+    ``sky_launches`` the launches that draw the panorama sky), launches of
+    the sky's per-tile choice pre-pass, of the K2-alone entry, and
+    plain-path frames (one per frame, whatever its layers)."""
 
     def __init__(self):
         self.reset()
 
     def reset(self):
         self.megakernel_launches = 0
+        self.general_launches = 0
         self.texture_launches = 0
         self.sky_launches = 0
         self.sky_choice_launches = 0
@@ -144,6 +165,11 @@ class NoiseParams(ctypes.Structure):
         ("seed", ctypes.c_int),
         ("frequency", ctypes.c_float),
         ("lacunarity", ctypes.c_float),
+        ("gain", ctypes.c_float),
+        ("ping_pong_strength", ctypes.c_float),
+        ("weighted_strength", ctypes.c_float),
+        ("cellular_jitter", ctypes.c_float),
+        ("cellular_return", ctypes.c_int),
         ("amp", _floats(MAX_OCTAVES)),
         ("warp_enabled", ctypes.c_int),
         ("warp_octaves", ctypes.c_int),
@@ -213,6 +239,12 @@ class MegakernelParams(ctypes.Structure):
         ("cloud_lod", ctypes.c_int),
         ("coverage_lod", ctypes.c_int),
         ("coverage_knots", ctypes.c_int),
+        ("general_instance", ctypes.c_int),
+        ("coverage_interp", ctypes.c_int),
+        ("shape_interp", ctypes.c_int),
+        ("shape_knots", ctypes.c_int),
+        ("always_low", ctypes.c_int),
+        ("time", ctypes.c_float),
         ("cloud_bottom_radius", ctypes.c_float),
         ("cloud_top_radius", ctypes.c_float),
         ("cloud_bottom_radius2", ctypes.c_float),
@@ -314,10 +346,12 @@ def texture_mode(config: VariantConfig) -> bool:
 
 def check_config(config: VariantConfig):
     """Raise ``ValueError`` for any config outside what the kernel renders:
-    v1 or v2, analytic optical depth, and (with clouds) always-low density
-    with cheap or sun-marched light and dynamic coverage knots, the fields
-    either procedural (value or simplex-smooth) or both baked textures in
-    texture mode."""
+    v1 or v2 with analytic optical depth; with procedural cloud fields,
+    every basis, fractal and knot setting the JAX megakernel renders
+    (coverage and shape per step or from any number of knots, the detail
+    field, a LOD group of cloud_lod·cloud_coverage_lod rows dividing the
+    32-row tile) within the launch struct's limits; with baked fields, the
+    texture instance's envelope (:func:`_texture_problems`)."""
     bad = []
     if config.model not in MODELS:
         bad.append(f"model={config.model!r} (v1 or v2)")
@@ -326,30 +360,55 @@ def check_config(config: VariantConfig):
     if config.clouds_enabled:
         if texture_mode(config):
             bad.extend(_texture_problems(config))
+        elif config.cloud_shape_noise is None and config.cloud_coverage_noise is None:
+            bad.append("baked cloud textures without pyramid metas (Scene.render "
+                       "builds them)")
+        elif config.cloud_shape_noise is None or config.cloud_coverage_noise is None:
+            bad.append("one baked and one procedural cloud field")
         else:
-            if config.cloud_shape_noise is None or config.cloud_coverage_noise is None:
-                bad.append("baked cloud textures without pyramid metas (Scene.render "
-                           "builds them)")
-            if config.cloud_shape_interp:
-                bad.append("cloud_shape_interp with procedural fields")
-        if not config.clouds_always_low_quality:
-            bad.append("clouds_always_low_quality=False")
-        if not config.cloud_coverage_interp:
-            bad.append("cloud_coverage_interp=False")
-        if config.cloud_coverage_knots != KNOTS:
-            bad.append(f"cloud_coverage_knots={config.cloud_coverage_knots} "
-                       f"(the kernel is built for {KNOTS})")
-        if not config.knot_dynamic:
-            bad.append("knot_dynamic=False (hat-sum interpolation)")
-        if config.cloud_lod < 1 or config.cloud_coverage_lod < 1 or (
-                config.cloud_lod * config.cloud_coverage_lod > MAX_GROUP):
-            bad.append(f"cloud_lod·cloud_coverage_lod > {MAX_GROUP}")
+            bad.extend(_procedural_problems(config))
         for name in ("cloud_shape_noise", "cloud_coverage_noise"):
             field = getattr(config, name)
             if field is not None:
                 bad.extend(f"{name}: {why}" for why in _noise_problems(field.noise))
     if bad:
         raise ValueError("megakernel does not render: " + "; ".join(bad))
+
+
+def _procedural_problems(config: VariantConfig):
+    group = config.cloud_lod * config.cloud_coverage_lod
+    if config.cloud_lod < 1 or config.cloud_coverage_lod < 1 or TILE_ROWS % group:
+        yield (f"cloud_lod·cloud_coverage_lod = {group} (it must divide the "
+               f"{TILE_ROWS}-row tile)")
+    if knot_rows(config) > MAX_KNOT_ROWS:
+        yield (f"{knot_rows(config)} knot rows (coverage, shape and detail knots + 1 each; "
+               f"shared memory holds {MAX_KNOT_ROWS})")
+
+
+def knot_rows(config: VariantConfig) -> int:
+    """The general instance's knot rows: coverage, shape and detail knots
+    (each ``max(K, 1) + 1``) where interpolated."""
+    cov = max(config.cloud_coverage_knots, 1) + 1 if config.cloud_coverage_interp else 0
+    shape = max(config.cloud_shape_knots, 1) + 1 if config.cloud_shape_interp else 0
+    return cov + shape * (1 if config.clouds_always_low_quality else 2)
+
+
+def register_instance(config: VariantConfig) -> bool:
+    """Whether a procedural config takes the register instance
+    ``megakernel<8>`` (the demo profile: K = 8 coverage knots in
+    registers, the shape per step, always-low density, a group of at most
+    8 rows, value or simplex-smooth fields under none, fbm or ridged,
+    unweighted); every other procedural config takes the general
+    instance (knots in shared memory)."""
+    if not config.clouds_enabled:
+        return True
+    fields = (config.cloud_shape_noise, config.cloud_coverage_noise)
+    return (config.cloud_coverage_interp and config.cloud_coverage_knots == KNOTS
+            and not config.cloud_shape_interp and config.clouds_always_low_quality
+            and config.cloud_lod * config.cloud_coverage_lod <= MAX_GROUP
+            and all(f is not None and f.noise.noise_type in REGISTER_NOISE_TYPES
+                    and f.noise.fractal_type in REGISTER_FRACTAL_TYPES
+                    and not f.noise.weighted_strength for f in fields))
 
 
 def _texture_problems(config: VariantConfig):
@@ -364,8 +423,13 @@ def _texture_problems(config: VariantConfig):
         yield f"more than {MAX_LEVELS} coverage pyramid levels"
     if config.cloud_shape_noise is not None or config.cloud_coverage_noise is not None:
         yield "procedural field specs in texture mode (both fields must be baked)"
-    if not config.cloud_shape_interp:
-        yield "texture mode needs cloud_shape_interp"
+    if not (config.cloud_shape_interp and config.cloud_coverage_interp):
+        yield "texture mode needs cloud_shape_interp and cloud_coverage_interp"
+    if not config.clouds_always_low_quality:
+        yield "clouds_always_low_quality=False in texture mode (the detail knots)"
+    if config.cloud_coverage_knots != KNOTS:
+        yield (f"cloud_coverage_knots={config.cloud_coverage_knots} in texture mode (the "
+               f"texture instance is built for {KNOTS})")
     if config.cloud_shape_knots != SHAPE_KNOTS:
         yield (f"cloud_shape_knots={config.cloud_shape_knots} (the kernel is "
                f"built for {SHAPE_KNOTS})")
@@ -387,11 +451,12 @@ def _noise_problems(spec: NoiseSpec):
         yield f"noise_type={spec.noise_type!r}"
     if spec.fractal_type not in FRACTAL_TYPES:
         yield f"fractal_type={spec.fractal_type!r}"
+    if spec.cellular_return not in CELLULAR_RETURNS or (
+            spec.noise_type == "cellular_fast" and spec.cellular_return != "distance"):
+        yield f"cellular_return={spec.cellular_return!r} for {spec.noise_type}"
     if spec.octaves > MAX_OCTAVES or (spec.warp_enabled
                                       and spec.warp_octaves > MAX_OCTAVES):
-        yield f"more than {MAX_OCTAVES} octaves"
-    if spec.weighted_strength:
-        yield "weighted_strength"
+        yield f"more than {MAX_OCTAVES} octaves (the launch struct's limit)"
 
 
 def _noise_params(spec: NoiseSpec, scale) -> NoiseParams:
@@ -404,6 +469,11 @@ def _noise_params(spec: NoiseSpec, scale) -> NoiseParams:
     out.seed = spec.seed
     out.frequency = spec.frequency
     out.lacunarity = spec.lacunarity
+    out.gain = spec.gain
+    out.ping_pong_strength = spec.ping_pong_strength
+    out.weighted_strength = spec.weighted_strength
+    out.cellular_jitter = spec.cellular_jitter
+    out.cellular_return = CELLULAR_RETURNS.get(spec.cellular_return, 0)
     amp = fractal_bounding(spec)
     for o in range(spec.octaves):
         out.amp[o] = amp
@@ -518,7 +588,12 @@ def frame_constants(params: AtmosphereParams, config: VariantConfig,
         s.raymarched_lighting = int(config.raymarched_lighting)
         s.cloud_lod = config.cloud_lod
         s.coverage_lod = config.cloud_coverage_lod
-        s.coverage_knots = config.cloud_coverage_knots
+        s.coverage_knots = max(config.cloud_coverage_knots, 1)
+        s.general_instance = int(not texture_mode(config) and not register_instance(config))
+        s.coverage_interp = int(config.cloud_coverage_interp)
+        s.shape_interp = int(config.cloud_shape_interp)
+        s.shape_knots = max(config.cloud_shape_knots, 1)
+        s.always_low = int(config.clouds_always_low_quality)
         s.cloud_bottom_radius = float(st.bottom_height)
         s.cloud_top_radius = float(st.top_height)
         s.cloud_bottom_radius2 = float(st.bottom_height * st.bottom_height)
@@ -531,7 +606,8 @@ def frame_constants(params: AtmosphereParams, config: VariantConfig,
         s.cloud_shape_factor = float(p.cloud_shape_factor)
         s.cloud_shape_scale = float(p.cloud_shape_scale)
         s.cloud_shape_bound = float(0.5 + 0.575 * p.cloud_shape_factor.abs())
-        s.cloud_detail_term = 0.1
+        # the cull bound's detail term: 0.2 · 0.5 at low quality, 0 at full
+        s.cloud_detail_term = 0.1 if config.clouds_always_low_quality else 0.0
         # the sun march's first step, (0.15 · layer) / 6 in f32 as
         # clouds.py::get_light_raymarched computes it
         layer = st.top_height - st.bottom_height
@@ -564,6 +640,7 @@ def _frame_fields(s: MegakernelParams, p: AtmosphereParams, config: VariantConfi
     _set(s.planet_center, _floats_of(pc))
     _set(s.sun_dir, _floats_of(sun_dir))
     s.jitter_offset = temporal_offset(float(p.time)) if config.temporal_jitter else 0.0
+    s.time = float(p.time)
     if config.clouds_enabled:
         ro_model = transform_point(p.world_to_model, ro)
         s.march_max_distance = float(march_distance_limit(ro_model, cloud_settings(p)))
@@ -734,6 +811,8 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {rc}")
     counters.megakernel_launches += 1
+    if struct.clouds_enabled and struct.general_instance:
+        counters.general_launches += 1
     if tex is not None:
         counters.texture_launches += 1
     if sky is not None:
@@ -814,9 +893,6 @@ def _check_inputs(params: AtmosphereParams, config: VariantConfig, camera: Camer
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"megakernel runs on CUDA devices (got {device})")
     group = config.cloud_lod * config.cloud_coverage_lod if config.clouds_enabled else 1
-    if device.type == "cuda" and not textured and rows % group:
-        raise ValueError(f"frame or band height {rows} must be divisible by "
-                         f"cloud_lod·cloud_coverage_lod = {group}")
     if device.type == "cuda" and sky and TILE_ROWS % group:
         raise ValueError(f"a sky launch needs cloud_lod·cloud_coverage_lod = {group} to "
                          f"divide the tile height {TILE_ROWS}")

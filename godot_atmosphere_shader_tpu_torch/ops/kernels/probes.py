@@ -1,12 +1,21 @@
-"""Measurement probes: the launch floor of a flight.
+"""Measurement probes: the launch floor of a flight (T3) and the card's
+arithmetic ceilings (T2).
 
-Counterpart of the TPU probe ``tools/profile_small.py::trivial_scan_totals``
-(a do-nothing Pallas tile kernel under ``lax.map``): :func:`fill` writes one
-scalar to every pixel of an ``(h, w)`` float32 plane on the 32×128 tile
-grid.  CPU tensors take the plain version (:func:`fill_plain`,
-``torch.full``); on a CUDA device it launches ``csrc/probes.cu``'s
-``fill_kernel`` (counted in :data:`counters`).  Launched K times back to
-back it gives the least time a flight frame can cost on the card.
+* :func:`fill` is the counterpart of the TPU probe
+  ``tools/profile_small.py::trivial_scan_totals`` (a do-nothing Pallas tile
+  kernel under ``lax.map``): it writes one scalar to every pixel of an
+  ``(h, w)`` float32 plane on the 32×128 tile grid.  CPU tensors take the
+  plain version (:func:`fill_plain`, ``torch.full``); on a CUDA device it
+  launches ``csrc/probes.cu``'s ``fill_kernel``.  Launched K times back to
+  back it gives the least time a flight frame can cost on the card.
+* :func:`peak_chains` is the counterpart of ``tools/vpu_peak.py::
+  _run_chain``: independent register-resident chains per thread of one
+  operation (:data:`PEAK_OPS`: ``y = fma(y, a, b)``, ``y = exp(−|y|)``,
+  the raw SFU ``__expf``, or ``y = y·a + b`` on uint32), timed on the card
+  for the peak rates; its plain version :func:`chains_plain` runs the same
+  chains in PyTorch (a multiply then an add where the kernel fuses them).
+
+Both count their launches in :data:`counters`.
 """
 
 from __future__ import annotations
@@ -15,19 +24,28 @@ import ctypes
 
 import torch
 
+from ..noise import _MASK32, _mul32
 from . import library
 
 FILL_ARGTYPES = (ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+PEAK_ARGTYPES = (ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_void_p, ctypes.c_void_p)
+#: the peak probe's chain operations, by their codes in ``peak_launch``
+PEAK_OPS = {"fma": 0, "exp": 1, "fast_exp": 2, "imad": 3}
+#: its shape: chains per thread, steps per chain and loop iteration, the
+#: (16, 128) plane of a and b, threads per block (``PEAK_*`` in probes.cu)
+PEAK_CHAINS, PEAK_INNER, PEAK_PLANE, PEAK_THREADS = 16, 8, 2048, 256
 
 
 class Counters:
-    """Launches of the fill kernel."""
+    """Launches of the fill kernel and of the peak probe."""
 
     def __init__(self):
         self.reset()
 
     def reset(self):
         self.launches = 0
+        self.peak_launches = 0
 
 
 counters = Counters()
@@ -67,4 +85,68 @@ def fill(value: float, height: int, width: int, *, device="cuda") -> torch.Tenso
         raise ValueError(f"fill runs on CUDA devices (got {device})")
     out = torch.empty((height, width), dtype=torch.float32, device=device)
     launch_fill(value, out)
+    return out
+
+
+def chains_plain(a: torch.Tensor, b: torch.Tensor, op: str, iters: int) -> torch.Tensor:
+    """The peak probe's chains for one thread per element of the (2048,)
+    float32 planes ``a`` and ``b`` (the kernel's thread ``i`` takes element
+    ``i % 2048``), ``iters · PEAK_INNER`` steps each: the sum over the
+    chains, as the kernel writes it (``imad``: the uint32 sum >> 8)."""
+    if op not in PEAK_OPS:
+        raise ValueError(f"op must be one of {sorted(PEAK_OPS)}")
+    steps = iters * PEAK_INNER
+    if op == "imad":
+        ua = (a.view(torch.int32).to(torch.int64) & _MASK32) | 1
+        ub = b.view(torch.int32).to(torch.int64) & _MASK32
+        ys = [(_mul32(ua, torch.full_like(ua, k + 1)) + ub) & _MASK32
+              for k in range(PEAK_CHAINS)]
+        for _ in range(steps):
+            ys = [(_mul32(y, ua) + ub) & _MASK32 for y in ys]
+        acc = sum(ys) & _MASK32
+        return (acc >> 8).to(torch.float32)
+    ys = [a * (0.4 + 0.01 * k) + b for k in range(PEAK_CHAINS)]
+    for _ in range(steps):
+        ys = [y * a + b if op == "fma" else torch.exp(-y.abs()) for y in ys]
+    acc = ys[0]
+    for y in ys[1:]:
+        acc = acc + y
+    return acc
+
+
+_PEAK = None
+
+
+def peak_chains(a: torch.Tensor, b: torch.Tensor, op: str, iters: int,
+                blocks: int) -> torch.Tensor:
+    """``blocks · PEAK_THREADS`` threads of the peak probe's chains over the
+    (2048,) float32 planes ``a`` and ``b``: ``(blocks · PEAK_THREADS,)``
+    float32, thread ``i``'s chain sum.  CPU tensors take
+    :func:`chains_plain` (each thread's value repeated); CUDA tensors launch
+    ``peak_kernel`` on the current stream (counted in
+    ``counters.peak_launches``)."""
+    global _PEAK
+    if op not in PEAK_OPS:
+        raise ValueError(f"op must be one of {sorted(PEAK_OPS)}")
+    if (a.shape != (PEAK_PLANE,) or b.shape != (PEAK_PLANE,) or a.dtype != torch.float32
+            or b.dtype != torch.float32 or a.device != b.device):
+        raise ValueError(f"a and b must be ({PEAK_PLANE},) float32 tensors on one device")
+    if blocks < 1 or (blocks * PEAK_THREADS) % PEAK_PLANE or iters < 0:
+        raise ValueError(f"blocks must be a positive multiple of {PEAK_PLANE // PEAK_THREADS}")
+    n = blocks * PEAK_THREADS
+    if a.device.type == "cpu":
+        return chains_plain(a, b, op, iters).repeat(n // PEAK_PLANE)
+    if a.device.type != "cuda":
+        raise ValueError(f"the peak probe runs on CUDA devices (got {a.device})")
+    if _PEAK is None:
+        _PEAK = library.function("peak_launch", PEAK_ARGTYPES)
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty(n, dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = _PEAK(PEAK_OPS[op], a.data_ptr(), b.data_ptr(), int(iters), int(blocks),
+                   out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"peak launch failed: CUDA error {rc}")
+    counters.peak_launches += 1
     return out

@@ -8,10 +8,10 @@ pattern: every multiply is split into 16-bit halves so no intermediate
 leaves int64 range, and results are masked back to 32 bits.  The CUDA
 megakernel uses ``uint32_t`` natively; both agree bit for bit with JAX.
 
-Ported: the bases and fractals of the demo's fast profile (``value``,
-``simplex_smooth``; ``none``/``fbm``/``ridged``; the domain warp) and the
-27-cell ``cellular`` basis that the demo's shape-texture bake uses.  The
-other bases raise ``NotImplementedError``.
+Every basis (``value``, ``perlin``, ``simplex``, ``simplex_smooth``, the
+27-cell ``cellular`` and the 8-cell ``cellular_fast``), every fractal
+(``none``, ``fbm``, ``ridged``, ``ping_pong``, each with
+``weighted_strength``) and the domain warp.
 """
 
 from __future__ import annotations
@@ -28,8 +28,9 @@ def _u32(i: torch.Tensor) -> torch.Tensor:
     return i.to(torch.int64) & _MASK32
 
 
-def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
-    """``(a · c) mod 2³²`` for ``a`` in ``[0, 2³²)``, without int64 overflow."""
+def _mul32(a: torch.Tensor, c) -> torch.Tensor:
+    """``(a · c) mod 2³²`` for ``a`` in ``[0, 2³²)`` and ``c`` an int or an
+    int64 tensor of uint32 values, without int64 overflow."""
     lo = a * (c & 0xFFFF)
     hi = ((a * (c >> 16)) & 0xFFFF) << 16
     return (lo + hi) & _MASK32
@@ -96,6 +97,11 @@ def _cubic(t):
     return t * t * (3.0 - 2.0 * t)
 
 
+def _quintic(t):
+    """Perlin's C2 fade curve."""
+    return t * t * t * (t * (t * 6.0 - 15.0) + 10.0)
+
+
 def _corner_hashes(ix, iy, iz, seed: int):
     """The 8 lattice-corner hashes with the coordinate multiplies hoisted.
     Corners ordered c000, c100, c010, c110, c001, c101, c011, c111."""
@@ -159,11 +165,69 @@ def _grad_dot(h, fx, fy, fz):
             + _bits_to_signed(h, 20) * fz)
 
 
+_CORNER_OFFSETS = ((0, 0, 0), (1, 0, 0), (0, 1, 0), (1, 1, 0),
+                   (0, 0, 1), (1, 0, 1), (0, 1, 1), (1, 1, 1))
+
+
+def perlin_noise3(x, y, z, seed: int = 0):
+    """Gradient (Perlin-style) noise in ≈[-1, 1] (8 hoisted hashes)."""
+    ix, fx = _floor_int(x)
+    iy, fy = _floor_int(y)
+    iz, fz = _floor_int(z)
+    ux, uy, uz = _quintic(fx), _quintic(fy), _quintic(fz)
+    c000, c100, c010, c110, c001, c101, c011, c111 = (
+        _grad_dot(h, fx - dx, fy - dy, fz - dz)
+        for h, (dx, dy, dz) in zip(_corner_hashes(ix, iy, iz, seed), _CORNER_OFFSETS))
+    x00 = c000 + (c100 - c000) * ux
+    x10 = c010 + (c110 - c010) * ux
+    x01 = c001 + (c101 - c001) * ux
+    x11 = c011 + (c111 - c011) * ux
+    y0 = x00 + (x10 - x00) * uy
+    y1 = x01 + (x11 - x01) * uy
+    return (y0 + (y1 - y0) * uz) * 1.15
+
+
+_F3 = 1.0 / 3.0
+_G3 = 1.0 / 6.0
+
+
+def simplex_noise3(x, y, z, seed: int = 0):
+    """3D simplex noise in ≈[-1, 1], branch-free corner ranking (ties
+    broken x > y > z)."""
+    s = (x + y + z) * _F3
+    ix, _ = _floor_int(x + s)
+    iy, _ = _floor_int(y + s)
+    iz, _ = _floor_int(z + s)
+    t = (ix + iy + iz).to(torch.float32) * _G3
+    x0 = x - (ix.to(torch.float32) - t)
+    y0 = y - (iy.to(torch.float32) - t)
+    z0 = z - (iz.to(torch.float32) - t)
+    i32 = torch.int32
+    rank_x = (x0 < y0).to(i32) + (x0 < z0).to(i32)
+    rank_y = (x0 >= y0).to(i32) + (y0 < z0).to(i32)
+    rank_z = (x0 >= z0).to(i32) + (y0 >= z0).to(i32)
+    i1, j1, k1 = ((r == 0).to(i32) for r in (rank_x, rank_y, rank_z))
+    i2, j2, k2 = ((r <= 1).to(i32) for r in (rank_x, rank_y, rank_z))
+    f32 = torch.float32
+    x1, y1, z1 = x0 - i1.to(f32) + _G3, y0 - j1.to(f32) + _G3, z0 - k1.to(f32) + _G3
+    x2 = x0 - i2.to(f32) + 2.0 * _G3
+    y2 = y0 - j2.to(f32) + 2.0 * _G3
+    z2 = z0 - k2.to(f32) + 2.0 * _G3
+    x3, y3, z3 = x0 - 1.0 + 3.0 * _G3, y0 - 1.0 + 3.0 * _G3, z0 - 1.0 + 3.0 * _G3
+
+    def corner(cx, cy, cz, di, dj, dk):
+        tt = torch.clamp(0.6 - cx * cx - cy * cy - cz * cz, min=0.0)
+        tt = tt * tt
+        return tt * tt * _grad_dot(hash3(ix + di, iy + dj, iz + dk, seed), cx, cy, cz)
+
+    n = (corner(x0, y0, z0, 0, 0, 0) + corner(x1, y1, z1, i1, j1, k1)
+         + corner(x2, y2, z2, i2, j2, k2) + corner(x3, y3, z3, 1, 1, 1))
+    return n * 32.0
+
+
 _R3 = 2.0 / 3.0
 _LATTICE2_SALT = 1293373
 _OS2S_NORM = 7.3
-_CORNER_OFFSETS = ((0, 0, 0), (1, 0, 0), (0, 1, 0), (1, 1, 0),
-                   (0, 0, 1), (1, 0, 1), (0, 1, 1), (1, 1, 1))
 
 
 def simplex_smooth_noise3(x, y, z, seed: int = 0):
@@ -236,20 +300,50 @@ def cellular_noise3(x, y, z, seed: int = 0, jitter: float = 1.0,
     return torch.sqrt(f1) * 2.0 - 1.0
 
 
-def _not_ported(name):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"noise type {name!r} is not ported yet (see ROADMAP.md)")
-    return fn
+def cellular_noise3_fast(x, y, z, seed: int = 0, jitter: float = 1.0,
+                         return_type: str = "distance"):
+    """8-cell Worley F1, the in-march cellular approximation: the 2×2×2
+    cells around the nearest lattice corner, with the feature points of
+    :func:`cellular_noise3`.  ``distance`` only (F2 needs the 27 cells)."""
+    ix, fx = _floor_int(x)
+    iy, fy = _floor_int(y)
+    iz, fz = _floor_int(z)
+    bx = (fx >= 0.5).to(torch.int32) - 1
+    by = (fy >= 0.5).to(torch.int32) - 1
+    bz = (fz >= 0.5).to(torch.int32) - 1
+    hx0 = _mul32(_u32(ix + bx), 0x9E3779B1)
+    hy0 = _mul32(_u32(iy + by), 0x85EBCA77)
+    hz0 = _add32(_mul32(_u32(iz + bz), 0xC2B2AE3D), seed & _MASK32)
+    fbx = bx.to(torch.float32) - fx
+    fby = by.to(torch.float32) - fy
+    fbz = bz.to(torch.float32) - fz
+    f1 = None
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                h = _mix((hx0 + (0x9E3779B1 if dx else 0) + hy0 + (0x85EBCA77 if dy else 0)
+                          + hz0 + (0xC2B2AE3D if dz else 0)) & _MASK32)
+                ox = _hash_to_unit(h) * jitter
+                oy = _hash_to_unit(_mix(h ^ 0xABCD1234)) * jitter
+                oz = _hash_to_unit(_mix(h ^ 0x1B56C4E9)) * jitter
+                ddx = fbx + dx + ox
+                ddy = fby + dy + oy
+                ddz = fbz + dz + oz
+                d = ddx * ddx + ddy * ddy + ddz * ddz
+                f1 = d if f1 is None else torch.minimum(f1, d)
+    if return_type != "distance":
+        raise ValueError("cellular_fast supports return_type='distance' "
+                         "only (use 'cellular' for cell_value/distance2)")
+    return torch.sqrt(f1) * 2.0 - 1.0
 
 
 _BASES = {
     "value": value_noise3,
+    "perlin": perlin_noise3,
+    "simplex": simplex_noise3,
     "simplex_smooth": simplex_smooth_noise3,
-    "perlin": _not_ported("perlin"),
-    "simplex": _not_ported("simplex"),
     "cellular": cellular_noise3,
-    "cellular_fast": _not_ported("cellular_fast"),
+    "cellular_fast": cellular_noise3_fast,
 }
 
 
@@ -279,7 +373,7 @@ class NoiseSpec:
 
 def _eval_base(spec: NoiseSpec, x, y, z, seed_offset: int = 0):
     fn = _BASES[spec.noise_type]
-    if spec.noise_type == "cellular":
+    if spec.noise_type in ("cellular", "cellular_fast"):
         return fn(x, y, z, seed=spec.seed + seed_offset,
                   jitter=spec.cellular_jitter, return_type=spec.cellular_return)
     return fn(x, y, z, seed=spec.seed + seed_offset)
@@ -295,22 +389,35 @@ def fractal_bounding(spec: NoiseSpec) -> float:
 
 
 def _fractal(spec: NoiseSpec, x, y, z):
+    """FastNoiseLite's fractals; ``weighted_strength`` scales each next
+    octave's amplitude by a weight of this octave's value (the amplitude
+    is then a per-sample f32 plane)."""
     if spec.fractal_type == "none":
         return _eval_base(spec, x, y, z)
-    if spec.fractal_type not in ("fbm", "ridged") or spec.weighted_strength:
-        raise NotImplementedError(
-            f"fractal type {spec.fractal_type!r} with weighted_strength="
-            f"{spec.weighted_strength} is not ported yet (fbm and ridged, "
-            "unweighted)")
+    if spec.fractal_type not in ("fbm", "ridged", "ping_pong"):
+        raise ValueError(f"unknown fractal_type {spec.fractal_type}")
     total = torch.zeros_like(x)
     amp = fractal_bounding(spec)
+    ws = spec.weighted_strength
     fx, fy, fz = x, y, z
     for o in range(spec.octaves):
         n = _eval_base(spec, fx, fy, fz, seed_offset=o)
         if spec.fractal_type == "fbm":
             total = total + n * amp
+            if ws:
+                amp = amp * (1.0 + (torch.clamp(n + 1.0, max=2.0) * 0.5 - 1.0) * ws)
+        elif spec.fractal_type == "ridged":
+            n = n.abs()
+            total = total + (n * -2.0 + 1.0) * amp
+            if ws:
+                amp = amp * (1.0 + ((1.0 - n) - 1.0) * ws)
         else:
-            total = total + (n.abs() * -2.0 + 1.0) * amp
+            t = (n + 1.0) * spec.ping_pong_strength
+            t = t - torch.floor(t * 0.5) * 2.0
+            t = torch.where(t < 1.0, t, 2.0 - t)
+            total = total + (t - 0.5) * 2.0 * amp
+            if ws:
+                amp = amp * (1.0 + (t - 1.0) * ws)
         fx = fx * spec.lacunarity
         fy = fy * spec.lacunarity
         fz = fz * spec.lacunarity

@@ -30,6 +30,9 @@ Baked cloud textures come in two forms:
   to whole tiles (the last tile's extra rows and columns are real rays past
   the edge, part of its batches), and cropped.
 
+Procedural clouds whose LOD group (cloud_lod·cloud_coverage_lod rows) does
+not divide the rows are padded and cropped the same way, to whole groups.
+
 A panorama sky comes in the same two forms: sampled exactly
 (``OpaqueScene.panorama`` without ``pano_data``, the twin of the JAX
 ``renderer="xla"``), or through the megakernel's three channel pyramids
@@ -147,6 +150,11 @@ def render_frame(params: AtmosphereParams, config: VariantConfig,
 
         def sky_fn(d):
             return sample_sky_batched(pano_data, pano_meta, d, TILE_ROWS)
+    group = config.cloud_lod * config.cloud_coverage_lod if config.clouds_enabled else 1
+    if with_atmosphere and grid_rows == rows and group >= 1 and rows % group:
+        # a partial last LOD group is rendered whole: its rows past the band
+        # are real rays, as in the TPU kernel's padded last tile
+        grid_rows = -(-rows // group) * group
     ray_dir = world_ray_dirs(camera, height, width, rows=grid_rows, cols=cols, row0=row0)
     depth = None
     if background is not None:

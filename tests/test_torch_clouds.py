@@ -128,16 +128,11 @@ def test_row_count_must_divide_the_lod():
 
 
 def test_unported_cloud_features_raise():
-    """The detail field is not ported (the detail knots, and full-quality
-    density in the sun march of raymarched lighting); a shape field with
+    """Every cloud feature is ported (the detail field per step and from its
+    knots: tests/test_torch_envelope.py); a shape or coverage field with
     neither a spec nor a texture is a user error, as in JAX."""
     d = _inputs("avatar", True)
-    with pytest.raises(NotImplementedError):
-        tc.get_light_raymarched(TVec3(0.0, 0.0, 102.0), TVec3(0.0, 0.0, 1.0), None,
-                                torch.zeros(()), d["tp"].time, tc.cloud_settings(d["tp"]),
-                                d["tp"], None, None, False)
-    with pytest.raises(NotImplementedError):
-        tc.render_clouds(*([None] * 13), 8, False, False, shape_interp=True)
-    cfg = dataclasses.replace(d["tcfg"], cloud_shape_noise=None)
-    with pytest.raises(ValueError):
-        tpass.make_shape_fn(cfg, d["tp"])
+    for change, make in ((dict(cloud_shape_noise=None), tpass.make_shape_fn),
+                         (dict(cloud_coverage_noise=None), tpass.make_coverage_fn)):
+        with pytest.raises(ValueError):
+            make(dataclasses.replace(d["tcfg"], **change), d["tp"])

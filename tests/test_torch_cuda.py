@@ -69,10 +69,16 @@ def test_scene_render_on_cuda_launches_the_kernel(cuda):
 
 
 @pytest.mark.cuda
-def test_height_must_divide_the_row_group(cuda):
+@pytest.mark.parametrize("lods", [(2, 2), (8, 2)])
+def test_height_need_not_divide_the_row_group(cuda, lods):
+    """A partial last LOD group is rendered whole, rows past the frame
+    computed and not stored (the plain renderer pads the same way); the LUT
+    still raises."""
     params, config, cam, opaque = _inputs("clouds_high", "avatar", cuda)
-    with pytest.raises(ValueError):
-        mk.render_frame_megakernel(params, config, cam, opaque, H + 2, W)
+    config = dataclasses.replace(config, cloud_lod=lods[0], cloud_coverage_lod=lods[1])
+    got = _image(mk.render_frame_megakernel(params, config, cam, opaque, H + 2, W))
+    ref = _image(mk.render_frame_plain(params, config, cam, opaque, H + 2, W))
+    assert got.shape == (H + 2, W, 4) and _cloud_ok(got, ref)
     with pytest.raises(ValueError):
         mk.render_frame_megakernel(params, dataclasses.replace(config, od_mode="lut"),
                                    cam, opaque, H, W)
@@ -594,13 +600,106 @@ def test_sharded_taa_flight_matches_plain(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("change", [dict(knot_dynamic=False), dict(cloud_coverage_interp=False)])
-def test_card_refuses_configs_outside_the_kernel(cuda, change):
-    """The plain chain renders these on the CPU; the card raises."""
-    params, config, cam, opaque = _inputs("clouds", "avatar", cuda)
+@pytest.mark.parametrize("change", [dict(cloud_shape_knots=8), dict(cloud_lod=1),
+                                    dict(clouds_always_low_quality=False)])
+def test_card_refuses_configs_outside_the_kernel(cuda, baked, change):
+    """What stays outside the kernel is the texture instance's: the plain
+    chain renders these, the card raises."""
+    scene = build_demo_scene("clouds", procedural=False, device=cuda, textures=baked)
+    cam = demo_camera("avatar", device=cuda)
+    scene.update(0.5, cam)
+    _, params, configs = scene._sorted_layers(cam)
+    config, tex = scene._texture_plan(params[0], configs[0])
     with pytest.raises(ValueError):
-        mk.render_frame_megakernel(params, dataclasses.replace(config, **change), cam, opaque,
-                                   H, W)
+        mk.render_frame_megakernel(params[0], dataclasses.replace(config, **change), cam,
+                                   scene.opaque, H, W, tex_data=tex)
+
+
+# -- K1 slice (h): the procedural envelope, the general instance -------------------
+
+
+def _field(field, **kw):
+    return dataclasses.replace(field, noise=dataclasses.replace(field.noise, **kw))
+
+
+def _envelope(case):
+    """The flagship clouds_high config changed as the case says."""
+    from godot_atmosphere_shader_tpu_torch.models.demo import (COVERAGE_NOISE, COVERAGE_SCALE,
+                                                               SHAPE_NOISE_BAKE, demo_variant)
+    from godot_atmosphere_shader_tpu_torch.models.params import ProceduralField
+
+    cfg = demo_variant("clouds_high")
+    shape, cov = cfg.cloud_shape_noise, cfg.cloud_coverage_noise
+    change = {
+        "cellular_tier": dict(cloud_shape_noise=_field(shape, noise_type="cellular_fast")),
+        "per_step_coverage": dict(cloud_coverage_interp=False, cloud_lod=1,
+                                  cloud_coverage_lod=1, knot_dynamic=False),
+        "tscn_profile": dict(cloud_shape_noise=ProceduralField(SHAPE_NOISE_BAKE, (64.0,) * 3),
+                             cloud_coverage_noise=ProceduralField(COVERAGE_NOISE, COVERAGE_SCALE),
+                             cloud_steps=32, cloud_lod=1, cloud_coverage_lod=1,
+                             knot_dynamic=False),
+        "detail_per_step": dict(clouds_always_low_quality=False),
+        "detail_knots_raymarched": dict(clouds_always_low_quality=False, cloud_shape_interp=True,
+                                        raymarched_lighting=True),
+        "perlin_coverage": dict(cloud_coverage_noise=_field(cov, noise_type="perlin")),
+        "simplex_shape": dict(cloud_shape_noise=_field(shape, noise_type="simplex")),
+        "cellular_cell_value_shape": dict(cloud_shape_noise=_field(
+            shape, noise_type="cellular", cellular_return="cell_value")),
+        "ping_pong_weighted": dict(cloud_shape_noise=_field(shape, fractal_type="ping_pong",
+                                                            weighted_strength=0.5)),
+        "coverage_k16": dict(cloud_coverage_knots=16),
+        "shape_knots_32": dict(cloud_shape_interp=True, cloud_shape_knots=32),
+        "group_32": dict(cloud_lod=16, cloud_coverage_lod=2, cloud_lod_interior=0),
+    }[case]
+    return dataclasses.replace(cfg, **change)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cellular_tier", "per_step_coverage", "tscn_profile",
+                                  "detail_per_step", "detail_knots_raymarched",
+                                  "perlin_coverage", "simplex_shape",
+                                  "cellular_cell_value_shape", "ping_pong_weighted",
+                                  "coverage_k16", "shape_knots_32", "group_32"])
+def test_general_instance_matches_plain(cuda, case):
+    """Scene.render of an envelope config through the general instance (one
+    K1 launch, no plain call) against the plain version on the same CUDA
+    inputs: the cloud tolerance, p99 in place of p99.9 at full quality (the
+    detail field: one ulp of a position moves a pixel by ~1e-3)."""
+    scene = build_demo_scene("clouds_high", device=cuda)
+    config = _envelope(case)
+    scene.atmospheres[0].set_custom_shader(config)
+    cam = demo_camera("avatar", device=cuda)
+    scene.update(0.5, cam)
+    _, params, configs = scene._sorted_layers(cam)
+    mk.counters.reset()
+    got = _image(scene.render(cam, H, W))
+    torch.cuda.synchronize()
+    assert (mk.counters.megakernel_launches, mk.counters.general_launches,
+            mk.counters.plain_calls) == (1, 1, 0)
+    ref = _image(mk.render_frame_plain(params[0], configs[0], cam, scene.opaque, H, W))
+    d = (got.double() - ref.double()).abs()
+    q = 0.999 if config.clouds_always_low_quality else 0.99
+    assert torch.isfinite(got).all() and float(got[..., 3].max()) > 0.05
+    assert torch.quantile(d.flatten(), q) <= 1e-3 and d.mean() <= 1e-4
+    assert (d.amax(dim=-1) > 1e-2).double().mean() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_peak_probe_matches_plain(cuda):
+    """T2's chains against their plain version at a small iteration count:
+    fmaf against a multiply then an add, expf and __expf against torch.exp,
+    uint32 exact."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import probes
+
+    g = torch.Generator().manual_seed(3)
+    a = (torch.rand(2048, generator=g) * 0.5 + 0.25).to(cuda)
+    b = (torch.rand(2048, generator=g) * 0.1).to(cuda)
+    probes.counters.reset()
+    for op, tol in (("fma", 1e-5), ("exp", 1e-5), ("fast_exp", 1e-4), ("imad", 0.0)):
+        got = probes.peak_chains(a, b, op, 16, 8).reshape(-1, 2048)
+        ref = probes.chains_plain(a, b, op, 16)
+        assert float((got - ref).abs().max()) <= tol, op
+    assert probes.counters.peak_launches == 4
 
 
 @pytest.mark.cuda

@@ -100,21 +100,65 @@ def test_cpu_tensors_take_the_plain_path(clouds_high):
     assert (mk.counters.plain_calls, mk.counters.megakernel_launches) == (2, 0)
 
 
+def _noise(field, **kw):
+    return dataclasses.replace(field, noise=dataclasses.replace(field.noise, **kw))
+
+
+_SHAPE = demo_variant("clouds_high").cloud_shape_noise
+_COVERAGE = demo_variant("clouds_high").cloud_coverage_noise
+
+
 @pytest.mark.parametrize("change", [
     dict(od_mode="lut"), dict(model="v3"), dict(cloud_shape_noise=None),
     dict(cloud_coverage_noise=None), dict(cloud_lod=0),
-    dict(cloud_coverage_interp=False), dict(cloud_shape_interp=True),
-    dict(cloud_coverage_knots=7), dict(cloud_lod=8), dict(cloud_coverage_lod=0),
-    dict(clouds_always_low_quality=False), dict(cloud_shape_tex_meta=object()),
-    dict(knot_dynamic=False), dict(cloud_coverage_tex_meta=object()),
+    dict(cloud_lod=3), dict(cloud_lod=32),
+    dict(cloud_shape_noise=_noise(_SHAPE, octaves=9)), dict(cloud_coverage_lod=3),
+    dict(cloud_coverage_lod=0),
+    dict(cloud_coverage_noise=_noise(_COVERAGE, warp_octaves=9)),
+    dict(cloud_shape_tex_meta=object()),
+    dict(cloud_shape_noise=_noise(_SHAPE, noise_type="worley")),
+    dict(cloud_coverage_tex_meta=object()),
 ])
 def test_wrapper_rejects_unsupported_config(clouds_high, change):
     """The kernel's envelope: ``check_config`` refuses each of these (the
     wrapper applies it to CUDA tensors; on the CPU the plain chain refuses
-    only what the plain ops do not take)."""
+    only what the plain ops do not take): no LUT, no other model, no
+    procedural field beside a baked one without pyramids, a LOD group
+    dividing the 32-row tile, the launch struct's 8 octaves, known bases."""
     params, cfg, cam, opaque = clouds_high[1]
     with pytest.raises(ValueError):
         mk.check_config(dataclasses.replace(cfg, **change))
+
+
+@pytest.mark.parametrize("change", [
+    dict(cloud_coverage_interp=False), dict(cloud_shape_interp=True),
+    dict(cloud_coverage_knots=7), dict(cloud_lod=8), dict(cloud_lod=16),
+    dict(clouds_always_low_quality=False), dict(knot_dynamic=False),
+    dict(cloud_shape_interp=True, cloud_shape_knots=32, clouds_always_low_quality=False,
+         cloud_coverage_knots=64),
+    dict(cloud_shape_noise=_noise(_SHAPE, noise_type="cellular", cellular_return="cell_value")),
+    dict(cloud_coverage_noise=_noise(_COVERAGE, fractal_type="ping_pong",
+                                     weighted_strength=0.3)),
+])
+def test_general_instance_takes_the_procedural_envelope(clouds_high, change):
+    """Every procedural config the JAX megakernel renders passes
+    ``check_config``; all but the demo profile (and its hat-sum twin) take
+    the general instance."""
+    cfg = dataclasses.replace(clouds_high[1][1], **change)
+    mk.check_config(cfg)
+    assert mk.register_instance(cfg) == (change == dict(knot_dynamic=False))
+
+
+def test_knot_rows_have_a_limit(clouds_high):
+    """The general instance's knots live in shared memory: coverage, shape
+    and detail knots (+1 each) fit MAX_KNOT_ROWS rows of a block."""
+    cfg = dataclasses.replace(clouds_high[1][1], cloud_shape_interp=True,
+                              clouds_always_low_quality=False, cloud_shape_knots=210,
+                              cloud_coverage_knots=40)
+    assert mk.knot_rows(cfg) == 41 + 2 * 211 > mk.MAX_KNOT_ROWS
+    with pytest.raises(ValueError, match="knot rows"):
+        mk.check_config(cfg)
+    mk.check_config(dataclasses.replace(cfg, cloud_coverage_knots=8))
 
 
 def test_wrapper_takes_temporal_jitter(clouds_high):
@@ -124,17 +168,23 @@ def test_wrapper_takes_temporal_jitter(clouds_high):
 
 
 def test_wrapper_rejects_unported_noise(clouds_high):
+    """Every basis is ported; the 8-cell cellular has no F2 returns (JAX
+    raises on them too)."""
     params, cfg, cam, opaque = clouds_high[1]
     field = dataclasses.replace(cfg.cloud_shape_noise, noise=dataclasses.replace(
-        cfg.cloud_shape_noise.noise, noise_type="cellular_fast"))
+        cfg.cloud_shape_noise.noise, noise_type="cellular_fast", cellular_return="distance2"))
     with pytest.raises(ValueError):
         mk.check_config(dataclasses.replace(cfg, cloud_shape_noise=field))
+    mk.check_config(dataclasses.replace(cfg, cloud_shape_noise=_noise(
+        field, cellular_return="distance")))
 
 
 def test_demo_profile_is_in_the_kernel_slice():
     for variant in ("no_clouds", "clouds", "clouds_high", "clouds_high_rm", "v1_no_clouds",
                     "v1_clouds", "v1_clouds_high"):
         mk.check_config(demo_variant(variant))
+        assert mk.register_instance(demo_variant(variant))
+        mk.check_config(demo_variant(variant, shape_basis="cellular"))
 
 
 # -- the CUDA source and its ctypes binding ------------------------------------
@@ -186,6 +236,7 @@ def test_cu_limits_match_wrapper():
     assert defines == {"MK_MAX_SPHERES": mk.MAX_SPHERES, "MK_MAX_BOXES": mk.MAX_BOXES,
                        "MK_MAX_OCTAVES": mk.MAX_OCTAVES, "MK_MAX_GROUP": mk.MAX_GROUP,
                        "MK_QUAD_POINTS": mk.QUAD_POINTS, "MK_KNOTS": mk.KNOTS,
+                       "MK_MAX_KNOT_ROWS": mk.MAX_KNOT_ROWS,
                        "MK_SHAPE_KNOTS": mk.SHAPE_KNOTS, "MK_MAX_LEVELS": mk.MAX_LEVELS,
                        "MK_TILE_ROWS": mk.TILE_ROWS, "MK_TILE_COLS": mk.TILE_COLS,
                        "MK_WINDOWED": mk.WINDOWED, "MK_BANDED": mk.BANDED,

@@ -1,8 +1,9 @@
 """Port vs JAX: the lattice noise of ``godot_atmosphere_shader_tpu_torch``.
 
 Hashes must agree bit for bit (the uint32 arithmetic is emulated in int64
-on the torch side); the noise bases at atol 1e-6 and the demo's full
-pipelines (domain warp + fractal) at atol 1e-5, on the same seeded inputs.
+on the torch side); every noise basis at atol 1e-6 and the full pipelines
+(domain warp + every fractal, weighted or not) at atol 1e-5, on the same
+seeded inputs.
 """
 
 import dataclasses
@@ -106,16 +107,19 @@ def test_noise_spec_matches_jax():
     names = [f.name for f in dataclasses.fields(jn.NoiseSpec)]
     assert [f.name for f in dataclasses.fields(tn.NoiseSpec)] == names
     assert dataclasses.asdict(tn.NoiseSpec()) == dataclasses.asdict(jn.NoiseSpec())
-    for name in ("COVERAGE_NOISE", "SHAPE_NOISE_FAST"):
+    for name in ("COVERAGE_NOISE", "SHAPE_NOISE_FAST", "SHAPE_NOISE_FAST_CELL",
+                 "SHAPE_NOISE_BAKE"):
         assert (dataclasses.asdict(getattr(tdemo, name))
                 == dataclasses.asdict(getattr(jdemo, name)))
 
 
 @pytest.mark.parametrize("name,scale", [("COVERAGE_NOISE", 200.0),
-                                        ("SHAPE_NOISE_FAST", 700.0)])
+                                        ("SHAPE_NOISE_FAST", 700.0),
+                                        ("SHAPE_NOISE_FAST_CELL", 700.0)])
 def test_sample_noise3_demo_specs(name, scale):
     """The demo's coverage (warped simplex-smooth FBM at NoiseCubemap scale)
-    and shape (ridged value noise at texture scale) pipelines."""
+    and shape (ridged value noise, or the cellular tier's 8-cell Worley,
+    at texture scale) pipelines."""
     x, y, z = _points(21, n=(24, 32), scale=scale)
     ref = np.asarray(jn.sample_noise3(getattr(jdemo, name), jnp.asarray(x),
                                       jnp.asarray(y), jnp.asarray(z)))
@@ -124,17 +128,47 @@ def test_sample_noise3_demo_specs(name, scale):
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("basis,kw", [
+    ("perlin_noise3", {}), ("simplex_noise3", {}), ("cellular_noise3_fast", {}),
+    ("cellular_noise3", dict(return_type="distance2")),
+    ("cellular_noise3", dict(return_type="cell_value", jitter=0.6)),
+], ids=["perlin", "simplex", "cellular_fast", "cellular_distance2", "cellular_cell_value"])
+@pytest.mark.parametrize("seed", [3, 1293384])
+def test_noise_bases_match_jax(basis, kw, seed):
+    x, y, z = _points(seed + 40, scale=40.0)
+    ref = np.asarray(getattr(jn, basis)(jnp.asarray(x), jnp.asarray(y), jnp.asarray(z), seed,
+                                        **kw))
+    got = getattr(tn, basis)(torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(z),
+                             seed, **kw)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-6)
+
+
 @pytest.mark.parametrize("spec", [
-    tn.NoiseSpec(noise_type="perlin", fractal_type="none"),
-    tn.NoiseSpec(noise_type="simplex", fractal_type="none"),
-    # the 27-cell cellular basis is ported (tests/test_torch_sampling.py);
-    # its ping-pong fractal is not
-    tn.NoiseSpec(noise_type="cellular", fractal_type="ping_pong"),
-    tn.NoiseSpec(noise_type="cellular_fast", fractal_type="none"),
-    tn.NoiseSpec(noise_type="value", fractal_type="ping_pong"),
-    tn.NoiseSpec(noise_type="value", weighted_strength=0.5),
-], ids=["perlin", "simplex", "cellular", "cellular_fast", "ping_pong", "weighted"])
-def test_unported_noise_raises(spec):
+    dict(noise_type="value", fractal_type="ping_pong"),
+    dict(noise_type="cellular", fractal_type="ping_pong", ping_pong_strength=2.5),
+    dict(noise_type="value", weighted_strength=0.5),
+    dict(noise_type="perlin", fractal_type="ridged", weighted_strength=0.7),
+    dict(noise_type="simplex", fractal_type="ping_pong", weighted_strength=0.4),
+    dict(noise_type="cellular_fast", fractal_type="ridged", octaves=3, gain=0.665),
+    dict(noise_type="simplex", fractal_type="none", warp_enabled=True, warp_octaves=2),
+], ids=["ping_pong", "cellular_ping_pong", "fbm_weighted", "ridged_weighted",
+        "ping_pong_weighted", "cellular_fast_ridged", "simplex_warped"])
+def test_fractal_pipelines_match_jax(spec):
+    """Ping-pong and weighted_strength under fbm, ridged and ping-pong
+    (the amplitude then a per-sample f32 chain), through sample_noise3."""
+    js = jn.NoiseSpec(**{"frequency": 0.2, "seed": 9, "octaves": 4, **spec})
+    x, y, z = _points(33, n=(24, 32), scale=60.0)
+    ref = np.asarray(jn.sample_noise3(js, jnp.asarray(x), jnp.asarray(y), jnp.asarray(z)))
+    got = tn.sample_noise3(tn.NoiseSpec(**dataclasses.asdict(js)), torch.from_numpy(x),
+                           torch.from_numpy(y), torch.from_numpy(z))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("ret", ["distance2", "cell_value"])
+def test_cellular_fast_refuses_the_f2_returns(ret):
+    """As in JAX: the 8-cell window has no usable F2."""
     x = torch.zeros(2, 2)
-    with pytest.raises(NotImplementedError):
-        tn.sample_noise3(spec, x, x, x)
+    with pytest.raises(ValueError):
+        tn.cellular_noise3_fast(x, x, x, return_type=ret)
+    with pytest.raises(ValueError):
+        tn.sample_noise3(tn.NoiseSpec(noise_type="cellular_fast", cellular_return=ret), x, x, x)

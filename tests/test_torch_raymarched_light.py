@@ -187,7 +187,29 @@ def test_raymarch_cloud_with_sun_march_matches_jax(rm):
 
 
 def test_detail_field_is_not_ported(rm):
-    with pytest.raises(NotImplementedError):
-        tc.get_light_raymarched(TVec3(0.0, 0.0, 102.0), TVec3(0.0, 0.0, 1.0), None,
-                                torch.zeros(()), rm["tp"].time, rm["tset"], rm["tp"], None, None,
-                                False)
+    """The detail field is ported: at full quality each sun sample takes
+    the full density (given detail knots' value) where the march's alpha is
+    below 0.3 and the low one elsewhere, as JAX's d_full / d_low select."""
+    rng = np.random.default_rng(13)
+    jp, tp = rm["jp"], rm["tp"]
+    pos = (_unit(rng, SHAPE) * rng.uniform(101.4, 105.0, SHAPE)).astype(np.float32)
+    sun = _unit(rng, ())
+    cov, shape, detail = (rng.uniform(0.3, 0.9, SHAPE).astype(np.float32) for _ in range(3))
+    alpha0 = rng.random(SHAPE, dtype=np.float32)
+    kw = dict(coverage_value=cov, shape_value=shape, detail_value=detail)
+    ref = np.asarray(jc.get_light_raymarched(
+        JVec3(*(jnp.asarray(c) for c in pos)), JVec3(*(float(v) for v in sun)), None,
+        jnp.asarray(alpha0), jp.time, _jset(jp), jp, None, None, False,
+        **{k: jnp.asarray(v) for k, v in kw.items()}))
+
+    def port(always_low):
+        return tc.get_light_raymarched(
+            TVec3(*(torch.from_numpy(c) for c in pos)), TVec3(*(float(v) for v in sun)), None,
+            torch.from_numpy(alpha0), tp.time, rm["tset"], tp, None, None, always_low,
+            **{k: torch.from_numpy(v) for k, v in kw.items()}).numpy()
+
+    got = port(False)
+    _assert_sun_march_close(got, ref)
+    low = port(True)
+    changed = np.abs(got - low) > 1e-3
+    assert changed.any() and (alpha0[changed] < 0.3).all()

@@ -195,16 +195,15 @@ def test_render_refuses_multiple_layers():
         scene.render(cam, 8, 16)
 
 
-@pytest.mark.parametrize("change", [dict(clouds_always_low_quality=False), dict(od_mode="lut"),
+@pytest.mark.parametrize("change", [dict(cloud_shape_noise=None), dict(od_mode="lut"),
                                     dict(cloud_coverage_noise=None)])
 def test_render_refuses_unported_configs(change):
-    """The detail field and the LUT are not ported; clouds without a
-    coverage field (no procedural spec and no cubemap) are a user error, as
-    in JAX."""
+    """The LUT is not ported; clouds without a shape or a coverage field
+    (no procedural spec and no texture) are a user error, as in JAX."""
     scene, cam = _scene()
     atmo = scene.atmospheres[0]
     atmo.set_custom_shader(dataclasses.replace(atmo.config, **change))
-    error = ValueError if "cloud_coverage_noise" in change else NotImplementedError
+    error = NotImplementedError if "od_mode" in change else ValueError
     with pytest.raises(error):
         scene.render(cam, 8, 16)
 
