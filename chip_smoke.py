@@ -133,18 +133,20 @@ mesh, ``parallel/sharding.py``) runs in three more phases:
    frame's kernel ms against the single-card frame's, the plain band
    chain's ms, the sharded flight's ms per frame, host ms and idle share.
 
-K1's procedural envelope (slice (h): the general instance, every noise
+K1's procedural envelope (slice (h): the procedural instance, every noise
 basis and fractal, per-step fields, the detail field, any knot count and
 LOD group) and the peak probe T2 run in four more phases:
 
 7b. (run right after the build: every bound divides by its rates) T2's
    fma, expf, __expf and uint32 multiply-add chains against their plain
    version (fmaf against a multiply then an add: atol 1e-5; expf 1e-5;
-   __expf 1e-4; uint32 exact), then timed on the card: the fp32 FLOP/s
-   (an FMA is 2), exp/s, __expf/s and INT32 instructions/s beside the data
-   sheet's 67 TFLOP/s and the INT32 rate derived from it, with the SM
-   clock, power and limit sampled under load; the bounds take the measured
-   rates (fp32 and int32 operations apart);
+   __expf 1e-4; uint32 exact), then timed on the card, every timed launch
+   held against the plain chains at its own iteration count: the fp32
+   FLOP/s (an FMA is 2), exp/s, __expf/s and INT32 instructions/s beside
+   the ceilings at the SM clock sampled under load (with power and limit)
+   and the data sheet's 67 TFLOP/s; the bounds divide by the larger of
+   the measured rate and the clock's ceiling (fp32 and int32 operations
+   apart);
 3g. small (256×384): 26 envelope configs on the demo scene (each basis
    as shape and as coverage, cellular with its three returns; ping-pong;
    weighted fbm, ridged, ping-pong; coverage
@@ -152,20 +154,17 @@ LOD group) and the peak probe T2 run in four more phases:
    detail knots under cheap and raymarched light; LOD groups of 16 and 32
    rows, the 16-row one also over 248 rows, its last group partial; the
    demo profile's hat-sum twin) through ``Scene.render`` (one K1
-   launch, the planned instance, no plain call) against plain: the cloud
+   launch of the procedural instance, no plain call) against plain: the cloud
    tolerance, at full quality the detail tolerance (p99 for p99.9), whose
    reason is measured first: the plain frame against itself with the
    camera one ulp away;
 4f. 1080p through ``Scene.render``: the cellular tier, the reference
    shader's per-step profile, the ``.tscn`` importer's profile and full
-   quality (4 general-instance launches, no plain call), each against the
-   plain frame, or against three 64-row plain bands (top, middle, bottom)
-   where one band projects the plain frame past 30 s;
+   quality (4 procedural-instance launches, no plain call), each against
+   the whole plain frame;
 5e. per 4f frame: kernel ms with its bound (work counters under the
-   measured peak), ``Scene.render`` ms and idle share, plain ms (or the
-   band's, projected); the flagship through the register instance against
-   the same config forced through the general one (knots in registers or
-   in shared memory), in turns.
+   ceilings of 7b), ``Scene.render`` ms and idle share, the plain frame's
+   ms.
 
 Prints a JSON line describing each kernel (with its roofline bound from
 this run's work counters), then, as the last line,
@@ -206,8 +205,12 @@ PLAIN_FRAMES = 2
 # One H100 SXM (NVIDIA data sheet): fp32 outside the tensor cores, HBM rate;
 # the INT32 rate derived from the SM's 64 INT32 lanes (half its 128 FP32
 # lanes) at the data sheet's 1.98 GHz, in instructions per second.  Every
-# bound divides by the rates that phase 7b measures on this card (PEAK,
-# set before the first bound); the spec values are printed beside them.
+# bound divides by the card's ceilings as phase 7b reads them (PEAK, set
+# before the first bound): for each of fp32 and INT32 the larger of T2's
+# measured rate and SMs × lanes × the SM clock it sampled under load (128
+# FP32 lanes doing 2 operations per FMA, 64 INT32 lanes), so that no bound
+# divides by less than the card can do; the spec values are printed beside
+# them.
 SPEC_FP32 = 67e12
 SPEC_INT32 = 132 * 64 * 1.98e9
 PEAK = {"fp32": SPEC_FP32, "int32": SPEC_INT32}
@@ -310,20 +313,18 @@ GLOW_ATOL = 1e-5
 # band mode alone with a 32-row halo
 BYTES_BAND_PIXEL = 20
 # K1 slice (h), the procedural envelope: the four 1080p frames of phase 4f,
-# and the plain check of a frame that costs more than PLAIN_FULL_LIMIT_S on
-# the card: three 64-row bands (top, horizon, bottom) of the plain band
-# renderer against the kernel's full frame
+# each held against the whole plain frame
 ENVELOPE_FRAMES = ("cellular_tier", "reference_profile", "tscn_profile", "full_quality")
-PLAIN_BAND_ROWS = 64
-PLAIN_FULL_LIMIT_S = 30.0
 # the peak probe (T2): blocks per SM of 256 threads (4 waves at 8 resident
-# blocks), loop iterations per launch (tens of ms each), iterations of the
-# check against the plain chains and each op's tolerance there: fmaf
-# against a multiply then an add (the chains contract towards their fixed
-# point, so the gap stays a few ulps per chain, ~2e-6 over 16), the
-# accurate expf against torch.exp, __expf's few-ulp error, uint32 exact
+# blocks), loop iterations per launch (tens of ms each; 65,536 fma, 4,096
+# expf, 8,192 __expf and 32,768 IMAD steps per chain), iterations of the
+# small check against the plain chains and each op's tolerance, there and
+# on every timed launch: fmaf against a multiply then an add (the chains
+# contract towards their fixed point, so the gap stays a few ulps per
+# chain, ~2e-6 over 16), the accurate expf against torch.exp, __expf's
+# few-ulp error, uint32 exact
 PEAK_BLOCKS_PER_SM = 32
-PEAK_ITERS = {"fma": 8192, "exp": 512, "fast_exp": 1024, "imad": 4096}
+PEAK_ITERS = {"fma": 1024, "exp": 512, "fast_exp": 1024, "imad": 512}
 PEAK_CHECK_ITERS = 16
 PEAK_TOL = {"fma": 1e-5, "exp": 1e-5, "fast_exp": 1e-4, "imad": 0.0}
 PEAK_REPS = 3
@@ -546,11 +547,8 @@ def roofline(work: dict, config, height: int, width: int, table_bytes: int = 0,
     noise and pyramids read once; ``sky_bytes``: the sky levels its tiles
     chose) over the HBM rate.  ``sky_choice_ops``: the operations of the
     sky's per-tile choice (:func:`sky_cost`).  A procedural layer's noise
-    comes from the work counters: the register instance evaluates the
-    coverage at its knots and the shape at every step and sun sample; the
-    general instance counts each field's evaluations and knots itself."""
-    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
-
+    comes from the work counters: the procedural instance counts each
+    field's evaluations and knots."""
     steps = config.cloud_steps
     procedural = config.clouds_enabled and config.cloud_shape_noise is not None
     ops = (work["pixels"] * OPS_PIXEL + work["atmosphere"] * OPS_ATMOSPHERE
@@ -564,13 +562,10 @@ def roofline(work: dict, config, height: int, width: int, table_bytes: int = 0,
         cov = noise_ops(config.cloud_coverage_noise, coverage=True)
         shape = noise_ops(config.cloud_shape_noise)
         detail = (shape[0] + DETAIL_POINT_OPS, shape[1])
-        units = [(cov, work["knot_groups"] * (max(config.cloud_coverage_knots, 1) + 1))]
-        if mk.register_instance(config):
-            units.append((shape, work["march"] * steps + work["sun_samples"]))
-        else:
-            units += [(cov, work["coverage_evals"]), (shape, work["shape_evals"]),
-                      (detail, work["detail_evals"]), (shape, work["shape_knots"]),
-                      (detail, work["detail_knots"])]
+        units = [(cov, work["knot_groups"] * (max(config.cloud_coverage_knots, 1) + 1)),
+                 (cov, work["coverage_evals"]), (shape, work["shape_evals"]),
+                 (detail, work["detail_evals"]), (shape, work["shape_knots"]),
+                 (detail, work["detail_knots"])]
         ops += sum(u[0] * n for u, n in units)
         int_ops = sum(u[1] * n for u, n in units)
     ops += (sky_choice_ops + work["sky"] * OPS_SKY_SAMPLE
@@ -1494,9 +1489,9 @@ def detail_conditioning(device, h: int, w: int) -> dict:
 def envelope_check(device, h: int, w: int) -> dict:
     """Phase 3g: every small envelope case (:func:`envelope_cases`; the
     four frames are phase 4f's) at ``h × w`` through ``Scene.render``
-    (one K1 launch, no plain call), held against the plain chain on the same
-    inputs: the cloud tolerance, the detail tolerance at full quality.
-    Returns per case the instance that rendered it and the statistics."""
+    (one K1 launch of the procedural instance, no plain call), held against
+    the plain chain on the same inputs: the cloud tolerance, the detail
+    tolerance at full quality.  Returns the statistics per case."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     out = {}
@@ -1504,70 +1499,34 @@ def envelope_check(device, h: int, w: int) -> dict:
         scene, cam = envelope_scene(name, device)
         _, _, configs = scene._sorted_layers(cam)
         mk.check_config(configs[0])
-        general = not mk.register_instance(configs[0])
         err, _ = check_scene(f"envelope {name}", scene, cam, h, w,
                              detail_tolerance_ok if full_quality(scene, cam)
                              else cloud_tolerance_ok)
         # check_scene sets the counters to 0 before its frame
-        if mk.counters.general_launches != int(general):
-            raise RuntimeError(f"envelope {name}: not rendered by the planned instance")
-        out[name] = {"instance": "general" if general else "register", "max": err}
+        if mk.counters.general_launches != 1:
+            raise RuntimeError(f"envelope {name}: not rendered by the procedural instance")
+        out[name] = {"max": err}
     # a partial last LOD group: 16-row groups over h - 8 rows
     scene, cam = envelope_scene("group_16", device)
     err, _ = check_scene(f"envelope group_16, {h - 8} rows", scene, cam, h - 8, w)
-    out["group_16_partial"] = {"instance": "general", "max": err}
+    out["group_16_partial"] = {"max": err}
     return out
 
 
-def plain_rows(scene, cam, h: int, w: int, row0: int, rows: int) -> np.ndarray:
-    """Rows ``[row0, row0 + rows)`` of the plain frame (the band renderer)
-    on the same inputs as ``Scene.render``."""
-    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
-
-    params, configs, tex, _, _ = scene_plan(scene, cam, h)
-    return frame_array(mk.render_scene_band_plain(params, configs, cam, scene.opaque, h, w, row0,
-                                                  rows, tex_data=tex))
-
-
-def plain_band_starts(h: int) -> tuple:
-    """The plain check's three bands: the top, the middle (on a group
-    boundary) and the bottom.  At the avatar pose the planet and its cloud
-    shell fill the frame's height, so every band marches clouds."""
-    r = PLAIN_BAND_ROWS
-    return 0, (h // 2 - r // 2) // 32 * 32, h - r
-
-
 def check_envelope_frame(label: str, scene, cam, img: np.ndarray, h: int, w: int) -> dict:
-    """Phase 4f's check of one kernel frame: against the whole plain frame
-    when the plain band renderer, timed on one 64-row band, projects it
-    under PLAIN_FULL_LIMIT_S, else against three 64-row plain bands (top,
-    middle, bottom); detail or cloud tolerance as in 3g."""
+    """Phase 4f's check of one kernel frame against the whole plain frame on
+    the same inputs (its wall time kept as the plain ms); detail or cloud
+    tolerance as in 3g."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     ok = detail_tolerance_ok if full_quality(scene, cam) else cloud_tolerance_ok
-    starts = plain_band_starts(h)
     torch.cuda.synchronize()
     t0 = time.time()
-    bands = {starts[1]: plain_rows(scene, cam, h, w, starts[1], PLAIN_BAND_ROWS)}
-    band_s = time.time() - t0
-    projected = band_s * h / PLAIN_BAND_ROWS
-    res = {"plain_band_s": band_s, "plain_projected_s": projected}
-    if projected <= PLAIN_FULL_LIMIT_S:
-        t0 = time.time()
-        ref = frame_array(mk.render_frame_plain(*frame_inputs(scene, cam)[0], h, w))
-        res["plain_s"] = time.time() - t0
-        res["against"] = "whole frame"
-        st = cloud_deltas(img, ref)
-    else:
-        for r0 in starts:
-            if r0 not in bands:
-                bands[r0] = plain_rows(scene, cam, h, w, r0, PLAIN_BAND_ROWS)
-        got = np.concatenate([img[r0:r0 + PLAIN_BAND_ROWS] for r0 in sorted(bands)])
-        ref = np.concatenate([bands[r0] for r0 in sorted(bands)])
-        res["against"] = f"plain bands at rows {sorted(bands)} ({PLAIN_BAND_ROWS} each)"
-        st = cloud_deltas(got, ref)
+    ref = frame_array(mk.render_frame_plain(*frame_inputs(scene, cam)[0], h, w))
+    res = {"plain_s": time.time() - t0}
+    st = cloud_deltas(img, ref)
     res.update(st)
-    log(f"[envelope] {label} {h}x{w} kernel vs plain ({res['against']}): {json.dumps(res)}")
+    log(f"[envelope] {label} {h}x{w} kernel vs the whole plain frame: {json.dumps(res)}")
     if not ok(st):
         raise RuntimeError(f"{label}: the 1080p kernel frame disagrees with plain")
     return res
@@ -1577,8 +1536,7 @@ def envelope_timing(scene, cam, h: int, w: int, device, check: dict) -> dict:
     """Phase 5e for one frame: the kernel launch alone (CUDA events) with
     its bound from its work counters under the measured peak,
     ``Scene.render`` ms and idle share, and the plain ms that phase 4f's
-    ``check`` took (wall time to the frame on the host: the whole frame, or
-    one 64-row plain band and its projection to the frame)."""
+    ``check`` took (wall time to the whole plain frame on the host)."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     inputs, _ = frame_inputs(scene, cam)
@@ -1591,8 +1549,7 @@ def envelope_timing(scene, cam, h: int, w: int, device, check: dict) -> dict:
         scene.update(base + 0.05 * i, cam)
         scene.render(cam, h, w)
 
-    t = {"instance": "general" if struct.general_instance else "register",
-         "kernel_ms": time_cuda(lambda i: mk.launch(struct, color, alpha), ENVELOPE_KERNEL_FRAMES),
+    t = {"kernel_ms": time_cuda(lambda i: mk.launch(struct, color, alpha), ENVELOPE_KERNEL_FRAMES),
          "scene_ms": time_cuda(frame, ENVELOPE_KERNEL_FRAMES)}
     busy, kernel = device_busy_ms(frame, ENVELOPE_KERNEL_FRAMES, first=2 + ENVELOPE_KERNEL_FRAMES)
     t["scene_device_busy_ms"] = busy
@@ -1601,38 +1558,8 @@ def envelope_timing(scene, cam, h: int, w: int, device, check: dict) -> dict:
     scene.update(base, cam)
     work = mk.work_counts(struct, color, alpha)
     t.update(roofline(work, inputs[1], h, w), work=work)
-    t["plain_band_ms"] = check["plain_band_s"] * 1e3
-    t["plain_projected_ms"] = check["plain_projected_s"] * 1e3
-    if "plain_s" in check:
-        t["plain_ms"] = check["plain_s"] * 1e3
+    t["plain_ms"] = check["plain_s"] * 1e3
     return t
-
-
-def register_vs_general(scene, cam, h: int, w: int, device) -> dict:
-    """The knots' home, measured: the flagship config through the register
-    instance (its 9 coverage knots in registers) and forced through the
-    general instance (the same knots in shared memory), in turns (register,
-    general, general, register), with the general frame held against the
-    register one (cloud tolerance)."""
-    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
-
-    inputs, _ = frame_inputs(scene, cam)
-    reg = mk.frame_constants(*inputs, h, w)
-    gen = mk.MegakernelParams.from_buffer_copy(reg)
-    gen.general_instance = 1
-    planes = {}
-    runs = {"register": [], "general": []}
-    for which in ("register", "general", "general", "register"):
-        st = reg if which == "register" else gen
-        color = torch.empty((h, w, 3), device=device)
-        alpha = torch.empty((h, w), device=device)
-        runs[which].append(time_cuda(lambda i: mk.launch(st, color, alpha), KERNEL_FRAMES))
-        planes[which] = frame_array({"color": color, "alpha": alpha})
-    st = cloud_deltas(planes["general"], planes["register"])
-    if not cloud_tolerance_ok(st):
-        raise RuntimeError("the general instance disagrees with the register instance")
-    return {"register_ms": min(runs["register"]), "general_ms": min(runs["general"]),
-            "runs": runs, "general_vs_register": st}
 
 
 # -- T2: the card's arithmetic ceilings ---------------------------------------------
@@ -1640,11 +1567,15 @@ def register_vs_general(scene, cam, h: int, w: int, device) -> dict:
 
 def peak_probe(device) -> dict:
     """T2 (``probes.peak_chains``): each chain op against its plain version
-    at PEAK_CHECK_ITERS (PEAK_TOL), then timed with CUDA events at
+    at PEAK_CHECK_ITERS on 8 blocks, then timed with CUDA events at
     PEAK_ITERS on SMs × PEAK_BLOCKS_PER_SM blocks (best of PEAK_REPS
-    launches), with the clocks, power and limit sampled by ``nvidia-smi``
-    while fma launches run.  Rates: fp32 FLOP/s (an FMA is 2), exp/s,
-    __expf/s, INT32 IMAD instructions/s; the spec values beside them."""
+    launches after one warm-up), every timed launch's output held against
+    the plain chains at the same iteration count (PEAK_TOL; the plain run
+    is timed: its ms), with the clocks, power and limit sampled by
+    ``nvidia-smi`` while fma launches run.  Rates: fp32 FLOP/s (an FMA is
+    2), exp/s, __expf/s, INT32 IMAD instructions/s; the ceilings at the
+    sampled SM clock (SMs × 128 lanes × 2, SMs × 64 lanes) and the spec
+    values beside them."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import probes
 
     g = np.random.default_rng(3)
@@ -1655,36 +1586,56 @@ def peak_probe(device) -> dict:
     blocks = sms * PEAK_BLOCKS_PER_SM
     threads = blocks * probes.PEAK_THREADS
     probes.counters.reset()
-    out = {"sms": sms, "blocks": blocks, "threads": threads, "check": {}, "ms": {}}
+    out = {"sms": sms, "blocks": blocks, "threads": threads, "check": {}, "timed_check": {},
+           "ms": {}, "plain_ms": {}}
+
+    def err_of(got, ref):
+        return float((got.reshape(-1, probes.PEAK_PLANE) - ref).abs().max())
+
     for op in probes.PEAK_OPS:
-        got = probes.peak_chains(a, b, op, PEAK_CHECK_ITERS, 8)
-        ref = probes.chains_plain(a, b, op, PEAK_CHECK_ITERS)
-        torch.cuda.synchronize()
-        err = float((got.reshape(-1, probes.PEAK_PLANE) - ref).abs().max())
+        err = err_of(probes.peak_chains(a, b, op, PEAK_CHECK_ITERS, 8),
+                     probes.chains_plain(a, b, op, PEAK_CHECK_ITERS))
         out["check"][op] = err
         if not err <= PEAK_TOL[op]:
             raise RuntimeError(f"the peak probe's {op} chains disagree with plain: {err}")
     rates = {}
     for op, iters in PEAK_ITERS.items():
-        probes.peak_chains(a, b, op, iters, blocks)  # warm
-        ms = min(time_cuda(lambda i: probes.peak_chains(a, b, op, iters, blocks), 1, warmup=0)
-                 for _ in range(PEAK_REPS))
+        outs, times = [], []
+        for _ in range(1 + PEAK_REPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            outs.append(probes.peak_chains(a, b, op, iters, blocks))
+            end.record()
+            times.append((start, end))
+        torch.cuda.synchronize()
+        ms = min(s.elapsed_time(e) for s, e in times[1:])
+        t0 = time.time()
+        ref = probes.chains_plain(a, b, op, iters)
+        torch.cuda.synchronize()
+        out["plain_ms"][op] = (time.time() - t0) * 1e3
+        err = max(err_of(o, ref) for o in outs)
+        out["timed_check"][op] = err
+        if not err <= PEAK_TOL[op]:
+            raise RuntimeError(f"a timed {op} launch disagrees with the plain chains: {err}")
         out["ms"][op] = ms
-        rates[op] = threads * probes.PEAK_CHAINS * probes.PEAK_INNER * iters / (ms * 1e-3)
-    for _ in range(8):  # ~0.3 s of fma in flight while nvidia-smi samples
+        steps = probes.PEAK_CHAINS * probes.PEAK_INNER[op] * iters
+        rates[op] = threads * steps / (ms * 1e-3)
+    for _ in range(24):  # ~0.8 s of fma in flight while nvidia-smi samples
         probes.peak_chains(a, b, "fma", PEAK_ITERS["fma"], blocks)
     out["clocks_under_load"] = smi("clocks.sm,power.draw,power.limit,temperature.gpu")
     torch.cuda.synchronize()
+    hz = float(out["clocks_under_load"].split()[0]) * 1e6
     out.update(fp32_flops=2.0 * rates["fma"], exp_per_s=rates["exp"],
                fast_exp_per_s=rates["fast_exp"], int32_per_s=rates["imad"],
+               clock_fp32_flops=sms * 128 * 2 * hz, clock_int32_per_s=sms * 64 * hz,
                spec_fp32_flops=SPEC_FP32, spec_int32_per_s=SPEC_INT32,
                fp32_spec_ratio=2.0 * rates["fma"] / SPEC_FP32,
                int32_spec_ratio=rates["imad"] / SPEC_INT32,
                launches=probes.counters.peak_launches,
-               max_abs_err=max(out["check"].values()),
-               # the fma launch's operations over the data sheet's fp32 peak
-               bound_ms=threads * probes.PEAK_CHAINS * probes.PEAK_INNER * PEAK_ITERS["fma"]
-               * 2.0 / SPEC_FP32 * 1e3)
+               max_abs_err=max(max(out["check"].values()), max(out["timed_check"].values())))
+    out.update(fp32_clock_ratio=out["fp32_flops"] / out["clock_fp32_flops"],
+               int32_clock_ratio=out["int32_per_s"] / out["clock_int32_per_s"])
     return out
 
 
@@ -1730,11 +1681,18 @@ def main(argv=None) -> int:
     # -- 7b (run first: every bound divides by its rates). T2, the peak probe:
     # each chain against its plain version, then the measured rates ------------
     peak = peak_probe(device)
-    PEAK.update(fp32=peak["fp32_flops"], int32=peak["int32_per_s"])
+    PEAK.update(fp32=max(peak["fp32_flops"], peak["clock_fp32_flops"]),
+                int32=max(peak["int32_per_s"], peak["clock_int32_per_s"]))
+    # the fma launch's operations over the ceiling every bound divides by
+    peak["bound_ms"] = (peak["threads"] * probes.PEAK_CHAINS * probes.PEAK_INNER["fma"]
+                        * PEAK_ITERS["fma"] * 2.0 / PEAK["fp32"] * 1e3)
     log(f"[peak] T2 on {card}: {json.dumps(peak)}")
-    log(f"[peak] bounds divide by the measured fp32 {PEAK['fp32'] / 1e12:.2f} TFLOP/s (spec "
-        f"{SPEC_FP32 / 1e12:.0f}) and INT32 {PEAK['int32'] / 1e12:.2f} Tinstr/s (spec-derived "
-        f"{SPEC_INT32 / 1e12:.2f}); the clocks under load: {peak['clocks_under_load']}")
+    log(f"[peak] bounds divide by fp32 {PEAK['fp32'] / 1e12:.3f} TFLOP/s (measured "
+        f"{peak['fp32_flops'] / 1e12:.3f}, at the sampled clock "
+        f"{peak['clock_fp32_flops'] / 1e12:.3f}, spec {SPEC_FP32 / 1e12:.0f}) and INT32 "
+        f"{PEAK['int32'] / 1e12:.3f} Tinstr/s (measured {peak['int32_per_s'] / 1e12:.3f}, at the "
+        f"sampled clock {peak['clock_int32_per_s'] / 1e12:.3f}, spec-derived "
+        f"{SPEC_INT32 / 1e12:.3f}); the clocks under load: {peak['clocks_under_load']}")
 
     # -- 3. kernel against plain, small --------------------------------------
     h, w = CHECK_SIZE
@@ -2175,10 +2133,10 @@ def main(argv=None) -> int:
     env_counts = (mk.counters.megakernel_launches, mk.counters.general_launches,
                   mk.counters.plain_calls + ts.counters.plain_sky_calls)
     log(f"[envelope] counters after {len(ENVELOPE_FRAMES)} 1080p Scene.render frames: K1 "
-        f"{env_counts[0]} (general {env_counts[1]}), plain {env_counts[2]}")
+        f"{env_counts[0]} (procedural {env_counts[1]}), plain {env_counts[2]}")
     if env_counts != (len(ENVELOPE_FRAMES),) * 2 + (0,):
-        raise RuntimeError("the envelope's 1080p frames did not all go through the general "
-                           "instance")
+        raise RuntimeError("the envelope's 1080p frames did not all go through the "
+                           "procedural instance")
     env_check = {}
     for name, (scene, cam, out) in env_runs.items():
         img = frame_array(out)
@@ -2386,16 +2344,11 @@ def main(argv=None) -> int:
     band_flag = shard_t["clouds_high/avatar 1080p"]
 
     # -- 5e. the envelope's timing: per frame kernel ms and bound, Scene.render ms
-    # and idle share, plain ms; the knots' home (registers or shared memory) -----
+    # and idle share, plain ms ---------------------------------------------------
     env_t = {}
     for name, (scene, cam, _) in env_runs.items():
         env_t[name] = envelope_timing(scene, cam, H, W, device, env_check[name])
         log(f"[envelope-time] {name} 1080p on {card}: {json.dumps(env_t[name])}")
-    env_plain_ms = {k: v.get("plain_ms", v["plain_projected_ms"]) for k, v in env_t.items()}
-    scene, cam = scene_and_camera("clouds_high", "avatar", device)
-    knots_home = register_vs_general(scene, cam, H, W, device)
-    log(f"[envelope-time] the flagship's coverage knots in registers or shared memory on "
-        f"{card}: {json.dumps(knots_home)}")
     log(f"[envelope-time] after timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
     # -- 6. the flight slice at 1080p through Scene.render_flight ----------------
@@ -2518,18 +2471,14 @@ def main(argv=None) -> int:
         raise RuntimeError("the fill kernel disagrees with torch.full")
     log(f"[flight-time] after timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
-    # 7b: T2 (measured before phase 3; every bound above divides by it), and
-    # its plain chains on the card at the check's size
-    from godot_atmosphere_shader_tpu_torch.ops.kernels import probes as _probes
-
-    g = np.random.default_rng(3)
-    pa = torch.as_tensor(g.random(_probes.PEAK_PLANE).astype(np.float32), device=device)
-    peak_plain_ms = time_cuda(lambda i: _probes.chains_plain(pa, pa, "fma", PEAK_CHECK_ITERS), 1)
+    # 7b: T2 (measured before phase 3; every bound above divides by it)
     log(f"[peak] T2 on {card}: fp32 {peak['fp32_flops'] / 1e12:.3f} TFLOP/s "
-        f"({peak['fp32_spec_ratio']:.3f} of {SPEC_FP32 / 1e12:.0f}), expf "
+        f"({peak['fp32_clock_ratio']:.4f} of {peak['clock_fp32_flops'] / 1e12:.3f} at the sampled "
+        f"clock, {peak['fp32_spec_ratio']:.4f} of {SPEC_FP32 / 1e12:.0f}), expf "
         f"{peak['exp_per_s'] / 1e12:.3f} T/s, __expf {peak['fast_exp_per_s'] / 1e12:.3f} T/s, "
-        f"INT32 {peak['int32_per_s'] / 1e12:.3f} Tinstr/s; plain fma chains "
-        f"({PEAK_CHECK_ITERS} iterations, one thread per element) {peak_plain_ms:.3f} ms; "
+        f"INT32 {peak['int32_per_s'] / 1e12:.3f} Tinstr/s "
+        f"({peak['int32_clock_ratio']:.4f} at the sampled clock); plain chains at the timed "
+        f"iteration counts (2048 distinct threads) {json.dumps(peak['plain_ms'])} ms; "
         f"clocks {peak['clocks_under_load']}")
 
     flagship, tex_flagship = "clouds_high/avatar", "clouds_high/texture/avatar"
@@ -2667,11 +2616,10 @@ def main(argv=None) -> int:
         "library_ms": None,
     }, {
         "name": "megakernel_envelope",
-        "slice": ("K1 slice (h): the general procedural instance, every noise basis, per-step "
+        "slice": ("K1 slice (h): the procedural instance, every noise basis, per-step "
                   "fields, the detail field, any knot count and LOD group (ms, bound_ms, "
-                  "plain_ms: the cellular tier at 1080p; frames: each 4f frame's, where the "
-                  "plain ms of a frame too costly in full is its 64-row plain band projected "
-                  "to the frame)"),
+                  "plain_ms: the cellular tier at 1080p; frames: each 4f frame's, plain_ms "
+                  "the whole plain frame)"),
         "route": "cuda",
         "source": "godot_atmosphere_shader_tpu_torch/csrc/megakernel.cu",
         "replaces": ("godot_atmosphere_shader_tpu/ops/pallas/megakernel.py:171 (the procedural "
@@ -2680,28 +2628,27 @@ def main(argv=None) -> int:
         "max_abs_err": max(v["max"] for v in env_check.values()),
         "small_max_abs_err": max(v["max"] for v in envelope_small.values()),
         "ms": env_t["cellular_tier"]["kernel_ms"],
-        "plain_ms": env_plain_ms["cellular_tier"],
+        "plain_ms": env_t["cellular_tier"]["plain_ms"],
         "bound_ms": env_t["cellular_tier"]["bound_ms"],
         "bound_by": env_t["cellular_tier"]["bound_by"],
         "frames": {k: {"ms": v["kernel_ms"], "bound_ms": v["bound_ms"],
-                       "bound_by": v["bound_by"], "plain_ms": env_plain_ms[k],
+                       "bound_by": v["bound_by"], "plain_ms": v["plain_ms"],
                        "scene_ms": v["scene_ms"], "idle_share": v["scene_idle_share"]}
                    for k, v in env_t.items()},
-        "knots_in_registers_ms": knots_home["register_ms"],
-        "knots_in_shared_memory_ms": knots_home["general_ms"],
         "library_ms": None,
     }, {
         "name": "fp32_peak",
         "slice": ("T2: register-resident fma, expf, __expf and uint32 multiply-add chains; "
-                  "ms: the fma launch, bound_ms: its operations over the data sheet's fp32 "
-                  "peak"),
+                  "ms: the fma launch, bound_ms: its operations over the fp32 ceiling every "
+                  "bound divides by, plain_ms: the plain fma chains at the same iteration "
+                  "count over the 2048 distinct threads (the kernel's output repeats them)"),
         "route": "cuda",
         "source": "godot_atmosphere_shader_tpu_torch/csrc/probes.cu",
         "replaces": "tools/vpu_peak.py:86",
         "launches": peak["launches"],
         "max_abs_err": peak["max_abs_err"],
         "ms": peak["ms"]["fma"],
-        "plain_ms": peak_plain_ms,
+        "plain_ms": peak["plain_ms"]["fma"],
         "bound_ms": peak["bound_ms"],
         "bound_by": "operations",
         "fp32_tflops": peak["fp32_flops"] / 1e12,
@@ -2709,6 +2656,8 @@ def main(argv=None) -> int:
         "fast_exp_per_s": peak["fast_exp_per_s"],
         "int32_per_s": peak["int32_per_s"],
         "fp32_spec_ratio": peak["fp32_spec_ratio"],
+        "fp32_clock_ratio": peak["fp32_clock_ratio"],
+        "fp32_ceiling_tflops": PEAK["fp32"] / 1e12,
         "clocks_under_load": peak["clocks_under_load"],
         "library_ms": None,
     }, {

@@ -2,10 +2,10 @@
 // starfield or the panorama sky), v1 or v2 atmosphere (v2 with analytic sun
 // optical depth), cloud march (cheap or sun-marched light) and composite, in
 // one launch per atmosphere layer.
-// Three instances: two for procedural cloud fields, the register instance
-// (the demo profile: 8 coverage knots in registers) and the general one
-// (every procedural config, below), and texture mode, whose cloud fields
-// are baked textures sampled through mip pyramids by the K2 device
+// Three instances: the procedural instance (megakernel_gen: every
+// procedural cloud config, below), the cloud-free instance (megakernel_clear:
+// cloud-free layers and the opaque-only pass) and texture mode, whose cloud
+// fields are baked textures sampled through mip pyramids by the K2 device
 // functions below.
 //
 // Replaces the TPU Pallas kernels
@@ -29,9 +29,8 @@
 //   * one thread per column and per group of cloud_lod * coverage_lod rows,
 //     so the coarse cloud inputs, the coverage knots and the march are
 //     computed once per group without any cross-thread exchange;
-//   * the K + 1 coverage knots stay in registers (K is a template
-//     parameter): each march step picks its two live knots with an unrolled
-//     chain of predicated moves, never an indexed local array;
+//   * the knots of a coverage group live in shared memory, knot-major
+//     (below);
 //   * the conservative density-bound cull exits before the march per
 //     coarse pixel (output-equivalent: a culled pixel marches to exact
 //     zeros), as does every pixel whose ray misses the shell;
@@ -87,8 +86,8 @@
 // and so is raymarched lighting (a 6-step sun march per cloud step, kept
 // rolled).
 //
-// The general procedural instance (megakernel_gen, K1 slice (h)) takes
-// every procedural config the TPU kernel renders (its body is the shared
+// The procedural instance (megakernel_gen, K1 slice (h)) takes every
+// procedural config the TPU kernel renders (its body is the shared
 // XLA shading code, so _check_config, megakernel.py:468-496, is the
 // envelope): every noise basis (value, perlin, simplex, simplex-smooth, the
 // 27-cell cellular with its three returns, the 8-cell cellular_fast),
@@ -100,7 +99,7 @@
 // uint32 avalanches; Hopper's INT32 lanes are half its FP32 lanes).  What
 // the design does about it: the knots live in dynamic shared memory,
 // knot-major with a stride of the block (conflict-free, any count); the
-// noise is one called function (field_all, on the __grid_constant__
+// noise is one called function (field, on the __grid_constant__
 // launch struct) instead of nine inlined copies; the rows of a group take
 // two passes so per-row state never exceeds one row; hat-sum knots read the
 // same two live knots as dynamic ones (the other terms are exact zeros).
@@ -137,10 +136,10 @@
 #define MK_MAX_SPHERES 8
 #define MK_MAX_BOXES 4
 #define MK_MAX_OCTAVES 8
-#define MK_MAX_GROUP 8  // rows per thread (register and texture instances)
+#define MK_MAX_GROUP 8  // texture instance: rows per thread, knots per batch
 #define MK_QUAD_POINTS 8
-#define MK_KNOTS 8  // coverage knots: the K of the K + 1 knot registers
-#define MK_MAX_KNOT_ROWS 448  // the general instance's knots in shared memory
+#define MK_KNOTS 8  // texture instance: coverage knots
+#define MK_MAX_KNOT_ROWS 448  // the procedural instance's knots in shared memory
 #define MK_SHAPE_KNOTS 16  // texture mode's shape knots
 #define MK_MAX_LEVELS 8    // mip levels of a pyramid
 #define MK_TILE_ROWS 32    // texture mode: one block per TPU tile
@@ -272,8 +271,6 @@ struct MegakernelParams {
   int cloud_lod;
   int coverage_lod;
   int coverage_knots;
-  // 0: the register instance (the demo profile); 1: the general instance
-  int general_instance;
   int coverage_interp;       // 0: coverage per step and per sun sample
   int shape_interp;          // 1: shape (and detail) from shape_knots + 1 knots
   int shape_knots;
@@ -611,14 +608,9 @@ __device__ float cellular_noise3_fast(float x, float y, float z, uint32_t seed, 
   return sqrtf(f1) * 2.0f - 1.0f;
 }
 
-// The noise basis of a spec.  ALL: every basis (the general instance);
-// otherwise value and simplex-smooth only (the register instance's fields).
-template <bool ALL>
+// The noise basis of a spec.
 __device__ __forceinline__ float base_noise(const NoiseParams& s, float x, float y, float z,
                                             uint32_t seed) {
-  if (!ALL)
-    return s.noise_type == 0 ? value_noise3(x, y, z, seed)
-                             : simplex_smooth_noise3(x, y, z, seed);
   switch (s.noise_type) {
     case 0: return value_noise3(x, y, z, seed);
     case 1: return simplex_smooth_noise3(x, y, z, seed);
@@ -630,11 +622,9 @@ __device__ __forceinline__ float base_noise(const NoiseParams& s, float x, float
 }
 
 // sample_noise3: domain warp -> fractal -> base, at field coordinates.
-// ALL adds every basis, the ping-pong fractal and weighted_strength, which
-// scales each next octave's amplitude by a weight of this octave's value
-// (JAX ops/noise.py:505-518: the amplitude is then a per-sample f32 chain,
-// amp * weight * gain).
-template <bool ALL>
+// weighted_strength scales each next octave's amplitude by a weight of this
+// octave's value (JAX ops/noise.py:505-518: the amplitude is then a
+// per-sample f32 chain, amp * weight * gain).
 __device__ float sample_noise3(const NoiseParams& s, float x, float y, float z) {
   if (s.warp_enabled) {
     for (int o = 0; o < s.warp_octaves; ++o) {
@@ -650,27 +640,12 @@ __device__ float sample_noise3(const NoiseParams& s, float x, float y, float z) 
   x = x * s.frequency;
   y = y * s.frequency;
   z = z * s.frequency;
-  if (s.fractal_type == 0) return base_noise<ALL>(s, x, y, z, (uint32_t)s.seed);
+  if (s.fractal_type == 0) return base_noise(s, x, y, z, (uint32_t)s.seed);
   float total = 0.0f;
-  if (!ALL) {
-    for (int o = 0; o < s.octaves; ++o) {
-      float n = base_noise<ALL>(s, x, y, z, (uint32_t)(s.seed + o));
-      if (s.fractal_type == 1) {
-        total = total + n * s.amp[o];
-      } else {
-        n = fabsf(n);
-        total = total + (n * -2.0f + 1.0f) * s.amp[o];
-      }
-      x = x * s.lacunarity;
-      y = y * s.lacunarity;
-      z = z * s.lacunarity;
-    }
-    return total;
-  }
   const bool weighted = s.weighted_strength != 0.0f;
   float amp = s.amp[0];
   for (int o = 0; o < s.octaves; ++o) {
-    float n = base_noise<ALL>(s, x, y, z, (uint32_t)(s.seed + o));
+    float n = base_noise(s, x, y, z, (uint32_t)(s.seed + o));
     const float a = weighted ? amp : s.amp[o];
     float w;  // the weight's value term
     if (s.fractal_type == 1) {
@@ -695,16 +670,11 @@ __device__ float sample_noise3(const NoiseParams& s, float x, float y, float z) 
   return total;
 }
 
-// procedural field 0.5 + 0.5 * noise(p * scale)
-__device__ __forceinline__ float field(const NoiseParams& s, V3 p) {
-  return 0.5f + 0.5f * sample_noise3<false>(s, p.x * s.scale[0], p.y * s.scale[1], p.z * s.scale[2]);
-}
-
-// the general instance's field: every basis, one copy of the code (called,
-// not inlined, at each of its sites; the launch struct is a
+// procedural field 0.5 + 0.5 * noise(p * scale): one copy of the code
+// (called, not inlined, at each of its sites; the launch struct is a
 // __grid_constant__, so its noise specs are read in place)
-__device__ __noinline__ float field_all(const NoiseParams& s, V3 p) {
-  return 0.5f + 0.5f * sample_noise3<true>(s, p.x * s.scale[0], p.y * s.scale[1], p.z * s.scale[2]);
+__device__ __noinline__ float field(const NoiseParams& s, V3 p) {
+  return 0.5f + 0.5f * sample_noise3(s, p.x * s.scale[0], p.y * s.scale[1], p.z * s.scale[2]);
 }
 
 // ---------------------------------------------------------------------------
@@ -927,10 +897,6 @@ __device__ __forceinline__ V3 coverage_point(const MegakernelParams& p, V3 pos) 
                       p.coverage_rot[2] * pos.x + p.coverage_rot[3] * pos.z));
 }
 
-__device__ __forceinline__ float raw_coverage(const MegakernelParams& p, V3 pos) {
-  return field(p.coverage, coverage_point(p, pos));
-}
-
 // where the detail field samples the shape field: pos * 15 + time * 0.01
 __device__ __forceinline__ V3 detail_point(const MegakernelParams& p, V3 pos) {
   const float t = p.time * 0.01f;
@@ -950,33 +916,11 @@ __device__ __forceinline__ float cloud_density(const MegakernelParams& p, float 
   return saturate(density * 50.0f - 20.0f);
 }
 
-// Knots of a field, read in the march.  The register instance keeps the
-// K + 1 coverage knots in registers (an unrolled chain of predicated moves
-// picks the two live ones); the texture and general instances read them
-// from shared memory, stored knot-major with a stride of one block
-// (bank-conflict free), the texture instance for a fixed K, the general
-// one for the launch's.  Hat-sum knots (knot_dynamic = False) read the
-// same two live knots: the hat sum's other terms are exact zeros.
-template <int K>
-struct RegKnots {
-  const float (&k)[K + 1];
-  __device__ __forceinline__ float interp(float u01) const {
-    float us = u01 * (float)K;
-    float i0 = fminf(fmaxf(floorf(us), 0.0f), (float)(K - 1));
-    const int seg = (int)i0;
-    float ka = k[0], kb = k[1];
-#pragma unroll
-    for (int j = 1; j < K; ++j) {
-      if (seg == j) {
-        ka = k[j];
-        kb = k[j + 1];
-      }
-    }
-    const float f = us - i0;
-    return ka * (1.0f - f) + kb * f;  // knot_dynamic interpolation
-  }
-};
-
+// Knots of a field, read in the march from shared memory, stored
+// knot-major with a stride of one block (bank-conflict free): the texture
+// instance's for a fixed K, the procedural instance's for the launch's.
+// Hat-sum knots (knot_dynamic = False) read the same two live knots: the
+// hat sum's other terms are exact zeros.
 template <int K>
 struct SmemKnots {
   const float* k;  // knot j at k[j * stride]
@@ -1006,27 +950,6 @@ struct GenKnots {
 // Where a march step and its sun samples take their field values (raw
 // coverage, raw shape, detail); sun_* get the step's value and the sample's
 // position.
-// The register instance: coverage from its register knots, reused by the
-// sun samples; the shape per step and per sun sample; always-low density.
-template <int K>
-struct RegFields {
-  RegKnots<K> cov_knots;
-  __device__ __forceinline__ float cov(const MegakernelParams&, float u01, V3) const {
-    return cov_knots.interp(u01);
-  }
-  __device__ __forceinline__ float shape(const MegakernelParams& p, float, V3 pos) const {
-    return field(p.shape, mul(pos, p.cloud_shape_scale));
-  }
-  __device__ __forceinline__ float detail(const MegakernelParams&, float, V3) const { return 0.5f; }
-  __device__ __forceinline__ float sun_cov(const MegakernelParams&, float c, V3) const { return c; }
-  __device__ __forceinline__ float sun_shape(const MegakernelParams& p, float, V3 pos) const {
-    return shape(p, 0.0f, pos);
-  }
-  __device__ __forceinline__ float sun_detail(const MegakernelParams&, float, V3, float) const {
-    return 0.5f;
-  }
-};
-
 // The texture instance: coverage and shape from shared-memory knots, both
 // reused by the sun samples; always-low density.
 template <int K, int KS>
@@ -1049,12 +972,12 @@ struct TexFields {
   }
 };
 
-// the general instance's procedural field evaluations (work counters)
+// the procedural instance's field evaluations (work counters)
 struct FieldWork {
   unsigned cov, shape, detail;
 };
 
-// The general instance: each field from its knots, or evaluated per step
+// The procedural instance: each field from its knots, or evaluated per step
 // and per sun sample (every basis); at full quality the detail field,
 // whose sun samples take it only where the march's alpha is below 0.3
 // (clouds.py:165-175: d_full or d_low).
@@ -1064,15 +987,15 @@ struct GenFields {
   FieldWork* work;
   __device__ __forceinline__ float cov_at(const MegakernelParams& p, V3 pos) const {
     ++work->cov;
-    return field_all(p.coverage, coverage_point(p, pos));
+    return field(p.coverage, coverage_point(p, pos));
   }
   __device__ __forceinline__ float shape_at(const MegakernelParams& p, V3 pos) const {
     ++work->shape;
-    return field_all(p.shape, mul(pos, p.cloud_shape_scale));
+    return field(p.shape, mul(pos, p.cloud_shape_scale));
   }
   __device__ __forceinline__ float detail_at(const MegakernelParams& p, V3 pos) const {
     ++work->detail;
-    return field_all(p.shape, detail_point(p, pos));
+    return field(p.shape, detail_point(p, pos));
   }
   __device__ __forceinline__ float cov(const MegakernelParams& p, float u01, V3 pos) const {
     return cov_knots.k ? cov_knots.interp(u01) : cov_at(p, pos);
@@ -1456,7 +1379,8 @@ struct Coarse {
 
 // rays, background and atmosphere of the G rows from y0 (rows and columns
 // past the launch's rows or the frame edge are computed too: they belong to
-// their tile; chained, they see no geometry).  The background is the opaque
+// their tile; chained, they see no geometry; the work counters count only
+// the launch's pixels).  The background is the opaque
 // pass (its misses sample the sky with its tile's choice when with_sky),
 // whose linear depth (before the sphere-depth blend) goes to depth when it
 // is not nullptr, or, for a chained layer, the color and linear depth of
@@ -1512,10 +1436,10 @@ __device__ __forceinline__ void shade_rows(const MegakernelParams& p, const floa
       if (h) {
         if (p.model == 1) {
           atmosphere_v1(p, ro, rd, t_begin, t_end, s.atm[r]);
-          if (work) ++n_v1;
+          if (work && in_rows) ++n_v1;
         } else {
           atmosphere_v2(p, ro, rd, t_begin, t_end, jitter, s.atm[r]);
-          if (work) ++n_atmo;
+          if (work && in_rows) ++n_atmo;
         }
       }
     }
@@ -1637,91 +1561,56 @@ __device__ __forceinline__ V3 group_knot_pos(const V3& rom, const Coarse<N>& c, 
 }
 
 // ---------------------------------------------------------------------------
-// The procedural frame kernel, register instance: one thread per column
-// and per group of at most MK_MAX_GROUP rows, the K + 1 coverage knots in
-// registers (the demo profile).
+// The cloud-free frame kernel: one thread per column and row, for a layer
+// without clouds and for the opaque-only pass.
 
-template <int K>
-__global__ void __launch_bounds__(128) megakernel(const MegakernelParams p, const TexParams sky_t,
-                                                  const float* __restrict__ blue,
-                                                  const float* __restrict__ sky_r,
-                                                  const float* __restrict__ sky_g,
-                                                  const float* __restrict__ sky_b,
-                                                  const int* __restrict__ sky_choices,
-                                                  float* __restrict__ color,
-                                                  float* __restrict__ alpha_out,
-                                                  float* __restrict__ depth,
-                                                  unsigned long long* work) {
+__global__ void __launch_bounds__(128) megakernel_clear(const MegakernelParams p,
+                                                        const TexParams sky_t,
+                                                        const float* __restrict__ blue,
+                                                        const float* __restrict__ sky_r,
+                                                        const float* __restrict__ sky_g,
+                                                        const float* __restrict__ sky_b,
+                                                        const int* __restrict__ sky_choices,
+                                                        float* __restrict__ color,
+                                                        float* __restrict__ alpha_out,
+                                                        float* __restrict__ depth,
+                                                        unsigned long long* work) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int L = p.clouds_enabled ? p.cloud_lod : 1;
-  const int C = p.clouds_enabled ? p.coverage_lod : 1;
-  const int G = L * C;
-  const int y0 = p.row0 + blockIdx.y * G;
+  const int y = p.row0 + blockIdx.y;
   const bool live = x < p.width;
 
-  // the sky's choice for the block's tile (G divides the tile height), as
-  // sky_choice_kernel wrote it
+  // the sky's choice for the block's tile, as sky_choice_kernel wrote it
   Sky sky{sky_t, sky_r, sky_g, sky_b, TexChoice{MK_WINDOWED, 0}};
   if (p.with_sky) {
-    const int tile = (blockIdx.y * G) / MK_TILE_ROWS * gridDim.x + blockIdx.x;
+    const int tile = blockIdx.y / MK_TILE_ROWS * gridDim.x + blockIdx.x;
     sky.ch = TexChoice{__ldg(sky_choices + 2 * tile), __ldg(sky_choices + 2 * tile + 1)};
   }
-  RowPix<MK_MAX_GROUP> s;
-  CoarseIn<MK_MAX_GROUP> ci;
-  unsigned n_atmo = 0, n_v1 = 0, n_groups = 0, n_march = 0, n_sun = 0, n_sky = 0;
-  if (live) shade_rows(p, blue, x, y0, G, L, s, ci, color, depth, sky, work, n_atmo, n_v1, n_sky);
-
-  Coarse<MK_MAX_GROUP> c;
-  float light_c[MK_MAX_GROUP], calpha_c[MK_MAX_GROUP];
-  for (int k = 0; k < C; ++k) light_c[k] = calpha_c[k] = 0.0f;
-  c.any_vis = false;
-  if (live && p.clouds_enabled) {
-    coarse_rays(p, L, C, ci, c);
-    if (c.any_vis) {
-      // coverage knots once per coverage group
-      const V3 rom = load3(p.ro_model);
-      float knots[K + 1];
-      float cov_max = 0.0f;
-#pragma unroll
-      for (int k = 0; k <= K; ++k) {
-        knots[k] = raw_coverage(p, group_knot_pos(rom, c, (float)((double)k / (double)K)));
-        cov_max = k == 0 ? knots[0] : fmaxf(cov_max, knots[k]);
-      }
-      ++n_groups;
-      if (cloud_may_form(p, cov_max)) {
-        const RegFields<K> fields{RegKnots<K>{knots}};
-        for (int k = 0; k < C; ++k) {
-          if (c.vis[k]) {
-            cloud_march(p, fields, c.rd_model[k], c.tb[k], c.tem[k], ci.jit_first[k], light_c[k],
-                        calpha_c[k]);
-            ++n_march;
-            if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
-          }
-        }
-      }
-    }
+  unsigned n_atmo = 0, n_v1 = 0, n_sky = 0;
+  if (live) {
+    RowPix<1> s;
+    CoarseIn<1> ci;
+    const bool no_clouds = false;
+    const float none = 0.0f;
+    shade_rows(p, blue, x, y, 1, 1, s, ci, color, depth, sky, work, n_atmo, n_v1, n_sky);
+    blend_and_store(p, x, y, 1, 1, s, &no_clouds, &none, &none, color, alpha_out);
   }
-  if (live) blend_and_store(p, x, y0, G, L, s, c.vis, light_c, calpha_c, color, alpha_out);
   if (work) {
-    count_work(work, p.with_atmosphere ? MK_WORK_PIXELS : MK_WORK_OPAQUE_PIXELS, live ? G : 0);
+    count_work(work, p.with_atmosphere ? MK_WORK_PIXELS : MK_WORK_OPAQUE_PIXELS, live ? 1 : 0);
     count_work(work, MK_WORK_ATMOSPHERE, n_atmo);
     count_work(work, MK_WORK_V1_ATMOSPHERE, n_v1);
-    count_work(work, MK_WORK_KNOT_GROUPS, n_groups);
-    count_work(work, MK_WORK_MARCH, n_march);
-    count_work(work, MK_WORK_SUN_SAMPLES, n_sun);
     count_work(work, MK_WORK_SKY, sky.ch.mode == MK_FLOOR ? 0 : n_sky);
     count_work(work, MK_WORK_SKY_FLOOR, sky.ch.mode == MK_FLOOR ? n_sky : 0);
   }
 }
 
 // ---------------------------------------------------------------------------
-// The procedural frame kernel, general instance (K1 slice (h)): every
-// procedural config the JAX megakernel renders.  One thread per column and
-// per group of G = cloud_lod * coverage_lod rows, G dividing the 32-row
-// tile.  Knots (coverage, shape, detail: any counts) live in dynamic shared
-// memory, knot-major with a stride of the block's 128 threads; a field
-// without knots is evaluated per march step and per sun sample, with every
-// noise basis and fractal (field_all).  The group's rows take two passes,
+// The procedural frame kernel (K1 slice (h)): every procedural config the
+// JAX megakernel renders.  One thread per column and per group of
+// G = cloud_lod * coverage_lod rows, G dividing the 32-row tile.  Knots
+// (coverage, shape, detail: any counts) live in dynamic shared memory,
+// knot-major with a stride of the block's 128 threads; a field without
+// knots is evaluated per march step and per sun sample, with every noise
+// basis and fractal (field).  The group's rows take two passes,
 // so that a thread holds per-row state of one row only: the first computes
 // the coarse inputs (ray, linear depth, jitter), the second shades each
 // row, blends it with its coarse pixel's clouds and stores it.
@@ -1741,8 +1630,11 @@ __global__ void __launch_bounds__(128) megakernel_gen(const __grid_constant__ Me
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int L = p.cloud_lod, C = p.coverage_lod, G = L * C;
   const int y0 = p.row0 + blockIdx.y * G;
+  const int n_rows = min(G, p.row0 + p.rows - y0);
   const bool live = x < p.width;
 
+  // the sky's choice for the block's tile (G divides the tile height), as
+  // sky_choice_kernel wrote it
   Sky sky{sky_t, sky_r, sky_g, sky_b, TexChoice{MK_WINDOWED, 0}};
   if (p.with_sky) {
     const int tile = (blockIdx.y * G) / MK_TILE_ROWS * gridDim.x + blockIdx.x;
@@ -1771,7 +1663,7 @@ __global__ void __launch_bounds__(128) megakernel_gen(const __grid_constant__ Me
       if (p.coverage_interp) {
         cov.k = kn;
         for (int k = 0; k <= cov.K; ++k) {
-          const float v = field_all(p.coverage, coverage_point(
+          const float v = field(p.coverage, coverage_point(
               p, group_knot_pos(rom, c, (float)((double)k / (double)cov.K))));
           kn[k * MK_TILE_COLS] = v;
           cov_max = k == 0 ? v : fmaxf(cov_max, v);
@@ -1785,8 +1677,8 @@ __global__ void __launch_bounds__(128) megakernel_gen(const __grid_constant__ Me
         det.k = full ? dk : nullptr;
         for (int k = 0; k <= shp.K; ++k) {
           const V3 pos = group_knot_pos(rom, c, (float)((double)k / (double)shp.K));
-          kn[k * MK_TILE_COLS] = field_all(p.shape, mul(pos, p.cloud_shape_scale));
-          if (full) dk[k * MK_TILE_COLS] = field_all(p.shape, detail_point(p, pos));
+          kn[k * MK_TILE_COLS] = field(p.shape, mul(pos, p.cloud_shape_scale));
+          if (full) dk[k * MK_TILE_COLS] = field(p.shape, detail_point(p, pos));
         }
         n_shape_knots += shp.K + 1;
         if (full) n_detail_knots += shp.K + 1;
@@ -1804,7 +1696,9 @@ __global__ void __launch_bounds__(128) megakernel_gen(const __grid_constant__ Me
         }
       }
     }
-    for (int r = 0; r < G; ++r) {
+    // the group's rows inside the launch (a partial last group's other rows
+    // only enter its coarse inputs)
+    for (int r = 0; r < n_rows; ++r) {
       RowPix<1> s;
       CoarseIn<1> unused_c;
       const int k = r / L;
@@ -1815,7 +1709,7 @@ __global__ void __launch_bounds__(128) megakernel_gen(const __grid_constant__ Me
     }
   }
   if (work) {
-    count_work(work, MK_WORK_PIXELS, live ? G : 0);
+    count_work(work, MK_WORK_PIXELS, live ? n_rows : 0);
     count_work(work, MK_WORK_ATMOSPHERE, n_atmo);
     count_work(work, MK_WORK_V1_ATMOSPHERE, n_v1);
     count_work(work, MK_WORK_KNOT_GROUPS, n_groups);
@@ -1973,7 +1867,7 @@ __global__ void __launch_bounds__(128 * (MK_TILE_ROWS / G), 1)
   }
   blend_and_store(p, x, y0, G, L, s, c.vis, light_c, calpha_c, color, alpha_out);
   if (work) {
-    count_work(work, MK_WORK_PIXELS, G);
+    count_work(work, MK_WORK_PIXELS, x < p.width ? max(0, min(G, p.row0 + p.rows - y0)) : 0);
     count_work(work, MK_WORK_ATMOSPHERE, n_atmo);
     count_work(work, MK_WORK_V1_ATMOSPHERE, n_v1);
     count_work(work, MK_WORK_KNOT_GROUPS, tile_vis ? 1 : 0);
@@ -2098,7 +1992,7 @@ extern "C" int sky_choice_launch(const MegakernelParams* params, const TexParams
   return (int)cudaGetLastError();
 }
 
-// the general instance's knot rows: coverage, shape and detail knots
+// the procedural instance's knot rows: coverage, shape and detail knots
 static int knot_rows(const MegakernelParams* p) {
   const int shape = p->shape_interp ? (p->shape_knots + 1) * (p->always_low ? 1 : 2) : 0;
   return (p->coverage_interp ? p->coverage_knots + 1 : 0) + shape;
@@ -2108,28 +2002,27 @@ extern "C" int megakernel_launch(const MegakernelParams* params, const TexParams
                                  const float* blue, const float* sky_r, const float* sky_g,
                                  const float* sky_b, const int* sky_choices, float* color,
                                  float* alpha, float* depth, void* stream, void* work) {
-  const bool general = params->clouds_enabled && params->general_instance;
-  const int G = params->clouds_enabled ? params->cloud_lod * params->coverage_lod : 1;
-  if (general ? (G < 1 || MK_TILE_ROWS % G || params->coverage_knots < 1 ||
-                 params->shape_knots < 1 || knot_rows(params) > MK_MAX_KNOT_ROWS)
-              : (params->clouds_enabled &&
-                 (params->coverage_knots != MK_KNOTS || G > MK_MAX_GROUP)))
+  const bool clouds = params->clouds_enabled && params->with_atmosphere;
+  const int G = clouds ? params->cloud_lod * params->coverage_lod : 1;
+  if (clouds && (G < 1 || MK_TILE_ROWS % G || params->coverage_knots < 1 ||
+                 params->shape_knots < 1 || knot_rows(params) > MK_MAX_KNOT_ROWS))
     return -1;
   if (!rows_ok(params)) return -1;
   if ((params->with_background || !params->with_atmosphere) && !depth) return -1;
   if (!sky_ok(params, sky, sky_r, sky_g, sky_b) ||
       (params->with_sky && (MK_TILE_ROWS % G || !sky_choices)))
     return -1;
-  // a partial last group is rendered whole (its rows past the launch are
-  // computed, not stored), as the TPU kernel pads its last 32-row tile
+  // a partial last group enters its coarse inputs whole (its rows past the
+  // launch are computed, not stored), as the TPU kernel pads its last
+  // 32-row tile
   dim3 block(MK_TILE_COLS, 1, 1);
   dim3 grid((params->width + MK_TILE_COLS - 1) / MK_TILE_COLS, (params->rows + G - 1) / G, 1);
   const TexParams sky_t = sky ? *sky : TexParams{};
   cudaStream_t s = (cudaStream_t)stream;
   unsigned long long* w = (unsigned long long*)work;
-  if (!general) {
-    megakernel<MK_KNOTS><<<grid, block, 0, s>>>(*params, sky_t, blue, sky_r, sky_g, sky_b,
-                                                sky_choices, color, alpha, depth, w);
+  if (!clouds) {
+    megakernel_clear<<<grid, block, 0, s>>>(*params, sky_t, blue, sky_r, sky_g, sky_b, sky_choices,
+                                            color, alpha, depth, w);
     return (int)cudaGetLastError();
   }
   const int smem = knot_rows(params) * MK_TILE_COLS * (int)sizeof(float);

@@ -4,7 +4,7 @@
 //   Pallas probe tools/vpu_peak.py::_run_chain (pallas_call at
 //   vpu_peak.py:86; its body _chain_kernel, :57-76)
 // PEAK_CHAINS independent register-resident chains per thread, each
-// advanced PEAK_INNER times per loop iteration: y = fmaf(y, a, b) (FFMA:
+// advanced INNER times per loop iteration: y = fmaf(y, a, b) (FFMA:
 // the fp32 peak, 2 operations per step), y = expf(-|y|) (the accurate
 // expf, as JAX's exp chain), y = __expf(-|y|) (the raw SFU rate: one
 // MUFU.EX2 and a multiply) or y = y * a + b on uint32 (IMAD: the INT32
@@ -13,7 +13,12 @@
 // a * (0.4 + 0.01 k) + b and are summed in chain order.  Plain version:
 // ops/kernels/probes.py::chains_plain.
 // What bounds it: the operations themselves, by design (no memory traffic
-// in the loop; 16 chains hide the FMA pipeline's latency).  The grid fills
+// in the loop; 16 chains hide the FMA pipeline's latency).  The loop's own
+// three instructions (add, compare, branch) take issue slots from the
+// chains: the fma and IMAD chains take PEAK_INNER_ALU = 64 steps per
+// iteration (3 instructions to 1,024, 0.3 %), the exp chains PEAK_INNER_SFU
+// = 8 (the SFU, not issue, bounds them; a longer body would only grow the
+// code past the instruction cache).  The grid fills
 // every SM several times over and the loop runs tens of ms, so the ctypes
 // launch interval is under 1 % of the time.
 //
@@ -66,7 +71,8 @@ extern "C" int fill_launch(float value, float* out, int height, int width, void*
 // T2: the peak probe
 
 #define PEAK_CHAINS 16
-#define PEAK_INNER 8
+#define PEAK_INNER_ALU 64
+#define PEAK_INNER_SFU 8
 #define PEAK_PLANE 2048
 #define PEAK_THREADS 256
 
@@ -74,6 +80,7 @@ template <int OP>
 __global__ void __launch_bounds__(PEAK_THREADS)
     peak_kernel(const float* __restrict__ a_in, const float* __restrict__ b_in, int iters,
                 float* __restrict__ out) {
+  constexpr int INNER = (OP == 0 || OP == 3) ? PEAK_INNER_ALU : PEAK_INNER_SFU;
   const int i = blockIdx.x * PEAK_THREADS + threadIdx.x;
   const float a = a_in[i % PEAK_PLANE], b = b_in[i % PEAK_PLANE];
   if (OP == 3) {
@@ -83,7 +90,7 @@ __global__ void __launch_bounds__(PEAK_THREADS)
     for (int k = 0; k < PEAK_CHAINS; ++k) y[k] = ua * (uint32_t)(k + 1) + ub;
     for (int it = 0; it < iters; ++it) {
 #pragma unroll
-      for (int j = 0; j < PEAK_INNER; ++j) {
+      for (int j = 0; j < INNER; ++j) {
 #pragma unroll
         for (int k = 0; k < PEAK_CHAINS; ++k) y[k] = y[k] * ua + ub;
       }
@@ -99,7 +106,7 @@ __global__ void __launch_bounds__(PEAK_THREADS)
   for (int k = 0; k < PEAK_CHAINS; ++k) y[k] = __fadd_rn(__fmul_rn(a, (float)(0.4 + 0.01 * k)), b);
   for (int it = 0; it < iters; ++it) {
 #pragma unroll
-    for (int j = 0; j < PEAK_INNER; ++j) {
+    for (int j = 0; j < INNER; ++j) {
 #pragma unroll
       for (int k = 0; k < PEAK_CHAINS; ++k) {
         if (OP == 0) y[k] = fmaf(y[k], a, b);

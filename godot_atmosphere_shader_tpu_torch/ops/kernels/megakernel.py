@@ -10,14 +10,13 @@ atmosphere (analytic sun optical depth), the cloud march with cheap or
 sun-marched light, and the composite; or the opaque pass alone.  The
 launch that runs the opaque pass draws the panorama sky (three channel
 pyramids sampled by K2's lat-long device functions, one level and mode per
-32×128 tile of rays; the procedural instance reads them from a per-tile
-pre-pass, :func:`sky_choices`) where a scene has one.  It has three
-instances: the register instance for the demo profile's procedural fields
-(8 coverage knots in registers), the general procedural instance for every
-other procedural config the JAX megakernel renders (every basis and
-fractal, fields per step or from knots in shared memory, the detail field,
-LOD groups up to 32 rows; :func:`register_instance` picks), and texture
-mode (baked textures sampled through mip pyramids by the K2 device
+32×128 tile of rays; the procedural and cloud-free instances read them
+from a per-tile pre-pass, :func:`sky_choices`) where a scene has one.  It
+has three instances: the procedural instance for every procedural config
+the JAX megakernel renders (every basis and fractal, fields per step or
+from knots in shared memory, the detail field, LOD groups up to 32 rows),
+the cloud-free instance (layers without clouds, the opaque-only pass) and
+texture mode (baked textures sampled through mip pyramids by the K2 device
 functions, one thread block per 32×128 tile).
 
 * :func:`render_scene_megakernel` renders a frame of any number of layers
@@ -88,13 +87,12 @@ SOURCE = os.path.join(library.CSRC, "megakernel.cu")
 MAX_SPHERES = 8
 MAX_BOXES = 4
 MAX_OCTAVES = 8
-#: rows per thread of the register instance and the texture instance's
-#: knots per batch
+#: the texture instance's rows per thread and knots per batch
 MAX_GROUP = 8
 QUAD_POINTS = 8
-#: the register instance's coverage knot count (template parameter K)
+#: the texture instance's coverage knot count (template parameter K)
 KNOTS = 8
-#: the general instance's knot rows in shared memory (coverage, shape and
+#: the procedural instance's knot rows in shared memory (coverage, shape and
 #: detail knots of a block's 128 threads: 448 × 512 B fits 227 KB)
 MAX_KNOT_ROWS = 448
 #: texture mode: the shape knot count it is built for, pyramid levels and
@@ -106,7 +104,7 @@ WINDOWED, BANDED, FLOOR = texsample.WINDOWED, texsample.BANDED, texsample.FLOOR
 #: texture mode's rows per thread, cloud_lod·cloud_coverage_lod (a block
 #: of 128 × 32 / G threads must fit 1024)
 TEXTURE_GROUPS = (4, 8)
-#: work counter slots, in the kernel's order (``MK_WORK_*``); the general
+#: work counter slots, in the kernel's order (``MK_WORK_*``); the procedural
 #: instance also counts its procedural field evaluations: coverage per step
 #: and per sun sample, shape and detail per step and per sun sample, and the
 #: shape and detail knots
@@ -122,15 +120,12 @@ NOISE_TYPES = {"value": 0, "simplex_smooth": 1, "perlin": 2, "simplex": 3, "cell
                "cellular_fast": 5}
 FRACTAL_TYPES = {"none": 0, "fbm": 1, "ridged": 2, "ping_pong": 3}
 CELLULAR_RETURNS = {"distance": 0, "distance2": 1, "cell_value": 2}
-#: what the register instance's noise takes (the demo profile's fields)
-REGISTER_NOISE_TYPES = ("value", "simplex_smooth")
-REGISTER_FRACTAL_TYPES = ("none", "fbm", "ridged")
 
 
 class Counters:
     """Plain integer counters: frame-kernel launches (every instance, every
-    layer and the opaque-only pass; ``general_launches`` counts the general
-    procedural instance alone, ``texture_launches`` the texture instance,
+    layer and the opaque-only pass; ``general_launches`` counts the
+    procedural instance ``megakernel_gen`` alone, ``texture_launches`` the texture instance,
     ``sky_launches`` the launches that draw the panorama sky), launches of
     the sky's per-tile choice pre-pass, of the K2-alone entry, and
     plain-path frames (one per frame, whatever its layers)."""
@@ -239,7 +234,6 @@ class MegakernelParams(ctypes.Structure):
         ("cloud_lod", ctypes.c_int),
         ("coverage_lod", ctypes.c_int),
         ("coverage_knots", ctypes.c_int),
-        ("general_instance", ctypes.c_int),
         ("coverage_interp", ctypes.c_int),
         ("shape_interp", ctypes.c_int),
         ("shape_knots", ctypes.c_int),
@@ -386,29 +380,11 @@ def _procedural_problems(config: VariantConfig):
 
 
 def knot_rows(config: VariantConfig) -> int:
-    """The general instance's knot rows: coverage, shape and detail knots
+    """The procedural instance's knot rows: coverage, shape and detail knots
     (each ``max(K, 1) + 1``) where interpolated."""
     cov = max(config.cloud_coverage_knots, 1) + 1 if config.cloud_coverage_interp else 0
     shape = max(config.cloud_shape_knots, 1) + 1 if config.cloud_shape_interp else 0
     return cov + shape * (1 if config.clouds_always_low_quality else 2)
-
-
-def register_instance(config: VariantConfig) -> bool:
-    """Whether a procedural config takes the register instance
-    ``megakernel<8>`` (the demo profile: K = 8 coverage knots in
-    registers, the shape per step, always-low density, a group of at most
-    8 rows, value or simplex-smooth fields under none, fbm or ridged,
-    unweighted); every other procedural config takes the general
-    instance (knots in shared memory)."""
-    if not config.clouds_enabled:
-        return True
-    fields = (config.cloud_shape_noise, config.cloud_coverage_noise)
-    return (config.cloud_coverage_interp and config.cloud_coverage_knots == KNOTS
-            and not config.cloud_shape_interp and config.clouds_always_low_quality
-            and config.cloud_lod * config.cloud_coverage_lod <= MAX_GROUP
-            and all(f is not None and f.noise.noise_type in REGISTER_NOISE_TYPES
-                    and f.noise.fractal_type in REGISTER_FRACTAL_TYPES
-                    and not f.noise.weighted_strength for f in fields))
 
 
 def _texture_problems(config: VariantConfig):
@@ -589,7 +565,6 @@ def frame_constants(params: AtmosphereParams, config: VariantConfig,
         s.cloud_lod = config.cloud_lod
         s.coverage_lod = config.cloud_coverage_lod
         s.coverage_knots = max(config.cloud_coverage_knots, 1)
-        s.general_instance = int(not texture_mode(config) and not register_instance(config))
         s.coverage_interp = int(config.cloud_coverage_interp)
         s.shape_interp = int(config.cloud_shape_interp)
         s.shape_knots = max(config.cloud_shape_knots, 1)
@@ -811,7 +786,7 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {rc}")
     counters.megakernel_launches += 1
-    if struct.clouds_enabled and struct.general_instance:
+    if tex is None and struct.clouds_enabled and struct.with_atmosphere:
         counters.general_launches += 1
     if tex is not None:
         counters.texture_launches += 1

@@ -32,9 +32,11 @@ PEAK_ARGTYPES = (ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, c
                  ctypes.c_void_p, ctypes.c_void_p)
 #: the peak probe's chain operations, by their codes in ``peak_launch``
 PEAK_OPS = {"fma": 0, "exp": 1, "fast_exp": 2, "imad": 3}
-#: its shape: chains per thread, steps per chain and loop iteration, the
-#: (16, 128) plane of a and b, threads per block (``PEAK_*`` in probes.cu)
-PEAK_CHAINS, PEAK_INNER, PEAK_PLANE, PEAK_THREADS = 16, 8, 2048, 256
+#: its shape: chains per thread, the (16, 128) plane of a and b, threads
+#: per block, and each op's steps per chain and loop iteration (``PEAK_*``
+#: in probes.cu)
+PEAK_CHAINS, PEAK_PLANE, PEAK_THREADS = 16, 2048, 256
+PEAK_INNER = {"fma": 64, "exp": 8, "fast_exp": 8, "imad": 64}
 
 
 class Counters:
@@ -91,26 +93,29 @@ def fill(value: float, height: int, width: int, *, device="cuda") -> torch.Tenso
 def chains_plain(a: torch.Tensor, b: torch.Tensor, op: str, iters: int) -> torch.Tensor:
     """The peak probe's chains for one thread per element of the (2048,)
     float32 planes ``a`` and ``b`` (the kernel's thread ``i`` takes element
-    ``i % 2048``), ``iters · PEAK_INNER`` steps each: the sum over the
-    chains, as the kernel writes it (``imad``: the uint32 sum >> 8)."""
+    ``i % 2048``), ``iters · PEAK_INNER[op]`` steps each: the sum over the
+    chains, as the kernel writes it (``imad``: the uint32 sum >> 8).  The
+    chains are advanced together, one ``(PEAK_CHAINS, 2048)`` tensor per
+    step."""
     if op not in PEAK_OPS:
         raise ValueError(f"op must be one of {sorted(PEAK_OPS)}")
-    steps = iters * PEAK_INNER
+    steps = iters * PEAK_INNER[op]
+    k = torch.arange(PEAK_CHAINS, device=a.device)[:, None]
     if op == "imad":
         ua = (a.view(torch.int32).to(torch.int64) & _MASK32) | 1
         ub = b.view(torch.int32).to(torch.int64) & _MASK32
-        ys = [(_mul32(ua, torch.full_like(ua, k + 1)) + ub) & _MASK32
-              for k in range(PEAK_CHAINS)]
+        ys = (_mul32(ua, k + 1) + ub) & _MASK32
         for _ in range(steps):
-            ys = [(_mul32(y, ua) + ub) & _MASK32 for y in ys]
-        acc = sum(ys) & _MASK32
-        return (acc >> 8).to(torch.float32)
-    ys = [a * (0.4 + 0.01 * k) + b for k in range(PEAK_CHAINS)]
+            ys = (_mul32(ys, ua) + ub) & _MASK32
+        return ((ys.sum(0) & _MASK32) >> 8).to(torch.float32)
+    coef = torch.tensor([0.4 + 0.01 * j for j in range(PEAK_CHAINS)], dtype=torch.float32,
+                        device=a.device)[:, None]
+    ys = a * coef + b
     for _ in range(steps):
-        ys = [y * a + b if op == "fma" else torch.exp(-y.abs()) for y in ys]
+        ys = ys * a + b if op == "fma" else torch.exp(-ys.abs())
     acc = ys[0]
-    for y in ys[1:]:
-        acc = acc + y
+    for j in range(1, PEAK_CHAINS):
+        acc = acc + ys[j]
     return acc
 
 

@@ -615,7 +615,7 @@ def test_card_refuses_configs_outside_the_kernel(cuda, baked, change):
                                    scene.opaque, H, W, tex_data=tex)
 
 
-# -- K1 slice (h): the procedural envelope, the general instance -------------------
+# -- K1 slice (h): the procedural envelope, the procedural instance ----------------
 
 
 def _field(field, **kw):
@@ -661,7 +661,7 @@ def _envelope(case):
                                   "cellular_cell_value_shape", "ping_pong_weighted",
                                   "coverage_k16", "shape_knots_32", "group_32"])
 def test_general_instance_matches_plain(cuda, case):
-    """Scene.render of an envelope config through the general instance (one
+    """Scene.render of an envelope config through the procedural instance (one
     K1 launch, no plain call) against the plain version on the same CUDA
     inputs: the cloud tolerance, p99 in place of p99.9 at full quality (the
     detail field: one ulp of a position moves a pixel by ~1e-3)."""

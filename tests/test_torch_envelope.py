@@ -193,8 +193,7 @@ def test_detail_field_is_ill_conditioned():
 def test_launch_structs_carry_the_envelope():
     """What ``frame_constants`` sets for the kernel: the noise codes, the
     ping-pong and weighted strengths, the cellular settings, the detail
-    term (0 at full quality), the time, the knot counts and flags, and the
-    instance (the register instance takes the demo profile alone)."""
+    term (0 at full quality), the time, the knot counts and flags."""
     scene = tdemo.build_demo_scene("clouds", device="cpu")
     cam = tdemo.demo_camera("avatar", device="cpu")
     scene.update(0.75, cam)
@@ -206,34 +205,33 @@ def test_launch_structs_carry_the_envelope():
         return mk.frame_constants(params[0], cfg, cam, scene.opaque, H, W)
 
     demo = mk.frame_constants(params[0], configs[0], cam, scene.opaque, H, W)
-    assert (demo.general_instance, demo.coverage_interp, demo.shape_interp,
-            demo.always_low) == (0, 1, 0, 1)
+    assert (demo.coverage_interp, demo.shape_interp, demo.always_low) == (1, 0, 1)
     assert demo.cloud_detail_term == pytest.approx(0.1)
     time = float(params[0].resolve_frame_state().time)
     assert time > 0.0 and demo.time == pytest.approx(time)
     s = struct("detail_knots")
-    assert (s.general_instance, s.always_low, s.shape_interp, s.shape_knots) == (1, 0, 1, 8)
+    assert (s.always_low, s.shape_interp, s.shape_knots) == (0, 1, 8)
     assert s.cloud_detail_term == 0.0 and s.time == pytest.approx(time)
     s = struct("tscn_profile")
     assert (s.shape.noise_type, s.shape.fractal_type, s.shape.octaves) == (
         mk.NOISE_TYPES["cellular"], mk.FRACTAL_TYPES["ridged"], 8)
     assert (s.shape.cellular_return, s.shape.cellular_jitter) == (
         mk.CELLULAR_RETURNS["distance"], 1.0)
-    assert (s.general_instance, s.coverage_knots, s.cloud_lod, s.coverage_lod) == (1, 8, 1, 1)
+    assert (s.coverage_knots, s.cloud_lod, s.coverage_lod) == (8, 1, 1)
     s = struct("ping_pong_coverage")
     assert s.coverage.fractal_type == mk.FRACTAL_TYPES["ping_pong"]
     assert (s.coverage.ping_pong_strength, s.coverage.weighted_strength) == (2.0, 0.5)
     assert s.coverage.gain == 0.5
     s = struct("cellular_tier")
-    assert (s.shape.noise_type, s.general_instance) == (mk.NOISE_TYPES["cellular_fast"], 1)
+    assert s.shape.noise_type == mk.NOISE_TYPES["cellular_fast"]
     assert struct("perlin_coverage").coverage.noise_type == mk.NOISE_TYPES["perlin"]
     assert struct("simplex_coverage").coverage.noise_type == mk.NOISE_TYPES["simplex"]
     assert struct("coverage_k16").coverage_knots == 16
     s = struct("group_16")
-    assert (s.cloud_lod * s.coverage_lod, s.general_instance) == (16, 1)
+    assert s.cloud_lod * s.coverage_lod == 16
     s = mk.frame_constants(params[0], dataclasses.replace(configs[0], cloud_coverage_interp=False),
                            cam, scene.opaque, H, W)
-    assert (s.coverage_interp, s.general_instance) == (0, 1)
+    assert s.coverage_interp == 0
 
 
 @pytest.mark.parametrize("case", list(ALL_CASES) + ["cellular_demo_variant"])

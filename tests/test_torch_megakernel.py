@@ -142,15 +142,15 @@ def test_wrapper_rejects_unsupported_config(clouds_high, change):
 ])
 def test_general_instance_takes_the_procedural_envelope(clouds_high, change):
     """Every procedural config the JAX megakernel renders passes
-    ``check_config``; all but the demo profile (and its hat-sum twin) take
-    the general instance."""
+    ``check_config`` and takes the procedural instance, not the texture
+    instance."""
     cfg = dataclasses.replace(clouds_high[1][1], **change)
     mk.check_config(cfg)
-    assert mk.register_instance(cfg) == (change == dict(knot_dynamic=False))
+    assert not mk.texture_mode(cfg)
 
 
 def test_knot_rows_have_a_limit(clouds_high):
-    """The general instance's knots live in shared memory: coverage, shape
+    """The procedural instance's knots live in shared memory: coverage, shape
     and detail knots (+1 each) fit MAX_KNOT_ROWS rows of a block."""
     cfg = dataclasses.replace(clouds_high[1][1], cloud_shape_interp=True,
                               clouds_always_low_quality=False, cloud_shape_knots=210,
@@ -183,7 +183,7 @@ def test_demo_profile_is_in_the_kernel_slice():
     for variant in ("no_clouds", "clouds", "clouds_high", "clouds_high_rm", "v1_no_clouds",
                     "v1_clouds", "v1_clouds_high"):
         mk.check_config(demo_variant(variant))
-        assert mk.register_instance(demo_variant(variant))
+        assert not mk.texture_mode(demo_variant(variant))
         mk.check_config(demo_variant(variant, shape_basis="cellular"))
 
 

@@ -74,9 +74,9 @@ def test_scene_render_beyond_the_kernel_matches_jax(case):
     if case == "texture_12":  # outside the kernel's envelope: the card refuses it
         with pytest.raises(ValueError):
             mk.check_config(config)
-    else:  # the general instance renders it
+    else:  # the procedural instance renders it
         mk.check_config(config)
-        assert not mk.register_instance(config) or case == "hat_sum_knots"
+        assert not mk.texture_mode(config)
     assert tex is None  # no pyramids: the texture case is sampled exactly
     mk.counters.reset()
     got = _image({k: v.numpy() for k, v in scene.render(cam, H, W).items()})

@@ -40,7 +40,7 @@ def test_plain_chains_match_the_tpu_probe_body(op, atol, iters):
     an add on both sides), exp to a few ulps of the 16-chain sum (≈9.1,
     ulp 9.5e-7: numpy's and PyTorch's exp round some chains differently)."""
     a, b = _planes()
-    ref = _chain_kernel(a, b, op, iters * probes.PEAK_INNER)
+    ref = _chain_kernel(a, b, op, iters * probes.PEAK_INNER[op])
     got = probes.chains_plain(torch.from_numpy(a), torch.from_numpy(b), op, iters)
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=atol)
 
@@ -50,7 +50,7 @@ def test_plain_imad_chain_matches_uint32_arithmetic():
     ua = (a.view(np.uint32) | 1).astype(np.uint64)
     ub = b.view(np.uint32).astype(np.uint64)
     ys = [(ua * (k + 1) + ub) % 2**32 for k in range(probes.PEAK_CHAINS)]
-    for _ in range(3 * probes.PEAK_INNER):
+    for _ in range(3 * probes.PEAK_INNER["imad"]):
         ys = [(y * ua + ub) % 2**32 for y in ys]
     want = ((sum(ys) % 2**32) >> 8).astype(np.float32)
     got = probes.chains_plain(torch.from_numpy(a), torch.from_numpy(b), "imad", 3)
