@@ -176,6 +176,7 @@ line.  Run from the repository root: ``python3 chip_smoke.py``
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -190,6 +191,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SIG_PATH = os.path.join(ROOT, "tests", "golden_1080p_sig.npz")
 ALLON_SIG_PATH = os.path.join(ROOT, "tests", "golden_allon_sig.npz")
 SIG_BLOCK = (8, 128)
+TILE = 32  # rows of the kernel's tile
 SIG_MEAN_TOL = 3e-3
 SIG_MAX_TOL = 3e-2
 CHECK_SIZE = (256, 384)
@@ -1562,6 +1564,66 @@ def envelope_timing(scene, cam, h: int, w: int, device, check: dict) -> dict:
     return t
 
 
+# -- the procedural instance per stage --------------------------------------------
+
+
+def lane_utilisation(work: dict):
+    """The march's lane utilisation: lane-steps over 32 × warp-steps."""
+    warp = work["march_warp_steps"]
+    return work["march_lane_steps"] / (32.0 * warp) if warp else None
+
+
+def gen_instances(struct) -> dict:
+    """What each instance of the procedural kernel uses on this card
+    (``mk.gen_info``) for ``struct`` with C coarse pixels per thread, each C
+    the launcher takes, at L = min(cloud_lod, 32 / C) rows per coarse pixel."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    out = {}
+    for c in mk.GEN_COARSE:
+        st = mk.MegakernelParams.from_buffer_copy(struct)
+        st.coverage_lod, st.cloud_lod = c, min(struct.cloud_lod, TILE // c)
+        out[f"C={c} L={st.cloud_lod}"] = mk.gen_info(st)
+    return out
+
+
+def stage_split(plan, scene, cam, h: int, w: int, device, measure_path: str) -> list:
+    """Phase 5f for one frame: each launch of the procedural instance in the
+    frame's plan with what its instance uses (``mk.gen_info``), the march's
+    lane utilisation (normal build) and its cycles per stage, summed over
+    warps (the measurement build, whose work counts must equal the normal
+    build's); the other launches run once for the planes they write."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    params, configs, tex, bands, rows = plan
+    pano_data, pano_meta = scene._pano_plan() or (None, None)
+    launches = mk.scene_launches(params, configs, cam, scene.opaque, h, w, tex_data=tex,
+                                 bands=bands, band_rows=rows, pano_data=pano_data,
+                                 pano_meta=pano_meta)
+    color = torch.empty((h, w, 3), device=device)
+    alpha = torch.empty((h, w), device=device)
+    depth = torch.empty((h, w), device=device)
+    out = []
+    for kind, struct, args in launches:
+        if args["tex"] is not None or not (struct.clouds_enabled and struct.with_atmosphere):
+            mk.launch(struct, color, alpha, depth=depth, **args)
+            continue
+        work = mk.work_counts(struct, color, alpha, depth=depth, **args)
+        with mk.use_library(measure_path):
+            measured = mk.work_counts(struct, color, alpha, depth=depth, stages=True, **args)
+        if any(measured[k] != work[k] for k in mk.WORK_SLOTS):
+            raise RuntimeError(f"the measurement build's work counts differ: {measured} {work}")
+        cycles = {k: measured[f"stage_{k}_cycles"] for k in mk.STAGE_SLOTS}
+        total = sum(cycles.values())
+        out.append({"kind": kind, "row0": struct.row0, "rows": struct.rows,
+                    **mk.gen_info(struct), "march": work["march"],
+                    "march_warp_steps": work["march_warp_steps"],
+                    "march_lane_steps": work["march_lane_steps"],
+                    "lane_utilisation": lane_utilisation(work), "stage_cycles": cycles,
+                    "stage_share": {k: v / total for k, v in cycles.items()} if total else None})
+    return out
+
+
 # -- T2: the card's arithmetic ceilings ---------------------------------------------
 
 
@@ -1671,8 +1733,12 @@ def main(argv=None) -> int:
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.time()
-    path, ptxas = library.build(ptxas_info=True)
-    log(f"[build] {os.path.relpath(path, ROOT)} in {time.time() - t0:.1f} s")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:  # both builds' nvcc at once
+        measure = pool.submit(library.build, sources=(mk.SOURCE,), defines=mk.MEASURE_DEFINES)
+        path, ptxas = library.build(ptxas_info=True)
+        measure_path = measure.result()[0]
+    log(f"[build] {os.path.relpath(path, ROOT)} and the measurement build "
+        f"{os.path.relpath(measure_path, ROOT)} in {time.time() - t0:.1f} s")
     for line in ptxas.splitlines():
         if any(k in line for k in ("Compiling entry", "registers", "spill", "stack", "smem")):
             log(f"[ptxas] {line.strip()}")
@@ -2350,6 +2416,26 @@ def main(argv=None) -> int:
         env_t[name] = envelope_timing(scene, cam, H, W, device, env_check[name])
         log(f"[envelope-time] {name} 1080p on {card}: {json.dumps(env_t[name])}")
     log(f"[envelope-time] after timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+
+    # -- 5f. the procedural instance per stage: what each instance uses, the
+    # march's lane utilisation and the measurement build's cycles per stage --
+    scene, cam = scene_and_camera("clouds_high", "avatar", device)
+    instances = gen_instances(mk.frame_constants(*frame_inputs(scene, cam)[0], H, W))
+    log(f"[stages] the procedural instances on {card}: {json.dumps(instances)}")
+    stage_frames = {}
+    for label in ("clouds_high/avatar", "clouds_high/interior", "clouds/avatar"):
+        scene, cam = scene_and_camera(*label.split("/"), device)
+        stage_frames[label] = (scene, cam, scene_plan(scene, cam, H), H, W)
+    scene, cam, plan, _ = sky_runs["clouds_high/sunward"]
+    stage_frames["clouds_high/sunward with the sky"] = (scene, cam, plan, H, W)
+    kind, scene, cam, ch, cw, plan = cells["5"]
+    stage_frames["cell 5"] = (scene, cam, plan, ch, cw)
+    for name, (scene, cam, _) in env_runs.items():
+        stage_frames[name] = (scene, cam, scene_plan(scene, cam, H), H, W)
+    stages = {}
+    for label, (scene, cam, plan, fh, fw) in stage_frames.items():
+        stages[label] = stage_split(plan, scene, cam, fh, fw, device, measure_path)
+        log(f"[stages] {label} {fh}x{fw} on {card}: {json.dumps(stages[label])}")
 
     # -- 6. the flight slice at 1080p through Scene.render_flight ----------------
     K = FLIGHT_FRAMES

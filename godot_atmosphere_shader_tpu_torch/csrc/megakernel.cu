@@ -170,7 +170,19 @@ constexpr int MK_SKY_CHOICE_RAYS = MK_TILE_ROWS / MK_SKY_CHOICE_THREADS_Y;
 #define MK_WORK_DETAIL_EVALS 15
 #define MK_WORK_SHAPE_KNOTS 16
 #define MK_WORK_DETAIL_KNOTS 17
-#define MK_WORK_SLOTS 18
+// the procedural instance's march lanes: warp-steps issued and the lanes'
+// steps (their ratio over 32 is the march's lane utilisation)
+#define MK_WORK_MARCH_WARP_STEPS 18
+#define MK_WORK_MARCH_LANE_STEPS 19
+#define MK_WORK_SLOTS 20
+// The measurement build (-DMK_STAGE_CLOCKS) adds the procedural instance's
+// cycles per stage, summed over warps, after the work slots
+// (megakernel.py STAGE_SLOTS); the normal build never writes them.
+#define MK_STAGE_COARSE 0
+#define MK_STAGE_KNOTS 1
+#define MK_STAGE_MARCH 2
+#define MK_STAGE_BLEND 3
+#define MK_STAGES 4
 #define MK_SUN_STEPS 6  // raymarched lighting's sun march
 
 // ---------------------------------------------------------------------------
@@ -1553,6 +1565,35 @@ __device__ __forceinline__ void count_work(unsigned long long* work, int slot, u
   if ((threadIdx.x & 31) == 0 && total) atomicAdd(work + slot, (unsigned long long)total);
 }
 
+// The procedural instance's cycles per stage in the measurement build
+// (-DMK_STAGE_CLOCKS): each mark, at a point every lane of the warp
+// reaches, adds the warp's clock64 since the last mark to its stage; count
+// adds lane 0's sums after the work slots.  Empty in the normal build.
+struct StageClock {
+#ifdef MK_STAGE_CLOCKS
+  long long t;
+  unsigned long long c[MK_STAGES];
+  __device__ __forceinline__ StageClock() : t(clock64()) {
+#pragma unroll
+    for (int s = 0; s < MK_STAGES; ++s) c[s] = 0ull;
+  }
+  __device__ __forceinline__ void mark(int stage) {
+    __syncwarp();
+    const long long now = clock64();
+    c[stage] += (unsigned long long)(now - t);
+    t = now;
+  }
+  __device__ __forceinline__ void count(unsigned long long* work) const {
+    if (!work || (threadIdx.x & 31)) return;
+#pragma unroll
+    for (int s = 0; s < MK_STAGES; ++s) atomicAdd(work + MK_WORK_SLOTS + s, c[s]);
+  }
+#else
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void count(unsigned long long*) const {}
+#endif
+};
+
 // the knot position of a coverage group at s in [0, 1], as the plain
 // version computes it: ro + rk * lerp(t0k, t1k, s)
 template <int N>
@@ -1641,61 +1682,67 @@ __global__ void __launch_bounds__(128) megakernel_gen(const __grid_constant__ Me
     sky.ch = TexChoice{__ldg(sky_choices + 2 * tile), __ldg(sky_choices + 2 * tile + 1)};
   }
   unsigned n_atmo = 0, n_v1 = 0, n_groups = 0, n_march = 0, n_sun = 0, n_sky = 0;
-  unsigned n_shape_knots = 0, n_detail_knots = 0;
+  unsigned n_shape_knots = 0, n_detail_knots = 0, marched = 0;
   FieldWork fw{0u, 0u, 0u};
+  StageClock clk;
   Coarse<MK_TILE_ROWS> c;
+  CoarseIn<MK_TILE_ROWS> ci;
   float light_c[MK_TILE_ROWS], calpha_c[MK_TILE_ROWS];
   for (int k = 0; k < C; ++k) light_c[k] = calpha_c[k] = 0.0f;
   c.any_vis = false;
   if (live) {
     RowPix<1> unused;
-    CoarseIn<MK_TILE_ROWS> ci;
     shade_rows<1, MK_TILE_ROWS, false>(p, blue, x, y0, G, L, unused, ci, color, depth, sky, work,
                                        n_atmo, n_v1, n_sky);
     coarse_rays(p, L, C, ci, c);
-    if (c.any_vis) {
-      const V3 rom = load3(p.ro_model);
-      const bool full = !p.always_low;
-      float* kn = knot_smem + threadIdx.x;
-      GenKnots cov{nullptr, p.coverage_knots}, shp{nullptr, p.shape_knots},
-          det{nullptr, p.shape_knots};
-      float cov_max = 0.0f;
-      if (p.coverage_interp) {
-        cov.k = kn;
-        for (int k = 0; k <= cov.K; ++k) {
-          const float v = field(p.coverage, coverage_point(
-              p, group_knot_pos(rom, c, (float)((double)k / (double)cov.K))));
-          kn[k * MK_TILE_COLS] = v;
-          cov_max = k == 0 ? v : fmaxf(cov_max, v);
-        }
-        kn += (cov.K + 1) * MK_TILE_COLS;
-        ++n_groups;
+  }
+  clk.mark(MK_STAGE_COARSE);
+  const V3 rom = load3(p.ro_model);
+  const bool full = !p.always_low;
+  float* kn = knot_smem + threadIdx.x;
+  GenKnots cov{nullptr, p.coverage_knots}, shp{nullptr, p.shape_knots}, det{nullptr, p.shape_knots};
+  float cov_max = 0.0f;
+  if (live && c.any_vis) {
+    if (p.coverage_interp) {
+      cov.k = kn;
+      for (int k = 0; k <= cov.K; ++k) {
+        const float v = field(p.coverage, coverage_point(
+            p, group_knot_pos(rom, c, (float)((double)k / (double)cov.K))));
+        kn[k * MK_TILE_COLS] = v;
+        cov_max = k == 0 ? v : fmaxf(cov_max, v);
       }
-      if (p.shape_interp) {
-        float* dk = kn + (shp.K + 1) * MK_TILE_COLS;
-        shp.k = kn;
-        det.k = full ? dk : nullptr;
-        for (int k = 0; k <= shp.K; ++k) {
-          const V3 pos = group_knot_pos(rom, c, (float)((double)k / (double)shp.K));
-          kn[k * MK_TILE_COLS] = field(p.shape, mul(pos, p.cloud_shape_scale));
-          if (full) dk[k * MK_TILE_COLS] = field(p.shape, detail_point(p, pos));
-        }
-        n_shape_knots += shp.K + 1;
-        if (full) n_detail_knots += shp.K + 1;
+      kn += (cov.K + 1) * MK_TILE_COLS;
+      ++n_groups;
+    }
+    if (p.shape_interp) {
+      float* dk = kn + (shp.K + 1) * MK_TILE_COLS;
+      shp.k = kn;
+      det.k = full ? dk : nullptr;
+      for (int k = 0; k <= shp.K; ++k) {
+        const V3 pos = group_knot_pos(rom, c, (float)((double)k / (double)shp.K));
+        kn[k * MK_TILE_COLS] = field(p.shape, mul(pos, p.cloud_shape_scale));
+        if (full) dk[k * MK_TILE_COLS] = field(p.shape, detail_point(p, pos));
       }
-      // no coverage knots, no bound: every visible coarse pixel marches
-      if (!p.coverage_interp || cloud_may_form(p, cov_max)) {
-        const GenFields fields{cov, shp, det, full, &fw};
-        for (int k = 0; k < C; ++k) {
-          if (c.vis[k]) {
-            cloud_march(p, fields, c.rd_model[k], c.tb[k], c.tem[k], ci.jit_first[k], light_c[k],
-                        calpha_c[k]);
-            ++n_march;
-            if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
-          }
-        }
+      n_shape_knots += shp.K + 1;
+      if (full) n_detail_knots += shp.K + 1;
+    }
+  }
+  clk.mark(MK_STAGE_KNOTS);
+  // no coverage knots, no bound: every visible coarse pixel marches
+  if (live && c.any_vis && (!p.coverage_interp || cloud_may_form(p, cov_max))) {
+    const GenFields fields{cov, shp, det, full, &fw};
+    for (int k = 0; k < C; ++k) {
+      if (c.vis[k]) {
+        cloud_march(p, fields, c.rd_model[k], c.tb[k], c.tem[k], ci.jit_first[k], light_c[k],
+                    calpha_c[k]);
+        ++n_march;
+        marched |= 1u << k;
+        if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
       }
     }
+  }
+  clk.mark(MK_STAGE_MARCH);
+  if (live) {
     // the group's rows inside the launch (a partial last group's other rows
     // only enter its coarse inputs)
     for (int r = 0; r < n_rows; ++r) {
@@ -1708,6 +1755,7 @@ __global__ void __launch_bounds__(128) megakernel_gen(const __grid_constant__ Me
                       alpha_out);
     }
   }
+  clk.mark(MK_STAGE_BLEND);
   if (work) {
     count_work(work, MK_WORK_PIXELS, live ? n_rows : 0);
     count_work(work, MK_WORK_ATMOSPHERE, n_atmo);
@@ -1722,7 +1770,13 @@ __global__ void __launch_bounds__(128) megakernel_gen(const __grid_constant__ Me
     count_work(work, MK_WORK_DETAIL_EVALS, fw.detail);
     count_work(work, MK_WORK_SHAPE_KNOTS, n_shape_knots);
     count_work(work, MK_WORK_DETAIL_KNOTS, n_detail_knots);
+    // the warp issues march k where any lane marches it
+    const unsigned issued = __popc(__reduce_or_sync(0xffffffffu, marched));
+    count_work(work, MK_WORK_MARCH_WARP_STEPS,
+               (threadIdx.x & 31) ? 0u : issued * (unsigned)p.cloud_steps);
+    count_work(work, MK_WORK_MARCH_LANE_STEPS, n_march * (unsigned)p.cloud_steps);
   }
+  clk.count(work);
 }
 
 // ---------------------------------------------------------------------------
@@ -2034,6 +2088,26 @@ extern "C" int megakernel_launch(const MegakernelParams* params, const TexParams
   megakernel_gen<<<grid, block, smem, s>>>(*params, sky_t, blue, sky_r, sky_g, sky_b, sky_choices,
                                            color, alpha, depth, w);
   return (int)cudaGetLastError();
+}
+
+// What the procedural instance for these params uses, as the launcher would
+// launch it: out = {coarse pixels per thread, registers per thread, local
+// memory (stack) bytes per thread, resident blocks per SM, dynamic shared
+// memory bytes, 1 with the row cache (one opaque pass per pixel) else 0}.
+extern "C" int megakernel_gen_info(const MegakernelParams* params, int* out) {
+  const int smem = knot_rows(params) * MK_TILE_COLS * (int)sizeof(float);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncSetAttribute(megakernel_gen,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, megakernel_gen);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, megakernel_gen, MK_TILE_COLS, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int info[6] = {params->coverage_lod, attr.numRegs, (int)attr.localSizeBytes, blocks, smem,
+                       0};
+  for (int i = 0; i < 6; ++i) out[i] = info[i];
+  return 0;
 }
 
 template <int G>

@@ -30,12 +30,13 @@ def _nvcc() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
-def nvcc_command(output: str, source: str, ptxas_info: bool = False) -> list:
+def nvcc_command(output: str, source: str, ptxas_info: bool = False, defines=()) -> list:
     """The ``nvcc`` command line that compiles one source into the object
-    ``output``.  No fast math; ``a*b + c`` contracts into FMAs
-    (``-fmad=true``, measured against ``-fmad=false`` in PERF.md)."""
+    ``output``, with ``-D`` for each of ``defines``.  No fast math;
+    ``a*b + c`` contracts into FMAs (``-fmad=true``, measured against
+    ``-fmad=false`` in PERF.md)."""
     cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-           "-fmad=true", "-c"]
+           "-fmad=true", *(f"-D{d}" for d in defines), "-c"]
     if ptxas_info:
         cmd.append("-Xptxas=-v")
     return cmd + ["-o", output, source]
@@ -45,13 +46,14 @@ def link_command(output: str, objects) -> list:
     return [_nvcc(), *ARCH_FLAGS, "-shared", "-o", output, *objects]
 
 
-def library_path(build_dir: str = BUILD_DIR) -> str:
-    """Where the library for these sources and flags is built."""
+def library_path(build_dir: str = BUILD_DIR, sources=None, defines=()) -> str:
+    """Where the library for these sources (default :data:`SOURCES`) and
+    flags is built."""
     digest = hashlib.sha256()
-    for source in SOURCES:
+    for source in SOURCES if sources is None else sources:
         with open(source, "rb") as f:
             digest.update(f.read())
-    digest.update(" ".join(nvcc_command("", "")[1:]).encode())
+    digest.update(" ".join(nvcc_command("", "", defines=defines)[1:]).encode())
     return os.path.join(build_dir, f"libkernels-{digest.hexdigest()[:16]}.so")
 
 
@@ -68,17 +70,22 @@ def _run_all(commands) -> str:
     return "".join(logs)
 
 
-def build(build_dir: str = BUILD_DIR, ptxas_info: bool = False) -> tuple:
-    """Compile the kernel library unless it is already built.  Returns
-    ``(path, compiler log)``; a failed ``nvcc`` raises with its stderr."""
-    path = library_path(build_dir)
+def build(build_dir: str = BUILD_DIR, ptxas_info: bool = False, sources=None,
+          defines=()) -> tuple:
+    """Compile the kernel library of ``sources`` (default :data:`SOURCES`)
+    with ``defines`` (``-D``; the package's own build sets none) unless it
+    is already built.  Returns ``(path, compiler log)``; a failed ``nvcc``
+    raises with its stderr."""
+    sources = SOURCES if sources is None else tuple(sources)
+    path = library_path(build_dir, sources, defines)
     if os.path.exists(path) and not ptxas_info:
         return path, ""
     os.makedirs(build_dir, exist_ok=True)
     stem = f"{path}.{os.getpid()}"
-    objects = [f"{stem}.{i}.o" for i in range(len(SOURCES))]
+    objects = [f"{stem}.{i}.o" for i in range(len(sources))]
     try:
-        log = _run_all([nvcc_command(o, s, ptxas_info) for o, s in zip(objects, SOURCES)])
+        log = _run_all([nvcc_command(o, s, ptxas_info, defines)
+                        for o, s in zip(objects, sources)])
         log += _run_all([link_command(f"{stem}.tmp", objects)])
         os.replace(f"{stem}.tmp", path)
     finally:

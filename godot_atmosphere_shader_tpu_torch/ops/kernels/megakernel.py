@@ -59,6 +59,7 @@ plain path uses.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import os
@@ -92,6 +93,9 @@ MAX_GROUP = 8
 QUAD_POINTS = 8
 #: the texture instance's coverage knot count (template parameter K)
 KNOTS = 8
+#: the procedural instance's coarse pixels per thread, C = cloud_coverage_lod
+#: (a group of cloud_lod·C rows divides the 32-row tile)
+GEN_COARSE = (1, 2, 4, 8, 16, 32)
 #: the procedural instance's knot rows in shared memory (coverage, shape and
 #: detail knots of a block's 128 threads: 448 × 512 B fits 227 KB)
 MAX_KNOT_ROWS = 448
@@ -107,12 +111,22 @@ TEXTURE_GROUPS = (4, 8)
 #: work counter slots, in the kernel's order (``MK_WORK_*``); the procedural
 #: instance also counts its procedural field evaluations: coverage per step
 #: and per sun sample, shape and detail per step and per sun sample, and the
-#: shape and detail knots
+#: shape and detail knots; and its march's warp-steps issued and lane-steps
+#: run (lane utilisation = lane-steps / (32 × warp-steps); no bound reads
+#: them)
 WORK_SLOTS = ("pixels", "atmosphere", "knot_groups", "march", "tex3d",
               "tex3d_floor", "latlong", "latlong_floor", "sun_samples",
               "v1_atmosphere", "opaque_pixels", "sky", "sky_floor",
               "coverage_evals", "shape_evals", "detail_evals", "shape_knots",
-              "detail_knots")
+              "detail_knots", "march_warp_steps", "march_lane_steps")
+#: the measurement build's (``MEASURE_DEFINES``) per-stage cycles of the
+#: procedural instance, summed over warps, after the work slots
+#: (``MK_STAGE_*``): the coarse pass, the knots, the march, the shading and
+#: blend
+STAGE_SLOTS = ("coarse", "knots", "march", "blend")
+MEASURE_DEFINES = ("MK_STAGE_CLOCKS",)
+#: what :func:`gen_info` reports of the procedural instance
+GEN_INFO = ("coarse", "registers", "stack_bytes", "blocks_per_sm", "smem_bytes", "row_cache")
 #: atmosphere models, by their integer codes
 MODELS = {"v2": 0, "v1": 1}
 #: noise bases, fractals and cellular returns, by their integer codes
@@ -298,6 +312,7 @@ TEX_LAUNCHER_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.POINTER(TexPar
                          ctypes.POINTER(TexParams), *(ctypes.c_void_p,) * 11)
 TEXSAMPLE_ARGTYPES = (ctypes.POINTER(TexParams), ctypes.c_int, *(ctypes.c_void_p,) * 4,
                       ctypes.c_int, ctypes.c_int, *(ctypes.c_void_p,) * 3)
+GEN_INFO_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.c_void_p)
 
 
 # -- binding --------------------------------------------------------------------
@@ -306,27 +321,64 @@ TEXSAMPLE_ARGTYPES = (ctypes.POINTER(TexParams), ctypes.c_int, *(ctypes.c_void_p
 _LIBRARY = None
 
 
+def bind(lib):
+    """Bind the megakernel's launchers on a loaded kernel library and check
+    the launch structs' mirrors against it; returns ``lib``."""
+    for name, argtypes in (("megakernel_launch", LAUNCHER_ARGTYPES),
+                           ("sky_choice_launch", SKY_CHOICE_ARGTYPES),
+                           ("megakernel_tex_launch", TEX_LAUNCHER_ARGTYPES),
+                           ("texsample_launch", TEXSAMPLE_ARGTYPES),
+                           ("megakernel_gen_info", GEN_INFO_ARGTYPES),
+                           ("megakernel_params_size", ()),
+                           ("megakernel_noise_params_size", ()),
+                           ("megakernel_tex_params_size", ())):
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    for name, struct in (("megakernel_params_size", MegakernelParams),
+                         ("megakernel_noise_params_size", NoiseParams),
+                         ("megakernel_tex_params_size", TexParams)):
+        size = getattr(lib, name)()
+        if size != ctypes.sizeof(struct):
+            raise RuntimeError(f"{struct.__name__} mirror is {ctypes.sizeof(struct)}"
+                               f" bytes, the kernel's struct {size}")
+    return lib
+
+
 def load_library():
     """Build (if needed) and load the kernel library, bind the megakernel's
     launchers and check the launch structs' mirrors; cached per process."""
     global _LIBRARY
-    if _LIBRARY is not None:
-        return _LIBRARY
-    lib = library.load_library()
-    for name, argtypes in (("megakernel_launch", LAUNCHER_ARGTYPES),
-                           ("sky_choice_launch", SKY_CHOICE_ARGTYPES),
-                           ("megakernel_tex_launch", TEX_LAUNCHER_ARGTYPES),
-                           ("texsample_launch", TEXSAMPLE_ARGTYPES)):
-        library.function(name, argtypes)
-    for name, struct in (("megakernel_params_size", MegakernelParams),
-                         ("megakernel_noise_params_size", NoiseParams),
-                         ("megakernel_tex_params_size", TexParams)):
-        size = library.function(name, ())()
-        if size != ctypes.sizeof(struct):
-            raise RuntimeError(f"{struct.__name__} mirror is {ctypes.sizeof(struct)}"
-                               f" bytes, the kernel's struct {size}")
-    _LIBRARY = lib
-    return lib
+    if _LIBRARY is None:
+        _LIBRARY = bind(library.load_library())
+    return _LIBRARY
+
+
+@contextlib.contextmanager
+def use_library(path: str):
+    """Inside the block, every megakernel launch goes through the kernel
+    library at ``path``: another build of ``csrc/megakernel.cu`` with the
+    same launchers (the measurement build, :data:`MEASURE_DEFINES`, or
+    another commit's source, for a comparison on one card)."""
+    global _LIBRARY
+    saved = load_library()
+    _LIBRARY = bind(ctypes.CDLL(path))
+    try:
+        yield _LIBRARY
+    finally:
+        _LIBRARY = saved
+
+
+def gen_info(struct: MegakernelParams) -> dict:
+    """What the procedural instance that would launch ``struct`` uses on
+    this card (:data:`GEN_INFO`): registers, local memory (stack), resident
+    blocks per SM, dynamic shared memory, and whether its rows take one
+    opaque pass (the row cache)."""
+    out = (ctypes.c_int * len(GEN_INFO))()
+    rc = load_library().megakernel_gen_info(ctypes.byref(struct), out)
+    if rc != 0:
+        raise RuntimeError(f"megakernel_gen_info failed: CUDA error {rc}")
+    return dict(zip(GEN_INFO, out))
 
 
 # -- what the kernel takes ----------------------------------------------------
@@ -745,8 +797,8 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
     ``[row0, row0 + rows)`` only; each plane holds either the whole frame
     or just those rows (a row shard's planes).  ``tex``: ``(TexParams, shape table,
     coverage table)`` for the texture instance (also counted in
-    ``counters.texture_launches``).  ``work``: ``len(WORK_SLOTS)`` zeroed
-    int64 counters that the kernel adds its work to (see
+    ``counters.texture_launches``).  ``work``: ``len(WORK_SLOTS) +
+    len(STAGE_SLOTS)`` zeroed int64 counters that the kernel adds its work to (see
     :func:`work_counts`).  ``depth``: an (H, W) float32 plane of linear
     depth: written by a launch with the opaque pass (optional), read by a
     chained layer (``with_background``), whose ``color`` and ``alpha`` hold
@@ -1237,17 +1289,28 @@ def _flight(params_seq, fs_stacks, configs, camera, opaque, height, width, cam_s
 
 
 def work_counts(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
-                tex=None, depth: Optional[torch.Tensor] = None, sky=None) -> dict:
+                tex=None, depth: Optional[torch.Tensor] = None, sky=None,
+                stages: bool = False) -> dict:
     """One launch with the kernel's work counters on: how many pixels,
     atmosphere integrations (v2 and v1), knot groups, marched coarse
     pixels, sun-march samples, texture samples (trilinear or bilinear, and
     floor-mode nearest), opaque-only pixels and sky samples (three-channel
-    bilinear, and floor-mode nearest) this launch's inputs needed.  Counted
-    in the launch counters like any launch; a chained layer composites over
+    bilinear, and floor-mode nearest) this launch's inputs needed, and the
+    procedural march's warp- and lane-steps.  ``stages``: add the
+    measurement build's per-stage cycles (:data:`STAGE_SLOTS`, keys
+    ``stage_<name>_cycles``; zeros from the normal build).  Counted in the
+    launch counters like any launch; a chained layer composites over
     ``color`` again."""
-    work = torch.zeros(len(WORK_SLOTS), dtype=torch.int64, device=color.device)
+    # the measurement build writes its stage slots after the work slots
+    work = torch.zeros(len(WORK_SLOTS) + len(STAGE_SLOTS), dtype=torch.int64,
+                       device=color.device)
     launch(struct, color, alpha, tex=tex, work=work, depth=depth, sky=sky)
-    return dict(zip(WORK_SLOTS, work.cpu().tolist()))
+    counts = work.cpu().tolist()
+    out = dict(zip(WORK_SLOTS, counts))
+    if stages:
+        out.update((f"stage_{name}_cycles", n)
+                   for name, n in zip(STAGE_SLOTS, counts[len(WORK_SLOTS):]))
+    return out
 
 
 # -- K2 alone -------------------------------------------------------------------

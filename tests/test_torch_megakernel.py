@@ -233,6 +233,7 @@ def test_cu_structs_match_ctypes_mirror(struct):
 def test_cu_limits_match_wrapper():
     defines = {k: int(v) for k, v in re.findall(r"#define (MK_\w+) (\d+)", _cu_source())}
     work = {f"MK_WORK_{name.upper()}": i for i, name in enumerate(mk.WORK_SLOTS)}
+    stages = {f"MK_STAGE_{name.upper()}": i for i, name in enumerate(mk.STAGE_SLOTS)}
     assert defines == {"MK_MAX_SPHERES": mk.MAX_SPHERES, "MK_MAX_BOXES": mk.MAX_BOXES,
                        "MK_MAX_OCTAVES": mk.MAX_OCTAVES, "MK_MAX_GROUP": mk.MAX_GROUP,
                        "MK_QUAD_POINTS": mk.QUAD_POINTS, "MK_KNOTS": mk.KNOTS,
@@ -241,6 +242,7 @@ def test_cu_limits_match_wrapper():
                        "MK_TILE_ROWS": mk.TILE_ROWS, "MK_TILE_COLS": mk.TILE_COLS,
                        "MK_WINDOWED": mk.WINDOWED, "MK_BANDED": mk.BANDED,
                        "MK_FLOOR": mk.FLOOR, **work, "MK_WORK_SLOTS": len(mk.WORK_SLOTS),
+                       **stages, "MK_STAGES": len(mk.STAGE_SLOTS),
                        "MK_SUN_STEPS": mk.SUN_STEPS}
 
 
@@ -251,7 +253,8 @@ _CPARAM = {"int": ctypes.c_int, "const MegakernelParams*": ctypes.POINTER(mk.Meg
 @pytest.mark.parametrize("name,argtypes", [("megakernel_launch", mk.LAUNCHER_ARGTYPES),
                                            ("sky_choice_launch", mk.SKY_CHOICE_ARGTYPES),
                                            ("megakernel_tex_launch", mk.TEX_LAUNCHER_ARGTYPES),
-                                           ("texsample_launch", mk.TEXSAMPLE_ARGTYPES)])
+                                           ("texsample_launch", mk.TEXSAMPLE_ARGTYPES),
+                                           ("megakernel_gen_info", mk.GEN_INFO_ARGTYPES)])
 def test_cu_launcher_signature_matches_argtypes(name, argtypes):
     """Each launcher's C parameters against its ctypes argtypes: structs by
     pointer, ints as c_int, every other pointer (and the stream) c_void_p."""
@@ -293,7 +296,7 @@ def test_build_command_and_cache_key(monkeypatch, tmp_path):
 
 
 def test_failed_build_raises_with_compiler_stderr(monkeypatch, tmp_path):
-    def failing(output, source, ptxas_info=False):
+    def failing(output, source, ptxas_info=False, defines=()):
         return [sys.executable, "-c", "import sys; sys.stderr.write('bad kernel'); sys.exit(2)"]
 
     monkeypatch.setattr(library, "nvcc_command", failing)
