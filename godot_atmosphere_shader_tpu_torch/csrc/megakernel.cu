@@ -1573,7 +1573,8 @@ struct StageClock {
 #ifdef MK_STAGE_CLOCKS
   long long t;
   unsigned long long c[MK_STAGES];
-  __device__ __forceinline__ StageClock() : t(clock64()) {
+  __device__ __forceinline__ StageClock() {
+    t = clock64();
 #pragma unroll
     for (int s = 0; s < MK_STAGES; ++s) c[s] = 0ull;
   }
