@@ -139,7 +139,14 @@
 #define MK_MAX_GROUP 8  // texture instance: rows per thread, knots per batch
 #define MK_QUAD_POINTS 8
 #define MK_KNOTS 8  // texture instance: coverage knots
-#define MK_MAX_KNOT_ROWS 448  // the procedural instance's knots in shared memory
+// the procedural instance's dynamic shared memory, in rows of one float per
+// thread of a 128-thread block (512 B): at most 452 rows (231,424 B of the
+// 232,448 a block may use; its static offsets take up to 516 B); each
+// coarse pixel of the group takes 6 rows of march inputs and a row of the
+// march list, each row of the group 4 rows of the row cache
+#define MK_SMEM_ROWS 452
+#define MK_GEN_MARCH_ROWS 7
+#define MK_GEN_CACHE_ROWS 4
 #define MK_SHAPE_KNOTS 16  // texture mode's shape knots
 #define MK_MAX_LEVELS 8    // mip levels of a pyramid
 #define MK_TILE_ROWS 32    // texture mode: one block per TPU tile
@@ -685,9 +692,19 @@ __device__ float sample_noise3(const NoiseParams& s, float x, float y, float z) 
 // procedural field 0.5 + 0.5 * noise(p * scale): one copy of the code
 // (called, not inlined, at each of its sites; the launch struct is a
 // __grid_constant__, so its noise specs are read in place)
-__device__ __noinline__ float field(const NoiseParams& s, V3 p) {
+__device__ __forceinline__ float field_body(const NoiseParams& s, V3 p) {
   return 0.5f + 0.5f * sample_noise3(s, p.x * s.scale[0], p.y * s.scale[1], p.z * s.scale[2]);
 }
+
+__device__ __noinline__ float field(const NoiseParams& s, V3 p) { return field_body(s, p); }
+
+// the march's per-step and per-sun-sample fields: called, or with
+// -DMK_GEN_INLINE_FIELD inlined (a measurement of the call)
+#ifdef MK_GEN_INLINE_FIELD
+#define MARCH_FIELD field_body
+#else
+#define MARCH_FIELD field
+#endif
 
 // ---------------------------------------------------------------------------
 // Opaque pass (render/opaque.py)
@@ -999,15 +1016,15 @@ struct GenFields {
   FieldWork* work;
   __device__ __forceinline__ float cov_at(const MegakernelParams& p, V3 pos) const {
     ++work->cov;
-    return field(p.coverage, coverage_point(p, pos));
+    return MARCH_FIELD(p.coverage, coverage_point(p, pos));
   }
   __device__ __forceinline__ float shape_at(const MegakernelParams& p, V3 pos) const {
     ++work->shape;
-    return field(p.shape, mul(pos, p.cloud_shape_scale));
+    return MARCH_FIELD(p.shape, mul(pos, p.cloud_shape_scale));
   }
   __device__ __forceinline__ float detail_at(const MegakernelParams& p, V3 pos) const {
     ++work->detail;
-    return field(p.shape, detail_point(p, pos));
+    return MARCH_FIELD(p.shape, detail_point(p, pos));
   }
   __device__ __forceinline__ float cov(const MegakernelParams& p, float u01, V3 pos) const {
     return cov_knots.k ? cov_knots.interp(u01) : cov_at(p, pos);
@@ -1389,83 +1406,138 @@ struct Coarse {
   float t0k, t1k;
 };
 
-// rays, background and atmosphere of the G rows from y0 (rows and columns
-// past the launch's rows or the frame edge are computed too: they belong to
-// their tile; chained, they see no geometry; the work counters count only
-// the launch's pixels).  The background is the opaque
-// pass (its misses sample the sky with its tile's choice when with_sky),
-// whose linear depth (before the sphere-depth blend) goes to depth when it
-// is not nullptr, or, for a chained layer, the color and linear depth of
-// the layers below, read from color and depth.  SHADE = false computes the
-// coarse inputs alone: no sky, no depth output, no atmosphere.
-template <int N, int NC, bool SHADE = true>
+// One pixel (x, y) of a layer: its ray, the opaque pass (whose misses
+// sample the sky with its tile's choice when with_sky) or, for a chained
+// layer, the color and linear depth of the layers below (read from color
+// and depth), and the atmosphere.  A pixel past the launch's rows or the
+// frame edge is computed too (it belongs to its tile; chained, it sees no
+// geometry) but counts no work and writes nothing.  SHADE = false computes
+// the coarse inputs alone (ray, linear depth, jitter): no background, sky,
+// depth output or atmosphere.  Otherwise the opaque pass's linear depth
+// (before the sphere-depth blend) goes to depth when it is not nullptr.
+struct Pixel {
+  V3 rd;         // world-space ray
+  float depth;   // linear depth after the sphere-depth blend
+  float jitter;  // with_atmosphere
+  V3 bg;         // SHADE: the background
+  float atm[4];  // SHADE and hit: the atmosphere rgba
+  bool hit;      // SHADE: the ray hits the atmosphere's shell
+};
+
+__device__ __forceinline__ void shade_pixel(const MegakernelParams& p, const float* blue, int x,
+                                            int y, bool shade, const float* color, float* depth,
+                                            const Sky& sky, bool count, unsigned& n_atmo,
+                                            unsigned& n_v1, unsigned& n_sky, Pixel& px) {
+  const V3 ro = load3(p.cam_pos);
+  const V3 pc = load3(p.planet_center);
+  const V3 rd = pixel_dir(p, x, y);
+  const bool in_rows = x < p.width && y < p.row0 + p.rows;
+  const size_t o = (size_t)y * p.width + x;
+  px.rd = rd;
+  float linear_depth = 1.0e7f;
+  V3 b = v3(0.0f, 0.0f, 0.0f);
+  if (p.with_background) {
+    if (in_rows) {
+      if (shade) b = v3(color[o * 3 + 0], color[o * 3 + 1], color[o * 3 + 2]);
+      linear_depth = depth[o];
+    }
+  } else {
+    if (p.with_opaque && !opaque_pass(p, ro, rd, b, linear_depth) && p.with_sky && shade) {
+      b = sky_rgb(sky, rd);
+      if (count && in_rows) ++n_sky;
+    }
+    if (shade && depth && in_rows) depth[o] = linear_depth;
+  }
+  px.bg = b;
+  px.hit = false;
+  px.depth = linear_depth;
+  if (!p.with_atmosphere) return;  // the opaque-only pass
+  float jitter = blue[(y & 255) * 256 + (x & 255)] + p.jitter_offset;
+  px.jitter = jitter - floorf(jitter);
+
+  // shell intersection, sphere-depth blend, march span
+  float rs0, rs1, g0, g1;
+  ray_sphere(pc, p.atmosphere_radius2, ro, rd, rs0, rs1);
+  const bool h = rs0 != rs1;
+  float t_begin = h ? fmaxf(rs0, 0.0f) : 0.0f;
+  float t_end = h ? fmaxf(rs1, 0.0f) : 0.0f;
+  ray_sphere(pc, p.planet_radius2, ro, rd, g0, g1);
+  const float gd = g0 != g1 ? g0 : 1.0e7f;
+  linear_depth = linear_depth + (gd - linear_depth) * p.sphere_depth_factor;
+  px.depth = linear_depth;
+  t_end = fmaxf(fminf(t_end, linear_depth), t_begin);
+  if (shade) {
+    px.hit = h;
+    if (h) {
+      if (p.model == 1) {
+        atmosphere_v1(p, ro, rd, t_begin, t_end, px.atm);
+        if (count && in_rows) ++n_v1;
+      } else {
+        atmosphere_v2(p, ro, rd, t_begin, t_end, px.jitter, px.atm);
+        if (count && in_rows) ++n_atmo;
+      }
+    }
+  }
+}
+
+// rays, background and atmosphere of the G rows from y0 (shade_pixel),
+// and the coarse inputs of their cloud_lod-row coarse pixels
+template <int N, int NC>
 __device__ __forceinline__ void shade_rows(const MegakernelParams& p, const float* blue, int x,
                                            int y0, int G, int L, RowPix<N>& s, CoarseIn<NC>& ci,
                                            const float* color, float* depth, const Sky& sky,
                                            unsigned long long* work, unsigned& n_atmo,
                                            unsigned& n_v1, unsigned& n_sky) {
-  const V3 ro = load3(p.cam_pos);
-  const V3 pc = load3(p.planet_center);
   for (int r = 0; r < G; ++r) {
-    const int y = y0 + r;
-    const V3 rd = pixel_dir(p, x, y);
-    const bool in_rows = x < p.width && y < p.row0 + p.rows;
-    const size_t o = (size_t)y * p.width + x;
-    float linear_depth = 1.0e7f;
-    V3 b = v3(0.0f, 0.0f, 0.0f);
-    if (p.with_background) {
-      if (in_rows) {
-        if (SHADE) b = v3(color[o * 3 + 0], color[o * 3 + 1], color[o * 3 + 2]);
-        linear_depth = depth[o];
-      }
-    } else {
-      if (p.with_opaque && !opaque_pass(p, ro, rd, b, linear_depth) && p.with_sky && SHADE) {
-        b = sky_rgb(sky, rd);
-        if (work && in_rows) ++n_sky;
-      }
-      if (SHADE && depth && in_rows) depth[o] = linear_depth;
+    Pixel px;
+    shade_pixel(p, blue, x, y0 + r, true, color, depth, sky, work != nullptr, n_atmo, n_v1, n_sky,
+                px);
+    s.bg[r] = px.bg;
+    s.hit[r] = px.hit;
+    if (px.hit) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s.atm[r][c] = px.atm[c];
     }
-    if (SHADE) s.bg[r] = b;
-    if (!p.with_atmosphere) {  // the opaque-only pass
-      if (SHADE) s.hit[r] = false;
-      continue;
-    }
-    float jitter = blue[(y & 255) * 256 + (x & 255)] + p.jitter_offset;
-    jitter = jitter - floorf(jitter);
-
-    // shell intersection, sphere-depth blend, march span
-    float rs0, rs1, g0, g1;
-    ray_sphere(pc, p.atmosphere_radius2, ro, rd, rs0, rs1);
-    const bool h = rs0 != rs1;
-    float t_begin = h ? fmaxf(rs0, 0.0f) : 0.0f;
-    float t_end = h ? fmaxf(rs1, 0.0f) : 0.0f;
-    ray_sphere(pc, p.planet_radius2, ro, rd, g0, g1);
-    const float gd = g0 != g1 ? g0 : 1.0e7f;
-    linear_depth = linear_depth + (gd - linear_depth) * p.sphere_depth_factor;
-    t_end = fmaxf(fminf(t_end, linear_depth), t_begin);
-    if (SHADE) {
-      s.hit[r] = h;
-      if (h) {
-        if (p.model == 1) {
-          atmosphere_v1(p, ro, rd, t_begin, t_end, s.atm[r]);
-          if (work && in_rows) ++n_v1;
-        } else {
-          atmosphere_v2(p, ro, rd, t_begin, t_end, jitter, s.atm[r]);
-          if (work && in_rows) ++n_atmo;
-        }
-      }
-    }
-
+    if (!p.with_atmosphere) continue;
     const int c = r / L;
     if (r % L == 0) {
-      ci.rd_sum[c] = rd;
-      ci.depth_min[c] = linear_depth;
-      ci.jit_first[c] = jitter;
+      ci.rd_sum[c] = px.rd;
+      ci.depth_min[c] = px.depth;
+      ci.jit_first[c] = px.jitter;
     } else {
-      ci.rd_sum[c] = add(ci.rd_sum[c], rd);
-      ci.depth_min[c] = fminf(ci.depth_min[c], linear_depth);
+      ci.rd_sum[c] = add(ci.rd_sum[c], px.rd);
+      ci.depth_min[c] = fminf(ci.depth_min[c], px.depth);
     }
   }
+}
+
+// One coarse pixel: the mean of its L rays, normalized, its shell span
+// and whether it sees the cloud layer, and its model-space ray
+struct CoarseRay {
+  V3 rd_model;
+  float tb, tem;  // the march span, clamped to the march distance
+  bool vis;
+};
+
+__device__ __forceinline__ CoarseRay coarse_ray(const MegakernelParams& p, int L, V3 rd_sum,
+                                                float depth_c) {
+  const V3 ro = load3(p.cam_pos);
+  const V3 pc = load3(p.planet_center);
+  const V3 rdm = v3(rd_sum.x / (float)L, rd_sum.y / (float)L, rd_sum.z / (float)L);
+  float inv = 1.0f / sqrtf(rdm.x * rdm.x + rdm.y * rdm.y + rdm.z * rdm.z);
+  V3 rdc = mul(rdm, inv);
+  float top0, top1, bot0, bot1;
+  ray_sphere(pc, p.cloud_top_radius2, ro, rdc, top0, top1);
+  ray_sphere(pc, p.cloud_bottom_radius2, ro, rdc, bot0, bot1);
+  const float t_begin = fmaxf(top0, 0.0f);
+  const float t_end = fminf(top1, depth_c);
+  CoarseRay c;
+  c.vis = (top0 != top1) && (t_begin < depth_c) && ((depth_c > bot1) || (bot0 > 0.0f));
+  c.rd_model = xform_dir(p.world_to_model, 4, rdc);
+  c.tb = t_begin;
+  float te = c.vis ? t_end : t_begin;
+  c.tem = t_begin + fminf(te - t_begin, p.march_max_distance);
+  return c;
 }
 
 // coarse rays, shell spans and visibility per cloud_lod group, and the
@@ -1473,26 +1545,14 @@ __device__ __forceinline__ void shade_rows(const MegakernelParams& p, const floa
 template <int N>
 __device__ __forceinline__ void coarse_rays(const MegakernelParams& p, int L, int C,
                                             const CoarseIn<N>& ci, Coarse<N>& c) {
-  const V3 ro = load3(p.cam_pos);
-  const V3 pc = load3(p.planet_center);
   c.any_vis = false;
   for (int k = 0; k < C; ++k) {
-    const V3 rdm = v3(ci.rd_sum[k].x / (float)L, ci.rd_sum[k].y / (float)L,
-                      ci.rd_sum[k].z / (float)L);
-    float inv = 1.0f / sqrtf(rdm.x * rdm.x + rdm.y * rdm.y + rdm.z * rdm.z);
-    V3 rdc = mul(rdm, inv);
-    const float depth_c = ci.depth_min[k];
-    float top0, top1, bot0, bot1;
-    ray_sphere(pc, p.cloud_top_radius2, ro, rdc, top0, top1);
-    ray_sphere(pc, p.cloud_bottom_radius2, ro, rdc, bot0, bot1);
-    const float t_begin = fmaxf(top0, 0.0f);
-    const float t_end = fminf(top1, depth_c);
-    c.vis[k] = (top0 != top1) && (t_begin < depth_c) && ((depth_c > bot1) || (bot0 > 0.0f));
+    const CoarseRay cr = coarse_ray(p, L, ci.rd_sum[k], ci.depth_min[k]);
+    c.vis[k] = cr.vis;
     c.any_vis = c.any_vis || c.vis[k];
-    c.rd_model[k] = xform_dir(p.world_to_model, 4, rdc);
-    c.tb[k] = t_begin;
-    float te = c.vis[k] ? t_end : t_begin;
-    c.tem[k] = t_begin + fminf(te - t_begin, p.march_max_distance);
+    c.rd_model[k] = cr.rd_model;
+    c.tb[k] = cr.tb;
+    c.tem[k] = cr.tem;
   }
   c.rk = c.rd_model[0];
   c.t0k = c.tb[0];
@@ -1597,9 +1657,8 @@ struct StageClock {
 
 // the knot position of a coverage group at s in [0, 1], as the plain
 // version computes it: ro + rk * lerp(t0k, t1k, s)
-template <int N>
-__device__ __forceinline__ V3 group_knot_pos(const V3& rom, const Coarse<N>& c, float s) {
-  return add(rom, mul(c.rk, c.t0k + (c.t1k - c.t0k) * s));
+__device__ __forceinline__ V3 group_knot_pos(const V3& rom, V3 rk, float t0k, float t1k, float s) {
+  return add(rom, mul(rk, t0k + (t1k - t0k) * s));
 }
 
 // ---------------------------------------------------------------------------
@@ -1647,33 +1706,69 @@ __global__ void __launch_bounds__(128) megakernel_clear(const MegakernelParams p
 
 // ---------------------------------------------------------------------------
 // The procedural frame kernel (K1 slice (h)): every procedural config the
-// JAX megakernel renders.  One thread per column and per group of
-// G = cloud_lod * coverage_lod rows, G dividing the 32-row tile.  Knots
-// (coverage, shape, detail: any counts) live in dynamic shared memory,
-// knot-major with a stride of the block's 128 threads; a field without
-// knots is evaluated per march step and per sun sample, with every noise
-// basis and fractal (field).  The group's rows take two passes,
-// so that a thread holds per-row state of one row only: the first computes
-// the coarse inputs (ray, linear depth, jitter), the second shades each
-// row, blends it with its coarse pixel's clouds and stores it.
+// JAX megakernel renders, one instance per C = coverage_lod coarse pixels
+// per thread.  One thread per column and per group of G = cloud_lod * C
+// rows, G dividing the 32-row tile; a block is 128 columns of one group.
+// Shared memory, in rows of one float per thread (gen_layout):
+//   * the knots (coverage, shape, detail: any counts), knot-major with a
+//     stride of the block's 128 threads;
+//   * per coarse pixel of the group, its march inputs (model-space ray,
+//     span, jitter), which the march overwrites with its light and alpha,
+//     and one row of the block's march list;
+//   * the row cache, where the block can hold it: each row's atmosphere
+//     rgba (alpha -1 where the ray misses the shell).
+// Stages, each of a block's threads in step between them:
+//   1. the coarse pass: every row of the group once (ray, opaque pass or
+//      the layers below, sky, atmosphere, linear depth out), its
+//      background to the color plane and its atmosphere to the row cache;
+//      the coarse pixels' rays and spans;
+//   2. the knots of the thread's coverage group, where a coarse pixel sees
+//      the cloud layer, and the cull;
+//   3. the march: the block's marching coarse pixels (visible, not culled)
+//      listed by warp votes, then marched densely, one per lane, each lane
+//      reading its entry's owner's knots;
+//   4. each row blended with its coarse pixel's clouds over its
+//      background, and stored.
+// Without the row cache, stage 1 computes the coarse inputs alone and
+// stage 4 shades each row again (two opaque passes per pixel).
 
-__global__ void __launch_bounds__(128) megakernel_gen(const __grid_constant__ MegakernelParams p,
-                                                      const TexParams sky_t,
-                                                      const float* __restrict__ blue,
-                                                      const float* __restrict__ sky_r,
-                                                      const float* __restrict__ sky_g,
-                                                      const float* __restrict__ sky_b,
-                                                      const int* __restrict__ sky_choices,
-                                                      float* __restrict__ color,
-                                                      float* __restrict__ alpha_out,
-                                                      float* __restrict__ depth,
-                                                      unsigned long long* work) {
-  extern __shared__ float knot_smem[];
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int L = p.cloud_lod, C = p.coverage_lod, G = L * C;
+// resident blocks per SM its registers are sized for (__launch_bounds__;
+// -DMK_GEN_MIN_BLOCKS=n measures another)
+#ifdef MK_GEN_MIN_BLOCKS
+constexpr int gen_min_blocks = MK_GEN_MIN_BLOCKS;
+#else
+constexpr int gen_min_blocks = 4;
+#endif
+
+__host__ __device__ __forceinline__ int knot_rows(const MegakernelParams& p) {
+  const int shape = p.shape_interp ? (p.shape_knots + 1) * (p.always_low ? 1 : 2) : 0;
+  return (p.coverage_interp ? p.coverage_knots + 1 : 0) + shape;
+}
+
+// the march inputs of a coarse pixel, rows of the state (the march writes
+// its light and alpha over the first two)
+constexpr int MK_IN_RX = 0, MK_IN_RY = 1, MK_IN_RZ = 2, MK_IN_TB = 3, MK_IN_TEM = 4, MK_IN_JIT = 5;
+
+template <int C>
+__global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
+    megakernel_gen(const __grid_constant__ MegakernelParams p, const TexParams sky_t,
+                   const float* __restrict__ blue, const float* __restrict__ sky_r,
+                   const float* __restrict__ sky_g, const float* __restrict__ sky_b,
+                   const int* __restrict__ sky_choices, float* __restrict__ color,
+                   float* __restrict__ alpha_out, float* __restrict__ depth,
+                   unsigned long long* work, int row_cache) {
+  extern __shared__ float smem[];
+  __shared__ int offsets[4 * C + 1];  // the march list's (coarse row, warp) offsets, its length
+  constexpr int T = MK_TILE_COLS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int x = blockIdx.x * T + tid;
+  const int L = p.cloud_lod, G = L * C;
   const int y0 = p.row0 + blockIdx.y * G;
   const int n_rows = min(G, p.row0 + p.rows - y0);
   const bool live = x < p.width;
+  float* state = smem + knot_rows(p) * T;  // input f of coarse row k at state[(f * C + k) * T]
+  int* list = (int*)(state + (MK_GEN_MARCH_ROWS - 1) * C * T);
+  float* cache = (float*)(list + C * T);  // rgba c of row r at cache[(r * 4 + c) * T]
 
   // the sky's choice for the block's tile (G divides the tile height), as
   // sky_choice_kernel wrote it
@@ -1683,77 +1778,204 @@ __global__ void __launch_bounds__(128) megakernel_gen(const __grid_constant__ Me
     sky.ch = TexChoice{__ldg(sky_choices + 2 * tile), __ldg(sky_choices + 2 * tile + 1)};
   }
   unsigned n_atmo = 0, n_v1 = 0, n_groups = 0, n_march = 0, n_sun = 0, n_sky = 0;
-  unsigned n_shape_knots = 0, n_detail_knots = 0, marched = 0;
+  unsigned n_shape_knots = 0, n_detail_knots = 0;
   FieldWork fw{0u, 0u, 0u};
   StageClock clk;
-  Coarse<MK_TILE_ROWS> c;
-  CoarseIn<MK_TILE_ROWS> ci;
-  float light_c[MK_TILE_ROWS], calpha_c[MK_TILE_ROWS];
-  for (int k = 0; k < C; ++k) light_c[k] = calpha_c[k] = 0.0f;
-  c.any_vis = false;
+
+  // 1. the coarse pass: each row once; the coarse pixels' rays and spans,
+  // and the coverage group's knot inputs (mean model-space ray, not
+  // renormalized, and mean span)
+  unsigned vis = 0;  // bit k: coarse pixel k sees the cloud layer
+  V3 rk = v3(0.0f, 0.0f, 0.0f);
+  float t0k = 0.0f, t1k = 0.0f;
   if (live) {
-    RowPix<1> unused;
-    shade_rows<1, MK_TILE_ROWS, false>(p, blue, x, y0, G, L, unused, ci, color, depth, sky, work,
-                                       n_atmo, n_v1, n_sky);
-    coarse_rays(p, L, C, ci, c);
+    for (int k = 0; k < C; ++k) {
+      V3 rd_sum = v3(0.0f, 0.0f, 0.0f);
+      float depth_min = 0.0f, jit_first = 0.0f;
+      for (int l = 0; l < L; ++l) {
+        const int r = k * L + l;
+        const bool shade = row_cache && r < n_rows;  // a partial last group's other rows
+        Pixel px;                                     // only enter its coarse inputs
+        shade_pixel(p, blue, x, y0 + r, shade, color, depth, sky, work != nullptr, n_atmo, n_v1,
+                    n_sky, px);
+        if (shade) {
+          if (!p.with_background) {  // a chained layer's background is in color already
+            const size_t o = (size_t)(y0 + r) * p.width + x;
+            color[o * 3 + 0] = px.bg.x;
+            color[o * 3 + 1] = px.bg.y;
+            color[o * 3 + 2] = px.bg.z;
+          }
+          float* a = cache + r * 4 * T + tid;
+          if (px.hit) {
+            a[0] = px.atm[0];
+            a[T] = px.atm[1];
+            a[2 * T] = px.atm[2];
+          }
+          a[3 * T] = px.hit ? px.atm[3] : -1.0f;
+        }
+        if (l == 0) {
+          rd_sum = px.rd;
+          depth_min = px.depth;
+          jit_first = px.jitter;
+        } else {
+          rd_sum = add(rd_sum, px.rd);
+          depth_min = fminf(depth_min, px.depth);
+        }
+      }
+      const CoarseRay cr = coarse_ray(p, L, rd_sum, depth_min);
+      vis |= (unsigned)cr.vis << k;
+      float* in = state + k * T + tid;
+      in[MK_IN_RX * C * T] = cr.rd_model.x;
+      in[MK_IN_RY * C * T] = cr.rd_model.y;
+      in[MK_IN_RZ * C * T] = cr.rd_model.z;
+      in[MK_IN_TB * C * T] = cr.tb;
+      in[MK_IN_TEM * C * T] = cr.tem;
+      in[MK_IN_JIT * C * T] = jit_first;
+      rk = k == 0 ? cr.rd_model : add(rk, cr.rd_model);
+      t0k = k == 0 ? cr.tb : t0k + cr.tb;
+      t1k = k == 0 ? cr.tem : t1k + cr.tem;
+    }
+    if (C > 1) {
+      rk = v3(rk.x / (float)C, rk.y / (float)C, rk.z / (float)C);
+      t0k = t0k / (float)C;
+      t1k = t1k / (float)C;
+    }
   }
   clk.mark(MK_STAGE_COARSE);
+
+  // 2. the coverage group's knots, where a coarse pixel sees the layer
   const V3 rom = load3(p.ro_model);
   const bool full = !p.always_low;
-  float* kn = knot_smem + threadIdx.x;
-  GenKnots cov{nullptr, p.coverage_knots}, shp{nullptr, p.shape_knots}, det{nullptr, p.shape_knots};
   float cov_max = 0.0f;
-  if (live && c.any_vis) {
+  if (vis) {
+    float* kn = smem + tid;
     if (p.coverage_interp) {
-      cov.k = kn;
-      for (int k = 0; k <= cov.K; ++k) {
+      const int K = p.coverage_knots;
+      for (int k = 0; k <= K; ++k) {
         const float v = field(p.coverage, coverage_point(
-            p, group_knot_pos(rom, c, (float)((double)k / (double)cov.K))));
-        kn[k * MK_TILE_COLS] = v;
+            p, group_knot_pos(rom, rk, t0k, t1k, (float)((double)k / (double)K))));
+        kn[k * T] = v;
         cov_max = k == 0 ? v : fmaxf(cov_max, v);
       }
-      kn += (cov.K + 1) * MK_TILE_COLS;
+      kn += (K + 1) * T;
       ++n_groups;
     }
     if (p.shape_interp) {
-      float* dk = kn + (shp.K + 1) * MK_TILE_COLS;
-      shp.k = kn;
-      det.k = full ? dk : nullptr;
-      for (int k = 0; k <= shp.K; ++k) {
-        const V3 pos = group_knot_pos(rom, c, (float)((double)k / (double)shp.K));
-        kn[k * MK_TILE_COLS] = field(p.shape, mul(pos, p.cloud_shape_scale));
-        if (full) dk[k * MK_TILE_COLS] = field(p.shape, detail_point(p, pos));
+      const int K = p.shape_knots;
+      float* dk = kn + (K + 1) * T;
+      for (int k = 0; k <= K; ++k) {
+        const V3 pos = group_knot_pos(rom, rk, t0k, t1k, (float)((double)k / (double)K));
+        kn[k * T] = field(p.shape, mul(pos, p.cloud_shape_scale));
+        if (full) dk[k * T] = field(p.shape, detail_point(p, pos));
       }
-      n_shape_knots += shp.K + 1;
-      if (full) n_detail_knots += shp.K + 1;
+      n_shape_knots += K + 1;
+      if (full) n_detail_knots += K + 1;
     }
   }
-  clk.mark(MK_STAGE_KNOTS);
   // no coverage knots, no bound: every visible coarse pixel marches
-  if (live && c.any_vis && (!p.coverage_interp || cloud_may_form(p, cov_max))) {
-    const GenFields fields{cov, shp, det, full, &fw};
-    for (int k = 0; k < C; ++k) {
-      if (c.vis[k]) {
-        cloud_march(p, fields, c.rd_model[k], c.tb[k], c.tem[k], ci.jit_first[k], light_c[k],
-                    calpha_c[k]);
-        ++n_march;
-        marched |= 1u << k;
-        if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
-      }
-    }
+  const unsigned marches = (!p.coverage_interp || cloud_may_form(p, cov_max)) ? vis : 0u;
+  clk.mark(MK_STAGE_KNOTS);
+
+  // 3. the march list, coarse-pixel-major, then warp by warp, then lane by
+  // lane: offsets from warp votes and a scan of the per-warp counts
+  const unsigned lower = (1u << lane) - 1u;
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const unsigned votes = __ballot_sync(0xffffffffu, (marches >> k) & 1u);
+    if (lane == 0) offsets[k * 4 + warp] = __popc(votes);
   }
+  __syncthreads();
+  if (warp == 0) {  // exclusive scan of the 4 * C counts, 4 per lane
+    int v[4], sum = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = lane * 4 + j;
+      v[j] = i < 4 * C ? offsets[i] : 0;
+      sum += v[j];
+    }
+    int incl = sum;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += t;
+    }
+    int run = incl - sum;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = lane * 4 + j;
+      if (i < 4 * C) offsets[i] = run;
+      run += v[j];
+    }
+    if (lane == 31) offsets[4 * C] = incl;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const unsigned votes = __ballot_sync(0xffffffffu, (marches >> k) & 1u);
+    if ((marches >> k) & 1u) list[offsets[k * 4 + warp] + __popc(votes & lower)] = k * T + tid;
+  }
+  __syncthreads();
+  // each entry marched by one lane, with its owner's knots and inputs
+  const int n_list = offsets[4 * C];
+  for (int i = tid; i < n_list; i += T) {
+    const int e = list[i];
+    const int owner = e % T;
+    float* in = state + e;  // coarse row e / T of owner
+    float* kn = smem + owner;
+    GenKnots cov{nullptr, p.coverage_knots}, shp{nullptr, p.shape_knots},
+        det{nullptr, p.shape_knots};
+    if (p.coverage_interp) {
+      cov.k = kn;
+      kn += (cov.K + 1) * T;
+    }
+    if (p.shape_interp) {
+      shp.k = kn;
+      det.k = full ? kn + (shp.K + 1) * T : nullptr;
+    }
+    const GenFields fields{cov, shp, det, full, &fw};
+    float light, alpha;
+    cloud_march(p, fields, v3(in[MK_IN_RX * C * T], in[MK_IN_RY * C * T], in[MK_IN_RZ * C * T]),
+                in[MK_IN_TB * C * T], in[MK_IN_TEM * C * T], in[MK_IN_JIT * C * T], light, alpha);
+    in[0] = light;
+    in[C * T] = alpha;
+    ++n_march;
+    if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
+  }
+  __syncthreads();
   clk.mark(MK_STAGE_MARCH);
+
+  // 4. blend each of the group's rows inside the launch with its coarse
+  // pixel's clouds, composite over its background, store
   if (live) {
-    // the group's rows inside the launch (a partial last group's other rows
-    // only enter its coarse inputs)
     for (int r = 0; r < n_rows; ++r) {
-      RowPix<1> s;
-      CoarseIn<1> unused_c;
       const int k = r / L;
-      shade_rows(p, blue, x, y0 + r, 1, 1, s, unused_c, color, depth, sky, work, n_atmo, n_v1,
-                 n_sky);
-      blend_and_store(p, x, y0 + r, 1, 1, s, c.vis + k, light_c + k, calpha_c + k, color,
-                      alpha_out);
+      RowPix<1> s;
+      if (row_cache) {
+        const size_t o = (size_t)(y0 + r) * p.width + x;
+        const float* a = cache + r * 4 * T + tid;
+        s.bg[0] = v3(color[o * 3 + 0], color[o * 3 + 1], color[o * 3 + 2]);
+        s.hit[0] = a[3 * T] >= 0.0f;
+        if (s.hit[0]) {
+          s.atm[0][0] = a[0];
+          s.atm[0][1] = a[T];
+          s.atm[0][2] = a[2 * T];
+          s.atm[0][3] = a[3 * T];
+        }
+      } else {
+        Pixel px;
+        shade_pixel(p, blue, x, y0 + r, true, color, depth, sky, work != nullptr, n_atmo, n_v1,
+                    n_sky, px);
+        s.bg[0] = px.bg;
+        s.hit[0] = px.hit;
+        if (px.hit) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s.atm[0][c] = px.atm[c];
+        }
+      }
+      const bool vis_k = (vis >> k) & 1u, marched = (marches >> k) & 1u;
+      const float la = marched ? state[k * T + tid] : 0.0f;
+      const float ca = marched ? state[(C + k) * T + tid] : 0.0f;
+      blend_and_store(p, x, y0 + r, 1, 1, s, &vis_k, &la, &ca, color, alpha_out);
     }
   }
   clk.mark(MK_STAGE_BLEND);
@@ -1771,10 +1993,9 @@ __global__ void __launch_bounds__(128) megakernel_gen(const __grid_constant__ Me
     count_work(work, MK_WORK_DETAIL_EVALS, fw.detail);
     count_work(work, MK_WORK_SHAPE_KNOTS, n_shape_knots);
     count_work(work, MK_WORK_DETAIL_KNOTS, n_detail_knots);
-    // the warp issues march k where any lane marches it
-    const unsigned issued = __popc(__reduce_or_sync(0xffffffffu, marched));
-    count_work(work, MK_WORK_MARCH_WARP_STEPS,
-               (threadIdx.x & 31) ? 0u : issued * (unsigned)p.cloud_steps);
+    // warp w runs the list's entries w * 32 + 128 j + lane
+    const int rounds = n_list > warp * 32 ? (n_list - warp * 32 + T - 1) / T : 0;
+    count_work(work, MK_WORK_MARCH_WARP_STEPS, lane ? 0u : rounds * (unsigned)p.cloud_steps);
     count_work(work, MK_WORK_MARCH_LANE_STEPS, n_march * (unsigned)p.cloud_steps);
   }
   clk.count(work);
@@ -2047,10 +2268,44 @@ extern "C" int sky_choice_launch(const MegakernelParams* params, const TexParams
   return (int)cudaGetLastError();
 }
 
-// the procedural instance's knot rows: coverage, shape and detail knots
-static int knot_rows(const MegakernelParams* p) {
-  const int shape = p->shape_interp ? (p->shape_knots + 1) * (p->always_low ? 1 : 2) : 0;
-  return (p->coverage_interp ? p->coverage_knots + 1 : 0) + shape;
+// The procedural instance for params: its kernel (one per C =
+// coverage_lod the launcher takes), its dynamic shared memory in bytes and
+// whether its rows take one opaque pass: knot rows, then MK_GEN_MARCH_ROWS
+// per coarse pixel, then, where the block can still hold them (MK_SMEM_ROWS
+// rows in all), MK_GEN_CACHE_ROWS per row of the group; with
+// -DMK_GEN_TWO_PASS never (a measurement of the row cache).  kernel is
+// nullptr for a config the instance does not take.
+using GenKernel = void (*)(const MegakernelParams, const TexParams, const float*, const float*,
+                           const float*, const float*, const int*, float*, float*, float*,
+                           unsigned long long*, int);
+
+struct GenLayout {
+  GenKernel kernel;
+  int smem;
+  int row_cache;
+};
+
+static GenLayout gen_layout(const MegakernelParams* p) {
+  const int C = p->coverage_lod, G = p->cloud_lod * C;
+  GenLayout out{nullptr, 0, 0};
+  if (p->cloud_lod < 1 || C < 1 || MK_TILE_ROWS % G || p->coverage_knots < 1 ||
+      p->shape_knots < 1)
+    return out;
+  const int rows = knot_rows(*p) + MK_GEN_MARCH_ROWS * C;
+  if (rows > MK_SMEM_ROWS) return out;
+#ifndef MK_GEN_TWO_PASS
+  out.row_cache = rows + MK_GEN_CACHE_ROWS * G <= MK_SMEM_ROWS;
+#endif
+  out.smem = (rows + (out.row_cache ? MK_GEN_CACHE_ROWS * G : 0)) * MK_TILE_COLS * (int)sizeof(float);
+  switch (C) {
+    case 1: out.kernel = megakernel_gen<1>; break;
+    case 2: out.kernel = megakernel_gen<2>; break;
+    case 4: out.kernel = megakernel_gen<4>; break;
+    case 8: out.kernel = megakernel_gen<8>; break;
+    case 16: out.kernel = megakernel_gen<16>; break;
+    case 32: out.kernel = megakernel_gen<32>; break;
+  }
+  return out;
 }
 
 extern "C" int megakernel_launch(const MegakernelParams* params, const TexParams* sky,
@@ -2058,10 +2313,9 @@ extern "C" int megakernel_launch(const MegakernelParams* params, const TexParams
                                  const float* sky_b, const int* sky_choices, float* color,
                                  float* alpha, float* depth, void* stream, void* work) {
   const bool clouds = params->clouds_enabled && params->with_atmosphere;
+  const GenLayout gen = clouds ? gen_layout(params) : GenLayout{nullptr, 0, 0};
+  if (clouds && !gen.kernel) return -1;
   const int G = clouds ? params->cloud_lod * params->coverage_lod : 1;
-  if (clouds && (G < 1 || MK_TILE_ROWS % G || params->coverage_knots < 1 ||
-                 params->shape_knots < 1 || knot_rows(params) > MK_MAX_KNOT_ROWS))
-    return -1;
   if (!rows_ok(params)) return -1;
   if ((params->with_background || !params->with_atmosphere) && !depth) return -1;
   if (!sky_ok(params, sky, sky_r, sky_g, sky_b) ||
@@ -2080,14 +2334,13 @@ extern "C" int megakernel_launch(const MegakernelParams* params, const TexParams
                                             color, alpha, depth, w);
     return (int)cudaGetLastError();
   }
-  const int smem = knot_rows(params) * MK_TILE_COLS * (int)sizeof(float);
-  if (smem > 48 * 1024) {
+  if (gen.smem > 48 * 1024) {
     cudaError_t err =
-        cudaFuncSetAttribute(megakernel_gen, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        cudaFuncSetAttribute(gen.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, gen.smem);
     if (err != cudaSuccess) return (int)err;
   }
-  megakernel_gen<<<grid, block, smem, s>>>(*params, sky_t, blue, sky_r, sky_g, sky_b, sky_choices,
-                                           color, alpha, depth, w);
+  gen.kernel<<<grid, block, gen.smem, s>>>(*params, sky_t, blue, sky_r, sky_g, sky_b, sky_choices,
+                                           color, alpha, depth, w, gen.row_cache);
   return (int)cudaGetLastError();
 }
 
@@ -2096,17 +2349,19 @@ extern "C" int megakernel_launch(const MegakernelParams* params, const TexParams
 // memory (stack) bytes per thread, resident blocks per SM, dynamic shared
 // memory bytes, 1 with the row cache (one opaque pass per pixel) else 0}.
 extern "C" int megakernel_gen_info(const MegakernelParams* params, int* out) {
-  const int smem = knot_rows(params) * MK_TILE_COLS * (int)sizeof(float);
+  const GenLayout gen = gen_layout(params);
+  if (!gen.kernel) return -1;
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncSetAttribute(megakernel_gen,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, megakernel_gen);
+  cudaError_t err = cudaFuncSetAttribute(gen.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         gen.smem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, gen.kernel);
   int blocks = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, megakernel_gen, MK_TILE_COLS, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, gen.kernel, MK_TILE_COLS,
+                                                        gen.smem);
   if (err != cudaSuccess) return (int)err;
-  const int info[6] = {params->coverage_lod, attr.numRegs, (int)attr.localSizeBytes, blocks, smem,
-                       0};
+  const int info[6] = {params->coverage_lod, attr.numRegs, (int)attr.localSizeBytes, blocks,
+                       gen.smem, gen.row_cache};
   for (int i = 0; i < 6; ++i) out[i] = info[i];
   return 0;
 }

@@ -96,9 +96,15 @@ KNOTS = 8
 #: the procedural instance's coarse pixels per thread, C = cloud_coverage_lod
 #: (a group of cloud_lod·C rows divides the 32-row tile)
 GEN_COARSE = (1, 2, 4, 8, 16, 32)
-#: the procedural instance's knot rows in shared memory (coverage, shape and
-#: detail knots of a block's 128 threads: 448 × 512 B fits 227 KB)
-MAX_KNOT_ROWS = 448
+#: the procedural instance's dynamic shared memory, in rows of one float per
+#: thread of its 128-thread block (512 B; ``MK_*`` of ``csrc/megakernel.cu``):
+#: at most SMEM_ROWS (226 KB of the 227 KB a block may use), of which the
+#: knots take one row each, a coarse pixel of the group GEN_MARCH_ROWS (its
+#: march inputs and the march list) and, where they fit, a row of the group
+#: GEN_CACHE_ROWS (the row cache: one opaque pass per pixel)
+SMEM_ROWS = 452
+GEN_MARCH_ROWS = 7
+GEN_CACHE_ROWS = 4
 #: texture mode: the shape knot count it is built for, pyramid levels and
 #: batch modes (as ``texsample.py`` numbers them); its tile is the plain
 #: renderer's ``TILE_ROWS × TILE_COLS``
@@ -426,9 +432,26 @@ def _procedural_problems(config: VariantConfig):
     if config.cloud_lod < 1 or config.cloud_coverage_lod < 1 or TILE_ROWS % group:
         yield (f"cloud_lod·cloud_coverage_lod = {group} (it must divide the "
                f"{TILE_ROWS}-row tile)")
-    if knot_rows(config) > MAX_KNOT_ROWS:
-        yield (f"{knot_rows(config)} knot rows (coverage, shape and detail knots + 1 each; "
-               f"shared memory holds {MAX_KNOT_ROWS})")
+    elif gen_smem(config)[0] is None:
+        rows = knot_rows(config) + GEN_MARCH_ROWS * config.cloud_coverage_lod
+        yield (f"{knot_rows(config)} knot rows (coverage, shape and detail knots + 1 each) and "
+               f"{rows - knot_rows(config)} rows of march state: {rows} rows of shared memory, "
+               f"a block holds {SMEM_ROWS} ({SMEM_ROWS * TILE_COLS * 4} B)")
+
+
+def gen_smem(config: VariantConfig) -> tuple:
+    """The procedural instance's dynamic shared memory for ``config``, as
+    its launcher lays it out: ``(bytes, row cache?)``.  The knot rows
+    (:func:`knot_rows`) and GEN_MARCH_ROWS per coarse pixel of the group
+    must fit SMEM_ROWS, else ``(None, False)`` (the kernel refuses the
+    config); the row cache's GEN_CACHE_ROWS per row of the group join them
+    where they still fit, else the group's rows take two opaque passes."""
+    group = config.cloud_lod * config.cloud_coverage_lod
+    rows = knot_rows(config) + GEN_MARCH_ROWS * config.cloud_coverage_lod
+    if rows > SMEM_ROWS:
+        return None, False
+    cache = rows + GEN_CACHE_ROWS * group <= SMEM_ROWS
+    return (rows + (GEN_CACHE_ROWS * group if cache else 0)) * TILE_COLS * 4, cache
 
 
 def knot_rows(config: VariantConfig) -> int:

@@ -720,3 +720,55 @@ def test_launch_struct_mirrors_match_the_built_kernels(cuda):
 
     mk.load_library()
     taa._launcher()
+
+
+# -- the procedural instance's redesign: one instance per C, the row cache, the
+# march list ------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lod,coverage_lod,change,row_cache", [
+    (2, 1, {}, 1), (2, 2, {}, 1), (2, 4, {}, 1), (2, 8, {}, 1), (2, 16, {}, 1), (1, 32, {}, 1),
+    (2, 2, dict(cloud_shape_interp=True, cloud_shape_knots=420), 0),
+    (1, 32, dict(cloud_shape_interp=True, cloud_shape_knots=100), 0),
+])
+def test_every_coarse_instance_matches_plain(cuda, lod, coverage_lod, change, row_cache):
+    """``megakernel_gen<C>`` for every C the launcher takes, with the row
+    cache (one opaque pass per pixel) and, where the knots and the march
+    state leave it no room, without it, against the plain version."""
+    params, config, cam, opaque = _inputs("clouds_high", "avatar", cuda)
+    config = dataclasses.replace(config, cloud_lod=lod, cloud_coverage_lod=coverage_lod,
+                                 **change)
+    struct = mk.frame_constants(params, config, cam, opaque, H, W)
+    info = mk.gen_info(struct)
+    assert (info["coarse"], info["row_cache"]) == (coverage_lod, row_cache)
+    assert info["smem_bytes"] == mk.gen_smem(config)[0] and info["blocks_per_sm"] >= 1
+    mk.counters.reset()
+    got = _image(mk.render_frame_megakernel(params, config, cam, opaque, H, W))
+    ref = _image(mk.render_frame_plain(params, config, cam, opaque, H, W))
+    assert mk.counters.general_launches == 1
+    assert float(got[..., 3].max()) > 0.05 and _cloud_ok(got, ref)
+
+
+@pytest.mark.cuda
+def test_march_list_across_the_shell_edge(cuda):
+    """The exterior pose puts the shell's edge across the frame: many
+    coverage groups miss the shell or are culled, the rest march from the
+    block's dense list; the frame matches plain and the march's lanes are
+    busier than one thread per group would keep them."""
+    params, config, cam, opaque = _inputs("clouds_high", "exterior", cuda)
+    struct = mk.frame_constants(params, config, cam, opaque, H, W)
+    color = torch.empty((H, W, 3), device=cuda)
+    alpha = torch.empty((H, W), device=cuda)
+    work = mk.work_counts(struct, color, alpha)
+    coarse = H // config.cloud_lod * W
+    assert 0.2 <= work["march"] / coarse <= 0.8, work
+    # a block's list of n entries runs in ceil(n / 32) warp-rounds: each
+    # block leaves less than one round's lanes idle
+    steps = config.cloud_steps
+    blocks = W // 128 * (H // (config.cloud_lod * config.cloud_coverage_lod))
+    assert work["march_lane_steps"] == work["march"] * steps
+    assert work["march_warp_steps"] % steps == 0
+    assert work["march_warp_steps"] // steps < work["march"] / 32 + blocks, work
+    ref = _image(mk.render_frame_plain(params, config, cam, opaque, H, W))
+    assert _cloud_ok(_image({"color": color, "alpha": alpha}), ref)

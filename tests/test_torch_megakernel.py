@@ -150,15 +150,74 @@ def test_general_instance_takes_the_procedural_envelope(clouds_high, change):
 
 
 def test_knot_rows_have_a_limit(clouds_high):
-    """The procedural instance's knots live in shared memory: coverage, shape
-    and detail knots (+1 each) fit MAX_KNOT_ROWS rows of a block."""
+    """The procedural instance's knots live in shared memory beside the
+    march state: coverage, shape and detail knots (+1 each) and
+    GEN_MARCH_ROWS rows per coarse pixel fit SMEM_ROWS rows of a block (226
+    of the 227 KB a block may use), else ``check_config`` refuses."""
     cfg = dataclasses.replace(clouds_high[1][1], cloud_shape_interp=True,
                               clouds_always_low_quality=False, cloud_shape_knots=210,
                               cloud_coverage_knots=40)
-    assert mk.knot_rows(cfg) == 41 + 2 * 211 > mk.MAX_KNOT_ROWS
+    assert cfg.cloud_coverage_lod == 2
+    assert mk.knot_rows(cfg) + 2 * mk.GEN_MARCH_ROWS == 41 + 2 * 211 + 14 > mk.SMEM_ROWS
+    assert mk.gen_smem(cfg) == (None, False)
     with pytest.raises(ValueError, match="knot rows"):
         mk.check_config(cfg)
-    mk.check_config(dataclasses.replace(cfg, cloud_coverage_knots=8))
+    fits = dataclasses.replace(cfg, cloud_coverage_knots=8)
+    assert mk.gen_smem(fits) == ((9 + 422 + 14) * 512, False)  # no room for the row cache
+    mk.check_config(fits)
+    # 32 coarse pixels per thread: 224 rows of march state leave 228 for knots
+    wide = dataclasses.replace(fits, cloud_lod=1, cloud_coverage_lod=32, cloud_lod_interior=0,
+                               cloud_shape_knots=108)
+    assert mk.knot_rows(wide) + 32 * mk.GEN_MARCH_ROWS == 9 + 218 + 224 <= mk.SMEM_ROWS
+    mk.check_config(wide)
+    with pytest.raises(ValueError, match="knot rows"):
+        mk.check_config(dataclasses.replace(wide, cloud_shape_knots=109))
+
+
+@pytest.mark.parametrize("change,rows,cache", [
+    (dict(), 9 + 2 * 7 + 4 * 4, True),  # the demo profile: 9 knots, C = 2, G = 4
+    (dict(cloud_lod=4), 9 + 2 * 7 + 8 * 4, True),  # its interior LOD
+    (dict(cloud_lod=1, cloud_coverage_lod=32), 9 + 32 * 7 + 32 * 4, True),
+    (dict(cloud_lod=16, cloud_coverage_lod=2), 9 + 2 * 7 + 32 * 4, True),
+    (dict(cloud_coverage_interp=False, cloud_lod=1, cloud_coverage_lod=1), 7 + 4, True),
+    (dict(cloud_shape_interp=True, cloud_shape_knots=300), 9 + 301 + 14 + 16, True),
+    (dict(cloud_shape_interp=True, cloud_shape_knots=420), 9 + 421 + 14, False),
+    (dict(cloud_lod=1, cloud_coverage_lod=32, cloud_shape_interp=True, cloud_shape_knots=100),
+     9 + 101 + 224, False),
+])
+def test_gen_smem_budget_matches_the_kernel(clouds_high, change, rows, cache):
+    """The wrapper's shared-memory budget (knot rows, the march state and
+    list, the row cache where it fits) as the launcher lays it out with the
+    ``.cu``'s constants; the dynamic rows and the static scan offsets of the
+    widest instance fit the 232,448 bytes a block may use."""
+    cfg = dataclasses.replace(clouds_high[1][1], cloud_lod_interior=0, **change)
+    mk.check_config(cfg)
+    assert mk.gen_smem(cfg) == (rows * mk.TILE_COLS * 4, cache)
+    defines = {k: int(v) for k, v in re.findall(r"#define (MK_\w+) (\d+)", _cu_source())}
+    assert (defines["MK_SMEM_ROWS"], defines["MK_GEN_MARCH_ROWS"],
+            defines["MK_GEN_CACHE_ROWS"]) == (mk.SMEM_ROWS, mk.GEN_MARCH_ROWS, mk.GEN_CACHE_ROWS)
+    static = 4 * (4 * max(mk.GEN_COARSE) + 1)  # megakernel_gen's offsets[4 * C + 1]
+    assert re.search(r"__shared__ int offsets\[4 \* C \+ 1\]", _cu_source())
+    assert mk.SMEM_ROWS * mk.TILE_COLS * 4 + static <= 232448
+
+
+_GROUPS = [(g, lod) for g in (1, 2, 4, 8, 16, 32) for lod in (1, 2, 4, 8, 16, 32) if g % lod == 0]
+
+
+@pytest.mark.parametrize("group,lod", _GROUPS)
+def test_launcher_instantiates_every_coarse_count(clouds_high, group, lod):
+    """``check_config`` passes every LOD group dividing the 32-row tile, and
+    the launcher (``gen_layout``) has an instance of ``megakernel_gen<C>``
+    for its C = cloud_coverage_lod coarse pixels per thread."""
+    cfg = dataclasses.replace(clouds_high[1][1], cloud_lod=lod, cloud_coverage_lod=group // lod,
+                              cloud_lod_interior=0)
+    mk.check_config(cfg)
+    body = re.search(r"static GenLayout gen_layout\(.*?\n\}", _cu_source(), re.S).group(0)
+    cases = {int(a): int(b) for a, b in re.findall(
+        r"case (\d+): out\.kernel = megakernel_gen<(\d+)>;", body)}
+    assert all(a == b for a, b in cases.items())
+    assert set(cases) == set(mk.GEN_COARSE)
+    assert cfg.cloud_coverage_lod in cases
 
 
 def test_wrapper_takes_temporal_jitter(clouds_high):
@@ -237,7 +296,8 @@ def test_cu_limits_match_wrapper():
     assert defines == {"MK_MAX_SPHERES": mk.MAX_SPHERES, "MK_MAX_BOXES": mk.MAX_BOXES,
                        "MK_MAX_OCTAVES": mk.MAX_OCTAVES, "MK_MAX_GROUP": mk.MAX_GROUP,
                        "MK_QUAD_POINTS": mk.QUAD_POINTS, "MK_KNOTS": mk.KNOTS,
-                       "MK_MAX_KNOT_ROWS": mk.MAX_KNOT_ROWS,
+                       "MK_SMEM_ROWS": mk.SMEM_ROWS, "MK_GEN_MARCH_ROWS": mk.GEN_MARCH_ROWS,
+                       "MK_GEN_CACHE_ROWS": mk.GEN_CACHE_ROWS,
                        "MK_SHAPE_KNOTS": mk.SHAPE_KNOTS, "MK_MAX_LEVELS": mk.MAX_LEVELS,
                        "MK_TILE_ROWS": mk.TILE_ROWS, "MK_TILE_COLS": mk.TILE_COLS,
                        "MK_WINDOWED": mk.WINDOWED, "MK_BANDED": mk.BANDED,
