@@ -26,8 +26,10 @@ the parent's:
 * the device busy ms per frame of the three 1080p K = 8 flights
   (``torch.profiler``).
 
-The bounds are ``chip_smoke.py``'s, from the work counts under T2's
-measured ceilings.  Each side whose source has the stage clocks
+Each pass runs in a process of its own that loads only that side's
+library (the side's ``megakernel.cu`` with the checkout's other kernel
+sources), so no two builds of one kernel share a process.  The bounds are
+``chip_smoke.py``'s, from the work counts under T2's measured ceilings.  Each side whose source has the stage clocks
 (``MK_STAGE_CLOCKS``) also runs its measurement build once per frame:
 cycles per stage, summed over warps.  It prints each pass as a JSON line, the compiler's
 report of each side's ``megakernel_gen`` instances, and, last, one JSON
@@ -44,6 +46,7 @@ import json
 import os
 import re
 import shutil
+import subprocess
 import sys
 
 import numpy as np
@@ -78,34 +81,37 @@ extern "C" int megakernel_gen_info(const MegakernelParams* params, int* out) {
 def gen_report(ptxas: str) -> dict:
     """Registers, stack frame and spills of each ``megakernel_gen`` entry in
     a ``-Xptxas=-v`` log, by mangled name."""
-    out, name = {}, None
+    out, props, entry = {}, None, None
     for line in ptxas.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = m.group(1) if "megakernel_gen" in m.group(1) else None
-        elif name:
-            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                          r"(\d+) bytes spill loads", line)
-            if m:
-                out.setdefault(name, {}).update(stack=int(m.group(1)),
-                                                spill_stores=int(m.group(2)),
-                                                spill_loads=int(m.group(3)))
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                out.setdefault(name, {})["registers"] = int(m.group(1))
+            entry = m.group(1) if "megakernel_gen" in m.group(1) else None
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            props = m.group(1) if "megakernel_gen" in m.group(1) else None
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and props:
+            out.setdefault(props, {}).update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out.setdefault(entry, {})["registers"] = int(m.group(1))
     return out
 
 
 def build_sides(sources: dict, variants: dict) -> tuple:
-    """Every side's library: ``sources`` (side: a ``megakernel.cu``, copied
-    under ``build/compare/<side>/``, with the occupancy query appended where
-    it has none), the checkout's (side ``change``, the package's own build)
-    and each variant's; a measurement build (``<side>/stages``) of each
-    whose source has the stage clocks.  All ``nvcc`` at once.  Returns
-    ``({side: path}, {side: compiler report})``."""
+    """Every side's library of all the kernel sources: ``sources`` (side: a
+    ``megakernel.cu``, copied under ``build/compare/<side>/``, with the
+    occupancy query appended where it has none, beside the checkout's other
+    sources), the checkout's (side ``change``, the package's own build) and
+    each variant's; a measurement build (``<side>/stages``) of each whose
+    source has the stage clocks.  All ``nvcc`` at once; a variant that does
+    not build is left out.  Returns ``({side: path}, {side: report})``."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import library
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
+    others = tuple(s for s in library.SOURCES if s != mk.SOURCE)
     jobs = {"change": dict(ptxas_info=True)}
     staged = {"change": (mk.SOURCE, os.path.join(COMPARE_DIR, "change"))}
     for side, path in sources.items():
@@ -118,22 +124,22 @@ def build_sides(sources: dict, variants: dict) -> tuple:
         copy = os.path.join(side_dir, "megakernel.cu")
         with open(copy, "w") as f:
             f.write(source)
-        jobs[side] = dict(build_dir=side_dir, sources=(copy,), ptxas_info=True)
+        jobs[side] = dict(build_dir=side_dir, sources=(copy, *others), ptxas_info=True)
         if "MK_STAGE_CLOCKS" in source:
             staged[side] = (copy, side_dir)
     for name, defines in variants.items():
-        jobs[name] = dict(build_dir=os.path.join(COMPARE_DIR, name), sources=(mk.SOURCE,),
-                          defines=defines, ptxas_info=True)
+        jobs[name] = dict(build_dir=os.path.join(COMPARE_DIR, name), defines=defines,
+                          ptxas_info=True)
     for side, (copy, side_dir) in staged.items():
-        jobs[f"{side}/stages"] = dict(build_dir=os.path.join(side_dir, "stages"), sources=(copy,),
-                                      defines=mk.MEASURE_DEFINES)
+        jobs[f"{side}/stages"] = dict(build_dir=os.path.join(side_dir, "stages"),
+                                      sources=(copy, *others), defines=mk.MEASURE_DEFINES)
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {k: pool.submit(library.build, **kw) for k, kw in jobs.items()}
         built = {}
         for k, f in futures.items():
             try:
                 built[k] = f.result()
-            except RuntimeError as e:  # a variant that does not build is left out
+            except RuntimeError as e:
                 if k not in variants:
                     raise
                 cs.log(f"[compare] variant {k} left out: {e}")
@@ -279,12 +285,15 @@ def bound(case: Case, i: int, work: dict) -> dict:
     return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
 
 
-def one_pass(side: str, all_cases: list, all_flights: dict, reference: dict) -> dict:
-    """Every case and flight through the bound library of one side."""
+def one_pass(all_cases: list, all_flights: dict, ref_dir: str) -> dict:
+    """Every case and flight through this process's library: each
+    procedural launch's ms, work counts, instance and bound; the frame
+    against the reference frames in ``ref_dir`` (written by the first
+    pass); each flight's device busy ms per frame."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     out = {}
-    for case in all_cases:
+    for n, case in enumerate(all_cases):
         case.run_all()  # the planes the chained launches read
         rows = []
         for i in case.procedural():
@@ -293,14 +302,16 @@ def one_pass(side: str, all_cases: list, all_flights: dict, reference: dict) -> 
                 st, planes[0], planes[1], depth=planes[2], **args), KERNEL_FRAMES)
             work = mk.work_counts(st, planes[0], planes[1], depth=planes[2], **args)
             rows.append({"row0": st.row0, "rows": st.rows, "ms": ms, "work": work,
-                         "lane_utilisation": cs.lane_utilisation(work), **mk.gen_info(st)})
+                         "lane_utilisation": cs.lane_utilisation(work), **mk.gen_info(st),
+                         **bound(case, i, work)})
         img = case.frame()
-        if case.label not in reference:
-            reference[case.label] = img
-        d = np.abs(img.astype(np.float64) - reference[case.label])
+        ref_path = os.path.join(ref_dir, f"{n}.npy")
+        if not os.path.exists(ref_path):
+            np.save(ref_path, img)
+        d = np.abs(img.astype(np.float64) - np.load(ref_path))
         out[case.label] = {"launches": rows, "ms": sum(r["ms"] for r in rows),
-                           "vs_first_parent_max": float(d.max()),
-                           "vs_first_parent_p999": float(np.percentile(d, 99.9))}
+                           "vs_reference_max": float(d.max()),
+                           "vs_reference_p999": float(np.percentile(d, 99.9))}
     for label, fn in all_flights.items():
         fn()  # warm
         trace = cs.flight_trace(fn)
@@ -309,26 +320,78 @@ def one_pass(side: str, all_cases: list, all_flights: dict, reference: dict) -> 
     return out
 
 
+def stage_pass(all_cases: list) -> dict:
+    """This process's library is a measurement build: each procedural
+    launch's cycles per stage, summed over warps, and its lane utilisation."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    out = {}
+    for case in all_cases:
+        case.run_all()
+        split = []
+        for i in case.procedural():
+            _, st, args, planes, _ = case.launches[i]
+            work = mk.work_counts(st, planes[0], planes[1], depth=planes[2], stages=True, **args)
+            cycles = {k: work[f"stage_{k}_cycles"] for k in mk.STAGE_SLOTS}
+            total = sum(cycles.values())
+            split.append({"cycles": cycles, "lane_utilisation": cs.lane_utilisation(work),
+                          "share": {k: v / total for k, v in cycles.items()} if total else None})
+        out[case.label] = split
+    return out
+
+
+def run_pass(args) -> int:
+    """One pass in this process, through the library at ``args.library``
+    alone; its result as JSON to ``args.out``."""
+    import ctypes
+
+    from godot_atmosphere_shader_tpu_torch.models.demo import bake_demo_textures
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import library
+
+    library._LIBRARY = ctypes.CDLL(args.library)  # every kernel of this process
+    cs.PEAK.update(fp32=args.peak_fp32, int32=args.peak_int32)
+    device = torch.device("cuda", 0)
+    all_cases = cases(device)
+    if args.stages:
+        result = stage_pass(all_cases)
+    else:
+        result = one_pass(all_cases, flights(device, bake_demo_textures(device=device)),
+                          args.reference)
+    with open(args.out, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("parent_cu", help="the parent commit's csrc/megakernel.cu")
+    ap.add_argument("parent_cu", nargs="?", help="the parent commit's csrc/megakernel.cu")
     ap.add_argument("--source", action="append", default=[],
                     help="NAME=PATH: one more side, another megakernel.cu")
     ap.add_argument("--variant", action="append", default=[],
-                    help="NAME=DEFINE[,DEFINE...]: the checkout's kernel with these -D defines")
+                    help="NAME=DEFINE[,DEFINE...]: the checkout's kernels with these -D defines")
+    # one pass in a process of its own (the comparison starts these)
+    ap.add_argument("--library", help=argparse.SUPPRESS)
+    ap.add_argument("--out", help=argparse.SUPPRESS)
+    ap.add_argument("--reference", help=argparse.SUPPRESS)
+    ap.add_argument("--stages", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--peak-fp32", type=float, help=argparse.SUPPRESS)
+    ap.add_argument("--peak-int32", type=float, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the comparison needs one GPU")
+    if args.library:
+        return run_pass(args)
+    if not args.parent_cu:
+        ap.error("the parent's megakernel.cu is required")
     sources = {"parent": args.parent_cu, **dict(v.split("=", 1) for v in args.source)}
     variants = {}
     for v in args.variant:
         name, defines = v.split("=", 1)
         variants[name] = tuple(defines.split(","))
 
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the comparison needs one GPU")
     device = torch.device("cuda", 0)
     card = cs.smi("name,power.limit")
     cs.log(card)
-    from godot_atmosphere_shader_tpu_torch.models.demo import bake_demo_textures
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     shutil.rmtree(COMPARE_DIR, ignore_errors=True)
@@ -340,62 +403,56 @@ def main(argv=None) -> int:
                    int32=max(peak["int32_per_s"], peak["clock_int32_per_s"]))
     cs.log(f"[compare] bounds divide by fp32 {cs.PEAK['fp32'] / 1e12:.3f} TFLOP/s and INT32 "
            f"{cs.PEAK['int32'] / 1e12:.3f} T/s on {card}")
+    ref_dir = os.path.join(COMPARE_DIR, "reference")
+    os.makedirs(ref_dir)
 
-    all_cases = cases(device)
-    all_flights = flights(device, bake_demo_textures(device=device))
+    def start(side: str, lib: str, stages: bool = False) -> dict:
+        out = os.path.join(COMPARE_DIR, f"pass-{side.replace('/', '-')}.json")
+        cmd = [sys.executable, os.path.abspath(__file__), "--library", lib, "--out", out,
+               "--reference", ref_dir, "--peak-fp32", repr(cs.PEAK["fp32"]),
+               "--peak-int32", repr(cs.PEAK["int32"])] + (["--stages"] if stages else [])
+        subprocess.run(cmd, check=True)
+        with open(out) as f:
+            return json.load(f)
+
     sides = [*sources, "change", *(v for v in variants if v in paths)]
-    order = sides + sides[::-1]
-    runs, reference = {s: [] for s in sides}, {}
-    for side in order:
-        with mk.use_library(paths[side]):
-            result = one_pass(side, all_cases, all_flights, reference)
+    runs = {s: [] for s in sides}
+    for side in sides + sides[::-1]:  # the first pass writes the reference frames
+        result = start(side, paths[side])
         runs[side].append(result)
         cs.log(f"[compare] pass {side} on {card}: {json.dumps(result)}")
         cs.log(f"[compare] after the pass: "
                f"{cs.smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
-
-    # the measurement builds' cycles per stage, once per side that has them
     for side in [k for k in sides if f"{k}/stages" in paths]:
-        for case in all_cases:
-            case.run_all()
-            split = []
-            for i in case.procedural():
-                _, st, a, planes, _ = case.launches[i]
-                with mk.use_library(paths[f"{side}/stages"]):
-                    work = mk.work_counts(st, planes[0], planes[1], depth=planes[2], stages=True,
-                                          **a)
-                cycles = {k: work[f"stage_{k}_cycles"] for k in mk.STAGE_SLOTS}
-                total = sum(cycles.values())
-                split.append({"cycles": cycles, "lane_utilisation": cs.lane_utilisation(work),
-                              "share": {k: v / total for k, v in cycles.items()} if total
-                              else None})
-            cs.log(f"[compare] stages {side} {case.label}: {json.dumps(split)}")
+        cs.log(f"[compare] stages {side} on {card}: "
+               f"{json.dumps(start(side + '/stages', paths[side + '/stages'], stages=True))}")
 
     # the work a bound counts (the march's lane slots differ by design)
     counted = [k for k in mk.WORK_SLOTS if not k.startswith("march_")]
+    labels = list(runs["parent"][0])
     summary = {}
-    for case in all_cases:
-        first = runs["parent"][0][case.label]
-        bounds = [bound(case, i, r["work"]) for i, r in zip(case.procedural(), first["launches"])]
-        s = {"bound_ms": sum(b["bound_ms"] for b in bounds),
-             "bound_by": [b["bound_by"] for b in bounds]}
+    for label in labels:
+        first = runs["parent"][0][label]
+        if "launches" not in first:  # a flight
+            summary[label] = {side: [r[label]["device_busy_ms_per_frame"] for r in runs[side]]
+                              for side in sides}
+            continue
+        parent_ms = min(r[label]["ms"] for r in runs["parent"])
+        s = {"bound_ms": sum(x["bound_ms"] for x in first["launches"]),
+             "bound_by": [x["bound_by"] for x in first["launches"]]}
         for side in sides:
-            ms = [r[case.label]["ms"] for r in runs[side]]
-            launches = runs[side][0][case.label]["launches"]
+            ms = [r[label]["ms"] for r in runs[side]]
+            launches = runs[side][0][label]["launches"]
             s[side] = {"ms": ms, "best_ms": min(ms), "bound_share": s["bound_ms"] / min(ms),
-                       "vs_parent": min(ms) / min(r[case.label]["ms"] for r in runs["parent"]),
-                       "max_vs_parent": max(r[case.label]["vs_first_parent_max"]
-                                            for r in runs[side]),
+                       "vs_parent": min(ms) / parent_ms,
+                       "max_vs_parent": max(r[label]["vs_reference_max"] for r in runs[side]),
                        "work_equals_parent": all(
                            all(a["work"][k] == b["work"][k] for k in counted)
                            for a, b in zip(launches, first["launches"])),
                        "lane_utilisation": [x["lane_utilisation"] for x in launches],
                        "work": [x["work"] for x in launches],
                        "instance": [{k: x[k] for k in mk.GEN_INFO} for x in launches]}
-        summary[case.label] = s
-    for label in all_flights:
-        summary[label] = {side: [r[label]["device_busy_ms_per_frame"] for r in runs[side]]
-                          for side in sides}
+        summary[label] = s
     for label, s in summary.items():
         cs.log(f"[compare] {label} on {card}: {json.dumps(s)}")
     cs.log(card)
