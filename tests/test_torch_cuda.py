@@ -730,7 +730,7 @@ def test_launch_struct_mirrors_match_the_built_kernels(cuda):
 @pytest.mark.parametrize("lod,coverage_lod,change,row_cache", [
     (2, 1, {}, 1), (2, 2, {}, 1), (2, 4, {}, 1), (2, 8, {}, 1), (2, 16, {}, 1), (1, 32, {}, 1),
     (2, 2, dict(cloud_shape_interp=True, cloud_shape_knots=420), 0),
-    (1, 32, dict(cloud_shape_interp=True, cloud_shape_knots=100), 0),
+    (1, 32, dict(cloud_coverage_knots=200), 0),
 ])
 def test_every_coarse_instance_matches_plain(cuda, lod, coverage_lod, change, row_cache):
     """``megakernel_gen<C>`` for every C the launcher takes, with the row
