@@ -294,7 +294,16 @@ def one_pass(all_cases: list, all_flights: dict, ref_dir: str) -> dict:
 
     out = {}
     for n, case in enumerate(all_cases):
-        case.run_all()  # the planes the chained launches read
+        try:
+            case.run_all()  # the planes the chained launches read
+        except RuntimeError as e:  # a side that does not launch a frame: the others go on
+            out[case.label] = {"error": repr(e), "launches": [
+                {k: getattr(st, k) for k in ("row0", "rows", "height", "width", "cloud_lod",
+                                             "coverage_lod", "with_sky", "with_background",
+                                             "coverage_interp", "shape_interp")}
+                for _, st, _, _, _ in case.launches]}
+            cs.log(f"[compare] {case.label}: {out[case.label]}")
+            continue
         rows = []
         for i in case.procedural():
             _, st, args, planes, _ = case.launches[i]
@@ -440,6 +449,9 @@ def main(argv=None) -> int:
     summary = {}
     for label in labels:
         first = runs["parent"][0][label]
+        if any("error" in r[label] for side in sides for r in runs[side]):
+            summary[label] = {side: [r[label].get("error") for r in runs[side]] for side in sides}
+            continue
         if "launches" not in first:  # a flight
             summary[label] = {side: [r[label]["device_busy_ms_per_frame"] for r in runs[side]]
                               for side in sides}

@@ -1879,7 +1879,6 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
   // 3. the march list, coarse-pixel-major, then warp by warp, then lane by
   // lane: offsets from warp votes and a scan of the per-warp counts
   const unsigned lower = (1u << lane) - 1u;
-#pragma unroll
   for (int k = 0; k < C; ++k) {
     const unsigned votes = __ballot_sync(0xffffffffu, (marches >> k) & 1u);
     if (lane == 0) offsets[k * 4 + warp] = __popc(votes);
@@ -1909,7 +1908,6 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
     if (lane == 31) offsets[4 * C] = incl;
   }
   __syncthreads();
-#pragma unroll
   for (int k = 0; k < C; ++k) {
     const unsigned votes = __ballot_sync(0xffffffffu, (marches >> k) & 1u);
     if ((marches >> k) & 1u) list[offsets[k * 4 + warp] + __popc(votes & lower)] = k * T + tid;
