@@ -356,10 +356,16 @@ def run_pass(args) -> int:
 
     from godot_atmosphere_shader_tpu_torch.models.demo import bake_demo_textures
     from godot_atmosphere_shader_tpu_torch.ops.kernels import library
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     library._LIBRARY = ctypes.CDLL(args.library)  # every kernel of this process
     cs.PEAK.update(fp32=args.peak_fp32, int32=args.peak_int32)
     device = torch.device("cuda", 0)
+    # one small frame first, before the set-up's allocations: the kernel's
+    # module loads and its local memory (a stack, in some builds) is sized
+    scene, cam = cs.scene_and_camera(*SMALL_CASES[0], device)
+    mk.render_frame_megakernel(*cs.frame_inputs(scene, cam)[0], *SMALL_SIZE)
+    torch.cuda.synchronize()
     all_cases = cases(device)
     all_flights = None if args.stages else flights(device, bake_demo_textures(device=device))
     # the launchers return cudaGetLastError(): drop an error that a CUDA
