@@ -63,8 +63,8 @@ GEN_INFO_SHIM = r'''
 extern "C" int megakernel_gen_info(const MegakernelParams* params, int* out) {
   const int smem = knot_rows(params) * MK_TILE_COLS * (int)sizeof(float);
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncSetAttribute(megakernel_gen,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = smem > 48 * 1024 ? cudaFuncSetAttribute(
+      megakernel_gen, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) : cudaSuccess;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, megakernel_gen);
   int blocks = 0;
   if (err == cudaSuccess)

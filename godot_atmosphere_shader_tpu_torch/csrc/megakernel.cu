@@ -2306,6 +2306,13 @@ static GenLayout gen_layout(const MegakernelParams* p) {
   return out;
 }
 
+// dynamic shared memory above the default 48 KB needs the kernel's
+// attribute raised first (never lowered: a smaller launch fits under it)
+static cudaError_t gen_smem_attribute(const GenLayout& gen) {
+  if (gen.smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(gen.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, gen.smem);
+}
+
 extern "C" int megakernel_launch(const MegakernelParams* params, const TexParams* sky,
                                  const float* blue, const float* sky_r, const float* sky_g,
                                  const float* sky_b, const int* sky_choices, float* color,
@@ -2332,11 +2339,8 @@ extern "C" int megakernel_launch(const MegakernelParams* params, const TexParams
                                             color, alpha, depth, w);
     return (int)cudaGetLastError();
   }
-  if (gen.smem > 48 * 1024) {
-    cudaError_t err =
-        cudaFuncSetAttribute(gen.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, gen.smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const cudaError_t err = gen_smem_attribute(gen);
+  if (err != cudaSuccess) return (int)err;
   gen.kernel<<<grid, block, gen.smem, s>>>(*params, sky_t, blue, sky_r, sky_g, sky_b, sky_choices,
                                            color, alpha, depth, w, gen.row_cache);
   return (int)cudaGetLastError();
@@ -2350,8 +2354,7 @@ extern "C" int megakernel_gen_info(const MegakernelParams* params, int* out) {
   const GenLayout gen = gen_layout(params);
   if (!gen.kernel) return -1;
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncSetAttribute(gen.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         gen.smem);
+  cudaError_t err = gen_smem_attribute(gen);
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, gen.kernel);
   int blocks = 0;
   if (err == cudaSuccess)
