@@ -689,22 +689,15 @@ __device__ float sample_noise3(const NoiseParams& s, float x, float y, float z) 
   return total;
 }
 
-// procedural field 0.5 + 0.5 * noise(p * scale): one copy of the code
-// (called, not inlined, at each of its sites; the launch struct is a
-// __grid_constant__, so its noise specs are read in place)
-__device__ __forceinline__ float field_body(const NoiseParams& s, V3 p) {
+// procedural field 0.5 + 0.5 * noise(p * scale); the launch struct is a
+// __grid_constant__, so its noise specs are read in place.  Inlined at the
+// march's per-step and per-sun-sample sites (march_field), called from the
+// knots' sites (field).
+__device__ __forceinline__ float march_field(const NoiseParams& s, V3 p) {
   return 0.5f + 0.5f * sample_noise3(s, p.x * s.scale[0], p.y * s.scale[1], p.z * s.scale[2]);
 }
 
-__device__ __noinline__ float field(const NoiseParams& s, V3 p) { return field_body(s, p); }
-
-// the march's per-step and per-sun-sample fields: called, or with
-// -DMK_GEN_INLINE_FIELD inlined (a measurement of the call)
-#ifdef MK_GEN_INLINE_FIELD
-#define MARCH_FIELD field_body
-#else
-#define MARCH_FIELD field
-#endif
+__device__ __noinline__ float field(const NoiseParams& s, V3 p) { return march_field(s, p); }
 
 // ---------------------------------------------------------------------------
 // Opaque pass (render/opaque.py)
@@ -1016,15 +1009,15 @@ struct GenFields {
   FieldWork* work;
   __device__ __forceinline__ float cov_at(const MegakernelParams& p, V3 pos) const {
     ++work->cov;
-    return MARCH_FIELD(p.coverage, coverage_point(p, pos));
+    return march_field(p.coverage, coverage_point(p, pos));
   }
   __device__ __forceinline__ float shape_at(const MegakernelParams& p, V3 pos) const {
     ++work->shape;
-    return MARCH_FIELD(p.shape, mul(pos, p.cloud_shape_scale));
+    return march_field(p.shape, mul(pos, p.cloud_shape_scale));
   }
   __device__ __forceinline__ float detail_at(const MegakernelParams& p, V3 pos) const {
     ++work->detail;
-    return MARCH_FIELD(p.shape, detail_point(p, pos));
+    return march_field(p.shape, detail_point(p, pos));
   }
   __device__ __forceinline__ float cov(const MegakernelParams& p, float u01, V3 pos) const {
     return cov_knots.k ? cov_knots.interp(u01) : cov_at(p, pos);
@@ -1876,7 +1869,38 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
   const unsigned marches = (!p.coverage_interp || cloud_may_form(p, cov_max)) ? vis : 0u;
   clk.mark(MK_STAGE_KNOTS);
 
-  // 3. the march list, coarse-pixel-major, then warp by warp, then lane by
+  // 3. the march: each entry (coarse pixel k of owner: k * T + owner)
+  // marched by one lane, with its owner's knots and inputs
+  auto march = [&](int e) {
+    const int owner = e % T;
+    float* in = state + e;
+    float* kn = smem + owner;
+    GenKnots cov{nullptr, p.coverage_knots}, shp{nullptr, p.shape_knots},
+        det{nullptr, p.shape_knots};
+    if (p.coverage_interp) {
+      cov.k = kn;
+      kn += (cov.K + 1) * T;
+    }
+    if (p.shape_interp) {
+      shp.k = kn;
+      det.k = full ? kn + (shp.K + 1) * T : nullptr;
+    }
+    const GenFields fields{cov, shp, det, full, &fw};
+    float light, alpha;
+    cloud_march(p, fields, v3(in[MK_IN_RX * C * T], in[MK_IN_RY * C * T], in[MK_IN_RZ * C * T]),
+                in[MK_IN_TB * C * T], in[MK_IN_TEM * C * T], in[MK_IN_JIT * C * T], light, alpha);
+    in[0] = light;
+    in[C * T] = alpha;
+    ++n_march;
+    if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
+  };
+#ifdef MK_GEN_OWN_MARCH
+  // each thread marches its own coarse pixels (a measurement of the list)
+  for (int k = 0; k < C; ++k)
+    if ((marches >> k) & 1u) march(k * T + tid);
+  const unsigned rounds = __popc(__reduce_or_sync(0xffffffffu, marches));
+#else
+  // the block's list, coarse-pixel-major, then warp by warp, then lane by
   // lane: offsets from warp votes and a scan of the per-warp counts
   const unsigned lower = (1u << lane) - 1u;
   for (int k = 0; k < C; ++k) {
@@ -1913,32 +1937,11 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
     if ((marches >> k) & 1u) list[offsets[k * 4 + warp] + __popc(votes & lower)] = k * T + tid;
   }
   __syncthreads();
-  // each entry marched by one lane, with its owner's knots and inputs
   const int n_list = offsets[4 * C];
-  for (int i = tid; i < n_list; i += T) {
-    const int e = list[i];
-    const int owner = e % T;
-    float* in = state + e;  // coarse row e / T of owner
-    float* kn = smem + owner;
-    GenKnots cov{nullptr, p.coverage_knots}, shp{nullptr, p.shape_knots},
-        det{nullptr, p.shape_knots};
-    if (p.coverage_interp) {
-      cov.k = kn;
-      kn += (cov.K + 1) * T;
-    }
-    if (p.shape_interp) {
-      shp.k = kn;
-      det.k = full ? kn + (shp.K + 1) * T : nullptr;
-    }
-    const GenFields fields{cov, shp, det, full, &fw};
-    float light, alpha;
-    cloud_march(p, fields, v3(in[MK_IN_RX * C * T], in[MK_IN_RY * C * T], in[MK_IN_RZ * C * T]),
-                in[MK_IN_TB * C * T], in[MK_IN_TEM * C * T], in[MK_IN_JIT * C * T], light, alpha);
-    in[0] = light;
-    in[C * T] = alpha;
-    ++n_march;
-    if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
-  }
+  for (int i = tid; i < n_list; i += T) march(list[i]);
+  // warp w runs the list's entries w * 32 + 128 j + lane
+  const unsigned rounds = n_list > warp * 32 ? (n_list - warp * 32 + T - 1) / T : 0;
+#endif
   __syncthreads();
   clk.mark(MK_STAGE_MARCH);
 
@@ -1991,8 +1994,6 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
     count_work(work, MK_WORK_DETAIL_EVALS, fw.detail);
     count_work(work, MK_WORK_SHAPE_KNOTS, n_shape_knots);
     count_work(work, MK_WORK_DETAIL_KNOTS, n_detail_knots);
-    // warp w runs the list's entries w * 32 + 128 j + lane
-    const int rounds = n_list > warp * 32 ? (n_list - warp * 32 + T - 1) / T : 0;
     count_work(work, MK_WORK_MARCH_WARP_STEPS, lane ? 0u : rounds * (unsigned)p.cloud_steps);
     count_work(work, MK_WORK_MARCH_LANE_STEPS, n_march * (unsigned)p.cloud_steps);
   }
