@@ -1566,6 +1566,36 @@ def envelope_timing(scene, cam, h: int, w: int, device, check: dict) -> dict:
 
 # -- the procedural instance per stage --------------------------------------------
 
+# The work counts of the procedural kernel before its redesign for Hopper (a
+# thread per column and coverage group marching its own coarse pixels, two
+# opaque passes per pixel) on phase 5f's 1080p frames, per launch of the
+# procedural instance, as an H100 counted them (compare_megakernel.py): the
+# redesign must count the same work, so every bound stays.
+PARENT_WORK_KEYS = ("march", "knot_groups", "coverage_evals", "shape_evals", "detail_evals",
+                    "sun_samples")
+PARENT_WORK = {
+    "clouds_high/avatar": [(666955, 333738, 0, 42685120, 0, 0)],
+    "clouds_high/interior": [(518400, 259200, 0, 33177600, 0, 0)],
+    "clouds/avatar": [(666955, 333738, 0, 21342560, 0, 0)],
+    "clouds_high/avatar with the sky": [(666955, 333738, 0, 42685120, 0, 0)],
+    "clouds_high/sunward with the sky": [(20798, 10524, 0, 1331072, 0, 0)],
+    "cell 5": [(53987, 27226, 0, 24186176, 0, 20731008)],
+    "clouds_high/avatar on 2 shards": [(333310, 166784, 0, 21331840, 0, 0),
+                                       (333645, 166954, 0, 21353280, 0, 0)],
+    "cellular_tier": [(666955, 333738, 0, 42685120, 0, 0)],
+    "reference_profile": [(1333922, 0, 85371008, 85371008, 0, 0)],
+    "tscn_profile": [(1333922, 1333922, 0, 42685504, 0, 0)],
+    "full_quality": [(666960, 333738, 0, 42685440, 42685440, 0)],
+}
+
+
+def check_parent_work(label: str, works: list):
+    """Each procedural launch's work counts against the previous design's."""
+    got = [tuple(w[k] for k in PARENT_WORK_KEYS) for w in works]
+    if got != PARENT_WORK[label]:
+        raise RuntimeError(f"{label}: work counts {got} differ from the previous design's "
+                           f"{PARENT_WORK[label]} ({PARENT_WORK_KEYS})")
+
 
 def lane_utilisation(work: dict):
     """The march's lane utilisation: lane-steps over 32 × warp-steps."""
@@ -1616,9 +1646,7 @@ def stage_split(plan, scene, cam, h: int, w: int, device, measure_path: str) -> 
         cycles = {k: measured[f"stage_{k}_cycles"] for k in mk.STAGE_SLOTS}
         total = sum(cycles.values())
         out.append({"kind": kind, "row0": struct.row0, "rows": struct.rows,
-                    **mk.gen_info(struct), "march": work["march"],
-                    "march_warp_steps": work["march_warp_steps"],
-                    "march_lane_steps": work["march_lane_steps"],
+                    **mk.gen_info(struct), "work": work,
                     "lane_utilisation": lane_utilisation(work), "stage_cycles": cycles,
                     "stage_share": {k: v / total for k, v in cycles.items()} if total else None})
     return out
@@ -2426,8 +2454,9 @@ def main(argv=None) -> int:
     for label in ("clouds_high/avatar", "clouds_high/interior", "clouds/avatar"):
         scene, cam = scene_and_camera(*label.split("/"), device)
         stage_frames[label] = (scene, cam, scene_plan(scene, cam, H), H, W)
-    scene, cam, plan, _ = sky_runs["clouds_high/sunward"]
-    stage_frames["clouds_high/sunward with the sky"] = (scene, cam, plan, H, W)
+    for pose in ("avatar", "sunward"):
+        scene, cam, plan, _ = sky_runs[f"clouds_high/{pose}"]
+        stage_frames[f"clouds_high/{pose} with the sky"] = (scene, cam, plan, H, W)
     kind, scene, cam, ch, cw, plan = cells["5"]
     stage_frames["cell 5"] = (scene, cam, plan, ch, cw)
     for name, (scene, cam, _) in env_runs.items():
@@ -2436,6 +2465,10 @@ def main(argv=None) -> int:
     for label, (scene, cam, plan, fh, fw) in stage_frames.items():
         stages[label] = stage_split(plan, scene, cam, fh, fw, device, measure_path)
         log(f"[stages] {label} {fh}x{fw} on {card}: {json.dumps(stages[label])}")
+        check_parent_work(label, [x["work"] for x in stages[label]])
+    check_parent_work(f"clouds_high/avatar on {FLAGSHIP_SHARDS} shards",
+                      [x["work"] for x in band_flag["launches"]])
+    log("[stages] every procedural launch's work counts equal the previous design's")
 
     # -- 6. the flight slice at 1080p through Scene.render_flight ----------------
     K = FLIGHT_FRAMES
@@ -2581,6 +2614,9 @@ def main(argv=None) -> int:
         "cell5_bound_ms": cell_t["5"]["frame_bound_ms"],
         "scene_max_abs_err": scene_err,
         "max_abs_err": max_err,
+        "instances": instances,
+        "lane_utilisation": stages[flagship][0]["lane_utilisation"],
+        "stage_share": stages[flagship][0]["stage_share"],
         "ms": timings[flagship]["kernel_ms"],
         "plain_ms": timings[flagship]["plain_ms"],
         "bound_ms": bounds[flagship]["bound_ms"],

@@ -775,3 +775,24 @@ def test_march_list_across_the_shell_edge(cuda):
     assert work["march_warp_steps"] // steps < work["march"] / 32 + blocks, work
     ref = _image(mk.render_frame_plain(params, config, cam, opaque, H, W))
     assert _cloud_ok(_image({"color": color, "alpha": alpha}), ref)
+
+
+# the work counts of the procedural kernel before its redesign for Hopper (a
+# thread per column and coverage group marching its own coarse pixels, two
+# opaque passes per pixel), on the 64x128 frames below, as an H100 counted
+# them (compare_megakernel.py)
+_PARENT_WORK = {"avatar": dict(march=2339, knot_groups=1184, coverage_evals=0, shape_evals=149696),
+                "exterior": dict(march=612, knot_groups=327, coverage_evals=0, shape_evals=39168)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pose", sorted(_PARENT_WORK))
+def test_work_counts_equal_the_parents(cuda, pose):
+    """The redesign renders the same work: its march, knot-group, coverage
+    and shape counts, which the roofline bound is computed from, equal the
+    previous design's on the same frame."""
+    params, config, cam, opaque = _inputs("clouds_high", pose, cuda)
+    struct = mk.frame_constants(params, config, cam, opaque, H, W)
+    work = mk.work_counts(struct, torch.empty((H, W, 3), device=cuda),
+                          torch.empty((H, W), device=cuda))
+    assert {k: work[k] for k in _PARENT_WORK[pose]} == _PARENT_WORK[pose]
