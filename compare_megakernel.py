@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import ctypes
 import json
 import os
 import re
@@ -294,16 +295,7 @@ def one_pass(all_cases: list, all_flights: dict, ref_dir: str) -> dict:
 
     out = {}
     for n, case in enumerate(all_cases):
-        try:
-            case.run_all()  # the planes the chained launches read
-        except RuntimeError as e:  # a side that does not launch a frame: the others go on
-            out[case.label] = {"error": repr(e), "launches": [
-                {k: getattr(st, k) for k in ("row0", "rows", "height", "width", "cloud_lod",
-                                             "coverage_lod", "with_sky", "with_background",
-                                             "coverage_interp", "shape_interp")}
-                for _, st, _, _, _ in case.launches]}
-            cs.log(f"[compare] {case.label}: {out[case.label]}")
-            continue
+        case.run_all()  # the planes the chained launches read
         rows = []
         for i in case.procedural():
             _, st, args, planes, _ = case.launches[i]
@@ -352,33 +344,18 @@ def stage_pass(all_cases: list) -> dict:
 def run_pass(args) -> int:
     """One pass in this process, through the library at ``args.library``
     alone; its result as JSON to ``args.out``."""
-    import ctypes
-
     from godot_atmosphere_shader_tpu_torch.models.demo import bake_demo_textures
     from godot_atmosphere_shader_tpu_torch.ops.kernels import library
-    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     library._LIBRARY = ctypes.CDLL(args.library)  # every kernel of this process
     cs.PEAK.update(fp32=args.peak_fp32, int32=args.peak_int32)
     device = torch.device("cuda", 0)
-    # one small frame first, before the set-up's allocations: the kernel's
-    # module loads and its local memory (a stack, in some builds) is sized
-    scene, cam = cs.scene_and_camera(*SMALL_CASES[0], device)
-    mk.render_frame_megakernel(*cs.frame_inputs(scene, cam)[0], *SMALL_SIZE)
-    torch.cuda.synchronize()
     all_cases = cases(device)
-    all_flights = None if args.stages else flights(device, bake_demo_textures(device=device))
-    # the launchers return cudaGetLastError(): drop an error that a CUDA
-    # call of the set-up left behind, so that it is not taken for a launch's
-    torch.cuda.synchronize()
-    runtime = ctypes.CDLL("libcudart.so.12")
-    stale = runtime.cudaGetLastError()
-    if stale:
-        cs.log(f"[compare] the set-up left CUDA error {stale}; cleared")
     if args.stages:
         result = stage_pass(all_cases)
     else:
-        result = one_pass(all_cases, all_flights, args.reference)
+        result = one_pass(all_cases, flights(device, bake_demo_textures(device=device)),
+                          args.reference)
     with open(args.out, "w") as f:
         json.dump(result, f)
     return 0
@@ -455,9 +432,6 @@ def main(argv=None) -> int:
     summary = {}
     for label in labels:
         first = runs["parent"][0][label]
-        if any("error" in r[label] for side in sides for r in runs[side]):
-            summary[label] = {side: [r[label].get("error") for r in runs[side]] for side in sides}
-            continue
         if "launches" not in first:  # a flight
             summary[label] = {side: [r[label]["device_busy_ms_per_frame"] for r in runs[side]]
                               for side in sides}

@@ -1894,15 +1894,15 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
     ++n_march;
     if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
   };
-#ifdef MK_GEN_OWN_MARCH
+  const unsigned lower = (1u << lane) - 1u;
+#if defined(MK_GEN_OWN_MARCH)
   // each thread marches its own coarse pixels (a measurement of the list)
   for (int k = 0; k < C; ++k)
     if ((marches >> k) & 1u) march(k * T + tid);
   const unsigned rounds = __popc(__reduce_or_sync(0xffffffffu, marches));
-#else
-  // the block's list, coarse-pixel-major, then warp by warp, then lane by
-  // lane: offsets from warp votes and a scan of the per-warp counts
-  const unsigned lower = (1u << lane) - 1u;
+#elif defined(MK_GEN_BLOCK_LIST)
+  // one list for the block (a measurement): coarse-pixel-major, then warp
+  // by warp, then lane by lane, from warp votes and a scan of the counts
   for (int k = 0; k < C; ++k) {
     const unsigned votes = __ballot_sync(0xffffffffu, (marches >> k) & 1u);
     if (lane == 0) offsets[k * 4 + warp] = __popc(votes);
@@ -1939,10 +1939,24 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
   __syncthreads();
   const int n_list = offsets[4 * C];
   for (int i = tid; i < n_list; i += T) march(list[i]);
+  __syncthreads();
   // warp w runs the list's entries w * 32 + 128 j + lane
   const unsigned rounds = n_list > warp * 32 ? (n_list - warp * 32 + T - 1) / T : 0;
+#else
+  // the warp's list of its marching coarse pixels, coarse-pixel-major, then
+  // lane by lane (positions from warp votes), marched 32 at a time
+  int* wlist = list + warp * 32 * C;
+  int n_list = 0;
+  for (int k = 0; k < C; ++k) {
+    const unsigned votes = __ballot_sync(0xffffffffu, (marches >> k) & 1u);
+    if ((marches >> k) & 1u) wlist[n_list + __popc(votes & lower)] = k * T + tid;
+    n_list += __popc(votes);
+  }
+  __syncwarp();  // the warp's knots, march inputs and list
+  for (int i = lane; i < n_list; i += 32) march(wlist[i]);
+  __syncwarp();  // each light and alpha for its owner
+  const unsigned rounds = (n_list + 31) / 32;
 #endif
-  __syncthreads();
   clk.mark(MK_STAGE_MARCH);
 
   // 4. blend each of the group's rows inside the launch with its coarse

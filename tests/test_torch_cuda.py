@@ -757,8 +757,8 @@ def test_march_list_across_the_shell_edge(cuda):
     """The exterior pose puts the shell's edge across the frame: most
     coverage groups miss the shell or are culled (measured: 612 of the 4,096
     coarse pixels march), the rest march from the block's dense list; the
-    frame matches plain and each block leaves less than one warp-round of
-    the march's lanes idle."""
+    frame matches plain and each warp leaves less than one round of its
+    march lanes idle."""
     params, config, cam, opaque = _inputs("clouds_high", "exterior", cuda)
     struct = mk.frame_constants(params, config, cam, opaque, H, W)
     color = torch.empty((H, W, 3), device=cuda)
@@ -766,13 +766,13 @@ def test_march_list_across_the_shell_edge(cuda):
     work = mk.work_counts(struct, color, alpha)
     coarse = H // config.cloud_lod * W
     assert 0.1 <= work["march"] / coarse <= 0.9, work
-    # a block's list of n entries runs in ceil(n / 32) warp-rounds: each
-    # block leaves less than one round's lanes idle
+    # a warp's list of n entries runs in ceil(n / 32) rounds: each warp
+    # leaves less than one round's lanes idle
     steps = config.cloud_steps
-    blocks = W // 128 * (H // (config.cloud_lod * config.cloud_coverage_lod))
+    warps = W // 32 * (H // (config.cloud_lod * config.cloud_coverage_lod))
     assert work["march_lane_steps"] == work["march"] * steps
     assert work["march_warp_steps"] % steps == 0
-    assert work["march_warp_steps"] // steps < work["march"] / 32 + blocks, work
+    assert work["march_warp_steps"] // steps < work["march"] / 32 + warps, work
     ref = _image(mk.render_frame_plain(params, config, cam, opaque, H, W))
     assert _cloud_ok(_image({"color": color, "alpha": alpha}), ref)
 
