@@ -1,23 +1,19 @@
 """Two builds of the procedural megakernel ``megakernel_gen`` on one card,
 in turns.
 
-    python3 compare_megakernel.py PARENT_CU [--source NAME=PATH] ...
-                                  [--variant NAME=DEFINE[,DEFINE...]] ...
+    python3 compare_megakernel.py PARENT_CU
 
-Builds, all ``nvcc`` at once, the checkout's kernel library, a library of
+Builds, all ``nvcc`` at once, the checkout's kernel library and one of
 ``PARENT_CU`` (another commit's ``csrc/megakernel.cu``, copied under
-``build/compare/`` with the occupancy query ``megakernel_gen_info`` appended
-where it has none), one of each ``--source`` alike, and one of the
-checkout's ``csrc/megakernel.cu`` per ``--variant`` (its ``-D`` defines,
-e.g. ``two_pass=MK_GEN_TWO_PASS``).  Then the sides run in turns, ``parent,
-sources..., change, variants..., variants reversed, change, sources...,
-parent``; each pass takes, through that side's library, on the main
-path's 1080p frames (the flagship ``clouds_high``/avatar,
-``clouds_high``/interior, ``clouds``/avatar, ``clouds_high`` at avatar and
-sunward with a seeded 1024×2048 sky, JAX bench cell 5, the flagship on 2
-shards, the four envelope frames of ``chip_smoke.py`` phase 4f) and on the
-64×128 frames whose work counts ``tests/test_torch_cuda.py`` holds against
-the parent's:
+``build/compare/parent/`` with the occupancy query ``megakernel_gen_info``
+appended where it has none, beside the checkout's other kernel sources).
+Then the two run in turns, ``parent, change, change, parent``; each pass
+takes, through that side's library, on the main path's 1080p frames (the
+flagship ``clouds_high``/avatar, ``clouds_high``/interior,
+``clouds``/avatar, ``clouds_high`` at avatar and sunward with a seeded
+1024×2048 sky, JAX bench cell 5, the flagship on 2 shards, the four
+envelope frames of ``chip_smoke.py`` phase 4f) and on the 64×128 frames
+whose work counts ``tests/test_torch_cuda.py`` holds against the parent's:
 
 * each procedural-instance launch's kernel ms (CUDA events) with its work
   counts (the march's lane utilisation among them) and what its instance
@@ -27,15 +23,14 @@ the parent's:
   (``torch.profiler``).
 
 Each pass runs in a process of its own that loads only that side's
-library (the side's ``megakernel.cu`` with the checkout's other kernel
-sources), so no two builds of one kernel share a process.  The bounds are
-``chip_smoke.py``'s, from the work counts under T2's measured ceilings.  Each side whose source has the stage clocks
-(``MK_STAGE_CLOCKS``) also runs its measurement build once per frame:
-cycles per stage, summed over warps.  It prints each pass as a JSON line, the compiler's
-report of each side's ``megakernel_gen`` instances, and, last, one JSON
-summary per frame: every side's times, the change over the parent, the
-bound's share and whether every side's work counts equal the parent's.
-Run from the repository root on one card; it needs no network.
+library, so no two builds of one kernel share a process.  The bounds are
+``chip_smoke.py``'s, from the work counts under T2's measured ceilings.
+The checkout's measurement build (``MK_STAGE_CLOCKS``) runs once more per
+frame: cycles per stage, summed over warps.  It prints each pass as a JSON
+line, the compiler's report of each side's ``megakernel_gen`` instances,
+and, last, one JSON summary per frame: both sides' times, the change over
+the parent, the bound's share and whether the work counts equal the
+parent's.  Run from the repository root on one card; it needs no network.
 """
 
 from __future__ import annotations
@@ -101,49 +96,32 @@ def gen_report(ptxas: str) -> dict:
     return out
 
 
-def build_sides(sources: dict, variants: dict) -> tuple:
-    """Every side's library of all the kernel sources: ``sources`` (side: a
-    ``megakernel.cu``, copied under ``build/compare/<side>/``, with the
-    occupancy query appended where it has none, beside the checkout's other
-    sources), the checkout's (side ``change``, the package's own build) and
-    each variant's; a measurement build (``<side>/stages``) of each whose
-    source has the stage clocks.  All ``nvcc`` at once; a variant that does
-    not build is left out.  Returns ``({side: path}, {side: report})``."""
+def build_sides(parent_cu: str) -> tuple:
+    """The libraries of all the kernel sources: the parent's (its
+    ``megakernel.cu``, with the occupancy query appended where it has none,
+    beside the checkout's other sources), the checkout's (the package's own
+    build) and its measurement build.  All ``nvcc`` at once.  Returns
+    ``({side: path}, {side: compiler report})``."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import library
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
+    parent_dir = os.path.join(COMPARE_DIR, "parent")
+    os.makedirs(parent_dir)
+    with open(parent_cu) as f:
+        source = f.read()
+    if "megakernel_gen_info" not in source:
+        source += GEN_INFO_SHIM
+    copy = os.path.join(parent_dir, "megakernel.cu")
+    with open(copy, "w") as f:
+        f.write(source)
     others = tuple(s for s in library.SOURCES if s != mk.SOURCE)
-    jobs = {"change": dict(ptxas_info=True)}
-    staged = {"change": (mk.SOURCE, os.path.join(COMPARE_DIR, "change"))}
-    for side, path in sources.items():
-        side_dir = os.path.join(COMPARE_DIR, side)
-        os.makedirs(side_dir, exist_ok=True)
-        with open(path) as f:
-            source = f.read()
-        if "megakernel_gen_info" not in source:
-            source += GEN_INFO_SHIM
-        copy = os.path.join(side_dir, "megakernel.cu")
-        with open(copy, "w") as f:
-            f.write(source)
-        jobs[side] = dict(build_dir=side_dir, sources=(copy, *others), ptxas_info=True)
-        if "MK_STAGE_CLOCKS" in source:
-            staged[side] = (copy, side_dir)
-    for name, defines in variants.items():
-        jobs[name] = dict(build_dir=os.path.join(COMPARE_DIR, name), defines=defines,
-                          ptxas_info=True)
-    for side, (copy, side_dir) in staged.items():
-        jobs[f"{side}/stages"] = dict(build_dir=os.path.join(side_dir, "stages"),
-                                      sources=(copy, *others), defines=mk.MEASURE_DEFINES)
+    jobs = {"change": dict(ptxas_info=True),
+            "parent": dict(build_dir=parent_dir, sources=(copy, *others), ptxas_info=True),
+            "change/stages": dict(build_dir=os.path.join(COMPARE_DIR, "stages"),
+                                  defines=mk.MEASURE_DEFINES)}
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {k: pool.submit(library.build, **kw) for k, kw in jobs.items()}
-        built = {}
-        for k, f in futures.items():
-            try:
-                built[k] = f.result()
-            except RuntimeError as e:
-                if k not in variants:
-                    raise
-                cs.log(f"[compare] variant {k} left out: {e}")
+        built = {k: f.result() for k, f in futures.items()}
     return ({k: v[0] for k, v in built.items()},
             {k: gen_report(v[1]) for k, v in built.items() if v[1]})
 
@@ -364,10 +342,6 @@ def run_pass(args) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("parent_cu", nargs="?", help="the parent commit's csrc/megakernel.cu")
-    ap.add_argument("--source", action="append", default=[],
-                    help="NAME=PATH: one more side, another megakernel.cu")
-    ap.add_argument("--variant", action="append", default=[],
-                    help="NAME=DEFINE[,DEFINE...]: the checkout's kernels with these -D defines")
     # one pass in a process of its own (the comparison starts these)
     ap.add_argument("--library", help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)
@@ -382,11 +356,6 @@ def main(argv=None) -> int:
         return run_pass(args)
     if not args.parent_cu:
         ap.error("the parent's megakernel.cu is required")
-    sources = {"parent": args.parent_cu, **dict(v.split("=", 1) for v in args.source)}
-    variants = {}
-    for v in args.variant:
-        name, defines = v.split("=", 1)
-        variants[name] = tuple(defines.split(","))
 
     device = torch.device("cuda", 0)
     card = cs.smi("name,power.limit")
@@ -394,7 +363,7 @@ def main(argv=None) -> int:
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     shutil.rmtree(COMPARE_DIR, ignore_errors=True)
-    paths, reports = build_sides(sources, variants)
+    paths, reports = build_sides(args.parent_cu)
     cs.log(f"[compare] compiler report of megakernel_gen per side: {json.dumps(reports)}")
     mk.load_library()
     peak = cs.peak_probe(device)
@@ -414,7 +383,7 @@ def main(argv=None) -> int:
         with open(out) as f:
             return json.load(f)
 
-    sides = [*sources, "change", *(v for v in variants if v in paths)]
+    sides = ["parent", "change"]
     runs = {s: [] for s in sides}
     for side in sides + sides[::-1]:  # the first pass writes the reference frames
         result = start(side, paths[side])
@@ -422,9 +391,8 @@ def main(argv=None) -> int:
         cs.log(f"[compare] pass {side} on {card}: {json.dumps(result)}")
         cs.log(f"[compare] after the pass: "
                f"{cs.smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
-    for side in [k for k in sides if f"{k}/stages" in paths]:
-        cs.log(f"[compare] stages {side} on {card}: "
-               f"{json.dumps(start(side + '/stages', paths[side + '/stages'], stages=True))}")
+    cs.log(f"[compare] stages change on {card}: "
+           f"{json.dumps(start('change-stages', paths['change/stages'], stages=True))}")
 
     # the work a bound counts (the march's lane slots differ by design)
     counted = [k for k in mk.WORK_SLOTS if not k.startswith("march_")]

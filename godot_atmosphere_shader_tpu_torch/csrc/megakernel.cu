@@ -34,8 +34,9 @@
 //   * the conservative density-bound cull exits before the march per
 //     coarse pixel (output-equivalent: a culled pixel marches to exact
 //     zeros), as does every pixel whose ray misses the shell;
-//   * no intermediate goes to device memory; per-row state lives in the
-//     thread's stack frame (L1).
+//   * no intermediate goes to device memory (the procedural instance keeps
+//     a row's background in its own output pixel until the blend); per-row
+//     state lives in registers or shared memory.
 //
 // Texture mode (K2).  The TPU has no per-lane gather, so its samplers scan
 // a VMEM window row by row with lane gathers; the window machinery is why a
@@ -86,23 +87,38 @@
 // and so is raymarched lighting (a 6-step sun march per cloud step, kept
 // rolled).
 //
-// The procedural instance (megakernel_gen, K1 slice (h)) takes every
-// procedural config the TPU kernel renders (its body is the shared
-// XLA shading code, so _check_config, megakernel.py:468-496, is the
-// envelope): every noise basis (value, perlin, simplex, simplex-smooth, the
-// 27-cell cellular with its three returns, the 8-cell cellular_fast),
-// every fractal (ping-pong, weighted_strength), coverage and shape per step
-// or from any number of knots, full-quality density (the detail field, the
+// The procedural instance (megakernel_gen<C>, K1 slice (h)) takes every
+// procedural config the TPU kernel renders (its body is the shared XLA
+// shading code, so _check_config, megakernel.py:468-496, is the envelope):
+// every noise basis (value, perlin, simplex, simplex-smooth, the 27-cell
+// cellular with its three returns, the 8-cell cellular_fast), every
+// fractal (ping-pong, weighted_strength), coverage and shape per step or
+// from any number of knots, full-quality density (the detail field, the
 // shape field at pos * 15 + time * 0.01, per step or from its knots), and
-// LOD groups of up to the 32-row tile.  What bounds it: the noise, fp32
-// and, for the cellular bases, INT32 (each of the 27 cells is three
-// uint32 avalanches; Hopper's INT32 lanes are half its FP32 lanes).  What
-// the design does about it: the knots live in dynamic shared memory,
-// knot-major with a stride of the block (conflict-free, any count); the
-// noise is one called function (field, on the __grid_constant__
-// launch struct) instead of nine inlined copies; the rows of a group take
-// two passes so per-row state never exceeds one row; hat-sum knots read the
-// same two live knots as dynamic ones (the other terms are exact zeros).
+// LOD groups of up to the 32-row tile.  What bounds it: the noise and the
+// march's per-step arithmetic (accurate expf, sqrtf and divisions), fp32
+// and, for the cellular bases, INT32 (each of the 27 cells is three uint32
+// avalanches; Hopper's INT32 lanes are half its FP32 lanes); the march
+// takes 60-90 % of a frame's cycles, the knots 5-20 %, the coarse pass
+// the rest but on frames where little marches (cycles per stage from the
+// measurement build, -DMK_STAGE_CLOCKS, on an H100).  The march's lanes
+// are not the limit: a warp's lanes march 0.98 of its steps on the 1080p
+// frames (lists of the marching coarse pixels, per block or per warp,
+// measured slower there).  What the design does about it:
+//   * one instance per C, the coarse pixels a thread owns: its state is a
+//     visibility bitmask and a few scalars in registers, its march inputs
+//     in shared memory; no stack at C <= 16 (a design that sized per-row
+//     arrays for 32 rows kept a 1,600 B stack);
+//   * each row shaded once: its atmosphere kept in shared memory (the row
+//     cache) and its background in the color plane until the blend; two
+//     opaque passes only where the knots leave the cache no room;
+//   * the fields of the march's steps and sun samples inlined (march_field),
+//     the knots' evaluations one called copy (field);
+//   * the knots in dynamic shared memory, knot-major with a stride of the
+//     block (conflict-free, any count); hat-sum knots read the same two live
+//     knots as dynamic ones (the other terms are exact zeros);
+//   * 128 registers for 4 blocks of 4 warps per SM: capped for 5 or 6
+//     blocks it spills, and frames with little march or a sun march slow.
 // The full-quality frame is ill-conditioned: the detail field turns one
 // ulp of a march position into ~1e-3 of a cloud pixel.
 //
@@ -140,12 +156,11 @@
 #define MK_QUAD_POINTS 8
 #define MK_KNOTS 8  // texture instance: coverage knots
 // the procedural instance's dynamic shared memory, in rows of one float per
-// thread of a 128-thread block (512 B): at most 452 rows (231,424 B of the
-// 232,448 a block may use; its static offsets take up to 516 B); each
-// coarse pixel of the group takes 6 rows of march inputs and a row of the
-// march list, each row of the group 4 rows of the row cache
-#define MK_SMEM_ROWS 452
-#define MK_GEN_MARCH_ROWS 7
+// thread of a 128-thread block (512 B): at most the 454 rows (232,448 B) a
+// block may use; each coarse pixel of the group takes 6 rows of march
+// inputs, each row of the group 4 rows of the row cache
+#define MK_SMEM_ROWS 454
+#define MK_GEN_MARCH_ROWS 6
 #define MK_GEN_CACHE_ROWS 4
 #define MK_SHAPE_KNOTS 16  // texture mode's shape knots
 #define MK_MAX_LEVELS 8    // mip levels of a pyramid
@@ -1706,32 +1721,27 @@ __global__ void __launch_bounds__(128) megakernel_clear(const MegakernelParams p
 //   * the knots (coverage, shape, detail: any counts), knot-major with a
 //     stride of the block's 128 threads;
 //   * per coarse pixel of the group, its march inputs (model-space ray,
-//     span, jitter), which the march overwrites with its light and alpha,
-//     and one row of the block's march list;
+//     span, jitter), which the march overwrites with its light and alpha;
 //   * the row cache, where the block can hold it: each row's atmosphere
 //     rgba (alpha -1 where the ray misses the shell).
-// Stages, each of a block's threads in step between them:
+// Stages (no barrier: a thread reads only what it wrote):
 //   1. the coarse pass: every row of the group once (ray, opaque pass or
 //      the layers below, sky, atmosphere, linear depth out), its
 //      background to the color plane and its atmosphere to the row cache;
 //      the coarse pixels' rays and spans;
 //   2. the knots of the thread's coverage group, where a coarse pixel sees
 //      the cloud layer, and the cull;
-//   3. the march: the block's marching coarse pixels (visible, not culled)
-//      listed by warp votes, then marched densely, one per lane, each lane
-//      reading its entry's owner's knots;
+//   3. the march of each of the thread's coarse pixels that sees the
+//      layer and passes the cull, the fields of its steps inlined;
 //   4. each row blended with its coarse pixel's clouds over its
 //      background, and stored.
 // Without the row cache, stage 1 computes the coarse inputs alone and
 // stage 4 shades each row again (two opaque passes per pixel).
 
-// resident blocks per SM its registers are sized for (__launch_bounds__;
-// -DMK_GEN_MIN_BLOCKS=n measures another)
-#ifdef MK_GEN_MIN_BLOCKS
-constexpr int gen_min_blocks = MK_GEN_MIN_BLOCKS;
-#else
+// resident blocks per SM its registers are sized for (__launch_bounds__:
+// 128 registers; capped for 5 or 6 blocks it spills, and the frames with
+// little march or a sun march get slower)
 constexpr int gen_min_blocks = 4;
-#endif
 
 __host__ __device__ __forceinline__ int knot_rows(const MegakernelParams& p) {
   const int shape = p.shape_interp ? (p.shape_knots + 1) * (p.always_low ? 1 : 2) : 0;
@@ -1751,17 +1761,15 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
                    float* __restrict__ alpha_out, float* __restrict__ depth,
                    unsigned long long* work, int row_cache) {
   extern __shared__ float smem[];
-  __shared__ int offsets[4 * C + 1];  // the march list's (coarse row, warp) offsets, its length
   constexpr int T = MK_TILE_COLS;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int x = blockIdx.x * T + tid;
   const int L = p.cloud_lod, G = L * C;
   const int y0 = p.row0 + blockIdx.y * G;
   const int n_rows = min(G, p.row0 + p.rows - y0);
   const bool live = x < p.width;
   float* state = smem + knot_rows(p) * T;  // input f of coarse row k at state[(f * C + k) * T]
-  int* list = (int*)(state + (MK_GEN_MARCH_ROWS - 1) * C * T);
-  float* cache = (float*)(list + C * T);  // rgba c of row r at cache[(r * 4 + c) * T]
+  float* cache = state + MK_GEN_MARCH_ROWS * C * T;  // rgba c of row r at cache[(r * 4 + c) * T]
 
   // the sky's choice for the block's tile (G divides the tile height), as
   // sky_choice_kernel wrote it
@@ -1869,12 +1877,10 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
   const unsigned marches = (!p.coverage_interp || cloud_may_form(p, cov_max)) ? vis : 0u;
   clk.mark(MK_STAGE_KNOTS);
 
-  // 3. the march: each entry (coarse pixel k of owner: k * T + owner)
-  // marched by one lane, with its owner's knots and inputs
-  auto march = [&](int e) {
-    const int owner = e % T;
-    float* in = state + e;
-    float* kn = smem + owner;
+  // 3. the march of each of the thread's coarse pixels that sees the layer
+  // and passes the cull
+  {
+    float* kn = smem + tid;
     GenKnots cov{nullptr, p.coverage_knots}, shp{nullptr, p.shape_knots},
         det{nullptr, p.shape_knots};
     if (p.coverage_interp) {
@@ -1886,77 +1892,19 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
       det.k = full ? kn + (shp.K + 1) * T : nullptr;
     }
     const GenFields fields{cov, shp, det, full, &fw};
-    float light, alpha;
-    cloud_march(p, fields, v3(in[MK_IN_RX * C * T], in[MK_IN_RY * C * T], in[MK_IN_RZ * C * T]),
-                in[MK_IN_TB * C * T], in[MK_IN_TEM * C * T], in[MK_IN_JIT * C * T], light, alpha);
-    in[0] = light;
-    in[C * T] = alpha;
-    ++n_march;
-    if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
-  };
-  const unsigned lower = (1u << lane) - 1u;
-#if defined(MK_GEN_OWN_MARCH)
-  // each thread marches its own coarse pixels (a measurement of the list)
-  for (int k = 0; k < C; ++k)
-    if ((marches >> k) & 1u) march(k * T + tid);
-  const unsigned rounds = __popc(__reduce_or_sync(0xffffffffu, marches));
-#elif defined(MK_GEN_BLOCK_LIST)
-  // one list for the block (a measurement): coarse-pixel-major, then warp
-  // by warp, then lane by lane, from warp votes and a scan of the counts
-  for (int k = 0; k < C; ++k) {
-    const unsigned votes = __ballot_sync(0xffffffffu, (marches >> k) & 1u);
-    if (lane == 0) offsets[k * 4 + warp] = __popc(votes);
-  }
-  __syncthreads();
-  if (warp == 0) {  // exclusive scan of the 4 * C counts, 4 per lane
-    int v[4], sum = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int i = lane * 4 + j;
-      v[j] = i < 4 * C ? offsets[i] : 0;
-      sum += v[j];
+    for (int k = 0; k < C; ++k) {
+      if (!((marches >> k) & 1u)) continue;
+      float* in = state + k * T + tid;
+      float light, alpha;
+      cloud_march(p, fields, v3(in[MK_IN_RX * C * T], in[MK_IN_RY * C * T], in[MK_IN_RZ * C * T]),
+                  in[MK_IN_TB * C * T], in[MK_IN_TEM * C * T], in[MK_IN_JIT * C * T], light,
+                  alpha);
+      in[0] = light;
+      in[C * T] = alpha;
+      ++n_march;
+      if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
     }
-    int incl = sum;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int t = __shfl_up_sync(0xffffffffu, incl, d);
-      if (lane >= d) incl += t;
-    }
-    int run = incl - sum;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int i = lane * 4 + j;
-      if (i < 4 * C) offsets[i] = run;
-      run += v[j];
-    }
-    if (lane == 31) offsets[4 * C] = incl;
   }
-  __syncthreads();
-  for (int k = 0; k < C; ++k) {
-    const unsigned votes = __ballot_sync(0xffffffffu, (marches >> k) & 1u);
-    if ((marches >> k) & 1u) list[offsets[k * 4 + warp] + __popc(votes & lower)] = k * T + tid;
-  }
-  __syncthreads();
-  const int n_list = offsets[4 * C];
-  for (int i = tid; i < n_list; i += T) march(list[i]);
-  __syncthreads();
-  // warp w runs the list's entries w * 32 + 128 j + lane
-  const unsigned rounds = n_list > warp * 32 ? (n_list - warp * 32 + T - 1) / T : 0;
-#else
-  // the warp's list of its marching coarse pixels, coarse-pixel-major, then
-  // lane by lane (positions from warp votes), marched 32 at a time
-  int* wlist = list + warp * 32 * C;
-  int n_list = 0;
-  for (int k = 0; k < C; ++k) {
-    const unsigned votes = __ballot_sync(0xffffffffu, (marches >> k) & 1u);
-    if ((marches >> k) & 1u) wlist[n_list + __popc(votes & lower)] = k * T + tid;
-    n_list += __popc(votes);
-  }
-  __syncwarp();  // the warp's knots, march inputs and list
-  for (int i = lane; i < n_list; i += 32) march(wlist[i]);
-  __syncwarp();  // each light and alpha for its owner
-  const unsigned rounds = (n_list + 31) / 32;
-#endif
   clk.mark(MK_STAGE_MARCH);
 
   // 4. blend each of the group's rows inside the launch with its coarse
@@ -2008,7 +1956,10 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
     count_work(work, MK_WORK_DETAIL_EVALS, fw.detail);
     count_work(work, MK_WORK_SHAPE_KNOTS, n_shape_knots);
     count_work(work, MK_WORK_DETAIL_KNOTS, n_detail_knots);
-    count_work(work, MK_WORK_MARCH_WARP_STEPS, lane ? 0u : rounds * (unsigned)p.cloud_steps);
+    // the warp issues march k where any lane marches it
+    const unsigned issued = __popc(__reduce_or_sync(0xffffffffu, marches));
+    count_work(work, MK_WORK_MARCH_WARP_STEPS,
+               (tid & 31) ? 0u : issued * (unsigned)p.cloud_steps);
     count_work(work, MK_WORK_MARCH_LANE_STEPS, n_march * (unsigned)p.cloud_steps);
   }
   clk.count(work);
@@ -2285,9 +2236,8 @@ extern "C" int sky_choice_launch(const MegakernelParams* params, const TexParams
 // coverage_lod the launcher takes), its dynamic shared memory in bytes and
 // whether its rows take one opaque pass: knot rows, then MK_GEN_MARCH_ROWS
 // per coarse pixel, then, where the block can still hold them (MK_SMEM_ROWS
-// rows in all), MK_GEN_CACHE_ROWS per row of the group; with
-// -DMK_GEN_TWO_PASS never (a measurement of the row cache).  kernel is
-// nullptr for a config the instance does not take.
+// rows in all), MK_GEN_CACHE_ROWS per row of the group.  kernel is nullptr
+// for a config the instance does not take.
 using GenKernel = void (*)(const MegakernelParams, const TexParams, const float*, const float*,
                            const float*, const float*, const int*, float*, float*, float*,
                            unsigned long long*, int);
@@ -2306,9 +2256,7 @@ static GenLayout gen_layout(const MegakernelParams* p) {
     return out;
   const int rows = knot_rows(*p) + MK_GEN_MARCH_ROWS * C;
   if (rows > MK_SMEM_ROWS) return out;
-#ifndef MK_GEN_TWO_PASS
   out.row_cache = rows + MK_GEN_CACHE_ROWS * G <= MK_SMEM_ROWS;
-#endif
   out.smem = (rows + (out.row_cache ? MK_GEN_CACHE_ROWS * G : 0)) * MK_TILE_COLS * (int)sizeof(float);
   switch (C) {
     case 1: out.kernel = megakernel_gen<1>; break;

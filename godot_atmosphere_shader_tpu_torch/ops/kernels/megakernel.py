@@ -98,12 +98,12 @@ KNOTS = 8
 GEN_COARSE = (1, 2, 4, 8, 16, 32)
 #: the procedural instance's dynamic shared memory, in rows of one float per
 #: thread of its 128-thread block (512 B; ``MK_*`` of ``csrc/megakernel.cu``):
-#: at most SMEM_ROWS (226 KB of the 227 KB a block may use), of which the
-#: knots take one row each, a coarse pixel of the group GEN_MARCH_ROWS (its
-#: march inputs and the march list) and, where they fit, a row of the group
-#: GEN_CACHE_ROWS (the row cache: one opaque pass per pixel)
-SMEM_ROWS = 452
-GEN_MARCH_ROWS = 7
+#: at most SMEM_ROWS (the 227 KB a block may use), of which the knots take
+#: one row each, a coarse pixel of the group GEN_MARCH_ROWS (its march
+#: inputs) and, where they fit, a row of the group GEN_CACHE_ROWS (the row
+#: cache: one opaque pass per pixel)
+SMEM_ROWS = 454
+GEN_MARCH_ROWS = 6
 GEN_CACHE_ROWS = 4
 #: texture mode: the shape knot count it is built for, pyramid levels and
 #: batch modes (as ``texsample.py`` numbers them); its tile is the plain

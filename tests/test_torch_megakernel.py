@@ -151,54 +151,54 @@ def test_general_instance_takes_the_procedural_envelope(clouds_high, change):
 
 def test_knot_rows_have_a_limit(clouds_high):
     """The procedural instance's knots live in shared memory beside the
-    march state: coverage, shape and detail knots (+1 each) and
-    GEN_MARCH_ROWS rows per coarse pixel fit SMEM_ROWS rows of a block (226
-    of the 227 KB a block may use), else ``check_config`` refuses."""
+    march inputs: coverage, shape and detail knots (+1 each) and
+    GEN_MARCH_ROWS rows per coarse pixel fit the SMEM_ROWS rows (227 KB) a
+    block may use, else ``check_config`` refuses."""
     cfg = dataclasses.replace(clouds_high[1][1], cloud_shape_interp=True,
                               clouds_always_low_quality=False, cloud_shape_knots=210,
                               cloud_coverage_knots=40)
     assert cfg.cloud_coverage_lod == 2
-    assert mk.knot_rows(cfg) + 2 * mk.GEN_MARCH_ROWS == 41 + 2 * 211 + 14 > mk.SMEM_ROWS
+    assert mk.knot_rows(cfg) + 2 * mk.GEN_MARCH_ROWS == 41 + 2 * 211 + 12 > mk.SMEM_ROWS
     assert mk.gen_smem(cfg) == (None, False)
     with pytest.raises(ValueError, match="knot rows"):
         mk.check_config(cfg)
     fits = dataclasses.replace(cfg, cloud_coverage_knots=8)
-    assert mk.gen_smem(fits) == ((9 + 422 + 14) * 512, False)  # no room for the row cache
+    assert mk.gen_smem(fits) == ((9 + 422 + 12) * 512, False)  # no room for the row cache
     mk.check_config(fits)
-    # 32 coarse pixels per thread: 224 rows of march state leave 228 for knots
+    # 32 coarse pixels per thread: 192 rows of march inputs leave 262 for knots
     wide = dataclasses.replace(fits, cloud_lod=1, cloud_coverage_lod=32, cloud_lod_interior=0,
-                               cloud_shape_knots=108)
-    assert mk.knot_rows(wide) + 32 * mk.GEN_MARCH_ROWS == 9 + 218 + 224 <= mk.SMEM_ROWS
+                               cloud_shape_knots=125)
+    assert mk.knot_rows(wide) + 32 * mk.GEN_MARCH_ROWS == 9 + 252 + 192 <= mk.SMEM_ROWS
     mk.check_config(wide)
     with pytest.raises(ValueError, match="knot rows"):
-        mk.check_config(dataclasses.replace(wide, cloud_shape_knots=109))
+        mk.check_config(dataclasses.replace(wide, cloud_shape_knots=126))
 
 
 @pytest.mark.parametrize("change,rows,cache", [
-    (dict(), 9 + 2 * 7 + 4 * 4, True),  # the demo profile: 9 knots, C = 2, G = 4
-    (dict(cloud_lod=4), 9 + 2 * 7 + 8 * 4, True),  # its interior LOD
-    (dict(cloud_lod=1, cloud_coverage_lod=32), 9 + 32 * 7 + 32 * 4, True),
-    (dict(cloud_lod=16, cloud_coverage_lod=2), 9 + 2 * 7 + 32 * 4, True),
-    (dict(cloud_coverage_interp=False, cloud_lod=1, cloud_coverage_lod=1), 7 + 4, True),
-    (dict(cloud_shape_interp=True, cloud_shape_knots=300), 9 + 301 + 14 + 16, True),
-    (dict(cloud_shape_interp=True, cloud_shape_knots=420), 9 + 421 + 14, False),
-    (dict(cloud_lod=1, cloud_coverage_lod=32, cloud_shape_interp=True, cloud_shape_knots=100),
-     9 + 101 + 224, False),
+    (dict(), 9 + 2 * 6 + 4 * 4, True),  # the demo profile: 9 knots, C = 2, G = 4
+    (dict(cloud_lod=4), 9 + 2 * 6 + 8 * 4, True),  # its interior LOD
+    (dict(cloud_lod=1, cloud_coverage_lod=32), 9 + 32 * 6 + 32 * 4, True),
+    (dict(cloud_lod=16, cloud_coverage_lod=2), 9 + 2 * 6 + 32 * 4, True),
+    (dict(cloud_coverage_interp=False, cloud_lod=1, cloud_coverage_lod=1), 6 + 4, True),
+    (dict(cloud_shape_interp=True, cloud_shape_knots=300), 9 + 301 + 12 + 16, True),
+    (dict(cloud_shape_interp=True, cloud_shape_knots=420), 9 + 421 + 12, False),
+    (dict(cloud_lod=1, cloud_coverage_lod=32, cloud_shape_interp=True, cloud_shape_knots=130),
+     9 + 131 + 192, False),
 ])
 def test_gen_smem_budget_matches_the_kernel(clouds_high, change, rows, cache):
-    """The wrapper's shared-memory budget (knot rows, the march state and
-    list, the row cache where it fits) as the launcher lays it out with the
-    ``.cu``'s constants; the dynamic rows and the static scan offsets of the
-    widest instance fit the 232,448 bytes a block may use."""
+    """The wrapper's shared-memory budget (knot rows, the march inputs, the
+    row cache where it fits) as the launcher lays it out with the ``.cu``'s
+    constants, within the 232,448 bytes a block may use."""
     cfg = dataclasses.replace(clouds_high[1][1], cloud_lod_interior=0, **change)
     mk.check_config(cfg)
     assert mk.gen_smem(cfg) == (rows * mk.TILE_COLS * 4, cache)
     defines = {k: int(v) for k, v in re.findall(r"#define (MK_\w+) (\d+)", _cu_source())}
     assert (defines["MK_SMEM_ROWS"], defines["MK_GEN_MARCH_ROWS"],
             defines["MK_GEN_CACHE_ROWS"]) == (mk.SMEM_ROWS, mk.GEN_MARCH_ROWS, mk.GEN_CACHE_ROWS)
-    static = 4 * (4 * max(mk.GEN_COARSE) + 1)  # megakernel_gen's offsets[4 * C + 1]
-    assert re.search(r"__shared__ int offsets\[4 \* C \+ 1\]", _cu_source())
-    assert mk.SMEM_ROWS * mk.TILE_COLS * 4 + static <= 232448
+    assert mk.SMEM_ROWS * mk.TILE_COLS * 4 == 232448
+    body = re.search(r"__global__ void __launch_bounds__\(MK_TILE_COLS, gen_min_blocks\)"
+                     r".*?\n\}", _cu_source(), re.S).group(0)
+    assert "__shared__ float smem[]" in body and body.count("__shared__") == 1
 
 
 _GROUPS = [(g, lod) for g in (1, 2, 4, 8, 16, 32) for lod in (1, 2, 4, 8, 16, 32) if g % lod == 0]
