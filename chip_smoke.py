@@ -164,7 +164,15 @@ LOD group) and the peak probe T2 run in four more phases:
    the whole plain frame;
 5e. per 4f frame: kernel ms with its bound (work counters under the
    ceilings of 7b), ``Scene.render`` ms and idle share, the plain frame's
-   ms.
+   ms;
+5f. the procedural instance ``megakernel_gen<C>``: what each instance
+   uses (registers, stack, resident blocks per SM, shared memory, row
+   cache); per 1080p frame of phases 4-4f (and the flagship's 2 shards of
+   5d) each procedural launch's march lane utilisation and, through the
+   measurement build (``-DMK_STAGE_CLOCKS``, built beside the package's),
+   its cycles per stage (coarse pass, knots, march, blend); every such
+   launch's work counts held against the previous design's
+   (``PARENT_WORK``), so the bounds are shown not to move.
 
 Prints a JSON line describing each kernel (with its roofline bound from
 this run's work counters), then, as the last line,
