@@ -119,6 +119,9 @@
 //     knots as dynamic ones (the other terms are exact zeros);
 //   * 128 registers for 4 blocks of 4 warps per SM: capped for 5 or 6
 //     blocks it spills, and frames with little march or a sun march slow.
+// On an H100 at 700 W the 1080p demo frame (clouds_high at the avatar pose)
+// takes 2.08 ms against a 0.82 ms bound from its operations, 10 % less than
+// the design it replaces (compare_megakernel.py; PERF.md).
 // The full-quality frame is ill-conditioned: the detail field turns one
 // ulp of a march position into ~1e-3 of a cloud pixel.
 //
