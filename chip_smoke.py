@@ -185,6 +185,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import os
@@ -338,6 +339,15 @@ PEAK_ITERS = {"fma": 1024, "exp": 512, "fast_exp": 1024, "imad": 512}
 PEAK_CHECK_ITERS = 16
 PEAK_TOL = {"fma": 1e-5, "exp": 1e-5, "fast_exp": 1e-4, "imad": 0.0}
 PEAK_REPS = 3
+# procedural shape knots over coverage groups of 32 rows: cloud_lod 1 with
+# coverage_lod 32, and 2 with 16 (ill-conditioned: knot_group_tolerance_ok)
+KNOT_GROUP_CASES = {
+    "coverage_lod_32_shape_knots_16": dict(cloud_lod=1, cloud_coverage_lod=32, cloud_lod_interior=0,
+                                           cloud_shape_interp=True, cloud_shape_knots=16),
+    "coverage_lod_16_shape_knots_100": dict(cloud_lod=2, cloud_coverage_lod=16,
+                                            cloud_lod_interior=0, cloud_shape_interp=True,
+                                            cloud_shape_knots=100)}
+KNOT_GROUP_SHARE = 1e-2
 ENVELOPE_KERNEL_FRAMES = 5
 SMALL_SHARDS = 2
 SHARD_SIZE = (1024, 1920)
@@ -374,6 +384,18 @@ def detail_tolerance_ok(st: dict) -> bool:
     tolerance."""
     return (st["p99"] <= 1e-3 and st["mean"] <= 1e-4
             and st["frac_above_1e-2"] <= 1e-3)
+
+
+def knot_group_tolerance_ok(st: dict) -> bool:
+    """Procedural shape knots over a coverage group of 32 rows
+    (:data:`KNOT_GROUP_CASES`): the group's knots lie along its mean march
+    span, and one ulp of one pixel's span moves a knot's shape value enough
+    to change the group's whole column of 32 pixels (phase 3g measures it:
+    the plain frame against itself with every span one ulp longer).  p99
+    takes the place of p99.9 and KNOT_GROUP_SHARE that of the share of
+    pixels above 1e-2; the mean is the cloud tolerance's."""
+    return (st["p99"] <= 1e-3 and st["mean"] <= 1e-4
+            and st["frac_above_1e-2"] <= KNOT_GROUP_SHARE)
 
 
 def frame_array(out: dict) -> np.ndarray:
@@ -1282,7 +1304,7 @@ def band_timing(scene, cam, h: int, w: int, n: int, device) -> dict:
                          sky_choice_ops=cost.get("sky_choice_ops", 0))
             bound += b["bound_ms"]
             out.append({"shard": s, "layer": layer, "row0": struct.row0, "rows": rows,
-                        "sky": bool(struct.with_sky), "ms": ms, **b,
+                        "sky": bool(struct.with_sky), "texture": tl is not None, "ms": ms, **b,
                         "sky_levels": cost.get("sky_levels"), "work": work})
         shards.append((launches, planes))
 
@@ -1413,6 +1435,8 @@ def envelope_config(name: str):
             cloud_coverage_interp=True)
     if name == "full_quality":  # the detail field per step
         return dataclasses.replace(flagship, clouds_always_low_quality=False)
+    if name in KNOT_GROUP_CASES:
+        return dataclasses.replace(flagship, **KNOT_GROUP_CASES[name])
     return envelope_cases()[name]
 
 
@@ -1493,6 +1517,60 @@ def detail_conditioning(device, h: int, w: int) -> dict:
         inputs2, _ = frame_inputs(scene, cam2)
         b = frame_array(mk.render_frame_plain(*inputs2, h, w))
         out["full quality" if name == "full_quality" else "low quality"] = cloud_deltas(a, b)
+    return out
+
+
+@contextlib.contextmanager
+def spans_one_ulp_longer():
+    """Inside the block the plain renderer marches every coarse pixel's
+    span to one ulp past its clamped end (``ops/clouds.py``
+    ``clamp_march_distance``)."""
+    from godot_atmosphere_shader_tpu_torch.ops import clouds
+
+    clamp = clouds.clamp_march_distance
+
+    def longer(*args):
+        t_end = clamp(*args)
+        return torch.nextafter(t_end, torch.full_like(t_end, float("inf")))
+
+    clouds.clamp_march_distance = longer
+    try:
+        yield
+    finally:
+        clouds.clamp_march_distance = clamp
+
+
+def span_conditioning(device, h: int, w: int) -> dict:
+    """How far one ulp of the march spans moves a frame: the plain frame
+    against itself with every span one ulp longer, on the card, for the
+    knot-group cases and the demo profile with 16 shape knots (a coverage
+    group of 4 rows)."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    out = {}
+    for name in (*KNOT_GROUP_CASES, "shape_knots_16"):
+        scene, cam = envelope_scene(name, device)
+        inputs, _ = frame_inputs(scene, cam)
+        a = frame_array(mk.render_frame_plain(*inputs, h, w))
+        with spans_one_ulp_longer():
+            b = frame_array(mk.render_frame_plain(*inputs, h, w))
+        out[name] = cloud_deltas(a, b)
+    return out
+
+
+def knot_group_check(device, h: int, w: int) -> dict:
+    """The knot-group cases at ``h × w`` through ``Scene.render`` (one
+    launch of the procedural instance, no plain call) against the plain
+    chain, under :func:`knot_group_tolerance_ok`."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    out = {}
+    for name in KNOT_GROUP_CASES:
+        scene, cam = envelope_scene(name, device)
+        err, _ = check_scene(f"knot group {name}", scene, cam, h, w, knot_group_tolerance_ok)
+        if mk.counters.general_launches != 1:
+            raise RuntimeError(f"knot group {name}: not rendered by the procedural instance")
+        out[name] = {"max": err}
     return out
 
 
@@ -1597,12 +1675,23 @@ PARENT_WORK = {
 }
 
 
+# The texture instance's work counts before its redesign for Hopper (one
+# 1024- or 512-thread block per tile), on phase 5f's texture frames, per
+# texture launch (the 4 shards' chained planet layers of phase 4e in shard
+# order), as an H100 counted them (compare_megakernel.py).
+PARENT_TEX_WORK_KEYS = ("pixels", "atmosphere", "knot_groups", "march", "tex3d", "tex3d_floor",
+                        "latlong", "latlong_floor", "sky", "sky_floor")
+PARENT_TEX_WORK = {}
+
+
 def check_parent_work(label: str, works: list):
-    """Each procedural launch's work counts against the previous design's."""
-    got = [tuple(w[k] for k in PARENT_WORK_KEYS) for w in works]
-    if got != PARENT_WORK[label]:
+    """Each cloud launch's work counts against the previous design's."""
+    keys, parent = ((PARENT_TEX_WORK_KEYS, PARENT_TEX_WORK) if label in PARENT_TEX_WORK
+                    else (PARENT_WORK_KEYS, PARENT_WORK))
+    got = [tuple(w[k] for k in keys) for w in works]
+    if got != parent[label]:
         raise RuntimeError(f"{label}: work counts {got} differ from the previous design's "
-                           f"{PARENT_WORK[label]} ({PARENT_WORK_KEYS})")
+                           f"{parent[label]} ({keys})")
 
 
 def lane_utilisation(work: dict):
@@ -1626,11 +1715,13 @@ def gen_instances(struct) -> dict:
 
 
 def stage_split(plan, scene, cam, h: int, w: int, device, measure_path: str) -> list:
-    """Phase 5f for one frame: each launch of the procedural instance in the
-    frame's plan with what its instance uses (``mk.gen_info``), the march's
-    lane utilisation (normal build) and its cycles per stage, summed over
-    warps (the measurement build, whose work counts must equal the normal
-    build's); the other launches run once for the planes they write."""
+    """Phase 5f for one frame: each cloud launch (the procedural or the
+    texture instance) in the frame's plan with what its instance uses
+    (``mk.gen_info``, ``mk.tex_info``), the march's lane utilisation
+    (normal build; the procedural instance) and its cycles per stage,
+    summed over warps (the measurement build, whose work counts must equal
+    the normal build's); the other launches run once for the planes they
+    write."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     params, configs, tex, bands, rows = plan
@@ -1643,7 +1734,7 @@ def stage_split(plan, scene, cam, h: int, w: int, device, measure_path: str) -> 
     depth = torch.empty((h, w), device=device)
     out = []
     for kind, struct, args in launches:
-        if args["tex"] is not None or not (struct.clouds_enabled and struct.with_atmosphere):
+        if not (struct.clouds_enabled and struct.with_atmosphere):
             mk.launch(struct, color, alpha, depth=depth, **args)
             continue
         work = mk.work_counts(struct, color, alpha, depth=depth, **args)
@@ -1653,8 +1744,10 @@ def stage_split(plan, scene, cam, h: int, w: int, device, measure_path: str) -> 
             raise RuntimeError(f"the measurement build's work counts differ: {measured} {work}")
         cycles = {k: measured[f"stage_{k}_cycles"] for k in mk.STAGE_SLOTS}
         total = sum(cycles.values())
+        info = (mk.gen_info(struct) if args["tex"] is None
+                else mk.tex_info(struct, args["tex"][0]))
         out.append({"kind": kind, "row0": struct.row0, "rows": struct.rows,
-                    **mk.gen_info(struct), "work": work,
+                    "instance": "gen" if args["tex"] is None else "tex", **info, "work": work,
                     "lane_utilisation": lane_utilisation(work), "stage_cycles": cycles,
                     "stage_share": {k: v / total for k, v in cycles.items()} if total else None})
     return out
@@ -1958,6 +2051,12 @@ def main(argv=None) -> int:
     envelope_small = envelope_check(device, h, w)
     log(f"[envelope] {len(envelope_small)} cases {h}x{w}, one K1 launch each, no plain call: "
         f"{json.dumps(envelope_small)}")
+    span = span_conditioning(device, h, w)
+    log(f"[envelope] every march span one ulp longer, plain against plain {h}x{w}: "
+        f"{json.dumps(span)}")
+    knot_groups = knot_group_check(device, h, w)
+    log(f"[envelope] {len(knot_groups)} knot-group cases {h}x{w} under the knot-group "
+        f"tolerance: {json.dumps(knot_groups)}")
     if args.quick:
         return 1
 
@@ -2453,8 +2552,9 @@ def main(argv=None) -> int:
         log(f"[envelope-time] {name} 1080p on {card}: {json.dumps(env_t[name])}")
     log(f"[envelope-time] after timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
-    # -- 5f. the procedural instance per stage: what each instance uses, the
-    # march's lane utilisation and the measurement build's cycles per stage --
+    # -- 5f. the procedural and texture instances per stage: what each instance
+    # uses, the march's lane utilisation and the measurement build's cycles per
+    # stage --------------------------------------------------------------------
     scene, cam = scene_and_camera("clouds_high", "avatar", device)
     instances = gen_instances(mk.frame_constants(*frame_inputs(scene, cam)[0], H, W))
     log(f"[stages] the procedural instances on {card}: {json.dumps(instances)}")
@@ -2469,14 +2569,23 @@ def main(argv=None) -> int:
     stage_frames["cell 5"] = (scene, cam, plan, ch, cw)
     for name, (scene, cam, _) in env_runs.items():
         stage_frames[name] = (scene, cam, scene_plan(scene, cam, H), H, W)
+    for pose, (scene, cam, _) in tex_runs.items():
+        stage_frames[f"clouds_high texture/{pose}"] = (scene, cam, scene_plan(scene, cam, H), H, W)
+    scene, cam, plan, _ = sky_runs["everything-on/avatar"]
+    stage_frames["everything-on/avatar with the sky"] = (scene, cam, plan, H, W)
     stages = {}
     for label, (scene, cam, plan, fh, fw) in stage_frames.items():
         stages[label] = stage_split(plan, scene, cam, fh, fw, device, measure_path)
         log(f"[stages] {label} {fh}x{fw} on {card}: {json.dumps(stages[label])}")
-        check_parent_work(label, [x["work"] for x in stages[label]])
+        if label in PARENT_WORK or label in PARENT_TEX_WORK:
+            check_parent_work(label, [x["work"] for x in stages[label]])
     check_parent_work(f"clouds_high/avatar on {FLAGSHIP_SHARDS} shards",
                       [x["work"] for x in band_flag["launches"]])
-    log("[stages] every procedural launch's work counts equal the previous design's")
+    shard_label = f"everything-on/avatar {SH}x{SW} on {SHARDS} shards"
+    if shard_label in PARENT_TEX_WORK:
+        check_parent_work(shard_label, [x["work"] for x in shard_t["everything-on"]["launches"]
+                                        if x["texture"]])
+    log("[stages] every cloud launch's work counts equal the previous design's")
 
     # -- 6. the flight slice at 1080p through Scene.render_flight ----------------
     K = FLIGHT_FRAMES

@@ -1,36 +1,45 @@
-"""Two builds of the procedural megakernel ``megakernel_gen`` on one card,
-in turns.
+"""Two builds of the procedural and texture megakernels (``megakernel_gen``,
+``megakernel_tex``) on one card, in turns.
 
-    python3 compare_megakernel.py PARENT_CU
+    python3 compare_megakernel.py PARENT_CU [--only texture] [--variant NAME=DEFINE,...]
 
 Builds, all ``nvcc`` at once, the checkout's kernel library and one of
 ``PARENT_CU`` (another commit's ``csrc/megakernel.cu``, copied under
-``build/compare/parent/`` with the occupancy query ``megakernel_gen_info``
-appended where it has none, beside the checkout's other kernel sources).
-Then the two run in turns, ``parent, change, change, parent``; each pass
+``build/compare/parent/`` with the occupancy queries ``megakernel_gen_info``
+and ``megakernel_tex_info`` appended where it has none, beside the
+checkout's other kernel sources), and one more library of the checkout per
+``--variant`` (its ``-D`` defines).  Then the sides run in turns,
+``parent, change, variants..., variants..., change, parent``; each pass
 takes, through that side's library, on the main path's 1080p frames (the
 flagship ``clouds_high``/avatar, ``clouds_high``/interior,
 ``clouds``/avatar, ``clouds_high`` at avatar and sunward with a seeded
 1024×2048 sky, JAX bench cell 5, the flagship on 2 shards, the four
-envelope frames of ``chip_smoke.py`` phase 4f) and on the 64×128 frames
-whose work counts ``tests/test_torch_cuda.py`` holds against the parent's:
+envelope frames of ``chip_smoke.py`` phase 4f; the texture instance:
+``clouds_high`` texture/avatar (JAX bench cell 6) and texture/interior, the
+everything-on frame at avatar with its sky, and the everything-on frame at
+1920×1024 on 4 shards, whose planet layer is a chained texture launch per
+shard) and on the 64×128 frames whose work counts
+``tests/test_torch_cuda.py`` holds against the parent's:
 
-* each procedural-instance launch's kernel ms (CUDA events) with its work
-  counts (the march's lane utilisation among them) and what its instance
-  uses (registers, stack, resident blocks per SM, shared memory, row cache);
+* each cloud launch's kernel ms (CUDA events) with its work counts (the
+  march's lane utilisation among them) and what its instance uses
+  (registers, stack, resident blocks per SM, shared memory; the row cache
+  or the CTAs per cluster);
 * the frame, held against the first pass's parent frame (max |Δ|, p99.9);
 * the device busy ms per frame of the three 1080p K = 8 flights
   (``torch.profiler``).
 
-Each pass runs in a process of its own that loads only that side's
-library, so no two builds of one kernel share a process.  The bounds are
-``chip_smoke.py``'s, from the work counts under T2's measured ceilings.
-The checkout's measurement build (``MK_STAGE_CLOCKS``) runs once more per
-frame: cycles per stage, summed over warps.  It prints each pass as a JSON
-line, the compiler's report of each side's ``megakernel_gen`` instances,
-and, last, one JSON summary per frame: both sides' times, the change over
-the parent, the bound's share and whether the work counts equal the
-parent's.  Run from the repository root on one card; it needs no network.
+``--only texture`` keeps the texture frames, the flagship (at 1080p and
+64×128) and the texture TAA flight.  Each pass runs in a process of its own
+that loads only that side's library, so no two builds of one kernel share a
+process.  The bounds are ``chip_smoke.py``'s, from the work counts under
+T2's measured ceilings.  The checkout's measurement build
+(``MK_STAGE_CLOCKS``) runs once more per frame: cycles per stage, summed
+over warps.  It prints each pass as a JSON line, the compiler's report of
+each side's ``megakernel_gen`` and ``megakernel_tex`` instances, and, last,
+one JSON summary per frame: every side's times, the change over the
+parent, the bound's share and whether the work counts equal the parent's.
+Run from the repository root on one card; it needs no network.
 """
 
 from __future__ import annotations
@@ -55,6 +64,33 @@ COMPARE_DIR = os.path.join(ROOT, "build", "compare")
 KERNEL_FRAMES = 20
 # the occupancy query for a parent whose launcher has one procedural kernel
 # and sizes its shared memory by the knot rows alone (no row cache)
+# the occupancy query for a parent whose texture instance is one 128 x 32 / G
+# thread block per tile with the 26 knots and the reduction scratch in shared
+# memory
+TEX_INFO_SHIM = r'''
+extern "C" int megakernel_tex_info(const MegakernelParams* params, const TexParams* tex,
+                                   int* out) {
+  (void)tex;
+  const int G = params->cloud_lod * params->coverage_lod;
+  if (G != 4 && G != 8) return -1;
+  const int nt = 128 * (MK_TILE_ROWS / G);
+  const int smem = (MK_KNOTS + MK_SHAPE_KNOTS + 2) * nt * (int)sizeof(float) +
+                   (nt / 32) * 2 * 3 * (int)sizeof(float);
+  auto kernel = G == 4 ? megakernel_tex<MK_KNOTS, MK_SHAPE_KNOTS, 4>
+                       : megakernel_tex<MK_KNOTS, MK_SHAPE_KNOTS, 8>;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  int blocks = 0, device = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, nt, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const int info[7] = {G, attr.numRegs, (int)attr.localSizeBytes, blocks, smem, 1, blocks * sms};
+  for (int i = 0; i < 7; ++i) out[i] = info[i];
+  return 0;
+}
+'''
 GEN_INFO_SHIM = r'''
 extern "C" int megakernel_gen_info(const MegakernelParams* params, int* out) {
   const int smem = knot_rows(params) * MK_TILE_COLS * (int)sizeof(float);
@@ -74,17 +110,20 @@ extern "C" int megakernel_gen_info(const MegakernelParams* params, int* out) {
 '''
 
 
+REPORTED = ("megakernel_gen", "megakernel_tex")
+
+
 def gen_report(ptxas: str) -> dict:
-    """Registers, stack frame and spills of each ``megakernel_gen`` entry in
-    a ``-Xptxas=-v`` log, by mangled name."""
+    """Registers, stack frame and spills of each ``megakernel_gen`` and
+    ``megakernel_tex`` entry in a ``-Xptxas=-v`` log, by mangled name."""
     out, props, entry = {}, None, None
     for line in ptxas.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            entry = m.group(1) if "megakernel_gen" in m.group(1) else None
+            entry = m.group(1) if any(k in m.group(1) for k in REPORTED) else None
         m = re.search(r"Function properties for (\w+)", line)
         if m:
-            props = m.group(1) if "megakernel_gen" in m.group(1) else None
+            props = m.group(1) if any(k in m.group(1) for k in REPORTED) else None
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
         if m and props:
@@ -96,12 +135,13 @@ def gen_report(ptxas: str) -> dict:
     return out
 
 
-def build_sides(parent_cu: str) -> tuple:
+def build_sides(parent_cu: str, variants: dict) -> tuple:
     """The libraries of all the kernel sources: the parent's (its
-    ``megakernel.cu``, with the occupancy query appended where it has none,
-    beside the checkout's other sources), the checkout's (the package's own
-    build) and its measurement build.  All ``nvcc`` at once.  Returns
-    ``({side: path}, {side: compiler report})``."""
+    ``megakernel.cu``, with the occupancy queries appended where it has
+    none, beside the checkout's other sources), the checkout's (the
+    package's own build), one per variant (``{name: defines}``) and the
+    measurement build.  All ``nvcc`` at once.  Returns ``({side: path},
+    {side: compiler report})``."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import library
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
@@ -111,6 +151,8 @@ def build_sides(parent_cu: str) -> tuple:
         source = f.read()
     if "megakernel_gen_info" not in source:
         source += GEN_INFO_SHIM
+    if "megakernel_tex_info" not in source:
+        source += TEX_INFO_SHIM
     copy = os.path.join(parent_dir, "megakernel.cu")
     with open(copy, "w") as f:
         f.write(source)
@@ -119,6 +161,9 @@ def build_sides(parent_cu: str) -> tuple:
             "parent": dict(build_dir=parent_dir, sources=(copy, *others), ptxas_info=True),
             "change/stages": dict(build_dir=os.path.join(COMPARE_DIR, "stages"),
                                   defines=mk.MEASURE_DEFINES)}
+    for name, defines in variants.items():
+        jobs[name] = dict(build_dir=os.path.join(COMPARE_DIR, name), defines=defines,
+                          ptxas_info=True)
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {k: pool.submit(library.build, **kw) for k, kw in jobs.items()}
         built = {k: f.result() for k, f in futures.items()}
@@ -128,7 +173,7 @@ def build_sides(parent_cu: str) -> tuple:
 
 class Case:
     """One frame of the comparison: its launches far to near (each ``(kind,
-    struct, args, planes, shard?)``), the procedural ones timed."""
+    struct, args, planes, shard?)``), the cloud layers timed."""
 
     def __init__(self, label, scene, cam, h, w, launches, config_of):
         self.label, self.scene, self.cam, self.h, self.w = label, scene, cam, h, w
@@ -149,9 +194,11 @@ class Case:
         return np.concatenate([np.concatenate([c.cpu().numpy(), a.cpu().numpy()[..., None]], -1)
                                for c, a, _ in planes], axis=0)
 
-    def procedural(self):
-        return [i for i, (_, st, args, _, _) in enumerate(self.launches)
-                if args["tex"] is None and st.clouds_enabled and st.with_atmosphere]
+    def clouds(self):
+        """The launches of the two instances compared: every procedural or
+        texture cloud layer."""
+        return [i for i, (_, st, _, _, _) in enumerate(self.launches)
+                if st.clouds_enabled and st.with_atmosphere]
 
 
 def plan_case(label, scene, cam, h, w, device) -> Case:
@@ -192,23 +239,43 @@ def shard_case(label, scene, cam, h, w, n, device) -> Case:
 
 
 #: ``tests/test_torch_cuda.py``'s frames whose work counts it holds against
-#: the parent's: the flagship and the same layer straddling the shell's edge
+#: the parent's: the flagship and the same layer straddling the shell's edge,
+#: and the texture frame
 SMALL_CASES = (("clouds_high", "avatar"), ("clouds_high", "exterior"))
 SMALL_SIZE = (64, 128)
 
 
-def cases(device) -> list:
+def cases(device, textures, only=None) -> list:
+    """The frames compared; ``only="texture"``: the texture instance's, the
+    flagship and the 64×128 frames."""
     H, W = cs.FULL_SIZE
     pano = cs.synthetic_panorama(*cs.PANO_SIZE)
+    everything = only is None
     out = []
     for variant, pose in SMALL_CASES:
         scene, cam = cs.scene_and_camera(variant, pose, device)
         out.append(plan_case(f"{variant}/{pose} {SMALL_SIZE[0]}x{SMALL_SIZE[1]}", scene, cam,
                              *SMALL_SIZE, device))
+    scene, cam = cs.scene_and_camera("clouds_high", "avatar", device, textures=textures)
+    out.append(plan_case(f"clouds_high texture/avatar {SMALL_SIZE[0]}x{SMALL_SIZE[1]}", scene,
+                         cam, *SMALL_SIZE, device))
     for variant, pose in (("clouds_high", "avatar"), ("clouds_high", "interior"),
                           ("clouds", "avatar")):
-        scene, cam = cs.scene_and_camera(variant, pose, device)
-        out.append(plan_case(f"{variant}/{pose}", scene, cam, H, W, device))
+        if everything or (variant, pose) == ("clouds_high", "avatar"):
+            scene, cam = cs.scene_and_camera(variant, pose, device)
+            out.append(plan_case(f"{variant}/{pose}", scene, cam, H, W, device))
+    for pose in cs.TEXTURE_POSES:
+        scene, cam = cs.scene_and_camera("clouds_high", pose, device, textures=textures)
+        out.append(plan_case(f"clouds_high texture/{pose}", scene, cam, H, W, device))
+    allon = cs.with_panorama(cs.build_scene("allon", device, textures), pano)
+    cam = cs.scene_camera("allon", "avatar", device)
+    allon.update(0.25, cam)
+    out.append(plan_case("everything-on/avatar with the sky", allon, cam, H, W, device))
+    SH, SW = cs.SHARD_SIZE
+    out.append(shard_case(f"everything-on/avatar {SH}x{SW} on {cs.SHARDS} shards", allon, cam,
+                          SH, SW, cs.SHARDS, device))
+    if not everything:
+        return out
     for pose in ("avatar", "sunward"):
         scene = cs.with_panorama(cs.build_scene("clouds_high", device), pano)
         cam = cs.scene_camera("clouds_high", pose, device)
@@ -227,9 +294,10 @@ def cases(device) -> list:
     return out
 
 
-def flights(device, textures) -> dict:
-    """The three 1080p K = 8 flights of ``chip_smoke.py`` phase 6, each a
-    function that renders it once."""
+def flights(device, textures, only=None) -> dict:
+    """The three 1080p K = 8 flights of ``chip_smoke.py`` phase 6 (the
+    texture TAA flight alone with ``only="texture"``), each a function
+    that renders it once."""
     from godot_atmosphere_shader_tpu_torch.utils.camera import Camera
 
     H, W = cs.FULL_SIZE
@@ -239,6 +307,8 @@ def flights(device, textures) -> dict:
     for label, tx, blend in (("clouds_high TAA", None, cs.FLIGHT_BLEND),
                              ("clouds_high texture TAA", textures, cs.FLIGHT_BLEND),
                              ("clouds_high", None, None)):
+        if only is not None and tx is None:
+            continue
         scene, _ = cs.scene_and_camera("clouds_high", "avatar", device, textures=tx)
         cam = Camera.create(stack[0], device=device)
         out[label] = (lambda scene=scene, cam=cam, blend=blend: scene.render_flight(
@@ -256,32 +326,43 @@ def bound(case: Case, i: int, work: dict) -> dict:
                   if st.with_background else cs.BYTES_LAYER_PIXEL)
     cost = {}
     if st.with_sky:
-        cost = cs.sky_cost(case.cam, case.h, case.w, case.scene._pano_plan()[1], in_block=False,
-                           row0=st.row0, rows=st.rows)
-    b = cs.roofline(work, case.config_of[i], case.h, case.w, frame_bytes=st.rows * case.w * per_px,
-                    sky_bytes=cost.get("sky_bytes", 0),
+        cost = cs.sky_cost(case.cam, case.h, case.w, case.scene._pano_plan()[1],
+                           in_block=args["tex"] is not None, row0=st.row0, rows=st.rows)
+    tl = args["tex"]
+    table_bytes = 0 if tl is None else sum(x.numel() * 4 for x in tl[1:])
+    b = cs.roofline(work, case.config_of[i], case.h, case.w, table_bytes,
+                    frame_bytes=st.rows * case.w * per_px, sky_bytes=cost.get("sky_bytes", 0),
                     sky_choice_ops=cost.get("sky_choice_ops", 0))
     return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
 
 
+def instance(st, args) -> dict:
+    """What the instance that launches ``st`` uses on this card."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    if args["tex"] is None:
+        return {"instance": "gen", **mk.gen_info(st)}
+    return {"instance": "tex", **mk.tex_info(st, args["tex"][0])}
+
+
 def one_pass(all_cases: list, all_flights: dict, ref_dir: str) -> dict:
-    """Every case and flight through this process's library: each
-    procedural launch's ms, work counts, instance and bound; the frame
-    against the reference frames in ``ref_dir`` (written by the first
-    pass); each flight's device busy ms per frame."""
+    """Every case and flight through this process's library: each cloud
+    launch's ms, work counts, instance and bound; the frame against the
+    reference frames in ``ref_dir`` (written by the first pass); each
+    flight's device busy ms per frame."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     out = {}
     for n, case in enumerate(all_cases):
         case.run_all()  # the planes the chained launches read
         rows = []
-        for i in case.procedural():
+        for i in case.clouds():
             _, st, args, planes, _ = case.launches[i]
             ms = cs.time_cuda(lambda k, st=st, args=args, planes=planes: mk.launch(
                 st, planes[0], planes[1], depth=planes[2], **args), KERNEL_FRAMES)
             work = mk.work_counts(st, planes[0], planes[1], depth=planes[2], **args)
             rows.append({"row0": st.row0, "rows": st.rows, "ms": ms, "work": work,
-                         "lane_utilisation": cs.lane_utilisation(work), **mk.gen_info(st),
+                         "lane_utilisation": cs.lane_utilisation(work), **instance(st, args),
                          **bound(case, i, work)})
         img = case.frame()
         ref_path = os.path.join(ref_dir, f"{n}.npy")
@@ -300,15 +381,15 @@ def one_pass(all_cases: list, all_flights: dict, ref_dir: str) -> dict:
 
 
 def stage_pass(all_cases: list) -> dict:
-    """This process's library is a measurement build: each procedural
-    launch's cycles per stage, summed over warps, and its lane utilisation."""
+    """This process's library is a measurement build: each cloud launch's
+    cycles per stage, summed over warps, and its lane utilisation."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     out = {}
     for case in all_cases:
         case.run_all()
         split = []
-        for i in case.procedural():
+        for i in case.clouds():
             _, st, args, planes, _ = case.launches[i]
             work = mk.work_counts(st, planes[0], planes[1], depth=planes[2], stages=True, **args)
             cycles = {k: work[f"stage_{k}_cycles"] for k in mk.STAGE_SLOTS}
@@ -328,12 +409,12 @@ def run_pass(args) -> int:
     library._LIBRARY = ctypes.CDLL(args.library)  # every kernel of this process
     cs.PEAK.update(fp32=args.peak_fp32, int32=args.peak_int32)
     device = torch.device("cuda", 0)
-    all_cases = cases(device)
+    textures = bake_demo_textures(device=device)
+    all_cases = cases(device, textures, args.only)
     if args.stages:
         result = stage_pass(all_cases)
     else:
-        result = one_pass(all_cases, flights(device, bake_demo_textures(device=device)),
-                          args.reference)
+        result = one_pass(all_cases, flights(device, textures, args.only), args.reference)
     with open(args.out, "w") as f:
         json.dump(result, f)
     return 0
@@ -342,6 +423,10 @@ def run_pass(args) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("parent_cu", nargs="?", help="the parent commit's csrc/megakernel.cu")
+    ap.add_argument("--only", choices=("texture",),
+                    help="the texture instance's frames, the flagship and the texture flight")
+    ap.add_argument("--variant", action="append", default=[], metavar="NAME=DEFINE,...",
+                    help="one more build of the checkout with these -D defines, run in turns")
     # one pass in a process of its own (the comparison starts these)
     ap.add_argument("--library", help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)
@@ -362,9 +447,14 @@ def main(argv=None) -> int:
     cs.log(card)
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
+    variants = {}
+    for v in args.variant:
+        name, _, defines = v.partition("=")
+        variants[name] = tuple(d for d in defines.split(",") if d)
     shutil.rmtree(COMPARE_DIR, ignore_errors=True)
-    paths, reports = build_sides(args.parent_cu)
-    cs.log(f"[compare] compiler report of megakernel_gen per side: {json.dumps(reports)}")
+    paths, reports = build_sides(args.parent_cu, variants)
+    cs.log(f"[compare] compiler report of megakernel_gen and megakernel_tex per side: "
+           f"{json.dumps(reports)}")
     mk.load_library()
     peak = cs.peak_probe(device)
     cs.PEAK.update(fp32=max(peak["fp32_flops"], peak["clock_fp32_flops"]),
@@ -378,12 +468,13 @@ def main(argv=None) -> int:
         out = os.path.join(COMPARE_DIR, f"pass-{side.replace('/', '-')}.json")
         cmd = [sys.executable, os.path.abspath(__file__), "--library", lib, "--out", out,
                "--reference", ref_dir, "--peak-fp32", repr(cs.PEAK["fp32"]),
-               "--peak-int32", repr(cs.PEAK["int32"])] + (["--stages"] if stages else [])
+               "--peak-int32", repr(cs.PEAK["int32"])] + (["--stages"] if stages else []) + (
+                   ["--only", args.only] if args.only else [])
         subprocess.run(cmd, check=True)
         with open(out) as f:
             return json.load(f)
 
-    sides = ["parent", "change"]
+    sides = ["parent", "change", *variants]
     runs = {s: [] for s in sides}
     for side in sides + sides[::-1]:  # the first pass writes the reference frames
         result = start(side, paths[side])
@@ -418,7 +509,9 @@ def main(argv=None) -> int:
                            for a, b in zip(launches, first["launches"])),
                        "lane_utilisation": [x["lane_utilisation"] for x in launches],
                        "work": [x["work"] for x in launches],
-                       "instance": [{k: x[k] for k in mk.GEN_INFO} for x in launches]}
+                       "instance": [{k: x[k] for k in ("instance", *(
+                           mk.GEN_INFO if x["instance"] == "gen" else mk.TEX_INFO))}
+                                    for x in launches]}
         summary[label] = s
     for label, s in summary.items():
         cs.log(f"[compare] {label} on {card}: {json.dumps(s)}")

@@ -1636,8 +1636,8 @@ __device__ __forceinline__ void count_work(unsigned long long* work, int slot, u
   if ((threadIdx.x & 31) == 0 && total) atomicAdd(work + slot, (unsigned long long)total);
 }
 
-// The procedural instance's cycles per stage in the measurement build
-// (-DMK_STAGE_CLOCKS): each mark, at a point every lane of the warp
+// The procedural and texture instances' cycles per stage in the measurement
+// build (-DMK_STAGE_CLOCKS): each mark, at a point every lane of the warp
 // reaches, adds the warp's clock64 since the last mark to its stage; count
 // adds lane 0's sums after the work slots.  Empty in the normal build.
 struct StageClock {
@@ -2075,6 +2075,7 @@ __global__ void __launch_bounds__(128 * (MK_TILE_ROWS / G), 1)
   const int L = p.cloud_lod;
   const int C = G / L;
 
+  StageClock clk;
   // the sky's choice: the block's rays are its tile's
   Sky sky{sky_t, sky_r, sky_g, sky_b, TexChoice{MK_WINDOWED, 0}};
   if (p.with_sky) sky.ch = sky_choice<G>(p, sky_t, x, y0, red);
@@ -2085,30 +2086,36 @@ __global__ void __launch_bounds__(128 * (MK_TILE_ROWS / G), 1)
   shade_rows(p, blue, x, y0, G, L, s, ci, color, depth, sky, work, n_atmo, n_v1, n_sky);
   Coarse<MK_MAX_GROUP> c;
   coarse_rays(p, L, C, ci, c);
+  clk.mark(MK_STAGE_COARSE);
 
   float light_c[MK_MAX_GROUP], calpha_c[MK_MAX_GROUP];
   for (int k = 0; k < C; ++k) light_c[k] = calpha_c[k] = 0.0f;
   // the tile's gate (clouds.py:573): no visible pixel, no knots, no march
   const bool tile_vis = __syncthreads_or(c.any_vis);
+  bool marches = false;
   if (tile_vis) {
     eval_knots<false>(p, t, cov_tab, c, K, cov_knots, red, cov_samples);
     eval_knots<true>(p, t, shape_tab, c, KS, shp_knots, red, tex_samples);
     float cov_max = cov_knots[tid];
     for (int k = 1; k <= K; ++k) cov_max = fmaxf(cov_max, cov_knots[k * nt + tid]);
-    if (c.any_vis && cloud_may_form(p, cov_max)) {
-      const TexFields<K, KS> fields{SmemKnots<K>{cov_knots + tid, nt},
-                                    SmemKnots<KS>{shp_knots + tid, nt}};
-      for (int k = 0; k < C; ++k) {
-        if (c.vis[k]) {
-          cloud_march(p, fields, c.rd_model[k], c.tb[k], c.tem[k], ci.jit_first[k], light_c[k],
-                      calpha_c[k]);
-          ++n_march;
-          if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
-        }
+    marches = c.any_vis && cloud_may_form(p, cov_max);
+  }
+  clk.mark(MK_STAGE_KNOTS);
+  if (marches) {
+    const TexFields<K, KS> fields{SmemKnots<K>{cov_knots + tid, nt},
+                                  SmemKnots<KS>{shp_knots + tid, nt}};
+    for (int k = 0; k < C; ++k) {
+      if (c.vis[k]) {
+        cloud_march(p, fields, c.rd_model[k], c.tb[k], c.tem[k], ci.jit_first[k], light_c[k],
+                    calpha_c[k]);
+        ++n_march;
+        if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
       }
     }
   }
+  clk.mark(MK_STAGE_MARCH);
   blend_and_store(p, x, y0, G, L, s, c.vis, light_c, calpha_c, color, alpha_out);
+  clk.mark(MK_STAGE_BLEND);
   if (work) {
     count_work(work, MK_WORK_PIXELS, x < p.width ? max(0, min(G, p.row0 + p.rows - y0)) : 0);
     count_work(work, MK_WORK_ATMOSPHERE, n_atmo);
@@ -2123,6 +2130,7 @@ __global__ void __launch_bounds__(128 * (MK_TILE_ROWS / G), 1)
     count_work(work, MK_WORK_SKY, sky.ch.mode == MK_FLOOR ? 0 : n_sky);
     count_work(work, MK_WORK_SKY_FLOOR, sky.ch.mode == MK_FLOOR ? n_sky : 0);
   }
+  clk.count(work);
 }
 
 // The sky's pre-pass for the procedural instance and the opaque-only pass:
@@ -2374,6 +2382,33 @@ extern "C" int megakernel_tex_launch(const MegakernelParams* params, const TexPa
     return launch_tex<8>(params, tex, sky_t, blue, shape_tab, cov_tab, sky_r, sky_g, sky_b, color,
                          alpha, depth, s, w);
   return -1;
+}
+
+// What the texture instance for these params uses, as the launcher would
+// launch it: out = {rows per thread G, registers per thread, local memory
+// (stack) bytes per thread, resident blocks per SM, dynamic shared memory
+// bytes, CTAs per cluster, resident clusters on the card}.
+extern "C" int megakernel_tex_info(const MegakernelParams* params, const TexParams* tex,
+                                   int* out) {
+  (void)tex;
+  const int G = params->cloud_lod * params->coverage_lod;
+  if (G != 4 && G != 8) return -1;
+  const int nt = 128 * (MK_TILE_ROWS / G);
+  const int smem = (MK_KNOTS + MK_SHAPE_KNOTS + 2) * nt * (int)sizeof(float) +
+                   (nt / 32) * 2 * 3 * (int)sizeof(float);
+  auto kernel = G == 4 ? megakernel_tex<MK_KNOTS, MK_SHAPE_KNOTS, 4>
+                       : megakernel_tex<MK_KNOTS, MK_SHAPE_KNOTS, 8>;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  int blocks = 0, device = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, nt, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const int info[7] = {G, attr.numRegs, (int)attr.localSizeBytes, blocks, smem, 1, blocks * sms};
+  for (int i = 0; i < 7; ++i) out[i] = info[i];
+  return 0;
 }
 
 extern "C" int texsample_launch(const TexParams* tex, int shape, const float* table,

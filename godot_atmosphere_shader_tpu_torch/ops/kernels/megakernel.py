@@ -126,13 +126,16 @@ WORK_SLOTS = ("pixels", "atmosphere", "knot_groups", "march", "tex3d",
               "coverage_evals", "shape_evals", "detail_evals", "shape_knots",
               "detail_knots", "march_warp_steps", "march_lane_steps")
 #: the measurement build's (``MEASURE_DEFINES``) per-stage cycles of the
-#: procedural instance, summed over warps, after the work slots
-#: (``MK_STAGE_*``): the coarse pass, the knots, the march, the shading and
-#: blend
+#: procedural and texture instances, summed over warps, after the work
+#: slots (``MK_STAGE_*``): the coarse pass, the knots, the march, the
+#: shading and blend
 STAGE_SLOTS = ("coarse", "knots", "march", "blend")
 MEASURE_DEFINES = ("MK_STAGE_CLOCKS",)
 #: what :func:`gen_info` reports of the procedural instance
 GEN_INFO = ("coarse", "registers", "stack_bytes", "blocks_per_sm", "smem_bytes", "row_cache")
+#: what :func:`tex_info` reports of the texture instance
+TEX_INFO = ("group", "registers", "stack_bytes", "blocks_per_sm", "smem_bytes", "cluster_ctas",
+            "active_clusters")
 #: atmosphere models, by their integer codes
 MODELS = {"v2": 0, "v1": 1}
 #: noise bases, fractals and cellular returns, by their integer codes
@@ -319,6 +322,7 @@ TEX_LAUNCHER_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.POINTER(TexPar
 TEXSAMPLE_ARGTYPES = (ctypes.POINTER(TexParams), ctypes.c_int, *(ctypes.c_void_p,) * 4,
                       ctypes.c_int, ctypes.c_int, *(ctypes.c_void_p,) * 3)
 GEN_INFO_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.c_void_p)
+TEX_INFO_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.POINTER(TexParams), ctypes.c_void_p)
 
 
 # -- binding --------------------------------------------------------------------
@@ -335,6 +339,7 @@ def bind(lib):
                            ("megakernel_tex_launch", TEX_LAUNCHER_ARGTYPES),
                            ("texsample_launch", TEXSAMPLE_ARGTYPES),
                            ("megakernel_gen_info", GEN_INFO_ARGTYPES),
+                           ("megakernel_tex_info", TEX_INFO_ARGTYPES),
                            ("megakernel_params_size", ()),
                            ("megakernel_noise_params_size", ()),
                            ("megakernel_tex_params_size", ())):
@@ -385,6 +390,18 @@ def gen_info(struct: MegakernelParams) -> dict:
     if rc != 0:
         raise RuntimeError(f"megakernel_gen_info failed: CUDA error {rc}")
     return dict(zip(GEN_INFO, out))
+
+
+def tex_info(struct: MegakernelParams, tparams: TexParams) -> dict:
+    """What the texture instance that would launch ``struct`` with the
+    pyramid struct ``tparams`` uses on this card (:data:`TEX_INFO`): its
+    rows per thread, registers, local memory (stack), resident blocks per
+    SM, dynamic shared memory, CTAs per cluster and resident clusters."""
+    out = (ctypes.c_int * len(TEX_INFO))()
+    rc = load_library().megakernel_tex_info(ctypes.byref(struct), ctypes.byref(tparams), out)
+    if rc != 0:
+        raise RuntimeError(f"megakernel_tex_info failed: CUDA error {rc}")
+    return dict(zip(TEX_INFO, out))
 
 
 # -- what the kernel takes ----------------------------------------------------

@@ -314,7 +314,8 @@ _CPARAM = {"int": ctypes.c_int, "const MegakernelParams*": ctypes.POINTER(mk.Meg
                                            ("sky_choice_launch", mk.SKY_CHOICE_ARGTYPES),
                                            ("megakernel_tex_launch", mk.TEX_LAUNCHER_ARGTYPES),
                                            ("texsample_launch", mk.TEXSAMPLE_ARGTYPES),
-                                           ("megakernel_gen_info", mk.GEN_INFO_ARGTYPES)])
+                                           ("megakernel_gen_info", mk.GEN_INFO_ARGTYPES),
+                                           ("megakernel_tex_info", mk.TEX_INFO_ARGTYPES)])
 def test_cu_launcher_signature_matches_argtypes(name, argtypes):
     """Each launcher's C parameters against its ctypes argtypes: structs by
     pointer, ints as c_int, every other pointer (and the stream) c_void_p."""
