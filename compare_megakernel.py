@@ -86,8 +86,9 @@ extern "C" int megakernel_tex_info(const MegakernelParams* params, const TexPara
   if (err == cudaSuccess) err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  const int info[7] = {G, attr.numRegs, (int)attr.localSizeBytes, blocks, smem, 1, blocks * sms};
-  for (int i = 0; i < 7; ++i) out[i] = info[i];
+  const int info[8] = {G, attr.numRegs, (int)attr.localSizeBytes, blocks, smem, 1, blocks * sms,
+                       0};
+  for (int i = 0; i < 8; ++i) out[i] = info[i];
   return 0;
 }
 '''

@@ -155,7 +155,7 @@
 #define MK_MAX_SPHERES 8
 #define MK_MAX_BOXES 4
 #define MK_MAX_OCTAVES 8
-#define MK_MAX_GROUP 8  // texture instance: rows per thread, knots per batch
+#define MK_MAX_GROUP 8  // texture instance: knots per batch
 #define MK_QUAD_POINTS 8
 #define MK_KNOTS 8  // texture instance: coverage knots
 // the procedural instance's dynamic shared memory, in rows of one float per
@@ -1405,18 +1405,6 @@ struct CoarseIn {
   float jit_first[N];
 };
 
-template <int N>
-struct Coarse {
-  V3 rd_model[N];
-  float tb[N], tem[N];
-  bool vis[N];
-  bool any_vis;
-  // coverage-group knot inputs: mean model-space ray (not renormalized)
-  // and mean span
-  V3 rk;
-  float t0k, t1k;
-};
-
 // One pixel (x, y) of a layer: its ray, the opaque pass (whose misses
 // sample the sky with its tile's choice when with_sky) or, for a chained
 // layer, the color and linear depth of the layers below (read from color
@@ -1549,35 +1537,6 @@ __device__ __forceinline__ CoarseRay coarse_ray(const MegakernelParams& p, int L
   float te = c.vis ? t_end : t_begin;
   c.tem = t_begin + fminf(te - t_begin, p.march_max_distance);
   return c;
-}
-
-// coarse rays, shell spans and visibility per cloud_lod group, and the
-// coverage group's knot inputs
-template <int N>
-__device__ __forceinline__ void coarse_rays(const MegakernelParams& p, int L, int C,
-                                            const CoarseIn<N>& ci, Coarse<N>& c) {
-  c.any_vis = false;
-  for (int k = 0; k < C; ++k) {
-    const CoarseRay cr = coarse_ray(p, L, ci.rd_sum[k], ci.depth_min[k]);
-    c.vis[k] = cr.vis;
-    c.any_vis = c.any_vis || c.vis[k];
-    c.rd_model[k] = cr.rd_model;
-    c.tb[k] = cr.tb;
-    c.tem[k] = cr.tem;
-  }
-  c.rk = c.rd_model[0];
-  c.t0k = c.tb[0];
-  c.t1k = c.tem[0];
-  if (C > 1) {
-    for (int k = 1; k < C; ++k) {
-      c.rk = add(c.rk, c.rd_model[k]);
-      c.t0k = c.t0k + c.tb[k];
-      c.t1k = c.t1k + c.tem[k];
-    }
-    c.rk = v3(c.rk.x / (float)C, c.rk.y / (float)C, c.rk.z / (float)C);
-    c.t0k = c.t0k / (float)C;
-    c.t1k = c.t1k / (float)C;
-  }
 }
 
 // blend each full-resolution row with its group's cloud light/alpha, then
@@ -1969,17 +1928,66 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
 }
 
 // ---------------------------------------------------------------------------
-// Texture mode: K1 with K2 inside.  One thread block per 32 x 128 TPU tile
-// (its batches are the TPU kernel's), one thread per column and coverage
-// group: 128 x 32 / G threads.  The 9 coverage and 17 shape knots of each
-// thread live in dynamic shared memory, knot-major.
+// Texture mode: K1 with K2 inside, one instance per G = cloud_lod *
+// coverage_lod rows per thread.  A 32 x 128 TPU tile (its batches are the
+// TPU kernel's) is MK_TEX_CTAS CTAs, each a band of 32 / MK_TEX_CTAS rows,
+// one thread per column and coverage group; with more than one CTA they are
+// a thread-block cluster and reduce through distributed shared memory.
+// Shared memory of a CTA, in rows of one float per thread:
+//   * the 9 coverage knots (each its wrapped lat-long u until sampled) and
+//     the 17 shape knots (the first 9 of those rows hold the coverage
+//     knots' v until the coverage knots are sampled);
+//   * per coarse pixel of the group, its march inputs (model-space ray,
+//     span, jitter), which the march overwrites with its light and alpha;
+//   * the reduction slots of each warp.
+// Stages, and the tile's two barriers:
+//   1. the coarse pass: every row's ray and opaque pass, its background to
+//      the color plane (a panorama miss is sampled in stage 4) and its
+//      linear depth to the depth plane (without one, to the alpha plane
+//      until the blend); the coarse pixels' rays and spans, the coverage
+//      group's knot inputs; the sky's (fu, v) min and max over the tile's
+//      rays and the tile's visibility: barrier 1;
+//   2. where the tile sees the cloud layer, every knot's wrapped coordinates
+//      once and each batch's min and max over the tile: barrier 2; then each
+//      batch's level and mode and its samples, and the cull;
+//   3. the march of each of the thread's visible coarse pixels;
+//   4. each row's atmosphere, blended with its coarse pixel's clouds over
+//      its background, and stored.
+// A min or a max does not depend on the order it is taken in, so every
+// batch's choice is the one a block of the whole tile makes, bit for bit.
 
-// knot position of a coverage group, as the plain version computes it,
-// uncontracted
-__device__ __forceinline__ V3 knot_pos(const V3& rom, const Coarse<MK_MAX_GROUP>& c, float s) {
-  const float tk = __fadd_rn(c.t0k, __fmul_rn(__fsub_rn(c.t1k, c.t0k), s));
-  return v3(__fadd_rn(rom.x, __fmul_rn(c.rk.x, tk)), __fadd_rn(rom.y, __fmul_rn(c.rk.y, tk)),
-            __fadd_rn(rom.z, __fmul_rn(c.rk.z, tk)));
+#ifndef MK_TEX_CTAS
+#define MK_TEX_CTAS 1  // CTAs per tile (a thread-block cluster above 1)
+#endif
+#ifndef MK_TEX_SM_THREADS
+#define MK_TEX_SM_THREADS 1024  // resident threads per SM its registers are sized for
+#endif
+#if MK_TEX_CTAS > 1
+#include <cooperative_groups.h>
+#endif
+
+// knot rows: coverage knots, then shape knots
+constexpr int MK_TEX_KNOT_ROWS = MK_KNOTS + 1 + MK_SHAPE_KNOTS + 1;
+// reduction slots of barrier 1: the tile's visibility (the min of 0 where a
+// coverage group sees the layer, else 1) and the sky's fu and v, min and -max
+constexpr int MK_TEX_SLOTS1 = 5;
+// barrier 2's slots (a coverage batch's fu and v, a shape batch's x, y, z,
+// each min and -max), at most 32 * MK_TEX_SLOT_LANES (knot_group 1: 138)
+constexpr int MK_TEX_SLOT_LANES = 5;
+
+__host__ __device__ constexpr int tex_threads(int G) {
+  return MK_TILE_COLS * (MK_TILE_ROWS / G) / MK_TEX_CTAS;
+}
+__host__ __device__ constexpr int tex_min_blocks(int G) {
+  return MK_TEX_SM_THREADS / tex_threads(G) > 1 ? MK_TEX_SM_THREADS / tex_threads(G) : 1;
+}
+
+// the knot position of a coverage group at s in [0, 1], as the plain
+// version computes it, uncontracted: ro + rk * lerp(t0k, t1k, s)
+__device__ __forceinline__ V3 knot_pos(const V3& rom, const V3& rk, float t0k, float t1k, float s) {
+  const float tk = __fadd_rn(t0k, __fmul_rn(__fsub_rn(t1k, t0k), s));
+  return v3(__fadd_rn(rom.x, __fmul_rn(rk.x, tk)), __fadd_rn(rom.y, __fmul_rn(rk.y, tk)),
+            __fadd_rn(rom.z, __fmul_rn(rk.z, tk)));
 }
 
 // coverage direction of a model-space position: the animated xz rotation,
@@ -1995,142 +2003,374 @@ __device__ __forceinline__ void coverage_dir(const MegakernelParams& p, V3 pos, 
   dz = __fmul_rn(qz, inv);
 }
 
-// Evaluate one field's K + 1 knots, knot_group knots per batch, into
-// knots[k * nt + tid].  SHAPE: the 3D shape texture at pos * shape_scale;
-// else the lat-long coverage map.
-template <bool SHAPE>
-__device__ void eval_knots(const MegakernelParams& p, const TexParams& t,
-                           const float* __restrict__ tab, const Coarse<MK_MAX_GROUP>& c, int K,
-                           float* knots,
-                           float* red, unsigned* n_samples) {
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nt = blockDim.x * blockDim.y;
-  const V3 rom = load3(p.ro_model);
-  for (int g0 = 0; g0 <= K; g0 += t.knot_group) {
-    const int g1 = min(g0 + t.knot_group, K + 1);
-    constexpr int N = SHAPE ? 3 : 2;
-    float mn[N], mx[N];
+// lane 0 of the warp stores the warp's min of v
+__device__ __forceinline__ void warp_min_store(float v, float* slot) {
 #pragma unroll
-    for (int a = 0; a < N; ++a) {
-      mn[a] = 3.0e38f;
-      mx[a] = -3.0e38f;
-    }
-    for (int k = g0; k < g1; ++k) {
-      const V3 pos = knot_pos(rom, c, (float)((double)k / (double)K));
-      float f[N];
-      if (SHAPE) {
-        f[0] = wrap01(pos.x * p.cloud_shape_scale);
-        f[1] = wrap01(pos.y * p.cloud_shape_scale);
-        f[N - 1] = wrap01(pos.z * p.cloud_shape_scale);
-      } else {
-        float dx, dy, dz;
-        coverage_dir(p, pos, dx, dy, dz);
-        latlong_uv(dx, dy, dz, f[0], f[N - 1]);
-      }
+  for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  if ((threadIdx.x & 31) == 0) *slot = v;
+}
+
+// The tile's barriers: the CTA's, or the cluster's (release and acquire of
+// the shared memory of every CTA of the tile)
+__device__ __forceinline__ void tile_sync() {
+#if MK_TEX_CTAS > 1
+  cooperative_groups::this_cluster().sync();
+#else
+  __syncthreads();
+#endif
+}
+
+// After a tile barrier: lane l of every warp gets in m[j] the tile's min of
+// slot l + 32 j, over the n slots of each of the nw warps of every CTA of
+// the tile (a peer CTA's through distributed shared memory)
+template <int J>
+__device__ __forceinline__ void tile_slots(float* red, int n, int nw, float (&m)[J]) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-      for (int a = 0; a < N; ++a) {
-        mn[a] = fminf(mn[a], f[a]);
-        mx[a] = fmaxf(mx[a], f[a]);
+  for (int j = 0; j < J; ++j) m[j] = 3.0e38f;
+  for (int c = 0; c < MK_TEX_CTAS; ++c) {
+#if MK_TEX_CTAS > 1
+    const float* rr = cooperative_groups::this_cluster().map_shared_rank(red, c);
+#else
+    const float* rr = red;
+#endif
+    for (int w = 0; w < nw; ++w) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int s = lane + 32 * j;
+        if (s < n) m[j] = fminf(m[j], rr[w * n + s]);
       }
     }
-    block_minmax<N>(mn, mx, red);
-    const TexChoice ch = SHAPE ? tex3d_choose(t, mn, mx)
-                               : latlong_choose(t, mn[0], mx[0], mn[N - 1], mx[N - 1]);
-    for (int k = g0; k < g1; ++k) {
-      const V3 pos = knot_pos(rom, c, (float)((double)k / (double)K));
-      float value;
-      if (SHAPE) {
-        value = tex3d_sample(t, tab, ch, wrap01(pos.x * p.cloud_shape_scale),
-                             wrap01(pos.y * p.cloud_shape_scale),
-                             wrap01(pos.z * p.cloud_shape_scale));
-      } else {
-        float dx, dy, dz, fu, v;
-        coverage_dir(p, pos, dx, dy, dz);
-        latlong_uv(dx, dy, dz, fu, v);
-        value = latlong_sample(t, tab, ch, fu, v);
-      }
-      knots[k * nt + tid] = value;
-    }
-    n_samples[ch.mode == MK_FLOOR] += g1 - g0;
   }
 }
 
-template <int K, int KS, int G>
-__global__ void __launch_bounds__(128 * (MK_TILE_ROWS / G), 1)
-    megakernel_tex(const MegakernelParams p, const TexParams t, const TexParams sky_t,
-                   const float* __restrict__ blue, const float* __restrict__ shape_tab,
-                   const float* __restrict__ cov_tab, const float* __restrict__ sky_r,
-                   const float* __restrict__ sky_g, const float* __restrict__ sky_b,
-                   float* __restrict__ color, float* __restrict__ alpha_out,
-                   float* __restrict__ depth, unsigned long long* work) {
+// slot s of tile_slots' result, in every lane (s uniform over the warp)
+template <int J>
+__device__ __forceinline__ float slot_of(const float (&m)[J], int s) {
+  float v = m[0];
+#pragma unroll
+  for (int j = 1; j < J; ++j) v = (s >> 5) == j ? m[j] : v;
+  return __shfl_sync(0xffffffffu, v, s & 31);
+}
+
+// the split cluster barrier that keeps a CTA's shared memory alive until
+// its peers have read it: arrive after the last read of a peer, wait before
+// exit
+__device__ __forceinline__ void tile_reads_done() {
+#if MK_TEX_CTAS > 1
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+#endif
+}
+
+__device__ __forceinline__ void tile_exit() {
+#if MK_TEX_CTAS > 1
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+#endif
+}
+
+template <int G>
+__global__ void __launch_bounds__(tex_threads(G), tex_min_blocks(G))
+    megakernel_tex(const __grid_constant__ MegakernelParams p, const __grid_constant__ TexParams t,
+                   const __grid_constant__ TexParams sky_t, const float* __restrict__ blue,
+                   const float* __restrict__ shape_tab, const float* __restrict__ cov_tab,
+                   const float* __restrict__ sky_r, const float* __restrict__ sky_g,
+                   const float* __restrict__ sky_b, float* __restrict__ color,
+                   float* __restrict__ alpha_out, float* __restrict__ depth,
+                   unsigned long long* work, int n_slots, int row_cache) {
   extern __shared__ float smem[];
-  const int nt = blockDim.x * blockDim.y;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  float* cov_knots = smem;                    // (K + 1) * nt
-  float* shp_knots = smem + (K + 1) * nt;     // (KS + 1) * nt
-  float* red = smem + (K + KS + 2) * nt;      // block_minmax scratch
-
+  constexpr int T = tex_threads(G);
+  constexpr int NW = T / 32;
+  constexpr int K = MK_KNOTS, KS = MK_SHAPE_KNOTS;
+  const int tid = threadIdx.y * MK_TILE_COLS + threadIdx.x;
+  const int warp = tid >> 5;
   const int x = blockIdx.x * MK_TILE_COLS + threadIdx.x;
-  const int y0 = p.row0 + blockIdx.y * MK_TILE_ROWS + threadIdx.y * G;
-  const int L = p.cloud_lod;
-  const int C = G / L;
-
+  const int band = blockIdx.y % MK_TEX_CTAS;  // the CTA's band of the tile
+  const int y0 = p.row0 + (blockIdx.y / MK_TEX_CTAS) * MK_TILE_ROWS +
+                 band * (MK_TILE_ROWS / MK_TEX_CTAS) + threadIdx.y * G;
+  const int L = p.cloud_lod, C = G / L;
+  const int n_rows = x < p.width ? max(0, min(G, p.row0 + p.rows - y0)) : 0;
+  float* knots = smem + tid;                        // knot row j at knots[j * T]
+  float* state = knots + MK_TEX_KNOT_ROWS * T;      // input f of coarse k at state[(f * C + k) * T]
+  float* cache = state + MK_GEN_MARCH_ROWS * C * T;  // value c of row r at cache[(r * 4 + c) * T]
+  float* red1 = smem + (MK_TEX_KNOT_ROWS + MK_GEN_MARCH_ROWS * C +
+                        (row_cache ? MK_GEN_CACHE_ROWS * G : 0)) * T;  // NW x MK_TEX_SLOTS1
+  float* red2 = red1 + NW * MK_TEX_SLOTS1;                             // NW x n_slots
+  const V3 ro = load3(p.cam_pos);
+  const V3 pc = load3(p.planet_center);
+  // without the row cache, the depth before the sphere-depth blend, kept
+  // from stage 1 to stage 4
+  float* linear = depth ? depth : alpha_out;
+  unsigned n_atmo = 0, n_v1 = 0, n_march = 0, n_sun = 0, n_sky = 0, tex_n[2] = {0, 0},
+           cov_n[2] = {0, 0};
   StageClock clk;
-  // the sky's choice: the block's rays are its tile's
-  Sky sky{sky_t, sky_r, sky_g, sky_b, TexChoice{MK_WINDOWED, 0}};
-  if (p.with_sky) sky.ch = sky_choice<G>(p, sky_t, x, y0, red);
-  RowPix<MK_MAX_GROUP> s;
-  CoarseIn<MK_MAX_GROUP> ci;
-  unsigned n_atmo = 0, n_v1 = 0, n_march = 0, n_sun = 0, n_sky = 0, tex_samples[2] = {0, 0},
-           cov_samples[2] = {0, 0};
-  shade_rows(p, blue, x, y0, G, L, s, ci, color, depth, sky, work, n_atmo, n_v1, n_sky);
-  Coarse<MK_MAX_GROUP> c;
-  coarse_rays(p, L, C, ci, c);
+
+  // 1. the coarse pass
+  unsigned vis = 0;       // bit k: coarse pixel k sees the cloud layer
+  unsigned sky_miss = 0;  // bit r: row r's ray misses the geometry (sampled in stage 4)
+  V3 rk = v3(0.0f, 0.0f, 0.0f);
+  float t0k = 0.0f, t1k = 0.0f;
+  float sky_s[4] = {3.0e38f, 3.0e38f, 3.0e38f, 3.0e38f};  // fu, v: min and -max
+  for (int k = 0; k < C; ++k) {
+    V3 rd_sum = v3(0.0f, 0.0f, 0.0f);
+    float depth_min = 0.0f, jit_first = 0.0f;
+    for (int l = 0; l < L; ++l) {
+      const int r = k * L + l, y = y0 + r;
+      const V3 rd = pixel_dir(p, x, y);
+      const bool in_rows = x < p.width && y < p.row0 + p.rows;
+      const size_t o = (size_t)y * p.width + x;
+      float ld = 1.0e7f;
+      if (p.with_background) {
+        if (in_rows) ld = depth[o];
+      } else {
+        V3 b = v3(0.0f, 0.0f, 0.0f);
+        const bool hit = p.with_opaque && opaque_pass(p, ro, rd, b, ld);
+        if (in_rows) {
+          if (p.with_sky && !hit) {
+            sky_miss |= 1u << r;
+          } else if (row_cache) {
+            cache[(r * 4 + 0) * T] = b.x;
+            cache[(r * 4 + 1) * T] = b.y;
+            cache[(r * 4 + 2) * T] = b.z;
+          } else {
+            color[o * 3 + 0] = b.x;
+            color[o * 3 + 1] = b.y;
+            color[o * 3 + 2] = b.z;
+          }
+          if (depth || !row_cache) linear[o] = ld;
+        }
+      }
+      if (p.with_sky) {
+        float fu, v;
+        latlong_uv(rd.x, rd.y, rd.z, fu, v);
+        sky_s[0] = fminf(sky_s[0], fu);
+        sky_s[1] = fminf(sky_s[1], v);
+        sky_s[2] = fminf(sky_s[2], -fu);
+        sky_s[3] = fminf(sky_s[3], -v);
+      }
+      float g0, g1;
+      ray_sphere(pc, p.planet_radius2, ro, rd, g0, g1);
+      const float gd = g0 != g1 ? g0 : 1.0e7f;
+      ld = ld + (gd - ld) * p.sphere_depth_factor;
+      if (row_cache) cache[(r * 4 + 3) * T] = ld;
+      if (l == 0) {
+        const float jitter = blue[(y & 255) * 256 + (x & 255)] + p.jitter_offset;
+        rd_sum = rd;
+        depth_min = ld;
+        jit_first = jitter - floorf(jitter);
+      } else {
+        rd_sum = add(rd_sum, rd);
+        depth_min = fminf(depth_min, ld);
+      }
+    }
+    const CoarseRay cr = coarse_ray(p, L, rd_sum, depth_min);
+    vis |= (unsigned)cr.vis << k;
+    float* in = state + k * T;
+    in[MK_IN_RX * C * T] = cr.rd_model.x;
+    in[MK_IN_RY * C * T] = cr.rd_model.y;
+    in[MK_IN_RZ * C * T] = cr.rd_model.z;
+    in[MK_IN_TB * C * T] = cr.tb;
+    in[MK_IN_TEM * C * T] = cr.tem;
+    in[MK_IN_JIT * C * T] = jit_first;
+    rk = k == 0 ? cr.rd_model : add(rk, cr.rd_model);
+    t0k = k == 0 ? cr.tb : t0k + cr.tb;
+    t1k = k == 0 ? cr.tem : t1k + cr.tem;
+  }
+  // the coverage group's knot inputs: mean model-space ray (not
+  // renormalized) and mean span
+  if (C > 1) {
+    rk = v3(rk.x / (float)C, rk.y / (float)C, rk.z / (float)C);
+    t0k = t0k / (float)C;
+    t1k = t1k / (float)C;
+  }
   clk.mark(MK_STAGE_COARSE);
 
-  float light_c[MK_MAX_GROUP], calpha_c[MK_MAX_GROUP];
-  for (int k = 0; k < C; ++k) light_c[k] = calpha_c[k] = 0.0f;
-  // the tile's gate (clouds.py:573): no visible pixel, no knots, no march
-  const bool tile_vis = __syncthreads_or(c.any_vis);
+  // barrier 1: the tile's gate (clouds.py:573: no visible pixel, no knots,
+  // no march) and the sky's choice (its rays are the tile's)
+  warp_min_store(vis ? 0.0f : 1.0f, red1 + warp * MK_TEX_SLOTS1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) warp_min_store(sky_s[i], red1 + warp * MK_TEX_SLOTS1 + 1 + i);
+  tile_sync();
+  float m1[1];
+  tile_slots(red1, MK_TEX_SLOTS1, NW, m1);
+  const bool tile_vis = slot_of(m1, 0) == 0.0f;
+  Sky sky{sky_t, sky_r, sky_g, sky_b, TexChoice{MK_WINDOWED, 0}};
+  if (p.with_sky)
+    sky.ch = latlong_choose(sky_t, slot_of(m1, 1), -slot_of(m1, 3), slot_of(m1, 2), -slot_of(m1, 4));
+
+  // 2. the knots: every knot's wrapped coordinates once, each batch's min
+  // and -max over the warp into the reduction slots
+  const int kg = t.knot_group;
   bool marches = false;
   if (tile_vis) {
-    eval_knots<false>(p, t, cov_tab, c, K, cov_knots, red, cov_samples);
-    eval_knots<true>(p, t, shape_tab, c, KS, shp_knots, red, tex_samples);
-    float cov_max = cov_knots[tid];
-    for (int k = 1; k <= K; ++k) cov_max = fmaxf(cov_max, cov_knots[k * nt + tid]);
-    marches = c.any_vis && cloud_may_form(p, cov_max);
-  }
-  clk.mark(MK_STAGE_KNOTS);
-  if (marches) {
-    const TexFields<K, KS> fields{SmemKnots<K>{cov_knots + tid, nt},
-                                  SmemKnots<KS>{shp_knots + tid, nt}};
-    for (int k = 0; k < C; ++k) {
-      if (c.vis[k]) {
-        cloud_march(p, fields, c.rd_model[k], c.tb[k], c.tem[k], ci.jit_first[k], light_c[k],
-                    calpha_c[k]);
-        ++n_march;
-        if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
+    const V3 rom = load3(p.ro_model);
+    float* slots = red2 + warp * n_slots;
+    float a[6] = {3.0e38f, 3.0e38f, 3.0e38f, 3.0e38f, 3.0e38f, 3.0e38f};
+#ifdef MK_TEX_ROLLED_KNOTS
+#pragma unroll 1
+#else
+#pragma unroll
+#endif
+    for (int k = 0; k <= K; ++k) {
+      float dx, dy, dz, fu, v;
+      coverage_dir(p, knot_pos(rom, rk, t0k, t1k, (float)((double)k / (double)K)), dx, dy, dz);
+      latlong_uv(dx, dy, dz, fu, v);
+      knots[k * T] = fu;
+      knots[(K + 1 + k) * T] = v;
+      a[0] = fminf(a[0], fu);
+      a[1] = fminf(a[1], v);
+      a[2] = fminf(a[2], -fu);
+      a[3] = fminf(a[3], -v);
+      if ((k + 1) % kg == 0 || k == K) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          warp_min_store(a[i], slots + i);
+          a[i] = 3.0e38f;
+        }
+        slots += 4;
       }
+    }
+#ifdef MK_TEX_ROLLED_KNOTS
+#pragma unroll 1
+#else
+#pragma unroll
+#endif
+    for (int k = 0; k <= KS; ++k) {
+      const V3 pos = knot_pos(rom, rk, t0k, t1k, (float)((double)k / (double)KS));
+      const float f[3] = {wrap01(pos.x * p.cloud_shape_scale), wrap01(pos.y * p.cloud_shape_scale),
+                          wrap01(pos.z * p.cloud_shape_scale)};
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        a[i] = fminf(a[i], f[i]);
+        a[3 + i] = fminf(a[3 + i], -f[i]);
+      }
+      if ((k + 1) % kg == 0 || k == KS) {
+#pragma unroll
+        for (int i = 0; i < 6; ++i) {
+          warp_min_store(a[i], slots + i);
+          a[i] = 3.0e38f;
+        }
+        slots += 6;
+      }
+    }
+    // barrier 2: each batch's min and max over the tile, then its level and
+    // mode (the same in every thread) and its samples
+    tile_sync();
+    float m2[MK_TEX_SLOT_LANES];
+    tile_slots(red2, n_slots, NW, m2);
+    int s = 0;
+    for (int g0 = 0; g0 <= K; g0 += kg, s += 4) {
+      const int g1 = min(g0 + kg, K + 1);
+      const TexChoice ch = latlong_choose(t, slot_of(m2, s), -slot_of(m2, s + 2), slot_of(m2, s + 1),
+                                          -slot_of(m2, s + 3));
+      for (int k = g0; k < g1; ++k)
+        knots[k * T] = latlong_sample(t, cov_tab, ch, knots[k * T], knots[(K + 1 + k) * T]);
+      cov_n[ch.mode == MK_FLOOR] += g1 - g0;
+    }
+    for (int g0 = 0; g0 <= KS; g0 += kg, s += 6) {
+      const int g1 = min(g0 + kg, KS + 1);
+      const float mn[3] = {slot_of(m2, s), slot_of(m2, s + 1), slot_of(m2, s + 2)};
+      const float mx[3] = {-slot_of(m2, s + 3), -slot_of(m2, s + 4), -slot_of(m2, s + 5)};
+      const TexChoice ch = tex3d_choose(t, mn, mx);
+      for (int k = g0; k < g1; ++k) {
+        const V3 pos = knot_pos(rom, rk, t0k, t1k, (float)((double)k / (double)KS));
+        knots[(K + 1 + k) * T] =
+            tex3d_sample(t, shape_tab, ch, wrap01(pos.x * p.cloud_shape_scale),
+                         wrap01(pos.y * p.cloud_shape_scale), wrap01(pos.z * p.cloud_shape_scale));
+      }
+      tex_n[ch.mode == MK_FLOOR] += g1 - g0;
+    }
+    float cov_max = knots[0];
+    for (int k = 1; k <= K; ++k) cov_max = fmaxf(cov_max, knots[k * T]);
+    marches = vis && cloud_may_form(p, cov_max);
+  }
+  tile_reads_done();
+  clk.mark(MK_STAGE_KNOTS);
+
+  // 3. the march of each of the thread's coarse pixels that sees the layer
+  if (marches) {
+    const TexFields<K, KS> fields{SmemKnots<K>{knots, T}, SmemKnots<KS>{knots + (K + 1) * T, T}};
+    for (int k = 0; k < C; ++k) {
+      if (!((vis >> k) & 1u)) continue;
+      float* in = state + k * T;
+      float light, alpha;
+      cloud_march(p, fields, v3(in[MK_IN_RX * C * T], in[MK_IN_RY * C * T], in[MK_IN_RZ * C * T]),
+                  in[MK_IN_TB * C * T], in[MK_IN_TEM * C * T], in[MK_IN_JIT * C * T], light,
+                  alpha);
+      in[0] = light;
+      in[C * T] = alpha;
+      ++n_march;
+      if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
     }
   }
   clk.mark(MK_STAGE_MARCH);
-  blend_and_store(p, x, y0, G, L, s, c.vis, light_c, calpha_c, color, alpha_out);
-  clk.mark(MK_STAGE_BLEND);
-  if (work) {
-    count_work(work, MK_WORK_PIXELS, x < p.width ? max(0, min(G, p.row0 + p.rows - y0)) : 0);
-    count_work(work, MK_WORK_ATMOSPHERE, n_atmo);
-    count_work(work, MK_WORK_V1_ATMOSPHERE, n_v1);
+  if (work) {  // counted here: their registers are free for the atmosphere
     count_work(work, MK_WORK_KNOT_GROUPS, tile_vis ? 1 : 0);
     count_work(work, MK_WORK_MARCH, n_march);
     count_work(work, MK_WORK_SUN_SAMPLES, n_sun);
-    count_work(work, MK_WORK_TEX3D, tex_samples[0]);
-    count_work(work, MK_WORK_TEX3D_FLOOR, tex_samples[1]);
-    count_work(work, MK_WORK_LATLONG, cov_samples[0]);
-    count_work(work, MK_WORK_LATLONG_FLOOR, cov_samples[1]);
+    count_work(work, MK_WORK_TEX3D, tex_n[0]);
+    count_work(work, MK_WORK_TEX3D_FLOOR, tex_n[1]);
+    count_work(work, MK_WORK_LATLONG, cov_n[0]);
+    count_work(work, MK_WORK_LATLONG_FLOOR, cov_n[1]);
+  }
+
+  // 4. each stored row: its atmosphere and background, blended with its
+  // coarse pixel's clouds (zeros where it sees the layer but was culled)
+  for (int r = 0; r < n_rows; ++r) {
+    const int y = y0 + r;
+    const size_t o = (size_t)y * p.width + x;
+    const V3 rd = pixel_dir(p, x, y);
+    float ld;
+    if (row_cache) {
+      ld = cache[(r * 4 + 3) * T];
+    } else {
+      float g0, g1;
+      ray_sphere(pc, p.planet_radius2, ro, rd, g0, g1);
+      const float gd = g0 != g1 ? g0 : 1.0e7f;
+      ld = linear[o];
+      ld = ld + (gd - ld) * p.sphere_depth_factor;
+    }
+    float rs0, rs1;
+    ray_sphere(pc, p.atmosphere_radius2, ro, rd, rs0, rs1);
+    const bool h = rs0 != rs1;
+    const float t_begin = h ? fmaxf(rs0, 0.0f) : 0.0f;
+    float t_end = h ? fmaxf(rs1, 0.0f) : 0.0f;
+    t_end = fmaxf(fminf(t_end, ld), t_begin);
+    RowPix<1> s;
+    if ((sky_miss >> r) & 1u) {
+      s.bg[0] = sky_rgb(sky, rd);
+      ++n_sky;
+    } else if (row_cache && !p.with_background) {
+      s.bg[0] = v3(cache[(r * 4 + 0) * T], cache[(r * 4 + 1) * T], cache[(r * 4 + 2) * T]);
+    } else {
+      s.bg[0] = v3(color[o * 3 + 0], color[o * 3 + 1], color[o * 3 + 2]);
+    }
+    s.hit[0] = h;
+    if (h) {
+      if (p.model == 1) {
+        atmosphere_v1(p, ro, rd, t_begin, t_end, s.atm[0]);
+        ++n_v1;
+      } else {
+        const float jitter = blue[(y & 255) * 256 + (x & 255)] + p.jitter_offset;
+        atmosphere_v2(p, ro, rd, t_begin, t_end, jitter - floorf(jitter), s.atm[0]);
+        ++n_atmo;
+      }
+    }
+    const int k = r / L;
+    const bool vis_k = (vis >> k) & 1u;
+    const float la = marches ? state[k * T] : 0.0f;
+    const float ca = marches ? state[(C + k) * T] : 0.0f;
+    blend_and_store(p, x, y, 1, 1, s, &vis_k, &la, &ca, color, alpha_out);
+  }
+  clk.mark(MK_STAGE_BLEND);
+  if (work) {
+    count_work(work, MK_WORK_PIXELS, n_rows);
+    count_work(work, MK_WORK_ATMOSPHERE, n_atmo);
+    count_work(work, MK_WORK_V1_ATMOSPHERE, n_v1);
     count_work(work, MK_WORK_SKY, sky.ch.mode == MK_FLOOR ? 0 : n_sky);
     count_work(work, MK_WORK_SKY_FLOOR, sky.ch.mode == MK_FLOOR ? n_sky : 0);
   }
   clk.count(work);
+  tile_exit();
 }
 
 // The sky's pre-pass for the procedural instance and the opaque-only pass:
@@ -2341,24 +2581,85 @@ extern "C" int megakernel_gen_info(const MegakernelParams* params, int* out) {
   return 0;
 }
 
-template <int G>
-static int launch_tex(const MegakernelParams* p, const TexParams* t, const TexParams& sky,
-                      const float* blue, const float* shape_tab, const float* cov_tab,
-                      const float* sky_r, const float* sky_g, const float* sky_b, float* color,
-                      float* alpha, float* depth, cudaStream_t stream,
-                      unsigned long long* work) {
-  const int nt = 128 * (MK_TILE_ROWS / G);
-  const size_t smem = (size_t)(MK_KNOTS + MK_SHAPE_KNOTS + 2) * nt * sizeof(float) +
-                      (size_t)(nt / 32) * 2 * 3 * sizeof(float);
-  auto kernel = megakernel_tex<MK_KNOTS, MK_SHAPE_KNOTS, G>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 block(128, MK_TILE_ROWS / G, 1);
-  kernel<<<tile_grid(p), block, smem, stream>>>(*p, *t, sky, blue, shape_tab, cov_tab, sky_r, sky_g,
-                                        sky_b, color, alpha, depth, work);
-  return (int)cudaGetLastError();
+// The texture instance for params and tex: its kernel (one per G =
+// cloud_lod * coverage_lod the launcher takes), threads per CTA, dynamic
+// shared memory in bytes (the knot rows, MK_GEN_MARCH_ROWS per coarse
+// pixel, the warps' reduction slots), the slots of barrier 2 and the grid
+// (MK_TEX_CTAS CTAs per tile, consecutive in y).  kernel is nullptr for a
+// config the instance does not take.
+using TexKernel = void (*)(const MegakernelParams, const TexParams, const TexParams, const float*,
+                           const float*, const float*, const float*, const float*, const float*,
+                           float*, float*, float*, unsigned long long*, int, int);
+
+struct TexLayout {
+  TexKernel kernel;
+  int threads;
+  int smem;
+  int slots;
+  int row_cache;
+  dim3 grid;
+};
+
+static TexLayout tex_layout(const MegakernelParams* p, const TexParams* t) {
+  const int G = p->cloud_lod * p->coverage_lod, kg = t->knot_group;
+  TexLayout out{nullptr, 0, 0, 0, 0, dim3(1, 1, 1)};
+  if (p->cloud_lod < 1 || p->coverage_lod < 1 || kg < 1 || kg > MK_MAX_GROUP) return out;
+  out.slots = 4 * ((MK_KNOTS + kg) / kg) + 6 * ((MK_SHAPE_KNOTS + kg) / kg);
+  if (out.slots > 32 * MK_TEX_SLOT_LANES) return out;
+  if (G == 4) out.kernel = megakernel_tex<4>;
+  if (G == 8) out.kernel = megakernel_tex<8>;
+  if (!out.kernel) return out;
+  out.threads = tex_threads(G);
+  const int limit = MK_SMEM_ROWS * MK_TILE_COLS * (int)sizeof(float);
+  const int rows = MK_TEX_KNOT_ROWS + MK_GEN_MARCH_ROWS * p->coverage_lod;
+  const int slots = out.threads / 32 * (MK_TEX_SLOTS1 + out.slots);
+  out.smem = (rows * out.threads + slots) * (int)sizeof(float);
+  if (out.smem > limit) out.kernel = nullptr;
+  // the row cache where the CTAs per SM that the registers allow can still
+  // hold it
+  const int cached = ((rows + MK_GEN_CACHE_ROWS * G) * out.threads + slots) * (int)sizeof(float);
+#ifndef MK_TEX_NO_ROW_CACHE
+  if (cached <= limit / tex_min_blocks(G)) {
+    out.smem = cached;
+    out.row_cache = 1;
+  }
+#endif
+  const dim3 tiles = tile_grid(p);
+  out.grid = dim3(tiles.x, tiles.y * MK_TEX_CTAS, 1);
+  return out;
 }
+
+// dynamic shared memory above the default 48 KB needs the kernel's
+// attribute raised first; it is only ever raised (each instance keeps the
+// largest it was given), so a smaller launch or a query never lowers it
+static cudaError_t tex_smem_attribute(const TexLayout& tex) {
+  static int raised[2] = {48 * 1024, 48 * 1024};
+  int& have = raised[tex.kernel == megakernel_tex<8>];
+  if (tex.smem <= have) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(tex.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tex.smem);
+  if (err == cudaSuccess) have = tex.smem;
+  return err;
+}
+
+// the launch configuration: MK_TEX_CTAS CTAs of a tile as one cluster
+struct TexLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  TexLaunch(const TexLayout& tex, cudaStream_t stream) {
+    cfg = cudaLaunchConfig_t{};
+    cfg.gridDim = tex.grid;
+    cfg.blockDim = dim3(MK_TILE_COLS, tex.threads / MK_TILE_COLS, 1);
+    cfg.dynamicSmemBytes = (size_t)tex.smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = MK_TEX_CTAS;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = MK_TEX_CTAS > 1 ? 1 : 0;
+  }
+};
 
 extern "C" int megakernel_tex_launch(const MegakernelParams* params, const TexParams* tex,
                                      const TexParams* sky, const float* blue,
@@ -2368,46 +2669,55 @@ extern "C" int megakernel_tex_launch(const MegakernelParams* params, const TexPa
                                      void* work) {
   if (!params->clouds_enabled || !params->with_atmosphere ||
       params->coverage_knots != MK_KNOTS || tex->shape_knots != MK_SHAPE_KNOTS ||
-      tex->knot_group < 1 || tex->knot_group > MK_MAX_GROUP || !rows_ok(params) ||
-      (params->with_background && !depth) || !sky_ok(params, sky, sky_r, sky_g, sky_b))
+      !rows_ok(params) || (params->with_background && !depth) ||
+      !sky_ok(params, sky, sky_r, sky_g, sky_b))
     return -1;
-  const int G = params->cloud_lod * params->coverage_lod;
+  const TexLayout layout = tex_layout(params, tex);
+  if (!layout.kernel) return -1;
+  cudaError_t err = tex_smem_attribute(layout);
+  if (err != cudaSuccess) return (int)err;
   const TexParams sky_t = sky ? *sky : TexParams{};
-  cudaStream_t s = (cudaStream_t)stream;
-  unsigned long long* w = (unsigned long long*)work;
-  if (G == 4)
-    return launch_tex<4>(params, tex, sky_t, blue, shape_tab, cov_tab, sky_r, sky_g, sky_b, color,
-                         alpha, depth, s, w);
-  if (G == 8)
-    return launch_tex<8>(params, tex, sky_t, blue, shape_tab, cov_tab, sky_r, sky_g, sky_b, color,
-                         alpha, depth, s, w);
-  return -1;
+  TexLaunch launch(layout, (cudaStream_t)stream);
+  err = cudaLaunchKernelEx(&launch.cfg, layout.kernel, *params, *tex, sky_t, blue, shape_tab,
+                           cov_tab, sky_r, sky_g, sky_b, color, alpha, depth,
+                           (unsigned long long*)work, layout.slots, layout.row_cache);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // What the texture instance for these params uses, as the launcher would
 // launch it: out = {rows per thread G, registers per thread, local memory
-// (stack) bytes per thread, resident blocks per SM, dynamic shared memory
-// bytes, CTAs per cluster, resident clusters on the card}.
+// (stack) bytes per thread, resident CTAs per SM, dynamic shared memory
+// bytes per CTA, CTAs per cluster, resident clusters on the card, 1 with
+// the row cache}.
 extern "C" int megakernel_tex_info(const MegakernelParams* params, const TexParams* tex,
                                    int* out) {
-  (void)tex;
-  const int G = params->cloud_lod * params->coverage_lod;
-  if (G != 4 && G != 8) return -1;
-  const int nt = 128 * (MK_TILE_ROWS / G);
-  const int smem = (MK_KNOTS + MK_SHAPE_KNOTS + 2) * nt * (int)sizeof(float) +
-                   (nt / 32) * 2 * 3 * (int)sizeof(float);
-  auto kernel = G == 4 ? megakernel_tex<MK_KNOTS, MK_SHAPE_KNOTS, 4>
-                       : megakernel_tex<MK_KNOTS, MK_SHAPE_KNOTS, 8>;
+  const TexLayout layout = tex_layout(params, tex);
+  if (!layout.kernel) return -1;
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
-  int blocks = 0, device = 0, sms = 0;
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, nt, smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaError_t err = tex_smem_attribute(layout);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, layout.kernel);
+  int blocks = 0, clusters = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, layout.kernel, layout.threads,
+                                                        layout.smem);
+  TexLaunch launch(layout, nullptr);
+  if (err == cudaSuccess) {
+    if (MK_TEX_CTAS > 1) {
+      err = cudaOccupancyMaxActiveClusters(&clusters, layout.kernel, &launch.cfg);
+    } else {
+      int device = 0, sms = 0;
+      err = cudaGetDevice(&device);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+      clusters = blocks * sms;
+    }
+  }
   if (err != cudaSuccess) return (int)err;
-  const int info[7] = {G, attr.numRegs, (int)attr.localSizeBytes, blocks, smem, 1, blocks * sms};
-  for (int i = 0; i < 7; ++i) out[i] = info[i];
+  const int info[8] = {params->cloud_lod * params->coverage_lod, attr.numRegs,
+                       (int)attr.localSizeBytes, blocks, layout.smem, MK_TEX_CTAS, clusters,
+                       layout.row_cache};
+  for (int i = 0; i < 8; ++i) out[i] = info[i];
   return 0;
 }
 

@@ -88,7 +88,7 @@ SOURCE = os.path.join(library.CSRC, "megakernel.cu")
 MAX_SPHERES = 8
 MAX_BOXES = 4
 MAX_OCTAVES = 8
-#: the texture instance's rows per thread and knots per batch
+#: the texture instance's knots per batch (texture_knot_group)
 MAX_GROUP = 8
 QUAD_POINTS = 8
 #: the texture instance's coverage knot count (template parameter K)
@@ -111,9 +111,20 @@ GEN_CACHE_ROWS = 4
 SHAPE_KNOTS = 16
 MAX_LEVELS = 8
 WINDOWED, BANDED, FLOOR = texsample.WINDOWED, texsample.BANDED, texsample.FLOOR
-#: texture mode's rows per thread, cloud_lod·cloud_coverage_lod (a block
-#: of 128 × 32 / G threads must fit 1024)
+#: texture mode's rows per thread, cloud_lod·cloud_coverage_lod: one
+#: instance each (``megakernel_tex<G>``)
 TEXTURE_GROUPS = (4, 8)
+#: the texture instance's CTAs per 32×128 tile (a thread-block cluster above
+#: 1) and the resident threads per SM its registers are sized for
+#: (``MK_TEX_CTAS``, ``MK_TEX_SM_THREADS``)
+TEX_CTAS = 1
+TEX_SM_THREADS = 1024
+#: its shared memory, in rows of one float per thread of a CTA: the 9
+#: coverage and 17 shape knots, then GEN_MARCH_ROWS per coarse pixel; then
+#: each warp's reduction slots, TEX_SLOTS1 for the first barrier and, for
+#: the second, 4 per batch of coverage knots and 6 per batch of shape knots
+TEX_KNOT_ROWS = 26
+TEX_SLOTS1 = 5
 #: work counter slots, in the kernel's order (``MK_WORK_*``); the procedural
 #: instance also counts its procedural field evaluations: coverage per step
 #: and per sun sample, shape and detail per step and per sun sample, and the
@@ -135,7 +146,7 @@ MEASURE_DEFINES = ("MK_STAGE_CLOCKS",)
 GEN_INFO = ("coarse", "registers", "stack_bytes", "blocks_per_sm", "smem_bytes", "row_cache")
 #: what :func:`tex_info` reports of the texture instance
 TEX_INFO = ("group", "registers", "stack_bytes", "blocks_per_sm", "smem_bytes", "cluster_ctas",
-            "active_clusters")
+            "active_clusters", "row_cache")
 #: atmosphere models, by their integer codes
 MODELS = {"v2": 0, "v1": 1}
 #: noise bases, fractals and cellular returns, by their integer codes
@@ -469,6 +480,25 @@ def gen_smem(config: VariantConfig) -> tuple:
         return None, False
     cache = rows + GEN_CACHE_ROWS * group <= SMEM_ROWS
     return (rows + (GEN_CACHE_ROWS * group if cache else 0)) * TILE_COLS * 4, cache
+
+
+def tex_smem(config: VariantConfig) -> tuple:
+    """The texture instance's dynamic shared memory per CTA for ``config``,
+    as its launcher lays it out (``tex_layout``): ``(bytes, row cache?)``.
+    The row cache (GEN_CACHE_ROWS per row of the group: each row's
+    background and depth) joins where the CTAs per SM that its registers
+    allow can still hold it."""
+    group = config.cloud_lod * config.cloud_coverage_lod
+    threads = TILE_COLS * (TILE_ROWS // group) // TEX_CTAS
+    kg = config.texture_knot_group
+    slots = threads // 32 * (TEX_SLOTS1 + 4 * -(-(KNOTS + 1) // kg)
+                             + 6 * -(-(SHAPE_KNOTS + 1) // kg))
+    rows = TEX_KNOT_ROWS + GEN_MARCH_ROWS * config.cloud_coverage_lod
+    limit = SMEM_ROWS * TILE_COLS * 4
+    cached = ((rows + GEN_CACHE_ROWS * group) * threads + slots) * 4
+    if cached <= limit // max(1, TEX_SM_THREADS // threads):
+        return cached, True
+    return (rows * threads + slots) * 4, False
 
 
 def knot_rows(config: VariantConfig) -> int:

@@ -303,7 +303,55 @@ def test_cu_limits_match_wrapper():
                        "MK_WINDOWED": mk.WINDOWED, "MK_BANDED": mk.BANDED,
                        "MK_FLOOR": mk.FLOOR, **work, "MK_WORK_SLOTS": len(mk.WORK_SLOTS),
                        **stages, "MK_STAGES": len(mk.STAGE_SLOTS),
-                       "MK_SUN_STEPS": mk.SUN_STEPS}
+                       "MK_SUN_STEPS": mk.SUN_STEPS, "MK_TEX_CTAS": mk.TEX_CTAS,
+                       "MK_TEX_SM_THREADS": mk.TEX_SM_THREADS}
+
+
+def _cu_constexpr(name):
+    """A ``constexpr int`` of the source, its ``MK_*`` terms substituted."""
+    defines = {k: int(v) for k, v in re.findall(r"#define (MK_\w+) (\d+)", _cu_source())}
+    expr = re.search(r"constexpr int %s = (.*?);" % name, _cu_source()).group(1)
+    return eval(expr, {}, defines)
+
+
+def test_texture_layout_matches_wrapper():
+    """The texture instance's shared-memory rows and reduction slots, as
+    ``tex_smem`` mirrors them, against the source's constants."""
+    assert _cu_constexpr("MK_TEX_KNOT_ROWS") == mk.TEX_KNOT_ROWS == mk.KNOTS + mk.SHAPE_KNOTS + 2
+    assert _cu_constexpr("MK_TEX_SLOTS1") == mk.TEX_SLOTS1
+    # knot_group 1 has the most batches: 9 coverage and 17 shape, each a slot per lane
+    assert 4 * (mk.KNOTS + 1) + 6 * (mk.SHAPE_KNOTS + 1) <= 32 * _cu_constexpr("MK_TEX_SLOT_LANES")
+
+
+def test_texture_launcher_has_an_instance_per_group():
+    """``tex_layout`` dispatches each G of TEXTURE_GROUPS to its own
+    ``megakernel_tex<G>``, and nothing else."""
+    body = re.search(r"static TexLayout tex_layout\(.*?\n\}", _cu_source(), re.S).group(0)
+    assert tuple(int(g) for g in re.findall(r"megakernel_tex<(\d+)>", body)) == mk.TEXTURE_GROUPS
+    assert re.findall(r"if \(G == (\d+)\) out.kernel = megakernel_tex<(\d+)>", body) == [
+        (str(g), str(g)) for g in mk.TEXTURE_GROUPS]
+
+
+@pytest.mark.parametrize("group", mk.TEXTURE_GROUPS)
+@pytest.mark.parametrize("knot_group", [1, 8])
+def test_every_texture_config_fits_one_cta(group, knot_group):
+    """Every split of G rows into cloud_lod·coverage_lod that
+    ``check_config`` passes fits the 227 KB a CTA may use, at the most and
+    the fewest knot batches."""
+    for cov in (c for c in (1, 2, 4, 8) if group % c == 0):
+        cfg = dataclasses.replace(demo_variant("clouds_high", procedural=False),
+                                  cloud_lod=group // cov, cloud_coverage_lod=cov,
+                                  texture_knot_group=knot_group)
+        smem, cache = mk.tex_smem(cfg)
+        assert 0 < smem <= mk.SMEM_ROWS * mk.TILE_COLS * 4, (group, cov)
+        # the demo's split (2 rows of 2 coarse pixels) at its knot group keeps
+        # the row cache; G = 8's 512-thread CTAs do without it, and at the
+        # interior's split (4 rows of 2) two fit an SM
+        if (group, cov, knot_group) == (4, 2, 8):
+            assert cache
+        assert not (group == 8 and cache)
+        if (group, cov) == (8, 2):
+            assert 2 * smem <= mk.SMEM_ROWS * mk.TILE_COLS * 4
 
 
 _CPARAM = {"int": ctypes.c_int, "const MegakernelParams*": ctypes.POINTER(mk.MegakernelParams),
