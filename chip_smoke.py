@@ -157,7 +157,10 @@ LOD group) and the peak probe T2 run in four more phases:
    launch of the procedural instance, no plain call) against plain: the cloud
    tolerance, at full quality the detail tolerance (p99 for p99.9), whose
    reason is measured first: the plain frame against itself with the
-   camera one ulp away;
+   camera one ulp away; then shape knots over 32-row coverage groups
+   (``KNOT_GROUP_CASES``) under the knot-group tolerance, whose reason is
+   measured first: the plain frame against itself with every march span
+   one ulp longer;
 4f. 1080p through ``Scene.render``: the cellular tier, the reference
    shader's per-step profile, the ``.tscn`` importer's profile and full
    quality (4 procedural-instance launches, no plain call), each against
@@ -170,9 +173,12 @@ LOD group) and the peak probe T2 run in four more phases:
    cache); per 1080p frame of phases 4-4f (and the flagship's 2 shards of
    5d) each procedural launch's march lane utilisation and, through the
    measurement build (``-DMK_STAGE_CLOCKS``, built beside the package's),
-   its cycles per stage (coarse pass, knots, march, blend); every such
+   its cycles per stage (coarse pass, knots, march, blend); the same for
+   the texture instance ``megakernel_tex<G>`` (``mk.tex_info``) on the
+   texture frames of 4b and the everything-on frame of 4d; every such
    launch's work counts held against the previous design's
-   (``PARENT_WORK``), so the bounds are shown not to move.
+   (``PARENT_WORK``, ``PARENT_TEX_WORK``; the texture launches of 4e's
+   4 shards too), so the bounds are shown not to move.
 
 Prints a JSON line describing each kernel (with its roofline bound from
 this run's work counters), then, as the last line,
@@ -972,7 +978,7 @@ def sky_launch(scene, cam, plan, h: int, w: int) -> tuple:
 
 def expected_choice_launches(plan, sky: bool) -> int:
     """The sky's pre-pass runs once per frame with a sky, unless a fused
-    texture layer draws it (its block is the tile)."""
+    texture layer draws it (the tile's CTAs choose it themselves)."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     _, configs, _, bands, _ = plan
@@ -2763,6 +2769,9 @@ def main(argv=None) -> int:
         "flight_launches": flight_tex,
         "max_abs_err": tex_err,
         "k2_alone_max_abs_err": k2_err,
+        "instances": {f"G={x['group']}": {k: x[k] for k in mk.TEX_INFO} for x in (
+            stages[f"clouds_high texture/{pose}"][0] for pose in TEXTURE_POSES)},
+        "stage_share": stages["clouds_high texture/avatar"][0]["stage_share"],
         "ms": timings[tex_flagship]["kernel_ms"],
         "plain_ms": timings[tex_flagship]["plain_ms"],
         "bound_ms": bounds[tex_flagship]["bound_ms"],

@@ -24,7 +24,7 @@ shard) and on the 64×128 frames whose work counts
 * each cloud launch's kernel ms (CUDA events) with its work counts (the
   march's lane utilisation among them) and what its instance uses
   (registers, stack, resident blocks per SM, shared memory; the row cache
-  or the CTAs per cluster);
+  or the threads per CTA);
 * the frame, held against the first pass's parent frame (max |Δ|, p99.9);
 * the device busy ms per frame of the three 1080p K = 8 flights
   (``torch.profiler``).
@@ -81,14 +81,11 @@ extern "C" int megakernel_tex_info(const MegakernelParams* params, const TexPara
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
-  int blocks = 0, device = 0, sms = 0;
+  int blocks = 0;
   if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, nt, smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  const int info[8] = {G, attr.numRegs, (int)attr.localSizeBytes, blocks, smem, 1, blocks * sms,
-                       0};
-  for (int i = 0; i < 8; ++i) out[i] = info[i];
+  const int info[6] = {G, attr.numRegs, (int)attr.localSizeBytes, blocks, smem, nt};
+  for (int i = 0; i < 6; ++i) out[i] = info[i];
   return 0;
 }
 '''

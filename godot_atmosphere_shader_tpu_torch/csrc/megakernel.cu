@@ -47,17 +47,11 @@
 // one 32 x 128 TPU tile's knot positions of one knot group (up to 8 knots),
 // its level and mode come from a block-wide min/max of the wrapped
 // coordinates, and the samples are trilinear (bilinear) at that level or
-// nearest from the floor level.  What bounds the texture path: the same
-// arithmetic as above minus the procedural noise, plus 5 block-wide
-// reductions (__syncthreads) per tile and ~26 x 8 dependent L2 loads per
-// coverage group.  What the design does about it: one block per tile
-// (128 x 32 / G threads, 1024 at the avatar pose), knots evaluated once per
-// coverage group into dynamic shared memory (26 floats per thread, knot-
-// major: no bank conflicts in the march), and the tile's visibility gate
-// skips knots and march for tiles with no visible pixel, as the TPU does.
-// Sampler arithmetic is uncontracted (__fmul_rn/__fadd_rn), so a batch's
-// level choice and weights follow the plain version bit for bit given the
-// same positions.
+// nearest from the floor level.  The texture instance (megakernel_tex<G>,
+// below) keeps a tile in one CTA, so its batches' choices need no other
+// block; sampler arithmetic is uncontracted (__fmul_rn/__fadd_rn), so a
+// batch's level choice and weights follow the plain version bit for bit
+// given the same positions.
 //
 // Flight mode adds two things the TAA resolve needs (megakernel.py:385-390,
 // :348-349, :402-403): per-frame temporal jitter, and an optional output of
@@ -123,7 +117,33 @@
 // takes 2.08 ms against a 0.82 ms bound from its operations, 10 % less than
 // the design it replaces (compare_megakernel.py; PERF.md).
 // The full-quality frame is ill-conditioned: the detail field turns one
-// ulp of a march position into ~1e-3 of a cloud pixel.
+// ulp of a march position into ~1e-3 of a cloud pixel; so are shape knots
+// over a coverage group of 32 rows, whose knots lie along a mean span up to
+// ~1e5 units long: one ulp of one pixel's span moves a column of 32 pixels.
+//
+// The texture instance (megakernel_tex<G>, G = cloud_lod * coverage_lod = 4
+// or 8 rows per thread): the same per-pixel arithmetic minus the noise,
+// each coverage group's 26 knots sampled from the L2-resident pyramids in
+// batches whose level and mode come from the whole 32 x 128 tile.  What
+// bounds it on an H100: the per-pixel atmosphere (v2: 8 steps of 2 x 8
+// quadrature nodes, IEEE sqrtf and expf) and the march, 0.43 and 0.36 of its
+// warp-cycles at the avatar pose, at 32 warps per SM (64 registers); the
+// knots and the tile's barriers 0.13.  What the design does about it:
+//   * a thread's state is two bitmasks and a few scalars, its march inputs
+//     in shared memory (the design it replaces held per-row arrays in a
+//     688 B stack);
+//   * two barriers per tile: the tile's gate and the sky's choice in one
+//     reduction, every knot batch's min and max in a second (was ten);
+//   * each knot's coordinates computed once, its (fu, v) kept for its sample;
+//   * the atmosphere after the barriers, so that a tile's warps do not wait
+//     on the slowest warp's shading;
+//   * one tile per CTA: at G = 8, 512 threads, two tiles per SM.
+// Clusters of 2 and 4 CTAs per tile (a tile's batch reduced through
+// distributed shared memory), a row cache and the atmosphere before the
+// second barrier were measured and are not kept (PERF.md).  On an H100 at
+// 700 W the 1080p texture frame at the avatar pose takes 0.676 ms against a
+// 0.156 ms bound (the design it replaces 0.668 in the same call), the
+// interior pose 0.632 (0.685), compare_megakernel.py.
 //
 // The panorama sky (megakernel.py:212-222, :334-336; with_sky): the launch
 // that runs the opaque pass (a fused layer or the opaque-only pass) samples
@@ -1928,12 +1948,13 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
 }
 
 // ---------------------------------------------------------------------------
+// ---------------------------------------------------------------------------
 // Texture mode: K1 with K2 inside, one instance per G = cloud_lod *
-// coverage_lod rows per thread.  A 32 x 128 TPU tile (its batches are the
-// TPU kernel's) is MK_TEX_CTAS CTAs, each a band of 32 / MK_TEX_CTAS rows,
-// one thread per column and coverage group; with more than one CTA they are
-// a thread-block cluster and reduce through distributed shared memory.
-// Shared memory of a CTA, in rows of one float per thread:
+// coverage_lod rows per thread (the note at the head of this file).  A
+// 32 x 128 TPU tile (its batches are the TPU kernel's) is one CTA, one
+// thread per column and coverage group: 1024 threads at G = 4 (one tile per
+// SM), 512 at G = 8 (two).
+// Shared memory, in rows of one float per thread:
 //   * the 9 coverage knots (each its wrapped lat-long u until sampled) and
 //     the 17 shape knots (the first 9 of those rows hold the coverage
 //     knots' v until the coverage knots are sampled);
@@ -1956,16 +1977,6 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
 // A min or a max does not depend on the order it is taken in, so every
 // batch's choice is the one a block of the whole tile makes, bit for bit.
 
-#ifndef MK_TEX_CTAS
-#define MK_TEX_CTAS 1  // CTAs per tile (a thread-block cluster above 1)
-#endif
-#ifndef MK_TEX_SM_THREADS
-#define MK_TEX_SM_THREADS 1024  // resident threads per SM its registers are sized for
-#endif
-#if MK_TEX_CTAS > 1
-#include <cooperative_groups.h>
-#endif
-
 // knot rows: coverage knots, then shape knots
 constexpr int MK_TEX_KNOT_ROWS = MK_KNOTS + 1 + MK_SHAPE_KNOTS + 1;
 // reduction slots of barrier 1: the tile's visibility (the min of 0 where a
@@ -1975,11 +1986,12 @@ constexpr int MK_TEX_SLOTS1 = 5;
 // each min and -max), at most 32 * MK_TEX_SLOT_LANES (knot_group 1: 138)
 constexpr int MK_TEX_SLOT_LANES = 5;
 
-__host__ __device__ constexpr int tex_threads(int G) {
-  return MK_TILE_COLS * (MK_TILE_ROWS / G) / MK_TEX_CTAS;
-}
+// resident threads per SM its registers are sized for (64 registers); a
+// tile's threads and the tiles that share an SM
+constexpr int MK_TEX_SM_THREADS = 1024;
+__host__ __device__ constexpr int tex_threads(int G) { return MK_TILE_COLS * (MK_TILE_ROWS / G); }
 __host__ __device__ constexpr int tex_min_blocks(int G) {
-  return MK_TEX_SM_THREADS / tex_threads(G) > 1 ? MK_TEX_SM_THREADS / tex_threads(G) : 1;
+  return MK_TEX_SM_THREADS / tex_threads(G);
 }
 
 // the knot position of a coverage group at s in [0, 1], as the plain
@@ -2010,36 +2022,18 @@ __device__ __forceinline__ void warp_min_store(float v, float* slot) {
   if ((threadIdx.x & 31) == 0) *slot = v;
 }
 
-// The tile's barriers: the CTA's, or the cluster's (release and acquire of
-// the shared memory of every CTA of the tile)
-__device__ __forceinline__ void tile_sync() {
-#if MK_TEX_CTAS > 1
-  cooperative_groups::this_cluster().sync();
-#else
-  __syncthreads();
-#endif
-}
-
-// After a tile barrier: lane l of every warp gets in m[j] the tile's min of
-// slot l + 32 j, over the n slots of each of the nw warps of every CTA of
-// the tile (a peer CTA's through distributed shared memory)
+// After a barrier: lane l of every warp gets in m[j] the tile's min of
+// slot l + 32 j, over the n slots of each of the nw warps
 template <int J>
-__device__ __forceinline__ void tile_slots(float* red, int n, int nw, float (&m)[J]) {
+__device__ __forceinline__ void tile_slots(const float* red, int n, int nw, float (&m)[J]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int j = 0; j < J; ++j) m[j] = 3.0e38f;
-  for (int c = 0; c < MK_TEX_CTAS; ++c) {
-#if MK_TEX_CTAS > 1
-    const float* rr = cooperative_groups::this_cluster().map_shared_rank(red, c);
-#else
-    const float* rr = red;
-#endif
-    for (int w = 0; w < nw; ++w) {
+  for (int w = 0; w < nw; ++w) {
 #pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const int s = lane + 32 * j;
-        if (s < n) m[j] = fminf(m[j], rr[w * n + s]);
-      }
+    for (int j = 0; j < J; ++j) {
+      const int s = lane + 32 * j;
+      if (s < n) m[j] = fminf(m[j], red[w * n + s]);
     }
   }
 }
@@ -2053,21 +2047,6 @@ __device__ __forceinline__ float slot_of(const float (&m)[J], int s) {
   return __shfl_sync(0xffffffffu, v, s & 31);
 }
 
-// the split cluster barrier that keeps a CTA's shared memory alive until
-// its peers have read it: arrive after the last read of a peer, wait before
-// exit
-__device__ __forceinline__ void tile_reads_done() {
-#if MK_TEX_CTAS > 1
-  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
-#endif
-}
-
-__device__ __forceinline__ void tile_exit() {
-#if MK_TEX_CTAS > 1
-  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
-#endif
-}
-
 template <int G>
 __global__ void __launch_bounds__(tex_threads(G), tex_min_blocks(G))
     megakernel_tex(const __grid_constant__ MegakernelParams p, const __grid_constant__ TexParams t,
@@ -2076,7 +2055,7 @@ __global__ void __launch_bounds__(tex_threads(G), tex_min_blocks(G))
                    const float* __restrict__ sky_r, const float* __restrict__ sky_g,
                    const float* __restrict__ sky_b, float* __restrict__ color,
                    float* __restrict__ alpha_out, float* __restrict__ depth,
-                   unsigned long long* work, int n_slots, int row_cache) {
+                   unsigned long long* work, int n_slots) {
   extern __shared__ float smem[];
   constexpr int T = tex_threads(G);
   constexpr int NW = T / 32;
@@ -2084,21 +2063,16 @@ __global__ void __launch_bounds__(tex_threads(G), tex_min_blocks(G))
   const int tid = threadIdx.y * MK_TILE_COLS + threadIdx.x;
   const int warp = tid >> 5;
   const int x = blockIdx.x * MK_TILE_COLS + threadIdx.x;
-  const int band = blockIdx.y % MK_TEX_CTAS;  // the CTA's band of the tile
-  const int y0 = p.row0 + (blockIdx.y / MK_TEX_CTAS) * MK_TILE_ROWS +
-                 band * (MK_TILE_ROWS / MK_TEX_CTAS) + threadIdx.y * G;
+  const int y0 = p.row0 + blockIdx.y * MK_TILE_ROWS + threadIdx.y * G;
   const int L = p.cloud_lod, C = G / L;
   const int n_rows = x < p.width ? max(0, min(G, p.row0 + p.rows - y0)) : 0;
   float* knots = smem + tid;                        // knot row j at knots[j * T]
   float* state = knots + MK_TEX_KNOT_ROWS * T;      // input f of coarse k at state[(f * C + k) * T]
-  float* cache = state + MK_GEN_MARCH_ROWS * C * T;  // value c of row r at cache[(r * 4 + c) * T]
-  float* red1 = smem + (MK_TEX_KNOT_ROWS + MK_GEN_MARCH_ROWS * C +
-                        (row_cache ? MK_GEN_CACHE_ROWS * G : 0)) * T;  // NW x MK_TEX_SLOTS1
-  float* red2 = red1 + NW * MK_TEX_SLOTS1;                             // NW x n_slots
+  float* red1 = smem + (MK_TEX_KNOT_ROWS + MK_GEN_MARCH_ROWS * C) * T;  // NW x MK_TEX_SLOTS1
+  float* red2 = red1 + NW * MK_TEX_SLOTS1;                               // NW x n_slots
   const V3 ro = load3(p.cam_pos);
   const V3 pc = load3(p.planet_center);
-  // without the row cache, the depth before the sphere-depth blend, kept
-  // from stage 1 to stage 4
+  // the depth before the sphere-depth blend, kept from stage 1 to stage 4
   float* linear = depth ? depth : alpha_out;
   unsigned n_atmo = 0, n_v1 = 0, n_march = 0, n_sun = 0, n_sky = 0, tex_n[2] = {0, 0},
            cov_n[2] = {0, 0};
@@ -2127,16 +2101,12 @@ __global__ void __launch_bounds__(tex_threads(G), tex_min_blocks(G))
         if (in_rows) {
           if (p.with_sky && !hit) {
             sky_miss |= 1u << r;
-          } else if (row_cache) {
-            cache[(r * 4 + 0) * T] = b.x;
-            cache[(r * 4 + 1) * T] = b.y;
-            cache[(r * 4 + 2) * T] = b.z;
           } else {
             color[o * 3 + 0] = b.x;
             color[o * 3 + 1] = b.y;
             color[o * 3 + 2] = b.z;
           }
-          if (depth || !row_cache) linear[o] = ld;
+          linear[o] = ld;
         }
       }
       if (p.with_sky) {
@@ -2151,7 +2121,6 @@ __global__ void __launch_bounds__(tex_threads(G), tex_min_blocks(G))
       ray_sphere(pc, p.planet_radius2, ro, rd, g0, g1);
       const float gd = g0 != g1 ? g0 : 1.0e7f;
       ld = ld + (gd - ld) * p.sphere_depth_factor;
-      if (row_cache) cache[(r * 4 + 3) * T] = ld;
       if (l == 0) {
         const float jitter = blue[(y & 255) * 256 + (x & 255)] + p.jitter_offset;
         rd_sum = rd;
@@ -2189,7 +2158,7 @@ __global__ void __launch_bounds__(tex_threads(G), tex_min_blocks(G))
   warp_min_store(vis ? 0.0f : 1.0f, red1 + warp * MK_TEX_SLOTS1);
 #pragma unroll
   for (int i = 0; i < 4; ++i) warp_min_store(sky_s[i], red1 + warp * MK_TEX_SLOTS1 + 1 + i);
-  tile_sync();
+  __syncthreads();
   float m1[1];
   tile_slots(red1, MK_TEX_SLOTS1, NW, m1);
   const bool tile_vis = slot_of(m1, 0) == 0.0f;
@@ -2205,11 +2174,7 @@ __global__ void __launch_bounds__(tex_threads(G), tex_min_blocks(G))
     const V3 rom = load3(p.ro_model);
     float* slots = red2 + warp * n_slots;
     float a[6] = {3.0e38f, 3.0e38f, 3.0e38f, 3.0e38f, 3.0e38f, 3.0e38f};
-#ifdef MK_TEX_ROLLED_KNOTS
-#pragma unroll 1
-#else
 #pragma unroll
-#endif
     for (int k = 0; k <= K; ++k) {
       float dx, dy, dz, fu, v;
       coverage_dir(p, knot_pos(rom, rk, t0k, t1k, (float)((double)k / (double)K)), dx, dy, dz);
@@ -2229,11 +2194,7 @@ __global__ void __launch_bounds__(tex_threads(G), tex_min_blocks(G))
         slots += 4;
       }
     }
-#ifdef MK_TEX_ROLLED_KNOTS
-#pragma unroll 1
-#else
 #pragma unroll
-#endif
     for (int k = 0; k <= KS; ++k) {
       const V3 pos = knot_pos(rom, rk, t0k, t1k, (float)((double)k / (double)KS));
       const float f[3] = {wrap01(pos.x * p.cloud_shape_scale), wrap01(pos.y * p.cloud_shape_scale),
@@ -2254,7 +2215,7 @@ __global__ void __launch_bounds__(tex_threads(G), tex_min_blocks(G))
     }
     // barrier 2: each batch's min and max over the tile, then its level and
     // mode (the same in every thread) and its samples
-    tile_sync();
+    __syncthreads();
     float m2[MK_TEX_SLOT_LANES];
     tile_slots(red2, n_slots, NW, m2);
     int s = 0;
@@ -2283,7 +2244,6 @@ __global__ void __launch_bounds__(tex_threads(G), tex_min_blocks(G))
     for (int k = 1; k <= K; ++k) cov_max = fmaxf(cov_max, knots[k * T]);
     marches = vis && cloud_may_form(p, cov_max);
   }
-  tile_reads_done();
   clk.mark(MK_STAGE_KNOTS);
 
   // 3. the march of each of the thread's coarse pixels that sees the layer
@@ -2319,17 +2279,11 @@ __global__ void __launch_bounds__(tex_threads(G), tex_min_blocks(G))
     const int y = y0 + r;
     const size_t o = (size_t)y * p.width + x;
     const V3 rd = pixel_dir(p, x, y);
-    float ld;
-    if (row_cache) {
-      ld = cache[(r * 4 + 3) * T];
-    } else {
-      float g0, g1;
-      ray_sphere(pc, p.planet_radius2, ro, rd, g0, g1);
-      const float gd = g0 != g1 ? g0 : 1.0e7f;
-      ld = linear[o];
-      ld = ld + (gd - ld) * p.sphere_depth_factor;
-    }
-    float rs0, rs1;
+    float ld = linear[o];
+    float g0, g1, rs0, rs1;
+    ray_sphere(pc, p.planet_radius2, ro, rd, g0, g1);
+    const float gd = g0 != g1 ? g0 : 1.0e7f;
+    ld = ld + (gd - ld) * p.sphere_depth_factor;
     ray_sphere(pc, p.atmosphere_radius2, ro, rd, rs0, rs1);
     const bool h = rs0 != rs1;
     const float t_begin = h ? fmaxf(rs0, 0.0f) : 0.0f;
@@ -2339,8 +2293,6 @@ __global__ void __launch_bounds__(tex_threads(G), tex_min_blocks(G))
     if ((sky_miss >> r) & 1u) {
       s.bg[0] = sky_rgb(sky, rd);
       ++n_sky;
-    } else if (row_cache && !p.with_background) {
-      s.bg[0] = v3(cache[(r * 4 + 0) * T], cache[(r * 4 + 1) * T], cache[(r * 4 + 2) * T]);
     } else {
       s.bg[0] = v3(color[o * 3 + 0], color[o * 3 + 1], color[o * 3 + 2]);
     }
@@ -2370,7 +2322,6 @@ __global__ void __launch_bounds__(tex_threads(G), tex_min_blocks(G))
     count_work(work, MK_WORK_SKY_FLOOR, sky.ch.mode == MK_FLOOR ? n_sky : 0);
   }
   clk.count(work);
-  tile_exit();
 }
 
 // The sky's pre-pass for the procedural instance and the opaque-only pass:
@@ -2582,27 +2533,24 @@ extern "C" int megakernel_gen_info(const MegakernelParams* params, int* out) {
 }
 
 // The texture instance for params and tex: its kernel (one per G =
-// cloud_lod * coverage_lod the launcher takes), threads per CTA, dynamic
-// shared memory in bytes (the knot rows, MK_GEN_MARCH_ROWS per coarse
-// pixel, the warps' reduction slots), the slots of barrier 2 and the grid
-// (MK_TEX_CTAS CTAs per tile, consecutive in y).  kernel is nullptr for a
-// config the instance does not take.
+// cloud_lod * coverage_lod the launcher takes), threads per CTA (a tile),
+// dynamic shared memory in bytes (the knot rows, MK_GEN_MARCH_ROWS per
+// coarse pixel, the warps' reduction slots) and the slots of barrier 2.
+// kernel is nullptr for a config the instance does not take.
 using TexKernel = void (*)(const MegakernelParams, const TexParams, const TexParams, const float*,
                            const float*, const float*, const float*, const float*, const float*,
-                           float*, float*, float*, unsigned long long*, int, int);
+                           float*, float*, float*, unsigned long long*, int);
 
 struct TexLayout {
   TexKernel kernel;
   int threads;
   int smem;
   int slots;
-  int row_cache;
-  dim3 grid;
 };
 
 static TexLayout tex_layout(const MegakernelParams* p, const TexParams* t) {
   const int G = p->cloud_lod * p->coverage_lod, kg = t->knot_group;
-  TexLayout out{nullptr, 0, 0, 0, 0, dim3(1, 1, 1)};
+  TexLayout out{nullptr, 0, 0, 0};
   if (p->cloud_lod < 1 || p->coverage_lod < 1 || kg < 1 || kg > MK_MAX_GROUP) return out;
   out.slots = 4 * ((MK_KNOTS + kg) / kg) + 6 * ((MK_SHAPE_KNOTS + kg) / kg);
   if (out.slots > 32 * MK_TEX_SLOT_LANES) return out;
@@ -2610,22 +2558,9 @@ static TexLayout tex_layout(const MegakernelParams* p, const TexParams* t) {
   if (G == 8) out.kernel = megakernel_tex<8>;
   if (!out.kernel) return out;
   out.threads = tex_threads(G);
-  const int limit = MK_SMEM_ROWS * MK_TILE_COLS * (int)sizeof(float);
-  const int rows = MK_TEX_KNOT_ROWS + MK_GEN_MARCH_ROWS * p->coverage_lod;
-  const int slots = out.threads / 32 * (MK_TEX_SLOTS1 + out.slots);
-  out.smem = (rows * out.threads + slots) * (int)sizeof(float);
-  if (out.smem > limit) out.kernel = nullptr;
-  // the row cache where the CTAs per SM that the registers allow can still
-  // hold it
-  const int cached = ((rows + MK_GEN_CACHE_ROWS * G) * out.threads + slots) * (int)sizeof(float);
-#ifndef MK_TEX_NO_ROW_CACHE
-  if (cached <= limit / tex_min_blocks(G)) {
-    out.smem = cached;
-    out.row_cache = 1;
-  }
-#endif
-  const dim3 tiles = tile_grid(p);
-  out.grid = dim3(tiles.x, tiles.y * MK_TEX_CTAS, 1);
+  out.smem = ((MK_TEX_KNOT_ROWS + MK_GEN_MARCH_ROWS * p->coverage_lod) * out.threads +
+              out.threads / 32 * (MK_TEX_SLOTS1 + out.slots)) * (int)sizeof(float);
+  if (out.smem > MK_SMEM_ROWS * MK_TILE_COLS * (int)sizeof(float)) out.kernel = nullptr;
   return out;
 }
 
@@ -2642,25 +2577,6 @@ static cudaError_t tex_smem_attribute(const TexLayout& tex) {
   return err;
 }
 
-// the launch configuration: MK_TEX_CTAS CTAs of a tile as one cluster
-struct TexLaunch {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  TexLaunch(const TexLayout& tex, cudaStream_t stream) {
-    cfg = cudaLaunchConfig_t{};
-    cfg.gridDim = tex.grid;
-    cfg.blockDim = dim3(MK_TILE_COLS, tex.threads / MK_TILE_COLS, 1);
-    cfg.dynamicSmemBytes = (size_t)tex.smem;
-    cfg.stream = stream;
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = 1;
-    attr[0].val.clusterDim.y = MK_TEX_CTAS;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = MK_TEX_CTAS > 1 ? 1 : 0;
-  }
-};
-
 extern "C" int megakernel_tex_launch(const MegakernelParams* params, const TexParams* tex,
                                      const TexParams* sky, const float* blue,
                                      const float* shape_tab, const float* cov_tab,
@@ -2674,22 +2590,20 @@ extern "C" int megakernel_tex_launch(const MegakernelParams* params, const TexPa
     return -1;
   const TexLayout layout = tex_layout(params, tex);
   if (!layout.kernel) return -1;
-  cudaError_t err = tex_smem_attribute(layout);
+  const cudaError_t err = tex_smem_attribute(layout);
   if (err != cudaSuccess) return (int)err;
   const TexParams sky_t = sky ? *sky : TexParams{};
-  TexLaunch launch(layout, (cudaStream_t)stream);
-  err = cudaLaunchKernelEx(&launch.cfg, layout.kernel, *params, *tex, sky_t, blue, shape_tab,
-                           cov_tab, sky_r, sky_g, sky_b, color, alpha, depth,
-                           (unsigned long long*)work, layout.slots, layout.row_cache);
-  if (err != cudaSuccess) return (int)err;
+  layout.kernel<<<tile_grid(params), dim3(MK_TILE_COLS, layout.threads / MK_TILE_COLS, 1),
+                  layout.smem, (cudaStream_t)stream>>>(
+      *params, *tex, sky_t, blue, shape_tab, cov_tab, sky_r, sky_g, sky_b, color, alpha, depth,
+      (unsigned long long*)work, layout.slots);
   return (int)cudaGetLastError();
 }
 
 // What the texture instance for these params uses, as the launcher would
 // launch it: out = {rows per thread G, registers per thread, local memory
-// (stack) bytes per thread, resident CTAs per SM, dynamic shared memory
-// bytes per CTA, CTAs per cluster, resident clusters on the card, 1 with
-// the row cache}.
+// (stack) bytes per thread, resident CTAs (tiles) per SM, dynamic shared
+// memory bytes per CTA, threads per CTA}.
 extern "C" int megakernel_tex_info(const MegakernelParams* params, const TexParams* tex,
                                    int* out) {
   const TexLayout layout = tex_layout(params, tex);
@@ -2697,27 +2611,14 @@ extern "C" int megakernel_tex_info(const MegakernelParams* params, const TexPara
   cudaFuncAttributes attr;
   cudaError_t err = tex_smem_attribute(layout);
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, layout.kernel);
-  int blocks = 0, clusters = 0;
+  int blocks = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, layout.kernel, layout.threads,
                                                         layout.smem);
-  TexLaunch launch(layout, nullptr);
-  if (err == cudaSuccess) {
-    if (MK_TEX_CTAS > 1) {
-      err = cudaOccupancyMaxActiveClusters(&clusters, layout.kernel, &launch.cfg);
-    } else {
-      int device = 0, sms = 0;
-      err = cudaGetDevice(&device);
-      if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-      clusters = blocks * sms;
-    }
-  }
   if (err != cudaSuccess) return (int)err;
-  const int info[8] = {params->cloud_lod * params->coverage_lod, attr.numRegs,
-                       (int)attr.localSizeBytes, blocks, layout.smem, MK_TEX_CTAS, clusters,
-                       layout.row_cache};
-  for (int i = 0; i < 8; ++i) out[i] = info[i];
+  const int info[6] = {params->cloud_lod * params->coverage_lod, attr.numRegs,
+                       (int)attr.localSizeBytes, blocks, layout.smem, layout.threads};
+  for (int i = 0; i < 6; ++i) out[i] = info[i];
   return 0;
 }
 

@@ -91,7 +91,7 @@ MAX_OCTAVES = 8
 #: the texture instance's knots per batch (texture_knot_group)
 MAX_GROUP = 8
 QUAD_POINTS = 8
-#: the texture instance's coverage knot count (template parameter K)
+#: the texture instance's coverage knot count (MK_KNOTS)
 KNOTS = 8
 #: the procedural instance's coarse pixels per thread, C = cloud_coverage_lod
 #: (a group of cloud_lod·C rows divides the 32-row tile)
@@ -112,17 +112,14 @@ SHAPE_KNOTS = 16
 MAX_LEVELS = 8
 WINDOWED, BANDED, FLOOR = texsample.WINDOWED, texsample.BANDED, texsample.FLOOR
 #: texture mode's rows per thread, cloud_lod·cloud_coverage_lod: one
-#: instance each (``megakernel_tex<G>``)
+#: instance each (``megakernel_tex<G>``), a CTA of 128 × 32 / G threads per
+#: 32×128 tile, registers sized for TEX_SM_THREADS resident threads per SM
 TEXTURE_GROUPS = (4, 8)
-#: the texture instance's CTAs per 32×128 tile (a thread-block cluster above
-#: 1) and the resident threads per SM its registers are sized for
-#: (``MK_TEX_CTAS``, ``MK_TEX_SM_THREADS``)
-TEX_CTAS = 1
 TEX_SM_THREADS = 1024
-#: its shared memory, in rows of one float per thread of a CTA: the 9
-#: coverage and 17 shape knots, then GEN_MARCH_ROWS per coarse pixel; then
-#: each warp's reduction slots, TEX_SLOTS1 for the first barrier and, for
-#: the second, 4 per batch of coverage knots and 6 per batch of shape knots
+#: its shared memory, in rows of one float per thread: the 9 coverage and 17
+#: shape knots, then GEN_MARCH_ROWS per coarse pixel; then each warp's
+#: reduction slots, TEX_SLOTS1 for the first barrier and, for the second, 4
+#: per batch of coverage knots and 6 per batch of shape knots
 TEX_KNOT_ROWS = 26
 TEX_SLOTS1 = 5
 #: work counter slots, in the kernel's order (``MK_WORK_*``); the procedural
@@ -145,8 +142,7 @@ MEASURE_DEFINES = ("MK_STAGE_CLOCKS",)
 #: what :func:`gen_info` reports of the procedural instance
 GEN_INFO = ("coarse", "registers", "stack_bytes", "blocks_per_sm", "smem_bytes", "row_cache")
 #: what :func:`tex_info` reports of the texture instance
-TEX_INFO = ("group", "registers", "stack_bytes", "blocks_per_sm", "smem_bytes", "cluster_ctas",
-            "active_clusters", "row_cache")
+TEX_INFO = ("group", "registers", "stack_bytes", "blocks_per_sm", "smem_bytes", "threads")
 #: atmosphere models, by their integer codes
 MODELS = {"v2": 0, "v1": 1}
 #: noise bases, fractals and cellular returns, by their integer codes
@@ -406,8 +402,8 @@ def gen_info(struct: MegakernelParams) -> dict:
 def tex_info(struct: MegakernelParams, tparams: TexParams) -> dict:
     """What the texture instance that would launch ``struct`` with the
     pyramid struct ``tparams`` uses on this card (:data:`TEX_INFO`): its
-    rows per thread, registers, local memory (stack), resident blocks per
-    SM, dynamic shared memory, CTAs per cluster and resident clusters."""
+    rows per thread, registers, local memory (stack), resident CTAs (tiles)
+    per SM, dynamic shared memory and threads per CTA."""
     out = (ctypes.c_int * len(TEX_INFO))()
     rc = load_library().megakernel_tex_info(ctypes.byref(struct), ctypes.byref(tparams), out)
     if rc != 0:
@@ -482,23 +478,20 @@ def gen_smem(config: VariantConfig) -> tuple:
     return (rows + (GEN_CACHE_ROWS * group if cache else 0)) * TILE_COLS * 4, cache
 
 
-def tex_smem(config: VariantConfig) -> tuple:
+def tex_threads(group: int) -> int:
+    """The texture instance's threads per CTA (one 32×128 tile) at G rows
+    per thread."""
+    return TILE_COLS * (TILE_ROWS // group)
+
+
+def tex_smem(config: VariantConfig) -> int:
     """The texture instance's dynamic shared memory per CTA for ``config``,
-    as its launcher lays it out (``tex_layout``): ``(bytes, row cache?)``.
-    The row cache (GEN_CACHE_ROWS per row of the group: each row's
-    background and depth) joins where the CTAs per SM that its registers
-    allow can still hold it."""
-    group = config.cloud_lod * config.cloud_coverage_lod
-    threads = TILE_COLS * (TILE_ROWS // group) // TEX_CTAS
+    as its launcher lays it out (``tex_layout``), in bytes."""
+    threads = tex_threads(config.cloud_lod * config.cloud_coverage_lod)
     kg = config.texture_knot_group
-    slots = threads // 32 * (TEX_SLOTS1 + 4 * -(-(KNOTS + 1) // kg)
-                             + 6 * -(-(SHAPE_KNOTS + 1) // kg))
+    slots = 4 * -(-(KNOTS + 1) // kg) + 6 * -(-(SHAPE_KNOTS + 1) // kg)
     rows = TEX_KNOT_ROWS + GEN_MARCH_ROWS * config.cloud_coverage_lod
-    limit = SMEM_ROWS * TILE_COLS * 4
-    cached = ((rows + GEN_CACHE_ROWS * group) * threads + slots) * 4
-    if cached <= limit // max(1, TEX_SM_THREADS // threads):
-        return cached, True
-    return (rows * threads + slots) * 4, False
+    return (rows * threads + threads // 32 * (TEX_SLOTS1 + slots)) * 4
 
 
 def knot_rows(config: VariantConfig) -> int:

@@ -303,22 +303,31 @@ def test_cu_limits_match_wrapper():
                        "MK_WINDOWED": mk.WINDOWED, "MK_BANDED": mk.BANDED,
                        "MK_FLOOR": mk.FLOOR, **work, "MK_WORK_SLOTS": len(mk.WORK_SLOTS),
                        **stages, "MK_STAGES": len(mk.STAGE_SLOTS),
-                       "MK_SUN_STEPS": mk.SUN_STEPS, "MK_TEX_CTAS": mk.TEX_CTAS,
-                       "MK_TEX_SM_THREADS": mk.TEX_SM_THREADS}
+                       "MK_SUN_STEPS": mk.SUN_STEPS}
 
 
 def _cu_constexpr(name):
-    """A ``constexpr int`` of the source, its ``MK_*`` terms substituted."""
-    defines = {k: int(v) for k, v in re.findall(r"#define (MK_\w+) (\d+)", _cu_source())}
-    expr = re.search(r"constexpr int %s = (.*?);" % name, _cu_source()).group(1)
-    return eval(expr, {}, defines)
+    """A texture ``constexpr int`` of the source (``MK_TEX_*``), its terms
+    (``MK_*`` defines and the constexprs before it) substituted."""
+    terms = {k: int(v) for k, v in re.findall(r"#define (MK_\w+) (\d+)", _cu_source())}
+    for const, expr in re.findall(r"constexpr int (MK_TEX_\w+) = (.*?);", _cu_source()):
+        terms[const] = eval(expr.replace("/", "//"), {}, terms)
+    return terms[name]
 
 
 def test_texture_layout_matches_wrapper():
-    """The texture instance's shared-memory rows and reduction slots, as
-    ``tex_smem`` mirrors them, against the source's constants."""
+    """The texture instance's threads, shared-memory rows and reduction
+    slots, as ``tex_threads`` and ``tex_smem`` mirror them, against the
+    source's constants."""
+    assert _cu_constexpr("MK_TEX_SM_THREADS") == mk.TEX_SM_THREADS
     assert _cu_constexpr("MK_TEX_KNOT_ROWS") == mk.TEX_KNOT_ROWS == mk.KNOTS + mk.SHAPE_KNOTS + 2
     assert _cu_constexpr("MK_TEX_SLOTS1") == mk.TEX_SLOTS1
+    body = re.search(r"constexpr int tex_threads\(int G\) \{ return (.*?); \}",
+                     _cu_source()).group(1)
+    for g in mk.TEXTURE_GROUPS:
+        threads = eval(body.replace("/", "//"), {}, {"G": g, "MK_TILE_COLS": mk.TILE_COLS,
+                                                     "MK_TILE_ROWS": mk.TILE_ROWS})
+        assert threads == mk.tex_threads(g) and mk.TEX_SM_THREADS % threads == 0
     # knot_group 1 has the most batches: 9 coverage and 17 shape, each a slot per lane
     assert 4 * (mk.KNOTS + 1) + 6 * (mk.SHAPE_KNOTS + 1) <= 32 * _cu_constexpr("MK_TEX_SLOT_LANES")
 
@@ -337,20 +346,16 @@ def test_texture_launcher_has_an_instance_per_group():
 def test_every_texture_config_fits_one_cta(group, knot_group):
     """Every split of G rows into cloud_lod·coverage_lod that
     ``check_config`` passes fits the 227 KB a CTA may use, at the most and
-    the fewest knot batches."""
+    the fewest knot batches; at G = 8 the interior's split (4 rows of 2
+    coarse pixels) leaves room for the two tiles per SM its registers
+    allow."""
     for cov in (c for c in (1, 2, 4, 8) if group % c == 0):
         cfg = dataclasses.replace(demo_variant("clouds_high", procedural=False),
                                   cloud_lod=group // cov, cloud_coverage_lod=cov,
                                   texture_knot_group=knot_group)
-        smem, cache = mk.tex_smem(cfg)
+        smem = mk.tex_smem(cfg)
         assert 0 < smem <= mk.SMEM_ROWS * mk.TILE_COLS * 4, (group, cov)
-        # the demo's split (2 rows of 2 coarse pixels) at its knot group keeps
-        # the row cache; G = 8's 512-thread CTAs do without it, and at the
-        # interior's split (4 rows of 2) two fit an SM
-        if (group, cov, knot_group) == (4, 2, 8):
-            assert cache
-        assert not (group == 8 and cache)
-        if (group, cov) == (8, 2):
+        if (group, cov, knot_group) == (8, 2, 8):
             assert 2 * smem <= mk.SMEM_ROWS * mk.TILE_COLS * 4
 
 
