@@ -174,7 +174,8 @@ LOD group) and the peak probe T2 run in four more phases:
    5d) each procedural launch's march lane utilisation and, through the
    measurement build (``-DMK_STAGE_CLOCKS``, built beside the package's),
    its cycles per stage (coarse pass, knots, march, blend); the same for
-   the texture instance ``megakernel_tex<G>`` (``mk.tex_info``) on the
+   the texture instance ``megakernel_tex<G>`` (``mk.tex_info``; its march
+   lanes too) on the
    texture frames of 4b and the everything-on frame of 4d; every such
    launch's work counts held against the previous design's
    (``PARENT_WORK``, ``PARENT_TEX_WORK``; the texture launches of 4e's
@@ -2771,6 +2772,7 @@ def main(argv=None) -> int:
         "k2_alone_max_abs_err": k2_err,
         "instances": {f"G={x['group']}": {k: x[k] for k in mk.TEX_INFO} for x in (
             stages[f"clouds_high texture/{pose}"][0] for pose in TEXTURE_POSES)},
+        "lane_utilisation": stages["clouds_high texture/avatar"][0]["lane_utilisation"],
         "stage_share": stages["clouds_high texture/avatar"][0]["stage_share"],
         "ms": timings[tex_flagship]["kernel_ms"],
         "plain_ms": timings[tex_flagship]["plain_ms"],

@@ -215,8 +215,8 @@ constexpr int MK_SKY_CHOICE_RAYS = MK_TILE_ROWS / MK_SKY_CHOICE_THREADS_Y;
 #define MK_WORK_DETAIL_EVALS 15
 #define MK_WORK_SHAPE_KNOTS 16
 #define MK_WORK_DETAIL_KNOTS 17
-// the procedural instance's march lanes: warp-steps issued and the lanes'
-// steps (their ratio over 32 is the march's lane utilisation)
+// the cloud instances' march lanes: warp-steps issued and the lanes' steps
+// (their ratio over 32 is the march's lane utilisation)
 #define MK_WORK_MARCH_WARP_STEPS 18
 #define MK_WORK_MARCH_LANE_STEPS 19
 #define MK_WORK_SLOTS 20
@@ -1948,7 +1948,6 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
 }
 
 // ---------------------------------------------------------------------------
-// ---------------------------------------------------------------------------
 // Texture mode: K1 with K2 inside, one instance per G = cloud_lod *
 // coverage_lod rows per thread (the note at the head of this file).  A
 // 32 x 128 TPU tile (its batches are the TPU kernel's) is one CTA, one
@@ -2264,6 +2263,11 @@ __global__ void __launch_bounds__(tex_threads(G), tex_min_blocks(G))
   }
   clk.mark(MK_STAGE_MARCH);
   if (work) {  // counted here: their registers are free for the atmosphere
+    // the warp issues march k where any lane marches it
+    const unsigned issued = __popc(__reduce_or_sync(0xffffffffu, marches ? vis : 0u));
+    count_work(work, MK_WORK_MARCH_WARP_STEPS,
+               (tid & 31) ? 0u : issued * (unsigned)p.cloud_steps);
+    count_work(work, MK_WORK_MARCH_LANE_STEPS, n_march * (unsigned)p.cloud_steps);
     count_work(work, MK_WORK_KNOT_GROUPS, tile_vis ? 1 : 0);
     count_work(work, MK_WORK_MARCH, n_march);
     count_work(work, MK_WORK_SUN_SAMPLES, n_sun);

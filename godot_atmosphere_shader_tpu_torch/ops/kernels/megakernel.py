@@ -125,9 +125,9 @@ TEX_SLOTS1 = 5
 #: work counter slots, in the kernel's order (``MK_WORK_*``); the procedural
 #: instance also counts its procedural field evaluations: coverage per step
 #: and per sun sample, shape and detail per step and per sun sample, and the
-#: shape and detail knots; and its march's warp-steps issued and lane-steps
-#: run (lane utilisation = lane-steps / (32 × warp-steps); no bound reads
-#: them)
+#: shape and detail knots; both cloud instances count their march's
+#: warp-steps issued and lane-steps run (lane utilisation = lane-steps /
+#: (32 × warp-steps); no bound reads them)
 WORK_SLOTS = ("pixels", "atmosphere", "knot_groups", "march", "tex3d",
               "tex3d_floor", "latlong", "latlong_floor", "sun_samples",
               "v1_atmosphere", "opaque_pixels", "sky", "sky_floor",
