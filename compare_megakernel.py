@@ -1,15 +1,14 @@
 """Two builds of the procedural and texture megakernels (``megakernel_gen``,
 ``megakernel_tex``) on one card, in turns.
 
-    python3 compare_megakernel.py PARENT_CU [--only texture] [--variant NAME=DEFINE,...]
+    python3 compare_megakernel.py PARENT_CU
 
 Builds, all ``nvcc`` at once, the checkout's kernel library and one of
 ``PARENT_CU`` (another commit's ``csrc/megakernel.cu``, copied under
 ``build/compare/parent/`` with the occupancy queries ``megakernel_gen_info``
 and ``megakernel_tex_info`` appended where it has none, beside the
-checkout's other kernel sources), and one more library of the checkout per
-``--variant`` (its ``-D`` defines).  Then the sides run in turns,
-``parent, change, variants..., variants..., change, parent``; each pass
+checkout's other kernel sources), and each side's measurement build.  Then
+the sides run in turns, ``parent, change, change, parent``; each pass
 takes, through that side's library, on the main path's 1080p frames (the
 flagship ``clouds_high``/avatar, ``clouds_high``/interior,
 ``clouds``/avatar, ``clouds_high`` at avatar and sunward with a seeded
@@ -24,22 +23,22 @@ shard) and on the 64×128 frames whose work counts
 * each cloud launch's kernel ms (CUDA events) with its work counts (the
   march's lane utilisation among them) and what its instance uses
   (registers, stack, resident blocks per SM, shared memory; the row cache
-  or the threads per CTA);
+  or the threads per block);
 * the frame, held against the first pass's parent frame (max |Δ|, p99.9);
 * the device busy ms per frame of the three 1080p K = 8 flights
   (``torch.profiler``).
 
-``--only texture`` keeps the texture frames, the flagship (at 1080p and
-64×128) and the texture TAA flight.  Each pass runs in a process of its own
-that loads only that side's library, so no two builds of one kernel share a
-process.  The bounds are ``chip_smoke.py``'s, from the work counts under
-T2's measured ceilings.  The checkout's measurement build
-(``MK_STAGE_CLOCKS``) runs once more per frame: cycles per stage, summed
-over warps.  It prints each pass as a JSON line, the compiler's report of
-each side's ``megakernel_gen`` and ``megakernel_tex`` instances, and, last,
-one JSON summary per frame: every side's times, the change over the
-parent, the bound's share and whether the work counts equal the parent's.
-Run from the repository root on one card; it needs no network.
+Each pass runs in a process of its own that loads only that side's
+library, so no two builds of one kernel share a process.  The bounds are
+``chip_smoke.py``'s, from the work counts under T2's measured ceilings.
+Each side's measurement build (``MK_STAGE_CLOCKS``) runs once more per
+frame: cycles per stage, summed over warps (zeros for an instance the
+parent does not clock).  It prints each pass as a JSON line, the
+compiler's report of each side's ``megakernel_gen`` and ``megakernel_tex``
+instances, and, last, one JSON summary per frame: both sides' times, the
+change over the parent, the bound's share and whether the work counts
+equal the parent's.  Run from the repository root on one card; it needs no
+network.
 """
 
 from __future__ import annotations
@@ -62,8 +61,6 @@ import chip_smoke as cs
 ROOT = os.path.dirname(os.path.abspath(__file__))
 COMPARE_DIR = os.path.join(ROOT, "build", "compare")
 KERNEL_FRAMES = 20
-# the occupancy query for a parent whose launcher has one procedural kernel
-# and sizes its shared memory by the knot rows alone (no row cache)
 # the occupancy query for a parent whose texture instance is one 128 x 32 / G
 # thread block per tile with the 26 knots and the reduction scratch in shared
 # memory
@@ -89,6 +86,8 @@ extern "C" int megakernel_tex_info(const MegakernelParams* params, const TexPara
   return 0;
 }
 '''
+# the occupancy query for a parent whose launcher has one procedural kernel
+# and sizes its shared memory by the knot rows alone (no row cache)
 GEN_INFO_SHIM = r'''
 extern "C" int megakernel_gen_info(const MegakernelParams* params, int* out) {
   const int smem = knot_rows(params) * MK_TILE_COLS * (int)sizeof(float);
@@ -133,13 +132,12 @@ def gen_report(ptxas: str) -> dict:
     return out
 
 
-def build_sides(parent_cu: str, variants: dict) -> tuple:
+def build_sides(parent_cu: str) -> tuple:
     """The libraries of all the kernel sources: the parent's (its
     ``megakernel.cu``, with the occupancy queries appended where it has
     none, beside the checkout's other sources), the checkout's (the
-    package's own build), one per variant (``{name: defines}``) and the
-    measurement build.  All ``nvcc`` at once.  Returns ``({side: path},
-    {side: compiler report})``."""
+    package's own build) and each one's measurement build.  All ``nvcc`` at
+    once.  Returns ``({side: path}, {side: compiler report})``."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import library
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
@@ -158,10 +156,9 @@ def build_sides(parent_cu: str, variants: dict) -> tuple:
     jobs = {"change": dict(ptxas_info=True),
             "parent": dict(build_dir=parent_dir, sources=(copy, *others), ptxas_info=True),
             "change/stages": dict(build_dir=os.path.join(COMPARE_DIR, "stages"),
-                                  defines=mk.MEASURE_DEFINES)}
-    for name, defines in variants.items():
-        jobs[name] = dict(build_dir=os.path.join(COMPARE_DIR, name), defines=defines,
-                          ptxas_info=True)
+                                  defines=mk.MEASURE_DEFINES),
+            "parent/stages": dict(build_dir=os.path.join(COMPARE_DIR, "parent-stages"),
+                                  sources=(copy, *others), defines=mk.MEASURE_DEFINES)}
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {k: pool.submit(library.build, **kw) for k, kw in jobs.items()}
         built = {k: f.result() for k, f in futures.items()}
@@ -243,12 +240,10 @@ SMALL_CASES = (("clouds_high", "avatar"), ("clouds_high", "exterior"))
 SMALL_SIZE = (64, 128)
 
 
-def cases(device, textures, only=None) -> list:
-    """The frames compared; ``only="texture"``: the texture instance's, the
-    flagship and the 64×128 frames."""
+def cases(device, textures) -> list:
+    """The frames compared."""
     H, W = cs.FULL_SIZE
     pano = cs.synthetic_panorama(*cs.PANO_SIZE)
-    everything = only is None
     out = []
     for variant, pose in SMALL_CASES:
         scene, cam = cs.scene_and_camera(variant, pose, device)
@@ -259,9 +254,8 @@ def cases(device, textures, only=None) -> list:
                          cam, *SMALL_SIZE, device))
     for variant, pose in (("clouds_high", "avatar"), ("clouds_high", "interior"),
                           ("clouds", "avatar")):
-        if everything or (variant, pose) == ("clouds_high", "avatar"):
-            scene, cam = cs.scene_and_camera(variant, pose, device)
-            out.append(plan_case(f"{variant}/{pose}", scene, cam, H, W, device))
+        scene, cam = cs.scene_and_camera(variant, pose, device)
+        out.append(plan_case(f"{variant}/{pose}", scene, cam, H, W, device))
     for pose in cs.TEXTURE_POSES:
         scene, cam = cs.scene_and_camera("clouds_high", pose, device, textures=textures)
         out.append(plan_case(f"clouds_high texture/{pose}", scene, cam, H, W, device))
@@ -272,8 +266,6 @@ def cases(device, textures, only=None) -> list:
     SH, SW = cs.SHARD_SIZE
     out.append(shard_case(f"everything-on/avatar {SH}x{SW} on {cs.SHARDS} shards", allon, cam,
                           SH, SW, cs.SHARDS, device))
-    if not everything:
-        return out
     for pose in ("avatar", "sunward"):
         scene = cs.with_panorama(cs.build_scene("clouds_high", device), pano)
         cam = cs.scene_camera("clouds_high", pose, device)
@@ -292,10 +284,9 @@ def cases(device, textures, only=None) -> list:
     return out
 
 
-def flights(device, textures, only=None) -> dict:
-    """The three 1080p K = 8 flights of ``chip_smoke.py`` phase 6 (the
-    texture TAA flight alone with ``only="texture"``), each a function
-    that renders it once."""
+def flights(device, textures) -> dict:
+    """The three 1080p K = 8 flights of ``chip_smoke.py`` phase 6, each a
+    function that renders it once."""
     from godot_atmosphere_shader_tpu_torch.utils.camera import Camera
 
     H, W = cs.FULL_SIZE
@@ -305,8 +296,6 @@ def flights(device, textures, only=None) -> dict:
     for label, tx, blend in (("clouds_high TAA", None, cs.FLIGHT_BLEND),
                              ("clouds_high texture TAA", textures, cs.FLIGHT_BLEND),
                              ("clouds_high", None, None)):
-        if only is not None and tx is None:
-            continue
         scene, _ = cs.scene_and_camera("clouds_high", "avatar", device, textures=tx)
         cam = Camera.create(stack[0], device=device)
         out[label] = (lambda scene=scene, cam=cam, blend=blend: scene.render_flight(
@@ -408,11 +397,11 @@ def run_pass(args) -> int:
     cs.PEAK.update(fp32=args.peak_fp32, int32=args.peak_int32)
     device = torch.device("cuda", 0)
     textures = bake_demo_textures(device=device)
-    all_cases = cases(device, textures, args.only)
+    all_cases = cases(device, textures)
     if args.stages:
         result = stage_pass(all_cases)
     else:
-        result = one_pass(all_cases, flights(device, textures, args.only), args.reference)
+        result = one_pass(all_cases, flights(device, textures), args.reference)
     with open(args.out, "w") as f:
         json.dump(result, f)
     return 0
@@ -421,10 +410,6 @@ def run_pass(args) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("parent_cu", nargs="?", help="the parent commit's csrc/megakernel.cu")
-    ap.add_argument("--only", choices=("texture",),
-                    help="the texture instance's frames, the flagship and the texture flight")
-    ap.add_argument("--variant", action="append", default=[], metavar="NAME=DEFINE,...",
-                    help="one more build of the checkout with these -D defines, run in turns")
     # one pass in a process of its own (the comparison starts these)
     ap.add_argument("--library", help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)
@@ -445,12 +430,8 @@ def main(argv=None) -> int:
     cs.log(card)
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
-    variants = {}
-    for v in args.variant:
-        name, _, defines = v.partition("=")
-        variants[name] = tuple(d for d in defines.split(",") if d)
     shutil.rmtree(COMPARE_DIR, ignore_errors=True)
-    paths, reports = build_sides(args.parent_cu, variants)
+    paths, reports = build_sides(args.parent_cu)
     cs.log(f"[compare] compiler report of megakernel_gen and megakernel_tex per side: "
            f"{json.dumps(reports)}")
     mk.load_library()
@@ -466,13 +447,12 @@ def main(argv=None) -> int:
         out = os.path.join(COMPARE_DIR, f"pass-{side.replace('/', '-')}.json")
         cmd = [sys.executable, os.path.abspath(__file__), "--library", lib, "--out", out,
                "--reference", ref_dir, "--peak-fp32", repr(cs.PEAK["fp32"]),
-               "--peak-int32", repr(cs.PEAK["int32"])] + (["--stages"] if stages else []) + (
-                   ["--only", args.only] if args.only else [])
+               "--peak-int32", repr(cs.PEAK["int32"])] + (["--stages"] if stages else [])
         subprocess.run(cmd, check=True)
         with open(out) as f:
             return json.load(f)
 
-    sides = ["parent", "change", *variants]
+    sides = ["parent", "change"]
     runs = {s: [] for s in sides}
     for side in sides + sides[::-1]:  # the first pass writes the reference frames
         result = start(side, paths[side])
@@ -480,8 +460,9 @@ def main(argv=None) -> int:
         cs.log(f"[compare] pass {side} on {card}: {json.dumps(result)}")
         cs.log(f"[compare] after the pass: "
                f"{cs.smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
-    cs.log(f"[compare] stages change on {card}: "
-           f"{json.dumps(start('change-stages', paths['change/stages'], stages=True))}")
+    for side in sides:
+        cs.log(f"[compare] stages {side} on {card}: "
+               f"{json.dumps(start(f'{side}-stages', paths[f'{side}/stages'], stages=True))}")
 
     # the work a bound counts (the march's lane slots differ by design)
     counted = [k for k in mk.WORK_SLOTS if not k.startswith("march_")]

@@ -47,11 +47,17 @@
 // one 32 x 128 TPU tile's knot positions of one knot group (up to 8 knots),
 // its level and mode come from a block-wide min/max of the wrapped
 // coordinates, and the samples are trilinear (bilinear) at that level or
-// nearest from the floor level.  The texture instance (megakernel_tex<G>,
-// below) keeps a tile in one CTA, so its batches' choices need no other
-// block; sampler arithmetic is uncontracted (__fmul_rn/__fadd_rn), so a
-// batch's level choice and weights follow the plain version bit for bit
-// given the same positions.
+// nearest from the floor level.  What bounds the texture path: the same
+// arithmetic as above minus the procedural noise, plus 5 block-wide
+// reductions (__syncthreads) per tile and ~26 x 8 dependent L2 loads per
+// coverage group.  What the design does about it: one block per tile
+// (128 x 32 / G threads, 1024 at the avatar pose), knots evaluated once per
+// coverage group into dynamic shared memory (26 floats per thread, knot-
+// major: no bank conflicts in the march), and the tile's visibility gate
+// skips knots and march for tiles with no visible pixel, as the TPU does.
+// Sampler arithmetic is uncontracted (__fmul_rn/__fadd_rn), so a batch's
+// level choice and weights follow the plain version bit for bit given the
+// same positions.
 //
 // Flight mode adds two things the TAA resolve needs (megakernel.py:385-390,
 // :348-349, :402-403): per-frame temporal jitter, and an optional output of
@@ -121,29 +127,27 @@
 // over a coverage group of 32 rows, whose knots lie along a mean span up to
 // ~1e5 units long: one ulp of one pixel's span moves a column of 32 pixels.
 //
-// The texture instance (megakernel_tex<G>, G = cloud_lod * coverage_lod = 4
-// or 8 rows per thread): the same per-pixel arithmetic minus the noise,
-// each coverage group's 26 knots sampled from the L2-resident pyramids in
-// batches whose level and mode come from the whole 32 x 128 tile.  What
-// bounds it on an H100: the per-pixel atmosphere (v2: 8 steps of 2 x 8
-// quadrature nodes, IEEE sqrtf and expf) and the march, 0.43 and 0.36 of its
-// warp-cycles at the avatar pose, at 32 warps per SM (64 registers); the
-// knots and the tile's barriers 0.13.  What the design does about it:
-//   * a thread's state is two bitmasks and a few scalars, its march inputs
-//     in shared memory (the design it replaces held per-row arrays in a
-//     688 B stack);
-//   * two barriers per tile: the tile's gate and the sky's choice in one
-//     reduction, every knot batch's min and max in a second (was ten);
-//   * each knot's coordinates computed once, its (fu, v) kept for its sample;
-//   * the atmosphere after the barriers, so that a tile's warps do not wait
-//     on the slowest warp's shading;
-//   * one tile per CTA: at G = 8, 512 threads, two tiles per SM.
-// Clusters of 2 and 4 CTAs per tile (a tile's batch reduced through
-// distributed shared memory), a row cache and the atmosphere before the
-// second barrier were measured and are not kept (PERF.md).  On an H100 at
-// 700 W the 1080p texture frame at the avatar pose takes 0.676 ms against a
-// 0.156 ms bound (the design it replaces 0.668 in the same call), the
-// interior pose 0.632 (0.685), compare_megakernel.py.
+// The texture instance (megakernel_tex<K, KS, G>, G = cloud_lod *
+// coverage_lod = 4 or 8 rows per thread): the same per-pixel arithmetic
+// minus the noise, each coverage group's 26 knots sampled from the
+// L2-resident pyramids in batches whose level and mode come from the whole
+// 32 x 128 tile.  What bounds it on an H100: the coarse pass (the opaque
+// pass and the per-pixel atmosphere, v2: 8 steps of 2 x 8 quadrature nodes,
+// IEEE sqrtf and expf) and the march, 0.39 and 0.37 of its warp-cycles at
+// the avatar pose (G = 4), the knots with their ten barriers 0.21
+// (cycles per stage from the measurement build).  One CTA per tile keeps a
+// batch's choice inside the block.  Its registers are sized for 1024
+// resident threads per SM (MK_TEX_SM_THREADS, 64 registers): one tile of
+// 1024 threads per SM at G = 4 and two of 512 at G = 8, where 93 registers
+// had held one (on an H100 at 700 W the interior pose's 1080p frame takes
+// 0.587 ms, 0.681 before; the avatar pose's, the same code, 0.664 against
+// a 0.156 ms bound; compare_megakernel.py, PERF.md).  Its per-row arrays
+// stay in a 688 B stack: a redesign that held a thread's state in two
+// bitmasks and shared memory (72 B), with two barriers per tile in place
+// of ten, each coverage knot's (fu, v) computed once and the atmosphere
+// after the barriers, did 2 % fewer warp-cycles but was 0.7 % slower at
+// the avatar pose and 4 % slower on one wave of 256-row shards, and
+// thread-block clusters of 2 and 4 CTAs per tile 1.5-14 % slower.
 //
 // The panorama sky (megakernel.py:212-222, :334-336; with_sky): the launch
 // that runs the opaque pass (a fused layer or the opaque-only pass) samples
@@ -175,7 +179,7 @@
 #define MK_MAX_SPHERES 8
 #define MK_MAX_BOXES 4
 #define MK_MAX_OCTAVES 8
-#define MK_MAX_GROUP 8  // texture instance: knots per batch
+#define MK_MAX_GROUP 8  // texture instance: rows per thread, knots per batch
 #define MK_QUAD_POINTS 8
 #define MK_KNOTS 8  // texture instance: coverage knots
 // the procedural instance's dynamic shared memory, in rows of one float per
@@ -215,8 +219,8 @@ constexpr int MK_SKY_CHOICE_RAYS = MK_TILE_ROWS / MK_SKY_CHOICE_THREADS_Y;
 #define MK_WORK_DETAIL_EVALS 15
 #define MK_WORK_SHAPE_KNOTS 16
 #define MK_WORK_DETAIL_KNOTS 17
-// the cloud instances' march lanes: warp-steps issued and the lanes' steps
-// (their ratio over 32 is the march's lane utilisation)
+// the procedural instance's march lanes: warp-steps issued and the lanes'
+// steps (their ratio over 32 is the march's lane utilisation)
 #define MK_WORK_MARCH_WARP_STEPS 18
 #define MK_WORK_MARCH_LANE_STEPS 19
 #define MK_WORK_SLOTS 20
@@ -1425,6 +1429,18 @@ struct CoarseIn {
   float jit_first[N];
 };
 
+template <int N>
+struct Coarse {
+  V3 rd_model[N];
+  float tb[N], tem[N];
+  bool vis[N];
+  bool any_vis;
+  // coverage-group knot inputs: mean model-space ray (not renormalized)
+  // and mean span
+  V3 rk;
+  float t0k, t1k;
+};
+
 // One pixel (x, y) of a layer: its ray, the opaque pass (whose misses
 // sample the sky with its tile's choice when with_sky) or, for a chained
 // layer, the color and linear depth of the layers below (read from color
@@ -1557,6 +1573,35 @@ __device__ __forceinline__ CoarseRay coarse_ray(const MegakernelParams& p, int L
   float te = c.vis ? t_end : t_begin;
   c.tem = t_begin + fminf(te - t_begin, p.march_max_distance);
   return c;
+}
+
+// coarse rays, shell spans and visibility per cloud_lod group, and the
+// coverage group's knot inputs
+template <int N>
+__device__ __forceinline__ void coarse_rays(const MegakernelParams& p, int L, int C,
+                                            const CoarseIn<N>& ci, Coarse<N>& c) {
+  c.any_vis = false;
+  for (int k = 0; k < C; ++k) {
+    const CoarseRay cr = coarse_ray(p, L, ci.rd_sum[k], ci.depth_min[k]);
+    c.vis[k] = cr.vis;
+    c.any_vis = c.any_vis || c.vis[k];
+    c.rd_model[k] = cr.rd_model;
+    c.tb[k] = cr.tb;
+    c.tem[k] = cr.tem;
+  }
+  c.rk = c.rd_model[0];
+  c.t0k = c.tb[0];
+  c.t1k = c.tem[0];
+  if (C > 1) {
+    for (int k = 1; k < C; ++k) {
+      c.rk = add(c.rk, c.rd_model[k]);
+      c.t0k = c.t0k + c.tb[k];
+      c.t1k = c.t1k + c.tem[k];
+    }
+    c.rk = v3(c.rk.x / (float)C, c.rk.y / (float)C, c.rk.z / (float)C);
+    c.t0k = c.t0k / (float)C;
+    c.t1k = c.t1k / (float)C;
+  }
 }
 
 // blend each full-resolution row with its group's cloud light/alpha, then
@@ -1948,57 +1993,32 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
 }
 
 // ---------------------------------------------------------------------------
-// Texture mode: K1 with K2 inside, one instance per G = cloud_lod *
-// coverage_lod rows per thread (the note at the head of this file).  A
-// 32 x 128 TPU tile (its batches are the TPU kernel's) is one CTA, one
-// thread per column and coverage group: 1024 threads at G = 4 (one tile per
-// SM), 512 at G = 8 (two).
-// Shared memory, in rows of one float per thread:
-//   * the 9 coverage knots (each its wrapped lat-long u until sampled) and
-//     the 17 shape knots (the first 9 of those rows hold the coverage
-//     knots' v until the coverage knots are sampled);
-//   * per coarse pixel of the group, its march inputs (model-space ray,
-//     span, jitter), which the march overwrites with its light and alpha;
-//   * the reduction slots of each warp.
-// Stages, and the tile's two barriers:
-//   1. the coarse pass: every row's ray and opaque pass, its background to
-//      the color plane (a panorama miss is sampled in stage 4) and its
-//      linear depth to the depth plane (without one, to the alpha plane
-//      until the blend); the coarse pixels' rays and spans, the coverage
-//      group's knot inputs; the sky's (fu, v) min and max over the tile's
-//      rays and the tile's visibility: barrier 1;
-//   2. where the tile sees the cloud layer, every knot's wrapped coordinates
-//      once and each batch's min and max over the tile: barrier 2; then each
-//      batch's level and mode and its samples, and the cull;
-//   3. the march of each of the thread's visible coarse pixels;
-//   4. each row's atmosphere, blended with its coarse pixel's clouds over
-//      its background, and stored.
-// A min or a max does not depend on the order it is taken in, so every
-// batch's choice is the one a block of the whole tile makes, bit for bit.
+// Texture mode: K1 with K2 inside.  One thread block per 32 x 128 TPU tile
+// (its batches are the TPU kernel's), one thread per column and coverage
+// group: 128 x 32 / G threads.  The 9 coverage and 17 shape knots of each
+// thread live in dynamic shared memory, knot-major, then block_minmax's
+// scratch (per warp, the min and max of up to 3 axes).
 
-// knot rows: coverage knots, then shape knots
 constexpr int MK_TEX_KNOT_ROWS = MK_KNOTS + 1 + MK_SHAPE_KNOTS + 1;
-// reduction slots of barrier 1: the tile's visibility (the min of 0 where a
-// coverage group sees the layer, else 1) and the sky's fu and v, min and -max
-constexpr int MK_TEX_SLOTS1 = 5;
-// barrier 2's slots (a coverage batch's fu and v, a shape batch's x, y, z,
-// each min and -max), at most 32 * MK_TEX_SLOT_LANES (knot_group 1: 138)
-constexpr int MK_TEX_SLOT_LANES = 5;
-
-// resident threads per SM its registers are sized for (64 registers); a
-// tile's threads and the tiles that share an SM
+constexpr int MK_TEX_RED_SLOTS = 2 * 3;
+// resident threads per SM its registers are sized for (64 registers): one
+// tile per SM at G = 4, two at G = 8
 constexpr int MK_TEX_SM_THREADS = 1024;
 __host__ __device__ constexpr int tex_threads(int G) { return MK_TILE_COLS * (MK_TILE_ROWS / G); }
 __host__ __device__ constexpr int tex_min_blocks(int G) {
   return MK_TEX_SM_THREADS / tex_threads(G);
 }
+__host__ __device__ constexpr int tex_smem(int G) {
+  return (MK_TEX_KNOT_ROWS * tex_threads(G) + tex_threads(G) / 32 * MK_TEX_RED_SLOTS) *
+         (int)sizeof(float);
+}
 
-// the knot position of a coverage group at s in [0, 1], as the plain
-// version computes it, uncontracted: ro + rk * lerp(t0k, t1k, s)
-__device__ __forceinline__ V3 knot_pos(const V3& rom, const V3& rk, float t0k, float t1k, float s) {
-  const float tk = __fadd_rn(t0k, __fmul_rn(__fsub_rn(t1k, t0k), s));
-  return v3(__fadd_rn(rom.x, __fmul_rn(rk.x, tk)), __fadd_rn(rom.y, __fmul_rn(rk.y, tk)),
-            __fadd_rn(rom.z, __fmul_rn(rk.z, tk)));
+// knot position of a coverage group, as the plain version computes it,
+// uncontracted
+__device__ __forceinline__ V3 knot_pos(const V3& rom, const Coarse<MK_MAX_GROUP>& c, float s) {
+  const float tk = __fadd_rn(c.t0k, __fmul_rn(__fsub_rn(c.t1k, c.t0k), s));
+  return v3(__fadd_rn(rom.x, __fmul_rn(c.rk.x, tk)), __fadd_rn(rom.y, __fmul_rn(c.rk.y, tk)),
+            __fadd_rn(rom.z, __fmul_rn(c.rk.z, tk)));
 }
 
 // coverage direction of a model-space position: the animated xz rotation,
@@ -2014,314 +2034,138 @@ __device__ __forceinline__ void coverage_dir(const MegakernelParams& p, V3 pos, 
   dz = __fmul_rn(qz, inv);
 }
 
-// lane 0 of the warp stores the warp's min of v
-__device__ __forceinline__ void warp_min_store(float v, float* slot) {
+// Evaluate one field's K + 1 knots, knot_group knots per batch, into
+// knots[k * nt + tid].  SHAPE: the 3D shape texture at pos * shape_scale;
+// else the lat-long coverage map.
+template <bool SHAPE>
+__device__ void eval_knots(const MegakernelParams& p, const TexParams& t,
+                           const float* __restrict__ tab, const Coarse<MK_MAX_GROUP>& c, int K,
+                           float* knots,
+                           float* red, unsigned* n_samples) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nt = blockDim.x * blockDim.y;
+  const V3 rom = load3(p.ro_model);
+  for (int g0 = 0; g0 <= K; g0 += t.knot_group) {
+    const int g1 = min(g0 + t.knot_group, K + 1);
+    constexpr int N = SHAPE ? 3 : 2;
+    float mn[N], mx[N];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  if ((threadIdx.x & 31) == 0) *slot = v;
-}
-
-// After a barrier: lane l of every warp gets in m[j] the tile's min of
-// slot l + 32 j, over the n slots of each of the nw warps
-template <int J>
-__device__ __forceinline__ void tile_slots(const float* red, int n, int nw, float (&m)[J]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 0; j < J; ++j) m[j] = 3.0e38f;
-  for (int w = 0; w < nw; ++w) {
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int s = lane + 32 * j;
-      if (s < n) m[j] = fminf(m[j], red[w * n + s]);
+    for (int a = 0; a < N; ++a) {
+      mn[a] = 3.0e38f;
+      mx[a] = -3.0e38f;
     }
+    for (int k = g0; k < g1; ++k) {
+      const V3 pos = knot_pos(rom, c, (float)((double)k / (double)K));
+      float f[N];
+      if (SHAPE) {
+        f[0] = wrap01(pos.x * p.cloud_shape_scale);
+        f[1] = wrap01(pos.y * p.cloud_shape_scale);
+        f[N - 1] = wrap01(pos.z * p.cloud_shape_scale);
+      } else {
+        float dx, dy, dz;
+        coverage_dir(p, pos, dx, dy, dz);
+        latlong_uv(dx, dy, dz, f[0], f[N - 1]);
+      }
+#pragma unroll
+      for (int a = 0; a < N; ++a) {
+        mn[a] = fminf(mn[a], f[a]);
+        mx[a] = fmaxf(mx[a], f[a]);
+      }
+    }
+    block_minmax<N>(mn, mx, red);
+    const TexChoice ch = SHAPE ? tex3d_choose(t, mn, mx)
+                               : latlong_choose(t, mn[0], mx[0], mn[N - 1], mx[N - 1]);
+    for (int k = g0; k < g1; ++k) {
+      const V3 pos = knot_pos(rom, c, (float)((double)k / (double)K));
+      float value;
+      if (SHAPE) {
+        value = tex3d_sample(t, tab, ch, wrap01(pos.x * p.cloud_shape_scale),
+                             wrap01(pos.y * p.cloud_shape_scale),
+                             wrap01(pos.z * p.cloud_shape_scale));
+      } else {
+        float dx, dy, dz, fu, v;
+        coverage_dir(p, pos, dx, dy, dz);
+        latlong_uv(dx, dy, dz, fu, v);
+        value = latlong_sample(t, tab, ch, fu, v);
+      }
+      knots[k * nt + tid] = value;
+    }
+    n_samples[ch.mode == MK_FLOOR] += g1 - g0;
   }
 }
 
-// slot s of tile_slots' result, in every lane (s uniform over the warp)
-template <int J>
-__device__ __forceinline__ float slot_of(const float (&m)[J], int s) {
-  float v = m[0];
-#pragma unroll
-  for (int j = 1; j < J; ++j) v = (s >> 5) == j ? m[j] : v;
-  return __shfl_sync(0xffffffffu, v, s & 31);
-}
-
-template <int G>
+template <int K, int KS, int G>
 __global__ void __launch_bounds__(tex_threads(G), tex_min_blocks(G))
-    megakernel_tex(const __grid_constant__ MegakernelParams p, const __grid_constant__ TexParams t,
-                   const __grid_constant__ TexParams sky_t, const float* __restrict__ blue,
-                   const float* __restrict__ shape_tab, const float* __restrict__ cov_tab,
-                   const float* __restrict__ sky_r, const float* __restrict__ sky_g,
-                   const float* __restrict__ sky_b, float* __restrict__ color,
-                   float* __restrict__ alpha_out, float* __restrict__ depth,
-                   unsigned long long* work, int n_slots) {
+    megakernel_tex(const MegakernelParams p, const TexParams t, const TexParams sky_t,
+                   const float* __restrict__ blue, const float* __restrict__ shape_tab,
+                   const float* __restrict__ cov_tab, const float* __restrict__ sky_r,
+                   const float* __restrict__ sky_g, const float* __restrict__ sky_b,
+                   float* __restrict__ color, float* __restrict__ alpha_out,
+                   float* __restrict__ depth, unsigned long long* work) {
   extern __shared__ float smem[];
-  constexpr int T = tex_threads(G);
-  constexpr int NW = T / 32;
-  constexpr int K = MK_KNOTS, KS = MK_SHAPE_KNOTS;
-  const int tid = threadIdx.y * MK_TILE_COLS + threadIdx.x;
-  const int warp = tid >> 5;
+  const int nt = blockDim.x * blockDim.y;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  float* cov_knots = smem;                    // (K + 1) * nt
+  float* shp_knots = smem + (K + 1) * nt;     // (KS + 1) * nt
+  float* red = smem + (K + KS + 2) * nt;      // block_minmax scratch
+
   const int x = blockIdx.x * MK_TILE_COLS + threadIdx.x;
   const int y0 = p.row0 + blockIdx.y * MK_TILE_ROWS + threadIdx.y * G;
-  const int L = p.cloud_lod, C = G / L;
-  const int n_rows = x < p.width ? max(0, min(G, p.row0 + p.rows - y0)) : 0;
-  float* knots = smem + tid;                        // knot row j at knots[j * T]
-  float* state = knots + MK_TEX_KNOT_ROWS * T;      // input f of coarse k at state[(f * C + k) * T]
-  float* red1 = smem + (MK_TEX_KNOT_ROWS + MK_GEN_MARCH_ROWS * C) * T;  // NW x MK_TEX_SLOTS1
-  float* red2 = red1 + NW * MK_TEX_SLOTS1;                               // NW x n_slots
-  const V3 ro = load3(p.cam_pos);
-  const V3 pc = load3(p.planet_center);
-  // the depth before the sphere-depth blend, kept from stage 1 to stage 4
-  float* linear = depth ? depth : alpha_out;
-  unsigned n_atmo = 0, n_v1 = 0, n_march = 0, n_sun = 0, n_sky = 0, tex_n[2] = {0, 0},
-           cov_n[2] = {0, 0};
-  StageClock clk;
+  const int L = p.cloud_lod;
+  const int C = G / L;
 
-  // 1. the coarse pass
-  unsigned vis = 0;       // bit k: coarse pixel k sees the cloud layer
-  unsigned sky_miss = 0;  // bit r: row r's ray misses the geometry (sampled in stage 4)
-  V3 rk = v3(0.0f, 0.0f, 0.0f);
-  float t0k = 0.0f, t1k = 0.0f;
-  float sky_s[4] = {3.0e38f, 3.0e38f, 3.0e38f, 3.0e38f};  // fu, v: min and -max
-  for (int k = 0; k < C; ++k) {
-    V3 rd_sum = v3(0.0f, 0.0f, 0.0f);
-    float depth_min = 0.0f, jit_first = 0.0f;
-    for (int l = 0; l < L; ++l) {
-      const int r = k * L + l, y = y0 + r;
-      const V3 rd = pixel_dir(p, x, y);
-      const bool in_rows = x < p.width && y < p.row0 + p.rows;
-      const size_t o = (size_t)y * p.width + x;
-      float ld = 1.0e7f;
-      if (p.with_background) {
-        if (in_rows) ld = depth[o];
-      } else {
-        V3 b = v3(0.0f, 0.0f, 0.0f);
-        const bool hit = p.with_opaque && opaque_pass(p, ro, rd, b, ld);
-        if (in_rows) {
-          if (p.with_sky && !hit) {
-            sky_miss |= 1u << r;
-          } else {
-            color[o * 3 + 0] = b.x;
-            color[o * 3 + 1] = b.y;
-            color[o * 3 + 2] = b.z;
-          }
-          linear[o] = ld;
-        }
-      }
-      if (p.with_sky) {
-        float fu, v;
-        latlong_uv(rd.x, rd.y, rd.z, fu, v);
-        sky_s[0] = fminf(sky_s[0], fu);
-        sky_s[1] = fminf(sky_s[1], v);
-        sky_s[2] = fminf(sky_s[2], -fu);
-        sky_s[3] = fminf(sky_s[3], -v);
-      }
-      float g0, g1;
-      ray_sphere(pc, p.planet_radius2, ro, rd, g0, g1);
-      const float gd = g0 != g1 ? g0 : 1.0e7f;
-      ld = ld + (gd - ld) * p.sphere_depth_factor;
-      if (l == 0) {
-        const float jitter = blue[(y & 255) * 256 + (x & 255)] + p.jitter_offset;
-        rd_sum = rd;
-        depth_min = ld;
-        jit_first = jitter - floorf(jitter);
-      } else {
-        rd_sum = add(rd_sum, rd);
-        depth_min = fminf(depth_min, ld);
-      }
-    }
-    const CoarseRay cr = coarse_ray(p, L, rd_sum, depth_min);
-    vis |= (unsigned)cr.vis << k;
-    float* in = state + k * T;
-    in[MK_IN_RX * C * T] = cr.rd_model.x;
-    in[MK_IN_RY * C * T] = cr.rd_model.y;
-    in[MK_IN_RZ * C * T] = cr.rd_model.z;
-    in[MK_IN_TB * C * T] = cr.tb;
-    in[MK_IN_TEM * C * T] = cr.tem;
-    in[MK_IN_JIT * C * T] = jit_first;
-    rk = k == 0 ? cr.rd_model : add(rk, cr.rd_model);
-    t0k = k == 0 ? cr.tb : t0k + cr.tb;
-    t1k = k == 0 ? cr.tem : t1k + cr.tem;
-  }
-  // the coverage group's knot inputs: mean model-space ray (not
-  // renormalized) and mean span
-  if (C > 1) {
-    rk = v3(rk.x / (float)C, rk.y / (float)C, rk.z / (float)C);
-    t0k = t0k / (float)C;
-    t1k = t1k / (float)C;
-  }
+  StageClock clk;
+  // the sky's choice: the block's rays are its tile's
+  Sky sky{sky_t, sky_r, sky_g, sky_b, TexChoice{MK_WINDOWED, 0}};
+  if (p.with_sky) sky.ch = sky_choice<G>(p, sky_t, x, y0, red);
+  RowPix<MK_MAX_GROUP> s;
+  CoarseIn<MK_MAX_GROUP> ci;
+  unsigned n_atmo = 0, n_v1 = 0, n_march = 0, n_sun = 0, n_sky = 0, tex_samples[2] = {0, 0},
+           cov_samples[2] = {0, 0};
+  shade_rows(p, blue, x, y0, G, L, s, ci, color, depth, sky, work, n_atmo, n_v1, n_sky);
+  Coarse<MK_MAX_GROUP> c;
+  coarse_rays(p, L, C, ci, c);
   clk.mark(MK_STAGE_COARSE);
 
-  // barrier 1: the tile's gate (clouds.py:573: no visible pixel, no knots,
-  // no march) and the sky's choice (its rays are the tile's)
-  warp_min_store(vis ? 0.0f : 1.0f, red1 + warp * MK_TEX_SLOTS1);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) warp_min_store(sky_s[i], red1 + warp * MK_TEX_SLOTS1 + 1 + i);
-  __syncthreads();
-  float m1[1];
-  tile_slots(red1, MK_TEX_SLOTS1, NW, m1);
-  const bool tile_vis = slot_of(m1, 0) == 0.0f;
-  Sky sky{sky_t, sky_r, sky_g, sky_b, TexChoice{MK_WINDOWED, 0}};
-  if (p.with_sky)
-    sky.ch = latlong_choose(sky_t, slot_of(m1, 1), -slot_of(m1, 3), slot_of(m1, 2), -slot_of(m1, 4));
-
-  // 2. the knots: every knot's wrapped coordinates once, each batch's min
-  // and -max over the warp into the reduction slots
-  const int kg = t.knot_group;
+  float light_c[MK_MAX_GROUP], calpha_c[MK_MAX_GROUP];
+  for (int k = 0; k < C; ++k) light_c[k] = calpha_c[k] = 0.0f;
+  // the tile's gate (clouds.py:573): no visible pixel, no knots, no march
+  const bool tile_vis = __syncthreads_or(c.any_vis);
   bool marches = false;
   if (tile_vis) {
-    const V3 rom = load3(p.ro_model);
-    float* slots = red2 + warp * n_slots;
-    float a[6] = {3.0e38f, 3.0e38f, 3.0e38f, 3.0e38f, 3.0e38f, 3.0e38f};
-#pragma unroll
-    for (int k = 0; k <= K; ++k) {
-      float dx, dy, dz, fu, v;
-      coverage_dir(p, knot_pos(rom, rk, t0k, t1k, (float)((double)k / (double)K)), dx, dy, dz);
-      latlong_uv(dx, dy, dz, fu, v);
-      knots[k * T] = fu;
-      knots[(K + 1 + k) * T] = v;
-      a[0] = fminf(a[0], fu);
-      a[1] = fminf(a[1], v);
-      a[2] = fminf(a[2], -fu);
-      a[3] = fminf(a[3], -v);
-      if ((k + 1) % kg == 0 || k == K) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          warp_min_store(a[i], slots + i);
-          a[i] = 3.0e38f;
-        }
-        slots += 4;
-      }
-    }
-#pragma unroll
-    for (int k = 0; k <= KS; ++k) {
-      const V3 pos = knot_pos(rom, rk, t0k, t1k, (float)((double)k / (double)KS));
-      const float f[3] = {wrap01(pos.x * p.cloud_shape_scale), wrap01(pos.y * p.cloud_shape_scale),
-                          wrap01(pos.z * p.cloud_shape_scale)};
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        a[i] = fminf(a[i], f[i]);
-        a[3 + i] = fminf(a[3 + i], -f[i]);
-      }
-      if ((k + 1) % kg == 0 || k == KS) {
-#pragma unroll
-        for (int i = 0; i < 6; ++i) {
-          warp_min_store(a[i], slots + i);
-          a[i] = 3.0e38f;
-        }
-        slots += 6;
-      }
-    }
-    // barrier 2: each batch's min and max over the tile, then its level and
-    // mode (the same in every thread) and its samples
-    __syncthreads();
-    float m2[MK_TEX_SLOT_LANES];
-    tile_slots(red2, n_slots, NW, m2);
-    int s = 0;
-    for (int g0 = 0; g0 <= K; g0 += kg, s += 4) {
-      const int g1 = min(g0 + kg, K + 1);
-      const TexChoice ch = latlong_choose(t, slot_of(m2, s), -slot_of(m2, s + 2), slot_of(m2, s + 1),
-                                          -slot_of(m2, s + 3));
-      for (int k = g0; k < g1; ++k)
-        knots[k * T] = latlong_sample(t, cov_tab, ch, knots[k * T], knots[(K + 1 + k) * T]);
-      cov_n[ch.mode == MK_FLOOR] += g1 - g0;
-    }
-    for (int g0 = 0; g0 <= KS; g0 += kg, s += 6) {
-      const int g1 = min(g0 + kg, KS + 1);
-      const float mn[3] = {slot_of(m2, s), slot_of(m2, s + 1), slot_of(m2, s + 2)};
-      const float mx[3] = {-slot_of(m2, s + 3), -slot_of(m2, s + 4), -slot_of(m2, s + 5)};
-      const TexChoice ch = tex3d_choose(t, mn, mx);
-      for (int k = g0; k < g1; ++k) {
-        const V3 pos = knot_pos(rom, rk, t0k, t1k, (float)((double)k / (double)KS));
-        knots[(K + 1 + k) * T] =
-            tex3d_sample(t, shape_tab, ch, wrap01(pos.x * p.cloud_shape_scale),
-                         wrap01(pos.y * p.cloud_shape_scale), wrap01(pos.z * p.cloud_shape_scale));
-      }
-      tex_n[ch.mode == MK_FLOOR] += g1 - g0;
-    }
-    float cov_max = knots[0];
-    for (int k = 1; k <= K; ++k) cov_max = fmaxf(cov_max, knots[k * T]);
-    marches = vis && cloud_may_form(p, cov_max);
+    eval_knots<false>(p, t, cov_tab, c, K, cov_knots, red, cov_samples);
+    eval_knots<true>(p, t, shape_tab, c, KS, shp_knots, red, tex_samples);
+    float cov_max = cov_knots[tid];
+    for (int k = 1; k <= K; ++k) cov_max = fmaxf(cov_max, cov_knots[k * nt + tid]);
+    marches = c.any_vis && cloud_may_form(p, cov_max);
   }
   clk.mark(MK_STAGE_KNOTS);
-
-  // 3. the march of each of the thread's coarse pixels that sees the layer
   if (marches) {
-    const TexFields<K, KS> fields{SmemKnots<K>{knots, T}, SmemKnots<KS>{knots + (K + 1) * T, T}};
+    const TexFields<K, KS> fields{SmemKnots<K>{cov_knots + tid, nt},
+                                  SmemKnots<KS>{shp_knots + tid, nt}};
     for (int k = 0; k < C; ++k) {
-      if (!((vis >> k) & 1u)) continue;
-      float* in = state + k * T;
-      float light, alpha;
-      cloud_march(p, fields, v3(in[MK_IN_RX * C * T], in[MK_IN_RY * C * T], in[MK_IN_RZ * C * T]),
-                  in[MK_IN_TB * C * T], in[MK_IN_TEM * C * T], in[MK_IN_JIT * C * T], light,
-                  alpha);
-      in[0] = light;
-      in[C * T] = alpha;
-      ++n_march;
-      if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
+      if (c.vis[k]) {
+        cloud_march(p, fields, c.rd_model[k], c.tb[k], c.tem[k], ci.jit_first[k], light_c[k],
+                    calpha_c[k]);
+        ++n_march;
+        if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
+      }
     }
   }
   clk.mark(MK_STAGE_MARCH);
-  if (work) {  // counted here: their registers are free for the atmosphere
-    // the warp issues march k where any lane marches it
-    const unsigned issued = __popc(__reduce_or_sync(0xffffffffu, marches ? vis : 0u));
-    count_work(work, MK_WORK_MARCH_WARP_STEPS,
-               (tid & 31) ? 0u : issued * (unsigned)p.cloud_steps);
-    count_work(work, MK_WORK_MARCH_LANE_STEPS, n_march * (unsigned)p.cloud_steps);
+  blend_and_store(p, x, y0, G, L, s, c.vis, light_c, calpha_c, color, alpha_out);
+  clk.mark(MK_STAGE_BLEND);
+  if (work) {
+    count_work(work, MK_WORK_PIXELS, x < p.width ? max(0, min(G, p.row0 + p.rows - y0)) : 0);
+    count_work(work, MK_WORK_ATMOSPHERE, n_atmo);
+    count_work(work, MK_WORK_V1_ATMOSPHERE, n_v1);
     count_work(work, MK_WORK_KNOT_GROUPS, tile_vis ? 1 : 0);
     count_work(work, MK_WORK_MARCH, n_march);
     count_work(work, MK_WORK_SUN_SAMPLES, n_sun);
-    count_work(work, MK_WORK_TEX3D, tex_n[0]);
-    count_work(work, MK_WORK_TEX3D_FLOOR, tex_n[1]);
-    count_work(work, MK_WORK_LATLONG, cov_n[0]);
-    count_work(work, MK_WORK_LATLONG_FLOOR, cov_n[1]);
-  }
-
-  // 4. each stored row: its atmosphere and background, blended with its
-  // coarse pixel's clouds (zeros where it sees the layer but was culled)
-  for (int r = 0; r < n_rows; ++r) {
-    const int y = y0 + r;
-    const size_t o = (size_t)y * p.width + x;
-    const V3 rd = pixel_dir(p, x, y);
-    float ld = linear[o];
-    float g0, g1, rs0, rs1;
-    ray_sphere(pc, p.planet_radius2, ro, rd, g0, g1);
-    const float gd = g0 != g1 ? g0 : 1.0e7f;
-    ld = ld + (gd - ld) * p.sphere_depth_factor;
-    ray_sphere(pc, p.atmosphere_radius2, ro, rd, rs0, rs1);
-    const bool h = rs0 != rs1;
-    const float t_begin = h ? fmaxf(rs0, 0.0f) : 0.0f;
-    float t_end = h ? fmaxf(rs1, 0.0f) : 0.0f;
-    t_end = fmaxf(fminf(t_end, ld), t_begin);
-    RowPix<1> s;
-    if ((sky_miss >> r) & 1u) {
-      s.bg[0] = sky_rgb(sky, rd);
-      ++n_sky;
-    } else {
-      s.bg[0] = v3(color[o * 3 + 0], color[o * 3 + 1], color[o * 3 + 2]);
-    }
-    s.hit[0] = h;
-    if (h) {
-      if (p.model == 1) {
-        atmosphere_v1(p, ro, rd, t_begin, t_end, s.atm[0]);
-        ++n_v1;
-      } else {
-        const float jitter = blue[(y & 255) * 256 + (x & 255)] + p.jitter_offset;
-        atmosphere_v2(p, ro, rd, t_begin, t_end, jitter - floorf(jitter), s.atm[0]);
-        ++n_atmo;
-      }
-    }
-    const int k = r / L;
-    const bool vis_k = (vis >> k) & 1u;
-    const float la = marches ? state[k * T] : 0.0f;
-    const float ca = marches ? state[(C + k) * T] : 0.0f;
-    blend_and_store(p, x, y, 1, 1, s, &vis_k, &la, &ca, color, alpha_out);
-  }
-  clk.mark(MK_STAGE_BLEND);
-  if (work) {
-    count_work(work, MK_WORK_PIXELS, n_rows);
-    count_work(work, MK_WORK_ATMOSPHERE, n_atmo);
-    count_work(work, MK_WORK_V1_ATMOSPHERE, n_v1);
+    count_work(work, MK_WORK_TEX3D, tex_samples[0]);
+    count_work(work, MK_WORK_TEX3D_FLOOR, tex_samples[1]);
+    count_work(work, MK_WORK_LATLONG, cov_samples[0]);
+    count_work(work, MK_WORK_LATLONG_FLOOR, cov_samples[1]);
     count_work(work, MK_WORK_SKY, sky.ch.mode == MK_FLOOR ? 0 : n_sky);
     count_work(work, MK_WORK_SKY_FLOOR, sky.ch.mode == MK_FLOOR ? n_sky : 0);
   }
@@ -2536,49 +2380,21 @@ extern "C" int megakernel_gen_info(const MegakernelParams* params, int* out) {
   return 0;
 }
 
-// The texture instance for params and tex: its kernel (one per G =
-// cloud_lod * coverage_lod the launcher takes), threads per CTA (a tile),
-// dynamic shared memory in bytes (the knot rows, MK_GEN_MARCH_ROWS per
-// coarse pixel, the warps' reduction slots) and the slots of barrier 2.
-// kernel is nullptr for a config the instance does not take.
-using TexKernel = void (*)(const MegakernelParams, const TexParams, const TexParams, const float*,
-                           const float*, const float*, const float*, const float*, const float*,
-                           float*, float*, float*, unsigned long long*, int);
-
-struct TexLayout {
-  TexKernel kernel;
-  int threads;
-  int smem;
-  int slots;
-};
-
-static TexLayout tex_layout(const MegakernelParams* p, const TexParams* t) {
-  const int G = p->cloud_lod * p->coverage_lod, kg = t->knot_group;
-  TexLayout out{nullptr, 0, 0, 0};
-  if (p->cloud_lod < 1 || p->coverage_lod < 1 || kg < 1 || kg > MK_MAX_GROUP) return out;
-  out.slots = 4 * ((MK_KNOTS + kg) / kg) + 6 * ((MK_SHAPE_KNOTS + kg) / kg);
-  if (out.slots > 32 * MK_TEX_SLOT_LANES) return out;
-  if (G == 4) out.kernel = megakernel_tex<4>;
-  if (G == 8) out.kernel = megakernel_tex<8>;
-  if (!out.kernel) return out;
-  out.threads = tex_threads(G);
-  out.smem = ((MK_TEX_KNOT_ROWS + MK_GEN_MARCH_ROWS * p->coverage_lod) * out.threads +
-              out.threads / 32 * (MK_TEX_SLOTS1 + out.slots)) * (int)sizeof(float);
-  if (out.smem > MK_SMEM_ROWS * MK_TILE_COLS * (int)sizeof(float)) out.kernel = nullptr;
-  return out;
-}
-
-// dynamic shared memory above the default 48 KB needs the kernel's
-// attribute raised first; it is only ever raised (each instance keeps the
-// largest it was given), so a smaller launch or a query never lowers it
-static cudaError_t tex_smem_attribute(const TexLayout& tex) {
-  static int raised[2] = {48 * 1024, 48 * 1024};
-  int& have = raised[tex.kernel == megakernel_tex<8>];
-  if (tex.smem <= have) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(tex.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tex.smem);
-  if (err == cudaSuccess) have = tex.smem;
-  return err;
+template <int G>
+static int launch_tex(const MegakernelParams* p, const TexParams* t, const TexParams& sky,
+                      const float* blue, const float* shape_tab, const float* cov_tab,
+                      const float* sky_r, const float* sky_g, const float* sky_b, float* color,
+                      float* alpha, float* depth, cudaStream_t stream,
+                      unsigned long long* work) {
+  constexpr int smem = tex_smem(G);
+  auto kernel = megakernel_tex<MK_KNOTS, MK_SHAPE_KNOTS, G>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 block(MK_TILE_COLS, MK_TILE_ROWS / G, 1);
+  kernel<<<tile_grid(p), block, smem, stream>>>(*p, *t, sky, blue, shape_tab, cov_tab, sky_r, sky_g,
+                                        sky_b, color, alpha, depth, work);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int megakernel_tex_launch(const MegakernelParams* params, const TexParams* tex,
@@ -2589,39 +2405,42 @@ extern "C" int megakernel_tex_launch(const MegakernelParams* params, const TexPa
                                      void* work) {
   if (!params->clouds_enabled || !params->with_atmosphere ||
       params->coverage_knots != MK_KNOTS || tex->shape_knots != MK_SHAPE_KNOTS ||
-      !rows_ok(params) || (params->with_background && !depth) ||
-      !sky_ok(params, sky, sky_r, sky_g, sky_b))
+      tex->knot_group < 1 || tex->knot_group > MK_MAX_GROUP || !rows_ok(params) ||
+      (params->with_background && !depth) || !sky_ok(params, sky, sky_r, sky_g, sky_b))
     return -1;
-  const TexLayout layout = tex_layout(params, tex);
-  if (!layout.kernel) return -1;
-  const cudaError_t err = tex_smem_attribute(layout);
-  if (err != cudaSuccess) return (int)err;
+  const int G = params->cloud_lod * params->coverage_lod;
   const TexParams sky_t = sky ? *sky : TexParams{};
-  layout.kernel<<<tile_grid(params), dim3(MK_TILE_COLS, layout.threads / MK_TILE_COLS, 1),
-                  layout.smem, (cudaStream_t)stream>>>(
-      *params, *tex, sky_t, blue, shape_tab, cov_tab, sky_r, sky_g, sky_b, color, alpha, depth,
-      (unsigned long long*)work, layout.slots);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  unsigned long long* w = (unsigned long long*)work;
+  if (G == 4)
+    return launch_tex<4>(params, tex, sky_t, blue, shape_tab, cov_tab, sky_r, sky_g, sky_b, color,
+                         alpha, depth, s, w);
+  if (G == 8)
+    return launch_tex<8>(params, tex, sky_t, blue, shape_tab, cov_tab, sky_r, sky_g, sky_b, color,
+                         alpha, depth, s, w);
+  return -1;
 }
 
 // What the texture instance for these params uses, as the launcher would
 // launch it: out = {rows per thread G, registers per thread, local memory
-// (stack) bytes per thread, resident CTAs (tiles) per SM, dynamic shared
-// memory bytes per CTA, threads per CTA}.
+// (stack) bytes per thread, resident blocks (tiles) per SM, dynamic shared
+// memory bytes, threads per block}.  It sets the shared-memory attribute
+// the launcher sets, one constant per instance.
 extern "C" int megakernel_tex_info(const MegakernelParams* params, const TexParams* tex,
                                    int* out) {
-  const TexLayout layout = tex_layout(params, tex);
-  if (!layout.kernel) return -1;
+  (void)tex;
+  const int G = params->cloud_lod * params->coverage_lod;
+  if (G != 4 && G != 8) return -1;
+  const int nt = tex_threads(G), smem = tex_smem(G);
+  auto kernel = G == 4 ? megakernel_tex<MK_KNOTS, MK_SHAPE_KNOTS, 4>
+                       : megakernel_tex<MK_KNOTS, MK_SHAPE_KNOTS, 8>;
   cudaFuncAttributes attr;
-  cudaError_t err = tex_smem_attribute(layout);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, layout.kernel);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
   int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, layout.kernel, layout.threads,
-                                                        layout.smem);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, nt, smem);
   if (err != cudaSuccess) return (int)err;
-  const int info[6] = {params->cloud_lod * params->coverage_lod, attr.numRegs,
-                       (int)attr.localSizeBytes, blocks, layout.smem, layout.threads};
+  const int info[6] = {G, attr.numRegs, (int)attr.localSizeBytes, blocks, smem, nt};
   for (int i = 0; i < 6; ++i) out[i] = info[i];
   return 0;
 }

@@ -88,10 +88,10 @@ SOURCE = os.path.join(library.CSRC, "megakernel.cu")
 MAX_SPHERES = 8
 MAX_BOXES = 4
 MAX_OCTAVES = 8
-#: the texture instance's knots per batch (texture_knot_group)
+#: the texture instance's rows per thread and knots per batch
 MAX_GROUP = 8
 QUAD_POINTS = 8
-#: the texture instance's coverage knot count (MK_KNOTS)
+#: the texture instance's coverage knot count (template parameter K)
 KNOTS = 8
 #: the procedural instance's coarse pixels per thread, C = cloud_coverage_lod
 #: (a group of cloud_lod·C rows divides the 32-row tile)
@@ -112,22 +112,22 @@ SHAPE_KNOTS = 16
 MAX_LEVELS = 8
 WINDOWED, BANDED, FLOOR = texsample.WINDOWED, texsample.BANDED, texsample.FLOOR
 #: texture mode's rows per thread, cloud_lod·cloud_coverage_lod: one
-#: instance each (``megakernel_tex<G>``), a CTA of 128 × 32 / G threads per
-#: 32×128 tile, registers sized for TEX_SM_THREADS resident threads per SM
+#: instance each (``megakernel_tex<K, KS, G>``), a block of 128 × 32 / G
+#: threads per 32×128 tile, registers sized for TEX_SM_THREADS resident
+#: threads per SM (one tile at G = 4, two at G = 8)
 TEXTURE_GROUPS = (4, 8)
 TEX_SM_THREADS = 1024
-#: its shared memory, in rows of one float per thread: the 9 coverage and 17
-#: shape knots, then GEN_MARCH_ROWS per coarse pixel; then each warp's
-#: reduction slots, TEX_SLOTS1 for the first barrier and, for the second, 4
-#: per batch of coverage knots and 6 per batch of shape knots
+#: its shared memory: the 9 coverage and 17 shape knots in rows of one float
+#: per thread, then TEX_RED_SLOTS floats per warp (the block reduction's
+#: min and max of up to 3 axes)
 TEX_KNOT_ROWS = 26
-TEX_SLOTS1 = 5
+TEX_RED_SLOTS = 6
 #: work counter slots, in the kernel's order (``MK_WORK_*``); the procedural
 #: instance also counts its procedural field evaluations: coverage per step
 #: and per sun sample, shape and detail per step and per sun sample, and the
-#: shape and detail knots; both cloud instances count their march's
-#: warp-steps issued and lane-steps run (lane utilisation = lane-steps /
-#: (32 × warp-steps); no bound reads them)
+#: shape and detail knots; and its march's warp-steps issued and lane-steps
+#: run (lane utilisation = lane-steps / (32 × warp-steps); no bound reads
+#: them)
 WORK_SLOTS = ("pixels", "atmosphere", "knot_groups", "march", "tex3d",
               "tex3d_floor", "latlong", "latlong_floor", "sun_samples",
               "v1_atmosphere", "opaque_pixels", "sky", "sky_floor",
@@ -479,19 +479,17 @@ def gen_smem(config: VariantConfig) -> tuple:
 
 
 def tex_threads(group: int) -> int:
-    """The texture instance's threads per CTA (one 32×128 tile) at G rows
+    """The texture instance's threads per block (one 32×128 tile) at G rows
     per thread."""
     return TILE_COLS * (TILE_ROWS // group)
 
 
-def tex_smem(config: VariantConfig) -> int:
-    """The texture instance's dynamic shared memory per CTA for ``config``,
-    as its launcher lays it out (``tex_layout``), in bytes."""
-    threads = tex_threads(config.cloud_lod * config.cloud_coverage_lod)
-    kg = config.texture_knot_group
-    slots = 4 * -(-(KNOTS + 1) // kg) + 6 * -(-(SHAPE_KNOTS + 1) // kg)
-    rows = TEX_KNOT_ROWS + GEN_MARCH_ROWS * config.cloud_coverage_lod
-    return (rows * threads + threads // 32 * (TEX_SLOTS1 + slots)) * 4
+def tex_smem(group: int) -> int:
+    """The texture instance's dynamic shared memory per block at G rows per
+    thread, as its launcher sizes it (``tex_smem`` in the source), in
+    bytes."""
+    threads = tex_threads(group)
+    return (TEX_KNOT_ROWS * threads + threads // 32 * TEX_RED_SLOTS) * 4
 
 
 def knot_rows(config: VariantConfig) -> int:

@@ -316,47 +316,57 @@ def _cu_constexpr(name):
 
 
 def test_texture_layout_matches_wrapper():
-    """The texture instance's threads, shared-memory rows and reduction
-    slots, as ``tex_threads`` and ``tex_smem`` mirror them, against the
-    source's constants."""
+    """The texture instance's threads, resident threads per SM and shared
+    memory, as ``tex_threads`` and ``tex_smem`` mirror them, against the
+    source's constants and its ``tex_threads`` and ``tex_smem``."""
+    src = _cu_source()
     assert _cu_constexpr("MK_TEX_SM_THREADS") == mk.TEX_SM_THREADS
     assert _cu_constexpr("MK_TEX_KNOT_ROWS") == mk.TEX_KNOT_ROWS == mk.KNOTS + mk.SHAPE_KNOTS + 2
-    assert _cu_constexpr("MK_TEX_SLOTS1") == mk.TEX_SLOTS1
-    body = re.search(r"constexpr int tex_threads\(int G\) \{ return (.*?); \}",
-                     _cu_source()).group(1)
+    assert _cu_constexpr("MK_TEX_RED_SLOTS") == mk.TEX_RED_SLOTS
+    threads_expr = re.search(r"constexpr int tex_threads\(int G\) \{ return (.*?); \}",
+                             src).group(1)
+    smem_expr = re.search(r"constexpr int tex_smem\(int G\) \{\s*return (.*?);\s*\}", src,
+                          re.S).group(1)
     for g in mk.TEXTURE_GROUPS:
-        threads = eval(body.replace("/", "//"), {}, {"G": g, "MK_TILE_COLS": mk.TILE_COLS,
-                                                     "MK_TILE_ROWS": mk.TILE_ROWS})
+        threads = eval(threads_expr.replace("/", "//"), {}, {
+            "G": g, "MK_TILE_COLS": mk.TILE_COLS, "MK_TILE_ROWS": mk.TILE_ROWS})
         assert threads == mk.tex_threads(g) and mk.TEX_SM_THREADS % threads == 0
-    # knot_group 1 has the most batches: 9 coverage and 17 shape, each a slot per lane
-    assert 4 * (mk.KNOTS + 1) + 6 * (mk.SHAPE_KNOTS + 1) <= 32 * _cu_constexpr("MK_TEX_SLOT_LANES")
+        smem = eval(" ".join(smem_expr.split()).replace("tex_threads(G)", str(threads))
+                    .replace("(int)sizeof(float)", "4").replace("/", "//"), {}, {
+                        "MK_TEX_KNOT_ROWS": mk.TEX_KNOT_ROWS, "MK_TEX_RED_SLOTS": mk.TEX_RED_SLOTS})
+        assert smem == mk.tex_smem(g)
 
 
 def test_texture_launcher_has_an_instance_per_group():
-    """``tex_layout`` dispatches each G of TEXTURE_GROUPS to its own
-    ``megakernel_tex<G>``, and nothing else."""
-    body = re.search(r"static TexLayout tex_layout\(.*?\n\}", _cu_source(), re.S).group(0)
-    assert tuple(int(g) for g in re.findall(r"megakernel_tex<(\d+)>", body)) == mk.TEXTURE_GROUPS
-    assert re.findall(r"if \(G == (\d+)\) out.kernel = megakernel_tex<(\d+)>", body) == [
+    """``megakernel_tex_launch`` dispatches each G of TEXTURE_GROUPS to its
+    own ``megakernel_tex<K, KS, G>``, and nothing else; so does the
+    occupancy query."""
+    src = _cu_source()
+    launch = re.search(r'extern "C" int megakernel_tex_launch\(.*?\n\}', src, re.S).group(0)
+    assert re.findall(r"if \(G == (\d+)\)\s*return launch_tex<(\d+)>", launch) == [
         (str(g), str(g)) for g in mk.TEXTURE_GROUPS]
+    body = re.search(r"static int launch_tex\(.*?\n\}", src, re.S).group(0)
+    assert "megakernel_tex<MK_KNOTS, MK_SHAPE_KNOTS, G>" in body
+    info = re.search(r'extern "C" int megakernel_tex_info\(.*?\n\}', src, re.S).group(0)
+    assert tuple(int(g) for g in re.findall(r"megakernel_tex<MK_KNOTS, MK_SHAPE_KNOTS, (\d+)>",
+                                            info)) == mk.TEXTURE_GROUPS
 
 
-@pytest.mark.parametrize("group", mk.TEXTURE_GROUPS)
-@pytest.mark.parametrize("knot_group", [1, 8])
-def test_every_texture_config_fits_one_cta(group, knot_group):
+@pytest.mark.parametrize("group,coverage_lod", [(g, c) for g in mk.TEXTURE_GROUPS
+                                                for c in (1, 2, 4, 8) if g % c == 0])
+def test_every_texture_config_fits_one_cta(group, coverage_lod):
     """Every split of G rows into cloud_lod·coverage_lod that
-    ``check_config`` passes fits the 227 KB a CTA may use, at the most and
-    the fewest knot batches; at G = 8 the interior's split (4 rows of 2
-    coarse pixels) leaves room for the two tiles per SM its registers
-    allow."""
-    for cov in (c for c in (1, 2, 4, 8) if group % c == 0):
-        cfg = dataclasses.replace(demo_variant("clouds_high", procedural=False),
-                                  cloud_lod=group // cov, cloud_coverage_lod=cov,
-                                  texture_knot_group=knot_group)
-        smem = mk.tex_smem(cfg)
-        assert 0 < smem <= mk.SMEM_ROWS * mk.TILE_COLS * 4, (group, cov)
-        if (group, cov, knot_group) == (8, 2, 8):
-            assert 2 * smem <= mk.SMEM_ROWS * mk.TILE_COLS * 4
+    ``check_config`` passes is one block per tile whose shared memory fits
+    the 227 KB a block may use, and TEX_SM_THREADS resident threads per SM
+    hold whole tiles whose shared memory fits an SM too (two at G = 8)."""
+    cfg = dataclasses.replace(demo_variant("clouds_high", procedural=False),
+                              cloud_lod=group // coverage_lod, cloud_coverage_lod=coverage_lod)
+    assert not [p for p in mk._texture_problems(cfg) if "cloud_lod" in p]
+    threads = mk.tex_threads(cfg.cloud_lod * cfg.cloud_coverage_lod)
+    smem = mk.tex_smem(cfg.cloud_lod * cfg.cloud_coverage_lod)
+    tiles = mk.TEX_SM_THREADS // threads
+    assert threads <= 1024 and tiles == (2 if group == 8 else 1)
+    assert 0 < tiles * smem <= mk.SMEM_ROWS * mk.TILE_COLS * 4, (group, coverage_lod)
 
 
 _CPARAM = {"int": ctypes.c_int, "const MegakernelParams*": ctypes.POINTER(mk.MegakernelParams),
