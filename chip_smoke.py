@@ -49,8 +49,11 @@ on one CUDA card and checks every step:
    ``torch.profiler`` trace shows no device→host copy between a flight's
    first launch and its last;
 7. flight timing: each flight's ms per frame end to end, its host ms per
-   frame and the device's idle share; K3 alone at 1080p with its bound; the
-   launch floor T3 (``probes.py``'s fill kernel, launched back to back).
+   frame and the device's idle share; K3 alone at 1080p with its bound, its
+   events and device time (``torch.profiler``) and what it uses
+   (``taa.info``: CTAs per tile, registers, stack, CTAs per SM, shared
+   memory); the launch floor T3 (``probes.py``'s fill kernel, launched back
+   to back).
 
 The exterior and multi-planet frames (far-mode row bands, the opaque-only
 pass, the far→near layer chain, v1, raymarched cloud lighting) run in three
@@ -69,7 +72,10 @@ more phases:
    (the gas giant at its limb pose, 1080p) through ``Scene.render``, each
    with its band plan and held against the plain chain;
 5b. per cell: kernel ms per launch (opaque-only, fullscreen or banded
-   layer) with each launch's roofline bound from its work counters,
+   layer; events, and device time from ``torch.profiler``; a cloud-free
+   launch with what ``megakernel_clear`` uses, ``mk.clear_info``) with each
+   launch's roofline bound from its work counters (the atmosphere per step
+   of the layer's config and per quadrature segment evaluated),
    ``Scene.render`` ms and idle share, plain ms; on cell 5 the frame with
    ``bands=None`` forced and the planet band without raymarched lighting.
 
@@ -128,7 +134,7 @@ mesh, ``parallel/sharding.py``) runs in three more phases:
    ``torch.distributed`` world size 1 on NCCL against the local mesh of one
    shard, bit for bit; K3's band mode alone on 4 shards with a 32-row halo,
    bit-equal to its plain version and, put together, to the full-frame K3,
-   with its ms per shard and bound;
+   with its ms per shard (events and device time) and bound;
 5d. per-shard K1 ms with bounds from the work counters, the sharded
    frame's kernel ms against the single-card frame's, the plain band
    chain's ms, the sharded flight's ms per frame, host ms and idle share.
@@ -239,7 +245,19 @@ PEAK_BYTES = 3.35e12
 # apart from int32 (one per integer instruction).  The kernel's work
 # counters say how many units this run's inputs needed.
 OPS_PIXEL = 260            # ray, opaque pass, shell and ground hits, composite
-OPS_ATMOSPHERE = 2740      # 8 steps of v2 with 2 × 8-node analytic sun depth
+# One v2 integration (atmosphere_v2): per pixel the step length and start
+# (9) and the output mix (16); per step (config.atmosphere_steps of them)
+# the sun depth's chord (optical_depth_analytic: position, radius clamp,
+# b, c0 and q2, 31; the shell's and the ground's roots, their clamps,
+# the segment tests and the sum, 27) and the view sample (distance 9,
+# density 9, the three channels' extinction and in-scatter 22, alpha 4,
+# advance 6), 110; and per quadrature segment evaluated (od_segment; the
+# work slot od_segments counts them, two per step unless one is empty) 8
+# nodes of 15 (node 2, offset 1, radius 3, height 4, cube 2, weight 2,
+# step 1) and its scale 3, 123
+OPS_V2_PIXEL = 25
+OPS_V2_STEP = 110
+OPS_OD_SEGMENT = 123
 OPS_STEP = 115             # one march step with interpolated or given fields
 # One evaluation of each noise basis, (fp32, int32): corner hashes
 # (mix_fast 6 integer ops, mix 8), gradients from 10-bit hash fields,
@@ -265,10 +283,12 @@ OPS_LATLONG_FLOOR = 190
 # length 6, height ratio 3, density 23, exp 5, alpha and step 6; plus the
 # procedural fields where they are evaluated
 OPS_SUN_SAMPLE = 50
-# one v1 integration (atmosphere_v1): 16 steps of ~42 (distance 10,
-# direction 4, cubic density 8, sun term 10, light sum and factor 5, advance
-# 6) and the four-color mix ~30
-OPS_V1_ATMOSPHERE = 700
+# one v1 integration (atmosphere_v1): per step (config.atmosphere_steps of
+# them) ~42 (distance 10, direction 4, cubic density 8, sun term 10, light
+# sum and factor 5, advance 6), and the step length and the four-color mix
+# ~28 per pixel
+OPS_V1_STEP = 42
+OPS_V1_PIXEL = 28
 # one opaque-only pixel: ray 25, three spheres 3 × 22, the box slab test 55,
 # shading or the star hash 50
 OPS_OPAQUE_PIXEL = 200
@@ -578,6 +598,20 @@ def ops_time_ms(fp_ops: float, int_ops: float = 0.0) -> float:
     return max(t_fp + t_int / 2.0, t_int)
 
 
+def atmosphere_ops(work: dict, config) -> int:
+    """The operations of a launch's atmosphere integrations: v2 and v1 per
+    pixel and per step of the layer's ``config.atmosphere_steps``, and v2's
+    sun-depth quadrature segments as the kernel counted them
+    (``od_segments``)."""
+    n = config.atmosphere_steps
+    if not work["od_segments"] <= 2 * n * work["atmosphere"]:
+        raise RuntimeError(f"{work['od_segments']} quadrature segments counted for "
+                           f"{work['atmosphere']} v2 integrations of {n} steps")
+    return (work["atmosphere"] * (OPS_V2_PIXEL + n * OPS_V2_STEP)
+            + work["od_segments"] * OPS_OD_SEGMENT
+            + work["v1_atmosphere"] * (OPS_V1_PIXEL + n * OPS_V1_STEP))
+
+
 def roofline(work: dict, config, height: int, width: int, table_bytes: int = 0,
              frame_bytes=None, sky_bytes: int = 0, sky_choice_ops: int = 0) -> dict:
     """The least time the card could take for this launch's work: the
@@ -591,8 +625,7 @@ def roofline(work: dict, config, height: int, width: int, table_bytes: int = 0,
     field's evaluations and knots."""
     steps = config.cloud_steps
     procedural = config.clouds_enabled and config.cloud_shape_noise is not None
-    ops = (work["pixels"] * OPS_PIXEL + work["atmosphere"] * OPS_ATMOSPHERE
-           + work["v1_atmosphere"] * OPS_V1_ATMOSPHERE
+    ops = (work["pixels"] * OPS_PIXEL + atmosphere_ops(work, config)
            + work["opaque_pixels"] * OPS_OPAQUE_PIXEL
            + work["march"] * steps * OPS_STEP + work["sun_samples"] * OPS_SUN_SAMPLE
            + work["tex3d"] * OPS_TEX3D + work["tex3d_floor"] * OPS_TEX3D_FLOOR
@@ -1070,11 +1103,12 @@ def space_path(frames: int) -> np.ndarray:
 
 
 def launch_timing(plan, scene, cam, h, w, device) -> dict:
-    """Each launch of a frame's plan timed alone (CUDA events) with its
-    roofline bound from its work counters, and the whole sequence.  A
-    launch that draws the sky (its pre-pass included) is also timed with
-    the sky off (the same struct, ``with_sky`` 0), in turns: sky, none,
-    none, sky."""
+    """Each launch of a frame's plan timed alone (CUDA events; its device
+    time from a ``torch.profiler`` trace) with its roofline bound from its
+    work counters, and the whole sequence; a cloud-free launch with what
+    its instance uses (``mk.clear_info``).  A launch that draws the sky (its
+    pre-pass included) is also timed with the sky off (the same struct,
+    ``with_sky`` 0), in turns: sky, none, none, sky."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     params, configs, tex, bands, rows = plan
@@ -1107,6 +1141,11 @@ def launch_timing(plan, scene, cam, h, w, device) -> dict:
             cost = sky_cost(cam, h, w, pano_meta, in_block=args["tex"] is not None)
         else:
             ms = timed(struct, args)
+        extra["device_ms"] = kernel_trace(lambda st=struct, a=args: [
+            mk.launch(st, color, alpha, depth=depth, **a) for _ in range(KERNEL_FRAMES)],
+            "megakernel")["device_us"] / 1e3
+        if not (struct.clouds_enabled and struct.with_atmosphere):
+            extra["instance"] = mk.clear_info(struct)
         work = mk.work_counts(struct, color, alpha, depth=depth, **args)
         per_px = (BYTES_OPAQUE_PIXEL if kind == "opaque" else BYTES_CHAINED_PIXEL
                   if struct.with_background else BYTES_LAYER_PIXEL)
@@ -1332,8 +1371,8 @@ def taa_band_check(device, h: int, w: int, n: int, halo: int) -> dict:
     of its rows and ``halo`` rows above and below (zeros past the frame's
     edges), on the partial-tile case: each shard against its plain
     version and the shards put together against the full-frame K3, bit for
-    bit; each shard's launch timed (CUDA events) beside its plain version
-    and its bound (48 B and ~300 operations per pixel, plus the halo rows'
+    bit; each shard's launch timed (CUDA events, and its device time from a
+    ``torch.profiler`` trace) beside its plain version and its bound (48 B and ~300 operations per pixel, plus the halo rows'
     color and depth read once).  The case keeps every reprojection within
     the halo and off the frame's last row (where the whole frame's window,
     clamped at the frame's edge, cannot reach and a shard's zero halo can):
@@ -1354,7 +1393,7 @@ def taa_band_check(device, h: int, w: int, n: int, halo: int) -> dict:
 
     hp, dp = pad(hist), pad(hd)
     rows = h // n
-    bands, err, exact, ms, plain_ms = [], 0.0, True, [], []
+    bands, err, exact, ms, device_ms, plain_ms = [], 0.0, True, [], [], []
     for s in range(n):
         r0 = s * rows
         p = taa.taa_constants(*cams, blend, h, w, rows + 2 * halo, rows=rows, row0=r0,
@@ -1372,13 +1411,16 @@ def taa_band_check(device, h: int, w: int, n: int, halo: int) -> dict:
         bands.append(out)
         ms.append(time_cuda(lambda i, p=p, a=args, o=out, d=depth: taa.launch(p, *a, o, d),
                             KERNEL_FRAMES))
+        device_ms.append(kernel_trace(lambda p=p, a=args, o=out, d=depth: [
+            taa.launch(p, *a, o, d) for _ in range(KERNEL_FRAMES)], "taa_kernel")["device_us"] / 1e3)
         plain_ms.append(time_cuda(lambda i, p=p, a=args: taa.resolve_plain(p, *a), 3))
     reassembled = bool(torch.equal(torch.cat(bands), full))
     t_bytes = (rows * w * BYTES_TAA_PIXEL + 2 * halo * w * 16) / PEAK_BYTES * 1e3
     t_ops = ops_time_ms(rows * w * OPS_TAA_PIXEL)
     t = {"shards": n, "rows": rows, "halo": halo, "max_abs_err": err,
          "equal_to_plain": exact, "reassembled_equal_to_full": reassembled,
-         "ms_per_shard": ms, "ms": sum(ms) / n, "plain_ms": sum(plain_ms) / n,
+         "ms_per_shard": ms, "ms": sum(ms) / n, "device_ms_per_shard": device_ms,
+         "device_ms": sum(device_ms) / n, "plain_ms": sum(plain_ms) / n,
          "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     if not (exact and reassembled):
         raise RuntimeError("K3's band mode is not bit-equal to its plain version and to the "
@@ -2177,6 +2219,7 @@ def main(argv=None) -> int:
         plan = scene_plan(scene, cam, ch)
         cell_launches += expected_launches(plan)
         cells[cell] = (kind, scene, cam, ch, cw, plan)
+    clear_launches = {"4c": mk.counters.clear_launches}
 
     # -- 4d. the panorama sky at 1080p through Scene.render, and the glow ----------
     sky_runs, sky_launches, choice_launches = {}, 0, 0
@@ -2206,6 +2249,7 @@ def main(argv=None) -> int:
         + ", ".join(f"{k} {v:.3f} s" for k, v in pyramid_s.items()))
     if sky_counts != (sky_launches, len(SKY_FRAMES), choice_launches, 0):
         raise RuntimeError("the 1080p frames with the sky did not go through K1 only")
+    clear_launches["4d"] = mk.counters.clear_launches
     sky_frame_err = 0.0
     for label, (scene, cam, plan, out) in sky_runs.items():
         img = frame_array(out)
@@ -2277,6 +2321,7 @@ def main(argv=None) -> int:
         pano_data=allon_in[3], pano_meta=allon_in[4])
     torch.cuda.synchronize()
     frame_counts = band_counts()
+    clear_launches["4e"] = mk.counters.clear_launches
     flag_color = sharding.render_frame_megakernel_sharded(
         flag_in[0][0], flag_in[1][0], flag_cam, flag_scene.opaque, H, W,
         sharding.make_mesh(FLAGSHIP_SHARDS))
@@ -2696,7 +2741,10 @@ def main(argv=None) -> int:
     def k3_plain(i):
         taa.resolve_plain(resolve, raw["color"], raw["linear_depth"], hist, hist_depth)
 
-    taa_t = {"kernel_ms": time_cuda(k3, KERNEL_FRAMES), "plain_ms": time_cuda(k3_plain, 3)}
+    taa_t = {"kernel_ms": time_cuda(k3, KERNEL_FRAMES),
+             "device_ms": kernel_trace(lambda: [k3(i) for i in range(KERNEL_FRAMES)],
+                                       "taa_kernel")["device_us"] / 1e3,
+             "plain_ms": time_cuda(k3_plain, 3), "instance": taa.info()}
     t_bytes = H * W * BYTES_TAA_PIXEL / PEAK_BYTES * 1e3
     t_ops = ops_time_ms(H * W * OPS_TAA_PIXEL)
     taa_t.update(bound_ms=max(t_bytes, t_ops),
@@ -2743,6 +2791,9 @@ def main(argv=None) -> int:
         f"clocks {peak['clocks_under_load']}")
 
     flagship, tex_flagship = "clouds_high/avatar", "clouds_high/texture/avatar"
+    band7 = next(x for x in cell_t["7"]["launches"] if x["kind"] != "opaque")
+    if not all(clear_launches.values()):
+        raise RuntimeError(f"the main path launched no cloud-free instance: {clear_launches}")
     log(json.dumps({"kernels": [{
         "name": "megakernel",
         "route": "cuda",
@@ -2763,6 +2814,25 @@ def main(argv=None) -> int:
         "plain_ms": timings[flagship]["plain_ms"],
         "bound_ms": bounds[flagship]["bound_ms"],
         "bound_by": bounds[flagship]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "megakernel_clear",
+        "slice": ("K1's cloud-free instance: a layer without clouds and the opaque-only pass "
+                  "(ms: cell 7's gas-giant band at 1080p, 64 steps; plain_ms: cell 7's plain "
+                  "chain; launches: phases 4c, 4d, 4e)"),
+        "route": "cuda",
+        "source": "godot_atmosphere_shader_tpu_torch/csrc/megakernel.cu",
+        "replaces": "godot_atmosphere_shader_tpu/ops/pallas/megakernel.py:171",
+        "launches": sum(clear_launches.values()),
+        "launches_by_phase": clear_launches,
+        "max_abs_err": scene_err,
+        "instance": band7["instance"],
+        "ms": band7["ms"],
+        "device_ms": band7["device_ms"],
+        "plain_ms": cell_t["7"]["plain_ms"],
+        "bound_ms": band7["bound_ms"],
+        "bound_by": band7["bound_by"],
+        "work": band7["work"],
         "library_ms": None,
     }, {
         "name": "megakernel_tex",
@@ -2834,6 +2904,8 @@ def main(argv=None) -> int:
         "max_abs_err": taa_err,
         "validity_flip_share": taa_flips,
         "flight_max_abs_err": max(flight_err.values()),
+        "instance": taa_t["instance"],
+        "device_ms": taa_t["device_ms"],
         "ms": taa_t["kernel_ms"],
         "plain_ms": taa_t["plain_ms"],
         "bound_ms": taa_t["bound_ms"],
@@ -2875,6 +2947,7 @@ def main(argv=None) -> int:
         "launches": band_k3,
         "max_abs_err": taa_band["max_abs_err"],
         "flight_max_abs_err": shard_flight_err,
+        "device_ms": taa_band["device_ms"],
         "ms": taa_band["ms"],
         "plain_ms": taa_band["plain_ms"],
         "bound_ms": taa_band["bound_ms"],

@@ -1,44 +1,69 @@
-"""Two builds of the procedural and texture megakernels (``megakernel_gen``,
-``megakernel_tex``) on one card, in turns.
+"""Two builds of the frame megakernel (its instances ``megakernel_gen``,
+``megakernel_tex``, ``megakernel_clear``) and of the TAA resolve
+(``taa_kernel``) on one card, in turns.
 
-    python3 compare_megakernel.py PARENT_CU
+    python3 compare_megakernel.py PARENT_MEGAKERNEL_CU [PARENT_TAA_CU]
+        [--variant NAME=DEFINE[,DEFINE...]]... [--only GROUP[,GROUP...]]
 
-Builds, all ``nvcc`` at once, the checkout's kernel library and one of
-``PARENT_CU`` (another commit's ``csrc/megakernel.cu``, copied under
-``build/compare/parent/`` with the occupancy queries ``megakernel_gen_info``
-and ``megakernel_tex_info`` appended where it has none, beside the
-checkout's other kernel sources), and each side's measurement build.  Then
-the sides run in turns, ``parent, change, change, parent``; each pass
-takes, through that side's library, on the main path's 1080p frames (the
-flagship ``clouds_high``/avatar, ``clouds_high``/interior,
-``clouds``/avatar, ``clouds_high`` at avatar and sunward with a seeded
-1024×2048 sky, JAX bench cell 5, the flagship on 2 shards, the four
-envelope frames of ``chip_smoke.py`` phase 4f; the texture instance:
-``clouds_high`` texture/avatar (JAX bench cell 6) and texture/interior, the
-everything-on frame at avatar with its sky, and the everything-on frame at
-1920×1024 on 4 shards, whose planet layer is a chained texture launch per
-shard) and on the 64×128 frames whose work counts
-``tests/test_torch_cuda.py`` holds against the parent's:
+Builds, all ``nvcc`` at once, the checkout's kernel library and one of the
+parent's sources (another commit's ``csrc/megakernel.cu`` and, when given,
+its ``csrc/taa.cu``, copied under ``build/compare/parent/`` with the
+queries ``megakernel_gen_info``, ``megakernel_tex_info``,
+``megakernel_clear_info``, ``megakernel_work_slots`` and ``taa_info``
+appended where it has none, beside the checkout's other kernel sources),
+each ``--variant`` (the checkout's sources built with those ``-D``
+defines, e.g. ``taa1=TAA_CTAS=1``), and the parent's and the change's
+measurement builds.  Then the sides run in turns, ``parent, change,
+variants..., variants reversed..., change, parent``; each pass takes,
+through that side's library:
 
-* each cloud launch's kernel ms (CUDA events) with its work counts (the
-  march's lane utilisation among them) and what its instance uses
-  (registers, stack, resident blocks per SM, shared memory; the row cache
-  or the threads per block);
-* the frame, held against the first pass's parent frame (max |Δ|, p99.9);
-* the device busy ms per frame of the three 1080p K = 8 flights
-  (``torch.profiler``).
+* group ``main``: the main path's 1080p frames (the flagship
+  ``clouds_high``/avatar, ``clouds_high``/interior, ``clouds``/avatar,
+  ``clouds_high`` at avatar and sunward with a seeded 1024×2048 sky, JAX
+  bench cell 5, the flagship on 2 shards, the four envelope frames of
+  ``chip_smoke.py`` phase 4f; the texture instance: ``clouds_high``
+  texture/avatar (JAX bench cell 6) and texture/interior, the everything-on
+  frame at avatar with its sky, and the everything-on frame at 1920×1024 on
+  4 shards, whose planet layer is a chained texture launch per shard), the
+  64×128 frames whose work counts ``tests/test_torch_cuda.py`` holds
+  against the parent's, and the device busy ms per frame of the three 1080p
+  K = 8 flights (``torch.profiler``);
+* group ``clear``: the cloud-free instance's frames, JAX bench cells 1, 2
+  and 7 (the gas giant's 64-step band at its limb pose) and the
+  everything-on frame at space with its sky (an opaque-only pass that draws
+  the sky), and cell 7 at 192×128, whose work counts
+  ``tests/test_torch_cuda.py`` holds against the parent's; cell 5 (in
+  ``main``) also runs one;
+* group ``k3``: the TAA resolve alone at 1080p on ``chip_smoke.py`` phase
+  7's inputs (the flight's second frame, rendered by the plain path, a
+  seeded history) and on one 256-row shard of 1920×1024 with its 32-row
+  halo (phase 4e's inputs), each with both clamp modes;
+
+each K1 launch's kernel ms (CUDA events) and device ms (``torch.profiler``)
+with its work counts (the march's lane utilisation among them) and what its
+instance uses (registers, stack, resident blocks per SM, shared memory; the
+row cache, the threads per block, or the blocks launched); each K3 launch's
+kernel and device ms and what the kernel uses (CTAs per tile, threads,
+registers, stack, CTAs per SM, shared memory); each frame, and each
+resolve's frame, depth and validity, held against the first pass's parent
+(max |Δ|, p99.9; the resolve bit for bit).  ``--only`` runs those groups
+alone.
 
 Each pass runs in a process of its own that loads only that side's
 library, so no two builds of one kernel share a process.  The bounds are
-``chip_smoke.py``'s, from the work counts under T2's measured ceilings.
-Each side's measurement build (``MK_STAGE_CLOCKS``) runs once more per
-frame: cycles per stage, summed over warps (zeros for an instance the
-parent does not clock).  It prints each pass as a JSON line, the
-compiler's report of each side's ``megakernel_gen`` and ``megakernel_tex``
-instances, and, last, one JSON summary per frame: both sides' times, the
-change over the parent, the bound's share and whether the work counts
-equal the parent's.  Run from the repository root on one card; it needs no
-network.
+``chip_smoke.py``'s, from the change's first pass's work counts under T2's
+measured ceilings: a parent that lacks a work slot (``od_segments``) is
+compared on the others, and its bound is the change's, since the work
+these inputs need is the same on both sides.  Each side's measurement
+build (``MK_STAGE_CLOCKS``) runs once more per frame of ``main``: cycles
+per stage, summed over warps (zeros for an instance the parent does not
+clock).  It prints each pass as a JSON line, the compiler's report of each
+side's kernels, a summary of each side's SASS (``cuobjdump``): the
+instructions and MUFU operations of the loop of ``megakernel_clear`` that
+issues the most MUFU operations (the atmosphere's steps), and, last, one
+JSON summary per frame and resolve: every side's times, the change over the
+parent, the bound's share and whether the work counts equal the parent's.
+Run from the repository root on one card; it needs no network.
 """
 
 from __future__ import annotations
@@ -61,6 +86,7 @@ import chip_smoke as cs
 ROOT = os.path.dirname(os.path.abspath(__file__))
 COMPARE_DIR = os.path.join(ROOT, "build", "compare")
 KERNEL_FRAMES = 20
+GROUPS = ("main", "clear", "k3")
 # the occupancy query for a parent whose texture instance is one 128 x 32 / G
 # thread block per tile with the 26 knots and the reduction scratch in shared
 # memory
@@ -107,12 +133,58 @@ extern "C" int megakernel_gen_info(const MegakernelParams* params, int* out) {
 '''
 
 
-REPORTED = ("megakernel_gen", "megakernel_tex")
+# the cloud-free instance's occupancy query for a parent without one (one
+# 128-thread block per row of 128 columns)
+CLEAR_INFO_SHIM = r'''
+extern "C" int megakernel_clear_info(const MegakernelParams* params, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, megakernel_clear);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, megakernel_clear, MK_TILE_COLS, 0);
+  if (err != cudaSuccess) return (int)err;
+  const int info[6] = {1, attr.numRegs, (int)attr.localSizeBytes, blocks, MK_TILE_COLS,
+                       (params->width + MK_TILE_COLS - 1) / MK_TILE_COLS * params->rows};
+  for (int i = 0; i < 6; ++i) out[i] = info[i];
+  return 0;
+}
+'''
+# the work slots of a parent that does not report them
+WORK_SLOTS_SHIM = r'''
+extern "C" int megakernel_work_slots(void) { return MK_WORK_SLOTS; }
+'''
+# the resolve's query for a parent with one block of 128 x 32 / TAA_ROWS_PER_THREAD
+# threads per tile and static shared memory alone
+TAA_INFO_SHIM = r'''
+extern "C" int taa_info(int* out) {
+  const int nt = TAA_TILE_COLS * (TAA_TILE_ROWS / TAA_ROWS_PER_THREAD);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, taa_kernel);
+  int blocks = 0, device = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, taa_kernel, nt, 0);
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const int info[7] = {1, nt, attr.numRegs, (int)attr.localSizeBytes, blocks,
+                       (int)attr.sharedSizeBytes, blocks * sms};
+  for (int i = 0; i < 7; ++i) out[i] = info[i];
+  return 0;
+}
+'''
+# a source's shims: (the query it needs, its code)
+SHIMS = {"megakernel.cu": (("megakernel_gen_info", GEN_INFO_SHIM),
+                           ("megakernel_tex_info", TEX_INFO_SHIM),
+                           ("megakernel_clear_info", CLEAR_INFO_SHIM),
+                           ("megakernel_work_slots", WORK_SLOTS_SHIM)),
+         "taa.cu": (("taa_info", TAA_INFO_SHIM),)}
+
+
+REPORTED = ("megakernel_gen", "megakernel_tex", "megakernel_clear", "taa_kernel")
 
 
 def gen_report(ptxas: str) -> dict:
-    """Registers, stack frame and spills of each ``megakernel_gen`` and
-    ``megakernel_tex`` entry in a ``-Xptxas=-v`` log, by mangled name."""
+    """Registers, stack frame and spills of each kernel of :data:`REPORTED`
+    in a ``-Xptxas=-v`` log, by mangled name."""
     out, props, entry = {}, None, None
     for line in ptxas.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -132,38 +204,92 @@ def gen_report(ptxas: str) -> dict:
     return out
 
 
-def build_sides(parent_cu: str) -> tuple:
+def parent_copy(path: str, name: str, parent_dir: str) -> str:
+    """A parent's source copied into ``parent_dir`` as ``name`` (the
+    checkout's source it stands for) with the shims of the queries it lacks
+    appended (:data:`SHIMS`); returns the copy's path."""
+    with open(path) as f:
+        source = f.read()
+    for query, shim in SHIMS.get(name, ()):
+        if query not in source:
+            source += shim
+    copy = os.path.join(parent_dir, name)
+    with open(copy, "w") as f:
+        f.write(source)
+    return copy
+
+
+def build_sides(parent_cu: str, parent_taa=None, variants=()) -> tuple:
     """The libraries of all the kernel sources: the parent's (its
-    ``megakernel.cu``, with the occupancy queries appended where it has
-    none, beside the checkout's other sources), the checkout's (the
-    package's own build) and each one's measurement build.  All ``nvcc`` at
-    once.  Returns ``({side: path}, {side: compiler report})``."""
+    ``megakernel.cu`` and, where given, its ``taa.cu``, each with the
+    queries it lacks appended, beside the checkout's other sources), the
+    checkout's (the package's own build), each variant's (the checkout's
+    sources with its defines) and the parent's and the change's measurement
+    builds.  All ``nvcc`` at once.  Returns ``({side: path}, {side:
+    compiler report})``."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import library
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     parent_dir = os.path.join(COMPARE_DIR, "parent")
     os.makedirs(parent_dir)
-    with open(parent_cu) as f:
-        source = f.read()
-    if "megakernel_gen_info" not in source:
-        source += GEN_INFO_SHIM
-    if "megakernel_tex_info" not in source:
-        source += TEX_INFO_SHIM
-    copy = os.path.join(parent_dir, "megakernel.cu")
-    with open(copy, "w") as f:
-        f.write(source)
-    others = tuple(s for s in library.SOURCES if s != mk.SOURCE)
+    copies = {name: parent_copy(path, name, parent_dir)
+              for name, path in (("megakernel.cu", parent_cu), ("taa.cu", parent_taa)) if path}
+    parent_sources = tuple(copies.get(os.path.basename(s), s) for s in library.SOURCES)
     jobs = {"change": dict(ptxas_info=True),
-            "parent": dict(build_dir=parent_dir, sources=(copy, *others), ptxas_info=True),
+            "parent": dict(build_dir=parent_dir, sources=parent_sources, ptxas_info=True),
             "change/stages": dict(build_dir=os.path.join(COMPARE_DIR, "stages"),
                                   defines=mk.MEASURE_DEFINES),
             "parent/stages": dict(build_dir=os.path.join(COMPARE_DIR, "parent-stages"),
-                                  sources=(copy, *others), defines=mk.MEASURE_DEFINES)}
+                                  sources=parent_sources, defines=mk.MEASURE_DEFINES)}
+    for name, defines in variants:
+        jobs[name] = dict(build_dir=os.path.join(COMPARE_DIR, f"variant-{name}"),
+                          defines=defines, ptxas_info=True)
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {k: pool.submit(library.build, **kw) for k, kw in jobs.items()}
         built = {k: f.result() for k, f in futures.items()}
     return ({k: v[0] for k, v in built.items()},
             {k: gen_report(v[1]) for k, v in built.items() if v[1]})
+
+
+def sass_summary(lib: str, kernel: str = "megakernel_clear") -> dict:
+    """The SASS of ``kernel`` in the library ``lib`` (``cuobjdump -sass``):
+    its instructions and MUFU operations, and those of its loop (a branch
+    back to an earlier offset) that holds the most MUFU operations, by
+    kind."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([cuobjdump, "-sass", lib], check=True, capture_output=True,
+                          text=True).stdout
+    code, inside = [], False
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            inside = kernel in m.group(1)
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if inside and m:
+            code.append((int(m.group(1), 16), m.group(2)))
+
+    def mufu(rows):
+        kinds = {}
+        for _, ins in rows:
+            m = re.search(r"MUFU\.(\w+)", ins)
+            if m:
+                kinds[m.group(1)] = kinds.get(m.group(1), 0) + 1
+        return kinds
+
+    best = None
+    for at, ins in code:
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", ins)
+        if m and int(m.group(1), 16) < at:
+            body = [(o, i) for o, i in code if int(m.group(1), 16) <= o <= at]
+            n = sum(mufu(body).values())
+            if best is None or n > best[0]:
+                best = (n, body)
+    out = {"kernel": kernel, "instructions": len(code), "mufu": mufu(code)}
+    if best is not None:
+        out.update(loop_instructions=len(best[1]), loop_mufu=mufu(best[1]),
+                   loop_calls=sum("CALL" in i for _, i in best[1]))
+    return out
 
 
 class Case:
@@ -189,9 +315,13 @@ class Case:
         return np.concatenate([np.concatenate([c.cpu().numpy(), a.cpu().numpy()[..., None]], -1)
                                for c, a, _ in planes], axis=0)
 
+    def timed(self):
+        """The launches timed: every instance's, cloud layers and
+        cloud-free ones alike."""
+        return list(range(len(self.launches)))
+
     def clouds(self):
-        """The launches of the two instances compared: every procedural or
-        texture cloud layer."""
+        """The cloud launches: every procedural or texture cloud layer."""
         return [i for i, (_, st, _, _, _) in enumerate(self.launches)
                 if st.clouds_enabled and st.with_atmosphere]
 
@@ -238,13 +368,34 @@ def shard_case(label, scene, cam, h, w, n, device) -> Case:
 #: and the texture frame
 SMALL_CASES = (("clouds_high", "avatar"), ("clouds_high", "exterior"))
 SMALL_SIZE = (64, 128)
+#: the gas giant's band at the size whose work counts ``tests/test_torch_cuda.py``
+#: holds against the parent's
+GAS_GIANT_SMALL = (192, 128)
 
 
-def cases(device, textures) -> list:
-    """The frames compared."""
+def cases(device, textures, groups=GROUPS) -> list:
+    """The frames compared, of ``groups``."""
     H, W = cs.FULL_SIZE
     pano = cs.synthetic_panorama(*cs.PANO_SIZE)
     out = []
+    if "clear" in groups:
+        for cell, kind, pose, ch, cw in cs.BENCH_CELLS:
+            if cell == "5":
+                continue
+            scene, cam = cs.build_scene(kind, device), cs.scene_camera(kind, pose, device)
+            scene.update(0.5, cam)
+            out.append(plan_case(f"cell {cell}", scene, cam, ch, cw, device))
+        allon = cs.with_panorama(cs.build_scene("allon", device, textures), pano)
+        cam = cs.scene_camera("allon", "space", device)
+        allon.update(0.25, cam)
+        out.append(plan_case("everything-on/space with the sky", allon, cam, H, W, device))
+        scene, cam = cs.build_scene("gas_giant", device), cs.scene_camera("gas_giant", "limb",
+                                                                          device)
+        scene.update(0.5, cam)
+        out.append(plan_case(f"cell 7 {GAS_GIANT_SMALL[0]}x{GAS_GIANT_SMALL[1]}", scene, cam,
+                             *GAS_GIANT_SMALL, device))
+    if "main" not in groups:
+        return out
     for variant, pose in SMALL_CASES:
         scene, cam = cs.scene_and_camera(variant, pose, device)
         out.append(plan_case(f"{variant}/{pose} {SMALL_SIZE[0]}x{SMALL_SIZE[1]}", scene, cam,
@@ -303,8 +454,88 @@ def flights(device, textures) -> dict:
     return out
 
 
+def resolves(device) -> dict:
+    """The TAA resolve's cases: ``{label: (launch struct, (cur, linear depth,
+    history, history depth))}``, at 1080p on phase 7's inputs (the flight's
+    second frame, rendered by the plain path; a history seeded on the
+    host) and on the second of 4 shards of 1920×1024 with a 32-row halo on
+    phase 4e's inputs, each with both clamp modes."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import taa
+    from godot_atmosphere_shader_tpu_torch.utils.camera import Camera
+
+    H, W = cs.FULL_SIZE
+    stack = cs.fly_path(cs.FLIGHT_FRAMES)
+    scene, _ = cs.scene_and_camera("clouds_high", "avatar", device)
+    cam = Camera.create(stack[0], device=device)
+    scene.update(0.5, cam)
+    inputs, _ = cs.frame_inputs(scene, cam)
+    raw = mk.render_frame_plain(inputs[0], inputs[1], cam, inputs[3], H, W)
+    g = torch.Generator().manual_seed(7)
+    hist = torch.rand((H, W, 3), generator=g).to(device)
+    planes = (raw["color"].contiguous(), raw["linear_depth"].contiguous(), hist,
+              raw["linear_depth"].clone())
+    SH, SW = cs.SHARD_SIZE
+    rows, halo = SH // cs.SHARDS, cs.TAA_HALO
+    case = next(c for c in cs.TAA_CASES if c[0] == "partial_tile")
+    _, prev, now, blend, _ = case
+    color, ld, hst, hd = cs.taa_case_inputs(case, SH, SW, device)
+    z = lambda t: torch.zeros((halo,) + tuple(t.shape[1:]), device=device)  # noqa: E731
+    hp, dp = torch.cat([z(hst), hst, z(hst)]), torch.cat([z(hd), hd, z(hd)])
+    r0 = rows
+    band = (color[r0:r0 + rows], ld[r0:r0 + rows], hp[r0:r0 + rows + 2 * halo],
+            dp[r0:r0 + rows + 2 * halo])
+    cams = (Camera.create(prev, device="cpu"), Camera.create(now, device="cpu"))
+    out = {}
+    for mode in taa.CLAMP_MODES:
+        settings = taa.TaaSettings(blend=cs.FLIGHT_BLEND, clamp_mode=mode)
+        out[f"K3 1080p {mode}"] = (taa.flight_constants(cam, stack, settings, H, W)[1], planes)
+        out[f"K3 {rows}-row shard of {SH}x{SW} {mode}"] = (
+            taa.taa_constants(*cams, blend, SH, SW, rows + 2 * halo, clamp_mode=mode, rows=rows,
+                              row0=r0, hist_row0=r0 - halo), band)
+    return out
+
+
+def resolve_pass(all_resolves: dict, ref_dir: str) -> dict:
+    """Each resolve through this process's library: its events and device
+    ms per launch, what the kernel uses, and its frame, depth and validity
+    against the reference in ``ref_dir`` (written by the first pass)."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import taa
+
+    out = {}
+    for n, (label, (p, planes)) in enumerate(all_resolves.items()):
+        res = torch.empty_like(planes[0])
+        depth = torch.empty_like(planes[1])
+        valid = torch.empty(planes[1].shape, dtype=torch.uint8, device=res.device)
+        taa.launch(p, *planes, res, depth, valid)
+        torch.cuda.synchronize()
+        got = {"frame": res.cpu().numpy(), "depth": depth.cpu().numpy(),
+               "valid": valid.cpu().numpy()}
+        equal = {}
+        for k, v in got.items():
+            ref_path = os.path.join(ref_dir, f"k3-{n}-{k}.npy")
+            if not os.path.exists(ref_path):
+                np.save(ref_path, v)
+            equal[k] = bool(np.array_equal(v, np.load(ref_path)))
+        ms = cs.time_cuda(lambda i: taa.launch(p, *planes, res, depth), KERNEL_FRAMES)
+        trace = cs.kernel_trace(lambda: [taa.launch(p, *planes, res, depth)
+                                         for _ in range(KERNEL_FRAMES)], "taa_kernel")
+        px = p.rows * p.width
+        halo_rows = p.hist_rows - p.rows
+        t_bytes = (px * cs.BYTES_TAA_PIXEL + halo_rows * p.width * 16) / cs.PEAK_BYTES * 1e3
+        t_ops = cs.ops_time_ms(px * cs.OPS_TAA_PIXEL)
+        out[label] = {"ms": ms, "device_ms": trace["device_us"] / 1e3,
+                      "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                      "equal_to_reference": equal, "instance": taa.info()}
+    return out
+
+
 def bound(case: Case, i: int, work: dict) -> dict:
-    """The launch's roofline bound as ``chip_smoke.py`` takes it."""
+    """The launch's roofline bound as ``chip_smoke.py`` takes it; none for
+    work counts without every slot the bound reads (a parent's)."""
+    if "od_segments" not in work:
+        return {"bound_ms": None, "bound_by": None}
     kind, st, args, _, shard = case.launches[i]
     if shard:
         per_px = cs.BYTES_CHAINED_PIXEL if st.with_background else cs.BYTES_BAND_PIXEL
@@ -327,28 +558,34 @@ def instance(st, args) -> dict:
     """What the instance that launches ``st`` uses on this card."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
+    if not (st.clouds_enabled and st.with_atmosphere):
+        return {"instance": "clear", **mk.clear_info(st)}
     if args["tex"] is None:
         return {"instance": "gen", **mk.gen_info(st)}
     return {"instance": "tex", **mk.tex_info(st, args["tex"][0])}
 
 
 def one_pass(all_cases: list, all_flights: dict, ref_dir: str) -> dict:
-    """Every case and flight through this process's library: each cloud
-    launch's ms, work counts, instance and bound; the frame against the
-    reference frames in ``ref_dir`` (written by the first pass); each
-    flight's device busy ms per frame."""
+    """Every case and flight through this process's library: each
+    launch's events and device ms, work counts, instance and bound; the
+    frame against the reference frames in ``ref_dir`` (written by the first
+    pass); each flight's device busy ms per frame."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     out = {}
     for n, case in enumerate(all_cases):
         case.run_all()  # the planes the chained launches read
         rows = []
-        for i in case.clouds():
+        for i in case.timed():
             _, st, args, planes, _ = case.launches[i]
             ms = cs.time_cuda(lambda k, st=st, args=args, planes=planes: mk.launch(
                 st, planes[0], planes[1], depth=planes[2], **args), KERNEL_FRAMES)
+            trace = cs.kernel_trace(lambda st=st, args=args, planes=planes: [mk.launch(
+                st, planes[0], planes[1], depth=planes[2], **args)
+                for _ in range(KERNEL_FRAMES)], "megakernel")
             work = mk.work_counts(st, planes[0], planes[1], depth=planes[2], **args)
-            rows.append({"row0": st.row0, "rows": st.rows, "ms": ms, "work": work,
+            rows.append({"row0": st.row0, "rows": st.rows, "ms": ms,
+                         "device_ms": trace["device_us"] / 1e3, "work": work,
                          "lane_utilisation": cs.lane_utilisation(work), **instance(st, args),
                          **bound(case, i, work)})
         img = case.frame()
@@ -389,27 +626,107 @@ def stage_pass(all_cases: list) -> dict:
 
 def run_pass(args) -> int:
     """One pass in this process, through the library at ``args.library``
-    alone; its result as JSON to ``args.out``."""
+    alone; its result as JSON to ``args.out``.  A library that writes
+    fewer work slots than the checkout names (a parent's) is read with the
+    slots it writes, the first ones."""
     from godot_atmosphere_shader_tpu_torch.models.demo import bake_demo_textures
     from godot_atmosphere_shader_tpu_torch.ops.kernels import library
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     library._LIBRARY = ctypes.CDLL(args.library)  # every kernel of this process
+    slots = library._LIBRARY.megakernel_work_slots()
+    if slots > len(mk.WORK_SLOTS):
+        raise RuntimeError(f"{args.library} writes {slots} work slots, more than the checkout's")
+    mk.WORK_SLOTS = mk.WORK_SLOTS[:slots]
     cs.PEAK.update(fp32=args.peak_fp32, int32=args.peak_int32)
     device = torch.device("cuda", 0)
-    textures = bake_demo_textures(device=device)
-    all_cases = cases(device, textures)
+    groups = args.only.split(",")
+    textures = bake_demo_textures(device=device) if set(groups) - {"k3"} else None
+    all_cases = cases(device, textures, groups)
     if args.stages:
-        result = stage_pass(all_cases)
+        result = stage_pass([c for c in all_cases if c.clouds()])
     else:
-        result = one_pass(all_cases, flights(device, textures), args.reference)
+        result = one_pass(all_cases, flights(device, textures) if "main" in groups else {},
+                          args.reference)
+        if "k3" in groups:
+            result.update(resolve_pass(resolves(device), args.reference))
     with open(args.out, "w") as f:
         json.dump(result, f)
     return 0
 
 
+def variant(text: str) -> tuple:
+    """``NAME=DEFINE[,DEFINE...]`` as ``(name, defines)``."""
+    name, _, defines = text.partition("=")
+    if not name or not defines:
+        raise argparse.ArgumentTypeError(f"a variant is NAME=DEFINE[,DEFINE...], got {text!r}")
+    return name, tuple(defines.split(","))
+
+
+def summarise(runs: dict, sides: list, label: str) -> dict:
+    """One frame's or resolve's summary over every side's passes."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    first = runs["parent"][0][label]
+    if "device_busy_ms_per_frame" in first:  # a flight
+        return {side: [r[label]["device_busy_ms_per_frame"] for r in runs[side]]
+                for side in sides}
+    if "equal_to_reference" in first:  # a resolve
+        s = {"bound_ms": first["bound_ms"], "bound_by": first["bound_by"]}
+        parent_ms = min(r[label]["ms"] for r in runs["parent"])
+        parent_dev = min(r[label]["device_ms"] for r in runs["parent"])
+        for side in sides:
+            ms = [r[label]["ms"] for r in runs[side]]
+            dev = [r[label]["device_ms"] for r in runs[side]]
+            s[side] = {"ms": ms, "device_ms": dev, "best_ms": min(ms),
+                       "best_device_ms": min(dev), "vs_parent": min(ms) / parent_ms,
+                       "device_vs_parent": min(dev) / parent_dev,
+                       "bound_share_device": s["bound_ms"] / min(dev),
+                       "equal_to_parent": all(all(r[label]["equal_to_reference"].values())
+                                              for r in runs[side]),
+                       "instance": runs[side][0][label]["instance"]}
+        return s
+    # the work a bound counts (the march's lane slots differ by design), in
+    # the slots both sides write
+    counted = [k for k in mk.WORK_SLOTS if not k.startswith("march_")]
+    change = runs["change"][0][label]["launches"]
+    s = {"bound_ms": sum(x["bound_ms"] for x in change),
+         "bound_by": [x["bound_by"] for x in change]}
+    parent_ms = min(r[label]["ms"] for r in runs["parent"])
+    for side in sides:
+        ms = [r[label]["ms"] for r in runs[side]]
+        launches = runs[side][0][label]["launches"]
+        s[side] = {"ms": ms, "best_ms": min(ms), "bound_share": s["bound_ms"] / min(ms),
+                   "vs_parent": min(ms) / parent_ms,
+                   "launch_ms": [min(r[label]["launches"][i]["ms"] for r in runs[side])
+                                 for i in range(len(launches))],
+                   "launch_device_ms": [min(r[label]["launches"][i]["device_ms"]
+                                            for r in runs[side])
+                                        for i in range(len(launches))],
+                   "max_vs_parent": max(r[label]["vs_reference_max"] for r in runs[side]),
+                   "work_equals_parent": all(
+                       all(a["work"][k] == b["work"][k] for k in counted
+                           if k in a["work"] and k in b["work"])
+                       for a, b in zip(launches, first["launches"])),
+                   "lane_utilisation": [x["lane_utilisation"] for x in launches],
+                   "work": [x["work"] for x in launches],
+                   "instance": [{k: x[k] for k in ("instance", *(
+                       mk.GEN_INFO if x["instance"] == "gen" else mk.TEX_INFO
+                       if x["instance"] == "tex" else mk.CLEAR_INFO))}
+                                for x in launches]}
+    return s
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("parent_cu", nargs="?", help="the parent commit's csrc/megakernel.cu")
+    ap.add_argument("parent_taa", nargs="?", help="the parent commit's csrc/taa.cu (default: "
+                    "the checkout's)")
+    ap.add_argument("--variant", type=variant, action="append", default=[],
+                    help="NAME=DEFINE[,DEFINE...]: the checkout's sources built with these "
+                         "defines, as one more side")
+    ap.add_argument("--only", default=",".join(GROUPS),
+                    help=f"comma-separated groups of cases to run, of {','.join(GROUPS)}")
     # one pass in a process of its own (the comparison starts these)
     ap.add_argument("--library", help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)
@@ -430,10 +747,15 @@ def main(argv=None) -> int:
     cs.log(card)
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
+    if set(args.only.split(",")) - set(GROUPS):
+        ap.error(f"--only takes groups of {GROUPS}")
     shutil.rmtree(COMPARE_DIR, ignore_errors=True)
-    paths, reports = build_sides(args.parent_cu)
-    cs.log(f"[compare] compiler report of megakernel_gen and megakernel_tex per side: "
+    paths, reports = build_sides(args.parent_cu, args.parent_taa, args.variant)
+    cs.log(f"[compare] compiler report of {', '.join(REPORTED)} per side: "
            f"{json.dumps(reports)}")
+    for side, path in paths.items():
+        for kernel in ("megakernel_clear", "taa_kernel"):
+            cs.log(f"[compare] SASS of {side}: {json.dumps(sass_summary(path, kernel))}")
     mk.load_library()
     peak = cs.peak_probe(device)
     cs.PEAK.update(fp32=max(peak["fp32_flops"], peak["clock_fp32_flops"]),
@@ -447,12 +769,13 @@ def main(argv=None) -> int:
         out = os.path.join(COMPARE_DIR, f"pass-{side.replace('/', '-')}.json")
         cmd = [sys.executable, os.path.abspath(__file__), "--library", lib, "--out", out,
                "--reference", ref_dir, "--peak-fp32", repr(cs.PEAK["fp32"]),
-               "--peak-int32", repr(cs.PEAK["int32"])] + (["--stages"] if stages else [])
+               "--peak-int32", repr(cs.PEAK["int32"]), "--only", args.only]
+        cmd += ["--stages"] if stages else []
         subprocess.run(cmd, check=True)
         with open(out) as f:
             return json.load(f)
 
-    sides = ["parent", "change"]
+    sides = ["parent", "change", *(name for name, _ in args.variant)]
     runs = {s: [] for s in sides}
     for side in sides + sides[::-1]:  # the first pass writes the reference frames
         result = start(side, paths[side])
@@ -460,40 +783,12 @@ def main(argv=None) -> int:
         cs.log(f"[compare] pass {side} on {card}: {json.dumps(result)}")
         cs.log(f"[compare] after the pass: "
                f"{cs.smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
-    for side in sides:
-        cs.log(f"[compare] stages {side} on {card}: "
-               f"{json.dumps(start(f'{side}-stages', paths[f'{side}/stages'], stages=True))}")
-
-    # the work a bound counts (the march's lane slots differ by design)
-    counted = [k for k in mk.WORK_SLOTS if not k.startswith("march_")]
-    labels = list(runs["parent"][0])
-    summary = {}
-    for label in labels:
-        first = runs["parent"][0][label]
-        if "launches" not in first:  # a flight
-            summary[label] = {side: [r[label]["device_busy_ms_per_frame"] for r in runs[side]]
-                              for side in sides}
-            continue
-        parent_ms = min(r[label]["ms"] for r in runs["parent"])
-        s = {"bound_ms": sum(x["bound_ms"] for x in first["launches"]),
-             "bound_by": [x["bound_by"] for x in first["launches"]]}
-        for side in sides:
-            ms = [r[label]["ms"] for r in runs[side]]
-            launches = runs[side][0][label]["launches"]
-            s[side] = {"ms": ms, "best_ms": min(ms), "bound_share": s["bound_ms"] / min(ms),
-                       "vs_parent": min(ms) / parent_ms,
-                       "max_vs_parent": max(r[label]["vs_reference_max"] for r in runs[side]),
-                       "work_equals_parent": all(
-                           all(a["work"][k] == b["work"][k] for k in counted)
-                           for a, b in zip(launches, first["launches"])),
-                       "lane_utilisation": [x["lane_utilisation"] for x in launches],
-                       "work": [x["work"] for x in launches],
-                       "instance": [{k: x[k] for k in ("instance", *(
-                           mk.GEN_INFO if x["instance"] == "gen" else mk.TEX_INFO))}
-                                    for x in launches]}
-        summary[label] = s
-    for label, s in summary.items():
-        cs.log(f"[compare] {label} on {card}: {json.dumps(s)}")
+    if "main" in args.only.split(","):
+        for side in ("parent", "change"):
+            cs.log(f"[compare] stages {side} on {card}: "
+                   f"{json.dumps(start(f'{side}-stages', paths[f'{side}/stages'], stages=True))}")
+    for label in runs["parent"][0]:
+        cs.log(f"[compare] {label} on {card}: {json.dumps(summarise(runs, sides, label))}")
     cs.log(card)
     return 0
 

@@ -87,6 +87,27 @@
 // and so is raymarched lighting (a 6-step sun march per cloud step, kept
 // rolled).
 //
+// The cloud-free instance (megakernel_clear: a layer without clouds, and
+// the opaque-only pass): one thread per pixel in blocks of 128 columns.
+// What bounds it on an H100: instruction issue in atmosphere_v2's steps
+// (each step's sun optical depth is a chord with three square roots and a
+// division, and 8 Gauss-Legendre nodes per smooth segment, each a
+// correctly rounded square root with its range check: a step with both
+// segments is 622 instructions, 19 MUFU.RSQ among them, in cuobjdump's
+// listing; the gas giant runs 64 steps).  What the design does about it:
+// optical_depth_analytic evaluates only the chord's non-empty smooth
+// segment where the sun ray does not cross the ground ahead of the sample
+// (almost every sample: the plain version integrates the empty one to an
+// exact +0), which keeps the frame bit for bit; the work slot od_segments
+// counts the segments evaluated, for the bound.  On an H100 at 700 W the gas
+// giant's 576-row band at 1080p takes 0.289 ms against 0.429 before (23 % of
+// its 0.066 ms bound), and the shared atmosphere speeds the texture frames
+// by 8-10 % and the procedural ones by 3-6 % (PERF.md; compare_megakernel.py).
+// Blocks of 2 or 4 rows (MK_CLEAR_ROWS) and registers capped for 10 or 12
+// blocks per SM (MK_CLEAR_MIN_BLOCKS) were measured and are slower; the
+// step loop is issue-bound, so splitting a pixel's steps across lanes has
+// nothing to hide.
+//
 // The procedural instance (megakernel_gen<C>, K1 slice (h)) takes every
 // procedural config the TPU kernel renders (its body is the shared XLA
 // shading code, so _check_config, megakernel.py:468-496, is the envelope):
@@ -132,16 +153,18 @@
 // minus the noise, each coverage group's 26 knots sampled from the
 // L2-resident pyramids in batches whose level and mode come from the whole
 // 32 x 128 tile.  What bounds it on an H100: the coarse pass (the opaque
-// pass and the per-pixel atmosphere, v2: 8 steps of 2 x 8 quadrature nodes,
-// IEEE sqrtf and expf) and the march, 0.39 and 0.37 of its warp-cycles at
+// pass and the per-pixel atmosphere, v2: 8 steps of one or two segments of 8
+// quadrature nodes, IEEE sqrtf and expf) and the march, 0.39 and 0.37 of its
+// warp-cycles at
 // the avatar pose (G = 4), the knots with their ten barriers 0.21
 // (cycles per stage from the measurement build).  One CTA per tile keeps a
 // batch's choice inside the block.  Its registers are sized for 1024
 // resident threads per SM (MK_TEX_SM_THREADS, 64 registers): one tile of
 // 1024 threads per SM at G = 4 and two of 512 at G = 8, where 93 registers
-// had held one (on an H100 at 700 W the interior pose's 1080p frame takes
-// 0.587 ms, 0.681 before; the avatar pose's, the same code, 0.664 against
-// a 0.156 ms bound; compare_megakernel.py, PERF.md).  Its per-row arrays
+// had held one (on an H100 at 700 W the interior pose's 1080p frame took
+// 0.587 ms, 0.681 before, and 0.526 with the empty segments skipped; the
+// avatar pose's 0.603, 0.664 before the skip, against a 0.136 ms bound;
+// compare_megakernel.py, PERF.md).  Its per-row arrays
 // stay in a 688 B stack: a redesign that held a thread's state in two
 // bitmasks and shared memory (72 B), with two barriers per tile in place
 // of ten, each coverage knot's (fu, v) computed once and the atmosphere
@@ -223,7 +246,10 @@ constexpr int MK_SKY_CHOICE_RAYS = MK_TILE_ROWS / MK_SKY_CHOICE_THREADS_Y;
 // steps (their ratio over 32 is the march's lane utilisation)
 #define MK_WORK_MARCH_WARP_STEPS 18
 #define MK_WORK_MARCH_LANE_STEPS 19
-#define MK_WORK_SLOTS 20
+// the quadrature segments of the v2 sun optical depth that were evaluated
+// (optical_depth_analytic skips an empty one)
+#define MK_WORK_OD_SEGMENTS 20
+#define MK_WORK_SLOTS 21
 // The measurement build (-DMK_STAGE_CLOCKS) adds the procedural instance's
 // cycles per stage, summed over warps, after the work slots
 // (megakernel.py STAGE_SLOTS); the normal build never writes them.
@@ -867,7 +893,20 @@ __device__ float od_segment(const MegakernelParams& p, float a0, float a1, float
   return acc * seg * p.density2;
 }
 
-__device__ float optical_depth_analytic(const MegakernelParams& p, V3 pos, V3 dir) {
+// The sun's optical depth from pos along dir; segs counts the quadrature
+// segments evaluated.  The chord [s, e] through the shell splits at the
+// ground crossings [g0, g1] into two smooth segments, [s, g0] and [g1, e],
+// and the span below the ground.  Unless the sun ray crosses the ground
+// ahead of the sample, g0 = g1 and one smooth segment is empty (g0 = g1 = e
+// where the line misses the ground, = s where the ground lies behind the
+// sample): the plain version integrates it to an exact +0 (seg = 0), and
+// adds it and the span below, an exact +0 too.  Here such a chord evaluates
+// only its non-empty segment, whose value is the plain sum's bit for bit:
+// every rounding of a sum with two exact zero terms, fused or not, is the
+// rounding of the third.  A chord through the ground keeps the plain
+// expression whole.
+__device__ float optical_depth_analytic(const MegakernelParams& p, V3 pos, V3 dir,
+                                        unsigned& segs) {
   V3 rel = sub(pos, load3(p.planet_center));
   float r = sqrtf(rel.x * rel.x + rel.y * rel.y + rel.z * rel.z);
   float r_cl = fminf(fmaxf(r, p.planet_radius), p.atmosphere_radius);
@@ -888,19 +927,26 @@ __device__ float optical_depth_analytic(const MegakernelParams& p, V3 pos, V3 di
   float g1 = ground_hit ? -b + sq_g : e;
   g0 = fminf(fmaxf(g0, s), e);
   g1 = fminf(fmaxf(g1, s), e);
+  const bool near = s < g0, far = g1 < e;
+  if (g0 == g1 && !(near && far)) {
+    segs += (unsigned)near + (unsigned)far;
+    return near || far ? od_segment(p, near ? s : g1, near ? g0 : e, b, q2) : 0.0f;
+  }
+  segs += 2;
   float below = (g1 - g0) * p.density2;
   return od_segment(p, s, g0, b, q2) + od_segment(p, g1, e, b, q2) + below;
 }
 
+// segs: the sun depth's quadrature segments evaluated, added to
 __device__ void atmosphere_v2(const MegakernelParams& p, V3 ro, V3 rd, float t_begin,
-                              float t_end, float jitter, float out[4]) {
+                              float t_end, float jitter, float out[4], unsigned& segs) {
   V3 pc = load3(p.planet_center);
   V3 sun = load3(p.sun_dir);
   float step_len = (t_end - t_begin) / (float)p.atmosphere_steps;
   V3 pos = add(ro, mul(rd, t_begin));
   float tr = 0.0f, tg = 0.0f, tb = 0.0f, view_od = 0.0f, alpha = 0.0f;
   for (int i = 0; i < p.atmosphere_steps; ++i) {
-    float sun_od = optical_depth_analytic(p, pos, sun);
+    float sun_od = optical_depth_analytic(p, pos, sun, segs);
     V3 rel = sub(pos, pc);
     float height = sqrtf(rel.x * rel.x + rel.y * rel.y + rel.z * rel.z);
     float local_density = atmo_density(p, height) * p.density;
@@ -1462,7 +1508,8 @@ struct Pixel {
 __device__ __forceinline__ void shade_pixel(const MegakernelParams& p, const float* blue, int x,
                                             int y, bool shade, const float* color, float* depth,
                                             const Sky& sky, bool count, unsigned& n_atmo,
-                                            unsigned& n_v1, unsigned& n_sky, Pixel& px) {
+                                            unsigned& n_v1, unsigned& n_sky, unsigned& n_seg,
+                                            Pixel& px) {
   const V3 ro = load3(p.cam_pos);
   const V3 pc = load3(p.planet_center);
   const V3 rd = pixel_dir(p, x, y);
@@ -1508,8 +1555,12 @@ __device__ __forceinline__ void shade_pixel(const MegakernelParams& p, const flo
         atmosphere_v1(p, ro, rd, t_begin, t_end, px.atm);
         if (count && in_rows) ++n_v1;
       } else {
-        atmosphere_v2(p, ro, rd, t_begin, t_end, px.jitter, px.atm);
-        if (count && in_rows) ++n_atmo;
+        unsigned segs = 0;
+        atmosphere_v2(p, ro, rd, t_begin, t_end, px.jitter, px.atm, segs);
+        if (count && in_rows) {
+          ++n_atmo;
+          n_seg += segs;
+        }
       }
     }
   }
@@ -1522,11 +1573,11 @@ __device__ __forceinline__ void shade_rows(const MegakernelParams& p, const floa
                                            int y0, int G, int L, RowPix<N>& s, CoarseIn<NC>& ci,
                                            const float* color, float* depth, const Sky& sky,
                                            unsigned long long* work, unsigned& n_atmo,
-                                           unsigned& n_v1, unsigned& n_sky) {
+                                           unsigned& n_v1, unsigned& n_sky, unsigned& n_seg) {
   for (int r = 0; r < G; ++r) {
     Pixel px;
     shade_pixel(p, blue, x, y0 + r, true, color, depth, sky, work != nullptr, n_atmo, n_v1, n_sky,
-                px);
+                n_seg, px);
     s.bg[r] = px.bg;
     s.hit[r] = px.hit;
     if (px.hit) {
@@ -1697,37 +1748,42 @@ __device__ __forceinline__ V3 group_knot_pos(const V3& rom, V3 rk, float t0k, fl
 }
 
 // ---------------------------------------------------------------------------
-// The cloud-free frame kernel: one thread per column and row, for a layer
-// without clouds and for the opaque-only pass.
+// The cloud-free frame kernel: one thread per pixel, for a layer without
+// clouds and for the opaque-only pass; a block is 128 columns of
+// MK_CLEAR_ROWS rows.
 
-__global__ void __launch_bounds__(128) megakernel_clear(const MegakernelParams p,
-                                                        const TexParams sky_t,
-                                                        const float* __restrict__ blue,
-                                                        const float* __restrict__ sky_r,
-                                                        const float* __restrict__ sky_g,
-                                                        const float* __restrict__ sky_b,
-                                                        const int* __restrict__ sky_choices,
-                                                        float* __restrict__ color,
-                                                        float* __restrict__ alpha_out,
-                                                        float* __restrict__ depth,
-                                                        unsigned long long* work) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = p.row0 + blockIdx.y;
-  const bool live = x < p.width;
+#ifndef MK_CLEAR_ROWS
+#define MK_CLEAR_ROWS 1
+#endif
+#ifndef MK_CLEAR_MIN_BLOCKS
+#define MK_CLEAR_MIN_BLOCKS 1
+#endif
 
-  // the sky's choice for the block's tile, as sky_choice_kernel wrote it
+__global__ void __launch_bounds__(MK_TILE_COLS * MK_CLEAR_ROWS, MK_CLEAR_MIN_BLOCKS)
+    megakernel_clear(const MegakernelParams p, const TexParams sky_t,
+                     const float* __restrict__ blue, const float* __restrict__ sky_r,
+                     const float* __restrict__ sky_g, const float* __restrict__ sky_b,
+                     const int* __restrict__ sky_choices, float* __restrict__ color,
+                     float* __restrict__ alpha_out, float* __restrict__ depth,
+                     unsigned long long* work) {
+  const int x = blockIdx.x * MK_TILE_COLS + threadIdx.x;
+  const int row = blockIdx.y * MK_CLEAR_ROWS + threadIdx.y;  // the launch's row
+  const int y = p.row0 + row;
+  const bool live = x < p.width && row < p.rows;
+
+  // the sky's choice for the pixel's tile, as sky_choice_kernel wrote it
   Sky sky{sky_t, sky_r, sky_g, sky_b, TexChoice{MK_WINDOWED, 0}};
-  if (p.with_sky) {
-    const int tile = blockIdx.y / MK_TILE_ROWS * gridDim.x + blockIdx.x;
+  if (p.with_sky && live) {
+    const int tile = row / MK_TILE_ROWS * gridDim.x + blockIdx.x;
     sky.ch = TexChoice{__ldg(sky_choices + 2 * tile), __ldg(sky_choices + 2 * tile + 1)};
   }
-  unsigned n_atmo = 0, n_v1 = 0, n_sky = 0;
+  unsigned n_atmo = 0, n_v1 = 0, n_sky = 0, n_seg = 0;
   if (live) {
     RowPix<1> s;
     CoarseIn<1> ci;
     const bool no_clouds = false;
     const float none = 0.0f;
-    shade_rows(p, blue, x, y, 1, 1, s, ci, color, depth, sky, work, n_atmo, n_v1, n_sky);
+    shade_rows(p, blue, x, y, 1, 1, s, ci, color, depth, sky, work, n_atmo, n_v1, n_sky, n_seg);
     blend_and_store(p, x, y, 1, 1, s, &no_clouds, &none, &none, color, alpha_out);
   }
   if (work) {
@@ -1736,6 +1792,7 @@ __global__ void __launch_bounds__(128) megakernel_clear(const MegakernelParams p
     count_work(work, MK_WORK_V1_ATMOSPHERE, n_v1);
     count_work(work, MK_WORK_SKY, sky.ch.mode == MK_FLOOR ? 0 : n_sky);
     count_work(work, MK_WORK_SKY_FLOOR, sky.ch.mode == MK_FLOOR ? n_sky : 0);
+    count_work(work, MK_WORK_OD_SEGMENTS, n_seg);
   }
 }
 
@@ -1805,7 +1862,7 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
     const int tile = (blockIdx.y * G) / MK_TILE_ROWS * gridDim.x + blockIdx.x;
     sky.ch = TexChoice{__ldg(sky_choices + 2 * tile), __ldg(sky_choices + 2 * tile + 1)};
   }
-  unsigned n_atmo = 0, n_v1 = 0, n_groups = 0, n_march = 0, n_sun = 0, n_sky = 0;
+  unsigned n_atmo = 0, n_v1 = 0, n_groups = 0, n_march = 0, n_sun = 0, n_sky = 0, n_seg = 0;
   unsigned n_shape_knots = 0, n_detail_knots = 0;
   FieldWork fw{0u, 0u, 0u};
   StageClock clk;
@@ -1825,7 +1882,7 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
         const bool shade = row_cache && r < n_rows;  // a partial last group's other rows
         Pixel px;                                     // only enter its coarse inputs
         shade_pixel(p, blue, x, y0 + r, shade, color, depth, sky, work != nullptr, n_atmo, n_v1,
-                    n_sky, px);
+                    n_sky, n_seg, px);
         if (shade) {
           if (!p.with_background) {  // a chained layer's background is in color already
             const size_t o = (size_t)(y0 + r) * p.width + x;
@@ -1954,7 +2011,7 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
       } else {
         Pixel px;
         shade_pixel(p, blue, x, y0 + r, true, color, depth, sky, work != nullptr, n_atmo, n_v1,
-                    n_sky, px);
+                    n_sky, n_seg, px);
         s.bg[0] = px.bg;
         s.hit[0] = px.hit;
         if (px.hit) {
@@ -1983,6 +2040,7 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
     count_work(work, MK_WORK_DETAIL_EVALS, fw.detail);
     count_work(work, MK_WORK_SHAPE_KNOTS, n_shape_knots);
     count_work(work, MK_WORK_DETAIL_KNOTS, n_detail_knots);
+    count_work(work, MK_WORK_OD_SEGMENTS, n_seg);
     // the warp issues march k where any lane marches it
     const unsigned issued = __popc(__reduce_or_sync(0xffffffffu, marches));
     count_work(work, MK_WORK_MARCH_WARP_STEPS,
@@ -2120,9 +2178,9 @@ __global__ void __launch_bounds__(tex_threads(G), tex_min_blocks(G))
   if (p.with_sky) sky.ch = sky_choice<G>(p, sky_t, x, y0, red);
   RowPix<MK_MAX_GROUP> s;
   CoarseIn<MK_MAX_GROUP> ci;
-  unsigned n_atmo = 0, n_v1 = 0, n_march = 0, n_sun = 0, n_sky = 0, tex_samples[2] = {0, 0},
-           cov_samples[2] = {0, 0};
-  shade_rows(p, blue, x, y0, G, L, s, ci, color, depth, sky, work, n_atmo, n_v1, n_sky);
+  unsigned n_atmo = 0, n_v1 = 0, n_march = 0, n_sun = 0, n_sky = 0, n_seg = 0,
+           tex_samples[2] = {0, 0}, cov_samples[2] = {0, 0};
+  shade_rows(p, blue, x, y0, G, L, s, ci, color, depth, sky, work, n_atmo, n_v1, n_sky, n_seg);
   Coarse<MK_MAX_GROUP> c;
   coarse_rays(p, L, C, ci, c);
   clk.mark(MK_STAGE_COARSE);
@@ -2168,6 +2226,7 @@ __global__ void __launch_bounds__(tex_threads(G), tex_min_blocks(G))
     count_work(work, MK_WORK_LATLONG_FLOOR, cov_samples[1]);
     count_work(work, MK_WORK_SKY, sky.ch.mode == MK_FLOOR ? 0 : n_sky);
     count_work(work, MK_WORK_SKY_FLOOR, sky.ch.mode == MK_FLOOR ? n_sky : 0);
+    count_work(work, MK_WORK_OD_SEGMENTS, n_seg);
   }
   clk.count(work);
 }
@@ -2326,6 +2385,13 @@ static cudaError_t gen_smem_attribute(const GenLayout& gen) {
   return cudaFuncSetAttribute(gen.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, gen.smem);
 }
 
+// the cloud-free instance's grid: blocks of 128 columns and MK_CLEAR_ROWS
+// rows over the launch's rows
+static dim3 clear_grid(const MegakernelParams* p) {
+  return dim3((p->width + MK_TILE_COLS - 1) / MK_TILE_COLS,
+              (p->rows + MK_CLEAR_ROWS - 1) / MK_CLEAR_ROWS, 1);
+}
+
 extern "C" int megakernel_launch(const MegakernelParams* params, const TexParams* sky,
                                  const float* blue, const float* sky_r, const float* sky_g,
                                  const float* sky_b, const int* sky_choices, float* color,
@@ -2348,8 +2414,8 @@ extern "C" int megakernel_launch(const MegakernelParams* params, const TexParams
   cudaStream_t s = (cudaStream_t)stream;
   unsigned long long* w = (unsigned long long*)work;
   if (!clouds) {
-    megakernel_clear<<<grid, block, 0, s>>>(*params, sky_t, blue, sky_r, sky_g, sky_b, sky_choices,
-                                            color, alpha, depth, w);
+    megakernel_clear<<<clear_grid(params), dim3(MK_TILE_COLS, MK_CLEAR_ROWS, 1), 0, s>>>(
+        *params, sky_t, blue, sky_r, sky_g, sky_b, sky_choices, color, alpha, depth, w);
     return (int)cudaGetLastError();
   }
   const cudaError_t err = gen_smem_attribute(gen);
@@ -2376,6 +2442,25 @@ extern "C" int megakernel_gen_info(const MegakernelParams* params, int* out) {
   if (err != cudaSuccess) return (int)err;
   const int info[6] = {params->coverage_lod, attr.numRegs, (int)attr.localSizeBytes, blocks,
                        gen.smem, gen.row_cache};
+  for (int i = 0; i < 6; ++i) out[i] = info[i];
+  return 0;
+}
+
+// What the cloud-free instance uses, as the launcher launches it: out =
+// {rows per block, registers per thread, local memory (stack) bytes per
+// thread, resident blocks per SM, threads per block, blocks of the launch
+// for params}.
+extern "C" int megakernel_clear_info(const MegakernelParams* params, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, megakernel_clear);
+  int blocks = 0;
+  const int threads = MK_TILE_COLS * MK_CLEAR_ROWS;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, megakernel_clear, threads, 0);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid = clear_grid(params);
+  const int info[6] = {MK_CLEAR_ROWS, attr.numRegs, (int)attr.localSizeBytes, blocks, threads,
+                       (int)(grid.x * grid.y)};
   for (int i = 0; i < 6; ++i) out[i] = info[i];
   return 0;
 }
@@ -2457,6 +2542,10 @@ extern "C" int texsample_launch(const TexParams* tex, int shape, const float* ta
     texsample_kernel<false><<<n_batches, 256, 0, s>>>(*tex, table, a, b, c, batch_size, out, choice);
   return (int)cudaGetLastError();
 }
+
+// the work counter slots the instances write (MK_WORK_SLOTS), so the wrapper
+// can check its WORK_SLOTS
+extern "C" int megakernel_work_slots(void) { return MK_WORK_SLOTS; }
 
 // sizeof the launch structs, so the wrapper can check its ctypes mirror
 extern "C" int megakernel_params_size(void) { return (int)sizeof(MegakernelParams); }

@@ -127,12 +127,14 @@ TEX_RED_SLOTS = 6
 #: and per sun sample, shape and detail per step and per sun sample, and the
 #: shape and detail knots; and its march's warp-steps issued and lane-steps
 #: run (lane utilisation = lane-steps / (32 × warp-steps); no bound reads
-#: them)
+#: them).  Every instance counts the quadrature segments of the v2 sun
+#: optical depth it evaluated (``od_segments``: the kernel skips an empty
+#: one, so these inputs need fewer than two per step).
 WORK_SLOTS = ("pixels", "atmosphere", "knot_groups", "march", "tex3d",
               "tex3d_floor", "latlong", "latlong_floor", "sun_samples",
               "v1_atmosphere", "opaque_pixels", "sky", "sky_floor",
               "coverage_evals", "shape_evals", "detail_evals", "shape_knots",
-              "detail_knots", "march_warp_steps", "march_lane_steps")
+              "detail_knots", "march_warp_steps", "march_lane_steps", "od_segments")
 #: the measurement build's (``MEASURE_DEFINES``) per-stage cycles of the
 #: procedural and texture instances, summed over warps, after the work
 #: slots (``MK_STAGE_*``): the coarse pass, the knots, the march, the
@@ -143,6 +145,13 @@ MEASURE_DEFINES = ("MK_STAGE_CLOCKS",)
 GEN_INFO = ("coarse", "registers", "stack_bytes", "blocks_per_sm", "smem_bytes", "row_cache")
 #: what :func:`tex_info` reports of the texture instance
 TEX_INFO = ("group", "registers", "stack_bytes", "blocks_per_sm", "smem_bytes", "threads")
+#: the cloud-free instance ``megakernel_clear``: rows of its 128-column
+#: blocks (``MK_CLEAR_ROWS``) and the resident blocks per SM its registers
+#: are capped for (``MK_CLEAR_MIN_BLOCKS``; 1: no cap); what
+#: :func:`clear_info` reports of it
+CLEAR_ROWS = 1
+CLEAR_MIN_BLOCKS = 1
+CLEAR_INFO = ("rows", "registers", "stack_bytes", "blocks_per_sm", "threads", "blocks")
 #: atmosphere models, by their integer codes
 MODELS = {"v2": 0, "v1": 1}
 #: noise bases, fractals and cellular returns, by their integer codes
@@ -156,6 +165,7 @@ class Counters:
     """Plain integer counters: frame-kernel launches (every instance, every
     layer and the opaque-only pass; ``general_launches`` counts the
     procedural instance ``megakernel_gen`` alone, ``texture_launches`` the texture instance,
+    ``clear_launches`` the cloud-free instance ``megakernel_clear``,
     ``sky_launches`` the launches that draw the panorama sky), launches of
     the sky's per-tile choice pre-pass, of the K2-alone entry, and
     plain-path frames (one per frame, whatever its layers)."""
@@ -167,6 +177,7 @@ class Counters:
         self.megakernel_launches = 0
         self.general_launches = 0
         self.texture_launches = 0
+        self.clear_launches = 0
         self.sky_launches = 0
         self.sky_choice_launches = 0
         self.texsample_launches = 0
@@ -330,6 +341,7 @@ TEXSAMPLE_ARGTYPES = (ctypes.POINTER(TexParams), ctypes.c_int, *(ctypes.c_void_p
                       ctypes.c_int, ctypes.c_int, *(ctypes.c_void_p,) * 3)
 GEN_INFO_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.c_void_p)
 TEX_INFO_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.POINTER(TexParams), ctypes.c_void_p)
+CLEAR_INFO_ARGTYPES = GEN_INFO_ARGTYPES
 
 
 # -- binding --------------------------------------------------------------------
@@ -347,6 +359,8 @@ def bind(lib):
                            ("texsample_launch", TEXSAMPLE_ARGTYPES),
                            ("megakernel_gen_info", GEN_INFO_ARGTYPES),
                            ("megakernel_tex_info", TEX_INFO_ARGTYPES),
+                           ("megakernel_clear_info", CLEAR_INFO_ARGTYPES),
+                           ("megakernel_work_slots", ()),
                            ("megakernel_params_size", ()),
                            ("megakernel_noise_params_size", ()),
                            ("megakernel_tex_params_size", ())):
@@ -360,6 +374,9 @@ def bind(lib):
         if size != ctypes.sizeof(struct):
             raise RuntimeError(f"{struct.__name__} mirror is {ctypes.sizeof(struct)}"
                                f" bytes, the kernel's struct {size}")
+    if lib.megakernel_work_slots() != len(WORK_SLOTS):
+        raise RuntimeError(f"the kernel writes {lib.megakernel_work_slots()} work slots, "
+                           f"WORK_SLOTS names {len(WORK_SLOTS)}")
     return lib
 
 
@@ -409,6 +426,17 @@ def tex_info(struct: MegakernelParams, tparams: TexParams) -> dict:
     if rc != 0:
         raise RuntimeError(f"megakernel_tex_info failed: CUDA error {rc}")
     return dict(zip(TEX_INFO, out))
+
+
+def clear_info(struct: MegakernelParams) -> dict:
+    """What the cloud-free instance uses on this card (:data:`CLEAR_INFO`):
+    rows per block, registers, local memory (stack), resident blocks per
+    SM, threads per block, and the blocks it launches for ``struct``."""
+    out = (ctypes.c_int * len(CLEAR_INFO))()
+    rc = load_library().megakernel_clear_info(ctypes.byref(struct), out)
+    if rc != 0:
+        raise RuntimeError(f"megakernel_clear_info failed: CUDA error {rc}")
+    return dict(zip(CLEAR_INFO, out))
 
 
 # -- what the kernel takes ----------------------------------------------------
@@ -903,6 +931,8 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
         counters.general_launches += 1
     if tex is not None:
         counters.texture_launches += 1
+    if not (struct.clouds_enabled and struct.with_atmosphere):
+        counters.clear_launches += 1
     if sky is not None:
         counters.sky_launches += 1
 
@@ -1353,11 +1383,12 @@ def work_counts(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tens
                 tex=None, depth: Optional[torch.Tensor] = None, sky=None,
                 stages: bool = False) -> dict:
     """One launch with the kernel's work counters on: how many pixels,
-    atmosphere integrations (v2 and v1), knot groups, marched coarse
-    pixels, sun-march samples, texture samples (trilinear or bilinear, and
-    floor-mode nearest), opaque-only pixels and sky samples (three-channel
-    bilinear, and floor-mode nearest) this launch's inputs needed, and the
-    procedural march's warp- and lane-steps.  ``stages``: add the
+    atmosphere integrations (v2 and v1) and v2 sun-depth quadrature
+    segments, knot groups, marched coarse pixels, sun-march samples,
+    texture samples (trilinear or bilinear, and floor-mode nearest),
+    opaque-only pixels and sky samples (three-channel bilinear, and
+    floor-mode nearest) this launch's inputs needed, and the procedural
+    march's warp- and lane-steps.  ``stages``: add the
     measurement build's per-stage cycles (:data:`STAGE_SLOTS`, keys
     ``stage_<name>_cycles``; zeros from the normal build).  Counted in the
     launch counters like any launch; a chained layer composites over

@@ -26,6 +26,7 @@ and the bilinear read address the history band.  A full frame is the band
 * :func:`launch` is one kernel launch on a prepared struct into
   preallocated outputs (the flight's loop uses it).
 * :data:`counters` counts kernel launches and plain calls.
+* :func:`info` says what the kernel uses on the card (:data:`INFO`).
 
 The TPU kernel copies a 64×384 history window per tile because the TPU
 cannot gather; the window's base (a tile-wide min of the reprojected
@@ -50,6 +51,15 @@ from . import library
 WIN_ROWS = 64
 WIN_COLS = 384
 TILE_ROWS, TILE_COLS = 32, 128
+#: the kernel's layout (``TAA_*`` of ``csrc/taa.cu``): a tile is a cluster of
+#: CTAS CTAs of 128 × THREADS_Y threads, each CTA ``TILE_ROWS // CTAS`` of
+#: its rows, registers sized for MIN_BLOCKS resident CTAs per SM
+CTAS = 2
+THREADS_Y = 4
+MIN_BLOCKS = 3
+#: what :func:`info` reports
+INFO = ("ctas_per_tile", "threads", "registers", "stack_bytes", "blocks_per_sm", "smem_bytes",
+        "clusters")
 CLAMP_MODES = ("minmax", "variance")
 #: sky's linear depth is clamped here before the reprojection
 DEPTH_CLAMP = 1.0e7
@@ -85,8 +95,19 @@ class TaaParams(ctypes.Structure):
     ]
 
 
-#: ``taa_launch``'s C signature, as the ctypes binding declares it
+#: ``taa_launch``'s and ``taa_info``'s C signatures, as the ctypes binding
+#: declares them
 LAUNCHER_ARGTYPES = (ctypes.POINTER(TaaParams), *(ctypes.c_void_p,) * 8)
+INFO_ARGTYPES = (ctypes.c_void_p,)
+
+
+def smem_bytes(ctas: int = CTAS) -> int:
+    """A CTA's dynamic shared memory (``taa_smem_bytes``): its rows' current
+    rgb with the tile's row above and below them, its output rgb, and the
+    min's scratch (2 floats per warp and the CTA's 2)."""
+    rows, row_floats = TILE_ROWS // ctas, TILE_COLS * 3
+    return ((rows + 2) * row_floats + rows * row_floats + 2 * (TILE_COLS * THREADS_Y // 32)
+            + 2) * 4
 
 
 class Counters:
@@ -314,6 +335,18 @@ def _launcher():
     return _LAUNCHER
 
 
+def info() -> dict:
+    """What the kernel uses on this card (:data:`INFO`): CTAs per tile,
+    threads per CTA, registers, local memory (stack), resident CTAs per SM,
+    dynamic shared memory per CTA and resident clusters on the card."""
+    out = (ctypes.c_int * len(INFO))()
+    _launcher()
+    rc = library.function("taa_info", INFO_ARGTYPES)(out)
+    if rc != 0:
+        raise RuntimeError(f"taa_info failed: CUDA error {rc}")
+    return dict(zip(INFO, out))
+
+
 def launch(p: TaaParams, cur: torch.Tensor, linear_depth: torch.Tensor,
            history: torch.Tensor, history_depth: torch.Tensor, out: torch.Tensor,
            depth_out: torch.Tensor, valid: torch.Tensor = None):
@@ -322,7 +355,12 @@ def launch(p: TaaParams, cur: torch.Tensor, linear_depth: torch.Tensor,
     optional (H, W) uint8 plane for each pixel's validity), on the current
     stream of their device; counted in ``counters.launches``.  The caller
     guarantees contiguous float32 tensors of the struct's shapes on one
-    device, and that ``depth_out`` and ``out`` alias no input."""
+    device, and that ``depth_out`` and ``out`` alias no input.  ``cur`` and
+    ``out`` move 16 bytes at a time: a plane that is not 16-byte aligned
+    raises."""
+    if cur.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("taa launch: the current and output rgb planes must be 16-byte "
+                         "aligned")
     fn = _launcher()
     device = out.device
     with torch.cuda.device(device):

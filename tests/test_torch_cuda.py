@@ -267,10 +267,21 @@ def _taa_planes(h, w, seed, device):
     return cur, depth.contiguous().to(device), hist
 
 
+# a row shard (band mode) of a 256-row frame: 72 rows from row 64 (its last
+# tile partial), against a history band of its rows and 32 halo rows
+_TAA_BAND = dict(row0=64, rows=72, halo=32)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode,h,w", [("minmax", 64, 128), ("variance", 72, 256),
-                                      ("minmax", 96, 512)])
-def test_taa_kernel_matches_plain(cuda, mode, h, w):
+@pytest.mark.parametrize("mode,h,w,band", [("minmax", 64, 128, False),
+                                           ("variance", 72, 256, False),
+                                           ("minmax", 96, 512, False),
+                                           ("minmax", 256, 384, True),
+                                           ("variance", 256, 384, True)])
+def test_taa_kernel_matches_plain(cuda, mode, h, w, band):
+    """K3 against its plain version, on whole frames and on a band shard
+    with a partial last tile: validity flips at most 1e-4 of the pixels,
+    max |Δ| 1e-4 where validity agrees, the depth equal."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import taa
     from godot_atmosphere_shader_tpu_torch.utils.camera import Camera, look_at
 
@@ -278,7 +289,16 @@ def test_taa_kernel_matches_plain(cuda, mode, h, w):
     hd = ld * torch.where(torch.rand(ld.shape, device=cuda) < 0.1, 3.0, 1.0)
     prev = Camera.create(look_at((0.6, 0.15, 0.2), (0.5, 0.1, -10.0), device=cuda), device=cuda)
     now = Camera.create(look_at((0.0, 0.0, 0.0), (0.0, 0.0, -10.0), device=cuda), device=cuda)
-    p = taa.taa_constants(prev, now, 0.2, h, w, h, 0.2, mode, 1.25)
+    if band:
+        r0, rows, halo = _TAA_BAND["row0"], _TAA_BAND["rows"], _TAA_BAND["halo"]
+        p = taa.taa_constants(prev, now, 0.2, h, w, rows + 2 * halo, 0.2, mode, 1.25,
+                              rows=rows, row0=r0, hist_row0=r0 - halo)
+        cur, ld = cur[r0:r0 + rows].contiguous(), ld[r0:r0 + rows].contiguous()
+        hist = hist[r0 - halo:r0 + rows + halo].contiguous()
+        hd = hd[r0 - halo:r0 + rows + halo].contiguous()
+        h = rows
+    else:
+        p = taa.taa_constants(prev, now, 0.2, h, w, h, 0.2, mode, 1.25)
     out, depth = torch.empty_like(cur), torch.empty_like(ld)
     valid = torch.empty((h, w), dtype=torch.uint8, device=cuda)
     taa.counters.reset()
@@ -909,3 +929,67 @@ def test_work_counts_equal_the_parents(cuda, pose):
     work = mk.work_counts(struct, torch.empty((H, W, 3), device=cuda),
                           torch.empty((H, W), device=cuda))
     assert {k: work[k] for k in _PARENT_WORK[pose]} == _PARENT_WORK[pose]
+
+
+@pytest.mark.cuda
+def test_gas_giant_band_matches_plain(cuda):
+    """The gas giant's 64-step band at its limb pose (192×128, as in
+    ``tests/test_torch_goldens.py``) through the cloud-free instance against
+    the plain chain on the same CUDA inputs, under the golden test's budget:
+    at most 0.3 % of the pixels off (atol 1e-5, rtol 1e-4), none by more
+    than 5e-4, all on rays through the shell."""
+    from godot_atmosphere_shader_tpu_torch.models.demo import (build_gas_giant_scene,
+                                                               gas_giant_camera)
+
+    scene = build_gas_giant_scene(device=cuda)
+    cam = gas_giant_camera("limb", device=cuda)
+    scene.update(0.5, cam)
+    h, w = 192, 128
+    params, configs, tex, bands, rows = _plan(scene, cam, h)
+    assert bands is not None
+    mk.counters.reset()
+    got = _image(scene.render(cam, h, w)).numpy()
+    assert mk.counters.clear_launches == mk.counters.megakernel_launches >= 1
+    assert mk.counters.plain_calls == 0
+    ref = _image(mk.render_scene_plain(params, configs, cam, scene.opaque, h, w, tex_data=tex,
+                                       bands=bands, band_rows=rows)).numpy()
+    assert np.isfinite(got).all() and got[..., 3].max() > 0.5
+    bad = ~np.isclose(got, ref, rtol=1e-4, atol=1e-5).all(axis=-1)
+    assert bad.mean() <= 3e-3, int(bad.sum())
+    assert np.abs(got - ref).max() <= 5e-4
+    assert (ref[..., 3][bad] > 0.0).all()
+
+
+# the cloud-free instance's work counts on the gas giant's 192x128 band at
+# its limb pose, as an H100 counted them at the commit before the empty
+# quadrature segment was skipped (compare_megakernel.py); od_segments, which
+# that commit did not count, as the kernel that skips it counted them there:
+# one segment for 0.996 of the 64 steps of each of the 8,752 integrations
+_PARENT_GAS_GIANT_WORK = dict(pixels=16384, atmosphere=8752, od_segments=557958)
+
+
+@pytest.mark.cuda
+def test_gas_giant_work_counts_equal_the_parents(cuda):
+    """The cloud-free instance renders the same work on the gas giant's
+    band: its pixel and atmosphere counts, which the bound is computed from,
+    equal the previous commit's; its quadrature segments, at most two per
+    step of every integration, equal what the change counted on an H100."""
+    from godot_atmosphere_shader_tpu_torch.models.demo import (build_gas_giant_scene,
+                                                               gas_giant_camera)
+
+    scene = build_gas_giant_scene(device=cuda)
+    cam = gas_giant_camera("limb", device=cuda)
+    scene.update(0.5, cam)
+    h, w = 192, 128
+    params, configs, tex, bands, rows = _plan(scene, cam, h)
+    launches = mk.scene_launches(params, configs, cam, scene.opaque, h, w, tex_data=tex,
+                                 bands=bands, band_rows=rows)
+    color = torch.empty((h, w, 3), device=cuda)
+    alpha = torch.empty((h, w), device=cuda)
+    depth = torch.empty((h, w), device=cuda)
+    for _, struct, args in launches:
+        work = mk.work_counts(struct, color, alpha, depth=depth, **args)
+    steps = configs[0].atmosphere_steps
+    assert steps == 64 and struct.with_atmosphere and not struct.clouds_enabled
+    assert 0 < work["od_segments"] <= 2 * steps * work["atmosphere"]
+    assert {k: work[k] for k in _PARENT_GAS_GIANT_WORK} == _PARENT_GAS_GIANT_WORK

@@ -303,7 +303,8 @@ def test_cu_limits_match_wrapper():
                        "MK_WINDOWED": mk.WINDOWED, "MK_BANDED": mk.BANDED,
                        "MK_FLOOR": mk.FLOOR, **work, "MK_WORK_SLOTS": len(mk.WORK_SLOTS),
                        **stages, "MK_STAGES": len(mk.STAGE_SLOTS),
-                       "MK_SUN_STEPS": mk.SUN_STEPS}
+                       "MK_SUN_STEPS": mk.SUN_STEPS, "MK_CLEAR_ROWS": mk.CLEAR_ROWS,
+                       "MK_CLEAR_MIN_BLOCKS": mk.CLEAR_MIN_BLOCKS}
 
 
 def _cu_constexpr(name):
@@ -378,12 +379,14 @@ _CPARAM = {"int": ctypes.c_int, "const MegakernelParams*": ctypes.POINTER(mk.Meg
                                            ("megakernel_tex_launch", mk.TEX_LAUNCHER_ARGTYPES),
                                            ("texsample_launch", mk.TEXSAMPLE_ARGTYPES),
                                            ("megakernel_gen_info", mk.GEN_INFO_ARGTYPES),
-                                           ("megakernel_tex_info", mk.TEX_INFO_ARGTYPES)])
+                                           ("megakernel_tex_info", mk.TEX_INFO_ARGTYPES),
+                                           ("megakernel_clear_info", mk.CLEAR_INFO_ARGTYPES),
+                                           ("megakernel_work_slots", ())])
 def test_cu_launcher_signature_matches_argtypes(name, argtypes):
     """Each launcher's C parameters against its ctypes argtypes: structs by
     pointer, ints as c_int, every other pointer (and the stream) c_void_p."""
     sig = re.search(r'extern "C" int %s\((.*?)\)' % name, _cu_source(), re.S).group(1)
-    params = [" ".join(p.split()) for p in sig.split(",")]
+    params = [" ".join(p.split()) for p in sig.split(",")] if sig != "void" else []
     want = tuple(_CPARAM.get(p.rsplit(" ", 1)[0], ctypes.c_void_p) for p in params)
     assert argtypes == want, params
     if name == "megakernel_launch":

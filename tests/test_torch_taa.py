@@ -299,6 +299,7 @@ def test_cu_struct_matches_ctypes_mirror():
 
 @pytest.mark.parametrize("source,name,argtypes", [
     ("taa.cu", "taa_launch", taa.LAUNCHER_ARGTYPES),
+    ("taa.cu", "taa_info", taa.INFO_ARGTYPES),
     ("probes.cu", "fill_launch", None)])
 def test_cu_launcher_signature_matches_argtypes(source, name, argtypes):
     from godot_atmosphere_shader_tpu_torch.ops.kernels import probes
@@ -309,3 +310,62 @@ def test_cu_launcher_signature_matches_argtypes(source, name, argtypes):
     c = {"int": ctypes.c_int, "float": ctypes.c_float,
          "const TaaParams*": ctypes.POINTER(taa.TaaParams)}
     assert argtypes == tuple(c.get(p, ctypes.c_void_p) for p in params), params
+
+
+def _taa_terms(ctas=None):
+    """The source's ``TAA_*`` defines (``TAA_CTAS`` set to ``ctas`` where
+    given) and its ``constexpr int TAA_*`` constants evaluated from them."""
+    src = _source("taa.cu")
+    terms = {k: int(v) for k, v in re.findall(r"#define (TAA_\w+) (\d+)", src)}
+    if ctas is not None:
+        terms["TAA_CTAS"] = ctas
+    for name, expr in re.findall(r"constexpr int (TAA_\w+) = (.*?);", src):
+        terms[name] = eval(expr.replace("/", "//"), {}, terms)
+    return terms
+
+
+def test_cu_layout_matches_wrapper():
+    """The tile, the CTAs of its cluster, a CTA's threads and the resident
+    CTAs per SM its registers are sized for, as the wrapper mirrors them."""
+    defines = {k: int(v) for k, v in re.findall(r"#define (TAA_\w+) (\d+)", _source("taa.cu"))}
+    assert defines == {"TAA_TILE_ROWS": taa.TILE_ROWS, "TAA_TILE_COLS": taa.TILE_COLS,
+                       "TAA_CTAS": taa.CTAS, "TAA_THREADS_Y": taa.THREADS_Y,
+                       "TAA_MIN_BLOCKS": taa.MIN_BLOCKS}
+
+
+@pytest.mark.parametrize("ctas", [1, 2, 4])
+def test_cu_shared_memory_matches_wrapper(ctas):
+    """A CTA's dynamic shared memory (``taa_smem_bytes``, evaluated from the
+    source) equals the wrapper's ``smem_bytes`` at each cluster size the
+    source takes; a CTA is whole rows of the tile and a thread whole rows of
+    the CTA; one CTA fits the 227 KB a block may use, and at the built
+    cluster size MIN_BLOCKS of them fit an SM's 228 KB (1 KB reserved per
+    CTA)."""
+    terms = _taa_terms(ctas)
+    expr = re.search(r"constexpr int taa_smem_bytes\(\) \{\s*return (.*?);\s*\}",
+                     _source("taa.cu"), re.S).group(1)
+    smem = eval(" ".join(expr.split()).replace("(int)sizeof(float)", "4").replace("/", "//"),
+                {}, terms)
+    assert smem == taa.smem_bytes(ctas)
+    assert terms["TAA_CTA_ROWS"] * ctas == taa.TILE_ROWS
+    assert terms["TAA_ROWS_PER_THREAD"] * taa.THREADS_Y == terms["TAA_CTA_ROWS"]
+    assert smem <= 232448
+    if ctas == taa.CTAS:
+        assert taa.MIN_BLOCKS * (smem + 1024) <= 233472
+
+
+def test_cu_launcher_launches_a_cluster_per_tile():
+    """``taa_launch`` launches TAA_CTAS CTAs per 32×128 tile along y, as a
+    cluster of (1, TAA_CTAS, 1) above one CTA, with the kernel's dynamic
+    shared memory; ``taa_info`` queries the same configuration."""
+    src = _source("taa.cu")
+    launch = re.search(r'extern "C" int taa_launch\(.*?\n\}', src, re.S).group(0)
+    assert "(p.rows + TAA_TILE_ROWS - 1) / TAA_TILE_ROWS * TAA_CTAS" in launch
+    assert "cudaLaunchKernelEx(&launch.cfg, taa_kernel" in launch
+    config = re.search(r"struct TaaLaunch \{.*?\n\};", src, re.S).group(0)
+    for line in ("cfg.blockDim = dim3(TAA_TILE_COLS, TAA_THREADS_Y, 1);",
+                 "cfg.dynamicSmemBytes = (size_t)taa_smem_bytes();",
+                 "attr[0].val.clusterDim.y = TAA_CTAS;", "cfg.numAttrs = TAA_CTAS > 1 ? 1 : 0;"):
+        assert line in config
+    info = re.search(r'extern "C" int taa_info\(.*?\n\}', src, re.S).group(0)
+    assert "TaaLaunch launch(" in info and "taa_smem_bytes()" in info
