@@ -3,7 +3,7 @@
 (``taa_kernel``) on one card, in turns.
 
     python3 compare_megakernel.py PARENT_MEGAKERNEL_CU [PARENT_TAA_CU]
-        [--variant NAME=DEFINE[,DEFINE...]]... [--only GROUP[,GROUP...]]
+        [--only GROUP[,GROUP...]]
 
 Builds, all ``nvcc`` at once, the checkout's kernel library and one of the
 parent's sources (another commit's ``csrc/megakernel.cu`` and, when given,
@@ -11,11 +11,9 @@ its ``csrc/taa.cu``, copied under ``build/compare/parent/`` with the
 queries ``megakernel_gen_info``, ``megakernel_tex_info``,
 ``megakernel_clear_info``, ``megakernel_work_slots`` and ``taa_info``
 appended where it has none, beside the checkout's other kernel sources),
-each ``--variant`` (the checkout's sources built with those ``-D``
-defines, e.g. ``taa1=TAA_CTAS=1``), and the parent's and the change's
-measurement builds.  Then the sides run in turns, ``parent, change,
-variants..., variants reversed..., change, parent``; each pass takes,
-through that side's library:
+and each side's measurement build.  Then the sides run in turns,
+``parent, change, change, parent``; each pass takes, through that side's
+library:
 
 * group ``main``: the main path's 1080p frames (the flagship
   ``clouds_high``/avatar, ``clouds_high``/interior, ``clouds``/avatar,
@@ -61,7 +59,7 @@ clock).  It prints each pass as a JSON line, the compiler's report of each
 side's kernels, a summary of each side's SASS (``cuobjdump``): the
 instructions and MUFU operations of the loop of ``megakernel_clear`` that
 issues the most MUFU operations (the atmosphere's steps), and, last, one
-JSON summary per frame and resolve: every side's times, the change over the
+JSON summary per frame and resolve: both sides' times, the change over the
 parent, the bound's share and whether the work counts equal the parent's.
 Run from the repository root on one card; it needs no network.
 """
@@ -143,9 +141,9 @@ extern "C" int megakernel_clear_info(const MegakernelParams* params, int* out) {
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, megakernel_clear, MK_TILE_COLS, 0);
   if (err != cudaSuccess) return (int)err;
-  const int info[6] = {1, attr.numRegs, (int)attr.localSizeBytes, blocks, MK_TILE_COLS,
+  const int info[5] = {attr.numRegs, (int)attr.localSizeBytes, blocks, MK_TILE_COLS,
                        (params->width + MK_TILE_COLS - 1) / MK_TILE_COLS * params->rows};
-  for (int i = 0; i < 6; ++i) out[i] = info[i];
+  for (int i = 0; i < 5; ++i) out[i] = info[i];
   return 0;
 }
 '''
@@ -219,13 +217,12 @@ def parent_copy(path: str, name: str, parent_dir: str) -> str:
     return copy
 
 
-def build_sides(parent_cu: str, parent_taa=None, variants=()) -> tuple:
+def build_sides(parent_cu: str, parent_taa=None) -> tuple:
     """The libraries of all the kernel sources: the parent's (its
     ``megakernel.cu`` and, where given, its ``taa.cu``, each with the
     queries it lacks appended, beside the checkout's other sources), the
-    checkout's (the package's own build), each variant's (the checkout's
-    sources with its defines) and the parent's and the change's measurement
-    builds.  All ``nvcc`` at once.  Returns ``({side: path}, {side:
+    checkout's (the package's own build) and each one's measurement build.
+    All ``nvcc`` at once.  Returns ``({side: path}, {side:
     compiler report})``."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import library
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
@@ -241,9 +238,6 @@ def build_sides(parent_cu: str, parent_taa=None, variants=()) -> tuple:
                                   defines=mk.MEASURE_DEFINES),
             "parent/stages": dict(build_dir=os.path.join(COMPARE_DIR, "parent-stages"),
                                   sources=parent_sources, defines=mk.MEASURE_DEFINES)}
-    for name, defines in variants:
-        jobs[name] = dict(build_dir=os.path.join(COMPARE_DIR, f"variant-{name}"),
-                          defines=defines, ptxas_info=True)
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {k: pool.submit(library.build, **kw) for k, kw in jobs.items()}
         built = {k: f.result() for k, f in futures.items()}
@@ -314,11 +308,6 @@ class Case:
         planes = {id(launch[3]): launch[3] for launch in self.launches}.values()
         return np.concatenate([np.concatenate([c.cpu().numpy(), a.cpu().numpy()[..., None]], -1)
                                for c, a, _ in planes], axis=0)
-
-    def timed(self):
-        """The launches timed: every instance's, cloud layers and
-        cloud-free ones alike."""
-        return list(range(len(self.launches)))
 
     def clouds(self):
         """The cloud launches: every procedural or texture cloud layer."""
@@ -576,7 +565,7 @@ def one_pass(all_cases: list, all_flights: dict, ref_dir: str) -> dict:
     for n, case in enumerate(all_cases):
         case.run_all()  # the planes the chained launches read
         rows = []
-        for i in case.timed():
+        for i in range(len(case.launches)):
             _, st, args, planes, _ = case.launches[i]
             ms = cs.time_cuda(lambda k, st=st, args=args, planes=planes: mk.launch(
                 st, planes[0], planes[1], depth=planes[2], **args), KERNEL_FRAMES)
@@ -655,14 +644,6 @@ def run_pass(args) -> int:
     return 0
 
 
-def variant(text: str) -> tuple:
-    """``NAME=DEFINE[,DEFINE...]`` as ``(name, defines)``."""
-    name, _, defines = text.partition("=")
-    if not name or not defines:
-        raise argparse.ArgumentTypeError(f"a variant is NAME=DEFINE[,DEFINE...], got {text!r}")
-    return name, tuple(defines.split(","))
-
-
 def summarise(runs: dict, sides: list, label: str) -> dict:
     """One frame's or resolve's summary over every side's passes."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
@@ -722,9 +703,6 @@ def main(argv=None) -> int:
     ap.add_argument("parent_cu", nargs="?", help="the parent commit's csrc/megakernel.cu")
     ap.add_argument("parent_taa", nargs="?", help="the parent commit's csrc/taa.cu (default: "
                     "the checkout's)")
-    ap.add_argument("--variant", type=variant, action="append", default=[],
-                    help="NAME=DEFINE[,DEFINE...]: the checkout's sources built with these "
-                         "defines, as one more side")
     ap.add_argument("--only", default=",".join(GROUPS),
                     help=f"comma-separated groups of cases to run, of {','.join(GROUPS)}")
     # one pass in a process of its own (the comparison starts these)
@@ -750,7 +728,7 @@ def main(argv=None) -> int:
     if set(args.only.split(",")) - set(GROUPS):
         ap.error(f"--only takes groups of {GROUPS}")
     shutil.rmtree(COMPARE_DIR, ignore_errors=True)
-    paths, reports = build_sides(args.parent_cu, args.parent_taa, args.variant)
+    paths, reports = build_sides(args.parent_cu, args.parent_taa)
     cs.log(f"[compare] compiler report of {', '.join(REPORTED)} per side: "
            f"{json.dumps(reports)}")
     for side, path in paths.items():
@@ -775,7 +753,7 @@ def main(argv=None) -> int:
         with open(out) as f:
             return json.load(f)
 
-    sides = ["parent", "change", *(name for name, _ in args.variant)]
+    sides = ["parent", "change"]
     runs = {s: [] for s in sides}
     for side in sides + sides[::-1]:  # the first pass writes the reference frames
         result = start(side, paths[side])

@@ -103,10 +103,10 @@
 // giant's 576-row band at 1080p takes 0.289 ms against 0.429 before (23 % of
 // its 0.066 ms bound), and the shared atmosphere speeds the texture frames
 // by 8-10 % and the procedural ones by 3-6 % (PERF.md; compare_megakernel.py).
-// Blocks of 2 or 4 rows (MK_CLEAR_ROWS) and registers capped for 10 or 12
-// blocks per SM (MK_CLEAR_MIN_BLOCKS) were measured and are slower; the
-// step loop is issue-bound, so splitting a pixel's steps across lanes has
-// nothing to hide.
+// Blocks of 2 or 4 rows and registers capped for 10 or 12 blocks per SM
+// were measured and are slower (in git history at 394a1ac); the step loop is
+// issue-bound, so splitting a pixel's steps across lanes has nothing to
+// hide.
 //
 // The procedural instance (megakernel_gen<C>, K1 slice (h)) takes every
 // procedural config the TPU kernel renders (its body is the shared XLA
@@ -155,8 +155,7 @@
 // 32 x 128 tile.  What bounds it on an H100: the coarse pass (the opaque
 // pass and the per-pixel atmosphere, v2: 8 steps of one or two segments of 8
 // quadrature nodes, IEEE sqrtf and expf) and the march, 0.39 and 0.37 of its
-// warp-cycles at
-// the avatar pose (G = 4), the knots with their ten barriers 0.21
+// warp-cycles at the avatar pose (G = 4), the knots with their ten barriers 0.21
 // (cycles per stage from the measurement build).  One CTA per tile keeps a
 // batch's choice inside the block.  Its registers are sized for 1024
 // resident threads per SM (MK_TEX_SM_THREADS, 64 registers): one tile of
@@ -1748,33 +1747,28 @@ __device__ __forceinline__ V3 group_knot_pos(const V3& rom, V3 rk, float t0k, fl
 }
 
 // ---------------------------------------------------------------------------
-// The cloud-free frame kernel: one thread per pixel, for a layer without
-// clouds and for the opaque-only pass; a block is 128 columns of
-// MK_CLEAR_ROWS rows.
+// The cloud-free frame kernel: one thread per column and row, for a layer
+// without clouds and for the opaque-only pass.
 
-#ifndef MK_CLEAR_ROWS
-#define MK_CLEAR_ROWS 1
-#endif
-#ifndef MK_CLEAR_MIN_BLOCKS
-#define MK_CLEAR_MIN_BLOCKS 1
-#endif
+__global__ void __launch_bounds__(128) megakernel_clear(const MegakernelParams p,
+                                                        const TexParams sky_t,
+                                                        const float* __restrict__ blue,
+                                                        const float* __restrict__ sky_r,
+                                                        const float* __restrict__ sky_g,
+                                                        const float* __restrict__ sky_b,
+                                                        const int* __restrict__ sky_choices,
+                                                        float* __restrict__ color,
+                                                        float* __restrict__ alpha_out,
+                                                        float* __restrict__ depth,
+                                                        unsigned long long* work) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = p.row0 + blockIdx.y;
+  const bool live = x < p.width;
 
-__global__ void __launch_bounds__(MK_TILE_COLS * MK_CLEAR_ROWS, MK_CLEAR_MIN_BLOCKS)
-    megakernel_clear(const MegakernelParams p, const TexParams sky_t,
-                     const float* __restrict__ blue, const float* __restrict__ sky_r,
-                     const float* __restrict__ sky_g, const float* __restrict__ sky_b,
-                     const int* __restrict__ sky_choices, float* __restrict__ color,
-                     float* __restrict__ alpha_out, float* __restrict__ depth,
-                     unsigned long long* work) {
-  const int x = blockIdx.x * MK_TILE_COLS + threadIdx.x;
-  const int row = blockIdx.y * MK_CLEAR_ROWS + threadIdx.y;  // the launch's row
-  const int y = p.row0 + row;
-  const bool live = x < p.width && row < p.rows;
-
-  // the sky's choice for the pixel's tile, as sky_choice_kernel wrote it
+  // the sky's choice for the block's tile, as sky_choice_kernel wrote it
   Sky sky{sky_t, sky_r, sky_g, sky_b, TexChoice{MK_WINDOWED, 0}};
-  if (p.with_sky && live) {
-    const int tile = row / MK_TILE_ROWS * gridDim.x + blockIdx.x;
+  if (p.with_sky) {
+    const int tile = blockIdx.y / MK_TILE_ROWS * gridDim.x + blockIdx.x;
     sky.ch = TexChoice{__ldg(sky_choices + 2 * tile), __ldg(sky_choices + 2 * tile + 1)};
   }
   unsigned n_atmo = 0, n_v1 = 0, n_sky = 0, n_seg = 0;
@@ -2385,13 +2379,6 @@ static cudaError_t gen_smem_attribute(const GenLayout& gen) {
   return cudaFuncSetAttribute(gen.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, gen.smem);
 }
 
-// the cloud-free instance's grid: blocks of 128 columns and MK_CLEAR_ROWS
-// rows over the launch's rows
-static dim3 clear_grid(const MegakernelParams* p) {
-  return dim3((p->width + MK_TILE_COLS - 1) / MK_TILE_COLS,
-              (p->rows + MK_CLEAR_ROWS - 1) / MK_CLEAR_ROWS, 1);
-}
-
 extern "C" int megakernel_launch(const MegakernelParams* params, const TexParams* sky,
                                  const float* blue, const float* sky_r, const float* sky_g,
                                  const float* sky_b, const int* sky_choices, float* color,
@@ -2414,8 +2401,8 @@ extern "C" int megakernel_launch(const MegakernelParams* params, const TexParams
   cudaStream_t s = (cudaStream_t)stream;
   unsigned long long* w = (unsigned long long*)work;
   if (!clouds) {
-    megakernel_clear<<<clear_grid(params), dim3(MK_TILE_COLS, MK_CLEAR_ROWS, 1), 0, s>>>(
-        *params, sky_t, blue, sky_r, sky_g, sky_b, sky_choices, color, alpha, depth, w);
+    megakernel_clear<<<grid, block, 0, s>>>(*params, sky_t, blue, sky_r, sky_g, sky_b, sky_choices,
+                                            color, alpha, depth, w);
     return (int)cudaGetLastError();
   }
   const cudaError_t err = gen_smem_attribute(gen);
@@ -2447,21 +2434,18 @@ extern "C" int megakernel_gen_info(const MegakernelParams* params, int* out) {
 }
 
 // What the cloud-free instance uses, as the launcher launches it: out =
-// {rows per block, registers per thread, local memory (stack) bytes per
-// thread, resident blocks per SM, threads per block, blocks of the launch
-// for params}.
+// {registers per thread, local memory (stack) bytes per thread, resident
+// blocks per SM, threads per block, blocks of the launch for params}.
 extern "C" int megakernel_clear_info(const MegakernelParams* params, int* out) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, megakernel_clear);
   int blocks = 0;
-  const int threads = MK_TILE_COLS * MK_CLEAR_ROWS;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, megakernel_clear, threads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, megakernel_clear, MK_TILE_COLS, 0);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid = clear_grid(params);
-  const int info[6] = {MK_CLEAR_ROWS, attr.numRegs, (int)attr.localSizeBytes, blocks, threads,
-                       (int)(grid.x * grid.y)};
-  for (int i = 0; i < 6; ++i) out[i] = info[i];
+  const int info[5] = {attr.numRegs, (int)attr.localSizeBytes, blocks, MK_TILE_COLS,
+                       (params->width + MK_TILE_COLS - 1) / MK_TILE_COLS * params->rows};
+  for (int i = 0; i < 5; ++i) out[i] = info[i];
   return 0;
 }
 

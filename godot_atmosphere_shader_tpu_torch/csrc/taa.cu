@@ -66,9 +66,9 @@
 // On an H100 at 700 W: 0.0556 ms at 1080p (device time), 53 % of the bound,
 // and 0.0160 ms on a 256-row shard of 1920 x 1024, against 0.0758 and 0.0180
 // before, bit for bit the same frame, depth and validity (PERF.md;
-// compare_megakernel.py).  Clusters of 4 CTAs, one 512-thread CTA per tile
-// and 2 or 4 CTAs per SM were measured and are slower on the shard or at
-// 1080p.
+// compare_megakernel.py).  Clusters of 4 CTAs, one 512-thread or 1024-thread
+// CTA per tile and 2 or 4 CTAs per SM were measured and are slower on the
+// shard or at 1080p (in git history at 394a1ac).
 //
 // Built with the other kernels (ops/kernels/library.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
@@ -80,17 +80,11 @@
 
 #define TAA_TILE_ROWS 32
 #define TAA_TILE_COLS 128
-// CTAs per tile (a thread-block cluster above 1), threads per column of a
-// CTA, and the resident CTAs per SM its registers are sized for
-#ifndef TAA_CTAS
+// CTAs per tile (a thread-block cluster), threads per column of a CTA, and
+// the resident CTAs per SM its registers are sized for
 #define TAA_CTAS 2
-#endif
-#ifndef TAA_THREADS_Y
 #define TAA_THREADS_Y 4
-#endif
-#ifndef TAA_MIN_BLOCKS
 #define TAA_MIN_BLOCKS 3
-#endif
 constexpr int TAA_THREADS = TAA_TILE_COLS * TAA_THREADS_Y;
 constexpr int TAA_WARPS = TAA_THREADS / 32;
 constexpr int TAA_CTA_ROWS = TAA_TILE_ROWS / TAA_CTAS;
@@ -158,7 +152,7 @@ __device__ __forceinline__ void copies_done() {
 // The tile-wide min of two values per thread; every thread receives both.
 // red: 2 floats per warp and 2 for the CTA's min.  Waits for the thread's
 // asynchronous copies before the CTA's barrier, so shared memory holds them
-// after it.  A cluster reads each CTA's min through distributed shared
+// after it.  Each thread reads every CTA's min through distributed shared
 // memory between two halves of a cluster barrier; the arrive after the
 // reads lets a peer exit (tile_exit waits for it).
 __device__ __forceinline__ void tile_min2(float& a, float& b, float* red) {
@@ -173,7 +167,6 @@ __device__ __forceinline__ void tile_min2(float& a, float& b, float* red) {
   }
   copies_done();
   __syncthreads();
-#if TAA_CTAS > 1
   if (tid < 32) {
     a = tid < TAA_WARPS ? red[2 * tid] : 3.0e38f;
     b = tid < TAA_WARPS ? red[2 * tid + 1] : 3.0e38f;
@@ -196,21 +189,11 @@ __device__ __forceinline__ void tile_min2(float& a, float& b, float* red) {
     b = fminf(b, rr[1]);
   }
   asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
-#else
-  a = red[0];
-  b = red[1];
-  for (int w = 1; w < TAA_WARPS; ++w) {
-    a = fminf(a, red[2 * w]);
-    b = fminf(b, red[2 * w + 1]);
-  }
-#endif
 }
 
 // before exit: every peer of the cluster has read this CTA's min
 __device__ __forceinline__ void tile_exit() {
-#if TAA_CTAS > 1
   asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
-#endif
 }
 
 __global__ void __launch_bounds__(TAA_THREADS, TAA_MIN_BLOCKS)
@@ -417,7 +400,7 @@ struct TaaLaunch {
     attr[0].val.clusterDim.y = TAA_CTAS;
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
-    cfg.numAttrs = TAA_CTAS > 1 ? 1 : 0;
+    cfg.numAttrs = 1;
   }
 };
 
@@ -468,18 +451,8 @@ extern "C" int taa_info(int* out) {
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, taa_kernel, TAA_THREADS,
                                                         taa_smem_bytes());
-  if (err == cudaSuccess) {
-    if (TAA_CTAS > 1) {
-      TaaLaunch launch(dim3(1, TAA_CTAS, 1), nullptr);
-      err = cudaOccupancyMaxActiveClusters(&clusters, taa_kernel, &launch.cfg);
-    } else {
-      int device = 0, sms = 0;
-      err = cudaGetDevice(&device);
-      if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-      clusters = blocks * sms;
-    }
-  }
+  TaaLaunch launch(dim3(1, TAA_CTAS, 1), nullptr);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, taa_kernel, &launch.cfg);
   if (err != cudaSuccess) return (int)err;
   const int info[7] = {TAA_CTAS, TAA_THREADS, attr.numRegs, (int)attr.localSizeBytes, blocks,
                        taa_smem_bytes(), clusters};

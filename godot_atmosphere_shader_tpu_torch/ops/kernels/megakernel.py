@@ -145,13 +145,8 @@ MEASURE_DEFINES = ("MK_STAGE_CLOCKS",)
 GEN_INFO = ("coarse", "registers", "stack_bytes", "blocks_per_sm", "smem_bytes", "row_cache")
 #: what :func:`tex_info` reports of the texture instance
 TEX_INFO = ("group", "registers", "stack_bytes", "blocks_per_sm", "smem_bytes", "threads")
-#: the cloud-free instance ``megakernel_clear``: rows of its 128-column
-#: blocks (``MK_CLEAR_ROWS``) and the resident blocks per SM its registers
-#: are capped for (``MK_CLEAR_MIN_BLOCKS``; 1: no cap); what
-#: :func:`clear_info` reports of it
-CLEAR_ROWS = 1
-CLEAR_MIN_BLOCKS = 1
-CLEAR_INFO = ("rows", "registers", "stack_bytes", "blocks_per_sm", "threads", "blocks")
+#: what :func:`clear_info` reports of the cloud-free instance
+CLEAR_INFO = ("registers", "stack_bytes", "blocks_per_sm", "threads", "blocks")
 #: atmosphere models, by their integer codes
 MODELS = {"v2": 0, "v1": 1}
 #: noise bases, fractals and cellular returns, by their integer codes
@@ -430,8 +425,8 @@ def tex_info(struct: MegakernelParams, tparams: TexParams) -> dict:
 
 def clear_info(struct: MegakernelParams) -> dict:
     """What the cloud-free instance uses on this card (:data:`CLEAR_INFO`):
-    rows per block, registers, local memory (stack), resident blocks per
-    SM, threads per block, and the blocks it launches for ``struct``."""
+    registers, local memory (stack), resident blocks per SM, threads per
+    block, and the blocks it launches for ``struct``."""
     out = (ctypes.c_int * len(CLEAR_INFO))()
     rc = load_library().megakernel_clear_info(ctypes.byref(struct), out)
     if rc != 0:

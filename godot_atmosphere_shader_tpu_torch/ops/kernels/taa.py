@@ -101,11 +101,11 @@ LAUNCHER_ARGTYPES = (ctypes.POINTER(TaaParams), *(ctypes.c_void_p,) * 8)
 INFO_ARGTYPES = (ctypes.c_void_p,)
 
 
-def smem_bytes(ctas: int = CTAS) -> int:
+def smem_bytes() -> int:
     """A CTA's dynamic shared memory (``taa_smem_bytes``): its rows' current
     rgb with the tile's row above and below them, its output rgb, and the
     min's scratch (2 floats per warp and the CTA's 2)."""
-    rows, row_floats = TILE_ROWS // ctas, TILE_COLS * 3
+    rows, row_floats = TILE_ROWS // CTAS, TILE_COLS * 3
     return ((rows + 2) * row_floats + rows * row_floats + 2 * (TILE_COLS * THREADS_Y // 32)
             + 2) * 4
 

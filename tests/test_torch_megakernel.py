@@ -303,8 +303,7 @@ def test_cu_limits_match_wrapper():
                        "MK_WINDOWED": mk.WINDOWED, "MK_BANDED": mk.BANDED,
                        "MK_FLOOR": mk.FLOOR, **work, "MK_WORK_SLOTS": len(mk.WORK_SLOTS),
                        **stages, "MK_STAGES": len(mk.STAGE_SLOTS),
-                       "MK_SUN_STEPS": mk.SUN_STEPS, "MK_CLEAR_ROWS": mk.CLEAR_ROWS,
-                       "MK_CLEAR_MIN_BLOCKS": mk.CLEAR_MIN_BLOCKS}
+                       "MK_SUN_STEPS": mk.SUN_STEPS}
 
 
 def _cu_constexpr(name):

@@ -312,13 +312,11 @@ def test_cu_launcher_signature_matches_argtypes(source, name, argtypes):
     assert argtypes == tuple(c.get(p, ctypes.c_void_p) for p in params), params
 
 
-def _taa_terms(ctas=None):
-    """The source's ``TAA_*`` defines (``TAA_CTAS`` set to ``ctas`` where
-    given) and its ``constexpr int TAA_*`` constants evaluated from them."""
+def _taa_terms():
+    """The source's ``TAA_*`` defines and its ``constexpr int TAA_*``
+    constants evaluated from them."""
     src = _source("taa.cu")
     terms = {k: int(v) for k, v in re.findall(r"#define (TAA_\w+) (\d+)", src)}
-    if ctas is not None:
-        terms["TAA_CTAS"] = ctas
     for name, expr in re.findall(r"constexpr int (TAA_\w+) = (.*?);", src):
         terms[name] = eval(expr.replace("/", "//"), {}, terms)
     return terms
@@ -333,31 +331,26 @@ def test_cu_layout_matches_wrapper():
                        "TAA_MIN_BLOCKS": taa.MIN_BLOCKS}
 
 
-@pytest.mark.parametrize("ctas", [1, 2, 4])
-def test_cu_shared_memory_matches_wrapper(ctas):
+def test_cu_shared_memory_matches_wrapper():
     """A CTA's dynamic shared memory (``taa_smem_bytes``, evaluated from the
-    source) equals the wrapper's ``smem_bytes`` at each cluster size the
-    source takes; a CTA is whole rows of the tile and a thread whole rows of
-    the CTA; one CTA fits the 227 KB a block may use, and at the built
-    cluster size MIN_BLOCKS of them fit an SM's 228 KB (1 KB reserved per
-    CTA)."""
-    terms = _taa_terms(ctas)
+    source) equals the wrapper's ``smem_bytes``; a CTA is whole rows of the
+    tile and a thread whole rows of the CTA; MIN_BLOCKS CTAs fit an SM's
+    228 KB (1 KB reserved per CTA)."""
+    terms = _taa_terms()
     expr = re.search(r"constexpr int taa_smem_bytes\(\) \{\s*return (.*?);\s*\}",
                      _source("taa.cu"), re.S).group(1)
     smem = eval(" ".join(expr.split()).replace("(int)sizeof(float)", "4").replace("/", "//"),
                 {}, terms)
-    assert smem == taa.smem_bytes(ctas)
-    assert terms["TAA_CTA_ROWS"] * ctas == taa.TILE_ROWS
+    assert smem == taa.smem_bytes()
+    assert terms["TAA_CTA_ROWS"] * taa.CTAS == taa.TILE_ROWS
     assert terms["TAA_ROWS_PER_THREAD"] * taa.THREADS_Y == terms["TAA_CTA_ROWS"]
-    assert smem <= 232448
-    if ctas == taa.CTAS:
-        assert taa.MIN_BLOCKS * (smem + 1024) <= 233472
+    assert taa.MIN_BLOCKS * (smem + 1024) <= 233472
 
 
 def test_cu_launcher_launches_a_cluster_per_tile():
     """``taa_launch`` launches TAA_CTAS CTAs per 32×128 tile along y, as a
-    cluster of (1, TAA_CTAS, 1) above one CTA, with the kernel's dynamic
-    shared memory; ``taa_info`` queries the same configuration."""
+    cluster of (1, TAA_CTAS, 1), with the kernel's dynamic shared memory;
+    ``taa_info`` queries the same configuration."""
     src = _source("taa.cu")
     launch = re.search(r'extern "C" int taa_launch\(.*?\n\}', src, re.S).group(0)
     assert "(p.rows + TAA_TILE_ROWS - 1) / TAA_TILE_ROWS * TAA_CTAS" in launch
@@ -365,7 +358,7 @@ def test_cu_launcher_launches_a_cluster_per_tile():
     config = re.search(r"struct TaaLaunch \{.*?\n\};", src, re.S).group(0)
     for line in ("cfg.blockDim = dim3(TAA_TILE_COLS, TAA_THREADS_Y, 1);",
                  "cfg.dynamicSmemBytes = (size_t)taa_smem_bytes();",
-                 "attr[0].val.clusterDim.y = TAA_CTAS;", "cfg.numAttrs = TAA_CTAS > 1 ? 1 : 0;"):
+                 "attr[0].val.clusterDim.y = TAA_CTAS;", "cfg.numAttrs = 1;"):
         assert line in config
     info = re.search(r'extern "C" int taa_info\(.*?\n\}', src, re.S).group(0)
     assert "TaaLaunch launch(" in info and "taa_smem_bytes()" in info
