@@ -3,7 +3,6 @@
 (``taa_kernel``) on one card, in turns.
 
     python3 compare_megakernel.py PARENT_MEGAKERNEL_CU [PARENT_TAA_CU]
-        [--only GROUP[,GROUP...]]
 
 Builds, all ``nvcc`` at once, the checkout's kernel library and one of the
 parent's sources (another commit's ``csrc/megakernel.cu`` and, when given,
@@ -15,7 +14,7 @@ and each side's measurement build.  Then the sides run in turns,
 ``parent, change, change, parent``; each pass takes, through that side's
 library:
 
-* group ``main``: the main path's 1080p frames (the flagship
+* the main path's 1080p frames (the flagship
   ``clouds_high``/avatar, ``clouds_high``/interior, ``clouds``/avatar,
   ``clouds_high`` at avatar and sunward with a seeded 1024×2048 sky, JAX
   bench cell 5, the flagship on 2 shards, the four envelope frames of
@@ -26,13 +25,13 @@ library:
   64×128 frames whose work counts ``tests/test_torch_cuda.py`` holds
   against the parent's, and the device busy ms per frame of the three 1080p
   K = 8 flights (``torch.profiler``);
-* group ``clear``: the cloud-free instance's frames, JAX bench cells 1, 2
+* the cloud-free instance's frames, JAX bench cells 1, 2
   and 7 (the gas giant's 64-step band at its limb pose) and the
   everything-on frame at space with its sky (an opaque-only pass that draws
   the sky), and cell 7 at 192×128, whose work counts
   ``tests/test_torch_cuda.py`` holds against the parent's; cell 5 (in
   ``main``) also runs one;
-* group ``k3``: the TAA resolve alone at 1080p on ``chip_smoke.py`` phase
+* the TAA resolve alone at 1080p on ``chip_smoke.py`` phase
   7's inputs (the flight's second frame, rendered by the plain path, a
   seeded history) and on one 256-row shard of 1920×1024 with its 32-row
   halo (phase 4e's inputs), each with both clamp modes;
@@ -44,8 +43,7 @@ row cache, the threads per block, or the blocks launched); each K3 launch's
 kernel and device ms and what the kernel uses (CTAs per tile, threads,
 registers, stack, CTAs per SM, shared memory); each frame, and each
 resolve's frame, depth and validity, held against the first pass's parent
-(max |Δ|, p99.9; the resolve bit for bit).  ``--only`` runs those groups
-alone.
+(max |Δ|, p99.9; the resolve bit for bit).
 
 Each pass runs in a process of its own that loads only that side's
 library, so no two builds of one kernel share a process.  The bounds are
@@ -53,7 +51,7 @@ library, so no two builds of one kernel share a process.  The bounds are
 measured ceilings: a parent that lacks a work slot (``od_segments``) is
 compared on the others, and its bound is the change's, since the work
 these inputs need is the same on both sides.  Each side's measurement
-build (``MK_STAGE_CLOCKS``) runs once more per frame of ``main``: cycles
+build (``MK_STAGE_CLOCKS``) runs once more per frame with clouds: cycles
 per stage, summed over warps (zeros for an instance the parent does not
 clock).  It prints each pass as a JSON line, the compiler's report of each
 side's kernels, a summary of each side's SASS (``cuobjdump``): the
@@ -84,7 +82,6 @@ import chip_smoke as cs
 ROOT = os.path.dirname(os.path.abspath(__file__))
 COMPARE_DIR = os.path.join(ROOT, "build", "compare")
 KERNEL_FRAMES = 20
-GROUPS = ("main", "clear", "k3")
 # the occupancy query for a parent whose texture instance is one 128 x 32 / G
 # thread block per tile with the 26 knots and the reduction scratch in shared
 # memory
@@ -362,29 +359,25 @@ SMALL_SIZE = (64, 128)
 GAS_GIANT_SMALL = (192, 128)
 
 
-def cases(device, textures, groups=GROUPS) -> list:
-    """The frames compared, of ``groups``."""
+def cases(device, textures) -> list:
+    """The frames compared."""
     H, W = cs.FULL_SIZE
     pano = cs.synthetic_panorama(*cs.PANO_SIZE)
     out = []
-    if "clear" in groups:
-        for cell, kind, pose, ch, cw in cs.BENCH_CELLS:
-            if cell == "5":
-                continue
-            scene, cam = cs.build_scene(kind, device), cs.scene_camera(kind, pose, device)
-            scene.update(0.5, cam)
-            out.append(plan_case(f"cell {cell}", scene, cam, ch, cw, device))
-        allon = cs.with_panorama(cs.build_scene("allon", device, textures), pano)
-        cam = cs.scene_camera("allon", "space", device)
-        allon.update(0.25, cam)
-        out.append(plan_case("everything-on/space with the sky", allon, cam, H, W, device))
-        scene, cam = cs.build_scene("gas_giant", device), cs.scene_camera("gas_giant", "limb",
-                                                                          device)
+    for cell, kind, pose, ch, cw in cs.BENCH_CELLS:
+        if cell == "5":
+            continue
+        scene, cam = cs.build_scene(kind, device), cs.scene_camera(kind, pose, device)
         scene.update(0.5, cam)
-        out.append(plan_case(f"cell 7 {GAS_GIANT_SMALL[0]}x{GAS_GIANT_SMALL[1]}", scene, cam,
-                             *GAS_GIANT_SMALL, device))
-    if "main" not in groups:
-        return out
+        out.append(plan_case(f"cell {cell}", scene, cam, ch, cw, device))
+    allon = cs.with_panorama(cs.build_scene("allon", device, textures), pano)
+    cam = cs.scene_camera("allon", "space", device)
+    allon.update(0.25, cam)
+    out.append(plan_case("everything-on/space with the sky", allon, cam, H, W, device))
+    scene, cam = cs.build_scene("gas_giant", device), cs.scene_camera("gas_giant", "limb", device)
+    scene.update(0.5, cam)
+    out.append(plan_case(f"cell 7 {GAS_GIANT_SMALL[0]}x{GAS_GIANT_SMALL[1]}", scene, cam,
+                         *GAS_GIANT_SMALL, device))
     for variant, pose in SMALL_CASES:
         scene, cam = cs.scene_and_camera(variant, pose, device)
         out.append(plan_case(f"{variant}/{pose} {SMALL_SIZE[0]}x{SMALL_SIZE[1]}", scene, cam,
@@ -629,16 +622,13 @@ def run_pass(args) -> int:
     mk.WORK_SLOTS = mk.WORK_SLOTS[:slots]
     cs.PEAK.update(fp32=args.peak_fp32, int32=args.peak_int32)
     device = torch.device("cuda", 0)
-    groups = args.only.split(",")
-    textures = bake_demo_textures(device=device) if set(groups) - {"k3"} else None
-    all_cases = cases(device, textures, groups)
+    textures = bake_demo_textures(device=device)
+    all_cases = cases(device, textures)
     if args.stages:
         result = stage_pass([c for c in all_cases if c.clouds()])
     else:
-        result = one_pass(all_cases, flights(device, textures) if "main" in groups else {},
-                          args.reference)
-        if "k3" in groups:
-            result.update(resolve_pass(resolves(device), args.reference))
+        result = one_pass(all_cases, flights(device, textures), args.reference)
+        result.update(resolve_pass(resolves(device), args.reference))
     with open(args.out, "w") as f:
         json.dump(result, f)
     return 0
@@ -703,8 +693,6 @@ def main(argv=None) -> int:
     ap.add_argument("parent_cu", nargs="?", help="the parent commit's csrc/megakernel.cu")
     ap.add_argument("parent_taa", nargs="?", help="the parent commit's csrc/taa.cu (default: "
                     "the checkout's)")
-    ap.add_argument("--only", default=",".join(GROUPS),
-                    help=f"comma-separated groups of cases to run, of {','.join(GROUPS)}")
     # one pass in a process of its own (the comparison starts these)
     ap.add_argument("--library", help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)
@@ -725,8 +713,6 @@ def main(argv=None) -> int:
     cs.log(card)
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
-    if set(args.only.split(",")) - set(GROUPS):
-        ap.error(f"--only takes groups of {GROUPS}")
     shutil.rmtree(COMPARE_DIR, ignore_errors=True)
     paths, reports = build_sides(args.parent_cu, args.parent_taa)
     cs.log(f"[compare] compiler report of {', '.join(REPORTED)} per side: "
@@ -747,8 +733,7 @@ def main(argv=None) -> int:
         out = os.path.join(COMPARE_DIR, f"pass-{side.replace('/', '-')}.json")
         cmd = [sys.executable, os.path.abspath(__file__), "--library", lib, "--out", out,
                "--reference", ref_dir, "--peak-fp32", repr(cs.PEAK["fp32"]),
-               "--peak-int32", repr(cs.PEAK["int32"]), "--only", args.only]
-        cmd += ["--stages"] if stages else []
+               "--peak-int32", repr(cs.PEAK["int32"])] + (["--stages"] if stages else [])
         subprocess.run(cmd, check=True)
         with open(out) as f:
             return json.load(f)
@@ -761,10 +746,9 @@ def main(argv=None) -> int:
         cs.log(f"[compare] pass {side} on {card}: {json.dumps(result)}")
         cs.log(f"[compare] after the pass: "
                f"{cs.smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
-    if "main" in args.only.split(","):
-        for side in ("parent", "change"):
-            cs.log(f"[compare] stages {side} on {card}: "
-                   f"{json.dumps(start(f'{side}-stages', paths[f'{side}/stages'], stages=True))}")
+    for side in sides:
+        cs.log(f"[compare] stages {side} on {card}: "
+               f"{json.dumps(start(f'{side}-stages', paths[f'{side}/stages'], stages=True))}")
     for label in runs["parent"][0]:
         cs.log(f"[compare] {label} on {card}: {json.dumps(summarise(runs, sides, label))}")
     cs.log(card)
