@@ -956,7 +956,8 @@ def test_gas_giant_band_matches_plain(cuda):
     assert np.isfinite(got).all() and got[..., 3].max() > 0.5
     bad = ~np.isclose(got, ref, rtol=1e-4, atol=1e-5).all(axis=-1)
     assert bad.mean() <= 3e-3, int(bad.sum())
-    assert np.abs(got - ref).max() <= 5e-4
+    d = np.abs(got - ref).max(axis=-1)
+    assert d.max() <= 5e-4, (float(d.max()), int((d > 5e-4).sum()), int(bad.sum()))
     assert (ref[..., 3][bad] > 0.0).all()
 
 
