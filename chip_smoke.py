@@ -187,11 +187,43 @@ LOD group) and the peak probe T2 run in four more phases:
    (``PARENT_WORK``, ``PARENT_TEX_WORK``; the texture launches of 4e's
    4 shards too), so the bounds are shown not to move.
 
+K1's texture envelope (slice (i): the general texture instance
+``megakernel_tex_general``, a baked field beside a procedural one, full
+quality, any knot count, knot group and LOD group) and the gas giant's
+card check run in three more phases:
+
+3h. small (64×128): first what one ulp moves the plain frame by (full
+   quality: the camera one ulp along z; coverage groups of 32 rows: every
+   march span one ulp longer); then 19 texture configs
+   (``TEX_ENVELOPE_CASES``: shape baked beside procedural coverage knots
+   and per-step coverage, procedural shape knots and per-step shape beside
+   baked coverage, full quality under cheap and raymarched light, coverage
+   K = 4, 16, shape knots 8, 32, G = 1, 2, 16, 32, knot groups 1 and 17,
+   a 9-level shape pyramid) through ``Scene.render`` (one launch of a
+   texture instance, no plain call) against plain: the cloud tolerance, the
+   detail or knot-group tolerance only where that measurement fails it;
+3i. the gas giant's 192×128 limb band (cell 7's scene): the kernel, the
+   plain chain on the card and on the CPU, and the JAX XLA frame
+   (``tests/golden_gas_giant_xla.npz``), every pair under the gas-giant
+   golden's statistics, and each frame against itself with the camera one
+   ulp along z; the kernel held to the golden's budget against all three,
+   its largest |Δ| 1e-3 where one ulp moves the plain frames out of it;
+4g. 1080p through ``Scene.render``: the texture reference profile (G = 1),
+   texture full quality, baked shape beside procedural coverage knots and
+   procedural per-step shape beside baked coverage (4 launches of the
+   general instance, no plain call), each against the whole plain frame,
+   then timed: kernel ms (events and device time), its bound,
+   ``Scene.render`` ms and idle share, the plain ms, the instance's
+   registers, stack and CTAs per SM; and bench cell 6 through both texture
+   instances (the general one reached by a pyramid struct whose
+   ``shape_knots`` only the fixed instance's choice reads), timed and
+   compared.
+
 Prints a JSON line describing each kernel (with its roofline bound from
 this run's work counters), then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
 line.  Run from the repository root: ``python3 chip_smoke.py``
-(``--quick`` stops after phase 3g).
+(``--quick`` stops after phase 3i).
 """
 
 from __future__ import annotations
@@ -376,6 +408,54 @@ KNOT_GROUP_CASES = {
                                             cloud_shape_knots=100)}
 # one flipped knot moves a 32-row group's column: 0.39 % of a 64x128 frame
 KNOT_GROUP_SHARE = 5e-3
+# phase 3i, the gas giant's limb band (tests/test_torch_goldens.py's frame):
+# its size, the JAX XLA frame of the same scene (written once on a CPU by the
+# JAX package, carried as a file), and the golden's budget: pixels off at
+# atol 1e-5 / rtol 1e-4 at most GAS_GIANT_SHARE of the frame, all on rays
+# through the shell, none by more than GAS_GIANT_MAX; the kernel on the card
+# is held to GAS_GIANT_CARD_MAX instead where one ulp of the camera moves the
+# plain frames themselves out of that budget (on an H100: by up to 4.9e-4,
+# 76-80 pixels off, the kernel's worst pixel the CPU frame's most
+# ulp-sensitive one)
+GAS_GIANT_SIZE = (192, 128)
+GAS_GIANT_REF = os.path.join(ROOT, "tests", "golden_gas_giant_xla.npz")
+GAS_GIANT_SHARE = 3e-3
+GAS_GIANT_MAX = 5e-4
+GAS_GIANT_CARD_MAX = 1e-3
+# K1 slice (i), the texture envelope: the texture clouds_high scene (both
+# fields baked, the demo's profile) changed as each case says; phase 3h's
+# cases at TEX_ENVELOPE_SIZE, phase 4g's frames at 1080p
+TEX_ENVELOPE_SIZE = (64, 128)
+TEX_ENVELOPE_CASES = {
+    "shape baked, coverage knots": dict(coverage="procedural"),
+    "shape baked, coverage per step": dict(coverage="procedural", cloud_coverage_interp=False),
+    "shape knots, coverage baked": dict(shape="procedural", cloud_shape_interp=True),
+    "shape per step, coverage baked": dict(shape="procedural"),
+    "full quality": dict(clouds_always_low_quality=False),
+    "full quality, raymarched light": dict(clouds_always_low_quality=False,
+                                           raymarched_lighting=True),
+    "coverage K = 4": dict(cloud_coverage_knots=4),
+    "coverage K = 16": dict(cloud_coverage_knots=16),
+    "shape knots 8": dict(cloud_shape_knots=8),
+    "shape knots 32": dict(cloud_shape_knots=32),
+    "G = 1": dict(cloud_lod=1, cloud_coverage_lod=1, cloud_lod_interior=0),
+    "G = 2": dict(cloud_lod=1, cloud_coverage_lod=2, cloud_lod_interior=0),
+    "G = 16": dict(cloud_lod=8, cloud_coverage_lod=2, cloud_lod_interior=0),
+    "G = 32": dict(cloud_lod=16, cloud_coverage_lod=2, cloud_lod_interior=0),
+    "knot group 1": dict(texture_knot_group=1),
+    "knot group 17": dict(texture_knot_group=17),
+    "knot group 17, G = 2": dict(texture_knot_group=17, cloud_lod=1, cloud_lod_interior=0),
+    "9-level shape pyramid": dict(levels=9),
+    "9-level shape pyramid, G = 1": dict(levels=9, cloud_lod=1, cloud_coverage_lod=1,
+                                         cloud_lod_interior=0),
+}
+TEX_REF_FRAME = "texture reference profile"
+TEX_ENVELOPE_FRAMES = {
+    TEX_REF_FRAME: dict(cloud_lod=1, cloud_coverage_lod=1, cloud_lod_interior=0),
+    "texture full quality": dict(clouds_always_low_quality=False),
+    "shape baked, coverage procedural": dict(coverage="procedural"),
+    "shape procedural, coverage baked": dict(shape="procedural"),
+}
 ENVELOPE_KERNEL_FRAMES = 5
 SMALL_SHARDS = 2
 SHARD_SIZE = (1024, 1920)
@@ -624,23 +704,28 @@ def roofline(work: dict, config, height: int, width: int, table_bytes: int = 0,
     comes from the work counters: the procedural instance counts each
     field's evaluations and knots."""
     steps = config.cloud_steps
-    procedural = config.clouds_enabled and config.cloud_shape_noise is not None
     ops = (work["pixels"] * OPS_PIXEL + atmosphere_ops(work, config)
            + work["opaque_pixels"] * OPS_OPAQUE_PIXEL
            + work["march"] * steps * OPS_STEP + work["sun_samples"] * OPS_SUN_SAMPLE
            + work["tex3d"] * OPS_TEX3D + work["tex3d_floor"] * OPS_TEX3D_FLOOR
            + work["latlong"] * OPS_LATLONG + work["latlong_floor"] * OPS_LATLONG_FLOOR)
-    int_ops = 0
-    if procedural:
+    # each procedural field's noise by its own spec (a baked field's samples
+    # are the tex3d and latlong slots above, the detail knots among them):
+    # coverage knots (knot_groups groups of K + 1) and per-step evaluations,
+    # shape and detail per step and at knots
+    units = []
+    if config.clouds_enabled and config.cloud_coverage_tex_meta is None:
         cov = noise_ops(config.cloud_coverage_noise, coverage=True)
+        if config.cloud_coverage_interp:
+            units.append((cov, work["knot_groups"] * (max(config.cloud_coverage_knots, 1) + 1)))
+        units.append((cov, work["coverage_evals"]))
+    if config.clouds_enabled and config.cloud_shape_tex_meta is None:
         shape = noise_ops(config.cloud_shape_noise)
         detail = (shape[0] + DETAIL_POINT_OPS, shape[1])
-        units = [(cov, work["knot_groups"] * (max(config.cloud_coverage_knots, 1) + 1)),
-                 (cov, work["coverage_evals"]), (shape, work["shape_evals"]),
-                 (detail, work["detail_evals"]), (shape, work["shape_knots"]),
-                 (detail, work["detail_knots"])]
-        ops += sum(u[0] * n for u, n in units)
-        int_ops = sum(u[1] * n for u, n in units)
+        units += [(shape, work["shape_evals"]), (detail, work["detail_evals"]),
+                  (shape, work["shape_knots"]), (detail, work["detail_knots"])]
+    ops += sum(u[0] * n for u, n in units)
+    int_ops = sum(u[1] * n for u, n in units)
     ops += (sky_choice_ops + work["sky"] * OPS_SKY_SAMPLE
             + work["sky_floor"] * OPS_SKY_FLOOR)
     if frame_bytes is None:
@@ -1053,6 +1138,346 @@ def check_scene(label: str, scene, cam, h: int, w: int, ok=cloud_tolerance_ok) -
     if not ok(st):
         raise RuntimeError(f"{label}: kernel disagrees with plain")
     return st["max"], got
+
+
+def limb_deltas(got: np.ndarray, ref: np.ndarray, max_abs: float = GAS_GIANT_MAX) -> dict:
+    """The gas-giant golden's statistics of ``got`` against ``ref`` (both
+    (H, W, 4)): pixels off at atol 1e-5 / rtol 1e-4, the largest |Δ|,
+    pixels off by more than ``max_abs``, whether every pixel off is a ray
+    through the shell (``ref`` alpha > 0), the worst pixel; ``ok``: within
+    the golden's budget (with ``max_abs`` for its largest |Δ|)."""
+    bad = ~np.isclose(got, ref, rtol=1e-4, atol=1e-5).all(axis=-1)
+    d = np.abs(got.astype(np.float64) - ref.astype(np.float64)).max(axis=-1)
+    worst = np.unravel_index(int(d.argmax()), d.shape)
+    st = {"off": int(bad.sum()), "share": float(bad.mean()), "max": float(d.max()),
+          "above_max": int((d > max_abs).sum()),
+          "shell_only": bool((ref[..., 3][bad] > 0.0).all()),
+          "worst_pixel": [int(worst[0]), int(worst[1])]}
+    st["ok"] = (st["share"] <= GAS_GIANT_SHARE and st["above_max"] == 0 and st["shell_only"])
+    return st
+
+
+def gas_giant_frames(device, cam_z_ulps: int = 0) -> dict:
+    """The gas giant's limb band (GAS_GIANT_SIZE, the golden's scene and
+    pose at t = 0.5; ``cam_z_ulps``: the camera that many ulps further
+    along z) through ``Scene.render`` on ``device``: the kernel's frame on
+    a card (``"kernel"``) and the plain chain on the same inputs
+    (``"plain"``), or the plain chain alone on the CPU."""
+    from godot_atmosphere_shader_tpu_torch.models.demo import (build_gas_giant_scene,
+                                                               gas_giant_camera)
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    h, w = GAS_GIANT_SIZE
+    scene = build_gas_giant_scene(device=device)
+    cam = gas_giant_camera("limb", device=device)
+    if cam_z_ulps:
+        v2w = cam.view_to_world.clone()
+        for _ in range(cam_z_ulps):
+            v2w[2, 3] = torch.nextafter(v2w[2, 3], torch.tensor(1e9, device=device))
+        cam = dataclasses.replace(cam, view_to_world=v2w)
+    scene.update(0.5, cam)
+    params, configs, tex, bands, rows = scene_plan(scene, cam, h)
+    plain = frame_array(mk.render_scene_plain(params, configs, cam, scene.opaque, h, w,
+                                              tex_data=tex, bands=bands, band_rows=rows))
+    if torch.device(device).type == "cpu":
+        return {"plain": plain}
+    mk.counters.reset()
+    kernel = frame_array(scene.render(cam, h, w))
+    if (mk.counters.clear_launches != mk.counters.megakernel_launches
+            or mk.counters.plain_calls or bands is None):
+        raise RuntimeError("the gas giant's band did not go through the cloud-free instance")
+    return {"kernel": kernel, "plain": plain}
+
+
+def gas_giant_check(device) -> dict:
+    """Phase 3i: the gas giant's limb band on the card against three
+    references, and what rounding alone does to it.  The kernel's band, the
+    plain chain on the card and on the CPU, and the JAX XLA frame
+    (GAS_GIANT_REF), each pair under the golden's statistics
+    (:func:`limb_deltas`), and the conditioning: each frame against itself
+    with the camera one ulp further along z.  The kernel is held against
+    each reference to the golden's budget, or, where one ulp of the camera
+    moves every plain frame out of it, to GAS_GIANT_CARD_MAX for its
+    largest |Δ| (the share and the shell rule stay); raises if it misses."""
+    card = gas_giant_frames(device)
+    frames = {"kernel": card["kernel"], "plain_card": card["plain"],
+              "plain_cpu": gas_giant_frames("cpu")["plain"],
+              "jax_xla": np.load(GAS_GIANT_REF)["frame"]}
+    for name, img in frames.items():
+        check_frame(img, f"gas giant {name}")
+    names = list(frames)
+    pairs = {f"{a} vs {b}": limb_deltas(frames[a], frames[b])
+             for i, a in enumerate(names) for b in names[i + 1:]}
+    moved_card = gas_giant_frames(device, cam_z_ulps=1)
+    moved_cpu = gas_giant_frames("cpu", cam_z_ulps=1)
+    conditioning = {"kernel": limb_deltas(moved_card["kernel"], card["kernel"]),
+                    "plain_card": limb_deltas(moved_card["plain"], card["plain"]),
+                    "plain_cpu": limb_deltas(moved_cpu["plain"], frames["plain_cpu"])}
+    ill = not (conditioning["plain_card"]["ok"] or conditioning["plain_cpu"]["ok"])
+    max_abs = GAS_GIANT_CARD_MAX if ill else GAS_GIANT_MAX
+    held = {ref: limb_deltas(frames["kernel"], frames[ref], max_abs)
+            for ref in ("plain_card", "plain_cpu", "jax_xla")}
+    out = {"pairs": pairs, "one_ulp_of_the_camera": conditioning, "max_abs": max_abs,
+           "kernel": held}
+    h, w = GAS_GIANT_SIZE
+    for name, st in pairs.items():
+        log(f"[gas-giant] limb band {h}x{w}, {name}: {json.dumps(st)}")
+    for name, st in conditioning.items():
+        log(f"[gas-giant] limb band {h}x{w}, {name} with the camera one ulp further along z "
+            f"against itself: {json.dumps(st)}")
+    for ref, st in held.items():
+        log(f"[gas-giant] limb band {h}x{w}, kernel vs {ref} under the budget with max |Δ| "
+            f"{max_abs} ({'card' if ill else 'golden'}): {json.dumps(st)}")
+        if not st["ok"]:
+            raise RuntimeError(f"the gas giant's band: the kernel misses its budget against "
+                               f"{ref}: {st}")
+    return out
+
+
+def deep_tex3d_pyramid(tex: torch.Tensor) -> tuple:
+    """A cubic shape texture's mip pyramid down to one texel (the port's
+    builder stops at 8³), box-filtered and packed as
+    ``texsample.build_tex3d_pyramid`` packs its levels: ``(table on the
+    texture's device, TexMeta)``."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import texsample as ts
+
+    cur = tex.detach().cpu().numpy()
+    flat, metas, base = [], [], 0
+    while True:
+        f = cur.ravel()
+        flat.append(np.pad(f, (0, (-f.size) % ts.LANES)))
+        metas.append((cur.shape[0], base))
+        base += flat[-1].size // ts.LANES
+        if cur.shape[0] == 1:
+            break
+        h = cur.shape[0] // 2
+        cur = cur.reshape(h, 2, h, 2, h, 2).mean(axis=(1, 3, 5))
+    data = ts._pack_flat(flat)
+    return (torch.as_tensor(data, device=tex.device),
+            ts.TexMeta(kind="tex3d", levels=tuple(metas), rows=data.shape[0]))
+
+
+def tex_envelope_scene(changes: dict, device, textures, pose: str = "avatar", t: float = 0.5):
+    """The texture ``clouds_high`` scene (``textures``: the demo's baked
+    shape texture and coverage cubemap) with its layer's config changed:
+    ``coverage`` or ``shape`` = ``"procedural"`` replaces that baked field
+    by the demo's procedural one (``COVERAGE_NOISE`` at ``COVERAGE_SCALE``,
+    ``SHAPE_NOISE_FAST`` over the texture's period; per step unless the
+    field's knot flag is set); ``levels`` = n makes the shape texture 4×
+    larger per axis (nearest) and gives it a pyramid of n levels down to
+    one texel (:func:`deep_tex3d_pyramid`), in the scene's pyramid cache;
+    every other key is a ``VariantConfig`` field.  Updated at ``t``."""
+    from godot_atmosphere_shader_tpu_torch.models.demo import (COVERAGE_NOISE, COVERAGE_SCALE,
+                                                               SHAPE_NOISE_FAST,
+                                                               SHAPE_TEXTURE_SIZE,
+                                                               build_demo_scene, demo_camera)
+    from godot_atmosphere_shader_tpu_torch.models.params import ProceduralField
+
+    changes = dict(changes)
+    if changes.pop("coverage", None) == "procedural":
+        changes["cloud_coverage_noise"] = ProceduralField(COVERAGE_NOISE, COVERAGE_SCALE)
+    if changes.pop("shape", None) == "procedural":
+        changes["cloud_shape_noise"] = ProceduralField(SHAPE_NOISE_FAST,
+                                                       (float(SHAPE_TEXTURE_SIZE),) * 3)
+    levels = changes.pop("levels", None)
+    shape_tex, cubemap = textures
+    if levels:
+        shape_tex = shape_tex.repeat_interleave(4, 0).repeat_interleave(4, 1).repeat_interleave(4, 2)
+    scene = build_demo_scene("clouds_high", procedural=False, device=device,
+                             textures=(shape_tex, cubemap))
+    atmo = scene.atmospheres[0]
+    atmo.set_custom_shader(dataclasses.replace(atmo.config, **changes))
+    cam = demo_camera(pose, device=device)
+    scene.update(t, cam)
+    if levels:
+        stored = scene._sorted_layers(cam)[1][0].cloud_shape_texture
+        table, meta = deep_tex3d_pyramid(stored)
+        if len(meta.levels) != levels:
+            raise RuntimeError(f"a pyramid of {len(meta.levels)} levels, not {levels}")
+        scene._tex_pyr_cache[(id(stored), "tex3d")] = (stored, (table, meta))
+    return scene, cam
+
+
+def plain_scene_frame(scene, cam, h: int, w: int) -> np.ndarray:
+    """The plain chain of what ``Scene.render`` hands the kernel."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    params, configs, tex, bands, rows = scene_plan(scene, cam, h)
+    return frame_array(mk.render_scene_plain(params, configs, cam, scene.opaque, h, w,
+                                             tex_data=tex, bands=bands, band_rows=rows))
+
+
+def tex_envelope_conditioning(device, textures, h: int, w: int) -> dict:
+    """What one ulp moves a texture-mode plain frame by, on the card: at
+    full quality (the detail knots sampled at pos·15) the camera one ulp
+    further along z; over coverage groups of 32 rows every march span one
+    ulp longer (:func:`spans_one_ulp_longer`)."""
+    out = {}
+    scene, cam = tex_envelope_scene(TEX_ENVELOPE_CASES["full quality"], device, textures)
+    a = plain_scene_frame(scene, cam, h, w)
+    v2w = cam.view_to_world.clone()
+    v2w[2, 3] = torch.nextafter(v2w[2, 3], torch.tensor(1e9, device=device))
+    cam2 = dataclasses.replace(cam, view_to_world=v2w)
+    scene.update(0.5, cam2)
+    out["full quality"] = cloud_deltas(a, plain_scene_frame(scene, cam2, h, w))
+    scene, cam = tex_envelope_scene(TEX_ENVELOPE_CASES["G = 32"], device, textures)
+    a = plain_scene_frame(scene, cam, h, w)
+    with spans_one_ulp_longer():
+        out["G = 32"] = cloud_deltas(a, plain_scene_frame(scene, cam, h, w))
+    return out
+
+
+def tex_envelope_tolerance(config, conditioning: dict) -> tuple:
+    """The tolerance a texture-envelope frame is held to, and its name: the
+    detail tolerance at full quality and the knot-group tolerance over
+    coverage groups of 32 rows, each only where its one-ulp measurement
+    (:func:`tex_envelope_conditioning`) leaves the cloud tolerance; else
+    the cloud tolerance."""
+    if (not config.clouds_always_low_quality
+            and not cloud_tolerance_ok(conditioning["full quality"])):
+        return detail_tolerance_ok, "detail"
+    if (config.cloud_lod * config.cloud_coverage_lod == TILE
+            and not cloud_tolerance_ok(conditioning["G = 32"])):
+        return knot_group_tolerance_ok, "knot group"
+    return cloud_tolerance_ok, "cloud"
+
+
+def tex_envelope_check(device, textures, h: int, w: int, conditioning: dict) -> dict:
+    """Phase 3h: each case of TEX_ENVELOPE_CASES through ``Scene.render``
+    (one launch of a texture instance, no plain call) against the plain
+    chain on the same inputs, under :func:`tex_envelope_tolerance`; which
+    instance rendered it."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    out = {}
+    for name, changes in TEX_ENVELOPE_CASES.items():
+        scene, cam = tex_envelope_scene(changes, device, textures)
+        config = scene_plan(scene, cam, h)[1][0]
+        mk.check_config(config)
+        ok, tolerance = tex_envelope_tolerance(config, conditioning)
+        err, _ = check_scene(f"texture envelope {name}", scene, cam, h, w, ok)
+        if mk.counters.texture_launches != 1:
+            raise RuntimeError(f"texture envelope {name}: not rendered by a texture instance")
+        out[name] = {"max": err, "tolerance": tolerance,
+                     "instance": ("general" if mk.counters.texture_general_launches
+                                  else "fixed")}
+    return out
+
+
+def tex_envelope_timing(scene, cam, h: int, w: int, device, plain_s: float) -> dict:
+    """Phase 4g's timing of one frame: its texture launch alone (CUDA
+    events, and device time from ``torch.profiler``) with its bound from
+    its work counters, ``Scene.render`` ms and idle share, the plain ms
+    (``plain_s``: the whole plain frame's wall time) and what its instance
+    uses (``mk.tex_info``)."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    params, configs, tex, bands, rows = scene_plan(scene, cam, h)
+    (_, struct, args), = mk.scene_launches(params, configs, cam, scene.opaque, h, w, tex_data=tex,
+                                           bands=bands, band_rows=rows)
+    color = torch.empty((h, w, 3), device=device)
+    alpha = torch.empty((h, w), device=device)
+
+    def launch(i=0):
+        mk.launch(struct, color, alpha, **args)
+
+    def frame(i):
+        scene.update(0.5 + 0.05 * i, cam)
+        scene.render(cam, h, w)
+
+    t = {"kernel_ms": time_cuda(launch, ENVELOPE_KERNEL_FRAMES),
+         "device_ms": kernel_trace(lambda: [launch() for _ in range(ENVELOPE_KERNEL_FRAMES)],
+                                   "megakernel_tex")["device_us"] / 1e3,
+         "scene_ms": time_cuda(frame, ENVELOPE_KERNEL_FRAMES)}
+    busy, _ = device_busy_ms(frame, ENVELOPE_KERNEL_FRAMES, first=2 + ENVELOPE_KERNEL_FRAMES)
+    t["scene_device_busy_ms"] = busy
+    t["scene_idle_share"] = 1.0 - busy / t["scene_ms"] if busy > 0 else None
+    scene.update(0.5, cam)
+    work = mk.work_counts(struct, color, alpha, **args)
+    table_bytes = sum(x.numel() * 4 for x in tex[0] if x is not None)
+    t.update(roofline(work, configs[0], h, w, table_bytes), work=work)
+    t["plain_ms"] = plain_s * 1e3
+    t["instance"] = mk.tex_info(struct, args["tex"][0])
+    return t
+
+
+def both_texture_instances(device, textures, h: int, w: int) -> dict:
+    """Bench cell 6 (``clouds_high`` texture at avatar, the demo's profile)
+    through both texture instances: the fixed one, as the launcher picks
+    it, and the general one, reached by a copy of the pyramid struct whose
+    ``shape_knots`` (which only the launcher's choice of the fixed instance
+    reads) is -1; each launch timed (events and device time), the two
+    frames compared."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    scene, cam = scene_and_camera("clouds_high", "avatar", device, textures=textures)
+    params, configs, tex, bands, rows = scene_plan(scene, cam, h)
+    (_, struct, args), = mk.scene_launches(params, configs, cam, scene.opaque, h, w, tex_data=tex,
+                                           bands=bands, band_rows=rows)
+    tparams, *tables = args["tex"]
+    general = mk.TexParams.from_buffer_copy(tparams)
+    general.shape_knots = -1
+    out, frames = {}, {}
+    for name, tp in (("fixed", tparams), ("general", general)):
+        color = torch.empty((h, w, 3), device=device)
+        alpha = torch.empty((h, w), device=device)
+
+        def launch(i=0, tp=tp, color=color, alpha=alpha):
+            mk.launch(struct, color, alpha, tex=(tp, *tables))
+
+        launch()
+        frames[name] = frame_array({"color": color, "alpha": alpha})
+        out[name] = {"ms": time_cuda(launch, ENVELOPE_KERNEL_FRAMES),
+                     "device_ms": kernel_trace(lambda: [launch() for _ in range(
+                         ENVELOPE_KERNEL_FRAMES)], "megakernel_tex")["device_us"] / 1e3,
+                     "instance": mk.tex_info(struct, tp)}
+    out["general_vs_fixed"] = cloud_deltas(frames["general"], frames["fixed"])
+    out["bit_equal"] = bool(np.array_equal(frames["general"], frames["fixed"]))
+    return out
+
+
+def tex_envelope_frames(device, textures, h: int, w: int, conditioning: dict) -> dict:
+    """Phase 4g: the frames of TEX_ENVELOPE_FRAMES through ``Scene.render``
+    (counters: one launch of the general texture instance each, no plain
+    call), each held against the whole plain frame on the same inputs under
+    :func:`tex_envelope_tolerance`, then timed (:func:`tex_envelope_timing`).
+    Returns ``{"launches": the general instance's launches, "frames":
+    {name: timing, check and tolerance}}``."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import texsample as ts
+
+    runs = {}
+    mk.counters.reset()
+    ts.counters.reset()
+    for name, changes in TEX_ENVELOPE_FRAMES.items():
+        scene, cam = tex_envelope_scene(changes, device, textures)
+        runs[name] = (scene, cam, frame_array(scene.render(cam, h, w)))
+    torch.cuda.synchronize()
+    counts = (mk.counters.megakernel_launches, mk.counters.texture_launches,
+              mk.counters.texture_general_launches,
+              mk.counters.plain_calls + ts.counters.plain_sky_calls)
+    log(f"[tex-envelope] counters after {len(runs)} {h}x{w} Scene.render frames: K1 {counts[0]}, "
+        f"texture {counts[1]} (general {counts[2]}), plain {counts[3]}")
+    if counts != (len(runs),) * 3 + (0,):
+        raise RuntimeError("the texture envelope's frames did not all go through the general "
+                           "texture instance")
+    out = {"launches": counts[2], "frames": {}}
+    for name, (scene, cam, img) in runs.items():
+        check_frame(img, f"{h}x{w} {name}")
+        config = scene_plan(scene, cam, h)[1][0]
+        ok, tolerance = tex_envelope_tolerance(config, conditioning)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ref = plain_scene_frame(scene, cam, h, w)
+        plain_s = time.time() - t0
+        st = cloud_deltas(img, ref)
+        log(f"[tex-envelope] {name} {h}x{w} kernel vs the whole plain frame ({tolerance} "
+            f"tolerance): {json.dumps(st)}")
+        if not ok(st):
+            raise RuntimeError(f"{name}: the {h}x{w} kernel frame disagrees with plain")
+        out["frames"][name] = dict(tex_envelope_timing(scene, cam, h, w, device, plain_s),
+                                   check=st, tolerance=tolerance)
+    return out
 
 
 def opaque_only_check(device, h: int, w: int, pano=None) -> float:
@@ -1906,7 +2331,8 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true",
                     help="stop after the small checks: 256×384 frames, K2 alone, K3 alone, "
                          "TAA flights, the exterior and multi-planet frames, the sky, the "
-                         "row shards and the procedural envelope (phases 7b, 3 to 3g)")
+                         "row shards, the procedural and texture envelopes and the gas "
+                         "giant's band (phases 7b, 3 to 3i)")
     args = ap.parse_args(argv)
 
     # -- 1. device ----------------------------------------------------------
@@ -2127,6 +2553,18 @@ def main(argv=None) -> int:
         f"{json.dumps(span)}")
     knot_groups = knot_group_check(device, h, w, span)
     log(f"[envelope] {len(knot_groups)} knot-group cases {h}x{w}: {json.dumps(knot_groups)}")
+
+    # -- 3h. K1 slice (i), the texture envelope, small -------------------------
+    th, tw = TEX_ENVELOPE_SIZE
+    tex_cond = tex_envelope_conditioning(device, textures, th, tw)
+    log(f"[tex-envelope] one ulp of the camera (full quality) and of every march span "
+        f"(G = 32), plain against plain {th}x{tw}: {json.dumps(tex_cond)}")
+    tex_small = tex_envelope_check(device, textures, th, tw, tex_cond)
+    log(f"[tex-envelope] {len(tex_small)} cases {th}x{tw}, one texture launch each, no plain "
+        f"call: {json.dumps(tex_small)}")
+
+    # -- 3i. the gas giant's limb band against three references -----------------
+    gas_giant = gas_giant_check(device)
     if args.quick:
         return 1
 
@@ -2419,6 +2857,19 @@ def main(argv=None) -> int:
         img = frame_array(out)
         check_frame(img, f"1080p {name}")
         env_check[name] = check_envelope_frame(name, scene, cam, img, H, W)
+
+    # -- 4g. K1 slice (i): the texture envelope's frames at 1080p, each against
+    # the whole plain frame, then timed ------------------------------------------
+    tex_env = tex_envelope_frames(device, textures, H, W, tex_cond)
+    for name, t in tex_env["frames"].items():
+        log(f"[tex-envelope-time] {name} 1080p on {card}: "
+            f"{json.dumps({k: v for k, v in t.items() if k != 'work'})}")
+        log(f"[tex-envelope-time] {name} work: {json.dumps(t['work'])}")
+    both = both_texture_instances(device, textures, H, W)
+    log(f"[tex-envelope-time] bench cell 6 (the demo's texture profile) through both texture "
+        f"instances on {card}: {json.dumps(both)}")
+    log(f"[tex-envelope-time] after timing: "
+        f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
     # -- 5. timing -------------------------------------------------------------
     timings, bounds = {}, {}
@@ -2837,6 +3288,7 @@ def main(argv=None) -> int:
         "bound_ms": band7["bound_ms"],
         "bound_by": band7["bound_by"],
         "work": band7["work"],
+        "gas_giant_limb": {"max_abs": gas_giant["max_abs"], "kernel": gas_giant["kernel"]},
         "library_ms": None,
     }, {
         "name": "megakernel_tex",
@@ -2856,6 +3308,36 @@ def main(argv=None) -> int:
         "plain_ms": timings[tex_flagship]["plain_ms"],
         "bound_ms": bounds[tex_flagship]["bound_ms"],
         "bound_by": bounds[tex_flagship]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "megakernel_tex_general",
+        "slice": ("K1 slice (i): the texture envelope, megakernel_tex_general: a baked field "
+                  "beside a procedural one, full quality, any knot count, knot group and LOD "
+                  f"group (ms, bound_ms, plain_ms: the {TEX_REF_FRAME} at 1080p, G = 1; "
+                  "frames: each 4g frame's)"),
+        "route": "cuda",
+        "source": "godot_atmosphere_shader_tpu_torch/csrc/megakernel.cu",
+        "replaces": ("godot_atmosphere_shader_tpu/ops/pallas/megakernel.py:171 (the texture "
+                     "envelope of _check_config, :468-496, through :636), with "
+                     "godot_atmosphere_shader_tpu/ops/pallas/texsample.py:348 and :544 "
+                     "inside"),
+        "launches": tex_env["launches"],
+        "max_abs_err": max(v["check"]["max"] for v in tex_env["frames"].values()),
+        "small_max_abs_err": max(v["max"] for v in tex_small.values()),
+        "small_cases": tex_small,
+        "instance": tex_env["frames"][TEX_REF_FRAME]["instance"],
+        "ms": tex_env["frames"][TEX_REF_FRAME]["kernel_ms"],
+        "device_ms": tex_env["frames"][TEX_REF_FRAME]["device_ms"],
+        "plain_ms": tex_env["frames"][TEX_REF_FRAME]["plain_ms"],
+        "bound_ms": tex_env["frames"][TEX_REF_FRAME]["bound_ms"],
+        "bound_by": tex_env["frames"][TEX_REF_FRAME]["bound_by"],
+        "frames": {k: {"ms": v["kernel_ms"], "device_ms": v["device_ms"],
+                       "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
+                       "plain_ms": v["plain_ms"], "scene_ms": v["scene_ms"],
+                       "idle_share": v["scene_idle_share"], "tolerance": v["tolerance"],
+                       "instance": v["instance"]}
+                   for k, v in tex_env["frames"].items()},
+        "bench_cell_6_both_instances": both,
         "library_ms": None,
     }, {
         "name": "megakernel_sky",

@@ -1,18 +1,23 @@
 """Two builds of the frame megakernel (its instances ``megakernel_gen``,
-``megakernel_tex``, ``megakernel_clear``) and of the TAA resolve
-(``taa_kernel``) on one card, in turns.
+``megakernel_tex``, ``megakernel_tex_general``, ``megakernel_clear``) and
+of the TAA resolve (``taa_kernel``) on one card, in turns.
 
     python3 compare_megakernel.py PARENT_MEGAKERNEL_CU [PARENT_TAA_CU]
+        [--groups procedural,texture,tex_envelope,clear,flights,k3]
 
 Builds, all ``nvcc`` at once, the checkout's kernel library and one of the
 parent's sources (another commit's ``csrc/megakernel.cu`` and, when given,
 its ``csrc/taa.cu``, copied under ``build/compare/parent/`` with the
 queries ``megakernel_gen_info``, ``megakernel_tex_info``,
 ``megakernel_clear_info``, ``megakernel_work_slots`` and ``taa_info``
-appended where it has none, beside the checkout's other kernel sources),
-and each side's measurement build.  Then the sides run in turns,
+appended where it has none, and the checkout's layout of the texture
+launch struct where it predates it, beside the checkout's other kernel
+sources), and each side's measurement build.  Then the sides run in turns,
 ``parent, change, change, parent``; each pass takes, through that side's
-library:
+library, the groups ``--groups`` names (default: all; ``tex_envelope``,
+``chip_smoke.py`` phase 3h's cases at 64×128 and phase 4g's frames at
+1080p, runs on the change alone against a parent without
+``megakernel_tex_general``, its second pass held against its first):
 
 * the main path's 1080p frames (the flagship
   ``clouds_high``/avatar, ``clouds_high``/interior, ``clouds``/avatar,
@@ -199,12 +204,29 @@ def gen_report(ptxas: str) -> dict:
     return out
 
 
+def parent_tex_params(source: str) -> str:
+    """A parent's ``megakernel.cu`` whose texture launch struct predates
+    the fields' sources (``shape_source``, ``cov_source``) and 16 pyramid
+    levels, given the checkout's layout of ``TexParams``: the levels'
+    arrays lengthened and the two fields appended.  Its kernels read the
+    struct by field, so what they compute does not change."""
+    if "shape_source" in source:
+        return source
+    source = re.sub(r"#define MK_MAX_LEVELS \d+", "#define MK_MAX_LEVELS 16", source)
+    return re.sub(r"(struct TexParams \{.*?)(\n\};)",
+                  r"\1\n  int shape_source;\n  int cov_source;\2", source, count=1, flags=re.S)
+
+
 def parent_copy(path: str, name: str, parent_dir: str) -> str:
     """A parent's source copied into ``parent_dir`` as ``name`` (the
     checkout's source it stands for) with the shims of the queries it lacks
-    appended (:data:`SHIMS`); returns the copy's path."""
+    appended (:data:`SHIMS`) and, for ``megakernel.cu``, the checkout's
+    layout of the texture launch struct (:func:`parent_tex_params`);
+    returns the copy's path."""
     with open(path) as f:
         source = f.read()
+    if name == "megakernel.cu":
+        source = parent_tex_params(source)
     for query, shim in SHIMS.get(name, ()):
         if query not in source:
             source += shim
@@ -287,10 +309,11 @@ class Case:
     """One frame of the comparison: its launches far to near (each ``(kind,
     struct, args, planes, shard?)``), the cloud layers timed."""
 
-    def __init__(self, label, scene, cam, h, w, launches, config_of):
+    def __init__(self, label, scene, cam, h, w, launches, config_of, group=None):
         self.label, self.scene, self.cam, self.h, self.w = label, scene, cam, h, w
         self.launches = launches
         self.config_of = config_of  # launch index -> its layer's config
+        self.group = group
 
     def run_all(self):
         from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
@@ -312,7 +335,7 @@ class Case:
                 if st.clouds_enabled and st.with_atmosphere]
 
 
-def plan_case(label, scene, cam, h, w, device) -> Case:
+def plan_case(label, scene, cam, h, w, device, group=None) -> Case:
     """A frame's launches as ``Scene.render`` plans them, on one set of
     planes."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
@@ -327,7 +350,7 @@ def plan_case(label, scene, cam, h, w, device) -> Case:
     layer_of = ([0] if launches[0][0] == "opaque" else []) + list(range(len(configs)))
     return Case(label, scene, cam, h, w,
                 [(kind, st, args, planes, False) for kind, st, args in launches],
-                {i: configs[li] for i, li in enumerate(layer_of)})
+                {i: configs[li] for i, li in enumerate(layer_of)}, group)
 
 
 def shard_case(label, scene, cam, h, w, n, device) -> Case:
@@ -359,61 +382,87 @@ SMALL_SIZE = (64, 128)
 GAS_GIANT_SMALL = (192, 128)
 
 
-def cases(device, textures) -> list:
-    """The frames compared."""
+#: the comparison's groups of frames and resolves (``--groups``)
+GROUPS = ("procedural", "texture", "tex_envelope", "clear", "flights", "k3")
+
+
+def cases(device, textures, groups=GROUPS) -> list:
+    """The frames compared, of the given groups: ``procedural`` (the main
+    path's procedural frames, the flagship on 2 shards, cell 5, the
+    envelope frames), ``texture`` (the fixed texture instance's frames),
+    ``tex_envelope`` (``chip_smoke.py`` phase 3h's cases at 64×128 and
+    phase 4g's frames at 1080p: the general texture instance, and the fixed
+    one beyond the demo's profile),
+    ``clear`` (the cloud-free instance's frames)."""
     H, W = cs.FULL_SIZE
-    pano = cs.synthetic_panorama(*cs.PANO_SIZE)
+    pano = cs.synthetic_panorama(*cs.PANO_SIZE) if {"texture", "procedural", "clear"} & set(
+        groups) else None
     out = []
-    for cell, kind, pose, ch, cw in cs.BENCH_CELLS:
-        if cell == "5":
-            continue
+    if "clear" in groups:
+        for cell, kind, pose, ch, cw in cs.BENCH_CELLS:
+            if cell == "5":
+                continue
+            scene, cam = cs.build_scene(kind, device), cs.scene_camera(kind, pose, device)
+            scene.update(0.5, cam)
+            out.append(plan_case(f"cell {cell}", scene, cam, ch, cw, device))
+        allon = cs.with_panorama(cs.build_scene("allon", device, textures), pano)
+        cam = cs.scene_camera("allon", "space", device)
+        allon.update(0.25, cam)
+        out.append(plan_case("everything-on/space with the sky", allon, cam, H, W, device))
+        scene = cs.build_scene("gas_giant", device)
+        cam = cs.scene_camera("gas_giant", "limb", device)
+        scene.update(0.5, cam)
+        out.append(plan_case(f"cell 7 {GAS_GIANT_SMALL[0]}x{GAS_GIANT_SMALL[1]}", scene, cam,
+                             *GAS_GIANT_SMALL, device))
+    if "procedural" in groups:
+        for variant, pose in SMALL_CASES:
+            scene, cam = cs.scene_and_camera(variant, pose, device)
+            out.append(plan_case(f"{variant}/{pose} {SMALL_SIZE[0]}x{SMALL_SIZE[1]}", scene,
+                                 cam, *SMALL_SIZE, device))
+    if "texture" in groups:
+        scene, cam = cs.scene_and_camera("clouds_high", "avatar", device, textures=textures)
+        out.append(plan_case(f"clouds_high texture/avatar {SMALL_SIZE[0]}x{SMALL_SIZE[1]}",
+                             scene, cam, *SMALL_SIZE, device))
+    if "tex_envelope" in groups:
+        for name, changes in cs.TEX_ENVELOPE_CASES.items():
+            scene, cam = cs.tex_envelope_scene(changes, device, textures)
+            out.append(plan_case(f"texture envelope {name} {SMALL_SIZE[0]}x{SMALL_SIZE[1]}",
+                                 scene, cam, *SMALL_SIZE, device, group="tex_envelope"))
+        for name, changes in cs.TEX_ENVELOPE_FRAMES.items():
+            scene, cam = cs.tex_envelope_scene(changes, device, textures)
+            out.append(plan_case(name, scene, cam, H, W, device, group="tex_envelope"))
+    if "procedural" in groups:
+        for variant, pose in (("clouds_high", "avatar"), ("clouds_high", "interior"),
+                              ("clouds", "avatar")):
+            scene, cam = cs.scene_and_camera(variant, pose, device)
+            out.append(plan_case(f"{variant}/{pose}", scene, cam, H, W, device))
+    if "texture" in groups:
+        for pose in cs.TEXTURE_POSES:
+            scene, cam = cs.scene_and_camera("clouds_high", pose, device, textures=textures)
+            out.append(plan_case(f"clouds_high texture/{pose}", scene, cam, H, W, device))
+        allon = cs.with_panorama(cs.build_scene("allon", device, textures), pano)
+        cam = cs.scene_camera("allon", "avatar", device)
+        allon.update(0.25, cam)
+        out.append(plan_case("everything-on/avatar with the sky", allon, cam, H, W, device))
+        SH, SW = cs.SHARD_SIZE
+        out.append(shard_case(f"everything-on/avatar {SH}x{SW} on {cs.SHARDS} shards", allon,
+                              cam, SH, SW, cs.SHARDS, device))
+    if "procedural" in groups:
+        for pose in ("avatar", "sunward"):
+            scene = cs.with_panorama(cs.build_scene("clouds_high", device), pano)
+            cam = cs.scene_camera("clouds_high", pose, device)
+            scene.update(0.5, cam)
+            out.append(plan_case(f"clouds_high/{pose} with the sky", scene, cam, H, W, device))
+        _, kind, pose, ch, cw = [c for c in cs.BENCH_CELLS if c[0] == "5"][0]
         scene, cam = cs.build_scene(kind, device), cs.scene_camera(kind, pose, device)
         scene.update(0.5, cam)
-        out.append(plan_case(f"cell {cell}", scene, cam, ch, cw, device))
-    allon = cs.with_panorama(cs.build_scene("allon", device, textures), pano)
-    cam = cs.scene_camera("allon", "space", device)
-    allon.update(0.25, cam)
-    out.append(plan_case("everything-on/space with the sky", allon, cam, H, W, device))
-    scene, cam = cs.build_scene("gas_giant", device), cs.scene_camera("gas_giant", "limb", device)
-    scene.update(0.5, cam)
-    out.append(plan_case(f"cell 7 {GAS_GIANT_SMALL[0]}x{GAS_GIANT_SMALL[1]}", scene, cam,
-                         *GAS_GIANT_SMALL, device))
-    for variant, pose in SMALL_CASES:
-        scene, cam = cs.scene_and_camera(variant, pose, device)
-        out.append(plan_case(f"{variant}/{pose} {SMALL_SIZE[0]}x{SMALL_SIZE[1]}", scene, cam,
-                             *SMALL_SIZE, device))
-    scene, cam = cs.scene_and_camera("clouds_high", "avatar", device, textures=textures)
-    out.append(plan_case(f"clouds_high texture/avatar {SMALL_SIZE[0]}x{SMALL_SIZE[1]}", scene,
-                         cam, *SMALL_SIZE, device))
-    for variant, pose in (("clouds_high", "avatar"), ("clouds_high", "interior"),
-                          ("clouds", "avatar")):
-        scene, cam = cs.scene_and_camera(variant, pose, device)
-        out.append(plan_case(f"{variant}/{pose}", scene, cam, H, W, device))
-    for pose in cs.TEXTURE_POSES:
-        scene, cam = cs.scene_and_camera("clouds_high", pose, device, textures=textures)
-        out.append(plan_case(f"clouds_high texture/{pose}", scene, cam, H, W, device))
-    allon = cs.with_panorama(cs.build_scene("allon", device, textures), pano)
-    cam = cs.scene_camera("allon", "avatar", device)
-    allon.update(0.25, cam)
-    out.append(plan_case("everything-on/avatar with the sky", allon, cam, H, W, device))
-    SH, SW = cs.SHARD_SIZE
-    out.append(shard_case(f"everything-on/avatar {SH}x{SW} on {cs.SHARDS} shards", allon, cam,
-                          SH, SW, cs.SHARDS, device))
-    for pose in ("avatar", "sunward"):
-        scene = cs.with_panorama(cs.build_scene("clouds_high", device), pano)
-        cam = cs.scene_camera("clouds_high", pose, device)
-        scene.update(0.5, cam)
-        out.append(plan_case(f"clouds_high/{pose} with the sky", scene, cam, H, W, device))
-    _, kind, pose, ch, cw = [c for c in cs.BENCH_CELLS if c[0] == "5"][0]
-    scene, cam = cs.build_scene(kind, device), cs.scene_camera(kind, pose, device)
-    scene.update(0.5, cam)
-    out.append(plan_case("cell 5", scene, cam, ch, cw, device))
-    scene, cam = cs.scene_and_camera("clouds_high", "avatar", device)
-    out.append(shard_case(f"clouds_high/avatar on {cs.FLAGSHIP_SHARDS} shards", scene, cam, H, W,
-                          cs.FLAGSHIP_SHARDS, device))
-    for name in cs.ENVELOPE_FRAMES:
-        scene, cam = cs.envelope_scene(name, device)
-        out.append(plan_case(name, scene, cam, H, W, device))
+        out.append(plan_case("cell 5", scene, cam, ch, cw, device))
+        scene, cam = cs.scene_and_camera("clouds_high", "avatar", device)
+        out.append(shard_case(f"clouds_high/avatar on {cs.FLAGSHIP_SHARDS} shards", scene, cam,
+                              H, W, cs.FLAGSHIP_SHARDS, device))
+        for name in cs.ENVELOPE_FRAMES:
+            scene, cam = cs.envelope_scene(name, device)
+            out.append(plan_case(name, scene, cam, H, W, device))
     return out
 
 
@@ -529,7 +578,7 @@ def bound(case: Case, i: int, work: dict) -> dict:
         cost = cs.sky_cost(case.cam, case.h, case.w, case.scene._pano_plan()[1],
                            in_block=args["tex"] is not None, row0=st.row0, rows=st.rows)
     tl = args["tex"]
-    table_bytes = 0 if tl is None else sum(x.numel() * 4 for x in tl[1:])
+    table_bytes = 0 if tl is None else sum(x.numel() * 4 for x in tl[1:] if x is not None)
     b = cs.roofline(work, case.config_of[i], case.h, case.w, table_bytes,
                     frame_bytes=st.rows * case.w * per_px, sky_bytes=cost.get("sky_bytes", 0),
                     sky_choice_ops=cost.get("sky_choice_ops", 0))
@@ -544,7 +593,8 @@ def instance(st, args) -> dict:
         return {"instance": "clear", **mk.clear_info(st)}
     if args["tex"] is None:
         return {"instance": "gen", **mk.gen_info(st)}
-    return {"instance": "tex", **mk.tex_info(st, args["tex"][0])}
+    fixed = mk._fixed_launch(st, args["tex"][0])
+    return {"instance": "tex" if fixed else "tex_general", **mk.tex_info(st, args["tex"][0])}
 
 
 def one_pass(all_cases: list, all_flights: dict, ref_dir: str) -> dict:
@@ -555,7 +605,7 @@ def one_pass(all_cases: list, all_flights: dict, ref_dir: str) -> dict:
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     out = {}
-    for n, case in enumerate(all_cases):
+    for case in all_cases:
         case.run_all()  # the planes the chained launches read
         rows = []
         for i in range(len(case.launches)):
@@ -571,7 +621,7 @@ def one_pass(all_cases: list, all_flights: dict, ref_dir: str) -> dict:
                          "lane_utilisation": cs.lane_utilisation(work), **instance(st, args),
                          **bound(case, i, work)})
         img = case.frame()
-        ref_path = os.path.join(ref_dir, f"{n}.npy")
+        ref_path = os.path.join(ref_dir, re.sub(r"\W+", "_", case.label) + ".npy")
         if not os.path.exists(ref_path):
             np.save(ref_path, img)
         d = np.abs(img.astype(np.float64) - np.load(ref_path))
@@ -623,12 +673,15 @@ def run_pass(args) -> int:
     cs.PEAK.update(fp32=args.peak_fp32, int32=args.peak_int32)
     device = torch.device("cuda", 0)
     textures = bake_demo_textures(device=device)
-    all_cases = cases(device, textures)
+    groups = args.groups.split(",")
+    all_cases = cases(device, textures, groups)
     if args.stages:
         result = stage_pass([c for c in all_cases if c.clouds()])
     else:
-        result = one_pass(all_cases, flights(device, textures), args.reference)
-        result.update(resolve_pass(resolves(device), args.reference))
+        result = one_pass(all_cases, flights(device, textures) if "flights" in groups else {},
+                          args.reference)
+        if "k3" in groups:
+            result.update(resolve_pass(resolves(device), args.reference))
     with open(args.out, "w") as f:
         json.dump(result, f)
     return 0
@@ -681,11 +734,34 @@ def summarise(runs: dict, sides: list, label: str) -> dict:
                        for a, b in zip(launches, first["launches"])),
                    "lane_utilisation": [x["lane_utilisation"] for x in launches],
                    "work": [x["work"] for x in launches],
-                   "instance": [{k: x[k] for k in ("instance", *(
-                       mk.GEN_INFO if x["instance"] == "gen" else mk.TEX_INFO
-                       if x["instance"] == "tex" else mk.CLEAR_INFO))}
+                   "instance": [{k: x[k] for k in ("instance", *mk_info(x["instance"]))}
                                 for x in launches]}
     return s
+
+
+def summarise_alone(passes: list, label: str) -> dict:
+    """A frame that only the change renders (a group the parent has no
+    instance for): its passes' times, bound, work, instance, and the second
+    pass against the first (max |Δ|)."""
+    launches = passes[0][label]["launches"]
+    bound_ms = sum(x["bound_ms"] for x in launches)
+    best = min(r[label]["ms"] for r in passes)
+    return {"bound_ms": bound_ms, "bound_by": [x["bound_by"] for x in launches],
+            "ms": [r[label]["ms"] for r in passes], "best_ms": best,
+            "bound_share": bound_ms / best,
+            "launch_device_ms": [min(r[label]["launches"][i]["device_ms"] for r in passes)
+                                 for i in range(len(launches))],
+            "max_vs_first_pass": max(r[label]["vs_reference_max"] for r in passes),
+            "work": [x["work"] for x in launches],
+            "instance": [{k: x[k] for k in ("instance", *mk_info(x["instance"]))}
+                         for x in launches]}
+
+
+def mk_info(kind: str) -> tuple:
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    return (mk.GEN_INFO if kind == "gen" else mk.TEX_INFO if kind.startswith("tex")
+            else mk.CLEAR_INFO)
 
 
 def main(argv=None) -> int:
@@ -700,6 +776,11 @@ def main(argv=None) -> int:
     ap.add_argument("--stages", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--peak-fp32", type=float, help=argparse.SUPPRESS)
     ap.add_argument("--peak-int32", type=float, help=argparse.SUPPRESS)
+    ap.add_argument("--groups", default=",".join(GROUPS),
+                    help=f"the groups compared, comma-separated (default: all of "
+                         f"{', '.join(GROUPS)}); a group the parent's source has no instance "
+                         f"for (tex_envelope before megakernel_tex_general) runs on the change "
+                         f"alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the comparison needs one GPU")
@@ -729,11 +810,18 @@ def main(argv=None) -> int:
     ref_dir = os.path.join(COMPARE_DIR, "reference")
     os.makedirs(ref_dir)
 
+    with open(args.parent_cu) as f:
+        parent_general = "megakernel_tex_general" in f.read()
+    groups = args.groups.split(",")
+
     def start(side: str, lib: str, stages: bool = False) -> dict:
         out = os.path.join(COMPARE_DIR, f"pass-{side.replace('/', '-')}.json")
+        mine = [g for g in groups
+                if g != "tex_envelope" or parent_general or side.startswith("change")]
         cmd = [sys.executable, os.path.abspath(__file__), "--library", lib, "--out", out,
                "--reference", ref_dir, "--peak-fp32", repr(cs.PEAK["fp32"]),
-               "--peak-int32", repr(cs.PEAK["int32"])] + (["--stages"] if stages else [])
+               "--peak-int32", repr(cs.PEAK["int32"]), "--groups", ",".join(mine)] + (
+                   ["--stages"] if stages else [])
         subprocess.run(cmd, check=True)
         with open(out) as f:
             return json.load(f)
@@ -751,6 +839,10 @@ def main(argv=None) -> int:
                f"{json.dumps(start(f'{side}-stages', paths[f'{side}/stages'], stages=True))}")
     for label in runs["parent"][0]:
         cs.log(f"[compare] {label} on {card}: {json.dumps(summarise(runs, sides, label))}")
+    for label in runs["change"][0]:
+        if label not in runs["parent"][0]:
+            cs.log(f"[compare] {label} (the change alone) on {card}: "
+                   f"{json.dumps(summarise_alone(runs['change'], label))}")
     cs.log(card)
     return 0
 

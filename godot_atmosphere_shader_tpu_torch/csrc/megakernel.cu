@@ -2,11 +2,13 @@
 // starfield or the panorama sky), v1 or v2 atmosphere (v2 with analytic sun
 // optical depth), cloud march (cheap or sun-marched light) and composite, in
 // one launch per atmosphere layer.
-// Three instances: the procedural instance (megakernel_gen: every
+// Four instances: the procedural instance (megakernel_gen: every
 // procedural cloud config, below), the cloud-free instance (megakernel_clear:
-// cloud-free layers and the opaque-only pass) and texture mode, whose cloud
-// fields are baked textures sampled through mip pyramids by the K2 device
-// functions below.
+// cloud-free layers and the opaque-only pass) and texture mode, whose baked
+// cloud fields are sampled through mip pyramids by the K2 device functions
+// below: the fixed instance (megakernel_tex: the demo's profile) and the
+// general one (megakernel_tex_general: a baked field beside a procedural
+// one, full quality, any knot count, knot group and LOD group).
 //
 // Replaces the TPU Pallas kernels
 //   godot_atmosphere_shader_tpu/ops/pallas/megakernel.py::_make_kernel
@@ -148,8 +150,10 @@
 // over a coverage group of 32 rows, whose knots lie along a mean span up to
 // ~1e5 units long: one ulp of one pixel's span moves a column of 32 pixels.
 //
-// The texture instance (megakernel_tex<K, KS, G>, G = cloud_lod *
-// coverage_lod = 4 or 8 rows per thread): the same per-pixel arithmetic
+// The fixed texture instance (megakernel_tex<K, KS, G>, G = cloud_lod *
+// coverage_lod = 4 or 8 rows per thread, both fields baked, K = 8 coverage
+// and KS = 16 shape knots, low quality; any knot group and pyramid depth):
+// the same per-pixel arithmetic
 // minus the noise, each coverage group's 26 knots sampled from the
 // L2-resident pyramids in batches whose level and mode come from the whole
 // 32 x 128 tile.  What bounds it on an H100: the coarse pass (the opaque
@@ -170,6 +174,12 @@
 // after the barriers, did 2 % fewer warp-cycles but was 0.7 % slower at
 // the avatar pose and 4 % slower on one wave of 256-row shards, and
 // thread-block clusters of 2 and 4 CTAs per tile 1.5-14 % slower.
+//
+// The general texture instance (megakernel_tex_general, K1 slice (i)) takes
+// every other texture config the TPU kernel renders: its design, one block
+// per tile whose batches' choices are made first over all of the tile's
+// coverage groups and whose groups are then sampled and marched one at a
+// time, is described at the kernel.
 //
 // The panorama sky (megakernel.py:212-222, :334-336; with_sky): the launch
 // that runs the opaque pass (a fused layer or the opaque-only pass) samples
@@ -201,9 +211,9 @@
 #define MK_MAX_SPHERES 8
 #define MK_MAX_BOXES 4
 #define MK_MAX_OCTAVES 8
-#define MK_MAX_GROUP 8  // texture instance: rows per thread, knots per batch
+#define MK_MAX_GROUP 8  // the fixed texture instance's rows per thread
 #define MK_QUAD_POINTS 8
-#define MK_KNOTS 8  // texture instance: coverage knots
+#define MK_KNOTS 8  // the fixed texture instance's coverage knots
 // the procedural instance's dynamic shared memory, in rows of one float per
 // thread of a 128-thread block (512 B): at most the 454 rows (232,448 B) a
 // block may use; each coarse pixel of the group takes 6 rows of march
@@ -211,8 +221,8 @@
 #define MK_SMEM_ROWS 454
 #define MK_GEN_MARCH_ROWS 6
 #define MK_GEN_CACHE_ROWS 4
-#define MK_SHAPE_KNOTS 16  // texture mode's shape knots
-#define MK_MAX_LEVELS 8    // mip levels of a pyramid
+#define MK_SHAPE_KNOTS 16  // the fixed texture instance's shape knots
+#define MK_MAX_LEVELS 16   // mip levels of a pyramid (the launch struct's arrays)
 #define MK_TILE_ROWS 32    // texture mode: one block per TPU tile
 #define MK_TILE_COLS 128
 // the sky's pre-pass: threads per column of a tile, and rows per thread
@@ -402,8 +412,15 @@ struct TexParams {
   int band_rows;                   // 0: no banded mode
   int band_max_slices;
   int knot_group;                  // knots per batch
-  int shape_knots;                 // must be MK_SHAPE_KNOTS
+  int shape_knots;                 // VariantConfig.cloud_shape_knots
+  int shape_source;                // MK_SRC_*: where the shape field comes from
+  int cov_source;                  // MK_SRC_*: where the coverage field comes from
 };
+
+// Where a texture-mode field comes from (TexParams.shape_source,
+// cov_source): knots sampled from its pyramid, knots evaluated from its
+// procedural spec, or its procedural spec per step and per sun sample
+constexpr int MK_SRC_PYRAMID = 0, MK_SRC_KNOTS = 1, MK_SRC_STEP = 2;
 
 // ---------------------------------------------------------------------------
 // Vector helpers (plain C++ arithmetic; the build lets the compiler contract
@@ -2225,6 +2242,433 @@ __global__ void __launch_bounds__(tex_threads(G), tex_min_blocks(G))
   clk.count(work);
 }
 
+// ---------------------------------------------------------------------------
+// Texture mode, every other config (megakernel_tex_general, K1 slice (i)):
+// a baked field beside a procedural one, full quality (the detail knots),
+// any coverage and shape knot count, any knot group, any LOD group of G =
+// cloud_lod * coverage_lod rows dividing the 32-row tile.  The fixed
+// instance above keeps the demo's profile (K = 8, KS = 16, both fields
+// baked, low quality, G = 4 or 8); this one takes the rest of the JAX
+// kernel's envelope (_check_config, megakernel.py:468-496).
+//
+// What is hard: a knot batch's mip level and mode come from its knots'
+// coordinates over the whole 32 x 128 tile, so the choice needs every
+// coverage group of the tile first, and at G = 1 a tile is 4,096 groups:
+// their knots (26 floats each) would take 425 KB, and one thread per group
+// 4,096 threads.  So the choice is separated from the samples.  One block
+// per tile of 128 x R threads (R = 4, 2 or 1 thread rows: the launcher
+// takes the most whose shared memory fits), each thread taking the tile's
+// group rows ty, ty + R, ...:
+//   A. every group's coarse inputs (rays and linear depths, no shading) and
+//      its knot inputs (mean model-space ray, mean span) into shared memory
+//      (5 floats per group: 80 KB at G = 1), and the tile's visibility;
+//   B. per knot batch of a baked field, the block's min and max of its
+//      knots' coordinates over every group of the tile, hence the batch's
+//      choice, into shared memory (a few ints per batch);
+//   C. per group, one at a time: the coarse inputs again, with each coarse
+//      pixel's march inputs into shared memory; the group's knots (sampled
+//      with their batch's choice, or evaluated from a procedural spec) into
+//      the thread's knot rows; the cull; the march; each row shaded,
+//      blended with its coarse pixel's clouds and stored.
+// A pixel's opaque pass runs three times (A, C's coarse inputs, C's
+// shading), its atmosphere once.  What bounds it is what bounds the other
+// instances (the atmosphere, the march, the procedural noise of a mixed
+// layer); this design is the simple one, not yet tuned.  Its registers are
+// sized for one block per SM (128, no spills): against the default sizing
+// for two (64 registers, 612 B of spill stores) every frame takes 2-49 %
+// less time, the 1080p ones 5-20 % (on an H100 at 700 W;
+// compare_megakernel.py, PERF.md).
+
+// the per-group rows of phase A: knot inputs (rk.xyz, t0k, t1k)
+constexpr int MK_TEXG_GROUP_FLOATS = 5;
+// thread rows per block at most (128 x 4 threads)
+constexpr int MK_TEXG_MAX_ROWS = 4;
+
+// the knot rows a thread holds: each field's K + 1 knots where it has
+// knots, the detail field's beside the shape field's at full quality
+__host__ __device__ __forceinline__ int texg_knot_rows(const MegakernelParams& p,
+                                                       const TexParams& t) {
+  const int shape = t.shape_source == MK_SRC_STEP ? 0 : (p.shape_knots + 1) * (p.always_low ? 1 : 2);
+  return (t.cov_source == MK_SRC_STEP ? 0 : p.coverage_knots + 1) + shape;
+}
+
+// the knot batches whose level and mode the block chooses: a baked field's
+// K + 1 knots, knot_group at a time (the detail field's too)
+__host__ __device__ __forceinline__ int texg_batches(const MegakernelParams& p, const TexParams& t) {
+  const int kg = t.knot_group;
+  int n = t.cov_source == MK_SRC_PYRAMID ? (p.coverage_knots + kg) / kg : 0;
+  if (t.shape_source == MK_SRC_PYRAMID) n += (p.shape_knots + kg) / kg * (p.always_low ? 1 : 2);
+  return n;
+}
+
+// a field's knots: 0 coverage, 1 shape, 2 detail; whether it has knots and
+// whether they come from a pyramid
+__device__ __forceinline__ bool texg_has_knots(const MegakernelParams& p, const TexParams& t,
+                                               int fld) {
+  if (fld == 0) return t.cov_source != MK_SRC_STEP;
+  return t.shape_source != MK_SRC_STEP && (fld == 1 || !p.always_low);
+}
+__device__ __forceinline__ bool texg_baked(const TexParams& t, int fld) {
+  return (fld == 0 ? t.cov_source : t.shape_source) == MK_SRC_PYRAMID;
+}
+
+// knot position of a coverage group at s, as the plain version computes
+// it, uncontracted
+__device__ __forceinline__ V3 texg_knot_pos(const V3& rom, const float* g, float s) {
+  const float tk = __fadd_rn(g[3], __fmul_rn(__fsub_rn(g[4], g[3]), s));
+  return v3(__fadd_rn(rom.x, __fmul_rn(g[0], tk)), __fadd_rn(rom.y, __fmul_rn(g[1], tk)),
+            __fadd_rn(rom.z, __fmul_rn(g[2], tk)));
+}
+
+// a baked field's sampler coordinates at a knot position: the lat-long
+// (fu, v) of the coverage direction (f[2] = 0), or the wrapped 3D texture
+// coordinates of the shape field (pos * shape_scale) or of the detail field
+// (pos * 15 + time * 0.01, clouds.py::detail_position)
+__device__ __forceinline__ void texg_coords(const MegakernelParams& p, int fld, V3 pos,
+                                            float f[3]) {
+  if (fld == 0) {
+    float dx, dy, dz;
+    coverage_dir(p, pos, dx, dy, dz);
+    latlong_uv(dx, dy, dz, f[0], f[1]);
+    f[2] = 0.0f;
+  } else if (fld == 1) {
+    f[0] = wrap01(pos.x * p.cloud_shape_scale);
+    f[1] = wrap01(pos.y * p.cloud_shape_scale);
+    f[2] = wrap01(pos.z * p.cloud_shape_scale);
+  } else {
+    const float tm = p.time * 0.01f;
+    f[0] = wrap01(__fadd_rn(__fmul_rn(pos.x, 15.0f), tm));
+    f[1] = wrap01(__fadd_rn(__fmul_rn(pos.y, 15.0f), tm));
+    f[2] = wrap01(__fadd_rn(__fmul_rn(pos.z, 15.0f), tm));
+  }
+}
+
+// The general texture instance's fields in the march: each from its knots
+// in shared memory (stride of the block), or from its procedural spec per
+// step and per sun sample; at full quality the detail field, whose sun
+// samples take it only where the march's alpha is below 0.3 (as GenFields).
+// Knots interpolate uncontracted, as the fixed instance's do.
+struct TexGenFields {
+  const float* cov_k;  // knot j at cov_k[j * stride]; nullptr: per step
+  const float* shp_k;
+  const float* det_k;
+  int K, KS, stride;
+  bool full;
+  FieldWork* work;
+  __device__ __forceinline__ float interp(const float* k, int n, float u01) const {
+    const float us = u01 * (float)n;
+    const float i0 = fminf(fmaxf(floorf(us), 0.0f), (float)(n - 1));
+    const int seg = (int)i0;
+    const float f = us - i0;
+    return __fadd_rn(__fmul_rn(k[seg * stride], 1.0f - f), __fmul_rn(k[(seg + 1) * stride], f));
+  }
+  __device__ __forceinline__ float cov_at(const MegakernelParams& p, V3 pos) const {
+    ++work->cov;
+    return march_field(p.coverage, coverage_point(p, pos));
+  }
+  __device__ __forceinline__ float shape_at(const MegakernelParams& p, V3 pos) const {
+    ++work->shape;
+    return march_field(p.shape, mul(pos, p.cloud_shape_scale));
+  }
+  __device__ __forceinline__ float detail_at(const MegakernelParams& p, V3 pos) const {
+    ++work->detail;
+    return march_field(p.shape, detail_point(p, pos));
+  }
+  __device__ __forceinline__ float cov(const MegakernelParams& p, float u01, V3 pos) const {
+    return cov_k ? interp(cov_k, K, u01) : cov_at(p, pos);
+  }
+  __device__ __forceinline__ float shape(const MegakernelParams& p, float u01, V3 pos) const {
+    return shp_k ? interp(shp_k, KS, u01) : shape_at(p, pos);
+  }
+  __device__ __forceinline__ float detail(const MegakernelParams& p, float u01, V3 pos) const {
+    if (!full) return 0.5f;
+    return det_k ? interp(det_k, KS, u01) : detail_at(p, pos);
+  }
+  __device__ __forceinline__ float sun_cov(const MegakernelParams& p, float c, V3 pos) const {
+    return cov_k ? c : cov_at(p, pos);
+  }
+  __device__ __forceinline__ float sun_shape(const MegakernelParams& p, float s, V3 pos) const {
+    return shp_k ? s : shape_at(p, pos);
+  }
+  __device__ __forceinline__ float sun_detail(const MegakernelParams& p, float d, V3 pos,
+                                              float alpha0) const {
+    if (!full || !(alpha0 < 0.3f)) return 0.5f;
+    return det_k ? d : detail_at(p, pos);
+  }
+};
+
+// the coarse inputs of the group of G rows from y0 in column x (no
+// shading): per coarse pixel its ray, span and visibility (CoarseRay) and
+// its first row's jitter, into in[] (6 rows of C at stride T, when in is
+// not nullptr); returns the group's knot inputs in g[0..4] and its
+// visibility bits
+__device__ __forceinline__ unsigned texg_coarse(const MegakernelParams& p, const float* blue,
+                                                int x, int y0, const float* color, float* depth,
+                                                const Sky& sky, float* in, int T, float g[5]) {
+  const int L = p.cloud_lod, C = p.coverage_lod;
+  unsigned vis = 0, none = 0;
+  V3 rk = v3(0.0f, 0.0f, 0.0f);
+  float t0k = 0.0f, t1k = 0.0f;
+  for (int k = 0; k < C; ++k) {
+    V3 rd_sum = v3(0.0f, 0.0f, 0.0f);
+    float depth_min = 0.0f, jit_first = 0.0f;
+    for (int l = 0; l < L; ++l) {
+      Pixel px;
+      shade_pixel(p, blue, x, y0 + k * L + l, false, color, depth, sky, false, none, none, none,
+                  none, px);
+      if (l == 0) {
+        rd_sum = px.rd;
+        depth_min = px.depth;
+        jit_first = px.jitter;
+      } else {
+        rd_sum = add(rd_sum, px.rd);
+        depth_min = fminf(depth_min, px.depth);
+      }
+    }
+    const CoarseRay cr = coarse_ray(p, L, rd_sum, depth_min);
+    vis |= (unsigned)cr.vis << k;
+    if (in) {
+      float* a = in + k * T;
+      a[MK_IN_RX * C * T] = cr.rd_model.x;
+      a[MK_IN_RY * C * T] = cr.rd_model.y;
+      a[MK_IN_RZ * C * T] = cr.rd_model.z;
+      a[MK_IN_TB * C * T] = cr.tb;
+      a[MK_IN_TEM * C * T] = cr.tem;
+      a[MK_IN_JIT * C * T] = jit_first;
+    }
+    rk = k == 0 ? cr.rd_model : add(rk, cr.rd_model);
+    t0k = k == 0 ? cr.tb : t0k + cr.tb;
+    t1k = k == 0 ? cr.tem : t1k + cr.tem;
+  }
+  if (C > 1) {
+    rk = v3(rk.x / (float)C, rk.y / (float)C, rk.z / (float)C);
+    t0k = t0k / (float)C;
+    t1k = t1k / (float)C;
+  }
+  g[0] = rk.x;
+  g[1] = rk.y;
+  g[2] = rk.z;
+  g[3] = t0k;
+  g[4] = t1k;
+  return vis;
+}
+
+__global__ void __launch_bounds__(MK_TILE_COLS * MK_TEXG_MAX_ROWS, 1)
+    megakernel_tex_general(const __grid_constant__ MegakernelParams p, const TexParams t,
+                           const TexParams sky_t, const float* __restrict__ blue,
+                           const float* __restrict__ shape_tab, const float* __restrict__ cov_tab,
+                           const float* __restrict__ sky_r, const float* __restrict__ sky_g,
+                           const float* __restrict__ sky_b, float* __restrict__ color,
+                           float* __restrict__ alpha_out, float* __restrict__ depth,
+                           unsigned long long* work) {
+  extern __shared__ float smem[];
+  const int R = blockDim.y, T = MK_TILE_COLS * R;
+  const int tid = threadIdx.y * MK_TILE_COLS + threadIdx.x;
+  const int L = p.cloud_lod, C = p.coverage_lod, G = L * C, NGR = MK_TILE_ROWS / G;
+  const int x = blockIdx.x * MK_TILE_COLS + threadIdx.x;
+  const int tile_y0 = p.row0 + blockIdx.y * MK_TILE_ROWS;
+  const int n_batches = texg_batches(p, t);
+  float* knots = smem;                                   // knot j at knots[j * T + tid]
+  float* state = knots + texg_knot_rows(p, t) * T;       // input f of coarse pixel k at
+                                                         // state[(f * C + k) * T + tid]
+  float* groups = state + MK_GEN_MARCH_ROWS * C * T;     // value f of group row gr at
+                                                         // groups[(f * NGR + gr) * 128 + tx]
+  int* choices = (int*)(groups + MK_TEXG_GROUP_FLOATS * NGR * MK_TILE_COLS);  // (mode, level)
+  float* red = (float*)(choices + 2 * n_batches);        // block_minmax scratch
+  const V3 rom = load3(p.ro_model);
+  StageClock clk;
+
+  // the sky's choice: the block's rays are its tile's
+  Sky sky{sky_t, sky_r, sky_g, sky_b, TexChoice{MK_WINDOWED, 0}};
+  if (p.with_sky) {
+    float mn[2] = {3.0e38f, 3.0e38f}, mx[2] = {-3.0e38f, -3.0e38f};
+    for (int gr = threadIdx.y; gr < NGR; gr += R) {
+      for (int r = 0; r < G; ++r) {
+        const V3 rd = pixel_dir(p, x, tile_y0 + gr * G + r);
+        float fu, v;
+        latlong_uv(rd.x, rd.y, rd.z, fu, v);
+        mn[0] = fminf(mn[0], fu);
+        mx[0] = fmaxf(mx[0], fu);
+        mn[1] = fminf(mn[1], v);
+        mx[1] = fmaxf(mx[1], v);
+      }
+    }
+    block_minmax<2>(mn, mx, red);
+    sky.ch = latlong_choose(sky_t, mn[0], mx[0], mn[1], mx[1]);
+  }
+
+  // A. every group's knot inputs, and whether the tile sees the layer
+  bool any_vis = false;
+  for (int gr = threadIdx.y; gr < NGR; gr += R) {
+    float g[MK_TEXG_GROUP_FLOATS];
+    const unsigned vis = texg_coarse(p, blue, x, tile_y0 + gr * G, color, depth, sky, nullptr, T, g);
+    for (int f = 0; f < MK_TEXG_GROUP_FLOATS; ++f)
+      groups[(f * NGR + gr) * MK_TILE_COLS + threadIdx.x] = g[f];
+    any_vis = any_vis || vis;
+  }
+  // the tile's gate (clouds.py:573): no visible pixel, no knots, no march
+  const bool tile_vis = __syncthreads_or(any_vis);
+  clk.mark(MK_STAGE_COARSE);
+
+  // B. each batch's level and mode from its knots over the whole tile
+  if (tile_vis) {
+    int b = 0;
+    for (int fld = 0; fld < 3; ++fld) {
+      if (!texg_has_knots(p, t, fld) || !texg_baked(t, fld)) continue;
+      const int K = fld == 0 ? p.coverage_knots : p.shape_knots;
+      for (int g0 = 0; g0 <= K; g0 += t.knot_group, ++b) {
+        const int g1 = min(g0 + t.knot_group, K + 1);
+        float mn[3] = {3.0e38f, 3.0e38f, 3.0e38f}, mx[3] = {-3.0e38f, -3.0e38f, -3.0e38f};
+        for (int gr = threadIdx.y; gr < NGR; gr += R) {
+          float g[MK_TEXG_GROUP_FLOATS];
+          for (int f = 0; f < MK_TEXG_GROUP_FLOATS; ++f)
+            g[f] = groups[(f * NGR + gr) * MK_TILE_COLS + threadIdx.x];
+          for (int k = g0; k < g1; ++k) {
+            float c[3];
+            texg_coords(p, fld, texg_knot_pos(rom, g, (float)((double)k / (double)K)), c);
+#pragma unroll
+            for (int a = 0; a < 3; ++a) {
+              mn[a] = fminf(mn[a], c[a]);
+              mx[a] = fmaxf(mx[a], c[a]);
+            }
+          }
+        }
+        block_minmax<3>(mn, mx, red);
+        if (tid == 0) {
+          const TexChoice ch = fld == 0 ? latlong_choose(t, mn[0], mx[0], mn[1], mx[1])
+                                          : tex3d_choose(t, mn, mx);
+          choices[2 * b] = ch.mode;
+          choices[2 * b + 1] = ch.level;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  clk.mark(MK_STAGE_KNOTS);
+
+  // C. each group of the thread: knots, cull, march, shading and blend
+  unsigned n_atmo = 0, n_v1 = 0, n_march = 0, n_sun = 0, n_sky = 0, n_seg = 0, n_groups = 0;
+  unsigned n_pixels = 0, n_shape_knots = 0, n_detail_knots = 0;
+  unsigned tex_samples[2] = {0, 0}, cov_samples[2] = {0, 0};
+  FieldWork fw{0u, 0u, 0u};
+  const bool full = !p.always_low;
+  for (int gr = threadIdx.y; gr < NGR; gr += R) {
+    const int y0 = tile_y0 + gr * G;
+    if (x >= p.width || y0 >= p.row0 + p.rows) continue;  // nothing of it is stored
+    const int n_rows = min(G, p.row0 + p.rows - y0);
+    float g[5];
+    const unsigned vis = texg_coarse(p, blue, x, y0, color, depth, sky, state + tid, T, g);
+    unsigned marches = 0;
+    if (tile_vis && vis) {
+      int b = 0, row = 0;
+      float cov_max = 0.0f;
+      for (int fld = 0; fld < 3; ++fld) {
+        if (!texg_has_knots(p, t, fld)) continue;
+        const bool baked = texg_baked(t, fld);
+        const int K = fld == 0 ? p.coverage_knots : p.shape_knots;
+        float* kn = knots + row * T + tid;
+        for (int k = 0; k <= K; ++k) {
+          const V3 pos = texg_knot_pos(rom, g, (float)((double)k / (double)K));
+          float value;
+          if (baked) {
+            const int bk = b + k / t.knot_group;
+            const TexChoice ch{choices[2 * bk], choices[2 * bk + 1]};
+            float c[3];
+            texg_coords(p, fld, pos, c);
+            if (fld == 0) {
+              value = latlong_sample(t, cov_tab, ch, c[0], c[1]);
+              ++cov_samples[ch.mode == MK_FLOOR];
+            } else {
+              value = tex3d_sample(t, shape_tab, ch, c[0], c[1], c[2]);
+              ++tex_samples[ch.mode == MK_FLOOR];
+            }
+          } else if (fld == 0) {
+            value = field(p.coverage, coverage_point(p, pos));
+          } else {
+            value = field(p.shape, fld == 1 ? mul(pos, p.cloud_shape_scale) : detail_point(p, pos));
+          }
+          kn[k * T] = value;
+          if (fld == 0) cov_max = k == 0 ? value : fmaxf(cov_max, value);
+        }
+        if (baked) b += K / t.knot_group + 1;
+        else if (fld == 1) n_shape_knots += K + 1;
+        else if (fld == 2) n_detail_knots += K + 1;
+        row += K + 1;
+      }
+      ++n_groups;
+      // no coverage knots, no bound: every visible coarse pixel marches
+      marches = (t.cov_source == MK_SRC_STEP || cloud_may_form(p, cov_max)) ? vis : 0u;
+    }
+    if (marches) {
+      const float* kn = knots + tid;
+      const float* cov_k = nullptr;
+      const float* shp_k = nullptr;
+      const float* det_k = nullptr;
+      if (t.cov_source != MK_SRC_STEP) {
+        cov_k = kn;
+        kn += (p.coverage_knots + 1) * T;
+      }
+      if (t.shape_source != MK_SRC_STEP) {
+        shp_k = kn;
+        if (full) det_k = kn + (p.shape_knots + 1) * T;
+      }
+      const TexGenFields fields{cov_k, shp_k, det_k, p.coverage_knots, p.shape_knots, T, full, &fw};
+      for (int k = 0; k < C; ++k) {
+        if (!((marches >> k) & 1u)) continue;
+        float* in = state + k * T + tid;
+        float light, alpha;
+        cloud_march(p, fields, v3(in[MK_IN_RX * C * T], in[MK_IN_RY * C * T], in[MK_IN_RZ * C * T]),
+                    in[MK_IN_TB * C * T], in[MK_IN_TEM * C * T], in[MK_IN_JIT * C * T], light,
+                    alpha);
+        in[0] = light;
+        in[C * T] = alpha;
+        ++n_march;
+        if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
+      }
+    }
+    for (int r = 0; r < n_rows; ++r) {
+      const int k = r / L;
+      Pixel px;
+      shade_pixel(p, blue, x, y0 + r, true, color, depth, sky, work != nullptr, n_atmo, n_v1,
+                  n_sky, n_seg, px);
+      RowPix<1> s;
+      s.bg[0] = px.bg;
+      s.hit[0] = px.hit;
+      if (px.hit) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s.atm[0][c] = px.atm[c];
+      }
+      const bool vis_k = (vis >> k) & 1u, marched = (marches >> k) & 1u;
+      const float la = marched ? state[k * T + tid] : 0.0f;
+      const float ca = marched ? state[(C + k) * T + tid] : 0.0f;
+      blend_and_store(p, x, y0 + r, 1, 1, s, &vis_k, &la, &ca, color, alpha_out);
+    }
+    n_pixels += n_rows;
+  }
+  clk.mark(MK_STAGE_MARCH);
+  if (work) {
+    count_work(work, MK_WORK_PIXELS, n_pixels);
+    count_work(work, MK_WORK_ATMOSPHERE, n_atmo);
+    count_work(work, MK_WORK_V1_ATMOSPHERE, n_v1);
+    count_work(work, MK_WORK_KNOT_GROUPS, n_groups);
+    count_work(work, MK_WORK_MARCH, n_march);
+    count_work(work, MK_WORK_SUN_SAMPLES, n_sun);
+    count_work(work, MK_WORK_TEX3D, tex_samples[0]);
+    count_work(work, MK_WORK_TEX3D_FLOOR, tex_samples[1]);
+    count_work(work, MK_WORK_LATLONG, cov_samples[0]);
+    count_work(work, MK_WORK_LATLONG_FLOOR, cov_samples[1]);
+    count_work(work, MK_WORK_SKY, sky.ch.mode == MK_FLOOR ? 0 : n_sky);
+    count_work(work, MK_WORK_SKY_FLOOR, sky.ch.mode == MK_FLOOR ? n_sky : 0);
+    count_work(work, MK_WORK_COVERAGE_EVALS, fw.cov);
+    count_work(work, MK_WORK_SHAPE_EVALS, fw.shape);
+    count_work(work, MK_WORK_DETAIL_EVALS, fw.detail);
+    count_work(work, MK_WORK_SHAPE_KNOTS, n_shape_knots);
+    count_work(work, MK_WORK_DETAIL_KNOTS, n_detail_knots);
+    count_work(work, MK_WORK_OD_SEGMENTS, n_seg);
+  }
+  clk.count(work);
+}
+
 // The sky's pre-pass for the procedural instance and the opaque-only pass:
 // one block of 128 x MK_SKY_CHOICE_THREADS_Y threads per 32 x 128 tile of
 // the launch's grid (from row0), each thread taking MK_SKY_CHOICE_RAYS rows
@@ -2466,21 +2910,93 @@ static int launch_tex(const MegakernelParams* p, const TexParams* t, const TexPa
   return (int)cudaGetLastError();
 }
 
+// whether the fixed instance megakernel_tex<K, KS, G> takes these params:
+// the demo's profile (both fields baked, K = 8, KS = 16, low quality, G = 4
+// or 8); megakernel_tex_general takes every other texture config
+static bool fixed_tex(const MegakernelParams* p, const TexParams* t) {
+  const int G = p->cloud_lod * p->coverage_lod;
+  return t->shape_source == MK_SRC_PYRAMID && t->cov_source == MK_SRC_PYRAMID &&
+         p->coverage_knots == MK_KNOTS && t->shape_knots == MK_SHAPE_KNOTS && p->always_low &&
+         (G == 4 || G == 8);
+}
+
+// a field's source against the launch: a pyramid needs its table, 1 to
+// MK_MAX_LEVELS levels and knots (a baked field is sampled at knots only,
+// as in the JAX kernel); knots or per step follow the config's knot flag
+static bool source_ok(int src, int interp, const float* tab, int levels) {
+  if (src == MK_SRC_PYRAMID) return interp && tab && levels >= 1 && levels <= MK_MAX_LEVELS;
+  return (src == MK_SRC_KNOTS && interp) || (src == MK_SRC_STEP && !interp);
+}
+
+// The general instance's launch: thread rows per block and dynamic shared
+// memory (per thread its knot rows and MK_GEN_MARCH_ROWS per coarse pixel;
+// the groups' knot inputs; the batches' choices; block_minmax's scratch),
+// the most thread rows (at most MK_TEXG_MAX_ROWS and the tile's group rows)
+// whose shared memory fits a block; rows = 0 for params it does not take.
+struct TexgLayout {
+  int rows, threads, smem;
+};
+
+static TexgLayout texg_layout(const MegakernelParams* p, const TexParams* t) {
+  const int C = p->coverage_lod, G = p->cloud_lod * C;
+  if (p->cloud_lod < 1 || C < 1 || MK_TILE_ROWS % G || t->knot_group < 1 ||
+      p->coverage_knots < 1 || p->shape_knots < 1)
+    return TexgLayout{0, 0, 0};
+  const int ngr = MK_TILE_ROWS / G;
+  const long per_thread = texg_knot_rows(*p, *t) + MK_GEN_MARCH_ROWS * C;
+  for (int r = MK_TEXG_MAX_ROWS; r >= 1; r >>= 1) {
+    if (r > ngr) continue;
+    const long nt = MK_TILE_COLS * r;
+    const long floats = per_thread * nt + (long)MK_TEXG_GROUP_FLOATS * ngr * MK_TILE_COLS +
+                        2L * texg_batches(*p, *t) + nt / 32 * MK_TEX_RED_SLOTS;
+    if (floats <= (long)MK_SMEM_ROWS * MK_TILE_COLS)
+      return TexgLayout{r, (int)nt, (int)(floats * (long)sizeof(float))};
+  }
+  return TexgLayout{0, 0, 0};
+}
+
+// dynamic shared memory above the default 48 KB needs the attribute raised
+// first (never lowered below it)
+static cudaError_t texg_smem_attribute(const TexgLayout& lay) {
+  if (lay.smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(megakernel_tex_general, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              lay.smem);
+}
+
+static int launch_tex_general(const MegakernelParams* p, const TexParams* t, const TexParams& sky,
+                              const float* blue, const float* shape_tab, const float* cov_tab,
+                              const float* sky_r, const float* sky_g, const float* sky_b,
+                              float* color, float* alpha, float* depth, cudaStream_t stream,
+                              unsigned long long* work) {
+  const TexgLayout lay = texg_layout(p, t);
+  if (!lay.rows) return -1;
+  const cudaError_t err = texg_smem_attribute(lay);
+  if (err != cudaSuccess) return (int)err;
+  megakernel_tex_general<<<tile_grid(p), dim3(MK_TILE_COLS, lay.rows, 1), lay.smem, stream>>>(
+      *p, *t, sky, blue, shape_tab, cov_tab, sky_r, sky_g, sky_b, color, alpha, depth, work);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int megakernel_tex_launch(const MegakernelParams* params, const TexParams* tex,
                                      const TexParams* sky, const float* blue,
                                      const float* shape_tab, const float* cov_tab,
                                      const float* sky_r, const float* sky_g, const float* sky_b,
                                      float* color, float* alpha, float* depth, void* stream,
                                      void* work) {
-  if (!params->clouds_enabled || !params->with_atmosphere ||
-      params->coverage_knots != MK_KNOTS || tex->shape_knots != MK_SHAPE_KNOTS ||
-      tex->knot_group < 1 || tex->knot_group > MK_MAX_GROUP || !rows_ok(params) ||
-      (params->with_background && !depth) || !sky_ok(params, sky, sky_r, sky_g, sky_b))
+  if (!params->clouds_enabled || !params->with_atmosphere || tex->knot_group < 1 ||
+      !source_ok(tex->shape_source, params->shape_interp, shape_tab, tex->shape_levels) ||
+      !source_ok(tex->cov_source, params->coverage_interp, cov_tab, tex->cov_levels) ||
+      (tex->shape_source != MK_SRC_PYRAMID && tex->cov_source != MK_SRC_PYRAMID) ||
+      !rows_ok(params) || (params->with_background && !depth) ||
+      !sky_ok(params, sky, sky_r, sky_g, sky_b))
     return -1;
   const int G = params->cloud_lod * params->coverage_lod;
   const TexParams sky_t = sky ? *sky : TexParams{};
   cudaStream_t s = (cudaStream_t)stream;
   unsigned long long* w = (unsigned long long*)work;
+  if (!fixed_tex(params, tex))
+    return launch_tex_general(params, tex, sky_t, blue, shape_tab, cov_tab, sky_r, sky_g, sky_b,
+                              color, alpha, depth, s, w);
   if (G == 4)
     return launch_tex<4>(params, tex, sky_t, blue, shape_tab, cov_tab, sky_r, sky_g, sky_b, color,
                          alpha, depth, s, w);
@@ -2494,19 +3010,30 @@ extern "C" int megakernel_tex_launch(const MegakernelParams* params, const TexPa
 // launch it: out = {rows per thread G, registers per thread, local memory
 // (stack) bytes per thread, resident blocks (tiles) per SM, dynamic shared
 // memory bytes, threads per block}.  It sets the shared-memory attribute
-// the launcher sets, one constant per instance.
+// the launcher sets.
 extern "C" int megakernel_tex_info(const MegakernelParams* params, const TexParams* tex,
                                    int* out) {
-  (void)tex;
   const int G = params->cloud_lod * params->coverage_lod;
-  if (G != 4 && G != 8) return -1;
+  cudaFuncAttributes attr;
+  int blocks = 0;
+  if (!fixed_tex(params, tex)) {
+    const TexgLayout lay = texg_layout(params, tex);
+    if (!lay.rows) return -1;
+    cudaError_t err = texg_smem_attribute(lay);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, megakernel_tex_general);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, megakernel_tex_general,
+                                                          lay.threads, lay.smem);
+    if (err != cudaSuccess) return (int)err;
+    const int info[6] = {G, attr.numRegs, (int)attr.localSizeBytes, blocks, lay.smem, lay.threads};
+    for (int i = 0; i < 6; ++i) out[i] = info[i];
+    return 0;
+  }
   const int nt = tex_threads(G), smem = tex_smem(G);
   auto kernel = G == 4 ? megakernel_tex<MK_KNOTS, MK_SHAPE_KNOTS, 4>
                        : megakernel_tex<MK_KNOTS, MK_SHAPE_KNOTS, 8>;
-  cudaFuncAttributes attr;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
-  int blocks = 0;
   if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, nt, smem);
   if (err != cudaSuccess) return (int)err;
   const int info[6] = {G, attr.numRegs, (int)attr.localSizeBytes, blocks, smem, nt};

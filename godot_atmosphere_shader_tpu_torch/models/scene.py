@@ -11,18 +11,19 @@ K frames of a camera path and time sequence, every layer fullscreen, plain
 or temporally accumulated (the TAA resolve, ``ops/kernels/taa.py``), on one
 device or row-sharded over a mesh (``parallel/sharding.py``).
 Entry points run on the card unless the caller asks for the CPU
-(``device="cpu"``).  A layer with baked cloud textures renders in the
-megakernel's texture mode: its textures are packed into mip pyramids once
-per texture object (kept on the scene's device) and the config gains their
-metas and the shape and coverage knot flags, as the JAX package's
-``Scene._pallas_plan`` does.  A panorama sky (``OpaqueScene.panorama``) is
-packed the same way, into three channel pyramids once per panorama object
+(``device="cpu"``).  A layer with a baked cloud field renders in the
+megakernel's texture mode: each baked texture is packed into a mip pyramid
+once per texture object (kept on the scene's device) and the config gains
+its meta and its knot flag, as the JAX package's ``Scene._pallas_plan``
+does; a procedural field beside it keeps its spec.  A panorama sky
+(``OpaqueScene.panorama``) is packed the same way, into three channel
+pyramids once per panorama object
 (``Scene._pano_plan``), which the pass that runs the opaque scene samples.
 ``Scene.apply_environment`` runs the scene's output stage, the
 environment's HDR glow (``render/glow.py``), on a rendered frame.
 
-Not ported yet (they raise ``NotImplementedError``): ``od_mode="lut"``,
-large-world rebasing, and one baked cloud field beside one procedural field.
+Not ported yet (they raise ``NotImplementedError``): ``od_mode="lut"`` and
+large-world rebasing.
 """
 
 from __future__ import annotations
@@ -377,11 +378,14 @@ class Scene:
         return apply_glow(color, self.environment)
 
     def _texture_plan(self, params, config):
-        """Texture mode for a layer with baked cloud textures: the config
-        with the pyramid metas and both knot flags, and the ``(shape,
-        coverage)`` tables (``scene.py:621-661``).  A texture that cannot be
-        packed leaves the layer as it is, its textures sampled exactly: the
-        plain chain renders it, the kernel refuses it (no pyramid metas)."""
+        """Texture mode for a layer with a baked cloud field (``scene.py:
+        621-661``): each field without a procedural spec gets its pyramid,
+        its meta and its knot flag; a procedural field beside it stays as
+        the config has it (knots or per step).  Returns the config and the
+        ``(shape, coverage)`` tables, ``None`` for a procedural field.  A
+        texture that cannot be packed leaves the layer as it is, its
+        textures sampled exactly: the plain chain renders it, the kernel
+        refuses it (no pyramid metas)."""
         if not config.clouds_enabled or (config.cloud_shape_noise is not None
                                          and config.cloud_coverage_noise is not None):
             return config, None
@@ -389,18 +393,20 @@ class Scene:
             raise ValueError("clouds need cloud_shape_texture or a procedural spec")
         if params.cloud_coverage_cubemap is None and config.cloud_coverage_noise is None:
             raise ValueError("clouds need cloud_coverage_cubemap or a procedural spec")
-        if config.cloud_shape_noise is not None or config.cloud_coverage_noise is not None:
-            raise NotImplementedError("one baked and one procedural cloud field is "
-                                      "not ported yet (both baked or both procedural)")
-        shape = self._tex_pyramid(params.cloud_shape_texture, "tex3d")
-        cov = self._tex_pyramid(params.cloud_coverage_cubemap, "latlong")
-        if shape is None or cov is None:
-            return config, None
-        (shape_table, shape_meta), (cov_table, cov_meta) = shape, cov
-        config = dataclasses.replace(
-            config, cloud_shape_tex_meta=shape_meta, cloud_shape_interp=True,
-            cloud_coverage_tex_meta=cov_meta, cloud_coverage_interp=True)
-        return config, (shape_table, cov_table)
+        change, tables = {}, [None, None]
+        for i, (texture, spec, kind, name) in enumerate((
+                (params.cloud_shape_texture, config.cloud_shape_noise, "tex3d", "shape"),
+                (params.cloud_coverage_cubemap, config.cloud_coverage_noise, "latlong",
+                 "coverage"))):
+            if spec is not None:
+                continue
+            built = self._tex_pyramid(texture, kind)
+            if built is None:
+                return config, None
+            tables[i] = built[0]
+            change[f"cloud_{name}_tex_meta"] = built[1]
+            change[f"cloud_{name}_interp"] = True
+        return dataclasses.replace(config, **change), tuple(tables)
 
     @staticmethod
     def _check_layers(configs):

@@ -16,8 +16,11 @@ has three instances: the procedural instance for every procedural config
 the JAX megakernel renders (every basis and fractal, fields per step or
 from knots in shared memory, the detail field, LOD groups up to 32 rows),
 the cloud-free instance (layers without clouds, the opaque-only pass) and
-texture mode (baked textures sampled through mip pyramids by the K2 device
-functions, one thread block per 32×128 tile).
+texture mode (baked fields sampled through mip pyramids by the K2 device
+functions, one thread block per 32×128 tile): the fixed instance for the
+demo's profile and the general one for every other texture config the
+JAX megakernel renders (a baked field beside a procedural one, full
+quality, any knot count, knot group and LOD group).
 
 * :func:`render_scene_megakernel` renders a frame of any number of layers
   (the counterpart of ``render_scene_pallas``): CPU tensors take the plain
@@ -88,10 +91,10 @@ SOURCE = os.path.join(library.CSRC, "megakernel.cu")
 MAX_SPHERES = 8
 MAX_BOXES = 4
 MAX_OCTAVES = 8
-#: the texture instance's rows per thread and knots per batch
+#: the fixed texture instance's rows per thread
 MAX_GROUP = 8
 QUAD_POINTS = 8
-#: the texture instance's coverage knot count (template parameter K)
+#: the fixed texture instance's coverage knot count (template parameter K)
 KNOTS = 8
 #: the procedural instance's coarse pixels per thread, C = cloud_coverage_lod
 #: (a group of cloud_lod·C rows divides the 32-row tile)
@@ -105,16 +108,23 @@ GEN_COARSE = (1, 2, 4, 8, 16, 32)
 SMEM_ROWS = 454
 GEN_MARCH_ROWS = 6
 GEN_CACHE_ROWS = 4
-#: texture mode: the shape knot count it is built for, pyramid levels and
-#: batch modes (as ``texsample.py`` numbers them); its tile is the plain
-#: renderer's ``TILE_ROWS × TILE_COLS``
+#: texture mode: the fixed instance's shape knot count, the pyramid levels
+#: the launch struct holds and the batch modes (as ``texsample.py`` numbers
+#: them); its tile is the plain renderer's ``TILE_ROWS × TILE_COLS``
 SHAPE_KNOTS = 16
-MAX_LEVELS = 8
+MAX_LEVELS = 16
 WINDOWED, BANDED, FLOOR = texsample.WINDOWED, texsample.BANDED, texsample.FLOOR
-#: texture mode's rows per thread, cloud_lod·cloud_coverage_lod: one
-#: instance each (``megakernel_tex<K, KS, G>``), a block of 128 × 32 / G
-#: threads per 32×128 tile, registers sized for TEX_SM_THREADS resident
-#: threads per SM (one tile at G = 4, two at G = 8)
+#: where a texture-mode field comes from (``TexParams.shape_source``,
+#: ``cov_source``; ``MK_SRC_*``): knots sampled from its pyramid, knots
+#: evaluated from its procedural spec, its procedural spec per step
+SOURCE_PYRAMID, SOURCE_KNOTS, SOURCE_STEP = 0, 1, 2
+#: the fixed texture instance's rows per thread, cloud_lod·cloud_coverage_lod:
+#: one instance each (``megakernel_tex<K, KS, G>``) for the demo's profile
+#: (both fields baked, K = KNOTS, KS = SHAPE_KNOTS, low quality), a block of
+#: 128 × 32 / G threads per 32×128 tile, registers sized for TEX_SM_THREADS
+#: resident threads per SM (one tile at G = 4, two at G = 8); every other
+#: texture config takes the general instance ``megakernel_tex_general``
+#: (:func:`tex_general_layout`)
 TEXTURE_GROUPS = (4, 8)
 TEX_SM_THREADS = 1024
 #: its shared memory: the 9 coverage and 17 shape knots in rows of one float
@@ -122,6 +132,11 @@ TEX_SM_THREADS = 1024
 #: min and max of up to 3 axes)
 TEX_KNOT_ROWS = 26
 TEX_RED_SLOTS = 6
+#: the general texture instance: at most TEXG_MAX_ROWS thread rows of 128
+#: per tile, TEXG_GROUP_FLOATS floats per coverage group of the tile (its
+#: knot inputs: mean model-space ray, mean span) in shared memory
+TEXG_MAX_ROWS = 4
+TEXG_GROUP_FLOATS = 5
 #: work counter slots, in the kernel's order (``MK_WORK_*``); the procedural
 #: instance also counts its procedural field evaluations: coverage per step
 #: and per sun sample, shape and detail per step and per sun sample, and the
@@ -161,6 +176,8 @@ class Counters:
     layer and the opaque-only pass; ``general_launches`` counts the
     procedural instance ``megakernel_gen`` alone, ``texture_launches`` the texture instance,
     ``clear_launches`` the cloud-free instance ``megakernel_clear``,
+    ``texture_general_launches`` the general texture instance
+    ``megakernel_tex_general`` alone,
     ``sky_launches`` the launches that draw the panorama sky), launches of
     the sky's per-tile choice pre-pass, of the K2-alone entry, and
     plain-path frames (one per frame, whatever its layers)."""
@@ -172,6 +189,7 @@ class Counters:
         self.megakernel_launches = 0
         self.general_launches = 0
         self.texture_launches = 0
+        self.texture_general_launches = 0
         self.clear_launches = 0
         self.sky_launches = 0
         self.sky_choice_launches = 0
@@ -321,6 +339,8 @@ class TexParams(ctypes.Structure):
         ("band_max_slices", ctypes.c_int),
         ("knot_group", ctypes.c_int),
         ("shape_knots", ctypes.c_int),
+        ("shape_source", ctypes.c_int),
+        ("cov_source", ctypes.c_int),
     ]
 
 
@@ -414,8 +434,9 @@ def gen_info(struct: MegakernelParams) -> dict:
 def tex_info(struct: MegakernelParams, tparams: TexParams) -> dict:
     """What the texture instance that would launch ``struct`` with the
     pyramid struct ``tparams`` uses on this card (:data:`TEX_INFO`): its
-    rows per thread, registers, local memory (stack), resident CTAs (tiles)
-    per SM, dynamic shared memory and threads per CTA."""
+    rows per coverage group G, registers, local memory (stack), resident
+    CTAs (tiles) per SM, dynamic shared memory and threads per CTA (the
+    fixed instance's or the general one's, as the launcher picks)."""
     out = (ctypes.c_int * len(TEX_INFO))()
     rc = load_library().megakernel_tex_info(ctypes.byref(struct), ctypes.byref(tparams), out)
     if rc != 0:
@@ -438,19 +459,20 @@ def clear_info(struct: MegakernelParams) -> dict:
 
 
 def texture_mode(config: VariantConfig) -> bool:
-    """Whether the config asks for the texture instance (pyramid metas)."""
+    """Whether the config asks for the texture instance (a pyramid meta)."""
     return config.clouds_enabled and (config.cloud_shape_tex_meta is not None
                                       or config.cloud_coverage_tex_meta is not None)
 
 
 def check_config(config: VariantConfig):
     """Raise ``ValueError`` for any config outside what the kernel renders:
-    v1 or v2 with analytic optical depth; with procedural cloud fields,
-    every basis, fractal and knot setting the JAX megakernel renders
-    (coverage and shape per step or from any number of knots, the detail
-    field, a LOD group of cloud_lod·cloud_coverage_lod rows dividing the
-    32-row tile) within the launch struct's limits; with baked fields, the
-    texture instance's envelope (:func:`_texture_problems`)."""
+    v1 or v2 with analytic optical depth; clouds whose LOD group of
+    cloud_lod·cloud_coverage_lod rows divides the 32-row tile, with every
+    basis, fractal and knot setting the JAX megakernel renders (coverage
+    and shape per step or from any number of knots, the detail field)
+    within the launch struct's limits; in texture mode, each baked field
+    from its pyramid beside a procedural one, as the JAX kernel's
+    ``_check_config`` takes them (:func:`_texture_problems`)."""
     bad = []
     if config.model not in MODELS:
         bad.append(f"model={config.model!r} (v1 or v2)")
@@ -459,11 +481,9 @@ def check_config(config: VariantConfig):
     if config.clouds_enabled:
         if texture_mode(config):
             bad.extend(_texture_problems(config))
-        elif config.cloud_shape_noise is None and config.cloud_coverage_noise is None:
+        elif config.cloud_shape_noise is None or config.cloud_coverage_noise is None:
             bad.append("baked cloud textures without pyramid metas (Scene.render "
                        "builds them)")
-        elif config.cloud_shape_noise is None or config.cloud_coverage_noise is None:
-            bad.append("one baked and one procedural cloud field")
         else:
             bad.extend(_procedural_problems(config))
         for name in ("cloud_shape_noise", "cloud_coverage_noise"):
@@ -474,12 +494,17 @@ def check_config(config: VariantConfig):
         raise ValueError("megakernel does not render: " + "; ".join(bad))
 
 
-def _procedural_problems(config: VariantConfig):
+def _group_problems(config: VariantConfig):
     group = config.cloud_lod * config.cloud_coverage_lod
     if config.cloud_lod < 1 or config.cloud_coverage_lod < 1 or TILE_ROWS % group:
         yield (f"cloud_lod·cloud_coverage_lod = {group} (it must divide the "
                f"{TILE_ROWS}-row tile)")
-    elif gen_smem(config)[0] is None:
+
+
+def _procedural_problems(config: VariantConfig):
+    bad = list(_group_problems(config))
+    yield from bad
+    if not bad and gen_smem(config)[0] is None:
         rows = knot_rows(config) + GEN_MARCH_ROWS * config.cloud_coverage_lod
         yield (f"{knot_rows(config)} knot rows (coverage, shape and detail knots + 1 each) and "
                f"{rows - knot_rows(config)} rows of march state: {rows} rows of shared memory, "
@@ -502,15 +527,15 @@ def gen_smem(config: VariantConfig) -> tuple:
 
 
 def tex_threads(group: int) -> int:
-    """The texture instance's threads per block (one 32×128 tile) at G rows
-    per thread."""
+    """The fixed texture instance's threads per block (one 32×128 tile) at
+    G rows per thread."""
     return TILE_COLS * (TILE_ROWS // group)
 
 
 def tex_smem(group: int) -> int:
-    """The texture instance's dynamic shared memory per block at G rows per
-    thread, as its launcher sizes it (``tex_smem`` in the source), in
-    bytes."""
+    """The fixed texture instance's dynamic shared memory per block at G
+    rows per thread, as its launcher sizes it (``tex_smem`` in the source),
+    in bytes."""
     threads = tex_threads(group)
     return (TEX_KNOT_ROWS * threads + threads // 32 * TEX_RED_SLOTS) * 4
 
@@ -523,39 +548,106 @@ def knot_rows(config: VariantConfig) -> int:
     return cov + shape * (1 if config.clouds_always_low_quality else 2)
 
 
+def fixed_texture_instance(config: VariantConfig) -> bool:
+    """Whether the fixed texture instance ``megakernel_tex<K, KS, G>``
+    renders a texture-mode config (``fixed_tex`` in the source): the demo's
+    profile, both fields baked, KNOTS coverage and SHAPE_KNOTS shape knots,
+    low quality, G in TEXTURE_GROUPS; the general instance renders every
+    other one."""
+    return (config.cloud_shape_tex_meta is not None
+            and config.cloud_coverage_tex_meta is not None
+            and max(config.cloud_coverage_knots, 1) == KNOTS
+            and config.cloud_shape_knots == SHAPE_KNOTS
+            and config.clouds_always_low_quality
+            and config.cloud_lod * config.cloud_coverage_lod in TEXTURE_GROUPS)
+
+
+def _fixed_launch(struct: MegakernelParams, tparams: TexParams) -> bool:
+    """:func:`fixed_texture_instance` of a launch's structs."""
+    return (tparams.shape_source == SOURCE_PYRAMID and tparams.cov_source == SOURCE_PYRAMID
+            and struct.coverage_knots == KNOTS and tparams.shape_knots == SHAPE_KNOTS
+            and bool(struct.always_low)
+            and struct.cloud_lod * struct.coverage_lod in TEXTURE_GROUPS)
+
+
+def _source(meta, interp: bool) -> int:
+    return SOURCE_PYRAMID if meta is not None else SOURCE_KNOTS if interp else SOURCE_STEP
+
+
+def tex_general_layout(config: VariantConfig) -> Optional[dict]:
+    """The general texture instance's launch for ``config``, as its
+    launcher lays it out (``texg_layout`` in the source): ``{"rows",
+    "threads", "smem_bytes"}``, or ``None`` where no block fits.  A block
+    is one 32×128 tile of 128 × rows threads (rows at most TEXG_MAX_ROWS
+    and the tile's rows of coverage groups, the most whose shared memory
+    fits SMEM_ROWS × 512 B): per thread its knot rows (each field's knots
+    + 1 where it has knots, the detail field's beside the shape field's at
+    full quality) and GEN_MARCH_ROWS per coarse pixel; TEXG_GROUP_FLOATS
+    per coverage group of the tile; a (mode, level) pair per knot batch of
+    a baked field; TEX_RED_SLOTS per warp."""
+    group = config.cloud_lod * config.cloud_coverage_lod
+    if (config.cloud_lod < 1 or config.cloud_coverage_lod < 1 or TILE_ROWS % group
+            or config.texture_knot_group < 1):
+        return None
+    k, ks = max(config.cloud_coverage_knots, 1), max(config.cloud_shape_knots, 1)
+    low = config.clouds_always_low_quality
+    cov = _source(config.cloud_coverage_tex_meta, config.cloud_coverage_interp)
+    shape = _source(config.cloud_shape_tex_meta, config.cloud_shape_interp)
+    knots = ((k + 1 if cov != SOURCE_STEP else 0)
+             + ((ks + 1) * (1 if low else 2) if shape != SOURCE_STEP else 0))
+    kg = config.texture_knot_group
+    batches = ((k + kg) // kg if cov == SOURCE_PYRAMID else 0) + (
+        (ks + kg) // kg * (1 if low else 2) if shape == SOURCE_PYRAMID else 0)
+    group_rows = TILE_ROWS // group
+    rows = TEXG_MAX_ROWS
+    while rows >= 1:
+        if rows <= group_rows:
+            threads = TILE_COLS * rows
+            floats = ((knots + GEN_MARCH_ROWS * config.cloud_coverage_lod) * threads
+                      + TEXG_GROUP_FLOATS * group_rows * TILE_COLS + 2 * batches
+                      + threads // 32 * TEX_RED_SLOTS)
+            if floats <= SMEM_ROWS * TILE_COLS:
+                return {"rows": rows, "threads": threads, "smem_bytes": floats * 4}
+        rows //= 2
+    return None
+
+
 def _texture_problems(config: VariantConfig):
-    shape, cov = config.cloud_shape_tex_meta, config.cloud_coverage_tex_meta
-    if not (isinstance(shape, texsample.TexMeta) and shape.kind == "tex3d"):
-        yield "cloud_shape_tex_meta is not a tex3d TexMeta"
-    elif len(shape.levels) > MAX_LEVELS:
-        yield f"more than {MAX_LEVELS} shape pyramid levels"
-    if not (isinstance(cov, texsample.TexMeta) and cov.kind == "latlong"):
-        yield "cloud_coverage_tex_meta is not a latlong TexMeta"
-    elif len(cov.levels) > MAX_LEVELS:
-        yield f"more than {MAX_LEVELS} coverage pyramid levels"
-    if config.cloud_shape_noise is not None or config.cloud_coverage_noise is not None:
-        yield "procedural field specs in texture mode (both fields must be baked)"
-    if not (config.cloud_shape_interp and config.cloud_coverage_interp):
-        yield "texture mode needs cloud_shape_interp and cloud_coverage_interp"
-    if not config.clouds_always_low_quality:
-        yield "clouds_always_low_quality=False in texture mode (the detail knots)"
-    if config.cloud_coverage_knots != KNOTS:
-        yield (f"cloud_coverage_knots={config.cloud_coverage_knots} in texture mode (the "
-               f"texture instance is built for {KNOTS})")
-    if config.cloud_shape_knots != SHAPE_KNOTS:
-        yield (f"cloud_shape_knots={config.cloud_shape_knots} (the kernel is "
-               f"built for {SHAPE_KNOTS})")
-    if config.cloud_lod * config.cloud_coverage_lod not in TEXTURE_GROUPS:
-        yield (f"cloud_lod·cloud_coverage_lod = "
-               f"{config.cloud_lod * config.cloud_coverage_lod} (texture mode takes "
-               f"{' or '.join(map(str, TEXTURE_GROUPS))})")
-    if not 1 <= config.texture_knot_group <= MAX_GROUP:
-        yield f"texture_knot_group={config.texture_knot_group} (1..{MAX_GROUP})"
+    """What the texture instances refuse: what the JAX kernel's
+    ``_check_config`` refuses (a baked field without its knot flag, the
+    band-row rules), a LOD group that does not divide the tile, and this
+    port's stated limits: a meta of the wrong kind or of more than
+    MAX_LEVELS levels (the launch struct's level arrays), and knots that
+    leave no block of the general instance room in shared memory."""
+    for name, kind in (("shape", "tex3d"), ("coverage", "latlong")):
+        meta = getattr(config, f"cloud_{name}_tex_meta")
+        if meta is None:
+            if getattr(config, f"cloud_{name}_noise") is None:
+                yield f"a baked {name} field without its pyramid meta"
+            continue
+        if not (isinstance(meta, texsample.TexMeta) and meta.kind == kind):
+            yield f"cloud_{name}_tex_meta is not a {kind} TexMeta"
+        elif len(meta.levels) > MAX_LEVELS:
+            yield f"more than {MAX_LEVELS} {name} pyramid levels (the launch struct's arrays)"
+        if not getattr(config, f"cloud_{name}_interp"):
+            yield f"a baked {name} field needs cloud_{name}_interp (it is sampled at knots)"
+    bad = list(_group_problems(config))
+    yield from bad
+    if config.texture_knot_group < 1:
+        yield f"texture_knot_group={config.texture_knot_group} (at least 1)"
     if config.texture_window_rows < 1:
         yield f"texture_window_rows={config.texture_window_rows}"
-    if config.texture_band_rows < 0 or (config.texture_band_rows
-                                        and config.texture_band_max_slices < 1):
-        yield "texture_band_rows < 0 or texture_band_max_slices < 1"
+    if config.texture_band_rows and (config.texture_band_rows % 8
+                                     or config.texture_band_rows < 0):
+        yield (f"texture_band_rows={config.texture_band_rows} (0, or a positive multiple "
+               f"of 8)")
+    if config.texture_band_rows and config.texture_band_max_slices < 1:
+        yield "texture_band_max_slices < 1 with banding on"
+    if (not bad and config.texture_knot_group >= 1 and not fixed_texture_instance(config)
+            and tex_general_layout(config) is None):
+        yield ("the knots and march inputs of one thread row of 128 threads, the tile's "
+               "coverage groups and the knot batches exceed a block's "
+               f"{SMEM_ROWS * TILE_COLS * 4} B of shared memory (tex_general_layout)")
 
 
 def _noise_problems(spec: NoiseSpec):
@@ -786,8 +878,10 @@ def flight_constants(params: AtmosphereParams, config: VariantConfig, camera: Ca
 
 def tex_constants(config: VariantConfig, shape: Optional[texsample.TexMeta] = None,
                   coverage: Optional[texsample.TexMeta] = None) -> TexParams:
-    """Texture mode's launch struct: the pyramids' levels and the sampler
-    settings (metas default to the config's)."""
+    """Texture mode's launch struct: the pyramids' levels, the sampler
+    settings and where each field comes from (metas default to the
+    config's; a field without one comes from its procedural spec, at knots
+    or per step as its knot flag says)."""
     shape = shape or config.cloud_shape_tex_meta
     coverage = coverage or config.cloud_coverage_tex_meta
     t = TexParams()
@@ -807,6 +901,8 @@ def tex_constants(config: VariantConfig, shape: Optional[texsample.TexMeta] = No
     t.band_max_slices = config.texture_band_max_slices
     t.knot_group = config.texture_knot_group
     t.shape_knots = config.cloud_shape_knots
+    t.shape_source = _source(shape, config.cloud_shape_interp)
+    t.cov_source = _source(coverage, config.cloud_coverage_interp)
     return t
 
 
@@ -880,8 +976,9 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
     ``counters.megakernel_launches``.  It writes the struct's rows
     ``[row0, row0 + rows)`` only; each plane holds either the whole frame
     or just those rows (a row shard's planes).  ``tex``: ``(TexParams, shape table,
-    coverage table)`` for the texture instance (also counted in
-    ``counters.texture_launches``).  ``work``: ``len(WORK_SLOTS) +
+    coverage table)`` for a texture instance, ``None`` for a procedural
+    field's table (also counted in ``counters.texture_launches``, and the
+    general instance's in ``counters.texture_general_launches``).  ``work``: ``len(WORK_SLOTS) +
     len(STAGE_SLOTS)`` zeroed int64 counters that the kernel adds its work to (see
     :func:`work_counts`).  ``depth``: an (H, W) float32 plane of linear
     depth: written by a launch with the opaque pass (optional), read by a
@@ -926,6 +1023,8 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
         counters.general_launches += 1
     if tex is not None:
         counters.texture_launches += 1
+        if not _fixed_launch(struct, tex[0]):
+            counters.texture_general_launches += 1
     if not (struct.clouds_enabled and struct.with_atmosphere):
         counters.clear_launches += 1
     if sky is not None:
@@ -971,7 +1070,15 @@ def sky_choices_plain(camera: Camera, height: int, width: int, meta: texsample.T
     return torch.stack([mode, level], dim=1).to(torch.int32)
 
 
-def _check_table(t: torch.Tensor, meta: texsample.TexMeta, device):
+def _check_table(t: Optional[torch.Tensor], meta: Optional[texsample.TexMeta], device):
+    """A field's pyramid table against its meta: ``None`` exactly where
+    the field has no meta (a procedural field), else a contiguous float32
+    ``(meta.rows, 128)`` tensor on ``device``."""
+    if meta is None or t is None:
+        if (meta is None) != (t is None):
+            raise ValueError("a pyramid table exactly for each field with a TexMeta "
+                             "(None for a procedural field)")
+        return
     if (t.device != device or t.dtype != torch.float32 or not t.is_contiguous()
             or tuple(t.shape) != (meta.rows, texsample.LANES)):
         raise ValueError(f"pyramid table must be a contiguous float32 ({meta.rows}, "
@@ -998,7 +1105,8 @@ def _check_inputs(params: AtmosphereParams, config: VariantConfig, camera: Camer
     textured = texture_mode(config)
     if textured:
         if tex_data is None or len(tex_data) != 2:
-            raise ValueError("texture mode needs tex_data = (shape, coverage) tables")
+            raise ValueError("texture mode needs tex_data = (shape, coverage) tables "
+                             "(None for a procedural field)")
         _check_table(tex_data[0], config.cloud_shape_tex_meta, device)
         _check_table(tex_data[1], config.cloud_coverage_tex_meta, device)
     elif tex_data is not None:

@@ -572,7 +572,9 @@ def sky_tile_choices(meta: TexMeta, d: Vec3, batch_rows: int) -> tuple:
 def pyramid_samplers(config, shape_table, coverage_table, batch_rows: int):
     """The megakernel's field closures over the pyramids (the in-kernel
     samplers of ``megakernel.py:187-211``): shape at texture coordinates,
-    coverage at (unnormalized) coverage-space positions."""
+    coverage at (unnormalized) coverage-space positions.  Only a field with
+    a meta gets one; the other is ``None`` (its procedural closure
+    stays)."""
     meta_s, meta_c = config.cloud_shape_tex_meta, config.cloud_coverage_tex_meta
     w_rows = config.texture_window_rows
 
@@ -586,4 +588,5 @@ def pyramid_samplers(config, shape_table, coverage_table, batch_rows: int):
         return sample_latlong_batched(coverage_table, meta_c, normalize(p), batch_rows,
                                       window_rows=w_rows)
 
-    return shape_fn, coverage_fn
+    return (shape_fn if meta_s is not None else None,
+            coverage_fn if meta_c is not None else None)

@@ -121,9 +121,10 @@ def render_frame(params: AtmosphereParams, config: VariantConfig,
     returned alpha is this layer's).  ``with_atmosphere=False``: the
     opaque-only pass (background color, alpha 0, linear depth).
     ``tex_data`` is the ``(shape, coverage)`` pyramid tables of a config
-    with ``TexMeta``s; ``pano_data``/``pano_meta`` the panorama sky's
-    (r, g, b) pyramid tables and their meta, sampled by the opaque pass
-    (without them a panorama is sampled exactly)."""
+    with ``TexMeta``s (``None`` for a procedural field beside a baked
+    one); ``pano_data``/``pano_meta`` the panorama sky's (r, g, b) pyramid
+    tables and their meta, sampled by the opaque pass (without them a
+    panorama is sampled exactly)."""
     device = camera.view_to_world.device
     params = params.resolve_frame_state()
     rows = height - row0 if rows is None else rows
@@ -133,9 +134,10 @@ def render_frame(params: AtmosphereParams, config: VariantConfig,
     grid_rows, cols = rows, width
     metas = (config.cloud_shape_tex_meta, config.cloud_coverage_tex_meta)
     if with_atmosphere and any(m is not None for m in metas):
-        if tex_data is None or None in metas:
-            raise ValueError("pyramid sampling needs both TexMetas and their "
-                             "(shape, coverage) tables")
+        if tex_data is None or len(tex_data) != 2 or any(
+                (m is None) != (t is None) for m, t in zip(metas, tex_data)):
+            raise ValueError("pyramid sampling needs the (shape, coverage) tables of "
+                             "the fields with TexMetas, None for the others")
         group = config.cloud_lod * max(config.cloud_coverage_lod, 1)
         if TILE_ROWS % group:
             raise ValueError(f"cloud_lod·cloud_coverage_lod = {group} must "

@@ -126,3 +126,19 @@ def test_gas_giant_frame_matches_jax_xla(gas_giant):
     assert bad.mean() <= 3e-3, int(bad.sum())
     assert np.abs(got - ref).max() <= 5e-4
     assert (ref[..., 3][bad] > 0.0).all()  # rays through the shell only
+
+
+def test_gas_giant_xla_reference_is_the_jax_frame(gas_giant):
+    """``tests/golden_gas_giant_xla.npz`` holds this scene's JAX XLA frame
+    (192×128 at the limb pose), which ``chip_smoke.py`` phase 3i carries to
+    the card, where JAX does not run: the JAX package renders it again here
+    within the golden's budget (on the CPU it was written on, bit for bit).
+    To write it anew: ``np.savez_compressed(path, frame=ref)`` with ``ref``
+    as this test builds it."""
+    jscene, jcam, _, _ = gas_giant
+    jout = jscene.render(jcam, 192, 128)
+    ref = np.concatenate([np.asarray(jout["color"]), np.asarray(jout["alpha"])[..., None]], -1)
+    saved = np.load(os.path.join(os.path.dirname(__file__), "golden_gas_giant_xla.npz"))["frame"]
+    assert saved.shape == ref.shape == (192, 128, 4) and saved.dtype == np.float32
+    bad = ~np.isclose(saved, ref, rtol=1e-4, atol=1e-5).all(axis=-1)
+    assert bad.mean() <= 3e-3 and np.abs(saved - ref).max() <= 5e-4

@@ -217,9 +217,11 @@ def test_render_refuses_large_worlds():
 
 
 def test_textures_are_not_ported():
-    """The cloud textures are ported (tests/test_torch_texture_scene.py);
-    the optical-depth LUT texture is not, and one baked field beside one
-    procedural field is not either."""
+    """The cloud textures are ported (tests/test_torch_texture_scene.py),
+    one baked field beside one procedural field too
+    (tests/test_torch_texture_envelope.py): a baked shape texture beside
+    the procedural coverage renders, through its pyramid.  The
+    optical-depth LUT texture is not ported."""
     scene, cam = _scene()
     atmo = scene.atmospheres[0]
     with pytest.raises(NotImplementedError):
@@ -227,8 +229,12 @@ def test_textures_are_not_ported():
     atmo.set_shader_parameter("u_cloud_shape_texture", np.zeros((8, 8, 8)))
     assert atmo.get_shader_parameter("u_cloud_shape_texture").shape == (8, 8, 8)
     atmo.set_custom_shader(dataclasses.replace(atmo.config, cloud_shape_noise=None))
-    with pytest.raises(NotImplementedError):
-        scene.render(cam, 8, 16)
+    _, params, configs = scene._sorted_layers(cam)
+    config, tex = scene._texture_plan(params[0], configs[0])
+    assert config.cloud_shape_tex_meta is not None and config.cloud_coverage_tex_meta is None
+    assert tex[0] is not None and tex[1] is None
+    out = scene.render(cam, 8, 16)
+    assert torch.isfinite(out["color"]).all() and torch.isfinite(out["alpha"]).all()
 
 
 def test_shader_parameter_surface():

@@ -215,15 +215,33 @@ def test_texture_config_converts_from_jax(jax_scene, textures):
         dataclasses.asdict(jdemo.demo_variant("clouds", procedural=False)))
 
 
-@pytest.mark.parametrize("change", [dict(cloud_shape_knots=8), dict(cloud_shape_knots=32),
-                                    dict(cloud_shape_interp=False), dict(cloud_lod=1),
-                                    dict(texture_knot_group=9),
-                                    dict(cloud_coverage_tex_meta=None, cloud_coverage_noise=None)])
+@pytest.mark.parametrize("change", [dict(cloud_shape_interp=False),
+                                    dict(cloud_coverage_tex_meta=None, cloud_coverage_noise=None),
+                                    dict(cloud_lod=3), dict(texture_band_rows=12),
+                                    dict(texture_knot_group=0)])
 def test_wrapper_rejects_texture_configs_outside_the_kernel(textures, change):
-    """The texture instance's envelope (``check_config``, which the wrapper
-    applies to CUDA tensors)."""
+    """The texture instances' envelope (``check_config``, which the wrapper
+    applies to CUDA tensors): what the JAX kernel's ``_check_config``
+    refuses (a baked field without its knot flag, a baked field without a
+    pyramid or a spec, banded rows not a multiple of 8), a LOD group that
+    does not divide the tile, no knot group."""
     scene, cam = _port_scene(textures, "avatar")
     _, params, configs = scene._sorted_layers(cam)
     cfg, tex = scene._texture_plan(params[0], configs[0])
     with pytest.raises(ValueError):
         mk.check_config(dataclasses.replace(cfg, **change))
+
+
+@pytest.mark.parametrize("change,fixed", [
+    (dict(cloud_shape_knots=8), False), (dict(cloud_shape_knots=32), False),
+    (dict(cloud_lod=1), False), (dict(texture_knot_group=9), True)])
+def test_wrapper_takes_texture_configs_of_the_jax_envelope(textures, change, fixed):
+    """What the texture instance refused before its envelope was ported
+    renders now: other shape knot counts and LOD groups through the general
+    instance, any knot group through the fixed one too."""
+    scene, cam = _port_scene(textures, "avatar")
+    _, params, configs = scene._sorted_layers(cam)
+    cfg, tex = scene._texture_plan(params[0], configs[0])
+    cfg = dataclasses.replace(cfg, **change)
+    mk.check_config(cfg)
+    assert mk.texture_mode(cfg) and mk.fixed_texture_instance(cfg) == fixed
