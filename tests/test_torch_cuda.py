@@ -764,6 +764,55 @@ def test_texture_envelope_matches_plain(cuda, baked, tex_conditioning, case):
     assert ok(st), (tolerance, st)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["G = 1", "shape baked, coverage knots", "full quality"])
+@pytest.mark.parametrize("mode", ["chained", "sky"])
+def test_texture_general_instance_chained_and_with_the_sky(cuda, baked, mode, case):
+    """The general texture instance where ``test_texture_kernel_matches_plain``
+    takes the fixed one: chained over a far moon on a 256-row shard (rows
+    256-511 of a 512×128 frame, through the band entries), and fused with
+    a panorama sky (its choice made in the tile's block, no pre-pass);
+    against the plain version on the same CUDA inputs at the cloud
+    tolerance."""
+    import chip_smoke as cs
+    from godot_atmosphere_shader_tpu_torch.models.scene import PlanetAtmosphere
+
+    scene, cam = cs.tex_envelope_scene(cs.TEX_ENVELOPE_CASES[case], cuda, baked)
+    _with_panorama(scene, cuda)
+    if mode == "chained":
+        scene.atmospheres.append(PlanetAtmosphere(
+            planet_radius=10.0, atmosphere_height=2.0, sun=scene.atmospheres[0].sun,
+            custom_shader="no_clouds", position=(-188.991, 0.0, 192.584), device=cuda))
+    scene.update(0.5, cam)
+    _, params, configs = scene._sorted_layers(cam)
+    plans = [scene._texture_plan(p, c) for p, c in zip(params, configs)]
+    configs, tex = tuple(c for c, _ in plans), tuple(t for _, t in plans)
+    pdata, pmeta = scene._pano_plan()
+    textured = [mk.texture_mode(c) for c in configs]
+    assert textured == ([False, True] if mode == "chained" else [True])
+    assert not mk.fixed_texture_instance(configs[-1])
+    mk.counters.reset()
+    if mode == "chained":
+        h, r0, rows = 512, 256, 256
+        got = _image(mk.render_scene_band_megakernel(params, configs, cam, scene.opaque, h, W,
+                                                     r0, rows, tex_data=tex, pano_data=pdata,
+                                                     pano_meta=pmeta))
+        counts = (mk.counters.texture_general_launches, mk.counters.sky_launches,
+                  mk.counters.plain_calls)
+        ref = _image(mk.render_scene_band_plain(params, configs, cam, scene.opaque, h, W, r0,
+                                                rows, tex_data=tex, pano_data=pdata,
+                                                pano_meta=pmeta))
+    else:
+        got = _image(scene.render(cam, H, W))
+        counts = (mk.counters.texture_general_launches, mk.counters.sky_launches,
+                  mk.counters.plain_calls + mk.counters.sky_choice_launches)
+        ref = _image(mk.render_scene_plain(params, configs, cam, scene.opaque, H, W,
+                                           tex_data=tex, pano_data=pdata, pano_meta=pmeta))
+    assert counts == (1, 1, 0)
+    assert torch.isfinite(got).all() and float(got[..., 3].max()) > 0.05
+    assert _cloud_ok(got, ref)
+
+
 # -- K1 slice (h): the procedural envelope, the procedural instance ----------------
 
 
