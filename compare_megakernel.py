@@ -3,7 +3,6 @@
 of the TAA resolve (``taa_kernel``) on one card, in turns.
 
     python3 compare_megakernel.py PARENT_MEGAKERNEL_CU [PARENT_TAA_CU]
-        [--groups procedural,texture,tex_envelope,clear,flights,k3]
 
 Builds, all ``nvcc`` at once, the checkout's kernel library and one of the
 parent's sources (another commit's ``csrc/megakernel.cu`` and, when given,
@@ -14,10 +13,7 @@ appended where it has none, and the checkout's layout of the texture
 launch struct where it predates it, beside the checkout's other kernel
 sources), and each side's measurement build.  Then the sides run in turns,
 ``parent, change, change, parent``; each pass takes, through that side's
-library, the groups ``--groups`` names (default: all; ``tex_envelope``,
-``chip_smoke.py`` phase 3h's cases at 64×128 and phase 4g's frames at
-1080p, runs on the change alone against a parent without
-``megakernel_tex_general``, its second pass held against its first):
+library:
 
 * the main path's 1080p frames (the flagship
   ``clouds_high``/avatar, ``clouds_high``/interior, ``clouds``/avatar,
@@ -30,6 +26,10 @@ library, the groups ``--groups`` names (default: all; ``tex_envelope``,
   64×128 frames whose work counts ``tests/test_torch_cuda.py`` holds
   against the parent's, and the device busy ms per frame of the three 1080p
   K = 8 flights (``torch.profiler``);
+* the texture envelope: ``chip_smoke.py`` phase 3h's cases at 64×128 and
+  phase 4g's frames at 1080p (against a parent without
+  ``megakernel_tex_general``, on the change alone, its second pass held
+  against its first);
 * the cloud-free instance's frames, JAX bench cells 1, 2
   and 7 (the gas giant's 64-step band at its limb pose) and the
   everything-on frame at space with its sky (an opaque-only pass that draws
@@ -309,11 +309,10 @@ class Case:
     """One frame of the comparison: its launches far to near (each ``(kind,
     struct, args, planes, shard?)``), the cloud layers timed."""
 
-    def __init__(self, label, scene, cam, h, w, launches, config_of, group=None):
+    def __init__(self, label, scene, cam, h, w, launches, config_of):
         self.label, self.scene, self.cam, self.h, self.w = label, scene, cam, h, w
         self.launches = launches
         self.config_of = config_of  # launch index -> its layer's config
-        self.group = group
 
     def run_all(self):
         from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
@@ -335,7 +334,7 @@ class Case:
                 if st.clouds_enabled and st.with_atmosphere]
 
 
-def plan_case(label, scene, cam, h, w, device, group=None) -> Case:
+def plan_case(label, scene, cam, h, w, device) -> Case:
     """A frame's launches as ``Scene.render`` plans them, on one set of
     planes."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
@@ -350,7 +349,7 @@ def plan_case(label, scene, cam, h, w, device, group=None) -> Case:
     layer_of = ([0] if launches[0][0] == "opaque" else []) + list(range(len(configs)))
     return Case(label, scene, cam, h, w,
                 [(kind, st, args, planes, False) for kind, st, args in launches],
-                {i: configs[li] for i, li in enumerate(layer_of)}, group)
+                {i: configs[li] for i, li in enumerate(layer_of)})
 
 
 def shard_case(label, scene, cam, h, w, n, device) -> Case:
@@ -382,87 +381,72 @@ SMALL_SIZE = (64, 128)
 GAS_GIANT_SMALL = (192, 128)
 
 
-#: the comparison's groups of frames and resolves (``--groups``)
-GROUPS = ("procedural", "texture", "tex_envelope", "clear", "flights", "k3")
-
-
-def cases(device, textures, groups=GROUPS) -> list:
-    """The frames compared, of the given groups: ``procedural`` (the main
-    path's procedural frames, the flagship on 2 shards, cell 5, the
-    envelope frames), ``texture`` (the fixed texture instance's frames),
-    ``tex_envelope`` (``chip_smoke.py`` phase 3h's cases at 64×128 and
-    phase 4g's frames at 1080p: the general texture instance, and the fixed
-    one beyond the demo's profile),
-    ``clear`` (the cloud-free instance's frames)."""
+def cases(device, textures, tex_envelope: bool = True) -> list:
+    """The frames compared; ``tex_envelope``: with ``chip_smoke.py`` phase
+    3h's cases at 64×128 and phase 4g's frames at 1080p (the texture
+    envelope, which a parent without ``megakernel_tex_general`` does not
+    render)."""
     H, W = cs.FULL_SIZE
-    pano = cs.synthetic_panorama(*cs.PANO_SIZE) if {"texture", "procedural", "clear"} & set(
-        groups) else None
+    pano = cs.synthetic_panorama(*cs.PANO_SIZE)
     out = []
-    if "clear" in groups:
-        for cell, kind, pose, ch, cw in cs.BENCH_CELLS:
-            if cell == "5":
-                continue
-            scene, cam = cs.build_scene(kind, device), cs.scene_camera(kind, pose, device)
-            scene.update(0.5, cam)
-            out.append(plan_case(f"cell {cell}", scene, cam, ch, cw, device))
-        allon = cs.with_panorama(cs.build_scene("allon", device, textures), pano)
-        cam = cs.scene_camera("allon", "space", device)
-        allon.update(0.25, cam)
-        out.append(plan_case("everything-on/space with the sky", allon, cam, H, W, device))
-        scene = cs.build_scene("gas_giant", device)
-        cam = cs.scene_camera("gas_giant", "limb", device)
+    for cell, kind, pose, ch, cw in cs.BENCH_CELLS:
+        if cell == "5":
+            continue
+        scene, cam = cs.build_scene(kind, device), cs.scene_camera(kind, pose, device)
         scene.update(0.5, cam)
-        out.append(plan_case(f"cell 7 {GAS_GIANT_SMALL[0]}x{GAS_GIANT_SMALL[1]}", scene, cam,
-                             *GAS_GIANT_SMALL, device))
-    if "procedural" in groups:
-        for variant, pose in SMALL_CASES:
-            scene, cam = cs.scene_and_camera(variant, pose, device)
-            out.append(plan_case(f"{variant}/{pose} {SMALL_SIZE[0]}x{SMALL_SIZE[1]}", scene,
-                                 cam, *SMALL_SIZE, device))
-    if "texture" in groups:
-        scene, cam = cs.scene_and_camera("clouds_high", "avatar", device, textures=textures)
-        out.append(plan_case(f"clouds_high texture/avatar {SMALL_SIZE[0]}x{SMALL_SIZE[1]}",
-                             scene, cam, *SMALL_SIZE, device))
-    if "tex_envelope" in groups:
+        out.append(plan_case(f"cell {cell}", scene, cam, ch, cw, device))
+    allon = cs.with_panorama(cs.build_scene("allon", device, textures), pano)
+    cam = cs.scene_camera("allon", "space", device)
+    allon.update(0.25, cam)
+    out.append(plan_case("everything-on/space with the sky", allon, cam, H, W, device))
+    scene, cam = cs.build_scene("gas_giant", device), cs.scene_camera("gas_giant", "limb", device)
+    scene.update(0.5, cam)
+    out.append(plan_case(f"cell 7 {GAS_GIANT_SMALL[0]}x{GAS_GIANT_SMALL[1]}", scene, cam,
+                         *GAS_GIANT_SMALL, device))
+    for variant, pose in SMALL_CASES:
+        scene, cam = cs.scene_and_camera(variant, pose, device)
+        out.append(plan_case(f"{variant}/{pose} {SMALL_SIZE[0]}x{SMALL_SIZE[1]}", scene, cam,
+                             *SMALL_SIZE, device))
+    scene, cam = cs.scene_and_camera("clouds_high", "avatar", device, textures=textures)
+    out.append(plan_case(f"clouds_high texture/avatar {SMALL_SIZE[0]}x{SMALL_SIZE[1]}", scene,
+                         cam, *SMALL_SIZE, device))
+    if tex_envelope:
         for name, changes in cs.TEX_ENVELOPE_CASES.items():
             scene, cam = cs.tex_envelope_scene(changes, device, textures)
             out.append(plan_case(f"texture envelope {name} {SMALL_SIZE[0]}x{SMALL_SIZE[1]}",
-                                 scene, cam, *SMALL_SIZE, device, group="tex_envelope"))
+                                 scene, cam, *SMALL_SIZE, device))
         for name, changes in cs.TEX_ENVELOPE_FRAMES.items():
             scene, cam = cs.tex_envelope_scene(changes, device, textures)
-            out.append(plan_case(name, scene, cam, H, W, device, group="tex_envelope"))
-    if "procedural" in groups:
-        for variant, pose in (("clouds_high", "avatar"), ("clouds_high", "interior"),
-                              ("clouds", "avatar")):
-            scene, cam = cs.scene_and_camera(variant, pose, device)
-            out.append(plan_case(f"{variant}/{pose}", scene, cam, H, W, device))
-    if "texture" in groups:
-        for pose in cs.TEXTURE_POSES:
-            scene, cam = cs.scene_and_camera("clouds_high", pose, device, textures=textures)
-            out.append(plan_case(f"clouds_high texture/{pose}", scene, cam, H, W, device))
-        allon = cs.with_panorama(cs.build_scene("allon", device, textures), pano)
-        cam = cs.scene_camera("allon", "avatar", device)
-        allon.update(0.25, cam)
-        out.append(plan_case("everything-on/avatar with the sky", allon, cam, H, W, device))
-        SH, SW = cs.SHARD_SIZE
-        out.append(shard_case(f"everything-on/avatar {SH}x{SW} on {cs.SHARDS} shards", allon,
-                              cam, SH, SW, cs.SHARDS, device))
-    if "procedural" in groups:
-        for pose in ("avatar", "sunward"):
-            scene = cs.with_panorama(cs.build_scene("clouds_high", device), pano)
-            cam = cs.scene_camera("clouds_high", pose, device)
-            scene.update(0.5, cam)
-            out.append(plan_case(f"clouds_high/{pose} with the sky", scene, cam, H, W, device))
-        _, kind, pose, ch, cw = [c for c in cs.BENCH_CELLS if c[0] == "5"][0]
-        scene, cam = cs.build_scene(kind, device), cs.scene_camera(kind, pose, device)
-        scene.update(0.5, cam)
-        out.append(plan_case("cell 5", scene, cam, ch, cw, device))
-        scene, cam = cs.scene_and_camera("clouds_high", "avatar", device)
-        out.append(shard_case(f"clouds_high/avatar on {cs.FLAGSHIP_SHARDS} shards", scene, cam,
-                              H, W, cs.FLAGSHIP_SHARDS, device))
-        for name in cs.ENVELOPE_FRAMES:
-            scene, cam = cs.envelope_scene(name, device)
             out.append(plan_case(name, scene, cam, H, W, device))
+    for variant, pose in (("clouds_high", "avatar"), ("clouds_high", "interior"),
+                          ("clouds", "avatar")):
+        scene, cam = cs.scene_and_camera(variant, pose, device)
+        out.append(plan_case(f"{variant}/{pose}", scene, cam, H, W, device))
+    for pose in cs.TEXTURE_POSES:
+        scene, cam = cs.scene_and_camera("clouds_high", pose, device, textures=textures)
+        out.append(plan_case(f"clouds_high texture/{pose}", scene, cam, H, W, device))
+    allon = cs.with_panorama(cs.build_scene("allon", device, textures), pano)
+    cam = cs.scene_camera("allon", "avatar", device)
+    allon.update(0.25, cam)
+    out.append(plan_case("everything-on/avatar with the sky", allon, cam, H, W, device))
+    SH, SW = cs.SHARD_SIZE
+    out.append(shard_case(f"everything-on/avatar {SH}x{SW} on {cs.SHARDS} shards", allon, cam,
+                          SH, SW, cs.SHARDS, device))
+    for pose in ("avatar", "sunward"):
+        scene = cs.with_panorama(cs.build_scene("clouds_high", device), pano)
+        cam = cs.scene_camera("clouds_high", pose, device)
+        scene.update(0.5, cam)
+        out.append(plan_case(f"clouds_high/{pose} with the sky", scene, cam, H, W, device))
+    _, kind, pose, ch, cw = [c for c in cs.BENCH_CELLS if c[0] == "5"][0]
+    scene, cam = cs.build_scene(kind, device), cs.scene_camera(kind, pose, device)
+    scene.update(0.5, cam)
+    out.append(plan_case("cell 5", scene, cam, ch, cw, device))
+    scene, cam = cs.scene_and_camera("clouds_high", "avatar", device)
+    out.append(shard_case(f"clouds_high/avatar on {cs.FLAGSHIP_SHARDS} shards", scene, cam, H, W,
+                          cs.FLAGSHIP_SHARDS, device))
+    for name in cs.ENVELOPE_FRAMES:
+        scene, cam = cs.envelope_scene(name, device)
+        out.append(plan_case(name, scene, cam, H, W, device))
     return out
 
 
@@ -593,8 +577,8 @@ def instance(st, args) -> dict:
         return {"instance": "clear", **mk.clear_info(st)}
     if args["tex"] is None:
         return {"instance": "gen", **mk.gen_info(st)}
-    fixed = mk._fixed_launch(st, args["tex"][0])
-    return {"instance": "tex" if fixed else "tex_general", **mk.tex_info(st, args["tex"][0])}
+    info = mk.tex_info(st, args["tex"][0])
+    return {"instance": "tex_general" if info["general"] else "tex", **info}
 
 
 def one_pass(all_cases: list, all_flights: dict, ref_dir: str) -> dict:
@@ -673,15 +657,12 @@ def run_pass(args) -> int:
     cs.PEAK.update(fp32=args.peak_fp32, int32=args.peak_int32)
     device = torch.device("cuda", 0)
     textures = bake_demo_textures(device=device)
-    groups = args.groups.split(",")
-    all_cases = cases(device, textures, groups)
+    all_cases = cases(device, textures, not args.without_tex_envelope)
     if args.stages:
         result = stage_pass([c for c in all_cases if c.clouds()])
     else:
-        result = one_pass(all_cases, flights(device, textures) if "flights" in groups else {},
-                          args.reference)
-        if "k3" in groups:
-            result.update(resolve_pass(resolves(device), args.reference))
+        result = one_pass(all_cases, flights(device, textures), args.reference)
+        result.update(resolve_pass(resolves(device), args.reference))
     with open(args.out, "w") as f:
         json.dump(result, f)
     return 0
@@ -740,9 +721,10 @@ def summarise(runs: dict, sides: list, label: str) -> dict:
 
 
 def summarise_alone(passes: list, label: str) -> dict:
-    """A frame that only the change renders (a group the parent has no
-    instance for): its passes' times, bound, work, instance, and the second
-    pass against the first (max |Δ|)."""
+    """A frame that only the change renders (the texture envelope, which a
+    parent without ``megakernel_tex_general`` skips): its passes' times,
+    bound, work, instance, and the second pass against the first (max
+    |Δ|)."""
     launches = passes[0][label]["launches"]
     bound_ms = sum(x["bound_ms"] for x in launches)
     best = min(r[label]["ms"] for r in passes)
@@ -776,11 +758,7 @@ def main(argv=None) -> int:
     ap.add_argument("--stages", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--peak-fp32", type=float, help=argparse.SUPPRESS)
     ap.add_argument("--peak-int32", type=float, help=argparse.SUPPRESS)
-    ap.add_argument("--groups", default=",".join(GROUPS),
-                    help=f"the groups compared, comma-separated (default: all of "
-                         f"{', '.join(GROUPS)}); a group the parent's source has no instance "
-                         f"for (tex_envelope before megakernel_tex_general) runs on the change "
-                         f"alone")
+    ap.add_argument("--without-tex-envelope", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the comparison needs one GPU")
@@ -812,16 +790,15 @@ def main(argv=None) -> int:
 
     with open(args.parent_cu) as f:
         parent_general = "megakernel_tex_general" in f.read()
-    groups = args.groups.split(",")
-
     def start(side: str, lib: str, stages: bool = False) -> dict:
         out = os.path.join(COMPARE_DIR, f"pass-{side.replace('/', '-')}.json")
-        mine = [g for g in groups
-                if g != "tex_envelope" or parent_general or side.startswith("change")]
+        # a parent without the general texture instance skips the texture
+        # envelope, which the change then runs alone
+        alone = not parent_general and side.startswith("parent")
         cmd = [sys.executable, os.path.abspath(__file__), "--library", lib, "--out", out,
                "--reference", ref_dir, "--peak-fp32", repr(cs.PEAK["fp32"]),
-               "--peak-int32", repr(cs.PEAK["int32"]), "--groups", ",".join(mine)] + (
-                   ["--stages"] if stages else [])
+               "--peak-int32", repr(cs.PEAK["int32"])] + (["--stages"] if stages else []) + (
+                   ["--without-tex-envelope"] if alone else [])
         subprocess.run(cmd, check=True)
         with open(out) as f:
             return json.load(f)

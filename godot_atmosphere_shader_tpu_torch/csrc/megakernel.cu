@@ -2910,14 +2910,20 @@ static int launch_tex(const MegakernelParams* p, const TexParams* t, const TexPa
   return (int)cudaGetLastError();
 }
 
-// whether the fixed instance megakernel_tex<K, KS, G> takes these params:
-// the demo's profile (both fields baked, K = 8, KS = 16, low quality, G = 4
-// or 8); megakernel_tex_general takes every other texture config
-static bool fixed_tex(const MegakernelParams* p, const TexParams* t) {
+// The texture instances (megakernel_tex_info's last entry, the launcher's
+// report): the fixed megakernel_tex<K, KS, G> takes the demo's profile (both
+// fields baked, K = 8, KS = 16, low quality, G = 4 or 8);
+// megakernel_tex_general takes every other texture config, and any config
+// the caller asks it for (general != 0)
+constexpr int MK_TEX_FIXED = 0;
+constexpr int MK_TEX_GENERAL = 1;
+
+static int tex_instance(const MegakernelParams* p, const TexParams* t, int general) {
   const int G = p->cloud_lod * p->coverage_lod;
-  return t->shape_source == MK_SRC_PYRAMID && t->cov_source == MK_SRC_PYRAMID &&
-         p->coverage_knots == MK_KNOTS && t->shape_knots == MK_SHAPE_KNOTS && p->always_low &&
-         (G == 4 || G == 8);
+  const bool fixed = t->shape_source == MK_SRC_PYRAMID && t->cov_source == MK_SRC_PYRAMID &&
+                     p->coverage_knots == MK_KNOTS && t->shape_knots == MK_SHAPE_KNOTS &&
+                     p->always_low && (G == 4 || G == 8);
+  return fixed && !general ? MK_TEX_FIXED : MK_TEX_GENERAL;
 }
 
 // a field's source against the launch: a pyramid needs its table, 1 to
@@ -2977,12 +2983,17 @@ static int launch_tex_general(const MegakernelParams* p, const TexParams* t, con
   return (int)cudaGetLastError();
 }
 
+// The texture instance's launch: the fixed instance where it takes the
+// params (tex_instance), else the general one; general != 0 asks for the
+// general instance whatever the params (both instances on one config, to
+// compare them).  *instance, where given, gets the instance launched
+// (MK_TEX_FIXED or MK_TEX_GENERAL).
 extern "C" int megakernel_tex_launch(const MegakernelParams* params, const TexParams* tex,
                                      const TexParams* sky, const float* blue,
                                      const float* shape_tab, const float* cov_tab,
                                      const float* sky_r, const float* sky_g, const float* sky_b,
                                      float* color, float* alpha, float* depth, void* stream,
-                                     void* work) {
+                                     void* work, int general, int* instance) {
   if (!params->clouds_enabled || !params->with_atmosphere || tex->knot_group < 1 ||
       !source_ok(tex->shape_source, params->shape_interp, shape_tab, tex->shape_levels) ||
       !source_ok(tex->cov_source, params->coverage_interp, cov_tab, tex->cov_levels) ||
@@ -2991,10 +3002,12 @@ extern "C" int megakernel_tex_launch(const MegakernelParams* params, const TexPa
       !sky_ok(params, sky, sky_r, sky_g, sky_b))
     return -1;
   const int G = params->cloud_lod * params->coverage_lod;
+  const int which = tex_instance(params, tex, general);
   const TexParams sky_t = sky ? *sky : TexParams{};
   cudaStream_t s = (cudaStream_t)stream;
   unsigned long long* w = (unsigned long long*)work;
-  if (!fixed_tex(params, tex))
+  if (instance) *instance = which;
+  if (which == MK_TEX_GENERAL)
     return launch_tex_general(params, tex, sky_t, blue, shape_tab, cov_tab, sky_r, sky_g, sky_b,
                               color, alpha, depth, s, w);
   if (G == 4)
@@ -3007,16 +3020,17 @@ extern "C" int megakernel_tex_launch(const MegakernelParams* params, const TexPa
 }
 
 // What the texture instance for these params uses, as the launcher would
-// launch it: out = {rows per thread G, registers per thread, local memory
-// (stack) bytes per thread, resident blocks (tiles) per SM, dynamic shared
-// memory bytes, threads per block}.  It sets the shared-memory attribute
-// the launcher sets.
+// launch it (general as megakernel_tex_launch takes it): out = {rows per
+// thread G, registers per thread, local memory (stack) bytes per thread,
+// resident blocks (tiles) per SM, dynamic shared memory bytes, threads per
+// block, 1 for the general instance (0 for the fixed one)}.  It sets the
+// shared-memory attribute the launcher sets.
 extern "C" int megakernel_tex_info(const MegakernelParams* params, const TexParams* tex,
-                                   int* out) {
+                                   int* out, int general) {
   const int G = params->cloud_lod * params->coverage_lod;
   cudaFuncAttributes attr;
   int blocks = 0;
-  if (!fixed_tex(params, tex)) {
+  if (tex_instance(params, tex, general) == MK_TEX_GENERAL) {
     const TexgLayout lay = texg_layout(params, tex);
     if (!lay.rows) return -1;
     cudaError_t err = texg_smem_attribute(lay);
@@ -3025,8 +3039,9 @@ extern "C" int megakernel_tex_info(const MegakernelParams* params, const TexPara
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, megakernel_tex_general,
                                                           lay.threads, lay.smem);
     if (err != cudaSuccess) return (int)err;
-    const int info[6] = {G, attr.numRegs, (int)attr.localSizeBytes, blocks, lay.smem, lay.threads};
-    for (int i = 0; i < 6; ++i) out[i] = info[i];
+    const int info[7] = {G, attr.numRegs, (int)attr.localSizeBytes, blocks, lay.smem, lay.threads,
+                         1};
+    for (int i = 0; i < 7; ++i) out[i] = info[i];
     return 0;
   }
   const int nt = tex_threads(G), smem = tex_smem(G);
@@ -3036,8 +3051,8 @@ extern "C" int megakernel_tex_info(const MegakernelParams* params, const TexPara
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
   if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, nt, smem);
   if (err != cudaSuccess) return (int)err;
-  const int info[6] = {G, attr.numRegs, (int)attr.localSizeBytes, blocks, smem, nt};
-  for (int i = 0; i < 6; ++i) out[i] = info[i];
+  const int info[7] = {G, attr.numRegs, (int)attr.localSizeBytes, blocks, smem, nt, 0};
+  for (int i = 0; i < 7; ++i) out[i] = info[i];
   return 0;
 }
 

@@ -124,7 +124,8 @@ SOURCE_PYRAMID, SOURCE_KNOTS, SOURCE_STEP = 0, 1, 2
 #: 128 × 32 / G threads per 32×128 tile, registers sized for TEX_SM_THREADS
 #: resident threads per SM (one tile at G = 4, two at G = 8); every other
 #: texture config takes the general instance ``megakernel_tex_general``
-#: (:func:`tex_general_layout`)
+#: (:func:`tex_general_layout`); the launcher picks (``tex_instance`` in the
+#: source, :func:`fixed_texture_instance` its mirror) and reports its pick
 TEXTURE_GROUPS = (4, 8)
 TEX_SM_THREADS = 1024
 #: its shared memory: the 9 coverage and 17 shape knots in rows of one float
@@ -158,8 +159,12 @@ STAGE_SLOTS = ("coarse", "knots", "march", "blend")
 MEASURE_DEFINES = ("MK_STAGE_CLOCKS",)
 #: what :func:`gen_info` reports of the procedural instance
 GEN_INFO = ("coarse", "registers", "stack_bytes", "blocks_per_sm", "smem_bytes", "row_cache")
-#: what :func:`tex_info` reports of the texture instance
-TEX_INFO = ("group", "registers", "stack_bytes", "blocks_per_sm", "smem_bytes", "threads")
+#: what :func:`tex_info` reports of the texture instance (``general``:
+#: TEX_GENERAL for ``megakernel_tex_general``, 0 for the fixed instance, as
+#: the launcher also reports the instance it launched; ``MK_TEX_*``)
+TEX_INFO = ("group", "registers", "stack_bytes", "blocks_per_sm", "smem_bytes", "threads",
+            "general")
+TEX_GENERAL = 1
 #: what :func:`clear_info` reports of the cloud-free instance
 CLEAR_INFO = ("registers", "stack_bytes", "blocks_per_sm", "threads", "blocks")
 #: atmosphere models, by their integer codes
@@ -351,11 +356,13 @@ LAUNCHER_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.POINTER(TexParams)
 SKY_CHOICE_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.POINTER(TexParams),
                        ctypes.c_void_p, ctypes.c_void_p)
 TEX_LAUNCHER_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.POINTER(TexParams),
-                         ctypes.POINTER(TexParams), *(ctypes.c_void_p,) * 11)
+                         ctypes.POINTER(TexParams), *(ctypes.c_void_p,) * 11, ctypes.c_int,
+                         ctypes.c_void_p)
 TEXSAMPLE_ARGTYPES = (ctypes.POINTER(TexParams), ctypes.c_int, *(ctypes.c_void_p,) * 4,
                       ctypes.c_int, ctypes.c_int, *(ctypes.c_void_p,) * 3)
 GEN_INFO_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.c_void_p)
-TEX_INFO_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.POINTER(TexParams), ctypes.c_void_p)
+TEX_INFO_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.POINTER(TexParams), ctypes.c_void_p,
+                     ctypes.c_int)
 CLEAR_INFO_ARGTYPES = GEN_INFO_ARGTYPES
 
 
@@ -431,14 +438,16 @@ def gen_info(struct: MegakernelParams) -> dict:
     return dict(zip(GEN_INFO, out))
 
 
-def tex_info(struct: MegakernelParams, tparams: TexParams) -> dict:
+def tex_info(struct: MegakernelParams, tparams: TexParams, general: bool = False) -> dict:
     """What the texture instance that would launch ``struct`` with the
     pyramid struct ``tparams`` uses on this card (:data:`TEX_INFO`): its
     rows per coverage group G, registers, local memory (stack), resident
-    CTAs (tiles) per SM, dynamic shared memory and threads per CTA (the
-    fixed instance's or the general one's, as the launcher picks)."""
+    CTAs (tiles) per SM, dynamic shared memory, threads per CTA and which
+    instance it is (the fixed one or the general one, as the launcher
+    picks; the general one where ``general``, as :func:`launch` takes it)."""
     out = (ctypes.c_int * len(TEX_INFO))()
-    rc = load_library().megakernel_tex_info(ctypes.byref(struct), ctypes.byref(tparams), out)
+    rc = load_library().megakernel_tex_info(ctypes.byref(struct), ctypes.byref(tparams), out,
+                                            int(general))
     if rc != 0:
         raise RuntimeError(f"megakernel_tex_info failed: CUDA error {rc}")
     return dict(zip(TEX_INFO, out))
@@ -548,22 +557,13 @@ def knot_rows(config: VariantConfig) -> int:
     return cov + shape * (1 if config.clouds_always_low_quality else 2)
 
 
-def fixed_texture_instance(config: VariantConfig) -> bool:
-    """Whether the fixed texture instance ``megakernel_tex<K, KS, G>``
-    renders a texture-mode config (``fixed_tex`` in the source): the demo's
-    profile, both fields baked, KNOTS coverage and SHAPE_KNOTS shape knots,
-    low quality, G in TEXTURE_GROUPS; the general instance renders every
-    other one."""
-    return (config.cloud_shape_tex_meta is not None
-            and config.cloud_coverage_tex_meta is not None
-            and max(config.cloud_coverage_knots, 1) == KNOTS
-            and config.cloud_shape_knots == SHAPE_KNOTS
-            and config.clouds_always_low_quality
-            and config.cloud_lod * config.cloud_coverage_lod in TEXTURE_GROUPS)
-
-
-def _fixed_launch(struct: MegakernelParams, tparams: TexParams) -> bool:
-    """:func:`fixed_texture_instance` of a launch's structs."""
+def fixed_texture_instance(struct: MegakernelParams, tparams: TexParams) -> bool:
+    """Whether the launcher picks the fixed texture instance
+    ``megakernel_tex<K, KS, G>`` for a launch's structs (the mirror of
+    ``tex_instance`` in the source, held to the launcher's report by the
+    card tests): the demo's profile, both fields baked, KNOTS coverage and
+    SHAPE_KNOTS shape knots, low quality, G in TEXTURE_GROUPS; the general
+    instance renders every other texture config."""
     return (tparams.shape_source == SOURCE_PYRAMID and tparams.cov_source == SOURCE_PYRAMID
             and struct.coverage_knots == KNOTS and tparams.shape_knots == SHAPE_KNOTS
             and bool(struct.always_low)
@@ -643,8 +643,7 @@ def _texture_problems(config: VariantConfig):
                f"of 8)")
     if config.texture_band_rows and config.texture_band_max_slices < 1:
         yield "texture_band_max_slices < 1 with banding on"
-    if (not bad and config.texture_knot_group >= 1 and not fixed_texture_instance(config)
-            and tex_general_layout(config) is None):
+    if not bad and config.texture_knot_group >= 1 and tex_general_layout(config) is None:
         yield ("the knots and march inputs of one thread row of 128 threads, the tile's "
                "coverage groups and the knot batches exceed a block's "
                f"{SMEM_ROWS * TILE_COLS * 4} B of shared memory (tex_general_layout)")
@@ -969,7 +968,7 @@ def _plane_ptr(t: Optional[torch.Tensor], struct: MegakernelParams):
 
 def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
            tex=None, work: Optional[torch.Tensor] = None,
-           depth: Optional[torch.Tensor] = None, sky=None):
+           depth: Optional[torch.Tensor] = None, sky=None, general: bool = False):
     """Launch the kernel for one launch struct into preallocated CUDA
     frame planes (``color`` (H, W, 3), ``alpha`` (H, W), float32) on the
     current stream of their device; counted in
@@ -978,7 +977,9 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
     or just those rows (a row shard's planes).  ``tex``: ``(TexParams, shape table,
     coverage table)`` for a texture instance, ``None`` for a procedural
     field's table (also counted in ``counters.texture_launches``, and the
-    general instance's in ``counters.texture_general_launches``).  ``work``: ``len(WORK_SLOTS) +
+    general instance's, as the launcher reports it, in
+    ``counters.texture_general_launches``; ``general``: the general
+    instance whatever the config, to compare the two).  ``work``: ``len(WORK_SLOTS) +
     len(STAGE_SLOTS)`` zeroed int64 counters that the kernel adds its work to (see
     :func:`work_counts`).  ``depth``: an (H, W) float32 plane of linear
     depth: written by a launch with the opaque pass (optional), read by a
@@ -1003,6 +1004,7 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
     choices = None
     if sky is not None and tex is None:
         choices = sky_choices(struct, sky_params, device)
+    instance = ctypes.c_int(-1)  # the texture instance the launcher reports
     with torch.cuda.device(device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
         planes = [_plane_ptr(t, struct) for t in (color, alpha, depth)]
@@ -1015,7 +1017,8 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
             rc = lib.megakernel_tex_launch(ctypes.byref(struct), ctypes.byref(tparams),
                                            sky_ref, _ptr(blue), _ptr(shape_table),
                                            _ptr(cov_table), _ptr(sky_r), _ptr(sky_g),
-                                           _ptr(sky_b), *planes, stream, _ptr(work))
+                                           _ptr(sky_b), *planes, stream, _ptr(work),
+                                           int(general), ctypes.byref(instance))
     if rc != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {rc}")
     counters.megakernel_launches += 1
@@ -1023,7 +1026,7 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
         counters.general_launches += 1
     if tex is not None:
         counters.texture_launches += 1
-        if not _fixed_launch(struct, tex[0]):
+        if instance.value == TEX_GENERAL:
             counters.texture_general_launches += 1
     if not (struct.clouds_enabled and struct.with_atmosphere):
         counters.clear_launches += 1

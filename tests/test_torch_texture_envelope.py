@@ -236,9 +236,11 @@ def test_sources_and_layout_match_the_kernel():
     consts = {k: int(v) for k, v in re.findall(r"constexpr int (MK_TEXG_\w+) = (\d+);", src)}
     assert consts == {"MK_TEXG_GROUP_FLOATS": mk.TEXG_GROUP_FLOATS,
                       "MK_TEXG_MAX_ROWS": mk.TEXG_MAX_ROWS}
-    fixed = re.search(r"static bool fixed_tex\(.*?\n\}", src, re.S).group(0)
+    assert re.search(r"constexpr int MK_TEX_GENERAL = (\d+);", src).group(1) == str(
+        mk.TEX_GENERAL)
+    fixed = re.search(r"static int tex_instance\(.*?\n\}", src, re.S).group(0)
     for term in ("MK_SRC_PYRAMID", "MK_KNOTS", "MK_SHAPE_KNOTS", "always_low", "G == 4",
-                 "G == 8"):
+                 "G == 8", "!general"):
         assert term in fixed
 
 
@@ -246,8 +248,9 @@ def test_sources_and_layout_match_the_kernel():
 def test_launch_structs_carry_each_fields_source(textures, case):
     """What ``tex_constants`` sets for the kernel: each field's source
     (pyramid, procedural knots, procedural per step), the knot counts and
-    group; the instance that takes the launch; the general instance's
-    block (:func:`tex_general_layout`) fits a block's shared memory."""
+    group; the instance that takes the launch (the fixed one for the
+    demo's profile at any knot group); the general instance's block
+    (:func:`tex_general_layout`) fits a block's shared memory."""
     _, _, scene, cam = _scenes(textures, PYRAMID_CASES[case])
     _, params, configs = scene._sorted_layers(cam)
     config, _ = scene._texture_plan(params[0], configs[0])
@@ -264,12 +267,11 @@ def test_launch_structs_carry_each_fields_source(textures, case):
         assert (meta is None) == (noise is not None)
     assert (t.shape_source, t.cov_source) == (want["shape"], want["cov"])
     assert (t.knot_group, t.shape_knots) == (config.texture_knot_group, config.cloud_shape_knots)
-    assert mk._fixed_launch(s, t) == mk.fixed_texture_instance(config)
-    if not mk.fixed_texture_instance(config):
-        lay = mk.tex_general_layout(config)
-        group_rows = 32 // (config.cloud_lod * config.cloud_coverage_lod)
-        assert lay["threads"] == 128 * lay["rows"] and lay["rows"] <= min(4, group_rows)
-        assert lay["smem_bytes"] <= mk.SMEM_ROWS * mk.TILE_COLS * 4
+    assert mk.fixed_texture_instance(s, t) == case.startswith("knot_group")
+    lay = mk.tex_general_layout(config)
+    group_rows = 32 // (config.cloud_lod * config.cloud_coverage_lod)
+    assert lay["threads"] == 128 * lay["rows"] and lay["rows"] <= min(4, group_rows)
+    assert lay["smem_bytes"] <= mk.SMEM_ROWS * mk.TILE_COLS * 4
 
 
 @pytest.mark.parametrize("procedural", ["coverage", "shape"])

@@ -244,4 +244,6 @@ def test_wrapper_takes_texture_configs_of_the_jax_envelope(textures, change, fix
     cfg, tex = scene._texture_plan(params[0], configs[0])
     cfg = dataclasses.replace(cfg, **change)
     mk.check_config(cfg)
-    assert mk.texture_mode(cfg) and mk.fixed_texture_instance(cfg) == fixed
+    struct = mk.frame_constants(params[0], cfg, cam, scene.opaque, H, W)
+    assert mk.texture_mode(cfg)
+    assert mk.fixed_texture_instance(struct, mk.tex_constants(cfg)) == fixed
