@@ -2232,9 +2232,11 @@ def gen_instances(struct) -> dict:
     return out
 
 
-def stage_split(plan, scene, cam, h: int, w: int, device, measure_path: str) -> list:
+def stage_split(plan, scene, cam, h: int, w: int, device, measure_path: str,
+                general: bool = False) -> list:
     """Phase 5f for one frame: each cloud launch (the procedural or the
-    texture instance) in the frame's plan with what its instance uses
+    texture instance; ``general``: the general texture instance, as
+    ``mk.launch`` takes it) in the frame's plan with what its instance uses
     (``mk.gen_info``, ``mk.tex_info``), the march's lane utilisation
     (normal build; the procedural instance) and its cycles per stage,
     summed over warps (the measurement build, whose work counts must equal
@@ -2255,17 +2257,20 @@ def stage_split(plan, scene, cam, h: int, w: int, device, measure_path: str) -> 
         if not (struct.clouds_enabled and struct.with_atmosphere):
             mk.launch(struct, color, alpha, depth=depth, **args)
             continue
-        work = mk.work_counts(struct, color, alpha, depth=depth, **args)
+        work = mk.work_counts(struct, color, alpha, depth=depth, general=general, **args)
         with mk.use_library(measure_path):
-            measured = mk.work_counts(struct, color, alpha, depth=depth, stages=True, **args)
+            measured = mk.work_counts(struct, color, alpha, depth=depth, stages=True,
+                                      general=general, **args)
         if any(measured[k] != work[k] for k in mk.WORK_SLOTS):
             raise RuntimeError(f"the measurement build's work counts differ: {measured} {work}")
         cycles = {k: measured[f"stage_{k}_cycles"] for k in mk.STAGE_SLOTS}
         total = sum(cycles.values())
         info = (mk.gen_info(struct) if args["tex"] is None
-                else mk.tex_info(struct, args["tex"][0]))
+                else mk.tex_info(struct, args["tex"][0], general))
         out.append({"kind": kind, "row0": struct.row0, "rows": struct.rows,
-                    "instance": "gen" if args["tex"] is None else "tex", **info, "work": work,
+                    "instance": ("gen" if args["tex"] is None
+                                 else "tex_general" if info["general"] else "tex"),
+                    **info, "work": work,
                     "lane_utilisation": lane_utilisation(work), "stage_cycles": cycles,
                     "stage_share": {k: v / total for k, v in cycles.items()} if total else None})
     return out
@@ -3131,6 +3136,16 @@ def main(argv=None) -> int:
                       [x["work"] for x in band_flag["launches"]])
     check_parent_work(f"everything-on/avatar {SH}x{SW} on {SHARDS} shards",
                       [x["work"] for x in shard_t["everything-on"]["launches"] if x["texture"]])
+    # the general texture instance: phase 4g's frames, and bench cell 6 asked
+    # of it (mk.launch(general=True))
+    general_frames = {name: tex_envelope_scene(changes, device, textures)
+                      for name, changes in TEX_ENVELOPE_FRAMES.items()}
+    general_frames["bench cell 6 through the general instance"] = scene_and_camera(
+        "clouds_high", "avatar", device, textures=textures)
+    for label, (scene, cam) in general_frames.items():
+        stages[label] = stage_split(scene_plan(scene, cam, H), scene, cam, H, W, device,
+                                    measure_path, general=True)
+        log(f"[stages] {label} {H}x{W} on {card}: {json.dumps(stages[label])}")
     log("[stages] every cloud launch's work counts equal the previous design's")
 
     # -- 6. the flight slice at 1080p through Scene.render_flight ----------------

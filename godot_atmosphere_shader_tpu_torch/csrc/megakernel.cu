@@ -261,12 +261,16 @@ constexpr int MK_SKY_CHOICE_RAYS = MK_TILE_ROWS / MK_SKY_CHOICE_THREADS_Y;
 #define MK_WORK_SLOTS 21
 // The measurement build (-DMK_STAGE_CLOCKS) adds the procedural instance's
 // cycles per stage, summed over warps, after the work slots
-// (megakernel.py STAGE_SLOTS); the normal build never writes them.
+// (megakernel.py STAGE_SLOTS); the normal build never writes them.  The
+// general texture instance's tile choice adds two: every coverage group's
+// coarse inputs, and the knot batches' choices over the tile.
 #define MK_STAGE_COARSE 0
 #define MK_STAGE_KNOTS 1
 #define MK_STAGE_MARCH 2
 #define MK_STAGE_BLEND 3
-#define MK_STAGES 4
+#define MK_STAGE_CHOICE_COARSE 4
+#define MK_STAGE_CHOICE 5
+#define MK_STAGES 6
 #define MK_SUN_STEPS 6  // raymarched lighting's sun march
 
 // ---------------------------------------------------------------------------
@@ -2508,7 +2512,7 @@ __global__ void __launch_bounds__(MK_TILE_COLS * MK_TEXG_MAX_ROWS, 1)
   }
   // the tile's gate (clouds.py:573): no visible pixel, no knots, no march
   const bool tile_vis = __syncthreads_or(any_vis);
-  clk.mark(MK_STAGE_COARSE);
+  clk.mark(MK_STAGE_CHOICE_COARSE);
 
   // B. each batch's level and mode from its knots over the whole tile
   if (tile_vis) {
@@ -2544,7 +2548,7 @@ __global__ void __launch_bounds__(MK_TILE_COLS * MK_TEXG_MAX_ROWS, 1)
     }
     __syncthreads();
   }
-  clk.mark(MK_STAGE_KNOTS);
+  clk.mark(MK_STAGE_CHOICE);
 
   // C. each group of the thread: knots, cull, march, shading and blend
   unsigned n_atmo = 0, n_v1 = 0, n_march = 0, n_sun = 0, n_sky = 0, n_seg = 0, n_groups = 0;
@@ -2554,10 +2558,12 @@ __global__ void __launch_bounds__(MK_TILE_COLS * MK_TEXG_MAX_ROWS, 1)
   const bool full = !p.always_low;
   for (int gr = threadIdx.y; gr < NGR; gr += R) {
     const int y0 = tile_y0 + gr * G;
-    if (x >= p.width || y0 >= p.row0 + p.rows) continue;  // nothing of it is stored
+    const bool inside = x < p.width && y0 < p.row0 + p.rows;  // else nothing of it is stored
     const int n_rows = min(G, p.row0 + p.rows - y0);
     float g[5];
-    const unsigned vis = texg_coarse(p, blue, x, y0, color, depth, sky, state + tid, T, g);
+    const unsigned vis =
+        inside ? texg_coarse(p, blue, x, y0, color, depth, sky, state + tid, T, g) : 0u;
+    clk.mark(MK_STAGE_COARSE);
     unsigned marches = 0;
     if (tile_vis && vis) {
       int b = 0, row = 0;
@@ -2599,6 +2605,7 @@ __global__ void __launch_bounds__(MK_TILE_COLS * MK_TEXG_MAX_ROWS, 1)
       // no coverage knots, no bound: every visible coarse pixel marches
       marches = (t.cov_source == MK_SRC_STEP || cloud_may_form(p, cov_max)) ? vis : 0u;
     }
+    clk.mark(MK_STAGE_KNOTS);
     if (marches) {
       const float* kn = knots + tid;
       const float* cov_k = nullptr;
@@ -2626,7 +2633,8 @@ __global__ void __launch_bounds__(MK_TILE_COLS * MK_TEXG_MAX_ROWS, 1)
         if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
       }
     }
-    for (int r = 0; r < n_rows; ++r) {
+    clk.mark(MK_STAGE_MARCH);
+    for (int r = 0; inside && r < n_rows; ++r) {
       const int k = r / L;
       Pixel px;
       shade_pixel(p, blue, x, y0 + r, true, color, depth, sky, work != nullptr, n_atmo, n_v1,
@@ -2643,9 +2651,9 @@ __global__ void __launch_bounds__(MK_TILE_COLS * MK_TEXG_MAX_ROWS, 1)
       const float ca = marched ? state[(C + k) * T + tid] : 0.0f;
       blend_and_store(p, x, y0 + r, 1, 1, s, &vis_k, &la, &ca, color, alpha_out);
     }
-    n_pixels += n_rows;
+    if (inside) n_pixels += n_rows;
+    clk.mark(MK_STAGE_BLEND);
   }
-  clk.mark(MK_STAGE_MARCH);
   if (work) {
     count_work(work, MK_WORK_PIXELS, n_pixels);
     count_work(work, MK_WORK_ATMOSPHERE, n_atmo);

@@ -154,8 +154,9 @@ WORK_SLOTS = ("pixels", "atmosphere", "knot_groups", "march", "tex3d",
 #: the measurement build's (``MEASURE_DEFINES``) per-stage cycles of the
 #: procedural and texture instances, summed over warps, after the work
 #: slots (``MK_STAGE_*``): the coarse pass, the knots, the march, the
-#: shading and blend
-STAGE_SLOTS = ("coarse", "knots", "march", "blend")
+#: shading and blend; and the general texture instance's tile choice:
+#: every coverage group's coarse inputs, the knot batches' choices
+STAGE_SLOTS = ("coarse", "knots", "march", "blend", "choice_coarse", "choice")
 MEASURE_DEFINES = ("MK_STAGE_CLOCKS",)
 #: what :func:`gen_info` reports of the procedural instance
 GEN_INFO = ("coarse", "registers", "stack_bytes", "blocks_per_sm", "smem_bytes", "row_cache")
@@ -1487,7 +1488,7 @@ def _flight(params_seq, fs_stacks, configs, camera, opaque, height, width, cam_s
 
 def work_counts(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
                 tex=None, depth: Optional[torch.Tensor] = None, sky=None,
-                stages: bool = False) -> dict:
+                stages: bool = False, general: bool = False) -> dict:
     """One launch with the kernel's work counters on: how many pixels,
     atmosphere integrations (v2 and v1) and v2 sun-depth quadrature
     segments, knot groups, marched coarse pixels, sun-march samples,
@@ -1496,13 +1497,13 @@ def work_counts(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tens
     floor-mode nearest) this launch's inputs needed, and the procedural
     march's warp- and lane-steps.  ``stages``: add the
     measurement build's per-stage cycles (:data:`STAGE_SLOTS`, keys
-    ``stage_<name>_cycles``; zeros from the normal build).  Counted in the
-    launch counters like any launch; a chained layer composites over
-    ``color`` again."""
+    ``stage_<name>_cycles``; zeros from the normal build).  ``general``:
+    as :func:`launch` takes it.  Counted in the launch counters like any
+    launch; a chained layer composites over ``color`` again."""
     # the measurement build writes its stage slots after the work slots
     work = torch.zeros(len(WORK_SLOTS) + len(STAGE_SLOTS), dtype=torch.int64,
                        device=color.device)
-    launch(struct, color, alpha, tex=tex, work=work, depth=depth, sky=sky)
+    launch(struct, color, alpha, tex=tex, work=work, depth=depth, sky=sky, general=general)
     counts = work.cpu().tolist()
     out = dict(zip(WORK_SLOTS, counts))
     if stages:
