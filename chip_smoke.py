@@ -182,9 +182,11 @@ LOD group) and the peak probe T2 run in four more phases:
    measurement build (``-DMK_STAGE_CLOCKS``, built beside the package's),
    its cycles per stage (coarse pass, knots, march, blend); the same for
    the texture instance ``megakernel_tex<G>`` (``mk.tex_info``) on the
-   texture frames of 4b and the everything-on frame of 4d; every such
-   launch's work counts held against the previous design's
-   (``PARENT_WORK``, ``PARENT_TEX_WORK``; the texture launches of 4e's
+   texture frames of 4b and the everything-on frame of 4d, and the general
+   texture instance (its tile choice's stages and its frame's) on the
+   frames of 4g and bench cell 6 asked of it; every such launch's work
+   counts held against the previous design's (``PARENT_WORK``,
+   ``PARENT_TEX_WORK``, ``PARENT_TEXG_WORK``; the texture launches of 4e's
    4 shards too), so the bounds are shown not to move.
 
 K1's texture envelope (slice (i): the general texture instance
@@ -200,8 +202,11 @@ card check run in three more phases:
    baked coverage, full quality under cheap and raymarched light, coverage
    K = 4, 16, shape knots 8, 32, G = 1, 2, 16, 32, knot groups 1 and 17,
    a 9-level shape pyramid) through ``Scene.render`` (one launch of a
-   texture instance, no plain call) against plain: the cloud tolerance, the
-   detail or knot-group tolerance only where that measurement fails it;
+   texture instance, no plain call; the general instance with its tile
+   choice) against plain: the cloud tolerance, the detail or knot-group
+   tolerance only where that measurement fails it; and each case's tile
+   choice alone (``mk.tex_choices``) against its plain version
+   (``mk.tex_choices_plain``), exactly;
 3i. the gas giant's 192×128 limb band (cell 7's scene): the kernel, the
    plain chain on the card and on the CPU, and the JAX XLA frame
    (``tests/golden_gas_giant_xla.npz``), every pair under the gas-giant
@@ -211,13 +216,14 @@ card check run in three more phases:
 4g. 1080p through ``Scene.render``: the texture reference profile (G = 1),
    texture full quality, baked shape beside procedural coverage knots and
    procedural per-step shape beside baked coverage (4 launches of the
-   general instance, no plain call), each against the whole plain frame,
-   then timed: kernel ms (events and device time), its bound,
-   ``Scene.render`` ms and idle share, the plain ms, the instance's
-   registers, stack and CTAs per SM; and bench cell 6 through both texture
-   instances (the general one reached by a pyramid struct whose
-   ``shape_knots`` only the fixed instance's choice reads), timed and
-   compared.
+   general instance, each with its tile choice, no plain call), each
+   against the whole plain frame and its tile choice alone against its
+   plain version (exact), then timed: the two launches' ms by events, each
+   one's device time, the bound (the frame's from its work counters plus
+   the tile choice's), the tile choice alone, ``Scene.render`` ms and idle
+   share, the plain ms, the instance's registers, stack and blocks per SM;
+   and bench cell 6 through both texture instances (the general one asked
+   for, ``mk.launch(general=True)``), timed and compared.
 
 Prints a JSON line describing each kernel (with its roofline bound from
 this run's work counters), then, as the last line,
@@ -335,6 +341,21 @@ OPS_SKY_UV = 66
 OPS_SKY_CHOICE_RAY = 25 + OPS_SKY_UV
 OPS_SKY_SAMPLE = 62 + 60
 OPS_SKY_FLOOR = 62 + 20
+# the general texture instance's tile choice (tex_choice_kernel), the first
+# of its two launches: every ray of a tile once without shading (ray 25, the
+# opaque pass's three spheres and box slab test 121, the shell and ground
+# hits and the sphere-depth blend 44), each coarse pixel's coarse inputs
+# (its mean ray, cloud-shell hits, visibility and model-space ray, and its
+# share of the group's means: 75), each baked knot's sampler coordinates
+# for its batch (its position 10, min and max 6, and by field: coverage's
+# rotation, normalisation and polynomial (u, v) 75, shape's scale and wrap
+# 9, detail's 12); the sky's choice, where the launch draws it, is the
+# frame launch's (sky_cost, in the tile's block).  Bytes: the blue noise
+# read and the choices written once (the layers below' depth too, where
+# chained).
+OPS_CHOICE_RAY = 190
+OPS_CHOICE_COARSE = 75
+OPS_CHOICE_COORD = (91, 25, 28)
 # frame-plane bytes per pixel: a fused layer writes color and alpha (16); a
 # chained layer reads color, alpha and depth and writes color and alpha
 # (36); the opaque-only pass writes color, alpha and depth (20)
@@ -738,6 +759,32 @@ def roofline(work: dict, config, height: int, width: int, table_bytes: int = 0,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def tex_choice_roofline(struct, tparams) -> dict:
+    """The least time of the general texture instance's tile choice for one
+    launch (:data:`OPS_CHOICE_RAY` and what follows it): every ray of the
+    launch's padded tile grid, each coarse pixel, each baked knot of each
+    coverage group; the blue noise, the layers below' depth (chained) and
+    the choices as bytes."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    tiles, slots, _ = mk.tex_choice_shape(struct, tparams)
+    rays = tiles * TILE * 128
+    groups = rays // (struct.cloud_lod * struct.coverage_lod)
+    coords = 0
+    if tparams.cov_source == mk.SOURCE_PYRAMID:
+        coords += (struct.coverage_knots + 1) * OPS_CHOICE_COORD[0]
+    if tparams.shape_source == mk.SOURCE_PYRAMID:
+        coords += (struct.shape_knots + 1) * OPS_CHOICE_COORD[1]
+        if not struct.always_low:
+            coords += (struct.shape_knots + 1) * OPS_CHOICE_COORD[2]
+    ops = rays * OPS_CHOICE_RAY + rays // struct.cloud_lod * OPS_CHOICE_COARSE + groups * coords
+    nbytes = (256 * 256 * 4 + tiles * slots * 8
+              + (struct.rows * struct.width * 4 if struct.with_background else 0))
+    t_ops, t_bytes = ops_time_ms(ops), nbytes / PEAK_BYTES * 1e3
+    return {"ops": ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
 def sky_cost(cam, height: int, width: int, meta, in_block: bool, row0: int = 0,
              rows=None) -> dict:
     """What the sky adds to the bound of the launch that draws it (over
@@ -984,23 +1031,31 @@ def check_flight(label, out, ref) -> float:
     return worst
 
 
-def kernel_trace(fn, name: str) -> dict:
-    """One call of ``fn`` under ``torch.profiler``: how many kernels whose
-    name holds ``name`` ran, their mean device time and the mean interval
-    between the starts of consecutive ones (µs)."""
+def kernel_traces(fn, names) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: for each of ``names``,
+    how many kernels whose name holds it ran, their mean device time and
+    the mean interval between the starts of consecutive ones (µs)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    runs = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                  if e.device_type == DeviceType.CUDA and name in e.name)
-    starts = [s for s, _ in runs]
-    return {"kernels": len(runs),
-            "device_us": sum(e - s for s, e in runs) / max(len(runs), 1),
-            "interval_us": ((starts[-1] - starts[0]) / (len(starts) - 1)
-                            if len(starts) > 1 else None)}
+    out = {}
+    for name in names:
+        runs = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                      if e.device_type == DeviceType.CUDA and name in e.name)
+        starts = [s for s, _ in runs]
+        out[name] = {"kernels": len(runs),
+                     "device_us": sum(e - s for s, e in runs) / max(len(runs), 1),
+                     "interval_us": ((starts[-1] - starts[0]) / (len(starts) - 1)
+                                     if len(starts) > 1 else None)}
+    return out
+
+
+def kernel_trace(fn, name: str) -> dict:
+    """:func:`kernel_traces` of one name."""
+    return kernel_traces(fn, (name,))[name]
 
 
 def flight_trace(fn) -> dict:
@@ -1364,11 +1419,38 @@ def tex_envelope_tolerance(config, conditioning: dict) -> tuple:
     return cloud_tolerance_ok, "cloud"
 
 
+def tex_choice_check(scene, cam, h: int, w: int, device) -> dict:
+    """The general texture instance's tile choice alone (``mk.tex_choices``)
+    for a one-layer texture frame's launch against its plain version
+    (``mk.tex_choices_plain``, the plain chain's own samplers) on the same
+    inputs: ``{"slots": compared, "tiles": tiles, "differ": slots whose
+    (mode, level) differ, "max_abs": their largest |Δ|, "plain_ms": the
+    plain version's wall time}``; exact is ``differ == 0``."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    params, configs, tex, bands, rows = scene_plan(scene, cam, h)
+    (_, struct, args), = mk.scene_launches(params, configs, cam, scene.opaque, h, w, tex_data=tex,
+                                           bands=bands, band_rows=rows)
+    got = mk.tex_choices(struct, args["tex"][0], device).cpu()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ref = mk.tex_choices_plain(params[0], configs[0], cam, scene.opaque, h, w, tex[0])
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    ref = ref.cpu()
+    if got.shape != ref.shape:
+        raise RuntimeError(f"tile choice of shape {tuple(got.shape)}, plain {tuple(ref.shape)}")
+    return {"slots": got.shape[0] * got.shape[1], "tiles": got.shape[0],
+            "differ": int((got != ref).any(dim=2).sum()),
+            "max_abs": int((got - ref).abs().max()), "plain_ms": plain_ms}
+
+
 def tex_envelope_check(device, textures, h: int, w: int, conditioning: dict) -> dict:
     """Phase 3h: each case of TEX_ENVELOPE_CASES through ``Scene.render``
     (one launch of a texture instance, no plain call) against the plain
     chain on the same inputs, under :func:`tex_envelope_tolerance`; which
-    instance rendered it."""
+    instance rendered it; the general instance's tile choice alone against
+    its plain version (:func:`tex_choice_check`: exact)."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     out = {}
@@ -1380,18 +1462,27 @@ def tex_envelope_check(device, textures, h: int, w: int, conditioning: dict) -> 
         err, _ = check_scene(f"texture envelope {name}", scene, cam, h, w, ok)
         if mk.counters.texture_launches != 1:
             raise RuntimeError(f"texture envelope {name}: not rendered by a texture instance")
+        general = mk.counters.texture_general_launches
+        if mk.counters.tex_choice_launches != general:
+            raise RuntimeError(f"texture envelope {name}: the general instance without its tile "
+                               f"choice")
+        choice = tex_choice_check(scene, cam, h, w, device)
+        if choice["differ"]:
+            raise RuntimeError(f"texture envelope {name}: the tile choice differs from plain in "
+                               f"{choice['differ']} of {choice['slots']} slots")
         out[name] = {"max": err, "tolerance": tolerance,
-                     "instance": ("general" if mk.counters.texture_general_launches
-                                  else "fixed")}
+                     "instance": "general" if general else "fixed", "choice_slots": choice["slots"]}
     return out
 
 
 def tex_envelope_timing(scene, cam, h: int, w: int, device, plain_s: float) -> dict:
-    """Phase 4g's timing of one frame: its texture launch alone (CUDA
-    events, and device time from ``torch.profiler``) with its bound from
-    its work counters, ``Scene.render`` ms and idle share, the plain ms
-    (``plain_s``: the whole plain frame's wall time) and what its instance
-    uses (``mk.tex_info``)."""
+    """Phase 4g's timing of one frame: its texture launch (the general
+    instance's two: the tile choice and the frame) alone, CUDA events
+    over both, and each one's device time from ``torch.profiler``, with its
+    bound (the frame's from its work counters, plus the tile choice's,
+    :func:`tex_choice_roofline`), ``Scene.render`` ms and idle share, the
+    plain ms (``plain_s``: the whole plain frame's wall time) and what its
+    instance uses (``mk.tex_info``)."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     params, configs, tex, bands, rows = scene_plan(scene, cam, h)
@@ -1407,9 +1498,15 @@ def tex_envelope_timing(scene, cam, h: int, w: int, device, plain_s: float) -> d
         scene.update(0.5 + 0.05 * i, cam)
         scene.render(cam, h, w)
 
+    trace = kernel_traces(lambda: [launch() for _ in range(ENVELOPE_KERNEL_FRAMES)],
+                          ("megakernel_tex", "tex_choice_kernel"))
+    frame_dev = trace["megakernel_tex"]["device_us"] / 1e3
+    choice_dev = trace["tex_choice_kernel"]["device_us"] / 1e3
     t = {"kernel_ms": time_cuda(launch, ENVELOPE_KERNEL_FRAMES),
-         "device_ms": kernel_trace(lambda: [launch() for _ in range(ENVELOPE_KERNEL_FRAMES)],
-                                   "megakernel_tex")["device_us"] / 1e3,
+         "device_ms": frame_dev + choice_dev, "frame_device_ms": frame_dev,
+         "choice_device_ms": choice_dev,
+         "choice_ms": time_cuda(lambda i: mk.tex_choices(struct, args["tex"][0], device),
+                                ENVELOPE_KERNEL_FRAMES),
          "scene_ms": time_cuda(frame, ENVELOPE_KERNEL_FRAMES)}
     busy, _ = device_busy_ms(frame, ENVELOPE_KERNEL_FRAMES, first=2 + ENVELOPE_KERNEL_FRAMES)
     t["scene_device_busy_ms"] = busy
@@ -1417,7 +1514,11 @@ def tex_envelope_timing(scene, cam, h: int, w: int, device, plain_s: float) -> d
     scene.update(0.5, cam)
     work = mk.work_counts(struct, color, alpha, **args)
     table_bytes = sum(x.numel() * 4 for x in tex[0] if x is not None)
-    t.update(roofline(work, configs[0], h, w, table_bytes), work=work)
+    frame_bound = roofline(work, configs[0], h, w, table_bytes)
+    choice_bound = tex_choice_roofline(struct, args["tex"][0])
+    t.update(frame_bound, work=work, frame_bound_ms=frame_bound["bound_ms"],
+             choice_bound_ms=choice_bound["bound_ms"], choice_bound_by=choice_bound["bound_by"],
+             bound_ms=frame_bound["bound_ms"] + choice_bound["bound_ms"])
     t["plain_ms"] = plain_s * 1e3
     t["instance"] = mk.tex_info(struct, args["tex"][0])
     return t
@@ -1449,9 +1550,11 @@ def both_texture_instances(device, textures, h: int, w: int) -> dict:
         if mk.counters.texture_general_launches != general:
             raise RuntimeError(f"bench cell 6: the launcher did not launch the {name} instance")
         frames[name] = frame_array({"color": color, "alpha": alpha})
+        trace = kernel_traces(lambda: [launch() for _ in range(ENVELOPE_KERNEL_FRAMES)],
+                              ("megakernel_tex", "tex_choice_kernel"))
         out[name] = {"ms": time_cuda(launch, ENVELOPE_KERNEL_FRAMES),
-                     "device_ms": kernel_trace(lambda: [launch() for _ in range(
-                         ENVELOPE_KERNEL_FRAMES)], "megakernel_tex")["device_us"] / 1e3,
+                     "device_ms": sum(x["device_us"] for x in trace.values()) / 1e3,
+                     "choice_device_ms": trace["tex_choice_kernel"]["device_us"] / 1e3,
                      "instance": mk.tex_info(struct, args["tex"][0], general)}
     out["general_vs_fixed"] = cloud_deltas(frames["general"], frames["fixed"])
     out["bit_equal"] = bool(np.array_equal(frames["general"], frames["fixed"]))
@@ -1476,14 +1579,16 @@ def tex_envelope_frames(device, textures, h: int, w: int, conditioning: dict) ->
         runs[name] = (scene, cam, frame_array(scene.render(cam, h, w)))
     torch.cuda.synchronize()
     counts = (mk.counters.megakernel_launches, mk.counters.texture_launches,
-              mk.counters.texture_general_launches,
+              mk.counters.texture_general_launches, mk.counters.tex_choice_launches,
               mk.counters.plain_calls + ts.counters.plain_sky_calls)
     log(f"[tex-envelope] counters after {len(runs)} {h}x{w} Scene.render frames: K1 {counts[0]}, "
-        f"texture {counts[1]} (general {counts[2]}), plain {counts[3]}")
-    if counts != (len(runs),) * 3 + (0,):
+        f"texture {counts[1]} (general {counts[2]}, its tile choice {counts[3]}), plain "
+        f"{counts[4]}")
+    if counts != (len(runs),) * 4 + (0,):
         raise RuntimeError("the texture envelope's frames did not all go through the general "
-                           "texture instance")
-    out = {"launches": counts[2], "frames": {}}
+                           "texture instance and its tile choice")
+    out = {"launches": counts[2], "choice_launches": counts[3], "frames": {}}
+    choices = {}
     for name, (scene, cam, img) in runs.items():
         check_frame(img, f"{h}x{w} {name}")
         config = scene_plan(scene, cam, h)[1][0]
@@ -1497,8 +1602,13 @@ def tex_envelope_frames(device, textures, h: int, w: int, conditioning: dict) ->
             f"tolerance): {json.dumps(st)}")
         if not ok(st):
             raise RuntimeError(f"{name}: the {h}x{w} kernel frame disagrees with plain")
+        choices[name] = tex_choice_check(scene, cam, h, w, device)
+        log(f"[tex-envelope] {name} {h}x{w} tile choice vs plain: {json.dumps(choices[name])}")
         out["frames"][name] = dict(tex_envelope_timing(scene, cam, h, w, device, plain_s),
-                                   check=st, tolerance=tolerance)
+                                   check=st, tolerance=tolerance, choice=choices[name])
+    differ = {k: v["differ"] for k, v in choices.items() if v["differ"]}
+    if differ:
+        raise RuntimeError(f"the {h}x{w} tile choices differ from plain: {differ}")
     return out
 
 
@@ -2198,9 +2308,35 @@ PARENT_TEX_WORK = {
 }
 
 
+# The general texture instance's work counts before its redesign (one
+# 512-thread block per tile, PR 11's), on phase 4g's frames and bench cell 6
+# asked of it, per launch, as an H100 counted them (chip_smoke.py phase 5f
+# on the parent's kernels): every slot but the march's lanes, which that
+# design did not count.
+PARENT_TEXG_WORK_KEYS = ("pixels", "atmosphere", "knot_groups", "march", "tex3d", "tex3d_floor",
+                         "latlong", "latlong_floor", "sun_samples", "sky", "sky_floor",
+                         "coverage_evals", "shape_evals", "detail_evals", "shape_knots",
+                         "detail_knots", "od_segments")
+PARENT_TEXG_WORK = {
+    "texture reference profile": [(2073600, 1432644, 1333922, 1333922, 0, 22676674, 12005298, 0,
+                                   0, 0, 0, 0, 0, 0, 0, 0, 10606680)],
+    "texture full quality": [(2073600, 1432644, 333738, 666960, 0, 11347092, 3003642, 0, 0, 0,
+                              0, 0, 0, 0, 0, 0, 10606680)],
+    "shape baked, coverage procedural": [(2073600, 1432644, 333738, 666955, 0, 5673546, 0, 0, 0,
+                                          0, 0, 0, 0, 0, 0, 0, 10606680)],
+    "shape procedural, coverage baked": [(2073600, 1432644, 333738, 666960, 0, 0, 3003642, 0, 0,
+                                          0, 0, 0, 42685440, 0, 0, 0, 10606680)],
+    "bench cell 6 through the general instance": [(2073600, 1432644, 333738, 666960, 0, 5673546,
+                                                   3003642, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                                                   10606680)],
+}
+
+
 def check_parent_work(label: str, works: list):
     """Each cloud launch's work counts against the previous design's."""
-    if label in PARENT_TEX_WORK:
+    if label in PARENT_TEXG_WORK:
+        keys, parent = PARENT_TEXG_WORK_KEYS, PARENT_TEXG_WORK
+    elif label in PARENT_TEX_WORK:
         keys, parent = PARENT_TEX_WORK_KEYS, PARENT_TEX_WORK
     elif label in PARENT_WORK:
         keys, parent = PARENT_WORK_KEYS, PARENT_WORK
@@ -3146,6 +3282,7 @@ def main(argv=None) -> int:
         stages[label] = stage_split(scene_plan(scene, cam, H), scene, cam, H, W, device,
                                     measure_path, general=True)
         log(f"[stages] {label} {H}x{W} on {card}: {json.dumps(stages[label])}")
+        check_parent_work(label, [x["work"] for x in stages[label]])
     log("[stages] every cloud launch's work counts equal the previous design's")
 
     # -- 6. the flight slice at 1080p through Scene.render_flight ----------------
@@ -3350,8 +3487,8 @@ def main(argv=None) -> int:
         "name": "megakernel_tex_general",
         "slice": ("K1 slice (i): the texture envelope, megakernel_tex_general: a baked field "
                   "beside a procedural one, full quality, any knot count, knot group and LOD "
-                  f"group (ms, bound_ms, plain_ms: the {TEX_REF_FRAME} at 1080p, G = 1; "
-                  "frames: each 4g frame's)"),
+                  f"group (ms, bound_ms, plain_ms: the {TEX_REF_FRAME} at 1080p, G = 1, its "
+                  "two launches: the tile choice and the frame; frames: each 4g frame's)"),
         "route": "cuda",
         "source": "godot_atmosphere_shader_tpu_torch/csrc/megakernel.cu",
         "replaces": ("godot_atmosphere_shader_tpu/ops/pallas/megakernel.py:171 (the texture "
@@ -3369,12 +3506,39 @@ def main(argv=None) -> int:
         "bound_ms": tex_env["frames"][TEX_REF_FRAME]["bound_ms"],
         "bound_by": tex_env["frames"][TEX_REF_FRAME]["bound_by"],
         "frames": {k: {"ms": v["kernel_ms"], "device_ms": v["device_ms"],
-                       "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
+                       "frame_device_ms": v["frame_device_ms"],
+                       "choice_device_ms": v["choice_device_ms"], "bound_ms": v["bound_ms"],
+                       "frame_bound_ms": v["frame_bound_ms"],
+                       "choice_bound_ms": v["choice_bound_ms"], "bound_by": v["bound_by"],
                        "plain_ms": v["plain_ms"], "scene_ms": v["scene_ms"],
                        "idle_share": v["scene_idle_share"], "tolerance": v["tolerance"],
                        "instance": v["instance"]}
                    for k, v in tex_env["frames"].items()},
+        "stage_cycles": {k: [x["stage_cycles"] for x in stages[k]] for k in general_frames},
         "bench_cell_6_both_instances": both,
+        "library_ms": None,
+    }, {
+        "name": "tex_choice",
+        "slice": ("the general texture instance's tile choice (tex_choice_kernel), the first of "
+                  "its two launches: the sky's and each knot batch's level and mode over every "
+                  f"coverage group of a 32x128 tile (ms, device_ms, bound_ms: the "
+                  f"{TEX_REF_FRAME}'s at 1080p, alone; plain_ms: its plain version, the plain "
+                  "chain's own choices; max_abs_err: the largest |delta| of (mode, level) over "
+                  "phase 3h's cases and phase 4g's frames)"),
+        "route": "cuda",
+        "source": "godot_atmosphere_shader_tpu_torch/csrc/megakernel.cu",
+        "replaces": ("godot_atmosphere_shader_tpu/ops/pallas/texsample.py:348 and :544 (the "
+                     "batch choice of sample_tex3d and sample_latlong on a tile's knots, inside "
+                     "godot_atmosphere_shader_tpu/ops/pallas/megakernel.py:636)"),
+        "launches": tex_env["choice_launches"],
+        "max_abs_err": max(v["choice"]["max_abs"] for v in tex_env["frames"].values()),
+        "slots_compared": (sum(v["choice"]["slots"] for v in tex_env["frames"].values())
+                           + sum(v["choice_slots"] for v in tex_small.values())),
+        "ms": tex_env["frames"][TEX_REF_FRAME]["choice_ms"],
+        "device_ms": {k: v["choice_device_ms"] for k, v in tex_env["frames"].items()},
+        "plain_ms": tex_env["frames"][TEX_REF_FRAME]["choice"]["plain_ms"],
+        "bound_ms": tex_env["frames"][TEX_REF_FRAME]["choice_bound_ms"],
+        "bound_by": tex_env["frames"][TEX_REF_FRAME]["choice_bound_by"],
         "library_ms": None,
     }, {
         "name": "megakernel_sky",

@@ -8,8 +8,9 @@ Builds, all ``nvcc`` at once, the checkout's kernel library and one of the
 parent's sources (another commit's ``csrc/megakernel.cu`` and, when given,
 its ``csrc/taa.cu``, copied under ``build/compare/parent/`` with the
 queries ``megakernel_gen_info``, ``megakernel_tex_info``,
-``megakernel_clear_info``, ``megakernel_work_slots`` and ``taa_info``
-appended where it has none, and the checkout's layout of the texture
+``megakernel_clear_info``, ``megakernel_work_slots`` and ``taa_info``, and
+the general texture instance's ``tex_choice_launch`` (refusing), appended
+where it has none, and the checkout's layout of the texture
 launch struct where it predates it, beside the checkout's other kernel
 sources), and each side's measurement build.  Then the sides run in turns,
 ``parent, change, change, parent``; each pass takes, through that side's
@@ -41,8 +42,9 @@ library:
   seeded history) and on one 256-row shard of 1920×1024 with its 32-row
   halo (phase 4e's inputs), each with both clamp modes;
 
-each K1 launch's kernel ms (CUDA events) and device ms (``torch.profiler``)
-with its work counts (the march's lane utilisation among them) and what its
+each K1 launch's kernel ms (CUDA events) and device ms (``torch.profiler``;
+the general texture instance's two launches together, its tile choice's
+apart) with its work counts (the march's lane utilisation among them) and what its
 instance uses (registers, stack, resident blocks per SM, shared memory; the
 row cache, the threads per block, or the blocks launched); each K3 launch's
 kernel and device ms and what the kernel uses (CTAs per tile, threads,
@@ -153,6 +155,15 @@ extern "C" int megakernel_clear_info(const MegakernelParams* params, int* out) {
 WORK_SLOTS_SHIM = r'''
 extern "C" int megakernel_work_slots(void) { return MK_WORK_SLOTS; }
 '''
+# the general texture instance's tile choice alone, for a parent without one
+# (its general instance, where it has one, chooses inside its own block):
+# refused
+TEX_CHOICE_SHIM = r'''
+extern "C" int tex_choice_launch(const MegakernelParams*, const TexParams*, const TexParams*,
+                                 const float*, const float*, int*, int, void*, void*) {
+  return -1;
+}
+'''
 # the resolve's query for a parent with one block of 128 x 32 / TAA_ROWS_PER_THREAD
 # threads per tile and static shared memory alone
 TAA_INFO_SHIM = r'''
@@ -175,7 +186,8 @@ extern "C" int taa_info(int* out) {
 SHIMS = {"megakernel.cu": (("megakernel_gen_info", GEN_INFO_SHIM),
                            ("megakernel_tex_info", TEX_INFO_SHIM),
                            ("megakernel_clear_info", CLEAR_INFO_SHIM),
-                           ("megakernel_work_slots", WORK_SLOTS_SHIM)),
+                           ("megakernel_work_slots", WORK_SLOTS_SHIM),
+                           ("tex_choice_launch", TEX_CHOICE_SHIM)),
          "taa.cu": (("taa_info", TAA_INFO_SHIM),)}
 
 
@@ -547,8 +559,11 @@ def resolve_pass(all_resolves: dict, ref_dir: str) -> dict:
 
 
 def bound(case: Case, i: int, work: dict) -> dict:
-    """The launch's roofline bound as ``chip_smoke.py`` takes it; none for
-    work counts without every slot the bound reads (a parent's)."""
+    """The launch's roofline bound as ``chip_smoke.py`` takes it (the
+    general texture instance's: its frame's plus its tile choice's); none
+    for work counts without every slot the bound reads (a parent's)."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
     if "od_segments" not in work:
         return {"bound_ms": None, "bound_by": None}
     kind, st, args, _, shard = case.launches[i]
@@ -566,6 +581,10 @@ def bound(case: Case, i: int, work: dict) -> dict:
     b = cs.roofline(work, case.config_of[i], case.h, case.w, table_bytes,
                     frame_bytes=st.rows * case.w * per_px, sky_bytes=cost.get("sky_bytes", 0),
                     sky_choice_ops=cost.get("sky_choice_ops", 0))
+    if tl is not None and not mk.fixed_texture_instance(st, tl[0]):
+        # the general texture instance's tile choice, its first launch
+        return {"bound_ms": b["bound_ms"] + cs.tex_choice_roofline(st, tl[0])["bound_ms"],
+                "bound_by": b["bound_by"]}
     return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
 
 
@@ -596,12 +615,15 @@ def one_pass(all_cases: list, all_flights: dict, ref_dir: str) -> dict:
             _, st, args, planes, _ = case.launches[i]
             ms = cs.time_cuda(lambda k, st=st, args=args, planes=planes: mk.launch(
                 st, planes[0], planes[1], depth=planes[2], **args), KERNEL_FRAMES)
-            trace = cs.kernel_trace(lambda st=st, args=args, planes=planes: [mk.launch(
-                st, planes[0], planes[1], depth=planes[2], **args)
-                for _ in range(KERNEL_FRAMES)], "megakernel")
+            device = {k: v["device_us"] / 1e3 for k, v in cs.kernel_traces(
+                lambda st=st, args=args, planes=planes: [mk.launch(
+                    st, planes[0], planes[1], depth=planes[2], **args)
+                    for _ in range(KERNEL_FRAMES)], ("megakernel", "tex_choice_kernel")).items()}
             work = mk.work_counts(st, planes[0], planes[1], depth=planes[2], **args)
+            # the general texture instance's device ms: its tile choice's and its frame's
             rows.append({"row0": st.row0, "rows": st.rows, "ms": ms,
-                         "device_ms": trace["device_us"] / 1e3, "work": work,
+                         "device_ms": device["megakernel"] + device["tex_choice_kernel"],
+                         "choice_device_ms": device["tex_choice_kernel"], "work": work,
                          "lane_utilisation": cs.lane_utilisation(work), **instance(st, args),
                          **bound(case, i, work)})
         img = case.frame()
@@ -708,6 +730,9 @@ def summarise(runs: dict, sides: list, label: str) -> dict:
                    "launch_device_ms": [min(r[label]["launches"][i]["device_ms"]
                                             for r in runs[side])
                                         for i in range(len(launches))],
+                   "launch_choice_device_ms": [min(r[label]["launches"][i]["choice_device_ms"]
+                                                   for r in runs[side])
+                                               for i in range(len(launches))],
                    "max_vs_parent": max(r[label]["vs_reference_max"] for r in runs[side]),
                    "work_equals_parent": all(
                        all(a["work"][k] == b["work"][k] for k in counted

@@ -226,7 +226,7 @@
 #define MK_TILE_ROWS 32    // texture mode: one block per TPU tile
 #define MK_TILE_COLS 128
 // the sky's pre-pass: threads per column of a tile, and rows per thread
-constexpr int MK_SKY_CHOICE_THREADS_Y = 8;
+constexpr int MK_SKY_CHOICE_THREADS_Y = 4;
 constexpr int MK_SKY_CHOICE_RAYS = MK_TILE_ROWS / MK_SKY_CHOICE_THREADS_Y;
 // batch modes of the texture samplers (texsample.py WINDOWED, BANDED, FLOOR)
 #define MK_WINDOWED 0
@@ -1812,11 +1812,13 @@ __global__ void __launch_bounds__(128) megakernel_clear(const MegakernelParams p
 }
 
 // ---------------------------------------------------------------------------
-// The procedural frame kernel (K1 slice (h)): every procedural config the
-// JAX megakernel renders, one instance per C = coverage_lod coarse pixels
-// per thread.  One thread per column and per group of G = cloud_lod * C
-// rows, G dividing the 32-row tile; a block is 128 columns of one group.
-// Shared memory, in rows of one float per thread (gen_layout):
+// The row-group frame kernels: the procedural instance (megakernel_gen<C>,
+// K1 slice (h)) and the general texture instance's frame
+// (megakernel_tex_general<C>, K1 slice (i)), one instance per C =
+// coverage_lod coarse pixels per thread.  One thread per column and per
+// group of G = cloud_lod * C rows, G dividing the 32-row tile; a block is
+// 128 columns of one group.  Shared memory, in rows of one float per thread
+// (gen_layout, texg_layout):
 //   * the knots (coverage, shape, detail: any counts), knot-major with a
 //     stride of the block's 128 threads;
 //   * per coarse pixel of the group, its march inputs (model-space ray,
@@ -1827,19 +1829,20 @@ __global__ void __launch_bounds__(128) megakernel_clear(const MegakernelParams p
 //   1. the coarse pass: every row of the group once (ray, opaque pass or
 //      the layers below, sky, atmosphere, linear depth out), its
 //      background to the color plane and its atmosphere to the row cache;
-//      the coarse pixels' rays and spans;
+//      the coarse pixels' rays and spans (coarse_pass);
 //   2. the knots of the thread's coverage group, where a coarse pixel sees
-//      the cloud layer, and the cull;
+//      the cloud layer, and the cull (each instance its own);
 //   3. the march of each of the thread's coarse pixels that sees the
-//      layer and passes the cull, the fields of its steps inlined;
+//      layer and passes the cull, the fields of its steps inlined
+//      (march_pixels);
 //   4. each row blended with its coarse pixel's clouds over its
-//      background, and stored.
+//      background, and stored (blend_rows).
 // Without the row cache, stage 1 computes the coarse inputs alone and
 // stage 4 shades each row again (two opaque passes per pixel).
 
-// resident blocks per SM its registers are sized for (__launch_bounds__:
-// 128 registers; capped for 5 or 6 blocks it spills, and the frames with
-// little march or a sun march get slower)
+// resident blocks per SM their registers are sized for (__launch_bounds__:
+// 128 registers; capped for 5 or 6 blocks the procedural instance spills,
+// and the frames with little march or a sun march get slower)
 constexpr int gen_min_blocks = 4;
 
 __host__ __device__ __forceinline__ int knot_rows(const MegakernelParams& p) {
@@ -1850,6 +1853,163 @@ __host__ __device__ __forceinline__ int knot_rows(const MegakernelParams& p) {
 // the march inputs of a coarse pixel, rows of the state (the march writes
 // its light and alpha over the first two)
 constexpr int MK_IN_RX = 0, MK_IN_RY = 1, MK_IN_RZ = 2, MK_IN_TB = 3, MK_IN_TEM = 4, MK_IN_JIT = 5;
+
+// What stage 1 leaves a thread: which of its coarse pixels see the cloud
+// layer (bit k) and its coverage group's knot inputs (mean model-space ray,
+// not renormalized, and mean span).
+struct GroupInputs {
+  unsigned vis;
+  V3 rk;
+  float t0k, t1k;
+};
+
+// Stage 1 for the thread of column x and the group of rows from y0 (n_rows
+// of them inside the launch): state and cache are the block's march inputs
+// and row cache, tid the thread's column in them.
+template <int C>
+__device__ __forceinline__ GroupInputs coarse_pass(const MegakernelParams& p, const float* blue,
+                                                   int x, int y0, int n_rows, bool live,
+                                                   int row_cache, float* color, float* depth,
+                                                   const Sky& sky, bool count, unsigned& n_atmo,
+                                                   unsigned& n_v1, unsigned& n_sky,
+                                                   unsigned& n_seg, float* state, float* cache,
+                                                   int tid) {
+  constexpr int T = MK_TILE_COLS;
+  const int L = p.cloud_lod;
+  GroupInputs gi{0u, v3(0.0f, 0.0f, 0.0f), 0.0f, 0.0f};
+  if (live) {
+    for (int k = 0; k < C; ++k) {
+      V3 rd_sum = v3(0.0f, 0.0f, 0.0f);
+      float depth_min = 0.0f, jit_first = 0.0f;
+      for (int l = 0; l < L; ++l) {
+        const int r = k * L + l;
+        const bool shade = row_cache && r < n_rows;  // a partial last group's other rows
+        Pixel px;                                     // only enter its coarse inputs
+        shade_pixel(p, blue, x, y0 + r, shade, color, depth, sky, count, n_atmo, n_v1, n_sky,
+                    n_seg, px);
+        if (shade) {
+          if (!p.with_background) {  // a chained layer's background is in color already
+            const size_t o = (size_t)(y0 + r) * p.width + x;
+            color[o * 3 + 0] = px.bg.x;
+            color[o * 3 + 1] = px.bg.y;
+            color[o * 3 + 2] = px.bg.z;
+          }
+          float* a = cache + r * 4 * T + tid;
+          if (px.hit) {
+            a[0] = px.atm[0];
+            a[T] = px.atm[1];
+            a[2 * T] = px.atm[2];
+          }
+          a[3 * T] = px.hit ? px.atm[3] : -1.0f;
+        }
+        if (l == 0) {
+          rd_sum = px.rd;
+          depth_min = px.depth;
+          jit_first = px.jitter;
+        } else {
+          rd_sum = add(rd_sum, px.rd);
+          depth_min = fminf(depth_min, px.depth);
+        }
+      }
+      const CoarseRay cr = coarse_ray(p, L, rd_sum, depth_min);
+      gi.vis |= (unsigned)cr.vis << k;
+      float* in = state + k * T + tid;
+      in[MK_IN_RX * C * T] = cr.rd_model.x;
+      in[MK_IN_RY * C * T] = cr.rd_model.y;
+      in[MK_IN_RZ * C * T] = cr.rd_model.z;
+      in[MK_IN_TB * C * T] = cr.tb;
+      in[MK_IN_TEM * C * T] = cr.tem;
+      in[MK_IN_JIT * C * T] = jit_first;
+      gi.rk = k == 0 ? cr.rd_model : add(gi.rk, cr.rd_model);
+      gi.t0k = k == 0 ? cr.tb : gi.t0k + cr.tb;
+      gi.t1k = k == 0 ? cr.tem : gi.t1k + cr.tem;
+    }
+    if (C > 1) {
+      gi.rk = v3(gi.rk.x / (float)C, gi.rk.y / (float)C, gi.rk.z / (float)C);
+      gi.t0k = gi.t0k / (float)C;
+      gi.t1k = gi.t1k / (float)C;
+    }
+  }
+  return gi;
+}
+
+// Stage 3: the march of each coarse pixel in marches, its fields from F,
+// its light and alpha over its march inputs.
+template <int C, class F>
+__device__ __forceinline__ void march_pixels(const MegakernelParams& p, const F& fields,
+                                             unsigned marches, float* state, int tid,
+                                             unsigned& n_march, unsigned& n_sun) {
+  constexpr int T = MK_TILE_COLS;
+  for (int k = 0; k < C; ++k) {
+    if (!((marches >> k) & 1u)) continue;
+    float* in = state + k * T + tid;
+    float light, alpha;
+    cloud_march(p, fields, v3(in[MK_IN_RX * C * T], in[MK_IN_RY * C * T], in[MK_IN_RZ * C * T]),
+                in[MK_IN_TB * C * T], in[MK_IN_TEM * C * T], in[MK_IN_JIT * C * T], light,
+                alpha);
+    in[0] = light;
+    in[C * T] = alpha;
+    ++n_march;
+    if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
+  }
+}
+
+// Stage 4: each of the group's rows inside the launch blended with its
+// coarse pixel's clouds, composited over its background, stored (without
+// the row cache each row is shaded again first).
+template <int C>
+__device__ __forceinline__ void blend_rows(const MegakernelParams& p, const float* blue, int x,
+                                           int y0, int n_rows, bool live, int row_cache,
+                                           unsigned vis, unsigned marches, const float* state,
+                                           const float* cache, float* color, float* alpha_out,
+                                           float* depth, const Sky& sky, bool count,
+                                           unsigned& n_atmo, unsigned& n_v1, unsigned& n_sky,
+                                           unsigned& n_seg, int tid) {
+  constexpr int T = MK_TILE_COLS;
+  const int L = p.cloud_lod;
+  if (!live) return;
+  for (int r = 0; r < n_rows; ++r) {
+    const int k = r / L;
+    RowPix<1> s;
+    if (row_cache) {
+      const size_t o = (size_t)(y0 + r) * p.width + x;
+      const float* a = cache + r * 4 * T + tid;
+      s.bg[0] = v3(color[o * 3 + 0], color[o * 3 + 1], color[o * 3 + 2]);
+      s.hit[0] = a[3 * T] >= 0.0f;
+      if (s.hit[0]) {
+        s.atm[0][0] = a[0];
+        s.atm[0][1] = a[T];
+        s.atm[0][2] = a[2 * T];
+        s.atm[0][3] = a[3 * T];
+      }
+    } else {
+      Pixel px;
+      shade_pixel(p, blue, x, y0 + r, true, color, depth, sky, count, n_atmo, n_v1, n_sky, n_seg,
+                  px);
+      s.bg[0] = px.bg;
+      s.hit[0] = px.hit;
+      if (px.hit) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s.atm[0][c] = px.atm[c];
+      }
+    }
+    const bool vis_k = (vis >> k) & 1u, marched = (marches >> k) & 1u;
+    const float la = marched ? state[k * T + tid] : 0.0f;
+    const float ca = marched ? state[(C + k) * T + tid] : 0.0f;
+    blend_and_store(p, x, y0 + r, 1, 1, s, &vis_k, &la, &ca, color, alpha_out);
+  }
+}
+
+// the warp's march lanes: warp-steps issued (the warp issues march k where
+// any lane marches it) and lane-steps run
+__device__ __forceinline__ void count_march_lanes(const MegakernelParams& p,
+                                                  unsigned long long* work, unsigned marches,
+                                                  unsigned n_march) {
+  const unsigned issued = __popc(__reduce_or_sync(0xffffffffu, marches));
+  count_work(work, MK_WORK_MARCH_WARP_STEPS,
+             (threadIdx.x & 31) ? 0u : issued * (unsigned)p.cloud_steps);
+  count_work(work, MK_WORK_MARCH_LANE_STEPS, n_march * (unsigned)p.cloud_steps);
+}
 
 template <int C>
 __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
@@ -1882,65 +2042,11 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
   FieldWork fw{0u, 0u, 0u};
   StageClock clk;
 
-  // 1. the coarse pass: each row once; the coarse pixels' rays and spans,
-  // and the coverage group's knot inputs (mean model-space ray, not
-  // renormalized, and mean span)
-  unsigned vis = 0;  // bit k: coarse pixel k sees the cloud layer
-  V3 rk = v3(0.0f, 0.0f, 0.0f);
-  float t0k = 0.0f, t1k = 0.0f;
-  if (live) {
-    for (int k = 0; k < C; ++k) {
-      V3 rd_sum = v3(0.0f, 0.0f, 0.0f);
-      float depth_min = 0.0f, jit_first = 0.0f;
-      for (int l = 0; l < L; ++l) {
-        const int r = k * L + l;
-        const bool shade = row_cache && r < n_rows;  // a partial last group's other rows
-        Pixel px;                                     // only enter its coarse inputs
-        shade_pixel(p, blue, x, y0 + r, shade, color, depth, sky, work != nullptr, n_atmo, n_v1,
-                    n_sky, n_seg, px);
-        if (shade) {
-          if (!p.with_background) {  // a chained layer's background is in color already
-            const size_t o = (size_t)(y0 + r) * p.width + x;
-            color[o * 3 + 0] = px.bg.x;
-            color[o * 3 + 1] = px.bg.y;
-            color[o * 3 + 2] = px.bg.z;
-          }
-          float* a = cache + r * 4 * T + tid;
-          if (px.hit) {
-            a[0] = px.atm[0];
-            a[T] = px.atm[1];
-            a[2 * T] = px.atm[2];
-          }
-          a[3 * T] = px.hit ? px.atm[3] : -1.0f;
-        }
-        if (l == 0) {
-          rd_sum = px.rd;
-          depth_min = px.depth;
-          jit_first = px.jitter;
-        } else {
-          rd_sum = add(rd_sum, px.rd);
-          depth_min = fminf(depth_min, px.depth);
-        }
-      }
-      const CoarseRay cr = coarse_ray(p, L, rd_sum, depth_min);
-      vis |= (unsigned)cr.vis << k;
-      float* in = state + k * T + tid;
-      in[MK_IN_RX * C * T] = cr.rd_model.x;
-      in[MK_IN_RY * C * T] = cr.rd_model.y;
-      in[MK_IN_RZ * C * T] = cr.rd_model.z;
-      in[MK_IN_TB * C * T] = cr.tb;
-      in[MK_IN_TEM * C * T] = cr.tem;
-      in[MK_IN_JIT * C * T] = jit_first;
-      rk = k == 0 ? cr.rd_model : add(rk, cr.rd_model);
-      t0k = k == 0 ? cr.tb : t0k + cr.tb;
-      t1k = k == 0 ? cr.tem : t1k + cr.tem;
-    }
-    if (C > 1) {
-      rk = v3(rk.x / (float)C, rk.y / (float)C, rk.z / (float)C);
-      t0k = t0k / (float)C;
-      t1k = t1k / (float)C;
-    }
-  }
+  // 1. the coarse pass
+  const GroupInputs gi = coarse_pass<C>(p, blue, x, y0, n_rows, live, row_cache, color, depth, sky,
+                                        work != nullptr, n_atmo, n_v1, n_sky, n_seg, state, cache,
+                                        tid);
+  const unsigned vis = gi.vis;
   clk.mark(MK_STAGE_COARSE);
 
   // 2. the coverage group's knots, where a coarse pixel sees the layer
@@ -1953,7 +2059,7 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
       const int K = p.coverage_knots;
       for (int k = 0; k <= K; ++k) {
         const float v = field(p.coverage, coverage_point(
-            p, group_knot_pos(rom, rk, t0k, t1k, (float)((double)k / (double)K))));
+            p, group_knot_pos(rom, gi.rk, gi.t0k, gi.t1k, (float)((double)k / (double)K))));
         kn[k * T] = v;
         cov_max = k == 0 ? v : fmaxf(cov_max, v);
       }
@@ -1964,7 +2070,7 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
       const int K = p.shape_knots;
       float* dk = kn + (K + 1) * T;
       for (int k = 0; k <= K; ++k) {
-        const V3 pos = group_knot_pos(rom, rk, t0k, t1k, (float)((double)k / (double)K));
+        const V3 pos = group_knot_pos(rom, gi.rk, gi.t0k, gi.t1k, (float)((double)k / (double)K));
         kn[k * T] = field(p.shape, mul(pos, p.cloud_shape_scale));
         if (full) dk[k * T] = field(p.shape, detail_point(p, pos));
       }
@@ -1991,55 +2097,14 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
       det.k = full ? kn + (shp.K + 1) * T : nullptr;
     }
     const GenFields fields{cov, shp, det, full, &fw};
-    for (int k = 0; k < C; ++k) {
-      if (!((marches >> k) & 1u)) continue;
-      float* in = state + k * T + tid;
-      float light, alpha;
-      cloud_march(p, fields, v3(in[MK_IN_RX * C * T], in[MK_IN_RY * C * T], in[MK_IN_RZ * C * T]),
-                  in[MK_IN_TB * C * T], in[MK_IN_TEM * C * T], in[MK_IN_JIT * C * T], light,
-                  alpha);
-      in[0] = light;
-      in[C * T] = alpha;
-      ++n_march;
-      if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
-    }
+    march_pixels<C>(p, fields, marches, state, tid, n_march, n_sun);
   }
   clk.mark(MK_STAGE_MARCH);
 
   // 4. blend each of the group's rows inside the launch with its coarse
   // pixel's clouds, composite over its background, store
-  if (live) {
-    for (int r = 0; r < n_rows; ++r) {
-      const int k = r / L;
-      RowPix<1> s;
-      if (row_cache) {
-        const size_t o = (size_t)(y0 + r) * p.width + x;
-        const float* a = cache + r * 4 * T + tid;
-        s.bg[0] = v3(color[o * 3 + 0], color[o * 3 + 1], color[o * 3 + 2]);
-        s.hit[0] = a[3 * T] >= 0.0f;
-        if (s.hit[0]) {
-          s.atm[0][0] = a[0];
-          s.atm[0][1] = a[T];
-          s.atm[0][2] = a[2 * T];
-          s.atm[0][3] = a[3 * T];
-        }
-      } else {
-        Pixel px;
-        shade_pixel(p, blue, x, y0 + r, true, color, depth, sky, work != nullptr, n_atmo, n_v1,
-                    n_sky, n_seg, px);
-        s.bg[0] = px.bg;
-        s.hit[0] = px.hit;
-        if (px.hit) {
-#pragma unroll
-          for (int c = 0; c < 4; ++c) s.atm[0][c] = px.atm[c];
-        }
-      }
-      const bool vis_k = (vis >> k) & 1u, marched = (marches >> k) & 1u;
-      const float la = marched ? state[k * T + tid] : 0.0f;
-      const float ca = marched ? state[(C + k) * T + tid] : 0.0f;
-      blend_and_store(p, x, y0 + r, 1, 1, s, &vis_k, &la, &ca, color, alpha_out);
-    }
-  }
+  blend_rows<C>(p, blue, x, y0, n_rows, live, row_cache, vis, marches, state, cache, color,
+                alpha_out, depth, sky, work != nullptr, n_atmo, n_v1, n_sky, n_seg, tid);
   clk.mark(MK_STAGE_BLEND);
   if (work) {
     count_work(work, MK_WORK_PIXELS, live ? n_rows : 0);
@@ -2056,11 +2121,7 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
     count_work(work, MK_WORK_SHAPE_KNOTS, n_shape_knots);
     count_work(work, MK_WORK_DETAIL_KNOTS, n_detail_knots);
     count_work(work, MK_WORK_OD_SEGMENTS, n_seg);
-    // the warp issues march k where any lane marches it
-    const unsigned issued = __popc(__reduce_or_sync(0xffffffffu, marches));
-    count_work(work, MK_WORK_MARCH_WARP_STEPS,
-               (tid & 31) ? 0u : issued * (unsigned)p.cloud_steps);
-    count_work(work, MK_WORK_MARCH_LANE_STEPS, n_march * (unsigned)p.cloud_steps);
+    count_march_lanes(p, work, marches, n_march);
   }
   clk.count(work);
 }
@@ -2257,36 +2318,39 @@ __global__ void __launch_bounds__(tex_threads(G), tex_min_blocks(G))
 //
 // What is hard: a knot batch's mip level and mode come from its knots'
 // coordinates over the whole 32 x 128 tile, so the choice needs every
-// coverage group of the tile first, and at G = 1 a tile is 4,096 groups:
-// their knots (26 floats each) would take 425 KB, and one thread per group
-// 4,096 threads.  So the choice is separated from the samples.  One block
-// per tile of 128 x R threads (R = 4, 2 or 1 thread rows: the launcher
-// takes the most whose shared memory fits), each thread taking the tile's
-// group rows ty, ty + R, ...:
-//   A. every group's coarse inputs (rays and linear depths, no shading) and
-//      its knot inputs (mean model-space ray, mean span) into shared memory
-//      (5 floats per group: 80 KB at G = 1), and the tile's visibility;
-//   B. per knot batch of a baked field, the block's min and max of its
-//      knots' coordinates over every group of the tile, hence the batch's
-//      choice, into shared memory (a few ints per batch);
-//   C. per group, one at a time: the coarse inputs again, with each coarse
-//      pixel's march inputs into shared memory; the group's knots (sampled
-//      with their batch's choice, or evaluated from a procedural spec) into
-//      the thread's knot rows; the cull; the march; each row shaded,
-//      blended with its coarse pixel's clouds and stored.
-// A pixel's opaque pass runs three times (A, C's coarse inputs, C's
-// shading), its atmosphere once.  What bounds it is what bounds the other
-// instances (the atmosphere, the march, the procedural noise of a mixed
-// layer); this design is the simple one, not yet tuned.  Its registers are
-// sized for one block per SM (128, no spills): against the default sizing
-// for two (64 registers, 612 B of spill stores) every frame takes 2-49 %
-// less time, the 1080p ones 5-20 % (on an H100 at 700 W;
-// compare_megakernel.py, PERF.md).
+// coverage group of the tile first, and at G = 1 a tile is 4,096 groups.
+// So the tile's choice is separated from the frame, in two launches on the
+// frame's stream:
+//   * the tile choice (tex_choice_kernel), one block of 128 x R threads per
+//     tile (R = 4, or the tile's rows of groups where fewer): each thread's
+//     groups' coarse inputs (the opaque pass without shading, or the layers
+//     below' depth) and knot inputs (5 floats per group in shared memory),
+//     then per choice slot (the sky's, where the launch draws it, and each
+//     knot batch of a baked field) the min and max of its coordinates over
+//     the thread's groups, over the warp by shuffles, over the block's warps
+//     after one barrier per MK_TEXG_CHUNK slots, one thread per slot
+//     finishing; a (mode, level) pair per slot and tile to a device buffer
+//     (min and max are exact in any order: the choice is the one-block
+//     design's bit for bit);
+//   * the frame (megakernel_tex_general<C>) on megakernel_gen's stages:
+//     one 128-thread block per 128 columns of one group row, no barrier,
+//     each row shaded once into the row cache (coarse_pass), the group's
+//     knots (a baked field's sampled with its tile's batch choice from the
+//     buffer, a procedural field's evaluated), the march (march_pixels, a
+//     per-step field's noise inlined), the blend (blend_rows).
+// A pixel's opaque pass runs twice (the tile choice, the frame's coarse
+// pass), its atmosphere once; the design it replaces ran the opaque pass
+// three times in one 512-thread block per tile (one block per SM).
+// MEASURED_GENERAL
 
-// the per-group rows of phase A: knot inputs (rk.xyz, t0k, t1k)
+// the tile choice: thread rows per tile at most, the floats kept per
+// coverage group (its knot inputs: rk.xyz, t0k, t1k), the choice slots
+// reduced per barrier; a slot without a choice (the sky's where the launch
+// draws none) holds MK_NO_CHOICE twice
+constexpr int MK_TEXG_CHOICE_ROWS = 4;
 constexpr int MK_TEXG_GROUP_FLOATS = 5;
-// thread rows per block at most (128 x 4 threads)
-constexpr int MK_TEXG_MAX_ROWS = 4;
+constexpr int MK_TEXG_CHUNK = 32;
+constexpr int MK_NO_CHOICE = -1;
 
 // the knot rows a thread holds: each field's K + 1 knots where it has
 // knots, the detail field's beside the shape field's at full quality
@@ -2296,8 +2360,8 @@ __host__ __device__ __forceinline__ int texg_knot_rows(const MegakernelParams& p
   return (t.cov_source == MK_SRC_STEP ? 0 : p.coverage_knots + 1) + shape;
 }
 
-// the knot batches whose level and mode the block chooses: a baked field's
-// K + 1 knots, knot_group at a time (the detail field's too)
+// the knot batches whose level and mode the tile choice makes: a baked
+// field's K + 1 knots, knot_group at a time (the detail field's too)
 __host__ __device__ __forceinline__ int texg_batches(const MegakernelParams& p, const TexParams& t) {
   const int kg = t.knot_group;
   int n = t.cov_source == MK_SRC_PYRAMID ? (p.coverage_knots + kg) / kg : 0;
@@ -2348,7 +2412,7 @@ __device__ __forceinline__ void texg_coords(const MegakernelParams& p, int fld, 
 }
 
 // The general texture instance's fields in the march: each from its knots
-// in shared memory (stride of the block), or from its procedural spec per
+// in shared memory (stride of the block's 128 threads), or from its procedural spec per
 // step and per sun sample; at full quality the detail field, whose sun
 // samples take it only where the march's alpha is below 0.3 (as GenFields).
 // Knots interpolate uncontracted, as the fixed instance's do.
@@ -2457,77 +2521,110 @@ __device__ __forceinline__ unsigned texg_coarse(const MegakernelParams& p, const
   return vis;
 }
 
-__global__ void __launch_bounds__(MK_TILE_COLS * MK_TEXG_MAX_ROWS, 1)
-    megakernel_tex_general(const __grid_constant__ MegakernelParams p, const TexParams t,
-                           const TexParams sky_t, const float* __restrict__ blue,
-                           const float* __restrict__ shape_tab, const float* __restrict__ cov_tab,
-                           const float* __restrict__ sky_r, const float* __restrict__ sky_g,
-                           const float* __restrict__ sky_b, float* __restrict__ color,
-                           float* __restrict__ alpha_out, float* __restrict__ depth,
-                           unsigned long long* work) {
+// the tile choice's slots per tile: the sky's, then each knot batch's
+__host__ __device__ __forceinline__ int texg_choice_slots(const MegakernelParams& p,
+                                                          const TexParams& t) {
+  return 1 + texg_batches(p, t);
+}
+
+// knot batch b's field (0 coverage, 1 shape, 2 detail), its knot count K
+// and its first knot, in the order of texg_batches
+__device__ __forceinline__ void texg_batch(const MegakernelParams& p, const TexParams& t, int b,
+                                           int& fld, int& K, int& k0) {
+  for (fld = 0; fld < 3; ++fld) {
+    if (!texg_has_knots(p, t, fld) || !texg_baked(t, fld)) continue;
+    K = fld == 0 ? p.coverage_knots : p.shape_knots;
+    const int n = K / t.knot_group + 1;
+    if (b < n) {
+      k0 = b * t.knot_group;
+      return;
+    }
+    b -= n;
+  }
+}
+
+// the warp's min and max of N values per lane; every lane receives them
+template <int N>
+__device__ __forceinline__ void warp_minmax(float (&mn)[N], float (&mx)[N]) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      mn[k] = fminf(mn[k], __shfl_xor_sync(0xffffffffu, mn[k], off));
+      mx[k] = fmaxf(mx[k], __shfl_xor_sync(0xffffffffu, mx[k], off));
+    }
+  }
+}
+
+// The tile choice of the general texture instance: one block of 128 x R
+// threads per 32 x 128 tile of the launch's grid (from row0), rows and
+// columns past the frame included.  choices[(tile * slots + s) * 2] gets
+// slot s's (mode, level), tiles row-major.  depth: the layers below' linear
+// depth (a chained layer), else unread.
+__global__ void __launch_bounds__(MK_TILE_COLS * MK_TEXG_CHOICE_ROWS)
+    tex_choice_kernel(const __grid_constant__ MegakernelParams p, const TexParams t,
+                      const TexParams sky_t, const float* __restrict__ blue,
+                      const float* __restrict__ depth, int* __restrict__ choices,
+                      unsigned long long* work) {
   extern __shared__ float smem[];
-  const int R = blockDim.y, T = MK_TILE_COLS * R;
-  const int tid = threadIdx.y * MK_TILE_COLS + threadIdx.x;
-  const int L = p.cloud_lod, C = p.coverage_lod, G = L * C, NGR = MK_TILE_ROWS / G;
-  const int x = blockIdx.x * MK_TILE_COLS + threadIdx.x;
+  constexpr int T = MK_TILE_COLS;
+  const int R = blockDim.y, tx = threadIdx.x, tid = threadIdx.y * T + tx;
+  const int lane = tid & 31, warp = tid >> 5, nw = R * (T / 32);
+  const int G = p.cloud_lod * p.coverage_lod, NGR = MK_TILE_ROWS / G;
+  const int x = blockIdx.x * T + tx;
   const int tile_y0 = p.row0 + blockIdx.y * MK_TILE_ROWS;
-  const int n_batches = texg_batches(p, t);
-  float* knots = smem;                                   // knot j at knots[j * T + tid]
-  float* state = knots + texg_knot_rows(p, t) * T;       // input f of coarse pixel k at
-                                                         // state[(f * C + k) * T + tid]
-  float* groups = state + MK_GEN_MARCH_ROWS * C * T;     // value f of group row gr at
-                                                         // groups[(f * NGR + gr) * 128 + tx]
-  int* choices = (int*)(groups + MK_TEXG_GROUP_FLOATS * NGR * MK_TILE_COLS);  // (mode, level)
-  float* red = (float*)(choices + 2 * n_batches);        // block_minmax scratch
+  const int slots = texg_choice_slots(p, t);
+  int* out = choices + (size_t)(blockIdx.y * gridDim.x + blockIdx.x) * slots * 2;
+  float* groups = smem;  // value f of group row gr at groups[(f * NGR + gr) * T + tx]
+  float* part = groups + MK_TEXG_GROUP_FLOATS * NGR * T;  // slot s, warp w: part[(s * nw + w) * 6]
   const V3 rom = load3(p.ro_model);
+  const Sky no_sky{sky_t, nullptr, nullptr, nullptr, TexChoice{MK_WINDOWED, 0}};
   StageClock clk;
 
-  // the sky's choice: the block's rays are its tile's
-  Sky sky{sky_t, sky_r, sky_g, sky_b, TexChoice{MK_WINDOWED, 0}};
-  if (p.with_sky) {
-    float mn[2] = {3.0e38f, 3.0e38f}, mx[2] = {-3.0e38f, -3.0e38f};
-    for (int gr = threadIdx.y; gr < NGR; gr += R) {
+  // A. the thread's groups' knot inputs, and the sky's (fu, v) over their rays
+  float smn[2] = {3.0e38f, 3.0e38f}, smx[2] = {-3.0e38f, -3.0e38f};
+  for (int gr = threadIdx.y; gr < NGR; gr += R) {
+    const int y0 = tile_y0 + gr * G;
+    float g[MK_TEXG_GROUP_FLOATS];
+    texg_coarse(p, blue, x, y0, nullptr, const_cast<float*>(depth), no_sky, nullptr, T, g);
+#pragma unroll
+    for (int f = 0; f < MK_TEXG_GROUP_FLOATS; ++f) groups[(f * NGR + gr) * T + tx] = g[f];
+    if (p.with_sky) {
       for (int r = 0; r < G; ++r) {
-        const V3 rd = pixel_dir(p, x, tile_y0 + gr * G + r);
+        const V3 rd = pixel_dir(p, x, y0 + r);
         float fu, v;
         latlong_uv(rd.x, rd.y, rd.z, fu, v);
-        mn[0] = fminf(mn[0], fu);
-        mx[0] = fmaxf(mx[0], fu);
-        mn[1] = fminf(mn[1], v);
-        mx[1] = fmaxf(mx[1], v);
+        smn[0] = fminf(smn[0], fu);
+        smx[0] = fmaxf(smx[0], fu);
+        smn[1] = fminf(smn[1], v);
+        smx[1] = fmaxf(smx[1], v);
       }
     }
-    block_minmax<2>(mn, mx, red);
-    sky.ch = latlong_choose(sky_t, mn[0], mx[0], mn[1], mx[1]);
   }
-
-  // A. every group's knot inputs, and whether the tile sees the layer
-  bool any_vis = false;
-  for (int gr = threadIdx.y; gr < NGR; gr += R) {
-    float g[MK_TEXG_GROUP_FLOATS];
-    const unsigned vis = texg_coarse(p, blue, x, tile_y0 + gr * G, color, depth, sky, nullptr, T, g);
-    for (int f = 0; f < MK_TEXG_GROUP_FLOATS; ++f)
-      groups[(f * NGR + gr) * MK_TILE_COLS + threadIdx.x] = g[f];
-    any_vis = any_vis || vis;
-  }
-  // the tile's gate (clouds.py:573): no visible pixel, no knots, no march
-  const bool tile_vis = __syncthreads_or(any_vis);
   clk.mark(MK_STAGE_CHOICE_COARSE);
 
-  // B. each batch's level and mode from its knots over the whole tile
-  if (tile_vis) {
-    int b = 0;
-    for (int fld = 0; fld < 3; ++fld) {
-      if (!texg_has_knots(p, t, fld) || !texg_baked(t, fld)) continue;
-      const int K = fld == 0 ? p.coverage_knots : p.shape_knots;
-      for (int g0 = 0; g0 <= K; g0 += t.knot_group, ++b) {
-        const int g1 = min(g0 + t.knot_group, K + 1);
-        float mn[3] = {3.0e38f, 3.0e38f, 3.0e38f}, mx[3] = {-3.0e38f, -3.0e38f, -3.0e38f};
+  // B. per slot, the min and max over the tile: the thread's groups, the
+  // warp's lanes, then (after one barrier per chunk of slots) the block's
+  // warps, one thread per slot
+  for (int s0 = 0; s0 < slots; s0 += MK_TEXG_CHUNK) {
+    const int s1 = min(s0 + MK_TEXG_CHUNK, slots);
+    for (int s = s0; s < s1; ++s) {
+      float mn[3] = {3.0e38f, 3.0e38f, 3.0e38f}, mx[3] = {-3.0e38f, -3.0e38f, -3.0e38f};
+      if (s == 0) {
+        if (!p.with_sky) continue;
+        mn[0] = smn[0];
+        mx[0] = smx[0];
+        mn[1] = smn[1];
+        mx[1] = smx[1];
+      } else {
+        int fld, K, k0;
+        texg_batch(p, t, s - 1, fld, K, k0);
+        const int k1 = min(k0 + t.knot_group, K + 1);
         for (int gr = threadIdx.y; gr < NGR; gr += R) {
           float g[MK_TEXG_GROUP_FLOATS];
-          for (int f = 0; f < MK_TEXG_GROUP_FLOATS; ++f)
-            g[f] = groups[(f * NGR + gr) * MK_TILE_COLS + threadIdx.x];
-          for (int k = g0; k < g1; ++k) {
+#pragma unroll
+          for (int f = 0; f < MK_TEXG_GROUP_FLOATS; ++f) g[f] = groups[(f * NGR + gr) * T + tx];
+          for (int k = k0; k < k1; ++k) {
             float c[3];
             texg_coords(p, fld, texg_knot_pos(rom, g, (float)((double)k / (double)K)), c);
 #pragma unroll
@@ -2537,125 +2634,181 @@ __global__ void __launch_bounds__(MK_TILE_COLS * MK_TEXG_MAX_ROWS, 1)
             }
           }
         }
-        block_minmax<3>(mn, mx, red);
-        if (tid == 0) {
-          const TexChoice ch = fld == 0 ? latlong_choose(t, mn[0], mx[0], mn[1], mx[1])
-                                          : tex3d_choose(t, mn, mx);
-          choices[2 * b] = ch.mode;
-          choices[2 * b + 1] = ch.level;
+      }
+      warp_minmax<3>(mn, mx);
+      if (lane == 0) {
+        float* w = part + ((s - s0) * nw + warp) * 6;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          w[a] = mn[a];
+          w[3 + a] = mx[a];
         }
       }
     }
     __syncthreads();
+    if (tid < s1 - s0) {
+      const int s = s0 + tid;
+      TexChoice ch{MK_NO_CHOICE, MK_NO_CHOICE};
+      if (s > 0 || p.with_sky) {
+        float mn[3], mx[3];
+        const float* w = part + tid * nw * 6;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          mn[a] = w[a];
+          mx[a] = w[3 + a];
+        }
+        for (int v = 1; v < nw; ++v) {
+#pragma unroll
+          for (int a = 0; a < 3; ++a) {
+            mn[a] = fminf(mn[a], w[v * 6 + a]);
+            mx[a] = fmaxf(mx[a], w[v * 6 + 3 + a]);
+          }
+        }
+        if (s == 0) {
+          ch = latlong_choose(sky_t, mn[0], mx[0], mn[1], mx[1]);
+        } else {
+          int fld, K, k0;
+          texg_batch(p, t, s - 1, fld, K, k0);
+          ch = fld == 0 ? latlong_choose(t, mn[0], mx[0], mn[1], mx[1]) : tex3d_choose(t, mn, mx);
+        }
+      }
+      out[2 * s] = ch.mode;
+      out[2 * s + 1] = ch.level;
+    }
+    if (s1 < slots) __syncthreads();  // the next chunk's partials overwrite these
   }
   clk.mark(MK_STAGE_CHOICE);
+  clk.count(work);
+}
 
-  // C. each group of the thread: knots, cull, march, shading and blend
-  unsigned n_atmo = 0, n_v1 = 0, n_march = 0, n_sun = 0, n_sky = 0, n_seg = 0, n_groups = 0;
-  unsigned n_pixels = 0, n_shape_knots = 0, n_detail_knots = 0;
+// Stage 2 of the general texture instance: the coverage group's knots,
+// where a coarse pixel sees the layer, into the thread's knot rows (kn, a
+// stride of the block); a baked field's sampled with its batch's choice
+// (batch: the tile's batch slots of the tile choice), a procedural field's
+// evaluated.  Returns the coarse pixels that march (no coverage knots, no
+// bound: every visible one).
+__device__ __forceinline__ unsigned texg_knots(const MegakernelParams& p, const TexParams& t,
+                                               const float* __restrict__ shape_tab,
+                                               const float* __restrict__ cov_tab,
+                                               const int* __restrict__ batch,
+                                               const GroupInputs& gi, float* kn,
+                                               unsigned& n_groups, unsigned& n_shape_knots,
+                                               unsigned& n_detail_knots, unsigned* tex_samples,
+                                               unsigned* cov_samples) {
+  constexpr int T = MK_TILE_COLS;
+  if (!gi.vis) return 0u;
+  const V3 rom = load3(p.ro_model);
+  const float g[MK_TEXG_GROUP_FLOATS] = {gi.rk.x, gi.rk.y, gi.rk.z, gi.t0k, gi.t1k};
+  int b = 0, row = 0;
+  float cov_max = 0.0f;
+  for (int fld = 0; fld < 3; ++fld) {
+    if (!texg_has_knots(p, t, fld)) continue;
+    const bool baked = texg_baked(t, fld);
+    const int K = fld == 0 ? p.coverage_knots : p.shape_knots;
+    float* k_row = kn + row * T;
+    for (int k = 0; k <= K; ++k) {
+      const V3 pos = texg_knot_pos(rom, g, (float)((double)k / (double)K));
+      float value;
+      if (baked) {
+        const int bk = b + k / t.knot_group;
+        const TexChoice ch{__ldg(batch + 2 * bk), __ldg(batch + 2 * bk + 1)};
+        float c[3];
+        texg_coords(p, fld, pos, c);
+        if (fld == 0) {
+          value = latlong_sample(t, cov_tab, ch, c[0], c[1]);
+          ++cov_samples[ch.mode == MK_FLOOR];
+        } else {
+          value = tex3d_sample(t, shape_tab, ch, c[0], c[1], c[2]);
+          ++tex_samples[ch.mode == MK_FLOOR];
+        }
+      } else if (fld == 0) {
+        value = field(p.coverage, coverage_point(p, pos));
+      } else {
+        value = field(p.shape, fld == 1 ? mul(pos, p.cloud_shape_scale) : detail_point(p, pos));
+      }
+      k_row[k * T] = value;
+      if (fld == 0) cov_max = k == 0 ? value : fmaxf(cov_max, value);
+    }
+    if (baked) b += K / t.knot_group + 1;
+    else if (fld == 1) n_shape_knots += K + 1;
+    else if (fld == 2) n_detail_knots += K + 1;
+    row += K + 1;
+  }
+  ++n_groups;
+  return (t.cov_source == MK_SRC_STEP || cloud_may_form(p, cov_max)) ? gi.vis : 0u;
+}
+
+// The general texture instance's frame: megakernel_gen's stages with the
+// texture knots (texg_knots) and fields (TexGenFields); the sky's choice and
+// the knot batches' choices of the block's tile from the tile choice.
+template <int C>
+__global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
+    megakernel_tex_general(const __grid_constant__ MegakernelParams p, const TexParams t,
+                           const TexParams sky_t, const float* __restrict__ blue,
+                           const float* __restrict__ shape_tab, const float* __restrict__ cov_tab,
+                           const float* __restrict__ sky_r, const float* __restrict__ sky_g,
+                           const float* __restrict__ sky_b, const int* __restrict__ choices,
+                           float* __restrict__ color, float* __restrict__ alpha_out,
+                           float* __restrict__ depth, unsigned long long* work, int row_cache) {
+  extern __shared__ float smem[];
+  constexpr int T = MK_TILE_COLS;
+  const int tid = threadIdx.x;
+  const int x = blockIdx.x * T + tid;
+  const int G = p.cloud_lod * C;
+  const int y0 = p.row0 + blockIdx.y * G;
+  const int n_rows = min(G, p.row0 + p.rows - y0);
+  const bool live = x < p.width;
+  float* state = smem + texg_knot_rows(p, t) * T;
+  float* cache = state + MK_GEN_MARCH_ROWS * C * T;
+  // the block's tile's slots (G divides the tile height): the sky's, then
+  // each knot batch's
+  const int tile = (blockIdx.y * G) / MK_TILE_ROWS * gridDim.x + blockIdx.x;
+  const int* slot = choices + (size_t)tile * texg_choice_slots(p, t) * 2;
+  Sky sky{sky_t, sky_r, sky_g, sky_b, TexChoice{MK_WINDOWED, 0}};
+  if (p.with_sky) sky.ch = TexChoice{__ldg(slot), __ldg(slot + 1)};
+  unsigned n_atmo = 0, n_v1 = 0, n_groups = 0, n_march = 0, n_sun = 0, n_sky = 0, n_seg = 0;
+  unsigned n_shape_knots = 0, n_detail_knots = 0;
   unsigned tex_samples[2] = {0, 0}, cov_samples[2] = {0, 0};
   FieldWork fw{0u, 0u, 0u};
   const bool full = !p.always_low;
-  for (int gr = threadIdx.y; gr < NGR; gr += R) {
-    const int y0 = tile_y0 + gr * G;
-    const bool inside = x < p.width && y0 < p.row0 + p.rows;  // else nothing of it is stored
-    const int n_rows = min(G, p.row0 + p.rows - y0);
-    float g[5];
-    const unsigned vis =
-        inside ? texg_coarse(p, blue, x, y0, color, depth, sky, state + tid, T, g) : 0u;
-    clk.mark(MK_STAGE_COARSE);
-    unsigned marches = 0;
-    if (tile_vis && vis) {
-      int b = 0, row = 0;
-      float cov_max = 0.0f;
-      for (int fld = 0; fld < 3; ++fld) {
-        if (!texg_has_knots(p, t, fld)) continue;
-        const bool baked = texg_baked(t, fld);
-        const int K = fld == 0 ? p.coverage_knots : p.shape_knots;
-        float* kn = knots + row * T + tid;
-        for (int k = 0; k <= K; ++k) {
-          const V3 pos = texg_knot_pos(rom, g, (float)((double)k / (double)K));
-          float value;
-          if (baked) {
-            const int bk = b + k / t.knot_group;
-            const TexChoice ch{choices[2 * bk], choices[2 * bk + 1]};
-            float c[3];
-            texg_coords(p, fld, pos, c);
-            if (fld == 0) {
-              value = latlong_sample(t, cov_tab, ch, c[0], c[1]);
-              ++cov_samples[ch.mode == MK_FLOOR];
-            } else {
-              value = tex3d_sample(t, shape_tab, ch, c[0], c[1], c[2]);
-              ++tex_samples[ch.mode == MK_FLOOR];
-            }
-          } else if (fld == 0) {
-            value = field(p.coverage, coverage_point(p, pos));
-          } else {
-            value = field(p.shape, fld == 1 ? mul(pos, p.cloud_shape_scale) : detail_point(p, pos));
-          }
-          kn[k * T] = value;
-          if (fld == 0) cov_max = k == 0 ? value : fmaxf(cov_max, value);
-        }
-        if (baked) b += K / t.knot_group + 1;
-        else if (fld == 1) n_shape_knots += K + 1;
-        else if (fld == 2) n_detail_knots += K + 1;
-        row += K + 1;
-      }
-      ++n_groups;
-      // no coverage knots, no bound: every visible coarse pixel marches
-      marches = (t.cov_source == MK_SRC_STEP || cloud_may_form(p, cov_max)) ? vis : 0u;
+  StageClock clk;
+
+  // 1. the coarse pass
+  const GroupInputs gi = coarse_pass<C>(p, blue, x, y0, n_rows, live, row_cache, color, depth, sky,
+                                        work != nullptr, n_atmo, n_v1, n_sky, n_seg, state, cache,
+                                        tid);
+  clk.mark(MK_STAGE_COARSE);
+
+  // 2. the knots and the cull
+  const unsigned marches = texg_knots(p, t, shape_tab, cov_tab, slot + 2, gi, smem + tid, n_groups,
+                                      n_shape_knots, n_detail_knots, tex_samples, cov_samples);
+  clk.mark(MK_STAGE_KNOTS);
+
+  // 3. the march
+  {
+    const float* kn = smem + tid;
+    const float* cov_k = nullptr;
+    const float* shp_k = nullptr;
+    const float* det_k = nullptr;
+    if (t.cov_source != MK_SRC_STEP) {
+      cov_k = kn;
+      kn += (p.coverage_knots + 1) * T;
     }
-    clk.mark(MK_STAGE_KNOTS);
-    if (marches) {
-      const float* kn = knots + tid;
-      const float* cov_k = nullptr;
-      const float* shp_k = nullptr;
-      const float* det_k = nullptr;
-      if (t.cov_source != MK_SRC_STEP) {
-        cov_k = kn;
-        kn += (p.coverage_knots + 1) * T;
-      }
-      if (t.shape_source != MK_SRC_STEP) {
-        shp_k = kn;
-        if (full) det_k = kn + (p.shape_knots + 1) * T;
-      }
-      const TexGenFields fields{cov_k, shp_k, det_k, p.coverage_knots, p.shape_knots, T, full, &fw};
-      for (int k = 0; k < C; ++k) {
-        if (!((marches >> k) & 1u)) continue;
-        float* in = state + k * T + tid;
-        float light, alpha;
-        cloud_march(p, fields, v3(in[MK_IN_RX * C * T], in[MK_IN_RY * C * T], in[MK_IN_RZ * C * T]),
-                    in[MK_IN_TB * C * T], in[MK_IN_TEM * C * T], in[MK_IN_JIT * C * T], light,
-                    alpha);
-        in[0] = light;
-        in[C * T] = alpha;
-        ++n_march;
-        if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
-      }
+    if (t.shape_source != MK_SRC_STEP) {
+      shp_k = kn;
+      if (full) det_k = kn + (p.shape_knots + 1) * T;
     }
-    clk.mark(MK_STAGE_MARCH);
-    for (int r = 0; inside && r < n_rows; ++r) {
-      const int k = r / L;
-      Pixel px;
-      shade_pixel(p, blue, x, y0 + r, true, color, depth, sky, work != nullptr, n_atmo, n_v1,
-                  n_sky, n_seg, px);
-      RowPix<1> s;
-      s.bg[0] = px.bg;
-      s.hit[0] = px.hit;
-      if (px.hit) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s.atm[0][c] = px.atm[c];
-      }
-      const bool vis_k = (vis >> k) & 1u, marched = (marches >> k) & 1u;
-      const float la = marched ? state[k * T + tid] : 0.0f;
-      const float ca = marched ? state[(C + k) * T + tid] : 0.0f;
-      blend_and_store(p, x, y0 + r, 1, 1, s, &vis_k, &la, &ca, color, alpha_out);
-    }
-    if (inside) n_pixels += n_rows;
-    clk.mark(MK_STAGE_BLEND);
+    const TexGenFields fields{cov_k, shp_k, det_k, p.coverage_knots, p.shape_knots, T, full, &fw};
+    march_pixels<C>(p, fields, marches, state, tid, n_march, n_sun);
   }
+  clk.mark(MK_STAGE_MARCH);
+
+  // 4. the blend
+  blend_rows<C>(p, blue, x, y0, n_rows, live, row_cache, gi.vis, marches, state, cache, color,
+                alpha_out, depth, sky, work != nullptr, n_atmo, n_v1, n_sky, n_seg, tid);
+  clk.mark(MK_STAGE_BLEND);
   if (work) {
-    count_work(work, MK_WORK_PIXELS, n_pixels);
+    count_work(work, MK_WORK_PIXELS, live ? n_rows : 0);
     count_work(work, MK_WORK_ATMOSPHERE, n_atmo);
     count_work(work, MK_WORK_V1_ATMOSPHERE, n_v1);
     count_work(work, MK_WORK_KNOT_GROUPS, n_groups);
@@ -2673,6 +2826,7 @@ __global__ void __launch_bounds__(MK_TILE_COLS * MK_TEXG_MAX_ROWS, 1)
     count_work(work, MK_WORK_SHAPE_KNOTS, n_shape_knots);
     count_work(work, MK_WORK_DETAIL_KNOTS, n_detail_knots);
     count_work(work, MK_WORK_OD_SEGMENTS, n_seg);
+    count_march_lanes(p, work, marches, n_march);
   }
   clk.count(work);
 }
@@ -2680,20 +2834,52 @@ __global__ void __launch_bounds__(MK_TILE_COLS * MK_TEXG_MAX_ROWS, 1)
 // The sky's pre-pass for the procedural instance and the opaque-only pass:
 // one block of 128 x MK_SKY_CHOICE_THREADS_Y threads per 32 x 128 tile of
 // the launch's grid (from row0), each thread taking MK_SKY_CHOICE_RAYS rows
-// of its column, rows and columns past the frame included.  It writes the
+// of its column, rows and columns past the frame included; the min and max
+// over the warp by shuffles, then, after one barrier, the first warp's
+// lanes take one warp's each and reduce them by shuffles.  It writes the
 // tile's (mode, level) to choices[2 * tile], tiles row-major.
-__global__ void __launch_bounds__(128 * MK_SKY_CHOICE_THREADS_Y)
+__global__ void __launch_bounds__(MK_TILE_COLS * MK_SKY_CHOICE_THREADS_Y)
     sky_choice_kernel(const MegakernelParams p, const TexParams sky_t, int* __restrict__ choices) {
-  __shared__ float red[2 * 2 * MK_SKY_CHOICE_THREADS_Y * 4];
+  constexpr int NW = MK_TILE_COLS * MK_SKY_CHOICE_THREADS_Y / 32;
+  __shared__ float part[NW * 4];
+  const int tid = threadIdx.y * MK_TILE_COLS + threadIdx.x;
   const int x = blockIdx.x * MK_TILE_COLS + threadIdx.x;
   const int y0 = p.row0 + blockIdx.y * MK_TILE_ROWS + threadIdx.y * MK_SKY_CHOICE_RAYS;
-  const TexChoice ch = sky_choice<MK_SKY_CHOICE_RAYS>(p, sky_t, x, y0, red);
-  if (threadIdx.x == 0 && threadIdx.y == 0) {
+  float mn[2] = {3.0e38f, 3.0e38f}, mx[2] = {-3.0e38f, -3.0e38f};
+#pragma unroll 4
+  for (int r = 0; r < MK_SKY_CHOICE_RAYS; ++r) {
+    const V3 rd = pixel_dir(p, x, y0 + r);
+    float fu, v;
+    latlong_uv(rd.x, rd.y, rd.z, fu, v);
+    mn[0] = fminf(mn[0], fu);
+    mx[0] = fmaxf(mx[0], fu);
+    mn[1] = fminf(mn[1], v);
+    mx[1] = fmaxf(mx[1], v);
+  }
+  warp_minmax<2>(mn, mx);
+  if ((tid & 31) == 0) {
+    float* w = part + (tid >> 5) * 4;
+    w[0] = mn[0];
+    w[1] = mn[1];
+    w[2] = mx[0];
+    w[3] = mx[1];
+  }
+  __syncthreads();
+  if (tid >= 32) return;
+  const float* w = part + (tid < NW ? tid : 0) * 4;
+  mn[0] = w[0];
+  mn[1] = w[1];
+  mx[0] = w[2];
+  mx[1] = w[3];
+  warp_minmax<2>(mn, mx);
+  if (tid == 0) {
+    const TexChoice ch = latlong_choose(sky_t, mn[0], mx[0], mn[1], mx[1]);
     const int tile = blockIdx.y * gridDim.x + blockIdx.x;
     choices[2 * tile] = ch.mode;
     choices[2 * tile + 1] = ch.level;
   }
 }
+
 
 // K2 alone: one block per caller-given batch of n samples (coordinates in
 // periods for the 3D texture, unit directions for the lat-long map), the
@@ -2942,57 +3128,112 @@ static bool source_ok(int src, int interp, const float* tab, int levels) {
   return (src == MK_SRC_KNOTS && interp) || (src == MK_SRC_STEP && !interp);
 }
 
-// The general instance's launch: thread rows per block and dynamic shared
-// memory (per thread its knot rows and MK_GEN_MARCH_ROWS per coarse pixel;
-// the groups' knot inputs; the batches' choices; block_minmax's scratch),
-// the most thread rows (at most MK_TEXG_MAX_ROWS and the tile's group rows)
-// whose shared memory fits a block; rows = 0 for params it does not take.
+// The general instance's launch (kernel is nullptr for params it does not
+// take): its frame kernel (one per C = coverage_lod) with gen_layout's
+// dynamic shared memory (the knot rows, MK_GEN_MARCH_ROWS per coarse pixel,
+// MK_GEN_CACHE_ROWS per row of the group where the block still holds them:
+// row_cache), and its tile choice's thread rows and shared memory (the
+// groups' knot inputs, the warps' partials of one chunk of slots).
+using TexgKernel = void (*)(const MegakernelParams, const TexParams, const TexParams, const float*,
+                            const float*, const float*, const float*, const float*, const float*,
+                            const int*, float*, float*, float*, unsigned long long*, int);
+
 struct TexgLayout {
-  int rows, threads, smem;
+  TexgKernel kernel;
+  int smem, row_cache;
+  int choice_rows, choice_smem;
 };
 
 static TexgLayout texg_layout(const MegakernelParams* p, const TexParams* t) {
   const int C = p->coverage_lod, G = p->cloud_lod * C;
+  TexgLayout out{nullptr, 0, 0, 0, 0};
   if (p->cloud_lod < 1 || C < 1 || MK_TILE_ROWS % G || t->knot_group < 1 ||
       p->coverage_knots < 1 || p->shape_knots < 1)
-    return TexgLayout{0, 0, 0};
+    return out;
+  const int rows = texg_knot_rows(*p, *t) + MK_GEN_MARCH_ROWS * C;
+  if (rows > MK_SMEM_ROWS) return out;
+  out.row_cache = rows + MK_GEN_CACHE_ROWS * G <= MK_SMEM_ROWS;
+  out.smem = (rows + (out.row_cache ? MK_GEN_CACHE_ROWS * G : 0)) * MK_TILE_COLS * (int)sizeof(float);
   const int ngr = MK_TILE_ROWS / G;
-  const long per_thread = texg_knot_rows(*p, *t) + MK_GEN_MARCH_ROWS * C;
-  for (int r = MK_TEXG_MAX_ROWS; r >= 1; r >>= 1) {
-    if (r > ngr) continue;
-    const long nt = MK_TILE_COLS * r;
-    const long floats = per_thread * nt + (long)MK_TEXG_GROUP_FLOATS * ngr * MK_TILE_COLS +
-                        2L * texg_batches(*p, *t) + nt / 32 * MK_TEX_RED_SLOTS;
-    if (floats <= (long)MK_SMEM_ROWS * MK_TILE_COLS)
-      return TexgLayout{r, (int)nt, (int)(floats * (long)sizeof(float))};
+  out.choice_rows = min(MK_TEXG_CHOICE_ROWS, ngr);
+  const int warps = out.choice_rows * MK_TILE_COLS / 32;
+  out.choice_smem = (MK_TEXG_GROUP_FLOATS * ngr * MK_TILE_COLS +
+                     min(texg_choice_slots(*p, *t), MK_TEXG_CHUNK) * warps * 6) *
+                    (int)sizeof(float);
+  switch (C) {
+    case 1: out.kernel = megakernel_tex_general<1>; break;
+    case 2: out.kernel = megakernel_tex_general<2>; break;
+    case 4: out.kernel = megakernel_tex_general<4>; break;
+    case 8: out.kernel = megakernel_tex_general<8>; break;
+    case 16: out.kernel = megakernel_tex_general<16>; break;
+    case 32: out.kernel = megakernel_tex_general<32>; break;
   }
-  return TexgLayout{0, 0, 0};
+  return out;
 }
 
-// dynamic shared memory above the default 48 KB needs the attribute raised
-// first (never lowered below it)
+// dynamic shared memory above the default 48 KB needs each kernel's
+// attribute raised first (never lowered below it)
 static cudaError_t texg_smem_attribute(const TexgLayout& lay) {
-  if (lay.smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(megakernel_tex_general, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              lay.smem);
+  cudaError_t err = cudaSuccess;
+  if (lay.smem > 48 * 1024)
+    err = cudaFuncSetAttribute(lay.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.smem);
+  if (err == cudaSuccess && lay.choice_smem > 48 * 1024)
+    err = cudaFuncSetAttribute(tex_choice_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               lay.choice_smem);
+  return err;
+}
+
+// the tile choice into choices (choice_ints ints: at least 2 per slot and
+// tile of the launch's grid)
+static int launch_tex_choice(const MegakernelParams* p, const TexParams* t, const TexParams& sky,
+                             const TexgLayout& lay, const float* blue, const float* depth,
+                             int* choices, long choice_ints, cudaStream_t stream,
+                             unsigned long long* work) {
+  const dim3 grid = tile_grid(p);
+  if (!choices || choice_ints < (long)grid.x * grid.y * texg_choice_slots(*p, *t) * 2) return -1;
+  tex_choice_kernel<<<grid, dim3(MK_TILE_COLS, lay.choice_rows, 1), lay.choice_smem, stream>>>(
+      *p, *t, sky, blue, depth, choices, work);
+  return (int)cudaGetLastError();
+}
+
+// The general instance's tile choice alone (the first of its two launches),
+// for params as megakernel_tex_launch takes them.
+extern "C" int tex_choice_launch(const MegakernelParams* params, const TexParams* tex,
+                                 const TexParams* sky, const float* blue, const float* depth,
+                                 int* choices, int choice_ints, void* stream, void* work) {
+  const TexgLayout lay = texg_layout(params, tex);
+  if (!lay.kernel || !rows_ok(params) || (params->with_background && !depth) ||
+      (params->with_sky && (!sky || sky->cov_levels < 1 || sky->cov_levels > MK_MAX_LEVELS)))
+    return -1;
+  const cudaError_t err = texg_smem_attribute(lay);
+  if (err != cudaSuccess) return (int)err;
+  return launch_tex_choice(params, tex, sky ? *sky : TexParams{}, lay, blue, depth, choices,
+                           choice_ints, (cudaStream_t)stream, (unsigned long long*)work);
 }
 
 static int launch_tex_general(const MegakernelParams* p, const TexParams* t, const TexParams& sky,
                               const float* blue, const float* shape_tab, const float* cov_tab,
                               const float* sky_r, const float* sky_g, const float* sky_b,
-                              float* color, float* alpha, float* depth, cudaStream_t stream,
-                              unsigned long long* work) {
+                              int* choices, int choice_ints, float* color, float* alpha,
+                              float* depth, cudaStream_t stream, unsigned long long* work) {
   const TexgLayout lay = texg_layout(p, t);
-  if (!lay.rows) return -1;
+  if (!lay.kernel) return -1;
   const cudaError_t err = texg_smem_attribute(lay);
   if (err != cudaSuccess) return (int)err;
-  megakernel_tex_general<<<tile_grid(p), dim3(MK_TILE_COLS, lay.rows, 1), lay.smem, stream>>>(
-      *p, *t, sky, blue, shape_tab, cov_tab, sky_r, sky_g, sky_b, color, alpha, depth, work);
+  const int rc = launch_tex_choice(p, t, sky, lay, blue, depth, choices, choice_ints, stream, work);
+  if (rc != 0) return rc;
+  const int G = p->cloud_lod * p->coverage_lod;
+  const dim3 grid((p->width + MK_TILE_COLS - 1) / MK_TILE_COLS, (p->rows + G - 1) / G, 1);
+  lay.kernel<<<grid, dim3(MK_TILE_COLS, 1, 1), lay.smem, stream>>>(
+      *p, *t, sky, blue, shape_tab, cov_tab, sky_r, sky_g, sky_b, choices, color, alpha, depth,
+      work, lay.row_cache);
   return (int)cudaGetLastError();
 }
 
 // The texture instance's launch: the fixed instance where it takes the
-// params (tex_instance), else the general one; general != 0 asks for the
+// params (tex_instance), else the general one, two launches: its tile
+// choice into choices (choice_ints ints, at least 2 per slot and tile;
+// unread by the fixed instance), then its frame; general != 0 asks for the
 // general instance whatever the params (both instances on one config, to
 // compare them).  *instance, where given, gets the instance launched
 // (MK_TEX_FIXED or MK_TEX_GENERAL).
@@ -3001,7 +3242,8 @@ extern "C" int megakernel_tex_launch(const MegakernelParams* params, const TexPa
                                      const float* shape_tab, const float* cov_tab,
                                      const float* sky_r, const float* sky_g, const float* sky_b,
                                      float* color, float* alpha, float* depth, void* stream,
-                                     void* work, int general, int* instance) {
+                                     void* work, int general, int* instance, int* choices,
+                                     int choice_ints) {
   if (!params->clouds_enabled || !params->with_atmosphere || tex->knot_group < 1 ||
       !source_ok(tex->shape_source, params->shape_interp, shape_tab, tex->shape_levels) ||
       !source_ok(tex->cov_source, params->coverage_interp, cov_tab, tex->cov_levels) ||
@@ -3017,7 +3259,7 @@ extern "C" int megakernel_tex_launch(const MegakernelParams* params, const TexPa
   if (instance) *instance = which;
   if (which == MK_TEX_GENERAL)
     return launch_tex_general(params, tex, sky_t, blue, shape_tab, cov_tab, sky_r, sky_g, sky_b,
-                              color, alpha, depth, s, w);
+                              choices, choice_ints, color, alpha, depth, s, w);
   if (G == 4)
     return launch_tex<4>(params, tex, sky_t, blue, shape_tab, cov_tab, sky_r, sky_g, sky_b, color,
                          alpha, depth, s, w);
@@ -3030,26 +3272,35 @@ extern "C" int megakernel_tex_launch(const MegakernelParams* params, const TexPa
 // What the texture instance for these params uses, as the launcher would
 // launch it (general as megakernel_tex_launch takes it): out = {rows per
 // thread G, registers per thread, local memory (stack) bytes per thread,
-// resident blocks (tiles) per SM, dynamic shared memory bytes, threads per
-// block, 1 for the general instance (0 for the fixed one)}.  It sets the
-// shared-memory attribute the launcher sets.
+// resident blocks per SM, dynamic shared memory bytes, threads per block,
+// 1 for the general instance (0 for the fixed one); the general instance's
+// row cache (1: one opaque pass per pixel in its frame), and its tile
+// choice's threads per block, dynamic shared memory bytes, registers per
+// thread and resident blocks per SM (zeros for the fixed instance)}.  It
+// sets the shared-memory attributes the launcher sets.
 extern "C" int megakernel_tex_info(const MegakernelParams* params, const TexParams* tex,
                                    int* out, int general) {
   const int G = params->cloud_lod * params->coverage_lod;
-  cudaFuncAttributes attr;
-  int blocks = 0;
+  cudaFuncAttributes attr, choice_attr;
+  int blocks = 0, choice_blocks = 0;
   if (tex_instance(params, tex, general) == MK_TEX_GENERAL) {
     const TexgLayout lay = texg_layout(params, tex);
-    if (!lay.rows) return -1;
+    if (!lay.kernel) return -1;
+    const int choice_threads = MK_TILE_COLS * lay.choice_rows;
     cudaError_t err = texg_smem_attribute(lay);
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, megakernel_tex_general);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, lay.kernel);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, megakernel_tex_general,
-                                                          lay.threads, lay.smem);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, lay.kernel, MK_TILE_COLS,
+                                                          lay.smem);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&choice_attr, tex_choice_kernel);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&choice_blocks, tex_choice_kernel,
+                                                          choice_threads, lay.choice_smem);
     if (err != cudaSuccess) return (int)err;
-    const int info[7] = {G, attr.numRegs, (int)attr.localSizeBytes, blocks, lay.smem, lay.threads,
-                         1};
-    for (int i = 0; i < 7; ++i) out[i] = info[i];
+    const int info[12] = {G, attr.numRegs, (int)attr.localSizeBytes, blocks, lay.smem,
+                          MK_TILE_COLS, 1, lay.row_cache, choice_threads, lay.choice_smem,
+                          choice_attr.numRegs, choice_blocks};
+    for (int i = 0; i < 12; ++i) out[i] = info[i];
     return 0;
   }
   const int nt = tex_threads(G), smem = tex_smem(G);
@@ -3059,8 +3310,8 @@ extern "C" int megakernel_tex_info(const MegakernelParams* params, const TexPara
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
   if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, nt, smem);
   if (err != cudaSuccess) return (int)err;
-  const int info[7] = {G, attr.numRegs, (int)attr.localSizeBytes, blocks, smem, nt, 0};
-  for (int i = 0; i < 7; ++i) out[i] = info[i];
+  const int info[12] = {G, attr.numRegs, (int)attr.localSizeBytes, blocks, smem, nt, 0, 0, 0, 0, 0, 0};
+  for (int i = 0; i < 12; ++i) out[i] = info[i];
   return 0;
 }
 

@@ -133,11 +133,16 @@ TEX_SM_THREADS = 1024
 #: min and max of up to 3 axes)
 TEX_KNOT_ROWS = 26
 TEX_RED_SLOTS = 6
-#: the general texture instance: at most TEXG_MAX_ROWS thread rows of 128
+#: the general texture instance's tile choice (``tex_choice_kernel``, the
+#: first of its two launches): at most TEXG_CHOICE_ROWS thread rows of 128
 #: per tile, TEXG_GROUP_FLOATS floats per coverage group of the tile (its
-#: knot inputs: mean model-space ray, mean span) in shared memory
-TEXG_MAX_ROWS = 4
+#: knot inputs: mean model-space ray, mean span) in shared memory, the
+#: warps' partials of TEXG_CHUNK choice slots per barrier; a slot without a
+#: choice (the sky's, where the launch draws none) holds NO_CHOICE twice
+TEXG_CHOICE_ROWS = 4
 TEXG_GROUP_FLOATS = 5
+TEXG_CHUNK = 32
+NO_CHOICE = -1
 #: work counter slots, in the kernel's order (``MK_WORK_*``); the procedural
 #: instance also counts its procedural field evaluations: coverage per step
 #: and per sun sample, shape and detail per step and per sun sample, and the
@@ -162,9 +167,12 @@ MEASURE_DEFINES = ("MK_STAGE_CLOCKS",)
 GEN_INFO = ("coarse", "registers", "stack_bytes", "blocks_per_sm", "smem_bytes", "row_cache")
 #: what :func:`tex_info` reports of the texture instance (``general``:
 #: TEX_GENERAL for ``megakernel_tex_general``, 0 for the fixed instance, as
-#: the launcher also reports the instance it launched; ``MK_TEX_*``)
+#: the launcher also reports the instance it launched; ``MK_TEX_*``); the
+#: general instance's row cache and its tile choice's block (zeros for the
+#: fixed instance)
 TEX_INFO = ("group", "registers", "stack_bytes", "blocks_per_sm", "smem_bytes", "threads",
-            "general")
+            "general", "row_cache", "choice_threads", "choice_smem_bytes", "choice_registers",
+            "choice_blocks_per_sm")
 TEX_GENERAL = 1
 #: what :func:`clear_info` reports of the cloud-free instance
 CLEAR_INFO = ("registers", "stack_bytes", "blocks_per_sm", "threads", "blocks")
@@ -185,8 +193,10 @@ class Counters:
     ``texture_general_launches`` the general texture instance
     ``megakernel_tex_general`` alone,
     ``sky_launches`` the launches that draw the panorama sky), launches of
-    the sky's per-tile choice pre-pass, of the K2-alone entry, and
-    plain-path frames (one per frame, whatever its layers)."""
+    the sky's per-tile choice pre-pass, of the general texture instance's
+    tile choice (``tex_choice_kernel``, launched before each of its frames,
+    or alone by :func:`tex_choices`), of the K2-alone entry, and plain-path
+    frames (one per frame, whatever its layers)."""
 
     def __init__(self):
         self.reset()
@@ -199,6 +209,7 @@ class Counters:
         self.clear_launches = 0
         self.sky_launches = 0
         self.sky_choice_launches = 0
+        self.tex_choice_launches = 0
         self.texsample_launches = 0
         self.plain_calls = 0
 
@@ -358,7 +369,10 @@ SKY_CHOICE_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.POINTER(TexParam
                        ctypes.c_void_p, ctypes.c_void_p)
 TEX_LAUNCHER_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.POINTER(TexParams),
                          ctypes.POINTER(TexParams), *(ctypes.c_void_p,) * 11, ctypes.c_int,
-                         ctypes.c_void_p)
+                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int)
+TEX_CHOICE_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.POINTER(TexParams),
+                       ctypes.POINTER(TexParams), *(ctypes.c_void_p,) * 3, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p)
 TEXSAMPLE_ARGTYPES = (ctypes.POINTER(TexParams), ctypes.c_int, *(ctypes.c_void_p,) * 4,
                       ctypes.c_int, ctypes.c_int, *(ctypes.c_void_p,) * 3)
 GEN_INFO_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.c_void_p)
@@ -379,6 +393,7 @@ def bind(lib):
     for name, argtypes in (("megakernel_launch", LAUNCHER_ARGTYPES),
                            ("sky_choice_launch", SKY_CHOICE_ARGTYPES),
                            ("megakernel_tex_launch", TEX_LAUNCHER_ARGTYPES),
+                           ("tex_choice_launch", TEX_CHOICE_ARGTYPES),
                            ("texsample_launch", TEXSAMPLE_ARGTYPES),
                            ("megakernel_gen_info", GEN_INFO_ARGTYPES),
                            ("megakernel_tex_info", TEX_INFO_ARGTYPES),
@@ -576,16 +591,18 @@ def _source(meta, interp: bool) -> int:
 
 
 def tex_general_layout(config: VariantConfig) -> Optional[dict]:
-    """The general texture instance's launch for ``config``, as its
-    launcher lays it out (``texg_layout`` in the source): ``{"rows",
-    "threads", "smem_bytes"}``, or ``None`` where no block fits.  A block
-    is one 32×128 tile of 128 × rows threads (rows at most TEXG_MAX_ROWS
-    and the tile's rows of coverage groups, the most whose shared memory
-    fits SMEM_ROWS × 512 B): per thread its knot rows (each field's knots
-    + 1 where it has knots, the detail field's beside the shape field's at
-    full quality) and GEN_MARCH_ROWS per coarse pixel; TEXG_GROUP_FLOATS
-    per coverage group of the tile; a (mode, level) pair per knot batch of
-    a baked field; TEX_RED_SLOTS per warp."""
+    """The general texture instance's two launches for ``config``, as its
+    launcher lays them out (``texg_layout`` in the source), or ``None``
+    where its frame's block does not fit.  The frame: one block of
+    ``threads`` = 128 per 128 columns and coverage group row, with the
+    procedural instance's shared memory (:func:`gen_smem`: the knot rows,
+    GEN_MARCH_ROWS per coarse pixel, the row cache where the block still
+    holds it; ``smem_bytes``, ``row_cache``).  The tile choice: one block
+    of ``choice_threads`` = 128 × min(TEXG_CHOICE_ROWS, the tile's rows of
+    coverage groups) per tile, with TEXG_GROUP_FLOATS per coverage group of
+    the tile and 6 floats per warp and choice slot of one chunk of at most
+    TEXG_CHUNK slots (``choice_smem_bytes``); ``slots``: the sky's and one
+    per knot batch of a baked field."""
     group = config.cloud_lod * config.cloud_coverage_lod
     if (config.cloud_lod < 1 or config.cloud_coverage_lod < 1 or TILE_ROWS % group
             or config.texture_knot_group < 1):
@@ -599,18 +616,19 @@ def tex_general_layout(config: VariantConfig) -> Optional[dict]:
     kg = config.texture_knot_group
     batches = ((k + kg) // kg if cov == SOURCE_PYRAMID else 0) + (
         (ks + kg) // kg * (1 if low else 2) if shape == SOURCE_PYRAMID else 0)
+    rows = knots + GEN_MARCH_ROWS * config.cloud_coverage_lod
+    if rows > SMEM_ROWS:
+        return None
+    cache = rows + GEN_CACHE_ROWS * group <= SMEM_ROWS
     group_rows = TILE_ROWS // group
-    rows = TEXG_MAX_ROWS
-    while rows >= 1:
-        if rows <= group_rows:
-            threads = TILE_COLS * rows
-            floats = ((knots + GEN_MARCH_ROWS * config.cloud_coverage_lod) * threads
-                      + TEXG_GROUP_FLOATS * group_rows * TILE_COLS + 2 * batches
-                      + threads // 32 * TEX_RED_SLOTS)
-            if floats <= SMEM_ROWS * TILE_COLS:
-                return {"rows": rows, "threads": threads, "smem_bytes": floats * 4}
-        rows //= 2
-    return None
+    choice_rows = min(TEXG_CHOICE_ROWS, group_rows)
+    warps = choice_rows * TILE_COLS // 32
+    return {"threads": TILE_COLS,
+            "smem_bytes": (rows + (GEN_CACHE_ROWS * group if cache else 0)) * TILE_COLS * 4,
+            "row_cache": int(cache), "slots": 1 + batches,
+            "choice_threads": TILE_COLS * choice_rows,
+            "choice_smem_bytes": (TEXG_GROUP_FLOATS * group_rows * TILE_COLS
+                                  + min(1 + batches, TEXG_CHUNK) * warps * 6) * 4}
 
 
 def _texture_problems(config: VariantConfig):
@@ -645,9 +663,11 @@ def _texture_problems(config: VariantConfig):
     if config.texture_band_rows and config.texture_band_max_slices < 1:
         yield "texture_band_max_slices < 1 with banding on"
     if not bad and config.texture_knot_group >= 1 and tex_general_layout(config) is None:
-        yield ("the knots and march inputs of one thread row of 128 threads, the tile's "
-               "coverage groups and the knot batches exceed a block's "
-               f"{SMEM_ROWS * TILE_COLS * 4} B of shared memory (tex_general_layout)")
+        rows = knot_rows(config) + GEN_MARCH_ROWS * config.cloud_coverage_lod
+        yield (f"{knot_rows(config)} knot rows (coverage, shape and detail knots + 1 each) and "
+               f"{rows - knot_rows(config)} rows of march state: {rows} rows of shared memory, "
+               f"a block of the general texture instance holds {SMEM_ROWS} "
+               f"({SMEM_ROWS * TILE_COLS * 4} B; tex_general_layout)")
 
 
 def _noise_problems(spec: NoiseSpec):
@@ -979,8 +999,9 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
     coverage table)`` for a texture instance, ``None`` for a procedural
     field's table (also counted in ``counters.texture_launches``, and the
     general instance's, as the launcher reports it, in
-    ``counters.texture_general_launches``; ``general``: the general
-    instance whatever the config, to compare the two).  ``work``: ``len(WORK_SLOTS) +
+    ``counters.texture_general_launches``, its tile choice in
+    ``counters.tex_choice_launches``; ``general``: the general instance
+    whatever the config, to compare the two).  ``work``: ``len(WORK_SLOTS) +
     len(STAGE_SLOTS)`` zeroed int64 counters that the kernel adds its work to (see
     :func:`work_counts`).  ``depth``: an (H, W) float32 plane of linear
     depth: written by a launch with the opaque pass (optional), read by a
@@ -1005,6 +1026,8 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
     choices = None
     if sky is not None and tex is None:
         choices = sky_choices(struct, sky_params, device)
+    if tex is not None:  # the general instance's tile choice (the fixed one reads none)
+        choices = torch.empty(tex_choice_shape(struct, tex[0]), dtype=torch.int32, device=device)
     instance = ctypes.c_int(-1)  # the texture instance the launcher reports
     with torch.cuda.device(device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
@@ -1019,7 +1042,8 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
                                            sky_ref, _ptr(blue), _ptr(shape_table),
                                            _ptr(cov_table), _ptr(sky_r), _ptr(sky_g),
                                            _ptr(sky_b), *planes, stream, _ptr(work),
-                                           int(general), ctypes.byref(instance))
+                                           int(general), ctypes.byref(instance), _ptr(choices),
+                                           choices.numel())
     if rc != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {rc}")
     counters.megakernel_launches += 1
@@ -1029,6 +1053,7 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
         counters.texture_launches += 1
         if instance.value == TEX_GENERAL:
             counters.texture_general_launches += 1
+            counters.tex_choice_launches += 1
     if not (struct.clouds_enabled and struct.with_atmosphere):
         counters.clear_launches += 1
     if sky is not None:
@@ -1072,6 +1097,82 @@ def sky_choices_plain(camera: Camera, height: int, width: int, meta: texsample.T
                        row0=row0)
     mode, level = texsample.sky_tile_choices(meta, d, TILE_ROWS)
     return torch.stack([mode, level], dim=1).to(torch.int32)
+
+
+def tex_choice_shape(struct: MegakernelParams, tparams: TexParams) -> tuple:
+    """The general texture instance's tile choice for one launch:
+    ``(tiles, slots, 2)`` ``(mode, level)`` pairs, tiles row-major over the
+    struct's rows from ``row0``; slot 0 the sky's (NO_CHOICE where the
+    launch draws none), then each knot batch of a baked field (the
+    coverage field's, the shape field's, at full quality the detail
+    field's, ``knot_group`` knots each: ``texg_batches`` in the source)."""
+    kg = max(tparams.knot_group, 1)
+    batches = (struct.coverage_knots + kg) // kg if tparams.cov_source == SOURCE_PYRAMID else 0
+    if tparams.shape_source == SOURCE_PYRAMID:
+        batches += (struct.shape_knots + kg) // kg * (1 if struct.always_low else 2)
+    ty, tx = tile_grid(struct.rows, struct.width)
+    return ty * tx, 1 + batches, 2
+
+
+def tex_choices(struct: MegakernelParams, tparams: TexParams, device, sky=None,
+                depth: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the general texture instance's tile choice alone (the first of
+    the two launches :func:`launch` makes for it) for one launch struct on
+    the current stream of ``device`` (a CUDA device): each 32×128 tile of
+    the struct's rows, from ``row0``, padded past the frame, gets the sky's
+    level and mode (``sky``: its ``(TexParams, r, g, b)``, where the
+    struct's ``with_sky`` is set) and each knot batch's, over every
+    coverage group of the tile.  ``depth``: the layers below' linear depth
+    (a chained layer).  Returns :func:`tex_choice_shape` int32; counted in
+    ``counters.tex_choice_launches``.  :func:`tex_choices_plain` is its
+    plain version."""
+    if bool(struct.with_sky) != (sky is not None):
+        raise ValueError("a sky launch needs its (TexParams, r, g, b) pyramids, and only it")
+    out = torch.empty(tex_choice_shape(struct, tparams), dtype=torch.int32, device=device)
+    blue = _BLUE_NOISE.get(str(device))
+    if blue is None:
+        blue = _BLUE_NOISE[str(device)] = blue_noise_tensor(device=device)
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+        rc = lib.tex_choice_launch(ctypes.byref(struct), ctypes.byref(tparams),
+                                   None if sky is None else ctypes.byref(sky[0]), _ptr(blue),
+                                   _plane_ptr(depth, struct), _ptr(out), out.numel(), stream,
+                                   _ptr(None))
+    if rc != 0:
+        raise RuntimeError(f"tex choice launch failed: CUDA error {rc}")
+    counters.tex_choice_launches += 1
+    return out
+
+
+def tex_choices_plain(params: AtmosphereParams, config: VariantConfig, camera: Camera,
+                      opaque: Optional[OpaqueScene], height: int, width: int, tex_data,
+                      background=None, row0: int = 0, rows: Optional[int] = None,
+                      pano_meta=None) -> torch.Tensor:
+    """The plain version of :func:`tex_choices` for one texture layer over
+    rows ``[row0, row0 + rows)`` (default: the whole frame), on the device
+    of ``camera``: the per-tile choices the plain chain's pyramid samplers
+    make (``render_frame`` with ``tex_data``, ``background`` as it takes
+    them; ``texsample.record_batch_choices``), one knot batch per sampler
+    call, and the sky's tile choices (:func:`sky_choices_plain`) where
+    ``pano_meta`` is given (the layer draws the sky).  Raises ``ValueError``
+    where the plain chain samples no knot (no pixel of the frame sees the
+    cloud layer)."""
+    rows = height - row0 if rows is None else rows
+    with texsample.record_batch_choices() as calls:
+        render_frame(params, config, camera, opaque, height, width, tex_data=tex_data,
+                     background=background, row0=row0, rows=rows)
+    if not calls:
+        raise ValueError("the plain chain sampled no knot: no choice to compare")
+    ty, tx = tile_grid(rows, width)
+    device = camera.view_to_world.device
+    out = torch.full((ty * tx, 1 + len(calls), 2), NO_CHOICE, dtype=torch.int32, device=device)
+    if pano_meta is not None:
+        out[:, 0] = sky_choices_plain(camera, height, width, pano_meta, row0=row0, rows=rows)
+    for b, (mode, level) in enumerate(calls):
+        out[:, 1 + b, 0] = mode.to(torch.int32)
+        out[:, 1 + b, 1] = level.to(torch.int32)
+    return out
 
 
 def _check_table(t: Optional[torch.Tensor], meta: Optional[texsample.TexMeta], device):

@@ -15,10 +15,11 @@ Counterpart of ``godot_atmosphere_shader_tpu/ops/pallas/texsample.py``.
 * The plain versions of K2: :func:`sample_tex3d` and :func:`sample_latlong`
   over one batch, and :func:`sample_tex3d_batched` /
   :func:`sample_latlong_batched` over knot planes cut into the kernel's
-  batches, and :func:`sample_sky_batched`, the panorama sky of the
-  megakernel's opaque pass (three channel pyramids, one choice per 32×128
-  tile of rays, a fixed 32-row window; its calls are counted in
-  :data:`counters`).  The result depends on the batch:
+  batches (each call's per-batch choices can be recorded:
+  :func:`record_batch_choices`), and :func:`sample_sky_batched`, the
+  panorama sky of the megakernel's opaque pass (three channel pyramids,
+  one choice per 32×128 tile of rays, a fixed 32-row window; its calls are
+  counted in :data:`counters`).  The result depends on the batch:
   the wrapped coordinates' min and max over the whole batch choose one
   level and one mode for it —
   *windowed* (the finest level whose footprint does not wrap and whose
@@ -39,6 +40,7 @@ sum of its two z-slices' partial sums.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Tuple
 
@@ -69,6 +71,22 @@ class Counters:
 
 
 counters = Counters()
+
+# the calls of the batched knot samplers inside record_batch_choices
+_recorded = None
+
+
+@contextlib.contextmanager
+def record_batch_choices():
+    """Inside the block, each call of :func:`sample_tex3d_batched` and
+    :func:`sample_latlong_batched` appends its batches' ``(mode, level)``
+    (``(B,)`` int64 each, batches row-major) to the list it yields."""
+    global _recorded
+    saved, _recorded = _recorded, []
+    try:
+        yield _recorded
+    finally:
+        _recorded = saved
 
 
 # -- host-side pyramid packing ------------------------------------------------
@@ -524,9 +542,11 @@ def sample_tex3d_batched(table, meta: TexMeta, x, y, z, batch_rows: int,
     batch, as one megakernel tile's knot group is."""
     shape = x.shape
     x, y, z = (_planes(c) for c in (x, y, z))
-    out, _, _ = _tex3d_batches(_flat(table), meta,
-                               *(_to_batches(c, batch_rows) for c in (x, y, z)),
-                               window_rows, band_rows, band_max_slices)
+    out, mode, level = _tex3d_batches(_flat(table), meta,
+                                      *(_to_batches(c, batch_rows) for c in (x, y, z)),
+                                      window_rows, band_rows, band_max_slices)
+    if _recorded is not None:
+        _recorded.append((mode, level))
     return _from_batches(out, x.shape, batch_rows).reshape(shape)
 
 
@@ -536,9 +556,11 @@ def sample_latlong_batched(table, meta: TexMeta, d: Vec3, batch_rows: int,
     :func:`sample_tex3d_batched` cuts them."""
     shape = d.x.shape
     planes = [_planes(c) for c in d]
-    out, _, _ = _latlong_batches(
+    out, mode, level = _latlong_batches(
         _flat(table), meta, Vec3(*(_to_batches(c, batch_rows) for c in planes)),
         window_rows)
+    if _recorded is not None:
+        _recorded.append((mode, level))
     return _from_batches(out, planes[0].shape, batch_rows).reshape(shape)
 
 

@@ -772,10 +772,12 @@ def test_texture_envelope_matches_plain(cuda, baked, tex_conditioning, case):
 @pytest.mark.parametrize("case", _tex_envelope_cases())
 def test_texture_instance_and_layout_match_the_launcher(cuda, baked, case):
     """The launcher's pick of a texture instance and the general instance's
-    block (``megakernel_tex_info``) against their mirrors in the wrapper:
-    ``mk.fixed_texture_instance`` (the general instance exactly where it is
-    false) and ``mk.tex_general_layout`` (threads and shared memory, the
-    general instance also where it is asked for on a fixed config)."""
+    two blocks (``megakernel_tex_info``) against their mirrors in the
+    wrapper: ``mk.fixed_texture_instance`` (the general instance exactly
+    where it is false) and ``mk.tex_general_layout`` (the frame's threads,
+    shared memory and row cache, the tile choice's threads and shared
+    memory, the general instance also where it is asked for on a fixed
+    config)."""
     import chip_smoke as cs
 
     scene, cam = cs.tex_envelope_scene(cs.TEX_ENVELOPE_CASES[case], cuda, baked)
@@ -788,9 +790,32 @@ def test_texture_instance_and_layout_match_the_launcher(cuda, baked, case):
     assert picked["general"] == int(not mk.fixed_texture_instance(struct, tparams))
     general = mk.tex_info(struct, tparams, general=True)
     assert general["general"] == 1
-    assert (general["threads"], general["smem_bytes"]) == (lay["threads"], lay["smem_bytes"])
+    keys = ("threads", "smem_bytes", "row_cache", "choice_threads", "choice_smem_bytes")
+    assert {k: general[k] for k in keys} == {k: lay[k] for k in keys}
+    assert general["blocks_per_sm"] >= 1 and general["choice_blocks_per_sm"] >= 1
     if picked["general"]:
         assert picked == general
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _tex_envelope_cases())
+def test_tex_choices_match_plain(cuda, baked, case):
+    """The general texture instance's tile choice alone (``mk.tex_choices``,
+    counted once) against its plain version (``mk.tex_choices_plain``, the
+    plain chain's own per-tile batch choices) on the same CUDA inputs: the
+    same (mode, level) in every slot of every tile, exactly."""
+    import chip_smoke as cs
+
+    scene, cam = cs.tex_envelope_scene(cs.TEX_ENVELOPE_CASES[case], cuda, baked)
+    params, configs, tex, bands, rows = cs.scene_plan(scene, cam, H)
+    (_, struct, args), = mk.scene_launches(params, configs, cam, scene.opaque, H, W,
+                                           tex_data=tex, bands=bands, band_rows=rows)
+    mk.counters.reset()
+    got = mk.tex_choices(struct, args["tex"][0], cuda)
+    assert mk.counters.tex_choice_launches == 1
+    ref = mk.tex_choices_plain(params[0], configs[0], cam, scene.opaque, H, W, tex[0])
+    assert got.shape == ref.shape == mk.tex_choice_shape(struct, args["tex"][0])
+    assert torch.equal(got.cpu(), ref.cpu())
 
 
 @pytest.mark.cuda
@@ -800,9 +825,11 @@ def test_texture_general_instance_chained_and_with_the_sky(cuda, baked, mode, ca
     """The general texture instance where ``test_texture_kernel_matches_plain``
     takes the fixed one: chained over a far moon on a 256-row shard (rows
     256-511 of a 512×128 frame, through the band entries), and fused with
-    a panorama sky (its choice made in the tile's block, no pre-pass);
-    against the plain version on the same CUDA inputs at the cloud
-    tolerance."""
+    a panorama sky (its choice made by the instance's tile choice, no sky
+    pre-pass); against the plain version on the same CUDA inputs at the
+    cloud tolerance; its tile choice alone against its plain version,
+    exactly, on the same inputs (chained: the layer below as the kernel
+    rendered it)."""
     import chip_smoke as cs
     from godot_atmosphere_shader_tpu_torch.models.scene import PlanetAtmosphere
 
@@ -839,6 +866,24 @@ def test_texture_general_instance_chained_and_with_the_sky(cuda, baked, mode, ca
     assert counts == (1, 1, 0)
     assert torch.isfinite(got).all() and float(got[..., 3].max()) > 0.05
     assert _cloud_ok(got, ref)
+    if mode == "chained":
+        launches = mk.band_launches(params, configs, cam, scene.opaque, h, W, r0, rows,
+                                    tex_data=tex, pano_data=pdata, pano_meta=pmeta)
+        planes = [torch.empty((rows, W) + c, device=cuda) for c in ((3,), (), ())]
+        _, below, below_args = launches[0]
+        mk.launch(below, *planes[:2], depth=planes[2], **below_args)
+        _, struct, args = launches[1]
+        got_choice = mk.tex_choices(struct, args["tex"][0], cuda, depth=planes[2])
+        ref_choice = mk.tex_choices_plain(params[1], configs[1], cam, None, h, W, tex[1],
+                                          background=(planes[0], planes[2]), row0=r0, rows=rows)
+    else:
+        (_, struct, args), = mk.scene_launches(params, configs, cam, scene.opaque, H, W,
+                                               tex_data=tex, pano_data=pdata, pano_meta=pmeta)
+        got_choice = mk.tex_choices(struct, args["tex"][0], cuda, sky=args["sky"])
+        ref_choice = mk.tex_choices_plain(params[0], configs[0], cam, scene.opaque, H, W,
+                                          tex[0], pano_meta=pmeta)
+    assert bool((got_choice[:, 0, 0] >= 0).all()) == (mode == "sky")
+    assert torch.equal(got_choice.cpu(), ref_choice.cpu())
 
 
 # -- K1 slice (h): the procedural envelope, the procedural instance ----------------

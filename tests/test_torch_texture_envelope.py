@@ -226,8 +226,10 @@ def _cu_source():
 
 
 def test_sources_and_layout_match_the_kernel():
-    """The source codes and the general instance's constants against the
-    CUDA source, and the fixed instance's choice against its launcher's."""
+    """The source codes and the general instance's constants (its tile
+    choice's; its frame lays out its shared memory as the procedural
+    instance does) against the CUDA source, and the fixed instance's choice
+    against its launcher's."""
     src = _cu_source()
     codes = dict(re.findall(r"(MK_SRC_\w+) = (\d+)", src))
     assert {k: int(v) for k, v in codes.items()} == {
@@ -235,7 +237,13 @@ def test_sources_and_layout_match_the_kernel():
         "MK_SRC_STEP": mk.SOURCE_STEP}
     consts = {k: int(v) for k, v in re.findall(r"constexpr int (MK_TEXG_\w+) = (\d+);", src)}
     assert consts == {"MK_TEXG_GROUP_FLOATS": mk.TEXG_GROUP_FLOATS,
-                      "MK_TEXG_MAX_ROWS": mk.TEXG_MAX_ROWS}
+                      "MK_TEXG_CHOICE_ROWS": mk.TEXG_CHOICE_ROWS, "MK_TEXG_CHUNK": mk.TEXG_CHUNK}
+    assert re.search(r"constexpr int MK_NO_CHOICE = (-?\d+);", src).group(1) == str(mk.NO_CHOICE)
+    # the frame's shared memory is the procedural instance's layout
+    layout = re.search(r"static TexgLayout texg_layout\(.*?\n\}", src, re.S).group(0)
+    for term in ("MK_GEN_MARCH_ROWS * C", "MK_SMEM_ROWS", "MK_GEN_CACHE_ROWS * G",
+                 "MK_TEXG_CHOICE_ROWS", "MK_TEXG_GROUP_FLOATS * ngr", "MK_TEXG_CHUNK"):
+        assert term in layout
     assert re.search(r"constexpr int MK_TEX_GENERAL = (\d+);", src).group(1) == str(
         mk.TEX_GENERAL)
     fixed = re.search(r"static int tex_instance\(.*?\n\}", src, re.S).group(0)
@@ -249,8 +257,11 @@ def test_launch_structs_carry_each_fields_source(textures, case):
     """What ``tex_constants`` sets for the kernel: each field's source
     (pyramid, procedural knots, procedural per step), the knot counts and
     group; the instance that takes the launch (the fixed one for the
-    demo's profile at any knot group); the general instance's block
-    (:func:`tex_general_layout`) fits a block's shared memory."""
+    demo's profile at any knot group); the general instance's two blocks
+    (:func:`tex_general_layout`): the frame's 128 threads with the
+    procedural instance's shared memory (:func:`gen_smem`), the tile
+    choice's 128 per group row up to 4, within a block's shared memory, and
+    its slots per tile."""
     _, _, scene, cam = _scenes(textures, PYRAMID_CASES[case])
     _, params, configs = scene._sorted_layers(cam)
     config, _ = scene._texture_plan(params[0], configs[0])
@@ -270,8 +281,10 @@ def test_launch_structs_carry_each_fields_source(textures, case):
     assert mk.fixed_texture_instance(s, t) == case.startswith("knot_group")
     lay = mk.tex_general_layout(config)
     group_rows = 32 // (config.cloud_lod * config.cloud_coverage_lod)
-    assert lay["threads"] == 128 * lay["rows"] and lay["rows"] <= min(4, group_rows)
-    assert lay["smem_bytes"] <= mk.SMEM_ROWS * mk.TILE_COLS * 4
+    assert lay["threads"] == 128 and lay["choice_threads"] == 128 * min(4, group_rows)
+    assert (lay["smem_bytes"], bool(lay["row_cache"])) == mk.gen_smem(config)
+    assert 0 < lay["choice_smem_bytes"] <= mk.SMEM_ROWS * mk.TILE_COLS * 4
+    assert mk.tex_choice_shape(s, t) == ((H // 32) * (W // 128), lay["slots"], 2)
 
 
 @pytest.mark.parametrize("procedural", ["coverage", "shape"])
