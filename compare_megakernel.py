@@ -191,7 +191,8 @@ SHIMS = {"megakernel.cu": (("megakernel_gen_info", GEN_INFO_SHIM),
          "taa.cu": (("taa_info", TAA_INFO_SHIM),)}
 
 
-REPORTED = ("megakernel_gen", "megakernel_tex", "megakernel_clear", "taa_kernel")
+REPORTED = ("megakernel_gen", "megakernel_tex", "megakernel_clear", "taa_kernel",
+            "tex_choice_kernel", "sky_choice_kernel")
 
 
 def gen_report(ptxas: str) -> dict:
@@ -248,7 +249,7 @@ def parent_copy(path: str, name: str, parent_dir: str) -> str:
     return copy
 
 
-def build_sides(parent_cu: str, parent_taa=None) -> tuple:
+def build_sides(parent_cu: str, parent_taa=None, variants=()) -> tuple:
     """The libraries of all the kernel sources: the parent's (its
     ``megakernel.cu`` and, where given, its ``taa.cu``, each with the
     queries it lacks appended, beside the checkout's other sources), the
@@ -269,6 +270,9 @@ def build_sides(parent_cu: str, parent_taa=None) -> tuple:
                                   defines=mk.MEASURE_DEFINES),
             "parent/stages": dict(build_dir=os.path.join(COMPARE_DIR, "parent-stages"),
                                   sources=parent_sources, defines=mk.MEASURE_DEFINES)}
+    for name, defines in variants:  # the checkout's sources with -D defines
+        jobs[name] = dict(build_dir=os.path.join(COMPARE_DIR, f"variant-{name}"), defines=defines,
+                          ptxas_info=True)
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {k: pool.submit(library.build, **kw) for k, kw in jobs.items()}
         built = {k: f.result() for k, f in futures.items()}
@@ -680,8 +684,13 @@ def run_pass(args) -> int:
     device = torch.device("cuda", 0)
     textures = bake_demo_textures(device=device)
     all_cases = cases(device, textures, not args.without_tex_envelope)
+    only = args.only.split("|") if args.only else None
+    if only:
+        all_cases = [c for c in all_cases if c.label in only]
     if args.stages:
         result = stage_pass([c for c in all_cases if c.clouds()])
+    elif only:
+        result = one_pass(all_cases, {}, args.reference)
     else:
         result = one_pass(all_cases, flights(device, textures), args.reference)
         result.update(resolve_pass(resolves(device), args.reference))
@@ -784,6 +793,11 @@ def main(argv=None) -> int:
     ap.add_argument("--peak-fp32", type=float, help=argparse.SUPPRESS)
     ap.add_argument("--peak-int32", type=float, help=argparse.SUPPRESS)
     ap.add_argument("--without-tex-envelope", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--variant", action="append", default=[],
+                    help="NAME=DEFINE[,DEFINE...]: one more side, the checkout's sources built "
+                         "with those -D defines")
+    ap.add_argument("--only", help="frame labels, |-separated: those frames alone (no flight, "
+                                   "no resolve)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the comparison needs one GPU")
@@ -798,7 +812,8 @@ def main(argv=None) -> int:
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     shutil.rmtree(COMPARE_DIR, ignore_errors=True)
-    paths, reports = build_sides(args.parent_cu, args.parent_taa)
+    variants = [(v.split("=", 1)[0], tuple(v.split("=", 1)[1].split(","))) for v in args.variant]
+    paths, reports = build_sides(args.parent_cu, args.parent_taa, variants)
     cs.log(f"[compare] compiler report of {', '.join(REPORTED)} per side: "
            f"{json.dumps(reports)}")
     for side, path in paths.items():
@@ -823,12 +838,13 @@ def main(argv=None) -> int:
         cmd = [sys.executable, os.path.abspath(__file__), "--library", lib, "--out", out,
                "--reference", ref_dir, "--peak-fp32", repr(cs.PEAK["fp32"]),
                "--peak-int32", repr(cs.PEAK["int32"])] + (["--stages"] if stages else []) + (
-                   ["--without-tex-envelope"] if alone else [])
+                   ["--without-tex-envelope"] if alone else []) + (
+                   ["--only", args.only] if args.only else [])
         subprocess.run(cmd, check=True)
         with open(out) as f:
             return json.load(f)
 
-    sides = ["parent", "change"]
+    sides = ["parent", "change", *(name for name, _ in variants)]
     runs = {s: [] for s in sides}
     for side in sides + sides[::-1]:  # the first pass writes the reference frames
         result = start(side, paths[side])
@@ -836,7 +852,7 @@ def main(argv=None) -> int:
         cs.log(f"[compare] pass {side} on {card}: {json.dumps(result)}")
         cs.log(f"[compare] after the pass: "
                f"{cs.smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
-    for side in sides:
+    for side in ("parent", "change"):
         cs.log(f"[compare] stages {side} on {card}: "
                f"{json.dumps(start(f'{side}-stages', paths[f'{side}/stages'], stages=True))}")
     for label in runs["parent"][0]:

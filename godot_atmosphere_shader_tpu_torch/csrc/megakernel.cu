@@ -1863,12 +1863,12 @@ struct GroupInputs {
   float t0k, t1k;
 };
 
-// Stage 1 for the thread of column x and the group of rows from y0 (n_rows
-// of them inside the launch): state and cache are the block's march inputs
-// and row cache, tid the thread's column in them.
-template <int C>
-__device__ __forceinline__ GroupInputs coarse_pass(const MegakernelParams& p, const float* blue,
-                                                   int x, int y0, int n_rows, bool live,
+// Stage 1 for the thread of column x and the group of C coarse pixels from
+// row y0 (n_rows of its rows inside the launch): state and cache are the
+// block's march inputs and row cache, tid the thread's column in them.
+__device__ __forceinline__ GroupInputs coarse_pass(const MegakernelParams& p, int C,
+                                                   const float* blue, int x, int y0, int n_rows,
+                                                   bool live,
                                                    int row_cache, float* color, float* depth,
                                                    const Sky& sky, bool count, unsigned& n_atmo,
                                                    unsigned& n_v1, unsigned& n_sky,
@@ -1933,10 +1933,10 @@ __device__ __forceinline__ GroupInputs coarse_pass(const MegakernelParams& p, co
   return gi;
 }
 
-// Stage 3: the march of each coarse pixel in marches, its fields from F,
-// its light and alpha over its march inputs.
-template <int C, class F>
-__device__ __forceinline__ void march_pixels(const MegakernelParams& p, const F& fields,
+// Stage 3: the march of each of the C coarse pixels in marches, its fields
+// from F, its light and alpha over its march inputs.
+template <class F>
+__device__ __forceinline__ void march_pixels(const MegakernelParams& p, int C, const F& fields,
                                              unsigned marches, float* state, int tid,
                                              unsigned& n_march, unsigned& n_sun) {
   constexpr int T = MK_TILE_COLS;
@@ -1955,11 +1955,10 @@ __device__ __forceinline__ void march_pixels(const MegakernelParams& p, const F&
 }
 
 // Stage 4: each of the group's rows inside the launch blended with its
-// coarse pixel's clouds, composited over its background, stored (without
-// the row cache each row is shaded again first).
-template <int C>
-__device__ __forceinline__ void blend_rows(const MegakernelParams& p, const float* blue, int x,
-                                           int y0, int n_rows, bool live, int row_cache,
+// coarse pixel's clouds (C of them), composited over its background, stored
+// (without the row cache each row is shaded again first).
+__device__ __forceinline__ void blend_rows(const MegakernelParams& p, int C, const float* blue,
+                                           int x, int y0, int n_rows, bool live, int row_cache,
                                            unsigned vis, unsigned marches, const float* state,
                                            const float* cache, float* color, float* alpha_out,
                                            float* depth, const Sky& sky, bool count,
@@ -2043,9 +2042,9 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
   StageClock clk;
 
   // 1. the coarse pass
-  const GroupInputs gi = coarse_pass<C>(p, blue, x, y0, n_rows, live, row_cache, color, depth, sky,
-                                        work != nullptr, n_atmo, n_v1, n_sky, n_seg, state, cache,
-                                        tid);
+  const GroupInputs gi = coarse_pass(p, C, blue, x, y0, n_rows, live, row_cache, color, depth,
+                                     sky, work != nullptr, n_atmo, n_v1, n_sky, n_seg, state,
+                                     cache, tid);
   const unsigned vis = gi.vis;
   clk.mark(MK_STAGE_COARSE);
 
@@ -2097,14 +2096,14 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
       det.k = full ? kn + (shp.K + 1) * T : nullptr;
     }
     const GenFields fields{cov, shp, det, full, &fw};
-    march_pixels<C>(p, fields, marches, state, tid, n_march, n_sun);
+    march_pixels(p, C, fields, marches, state, tid, n_march, n_sun);
   }
   clk.mark(MK_STAGE_MARCH);
 
   // 4. blend each of the group's rows inside the launch with its coarse
   // pixel's clouds, composite over its background, store
-  blend_rows<C>(p, blue, x, y0, n_rows, live, row_cache, vis, marches, state, cache, color,
-                alpha_out, depth, sky, work != nullptr, n_atmo, n_v1, n_sky, n_seg, tid);
+  blend_rows(p, C, blue, x, y0, n_rows, live, row_cache, vis, marches, state, cache, color,
+             alpha_out, depth, sky, work != nullptr, n_atmo, n_v1, n_sky, n_seg, tid);
   clk.mark(MK_STAGE_BLEND);
   if (work) {
     count_work(work, MK_WORK_PIXELS, live ? n_rows : 0);
@@ -2620,13 +2619,14 @@ __global__ void __launch_bounds__(MK_TILE_COLS * MK_TEXG_CHOICE_ROWS)
         int fld, K, k0;
         texg_batch(p, t, s - 1, fld, K, k0);
         const int k1 = min(k0 + t.knot_group, K + 1);
-        for (int gr = threadIdx.y; gr < NGR; gr += R) {
-          float g[MK_TEXG_GROUP_FLOATS];
+        for (int k = k0; k < k1; ++k) {
+          const float sk = (float)((double)k / (double)K);  // the knot's, for every group
+          for (int gr = threadIdx.y; gr < NGR; gr += R) {
+            float g[MK_TEXG_GROUP_FLOATS];
 #pragma unroll
-          for (int f = 0; f < MK_TEXG_GROUP_FLOATS; ++f) g[f] = groups[(f * NGR + gr) * T + tx];
-          for (int k = k0; k < k1; ++k) {
+            for (int f = 0; f < MK_TEXG_GROUP_FLOATS; ++f) g[f] = groups[(f * NGR + gr) * T + tx];
             float c[3];
-            texg_coords(p, fld, texg_knot_pos(rom, g, (float)((double)k / (double)K)), c);
+            texg_coords(p, fld, texg_knot_pos(rom, g, sk), c);
 #pragma unroll
             for (int a = 0; a < 3; ++a) {
               mn[a] = fminf(mn[a], c[a]);
@@ -2739,10 +2739,13 @@ __device__ __forceinline__ unsigned texg_knots(const MegakernelParams& p, const 
 }
 
 // The general texture instance's frame: megakernel_gen's stages with the
-// texture knots (texg_knots) and fields (TexGenFields); the sky's choice and
-// the knot batches' choices of the block's tile from the tile choice.
-template <int C>
-__global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
+// texture knots (texg_knots) and fields (TexGenFields), for every C =
+// coverage_lod in one build; the sky's choice and the knot batches' choices
+// of the block's tile from the tile choice.
+#ifndef MK_TEXG_MIN_BLOCKS
+#define MK_TEXG_MIN_BLOCKS 4
+#endif
+__global__ void __launch_bounds__(MK_TILE_COLS, MK_TEXG_MIN_BLOCKS)
     megakernel_tex_general(const __grid_constant__ MegakernelParams p, const TexParams t,
                            const TexParams sky_t, const float* __restrict__ blue,
                            const float* __restrict__ shape_tab, const float* __restrict__ cov_tab,
@@ -2754,7 +2757,7 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
   constexpr int T = MK_TILE_COLS;
   const int tid = threadIdx.x;
   const int x = blockIdx.x * T + tid;
-  const int G = p.cloud_lod * C;
+  const int C = p.coverage_lod, G = p.cloud_lod * C;
   const int y0 = p.row0 + blockIdx.y * G;
   const int n_rows = min(G, p.row0 + p.rows - y0);
   const bool live = x < p.width;
@@ -2774,9 +2777,9 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
   StageClock clk;
 
   // 1. the coarse pass
-  const GroupInputs gi = coarse_pass<C>(p, blue, x, y0, n_rows, live, row_cache, color, depth, sky,
-                                        work != nullptr, n_atmo, n_v1, n_sky, n_seg, state, cache,
-                                        tid);
+  const GroupInputs gi = coarse_pass(p, C, blue, x, y0, n_rows, live, row_cache, color, depth,
+                                     sky, work != nullptr, n_atmo, n_v1, n_sky, n_seg, state,
+                                     cache, tid);
   clk.mark(MK_STAGE_COARSE);
 
   // 2. the knots and the cull
@@ -2799,13 +2802,13 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
       if (full) det_k = kn + (p.shape_knots + 1) * T;
     }
     const TexGenFields fields{cov_k, shp_k, det_k, p.coverage_knots, p.shape_knots, T, full, &fw};
-    march_pixels<C>(p, fields, marches, state, tid, n_march, n_sun);
+    march_pixels(p, C, fields, marches, state, tid, n_march, n_sun);
   }
   clk.mark(MK_STAGE_MARCH);
 
   // 4. the blend
-  blend_rows<C>(p, blue, x, y0, n_rows, live, row_cache, gi.vis, marches, state, cache, color,
-                alpha_out, depth, sky, work != nullptr, n_atmo, n_v1, n_sky, n_seg, tid);
+  blend_rows(p, C, blue, x, y0, n_rows, live, row_cache, gi.vis, marches, state, cache, color,
+             alpha_out, depth, sky, work != nullptr, n_atmo, n_v1, n_sky, n_seg, tid);
   clk.mark(MK_STAGE_BLEND);
   if (work) {
     count_work(work, MK_WORK_PIXELS, live ? n_rows : 0);
@@ -3128,25 +3131,21 @@ static bool source_ok(int src, int interp, const float* tab, int levels) {
   return (src == MK_SRC_KNOTS && interp) || (src == MK_SRC_STEP && !interp);
 }
 
-// The general instance's launch (kernel is nullptr for params it does not
-// take): its frame kernel (one per C = coverage_lod) with gen_layout's
-// dynamic shared memory (the knot rows, MK_GEN_MARCH_ROWS per coarse pixel,
-// MK_GEN_CACHE_ROWS per row of the group where the block still holds them:
-// row_cache), and its tile choice's thread rows and shared memory (the
-// groups' knot inputs, the warps' partials of one chunk of slots).
-using TexgKernel = void (*)(const MegakernelParams, const TexParams, const TexParams, const float*,
-                            const float*, const float*, const float*, const float*, const float*,
-                            const int*, float*, float*, float*, unsigned long long*, int);
-
+// The general instance's launch (ok = 0 for params it does not take): its
+// frame's dynamic shared memory as gen_layout's (the knot rows,
+// MK_GEN_MARCH_ROWS per coarse pixel, MK_GEN_CACHE_ROWS per row of the group
+// where the block still holds them: row_cache), and its tile choice's
+// thread rows and shared memory (the groups' knot inputs, the warps'
+// partials of one chunk of slots).
 struct TexgLayout {
-  TexgKernel kernel;
+  int ok;
   int smem, row_cache;
   int choice_rows, choice_smem;
 };
 
 static TexgLayout texg_layout(const MegakernelParams* p, const TexParams* t) {
   const int C = p->coverage_lod, G = p->cloud_lod * C;
-  TexgLayout out{nullptr, 0, 0, 0, 0};
+  TexgLayout out{0, 0, 0, 0, 0};
   if (p->cloud_lod < 1 || C < 1 || MK_TILE_ROWS % G || t->knot_group < 1 ||
       p->coverage_knots < 1 || p->shape_knots < 1)
     return out;
@@ -3160,14 +3159,7 @@ static TexgLayout texg_layout(const MegakernelParams* p, const TexParams* t) {
   out.choice_smem = (MK_TEXG_GROUP_FLOATS * ngr * MK_TILE_COLS +
                      min(texg_choice_slots(*p, *t), MK_TEXG_CHUNK) * warps * 6) *
                     (int)sizeof(float);
-  switch (C) {
-    case 1: out.kernel = megakernel_tex_general<1>; break;
-    case 2: out.kernel = megakernel_tex_general<2>; break;
-    case 4: out.kernel = megakernel_tex_general<4>; break;
-    case 8: out.kernel = megakernel_tex_general<8>; break;
-    case 16: out.kernel = megakernel_tex_general<16>; break;
-    case 32: out.kernel = megakernel_tex_general<32>; break;
-  }
+  out.ok = 1;
   return out;
 }
 
@@ -3176,7 +3168,8 @@ static TexgLayout texg_layout(const MegakernelParams* p, const TexParams* t) {
 static cudaError_t texg_smem_attribute(const TexgLayout& lay) {
   cudaError_t err = cudaSuccess;
   if (lay.smem > 48 * 1024)
-    err = cudaFuncSetAttribute(lay.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.smem);
+    err = cudaFuncSetAttribute(megakernel_tex_general, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               lay.smem);
   if (err == cudaSuccess && lay.choice_smem > 48 * 1024)
     err = cudaFuncSetAttribute(tex_choice_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                lay.choice_smem);
@@ -3202,7 +3195,7 @@ extern "C" int tex_choice_launch(const MegakernelParams* params, const TexParams
                                  const TexParams* sky, const float* blue, const float* depth,
                                  int* choices, int choice_ints, void* stream, void* work) {
   const TexgLayout lay = texg_layout(params, tex);
-  if (!lay.kernel || !rows_ok(params) || (params->with_background && !depth) ||
+  if (!lay.ok || !rows_ok(params) || (params->with_background && !depth) ||
       (params->with_sky && (!sky || sky->cov_levels < 1 || sky->cov_levels > MK_MAX_LEVELS)))
     return -1;
   const cudaError_t err = texg_smem_attribute(lay);
@@ -3217,14 +3210,14 @@ static int launch_tex_general(const MegakernelParams* p, const TexParams* t, con
                               int* choices, int choice_ints, float* color, float* alpha,
                               float* depth, cudaStream_t stream, unsigned long long* work) {
   const TexgLayout lay = texg_layout(p, t);
-  if (!lay.kernel) return -1;
+  if (!lay.ok) return -1;
   const cudaError_t err = texg_smem_attribute(lay);
   if (err != cudaSuccess) return (int)err;
   const int rc = launch_tex_choice(p, t, sky, lay, blue, depth, choices, choice_ints, stream, work);
   if (rc != 0) return rc;
   const int G = p->cloud_lod * p->coverage_lod;
   const dim3 grid((p->width + MK_TILE_COLS - 1) / MK_TILE_COLS, (p->rows + G - 1) / G, 1);
-  lay.kernel<<<grid, dim3(MK_TILE_COLS, 1, 1), lay.smem, stream>>>(
+  megakernel_tex_general<<<grid, dim3(MK_TILE_COLS, 1, 1), lay.smem, stream>>>(
       *p, *t, sky, blue, shape_tab, cov_tab, sky_r, sky_g, sky_b, choices, color, alpha, depth,
       work, lay.row_cache);
   return (int)cudaGetLastError();
@@ -3285,13 +3278,13 @@ extern "C" int megakernel_tex_info(const MegakernelParams* params, const TexPara
   int blocks = 0, choice_blocks = 0;
   if (tex_instance(params, tex, general) == MK_TEX_GENERAL) {
     const TexgLayout lay = texg_layout(params, tex);
-    if (!lay.kernel) return -1;
+    if (!lay.ok) return -1;
     const int choice_threads = MK_TILE_COLS * lay.choice_rows;
     cudaError_t err = texg_smem_attribute(lay);
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, lay.kernel);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, megakernel_tex_general);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, lay.kernel, MK_TILE_COLS,
-                                                          lay.smem);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, megakernel_tex_general,
+                                                          MK_TILE_COLS, lay.smem);
     if (err == cudaSuccess) err = cudaFuncGetAttributes(&choice_attr, tex_choice_kernel);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&choice_blocks, tex_choice_kernel,
