@@ -341,19 +341,17 @@ OPS_SKY_UV = 66
 OPS_SKY_CHOICE_RAY = 25 + OPS_SKY_UV
 OPS_SKY_SAMPLE = 62 + 60
 OPS_SKY_FLOOR = 62 + 20
-# the general texture instance's tile choice (tex_choice_kernel), the first
-# of its two launches: every ray of a tile once without shading (ray 25, the
-# opaque pass's three spheres and box slab test 121, the shell and ground
-# hits and the sphere-depth blend 44), each coarse pixel's coarse inputs
+# the general texture instance's tile pass (tex_choice_kernel), the first
+# of its two launches, beyond the pixels' shading (the frame's work
+# counters: OPS_PIXEL, the atmosphere): each coarse pixel's coarse inputs
 # (its mean ray, cloud-shell hits, visibility and model-space ray, and its
 # share of the group's means: 75), each baked knot's sampler coordinates
 # for its batch (its position 10, min and max 6, and by field: coverage's
 # rotation, normalisation and polynomial (u, v) 75, shape's scale and wrap
-# 9, detail's 12); the sky's choice, where the launch draws it, is the
-# frame launch's (sky_cost, in the tile's block).  Bytes: the blue noise
-# read and the choices written once (the layers below' depth too, where
-# chained).
-OPS_CHOICE_RAY = 190
+# 9, detail's 12); the sky's choice, where the launch draws it, is
+# sky_cost's (in the tile's block).  Bytes: the blue noise read and the
+# choices written once (the layers below' depth too, where chained); its
+# scratch for the frame is neither input nor output.
 OPS_CHOICE_COARSE = 75
 OPS_CHOICE_COORD = (91, 25, 28)
 # frame-plane bytes per pixel: a fused layer writes color and alpha (16); a
@@ -760,9 +758,9 @@ def roofline(work: dict, config, height: int, width: int, table_bytes: int = 0,
 
 
 def tex_choice_roofline(struct, tparams) -> dict:
-    """The least time of the general texture instance's tile choice for one
-    launch (:data:`OPS_CHOICE_RAY` and what follows it): every ray of the
-    launch's padded tile grid, each coarse pixel, each baked knot of each
+    """What the general texture instance's tile pass adds to a launch's
+    bound (:data:`OPS_CHOICE_COARSE` and what follows it): each coarse
+    pixel of the launch's padded tile grid, each baked knot of each
     coverage group; the blue noise, the layers below' depth (chained) and
     the choices as bytes."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
@@ -777,7 +775,7 @@ def tex_choice_roofline(struct, tparams) -> dict:
         coords += (struct.shape_knots + 1) * OPS_CHOICE_COORD[1]
         if not struct.always_low:
             coords += (struct.shape_knots + 1) * OPS_CHOICE_COORD[2]
-    ops = rays * OPS_CHOICE_RAY + rays // struct.cloud_lod * OPS_CHOICE_COARSE + groups * coords
+    ops = rays // struct.cloud_lod * OPS_CHOICE_COARSE + groups * coords
     nbytes = (256 * 256 * 4 + tiles * slots * 8
               + (struct.rows * struct.width * 4 if struct.with_background else 0))
     t_ops, t_bytes = ops_time_ms(ops), nbytes / PEAK_BYTES * 1e3

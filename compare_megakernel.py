@@ -160,7 +160,8 @@ extern "C" int megakernel_work_slots(void) { return MK_WORK_SLOTS; }
 # refused
 TEX_CHOICE_SHIM = r'''
 extern "C" int tex_choice_launch(const MegakernelParams*, const TexParams*, const TexParams*,
-                                 const float*, const float*, int*, int, void*, void*) {
+                                 const float*, const float*, const float*, const float*, float*,
+                                 float*, float*, int, int*, int, void*, void*) {
   return -1;
 }
 '''

@@ -2464,25 +2464,67 @@ struct TexGenFields {
   }
 };
 
-// the coarse inputs of the group of G rows from y0 in column x (no
-// shading): per coarse pixel its ray, span and visibility (CoarseRay) and
-// its first row's jitter, into in[] (6 rows of C at stride T, when in is
-// not nullptr); returns the group's knot inputs in g[0..4] and its
-// visibility bits
-__device__ __forceinline__ unsigned texg_coarse(const MegakernelParams& p, const float* blue,
-                                                int x, int y0, const float* color, float* depth,
-                                                const Sky& sky, float* in, int T, float g[5]) {
+// The general instance's scratch between its two launches (device memory
+// the launcher is given): each row's atmosphere rgba (alpha -1 where the ray
+// misses the shell), by launch row and column, and each coarse pixel's march
+// inputs (MK_IN_* rows) and visibility (MK_TEXG_IN_VIS), by coarse row of
+// the launch's groups and column.
+constexpr int MK_TEXG_IN_VIS = MK_GEN_MARCH_ROWS;
+constexpr int MK_TEXG_IN_PLANES = MK_GEN_MARCH_ROWS + 1;
+struct TexgScratch {
+  float* atm;       // row y, column x: atm[((y - row0) * width + x) * 4 + c]
+  float* march;     // input f of coarse row cr, column x: march[(f * coarse_rows + cr) * width + x]
+  int coarse_rows;  // the launch's groups' coarse rows: ceil(rows / G) * C
+};
+
+__host__ __device__ __forceinline__ int texg_coarse_rows(const MegakernelParams& p) {
+  const int G = p.cloud_lod * p.coverage_lod;
+  return (p.rows + G - 1) / G * p.coverage_lod;
+}
+__host__ __device__ __forceinline__ long texg_scratch_floats(const MegakernelParams& p) {
+  return ((long)p.rows * 4 + (long)MK_TEXG_IN_PLANES * texg_coarse_rows(p)) * p.width;
+}
+
+// The tile pass for the group of G rows from y0 in column x: each row
+// inside the launch shaded once (ray, opaque pass or the layers below, sky,
+// atmosphere, linear depth out), its background to the color plane (a
+// chained layer's is there already) and its atmosphere to the scratch; every
+// row's coarse inputs, rows and columns past the launch included (they
+// belong to the tile); the coarse pixels' march inputs to the scratch where
+// the frame marches the group.  Returns the group's knot inputs in g[0..4].
+__device__ __forceinline__ void texg_shade_group(const MegakernelParams& p, const float* blue,
+                                                 int x, int y0, float* color, float* depth,
+                                                 const Sky& sky, const TexgScratch& sc,
+                                                 bool count, unsigned& n_atmo, unsigned& n_v1,
+                                                 unsigned& n_sky, unsigned& n_seg,
+                                                 float g[MK_TEXG_GROUP_FLOATS]) {
   const int L = p.cloud_lod, C = p.coverage_lod;
-  unsigned vis = 0, none = 0;
+  const bool live = x < p.width, marched = live && y0 < p.row0 + p.rows;
   V3 rk = v3(0.0f, 0.0f, 0.0f);
   float t0k = 0.0f, t1k = 0.0f;
   for (int k = 0; k < C; ++k) {
     V3 rd_sum = v3(0.0f, 0.0f, 0.0f);
     float depth_min = 0.0f, jit_first = 0.0f;
     for (int l = 0; l < L; ++l) {
+      const int y = y0 + k * L + l;
+      const bool shade = live && y < p.row0 + p.rows;
       Pixel px;
-      shade_pixel(p, blue, x, y0 + k * L + l, false, color, depth, sky, false, none, none, none,
-                  none, px);
+      shade_pixel(p, blue, x, y, shade, color, depth, sky, count, n_atmo, n_v1, n_sky, n_seg, px);
+      if (shade) {
+        const size_t o = (size_t)y * p.width + x;
+        if (!p.with_background) {
+          color[o * 3 + 0] = px.bg.x;
+          color[o * 3 + 1] = px.bg.y;
+          color[o * 3 + 2] = px.bg.z;
+        }
+        float* a = sc.atm + ((size_t)(y - p.row0) * p.width + x) * 4;
+        if (px.hit) {
+          a[0] = px.atm[0];
+          a[1] = px.atm[1];
+          a[2] = px.atm[2];
+        }
+        a[3] = px.hit ? px.atm[3] : -1.0f;
+      }
       if (l == 0) {
         rd_sum = px.rd;
         depth_min = px.depth;
@@ -2493,15 +2535,16 @@ __device__ __forceinline__ unsigned texg_coarse(const MegakernelParams& p, const
       }
     }
     const CoarseRay cr = coarse_ray(p, L, rd_sum, depth_min);
-    vis |= (unsigned)cr.vis << k;
-    if (in) {
-      float* a = in + k * T;
-      a[MK_IN_RX * C * T] = cr.rd_model.x;
-      a[MK_IN_RY * C * T] = cr.rd_model.y;
-      a[MK_IN_RZ * C * T] = cr.rd_model.z;
-      a[MK_IN_TB * C * T] = cr.tb;
-      a[MK_IN_TEM * C * T] = cr.tem;
-      a[MK_IN_JIT * C * T] = jit_first;
+    if (marched) {
+      const size_t plane = (size_t)sc.coarse_rows * p.width;
+      float* in = sc.march + (size_t)((y0 - p.row0) / L + k) * p.width + x;
+      in[MK_IN_RX * plane] = cr.rd_model.x;
+      in[MK_IN_RY * plane] = cr.rd_model.y;
+      in[MK_IN_RZ * plane] = cr.rd_model.z;
+      in[MK_IN_TB * plane] = cr.tb;
+      in[MK_IN_TEM * plane] = cr.tem;
+      in[MK_IN_JIT * plane] = jit_first;
+      in[MK_TEXG_IN_VIS * plane] = cr.vis ? 1.0f : 0.0f;
     }
     rk = k == 0 ? cr.rd_model : add(rk, cr.rd_model);
     t0k = k == 0 ? cr.tb : t0k + cr.tb;
@@ -2517,7 +2560,6 @@ __device__ __forceinline__ unsigned texg_coarse(const MegakernelParams& p, const
   g[2] = rk.z;
   g[3] = t0k;
   g[4] = t1k;
-  return vis;
 }
 
 // the tile choice's slots per tile: the sky's, then each knot batch's
@@ -2555,17 +2597,24 @@ __device__ __forceinline__ void warp_minmax(float (&mn)[N], float (&mx)[N]) {
   }
 }
 
-// The tile choice of the general texture instance: one block of 128 x R
-// threads per 32 x 128 tile of the launch's grid (from row0), rows and
-// columns past the frame included.  choices[(tile * slots + s) * 2] gets
-// slot s's (mode, level), tiles row-major.  depth: the layers below' linear
-// depth (a chained layer), else unread.
-__global__ void __launch_bounds__(MK_TILE_COLS * MK_TEXG_CHOICE_ROWS)
+// The general texture instance's tile pass: one block of 128 x R threads
+// per 32 x 128 tile of the launch's grid (from row0), rows and columns past
+// the frame included; registers sized for two blocks per SM.  Where the
+// launch draws the sky, its choice comes first (every ray of the tile).
+// Then each thread's groups (texg_shade_group; their knot inputs into
+// shared memory) and, per choice slot, the min and max over the tile.
+// choices[(tile * slots + s) * 2] gets slot s's (mode, level), tiles
+// row-major: slot 0 the sky's (MK_NO_CHOICE without one), then each knot
+// batch's (texg_batch).
+__global__ void __launch_bounds__(MK_TILE_COLS * MK_TEXG_CHOICE_ROWS, 2)
     tex_choice_kernel(const __grid_constant__ MegakernelParams p, const TexParams t,
                       const TexParams sky_t, const float* __restrict__ blue,
-                      const float* __restrict__ depth, int* __restrict__ choices,
+                      const float* __restrict__ sky_r, const float* __restrict__ sky_g,
+                      const float* __restrict__ sky_b, float* __restrict__ color,
+                      float* __restrict__ depth, const TexgScratch sc, int* __restrict__ choices,
                       unsigned long long* work) {
   extern __shared__ float smem[];
+  __shared__ int sky_choice[2];
   constexpr int T = MK_TILE_COLS;
   const int R = blockDim.y, tx = threadIdx.x, tid = threadIdx.y * T + tx;
   const int lane = tid & 31, warp = tid >> 5, nw = R * (T / 32);
@@ -2577,61 +2626,93 @@ __global__ void __launch_bounds__(MK_TILE_COLS * MK_TEXG_CHOICE_ROWS)
   float* groups = smem;  // value f of group row gr at groups[(f * NGR + gr) * T + tx]
   float* part = groups + MK_TEXG_GROUP_FLOATS * NGR * T;  // slot s, warp w: part[(s * nw + w) * 6]
   const V3 rom = load3(p.ro_model);
-  const Sky no_sky{sky_t, nullptr, nullptr, nullptr, TexChoice{MK_WINDOWED, 0}};
   StageClock clk;
 
-  // A. the thread's groups' knot inputs, and the sky's (fu, v) over their rays
-  float smn[2] = {3.0e38f, 3.0e38f}, smx[2] = {-3.0e38f, -3.0e38f};
-  for (int gr = threadIdx.y; gr < NGR; gr += R) {
-    const int y0 = tile_y0 + gr * G;
-    float g[MK_TEXG_GROUP_FLOATS];
-    texg_coarse(p, blue, x, y0, nullptr, const_cast<float*>(depth), no_sky, nullptr, T, g);
-#pragma unroll
-    for (int f = 0; f < MK_TEXG_GROUP_FLOATS; ++f) groups[(f * NGR + gr) * T + tx] = g[f];
-    if (p.with_sky) {
+  // the sky's choice: the min and max of (fu, v) over the tile's rays, by
+  // the warp's lanes, then the block's warps
+  Sky sky{sky_t, sky_r, sky_g, sky_b, TexChoice{MK_NO_CHOICE, MK_NO_CHOICE}};
+  if (p.with_sky) {
+    float mn[2] = {3.0e38f, 3.0e38f}, mx[2] = {-3.0e38f, -3.0e38f};
+    for (int gr = threadIdx.y; gr < NGR; gr += R) {
       for (int r = 0; r < G; ++r) {
-        const V3 rd = pixel_dir(p, x, y0 + r);
+        const V3 rd = pixel_dir(p, x, tile_y0 + gr * G + r);
         float fu, v;
         latlong_uv(rd.x, rd.y, rd.z, fu, v);
-        smn[0] = fminf(smn[0], fu);
-        smx[0] = fmaxf(smx[0], fu);
-        smn[1] = fminf(smn[1], v);
-        smx[1] = fmaxf(smx[1], v);
+        mn[0] = fminf(mn[0], fu);
+        mx[0] = fmaxf(mx[0], fu);
+        mn[1] = fminf(mn[1], v);
+        mx[1] = fmaxf(mx[1], v);
       }
     }
+    warp_minmax<2>(mn, mx);
+    if (lane == 0) {
+      part[warp * 4 + 0] = mn[0];
+      part[warp * 4 + 1] = mn[1];
+      part[warp * 4 + 2] = mx[0];
+      part[warp * 4 + 3] = mx[1];
+    }
+    __syncthreads();
+    if (tid == 0) {
+      for (int w = 1; w < nw; ++w) {
+        mn[0] = fminf(mn[0], part[w * 4 + 0]);
+        mn[1] = fminf(mn[1], part[w * 4 + 1]);
+        mx[0] = fmaxf(mx[0], part[w * 4 + 2]);
+        mx[1] = fmaxf(mx[1], part[w * 4 + 3]);
+      }
+      const TexChoice ch = latlong_choose(sky_t, mn[0], mx[0], mn[1], mx[1]);
+      sky_choice[0] = ch.mode;
+      sky_choice[1] = ch.level;
+    }
+    __syncthreads();
+    sky.ch = TexChoice{sky_choice[0], sky_choice[1]};
+  }
+  if (tid == 0) {
+    out[0] = sky.ch.mode;
+    out[1] = sky.ch.level;
+  }
+
+  // A. the thread's groups: each row shaded once, the coarse inputs, the
+  // march inputs, the knot inputs
+  unsigned n_atmo = 0, n_v1 = 0, n_sky = 0, n_seg = 0;
+  for (int gr = threadIdx.y; gr < NGR; gr += R) {
+    float g[MK_TEXG_GROUP_FLOATS];
+    texg_shade_group(p, blue, x, tile_y0 + gr * G, color, depth, sky, sc, work != nullptr, n_atmo,
+                     n_v1, n_sky, n_seg, g);
+#pragma unroll
+    for (int f = 0; f < MK_TEXG_GROUP_FLOATS; ++f) groups[(f * NGR + gr) * T + tx] = g[f];
+  }
+  if (work) {
+    count_work(work, MK_WORK_ATMOSPHERE, n_atmo);
+    count_work(work, MK_WORK_V1_ATMOSPHERE, n_v1);
+    count_work(work, MK_WORK_SKY, sky.ch.mode == MK_FLOOR ? 0 : n_sky);
+    count_work(work, MK_WORK_SKY_FLOOR, sky.ch.mode == MK_FLOOR ? n_sky : 0);
+    count_work(work, MK_WORK_OD_SEGMENTS, n_seg);
   }
   clk.mark(MK_STAGE_CHOICE_COARSE);
 
-  // B. per slot, the min and max over the tile: the thread's groups, the
-  // warp's lanes, then (after one barrier per chunk of slots) the block's
-  // warps, one thread per slot
-  for (int s0 = 0; s0 < slots; s0 += MK_TEXG_CHUNK) {
+  // B. per knot batch, the min and max over the tile: the thread's groups,
+  // the warp's lanes, then (after one barrier per chunk of batches) the
+  // block's warps, one thread per batch
+  for (int s0 = 1; s0 < slots; s0 += MK_TEXG_CHUNK) {
     const int s1 = min(s0 + MK_TEXG_CHUNK, slots);
+    if (s0 > 1) __syncthreads();  // the last chunk's partials are read
     for (int s = s0; s < s1; ++s) {
       float mn[3] = {3.0e38f, 3.0e38f, 3.0e38f}, mx[3] = {-3.0e38f, -3.0e38f, -3.0e38f};
-      if (s == 0) {
-        if (!p.with_sky) continue;
-        mn[0] = smn[0];
-        mx[0] = smx[0];
-        mn[1] = smn[1];
-        mx[1] = smx[1];
-      } else {
-        int fld, K, k0;
-        texg_batch(p, t, s - 1, fld, K, k0);
-        const int k1 = min(k0 + t.knot_group, K + 1);
-        for (int k = k0; k < k1; ++k) {
-          const float sk = (float)((double)k / (double)K);  // the knot's, for every group
-          for (int gr = threadIdx.y; gr < NGR; gr += R) {
-            float g[MK_TEXG_GROUP_FLOATS];
+      int fld, K, k0;
+      texg_batch(p, t, s - 1, fld, K, k0);
+      const int k1 = min(k0 + t.knot_group, K + 1);
+      for (int k = k0; k < k1; ++k) {
+        const float sk = (float)((double)k / (double)K);  // the knot's, for every group
+        for (int gr = threadIdx.y; gr < NGR; gr += R) {
+          float g[MK_TEXG_GROUP_FLOATS];
 #pragma unroll
-            for (int f = 0; f < MK_TEXG_GROUP_FLOATS; ++f) g[f] = groups[(f * NGR + gr) * T + tx];
-            float c[3];
-            texg_coords(p, fld, texg_knot_pos(rom, g, sk), c);
+          for (int f = 0; f < MK_TEXG_GROUP_FLOATS; ++f) g[f] = groups[(f * NGR + gr) * T + tx];
+          float c[3];
+          texg_coords(p, fld, texg_knot_pos(rom, g, sk), c);
 #pragma unroll
-            for (int a = 0; a < 3; ++a) {
-              mn[a] = fminf(mn[a], c[a]);
-              mx[a] = fmaxf(mx[a], c[a]);
-            }
+          for (int a = 0; a < 3; ++a) {
+            mn[a] = fminf(mn[a], c[a]);
+            mx[a] = fmaxf(mx[a], c[a]);
           }
         }
       }
@@ -2648,38 +2729,32 @@ __global__ void __launch_bounds__(MK_TILE_COLS * MK_TEXG_CHOICE_ROWS)
     __syncthreads();
     if (tid < s1 - s0) {
       const int s = s0 + tid;
-      TexChoice ch{MK_NO_CHOICE, MK_NO_CHOICE};
-      if (s > 0 || p.with_sky) {
-        float mn[3], mx[3];
-        const float* w = part + tid * nw * 6;
+      float mn[3], mx[3];
+      const float* w = part + tid * nw * 6;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        mn[a] = w[a];
+        mx[a] = w[3 + a];
+      }
+      for (int v = 1; v < nw; ++v) {
 #pragma unroll
         for (int a = 0; a < 3; ++a) {
-          mn[a] = w[a];
-          mx[a] = w[3 + a];
-        }
-        for (int v = 1; v < nw; ++v) {
-#pragma unroll
-          for (int a = 0; a < 3; ++a) {
-            mn[a] = fminf(mn[a], w[v * 6 + a]);
-            mx[a] = fmaxf(mx[a], w[v * 6 + 3 + a]);
-          }
-        }
-        if (s == 0) {
-          ch = latlong_choose(sky_t, mn[0], mx[0], mn[1], mx[1]);
-        } else {
-          int fld, K, k0;
-          texg_batch(p, t, s - 1, fld, K, k0);
-          ch = fld == 0 ? latlong_choose(t, mn[0], mx[0], mn[1], mx[1]) : tex3d_choose(t, mn, mx);
+          mn[a] = fminf(mn[a], w[v * 6 + a]);
+          mx[a] = fmaxf(mx[a], w[v * 6 + 3 + a]);
         }
       }
+      int fld, K, k0;
+      texg_batch(p, t, s - 1, fld, K, k0);
+      const TexChoice ch =
+          fld == 0 ? latlong_choose(t, mn[0], mx[0], mn[1], mx[1]) : tex3d_choose(t, mn, mx);
       out[2 * s] = ch.mode;
       out[2 * s + 1] = ch.level;
     }
-    if (s1 < slots) __syncthreads();  // the next chunk's partials overwrite these
   }
   clk.mark(MK_STAGE_CHOICE);
   clk.count(work);
 }
+
 
 // Stage 2 of the general texture instance: the coverage group's knots,
 // where a coarse pixel sees the layer, into the thread's knot rows (kn, a
@@ -2738,52 +2813,65 @@ __device__ __forceinline__ unsigned texg_knots(const MegakernelParams& p, const 
   return (t.cov_source == MK_SRC_STEP || cloud_may_form(p, cov_max)) ? gi.vis : 0u;
 }
 
-// The general texture instance's frame: megakernel_gen's stages with the
-// texture knots (texg_knots) and fields (TexGenFields), for every C =
-// coverage_lod in one build; the sky's choice and the knot batches' choices
-// of the block's tile from the tile choice.
+// The general texture instance's frame: one thread per column and coverage
+// group, megakernel_gen's blocks, no barrier.  Stages: the group's march
+// inputs from the scratch (the tile pass's) into shared memory; the knots
+// (texg_knots, with the block's tile's batch choices); the march
+// (march_pixels, TexGenFields); each row blended with its coarse pixel's
+// clouds over its background (the color plane) and atmosphere (the
+// scratch), and stored.
 #ifndef MK_TEXG_MIN_BLOCKS
 #define MK_TEXG_MIN_BLOCKS 4
 #endif
 __global__ void __launch_bounds__(MK_TILE_COLS, MK_TEXG_MIN_BLOCKS)
     megakernel_tex_general(const __grid_constant__ MegakernelParams p, const TexParams t,
-                           const TexParams sky_t, const float* __restrict__ blue,
                            const float* __restrict__ shape_tab, const float* __restrict__ cov_tab,
-                           const float* __restrict__ sky_r, const float* __restrict__ sky_g,
-                           const float* __restrict__ sky_b, const int* __restrict__ choices,
+                           const int* __restrict__ choices, const TexgScratch sc,
                            float* __restrict__ color, float* __restrict__ alpha_out,
-                           float* __restrict__ depth, unsigned long long* work, int row_cache) {
+                           unsigned long long* work) {
   extern __shared__ float smem[];
   constexpr int T = MK_TILE_COLS;
   const int tid = threadIdx.x;
   const int x = blockIdx.x * T + tid;
-  const int C = p.coverage_lod, G = p.cloud_lod * C;
+  const int L = p.cloud_lod, C = p.coverage_lod, G = L * C;
   const int y0 = p.row0 + blockIdx.y * G;
   const int n_rows = min(G, p.row0 + p.rows - y0);
   const bool live = x < p.width;
-  float* state = smem + texg_knot_rows(p, t) * T;
-  float* cache = state + MK_GEN_MARCH_ROWS * C * T;
-  // the block's tile's slots (G divides the tile height): the sky's, then
-  // each knot batch's
+  float* state = smem + texg_knot_rows(p, t) * T;  // input f of coarse row k at state[(f * C + k) * T]
+  // the block's tile's knot batch choices (G divides the tile height)
   const int tile = (blockIdx.y * G) / MK_TILE_ROWS * gridDim.x + blockIdx.x;
-  const int* slot = choices + (size_t)tile * texg_choice_slots(p, t) * 2;
-  Sky sky{sky_t, sky_r, sky_g, sky_b, TexChoice{MK_WINDOWED, 0}};
-  if (p.with_sky) sky.ch = TexChoice{__ldg(slot), __ldg(slot + 1)};
-  unsigned n_atmo = 0, n_v1 = 0, n_groups = 0, n_march = 0, n_sun = 0, n_sky = 0, n_seg = 0;
-  unsigned n_shape_knots = 0, n_detail_knots = 0;
+  const int* batch = choices + ((size_t)tile * texg_choice_slots(p, t) + 1) * 2;
+  unsigned n_groups = 0, n_march = 0, n_sun = 0, n_shape_knots = 0, n_detail_knots = 0;
   unsigned tex_samples[2] = {0, 0}, cov_samples[2] = {0, 0};
   FieldWork fw{0u, 0u, 0u};
   const bool full = !p.always_low;
   StageClock clk;
 
-  // 1. the coarse pass
-  const GroupInputs gi = coarse_pass(p, C, blue, x, y0, n_rows, live, row_cache, color, depth,
-                                     sky, work != nullptr, n_atmo, n_v1, n_sky, n_seg, state,
-                                     cache, tid);
+  // 1. the march inputs and the knot inputs, in coarse_pass's order
+  GroupInputs gi{0u, v3(0.0f, 0.0f, 0.0f), 0.0f, 0.0f};
+  if (live) {
+    const size_t plane = (size_t)sc.coarse_rows * p.width;
+    const float* src = sc.march + (size_t)(blockIdx.y * C) * p.width + x;
+    for (int k = 0; k < C; ++k) {
+      const float* in = src + (size_t)k * p.width;
+#pragma unroll
+      for (int f = 0; f < MK_GEN_MARCH_ROWS; ++f) state[(f * C + k) * T + tid] = in[f * plane];
+      gi.vis |= (unsigned)(in[MK_TEXG_IN_VIS * plane] != 0.0f) << k;
+      const V3 rd_model = v3(in[MK_IN_RX * plane], in[MK_IN_RY * plane], in[MK_IN_RZ * plane]);
+      gi.rk = k == 0 ? rd_model : add(gi.rk, rd_model);
+      gi.t0k = k == 0 ? in[MK_IN_TB * plane] : gi.t0k + in[MK_IN_TB * plane];
+      gi.t1k = k == 0 ? in[MK_IN_TEM * plane] : gi.t1k + in[MK_IN_TEM * plane];
+    }
+    if (C > 1) {
+      gi.rk = v3(gi.rk.x / (float)C, gi.rk.y / (float)C, gi.rk.z / (float)C);
+      gi.t0k = gi.t0k / (float)C;
+      gi.t1k = gi.t1k / (float)C;
+    }
+  }
   clk.mark(MK_STAGE_COARSE);
 
   // 2. the knots and the cull
-  const unsigned marches = texg_knots(p, t, shape_tab, cov_tab, slot + 2, gi, smem + tid, n_groups,
+  const unsigned marches = texg_knots(p, t, shape_tab, cov_tab, batch, gi, smem + tid, n_groups,
                                       n_shape_knots, n_detail_knots, tex_samples, cov_samples);
   clk.mark(MK_STAGE_KNOTS);
 
@@ -2806,14 +2894,29 @@ __global__ void __launch_bounds__(MK_TILE_COLS, MK_TEXG_MIN_BLOCKS)
   }
   clk.mark(MK_STAGE_MARCH);
 
-  // 4. the blend
-  blend_rows(p, C, blue, x, y0, n_rows, live, row_cache, gi.vis, marches, state, cache, color,
-             alpha_out, depth, sky, work != nullptr, n_atmo, n_v1, n_sky, n_seg, tid);
+  // 4. each row inside the launch: its background and atmosphere, blended
+  // with its coarse pixel's clouds, stored
+  if (live) {
+    for (int r = 0; r < n_rows; ++r) {
+      const int k = r / L;
+      const size_t o = (size_t)(y0 + r) * p.width + x;
+      const float* a = sc.atm + ((size_t)(y0 + r - p.row0) * p.width + x) * 4;
+      RowPix<1> s;
+      s.bg[0] = v3(color[o * 3 + 0], color[o * 3 + 1], color[o * 3 + 2]);
+      s.hit[0] = a[3] >= 0.0f;
+      if (s.hit[0]) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s.atm[0][c] = a[c];
+      }
+      const bool vis_k = (gi.vis >> k) & 1u, marched = (marches >> k) & 1u;
+      const float la = marched ? state[k * T + tid] : 0.0f;
+      const float ca = marched ? state[(C + k) * T + tid] : 0.0f;
+      blend_and_store(p, x, y0 + r, 1, 1, s, &vis_k, &la, &ca, color, alpha_out);
+    }
+  }
   clk.mark(MK_STAGE_BLEND);
   if (work) {
     count_work(work, MK_WORK_PIXELS, live ? n_rows : 0);
-    count_work(work, MK_WORK_ATMOSPHERE, n_atmo);
-    count_work(work, MK_WORK_V1_ATMOSPHERE, n_v1);
     count_work(work, MK_WORK_KNOT_GROUPS, n_groups);
     count_work(work, MK_WORK_MARCH, n_march);
     count_work(work, MK_WORK_SUN_SAMPLES, n_sun);
@@ -2821,18 +2924,16 @@ __global__ void __launch_bounds__(MK_TILE_COLS, MK_TEXG_MIN_BLOCKS)
     count_work(work, MK_WORK_TEX3D_FLOOR, tex_samples[1]);
     count_work(work, MK_WORK_LATLONG, cov_samples[0]);
     count_work(work, MK_WORK_LATLONG_FLOOR, cov_samples[1]);
-    count_work(work, MK_WORK_SKY, sky.ch.mode == MK_FLOOR ? 0 : n_sky);
-    count_work(work, MK_WORK_SKY_FLOOR, sky.ch.mode == MK_FLOOR ? n_sky : 0);
     count_work(work, MK_WORK_COVERAGE_EVALS, fw.cov);
     count_work(work, MK_WORK_SHAPE_EVALS, fw.shape);
     count_work(work, MK_WORK_DETAIL_EVALS, fw.detail);
     count_work(work, MK_WORK_SHAPE_KNOTS, n_shape_knots);
     count_work(work, MK_WORK_DETAIL_KNOTS, n_detail_knots);
-    count_work(work, MK_WORK_OD_SEGMENTS, n_seg);
     count_march_lanes(p, work, marches, n_march);
   }
   clk.count(work);
 }
+
 
 // The sky's pre-pass for the procedural instance and the opaque-only pass:
 // one block of 128 x MK_SKY_CHOICE_THREADS_Y threads per 32 x 128 tile of
@@ -3132,27 +3233,24 @@ static bool source_ok(int src, int interp, const float* tab, int levels) {
 }
 
 // The general instance's launch (ok = 0 for params it does not take): its
-// frame's dynamic shared memory as gen_layout's (the knot rows,
-// MK_GEN_MARCH_ROWS per coarse pixel, MK_GEN_CACHE_ROWS per row of the group
-// where the block still holds them: row_cache), and its tile choice's
+// frame's dynamic shared memory (the knot rows and MK_GEN_MARCH_ROWS per
+// coarse pixel, as gen_layout's without its row cache), and its tile pass's
 // thread rows and shared memory (the groups' knot inputs, the warps'
 // partials of one chunk of slots).
 struct TexgLayout {
-  int ok;
-  int smem, row_cache;
+  int ok, smem;
   int choice_rows, choice_smem;
 };
 
 static TexgLayout texg_layout(const MegakernelParams* p, const TexParams* t) {
   const int C = p->coverage_lod, G = p->cloud_lod * C;
-  TexgLayout out{0, 0, 0, 0, 0};
+  TexgLayout out{0, 0, 0, 0};
   if (p->cloud_lod < 1 || C < 1 || MK_TILE_ROWS % G || t->knot_group < 1 ||
       p->coverage_knots < 1 || p->shape_knots < 1)
     return out;
   const int rows = texg_knot_rows(*p, *t) + MK_GEN_MARCH_ROWS * C;
   if (rows > MK_SMEM_ROWS) return out;
-  out.row_cache = rows + MK_GEN_CACHE_ROWS * G <= MK_SMEM_ROWS;
-  out.smem = (rows + (out.row_cache ? MK_GEN_CACHE_ROWS * G : 0)) * MK_TILE_COLS * (int)sizeof(float);
+  out.smem = rows * MK_TILE_COLS * (int)sizeof(float);
   const int ngr = MK_TILE_ROWS / G;
   out.choice_rows = min(MK_TEXG_CHOICE_ROWS, ngr);
   const int warps = out.choice_rows * MK_TILE_COLS / 32;
@@ -3176,57 +3274,76 @@ static cudaError_t texg_smem_attribute(const TexgLayout& lay) {
   return err;
 }
 
-// the tile choice into choices (choice_ints ints: at least 2 per slot and
-// tile of the launch's grid)
+// The scratch of a launch's two kernels in scratch (scratch_floats floats:
+// at least texg_scratch_floats), or nullptrs
+static TexgScratch texg_scratch(const MegakernelParams* p, float* scratch, int scratch_floats) {
+  if (!scratch || scratch_floats < texg_scratch_floats(*p)) return TexgScratch{nullptr, nullptr, 0};
+  return TexgScratch{scratch, scratch + (size_t)p->rows * p->width * 4, texg_coarse_rows(*p)};
+}
+
+// the tile pass into color, depth, the scratch and choices (choice_ints
+// ints: at least 2 per slot and tile of the launch's grid)
 static int launch_tex_choice(const MegakernelParams* p, const TexParams* t, const TexParams& sky,
-                             const TexgLayout& lay, const float* blue, const float* depth,
-                             int* choices, long choice_ints, cudaStream_t stream,
-                             unsigned long long* work) {
+                             const TexgLayout& lay, const float* blue, const float* sky_r,
+                             const float* sky_g, const float* sky_b, float* color, float* depth,
+                             const TexgScratch& sc, int* choices, long choice_ints,
+                             cudaStream_t stream, unsigned long long* work) {
   const dim3 grid = tile_grid(p);
-  if (!choices || choice_ints < (long)grid.x * grid.y * texg_choice_slots(*p, *t) * 2) return -1;
+  if (!sc.atm || !choices ||
+      choice_ints < (long)grid.x * grid.y * texg_choice_slots(*p, *t) * 2)
+    return -1;
   tex_choice_kernel<<<grid, dim3(MK_TILE_COLS, lay.choice_rows, 1), lay.choice_smem, stream>>>(
-      *p, *t, sky, blue, depth, choices, work);
+      *p, *t, sky, blue, sky_r, sky_g, sky_b, color, depth, sc, choices, work);
   return (int)cudaGetLastError();
 }
 
-// The general instance's tile choice alone (the first of its two launches),
-// for params as megakernel_tex_launch takes them.
+// The general instance's tile pass alone (the first of its two launches),
+// for params as megakernel_tex_launch takes them: it shades the launch's
+// rows into color (and depth) and the scratch, and writes the tile's
+// choices.
 extern "C" int tex_choice_launch(const MegakernelParams* params, const TexParams* tex,
-                                 const TexParams* sky, const float* blue, const float* depth,
-                                 int* choices, int choice_ints, void* stream, void* work) {
+                                 const TexParams* sky, const float* blue, const float* sky_r,
+                                 const float* sky_g, const float* sky_b, float* color,
+                                 float* depth, float* scratch, int scratch_floats, int* choices,
+                                 int choice_ints, void* stream, void* work) {
   const TexgLayout lay = texg_layout(params, tex);
-  if (!lay.ok || !rows_ok(params) || (params->with_background && !depth) ||
-      (params->with_sky && (!sky || sky->cov_levels < 1 || sky->cov_levels > MK_MAX_LEVELS)))
+  if (!lay.ok || !params->clouds_enabled || !params->with_atmosphere || !rows_ok(params) ||
+      !color || (params->with_background && !depth) ||
+      !sky_ok(params, sky, sky_r, sky_g, sky_b))
     return -1;
   const cudaError_t err = texg_smem_attribute(lay);
   if (err != cudaSuccess) return (int)err;
-  return launch_tex_choice(params, tex, sky ? *sky : TexParams{}, lay, blue, depth, choices,
+  return launch_tex_choice(params, tex, sky ? *sky : TexParams{}, lay, blue, sky_r, sky_g, sky_b,
+                           color, depth, texg_scratch(params, scratch, scratch_floats), choices,
                            choice_ints, (cudaStream_t)stream, (unsigned long long*)work);
 }
 
 static int launch_tex_general(const MegakernelParams* p, const TexParams* t, const TexParams& sky,
                               const float* blue, const float* shape_tab, const float* cov_tab,
                               const float* sky_r, const float* sky_g, const float* sky_b,
-                              int* choices, int choice_ints, float* color, float* alpha,
-                              float* depth, cudaStream_t stream, unsigned long long* work) {
+                              float* scratch, int scratch_floats, int* choices, int choice_ints,
+                              float* color, float* alpha, float* depth, cudaStream_t stream,
+                              unsigned long long* work) {
   const TexgLayout lay = texg_layout(p, t);
   if (!lay.ok) return -1;
   const cudaError_t err = texg_smem_attribute(lay);
   if (err != cudaSuccess) return (int)err;
-  const int rc = launch_tex_choice(p, t, sky, lay, blue, depth, choices, choice_ints, stream, work);
+  const TexgScratch sc = texg_scratch(p, scratch, scratch_floats);
+  const int rc = launch_tex_choice(p, t, sky, lay, blue, sky_r, sky_g, sky_b, color, depth, sc,
+                                   choices, choice_ints, stream, work);
   if (rc != 0) return rc;
   const int G = p->cloud_lod * p->coverage_lod;
   const dim3 grid((p->width + MK_TILE_COLS - 1) / MK_TILE_COLS, (p->rows + G - 1) / G, 1);
   megakernel_tex_general<<<grid, dim3(MK_TILE_COLS, 1, 1), lay.smem, stream>>>(
-      *p, *t, sky, blue, shape_tab, cov_tab, sky_r, sky_g, sky_b, choices, color, alpha, depth,
-      work, lay.row_cache);
+      *p, *t, shape_tab, cov_tab, choices, sc, color, alpha, work);
   return (int)cudaGetLastError();
 }
 
 // The texture instance's launch: the fixed instance where it takes the
-// params (tex_instance), else the general one, two launches: its tile
-// choice into choices (choice_ints ints, at least 2 per slot and tile;
-// unread by the fixed instance), then its frame; general != 0 asks for the
+// params (tex_instance), else the general one, two launches: its tile pass
+// into the scratch (scratch_floats floats, at least texg_scratch_floats)
+// and choices (choice_ints ints, at least 2 per slot and tile), then its
+// frame (the fixed instance reads neither); general != 0 asks for the
 // general instance whatever the params (both instances on one config, to
 // compare them).  *instance, where given, gets the instance launched
 // (MK_TEX_FIXED or MK_TEX_GENERAL).
@@ -3236,7 +3353,7 @@ extern "C" int megakernel_tex_launch(const MegakernelParams* params, const TexPa
                                      const float* sky_r, const float* sky_g, const float* sky_b,
                                      float* color, float* alpha, float* depth, void* stream,
                                      void* work, int general, int* instance, int* choices,
-                                     int choice_ints) {
+                                     int choice_ints, float* scratch, int scratch_floats) {
   if (!params->clouds_enabled || !params->with_atmosphere || tex->knot_group < 1 ||
       !source_ok(tex->shape_source, params->shape_interp, shape_tab, tex->shape_levels) ||
       !source_ok(tex->cov_source, params->coverage_interp, cov_tab, tex->cov_levels) ||
@@ -3252,7 +3369,8 @@ extern "C" int megakernel_tex_launch(const MegakernelParams* params, const TexPa
   if (instance) *instance = which;
   if (which == MK_TEX_GENERAL)
     return launch_tex_general(params, tex, sky_t, blue, shape_tab, cov_tab, sky_r, sky_g, sky_b,
-                              choices, choice_ints, color, alpha, depth, s, w);
+                              scratch, scratch_floats, choices, choice_ints, color, alpha, depth,
+                              s, w);
   if (G == 4)
     return launch_tex<4>(params, tex, sky_t, blue, shape_tab, cov_tab, sky_r, sky_g, sky_b, color,
                          alpha, depth, s, w);
@@ -3267,8 +3385,7 @@ extern "C" int megakernel_tex_launch(const MegakernelParams* params, const TexPa
 // thread G, registers per thread, local memory (stack) bytes per thread,
 // resident blocks per SM, dynamic shared memory bytes, threads per block,
 // 1 for the general instance (0 for the fixed one); the general instance's
-// row cache (1: one opaque pass per pixel in its frame), and its tile
-// choice's threads per block, dynamic shared memory bytes, registers per
+// tile pass's threads per block, dynamic shared memory bytes, registers per
 // thread and resident blocks per SM (zeros for the fixed instance)}.  It
 // sets the shared-memory attributes the launcher sets.
 extern "C" int megakernel_tex_info(const MegakernelParams* params, const TexParams* tex,
@@ -3290,10 +3407,10 @@ extern "C" int megakernel_tex_info(const MegakernelParams* params, const TexPara
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&choice_blocks, tex_choice_kernel,
                                                           choice_threads, lay.choice_smem);
     if (err != cudaSuccess) return (int)err;
-    const int info[12] = {G, attr.numRegs, (int)attr.localSizeBytes, blocks, lay.smem,
-                          MK_TILE_COLS, 1, lay.row_cache, choice_threads, lay.choice_smem,
-                          choice_attr.numRegs, choice_blocks};
-    for (int i = 0; i < 12; ++i) out[i] = info[i];
+    const int info[11] = {G, attr.numRegs, (int)attr.localSizeBytes, blocks, lay.smem,
+                          MK_TILE_COLS, 1, choice_threads, lay.choice_smem, choice_attr.numRegs,
+                          choice_blocks};
+    for (int i = 0; i < 11; ++i) out[i] = info[i];
     return 0;
   }
   const int nt = tex_threads(G), smem = tex_smem(G);
@@ -3303,8 +3420,8 @@ extern "C" int megakernel_tex_info(const MegakernelParams* params, const TexPara
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
   if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, nt, smem);
   if (err != cudaSuccess) return (int)err;
-  const int info[12] = {G, attr.numRegs, (int)attr.localSizeBytes, blocks, smem, nt, 0, 0, 0, 0, 0, 0};
-  for (int i = 0; i < 12; ++i) out[i] = info[i];
+  const int info[11] = {G, attr.numRegs, (int)attr.localSizeBytes, blocks, smem, nt, 0, 0, 0, 0, 0};
+  for (int i = 0; i < 11; ++i) out[i] = info[i];
   return 0;
 }
 

@@ -133,15 +133,20 @@ TEX_SM_THREADS = 1024
 #: min and max of up to 3 axes)
 TEX_KNOT_ROWS = 26
 TEX_RED_SLOTS = 6
-#: the general texture instance's tile choice (``tex_choice_kernel``, the
-#: first of its two launches): at most TEXG_CHOICE_ROWS thread rows of 128
-#: per tile, TEXG_GROUP_FLOATS floats per coverage group of the tile (its
-#: knot inputs: mean model-space ray, mean span) in shared memory, the
-#: warps' partials of TEXG_CHUNK choice slots per barrier; a slot without a
-#: choice (the sky's, where the launch draws none) holds NO_CHOICE twice
+#: the general texture instance's tile pass (``tex_choice_kernel``, the
+#: first of its two launches: each row's shading and the tile's choices):
+#: at most TEXG_CHOICE_ROWS thread rows of 128 per tile, TEXG_GROUP_FLOATS
+#: floats per coverage group of the tile (its knot inputs: mean model-space
+#: ray, mean span) in shared memory, the warps' partials of TEXG_CHUNK
+#: choice slots per barrier; a slot without a choice (the sky's, where the
+#: launch draws none) holds NO_CHOICE twice.  Its scratch for the frame
+#: (:func:`tex_scratch_floats`): each row's atmosphere rgba, and
+#: TEXG_IN_PLANES floats per coarse pixel (its GEN_MARCH_ROWS march inputs
+#: and its visibility).
 TEXG_CHOICE_ROWS = 4
 TEXG_GROUP_FLOATS = 5
 TEXG_CHUNK = 32
+TEXG_IN_PLANES = 7
 NO_CHOICE = -1
 #: work counter slots, in the kernel's order (``MK_WORK_*``); the procedural
 #: instance also counts its procedural field evaluations: coverage per step
@@ -168,10 +173,9 @@ GEN_INFO = ("coarse", "registers", "stack_bytes", "blocks_per_sm", "smem_bytes",
 #: what :func:`tex_info` reports of the texture instance (``general``:
 #: TEX_GENERAL for ``megakernel_tex_general``, 0 for the fixed instance, as
 #: the launcher also reports the instance it launched; ``MK_TEX_*``); the
-#: general instance's row cache and its tile choice's block (zeros for the
-#: fixed instance)
+#: general instance's tile pass's block (zeros for the fixed instance)
 TEX_INFO = ("group", "registers", "stack_bytes", "blocks_per_sm", "smem_bytes", "threads",
-            "general", "row_cache", "choice_threads", "choice_smem_bytes", "choice_registers",
+            "general", "choice_threads", "choice_smem_bytes", "choice_registers",
             "choice_blocks_per_sm")
 TEX_GENERAL = 1
 #: what :func:`clear_info` reports of the cloud-free instance
@@ -369,10 +373,11 @@ SKY_CHOICE_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.POINTER(TexParam
                        ctypes.c_void_p, ctypes.c_void_p)
 TEX_LAUNCHER_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.POINTER(TexParams),
                          ctypes.POINTER(TexParams), *(ctypes.c_void_p,) * 11, ctypes.c_int,
-                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int)
+                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                         ctypes.c_int)
 TEX_CHOICE_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.POINTER(TexParams),
-                       ctypes.POINTER(TexParams), *(ctypes.c_void_p,) * 3, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p)
+                       ctypes.POINTER(TexParams), *(ctypes.c_void_p,) * 7, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p)
 TEXSAMPLE_ARGTYPES = (ctypes.POINTER(TexParams), ctypes.c_int, *(ctypes.c_void_p,) * 4,
                       ctypes.c_int, ctypes.c_int, *(ctypes.c_void_p,) * 3)
 GEN_INFO_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.c_void_p)
@@ -594,11 +599,10 @@ def tex_general_layout(config: VariantConfig) -> Optional[dict]:
     """The general texture instance's two launches for ``config``, as its
     launcher lays them out (``texg_layout`` in the source), or ``None``
     where its frame's block does not fit.  The frame: one block of
-    ``threads`` = 128 per 128 columns and coverage group row, with the
-    procedural instance's shared memory (:func:`gen_smem`: the knot rows,
-    GEN_MARCH_ROWS per coarse pixel, the row cache where the block still
-    holds it; ``smem_bytes``, ``row_cache``).  The tile choice: one block
-    of ``choice_threads`` = 128 × min(TEXG_CHOICE_ROWS, the tile's rows of
+    ``threads`` = 128 per 128 columns and coverage group row, with the knot
+    rows and GEN_MARCH_ROWS per coarse pixel in shared memory, at most
+    SMEM_ROWS (``smem_bytes``).  The tile pass: one block of
+    ``choice_threads`` = 128 × min(TEXG_CHOICE_ROWS, the tile's rows of
     coverage groups) per tile, with TEXG_GROUP_FLOATS per coverage group of
     the tile and 6 floats per warp and choice slot of one chunk of at most
     TEXG_CHUNK slots (``choice_smem_bytes``); ``slots``: the sky's and one
@@ -619,13 +623,10 @@ def tex_general_layout(config: VariantConfig) -> Optional[dict]:
     rows = knots + GEN_MARCH_ROWS * config.cloud_coverage_lod
     if rows > SMEM_ROWS:
         return None
-    cache = rows + GEN_CACHE_ROWS * group <= SMEM_ROWS
     group_rows = TILE_ROWS // group
     choice_rows = min(TEXG_CHOICE_ROWS, group_rows)
     warps = choice_rows * TILE_COLS // 32
-    return {"threads": TILE_COLS,
-            "smem_bytes": (rows + (GEN_CACHE_ROWS * group if cache else 0)) * TILE_COLS * 4,
-            "row_cache": int(cache), "slots": 1 + batches,
+    return {"threads": TILE_COLS, "smem_bytes": rows * TILE_COLS * 4, "slots": 1 + batches,
             "choice_threads": TILE_COLS * choice_rows,
             "choice_smem_bytes": (TEXG_GROUP_FLOATS * group_rows * TILE_COLS
                                   + min(1 + batches, TEXG_CHUNK) * warps * 6) * 4}
@@ -1026,8 +1027,11 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
     choices = None
     if sky is not None and tex is None:
         choices = sky_choices(struct, sky_params, device)
-    if tex is not None:  # the general instance's tile choice (the fixed one reads none)
+    scratch = None
+    if tex is not None and (general or not fixed_texture_instance(struct, tex[0])):
+        # the general instance's tile choices and scratch (the fixed one reads neither)
         choices = torch.empty(tex_choice_shape(struct, tex[0]), dtype=torch.int32, device=device)
+        scratch = torch.empty(tex_scratch_floats(struct), dtype=torch.float32, device=device)
     instance = ctypes.c_int(-1)  # the texture instance the launcher reports
     with torch.cuda.device(device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
@@ -1043,7 +1047,8 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
                                            _ptr(cov_table), _ptr(sky_r), _ptr(sky_g),
                                            _ptr(sky_b), *planes, stream, _ptr(work),
                                            int(general), ctypes.byref(instance), _ptr(choices),
-                                           choices.numel())
+                                           0 if choices is None else choices.numel(),
+                                           _ptr(scratch), 0 if scratch is None else scratch.numel())
     if rc != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {rc}")
     counters.megakernel_launches += 1
@@ -1114,31 +1119,52 @@ def tex_choice_shape(struct: MegakernelParams, tparams: TexParams) -> tuple:
     return ty * tx, 1 + batches, 2
 
 
+def tex_scratch_floats(struct: MegakernelParams) -> int:
+    """The general texture instance's scratch between its two launches, in
+    floats (``texg_scratch_floats`` in the source): each launch row's
+    atmosphere rgba, and TEXG_IN_PLANES per coarse pixel of the launch's
+    coverage groups."""
+    group = struct.cloud_lod * struct.coverage_lod
+    coarse_rows = -(-struct.rows // group) * struct.coverage_lod
+    return (struct.rows * 4 + TEXG_IN_PLANES * coarse_rows) * struct.width
+
+
 def tex_choices(struct: MegakernelParams, tparams: TexParams, device, sky=None,
+                color: Optional[torch.Tensor] = None,
                 depth: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the general texture instance's tile choice alone (the first of
+    """Launch the general texture instance's tile pass alone (the first of
     the two launches :func:`launch` makes for it) for one launch struct on
     the current stream of ``device`` (a CUDA device): each 32×128 tile of
     the struct's rows, from ``row0``, padded past the frame, gets the sky's
     level and mode (``sky``: its ``(TexParams, r, g, b)``, where the
     struct's ``with_sky`` is set) and each knot batch's, over every
-    coverage group of the tile.  ``depth``: the layers below' linear depth
-    (a chained layer).  Returns :func:`tex_choice_shape` int32; counted in
+    coverage group of the tile.  The pass also shades the rows: into
+    ``color`` (a chained layer's holds the layers below, read) and
+    ``depth`` (a chained layer's linear depth, read), or into planes of
+    its own.  Returns :func:`tex_choice_shape` int32; counted in
     ``counters.tex_choice_launches``.  :func:`tex_choices_plain` is its
     plain version."""
     if bool(struct.with_sky) != (sky is not None):
         raise ValueError("a sky launch needs its (TexParams, r, g, b) pyramids, and only it")
+    if struct.with_background and (color is None or depth is None):
+        raise ValueError("a chained layer reads the layers below: color and depth are required")
     out = torch.empty(tex_choice_shape(struct, tparams), dtype=torch.int32, device=device)
+    scratch = torch.empty(tex_scratch_floats(struct), dtype=torch.float32, device=device)
+    if color is None:
+        color = torch.empty((struct.rows, struct.width, 3), dtype=torch.float32, device=device)
     blue = _BLUE_NOISE.get(str(device))
     if blue is None:
         blue = _BLUE_NOISE[str(device)] = blue_noise_tensor(device=device)
+    sky_params, sky_r, sky_g, sky_b = sky if sky is not None else (None, None, None, None)
     lib = load_library()
     with torch.cuda.device(device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
         rc = lib.tex_choice_launch(ctypes.byref(struct), ctypes.byref(tparams),
-                                   None if sky is None else ctypes.byref(sky[0]), _ptr(blue),
-                                   _plane_ptr(depth, struct), _ptr(out), out.numel(), stream,
-                                   _ptr(None))
+                                   None if sky is None else ctypes.byref(sky_params), _ptr(blue),
+                                   _ptr(sky_r), _ptr(sky_g), _ptr(sky_b),
+                                   _plane_ptr(color, struct), _plane_ptr(depth, struct),
+                                   _ptr(scratch), scratch.numel(), _ptr(out), out.numel(),
+                                   stream, _ptr(None))
     if rc != 0:
         raise RuntimeError(f"tex choice launch failed: CUDA error {rc}")
     counters.tex_choice_launches += 1

@@ -774,10 +774,9 @@ def test_texture_instance_and_layout_match_the_launcher(cuda, baked, case):
     """The launcher's pick of a texture instance and the general instance's
     two blocks (``megakernel_tex_info``) against their mirrors in the
     wrapper: ``mk.fixed_texture_instance`` (the general instance exactly
-    where it is false) and ``mk.tex_general_layout`` (the frame's threads,
-    shared memory and row cache, the tile choice's threads and shared
-    memory, the general instance also where it is asked for on a fixed
-    config)."""
+    where it is false) and ``mk.tex_general_layout`` (the frame's threads
+    and shared memory, the tile pass's threads and shared memory, the
+    general instance also where it is asked for on a fixed config)."""
     import chip_smoke as cs
 
     scene, cam = cs.tex_envelope_scene(cs.TEX_ENVELOPE_CASES[case], cuda, baked)
@@ -790,7 +789,7 @@ def test_texture_instance_and_layout_match_the_launcher(cuda, baked, case):
     assert picked["general"] == int(not mk.fixed_texture_instance(struct, tparams))
     general = mk.tex_info(struct, tparams, general=True)
     assert general["general"] == 1
-    keys = ("threads", "smem_bytes", "row_cache", "choice_threads", "choice_smem_bytes")
+    keys = ("threads", "smem_bytes", "choice_threads", "choice_smem_bytes")
     assert {k: general[k] for k in keys} == {k: lay[k] for k in keys}
     assert general["blocks_per_sm"] >= 1 and general["choice_blocks_per_sm"] >= 1
     if picked["general"]:
@@ -873,7 +872,8 @@ def test_texture_general_instance_chained_and_with_the_sky(cuda, baked, mode, ca
         _, below, below_args = launches[0]
         mk.launch(below, *planes[:2], depth=planes[2], **below_args)
         _, struct, args = launches[1]
-        got_choice = mk.tex_choices(struct, args["tex"][0], cuda, depth=planes[2])
+        got_choice = mk.tex_choices(struct, args["tex"][0], cuda, color=planes[0],
+                                    depth=planes[2])
         ref_choice = mk.tex_choices_plain(params[1], configs[1], cam, None, h, W, tex[1],
                                           background=(planes[0], planes[2]), row0=r0, rows=rows)
     else:

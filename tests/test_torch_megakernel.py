@@ -401,11 +401,13 @@ def test_cu_launcher_signature_matches_argtypes(name, argtypes):
         assert params[:3] == ["const MegakernelParams* params", "const TexParams* tex",
                               "const TexParams* sky"]
         assert params[6:9] == ["const float* sky_r", "const float* sky_g", "const float* sky_b"]
-        assert params[-2:] == ["int* choices", "int choice_ints"]
+        assert params[-4:] == ["int* choices", "int choice_ints", "float* scratch",
+                               "int scratch_floats"]
     if name == "tex_choice_launch":
         assert params[:3] == ["const MegakernelParams* params", "const TexParams* tex",
                               "const TexParams* sky"]
-        assert params[4:7] == ["const float* depth", "int* choices", "int choice_ints"]
+        assert params[7:13] == ["float* color", "float* depth", "float* scratch",
+                                "int scratch_floats", "int* choices", "int choice_ints"]
 
 
 def test_build_command_and_cache_key(monkeypatch, tmp_path):

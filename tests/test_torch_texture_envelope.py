@@ -227,9 +227,9 @@ def _cu_source():
 
 def test_sources_and_layout_match_the_kernel():
     """The source codes and the general instance's constants (its tile
-    choice's; its frame lays out its shared memory as the procedural
-    instance does) against the CUDA source, and the fixed instance's choice
-    against its launcher's."""
+    pass's, its frame's shared memory, the scratch between them) against
+    the CUDA source, and the fixed instance's choice against its
+    launcher's."""
     src = _cu_source()
     codes = dict(re.findall(r"(MK_SRC_\w+) = (\d+)", src))
     assert {k: int(v) for k, v in codes.items()} == {
@@ -239,11 +239,15 @@ def test_sources_and_layout_match_the_kernel():
     assert consts == {"MK_TEXG_GROUP_FLOATS": mk.TEXG_GROUP_FLOATS,
                       "MK_TEXG_CHOICE_ROWS": mk.TEXG_CHOICE_ROWS, "MK_TEXG_CHUNK": mk.TEXG_CHUNK}
     assert re.search(r"constexpr int MK_NO_CHOICE = (-?\d+);", src).group(1) == str(mk.NO_CHOICE)
-    # the frame's shared memory is the procedural instance's layout
+    # the frame's shared memory: the knot rows and the march inputs; the tile
+    # pass's: the groups' knot inputs and one chunk of partials; the scratch
     layout = re.search(r"static TexgLayout texg_layout\(.*?\n\}", src, re.S).group(0)
-    for term in ("MK_GEN_MARCH_ROWS * C", "MK_SMEM_ROWS", "MK_GEN_CACHE_ROWS * G",
-                 "MK_TEXG_CHOICE_ROWS", "MK_TEXG_GROUP_FLOATS * ngr", "MK_TEXG_CHUNK"):
+    for term in ("MK_GEN_MARCH_ROWS * C", "MK_SMEM_ROWS", "MK_TEXG_CHOICE_ROWS",
+                 "MK_TEXG_GROUP_FLOATS * ngr", "MK_TEXG_CHUNK"):
         assert term in layout
+    assert "constexpr int MK_TEXG_IN_PLANES = MK_GEN_MARCH_ROWS + 1;" in src
+    assert mk.TEXG_IN_PLANES == mk.GEN_MARCH_ROWS + 1
+    assert "((long)p.rows * 4 + (long)MK_TEXG_IN_PLANES * texg_coarse_rows(p)) * p.width" in src
     assert re.search(r"constexpr int MK_TEX_GENERAL = (\d+);", src).group(1) == str(
         mk.TEX_GENERAL)
     fixed = re.search(r"static int tex_instance\(.*?\n\}", src, re.S).group(0)
@@ -258,10 +262,10 @@ def test_launch_structs_carry_each_fields_source(textures, case):
     (pyramid, procedural knots, procedural per step), the knot counts and
     group; the instance that takes the launch (the fixed one for the
     demo's profile at any knot group); the general instance's two blocks
-    (:func:`tex_general_layout`): the frame's 128 threads with the
-    procedural instance's shared memory (:func:`gen_smem`), the tile
-    choice's 128 per group row up to 4, within a block's shared memory, and
-    its slots per tile."""
+    (:func:`tex_general_layout`): the frame's 128 threads with its knot rows
+    and march inputs, the tile pass's 128 per group row up to 4, within a
+    block's shared memory, its slots per tile, and the scratch between
+    them."""
     _, _, scene, cam = _scenes(textures, PYRAMID_CASES[case])
     _, params, configs = scene._sorted_layers(cam)
     config, _ = scene._texture_plan(params[0], configs[0])
@@ -282,9 +286,12 @@ def test_launch_structs_carry_each_fields_source(textures, case):
     lay = mk.tex_general_layout(config)
     group_rows = 32 // (config.cloud_lod * config.cloud_coverage_lod)
     assert lay["threads"] == 128 and lay["choice_threads"] == 128 * min(4, group_rows)
-    assert (lay["smem_bytes"], bool(lay["row_cache"])) == mk.gen_smem(config)
+    rows = mk.knot_rows(config) + mk.GEN_MARCH_ROWS * config.cloud_coverage_lod
+    assert lay["smem_bytes"] == rows * mk.TILE_COLS * 4 <= mk.SMEM_ROWS * mk.TILE_COLS * 4
     assert 0 < lay["choice_smem_bytes"] <= mk.SMEM_ROWS * mk.TILE_COLS * 4
     assert mk.tex_choice_shape(s, t) == ((H // 32) * (W // 128), lay["slots"], 2)
+    coarse_rows = H // (config.cloud_lod * config.cloud_coverage_lod) * config.cloud_coverage_lod
+    assert mk.tex_scratch_floats(s) == (H * 4 + mk.TEXG_IN_PLANES * coarse_rows) * W
 
 
 @pytest.mark.parametrize("procedural", ["coverage", "shape"])
