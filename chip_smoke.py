@@ -183,7 +183,7 @@ LOD group) and the peak probe T2 run in four more phases:
    its cycles per stage (coarse pass, knots, march, blend); the same for
    the texture instance ``megakernel_tex<G>`` (``mk.tex_info``) on the
    texture frames of 4b and the everything-on frame of 4d, and the general
-   texture instance (its tile choice's stages and its frame's) on the
+   texture instance (its tile pass's stages and its frame's) on the
    frames of 4g and bench cell 6 asked of it; every such launch's work
    counts held against the previous design's (``PARENT_WORK``,
    ``PARENT_TEX_WORK``, ``PARENT_TEXG_WORK``; the texture launches of 4e's
@@ -216,11 +216,11 @@ card check run in three more phases:
 4g. 1080p through ``Scene.render``: the texture reference profile (G = 1),
    texture full quality, baked shape beside procedural coverage knots and
    procedural per-step shape beside baked coverage (4 launches of the
-   general instance, each with its tile choice, no plain call), each
-   against the whole plain frame and its tile choice alone against its
+   general instance, each with its tile pass, no plain call), each
+   against the whole plain frame and its tile pass's choices alone against its
    plain version (exact), then timed: the two launches' ms by events, each
    one's device time, the bound (the frame's from its work counters plus
-   the tile choice's), the tile choice alone, ``Scene.render`` ms and idle
+   the tile pass's), the tile pass alone, ``Scene.render`` ms and idle
    share, the plain ms, the instance's registers, stack and blocks per SM;
    and bench cell 6 through both texture instances (the general one asked
    for, ``mk.launch(general=True)``), timed and compared.
@@ -1418,7 +1418,7 @@ def tex_envelope_tolerance(config, conditioning: dict) -> tuple:
 
 
 def tex_choice_check(scene, cam, h: int, w: int, device) -> dict:
-    """The general texture instance's tile choice alone (``mk.tex_choices``)
+    """The general texture instance's tile pass alone (``mk.tex_choices``)
     for a one-layer texture frame's launch against its plain version
     (``mk.tex_choices_plain``, the plain chain's own samplers) on the same
     inputs: ``{"slots": compared, "tiles": tiles, "differ": slots whose
@@ -1447,7 +1447,7 @@ def tex_envelope_check(device, textures, h: int, w: int, conditioning: dict) -> 
     """Phase 3h: each case of TEX_ENVELOPE_CASES through ``Scene.render``
     (one launch of a texture instance, no plain call) against the plain
     chain on the same inputs, under :func:`tex_envelope_tolerance`; which
-    instance rendered it; the general instance's tile choice alone against
+    instance rendered it; the general instance's tile pass alone against
     its plain version (:func:`tex_choice_check`: exact)."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
@@ -1475,9 +1475,9 @@ def tex_envelope_check(device, textures, h: int, w: int, conditioning: dict) -> 
 
 def tex_envelope_timing(scene, cam, h: int, w: int, device, plain_s: float) -> dict:
     """Phase 4g's timing of one frame: its texture launch (the general
-    instance's two: the tile choice and the frame) alone, CUDA events
+    instance's two: the tile pass and the frame) alone, CUDA events
     over both, and each one's device time from ``torch.profiler``, with its
-    bound (the frame's from its work counters, plus the tile choice's,
+    bound (the frame's from its work counters, plus the tile pass's,
     :func:`tex_choice_roofline`), ``Scene.render`` ms and idle share, the
     plain ms (``plain_s``: the whole plain frame's wall time) and what its
     instance uses (``mk.tex_info``)."""
@@ -1580,11 +1580,11 @@ def tex_envelope_frames(device, textures, h: int, w: int, conditioning: dict) ->
               mk.counters.texture_general_launches, mk.counters.tex_choice_launches,
               mk.counters.plain_calls + ts.counters.plain_sky_calls)
     log(f"[tex-envelope] counters after {len(runs)} {h}x{w} Scene.render frames: K1 {counts[0]}, "
-        f"texture {counts[1]} (general {counts[2]}, its tile choice {counts[3]}), plain "
+        f"texture {counts[1]} (general {counts[2]}, its tile pass {counts[3]}), plain "
         f"{counts[4]}")
     if counts != (len(runs),) * 4 + (0,):
         raise RuntimeError("the texture envelope's frames did not all go through the general "
-                           "texture instance and its tile choice")
+                           "texture instance and its tile pass")
     out = {"launches": counts[2], "choice_launches": counts[3], "frames": {}}
     choices = {}
     for name, (scene, cam, img) in runs.items():
@@ -3486,7 +3486,7 @@ def main(argv=None) -> int:
         "slice": ("K1 slice (i): the texture envelope, megakernel_tex_general: a baked field "
                   "beside a procedural one, full quality, any knot count, knot group and LOD "
                   f"group (ms, bound_ms, plain_ms: the {TEX_REF_FRAME} at 1080p, G = 1, its "
-                  "two launches: the tile choice and the frame; frames: each 4g frame's)"),
+                  "two launches: the tile pass and the frame; frames: each 4g frame's)"),
         "route": "cuda",
         "source": "godot_atmosphere_shader_tpu_torch/csrc/megakernel.cu",
         "replaces": ("godot_atmosphere_shader_tpu/ops/pallas/megakernel.py:171 (the texture "
@@ -3517,7 +3517,7 @@ def main(argv=None) -> int:
         "library_ms": None,
     }, {
         "name": "tex_choice",
-        "slice": ("the general texture instance's tile choice (tex_choice_kernel), the first of "
+        "slice": ("the general texture instance's tile pass (tex_choice_kernel), the first of "
                   "its two launches: the sky's and each knot batch's level and mode over every "
                   f"coverage group of a 32x128 tile (ms, device_ms, bound_ms: the "
                   f"{TEX_REF_FRAME}'s at 1080p, alone; plain_ms: its plain version, the plain "

@@ -43,7 +43,7 @@ library:
   halo (phase 4e's inputs), each with both clamp modes;
 
 each K1 launch's kernel ms (CUDA events) and device ms (``torch.profiler``;
-the general texture instance's two launches together, its tile choice's
+the general texture instance's two launches together, its tile pass's
 apart) with its work counts (the march's lane utilisation among them) and what its
 instance uses (registers, stack, resident blocks per SM, shared memory; the
 row cache, the threads per block, or the blocks launched); each K3 launch's
@@ -155,7 +155,7 @@ extern "C" int megakernel_clear_info(const MegakernelParams* params, int* out) {
 WORK_SLOTS_SHIM = r'''
 extern "C" int megakernel_work_slots(void) { return MK_WORK_SLOTS; }
 '''
-# the general texture instance's tile choice alone, for a parent without one
+# the general texture instance's tile pass alone, for a parent without one
 # (its general instance, where it has one, chooses inside its own block):
 # refused
 TEX_CHOICE_SHIM = r'''
@@ -250,7 +250,7 @@ def parent_copy(path: str, name: str, parent_dir: str) -> str:
     return copy
 
 
-def build_sides(parent_cu: str, parent_taa=None, variants=()) -> tuple:
+def build_sides(parent_cu: str, parent_taa=None) -> tuple:
     """The libraries of all the kernel sources: the parent's (its
     ``megakernel.cu`` and, where given, its ``taa.cu``, each with the
     queries it lacks appended, beside the checkout's other sources), the
@@ -271,9 +271,6 @@ def build_sides(parent_cu: str, parent_taa=None, variants=()) -> tuple:
                                   defines=mk.MEASURE_DEFINES),
             "parent/stages": dict(build_dir=os.path.join(COMPARE_DIR, "parent-stages"),
                                   sources=parent_sources, defines=mk.MEASURE_DEFINES)}
-    for name, defines in variants:  # the checkout's sources with -D defines
-        jobs[name] = dict(build_dir=os.path.join(COMPARE_DIR, f"variant-{name}"), defines=defines,
-                          ptxas_info=True)
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {k: pool.submit(library.build, **kw) for k, kw in jobs.items()}
         built = {k: f.result() for k, f in futures.items()}
@@ -565,7 +562,7 @@ def resolve_pass(all_resolves: dict, ref_dir: str) -> dict:
 
 def bound(case: Case, i: int, work: dict) -> dict:
     """The launch's roofline bound as ``chip_smoke.py`` takes it (the
-    general texture instance's: its frame's plus its tile choice's); none
+    general texture instance's: its frame's plus its tile pass's); none
     for work counts without every slot the bound reads (a parent's)."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
@@ -587,7 +584,7 @@ def bound(case: Case, i: int, work: dict) -> dict:
                     frame_bytes=st.rows * case.w * per_px, sky_bytes=cost.get("sky_bytes", 0),
                     sky_choice_ops=cost.get("sky_choice_ops", 0))
     if tl is not None and not mk.fixed_texture_instance(st, tl[0]):
-        # the general texture instance's tile choice, its first launch
+        # the general texture instance's tile pass, its first launch
         return {"bound_ms": b["bound_ms"] + cs.tex_choice_roofline(st, tl[0])["bound_ms"],
                 "bound_by": b["bound_by"]}
     return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
@@ -625,7 +622,7 @@ def one_pass(all_cases: list, all_flights: dict, ref_dir: str) -> dict:
                     st, planes[0], planes[1], depth=planes[2], **args)
                     for _ in range(KERNEL_FRAMES)], ("megakernel", "tex_choice_kernel")).items()}
             work = mk.work_counts(st, planes[0], planes[1], depth=planes[2], **args)
-            # the general texture instance's device ms: its tile choice's and its frame's
+            # the general texture instance's device ms: its tile pass's and its frame's
             rows.append({"row0": st.row0, "rows": st.rows, "ms": ms,
                          "device_ms": device["megakernel"] + device["tex_choice_kernel"],
                          "choice_device_ms": device["tex_choice_kernel"], "work": work,
@@ -685,13 +682,8 @@ def run_pass(args) -> int:
     device = torch.device("cuda", 0)
     textures = bake_demo_textures(device=device)
     all_cases = cases(device, textures, not args.without_tex_envelope)
-    only = args.only.split("|") if args.only else None
-    if only:
-        all_cases = [c for c in all_cases if c.label in only]
     if args.stages:
         result = stage_pass([c for c in all_cases if c.clouds()])
-    elif only:
-        result = one_pass(all_cases, {}, args.reference)
     else:
         result = one_pass(all_cases, flights(device, textures), args.reference)
         result.update(resolve_pass(resolves(device), args.reference))
@@ -794,11 +786,6 @@ def main(argv=None) -> int:
     ap.add_argument("--peak-fp32", type=float, help=argparse.SUPPRESS)
     ap.add_argument("--peak-int32", type=float, help=argparse.SUPPRESS)
     ap.add_argument("--without-tex-envelope", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--variant", action="append", default=[],
-                    help="NAME=DEFINE[,DEFINE...]: one more side, the checkout's sources built "
-                         "with those -D defines")
-    ap.add_argument("--only", help="frame labels, |-separated: those frames alone (no flight, "
-                                   "no resolve)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the comparison needs one GPU")
@@ -813,8 +800,7 @@ def main(argv=None) -> int:
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     shutil.rmtree(COMPARE_DIR, ignore_errors=True)
-    variants = [(v.split("=", 1)[0], tuple(v.split("=", 1)[1].split(","))) for v in args.variant]
-    paths, reports = build_sides(args.parent_cu, args.parent_taa, variants)
+    paths, reports = build_sides(args.parent_cu, args.parent_taa)
     cs.log(f"[compare] compiler report of {', '.join(REPORTED)} per side: "
            f"{json.dumps(reports)}")
     for side, path in paths.items():
@@ -839,13 +825,12 @@ def main(argv=None) -> int:
         cmd = [sys.executable, os.path.abspath(__file__), "--library", lib, "--out", out,
                "--reference", ref_dir, "--peak-fp32", repr(cs.PEAK["fp32"]),
                "--peak-int32", repr(cs.PEAK["int32"])] + (["--stages"] if stages else []) + (
-                   ["--without-tex-envelope"] if alone else []) + (
-                   ["--only", args.only] if args.only else [])
+                   ["--without-tex-envelope"] if alone else [])
         subprocess.run(cmd, check=True)
         with open(out) as f:
             return json.load(f)
 
-    sides = ["parent", "change", *(name for name, _ in variants)]
+    sides = ["parent", "change"]
     runs = {s: [] for s in sides}
     for side in sides + sides[::-1]:  # the first pass writes the reference frames
         result = start(side, paths[side])
@@ -853,7 +838,7 @@ def main(argv=None) -> int:
         cs.log(f"[compare] pass {side} on {card}: {json.dumps(result)}")
         cs.log(f"[compare] after the pass: "
                f"{cs.smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
-    for side in ("parent", "change"):
+    for side in sides:
         cs.log(f"[compare] stages {side} on {card}: "
                f"{json.dumps(start(f'{side}-stages', paths[f'{side}/stages'], stages=True))}")
     for label in runs["parent"][0]:

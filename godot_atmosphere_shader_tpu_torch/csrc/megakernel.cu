@@ -176,10 +176,11 @@
 // thread-block clusters of 2 and 4 CTAs per tile 1.5-14 % slower.
 //
 // The general texture instance (megakernel_tex_general, K1 slice (i)) takes
-// every other texture config the TPU kernel renders: its design, one block
-// per tile whose batches' choices are made first over all of the tile's
-// coverage groups and whose groups are then sampled and marched one at a
-// time, is described at the kernel.
+// every other texture config the TPU kernel renders, in two launches: a
+// tile pass (tex_choice_kernel, one 512-thread block per tile) shades each
+// row once and chooses each knot batch's level and mode over the tile's
+// coverage groups, then the frame samples, marches and blends each group
+// on megakernel_gen's blocks; described at the kernels.
 //
 // The panorama sky (megakernel.py:212-222, :334-336; with_sky): the launch
 // that runs the opaque pass (a fused layer or the opaque-only pass) samples
@@ -189,12 +190,19 @@
 // and max of (fu, v), hit or miss, choose one level and mode for all of
 // them; the choice decides the result, so it is kept.  The texture instance
 // already has one block per tile: a block-wide min/max before the opaque
-// pass.  In the procedural instance and the opaque-only pass a block is 128
-// columns x G rows and no block sees its whole tile, so a pre-pass
-// (sky_choice_kernel, one 128 x 8 block per tile, 4 rays per thread) writes
-// each tile's choice first and the frame kernel reads it: one choice ray
-// per pixel instead of 32 / G.  Ray directions are computed uncontracted
-// (pixel_dir), so the choice's rays and the sampled rays agree bit for bit.
+// pass, and so has the general one's tile pass (warp shuffles, one
+// barrier).  In the procedural instance and the opaque-only pass a block is
+// 128 columns x G rows and no block sees its whole tile, so a pre-pass
+// (sky_choice_kernel) writes each tile's choice first and the frame kernel
+// reads it: one choice ray per pixel instead of 32 / G.  The pre-pass is
+// one block of 128 x 4 threads per tile, 8 rays per thread, so that a 1080p
+// frame's 510 tiles fit one wave (4 blocks per SM); the min and max go
+// over the warp by shuffles, then one barrier, then the first warp reduces
+// the 16 warps' partials by shuffles (the design it replaces, 128 x 8
+// threads that each re-read every warp's partials after two barriers, took
+// two waves: on an H100 at 700 W 0.0208 ms of device time per 1080p launch,
+// now 0.0112).  Ray directions are computed uncontracted (pixel_dir), so
+// the choice's rays and the sampled rays agree bit for bit.
 // A sky pixel gathers 12 floats from its tile's level (L2-resident).
 //
 // Build (no fast math: the cloud density chain (...)*50-20 amplifies ulp
@@ -262,8 +270,8 @@ constexpr int MK_SKY_CHOICE_RAYS = MK_TILE_ROWS / MK_SKY_CHOICE_THREADS_Y;
 // The measurement build (-DMK_STAGE_CLOCKS) adds the procedural instance's
 // cycles per stage, summed over warps, after the work slots
 // (megakernel.py STAGE_SLOTS); the normal build never writes them.  The
-// general texture instance's tile choice adds two: every coverage group's
-// coarse inputs, and the knot batches' choices over the tile.
+// general texture instance's tile pass adds two: the rows' shading with
+// every coverage group's coarse inputs, and the knot batches' choices.
 #define MK_STAGE_COARSE 0
 #define MK_STAGE_KNOTS 1
 #define MK_STAGE_MARCH 2
@@ -1812,13 +1820,12 @@ __global__ void __launch_bounds__(128) megakernel_clear(const MegakernelParams p
 }
 
 // ---------------------------------------------------------------------------
-// The row-group frame kernels: the procedural instance (megakernel_gen<C>,
-// K1 slice (h)) and the general texture instance's frame
-// (megakernel_tex_general<C>, K1 slice (i)), one instance per C =
-// coverage_lod coarse pixels per thread.  One thread per column and per
-// group of G = cloud_lod * C rows, G dividing the 32-row tile; a block is
-// 128 columns of one group.  Shared memory, in rows of one float per thread
-// (gen_layout, texg_layout):
+// The procedural frame kernel (megakernel_gen<C>, K1 slice (h)), one
+// instance per C = coverage_lod coarse pixels per thread.  One thread per
+// column and per group of G = cloud_lod * C rows, G dividing the 32-row
+// tile; a block is 128 columns of one group (as is the general texture
+// instance's frame, which shares its march, march_pixels).  Shared memory,
+// in rows of one float per thread (gen_layout):
 //   * the knots (coverage, shape, detail: any counts), knot-major with a
 //     stride of the block's 128 threads;
 //   * per coarse pixel of the group, its march inputs (model-space ray,
@@ -1831,7 +1838,7 @@ __global__ void __launch_bounds__(128) megakernel_clear(const MegakernelParams p
 //      background to the color plane and its atmosphere to the row cache;
 //      the coarse pixels' rays and spans (coarse_pass);
 //   2. the knots of the thread's coverage group, where a coarse pixel sees
-//      the cloud layer, and the cull (each instance its own);
+//      the cloud layer, and the cull;
 //   3. the march of each of the thread's coarse pixels that sees the
 //      layer and passes the cull, the fields of its steps inlined
 //      (march_pixels);
@@ -1840,9 +1847,9 @@ __global__ void __launch_bounds__(128) megakernel_clear(const MegakernelParams p
 // Without the row cache, stage 1 computes the coarse inputs alone and
 // stage 4 shades each row again (two opaque passes per pixel).
 
-// resident blocks per SM their registers are sized for (__launch_bounds__:
-// 128 registers; capped for 5 or 6 blocks the procedural instance spills,
-// and the frames with little march or a sun march get slower)
+// resident blocks per SM its registers are sized for (__launch_bounds__:
+// 128 registers; capped for 5 or 6 blocks it spills, and the frames with
+// little march or a sun march get slower)
 constexpr int gen_min_blocks = 4;
 
 __host__ __device__ __forceinline__ int knot_rows(const MegakernelParams& p) {
@@ -2318,34 +2325,43 @@ __global__ void __launch_bounds__(tex_threads(G), tex_min_blocks(G))
 // What is hard: a knot batch's mip level and mode come from its knots'
 // coordinates over the whole 32 x 128 tile, so the choice needs every
 // coverage group of the tile first, and at G = 1 a tile is 4,096 groups.
-// So the tile's choice is separated from the frame, in two launches on the
-// frame's stream:
-//   * the tile choice (tex_choice_kernel), one block of 128 x R threads per
-//     tile (R = 4, or the tile's rows of groups where fewer): each thread's
-//     groups' coarse inputs (the opaque pass without shading, or the layers
-//     below' depth) and knot inputs (5 floats per group in shared memory),
-//     then per choice slot (the sky's, where the launch draws it, and each
-//     knot batch of a baked field) the min and max of its coordinates over
-//     the thread's groups, over the warp by shuffles, over the block's warps
-//     after one barrier per MK_TEXG_CHUNK slots, one thread per slot
-//     finishing; a (mode, level) pair per slot and tile to a device buffer
-//     (min and max are exact in any order: the choice is the one-block
-//     design's bit for bit);
-//   * the frame (megakernel_tex_general<C>) on megakernel_gen's stages:
-//     one 128-thread block per 128 columns of one group row, no barrier,
-//     each row shaded once into the row cache (coarse_pass), the group's
-//     knots (a baked field's sampled with its tile's batch choice from the
-//     buffer, a procedural field's evaluated), the march (march_pixels, a
-//     per-step field's noise inlined), the blend (blend_rows).
-// A pixel's opaque pass runs twice (the tile choice, the frame's coarse
-// pass), its atmosphere once; the design it replaces ran the opaque pass
-// three times in one 512-thread block per tile (one block per SM).
-// MEASURED_GENERAL
+// What bounds it is what bounds the other instances: issue and latency in
+// the per-pixel opaque pass and atmosphere (square roots, divisions, expf),
+// the march, and a mixed layer's procedural noise.  So the tile's work is
+// separated from the group's, in two launches on the frame's stream:
+//   * the tile pass (tex_choice_kernel), one block of 128 x R threads per
+//     tile (R = 4, or the tile's rows of groups where fewer), registers for
+//     two blocks per SM: where the launch draws the sky, its choice first;
+//     then each thread's groups, every row shaded once (the background to
+//     the color plane, the atmosphere to a scratch) with its coarse inputs
+//     (rows and columns past the frame too: they belong to the tile), each
+//     coarse pixel's march inputs to the scratch, the group's knot inputs
+//     into shared memory (5 floats); then per knot batch of a baked field
+//     the min and max of its coordinates over the thread's groups, the
+//     warp's lanes by shuffles and, after one barrier per MK_TEXG_CHUNK
+//     batches, the block's warps, one thread per batch finishing; a
+//     (mode, level) pair per slot (the sky's, each batch's) and tile to a
+//     device buffer (min and max are exact in any order: each choice is
+//     the one-block design's bit for bit);
+//   * the frame (megakernel_tex_general): one 128-thread block per 128
+//     columns of one group row, no barrier: the group's march inputs from
+//     the scratch, its knots (a baked field's sampled with its tile's
+//     batch choice, a procedural field's evaluated), the march
+//     (march_pixels, a per-step field's noise inlined), the blend.
+// A pixel's opaque pass and atmosphere run once, at 32 warps per SM; the
+// design it replaces ran the opaque pass three times in one 512-thread
+// block per tile at 16 warps per SM.  On an H100 at 700 W the 1080p texture
+// reference profile (G = 1) takes 1.30 ms against 1.69 before, full
+// quality 0.83 (1.03), the mixed layers 1.11 (1.27) and 1.42 (1.70), the
+// tile pass 0.31-0.45 of each (compare_megakernel.py, PERF.md).  Measured
+// and not kept: the frame shading each row itself (megakernel_gen's row
+// cache, the issue's suggestion): its coarse pass at 16-24 warps per SM
+// left the mixed layer 0.3-3.6 % slower than before.
 
-// the tile choice: thread rows per tile at most, the floats kept per
-// coverage group (its knot inputs: rk.xyz, t0k, t1k), the choice slots
-// reduced per barrier; a slot without a choice (the sky's where the launch
-// draws none) holds MK_NO_CHOICE twice
+// the tile pass: thread rows per tile at most, the floats kept per coverage
+// group (its knot inputs: rk.xyz, t0k, t1k), the knot batches reduced per
+// barrier; a slot without a choice (the sky's where the launch draws none)
+// holds MK_NO_CHOICE twice
 constexpr int MK_TEXG_CHOICE_ROWS = 4;
 constexpr int MK_TEXG_GROUP_FLOATS = 5;
 constexpr int MK_TEXG_CHUNK = 32;
@@ -2359,7 +2375,7 @@ __host__ __device__ __forceinline__ int texg_knot_rows(const MegakernelParams& p
   return (t.cov_source == MK_SRC_STEP ? 0 : p.coverage_knots + 1) + shape;
 }
 
-// the knot batches whose level and mode the tile choice makes: a baked
+// the knot batches whose level and mode the tile pass chooses: a baked
 // field's K + 1 knots, knot_group at a time (the detail field's too)
 __host__ __device__ __forceinline__ int texg_batches(const MegakernelParams& p, const TexParams& t) {
   const int kg = t.knot_group;
@@ -2562,7 +2578,7 @@ __device__ __forceinline__ void texg_shade_group(const MegakernelParams& p, cons
   g[4] = t1k;
 }
 
-// the tile choice's slots per tile: the sky's, then each knot batch's
+// the tile pass's choice slots per tile: the sky's, then each knot batch's
 __host__ __device__ __forceinline__ int texg_choice_slots(const MegakernelParams& p,
                                                           const TexParams& t) {
   return 1 + texg_batches(p, t);
@@ -2759,7 +2775,7 @@ __global__ void __launch_bounds__(MK_TILE_COLS * MK_TEXG_CHOICE_ROWS, 2)
 // Stage 2 of the general texture instance: the coverage group's knots,
 // where a coarse pixel sees the layer, into the thread's knot rows (kn, a
 // stride of the block); a baked field's sampled with its batch's choice
-// (batch: the tile's batch slots of the tile choice), a procedural field's
+// (batch: the tile's batch slots of the tile pass), a procedural field's
 // evaluated.  Returns the coarse pixels that march (no coverage knots, no
 // bound: every visible one).
 __device__ __forceinline__ unsigned texg_knots(const MegakernelParams& p, const TexParams& t,
@@ -2819,11 +2835,13 @@ __device__ __forceinline__ unsigned texg_knots(const MegakernelParams& p, const 
 // (texg_knots, with the block's tile's batch choices); the march
 // (march_pixels, TexGenFields); each row blended with its coarse pixel's
 // clouds over its background (the color plane) and atmosphere (the
-// scratch), and stored.
-#ifndef MK_TEXG_MIN_BLOCKS
-#define MK_TEXG_MIN_BLOCKS 4
-#endif
-__global__ void __launch_bounds__(MK_TILE_COLS, MK_TEXG_MIN_BLOCKS)
+// scratch), and stored.  Its registers are sized for texg_min_blocks
+// blocks per SM (80 registers, 48 B of spill stores): against 4 blocks (128,
+// no spills) the 1080p texture-envelope frames took 4-14 % less time;
+// against 8 (64, 164 B of spills) full quality took 16 % less, the others
+// within 2 % either way (an H100 at 700 W; compare_megakernel.py, PERF.md).
+constexpr int texg_min_blocks = 6;
+__global__ void __launch_bounds__(MK_TILE_COLS, texg_min_blocks)
     megakernel_tex_general(const __grid_constant__ MegakernelParams p, const TexParams t,
                            const float* __restrict__ shape_tab, const float* __restrict__ cov_tab,
                            const int* __restrict__ choices, const TexgScratch sc,

@@ -17,10 +17,12 @@ the JAX megakernel renders (every basis and fractal, fields per step or
 from knots in shared memory, the detail field, LOD groups up to 32 rows),
 the cloud-free instance (layers without clouds, the opaque-only pass) and
 texture mode (baked fields sampled through mip pyramids by the K2 device
-functions, one thread block per 32×128 tile): the fixed instance for the
-demo's profile and the general one for every other texture config the
-JAX megakernel renders (a baked field beside a procedural one, full
-quality, any knot count, knot group and LOD group).
+functions, each batch's level and mode from a 32×128 tile): the fixed
+instance for the demo's profile, one thread block per tile, and the
+general one for every other texture config the JAX megakernel renders (a
+baked field beside a procedural one, full quality, any knot count, knot
+group and LOD group), a tile pass that shades the rows and makes the
+tiles' choices (:func:`tex_choices`), then the frame.
 
 * :func:`render_scene_megakernel` renders a frame of any number of layers
   (the counterpart of ``render_scene_pallas``): CPU tensors take the plain
@@ -164,8 +166,9 @@ WORK_SLOTS = ("pixels", "atmosphere", "knot_groups", "march", "tex3d",
 #: the measurement build's (``MEASURE_DEFINES``) per-stage cycles of the
 #: procedural and texture instances, summed over warps, after the work
 #: slots (``MK_STAGE_*``): the coarse pass, the knots, the march, the
-#: shading and blend; and the general texture instance's tile choice:
-#: every coverage group's coarse inputs, the knot batches' choices
+#: shading and blend; and the general texture instance's tile pass: the
+#: rows' shading with every coverage group's coarse inputs, the knot
+#: batches' choices
 STAGE_SLOTS = ("coarse", "knots", "march", "blend", "choice_coarse", "choice")
 MEASURE_DEFINES = ("MK_STAGE_CLOCKS",)
 #: what :func:`gen_info` reports of the procedural instance
@@ -198,7 +201,7 @@ class Counters:
     ``megakernel_tex_general`` alone,
     ``sky_launches`` the launches that draw the panorama sky), launches of
     the sky's per-tile choice pre-pass, of the general texture instance's
-    tile choice (``tex_choice_kernel``, launched before each of its frames,
+    tile pass (``tex_choice_kernel``, launched before each of its frames,
     or alone by :func:`tex_choices`), of the K2-alone entry, and plain-path
     frames (one per frame, whatever its layers)."""
 
@@ -1000,7 +1003,7 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
     coverage table)`` for a texture instance, ``None`` for a procedural
     field's table (also counted in ``counters.texture_launches``, and the
     general instance's, as the launcher reports it, in
-    ``counters.texture_general_launches``, its tile choice in
+    ``counters.texture_general_launches``, its tile pass in
     ``counters.tex_choice_launches``; ``general``: the general instance
     whatever the config, to compare the two).  ``work``: ``len(WORK_SLOTS) +
     len(STAGE_SLOTS)`` zeroed int64 counters that the kernel adds its work to (see
@@ -1105,7 +1108,7 @@ def sky_choices_plain(camera: Camera, height: int, width: int, meta: texsample.T
 
 
 def tex_choice_shape(struct: MegakernelParams, tparams: TexParams) -> tuple:
-    """The general texture instance's tile choice for one launch:
+    """The general texture instance's tile pass for one launch:
     ``(tiles, slots, 2)`` ``(mode, level)`` pairs, tiles row-major over the
     struct's rows from ``row0``; slot 0 the sky's (NO_CHOICE where the
     launch draws none), then each knot batch of a baked field (the

@@ -799,7 +799,7 @@ def test_texture_instance_and_layout_match_the_launcher(cuda, baked, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", _tex_envelope_cases())
 def test_tex_choices_match_plain(cuda, baked, case):
-    """The general texture instance's tile choice alone (``mk.tex_choices``,
+    """The general texture instance's tile pass alone (``mk.tex_choices``,
     counted once) against its plain version (``mk.tex_choices_plain``, the
     plain chain's own per-tile batch choices) on the same CUDA inputs: the
     same (mode, level) in every slot of every tile, exactly."""
@@ -824,9 +824,9 @@ def test_texture_general_instance_chained_and_with_the_sky(cuda, baked, mode, ca
     """The general texture instance where ``test_texture_kernel_matches_plain``
     takes the fixed one: chained over a far moon on a 256-row shard (rows
     256-511 of a 512×128 frame, through the band entries), and fused with
-    a panorama sky (its choice made by the instance's tile choice, no sky
+    a panorama sky (its choice made by the instance's tile pass, no sky
     pre-pass); against the plain version on the same CUDA inputs at the
-    cloud tolerance; its tile choice alone against its plain version,
+    cloud tolerance; its tile pass's choices alone against their plain version,
     exactly, on the same inputs (chained: the layer below as the kernel
     rendered it)."""
     import chip_smoke as cs

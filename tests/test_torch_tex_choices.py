@@ -1,4 +1,4 @@
-"""The general texture instance's tile choice on the CPU: its plain version
+"""The general texture instance's tile choices on the CPU: their plain version
 ``megakernel.tex_choices_plain`` against the choices the plain chain makes.
 
 The CUDA kernel ``tex_choice_kernel`` (``csrc/megakernel.cu``) writes, per
