@@ -1820,12 +1820,11 @@ __global__ void __launch_bounds__(128) megakernel_clear(const MegakernelParams p
 }
 
 // ---------------------------------------------------------------------------
-// The procedural frame kernel (megakernel_gen<C>, K1 slice (h)), one
-// instance per C = coverage_lod coarse pixels per thread.  One thread per
-// column and per group of G = cloud_lod * C rows, G dividing the 32-row
-// tile; a block is 128 columns of one group (as is the general texture
-// instance's frame, which shares its march, march_pixels).  Shared memory,
-// in rows of one float per thread (gen_layout):
+// The procedural frame kernel (K1 slice (h)): every procedural config the
+// JAX megakernel renders, one instance per C = coverage_lod coarse pixels
+// per thread.  One thread per column and per group of G = cloud_lod * C
+// rows, G dividing the 32-row tile; a block is 128 columns of one group.
+// Shared memory, in rows of one float per thread (gen_layout):
 //   * the knots (coverage, shape, detail: any counts), knot-major with a
 //     stride of the block's 128 threads;
 //   * per coarse pixel of the group, its march inputs (model-space ray,
@@ -1836,14 +1835,14 @@ __global__ void __launch_bounds__(128) megakernel_clear(const MegakernelParams p
 //   1. the coarse pass: every row of the group once (ray, opaque pass or
 //      the layers below, sky, atmosphere, linear depth out), its
 //      background to the color plane and its atmosphere to the row cache;
-//      the coarse pixels' rays and spans (coarse_pass);
+//      the coarse pixels' rays and spans;
 //   2. the knots of the thread's coverage group, where a coarse pixel sees
 //      the cloud layer, and the cull;
 //   3. the march of each of the thread's coarse pixels that sees the
 //      layer and passes the cull, the fields of its steps inlined
-//      (march_pixels);
+//      (march_pixels, shared with the general texture instance's frame);
 //   4. each row blended with its coarse pixel's clouds over its
-//      background, and stored (blend_rows).
+//      background, and stored.
 // Without the row cache, stage 1 computes the coarse inputs alone and
 // stage 4 shades each row again (two opaque passes per pixel).
 
@@ -1860,85 +1859,6 @@ __host__ __device__ __forceinline__ int knot_rows(const MegakernelParams& p) {
 // the march inputs of a coarse pixel, rows of the state (the march writes
 // its light and alpha over the first two)
 constexpr int MK_IN_RX = 0, MK_IN_RY = 1, MK_IN_RZ = 2, MK_IN_TB = 3, MK_IN_TEM = 4, MK_IN_JIT = 5;
-
-// What stage 1 leaves a thread: which of its coarse pixels see the cloud
-// layer (bit k) and its coverage group's knot inputs (mean model-space ray,
-// not renormalized, and mean span).
-struct GroupInputs {
-  unsigned vis;
-  V3 rk;
-  float t0k, t1k;
-};
-
-// Stage 1 for the thread of column x and the group of C coarse pixels from
-// row y0 (n_rows of its rows inside the launch): state and cache are the
-// block's march inputs and row cache, tid the thread's column in them.
-__device__ __forceinline__ GroupInputs coarse_pass(const MegakernelParams& p, int C,
-                                                   const float* blue, int x, int y0, int n_rows,
-                                                   bool live,
-                                                   int row_cache, float* color, float* depth,
-                                                   const Sky& sky, bool count, unsigned& n_atmo,
-                                                   unsigned& n_v1, unsigned& n_sky,
-                                                   unsigned& n_seg, float* state, float* cache,
-                                                   int tid) {
-  constexpr int T = MK_TILE_COLS;
-  const int L = p.cloud_lod;
-  GroupInputs gi{0u, v3(0.0f, 0.0f, 0.0f), 0.0f, 0.0f};
-  if (live) {
-    for (int k = 0; k < C; ++k) {
-      V3 rd_sum = v3(0.0f, 0.0f, 0.0f);
-      float depth_min = 0.0f, jit_first = 0.0f;
-      for (int l = 0; l < L; ++l) {
-        const int r = k * L + l;
-        const bool shade = row_cache && r < n_rows;  // a partial last group's other rows
-        Pixel px;                                     // only enter its coarse inputs
-        shade_pixel(p, blue, x, y0 + r, shade, color, depth, sky, count, n_atmo, n_v1, n_sky,
-                    n_seg, px);
-        if (shade) {
-          if (!p.with_background) {  // a chained layer's background is in color already
-            const size_t o = (size_t)(y0 + r) * p.width + x;
-            color[o * 3 + 0] = px.bg.x;
-            color[o * 3 + 1] = px.bg.y;
-            color[o * 3 + 2] = px.bg.z;
-          }
-          float* a = cache + r * 4 * T + tid;
-          if (px.hit) {
-            a[0] = px.atm[0];
-            a[T] = px.atm[1];
-            a[2 * T] = px.atm[2];
-          }
-          a[3 * T] = px.hit ? px.atm[3] : -1.0f;
-        }
-        if (l == 0) {
-          rd_sum = px.rd;
-          depth_min = px.depth;
-          jit_first = px.jitter;
-        } else {
-          rd_sum = add(rd_sum, px.rd);
-          depth_min = fminf(depth_min, px.depth);
-        }
-      }
-      const CoarseRay cr = coarse_ray(p, L, rd_sum, depth_min);
-      gi.vis |= (unsigned)cr.vis << k;
-      float* in = state + k * T + tid;
-      in[MK_IN_RX * C * T] = cr.rd_model.x;
-      in[MK_IN_RY * C * T] = cr.rd_model.y;
-      in[MK_IN_RZ * C * T] = cr.rd_model.z;
-      in[MK_IN_TB * C * T] = cr.tb;
-      in[MK_IN_TEM * C * T] = cr.tem;
-      in[MK_IN_JIT * C * T] = jit_first;
-      gi.rk = k == 0 ? cr.rd_model : add(gi.rk, cr.rd_model);
-      gi.t0k = k == 0 ? cr.tb : gi.t0k + cr.tb;
-      gi.t1k = k == 0 ? cr.tem : gi.t1k + cr.tem;
-    }
-    if (C > 1) {
-      gi.rk = v3(gi.rk.x / (float)C, gi.rk.y / (float)C, gi.rk.z / (float)C);
-      gi.t0k = gi.t0k / (float)C;
-      gi.t1k = gi.t1k / (float)C;
-    }
-  }
-  return gi;
-}
 
 // Stage 3: the march of each of the C coarse pixels in marches, its fields
 // from F, its light and alpha over its march inputs.
@@ -1958,51 +1878,6 @@ __device__ __forceinline__ void march_pixels(const MegakernelParams& p, int C, c
     in[C * T] = alpha;
     ++n_march;
     if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
-  }
-}
-
-// Stage 4: each of the group's rows inside the launch blended with its
-// coarse pixel's clouds (C of them), composited over its background, stored
-// (without the row cache each row is shaded again first).
-__device__ __forceinline__ void blend_rows(const MegakernelParams& p, int C, const float* blue,
-                                           int x, int y0, int n_rows, bool live, int row_cache,
-                                           unsigned vis, unsigned marches, const float* state,
-                                           const float* cache, float* color, float* alpha_out,
-                                           float* depth, const Sky& sky, bool count,
-                                           unsigned& n_atmo, unsigned& n_v1, unsigned& n_sky,
-                                           unsigned& n_seg, int tid) {
-  constexpr int T = MK_TILE_COLS;
-  const int L = p.cloud_lod;
-  if (!live) return;
-  for (int r = 0; r < n_rows; ++r) {
-    const int k = r / L;
-    RowPix<1> s;
-    if (row_cache) {
-      const size_t o = (size_t)(y0 + r) * p.width + x;
-      const float* a = cache + r * 4 * T + tid;
-      s.bg[0] = v3(color[o * 3 + 0], color[o * 3 + 1], color[o * 3 + 2]);
-      s.hit[0] = a[3 * T] >= 0.0f;
-      if (s.hit[0]) {
-        s.atm[0][0] = a[0];
-        s.atm[0][1] = a[T];
-        s.atm[0][2] = a[2 * T];
-        s.atm[0][3] = a[3 * T];
-      }
-    } else {
-      Pixel px;
-      shade_pixel(p, blue, x, y0 + r, true, color, depth, sky, count, n_atmo, n_v1, n_sky, n_seg,
-                  px);
-      s.bg[0] = px.bg;
-      s.hit[0] = px.hit;
-      if (px.hit) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s.atm[0][c] = px.atm[c];
-      }
-    }
-    const bool vis_k = (vis >> k) & 1u, marched = (marches >> k) & 1u;
-    const float la = marched ? state[k * T + tid] : 0.0f;
-    const float ca = marched ? state[(C + k) * T + tid] : 0.0f;
-    blend_and_store(p, x, y0 + r, 1, 1, s, &vis_k, &la, &ca, color, alpha_out);
   }
 }
 
@@ -2048,11 +1923,65 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
   FieldWork fw{0u, 0u, 0u};
   StageClock clk;
 
-  // 1. the coarse pass
-  const GroupInputs gi = coarse_pass(p, C, blue, x, y0, n_rows, live, row_cache, color, depth,
-                                     sky, work != nullptr, n_atmo, n_v1, n_sky, n_seg, state,
-                                     cache, tid);
-  const unsigned vis = gi.vis;
+  // 1. the coarse pass: each row once; the coarse pixels' rays and spans,
+  // and the coverage group's knot inputs (mean model-space ray, not
+  // renormalized, and mean span)
+  unsigned vis = 0;  // bit k: coarse pixel k sees the cloud layer
+  V3 rk = v3(0.0f, 0.0f, 0.0f);
+  float t0k = 0.0f, t1k = 0.0f;
+  if (live) {
+    for (int k = 0; k < C; ++k) {
+      V3 rd_sum = v3(0.0f, 0.0f, 0.0f);
+      float depth_min = 0.0f, jit_first = 0.0f;
+      for (int l = 0; l < L; ++l) {
+        const int r = k * L + l;
+        const bool shade = row_cache && r < n_rows;  // a partial last group's other rows
+        Pixel px;                                     // only enter its coarse inputs
+        shade_pixel(p, blue, x, y0 + r, shade, color, depth, sky, work != nullptr, n_atmo, n_v1,
+                    n_sky, n_seg, px);
+        if (shade) {
+          if (!p.with_background) {  // a chained layer's background is in color already
+            const size_t o = (size_t)(y0 + r) * p.width + x;
+            color[o * 3 + 0] = px.bg.x;
+            color[o * 3 + 1] = px.bg.y;
+            color[o * 3 + 2] = px.bg.z;
+          }
+          float* a = cache + r * 4 * T + tid;
+          if (px.hit) {
+            a[0] = px.atm[0];
+            a[T] = px.atm[1];
+            a[2 * T] = px.atm[2];
+          }
+          a[3 * T] = px.hit ? px.atm[3] : -1.0f;
+        }
+        if (l == 0) {
+          rd_sum = px.rd;
+          depth_min = px.depth;
+          jit_first = px.jitter;
+        } else {
+          rd_sum = add(rd_sum, px.rd);
+          depth_min = fminf(depth_min, px.depth);
+        }
+      }
+      const CoarseRay cr = coarse_ray(p, L, rd_sum, depth_min);
+      vis |= (unsigned)cr.vis << k;
+      float* in = state + k * T + tid;
+      in[MK_IN_RX * C * T] = cr.rd_model.x;
+      in[MK_IN_RY * C * T] = cr.rd_model.y;
+      in[MK_IN_RZ * C * T] = cr.rd_model.z;
+      in[MK_IN_TB * C * T] = cr.tb;
+      in[MK_IN_TEM * C * T] = cr.tem;
+      in[MK_IN_JIT * C * T] = jit_first;
+      rk = k == 0 ? cr.rd_model : add(rk, cr.rd_model);
+      t0k = k == 0 ? cr.tb : t0k + cr.tb;
+      t1k = k == 0 ? cr.tem : t1k + cr.tem;
+    }
+    if (C > 1) {
+      rk = v3(rk.x / (float)C, rk.y / (float)C, rk.z / (float)C);
+      t0k = t0k / (float)C;
+      t1k = t1k / (float)C;
+    }
+  }
   clk.mark(MK_STAGE_COARSE);
 
   // 2. the coverage group's knots, where a coarse pixel sees the layer
@@ -2065,7 +1994,7 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
       const int K = p.coverage_knots;
       for (int k = 0; k <= K; ++k) {
         const float v = field(p.coverage, coverage_point(
-            p, group_knot_pos(rom, gi.rk, gi.t0k, gi.t1k, (float)((double)k / (double)K))));
+            p, group_knot_pos(rom, rk, t0k, t1k, (float)((double)k / (double)K))));
         kn[k * T] = v;
         cov_max = k == 0 ? v : fmaxf(cov_max, v);
       }
@@ -2076,7 +2005,7 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
       const int K = p.shape_knots;
       float* dk = kn + (K + 1) * T;
       for (int k = 0; k <= K; ++k) {
-        const V3 pos = group_knot_pos(rom, gi.rk, gi.t0k, gi.t1k, (float)((double)k / (double)K));
+        const V3 pos = group_knot_pos(rom, rk, t0k, t1k, (float)((double)k / (double)K));
         kn[k * T] = field(p.shape, mul(pos, p.cloud_shape_scale));
         if (full) dk[k * T] = field(p.shape, detail_point(p, pos));
       }
@@ -2109,8 +2038,38 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
 
   // 4. blend each of the group's rows inside the launch with its coarse
   // pixel's clouds, composite over its background, store
-  blend_rows(p, C, blue, x, y0, n_rows, live, row_cache, vis, marches, state, cache, color,
-             alpha_out, depth, sky, work != nullptr, n_atmo, n_v1, n_sky, n_seg, tid);
+  if (live) {
+    for (int r = 0; r < n_rows; ++r) {
+      const int k = r / L;
+      RowPix<1> s;
+      if (row_cache) {
+        const size_t o = (size_t)(y0 + r) * p.width + x;
+        const float* a = cache + r * 4 * T + tid;
+        s.bg[0] = v3(color[o * 3 + 0], color[o * 3 + 1], color[o * 3 + 2]);
+        s.hit[0] = a[3 * T] >= 0.0f;
+        if (s.hit[0]) {
+          s.atm[0][0] = a[0];
+          s.atm[0][1] = a[T];
+          s.atm[0][2] = a[2 * T];
+          s.atm[0][3] = a[3 * T];
+        }
+      } else {
+        Pixel px;
+        shade_pixel(p, blue, x, y0 + r, true, color, depth, sky, work != nullptr, n_atmo, n_v1,
+                    n_sky, n_seg, px);
+        s.bg[0] = px.bg;
+        s.hit[0] = px.hit;
+        if (px.hit) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s.atm[0][c] = px.atm[c];
+        }
+      }
+      const bool vis_k = (vis >> k) & 1u, marched = (marches >> k) & 1u;
+      const float la = marched ? state[k * T + tid] : 0.0f;
+      const float ca = marched ? state[(C + k) * T + tid] : 0.0f;
+      blend_and_store(p, x, y0 + r, 1, 1, s, &vis_k, &la, &ca, color, alpha_out);
+    }
+  }
   clk.mark(MK_STAGE_BLEND);
   if (work) {
     count_work(work, MK_WORK_PIXELS, live ? n_rows : 0);
@@ -2772,6 +2731,16 @@ __global__ void __launch_bounds__(MK_TILE_COLS * MK_TEXG_CHOICE_ROWS, 2)
 }
 
 
+// What the general texture instance's frame knows of its group after its
+// first stage: which of its coarse pixels see the cloud layer (bit k) and
+// the group's knot inputs (mean model-space ray, not renormalized, and mean
+// span).
+struct GroupInputs {
+  unsigned vis;
+  V3 rk;
+  float t0k, t1k;
+};
+
 // Stage 2 of the general texture instance: the coverage group's knots,
 // where a coarse pixel sees the layer, into the thread's knot rows (kn, a
 // stride of the block); a baked field's sampled with its batch's choice
@@ -2865,7 +2834,8 @@ __global__ void __launch_bounds__(MK_TILE_COLS, texg_min_blocks)
   const bool full = !p.always_low;
   StageClock clk;
 
-  // 1. the march inputs and the knot inputs, in coarse_pass's order
+  // 1. the march inputs and, from them, the knot inputs (in the tile pass's
+  // order of operations)
   GroupInputs gi{0u, v3(0.0f, 0.0f, 0.0f), 0.0f, 0.0f};
   if (live) {
     const size_t plane = (size_t)sc.coarse_rows * p.width;

@@ -466,9 +466,11 @@ def tex_info(struct: MegakernelParams, tparams: TexParams, general: bool = False
     """What the texture instance that would launch ``struct`` with the
     pyramid struct ``tparams`` uses on this card (:data:`TEX_INFO`): its
     rows per coverage group G, registers, local memory (stack), resident
-    CTAs (tiles) per SM, dynamic shared memory, threads per CTA and which
-    instance it is (the fixed one or the general one, as the launcher
-    picks; the general one where ``general``, as :func:`launch` takes it)."""
+    CTAs per SM, dynamic shared memory, threads per CTA and which instance
+    it is (the fixed one or the general one, as the launcher picks; the
+    general one where ``general``, as :func:`launch` takes it): the fixed
+    instance's one CTA per tile, the general instance's frame and, as
+    ``choice_*``, its tile pass."""
     out = (ctypes.c_int * len(TEX_INFO))()
     rc = load_library().megakernel_tex_info(ctypes.byref(struct), ctypes.byref(tparams), out,
                                             int(general))
