@@ -2310,8 +2310,8 @@ __global__ void __launch_bounds__(tex_threads(G), tex_min_blocks(G))
 // A pixel's opaque pass and atmosphere run once, at 32 warps per SM; the
 // design it replaces ran the opaque pass three times in one 512-thread
 // block per tile at 16 warps per SM.  On an H100 at 700 W the 1080p texture
-// reference profile (G = 1) takes 1.30 ms against 1.69 before, full
-// quality 0.83 (1.03), the mixed layers 1.11 (1.27) and 1.42 (1.70), the
+// reference profile (G = 1) takes 1.31 ms against 1.70 before, full
+// quality 0.84 (1.02), the mixed layers 1.12 (1.28) and 1.43 (1.71), the
 // tile pass 0.31-0.45 of each (compare_megakernel.py, PERF.md).  Measured
 // and not kept: the frame shading each row itself (megakernel_gen's row
 // cache, the issue's suggestion): its coarse pass at 16-24 warps per SM
