@@ -205,8 +205,8 @@ card check run in three more phases:
    texture instance, no plain call; the general instance with its tile
    choice) against plain: the cloud tolerance, the detail or knot-group
    tolerance only where that measurement fails it; and each case's tile
-   choice alone (``mk.tex_choices``) against its plain version
-   (``mk.tex_choices_plain``), exactly;
+   choices, as a launch of the general instance returns them, against
+   their plain version (``mk.tex_choices_plain``), exactly;
 3i. the gas giant's 192×128 limb band (cell 7's scene): the kernel, the
    plain chain on the card and on the CPU, and the JAX XLA frame
    (``tests/golden_gas_giant_xla.npz``), every pair under the gas-giant
@@ -217,12 +217,12 @@ card check run in three more phases:
    texture full quality, baked shape beside procedural coverage knots and
    procedural per-step shape beside baked coverage (4 launches of the
    general instance, each with its tile pass, no plain call), each
-   against the whole plain frame and its tile pass's choices alone against its
-   plain version (exact), then timed: the two launches' ms by events, each
-   one's device time, the bound (the frame's from its work counters plus
-   the tile pass's), the tile pass alone, ``Scene.render`` ms and idle
-   share, the plain ms, the instance's registers, stack and blocks per SM;
-   and bench cell 6 through both texture instances (the general one asked
+   against the whole plain frame and its launch's tile choices against
+   their plain version (exact), then timed: the two launches' ms by
+   events, each one's device time, each one's bound from the work counters
+   (each charged with what it runs) and the two launches' together,
+   ``Scene.render`` ms and idle share, the plain ms, the instance's
+   registers, stack and blocks per SM; and bench cell 6 through both texture instances (the general one asked
    for, ``mk.launch(general=True)``), timed and compared.
 
 Prints a JSON line describing each kernel (with its roofline bound from
@@ -282,7 +282,12 @@ PEAK_BYTES = 3.35e12
 # special function; a fused multiply-add counts 2; loads count 0), fp32
 # apart from int32 (one per integer instruction).  The kernel's work
 # counters say how many units this run's inputs needed.
-OPS_PIXEL = 260            # ray, opaque pass, shell and ground hits, composite
+# a pixel's ray, opaque pass, shell and ground hits (200) and its blend:
+# the clouds over the atmosphere and the composite over the background
+# (blend_and_store, 60)
+OPS_SHADE_PIXEL = 200
+OPS_BLEND_PIXEL = 60
+OPS_PIXEL = OPS_SHADE_PIXEL + OPS_BLEND_PIXEL
 # One v2 integration (atmosphere_v2): per pixel the step length and start
 # (9) and the output mix (16); per step (config.atmosphere_steps of them)
 # the sun depth's chord (optical_depth_analytic: position, radius clamp,
@@ -341,17 +346,16 @@ OPS_SKY_UV = 66
 OPS_SKY_CHOICE_RAY = 25 + OPS_SKY_UV
 OPS_SKY_SAMPLE = 62 + 60
 OPS_SKY_FLOOR = 62 + 20
-# the general texture instance's tile pass (tex_choice_kernel), the first
-# of its two launches, beyond the pixels' shading (the frame's work
-# counters: OPS_PIXEL, the atmosphere): each coarse pixel's coarse inputs
-# (its mean ray, cloud-shell hits, visibility and model-space ray, and its
-# share of the group's means: 75), each baked knot's sampler coordinates
-# for its batch (its position 10, min and max 6, and by field: coverage's
-# rotation, normalisation and polynomial (u, v) 75, shape's scale and wrap
-# 9, detail's 12); the sky's choice, where the launch draws it, is
-# sky_cost's (in the tile's block).  Bytes: the blue noise read and the
-# choices written once (the layers below' depth too, where chained); its
-# scratch for the frame is neither input nor output.
+# the general texture instance's tile pass (tex_choice_kernel), beyond the
+# pixels' shading: each coarse pixel's coarse inputs (its mean ray,
+# cloud-shell hits, visibility and model-space ray, and its share of the
+# group's means: 75) and, for each baked knot of a coverage group that the
+# frame samples no knot of, its sampler coordinates for its batch's choice
+# (its position 10, min and max 6, and by field: coverage's rotation,
+# normalisation and polynomial (u, v) 75, shape's scale and wrap 9,
+# detail's 12).  A sampled knot's coordinates and its share of the choice
+# are its sample's (OPS_TEX3D's position and footprint pass, OPS_LATLONG's
+# second (u, v)), so they are charged once.
 OPS_CHOICE_COARSE = 75
 OPS_CHOICE_COORD = (91, 25, 28)
 # frame-plane bytes per pixel: a fused layer writes color and alpha (16); a
@@ -713,23 +717,22 @@ def atmosphere_ops(work: dict, config) -> int:
             + work["v1_atmosphere"] * (OPS_V1_PIXEL + n * OPS_V1_STEP))
 
 
-def roofline(work: dict, config, height: int, width: int, table_bytes: int = 0,
-             frame_bytes=None, sky_bytes: int = 0, sky_choice_ops: int = 0) -> dict:
-    """The least time the card could take for this launch's work: the
-    larger of its operations' time (:func:`ops_time_ms`, fp32 and int32
-    apart) and its bytes (frame planes read and written once,
-    ``frame_bytes``, by default the outputs of a fullscreen layer; blue
-    noise and pyramids read once; ``sky_bytes``: the sky levels its tiles
-    chose) over the HBM rate.  ``sky_choice_ops``: the operations of the
-    sky's per-tile choice (:func:`sky_cost`).  A procedural layer's noise
-    comes from the work counters: the procedural instance counts each
-    field's evaluations and knots."""
+def work_ops(work: dict, config) -> dict:
+    """A launch's operations from its work counts, by what runs them:
+    ``shade`` (each pixel's ray, opaque pass and hits, its atmosphere, the
+    opaque-only pixels, the sky's samples), ``blend`` (each pixel's clouds
+    and composite), ``clouds`` (the march, the sun samples, the baked
+    fields' samples, the procedural fields' noise) and ``int_ops`` (the
+    noise's int32 instructions).  A procedural layer's noise comes from the
+    work counters: the procedural instance counts each field's evaluations
+    and knots."""
     steps = config.cloud_steps
-    ops = (work["pixels"] * OPS_PIXEL + atmosphere_ops(work, config)
-           + work["opaque_pixels"] * OPS_OPAQUE_PIXEL
-           + work["march"] * steps * OPS_STEP + work["sun_samples"] * OPS_SUN_SAMPLE
-           + work["tex3d"] * OPS_TEX3D + work["tex3d_floor"] * OPS_TEX3D_FLOOR
-           + work["latlong"] * OPS_LATLONG + work["latlong_floor"] * OPS_LATLONG_FLOOR)
+    shade = (work["pixels"] * OPS_SHADE_PIXEL + atmosphere_ops(work, config)
+             + work["opaque_pixels"] * OPS_OPAQUE_PIXEL
+             + work["sky"] * OPS_SKY_SAMPLE + work["sky_floor"] * OPS_SKY_FLOOR)
+    clouds = (work["march"] * steps * OPS_STEP + work["sun_samples"] * OPS_SUN_SAMPLE
+              + work["tex3d"] * OPS_TEX3D + work["tex3d_floor"] * OPS_TEX3D_FLOOR
+              + work["latlong"] * OPS_LATLONG + work["latlong_floor"] * OPS_LATLONG_FLOOR)
     # each procedural field's noise by its own spec (a baked field's samples
     # are the tex3d and latlong slots above, the detail knots among them):
     # coverage knots (knot_groups groups of K + 1) and per-step evaluations,
@@ -745,29 +748,57 @@ def roofline(work: dict, config, height: int, width: int, table_bytes: int = 0,
         detail = (shape[0] + DETAIL_POINT_OPS, shape[1])
         units += [(shape, work["shape_evals"]), (detail, work["detail_evals"]),
                   (shape, work["shape_knots"]), (detail, work["detail_knots"])]
-    ops += sum(u[0] * n for u, n in units)
-    int_ops = sum(u[1] * n for u, n in units)
-    ops += (sky_choice_ops + work["sky"] * OPS_SKY_SAMPLE
-            + work["sky_floor"] * OPS_SKY_FLOOR)
-    if frame_bytes is None:
-        frame_bytes = height * width * BYTES_LAYER_PIXEL
-    nbytes = frame_bytes + 256 * 256 * 4 + table_bytes + sky_bytes
+    clouds += sum(u[0] * n for u, n in units)
+    return {"shade": shade, "blend": work["pixels"] * OPS_BLEND_PIXEL, "clouds": clouds,
+            "int_ops": sum(u[1] * n for u, n in units)}
+
+
+def _bound(ops: int, int_ops: int, nbytes: int) -> dict:
     t_ops, t_bytes = ops_time_ms(ops, int_ops), nbytes / PEAK_BYTES * 1e3
     return {"ops": ops, "int_ops": int_ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def tex_choice_roofline(struct, tparams) -> dict:
-    """What the general texture instance's tile pass adds to a launch's
-    bound (:data:`OPS_CHOICE_COARSE` and what follows it): each coarse
-    pixel of the launch's padded tile grid, each baked knot of each
-    coverage group; the blue noise, the layers below' depth (chained) and
-    the choices as bytes."""
+def roofline(work: dict, config, height: int, width: int, table_bytes: int = 0,
+             frame_bytes=None, sky_bytes: int = 0, sky_choice_ops: int = 0) -> dict:
+    """The least time the card could take for this launch's work: the
+    larger of its operations' time (:func:`ops_time_ms`, fp32 and int32
+    apart; :func:`work_ops`) and its bytes (frame planes read and written
+    once, ``frame_bytes``, by default the outputs of a fullscreen layer;
+    blue noise and pyramids read once; ``sky_bytes``: the sky levels its
+    tiles chose) over the HBM rate.  ``sky_choice_ops``: the operations of
+    the sky's per-tile choice (:func:`sky_cost`)."""
+    ops = work_ops(work, config)
+    if frame_bytes is None:
+        frame_bytes = height * width * BYTES_LAYER_PIXEL
+    return _bound(ops["shade"] + ops["blend"] + ops["clouds"] + sky_choice_ops, ops["int_ops"],
+                  frame_bytes + 256 * 256 * 4 + table_bytes + sky_bytes)
+
+
+def tex_general_roofline(work: dict, config, struct, tparams, table_bytes: int,
+                         frame_bytes: int, sky_bytes: int = 0, sky_choice_ops: int = 0,
+                         depth_bytes: int = 0) -> dict:
+    """The general texture instance's bound, each of its two launches
+    charged with what it runs (:func:`roofline`'s arguments; ``depth_bytes``:
+    the depth plane's share of ``frame_bytes``, read by a chained layer or
+    written on a shard).  ``tile``, the tile pass: the pixels' shading and
+    atmosphere and the sky (:func:`work_ops`'s ``shade``, ``sky_choice_ops``),
+    the coarse pixels of its padded tile grid and the knot coordinates of
+    the coverage groups the frame does not sample (:data:`OPS_CHOICE_COARSE`);
+    bytes: the blue noise, the sky's levels, the depth plane and the
+    choices.  ``frame``: the blend and the clouds; bytes: the other frame
+    planes and the pyramids.  ``bound_ms`` and ``bound_by``: the two
+    launches' work together, as one launch's (the sum of theirs where both
+    are bound by fp32 operations; less where the frame's int32 noise
+    leaves room for the tile pass's fp32 work), so that the bound is the
+    function's, whatever launches run it."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
+    ops = work_ops(work, config)
     tiles, slots, _ = mk.tex_choice_shape(struct, tparams)
     rays = tiles * TILE * 128
     groups = rays // (struct.cloud_lod * struct.coverage_lod)
+    # the knots of one coverage group whose coordinates take part in a choice
     coords = 0
     if tparams.cov_source == mk.SOURCE_PYRAMID:
         coords += (struct.coverage_knots + 1) * OPS_CHOICE_COORD[0]
@@ -775,12 +806,15 @@ def tex_choice_roofline(struct, tparams) -> dict:
         coords += (struct.shape_knots + 1) * OPS_CHOICE_COORD[1]
         if not struct.always_low:
             coords += (struct.shape_knots + 1) * OPS_CHOICE_COORD[2]
-    ops = rays // struct.cloud_lod * OPS_CHOICE_COARSE + groups * coords
-    nbytes = (256 * 256 * 4 + tiles * slots * 8
-              + (struct.rows * struct.width * 4 if struct.with_background else 0))
-    t_ops, t_bytes = ops_time_ms(ops), nbytes / PEAK_BYTES * 1e3
-    return {"ops": ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    if not 0 <= work["knot_groups"] <= groups:
+        raise RuntimeError(f"{work['knot_groups']} coverage groups sampled of {groups}")
+    tile = _bound(ops["shade"] + sky_choice_ops + rays // struct.cloud_lod * OPS_CHOICE_COARSE
+                  + (groups - work["knot_groups"]) * coords, 0,
+                  256 * 256 * 4 + sky_bytes + depth_bytes + tiles * slots * 8)
+    frame = _bound(ops["blend"] + ops["clouds"], ops["int_ops"],
+                   frame_bytes - depth_bytes + table_bytes)
+    return dict(_bound(tile["ops"] + frame["ops"], frame["int_ops"],
+                       tile["bytes"] + frame["bytes"]), tile=tile, frame=frame)
 
 
 def sky_cost(cam, height: int, width: int, meta, in_block: bool, row0: int = 0,
@@ -1032,11 +1066,15 @@ def check_flight(label, out, ref) -> float:
 def kernel_traces(fn, names) -> dict:
     """One call of ``fn`` under ``torch.profiler``: for each of ``names``,
     how many kernels whose name holds it ran, their mean device time and
-    the mean interval between the starts of consecutive ones (µs)."""
+    the mean interval between the starts of consecutive ones (µs).  A small
+    kernel and a synchronisation come first inside the trace, as in
+    :func:`flight_trace`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1.0)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
     out = {}
@@ -1418,8 +1456,9 @@ def tex_envelope_tolerance(config, conditioning: dict) -> tuple:
 
 
 def tex_choice_check(scene, cam, h: int, w: int, device) -> dict:
-    """The general texture instance's tile pass alone (``mk.tex_choices``)
-    for a one-layer texture frame's launch against its plain version
+    """The tile choices of a one-layer texture frame's launch through the
+    general texture instance (the buffer its tile pass wrote, as
+    ``mk.launch(general=True)`` returns it) against their plain version
     (``mk.tex_choices_plain``, the plain chain's own samplers) on the same
     inputs: ``{"slots": compared, "tiles": tiles, "differ": slots whose
     (mode, level) differ, "max_abs": their largest |Δ|, "plain_ms": the
@@ -1429,7 +1468,9 @@ def tex_choice_check(scene, cam, h: int, w: int, device) -> dict:
     params, configs, tex, bands, rows = scene_plan(scene, cam, h)
     (_, struct, args), = mk.scene_launches(params, configs, cam, scene.opaque, h, w, tex_data=tex,
                                            bands=bands, band_rows=rows)
-    got = mk.tex_choices(struct, args["tex"][0], device).cpu()
+    color = torch.empty((h, w, 3), device=device)
+    alpha = torch.empty((h, w), device=device)
+    got = mk.launch(struct, color, alpha, general=True, **args).cpu()
     torch.cuda.synchronize()
     t0 = time.time()
     ref = mk.tex_choices_plain(params[0], configs[0], cam, scene.opaque, h, w, tex[0])
@@ -1447,8 +1488,8 @@ def tex_envelope_check(device, textures, h: int, w: int, conditioning: dict) -> 
     """Phase 3h: each case of TEX_ENVELOPE_CASES through ``Scene.render``
     (one launch of a texture instance, no plain call) against the plain
     chain on the same inputs, under :func:`tex_envelope_tolerance`; which
-    instance rendered it; the general instance's tile pass alone against
-    its plain version (:func:`tex_choice_check`: exact)."""
+    instance rendered it; the general instance's tile choices against their
+    plain version (:func:`tex_choice_check`: exact)."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     out = {}
@@ -1476,11 +1517,11 @@ def tex_envelope_check(device, textures, h: int, w: int, conditioning: dict) -> 
 def tex_envelope_timing(scene, cam, h: int, w: int, device, plain_s: float) -> dict:
     """Phase 4g's timing of one frame: its texture launch (the general
     instance's two: the tile pass and the frame) alone, CUDA events
-    over both, and each one's device time from ``torch.profiler``, with its
-    bound (the frame's from its work counters, plus the tile pass's,
-    :func:`tex_choice_roofline`), ``Scene.render`` ms and idle share, the
-    plain ms (``plain_s``: the whole plain frame's wall time) and what its
-    instance uses (``mk.tex_info``)."""
+    over both, and each one's device time from ``torch.profiler``, with
+    each one's bound from the work counters and the two launches'
+    together (:func:`tex_general_roofline`), ``Scene.render`` ms and idle share, the plain ms
+    (``plain_s``: the whole plain frame's wall time) and what its instance
+    uses (``mk.tex_info``)."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     params, configs, tex, bands, rows = scene_plan(scene, cam, h)
@@ -1502,21 +1543,18 @@ def tex_envelope_timing(scene, cam, h: int, w: int, device, plain_s: float) -> d
     choice_dev = trace["tex_choice_kernel"]["device_us"] / 1e3
     t = {"kernel_ms": time_cuda(launch, ENVELOPE_KERNEL_FRAMES),
          "device_ms": frame_dev + choice_dev, "frame_device_ms": frame_dev,
-         "choice_device_ms": choice_dev,
-         "choice_ms": time_cuda(lambda i: mk.tex_choices(struct, args["tex"][0], device),
-                                ENVELOPE_KERNEL_FRAMES),
-         "scene_ms": time_cuda(frame, ENVELOPE_KERNEL_FRAMES)}
+         "choice_device_ms": choice_dev, "scene_ms": time_cuda(frame, ENVELOPE_KERNEL_FRAMES)}
     busy, _ = device_busy_ms(frame, ENVELOPE_KERNEL_FRAMES, first=2 + ENVELOPE_KERNEL_FRAMES)
     t["scene_device_busy_ms"] = busy
     t["scene_idle_share"] = 1.0 - busy / t["scene_ms"] if busy > 0 else None
     scene.update(0.5, cam)
     work = mk.work_counts(struct, color, alpha, **args)
     table_bytes = sum(x.numel() * 4 for x in tex[0] if x is not None)
-    frame_bound = roofline(work, configs[0], h, w, table_bytes)
-    choice_bound = tex_choice_roofline(struct, args["tex"][0])
-    t.update(frame_bound, work=work, frame_bound_ms=frame_bound["bound_ms"],
-             choice_bound_ms=choice_bound["bound_ms"], choice_bound_by=choice_bound["bound_by"],
-             bound_ms=frame_bound["bound_ms"] + choice_bound["bound_ms"])
+    b = tex_general_roofline(work, configs[0], struct, args["tex"][0], table_bytes,
+                             h * w * BYTES_LAYER_PIXEL)
+    t.update(work=work, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+             frame_bound_ms=b["frame"]["bound_ms"], frame_bound_by=b["frame"]["bound_by"],
+             choice_bound_ms=b["tile"]["bound_ms"], choice_bound_by=b["tile"]["bound_by"])
     t["plain_ms"] = plain_s * 1e3
     t["instance"] = mk.tex_info(struct, args["tex"][0])
     return t
@@ -3518,11 +3556,13 @@ def main(argv=None) -> int:
     }, {
         "name": "tex_choice",
         "slice": ("the general texture instance's tile pass (tex_choice_kernel), the first of "
-                  "its two launches: the sky's and each knot batch's level and mode over every "
-                  f"coverage group of a 32x128 tile (ms, device_ms, bound_ms: the "
-                  f"{TEX_REF_FRAME}'s at 1080p, alone; plain_ms: its plain version, the plain "
-                  "chain's own choices; max_abs_err: the largest |delta| of (mode, level) over "
-                  "phase 3h's cases and phase 4g's frames)"),
+                  "its two launches: every pixel's shading, and the sky's and each knot batch's "
+                  "level and mode over every coverage group of a 32x128 tile (ms: its device "
+                  f"time in the {TEX_REF_FRAME}'s launches at 1080p, torch.profiler: it runs "
+                  "only before the frame; device_ms: each 4g frame's; bound_ms: the work it "
+                  "runs; plain_ms: its plain version, the plain chain's own choices; "
+                  "max_abs_err: the largest |delta| of (mode, level) over phase 3h's cases and "
+                  "phase 4g's frames, each the buffer of a launch)"),
         "route": "cuda",
         "source": "godot_atmosphere_shader_tpu_torch/csrc/megakernel.cu",
         "replaces": ("godot_atmosphere_shader_tpu/ops/pallas/texsample.py:348 and :544 (the "
@@ -3532,7 +3572,7 @@ def main(argv=None) -> int:
         "max_abs_err": max(v["choice"]["max_abs"] for v in tex_env["frames"].values()),
         "slots_compared": (sum(v["choice"]["slots"] for v in tex_env["frames"].values())
                            + sum(v["choice_slots"] for v in tex_small.values())),
-        "ms": tex_env["frames"][TEX_REF_FRAME]["choice_ms"],
+        "ms": tex_env["frames"][TEX_REF_FRAME]["choice_device_ms"],
         "device_ms": {k: v["choice_device_ms"] for k, v in tex_env["frames"].items()},
         "plain_ms": tex_env["frames"][TEX_REF_FRAME]["choice"]["plain_ms"],
         "bound_ms": tex_env["frames"][TEX_REF_FRAME]["choice_bound_ms"],

@@ -8,9 +8,8 @@ Builds, all ``nvcc`` at once, the checkout's kernel library and one of the
 parent's sources (another commit's ``csrc/megakernel.cu`` and, when given,
 its ``csrc/taa.cu``, copied under ``build/compare/parent/`` with the
 queries ``megakernel_gen_info``, ``megakernel_tex_info``,
-``megakernel_clear_info``, ``megakernel_work_slots`` and ``taa_info``, and
-the general texture instance's ``tex_choice_launch`` (refusing), appended
-where it has none, and the checkout's layout of the texture
+``megakernel_clear_info``, ``megakernel_work_slots`` and ``taa_info``
+appended where it has none, and the checkout's layout of the texture
 launch struct where it predates it, beside the checkout's other kernel
 sources), and each side's measurement build.  Then the sides run in turns,
 ``parent, change, change, parent``; each pass takes, through that side's
@@ -63,7 +62,9 @@ per stage, summed over warps (zeros for an instance the parent does not
 clock).  It prints each pass as a JSON line, the compiler's report of each
 side's kernels, a summary of each side's SASS (``cuobjdump``): the
 instructions and MUFU operations of the loop of ``megakernel_clear`` that
-issues the most MUFU operations (the atmosphere's steps), and, last, one
+issues the most MUFU operations (the atmosphere's steps), whether each
+instance of ``megakernel_gen``, ``megakernel_tex``, ``megakernel_clear``
+and ``taa_kernel`` has the parent's SASS instruction for instruction, and, last, one
 JSON summary per frame and resolve: both sides' times, the change over the
 parent, the bound's share and whether the work counts equal the parent's.
 Run from the repository root on one card; it needs no network.
@@ -155,16 +156,6 @@ extern "C" int megakernel_clear_info(const MegakernelParams* params, int* out) {
 WORK_SLOTS_SHIM = r'''
 extern "C" int megakernel_work_slots(void) { return MK_WORK_SLOTS; }
 '''
-# the general texture instance's tile pass alone, for a parent without one
-# (its general instance, where it has one, chooses inside its own block):
-# refused
-TEX_CHOICE_SHIM = r'''
-extern "C" int tex_choice_launch(const MegakernelParams*, const TexParams*, const TexParams*,
-                                 const float*, const float*, const float*, const float*, float*,
-                                 float*, float*, int, int*, int, void*, void*) {
-  return -1;
-}
-'''
 # the resolve's query for a parent with one block of 128 x 32 / TAA_ROWS_PER_THREAD
 # threads per tile and static shared memory alone
 TAA_INFO_SHIM = r'''
@@ -187,8 +178,7 @@ extern "C" int taa_info(int* out) {
 SHIMS = {"megakernel.cu": (("megakernel_gen_info", GEN_INFO_SHIM),
                            ("megakernel_tex_info", TEX_INFO_SHIM),
                            ("megakernel_clear_info", CLEAR_INFO_SHIM),
-                           ("megakernel_work_slots", WORK_SLOTS_SHIM),
-                           ("tex_choice_launch", TEX_CHOICE_SHIM)),
+                           ("megakernel_work_slots", WORK_SLOTS_SHIM)),
          "taa.cu": (("taa_info", TAA_INFO_SHIM),)}
 
 
@@ -278,23 +268,52 @@ def build_sides(parent_cu: str, parent_taa=None) -> tuple:
             {k: gen_report(v[1]) for k, v in built.items() if v[1]})
 
 
+# the kernels that a change to the general texture instance leaves as they
+# were: each instance's SASS is held against the parent's (sass_equal)
+UNCHANGED = ("megakernel_gen", "megakernel_tex", "megakernel_clear", "taa_kernel")
+
+
+def sass_functions(lib: str) -> dict:
+    """Each kernel of the library ``lib`` (``cuobjdump -sass``) by mangled
+    name: its instructions as ``(offset, text)``, encodings dropped."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([cuobjdump, "-sass", lib], check=True, capture_output=True,
+                          text=True).stdout
+    out, code = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            code = out.setdefault(m.group(1), [])
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if code is not None and m:
+            code.append((int(m.group(1), 16), m.group(2)))
+    return out
+
+
+def base_name(mangled: str) -> str:
+    """A mangled kernel name's identifier (``_Z14megakernel_genILi1EE...``:
+    ``megakernel_gen``)."""
+    m = re.match(r"_Z(\d+)", mangled)
+    return mangled[m.end():m.end() + int(m.group(1))] if m else mangled
+
+
+def sass_equal(parent: str, change: str) -> dict:
+    """Each instance of the kernels of :data:`UNCHANGED` in the libraries
+    ``parent`` and ``change``, by mangled name: whether its SASS is the
+    same instruction for instruction, and its instructions on each side."""
+    a, b = sass_functions(parent), sass_functions(change)
+    return {name: {"equal": a.get(name) == b.get(name),
+                   "instructions": [len(a.get(name, ())), len(b.get(name, ()))]}
+            for name in sorted(set(a) | set(b)) if base_name(name) in UNCHANGED}
+
+
 def sass_summary(lib: str, kernel: str = "megakernel_clear") -> dict:
     """The SASS of ``kernel`` in the library ``lib`` (``cuobjdump -sass``):
     its instructions and MUFU operations, and those of its loop (a branch
     back to an earlier offset) that holds the most MUFU operations, by
     kind."""
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([cuobjdump, "-sass", lib], check=True, capture_output=True,
-                          text=True).stdout
-    code, inside = [], False
-    for line in text.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            inside = kernel in m.group(1)
-            continue
-        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
-        if inside and m:
-            code.append((int(m.group(1), 16), m.group(2)))
+    code = [ins for name, rows in sass_functions(lib).items() if kernel in name for ins in rows]
 
     def mufu(rows):
         kinds = {}
@@ -562,8 +581,9 @@ def resolve_pass(all_resolves: dict, ref_dir: str) -> dict:
 
 def bound(case: Case, i: int, work: dict) -> dict:
     """The launch's roofline bound as ``chip_smoke.py`` takes it (the
-    general texture instance's: its frame's plus its tile pass's); none
-    for work counts without every slot the bound reads (a parent's)."""
+    general texture instance's: its tile pass's plus its frame's, each
+    also apart); none for work counts without every slot the bound reads
+    (a parent's)."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     if "od_segments" not in work:
@@ -580,13 +600,16 @@ def bound(case: Case, i: int, work: dict) -> dict:
                            in_block=args["tex"] is not None, row0=st.row0, rows=st.rows)
     tl = args["tex"]
     table_bytes = 0 if tl is None else sum(x.numel() * 4 for x in tl[1:] if x is not None)
-    b = cs.roofline(work, case.config_of[i], case.h, case.w, table_bytes,
-                    frame_bytes=st.rows * case.w * per_px, sky_bytes=cost.get("sky_bytes", 0),
-                    sky_choice_ops=cost.get("sky_choice_ops", 0))
+    frame = dict(frame_bytes=st.rows * case.w * per_px, sky_bytes=cost.get("sky_bytes", 0),
+                 sky_choice_ops=cost.get("sky_choice_ops", 0))
     if tl is not None and not mk.fixed_texture_instance(st, tl[0]):
-        # the general texture instance's tile pass, its first launch
-        return {"bound_ms": b["bound_ms"] + cs.tex_choice_roofline(st, tl[0])["bound_ms"],
-                "bound_by": b["bound_by"]}
+        # the general texture instance's two launches, each charged with what it runs
+        depth = st.rows * case.w * 4 if shard or st.with_background else 0
+        b = cs.tex_general_roofline(work, case.config_of[i], st, tl[0], table_bytes,
+                                    depth_bytes=depth, **frame)
+        return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "choice_bound_ms": b["tile"]["bound_ms"], "frame_bound_ms": b["frame"]["bound_ms"]}
+    b = cs.roofline(work, case.config_of[i], case.h, case.w, table_bytes, **frame)
     return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
 
 
@@ -692,6 +715,13 @@ def run_pass(args) -> int:
     return 0
 
 
+def launch_bounds(launches: list) -> list:
+    """Each launch's bound, and where it has two kernels (the general
+    texture instance) each one's."""
+    return [{k: x[k] for k in ("bound_ms", "choice_bound_ms", "frame_bound_ms") if k in x}
+            for x in launches]
+
+
 def summarise(runs: dict, sides: list, label: str) -> dict:
     """One frame's or resolve's summary over every side's passes."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
@@ -720,7 +750,7 @@ def summarise(runs: dict, sides: list, label: str) -> dict:
     counted = [k for k in mk.WORK_SLOTS if not k.startswith("march_")]
     change = runs["change"][0][label]["launches"]
     s = {"bound_ms": sum(x["bound_ms"] for x in change),
-         "bound_by": [x["bound_by"] for x in change]}
+         "bound_by": [x["bound_by"] for x in change], "launch_bounds": launch_bounds(change)}
     parent_ms = min(r[label]["ms"] for r in runs["parent"])
     for side in sides:
         ms = [r[label]["ms"] for r in runs[side]]
@@ -756,6 +786,7 @@ def summarise_alone(passes: list, label: str) -> dict:
     bound_ms = sum(x["bound_ms"] for x in launches)
     best = min(r[label]["ms"] for r in passes)
     return {"bound_ms": bound_ms, "bound_by": [x["bound_by"] for x in launches],
+            "launch_bounds": launch_bounds(launches),
             "ms": [r[label]["ms"] for r in passes], "best_ms": best,
             "bound_share": bound_ms / best,
             "launch_device_ms": [min(r[label]["launches"][i]["device_ms"] for r in passes)
@@ -806,6 +837,10 @@ def main(argv=None) -> int:
     for side, path in paths.items():
         for kernel in ("megakernel_clear", "taa_kernel"):
             cs.log(f"[compare] SASS of {side}: {json.dumps(sass_summary(path, kernel))}")
+    same = sass_equal(paths["parent"], paths["change"])
+    cs.log(f"[compare] SASS of {', '.join(UNCHANGED)}, parent against change: "
+           f"{json.dumps(same)}; every instance the same: "
+           f"{all(v['equal'] for v in same.values())}")
     mk.load_library()
     peak = cs.peak_probe(device)
     cs.PEAK.update(fp32=max(peak["fp32_flops"], peak["clock_fp32_flops"]),

@@ -190,8 +190,8 @@
 // and max of (fu, v), hit or miss, choose one level and mode for all of
 // them; the choice decides the result, so it is kept.  The texture instance
 // already has one block per tile: a block-wide min/max before the opaque
-// pass, and so has the general one's tile pass (warp shuffles, one
-// barrier).  In the procedural instance and the opaque-only pass a block is
+// pass, and so has the general one's tile pass (sky_block_choice, as the
+// pre-pass below).  In the procedural instance and the opaque-only pass a block is
 // 128 columns x G rows and no block sees its whole tile, so a pre-pass
 // (sky_choice_kernel) writes each tile's choice first and the frame kernel
 // reads it: one choice ray per pixel instead of 32 / G.  The pre-pass is
@@ -1839,8 +1839,7 @@ __global__ void __launch_bounds__(128) megakernel_clear(const MegakernelParams p
 //   2. the knots of the thread's coverage group, where a coarse pixel sees
 //      the cloud layer, and the cull;
 //   3. the march of each of the thread's coarse pixels that sees the
-//      layer and passes the cull, the fields of its steps inlined
-//      (march_pixels, shared with the general texture instance's frame);
+//      layer and passes the cull, the fields of its steps inlined;
 //   4. each row blended with its coarse pixel's clouds over its
 //      background, and stored.
 // Without the row cache, stage 1 computes the coarse inputs alone and
@@ -1859,38 +1858,6 @@ __host__ __device__ __forceinline__ int knot_rows(const MegakernelParams& p) {
 // the march inputs of a coarse pixel, rows of the state (the march writes
 // its light and alpha over the first two)
 constexpr int MK_IN_RX = 0, MK_IN_RY = 1, MK_IN_RZ = 2, MK_IN_TB = 3, MK_IN_TEM = 4, MK_IN_JIT = 5;
-
-// Stage 3: the march of each of the C coarse pixels in marches, its fields
-// from F, its light and alpha over its march inputs.
-template <class F>
-__device__ __forceinline__ void march_pixels(const MegakernelParams& p, int C, const F& fields,
-                                             unsigned marches, float* state, int tid,
-                                             unsigned& n_march, unsigned& n_sun) {
-  constexpr int T = MK_TILE_COLS;
-  for (int k = 0; k < C; ++k) {
-    if (!((marches >> k) & 1u)) continue;
-    float* in = state + k * T + tid;
-    float light, alpha;
-    cloud_march(p, fields, v3(in[MK_IN_RX * C * T], in[MK_IN_RY * C * T], in[MK_IN_RZ * C * T]),
-                in[MK_IN_TB * C * T], in[MK_IN_TEM * C * T], in[MK_IN_JIT * C * T], light,
-                alpha);
-    in[0] = light;
-    in[C * T] = alpha;
-    ++n_march;
-    if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
-  }
-}
-
-// the warp's march lanes: warp-steps issued (the warp issues march k where
-// any lane marches it) and lane-steps run
-__device__ __forceinline__ void count_march_lanes(const MegakernelParams& p,
-                                                  unsigned long long* work, unsigned marches,
-                                                  unsigned n_march) {
-  const unsigned issued = __popc(__reduce_or_sync(0xffffffffu, marches));
-  count_work(work, MK_WORK_MARCH_WARP_STEPS,
-             (threadIdx.x & 31) ? 0u : issued * (unsigned)p.cloud_steps);
-  count_work(work, MK_WORK_MARCH_LANE_STEPS, n_march * (unsigned)p.cloud_steps);
-}
 
 template <int C>
 __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
@@ -2032,7 +1999,18 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
       det.k = full ? kn + (shp.K + 1) * T : nullptr;
     }
     const GenFields fields{cov, shp, det, full, &fw};
-    march_pixels(p, C, fields, marches, state, tid, n_march, n_sun);
+    for (int k = 0; k < C; ++k) {
+      if (!((marches >> k) & 1u)) continue;
+      float* in = state + k * T + tid;
+      float light, alpha;
+      cloud_march(p, fields, v3(in[MK_IN_RX * C * T], in[MK_IN_RY * C * T], in[MK_IN_RZ * C * T]),
+                  in[MK_IN_TB * C * T], in[MK_IN_TEM * C * T], in[MK_IN_JIT * C * T], light,
+                  alpha);
+      in[0] = light;
+      in[C * T] = alpha;
+      ++n_march;
+      if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
+    }
   }
   clk.mark(MK_STAGE_MARCH);
 
@@ -2086,7 +2064,11 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
     count_work(work, MK_WORK_SHAPE_KNOTS, n_shape_knots);
     count_work(work, MK_WORK_DETAIL_KNOTS, n_detail_knots);
     count_work(work, MK_WORK_OD_SEGMENTS, n_seg);
-    count_march_lanes(p, work, marches, n_march);
+    // the warp issues march k where any lane marches it
+    const unsigned issued = __popc(__reduce_or_sync(0xffffffffu, marches));
+    count_work(work, MK_WORK_MARCH_WARP_STEPS,
+               (tid & 31) ? 0u : issued * (unsigned)p.cloud_steps);
+    count_work(work, MK_WORK_MARCH_LANE_STEPS, n_march * (unsigned)p.cloud_steps);
   }
   clk.count(work);
 }
@@ -2305,8 +2287,8 @@ __global__ void __launch_bounds__(tex_threads(G), tex_min_blocks(G))
 //   * the frame (megakernel_tex_general): one 128-thread block per 128
 //     columns of one group row, no barrier: the group's march inputs from
 //     the scratch, its knots (a baked field's sampled with its tile's
-//     batch choice, a procedural field's evaluated), the march
-//     (march_pixels, a per-step field's noise inlined), the blend.
+//     batch choice, a procedural field's evaluated), the march (a per-step
+//     field's noise inlined), the blend.
 // A pixel's opaque pass and atmosphere run once, at 32 warps per SM; the
 // design it replaces ran the opaque pass three times in one 512-thread
 // block per tile at 16 warps per SM.  On an H100 at 700 W the 1080p texture
@@ -2572,6 +2554,46 @@ __device__ __forceinline__ void warp_minmax(float (&mn)[N], float (&mx)[N]) {
   }
 }
 
+// one ray of the sky's choice: its lat-long (fu, v) into the thread's min
+// and max
+__device__ __forceinline__ void sky_ray_minmax(const MegakernelParams& p, int x, int y,
+                                               float (&mn)[2], float (&mx)[2]) {
+  const V3 rd = pixel_dir(p, x, y);
+  float fu, v;
+  latlong_uv(rd.x, rd.y, rd.z, fu, v);
+  mn[0] = fminf(mn[0], fu);
+  mx[0] = fmaxf(mx[0], fu);
+  mn[1] = fminf(mn[1], v);
+  mx[1] = fmaxf(mx[1], v);
+}
+
+// The sky's choice over a block of nw <= 32 warps from each thread's min
+// and max (tid: the thread's index in the block): the warp's lanes by
+// shuffles, one barrier, then the first warp's lanes take one warp's
+// partials each (part: 4 floats per warp) and reduce them by shuffles.
+// The first warp returns the choice; every other thread MK_NO_CHOICE.
+__device__ __forceinline__ TexChoice sky_block_choice(const TexParams& sky_t, float (&mn)[2],
+                                                      float (&mx)[2], float* part, int tid,
+                                                      int nw) {
+  warp_minmax<2>(mn, mx);
+  if ((tid & 31) == 0) {
+    float* w = part + (tid >> 5) * 4;
+    w[0] = mn[0];
+    w[1] = mn[1];
+    w[2] = mx[0];
+    w[3] = mx[1];
+  }
+  __syncthreads();
+  if (tid >= 32) return TexChoice{MK_NO_CHOICE, MK_NO_CHOICE};
+  const float* w = part + (tid < nw ? tid : 0) * 4;
+  mn[0] = w[0];
+  mn[1] = w[1];
+  mx[0] = w[2];
+  mx[1] = w[3];
+  warp_minmax<2>(mn, mx);
+  return latlong_choose(sky_t, mn[0], mx[0], mn[1], mx[1]);
+}
+
 // The general texture instance's tile pass: one block of 128 x R threads
 // per 32 x 128 tile of the launch's grid (from row0), rows and columns past
 // the frame included; registers sized for two blocks per SM.  Where the
@@ -2603,38 +2625,14 @@ __global__ void __launch_bounds__(MK_TILE_COLS * MK_TEXG_CHOICE_ROWS, 2)
   const V3 rom = load3(p.ro_model);
   StageClock clk;
 
-  // the sky's choice: the min and max of (fu, v) over the tile's rays, by
-  // the warp's lanes, then the block's warps
+  // the sky's choice: the min and max of (fu, v) over the tile's rays
   Sky sky{sky_t, sky_r, sky_g, sky_b, TexChoice{MK_NO_CHOICE, MK_NO_CHOICE}};
   if (p.with_sky) {
     float mn[2] = {3.0e38f, 3.0e38f}, mx[2] = {-3.0e38f, -3.0e38f};
-    for (int gr = threadIdx.y; gr < NGR; gr += R) {
-      for (int r = 0; r < G; ++r) {
-        const V3 rd = pixel_dir(p, x, tile_y0 + gr * G + r);
-        float fu, v;
-        latlong_uv(rd.x, rd.y, rd.z, fu, v);
-        mn[0] = fminf(mn[0], fu);
-        mx[0] = fmaxf(mx[0], fu);
-        mn[1] = fminf(mn[1], v);
-        mx[1] = fmaxf(mx[1], v);
-      }
-    }
-    warp_minmax<2>(mn, mx);
-    if (lane == 0) {
-      part[warp * 4 + 0] = mn[0];
-      part[warp * 4 + 1] = mn[1];
-      part[warp * 4 + 2] = mx[0];
-      part[warp * 4 + 3] = mx[1];
-    }
-    __syncthreads();
+    for (int gr = threadIdx.y; gr < NGR; gr += R)
+      for (int r = 0; r < G; ++r) sky_ray_minmax(p, x, tile_y0 + gr * G + r, mn, mx);
+    const TexChoice ch = sky_block_choice(sky_t, mn, mx, part, tid, nw);
     if (tid == 0) {
-      for (int w = 1; w < nw; ++w) {
-        mn[0] = fminf(mn[0], part[w * 4 + 0]);
-        mn[1] = fminf(mn[1], part[w * 4 + 1]);
-        mx[0] = fmaxf(mx[0], part[w * 4 + 2]);
-        mx[1] = fmaxf(mx[1], part[w * 4 + 3]);
-      }
-      const TexChoice ch = latlong_choose(sky_t, mn[0], mx[0], mn[1], mx[1]);
       sky_choice[0] = ch.mode;
       sky_choice[1] = ch.level;
     }
@@ -2802,7 +2800,7 @@ __device__ __forceinline__ unsigned texg_knots(const MegakernelParams& p, const 
 // group, megakernel_gen's blocks, no barrier.  Stages: the group's march
 // inputs from the scratch (the tile pass's) into shared memory; the knots
 // (texg_knots, with the block's tile's batch choices); the march
-// (march_pixels, TexGenFields); each row blended with its coarse pixel's
+// (TexGenFields); each row blended with its coarse pixel's
 // clouds over its background (the color plane) and atmosphere (the
 // scratch), and stored.  Its registers are sized for texg_min_blocks
 // blocks per SM (80 registers, 48 B of spill stores): against 4 blocks (128,
@@ -2878,7 +2876,20 @@ __global__ void __launch_bounds__(MK_TILE_COLS, texg_min_blocks)
       if (full) det_k = kn + (p.shape_knots + 1) * T;
     }
     const TexGenFields fields{cov_k, shp_k, det_k, p.coverage_knots, p.shape_knots, T, full, &fw};
-    march_pixels(p, C, fields, marches, state, tid, n_march, n_sun);
+    // megakernel_gen's stage 3 (shared through one device function, it
+    // reordered megakernel_gen's SASS, so each kernel keeps its loop)
+    for (int k = 0; k < C; ++k) {
+      if (!((marches >> k) & 1u)) continue;
+      float* in = state + k * T + tid;
+      float light, alpha;
+      cloud_march(p, fields, v3(in[MK_IN_RX * C * T], in[MK_IN_RY * C * T], in[MK_IN_RZ * C * T]),
+                  in[MK_IN_TB * C * T], in[MK_IN_TEM * C * T], in[MK_IN_JIT * C * T], light,
+                  alpha);
+      in[0] = light;
+      in[C * T] = alpha;
+      ++n_march;
+      if (p.raymarched_lighting) n_sun += p.cloud_steps * MK_SUN_STEPS;
+    }
   }
   clk.mark(MK_STAGE_MARCH);
 
@@ -2917,7 +2928,11 @@ __global__ void __launch_bounds__(MK_TILE_COLS, texg_min_blocks)
     count_work(work, MK_WORK_DETAIL_EVALS, fw.detail);
     count_work(work, MK_WORK_SHAPE_KNOTS, n_shape_knots);
     count_work(work, MK_WORK_DETAIL_KNOTS, n_detail_knots);
-    count_march_lanes(p, work, marches, n_march);
+    // the warp issues march k where any lane marches it
+    const unsigned issued = __popc(__reduce_or_sync(0xffffffffu, marches));
+    count_work(work, MK_WORK_MARCH_WARP_STEPS,
+               (tid & 31) ? 0u : issued * (unsigned)p.cloud_steps);
+    count_work(work, MK_WORK_MARCH_LANE_STEPS, n_march * (unsigned)p.cloud_steps);
   }
   clk.count(work);
 }
@@ -2926,10 +2941,9 @@ __global__ void __launch_bounds__(MK_TILE_COLS, texg_min_blocks)
 // The sky's pre-pass for the procedural instance and the opaque-only pass:
 // one block of 128 x MK_SKY_CHOICE_THREADS_Y threads per 32 x 128 tile of
 // the launch's grid (from row0), each thread taking MK_SKY_CHOICE_RAYS rows
-// of its column, rows and columns past the frame included; the min and max
-// over the warp by shuffles, then, after one barrier, the first warp's
-// lanes take one warp's each and reduce them by shuffles.  It writes the
-// tile's (mode, level) to choices[2 * tile], tiles row-major.
+// of its column, rows and columns past the frame included, then the
+// block's choice (sky_block_choice).  It writes the tile's (mode, level) to
+// choices[2 * tile], tiles row-major.
 __global__ void __launch_bounds__(MK_TILE_COLS * MK_SKY_CHOICE_THREADS_Y)
     sky_choice_kernel(const MegakernelParams p, const TexParams sky_t, int* __restrict__ choices) {
   constexpr int NW = MK_TILE_COLS * MK_SKY_CHOICE_THREADS_Y / 32;
@@ -2939,33 +2953,9 @@ __global__ void __launch_bounds__(MK_TILE_COLS * MK_SKY_CHOICE_THREADS_Y)
   const int y0 = p.row0 + blockIdx.y * MK_TILE_ROWS + threadIdx.y * MK_SKY_CHOICE_RAYS;
   float mn[2] = {3.0e38f, 3.0e38f}, mx[2] = {-3.0e38f, -3.0e38f};
 #pragma unroll 4
-  for (int r = 0; r < MK_SKY_CHOICE_RAYS; ++r) {
-    const V3 rd = pixel_dir(p, x, y0 + r);
-    float fu, v;
-    latlong_uv(rd.x, rd.y, rd.z, fu, v);
-    mn[0] = fminf(mn[0], fu);
-    mx[0] = fmaxf(mx[0], fu);
-    mn[1] = fminf(mn[1], v);
-    mx[1] = fmaxf(mx[1], v);
-  }
-  warp_minmax<2>(mn, mx);
-  if ((tid & 31) == 0) {
-    float* w = part + (tid >> 5) * 4;
-    w[0] = mn[0];
-    w[1] = mn[1];
-    w[2] = mx[0];
-    w[3] = mx[1];
-  }
-  __syncthreads();
-  if (tid >= 32) return;
-  const float* w = part + (tid < NW ? tid : 0) * 4;
-  mn[0] = w[0];
-  mn[1] = w[1];
-  mx[0] = w[2];
-  mx[1] = w[3];
-  warp_minmax<2>(mn, mx);
+  for (int r = 0; r < MK_SKY_CHOICE_RAYS; ++r) sky_ray_minmax(p, x, y0 + r, mn, mx);
+  const TexChoice ch = sky_block_choice(sky_t, mn, mx, part, tid, NW);
   if (tid == 0) {
-    const TexChoice ch = latlong_choose(sky_t, mn[0], mx[0], mn[1], mx[1]);
     const int tile = blockIdx.y * gridDim.x + blockIdx.x;
     choices[2 * tile] = ch.mode;
     choices[2 * tile + 1] = ch.level;
@@ -3269,43 +3259,10 @@ static TexgScratch texg_scratch(const MegakernelParams* p, float* scratch, int s
   return TexgScratch{scratch, scratch + (size_t)p->rows * p->width * 4, texg_coarse_rows(*p)};
 }
 
-// the tile pass into color, depth, the scratch and choices (choice_ints
-// ints: at least 2 per slot and tile of the launch's grid)
-static int launch_tex_choice(const MegakernelParams* p, const TexParams* t, const TexParams& sky,
-                             const TexgLayout& lay, const float* blue, const float* sky_r,
-                             const float* sky_g, const float* sky_b, float* color, float* depth,
-                             const TexgScratch& sc, int* choices, long choice_ints,
-                             cudaStream_t stream, unsigned long long* work) {
-  const dim3 grid = tile_grid(p);
-  if (!sc.atm || !choices ||
-      choice_ints < (long)grid.x * grid.y * texg_choice_slots(*p, *t) * 2)
-    return -1;
-  tex_choice_kernel<<<grid, dim3(MK_TILE_COLS, lay.choice_rows, 1), lay.choice_smem, stream>>>(
-      *p, *t, sky, blue, sky_r, sky_g, sky_b, color, depth, sc, choices, work);
-  return (int)cudaGetLastError();
-}
-
-// The general instance's tile pass alone (the first of its two launches),
-// for params as megakernel_tex_launch takes them: it shades the launch's
-// rows into color (and depth) and the scratch, and writes the tile's
-// choices.
-extern "C" int tex_choice_launch(const MegakernelParams* params, const TexParams* tex,
-                                 const TexParams* sky, const float* blue, const float* sky_r,
-                                 const float* sky_g, const float* sky_b, float* color,
-                                 float* depth, float* scratch, int scratch_floats, int* choices,
-                                 int choice_ints, void* stream, void* work) {
-  const TexgLayout lay = texg_layout(params, tex);
-  if (!lay.ok || !params->clouds_enabled || !params->with_atmosphere || !rows_ok(params) ||
-      !color || (params->with_background && !depth) ||
-      !sky_ok(params, sky, sky_r, sky_g, sky_b))
-    return -1;
-  const cudaError_t err = texg_smem_attribute(lay);
-  if (err != cudaSuccess) return (int)err;
-  return launch_tex_choice(params, tex, sky ? *sky : TexParams{}, lay, blue, sky_r, sky_g, sky_b,
-                           color, depth, texg_scratch(params, scratch, scratch_floats), choices,
-                           choice_ints, (cudaStream_t)stream, (unsigned long long*)work);
-}
-
+// The general instance's two launches: its tile pass into color, depth,
+// the scratch (scratch_floats floats: at least texg_scratch_floats) and
+// choices (choice_ints ints: at least 2 per slot and tile of the launch's
+// grid), then its frame.
 static int launch_tex_general(const MegakernelParams* p, const TexParams* t, const TexParams& sky,
                               const float* blue, const float* shape_tab, const float* cov_tab,
                               const float* sky_r, const float* sky_g, const float* sky_b,
@@ -3313,13 +3270,17 @@ static int launch_tex_general(const MegakernelParams* p, const TexParams* t, con
                               float* color, float* alpha, float* depth, cudaStream_t stream,
                               unsigned long long* work) {
   const TexgLayout lay = texg_layout(p, t);
-  if (!lay.ok) return -1;
-  const cudaError_t err = texg_smem_attribute(lay);
-  if (err != cudaSuccess) return (int)err;
   const TexgScratch sc = texg_scratch(p, scratch, scratch_floats);
-  const int rc = launch_tex_choice(p, t, sky, lay, blue, sky_r, sky_g, sky_b, color, depth, sc,
-                                   choices, choice_ints, stream, work);
-  if (rc != 0) return rc;
+  const dim3 tiles = tile_grid(p);
+  if (!lay.ok || !sc.atm || !choices ||
+      choice_ints < (long)tiles.x * tiles.y * texg_choice_slots(*p, *t) * 2)
+    return -1;
+  cudaError_t err = texg_smem_attribute(lay);
+  if (err != cudaSuccess) return (int)err;
+  tex_choice_kernel<<<tiles, dim3(MK_TILE_COLS, lay.choice_rows, 1), lay.choice_smem, stream>>>(
+      *p, *t, sky, blue, sky_r, sky_g, sky_b, color, depth, sc, choices, work);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   const int G = p->cloud_lod * p->coverage_lod;
   const dim3 grid((p->width + MK_TILE_COLS - 1) / MK_TILE_COLS, (p->rows + G - 1) / G, 1);
   megakernel_tex_general<<<grid, dim3(MK_TILE_COLS, 1, 1), lay.smem, stream>>>(

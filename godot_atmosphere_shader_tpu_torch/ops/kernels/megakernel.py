@@ -22,7 +22,7 @@ instance for the demo's profile, one thread block per tile, and the
 general one for every other texture config the JAX megakernel renders (a
 baked field beside a procedural one, full quality, any knot count, knot
 group and LOD group), a tile pass that shades the rows and makes the
-tiles' choices (:func:`tex_choices`), then the frame.
+tiles' choices (:func:`launch` returns them), then the frame.
 
 * :func:`render_scene_megakernel` renders a frame of any number of layers
   (the counterpart of ``render_scene_pallas``): CPU tensors take the plain
@@ -201,8 +201,8 @@ class Counters:
     ``megakernel_tex_general`` alone,
     ``sky_launches`` the launches that draw the panorama sky), launches of
     the sky's per-tile choice pre-pass, of the general texture instance's
-    tile pass (``tex_choice_kernel``, launched before each of its frames,
-    or alone by :func:`tex_choices`), of the K2-alone entry, and plain-path
+    tile pass (``tex_choice_kernel``, launched before each of its frames),
+    of the K2-alone entry, and plain-path
     frames (one per frame, whatever its layers)."""
 
     def __init__(self):
@@ -378,9 +378,6 @@ TEX_LAUNCHER_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.POINTER(TexPar
                          ctypes.POINTER(TexParams), *(ctypes.c_void_p,) * 11, ctypes.c_int,
                          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                          ctypes.c_int)
-TEX_CHOICE_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.POINTER(TexParams),
-                       ctypes.POINTER(TexParams), *(ctypes.c_void_p,) * 7, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p)
 TEXSAMPLE_ARGTYPES = (ctypes.POINTER(TexParams), ctypes.c_int, *(ctypes.c_void_p,) * 4,
                       ctypes.c_int, ctypes.c_int, *(ctypes.c_void_p,) * 3)
 GEN_INFO_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.c_void_p)
@@ -401,7 +398,6 @@ def bind(lib):
     for name, argtypes in (("megakernel_launch", LAUNCHER_ARGTYPES),
                            ("sky_choice_launch", SKY_CHOICE_ARGTYPES),
                            ("megakernel_tex_launch", TEX_LAUNCHER_ARGTYPES),
-                           ("tex_choice_launch", TEX_CHOICE_ARGTYPES),
                            ("texsample_launch", TEXSAMPLE_ARGTYPES),
                            ("megakernel_gen_info", GEN_INFO_ARGTYPES),
                            ("megakernel_tex_info", TEX_INFO_ARGTYPES),
@@ -1015,7 +1011,10 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
     the layers below on entry and the composite on exit.  ``sky``:
     ``(TexParams, r, g, b tables)`` of the panorama sky, exactly when the
     struct's ``with_sky`` is set; the procedural instance first runs the
-    sky's per-tile choice pre-pass (:func:`sky_choices`)."""
+    sky's per-tile choice pre-pass (:func:`sky_choices`).  Returns the
+    tile choices the launch made on the device: the general texture
+    instance's (:func:`tex_choice_shape`, its tile pass's buffer), the sky
+    pre-pass's (``(tiles, 2)``), else ``None``."""
     if bool(struct.with_sky) != (sky is not None):
         raise ValueError("a sky launch needs its (TexParams, r, g, b) pyramids, and only it")
     if struct.with_background and depth is None:
@@ -1068,6 +1067,7 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
         counters.clear_launches += 1
     if sky is not None:
         counters.sky_launches += 1
+    return choices
 
 
 def tile_grid(height_rows: int, width: int) -> tuple:
@@ -1134,53 +1134,12 @@ def tex_scratch_floats(struct: MegakernelParams) -> int:
     return (struct.rows * 4 + TEXG_IN_PLANES * coarse_rows) * struct.width
 
 
-def tex_choices(struct: MegakernelParams, tparams: TexParams, device, sky=None,
-                color: Optional[torch.Tensor] = None,
-                depth: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the general texture instance's tile pass alone (the first of
-    the two launches :func:`launch` makes for it) for one launch struct on
-    the current stream of ``device`` (a CUDA device): each 32×128 tile of
-    the struct's rows, from ``row0``, padded past the frame, gets the sky's
-    level and mode (``sky``: its ``(TexParams, r, g, b)``, where the
-    struct's ``with_sky`` is set) and each knot batch's, over every
-    coverage group of the tile.  The pass also shades the rows: into
-    ``color`` (a chained layer's holds the layers below, read) and
-    ``depth`` (a chained layer's linear depth, read), or into planes of
-    its own.  Returns :func:`tex_choice_shape` int32; counted in
-    ``counters.tex_choice_launches``.  :func:`tex_choices_plain` is its
-    plain version."""
-    if bool(struct.with_sky) != (sky is not None):
-        raise ValueError("a sky launch needs its (TexParams, r, g, b) pyramids, and only it")
-    if struct.with_background and (color is None or depth is None):
-        raise ValueError("a chained layer reads the layers below: color and depth are required")
-    out = torch.empty(tex_choice_shape(struct, tparams), dtype=torch.int32, device=device)
-    scratch = torch.empty(tex_scratch_floats(struct), dtype=torch.float32, device=device)
-    if color is None:
-        color = torch.empty((struct.rows, struct.width, 3), dtype=torch.float32, device=device)
-    blue = _BLUE_NOISE.get(str(device))
-    if blue is None:
-        blue = _BLUE_NOISE[str(device)] = blue_noise_tensor(device=device)
-    sky_params, sky_r, sky_g, sky_b = sky if sky is not None else (None, None, None, None)
-    lib = load_library()
-    with torch.cuda.device(device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-        rc = lib.tex_choice_launch(ctypes.byref(struct), ctypes.byref(tparams),
-                                   None if sky is None else ctypes.byref(sky_params), _ptr(blue),
-                                   _ptr(sky_r), _ptr(sky_g), _ptr(sky_b),
-                                   _plane_ptr(color, struct), _plane_ptr(depth, struct),
-                                   _ptr(scratch), scratch.numel(), _ptr(out), out.numel(),
-                                   stream, _ptr(None))
-    if rc != 0:
-        raise RuntimeError(f"tex choice launch failed: CUDA error {rc}")
-    counters.tex_choice_launches += 1
-    return out
-
-
 def tex_choices_plain(params: AtmosphereParams, config: VariantConfig, camera: Camera,
                       opaque: Optional[OpaqueScene], height: int, width: int, tex_data,
                       background=None, row0: int = 0, rows: Optional[int] = None,
                       pano_meta=None) -> torch.Tensor:
-    """The plain version of :func:`tex_choices` for one texture layer over
+    """The plain version of the general texture instance's tile choices
+    (what :func:`launch` returns for it) for one texture layer over
     rows ``[row0, row0 + rows)`` (default: the whole frame), on the device
     of ``camera``: the per-tile choices the plain chain's pyramid samplers
     make (``render_frame`` with ``tex_data``, ``background`` as it takes

@@ -799,10 +799,12 @@ def test_texture_instance_and_layout_match_the_launcher(cuda, baked, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", _tex_envelope_cases())
 def test_tex_choices_match_plain(cuda, baked, case):
-    """The general texture instance's tile pass alone (``mk.tex_choices``,
-    counted once) against its plain version (``mk.tex_choices_plain``, the
-    plain chain's own per-tile batch choices) on the same CUDA inputs: the
-    same (mode, level) in every slot of every tile, exactly."""
+    """The tile choices of a launch of the general texture instance (the
+    buffer its tile pass wrote, as ``mk.launch(general=True)`` returns it;
+    the tile pass counted once) against their plain version
+    (``mk.tex_choices_plain``, the plain chain's own per-tile batch
+    choices) on the same CUDA inputs: the same (mode, level) in every slot
+    of every tile, exactly."""
     import chip_smoke as cs
 
     scene, cam = cs.tex_envelope_scene(cs.TEX_ENVELOPE_CASES[case], cuda, baked)
@@ -810,8 +812,9 @@ def test_tex_choices_match_plain(cuda, baked, case):
     (_, struct, args), = mk.scene_launches(params, configs, cam, scene.opaque, H, W,
                                            tex_data=tex, bands=bands, band_rows=rows)
     mk.counters.reset()
-    got = mk.tex_choices(struct, args["tex"][0], cuda)
-    assert mk.counters.tex_choice_launches == 1
+    got = mk.launch(struct, torch.empty((H, W, 3), device=cuda), torch.empty((H, W), device=cuda),
+                    general=True, **args)
+    assert (mk.counters.texture_general_launches, mk.counters.tex_choice_launches) == (1, 1)
     ref = mk.tex_choices_plain(params[0], configs[0], cam, scene.opaque, H, W, tex[0])
     assert got.shape == ref.shape == mk.tex_choice_shape(struct, args["tex"][0])
     assert torch.equal(got.cpu(), ref.cpu())
@@ -826,9 +829,9 @@ def test_texture_general_instance_chained_and_with_the_sky(cuda, baked, mode, ca
     256-511 of a 512×128 frame, through the band entries), and fused with
     a panorama sky (its choice made by the instance's tile pass, no sky
     pre-pass); against the plain version on the same CUDA inputs at the
-    cloud tolerance; its tile pass's choices alone against their plain version,
-    exactly, on the same inputs (chained: the layer below as the kernel
-    rendered it)."""
+    cloud tolerance; the tile choices of its launch against their plain
+    version, exactly, on the same inputs (chained: the layer below as the
+    kernel rendered it)."""
     import chip_smoke as cs
     from godot_atmosphere_shader_tpu_torch.models.scene import PlanetAtmosphere
 
@@ -871,15 +874,16 @@ def test_texture_general_instance_chained_and_with_the_sky(cuda, baked, mode, ca
         planes = [torch.empty((rows, W) + c, device=cuda) for c in ((3,), (), ())]
         _, below, below_args = launches[0]
         mk.launch(below, *planes[:2], depth=planes[2], **below_args)
+        background = (planes[0].clone(), planes[2].clone())
         _, struct, args = launches[1]
-        got_choice = mk.tex_choices(struct, args["tex"][0], cuda, color=planes[0],
-                                    depth=planes[2])
+        got_choice = mk.launch(struct, *planes[:2], depth=planes[2], **args)
         ref_choice = mk.tex_choices_plain(params[1], configs[1], cam, None, h, W, tex[1],
-                                          background=(planes[0], planes[2]), row0=r0, rows=rows)
+                                          background=background, row0=r0, rows=rows)
     else:
         (_, struct, args), = mk.scene_launches(params, configs, cam, scene.opaque, H, W,
                                                tex_data=tex, pano_data=pdata, pano_meta=pmeta)
-        got_choice = mk.tex_choices(struct, args["tex"][0], cuda, sky=args["sky"])
+        got_choice = mk.launch(struct, torch.empty((H, W, 3), device=cuda),
+                               torch.empty((H, W), device=cuda), **args)
         ref_choice = mk.tex_choices_plain(params[0], configs[0], cam, scene.opaque, H, W,
                                           tex[0], pano_meta=pmeta)
     assert bool((got_choice[:, 0, 0] >= 0).all()) == (mode == "sky")

@@ -376,7 +376,6 @@ _CPARAM = {"int": ctypes.c_int, "const MegakernelParams*": ctypes.POINTER(mk.Meg
 @pytest.mark.parametrize("name,argtypes", [("megakernel_launch", mk.LAUNCHER_ARGTYPES),
                                            ("sky_choice_launch", mk.SKY_CHOICE_ARGTYPES),
                                            ("megakernel_tex_launch", mk.TEX_LAUNCHER_ARGTYPES),
-                                           ("tex_choice_launch", mk.TEX_CHOICE_ARGTYPES),
                                            ("texsample_launch", mk.TEXSAMPLE_ARGTYPES),
                                            ("megakernel_gen_info", mk.GEN_INFO_ARGTYPES),
                                            ("megakernel_tex_info", mk.TEX_INFO_ARGTYPES),
@@ -403,11 +402,6 @@ def test_cu_launcher_signature_matches_argtypes(name, argtypes):
         assert params[6:9] == ["const float* sky_r", "const float* sky_g", "const float* sky_b"]
         assert params[-4:] == ["int* choices", "int choice_ints", "float* scratch",
                                "int scratch_floats"]
-    if name == "tex_choice_launch":
-        assert params[:3] == ["const MegakernelParams* params", "const TexParams* tex",
-                              "const TexParams* sky"]
-        assert params[7:13] == ["float* color", "float* depth", "float* scratch",
-                                "int scratch_floats", "int* choices", "int choice_ints"]
 
 
 def test_build_command_and_cache_key(monkeypatch, tmp_path):

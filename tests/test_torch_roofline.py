@@ -89,3 +89,105 @@ def test_one_segment_per_step_is_charged_less_than_two():
     assert 0 < one < two and two - one == steps * N * cs.OPS_OD_SEGMENT
     with pytest.raises(RuntimeError, match="quadrature segments"):
         _atmosphere_ops(giant, atmosphere=N, od_segments=2 * steps * N + 1)
+
+
+def _general_launch(cov, shape, always_low, lod=1, coverage_lod=1):
+    """A 1080p launch struct and texture params of the general texture
+    instance: the fields' sources, the quality and the LOD group."""
+    struct = mk.MegakernelParams()
+    struct.rows, struct.width, struct.height = H, W, H
+    struct.cloud_lod, struct.coverage_lod = lod, coverage_lod
+    struct.coverage_knots, struct.shape_knots, struct.always_low = 8, 16, always_low
+    tparams = mk.TexParams()
+    tparams.knot_group, tparams.cov_source, tparams.shape_source = 8, cov, shape
+    return struct, tparams
+
+
+def _texture_config():
+    """``clouds_high`` with both fields baked (the bound reads only whether
+    a field has a pyramid's meta) and no procedural work counted."""
+    return dataclasses.replace(VARIANTS["clouds_high"], cloud_coverage_tex_meta=object(),
+                               cloud_shape_tex_meta=object())
+
+
+# (coverage source, shape source, low quality): the 4g frames' kinds
+GENERAL_KINDS = [(mk.SOURCE_PYRAMID, mk.SOURCE_PYRAMID, 1),
+                 (mk.SOURCE_PYRAMID, mk.SOURCE_PYRAMID, 0),
+                 (mk.SOURCE_KNOTS, mk.SOURCE_PYRAMID, 1),
+                 (mk.SOURCE_PYRAMID, mk.SOURCE_STEP, 1)]
+
+
+@pytest.mark.parametrize("cov,shape,low", GENERAL_KINDS)
+def test_general_texture_bound_is_split_by_launch(cov, shape, low):
+    """The general texture instance's two launches share the launch's work:
+    the tile pass the pixels' shading and atmosphere, its padded tile
+    grid's coarse pixels and the unsampled groups' knot coordinates, the
+    blue noise and its choices; the frame the blend, the clouds, the frame
+    planes and the pyramids.  Together they are the one-launch bound's
+    work and the tile pass's own; with fp32 work alone the bound is the
+    sum of the two launches'."""
+    config = _texture_config()
+    struct, tparams = _general_launch(cov, shape, low)
+    groups = 34 * 15 * 32 * 128  # the padded tile grid at G = 1
+    work = _work(pixels=H * W, atmosphere=N, od_segments=2 * config.atmosphere_steps * N,
+                 march=N, tex3d=3 * N, latlong=2 * N, knot_groups=groups // 2)
+    one = cs.roofline(work, config, H, W, table_bytes=1000)
+    b = cs.tex_general_roofline(work, config, struct, tparams, 1000, H * W * cs.BYTES_LAYER_PIXEL)
+    tile, frame = b["tile"], b["frame"]
+    tiles, slots, _ = mk.tex_choice_shape(struct, tparams)
+    coarse = groups * cs.OPS_CHOICE_COARSE
+    coords = (tile["ops"] - coarse - H * W * cs.OPS_SHADE_PIXEL - cs.atmosphere_ops(work, config))
+    assert coords > 0 and coords % (groups // 2) == 0
+    assert frame["ops"] == (H * W * cs.OPS_BLEND_PIXEL + N * config.cloud_steps * cs.OPS_STEP
+                            + 3 * N * cs.OPS_TEX3D + 2 * N * cs.OPS_LATLONG)
+    assert tile["ops"] + frame["ops"] == one["ops"] + coarse + coords
+    assert (tile["int_ops"], frame["int_ops"]) == (0, one["int_ops"])
+    assert tile["bytes"] + frame["bytes"] == one["bytes"] + tiles * slots * 8
+    assert b["bound_ms"] == pytest.approx(tile["bound_ms"] + frame["bound_ms"], rel=1e-12)
+    assert (b["ops"], b["bytes"]) == (tile["ops"] + frame["ops"], tile["bytes"] + frame["bytes"])
+
+
+def test_general_texture_bound_is_the_functions():
+    """Where the frame's procedural noise makes it bound by int32
+    instructions, the instance's bound is its work's as one launch's: below
+    the sum of the two launches' bounds (the tile pass's fp32 work fits
+    beside the noise's int32), not below the larger of them."""
+    from godot_atmosphere_shader_tpu_torch.models.demo import demo_variant
+
+    config = dataclasses.replace(demo_variant("clouds_high"), cloud_coverage_tex_meta=object())
+    struct, tparams = _general_launch(mk.SOURCE_PYRAMID, mk.SOURCE_STEP, 1)
+    groups = 34 * 15 * 32 * 128
+    work = _work(pixels=H * W, march=N, latlong=9 * N, knot_groups=N, shape_evals=400 * N)
+    b = cs.tex_general_roofline(work, config, struct, tparams, 0, H * W * cs.BYTES_LAYER_PIXEL)
+    tile, frame = b["tile"], b["frame"]
+    assert frame["int_ops"] > 0 and tile["int_ops"] == 0 < groups - N
+    assert cs.ops_time_ms(0, frame["int_ops"]) == frame["bound_ms"]
+    assert max(tile["bound_ms"], frame["bound_ms"]) <= b["bound_ms"]
+    assert b["bound_ms"] < tile["bound_ms"] + frame["bound_ms"]
+
+
+@pytest.mark.parametrize("cov,shape,low", GENERAL_KINDS)
+def test_sampled_groups_charge_their_knot_coordinates_once(cov, shape, low):
+    """A coverage group the frame samples pays for its knots' coordinates
+    and its share of the choice in its samples (OPS_TEX3D, OPS_LATLONG);
+    the tile pass charges them only for the groups it reads alone: each
+    unsampled group adds every baked knot's OPS_CHOICE_COORD, a sampled
+    one nothing."""
+    config = _texture_config()
+    struct, tparams = _general_launch(cov, shape, low)
+    groups = 34 * 15 * 32 * 128
+
+    def tile_ops(sampled):
+        work = _work(pixels=H * W, knot_groups=sampled)
+        return cs.tex_general_roofline(work, config, struct, tparams, 0,
+                                       H * W * cs.BYTES_LAYER_PIXEL)["tile"]["ops"]
+
+    per_group = 0
+    if cov == mk.SOURCE_PYRAMID:
+        per_group += 9 * cs.OPS_CHOICE_COORD[0]
+    if shape == mk.SOURCE_PYRAMID:
+        per_group += 17 * (cs.OPS_CHOICE_COORD[1] + (0 if low else cs.OPS_CHOICE_COORD[2]))
+    assert tile_ops(groups) == H * W * cs.OPS_SHADE_PIXEL + groups * cs.OPS_CHOICE_COARSE
+    assert tile_ops(groups - 1000) - tile_ops(groups) == 1000 * per_group
+    with pytest.raises(RuntimeError, match="coverage groups sampled"):
+        tile_ops(groups + 1)

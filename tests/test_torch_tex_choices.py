@@ -6,9 +6,9 @@ The CUDA kernel ``tex_choice_kernel`` (``csrc/megakernel.cu``) writes, per
 kernel samples every knot with its batch's choice; the card tests and
 ``chip_smoke.py`` hold that buffer exactly against ``tex_choices_plain``.
 Here, on the CPU, ``tex_choices_plain`` is held against the choices of the
-plain samplers themselves (``texsample._tex3d_choice`` and
-``_latlong_choice``, recorded while ``Scene.render`` runs the plain chain)
-for ``chip_smoke.py`` phase 3h's 19 texture configs at 64×128: one slot per
+plain samplers in ``Scene.render``'s plain chain (each batched knot
+sampler call's, recorded by ``texsample.record_batch_choices``) for
+``chip_smoke.py`` phase 3h's 19 texture configs at 64×128: one slot per
 knot batch in the kernel's order (coverage, shape, detail; ``knot_group``
 knots each), tiles row-major, the sky's slot empty.
 
@@ -39,33 +39,24 @@ def textures():
     return shape, cubemap
 
 
-def _recorded_choices(monkeypatch, scene, cam):
-    """``Scene.render``'s plain chain with every per-batch choice of the
-    pyramid samplers recorded, in call order: ``(B, 2)`` per call."""
-    calls = []
-    for name in ("_tex3d_choice", "_latlong_choice"):
-        choose = getattr(ts, name)
-
-        def record(*args, choose=choose, **kwargs):
-            mode, level = choose(*args, **kwargs)
-            calls.append(torch.stack([mode, level], dim=-1))
-            return mode, level
-
-        monkeypatch.setattr(ts, name, record)
+def _recorded_choices(scene, cam):
+    """``Scene.render``'s plain chain with the per-batch choices of every
+    batched knot sampler call recorded, in call order: ``(B, 2)`` per
+    call."""
     mk.counters.reset()
-    scene.render(cam, H, W)
-    monkeypatch.undo()
+    with ts.record_batch_choices() as calls:
+        scene.render(cam, H, W)
     assert mk.counters.plain_calls == 1
-    return calls
+    return [torch.stack([mode, level], dim=-1) for mode, level in calls]
 
 
 @pytest.mark.parametrize("case", list(cs.TEX_ENVELOPE_CASES))
-def test_plain_tile_choices_are_the_plain_chains(textures, monkeypatch, case):
+def test_plain_tile_choices_are_the_plain_chains(textures, case):
     scene, cam = cs.tex_envelope_scene(cs.TEX_ENVELOPE_CASES[case], "cpu", textures)
     params, configs, tex, bands, rows = cs.scene_plan(scene, cam, H)
     (_, struct, args), = mk.scene_launches(params, configs, cam, scene.opaque, H, W,
                                            tex_data=tex, bands=bands, band_rows=rows)
-    calls = _recorded_choices(monkeypatch, scene, cam)
+    calls = _recorded_choices(scene, cam)
     got = mk.tex_choices_plain(params[0], configs[0], cam, scene.opaque, H, W, tex[0])
     tiles, slots, _ = mk.tex_choice_shape(struct, args["tex"][0])
     assert tuple(got.shape) == (tiles, slots, 2) == ((H // 32) * (W // 128), 1 + len(calls), 2)
