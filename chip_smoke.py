@@ -225,11 +225,50 @@ card check run in three more phases:
    registers, stack and blocks per SM; and bench cell 6 through both texture instances (the general one asked
    for, ``mk.launch(general=True)``), timed and compared.
 
+K1 sized per scene (every sphere, box and octave past the launch struct's
+inline 8, 4 and 8 in the scene's buffer on the card), the command line,
+the Godot scene importer, large worlds and the optical-depth LUT run in
+two more phases:
+
+3j. small: 64×128 frames with 1, 8, 9, 16 and 33 spheres, 4, 5 and 12
+   boxes and 8, 9 and 10 octaves and warp octaves (``GEOMETRY_CASES``),
+   each through the procedural, cloud-free, fixed texture and general
+   texture instance (``renderer="kernel"``, counters: that instance once,
+   no plain call) against ``renderer="plain"``: cloud-free at atol 1e-5,
+   rtol 1e-4, the others at the cloud tolerance, their fields on
+   ``GEOMETRY_CHAINS`` after measuring why (``geometry_conditioning``:
+   with the demo's lacunarities one ulp of the camera moves these frames
+   as far as kernel and plain lie apart; with these it does not, and two
+   octaves fewer do); the 256² optical-depth
+   bake on the card against the CPU's (atol 1e-6 × its maximum), timed;
+   ``clouds`` with ``od_mode="lut"`` at 256×384: ``renderer="auto"``
+   takes the plain route on the card (no K1 launch), held against the
+   CPU's frame at the cloud tolerance, and ``renderer="kernel"`` raises;
+8. 1080p: the importer's test scene with 12 spheres, 6 boxes, 10 octaves
+   and 10 warp octaves (``tscn_fixture``, written to a temporary
+   directory) through ``cli.main(["render", "--scene", ...,
+   "--stats", "8"])``, procedural (``megakernel_gen``) and ``--textures``
+   (the general texture instance): counters (the plan's K1 launches on
+   each of the 9 frames, no plain call), ``FrameStats``, the frame held
+   against ``renderer="plain"`` at the cloud tolerance, or, where one ulp
+   of the camera moves the kernel's frame beyond it (measured first), at
+   twice that move (``conditioned_tolerance_ok``), then kernel ms,
+   device ms, the bound (the extra spheres, boxes and octaves charged),
+   ``Scene.render`` ms, idle share and plain ms; large worlds through K1:
+   the Earth-scale scene at the origin and translated by (3e7, 1e7, −2e7)
+   (max |Δ| ≤ 1e-5) and the raw-f32 control at (2.56e8, 1e8, −1.6e8) (more
+   than 10× the rebased error), the flagship and an 8-frame TAA flight
+   translated by (3e7, 1e7, −2e7) against the untranslated ones (≤ 1e-5,
+   each frame against plain at the cloud tolerance); and the CLI's other
+   commands on the card: the flagship with the glow (no ``--device``),
+   ``fly --taa --frames 8 --size 1080`` (K3 8 times), ``bake-lut`` and
+   ``export-cubemap``, each writing its file.
+
 Prints a JSON line describing each kernel (with its roofline bound from
 this run's work counters), then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
 line.  Run from the repository root: ``python3 chip_smoke.py``
-(``--quick`` stops after phase 3i).
+(``--quick`` stops after phase 3j).
 """
 
 from __future__ import annotations
@@ -242,6 +281,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -335,6 +375,12 @@ OPS_V1_PIXEL = 28
 # one opaque-only pixel: ray 25, three spheres 3 × 22, the box slab test 55,
 # shading or the star hash 50
 OPS_OPAQUE_PIXEL = 200
+# a scene's spheres and boxes beyond the demo's DEMO_SPHERES and DEMO_BOXES,
+# which OPS_OPAQUE_PIXEL and OPS_SHADE_PIXEL count, per pixel of the opaque
+# pass (geometry_ops): a ray/sphere test 22, a box's slab test 55, and for a
+# box from the scene buffer its camera position in box space, 18
+OPS_SPHERE, OPS_BOX, OPS_BOX_ORIGIN = 22, 55, 18
+DEMO_SPHERES, DEMO_BOXES = 3, 1
 # the panorama sky: every ray of a tile takes part in its choice once
 # (polynomial atan2 and asin, the (u, v) map, min and max: 66; in the
 # pre-pass also its ray, 25); a sky pixel computes its (u, v) again (62)
@@ -487,6 +533,253 @@ SHARD_SIZE = (1024, 1920)
 SHARDS = 4
 FLAGSHIP_SHARDS = 2
 TAA_HALO = 32
+
+# the .tscn import of phase 8: the importer's test scene (tests/test_tscn.py
+# FIXTURE, a planet R = 50 with clouds, a ground sphere and a crate), with
+# spheres and boxes added up to TSCN_SPHERES and TSCN_BOXES MeshInstance3D
+# nodes and TSCN_OCTAVES octaves on the shape noise and on the coverage's
+# domain warp (FastNoiseLite goes up to 10): beyond the launch struct's
+# inline 8 spheres, 4 boxes and 8 octaves
+TSCN_FIXTURE = """[gd_scene load_steps=8 format=3]
+
+[ext_resource type="PackedScene" path="res://addons/zylann.atmosphere/planet_atmosphere.tscn" id="2"]
+[ext_resource type="Shader" path="res://addons/zylann.atmosphere/shaders/planet_atmosphere_clouds.gdshader" id="3"]
+[ext_resource type="Script" path="res://addons/zylann.atmosphere/noise_cubemap.gd" id="4"]
+
+[sub_resource type="StandardMaterial3D" id="mat_ground"]
+albedo_color = Color(0.2, 0.5, 0.3, 1)
+
+[sub_resource type="SphereMesh" id="ground_mesh"]
+material = SubResource("mat_ground")
+radius = 50.0
+height = 100.0
+
+[sub_resource type="FastNoiseLite" id="shape_noise"]
+noise_type = 2
+frequency = 0.15
+fractal_type = 2
+fractal_octaves = 6
+fractal_gain = 0.7
+
+[sub_resource type="NoiseTexture3D" id="shape_tex"]
+seamless = true
+noise = SubResource("shape_noise")
+
+[sub_resource type="FastNoiseLite" id="cov_noise"]
+domain_warp_enabled = true
+domain_warp_amplitude = 45.0
+domain_warp_frequency = 0.02
+domain_warp_fractal_octaves = 2
+
+[sub_resource type="Cubemap" id="cov_cube"]
+script = ExtResource("4")
+noise = SubResource("cov_noise")
+resolution = 128
+scale = Vector3(50, 80, 50)
+
+[sub_resource type="BoxMesh" id="box_mesh"]
+size = Vector3(4, 6, 8)
+
+[node name="Root" type="Node"]
+
+[node name="Sun" type="MeshInstance3D" parent="."]
+transform = Transform3D(1, 0, 0, 0, 1, 0, 0, 0, 1, 0, 0, 300)
+
+[node name="Light" type="DirectionalLight3D" parent="Sun"]
+transform = Transform3D(1, 0, 0, 0, 1, 0, 0, 0, 1, 0, 0, -60)
+
+[node name="Ground" type="MeshInstance3D" parent="."]
+material_override = SubResource("mat_ground")
+mesh = SubResource("ground_mesh")
+
+[node name="Atmo" parent="." instance=ExtResource("2")]
+planet_radius = 50.0
+atmosphere_height = 4.0
+sun_path = NodePath("../Sun/Light")
+custom_shader = ExtResource("3")
+shader_params/u_density = 0.7
+shader_params/u_scattering_strength = 1.5
+shader_params/u_atmosphere_modulate = Color(1, 0.9, 0.8, 1)
+shader_params/u_cloud_top = 0.55
+shader_params/u_cloud_shape_texture = SubResource("shape_tex")
+shader_params/u_cloud_coverage_cubemap = SubResource("cov_cube")
+
+[node name="Crate" type="MeshInstance3D" parent="."]
+transform = Transform3D(1, 0, 0, 0, 1, 0, 0, 0, 1, 30, 0, 40)
+mesh = SubResource("box_mesh")
+"""
+TSCN_SPHERES, TSCN_BOXES, TSCN_OCTAVES = 12, 6, 10
+TSCN_POSE = "avatar"
+
+
+def tscn_fixture(spheres: int = TSCN_SPHERES, boxes: int = TSCN_BOXES,
+                 octaves: int = TSCN_OCTAVES) -> str:
+    """The importer's test scene with ``spheres`` sphere and ``boxes`` box
+    MeshInstance3D nodes in all (moons on a ring about the planet, crates
+    turned about y) and ``octaves`` fractal octaves on the shape noise and
+    warp octaves on the coverage noise."""
+    text = TSCN_FIXTURE.replace("fractal_octaves = 6", f"fractal_octaves = {octaves}")
+    text = text.replace("domain_warp_fractal_octaves = 2",
+                        f"domain_warp_fractal_octaves = {octaves}")
+    res, nodes = [], []
+    for i in range(spheres - 1):  # the ground is the first
+        a = 2.0 * np.pi * i / max(spheres - 1, 1)
+        res.append(f'[sub_resource type="StandardMaterial3D" id="moon_mat{i}"]\n'
+                   f'albedo_color = Color({0.3 + 0.05 * i:.2f}, 0.4, {0.9 - 0.05 * i:.2f}, 1)\n\n'
+                   f'[sub_resource type="SphereMesh" id="moon_mesh{i}"]\n'
+                   f'material = SubResource("moon_mat{i}")\nradius = {2.0 + 0.5 * i}\n\n')
+        nodes.append(f'\n[node name="Moon{i}" type="MeshInstance3D" parent="."]\n'
+                     f'transform = Transform3D(1, 0, 0, 0, 1, 0, 0, 0, 1, '
+                     f'{75.0 * np.cos(a):.3f}, {12.0 * np.sin(2 * a):.3f}, '
+                     f'{75.0 * np.sin(a):.3f})\nmesh = SubResource("moon_mesh{i}")\n')
+    for i in range(boxes - 1):  # the crate is the first
+        a = 0.4 + 0.7 * i
+        c, s_ = np.cos(a), np.sin(a)
+        nodes.append(f'\n[node name="Crate{i}" type="MeshInstance3D" parent="."]\n'
+                     f'transform = Transform3D({c:.6f}, 0, {-s_:.6f}, 0, 1, 0, {s_:.6f}, 0, '
+                     f'{c:.6f}, {-40.0 + 20.0 * i:.1f}, {-10.0 + 6.0 * i:.1f}, 60)\n'
+                     f'mesh = SubResource("box_mesh")\n')
+    at = text.index("[node ")
+    return text[:at] + "".join(res) + text[at:] + "".join(nodes)
+
+# phase 3j: the launch struct's inline entries and past them, at
+# GEOMETRY_SIZE: (spheres, boxes, octaves and warp octaves) per case, each
+# through every instance that takes it (GEOMETRY_INSTANCES)
+GEOMETRY_SIZE = (64, 128)
+GEOMETRY_CASES = ((1, 4, 8), (8, 4, 8), (9, 5, 9), (16, 12, 10), (33, 5, 10))
+GEOMETRY_INSTANCES = ("procedural", "cloud-free", "texture", "texture general")
+# the octave chains of those cases' procedural fields: with the demo's
+# (lacunarity 2, warp lacunarity 6, gains 0.665 and 0.5) the 8th warp
+# octave samples at ~6e5 lattice units, where one ulp of the camera moves
+# the plain 64x128 frame by mean 4e-3 (9.5 % of pixels above 1e-2): as far
+# as kernel and plain lie apart, so the comparison could tell nothing.
+# These keep every octave's lattice coordinates small and its amplitude
+# large, so the octaves the scene buffer holds weigh in the frame
+# (geometry_conditioning measures both)
+GEOMETRY_CHAINS = dict(lacunarity=1.2, gain=0.8, warp_lacunarity=1.2, warp_gain=0.8)
+# the Earth-scale scene of tests/test_large_world.py (phase 8) and its
+# offsets: translated, and the raw-f32 control's
+EARTH_RADIUS, EARTH_HEIGHT = 6.371e6, 1.0e5
+LARGE_OFFSET = (3.0e7, 1.0e7, -2.0e7)
+RAW_OFFSET = (2.56e8, 1.0e8, -1.6e8)
+LARGE_WORLD_MAX = 1e-5
+
+
+def crowded_scene(instance: str, spheres: int, boxes: int, octaves: int, device,
+                  textures=None, seed: int = 0, chains=GEOMETRY_CHAINS):
+    """The demo scene at the avatar pose with ``spheres`` spheres and
+    ``boxes`` boxes (the demo's first, then seeded ones in view: small
+    spheres, turned boxes) and, in its procedural fields, ``octaves``
+    octaves and warp octaves.  ``instance``: ``"procedural"``
+    (``clouds_high``), ``"cloud-free"`` (``no_clouds``), ``"texture"``
+    (both fields baked: the fixed texture instance) or ``"texture
+    general"`` (the shape baked beside the procedural coverage); ``chains``:
+    the fields' lacunarities and gains (``{}``: the demo's); updated."""
+    from godot_atmosphere_shader_tpu_torch.models.demo import COVERAGE_NOISE, COVERAGE_SCALE
+    from godot_atmosphere_shader_tpu_torch.models.params import ProceduralField
+    from godot_atmosphere_shader_tpu_torch.render.opaque import OpaqueScene
+
+    variant = "no_clouds" if instance == "cloud-free" else "clouds_high"
+    baked = instance.startswith("texture")
+    scene, cam = scene_and_camera(variant, "avatar", device,
+                                  textures=textures if baked else None)
+    atmo = scene.atmospheres[0]
+    cfg = atmo.config
+    if cfg.clouds_enabled:
+        change = {}
+        if instance == "texture general":
+            change["cloud_coverage_noise"] = ProceduralField(COVERAGE_NOISE, COVERAGE_SCALE)
+        for name in ("cloud_shape_noise", "cloud_coverage_noise"):
+            field = change.get(name, getattr(cfg, name))
+            if field is not None:
+                change[name] = dataclasses.replace(field, noise=dataclasses.replace(
+                    field.noise, octaves=octaves, warp_octaves=octaves, **chains))
+        atmo.set_custom_shader(dataclasses.replace(cfg, **change))
+    rng = np.random.default_rng(seed)
+    o = scene.opaque
+    sph = [(o.sphere_centers[i].tolist(), float(o.sphere_radii[i]), o.sphere_albedos[i].tolist(),
+            float(o.sphere_unshaded[i])) for i in range(o.sphere_centers.shape[0])][:spheres]
+    while len(sph) < spheres:
+        c = rng.uniform((-110.0, -70.0, 60.0), (110.0, 70.0, 130.0))
+        sph.append((c.tolist(), float(rng.uniform(1.5, 6.0)), rng.uniform(0.1, 0.9, 3).tolist(),
+                    float(rng.random() < 0.2)))
+    box = [(o.box_world_to_box[i].cpu().numpy(), o.box_half_sizes[i].tolist(),
+            o.box_albedos[i].tolist()) for i in range(o.box_world_to_box.shape[0])][:boxes]
+    while len(box) < boxes:
+        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        r = q * np.sign(np.linalg.det(q))
+        t = rng.uniform((-100.0, -60.0, 40.0), (100.0, 60.0, 120.0))
+        w2b = np.eye(4, dtype=np.float32)
+        w2b[:3, :3], w2b[:3, 3] = r.T, -(r.T @ t)
+        box.append((w2b, rng.uniform(1.0, 6.0, 3).tolist(), rng.uniform(0.2, 0.9, 3).tolist()))
+    scene.opaque = OpaqueScene.create(
+        spheres=sph, boxes=box, light_dir=o.light_dir.tolist(), ambient=float(o.ambient),
+        sky_color=o.sky_color.tolist(), star_intensity=float(o.star_intensity), device=device)
+    scene.update(0.5, cam)
+    return scene, cam
+
+
+def earth_scene(offset, device, large_world=None):
+    """tests/test_large_world.py's scene (R = 6.371e6, the camera 60 km up
+    looking at the limb) translated by ``offset``; float64 camera."""
+    from godot_atmosphere_shader_tpu_torch.models.scene import Node3D, PlanetAtmosphere, Scene
+    from godot_atmosphere_shader_tpu_torch.render.opaque import OpaqueScene
+    from godot_atmosphere_shader_tpu_torch.utils.camera import Camera, look_at
+
+    offset = np.asarray(offset, np.float64)
+    sun = Node3D(position=offset + np.array([1.5e8, 0.0, 0.0]))
+    atmo = PlanetAtmosphere(planet_radius=EARTH_RADIUS, atmosphere_height=EARTH_HEIGHT, sun=sun,
+                            custom_shader="no_clouds", position=offset, density=0.005,
+                            scattering_strength=1.0, device=device)
+    opaque = OpaqueScene.create(spheres=[(offset, EARTH_RADIUS, (0.25, 0.22, 0.2))],
+                                light_dir=(-1.0, 0.0, 0.0), sky_color=(0.0, 0.0, 0.0),
+                                device=device)
+    scene = Scene([atmo], opaque, large_world=large_world, device=device)
+    eye = offset + np.array([0.0, EARTH_RADIUS + 6.0e4, 0.0])
+    target = offset + np.array([2.0e6, EARTH_RADIUS - 1.0e5, 0.0])
+    cam = Camera.create(look_at(eye, target), fov_y_deg=70.0, near=10.0, far=1.0e8,
+                        device=device)
+    scene.update(0.0, cam)
+    return scene, cam
+
+
+def translated_scene(scene, cam, offset, large_world=True):
+    """The same scene with every node, the opaque geometry and the camera
+    moved by ``offset`` in float64 (the camera's transform and the
+    geometry's positions kept as float64 tensors), rendered with
+    ``large_world``."""
+    import copy
+
+    from godot_atmosphere_shader_tpu_torch.utils.camera import Camera
+
+    offset = np.asarray(offset, np.float64)
+    moved = copy.copy(scene)
+    moved.atmospheres = []
+    for a in scene.atmospheres:
+        b = copy.copy(a)
+        b.transform = a.transform.copy()
+        b.transform[:3, 3] += offset
+        if a.sun is not None:
+            b.sun = copy.copy(a.sun)
+            b.sun.transform = a.sun.transform.copy()
+            b.sun.transform[:3, 3] += offset
+        moved.atmospheres.append(b)
+    o = scene.opaque
+    sc = o.sphere_centers.double().cpu().numpy() + offset
+    bm = o.box_world_to_box.double().cpu().numpy()
+    bm[:, :3, 3] -= bm[:, :3, :3] @ offset
+    # float64 world positions: only their rebased, camera-relative copies
+    # reach the device as float32 (large_world is on)
+    moved.opaque = dataclasses.replace(
+        o, sphere_centers=torch.as_tensor(sc, device=o.sphere_centers.device),
+        box_world_to_box=torch.as_tensor(bm, device=o.sphere_centers.device))
+    moved.large_world = large_world
+    moved._cam_cache, moved._rebased, moved._opaque_host_cache = {}, None, {}
+    moved._rebase_origin = None
+    m = cam.view_to_world.double().cpu().numpy()
+    m[:3, 3] += offset
+    return moved, dataclasses.replace(cam, view_to_world=torch.as_tensor(
+        m, dtype=torch.float64, device=cam.view_to_world.device))
 
 
 def log(*args):
@@ -753,6 +1046,18 @@ def work_ops(work: dict, config) -> dict:
             "int_ops": sum(u[1] * n for u, n in units)}
 
 
+def geometry_ops(struct, work: dict) -> int:
+    """The operations of a launch's opaque pass for the spheres and boxes
+    beyond the demo's (none for fewer), per pixel that runs it; the
+    buffer's boxes also compute the camera's position in box space."""
+    if not struct.with_opaque or struct.with_background:
+        return 0
+    per = (OPS_SPHERE * max(struct.n_spheres + struct.ext_spheres - DEMO_SPHERES, 0)
+           + OPS_BOX * max(struct.n_boxes + struct.ext_boxes - DEMO_BOXES, 0)
+           + OPS_BOX_ORIGIN * struct.ext_boxes)
+    return (work["pixels"] + work["opaque_pixels"]) * per
+
+
 def _bound(ops: int, int_ops: int, nbytes: int) -> dict:
     t_ops, t_bytes = ops_time_ms(ops, int_ops), nbytes / PEAK_BYTES * 1e3
     return {"ops": ops, "int_ops": int_ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
@@ -760,29 +1065,34 @@ def _bound(ops: int, int_ops: int, nbytes: int) -> dict:
 
 
 def roofline(work: dict, config, height: int, width: int, table_bytes: int = 0,
-             frame_bytes=None, sky_bytes: int = 0, sky_choice_ops: int = 0) -> dict:
+             frame_bytes=None, sky_bytes: int = 0, sky_choice_ops: int = 0,
+             extra_ops: int = 0) -> dict:
     """The least time the card could take for this launch's work: the
     larger of its operations' time (:func:`ops_time_ms`, fp32 and int32
     apart; :func:`work_ops`) and its bytes (frame planes read and written
     once, ``frame_bytes``, by default the outputs of a fullscreen layer;
     blue noise and pyramids read once; ``sky_bytes``: the sky levels its
     tiles chose) over the HBM rate.  ``sky_choice_ops``: the operations of
-    the sky's per-tile choice (:func:`sky_cost`)."""
+    the sky's per-tile choice (:func:`sky_cost`); ``extra_ops``: more fp32
+    operations (:func:`geometry_ops`)."""
     ops = work_ops(work, config)
     if frame_bytes is None:
         frame_bytes = height * width * BYTES_LAYER_PIXEL
-    return _bound(ops["shade"] + ops["blend"] + ops["clouds"] + sky_choice_ops, ops["int_ops"],
+    return _bound(ops["shade"] + ops["blend"] + ops["clouds"] + sky_choice_ops + extra_ops,
+                  ops["int_ops"],
                   frame_bytes + 256 * 256 * 4 + table_bytes + sky_bytes)
 
 
 def tex_general_roofline(work: dict, config, struct, tparams, table_bytes: int,
                          frame_bytes: int, sky_bytes: int = 0, sky_choice_ops: int = 0,
-                         depth_bytes: int = 0) -> dict:
+                         depth_bytes: int = 0, extra_ops: int = 0) -> dict:
     """The general texture instance's bound, each of its two launches
     charged with what it runs (:func:`roofline`'s arguments; ``depth_bytes``:
     the depth plane's share of ``frame_bytes``, read by a chained layer or
-    written on a shard).  ``tile``, the tile pass: the pixels' shading and
-    atmosphere and the sky (:func:`work_ops`'s ``shade``, ``sky_choice_ops``),
+    written on a shard; ``extra_ops``: the opaque pass's geometry beyond the
+    demo's, :func:`geometry_ops`).  ``tile``, the tile pass: the pixels'
+    shading and atmosphere and the sky (:func:`work_ops`'s ``shade``,
+    ``sky_choice_ops``, ``extra_ops``),
     the coarse pixels of its padded tile grid and the knot coordinates of
     the coverage groups the frame does not sample (:data:`OPS_CHOICE_COARSE`);
     bytes: the blue noise, the sky's levels, the depth plane and the
@@ -808,7 +1118,8 @@ def tex_general_roofline(work: dict, config, struct, tparams, table_bytes: int,
             coords += (struct.shape_knots + 1) * OPS_CHOICE_COORD[2]
     if not 0 <= work["knot_groups"] <= groups:
         raise RuntimeError(f"{work['knot_groups']} coverage groups sampled of {groups}")
-    tile = _bound(ops["shade"] + sky_choice_ops + rays // struct.cloud_lod * OPS_CHOICE_COARSE
+    tile = _bound(ops["shade"] + sky_choice_ops + extra_ops
+                  + rays // struct.cloud_lod * OPS_CHOICE_COARSE
                   + (groups - work["knot_groups"]) * coords, 0,
                   256 * 256 * 4 + sky_bytes + depth_bytes + tiles * slots * 8)
     frame = _bound(ops["blend"] + ops["clouds"], ops["int_ops"],
@@ -1551,7 +1862,7 @@ def tex_envelope_timing(scene, cam, h: int, w: int, device, plain_s: float) -> d
     work = mk.work_counts(struct, color, alpha, **args)
     table_bytes = sum(x.numel() * 4 for x in tex[0] if x is not None)
     b = tex_general_roofline(work, configs[0], struct, args["tex"][0], table_bytes,
-                             h * w * BYTES_LAYER_PIXEL)
+                             h * w * BYTES_LAYER_PIXEL, extra_ops=geometry_ops(struct, work))
     t.update(work=work, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
              frame_bound_ms=b["frame"]["bound_ms"], frame_bound_by=b["frame"]["bound_by"],
              choice_bound_ms=b["tile"]["bound_ms"], choice_bound_by=b["tile"]["bound_by"])
@@ -1746,7 +2057,8 @@ def launch_timing(plan, scene, cam, h, w, device) -> dict:
         table_bytes = 0 if tl is None else sum(x.numel() * 4 for x in tl[1:])
         b = roofline(work, configs[li], h, w, table_bytes, frame_bytes=struct.rows * w * per_px,
                      sky_bytes=cost.get("sky_bytes", 0),
-                     sky_choice_ops=cost.get("sky_choice_ops", 0))
+                     sky_choice_ops=cost.get("sky_choice_ops", 0),
+                     extra_ops=geometry_ops(struct, work))
         bound += b["bound_ms"]
         out.append({"kind": kind, "layer": li, "row0": struct.row0, "rows": struct.rows,
                     "sky": bool(struct.with_sky), "ms": ms, **extra, **b,
@@ -2525,13 +2837,455 @@ def peak_probe(device) -> dict:
     return out
 
 
+# -- phase 8: the CLI and the scene importer, K1 sized per scene, large worlds,
+# the optical-depth LUT ------------------------------------------------------------
+
+
+def tight_deltas(got: np.ndarray, ref: np.ndarray) -> dict:
+    """A cloud-free frame against its reference at atol 1e-5, rtol 1e-4:
+    the largest |Δ| and the share of values beyond the bound."""
+    d = np.abs(got.astype(np.float64) - ref.astype(np.float64))
+    over = d > 1e-5 + 1e-4 * np.abs(ref.astype(np.float64))
+    return {"max": float(d.max()), "over": float(over.mean())}
+
+
+def ulp_move(scene, cam, h: int, w: int, renderer: str = "plain", t: float = 0.5) -> dict:
+    """The largest move (by mean |Δ|) of the scene's frame (``renderer``'s)
+    when the camera's position moves one ulp of a coordinate
+    (``ULP_MOVES``), the scene updated at ``t``."""
+    scene.update(t, cam)
+    base = frame_array(scene.render(cam, h, w, renderer=renderer))
+    worst = None
+    for axis, sign in ULP_MOVES:
+        v2w = cam.view_to_world.clone()
+        v2w[axis, 3] = torch.nextafter(v2w[axis, 3],
+                                       torch.tensor(sign * 1e9, device=v2w.device))
+        moved = dataclasses.replace(cam, view_to_world=v2w)
+        scene.update(t, moved)
+        st = cloud_deltas(frame_array(scene.render(moved, h, w, renderer=renderer)), base)
+        if worst is None or st["mean"] > worst["mean"]:
+            worst = st
+    scene.update(t, cam)
+    return worst
+
+
+def conditioned_tolerance_ok(st: dict, ulp: dict) -> bool:
+    """Kernel against plain on a frame that one ulp of the camera moves
+    beyond the cloud tolerance (``ulp``, :func:`ulp_move`): each statistic
+    of the cloud tolerance held to the larger of its bound and twice what
+    that one ulp moves it by (two frames rounded apart, each within such a
+    move of the exact one), as the gas giant's max |Δ| is."""
+    return (st["p999"] <= max(1e-3, 2.0 * ulp["p999"])
+            and st["mean"] <= max(1e-4, 2.0 * ulp["mean"])
+            and st["frac_above_1e-2"] <= max(1e-3, 2.0 * ulp["frac_above_1e-2"]))
+
+
+def geometry_conditioning(device) -> dict:
+    """Phase 3j's measurement first: with the demo's octave chains, one ulp
+    of the camera moves the plain frame of the procedural 10-octave case
+    (16 spheres, 12 boxes) beyond the cloud tolerance, as far as kernel and
+    plain could lie apart; with GEOMETRY_CHAINS it moves it within, while
+    the same case with two octaves fewer fails it (the octaves past the
+    struct's weigh in the frame).  Raises where the latter two fail."""
+    h, w = GEOMETRY_SIZE
+    case = (16, 12, 10)
+    demo, _ = crowded_scene("procedural", *case, device, chains={})
+    scene, cam = crowded_scene("procedural", *case, device)
+    fewer, fcam = crowded_scene("procedural", case[0], case[1], case[2] - 2, device)
+    out = {"demo_chains_ulp": ulp_move(demo, cam, h, w), "ulp": ulp_move(scene, cam, h, w),
+           "two_octaves_fewer": cloud_deltas(
+               frame_array(fewer.render(fcam, h, w, renderer="plain")),
+               frame_array(scene.render(cam, h, w, renderer="plain")))}
+    log(f"[geometry] one ulp of the camera moves the plain {h}x{w} frame of {case} with the "
+        f"demo's octave chains by {json.dumps(out['demo_chains_ulp'])}, with "
+        f"{GEOMETRY_CHAINS} by {json.dumps(out['ulp'])}; two octaves fewer move it by "
+        f"{json.dumps(out['two_octaves_fewer'])}")
+    if not cloud_tolerance_ok(out["ulp"]) or cloud_tolerance_ok(out["two_octaves_fewer"]):
+        raise RuntimeError("the geometry cases' octave chains cannot tell the buffer's octaves")
+    return out
+
+
+def geometry_check(device, textures) -> dict:
+    """Phase 3j: GEOMETRY_CASES through each of GEOMETRY_INSTANCES at
+    GEOMETRY_SIZE with ``renderer="kernel"`` (counters: that instance, once)
+    against ``renderer="plain"``: cloud-free at atol 1e-5, rtol 1e-4, the
+    others at the cloud tolerance."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    h, w = GEOMETRY_SIZE
+    want = {"procedural": (1, 0, 0, 0), "cloud-free": (0, 1, 0, 0), "texture": (0, 0, 1, 0),
+            "texture general": (0, 0, 0, 1)}
+    out = {"conditioning": geometry_conditioning(device)}
+    for spheres, boxes, octaves in GEOMETRY_CASES:
+        for instance in GEOMETRY_INSTANCES:
+            label = f"{instance}: {spheres} spheres, {boxes} boxes, {octaves} octaves"
+            scene, cam = crowded_scene(instance, spheres, boxes, octaves, device, textures)
+            mk.counters.reset()
+            got = frame_array(scene.render(cam, h, w, renderer="kernel"))
+            counts = (mk.counters.general_launches, mk.counters.clear_launches,
+                      mk.counters.texture_launches - mk.counters.texture_general_launches,
+                      mk.counters.texture_general_launches)
+            if counts != want[instance] or mk.counters.plain_calls:
+                raise RuntimeError(f"{label}: launched {counts}, plain "
+                                   f"{mk.counters.plain_calls}")
+            ref = frame_array(scene.render(cam, h, w, renderer="plain"))
+            check_frame(got, label)
+            if instance == "cloud-free":
+                st = tight_deltas(got, ref)
+                ok = st["over"] == 0.0
+            else:
+                st = cloud_deltas(got, ref)
+                ok = cloud_tolerance_ok(st)
+            log(f"[geometry] {label} {h}x{w} kernel vs plain: {json.dumps(st)}")
+            if not ok:
+                raise RuntimeError(f"{label}: the kernel disagrees with plain")
+            out[label] = st
+    return out
+
+
+def lut_check(device) -> dict:
+    """Phase 3j: the 256² optical-depth bake on the card against the CPU's
+    (atol 1e-6 × its maximum), timed; ``clouds`` with ``od_mode="lut"`` at
+    CHECK_SIZE: ``renderer="auto"`` renders the plain chain on the card (no
+    K1 launch), held against the CPU's plain frame at the cloud
+    tolerance; ``renderer="kernel"`` raises."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+    from godot_atmosphere_shader_tpu_torch.ops.optical_depth import bake_optical_depth
+
+    lut = bake_optical_depth(100.0, 8.0, 0.5, device=device)
+    ref = bake_optical_depth(100.0, 8.0, 0.5, device="cpu")
+    bake_ms = time_cuda(lambda i: bake_optical_depth(100.0, 8.0, 0.5, device=device), 3)
+    bake_cpu_ms = time_cuda(lambda i: bake_optical_depth(100.0, 8.0, 0.5, device="cpu"), 1, 0)
+    err = float((lut.cpu() - ref).abs().max()) / float(ref.max())
+    out = {"bake_ms": bake_ms, "bake_cpu_ms": bake_cpu_ms, "bake_rel_err": err}
+    if err > 1e-6:
+        raise RuntimeError(f"the card's LUT bake is {err} of its maximum off the CPU's")
+    h, w = CHECK_SIZE
+    frames = {}
+    for dev in (device, torch.device("cpu")):
+        scene, cam = scene_and_camera("clouds", "avatar", dev)
+        atmo = scene.atmospheres[0]
+        atmo.set_custom_shader(dataclasses.replace(atmo.config, od_mode="lut"))
+        mk.counters.reset()
+        frames[dev.type] = frame_array(scene.render(cam, h, w))
+        counts = (mk.counters.megakernel_launches, mk.counters.plain_calls)
+        out[f"{dev.type}_counters"] = counts
+        if counts != (0, 1):
+            raise RuntimeError(f"od_mode='lut' on {dev}: K1 {counts[0]}, plain {counts[1]}")
+        if dev.type == "cuda":
+            out["plain_ms"] = time_cuda(lambda i: scene.render(cam, h, w), 2, 1)
+            try:
+                scene.render(cam, h, w, renderer="kernel")
+            except ValueError as e:
+                out["kernel_refusal"] = str(e)
+            else:
+                raise RuntimeError("renderer='kernel' rendered an od_mode='lut' scene")
+    st = cloud_deltas(frames["cuda"], frames["cpu"])
+    out["card_vs_cpu"] = st
+    check_frame(frames["cuda"], "od_mode=lut on the card")
+    if not cloud_tolerance_ok(st):
+        raise RuntimeError("the card's LUT frame disagrees with the CPU's")
+    return out
+
+
+def plan_timing(scene, cam, h: int, w: int, device, plain_s: float) -> dict:
+    """One frame of ``Scene.render``'s plan, its launches in sequence: CUDA
+    events over them (kernel ms), their device time (``torch.profiler``:
+    every K1 kernel and the tile passes), the bound of each launch (the
+    general texture instance's by :func:`tex_general_roofline`, the others'
+    by :func:`roofline`, each with :func:`geometry_ops`) summed,
+    ``Scene.render`` ms and idle share, and the plain ms (``plain_s``)."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    # Scene.render's own plan: rebased where the scene is a large world
+    scene._sync_rebase(cam)
+    order, params, configs = scene._sorted_layers(cam)
+    dev_cam, opaque = scene._rebased_view(cam)
+    configs, tex, pano_data, pano_meta = scene._kernel_plan(params, configs)
+    _, params, configs, tex, bands, rows = scene._layer_bands(order, params, configs, tex,
+                                                              dev_cam, h)
+    launches = mk.scene_launches(params, configs, dev_cam, opaque, h, w, tex_data=tex,
+                                 bands=bands, band_rows=rows, pano_data=pano_data,
+                                 pano_meta=pano_meta)
+    color = torch.empty((h, w, 3), device=device)
+    alpha = torch.empty((h, w), device=device)
+    depth = torch.empty((h, w), device=device)
+
+    def launch(i=0):
+        for _, st, args in launches:
+            mk.launch(st, color, alpha, depth=depth, **args)
+
+    def frame(i):
+        scene.update(0.5 + 0.05 * i, cam)
+        scene.render(cam, h, w)
+
+    # each launch's device time alone: its kernels' (K1's, and a general
+    # texture instance's tile pass or a sky's pre-pass) mean, from a trace
+    # of its launches (a trace can miss some of its events)
+    names = ("megakernel", "tex_choice_kernel", "sky_choice_kernel")
+    device_ms = 0.0
+    for _, st, args in launches:
+        trace = kernel_traces(lambda st=st, args=args: [
+            mk.launch(st, color, alpha, depth=depth, **args) for _ in range(KERNEL_FRAMES)], names)
+        device_ms += sum(v["device_us"] for v in trace.values() if v["kernels"]) / 1e3
+    t = {"kernel_ms": time_cuda(launch, KERNEL_FRAMES), "device_ms": device_ms,
+         "launches_per_frame": len(launches),
+         "scene_ms": time_cuda(frame, KERNEL_FRAMES)}
+    busy, _ = device_busy_ms(frame, KERNEL_FRAMES, first=2 + KERNEL_FRAMES)
+    t["scene_device_busy_ms"] = busy
+    t["scene_idle_share"] = 1.0 - busy / t["scene_ms"] if busy > 0 else None
+    scene.update(0.5, cam)
+    layer_of = ([0] if launches[0][0] == "opaque" else []) + list(range(len(configs)))
+    bound, parts, works = 0.0, [], []
+    for (kind, st, args), li in zip(launches, layer_of):
+        work = mk.work_counts(st, color, alpha, depth=depth, **args)
+        per_px = (BYTES_OPAQUE_PIXEL if kind == "opaque" else BYTES_CHAINED_PIXEL
+                  if st.with_background else BYTES_LAYER_PIXEL)
+        tl = args["tex"]
+        table_bytes = 0 if tl is None else sum(x.numel() * 4 for x in tl[1:] if x is not None)
+        if tl is not None and not mk.fixed_texture_instance(st, tl[0]):
+            b = tex_general_roofline(work, configs[li], st, tl[0], table_bytes,
+                                     st.rows * w * per_px, extra_ops=geometry_ops(st, work))
+        else:
+            b = roofline(work, configs[li], h, w, table_bytes, frame_bytes=st.rows * w * per_px,
+                         extra_ops=geometry_ops(st, work))
+        bound += b["bound_ms"]
+        parts.append({"kind": kind, "rows": st.rows, "bound_ms": b["bound_ms"],
+                      "bound_by": b["bound_by"], "geometry_ops": geometry_ops(st, work)})
+        works.append(work)
+    t.update(bound_ms=bound, bound_by=max(parts, key=lambda x: x["bound_ms"])["bound_by"],
+             launches=parts, plain_ms=plain_s * 1e3, work=works)
+    return t
+
+
+def cli_render(argv: list) -> tuple:
+    """``cli.main(argv)`` with its standard output captured: ``(exit code,
+    output lines)``."""
+    import io
+
+    from godot_atmosphere_shader_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue().splitlines()
+
+
+def import_phase(device, card: str, tmp: str) -> dict:
+    """Phase 8: the importer's test scene with TSCN_SPHERES spheres,
+    TSCN_BOXES boxes and TSCN_OCTAVES octaves (:func:`tscn_fixture`) at
+    1080p through ``cli.main(["render", "--scene", ...])``, procedural
+    (``megakernel_gen``) and ``--textures`` (the general texture instance),
+    with ``--stats 8``: the counters show the plan's K1 launches per frame
+    and no plain call; the same scene on the card, ``renderer="kernel"``
+    against ``renderer="plain"`` at the cloud tolerance, or, where one ulp
+    of the camera (measured first, :func:`ulp_move`) moves the frame beyond
+    it, at :func:`conditioned_tolerance_ok`; timed (:func:`plan_timing`)."""
+    from godot_atmosphere_shader_tpu_torch.models.demo import demo_camera
+    from godot_atmosphere_shader_tpu_torch.models.tscn import load_tscn
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+    from godot_atmosphere_shader_tpu_torch.utils.image_io import read_png
+
+    H, W = FULL_SIZE
+    path = os.path.join(tmp, "scene.tscn")
+    with open(path, "w") as f:
+        f.write(tscn_fixture())
+    out = {}
+    for mode, flags in (("procedural", []), ("textures", ["--textures"])):
+        png = os.path.join(tmp, f"frame_{mode}.png")
+        result = load_tscn(path, procedural=not flags, device=device)
+        scene = result.scene
+        cam = demo_camera(TSCN_POSE, device=device)
+        scene.update(0.0, cam)
+        plan = scene_plan(scene, cam, H)
+        per_frame = expected_launches(plan)
+        mk.counters.reset()
+        rc, lines = cli_render(["render", "--scene", path, *flags, "--pose", TSCN_POSE,
+                                "--size", str(H), "--width", str(W), "--stats", "8", "-o", png])
+        torch.cuda.synchronize()
+        counts = {"K1": mk.counters.megakernel_launches,
+                  "general": mk.counters.general_launches,
+                  "texture_general": mk.counters.texture_general_launches,
+                  "tile_pass": mk.counters.tex_choice_launches,
+                  "clear": mk.counters.clear_launches, "plain": mk.counters.plain_calls}
+        stats = json.loads(lines[-1])
+        img8 = read_png(png)
+        log(f"[import] {mode} 1080p through cli.main: rc {rc}, {lines[:-1]}, counters "
+            f"{json.dumps(counts)} over 9 frames of {per_frame} launches ({plan_text(plan)}), "
+            f"FrameStats {json.dumps(stats)}, png {img8.shape} mean {img8.mean():.3f}")
+        instance = "general" if mode == "procedural" else "texture_general"
+        if (rc != 0 or counts["plain"] or counts["K1"] != 9 * per_frame
+                or counts[instance] != 9 or img8.shape != (H, W, 3)):
+            raise RuntimeError(f"the imported scene ({mode}) did not render through the kernel")
+        # what one ulp of the camera moves the frame by, first (through the
+        # kernel: a 1080p plain frame of this scene takes seconds)
+        ulp = ulp_move(scene, cam, H, W, renderer="kernel", t=0.0)
+        got = frame_array(scene.render(cam, H, W, renderer="kernel"))
+        check_frame(got, f"imported scene {mode}")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ref = frame_array(scene.render(cam, H, W, renderer="plain"))
+        plain_s = time.time() - t0
+        st = cloud_deltas(got, ref)
+        s0 = mk.frame_constants(*frame_inputs(scene, cam)[0], H, W)
+        conditioned = cloud_tolerance_ok(ulp)
+        log(f"[import] {mode} 1080p: one ulp of the camera moves the kernel's frame by "
+            f"{json.dumps(ulp)}; kernel vs plain ({s0.n_spheres + s0.ext_spheres} spheres, "
+            f"{s0.n_boxes + s0.ext_boxes} boxes, "
+            f"scene buffer {'on' if s0.geom else 'off'}; "
+            f"{'cloud' if conditioned else 'conditioned'} tolerance): {json.dumps(st)}")
+        ok = cloud_tolerance_ok(st) if conditioned else conditioned_tolerance_ok(st, ulp)
+        if not ok:
+            raise RuntimeError(f"the imported scene ({mode}) disagrees with plain")
+        t = plan_timing(scene, cam, H, W, device, plain_s)
+        log(f"[import-time] {mode} 1080p on {card}: "
+            f"{json.dumps({k: v for k, v in t.items() if k != 'work'})}")
+        out[mode] = dict(t, check=st, ulp=ulp, counters=counts, frame_stats=stats,
+                         tolerance="cloud" if conditioned else "conditioned")
+    return out
+
+
+def large_world_phase(device, card: str) -> dict:
+    """Phase 8 at 1080p through K1: the Earth-scale scene at the origin and
+    at LARGE_OFFSET (max |Δ| ≤ LARGE_WORLD_MAX), the raw-f32 control
+    (``large_world=False`` at RAW_OFFSET: more than 10× the rebased error);
+    the flagship ``clouds_high``/avatar translated by LARGE_OFFSET against
+    itself at the origin (both ``large_world=True``), each against plain at
+    the cloud tolerance; an 8-frame TAA flight of the translated flagship
+    against the untranslated one."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    H, W = FULL_SIZE
+    out = {}
+
+    def k1(scene, cam, **kw):
+        mk.counters.reset()
+        img = frame_array(scene.render(cam, H, W, **kw))
+        if mk.counters.megakernel_launches < 1 or mk.counters.plain_calls:
+            raise RuntimeError("a large-world frame did not go through K1")
+        return img
+
+    base = k1(*earth_scene((0.0, 0.0, 0.0), device, True))
+    check_frame(base, "earth at the origin")
+    moved = k1(*earth_scene(LARGE_OFFSET, device))
+    out["earth_max"] = float(np.abs(moved - base).max())
+    scene, cam = earth_scene(RAW_OFFSET, device, True)
+    err_lw = float(np.abs(k1(scene, cam) - base).mean())
+    t0 = time.time()
+    check_frame(frame_array(scene.render(cam, H, W, renderer="plain")), "plain earth")
+    t = plan_timing(scene, cam, H, W, device, time.time() - t0)
+    out["earth_time"] = {k: v for k, v in t.items() if k != "work"}
+    err_raw = float(np.abs(k1(*earth_scene(RAW_OFFSET, device, False)) - base).mean())
+    out.update(earth_rebased_mean=err_lw, earth_raw_mean=err_raw)
+    log(f"[large-world] earth 1080p: translated max |d| {out['earth_max']}, at "
+        f"{RAW_OFFSET} mean |d| rebased {err_lw}, raw float32 {err_raw}; timing on {card}: "
+        f"{json.dumps(out['earth_time'])}")
+    if out["earth_max"] > LARGE_WORLD_MAX or not err_raw > 10.0 * max(err_lw, 1e-7):
+        raise RuntimeError("the rebased Earth-scale frame is not translation invariant")
+    scene, cam = scene_and_camera("clouds_high", "avatar", device)
+    scene.large_world = True
+    scene.update(0.5, cam)
+    flag = k1(scene, cam)
+    far, far_cam = translated_scene(scene, cam, LARGE_OFFSET)
+    far.update(0.5, far_cam)
+    far_img = k1(far, far_cam)
+    out["flagship_max"] = float(np.abs(far_img - flag).max())
+    checks = {}
+    for label, (sc, cm, img) in {"origin": (scene, cam, flag),
+                                 "translated": (far, far_cam, far_img)}.items():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        checks[label] = cloud_deltas(img, frame_array(sc.render(cm, H, W, renderer="plain")))
+        plain_s = time.time() - t0
+        if not cloud_tolerance_ok(checks[label]):
+            raise RuntimeError(f"the large-world flagship ({label}) disagrees with plain")
+    out["flagship_vs_plain"] = checks
+    far.update(0.5, far_cam)
+    out["flagship_time"] = {k: v for k, v in plan_timing(far, far_cam, H, W, device,
+                                                         plain_s).items() if k != "work"}
+    log(f"[large-world] translated flagship 1080p timing on {card}: "
+        f"{json.dumps(out['flagship_time'])}")
+    # the path's positions on a 2^-14 grid (float32 still holds them
+    # exactly), so that each translated position is exact in float64 too
+    # and both flights see the same relative transforms: a position like
+    # 1e-3 + 3e7 would need 59 bits
+    stack = fly_path(FLIGHT_FRAMES)
+    stack[:, :3, 3] = np.round(stack[:, :3, 3] * 2.0 ** 14) / 2.0 ** 14
+    far_stack = stack.astype(np.float64)
+    far_stack[:, :3, 3] += np.asarray(LARGE_OFFSET)
+    times = flight_times(FLIGHT_FRAMES)
+    mk.counters.reset()
+    a = scene.render_flight(cam, times, H, W, cam_transforms=stack, taa_blend=FLIGHT_BLEND)
+    b = far.render_flight(far_cam, times, H, W, cam_transforms=far_stack, taa_blend=FLIGHT_BLEND)
+    torch.cuda.synchronize()
+    out["flight_counters"] = (mk.counters.megakernel_launches, mk.counters.plain_calls)
+    out["flight_max"] = float((a["color"] - b["color"]).abs().max())
+    log(f"[large-world] flagship 1080p translated by {LARGE_OFFSET}: max |d| "
+        f"{out['flagship_max']}, against plain {json.dumps(checks)}; 8-frame TAA flight max "
+        f"|d| {out['flight_max']}, K1/plain {out['flight_counters']}")
+    if (out["flagship_max"] > LARGE_WORLD_MAX or out["flight_max"] > LARGE_WORLD_MAX
+            or out["flight_counters"] != (2 * FLIGHT_FRAMES, 0)):
+        raise RuntimeError("the translated flagship or its flight differs from the origin's")
+    return out
+
+
+def cli_phase(device, card: str, tmp: str) -> dict:
+    """Phase 8: the rest of the CLI on the card, each writing its file:
+    the flagship with the glow (``render --variant clouds_high --pose
+    avatar --glow`` at 1080×1920, no ``--device``), ``fly --taa --frames 8
+    --size 1080`` (K3 launched 8 times), ``bake-lut`` and
+    ``export-cubemap``."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import taa
+    from godot_atmosphere_shader_tpu_torch.utils.image_io import read_png
+
+    H, W = FULL_SIZE
+    out = {}
+    mk.counters.reset()
+    rc, lines = cli_render(["render", "--variant", "clouds_high", "--pose", "avatar", "--size",
+                            str(H), "--width", str(W), "--glow", "-o",
+                            os.path.join(tmp, "flagship.png")])
+    out["render"] = {"rc": rc, "K1": mk.counters.megakernel_launches,
+                     "plain": mk.counters.plain_calls,
+                     "png": list(read_png(os.path.join(tmp, "flagship.png")).shape)}
+    mk.counters.reset()
+    taa.counters.reset()
+    rc2, lines2 = cli_render(["fly", "--taa", "--frames", "8", "--size", str(H), "-o",
+                              os.path.join(tmp, "flight_")])
+    torch.cuda.synchronize()
+    pngs = sorted(f for f in os.listdir(tmp) if f.startswith("flight_"))
+    out["fly"] = {"rc": rc2, "K1": mk.counters.megakernel_launches, "K3": taa.counters.launches,
+                  "plain": mk.counters.plain_calls + taa.counters.plain_calls, "pngs": len(pngs),
+                  "shape": list(read_png(os.path.join(tmp, pngs[0])).shape) if pngs else None}
+    rc3, lines3 = cli_render(["bake-lut", "-o", os.path.join(tmp, "lut.npy")])
+    lut = np.load(os.path.join(tmp, "lut.npy"))
+    rc4, lines4 = cli_render(["export-cubemap", "-o", os.path.join(tmp, "coverage.png")])
+    out["bake_lut"] = {"rc": rc3, "shape": list(lut.shape), "max": float(lut.max())}
+    out["export_cubemap"] = {"rc": rc4, "png": list(read_png(
+        os.path.join(tmp, "coverage.png")).shape),
+        "sidecar": os.path.exists(os.path.join(tmp, "coverage.png.import"))}
+    log(f"[cli] on {card}: {json.dumps(out)}; {lines + lines2 + lines3 + lines4}")
+    if (out["render"]["rc"] or out["render"]["K1"] < 1 or out["render"]["plain"]
+            or out["render"]["png"] != [H, W, 3] or rc2 or out["fly"]["K3"] != 8
+            or out["fly"]["K1"] != 8 or out["fly"]["plain"] or out["fly"]["pngs"] != 8
+            or rc3 or out["bake_lut"]["shape"] != [256, 256] or rc4
+            or out["export_cubemap"]["png"] != [512, 768] or not out["export_cubemap"]["sidecar"]):
+        raise RuntimeError(f"a CLI command failed on the card: {out}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="stop after the small checks: 256×384 frames, K2 alone, K3 alone, "
                          "TAA flights, the exterior and multi-planet frames, the sky, the "
-                         "row shards, the procedural and texture envelopes and the gas "
-                         "giant's band (phases 7b, 3 to 3i)")
+                         "row shards, the procedural and texture envelopes, the gas "
+                         "giant's band, the geometry and octave cases and the LUT "
+                         "(phases 7b, 3 to 3j)")
+    ap.add_argument("--scene-only", action="store_true",
+                    help="run only the build, T2 and the phases of K1 sized per scene, the "
+                         "CLI, the importer, large worlds and the LUT (3j, 8), and print no "
+                         "result")
     args = ap.parse_args(argv)
 
     # -- 1. device ----------------------------------------------------------
@@ -2584,6 +3338,16 @@ def main(argv=None) -> int:
         f"{PEAK['int32'] / 1e12:.3f} Tinstr/s (measured {peak['int32_per_s'] / 1e12:.3f}, at the "
         f"sampled clock {peak['clock_int32_per_s'] / 1e12:.3f}, spec-derived "
         f"{SPEC_INT32 / 1e12:.3f}); the clocks under load: {peak['clocks_under_load']}")
+
+    if args.scene_only:
+        textures = bake_demo_textures(device=device)
+        geometry_check(device, textures)
+        log(f"[lut] on {card}: {json.dumps(lut_check(device))}")
+        with tempfile.TemporaryDirectory() as tmp:
+            import_phase(device, card, tmp)
+            large_world_phase(device, card)
+            cli_phase(device, card, tmp)
+        return 1
 
     # -- 3. kernel against plain, small --------------------------------------
     h, w = CHECK_SIZE
@@ -2764,6 +3528,11 @@ def main(argv=None) -> int:
 
     # -- 3i. the gas giant's limb band against three references -----------------
     gas_giant = gas_giant_check(device)
+    # -- 3j. K1 sized per scene: spheres, boxes and octaves past the launch
+    # struct's inline ones through each instance; the LUT's route ----------------
+    geometry = geometry_check(device, textures)
+    lut = lut_check(device)
+    log(f"[lut] on {card}: {json.dumps(lut)}")
     if args.quick:
         return 1
 
@@ -3444,6 +4213,12 @@ def main(argv=None) -> int:
         raise RuntimeError("the fill kernel disagrees with torch.full")
     log(f"[flight-time] after timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
+    # -- 8. the CLI and the Godot scene importer at 1080p, large worlds ------------
+    with tempfile.TemporaryDirectory() as tmp:
+        imported = import_phase(device, card, tmp)
+        large = large_world_phase(device, card)
+        cli_out = cli_phase(device, card, tmp)
+
     # 7b: T2 (measured before phase 3; every bound above divides by it)
     log(f"[peak] T2 on {card}: fp32 {peak['fp32_flops'] / 1e12:.3f} TFLOP/s "
         f"({peak['fp32_clock_ratio']:.4f} of {peak['clock_fp32_flops'] / 1e12:.3f} at the sampled "
@@ -3474,6 +4249,25 @@ def main(argv=None) -> int:
         "instances": instances,
         "lane_utilisation": stages[flagship][0]["lane_utilisation"],
         "stage_share": stages[flagship][0]["stage_share"],
+        "per_scene": {
+            "note": ("sized per scene: the first 8 spheres, 4 boxes and 8 octaves (and warp "
+                     "octaves) in the launch struct, the rest in the scene's float buffer on "
+                     "the card that it points to, in every instance"),
+            "imported_1080p": {k: {"ms": v["kernel_ms"], "device_ms": v["device_ms"],
+                                   "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
+                                   "scene_ms": v["scene_ms"], "idle_share": v["scene_idle_share"],
+                                   "plain_ms": v["plain_ms"], "max_abs_err": v["check"]["max"],
+                                   "launches": v["counters"]["K1"]}
+                               for k, v in imported.items()},
+            "geometry_cases_max_abs_err": max(v["max"] for k, v in geometry.items()
+                                              if k != "conditioning"),
+            "large_world": {k: large[k] for k in ("earth_max", "earth_rebased_mean",
+                                                  "earth_raw_mean", "flagship_max",
+                                                  "flight_max", "earth_time",
+                                                  "flagship_time")},
+            "lut": {k: lut[k] for k in ("bake_ms", "bake_rel_err", "plain_ms")},
+            "cli": cli_out,
+        },
         "ms": timings[flagship]["kernel_ms"],
         "plain_ms": timings[flagship]["plain_ms"],
         "bound_ms": bounds[flagship]["bound_ms"],

@@ -9,8 +9,9 @@ parent's sources (another commit's ``csrc/megakernel.cu`` and, when given,
 its ``csrc/taa.cu``, copied under ``build/compare/parent/`` with the
 queries ``megakernel_gen_info``, ``megakernel_tex_info``,
 ``megakernel_clear_info``, ``megakernel_work_slots`` and ``taa_info``
-appended where it has none, and the checkout's layout of the texture
-launch struct where it predates it, beside the checkout's other kernel
+appended where it has none, and the checkout's layout of the launch
+structs where it predates it (the texture struct's fields, the scene
+buffer's pointers), beside the checkout's other kernel
 sources), and each side's measurement build.  Then the sides run in turns,
 ``parent, change, change, parent``; each pass takes, through that side's
 library:
@@ -221,16 +222,36 @@ def parent_tex_params(source: str) -> str:
                   r"\1\n  int shape_source;\n  int cov_source;\2", source, count=1, flags=re.S)
 
 
+def parent_scene_buffer(source: str) -> str:
+    """A parent's ``megakernel.cu`` whose launch structs predate the scene
+    buffer (every sphere, box and octave inline, at most 8, 4 and 8),
+    given the checkout's layout: the buffer's fields appended to
+    ``NoiseParams`` (``ext_octaves``, ``ext_warp_octaves``, ``ext``) and
+    ``MegakernelParams`` (``ext_spheres``, ``ext_boxes``, ``geom``).  Its kernels read none of them, so
+    what they compute does not change."""
+    if "const float* geom;" in source:
+        return source
+    for struct, fields in (("NoiseParams", ("int ext_octaves", "int ext_warp_octaves",
+                                            "const float* ext")),
+                           ("MegakernelParams", ("int ext_spheres", "int ext_boxes",
+                                                 "const float* geom"))):
+        decl = "".join(f"\n  {f};" for f in fields)
+        source = re.sub(r"(struct %s \{.*?)(\n\};)" % struct,
+                        lambda m: m.group(1) + decl + m.group(2), source, count=1, flags=re.S)
+    return source
+
+
 def parent_copy(path: str, name: str, parent_dir: str) -> str:
     """A parent's source copied into ``parent_dir`` as ``name`` (the
     checkout's source it stands for) with the shims of the queries it lacks
     appended (:data:`SHIMS`) and, for ``megakernel.cu``, the checkout's
-    layout of the texture launch struct (:func:`parent_tex_params`);
+    layout of the launch structs (:func:`parent_tex_params`,
+    :func:`parent_scene_buffer`);
     returns the copy's path."""
     with open(path) as f:
         source = f.read()
     if name == "megakernel.cu":
-        source = parent_tex_params(source)
+        source = parent_scene_buffer(parent_tex_params(source))
     for query, shim in SHIMS.get(name, ()):
         if query not in source:
             source += shim

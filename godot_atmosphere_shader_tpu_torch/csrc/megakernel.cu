@@ -110,7 +110,8 @@
 // issue-bound, so splitting a pixel's steps across lanes has nothing to
 // hide.
 //
-// The procedural instance (megakernel_gen<C>, K1 slice (h)) takes every
+// The procedural instance (megakernel_gen<C, WIDE>, K1 slice (h); WIDE: a
+// field's octaves also in the scene's buffer) takes every
 // procedural config the TPU kernel renders (its body is the shared XLA
 // shading code, so _check_config, megakernel.py:468-496, is the envelope):
 // every noise basis (value, perlin, simplex, simplex-smooth, the 27-cell
@@ -216,9 +217,21 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define MK_MAX_SPHERES 8
-#define MK_MAX_BOXES 4
-#define MK_MAX_OCTAVES 8
+// A scene's spheres, boxes and octaves are not limited: the first
+// MK_INLINE_* of each sit in the launch struct, the rest in the scene's
+// float buffer on the device that the struct points to (MegakernelParams
+// geom, NoiseParams ext), laid out as below
+#define MK_INLINE_SPHERES 8
+#define MK_INLINE_BOXES 4
+#define MK_INLINE_OCTAVES 8
+// floats per sphere in the buffer: center (3), radius^2, albedo (3), unshaded
+#define MK_GEOM_SPHERE 8
+// floats per box: world_to_box (16, row-major), half size (3), albedo (3);
+// its camera position in box space is computed per pixel, uncontracted as
+// the host computes the inline boxes' box_origin
+#define MK_GEOM_BOX 22
+// floats per octave beyond MK_INLINE_OCTAVES: amp, warp_amp, warp_freq
+#define MK_EXT_OCTAVE 3
 #define MK_MAX_GROUP 8  // the fixed texture instance's rows per thread
 #define MK_QUAD_POINTS 8
 #define MK_KNOTS 8  // the fixed texture instance's coverage knots
@@ -299,12 +312,18 @@ struct NoiseParams {
   float weighted_strength;          // 0: the amplitudes below; else a per-sample chain
   float cellular_jitter;
   int cellular_return;              // 0 distance, 1 distance2, 2 cell_value
-  float amp[MK_MAX_OCTAVES];        // per-octave amplitude, bounding * gain^o
+  float amp[MK_INLINE_OCTAVES];     // per-octave amplitude, bounding * gain^o
   int warp_enabled;
   int warp_octaves;
-  float warp_amp[MK_MAX_OCTAVES];   // warp_amplitude * warp_gain^o
-  float warp_freq[MK_MAX_OCTAVES];  // warp_frequency * warp_lacunarity^o
-  float scale[3];                   // field domain scale
+  float warp_amp[MK_INLINE_OCTAVES];   // warp_amplitude * warp_gain^o
+  float warp_freq[MK_INLINE_OCTAVES];  // warp_frequency * warp_lacunarity^o
+  float scale[3];                      // field domain scale
+  // the octaves and warp octaves past the struct's (octaves and
+  // warp_octaves count at most MK_INLINE_OCTAVES), MK_EXT_OCTAVE floats
+  // each in the scene's buffer (NULL where there are none)
+  int ext_octaves;
+  int ext_warp_octaves;
+  const float* ext;
 };
 
 struct MegakernelParams {
@@ -330,16 +349,16 @@ struct MegakernelParams {
   int with_background;
   // opaque scene
   int with_opaque;
-  int n_spheres;
-  int n_boxes;
-  float sphere_center[MK_MAX_SPHERES * 3];
-  float sphere_radius2[MK_MAX_SPHERES];  // radius^2
-  float sphere_albedo[MK_MAX_SPHERES * 3];
-  float sphere_unshaded[MK_MAX_SPHERES];
-  float box_w2b[MK_MAX_BOXES * 16];
-  float box_origin[MK_MAX_BOXES * 3];  // camera position in box space
-  float box_half[MK_MAX_BOXES * 3];
-  float box_albedo[MK_MAX_BOXES * 3];
+  int n_spheres;  // at most MK_INLINE_SPHERES; ext_spheres more in the buffer
+  int n_boxes;    // at most MK_INLINE_BOXES; ext_boxes more in the buffer
+  float sphere_center[MK_INLINE_SPHERES * 3];
+  float sphere_radius2[MK_INLINE_SPHERES];  // radius^2
+  float sphere_albedo[MK_INLINE_SPHERES * 3];
+  float sphere_unshaded[MK_INLINE_SPHERES];
+  float box_w2b[MK_INLINE_BOXES * 16];
+  float box_origin[MK_INLINE_BOXES * 3];  // camera position in box space
+  float box_half[MK_INLINE_BOXES * 3];
+  float box_albedo[MK_INLINE_BOXES * 3];
   float light_dir[3];
   float ambient;
   float sky_color[3];
@@ -405,6 +424,12 @@ struct MegakernelParams {
   float sd_model[3];         // sun direction in model space
   NoiseParams shape;
   NoiseParams coverage;
+  // the spheres past the struct's (MK_GEOM_SPHERE floats each), then the
+  // boxes past them (MK_GEOM_BOX each), in the scene's buffer; NULL where
+  // there are none
+  int ext_spheres;
+  int ext_boxes;
+  const float* geom;
 };
 
 // Texture mode: the two pyramids' levels (finest first) and the sampler
@@ -739,8 +764,17 @@ __device__ __forceinline__ float base_noise(const NoiseParams& s, float x, float
 // sample_noise3: domain warp -> fractal -> base, at field coordinates.
 // weighted_strength scales each next octave's amplitude by a weight of this
 // octave's value (JAX ops/noise.py:505-518: the amplitude is then a
-// per-sample f32 chain, amp * weight * gain).
-__device__ float sample_noise3(const NoiseParams& s, float x, float y, float z) {
+// per-sample f32 chain, amp * weight * gain).  The struct holds the tables
+// of the first MK_INLINE_OCTAVES octaves and warp octaves (octaves,
+// warp_octaves); a spec with more reads the rest from its buffer (s.ext,
+// MK_EXT_OCTAVE floats per octave).  Two builds of it, the same arithmetic:
+// sample_noise3_inline for specs the struct holds whole, which the march of
+// a launch without buffered octaves inlines (any code for the buffer's
+// octaves there slowed the 1080p frames of megakernel_gen by 2-7 % on an
+// H100, compare_megakernel.py), and sample_noise3_wide for any spec, in the
+// wide instances (WIDE) of the march and at the knots of a wide spec.
+__device__ __forceinline__ float sample_noise3_inline(const NoiseParams& s, float x, float y,
+                                                     float z) {
   if (s.warp_enabled) {
     for (int o = 0; o < s.warp_octaves; ++o) {
       float f = s.warp_freq[o];
@@ -785,15 +819,86 @@ __device__ float sample_noise3(const NoiseParams& s, float x, float y, float z) 
   return total;
 }
 
-// procedural field 0.5 + 0.5 * noise(p * scale); the launch struct is a
-// __grid_constant__, so its noise specs are read in place.  Inlined at the
-// march's per-step and per-sun-sample sites (march_field), called from the
-// knots' sites (field).
-__device__ __forceinline__ float march_field(const NoiseParams& s, V3 p) {
-  return 0.5f + 0.5f * sample_noise3(s, p.x * s.scale[0], p.y * s.scale[1], p.z * s.scale[2]);
+__device__ __forceinline__ float sample_noise3_wide(const NoiseParams& s, float x, float y, float z) {
+  if (s.warp_enabled) {
+    const int warp_octaves = s.warp_octaves + s.ext_warp_octaves;
+    for (int o = 0; o < warp_octaves; ++o) {
+      float f, a;
+      if (o < MK_INLINE_OCTAVES) {
+        f = s.warp_freq[o];
+        a = s.warp_amp[o];
+      } else {
+        f = s.ext[MK_EXT_OCTAVE * (o - MK_INLINE_OCTAVES) + 2];
+        a = s.ext[MK_EXT_OCTAVE * (o - MK_INLINE_OCTAVES) + 1];
+      }
+      float sx, sy, sz;
+      value_noise3_vec3(x * f, y * f, z * f, (uint32_t)(s.seed + 1000 + o), sx, sy, sz);
+      x = x + sx * a;
+      y = y + sy * a;
+      z = z + sz * a;
+    }
+  }
+  x = x * s.frequency;
+  y = y * s.frequency;
+  z = z * s.frequency;
+  if (s.fractal_type == 0) return base_noise(s, x, y, z, (uint32_t)s.seed);
+  float total = 0.0f;
+  const bool weighted = s.weighted_strength != 0.0f;
+  float amp = s.amp[0];
+  const int octaves = s.octaves + s.ext_octaves;
+  for (int o = 0; o < octaves; ++o) {
+    float n = base_noise(s, x, y, z, (uint32_t)(s.seed + o));
+    const float a = weighted ? amp
+                   : o < MK_INLINE_OCTAVES ? s.amp[o]
+                                           : s.ext[MK_EXT_OCTAVE * (o - MK_INLINE_OCTAVES)];
+    float w;  // the weight's value term
+    if (s.fractal_type == 1) {
+      total = total + n * a;
+      w = fminf(n + 1.0f, 2.0f) * 0.5f - 1.0f;
+    } else if (s.fractal_type == 2) {
+      n = fabsf(n);
+      total = total + (n * -2.0f + 1.0f) * a;
+      w = (1.0f - n) - 1.0f;
+    } else {
+      float t = (n + 1.0f) * s.ping_pong_strength;
+      t = t - floorf(t * 0.5f) * 2.0f;
+      t = t < 1.0f ? t : 2.0f - t;
+      total = total + (t - 0.5f) * 2.0f * a;
+      w = t - 1.0f;
+    }
+    if (weighted) amp = amp * (1.0f + w * s.weighted_strength) * s.gain;
+    x = x * s.lacunarity;
+    y = y * s.lacunarity;
+    z = z * s.lacunarity;
+  }
+  return total;
 }
 
-__device__ __noinline__ float field(const NoiseParams& s, V3 p) { return march_field(s, p); }
+// procedural field 0.5 + 0.5 * noise(p * scale); the launch struct is a
+// __grid_constant__, so its noise specs are read in place.  Inlined at the
+// march's per-step and per-sun-sample sites (march_field; WIDE: the spec may
+// hold buffered octaves), called from the knots' sites (field, any spec).
+template <bool WIDE>
+__device__ __forceinline__ float march_field(const NoiseParams& s, V3 p) {
+  const float x = p.x * s.scale[0], y = p.y * s.scale[1], z = p.z * s.scale[2];
+  return 0.5f + 0.5f * (WIDE ? sample_noise3_wide(s, x, y, z) : sample_noise3_inline(s, x, y, z));
+}
+
+__device__ __noinline__ float field_wide(const NoiseParams& s, V3 p) {
+  return march_field<true>(s, p);
+}
+
+__device__ __noinline__ float field(const NoiseParams& s, V3 p) {
+  if (s.ext_octaves | s.ext_warp_octaves) return field_wide(s, p);
+  return march_field<false>(s, p);
+}
+
+// whether a launch's procedural fields hold octaves in the scene's buffer:
+// it takes the wide instance of megakernel_gen or megakernel_tex_general
+__host__ __device__ inline bool wide_noise(const MegakernelParams& p) {
+  return (p.shape.ext_octaves | p.shape.ext_warp_octaves | p.coverage.ext_octaves |
+          p.coverage.ext_warp_octaves) != 0;
+}
 
 // ---------------------------------------------------------------------------
 // Opaque pass (render/opaque.py)
@@ -813,9 +918,109 @@ __device__ __forceinline__ V3 pixel_dir(const MegakernelParams& p, int x, int y)
             __fadd_rn(__fadd_rn(__fmul_rn(m[6], dx), __fmul_rn(m[7], dy)), __fmul_rn(m[8], dz)));
 }
 
+// One sphere of the opaque pass from the scene's buffer: a closer hit
+// takes the pixel's distance, normal, albedo and shading flag.
+__device__ __forceinline__ void opaque_sphere(V3 c, float radius2, const float* albedo,
+                                              const float* unshaded_i, V3 ro, V3 rd,
+                                              float& best_t, V3& n, V3& alb, float& unshaded) {
+  float t0, t1;
+  ray_sphere(c, radius2, ro, rd, t0, t1);
+  bool hit = (t0 != t1) && (t1 > 0.0f);
+  float t = t0 > 0.0f ? t0 : t1;
+  if (hit && t < best_t) {
+    best_t = t;
+    n = normalize(sub(add(ro, mul(rd, t)), c));
+    alb = load3(albedo);
+    unshaded = *unshaded_i;
+  }
+}
+
+// One box of the opaque pass from the scene's buffer (m: its row-major
+// world_to_box, ro_b: the camera position in box space).
+__device__ __forceinline__ void opaque_box(const float* m, V3 ro_b, V3 hs, const float* albedo,
+                                           V3 rd, float& best_t, V3& n, V3& alb,
+                                           float& unshaded) {
+  V3 rd_b = xform_dir(m, 4, rd);
+  // safe reciprocal: axis-aligned rays get a huge finite slope
+  float d[3] = {rd_b.x, rd_b.y, rd_b.z};
+  float inv[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float dk = fabsf(d[k]) < 1e-12f ? (d[k] < 0.0f ? -1e-12f : 1e-12f) : d[k];
+    inv[k] = 1.0f / dk;
+  }
+  V3 nn = v3(inv[0] * ro_b.x, inv[1] * ro_b.y, inv[2] * ro_b.z);
+  V3 kk = v3(fabsf(inv[0]) * hs.x, fabsf(inv[1]) * hs.y, fabsf(inv[2]) * hs.z);
+  V3 t1 = sub(v3(-nn.x, -nn.y, -nn.z), kk);
+  V3 t2 = add(v3(-nn.x, -nn.y, -nn.z), kk);
+  float t_near = fmaxf(fmaxf(t1.x, t1.y), t1.z);
+  float t_far = fminf(fminf(t2.x, t2.y), t2.z);
+  bool hit = (t_near <= t_far) && (t_far >= 0.0f);
+  if (!hit) {
+    t_near = -1.0f;
+    t_far = -1.0f;
+  }
+  float t = t_near > 0.0f ? t_near : t_far;
+  if (hit && t > 0.0f && t < best_t) {
+    V3 pb = add(ro_b, mul(rd_b, t));
+    float axx = fabsf(pb.x / hs.x), ayy = fabsf(pb.y / hs.y), azz = fabsf(pb.z / hs.z);
+    V3 nl = v3((axx >= ayy && axx >= azz) ? fsign(pb.x) : 0.0f,
+               (ayy > axx && ayy >= azz) ? fsign(pb.y) : 0.0f,
+               (azz > axx && azz > ayy) ? fsign(pb.z) : 0.0f);
+    best_t = t;
+    n = v3(m[0] * nl.x + m[4] * nl.y + m[8] * nl.z,
+           m[1] * nl.x + m[5] * nl.y + m[9] * nl.z,
+           m[2] * nl.x + m[6] * nl.y + m[10] * nl.z);
+    alb = load3(albedo);
+    unshaded = 0.0f;
+  }
+}
+
+// a point through a row-major 4x4 in the host's operation order, each
+// product and sum rounded once (utils/camera.py::transform_point on f32
+// tensors): the camera position in the box space of a box from the buffer
+__device__ __forceinline__ V3 xform_point_rn(const float* m, V3 q) {
+  return v3(__fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[0], q.x), __fmul_rn(m[1], q.y)),
+                                __fmul_rn(m[2], q.z)), m[3]),
+            __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[4], q.x), __fmul_rn(m[5], q.y)),
+                                __fmul_rn(m[6], q.z)), m[7]),
+            __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[8], q.x), __fmul_rn(m[9], q.y)),
+                                __fmul_rn(m[10], q.z)), m[11]));
+}
+
+// The closest hit among the spheres and boxes past the launch struct's
+// (ext_spheres, ext_boxes; MK_GEOM_SPHERE and MK_GEOM_BOX floats each in
+// the scene's buffer geom), given the struct's closest: the same tests in
+// the same order.  Called, not inlined, so the inlined opaque pass is the
+// struct's geometry's alone; it takes values, not the launch struct, whose
+// address some instances' parameters cannot give without a local copy.
+struct OpaqueHit {
+  float t;
+  V3 n, alb;
+  float unshaded;
+};
+
+__device__ __noinline__ OpaqueHit opaque_tail(const float* __restrict__ geom, int ext_spheres,
+                                              int ext_boxes, V3 cam, V3 ro, V3 rd,
+                                              OpaqueHit h) {
+  for (int i = 0; i < ext_spheres; ++i) {
+    const float* g = geom + MK_GEOM_SPHERE * i;
+    opaque_sphere(load3(g), g[3], g + 4, g + 7, ro, rd, h.t, h.n, h.alb, h.unshaded);
+  }
+  const float* boxes = geom + MK_GEOM_SPHERE * ext_spheres;
+  for (int i = 0; i < ext_boxes; ++i) {
+    const float* g = boxes + MK_GEOM_BOX * i;
+    opaque_box(g, xform_point_rn(g, cam), load3(g + 16), g + 19, rd, h.t, h.n, h.alb,
+               h.unshaded);
+  }
+  return h;
+}
+
 // the closest hit's shaded color and distance; a miss gets linear depth 1e7
 // and, without a sky, sky_color plus the starfield (with one, the caller
-// samples it).  Returns whether the ray hit.
+// samples it).  Returns whether the ray hit.  The launch struct holds the
+// first MK_INLINE_SPHERES spheres and MK_INLINE_BOXES boxes (n_spheres,
+// n_boxes); a scene with more continues in opaque_tail.
 __device__ bool opaque_pass(const MegakernelParams& p, V3 ro, V3 rd, V3& rgb,
                             float& linear_depth) {
   const float big = 3.0e38f;
@@ -873,6 +1078,14 @@ __device__ bool opaque_pass(const MegakernelParams& p, V3 ro, V3 rd, V3& rgb,
       alb = load3(p.box_albedo + 3 * i);
       unshaded = 0.0f;
     }
+  }
+  if (p.ext_spheres | p.ext_boxes) {
+    const OpaqueHit h = opaque_tail(p.geom, p.ext_spheres, p.ext_boxes, load3(p.cam_pos), ro, rd,
+                                    OpaqueHit{best_t, n, alb, unshaded});
+    best_t = h.t;
+    n = h.n;
+    alb = h.alb;
+    unshaded = h.unshaded;
   }
   bool hit_any = best_t < big;
   if (hit_any) {
@@ -1119,21 +1332,22 @@ struct FieldWork {
 // and per sun sample (every basis); at full quality the detail field,
 // whose sun samples take it only where the march's alpha is below 0.3
 // (clouds.py:165-175: d_full or d_low).
+template <bool WIDE>
 struct GenFields {
   GenKnots cov_knots, shape_knots, detail_knots;
   bool full;
   FieldWork* work;
   __device__ __forceinline__ float cov_at(const MegakernelParams& p, V3 pos) const {
     ++work->cov;
-    return march_field(p.coverage, coverage_point(p, pos));
+    return march_field<WIDE>(p.coverage, coverage_point(p, pos));
   }
   __device__ __forceinline__ float shape_at(const MegakernelParams& p, V3 pos) const {
     ++work->shape;
-    return march_field(p.shape, mul(pos, p.cloud_shape_scale));
+    return march_field<WIDE>(p.shape, mul(pos, p.cloud_shape_scale));
   }
   __device__ __forceinline__ float detail_at(const MegakernelParams& p, V3 pos) const {
     ++work->detail;
-    return march_field(p.shape, detail_point(p, pos));
+    return march_field<WIDE>(p.shape, detail_point(p, pos));
   }
   __device__ __forceinline__ float cov(const MegakernelParams& p, float u01, V3 pos) const {
     return cov_knots.k ? cov_knots.interp(u01) : cov_at(p, pos);
@@ -1859,7 +2073,7 @@ __host__ __device__ __forceinline__ int knot_rows(const MegakernelParams& p) {
 // its light and alpha over the first two)
 constexpr int MK_IN_RX = 0, MK_IN_RY = 1, MK_IN_RZ = 2, MK_IN_TB = 3, MK_IN_TEM = 4, MK_IN_JIT = 5;
 
-template <int C>
+template <int C, bool WIDE>
 __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
     megakernel_gen(const __grid_constant__ MegakernelParams p, const TexParams sky_t,
                    const float* __restrict__ blue, const float* __restrict__ sky_r,
@@ -1998,7 +2212,7 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
       shp.k = kn;
       det.k = full ? kn + (shp.K + 1) * T : nullptr;
     }
-    const GenFields fields{cov, shp, det, full, &fw};
+    const GenFields<WIDE> fields{cov, shp, det, full, &fw};
     for (int k = 0; k < C; ++k) {
       if (!((marches >> k) & 1u)) continue;
       float* in = state + k * T + tid;
@@ -2372,6 +2586,7 @@ __device__ __forceinline__ void texg_coords(const MegakernelParams& p, int fld, 
 // step and per sun sample; at full quality the detail field, whose sun
 // samples take it only where the march's alpha is below 0.3 (as GenFields).
 // Knots interpolate uncontracted, as the fixed instance's do.
+template <bool WIDE>
 struct TexGenFields {
   const float* cov_k;  // knot j at cov_k[j * stride]; nullptr: per step
   const float* shp_k;
@@ -2388,15 +2603,15 @@ struct TexGenFields {
   }
   __device__ __forceinline__ float cov_at(const MegakernelParams& p, V3 pos) const {
     ++work->cov;
-    return march_field(p.coverage, coverage_point(p, pos));
+    return march_field<WIDE>(p.coverage, coverage_point(p, pos));
   }
   __device__ __forceinline__ float shape_at(const MegakernelParams& p, V3 pos) const {
     ++work->shape;
-    return march_field(p.shape, mul(pos, p.cloud_shape_scale));
+    return march_field<WIDE>(p.shape, mul(pos, p.cloud_shape_scale));
   }
   __device__ __forceinline__ float detail_at(const MegakernelParams& p, V3 pos) const {
     ++work->detail;
-    return march_field(p.shape, detail_point(p, pos));
+    return march_field<WIDE>(p.shape, detail_point(p, pos));
   }
   __device__ __forceinline__ float cov(const MegakernelParams& p, float u01, V3 pos) const {
     return cov_k ? interp(cov_k, K, u01) : cov_at(p, pos);
@@ -2808,6 +3023,7 @@ __device__ __forceinline__ unsigned texg_knots(const MegakernelParams& p, const 
 // against 8 (64, 164 B of spills) full quality took 16 % less, the others
 // within 2 % either way (an H100 at 700 W; compare_megakernel.py, PERF.md).
 constexpr int texg_min_blocks = 6;
+template <bool WIDE>
 __global__ void __launch_bounds__(MK_TILE_COLS, texg_min_blocks)
     megakernel_tex_general(const __grid_constant__ MegakernelParams p, const TexParams t,
                            const float* __restrict__ shape_tab, const float* __restrict__ cov_tab,
@@ -2875,7 +3091,8 @@ __global__ void __launch_bounds__(MK_TILE_COLS, texg_min_blocks)
       shp_k = kn;
       if (full) det_k = kn + (p.shape_knots + 1) * T;
     }
-    const TexGenFields fields{cov_k, shp_k, det_k, p.coverage_knots, p.shape_knots, T, full, &fw};
+    const TexGenFields<WIDE> fields{cov_k, shp_k, det_k, p.coverage_knots, p.shape_knots, T, full,
+                                    &fw};
     // megakernel_gen's stage 3 (shared through one device function, it
     // reordered megakernel_gen's SASS, so each kernel keeps its loop)
     for (int k = 0; k < C; ++k) {
@@ -3081,13 +3298,14 @@ static GenLayout gen_layout(const MegakernelParams* p) {
   if (rows > MK_SMEM_ROWS) return out;
   out.row_cache = rows + MK_GEN_CACHE_ROWS * G <= MK_SMEM_ROWS;
   out.smem = (rows + (out.row_cache ? MK_GEN_CACHE_ROWS * G : 0)) * MK_TILE_COLS * (int)sizeof(float);
+  const bool wide = wide_noise(*p);
   switch (C) {
-    case 1: out.kernel = megakernel_gen<1>; break;
-    case 2: out.kernel = megakernel_gen<2>; break;
-    case 4: out.kernel = megakernel_gen<4>; break;
-    case 8: out.kernel = megakernel_gen<8>; break;
-    case 16: out.kernel = megakernel_gen<16>; break;
-    case 32: out.kernel = megakernel_gen<32>; break;
+    case 1: out.kernel = wide ? megakernel_gen<1, true> : megakernel_gen<1, false>; break;
+    case 2: out.kernel = wide ? megakernel_gen<2, true> : megakernel_gen<2, false>; break;
+    case 4: out.kernel = wide ? megakernel_gen<4, true> : megakernel_gen<4, false>; break;
+    case 8: out.kernel = wide ? megakernel_gen<8, true> : megakernel_gen<8, false>; break;
+    case 16: out.kernel = wide ? megakernel_gen<16, true> : megakernel_gen<16, false>; break;
+    case 32: out.kernel = wide ? megakernel_gen<32, true> : megakernel_gen<32, false>; break;
   }
   return out;
 }
@@ -3239,12 +3457,22 @@ static TexgLayout texg_layout(const MegakernelParams* p, const TexParams* t) {
   return out;
 }
 
+// the general instance's frame kernel for a launch's params (the wide
+// build where its procedural fields hold buffered octaves)
+using TexgFrameKernel = void (*)(const MegakernelParams, const TexParams, const float*,
+                                 const float*, const int*, const TexgScratch, float*, float*,
+                                 unsigned long long*);
+
+static TexgFrameKernel texg_frame_kernel(const MegakernelParams* p) {
+  return wide_noise(*p) ? megakernel_tex_general<true> : megakernel_tex_general<false>;
+}
+
 // dynamic shared memory above the default 48 KB needs each kernel's
 // attribute raised first (never lowered below it)
-static cudaError_t texg_smem_attribute(const TexgLayout& lay) {
+static cudaError_t texg_smem_attribute(const MegakernelParams* p, const TexgLayout& lay) {
   cudaError_t err = cudaSuccess;
   if (lay.smem > 48 * 1024)
-    err = cudaFuncSetAttribute(megakernel_tex_general, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(texg_frame_kernel(p), cudaFuncAttributeMaxDynamicSharedMemorySize,
                                lay.smem);
   if (err == cudaSuccess && lay.choice_smem > 48 * 1024)
     err = cudaFuncSetAttribute(tex_choice_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -3275,7 +3503,7 @@ static int launch_tex_general(const MegakernelParams* p, const TexParams* t, con
   if (!lay.ok || !sc.atm || !choices ||
       choice_ints < (long)tiles.x * tiles.y * texg_choice_slots(*p, *t) * 2)
     return -1;
-  cudaError_t err = texg_smem_attribute(lay);
+  cudaError_t err = texg_smem_attribute(p, lay);
   if (err != cudaSuccess) return (int)err;
   tex_choice_kernel<<<tiles, dim3(MK_TILE_COLS, lay.choice_rows, 1), lay.choice_smem, stream>>>(
       *p, *t, sky, blue, sky_r, sky_g, sky_b, color, depth, sc, choices, work);
@@ -3283,7 +3511,7 @@ static int launch_tex_general(const MegakernelParams* p, const TexParams* t, con
   if (err != cudaSuccess) return (int)err;
   const int G = p->cloud_lod * p->coverage_lod;
   const dim3 grid((p->width + MK_TILE_COLS - 1) / MK_TILE_COLS, (p->rows + G - 1) / G, 1);
-  megakernel_tex_general<<<grid, dim3(MK_TILE_COLS, 1, 1), lay.smem, stream>>>(
+  texg_frame_kernel(p)<<<grid, dim3(MK_TILE_COLS, 1, 1), lay.smem, stream>>>(
       *p, *t, shape_tab, cov_tab, choices, sc, color, alpha, work);
   return (int)cudaGetLastError();
 }
@@ -3346,10 +3574,10 @@ extern "C" int megakernel_tex_info(const MegakernelParams* params, const TexPara
     const TexgLayout lay = texg_layout(params, tex);
     if (!lay.ok) return -1;
     const int choice_threads = MK_TILE_COLS * lay.choice_rows;
-    cudaError_t err = texg_smem_attribute(lay);
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, megakernel_tex_general);
+    cudaError_t err = texg_smem_attribute(params, lay);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, texg_frame_kernel(params));
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, megakernel_tex_general,
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, texg_frame_kernel(params),
                                                           MK_TILE_COLS, lay.smem);
     if (err == cudaSuccess) err = cudaFuncGetAttributes(&choice_attr, tex_choice_kernel);
     if (err == cudaSuccess)

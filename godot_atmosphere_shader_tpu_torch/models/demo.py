@@ -147,6 +147,17 @@ def build_demo_scene(variant: str = "clouds", procedural: bool = True,
     return Scene(atmospheres=[atmo], opaque=opaque, device=device)
 
 
+def default_node_scene(*, device="cuda") -> Scene:
+    """The drag-and-drop default node scene (``planet_atmosphere.tscn:8-15``):
+    R = 1, H = 0.2, the built-in v2 no-clouds shader, density 10, scattering
+    strength 0.5, on ``device``."""
+    atmo = PlanetAtmosphere(planet_radius=1.0, atmosphere_height=0.2,
+                            custom_shader="no_clouds", device=device)
+    atmo.set_shader_parameter("u_density", 10.0)
+    atmo.set_shader_parameter("u_scattering_strength", 0.5)
+    return Scene(atmospheres=[atmo], device=device)
+
+
 _POSES = {
     "avatar": ((0.0, 0.0, 156.425), (0.0, 0.0, 0.0)),  # flying-avatar start
     "exterior": ((180.0, 60.0, 180.0), (0.0, 0.0, 0.0)),

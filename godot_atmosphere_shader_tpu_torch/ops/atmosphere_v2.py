@@ -1,8 +1,9 @@
 """v2 scattering atmosphere: wavelength-dependent single scattering
-(``atmosphere_funcs_v2.gdshaderinc:32-101``), analytic sun optical depth.
+(``atmosphere_funcs_v2.gdshaderinc:32-101``).  The sun optical depth is
+analytic (``od_mode="analytic"``) or read from the baked LUT
+(``od_mode="lut"``, ``get_baked_optical_depth``).
 
-Counterpart of ``godot_atmosphere_shader_tpu/ops/atmosphere_v2.py``; the
-LUT mode (``od_mode="lut"``) is not ported yet.
+Counterpart of ``godot_atmosphere_shader_tpu/ops/atmosphere_v2.py``.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ import torch
 
 from ..utils.vecmath import Vec3, pow4
 from .density import atmosphere_density
-from .optical_depth import optical_depth_analytic
+from .optical_depth import get_baked_optical_depth, optical_depth_analytic
 
 
 def scattering_coefficients(params):
@@ -23,12 +24,14 @@ def scattering_coefficients(params):
 
 def compute_atmosphere_v2(ray_origin: Vec3, ray_dir: Vec3, planet_center: Vec3,
                           t_begin, t_end, sun_dir: Vec3, jitter,
-                          params, steps: int, od_mode: str = "analytic"):
+                          params, steps: int, od_mode: str = "analytic", lut=None):
     """Returns ``(rgb: Vec3, alpha)`` of the v2 march over ``[t_begin,
-    t_end]`` (alpha dithered by ``jitter``, capped at 0.99)."""
-    if od_mode != "analytic":
-        raise NotImplementedError(
-            f"od_mode={od_mode!r} is not ported yet (analytic only)")
+    t_end]`` (alpha dithered by ``jitter``, capped at 0.99).  ``lut``: the
+    baked optical-depth LUT that ``od_mode="lut"`` samples."""
+    if od_mode == "lut" and lut is None:
+        raise ValueError("od_mode='lut' requires a baked LUT")
+    if od_mode not in ("lut", "analytic"):
+        raise ValueError(f"unknown od_mode {od_mode!r}")
     r = params.planet_radius
     h = params.atmosphere_height
     dens_param = params.density
@@ -40,8 +43,10 @@ def compute_atmosphere_v2(ray_origin: Vec3, ray_dir: Vec3, planet_center: Vec3,
     total_r = total_g = total_b = view_od = alpha = zero
 
     for _ in range(steps):
-        sun_od = optical_depth_analytic(pos, sun_dir, planet_center, r, h,
-                                        dens_param)
+        if od_mode == "lut":
+            sun_od = get_baked_optical_depth(pos, sun_dir, planet_center, lut, r, h)
+        else:
+            sun_od = optical_depth_analytic(pos, sun_dir, planet_center, r, h, dens_param)
         rel = pos - planet_center
         height = torch.sqrt(rel.x * rel.x + rel.y * rel.y + rel.z * rel.z)
         # the second ·density: extinction ∝ density², as in the reference

@@ -64,6 +64,7 @@ plain path uses.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import dataclasses
@@ -89,10 +90,21 @@ from . import library, taa, texsample
 
 SOURCE = os.path.join(library.CSRC, "megakernel.cu")
 
-# limits of the launch structs (the #defines of csrc/megakernel.cu)
-MAX_SPHERES = 8
-MAX_BOXES = 4
-MAX_OCTAVES = 8
+# the launch structs' inline entries (the #defines of csrc/megakernel.cu):
+# a scene's first INLINE_SPHERES spheres, INLINE_BOXES boxes and each noise
+# spec's first INLINE_OCTAVES octaves sit in the struct, the rest in the
+# scene's float buffer on the device (:func:`scene_buffer`; a spec with
+# buffered octaves takes the wide builds of the procedural and general
+# texture instances, ``megakernel_gen<C, true>``): GEOM_SPHERE
+# floats per sphere (center, radius², albedo, unshaded), GEOM_BOX per box
+# (world_to_box row-major, half size, albedo), EXT_OCTAVE per octave (amp,
+# warp_amp, warp_freq)
+INLINE_SPHERES = 8
+INLINE_BOXES = 4
+INLINE_OCTAVES = 8
+GEOM_SPHERE = 8
+GEOM_BOX = 22
+EXT_OCTAVE = 3
 #: the fixed texture instance's rows per thread
 MAX_GROUP = 8
 QUAD_POINTS = 8
@@ -243,12 +255,15 @@ class NoiseParams(ctypes.Structure):
         ("weighted_strength", ctypes.c_float),
         ("cellular_jitter", ctypes.c_float),
         ("cellular_return", ctypes.c_int),
-        ("amp", _floats(MAX_OCTAVES)),
+        ("amp", _floats(INLINE_OCTAVES)),
         ("warp_enabled", ctypes.c_int),
         ("warp_octaves", ctypes.c_int),
-        ("warp_amp", _floats(MAX_OCTAVES)),
-        ("warp_freq", _floats(MAX_OCTAVES)),
+        ("warp_amp", _floats(INLINE_OCTAVES)),
+        ("warp_freq", _floats(INLINE_OCTAVES)),
         ("scale", _floats(3)),
+        ("ext_octaves", ctypes.c_int),
+        ("ext_warp_octaves", ctypes.c_int),
+        ("ext", ctypes.c_void_p),
     ]
 
 
@@ -270,14 +285,14 @@ class MegakernelParams(ctypes.Structure):
         ("with_opaque", ctypes.c_int),
         ("n_spheres", ctypes.c_int),
         ("n_boxes", ctypes.c_int),
-        ("sphere_center", _floats(MAX_SPHERES * 3)),
-        ("sphere_radius2", _floats(MAX_SPHERES)),
-        ("sphere_albedo", _floats(MAX_SPHERES * 3)),
-        ("sphere_unshaded", _floats(MAX_SPHERES)),
-        ("box_w2b", _floats(MAX_BOXES * 16)),
-        ("box_origin", _floats(MAX_BOXES * 3)),
-        ("box_half", _floats(MAX_BOXES * 3)),
-        ("box_albedo", _floats(MAX_BOXES * 3)),
+        ("sphere_center", _floats(INLINE_SPHERES * 3)),
+        ("sphere_radius2", _floats(INLINE_SPHERES)),
+        ("sphere_albedo", _floats(INLINE_SPHERES * 3)),
+        ("sphere_unshaded", _floats(INLINE_SPHERES)),
+        ("box_w2b", _floats(INLINE_BOXES * 16)),
+        ("box_origin", _floats(INLINE_BOXES * 3)),
+        ("box_half", _floats(INLINE_BOXES * 3)),
+        ("box_albedo", _floats(INLINE_BOXES * 3)),
         ("light_dir", _floats(3)),
         ("ambient", ctypes.c_float),
         ("sky_color", _floats(3)),
@@ -338,6 +353,9 @@ class MegakernelParams(ctypes.Structure):
         ("sd_model", _floats(3)),
         ("shape", NoiseParams),
         ("coverage", NoiseParams),
+        ("ext_spheres", ctypes.c_int),
+        ("ext_boxes", ctypes.c_int),
+        ("geom", ctypes.c_void_p),
     ]
 
 
@@ -680,18 +698,18 @@ def _noise_problems(spec: NoiseSpec):
     if spec.cellular_return not in CELLULAR_RETURNS or (
             spec.noise_type == "cellular_fast" and spec.cellular_return != "distance"):
         yield f"cellular_return={spec.cellular_return!r} for {spec.noise_type}"
-    if spec.octaves > MAX_OCTAVES or (spec.warp_enabled
-                                      and spec.warp_octaves > MAX_OCTAVES):
-        yield f"more than {MAX_OCTAVES} octaves (the launch struct's limit)"
 
 
-def _noise_params(spec: NoiseSpec, scale) -> NoiseParams:
-    """Static noise spec → launch struct; amplitude and frequency chains in
-    host doubles, as the plain path's Python loop computes them."""
+def _noise_params(spec: NoiseSpec, scale) -> tuple:
+    """Static noise spec → ``(launch struct, its buffer floats)``: the
+    amplitude and frequency chains in host doubles, as the plain path's
+    Python loop computes them; the first INLINE_OCTAVES octaves and warp
+    octaves in the struct (``octaves``, ``warp_octaves``), the rest
+    (``ext_octaves``, ``ext_warp_octaves``; EXT_OCTAVE floats each) for the
+    scene buffer."""
     out = NoiseParams()
     out.noise_type = NOISE_TYPES[spec.noise_type]
     out.fractal_type = FRACTAL_TYPES[spec.fractal_type]
-    out.octaves = spec.octaves
     out.seed = spec.seed
     out.frequency = spec.frequency
     out.lacunarity = spec.lacunarity
@@ -700,18 +718,79 @@ def _noise_params(spec: NoiseSpec, scale) -> NoiseParams:
     out.weighted_strength = spec.weighted_strength
     out.cellular_jitter = spec.cellular_jitter
     out.cellular_return = CELLULAR_RETURNS.get(spec.cellular_return, 0)
+    out.warp_enabled = int(spec.warp_enabled)
+    warp_octaves = spec.warp_octaves if spec.warp_enabled else 0
+    # the struct counts its own octaves, the buffer the rest
+    out.octaves = min(spec.octaves, INLINE_OCTAVES)
+    out.warp_octaves = min(warp_octaves, INLINE_OCTAVES)
+    out.ext_octaves = max(spec.octaves - INLINE_OCTAVES, 0)
+    out.ext_warp_octaves = max(warp_octaves - INLINE_OCTAVES, 0)
+    ext = np.zeros((max(out.ext_octaves, out.ext_warp_octaves), EXT_OCTAVE), np.float32)
     amp = fractal_bounding(spec)
     for o in range(spec.octaves):
-        out.amp[o] = amp
+        if o < INLINE_OCTAVES:
+            out.amp[o] = amp
+        else:
+            ext[o - INLINE_OCTAVES, 0] = amp
         amp *= spec.gain
-    out.warp_enabled = int(spec.warp_enabled)
-    out.warp_octaves = spec.warp_octaves if spec.warp_enabled else 0
     wa, wf = spec.warp_amplitude, spec.warp_frequency
-    for o in range(out.warp_octaves):
-        out.warp_amp[o], out.warp_freq[o] = wa, wf
+    for o in range(warp_octaves):
+        if o < INLINE_OCTAVES:
+            out.warp_amp[o], out.warp_freq[o] = wa, wf
+        else:
+            ext[o - INLINE_OCTAVES, 1:] = wa, wf
         wa *= spec.warp_gain
         wf *= spec.warp_lacunarity
     out.scale[:] = [float(s) for s in scale]
+    return out, ext.reshape(-1)
+
+
+#: the scene buffers on the devices, newest last: key → (the objects the
+#: key's ids name, the pinned host copy, the device tensor)
+_SCENE_BUFFERS = collections.OrderedDict()
+_SCENE_BUFFER_ENTRIES = 16
+
+
+def scene_buffer(opaque, parts, device) -> Optional[torch.Tensor]:
+    """The scene's float buffer on ``device`` that a launch struct points
+    to (``MegakernelParams.geom``, ``NoiseParams.ext``): ``parts`` are the
+    host float arrays laid end to end (the spheres and boxes beyond the
+    struct's, then each noise spec's octaves beyond it), ``None`` where all
+    are empty.  Built on the host, uploaded from pinned memory without a
+    synchronising copy, and cached per ``OpaqueScene`` object (a rebased
+    scene is its own object, one per origin) and contents."""
+    flat = np.concatenate([np.asarray(p, np.float32).reshape(-1) for p in parts])
+    if not flat.size:
+        return None
+    device = torch.device(device)
+    key = (id(opaque), str(device), flat.tobytes())
+    hit = _SCENE_BUFFERS.get(key)
+    if hit is not None and hit[0] is opaque:
+        _SCENE_BUFFERS.move_to_end(key)
+        return hit[2]
+    host = torch.from_numpy(flat)
+    if device.type == "cuda":
+        host = host.pin_memory()
+    _SCENE_BUFFERS[key] = (opaque, host, host.to(device, non_blocking=True))
+    while len(_SCENE_BUFFERS) > _SCENE_BUFFER_ENTRIES:
+        _SCENE_BUFFERS.popitem(last=False)
+    return _SCENE_BUFFERS[key][2]
+
+
+def scene_layout(struct: MegakernelParams) -> dict:
+    """Where each part of a struct's scene buffer starts, in floats, and
+    its length: ``{"spheres", "boxes", "shape", "coverage": (offset,
+    count)}`` (the spheres and boxes beyond the struct's inline ones, each
+    noise spec's octaves beyond them; ``shape`` and ``coverage`` empty
+    where the struct has no such field)."""
+    out, at = {}, 0
+    for name, n in (("spheres", GEOM_SPHERE * struct.ext_spheres),
+                    ("boxes", GEOM_BOX * struct.ext_boxes)):
+        out[name], at = (at, n), at + n
+    for name in ("shape", "coverage"):
+        spec = getattr(struct, name)
+        n = EXT_OCTAVE * max(spec.ext_octaves, spec.ext_warp_octaves)
+        out[name], at = (at, n), at + n
     return out
 
 
@@ -755,9 +834,13 @@ _CAMERA_FIELDS = ("view_to_world", "fov_y_rad", "near", "far")
 
 def frame_constants(params: AtmosphereParams, config: VariantConfig,
                     camera: Camera, opaque: Optional[OpaqueScene],
-                    height: int, width: int) -> MegakernelParams:
+                    height: int, width: int, *, owner=None, device=None) -> MegakernelParams:
     """The kernel's launch struct: the frame's scalar preamble, computed on
-    the host with the plain path's own functions."""
+    the host with the plain path's own functions, pointing at the scene's
+    buffer (:func:`scene_buffer`) where the scene has more spheres, boxes
+    or octaves than the struct holds: on ``device`` (default: the
+    camera's), cached for ``owner`` (default: ``opaque``; a caller that
+    hands over host copies names the scene they came from)."""
     p = _to_cpu(params.resolve_frame_state(), _PARAM_FIELDS)
     cam = _to_cpu(camera, _CAMERA_FIELDS)
     o = None if opaque is None else _to_cpu(opaque, _OPAQUE_FIELDS)
@@ -767,19 +850,28 @@ def frame_constants(params: AtmosphereParams, config: VariantConfig,
     s.with_atmosphere = 1
     s.ray_sx, s.ray_sy = ray_scale(cam, height, width)
 
+    parts = []
     if o is not None:
         ns, nb = o.sphere_centers.shape[0], o.box_world_to_box.shape[0]
-        if ns > MAX_SPHERES or nb > MAX_BOXES:
-            raise ValueError(f"megakernel takes at most {MAX_SPHERES} spheres "
-                             f"and {MAX_BOXES} boxes (got {ns}, {nb})")
-        s.with_opaque, s.n_spheres, s.n_boxes = 1, ns, nb
-        _set(s.sphere_center, o.sphere_centers.reshape(-1).tolist())
-        _set(s.sphere_radius2, (o.sphere_radii * o.sphere_radii).tolist())
-        _set(s.sphere_albedo, o.sphere_albedos.reshape(-1).tolist())
-        _set(s.sphere_unshaded, o.sphere_unshaded.tolist())
-        _set(s.box_w2b, o.box_world_to_box.reshape(-1).tolist())
-        _set(s.box_half, o.box_half_sizes.reshape(-1).tolist())
-        _set(s.box_albedo, o.box_albedos.reshape(-1).tolist())
+        # the struct's spheres and boxes, and how many more the buffer holds
+        s.with_opaque = 1
+        s.n_spheres, s.n_boxes = min(ns, INLINE_SPHERES), min(nb, INLINE_BOXES)
+        s.ext_spheres, s.ext_boxes = ns - s.n_spheres, nb - s.n_boxes
+        spheres = torch.cat([o.sphere_centers.reshape(ns, 3),
+                             (o.sphere_radii * o.sphere_radii).reshape(ns, 1),
+                             o.sphere_albedos.reshape(ns, 3),
+                             o.sphere_unshaded.reshape(ns, 1)], dim=1).numpy()
+        boxes = torch.cat([o.box_world_to_box.reshape(nb, 16), o.box_half_sizes.reshape(nb, 3),
+                           o.box_albedos.reshape(nb, 3)], dim=1).numpy()
+        ni, nj = min(ns, INLINE_SPHERES), min(nb, INLINE_BOXES)
+        _set(s.sphere_center, spheres[:ni, 0:3].reshape(-1).tolist())
+        _set(s.sphere_radius2, spheres[:ni, 3].tolist())
+        _set(s.sphere_albedo, spheres[:ni, 4:7].reshape(-1).tolist())
+        _set(s.sphere_unshaded, spheres[:ni, 7].tolist())
+        _set(s.box_w2b, boxes[:nj, 0:16].reshape(-1).tolist())
+        _set(s.box_half, boxes[:nj, 16:19].reshape(-1).tolist())
+        _set(s.box_albedo, boxes[:nj, 19:22].reshape(-1).tolist())
+        parts += [spheres[ni:], boxes[nj:]]
         _set(s.light_dir, o.light_dir.tolist())
         s.ambient = float(o.ambient)
         _set(s.sky_color, o.sky_color.tolist())
@@ -838,10 +930,23 @@ def frame_constants(params: AtmosphereParams, config: VariantConfig,
         layer = st.top_height - st.bottom_height
         s.sun_step0 = float((layer * SUN_REACH) / float(SUN_STEPS))
         # procedural fields (texture mode samples its pyramids instead)
+        exts = {}
         for name, field in (("shape", config.cloud_shape_noise),
                             ("coverage", config.cloud_coverage_noise)):
             if field is not None:
-                setattr(s, name, _noise_params(field.noise, field.scale))
+                spec, exts[name] = _noise_params(field.noise, field.scale)
+                setattr(s, name, spec)
+        parts += [exts.get("shape", ()), exts.get("coverage", ())]
+    buf = (scene_buffer(opaque if owner is None else owner, parts,
+                        camera.view_to_world.device if device is None else device)
+           if parts else None)
+    if buf is not None:
+        base = buf.data_ptr()
+        lay = scene_layout(s)
+        s.geom = base if lay["spheres"][1] + lay["boxes"][1] else None
+        for name in ("shape", "coverage"):
+            at, n = lay[name]
+            getattr(s, name).ext = base + 4 * at if n else None
     _frame_fields(s, p, config, cam, o)
     return s
 
@@ -856,7 +961,9 @@ def _frame_fields(s: MegakernelParams, p: AtmosphereParams, config: VariantConfi
     _set(s.cam_pos, _floats_of(ro))
     _set(s.cam_rot, cam.view_to_world[:3, :3].reshape(-1).tolist())
     if o is not None:
-        for i in range(o.box_world_to_box.shape[0]):
+        # the inline boxes' camera positions in box space; the kernel
+        # computes the buffer's boxes' the same way (xform_point_rn)
+        for i in range(s.n_boxes):
             for k, v in enumerate(_floats_of(transform_point(o.box_world_to_box[i], ro))):
                 s.box_origin[3 * i + k] = v
     pc = planet_center(p)
@@ -890,7 +997,8 @@ def flight_constants(params: AtmosphereParams, config: VariantConfig, camera: Ca
         p_i = dataclasses.replace(p, frame_state=torch.from_numpy(fs)).resolve_frame_state()
         cam_i = dataclasses.replace(cam, view_to_world=torch.from_numpy(vtw))
         if not structs:
-            structs.append(frame_constants(p_i, config, cam_i, o, height, width))
+            structs.append(frame_constants(p_i, config, cam_i, o, height, width, owner=opaque,
+                                           device=camera.view_to_world.device))
             continue
         s = MegakernelParams.from_buffer_copy(structs[0])
         _frame_fields(s, p_i, config, cam_i, o)

@@ -2,14 +2,15 @@
 (``planet_atmosphere_main.gdshaderinc:106-197``) in world space.
 
 Counterpart of ``godot_atmosphere_shader_tpu/render/atmosphere_pass.py``
-(v1 or v2).  Cloud fields are procedural noise or baked textures sampled
+(v1 or v2; :func:`atmosphere_pass` composites against an external nonlinear
+depth buffer).  Cloud fields are procedural noise or baked textures sampled
 exactly (trilinear shape texture, seamless coverage cubemap); the
 megakernel's plain version passes its pyramid samplers in instead.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -19,7 +20,9 @@ from ..ops.clouds import render_clouds, render_clouds_lod
 from ..ops.noise import sample_noise3
 from ..ops.sampling import (extend_cubemap_borders, sample_cubemap_bilinear,
                             sample_cubemap_seamless, sample_trilinear_repeat)
+from ..utils.camera import Camera, linear_depth_from_buffer, rigid_inverse, world_ray_dirs
 from ..utils.vecmath import Vec3, lerp, normalize, ray_sphere
+from .jitter import jitter_plane
 
 
 def make_shape_fn(config, params):
@@ -101,7 +104,8 @@ def shade_atmosphere(params, config, ray_origin: Vec3, ray_dir: Vec3,
     else:
         rgb, alpha = compute_atmosphere_v2(
             ray_origin, ray_dir, planet_center, t_begin, t_end, sun_dir, jitter,
-            params, config.atmosphere_steps, od_mode=config.od_mode)
+            params, config.atmosphere_steps, od_mode=config.od_mode,
+            lut=params.optical_depth_lut)
 
     if config.clouds_enabled:
         overridden = shape_fn is not None or coverage_fn is not None
@@ -124,6 +128,37 @@ def shade_atmosphere(params, config, ray_origin: Vec3, ray_dir: Vec3,
         else:
             rgb, alpha = render_clouds(*args, **kw)
     return rgb, alpha, hit
+
+
+def atmosphere_pass(params, config, camera: Camera, height: int, width: int,
+                    depth: Optional[torch.Tensor] = None,
+                    jitter: Optional[torch.Tensor] = None,
+                    ray_dir: Optional[Vec3] = None,
+                    linear_depth: Optional[torch.Tensor] = None
+                    ) -> Tuple[Vec3, torch.Tensor, torch.Tensor]:
+    """One atmosphere layer over a frame: ``(rgb, alpha, hit_mask)``, on
+    the device of ``camera``.  ``depth``: an external nonlinear depth buffer
+    (H, W) in the config's convention (reverse-Z by default), turned into
+    the Euclidean distance the shader composites against
+    (``linear_depth_from_buffer``); ``linear_depth`` is taken as it is
+    instead (e.g. the analytic opaque pass's); without either every pixel
+    is sky (1e7)."""
+    device = camera.view_to_world.device
+    params = params.resolve_frame_state()
+    if ray_dir is None:
+        ray_dir = world_ray_dirs(camera, height, width)
+    if linear_depth is None:
+        if depth is not None:
+            linear_depth = linear_depth_from_buffer(camera, depth, height, width,
+                                                    reverse_z=config.reverse_z)
+        else:
+            linear_depth = torch.full((height, width), 1e7, dtype=torch.float32,
+                                      device=device)
+    if jitter is None:
+        jitter = jitter_plane(height, width, device=device)
+    pc = rigid_inverse(params.world_to_model)[:3, 3]
+    return shade_atmosphere(params, config, camera.position, ray_dir, linear_depth, jitter,
+                            Vec3(pc[0], pc[1], pc[2]))
 
 
 def composite_over(background: Vec3, rgb: Vec3, alpha, mask) -> Vec3:

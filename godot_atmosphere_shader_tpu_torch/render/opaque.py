@@ -53,7 +53,7 @@ class OpaqueScene:
     @staticmethod
     def create(spheres=(), boxes=(), light_dir=(0.0, 0.0, -1.0),
                ambient=0.02, sky_color=(0.0, 0.0, 0.0), star_intensity=0.0,
-               panorama=None, *, device) -> "OpaqueScene":
+               panorama=None, *, device="cuda") -> "OpaqueScene":
         """``spheres``: list of (center, radius, albedo[, unshaded]);
         ``boxes``: list of (world_to_box 4×4, half_size, albedo);
         ``panorama``: an optional (H, W, 3) linear equirect sky."""
@@ -83,6 +83,31 @@ class OpaqueScene:
             box_albedos=t(ba), light_dir=t(light_dir), ambient=t(ambient),
             sky_color=t(sky_color), star_intensity=t(star_intensity),
             panorama=None if panorama is None else t(panorama))
+
+
+    def rebased(self, origin, host_cache: Optional[dict] = None) -> "OpaqueScene":
+        """Camera-relative copy: world positions shifted by ``-origin``,
+        subtracted on the host in float64 and cast to float32, so geometry
+        near the camera keeps full float32 precision however far from the
+        world origin it sits (the large-world path).  ``host_cache``
+        (caller-owned) keeps the float64 host copies across frames."""
+        if host_cache is not None and "sc" in host_cache:
+            sc, bm = host_cache["sc"], host_cache["bm"]
+        else:
+            sc = self.sphere_centers.detach().cpu().numpy().astype(np.float64)
+            bm = self.box_world_to_box.detach().cpu().numpy().astype(np.float64)
+            if host_cache is not None:
+                host_cache["sc"], host_cache["bm"] = sc, bm
+        o = np.asarray(origin, np.float64)
+        sc_rel = (sc - o).astype(np.float32)
+        bm_rel = bm.copy()
+        if bm_rel.shape[0]:
+            # box = M·p_world, p_world = p_rel + origin  ⇒  t' = t + R·origin
+            bm_rel[:, :3, 3] += bm_rel[:, :3, :3] @ o
+        device = self.sphere_centers.device
+        return dataclasses.replace(
+            self, sphere_centers=torch.as_tensor(sc_rel, device=device),
+            box_world_to_box=torch.as_tensor(bm_rel.astype(np.float32), device=device))
 
 
 def starfield(ray_dir: Vec3, star_intensity):

@@ -110,7 +110,11 @@ def render_frame(params: AtmosphereParams, config: VariantConfig,
                  row0: int = 0, rows: Optional[int] = None,
                  with_atmosphere: bool = True, pano_data=None, pano_meta=None) -> dict:
     """One layer over rows ``[row0, row0 + rows)`` of a ``height × width``
-    frame (default: all of it), as one megakernel launch renders it.
+    frame (default: all of it), as one megakernel launch renders it.  Given
+    sequences of params and configs (the layers far to near), the JAX
+    package's ``render_frame`` instead: every layer fullscreen over the
+    opaque pass, ``{"color", "alpha"}`` and, with an opaque scene, its
+    nonlinear ``depth``.
 
     Returns ``color`` ``(rows, W, 3)``, ``alpha`` ``(rows, W)``,
     ``linear_depth`` ``(rows, W)`` (the opaque pass's, before the
@@ -125,6 +129,16 @@ def render_frame(params: AtmosphereParams, config: VariantConfig,
     one); ``pano_data``/``pano_meta`` the panorama sky's (r, g, b) pyramid
     tables and their meta, sampled by the opaque pass (without them a
     panorama is sampled exactly)."""
+    if not isinstance(params, AtmosphereParams):
+        # the JAX package's render_frame(atmospheres, configs, ...): the
+        # layers far to near, each fullscreen; color, alpha and the opaque
+        # pass's nonlinear depth
+        layers = render_scene(tuple(params), tuple(config), camera, opaque, height, width)
+        out = {"color": layers["color"], "alpha": layers["alpha"]}
+        if opaque is not None:
+            out["depth"] = render_opaque(opaque, camera, height, width,
+                                         reverse_z=shared_reverse_z(config))[1]
+        return out
     device = camera.view_to_world.device
     params = params.resolve_frame_state()
     rows = height - row0 if rows is None else rows

@@ -35,13 +35,19 @@ class Camera:
 
     @staticmethod
     def create(view_to_world=None, fov_y_deg: float = 70.0, near: float = 0.1,
-               far: float = 800.0, *, device) -> "Camera":
-        """Defaults match the demo avatar camera; ``fov_y_deg`` is degrees."""
+               far: float = 800.0, *, device="cuda") -> "Camera":
+        """Defaults match the demo avatar camera; ``fov_y_deg`` is degrees.
+        A float64 numpy ``view_to_world`` (a large-world camera, as
+        :func:`look_at` returns it for float64 inputs) stays float64, so
+        ``Scene`` can rebase the world around it before anything is cast
+        to float32."""
         if view_to_world is None:
             view_to_world = torch.eye(4, dtype=torch.float32)
         f32 = dict(dtype=torch.float32, device=device)
+        wide = isinstance(view_to_world, np.ndarray) and view_to_world.dtype == np.float64
         return Camera(
-            view_to_world=torch.as_tensor(view_to_world, **f32),
+            view_to_world=torch.as_tensor(
+                view_to_world, dtype=torch.float64 if wide else torch.float32, device=device),
             fov_y_rad=torch.deg2rad(torch.as_tensor(fov_y_deg, **f32)),
             near=torch.as_tensor(near, **f32),
             far=torch.as_tensor(far, **f32),
@@ -57,9 +63,23 @@ class Camera:
         return Vec3(t[0], t[1], t[2])
 
 
-def look_at(eye, target, up=(0.0, 1.0, 0.0), *, device) -> torch.Tensor:
+def look_at(eye, target, up=(0.0, 1.0, 0.0), *, device="cuda"):
     """Camera (view→world) transform looking from ``eye`` toward ``target``
-    (camera basis: X = right, Y = up, Z = −forward)."""
+    (camera basis: X = right, Y = up, Z = −forward), a float32 tensor on
+    ``device``.  Where any input is a float64 numpy array it is computed
+    and returned as a host float64 array, as the JAX package does: the
+    large-world path needs the camera position at full precision, so that
+    ``Scene`` rebases the world around it before the cast to float32."""
+    if any(isinstance(a, np.ndarray) and a.dtype == np.float64 for a in (eye, target, up)):
+        eye = np.asarray(eye, np.float64)
+        fwd = np.asarray(target, np.float64) - eye
+        fwd = fwd / np.linalg.norm(fwd)
+        right = np.cross(fwd, np.asarray(up, np.float64))
+        right = right / np.linalg.norm(right)
+        true_up = np.cross(right, fwd)
+        m = np.eye(4)
+        m[:3, 0], m[:3, 1], m[:3, 2], m[:3, 3] = right, true_up, -fwd, eye
+        return m
     f32 = dict(dtype=torch.float32, device=device)
     eye = torch.as_tensor(eye, **f32)
     target = torch.as_tensor(target, **f32)
@@ -168,6 +188,36 @@ def projection_coeffs(camera: Camera, reverse_z: bool):
     if reverse_z:
         return n / (f - n), n * f / (f - n)
     return -f / (f - n), -f * n / (f - n)
+
+
+def projection_matrix(camera: Camera, aspect: float, reverse_z: bool = True) -> torch.Tensor:
+    """The 4×4 perspective projection (Vulkan NDC, reverse-Z by default)."""
+    fy = 1.0 / torch.tan(camera.fov_y_rad * 0.5)
+    a, b = projection_coeffs(camera, reverse_z)
+    p = torch.zeros((4, 4), dtype=torch.float32, device=camera.fov_y_rad.device)
+    p[0, 0] = fy / aspect
+    p[1, 1] = fy
+    p[2, 2] = a
+    p[2, 3] = b
+    p[3, 2] = -1.0
+    return p
+
+
+def linear_depth_from_buffer(camera: Camera, nonlinear_depth: torch.Tensor, height: int,
+                             width: int, reverse_z: bool = True) -> torch.Tensor:
+    """Euclidean camera→point distance (H, W) from a nonlinear depth buffer
+    (``planet_atmosphere_main.gdshaderinc:128-138``: NDC → view with the
+    w-divide → distance; the world transform drops out)."""
+    aspect = width / height
+    fy = 1.0 / torch.tan(camera.fov_y_rad * 0.5)
+    a, b = projection_coeffs(camera, reverse_z)
+    ndc_x, ndc_y = pixel_ndc(height, width, device=nonlinear_depth.device)
+    # the inverse projection of (ndc, d, 1): xyz = (x·aspect/f, y/f, −1), w = (d + a)/b
+    inv_w = 1.0 / ((nonlinear_depth + a) / b)
+    px = ndc_x[None, :] * (aspect / fy) * inv_w
+    py = (ndc_y / fy)[:, None] * inv_w
+    pz = -inv_w
+    return torch.sqrt(px * px + py * py + pz * pz)
 
 
 def nonlinear_depth_from_view_z(camera: Camera, z_view: torch.Tensor,

@@ -159,10 +159,37 @@ def test_compute_atmosphere_v2_demo_geometry(demo):
 
 
 def test_lut_mode_not_ported(demo):
+    """``od_mode="lut"`` is ported: without a LUT it raises ``ValueError``
+    (as JAX), with the JAX bake it matches JAX's LUT march on the demo
+    camera's rays at atol 1e-5."""
+    from godot_atmosphere_shader_tpu.ops.optical_depth import bake_optical_depth
+
     z = torch.zeros(SHAPE)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         t_atmo(tv.Vec3(0.0, 0.0, 0.0), tv.Vec3(z, z, z), tv.Vec3(0.0, 0.0, 0.0), z, z,
                tv.Vec3(1.0, 0.0, 0.0), z, demo["tp"], 8, od_mode="lut")
+    h, w = SHAPE
+    jp, tp = demo["jp"], demo["tp"]
+    lut = np.array(bake_optical_depth(100.0, 8.0, 0.5, resolution=64))
+    rd = np.stack([np.asarray(c) for c in jcam.world_ray_dirs(demo["jcam"], h, w)])
+    ro = np.asarray(demo["jcam"].view_to_world)[:3, 3]
+    t0, t1 = jv.ray_sphere(jv.Vec3(0.0, 0.0, 0.0), jp.planet_radius + jp.atmosphere_height,
+                           jv.Vec3(*(jnp.float32(v) for v in ro)), _jv3(rd))
+    hit = np.asarray(t0 != t1)
+    tb = np.where(hit, np.maximum(np.asarray(t0), 0), 0).astype(np.float32)
+    te = np.where(hit, np.maximum(np.asarray(t1), 0), 0).astype(np.float32)
+    jitter = np.random.default_rng(7).random(SHAPE, dtype=np.float32)
+    sun = np.array([0.0, 0.6, 0.8], np.float32)
+    jrgb, ja = j_atmo(jv.Vec3(*(jnp.float32(v) for v in ro)), _jv3(rd), jv.Vec3(0.0, 0.0, 0.0),
+                      jnp.asarray(tb), jnp.asarray(te), jv.Vec3(*sun), jnp.asarray(jitter),
+                      jp, 8, od_mode="lut", lut=jnp.asarray(lut))
+    trgb, ta = t_atmo(tv.Vec3(*(torch.tensor(float(v)) for v in ro)), _tv3(rd),
+                      tv.Vec3(0.0, 0.0, 0.0), torch.from_numpy(tb), torch.from_numpy(te),
+                      tv.Vec3(*(float(v) for v in sun)), torch.from_numpy(jitter), tp, 8,
+                      od_mode="lut", lut=torch.from_numpy(lut))
+    assert hit.any()
+    for j, t in zip(list(jrgb) + [ja], list(trgb) + [ta]):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("pose", ["avatar", "space"])

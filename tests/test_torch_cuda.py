@@ -979,12 +979,23 @@ def test_peak_probe_matches_plain(cuda):
 
 @pytest.mark.cuda
 def test_card_refuses_an_unpackable_texture(cuda):
+    """A texture the pyramid builders refuse: the kernel's plan refuses the
+    scene before any launch, so ``renderer="kernel"`` raises and
+    ``renderer="auto"`` renders the plain chain on the card, sampling the
+    texture exactly (as the JAX package renders it by XLA); the kernel's
+    own envelope (``check_config``) still refuses the config."""
     scene = build_demo_scene("clouds", procedural=False, device=cuda, textures=(
         torch.rand((12, 12, 12), device=cuda), torch.rand((6, 32, 32), device=cuda)))
     cam = demo_camera("avatar", device=cuda)
     scene.update(0.5, cam)
+    with pytest.raises(ValueError, match="kernel renderer"):
+        scene.render(cam, H, W, renderer="kernel")
+    mk.counters.reset()
+    out = scene.render(cam, H, W)
+    assert (mk.counters.megakernel_launches, mk.counters.plain_calls) == (0, 1)
+    assert torch.isfinite(out["color"]).all()
     with pytest.raises(ValueError, match="pyramid metas"):
-        scene.render(cam, H, W)
+        mk.check_config(scene.atmospheres[0].effective_config())
 
 
 @pytest.mark.cuda
@@ -1147,9 +1158,13 @@ def test_gas_giant_band_matches_plain(cuda):
 # the cloud-free instance's work counts on the gas giant's 192x128 band at
 # its limb pose, as an H100 counted them at the commit before the empty
 # quadrature segment was skipped (compare_megakernel.py); od_segments, which
-# that commit did not count, as the kernel that skips it counted them there:
-# one segment for 0.996 of the 64 steps of each of the 8,752 integrations
-_PARENT_GAS_GIANT_WORK = dict(pixels=16384, atmosphere=8752, od_segments=557958)
+# that commit did not count, as the kernel that skips it counts them: one
+# segment for 0.996 of the 64 steps of each of the 8,752 integrations.  The
+# count depends on the compiler's build of the kernel: built by CUDA 12.9's
+# nvcc, the kernel before the scene buffer and the kernel with it both count
+# 558,016 in one call of compare_megakernel.py (an earlier toolkit's build
+# counted 557,958)
+_PARENT_GAS_GIANT_WORK = dict(pixels=16384, atmosphere=8752, od_segments=558016)
 
 
 @pytest.mark.cuda
@@ -1177,3 +1192,104 @@ def test_gas_giant_work_counts_equal_the_parents(cuda):
     assert steps == 64 and struct.with_atmosphere and not struct.clouds_enabled
     assert 0 < work["od_segments"] <= 2 * steps * work["atmosphere"]
     assert {k: work[k] for k in _PARENT_GAS_GIANT_WORK} == _PARENT_GAS_GIANT_WORK
+
+
+# -- K1 sized per scene, large worlds, the LUT's route -----------------------------
+
+
+def _geometry_cases():
+    import chip_smoke as cs
+
+    return [(c, i) for c in cs.GEOMETRY_CASES for i in cs.GEOMETRY_INSTANCES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,instance", _geometry_cases())
+def test_geometry_and_octaves_past_the_struct_match_plain(cuda, baked, case, instance):
+    """Spheres, boxes and octaves past the launch struct's inline 8, 4 and
+    8 (read from the scene buffer) through each instance that takes them,
+    against the plain chain: cloud-free at atol 1e-5, rtol 1e-4, cloudy
+    at the cloud tolerance.  The fields' octave chains are
+    ``chip_smoke.GEOMETRY_CHAINS``: with the demo's, one ulp of the camera
+    moves these plain frames as far as kernel and plain lie apart
+    (``chip_smoke.geometry_conditioning`` measures it)."""
+    import chip_smoke as cs
+
+    spheres, boxes, octaves = case
+    h, w = cs.GEOMETRY_SIZE
+    scene, cam = cs.crowded_scene(instance, spheres, boxes, octaves, cuda, textures=baked)
+    assert scene.opaque.sphere_centers.shape[0] == spheres
+    mk.counters.reset()
+    got = cs.frame_array(scene.render(cam, h, w, renderer="kernel"))
+    counts = (mk.counters.general_launches, mk.counters.clear_launches,
+              mk.counters.texture_launches - mk.counters.texture_general_launches,
+              mk.counters.texture_general_launches)
+    want = {"procedural": (1, 0, 0, 0), "cloud-free": (0, 1, 0, 0), "texture": (0, 0, 1, 0),
+            "texture general": (0, 0, 0, 1)}[instance]
+    assert counts == want and mk.counters.plain_calls == 0
+    ref = cs.frame_array(scene.render(cam, h, w, renderer="plain"))
+    assert np.isfinite(got).all()
+    if instance == "cloud-free":
+        np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
+    else:
+        st = cs.cloud_deltas(got, ref)
+        assert cs.cloud_tolerance_ok(st), st
+
+
+@pytest.mark.cuda
+def test_scene_buffer_is_on_the_card_and_cached(cuda):
+    import chip_smoke as cs
+
+    scene, cam = cs.crowded_scene("procedural", 12, 6, 10, cuda)
+    _, params, configs = scene._sorted_layers(cam)
+    s = mk.frame_constants(params[0], configs[0], cam, scene.opaque, H, W)
+    buf = next(t for _, _, t in mk._SCENE_BUFFERS.values() if t.data_ptr() == s.geom)
+    assert buf.is_cuda and s.shape.ext and s.coverage.ext
+    assert mk.frame_constants(params[0], configs[0], cam, scene.opaque, H, W).geom == s.geom
+    small, cam2 = cs.crowded_scene("procedural", 8, 4, 8, cuda)
+    _, params, configs = small._sorted_layers(cam2)
+    s = mk.frame_constants(params[0], configs[0], cam2, small.opaque, H, W)
+    assert not s.geom and not s.shape.ext and not s.coverage.ext
+
+
+@pytest.mark.cuda
+def test_large_world_through_the_kernel(cuda):
+    """The Earth-scale scene at 64×128 through K1, at the origin and
+    translated by (3e7, 1e7, −2e7): max |Δ| ≤ 1e-5; without the rebase at
+    (2.56e8, 1e8, −1.6e8) the error is more than 10× the rebased one."""
+    import chip_smoke as cs
+
+    def frame(offset, large_world=None):
+        scene, cam = cs.earth_scene(offset, cuda, large_world)
+        mk.counters.reset()
+        out = cs.frame_array(scene.render(cam, H, W))
+        assert mk.counters.megakernel_launches >= 1 and mk.counters.plain_calls == 0
+        return out
+
+    base = frame((0.0, 0.0, 0.0), True)
+    assert np.abs(frame(cs.LARGE_OFFSET) - base).max() <= cs.LARGE_WORLD_MAX
+    err_lw = np.abs(frame(cs.RAW_OFFSET, True) - base).mean()
+    err_raw = np.abs(frame(cs.RAW_OFFSET, False) - base).mean()
+    assert err_raw > 10.0 * max(err_lw, 1e-7)
+
+
+@pytest.mark.cuda
+def test_lut_takes_the_plain_route_on_the_card(cuda):
+    """``od_mode="lut"``: ``renderer="auto"`` renders the plain chain on the
+    card (no K1 launch), within the cloud tolerance of the CPU's frame;
+    ``renderer="kernel"`` raises."""
+    import chip_smoke as cs
+
+    frames = {}
+    for device in (cuda, torch.device("cpu")):
+        scene, cam = cs.scene_and_camera("clouds", "avatar", device)
+        atmo = scene.atmospheres[0]
+        atmo.set_custom_shader(dataclasses.replace(atmo.config, od_mode="lut"))
+        mk.counters.reset()
+        frames[device.type] = cs.frame_array(scene.render(cam, H, W))
+        assert (mk.counters.megakernel_launches, mk.counters.plain_calls) == (0, 1)
+        if device.type == "cuda":
+            with pytest.raises(ValueError):
+                scene.render(cam, H, W, renderer="kernel")
+    st = cs.cloud_deltas(frames["cuda"], frames["cpu"])
+    assert cs.cloud_tolerance_ok(st), st

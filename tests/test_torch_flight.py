@@ -227,8 +227,10 @@ def test_render_flight_refusals():
         scene.render_flight(cam, TIMES, 64, 128, taa_blend=0.2, mesh=object())
     far = tdemo.Camera.create(tdemo.look_at((0.0, 0.0, 5.0e4), (0.0, 0.0, 0.0), device="cpu"),
                               device="cpu")
-    with pytest.raises(NotImplementedError):
-        scene.render_flight(far, TIMES, 8, 128)
+    # a far camera is no longer refused: the flight rebases on its position
+    out = scene.render_flight(far, TIMES, 8, 128)
+    np.testing.assert_array_equal(scene._rebase_origin, [0.0, 0.0, 5.0e4])
+    assert torch.isfinite(out["color"]).all()
     with pytest.raises(ValueError):  # the resolve's tiling: rows % 8
         scene.render_flight(cam, TIMES, 12, 128, taa_blend=0.2)
     with pytest.raises(ValueError):
@@ -295,6 +297,17 @@ def test_port_modules_name_neither_jax_nor_the_jax_package():
 @pytest.mark.parametrize("fn", [tdemo.build_demo_scene, tdemo.demo_camera,
                                 tdemo.bake_demo_textures, tscene.Scene,
                                 tscene.PlanetAtmosphere, tflight.FlyCamera.camera,
-                                tflight.orbit_path, tflight.approach_path])
+                                tflight.orbit_path, tflight.approach_path,
+                                port.look_at, port.Camera.create, port.load_tscn,
+                                port.load_scene, port.NoiseCubemap, port.default_node_scene,
+                                port.bake_optical_depth, port.OpaqueScene.create])
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_cli_defaults_to_the_card(monkeypatch):
+    from godot_atmosphere_shader_tpu_torch import cli
+
+    seen = {}
+    monkeypatch.setattr(cli, "cmd_bake_lut", lambda args: seen.update(device=args.device))
+    assert cli.main(["bake-lut"]) == 0 and seen["device"] == "cuda"

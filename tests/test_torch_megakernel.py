@@ -112,9 +112,9 @@ _COVERAGE = demo_variant("clouds_high").cloud_coverage_noise
     dict(od_mode="lut"), dict(model="v3"), dict(cloud_shape_noise=None),
     dict(cloud_coverage_noise=None), dict(cloud_lod=0),
     dict(cloud_lod=3), dict(cloud_lod=32),
-    dict(cloud_shape_noise=_noise(_SHAPE, octaves=9)), dict(cloud_coverage_lod=3),
+    dict(cloud_shape_noise=_noise(_SHAPE, fractal_type="bogus")), dict(cloud_coverage_lod=3),
     dict(cloud_coverage_lod=0),
-    dict(cloud_coverage_noise=_noise(_COVERAGE, warp_octaves=9)),
+    dict(cloud_coverage_noise=_noise(_COVERAGE, cellular_return="bogus")),
     dict(cloud_shape_tex_meta=object()),
     dict(cloud_shape_noise=_noise(_SHAPE, noise_type="worley")),
     dict(cloud_coverage_tex_meta=object()),
@@ -124,7 +124,9 @@ def test_wrapper_rejects_unsupported_config(clouds_high, change):
     wrapper applies it to CUDA tensors; on the CPU the plain chain refuses
     only what the plain ops do not take): no LUT, no other model, no
     procedural field beside a baked one without pyramids, a LOD group
-    dividing the 32-row tile, the launch struct's 8 octaves, known bases."""
+    dividing the 32-row tile, known bases, fractals and cellular returns
+    (any octave count: the octaves beyond the struct's come from the scene
+    buffer)."""
     params, cfg, cam, opaque = clouds_high[1]
     with pytest.raises(ValueError):
         mk.check_config(dataclasses.replace(cfg, **change))
@@ -139,6 +141,8 @@ def test_wrapper_rejects_unsupported_config(clouds_high, change):
     dict(cloud_shape_noise=_noise(_SHAPE, noise_type="cellular", cellular_return="cell_value")),
     dict(cloud_coverage_noise=_noise(_COVERAGE, fractal_type="ping_pong",
                                      weighted_strength=0.3)),
+    dict(cloud_shape_noise=_noise(_SHAPE, octaves=10)),
+    dict(cloud_coverage_noise=_noise(_COVERAGE, octaves=9, warp_octaves=10)),
 ])
 def test_general_instance_takes_the_procedural_envelope(clouds_high, change):
     """Every procedural config the JAX megakernel renders passes
@@ -207,15 +211,17 @@ _GROUPS = [(g, lod) for g in (1, 2, 4, 8, 16, 32) for lod in (1, 2, 4, 8, 16, 32
 @pytest.mark.parametrize("group,lod", _GROUPS)
 def test_launcher_instantiates_every_coarse_count(clouds_high, group, lod):
     """``check_config`` passes every LOD group dividing the 32-row tile, and
-    the launcher (``gen_layout``) has an instance of ``megakernel_gen<C>``
+    the launcher (``gen_layout``) has the instances ``megakernel_gen<C,
+    WIDE>`` (the spec's octaves in the struct or also in the scene buffer)
     for its C = cloud_coverage_lod coarse pixels per thread."""
     cfg = dataclasses.replace(clouds_high[1][1], cloud_lod=lod, cloud_coverage_lod=group // lod,
                               cloud_lod_interior=0)
     mk.check_config(cfg)
     body = re.search(r"static GenLayout gen_layout\(.*?\n\}", _cu_source(), re.S).group(0)
-    cases = {int(a): int(b) for a, b in re.findall(
-        r"case (\d+): out\.kernel = megakernel_gen<(\d+)>;", body)}
-    assert all(a == b for a, b in cases.items())
+    cases = {int(a): (int(b), int(c)) for a, b, c in re.findall(
+        r"case (\d+): out\.kernel = wide \? megakernel_gen<(\d+), true> : "
+        r"megakernel_gen<(\d+), false>;", body)}
+    assert all(a == b == c for a, (b, c) in cases.items())
     assert set(cases) == set(mk.GEN_COARSE)
     assert cfg.cloud_coverage_lod in cases
 
@@ -248,7 +254,7 @@ def test_demo_profile_is_in_the_kernel_slice():
 
 # -- the CUDA source and its ctypes binding ------------------------------------
 
-_CTYPE = {"int": ctypes.c_int, "float": ctypes.c_float}
+_CTYPE = {"int": ctypes.c_int, "float": ctypes.c_float, "const float*": ctypes.c_void_p}
 
 
 def _cu_source():
@@ -264,10 +270,10 @@ def _cu_struct(name):
         line = line.split("//")[0].strip()
         if not line:
             continue
-        m = re.fullmatch(r"(\w+) (\w+)(?:\[(.+)\])?;", line)
+        m = re.fullmatch(r"(\w+|const float\*) (\w+)(?:\[(.+)\])?;", line)
         assert m, line
         ctype, fname, size = m.groups()
-        n = eval(size, {}, defines) if size else None  # e.g. MK_MAX_SPHERES * 3
+        n = eval(size, {}, defines) if size else None  # e.g. MK_INLINE_SPHERES * 3
         fields.append((fname, ctype, n))
     return fields
 
@@ -293,8 +299,11 @@ def test_cu_limits_match_wrapper():
     defines = {k: int(v) for k, v in re.findall(r"#define (MK_\w+) (\d+)", _cu_source())}
     work = {f"MK_WORK_{name.upper()}": i for i, name in enumerate(mk.WORK_SLOTS)}
     stages = {f"MK_STAGE_{name.upper()}": i for i, name in enumerate(mk.STAGE_SLOTS)}
-    assert defines == {"MK_MAX_SPHERES": mk.MAX_SPHERES, "MK_MAX_BOXES": mk.MAX_BOXES,
-                       "MK_MAX_OCTAVES": mk.MAX_OCTAVES, "MK_MAX_GROUP": mk.MAX_GROUP,
+    assert defines == {"MK_INLINE_SPHERES": mk.INLINE_SPHERES,
+                       "MK_INLINE_BOXES": mk.INLINE_BOXES,
+                       "MK_INLINE_OCTAVES": mk.INLINE_OCTAVES, "MK_GEOM_SPHERE": mk.GEOM_SPHERE,
+                       "MK_GEOM_BOX": mk.GEOM_BOX, "MK_EXT_OCTAVE": mk.EXT_OCTAVE,
+                       "MK_MAX_GROUP": mk.MAX_GROUP,
                        "MK_QUAD_POINTS": mk.QUAD_POINTS, "MK_KNOTS": mk.KNOTS,
                        "MK_SMEM_ROWS": mk.SMEM_ROWS, "MK_GEN_MARCH_ROWS": mk.GEN_MARCH_ROWS,
                        "MK_GEN_CACHE_ROWS": mk.GEN_CACHE_ROWS,

@@ -198,34 +198,53 @@ def test_render_refuses_multiple_layers():
 @pytest.mark.parametrize("change", [dict(cloud_shape_noise=None), dict(od_mode="lut"),
                                     dict(cloud_coverage_noise=None)])
 def test_render_refuses_unported_configs(change):
-    """The LUT is not ported; clouds without a shape or a coverage field
-    (no procedural spec and no texture) are a user error, as in JAX."""
+    """Clouds without a shape or a coverage field (no procedural spec and
+    no texture) are a user error, as in JAX.  The optical-depth LUT renders,
+    by the plain route: the kernel's plan refuses it, so
+    ``renderer="kernel"`` raises ``ValueError`` (as JAX's ``"pallas"``)."""
     scene, cam = _scene()
     atmo = scene.atmospheres[0]
     atmo.set_custom_shader(dataclasses.replace(atmo.config, **change))
-    error = NotImplementedError if "od_mode" in change else ValueError
-    with pytest.raises(error):
+    if "od_mode" in change:
+        _, params, configs = scene._sorted_layers(cam)
+        assert scene._kernel_plan(params, configs) is None
+        assert params[0].optical_depth_lut.shape == (256, 256)
+        with pytest.raises(ValueError):
+            scene.render(cam, 8, 16, renderer="kernel")
+        out = scene.render(cam, 8, 16)
+        assert torch.isfinite(out["color"]).all() and torch.isfinite(out["alpha"]).all()
+        return
+    with pytest.raises(ValueError):
         scene.render(cam, 8, 16)
 
 
 def test_render_refuses_large_worlds():
+    """A camera beyond ``LARGE_WORLD_THRESHOLD`` no longer raises: the scene
+    renders camera-relative, rebased on the camera's position, and the frame
+    matches the one rendered without the rebase there (at 5e4 float32 still
+    resolves the scene) within the cloud tolerance."""
     scene, cam = _scene()
     far = tdemo.Camera.create(tdemo.look_at((0.0, 0.0, 5.0e4), (0.0, 0.0, 0.0), device="cpu"),
                               device="cpu")
-    with pytest.raises(NotImplementedError):
-        scene.render(far, 8, 16)
+    out = scene.render(far, 8, 16)
+    np.testing.assert_array_equal(scene._rebase_origin, [0.0, 0.0, 5.0e4])
+    scene.large_world = False
+    raw = scene.render(far, 8, 16)
+    assert scene._rebase_origin is None
+    d = np.abs(out["color"].numpy() - raw["color"].numpy())
+    assert np.isfinite(d).all() and np.percentile(d, 99.9) <= 1e-3
 
 
 def test_textures_are_not_ported():
     """The cloud textures are ported (tests/test_torch_texture_scene.py),
     one baked field beside one procedural field too
     (tests/test_torch_texture_envelope.py): a baked shape texture beside
-    the procedural coverage renders, through its pyramid.  The
-    optical-depth LUT texture is not ported."""
+    the procedural coverage renders, through its pyramid.  So is the
+    optical-depth LUT texture: the uniform stores it."""
     scene, cam = _scene()
     atmo = scene.atmospheres[0]
-    with pytest.raises(NotImplementedError):
-        atmo.set_shader_parameter("u_optical_depth_texture", np.zeros((4, 4, 3)))
+    atmo.set_shader_parameter("u_optical_depth_texture", np.ones((4, 4)))
+    assert atmo.get_shader_parameter("u_optical_depth_texture").shape == (4, 4)
     atmo.set_shader_parameter("u_cloud_shape_texture", np.zeros((8, 8, 8)))
     assert atmo.get_shader_parameter("u_cloud_shape_texture").shape == (8, 8, 8)
     atmo.set_custom_shader(dataclasses.replace(atmo.config, cloud_shape_noise=None))
