@@ -55,9 +55,9 @@ class AtmosphereParams:
     cloud_coverage_rotation: torch.Tensor  # (2, 2)
     world_to_model: torch.Tensor  # (4, 4)
     time: torch.Tensor
-    # baked media (None ⇒ procedural per config); the optical-depth LUT is
-    # not ported yet
-    optical_depth_lut: Optional[torch.Tensor] = None
+    # baked media (None ⇒ procedural per config): the optical-depth LUT
+    # (od_mode="lut"), the shape texture and the coverage cubemap
+    optical_depth_lut: Optional[torch.Tensor] = None  # (256, 256)
     cloud_shape_texture: Optional[torch.Tensor] = None  # (S, S, S)
     cloud_coverage_cubemap: Optional[torch.Tensor] = None  # (6, R, R)
     # packed per-frame dynamics: (24,) = sun_position(3) ‖ world_to_model(16)
@@ -159,8 +159,9 @@ class VariantConfig:
 
     Field for field the JAX package's ``VariantConfig`` (its docstrings
     explain each one).  The port's render paths honour every field but
-    ``od_mode="lut"`` (which raises until ported) and ``march_unroll`` (a
-    TPU compile setting, ignored).
+    ``march_unroll`` (a TPU compile setting, ignored); ``od_mode="lut"``
+    renders by the plain route (the kernel samples no LUT, as the JAX
+    megakernel does not).
     """
 
     model: str = "v2"

@@ -517,9 +517,10 @@ def check_config(config: VariantConfig):
     """Raise ``ValueError`` for any config outside what the kernel renders:
     v1 or v2 with analytic optical depth; clouds whose LOD group of
     cloud_lod·cloud_coverage_lod rows divides the 32-row tile, with every
-    basis, fractal and knot setting the JAX megakernel renders (coverage
-    and shape per step or from any number of knots, the detail field)
-    within the launch struct's limits; in texture mode, each baked field
+    basis, fractal, octave count and knot setting the JAX megakernel
+    renders (coverage and shape per step or from any number of knots, the
+    detail field; the knots within a block's shared memory); in texture
+    mode, each baked field
     from its pyramid beside a procedural one, as the JAX kernel's
     ``_check_config`` takes them (:func:`_texture_problems`)."""
     bad = []
