@@ -251,8 +251,13 @@ two more phases:
    (the general texture instance): counters (the plan's K1 launches on
    each of the 9 frames, no plain call), ``FrameStats``, the frame held
    against ``renderer="plain"`` at the cloud tolerance, or, where one ulp
-   of the camera moves the kernel's frame beyond it (measured first), at
-   twice that move (``conditioned_tolerance_ok``), then kernel ms,
+   of the camera moves the plain frame beyond it (measured first), at the
+   strictest tolerance that move keeps (``ulp_tolerance_ok``: p99 for
+   p99.9, else twice the move per statistic); the procedural scene's
+   frame with two octaves fewer through the same comparison (logged: with
+   the imported octave chains it lies within one ulp's move), and the same
+   scene with GEOMETRY_CHAINS, held the same way, whose two-octaves-fewer
+   frame must fail the comparison; then kernel ms,
    device ms, the bound (the extra spheres, boxes and octaves charged),
    ``Scene.render`` ms, idle share and plain ms; large worlds through K1:
    the Earth-scale scene at the origin and translated by (3e7, 1e7, −2e7)
@@ -261,7 +266,7 @@ two more phases:
    translated by (3e7, 1e7, −2e7) against the untranslated ones (≤ 1e-5,
    each frame against plain at the cloud tolerance); and the CLI's other
    commands on the card: the flagship with the glow (no ``--device``),
-   ``fly --taa --frames 8 --size 1080`` (K3 8 times), ``bake-lut`` and
+   ``fly --taa --frames 8 --size 1152`` (K3 8 times), ``bake-lut`` and
    ``export-cubemap``, each writing its file.
 
 Prints a JSON line describing each kernel (with its roofline bound from
@@ -610,6 +615,9 @@ mesh = SubResource("box_mesh")
 """
 TSCN_SPHERES, TSCN_BOXES, TSCN_OCTAVES = 12, 6, 10
 TSCN_POSE = "avatar"
+# phase 8's fly --taa: square, the side nearest 1080 that the resolve's
+# 128-column tiling takes (the CLI refuses others, as JAX's does)
+FLY_SIZE = 1152
 
 
 def tscn_fixture(spheres: int = TSCN_SPHERES, boxes: int = TSCN_BOXES,
@@ -2849,14 +2857,15 @@ def tight_deltas(got: np.ndarray, ref: np.ndarray) -> dict:
     return {"max": float(d.max()), "over": float(over.mean())}
 
 
-def ulp_move(scene, cam, h: int, w: int, renderer: str = "plain", t: float = 0.5) -> dict:
+def ulp_move(scene, cam, h: int, w: int, renderer: str = "plain", t: float = 0.5,
+             moves=ULP_MOVES) -> dict:
     """The largest move (by mean |Δ|) of the scene's frame (``renderer``'s)
-    when the camera's position moves one ulp of a coordinate
-    (``ULP_MOVES``), the scene updated at ``t``."""
+    when the camera's position moves one ulp of a coordinate (``moves``:
+    axis and sign pairs), the scene updated at ``t``."""
     scene.update(t, cam)
     base = frame_array(scene.render(cam, h, w, renderer=renderer))
     worst = None
-    for axis, sign in ULP_MOVES:
+    for axis, sign in moves:
         v2w = cam.view_to_world.clone()
         v2w[axis, 3] = torch.nextafter(v2w[axis, 3],
                                        torch.tensor(sign * 1e9, device=v2w.device))
@@ -2869,9 +2878,36 @@ def ulp_move(scene, cam, h: int, w: int, renderer: str = "plain", t: float = 0.5
     return worst
 
 
+def ulp_tolerance_ok(st: dict, ulp: dict) -> bool:
+    """Kernel against plain on a frame whose conditioning one ulp of the
+    camera measured first (``ulp``: :func:`ulp_move` of the plain frame):
+    the strictest tolerance that move does not itself break: the cloud
+    tolerance; else, where only p99.9 breaks (a few ill-conditioned pixels:
+    cellular cell edges), p99 in its place (:func:`detail_tolerance_ok`);
+    else :func:`conditioned_tolerance_ok`."""
+    if cloud_tolerance_ok(ulp):
+        return cloud_tolerance_ok(st)
+    if detail_tolerance_ok(ulp):
+        return detail_tolerance_ok(st)
+    return conditioned_tolerance_ok(st, ulp)
+
+
+def ulp_tolerance_name(ulp: dict) -> str:
+    """The name of the tolerance :func:`ulp_tolerance_ok` holds to."""
+    return ("cloud" if cloud_tolerance_ok(ulp) else "p99 for p99.9"
+            if detail_tolerance_ok(ulp) else "conditioned")
+
+
+def camera_moves(cam) -> tuple:
+    """The ULP_MOVES along the camera position's nonzero coordinates: one
+    ulp of a zero coordinate is a denormal, which moves no frame."""
+    return tuple((a, s) for a, s in ULP_MOVES if float(cam.view_to_world[a, 3]) != 0.0)
+
+
 def conditioned_tolerance_ok(st: dict, ulp: dict) -> bool:
     """Kernel against plain on a frame that one ulp of the camera moves
-    beyond the cloud tolerance (``ulp``, :func:`ulp_move`): each statistic
+    beyond the cloud tolerance (``ulp``: :func:`ulp_move` of the plain
+    frame, so the kernel under test sets no bound of its own): each statistic
     of the cloud tolerance held to the larger of its bound and twice what
     that one ulp moves it by (two frames rounded apart, each within such a
     move of the exact one), as the gas giant's max |Δ| is."""
@@ -3071,6 +3107,54 @@ def cli_render(argv: list) -> tuple:
     return rc, buf.getvalue().splitlines()
 
 
+def tscn_chains(result, chains: dict, fewer: int = 0):
+    """The imported scene of ``result`` (``load_tscn``) with its procedural
+    fields' lacunarities and gains set by ``chains`` and, with ``fewer``,
+    that many octaves and warp octaves fewer wherever a field has more than
+    the launch struct holds (INLINE_OCTAVES); returns the scene."""
+    from godot_atmosphere_shader_tpu_torch.models.params import ProceduralField
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    def cut(n):
+        return n - fewer if n > mk.INLINE_OCTAVES else n
+
+    atmo = result.scene.atmospheres[0]
+    cfg = atmo.config
+    change = {}
+    for name in ("cloud_shape_noise", "cloud_coverage_noise"):
+        field = getattr(cfg, name)
+        if isinstance(field, ProceduralField):
+            change[name] = dataclasses.replace(field, noise=dataclasses.replace(
+                field.noise, octaves=cut(field.noise.octaves),
+                warp_octaves=cut(field.noise.warp_octaves), **chains))
+    atmo.set_custom_shader(dataclasses.replace(cfg, **change))
+    return result.scene
+
+
+def kernel_against_plain(scene, cam, label: str) -> tuple:
+    """``scene`` at 1080p through ``renderer="kernel"`` (counters: one
+    procedural K1 launch per layer, no plain call) against
+    ``renderer="plain"``, with what one ulp of the camera moves the plain
+    frame by, measured first (:func:`ulp_move` along :func:`camera_moves`):
+    ``(kernel frame, plain frame, plain s, ulp move, statistics, whether
+    they pass)`` at :func:`ulp_tolerance_ok`."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    H, W = FULL_SIZE
+    ulp = ulp_move(scene, cam, H, W, t=0.0, moves=camera_moves(cam))
+    mk.counters.reset()
+    got = frame_array(scene.render(cam, H, W, renderer="kernel"))
+    if mk.counters.megakernel_launches < 1 or mk.counters.plain_calls:
+        raise RuntimeError(f"{label} did not render through the kernel")
+    check_frame(got, label)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ref = frame_array(scene.render(cam, H, W, renderer="plain"))
+    plain_s = time.time() - t0
+    st = cloud_deltas(got, ref)
+    return got, ref, plain_s, ulp, st, ulp_tolerance_ok(st, ulp)
+
+
 def import_phase(device, card: str, tmp: str) -> dict:
     """Phase 8: the importer's test scene with TSCN_SPHERES spheres,
     TSCN_BOXES boxes and TSCN_OCTAVES octaves (:func:`tscn_fixture`) at
@@ -3078,9 +3162,13 @@ def import_phase(device, card: str, tmp: str) -> dict:
     (``megakernel_gen``) and ``--textures`` (the general texture instance),
     with ``--stats 8``: the counters show the plan's K1 launches per frame
     and no plain call; the same scene on the card, ``renderer="kernel"``
-    against ``renderer="plain"`` at the cloud tolerance, or, where one ulp
-    of the camera (measured first, :func:`ulp_move`) moves the frame beyond
-    it, at :func:`conditioned_tolerance_ok`; timed (:func:`plan_timing`)."""
+    against ``renderer="plain"`` (:func:`kernel_against_plain`), timed
+    (:func:`plan_timing`).  The procedural scene's octaves past the
+    struct's: its frame with two octaves fewer through the same comparison
+    (logged, since with the imported chains, whose 10th warp octave samples
+    at ~2e7 lattice units, it can lie within one ulp's move), and the scene
+    with GEOMETRY_CHAINS (the same spheres, boxes and octave counts), held
+    the same way, whose two-octaves-fewer frame must fail."""
     from godot_atmosphere_shader_tpu_torch.models.demo import demo_camera
     from godot_atmosphere_shader_tpu_torch.models.tscn import load_tscn
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
@@ -3117,31 +3205,60 @@ def import_phase(device, card: str, tmp: str) -> dict:
         if (rc != 0 or counts["plain"] or counts["K1"] != 9 * per_frame
                 or counts[instance] != 9 or img8.shape != (H, W, 3)):
             raise RuntimeError(f"the imported scene ({mode}) did not render through the kernel")
-        # what one ulp of the camera moves the frame by, first (through the
-        # kernel: a 1080p plain frame of this scene takes seconds)
-        ulp = ulp_move(scene, cam, H, W, renderer="kernel", t=0.0)
-        got = frame_array(scene.render(cam, H, W, renderer="kernel"))
-        check_frame(got, f"imported scene {mode}")
-        torch.cuda.synchronize()
-        t0 = time.time()
-        ref = frame_array(scene.render(cam, H, W, renderer="plain"))
-        plain_s = time.time() - t0
-        st = cloud_deltas(got, ref)
+        got, ref, plain_s, ulp, st, ok = kernel_against_plain(scene, cam, f"imported {mode}")
         s0 = mk.frame_constants(*frame_inputs(scene, cam)[0], H, W)
-        conditioned = cloud_tolerance_ok(ulp)
-        log(f"[import] {mode} 1080p: one ulp of the camera moves the kernel's frame by "
+        log(f"[import] {mode} 1080p: one ulp of the camera moves the plain frame by "
             f"{json.dumps(ulp)}; kernel vs plain ({s0.n_spheres + s0.ext_spheres} spheres, "
             f"{s0.n_boxes + s0.ext_boxes} boxes, "
             f"scene buffer {'on' if s0.geom else 'off'}; "
-            f"{'cloud' if conditioned else 'conditioned'} tolerance): {json.dumps(st)}")
-        ok = cloud_tolerance_ok(st) if conditioned else conditioned_tolerance_ok(st, ulp)
+            f"{ulp_tolerance_name(ulp)} tolerance): {json.dumps(st)}")
         if not ok:
             raise RuntimeError(f"the imported scene ({mode}) disagrees with plain")
+        entry = dict(check=st, ulp=ulp, counters=counts, frame_stats=stats,
+                     tolerance=ulp_tolerance_name(ulp))
+        if mode == "procedural":
+            entry["octaves"] = octave_controls(path, cam, ref, ulp, device)
         t = plan_timing(scene, cam, H, W, device, plain_s)
         log(f"[import-time] {mode} 1080p on {card}: "
             f"{json.dumps({k: v for k, v in t.items() if k != 'work'})}")
-        out[mode] = dict(t, check=st, ulp=ulp, counters=counts, frame_stats=stats,
-                         tolerance="cloud" if conditioned else "conditioned")
+        out[mode] = dict(t, **entry)
+    return out
+
+
+def octave_controls(path: str, cam, ref, ulp: dict, device) -> dict:
+    """Phase 8's octave controls on the imported procedural scene: its
+    kernel frame with two octaves fewer against the plain frame ``ref``
+    under the comparison the scene took (``ulp``; logged); and the scene
+    with GEOMETRY_CHAINS, kernel against plain (:func:`kernel_against_plain`),
+    then its two-octaves-fewer kernel frame against that plain frame under
+    the same comparison, which must fail.  Raises where either of the
+    latter does not hold."""
+    from godot_atmosphere_shader_tpu_torch.models.tscn import load_tscn
+
+    H, W = FULL_SIZE
+
+    def kernel_frame(scene):
+        scene.update(0.0, cam)
+        return frame_array(scene.render(cam, H, W, renderer="kernel"))
+
+    def scene_with(chains, fewer=0):
+        return tscn_chains(load_tscn(path, procedural=True, device=device), chains, fewer)
+
+    out = {"imported_two_fewer": cloud_deltas(kernel_frame(scene_with({}, 2)), ref)}
+    out["imported_tells"] = not ulp_tolerance_ok(out["imported_two_fewer"], ulp)
+    _, wc_ref, _, wc_ulp, wc_st, wc_ok = kernel_against_plain(
+        scene_with(GEOMETRY_CHAINS), cam, "imported scene with GEOMETRY_CHAINS")
+    out.update(chains_ulp=wc_ulp, chains_check=wc_st, chains_tolerance=ulp_tolerance_name(wc_ulp),
+               chains_two_fewer=cloud_deltas(kernel_frame(scene_with(GEOMETRY_CHAINS, 2)), wc_ref))
+    log(f"[import] procedural 1080p, two octaves fewer against plain: "
+        f"{json.dumps(out['imported_two_fewer'])} (the comparison tells them apart: "
+        f"{out['imported_tells']}); with {GEOMETRY_CHAINS}: one ulp of the camera moves the "
+        f"plain frame by {json.dumps(wc_ulp)}, kernel vs plain ({out['chains_tolerance']} "
+        f"tolerance) {json.dumps(wc_st)}, two octaves fewer "
+        f"{json.dumps(out['chains_two_fewer'])}")
+    if not wc_ok or ulp_tolerance_ok(out["chains_two_fewer"], wc_ulp):
+        raise RuntimeError("the imported scene with GEOMETRY_CHAINS: the kernel disagrees with "
+                           "plain, or the comparison cannot tell two octaves fewer")
     return out
 
 
@@ -3233,7 +3350,7 @@ def cli_phase(device, card: str, tmp: str) -> dict:
     """Phase 8: the rest of the CLI on the card, each writing its file:
     the flagship with the glow (``render --variant clouds_high --pose
     avatar --glow`` at 1080×1920, no ``--device``), ``fly --taa --frames 8
-    --size 1080`` (K3 launched 8 times), ``bake-lut`` and
+    --size`` FLY_SIZE (K3 launched 8 times), ``bake-lut`` and
     ``export-cubemap``."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
     from godot_atmosphere_shader_tpu_torch.ops.kernels import taa
@@ -3250,7 +3367,7 @@ def cli_phase(device, card: str, tmp: str) -> dict:
                      "png": list(read_png(os.path.join(tmp, "flagship.png")).shape)}
     mk.counters.reset()
     taa.counters.reset()
-    rc2, lines2 = cli_render(["fly", "--taa", "--frames", "8", "--size", str(H), "-o",
+    rc2, lines2 = cli_render(["fly", "--taa", "--frames", "8", "--size", str(FLY_SIZE), "-o",
                               os.path.join(tmp, "flight_")])
     torch.cuda.synchronize()
     pngs = sorted(f for f in os.listdir(tmp) if f.startswith("flight_"))
@@ -3268,6 +3385,7 @@ def cli_phase(device, card: str, tmp: str) -> dict:
     if (out["render"]["rc"] or out["render"]["K1"] < 1 or out["render"]["plain"]
             or out["render"]["png"] != [H, W, 3] or rc2 or out["fly"]["K3"] != 8
             or out["fly"]["K1"] != 8 or out["fly"]["plain"] or out["fly"]["pngs"] != 8
+            or out["fly"]["shape"] != [FLY_SIZE, FLY_SIZE, 3]
             or rc3 or out["bake_lut"]["shape"] != [256, 256] or rc4
             or out["export_cubemap"]["png"] != [512, 768] or not out["export_cubemap"]["sidecar"]):
         raise RuntimeError(f"a CLI command failed on the card: {out}")
@@ -3282,10 +3400,6 @@ def main(argv=None) -> int:
                          "row shards, the procedural and texture envelopes, the gas "
                          "giant's band, the geometry and octave cases and the LUT "
                          "(phases 7b, 3 to 3j)")
-    ap.add_argument("--scene-only", action="store_true",
-                    help="run only the build, T2 and the phases of K1 sized per scene, the "
-                         "CLI, the importer, large worlds and the LUT (3j, 8), and print no "
-                         "result")
     args = ap.parse_args(argv)
 
     # -- 1. device ----------------------------------------------------------
@@ -3338,16 +3452,6 @@ def main(argv=None) -> int:
         f"{PEAK['int32'] / 1e12:.3f} Tinstr/s (measured {peak['int32_per_s'] / 1e12:.3f}, at the "
         f"sampled clock {peak['clock_int32_per_s'] / 1e12:.3f}, spec-derived "
         f"{SPEC_INT32 / 1e12:.3f}); the clocks under load: {peak['clocks_under_load']}")
-
-    if args.scene_only:
-        textures = bake_demo_textures(device=device)
-        geometry_check(device, textures)
-        log(f"[lut] on {card}: {json.dumps(lut_check(device))}")
-        with tempfile.TemporaryDirectory() as tmp:
-            import_phase(device, card, tmp)
-            large_world_phase(device, card)
-            cli_phase(device, card, tmp)
-        return 1
 
     # -- 3. kernel against plain, small --------------------------------------
     h, w = CHECK_SIZE
@@ -4252,7 +4356,8 @@ def main(argv=None) -> int:
         "per_scene": {
             "note": ("sized per scene: the first 8 spheres, 4 boxes and 8 octaves (and warp "
                      "octaves) in the launch struct, the rest in the scene's float buffer on "
-                     "the card that it points to, in every instance"),
+                     "the card that it points to; a launch that reads it takes each kernel's "
+                     "EXT instance"),
             "imported_1080p": {k: {"ms": v["kernel_ms"], "device_ms": v["device_ms"],
                                    "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
                                    "scene_ms": v["scene_ms"], "idle_share": v["scene_idle_share"],

@@ -289,9 +289,16 @@ def build_sides(parent_cu: str, parent_taa=None) -> tuple:
             {k: gen_report(v[1]) for k, v in built.items() if v[1]})
 
 
-# the kernels that a change to the general texture instance leaves as they
-# were: each instance's SASS is held against the parent's (sass_equal)
-UNCHANGED = ("megakernel_gen", "megakernel_tex", "megakernel_clear", "taa_kernel")
+# the kernels whose instances are held against the parent's, instruction
+# for instruction (sass_equal): a change that leaves them as they were
+# leaves their time as it was
+UNCHANGED = ("megakernel_gen", "megakernel_tex", "megakernel_clear", "megakernel_tex_general",
+             "tex_choice_kernel", "sky_choice_kernel", "taa_kernel")
+# the kernels whose last template argument is EXT (csrc/megakernel.cu: the
+# instance for launches that read the scene's buffer); a parent without it
+# has only the other instance
+EXT_KERNELS = ("megakernel_gen", "megakernel_tex", "megakernel_clear", "megakernel_tex_general",
+               "tex_choice_kernel")
 
 
 def sass_functions(lib: str) -> dict:
@@ -319,22 +326,43 @@ def base_name(mangled: str) -> str:
     return mangled[m.end():m.end() + int(m.group(1))] if m else mangled
 
 
+def instance_name(mangled: str) -> str:
+    """A kernel instance's readable name from its mangled one: the
+    identifier and its integer template arguments, ``EXT`` last where the
+    kernel has that argument and it is true (``megakernel_gen<16>``,
+    ``megakernel_gen<16, EXT>``, ``megakernel_clear``)."""
+    name = base_name(mangled)
+    rest = mangled[re.match(r"_Z\d+", mangled).end() + len(name):] if mangled[:2] == "_Z" else ""
+    m = re.match(r"I((?:L[ib]\d+E)+)E", rest)
+    args = re.findall(r"L([ib])(\d+)E", m.group(1)) if m else []
+    ext = name in EXT_KERNELS and bool(args) and args[-1] == ("b", "1")
+    if name in EXT_KERNELS and args and args[-1][0] == "b":
+        args = args[:-1]
+    shown = [v if t == "i" else ("true" if v == "1" else "false") for t, v in args]
+    shown += ["EXT"] if ext else []
+    return f"{name}<{', '.join(shown)}>" if shown else name
+
+
 def sass_equal(parent: str, change: str) -> dict:
     """Each instance of the kernels of :data:`UNCHANGED` in the libraries
-    ``parent`` and ``change``, by mangled name: whether its SASS is the
-    same instruction for instruction, and its instructions on each side."""
-    a, b = sass_functions(parent), sass_functions(change)
+    ``parent`` and ``change``, by :func:`instance_name` (a parent's
+    instance against the change's that is not EXT): whether its SASS is
+    the same instruction for instruction, and its instructions on each
+    side."""
+    a = {instance_name(k): v for k, v in sass_functions(parent).items()}
+    b = {instance_name(k): v for k, v in sass_functions(change).items()}
     return {name: {"equal": a.get(name) == b.get(name),
                    "instructions": [len(a.get(name, ())), len(b.get(name, ()))]}
-            for name in sorted(set(a) | set(b)) if base_name(name) in UNCHANGED}
+            for name in sorted(set(a) | set(b)) if name.split("<")[0] in UNCHANGED}
 
 
 def sass_summary(lib: str, kernel: str = "megakernel_clear") -> dict:
-    """The SASS of ``kernel`` in the library ``lib`` (``cuobjdump -sass``):
-    its instructions and MUFU operations, and those of its loop (a branch
-    back to an earlier offset) that holds the most MUFU operations, by
-    kind."""
-    code = [ins for name, rows in sass_functions(lib).items() if kernel in name for ins in rows]
+    """The SASS of ``kernel`` (an :func:`instance_name`) in the library
+    ``lib`` (``cuobjdump -sass``): its instructions and MUFU operations,
+    and those of its loop (a branch back to an earlier offset) that holds
+    the most MUFU operations, by kind."""
+    code = [ins for name, rows in sass_functions(lib).items() if instance_name(name) == kernel
+            for ins in rows]
 
     def mufu(rows):
         kinds = {}
@@ -754,14 +782,18 @@ def summarise(runs: dict, sides: list, label: str) -> dict:
     if "equal_to_reference" in first:  # a resolve
         s = {"bound_ms": first["bound_ms"], "bound_by": first["bound_by"]}
         parent_ms = min(r[label]["ms"] for r in runs["parent"])
-        parent_dev = min(r[label]["device_ms"] for r in runs["parent"])
+        # a trace can miss the kernel (0 ms): the readings that caught it
+        parent_dev = min((r[label]["device_ms"] for r in runs["parent"]
+                          if r[label]["device_ms"] > 0), default=None)
         for side in sides:
             ms = [r[label]["ms"] for r in runs[side]]
             dev = [r[label]["device_ms"] for r in runs[side]]
+            best_dev = min((d for d in dev if d > 0), default=None)
             s[side] = {"ms": ms, "device_ms": dev, "best_ms": min(ms),
-                       "best_device_ms": min(dev), "vs_parent": min(ms) / parent_ms,
-                       "device_vs_parent": min(dev) / parent_dev,
-                       "bound_share_device": s["bound_ms"] / min(dev),
+                       "best_device_ms": best_dev, "vs_parent": min(ms) / parent_ms,
+                       "device_vs_parent": best_dev / parent_dev if best_dev and parent_dev
+                       else None,
+                       "bound_share_device": s["bound_ms"] / best_dev if best_dev else None,
                        "equal_to_parent": all(all(r[label]["equal_to_reference"].values())
                                               for r in runs[side]),
                        "instance": runs[side][0][label]["instance"]}

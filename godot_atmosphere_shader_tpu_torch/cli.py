@@ -130,19 +130,14 @@ def cmd_fly(args) -> None:
     t0 = time.perf_counter()
     if args.taa:
         # the temporally accumulated flight: every frame's launches back to
-        # back, each resolved against the previous one.  The resolve tiles
-        # the frame in 128 columns, so a square frame whose side is not a
-        # multiple of 128 renders widened by whole columns on both sides
-        # (the same vertical field of view: the kept columns' rays are the
-        # square frame's) and keeps the central ones
-        pad = -args.size % 128
+        # back, each resolved against the previous one (the resolve tiles
+        # the frame in 128 columns and refuses other sides, as JAX's does)
         stack = np.stack([c.view_to_world.cpu().numpy() for c in cams])
         times = [i / 60.0 for i in range(len(cams))]
-        colors = scene.render_flight(cams[0], times, args.size, args.size + pad,
+        colors = scene.render_flight(cams[0], times, args.size, args.size,
                                      cam_transforms=stack, taa_blend=args.taa_blend,
                                      taa_clamp=args.taa_clamp,
                                      taa_depth_eps=args.taa_depth_eps)["color"]
-        colors = colors[:, :, pad // 2:pad // 2 + args.size]
         for i in range(colors.shape[0]):
             _png(f"{args.output_prefix}{i:04d}.png", colors[i])
     else:

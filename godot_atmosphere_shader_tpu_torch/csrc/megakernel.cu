@@ -110,8 +110,8 @@
 // issue-bound, so splitting a pixel's steps across lanes has nothing to
 // hide.
 //
-// The procedural instance (megakernel_gen<C, WIDE>, K1 slice (h); WIDE: a
-// field's octaves also in the scene's buffer) takes every
+// The procedural instance (megakernel_gen<C, EXT>, K1 slice (h); EXT: the
+// launch reads the scene's buffer, scene_buffer) takes every
 // procedural config the TPU kernel renders (its body is the shared XLA
 // shading code, so _check_config, megakernel.py:468-496, is the envelope):
 // every noise basis (value, perlin, simplex, simplex-smooth, the 27-cell
@@ -767,72 +767,29 @@ __device__ __forceinline__ float base_noise(const NoiseParams& s, float x, float
 // per-sample f32 chain, amp * weight * gain).  The struct holds the tables
 // of the first MK_INLINE_OCTAVES octaves and warp octaves (octaves,
 // warp_octaves); a spec with more reads the rest from its buffer (s.ext,
-// MK_EXT_OCTAVE floats per octave).  Two builds of it, the same arithmetic:
-// sample_noise3_inline for specs the struct holds whole, which the march of
-// a launch without buffered octaves inlines (any code for the buffer's
-// octaves there slowed the 1080p frames of megakernel_gen by 2-7 % on an
-// H100, compare_megakernel.py), and sample_noise3_wide for any spec, in the
-// wide instances (WIDE) of the march and at the knots of a wide spec.
-__device__ __forceinline__ float sample_noise3_inline(const NoiseParams& s, float x, float y,
-                                                     float z) {
+// MK_EXT_OCTAVE floats per octave: amp, warp_amp, warp_freq).  Only the
+// EXT build reads the buffer: the other is the struct's loop alone, since
+// any code for the buffer's octaves in the inlined march (a branch, a
+// second loop or a call) slowed megakernel_gen's 1080p frames by 2-10 % on
+// an H100 (compare_megakernel.py).
+template <bool EXT>
+__device__ float sample_noise3(const NoiseParams& s, float x, float y, float z) {
   if (s.warp_enabled) {
-    for (int o = 0; o < s.warp_octaves; ++o) {
-      float f = s.warp_freq[o];
-      float sx, sy, sz;
-      value_noise3_vec3(x * f, y * f, z * f, (uint32_t)(s.seed + 1000 + o), sx, sy, sz);
-      float a = s.warp_amp[o];
-      x = x + sx * a;
-      y = y + sy * a;
-      z = z + sz * a;
-    }
-  }
-  x = x * s.frequency;
-  y = y * s.frequency;
-  z = z * s.frequency;
-  if (s.fractal_type == 0) return base_noise(s, x, y, z, (uint32_t)s.seed);
-  float total = 0.0f;
-  const bool weighted = s.weighted_strength != 0.0f;
-  float amp = s.amp[0];
-  for (int o = 0; o < s.octaves; ++o) {
-    float n = base_noise(s, x, y, z, (uint32_t)(s.seed + o));
-    const float a = weighted ? amp : s.amp[o];
-    float w;  // the weight's value term
-    if (s.fractal_type == 1) {
-      total = total + n * a;
-      w = fminf(n + 1.0f, 2.0f) * 0.5f - 1.0f;
-    } else if (s.fractal_type == 2) {
-      n = fabsf(n);
-      total = total + (n * -2.0f + 1.0f) * a;
-      w = (1.0f - n) - 1.0f;
-    } else {
-      float t = (n + 1.0f) * s.ping_pong_strength;
-      t = t - floorf(t * 0.5f) * 2.0f;
-      t = t < 1.0f ? t : 2.0f - t;
-      total = total + (t - 0.5f) * 2.0f * a;
-      w = t - 1.0f;
-    }
-    if (weighted) amp = amp * (1.0f + w * s.weighted_strength) * s.gain;
-    x = x * s.lacunarity;
-    y = y * s.lacunarity;
-    z = z * s.lacunarity;
-  }
-  return total;
-}
-
-__device__ __forceinline__ float sample_noise3_wide(const NoiseParams& s, float x, float y, float z) {
-  if (s.warp_enabled) {
-    const int warp_octaves = s.warp_octaves + s.ext_warp_octaves;
-    for (int o = 0; o < warp_octaves; ++o) {
-      float f, a;
-      if (o < MK_INLINE_OCTAVES) {
+    for (int o = 0; o < (EXT ? s.warp_octaves + s.ext_warp_octaves : s.warp_octaves); ++o) {
+      float f;
+      if constexpr (EXT)
+        f = o < MK_INLINE_OCTAVES ? s.warp_freq[o]
+                                  : s.ext[MK_EXT_OCTAVE * (o - MK_INLINE_OCTAVES) + 2];
+      else
         f = s.warp_freq[o];
-        a = s.warp_amp[o];
-      } else {
-        f = s.ext[MK_EXT_OCTAVE * (o - MK_INLINE_OCTAVES) + 2];
-        a = s.ext[MK_EXT_OCTAVE * (o - MK_INLINE_OCTAVES) + 1];
-      }
       float sx, sy, sz;
       value_noise3_vec3(x * f, y * f, z * f, (uint32_t)(s.seed + 1000 + o), sx, sy, sz);
+      float a;
+      if constexpr (EXT)
+        a = o < MK_INLINE_OCTAVES ? s.warp_amp[o]
+                                  : s.ext[MK_EXT_OCTAVE * (o - MK_INLINE_OCTAVES) + 1];
+      else
+        a = s.warp_amp[o];
       x = x + sx * a;
       y = y + sy * a;
       z = z + sz * a;
@@ -845,12 +802,15 @@ __device__ __forceinline__ float sample_noise3_wide(const NoiseParams& s, float 
   float total = 0.0f;
   const bool weighted = s.weighted_strength != 0.0f;
   float amp = s.amp[0];
-  const int octaves = s.octaves + s.ext_octaves;
-  for (int o = 0; o < octaves; ++o) {
+  for (int o = 0; o < (EXT ? s.octaves + s.ext_octaves : s.octaves); ++o) {
     float n = base_noise(s, x, y, z, (uint32_t)(s.seed + o));
-    const float a = weighted ? amp
-                   : o < MK_INLINE_OCTAVES ? s.amp[o]
-                                           : s.ext[MK_EXT_OCTAVE * (o - MK_INLINE_OCTAVES)];
+    float a;
+    if constexpr (EXT)
+      a = weighted ? amp
+          : o < MK_INLINE_OCTAVES ? s.amp[o]
+                                  : s.ext[MK_EXT_OCTAVE * (o - MK_INLINE_OCTAVES)];
+    else
+      a = weighted ? amp : s.amp[o];
     float w;  // the weight's value term
     if (s.fractal_type == 1) {
       total = total + n * a;
@@ -876,28 +836,24 @@ __device__ __forceinline__ float sample_noise3_wide(const NoiseParams& s, float 
 
 // procedural field 0.5 + 0.5 * noise(p * scale); the launch struct is a
 // __grid_constant__, so its noise specs are read in place.  Inlined at the
-// march's per-step and per-sun-sample sites (march_field; WIDE: the spec may
-// hold buffered octaves), called from the knots' sites (field, any spec).
-template <bool WIDE>
+// march's per-step and per-sun-sample sites (march_field), called from the
+// knots' sites (field).  EXT: the launch reads the scene's buffer
+// (scene_buffer), so a spec may hold octaves there.
+template <bool EXT>
 __device__ __forceinline__ float march_field(const NoiseParams& s, V3 p) {
-  const float x = p.x * s.scale[0], y = p.y * s.scale[1], z = p.z * s.scale[2];
-  return 0.5f + 0.5f * (WIDE ? sample_noise3_wide(s, x, y, z) : sample_noise3_inline(s, x, y, z));
+  return 0.5f + 0.5f * sample_noise3<EXT>(s, p.x * s.scale[0], p.y * s.scale[1], p.z * s.scale[2]);
 }
 
-__device__ __noinline__ float field_wide(const NoiseParams& s, V3 p) {
-  return march_field<true>(s, p);
-}
+template <bool EXT>
+__device__ __noinline__ float field(const NoiseParams& s, V3 p) { return march_field<EXT>(s, p); }
 
-__device__ __noinline__ float field(const NoiseParams& s, V3 p) {
-  if (s.ext_octaves | s.ext_warp_octaves) return field_wide(s, p);
-  return march_field<false>(s, p);
-}
-
-// whether a launch's procedural fields hold octaves in the scene's buffer:
-// it takes the wide instance of megakernel_gen or megakernel_tex_general
-__host__ __device__ inline bool wide_noise(const MegakernelParams& p) {
-  return (p.shape.ext_octaves | p.shape.ext_warp_octaves | p.coverage.ext_octaves |
-          p.coverage.ext_warp_octaves) != 0;
+// whether a launch reads the scene's buffer (spheres and boxes past the
+// struct's, or a procedural field's octaves past its): it then takes each
+// kernel's EXT instance, whose opaque pass and noise read the buffer; the
+// other instances are the struct's code alone
+__host__ __device__ inline bool scene_buffer(const MegakernelParams& p) {
+  return (p.ext_spheres | p.ext_boxes | p.shape.ext_octaves | p.shape.ext_warp_octaves |
+          p.coverage.ext_octaves | p.coverage.ext_warp_octaves) != 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -919,7 +875,10 @@ __device__ __forceinline__ V3 pixel_dir(const MegakernelParams& p, int x, int y)
 }
 
 // One sphere of the opaque pass from the scene's buffer: a closer hit
-// takes the pixel's distance, normal, albedo and shading flag.
+// takes the pixel's distance, normal, albedo and shading flag.  The
+// struct's spheres and boxes keep their own loops in opaque_pass: through
+// these helpers they changed megakernel_gen's SASS and cost its 1080p
+// frames up to 2 % on an H100 (compare_megakernel.py).
 __device__ __forceinline__ void opaque_sphere(V3 c, float radius2, const float* albedo,
                                               const float* unshaded_i, V3 ro, V3 rd,
                                               float& best_t, V3& n, V3& alb, float& unshaded) {
@@ -1020,7 +979,8 @@ __device__ __noinline__ OpaqueHit opaque_tail(const float* __restrict__ geom, in
 // and, without a sky, sky_color plus the starfield (with one, the caller
 // samples it).  Returns whether the ray hit.  The launch struct holds the
 // first MK_INLINE_SPHERES spheres and MK_INLINE_BOXES boxes (n_spheres,
-// n_boxes); a scene with more continues in opaque_tail.
+// n_boxes); EXT: a scene with more continues in opaque_tail.
+template <bool EXT>
 __device__ bool opaque_pass(const MegakernelParams& p, V3 ro, V3 rd, V3& rgb,
                             float& linear_depth) {
   const float big = 3.0e38f;
@@ -1079,13 +1039,15 @@ __device__ bool opaque_pass(const MegakernelParams& p, V3 ro, V3 rd, V3& rgb,
       unshaded = 0.0f;
     }
   }
-  if (p.ext_spheres | p.ext_boxes) {
-    const OpaqueHit h = opaque_tail(p.geom, p.ext_spheres, p.ext_boxes, load3(p.cam_pos), ro, rd,
-                                    OpaqueHit{best_t, n, alb, unshaded});
-    best_t = h.t;
-    n = h.n;
-    alb = h.alb;
-    unshaded = h.unshaded;
+  if constexpr (EXT) {
+    if (p.ext_spheres | p.ext_boxes) {
+      const OpaqueHit h = opaque_tail(p.geom, p.ext_spheres, p.ext_boxes, load3(p.cam_pos), ro,
+                                      rd, OpaqueHit{best_t, n, alb, unshaded});
+      best_t = h.t;
+      n = h.n;
+      alb = h.alb;
+      unshaded = h.unshaded;
+    }
   }
   bool hit_any = best_t < big;
   if (hit_any) {
@@ -1332,22 +1294,22 @@ struct FieldWork {
 // and per sun sample (every basis); at full quality the detail field,
 // whose sun samples take it only where the march's alpha is below 0.3
 // (clouds.py:165-175: d_full or d_low).
-template <bool WIDE>
+template <bool EXT>
 struct GenFields {
   GenKnots cov_knots, shape_knots, detail_knots;
   bool full;
   FieldWork* work;
   __device__ __forceinline__ float cov_at(const MegakernelParams& p, V3 pos) const {
     ++work->cov;
-    return march_field<WIDE>(p.coverage, coverage_point(p, pos));
+    return march_field<EXT>(p.coverage, coverage_point(p, pos));
   }
   __device__ __forceinline__ float shape_at(const MegakernelParams& p, V3 pos) const {
     ++work->shape;
-    return march_field<WIDE>(p.shape, mul(pos, p.cloud_shape_scale));
+    return march_field<EXT>(p.shape, mul(pos, p.cloud_shape_scale));
   }
   __device__ __forceinline__ float detail_at(const MegakernelParams& p, V3 pos) const {
     ++work->detail;
-    return march_field<WIDE>(p.shape, detail_point(p, pos));
+    return march_field<EXT>(p.shape, detail_point(p, pos));
   }
   __device__ __forceinline__ float cov(const MegakernelParams& p, float u01, V3 pos) const {
     return cov_knots.k ? cov_knots.interp(u01) : cov_at(p, pos);
@@ -1747,6 +1709,7 @@ struct Pixel {
   bool hit;      // SHADE: the ray hits the atmosphere's shell
 };
 
+template <bool EXT>
 __device__ __forceinline__ void shade_pixel(const MegakernelParams& p, const float* blue, int x,
                                             int y, bool shade, const float* color, float* depth,
                                             const Sky& sky, bool count, unsigned& n_atmo,
@@ -1766,7 +1729,7 @@ __device__ __forceinline__ void shade_pixel(const MegakernelParams& p, const flo
       linear_depth = depth[o];
     }
   } else {
-    if (p.with_opaque && !opaque_pass(p, ro, rd, b, linear_depth) && p.with_sky && shade) {
+    if (p.with_opaque && !opaque_pass<EXT>(p, ro, rd, b, linear_depth) && p.with_sky && shade) {
       b = sky_rgb(sky, rd);
       if (count && in_rows) ++n_sky;
     }
@@ -1810,7 +1773,7 @@ __device__ __forceinline__ void shade_pixel(const MegakernelParams& p, const flo
 
 // rays, background and atmosphere of the G rows from y0 (shade_pixel),
 // and the coarse inputs of their cloud_lod-row coarse pixels
-template <int N, int NC>
+template <bool EXT, int N, int NC>
 __device__ __forceinline__ void shade_rows(const MegakernelParams& p, const float* blue, int x,
                                            int y0, int G, int L, RowPix<N>& s, CoarseIn<NC>& ci,
                                            const float* color, float* depth, const Sky& sky,
@@ -1818,8 +1781,8 @@ __device__ __forceinline__ void shade_rows(const MegakernelParams& p, const floa
                                            unsigned& n_v1, unsigned& n_sky, unsigned& n_seg) {
   for (int r = 0; r < G; ++r) {
     Pixel px;
-    shade_pixel(p, blue, x, y0 + r, true, color, depth, sky, work != nullptr, n_atmo, n_v1, n_sky,
-                n_seg, px);
+    shade_pixel<EXT>(p, blue, x, y0 + r, true, color, depth, sky, work != nullptr, n_atmo, n_v1,
+                     n_sky, n_seg, px);
     s.bg[r] = px.bg;
     s.hit[r] = px.hit;
     if (px.hit) {
@@ -1993,6 +1956,7 @@ __device__ __forceinline__ V3 group_knot_pos(const V3& rom, V3 rk, float t0k, fl
 // The cloud-free frame kernel: one thread per column and row, for a layer
 // without clouds and for the opaque-only pass.
 
+template <bool EXT>
 __global__ void __launch_bounds__(128) megakernel_clear(const MegakernelParams p,
                                                         const TexParams sky_t,
                                                         const float* __restrict__ blue,
@@ -2020,7 +1984,7 @@ __global__ void __launch_bounds__(128) megakernel_clear(const MegakernelParams p
     CoarseIn<1> ci;
     const bool no_clouds = false;
     const float none = 0.0f;
-    shade_rows(p, blue, x, y, 1, 1, s, ci, color, depth, sky, work, n_atmo, n_v1, n_sky, n_seg);
+    shade_rows<EXT>(p, blue, x, y, 1, 1, s, ci, color, depth, sky, work, n_atmo, n_v1, n_sky, n_seg);
     blend_and_store(p, x, y, 1, 1, s, &no_clouds, &none, &none, color, alpha_out);
   }
   if (work) {
@@ -2073,7 +2037,7 @@ __host__ __device__ __forceinline__ int knot_rows(const MegakernelParams& p) {
 // its light and alpha over the first two)
 constexpr int MK_IN_RX = 0, MK_IN_RY = 1, MK_IN_RZ = 2, MK_IN_TB = 3, MK_IN_TEM = 4, MK_IN_JIT = 5;
 
-template <int C, bool WIDE>
+template <int C, bool EXT>
 __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
     megakernel_gen(const __grid_constant__ MegakernelParams p, const TexParams sky_t,
                    const float* __restrict__ blue, const float* __restrict__ sky_r,
@@ -2118,7 +2082,7 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
         const int r = k * L + l;
         const bool shade = row_cache && r < n_rows;  // a partial last group's other rows
         Pixel px;                                     // only enter its coarse inputs
-        shade_pixel(p, blue, x, y0 + r, shade, color, depth, sky, work != nullptr, n_atmo, n_v1,
+        shade_pixel<EXT>(p, blue, x, y0 + r, shade, color, depth, sky, work != nullptr, n_atmo, n_v1,
                     n_sky, n_seg, px);
         if (shade) {
           if (!p.with_background) {  // a chained layer's background is in color already
@@ -2174,7 +2138,7 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
     if (p.coverage_interp) {
       const int K = p.coverage_knots;
       for (int k = 0; k <= K; ++k) {
-        const float v = field(p.coverage, coverage_point(
+        const float v = field<EXT>(p.coverage, coverage_point(
             p, group_knot_pos(rom, rk, t0k, t1k, (float)((double)k / (double)K))));
         kn[k * T] = v;
         cov_max = k == 0 ? v : fmaxf(cov_max, v);
@@ -2187,8 +2151,8 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
       float* dk = kn + (K + 1) * T;
       for (int k = 0; k <= K; ++k) {
         const V3 pos = group_knot_pos(rom, rk, t0k, t1k, (float)((double)k / (double)K));
-        kn[k * T] = field(p.shape, mul(pos, p.cloud_shape_scale));
-        if (full) dk[k * T] = field(p.shape, detail_point(p, pos));
+        kn[k * T] = field<EXT>(p.shape, mul(pos, p.cloud_shape_scale));
+        if (full) dk[k * T] = field<EXT>(p.shape, detail_point(p, pos));
       }
       n_shape_knots += K + 1;
       if (full) n_detail_knots += K + 1;
@@ -2212,7 +2176,7 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
       shp.k = kn;
       det.k = full ? kn + (shp.K + 1) * T : nullptr;
     }
-    const GenFields<WIDE> fields{cov, shp, det, full, &fw};
+    const GenFields<EXT> fields{cov, shp, det, full, &fw};
     for (int k = 0; k < C; ++k) {
       if (!((marches >> k) & 1u)) continue;
       float* in = state + k * T + tid;
@@ -2247,7 +2211,7 @@ __global__ void __launch_bounds__(MK_TILE_COLS, gen_min_blocks)
         }
       } else {
         Pixel px;
-        shade_pixel(p, blue, x, y0 + r, true, color, depth, sky, work != nullptr, n_atmo, n_v1,
+        shade_pixel<EXT>(p, blue, x, y0 + r, true, color, depth, sky, work != nullptr, n_atmo, n_v1,
                     n_sky, n_seg, px);
         s.bg[0] = px.bg;
         s.hit[0] = px.hit;
@@ -2389,7 +2353,7 @@ __device__ void eval_knots(const MegakernelParams& p, const TexParams& t,
   }
 }
 
-template <int K, int KS, int G>
+template <int K, int KS, int G, bool EXT>
 __global__ void __launch_bounds__(tex_threads(G), tex_min_blocks(G))
     megakernel_tex(const MegakernelParams p, const TexParams t, const TexParams sky_t,
                    const float* __restrict__ blue, const float* __restrict__ shape_tab,
@@ -2417,7 +2381,7 @@ __global__ void __launch_bounds__(tex_threads(G), tex_min_blocks(G))
   CoarseIn<MK_MAX_GROUP> ci;
   unsigned n_atmo = 0, n_v1 = 0, n_march = 0, n_sun = 0, n_sky = 0, n_seg = 0,
            tex_samples[2] = {0, 0}, cov_samples[2] = {0, 0};
-  shade_rows(p, blue, x, y0, G, L, s, ci, color, depth, sky, work, n_atmo, n_v1, n_sky, n_seg);
+  shade_rows<EXT>(p, blue, x, y0, G, L, s, ci, color, depth, sky, work, n_atmo, n_v1, n_sky, n_seg);
   Coarse<MK_MAX_GROUP> c;
   coarse_rays(p, L, C, ci, c);
   clk.mark(MK_STAGE_COARSE);
@@ -2586,7 +2550,7 @@ __device__ __forceinline__ void texg_coords(const MegakernelParams& p, int fld, 
 // step and per sun sample; at full quality the detail field, whose sun
 // samples take it only where the march's alpha is below 0.3 (as GenFields).
 // Knots interpolate uncontracted, as the fixed instance's do.
-template <bool WIDE>
+template <bool EXT>
 struct TexGenFields {
   const float* cov_k;  // knot j at cov_k[j * stride]; nullptr: per step
   const float* shp_k;
@@ -2603,15 +2567,15 @@ struct TexGenFields {
   }
   __device__ __forceinline__ float cov_at(const MegakernelParams& p, V3 pos) const {
     ++work->cov;
-    return march_field<WIDE>(p.coverage, coverage_point(p, pos));
+    return march_field<EXT>(p.coverage, coverage_point(p, pos));
   }
   __device__ __forceinline__ float shape_at(const MegakernelParams& p, V3 pos) const {
     ++work->shape;
-    return march_field<WIDE>(p.shape, mul(pos, p.cloud_shape_scale));
+    return march_field<EXT>(p.shape, mul(pos, p.cloud_shape_scale));
   }
   __device__ __forceinline__ float detail_at(const MegakernelParams& p, V3 pos) const {
     ++work->detail;
-    return march_field<WIDE>(p.shape, detail_point(p, pos));
+    return march_field<EXT>(p.shape, detail_point(p, pos));
   }
   __device__ __forceinline__ float cov(const MegakernelParams& p, float u01, V3 pos) const {
     return cov_k ? interp(cov_k, K, u01) : cov_at(p, pos);
@@ -2664,6 +2628,7 @@ __host__ __device__ __forceinline__ long texg_scratch_floats(const MegakernelPar
 // row's coarse inputs, rows and columns past the launch included (they
 // belong to the tile); the coarse pixels' march inputs to the scratch where
 // the frame marches the group.  Returns the group's knot inputs in g[0..4].
+template <bool EXT>
 __device__ __forceinline__ void texg_shade_group(const MegakernelParams& p, const float* blue,
                                                  int x, int y0, float* color, float* depth,
                                                  const Sky& sky, const TexgScratch& sc,
@@ -2681,7 +2646,8 @@ __device__ __forceinline__ void texg_shade_group(const MegakernelParams& p, cons
       const int y = y0 + k * L + l;
       const bool shade = live && y < p.row0 + p.rows;
       Pixel px;
-      shade_pixel(p, blue, x, y, shade, color, depth, sky, count, n_atmo, n_v1, n_sky, n_seg, px);
+      shade_pixel<EXT>(p, blue, x, y, shade, color, depth, sky, count, n_atmo, n_v1, n_sky, n_seg,
+                       px);
       if (shade) {
         const size_t o = (size_t)y * p.width + x;
         if (!p.with_background) {
@@ -2818,6 +2784,7 @@ __device__ __forceinline__ TexChoice sky_block_choice(const TexParams& sky_t, fl
 // choices[(tile * slots + s) * 2] gets slot s's (mode, level), tiles
 // row-major: slot 0 the sky's (MK_NO_CHOICE without one), then each knot
 // batch's (texg_batch).
+template <bool EXT>
 __global__ void __launch_bounds__(MK_TILE_COLS * MK_TEXG_CHOICE_ROWS, 2)
     tex_choice_kernel(const __grid_constant__ MegakernelParams p, const TexParams t,
                       const TexParams sky_t, const float* __restrict__ blue,
@@ -2864,7 +2831,7 @@ __global__ void __launch_bounds__(MK_TILE_COLS * MK_TEXG_CHOICE_ROWS, 2)
   unsigned n_atmo = 0, n_v1 = 0, n_sky = 0, n_seg = 0;
   for (int gr = threadIdx.y; gr < NGR; gr += R) {
     float g[MK_TEXG_GROUP_FLOATS];
-    texg_shade_group(p, blue, x, tile_y0 + gr * G, color, depth, sky, sc, work != nullptr, n_atmo,
+    texg_shade_group<EXT>(p, blue, x, tile_y0 + gr * G, color, depth, sky, sc, work != nullptr, n_atmo,
                      n_v1, n_sky, n_seg, g);
 #pragma unroll
     for (int f = 0; f < MK_TEXG_GROUP_FLOATS; ++f) groups[(f * NGR + gr) * T + tx] = g[f];
@@ -2960,6 +2927,7 @@ struct GroupInputs {
 // (batch: the tile's batch slots of the tile pass), a procedural field's
 // evaluated.  Returns the coarse pixels that march (no coverage knots, no
 // bound: every visible one).
+template <bool EXT>
 __device__ __forceinline__ unsigned texg_knots(const MegakernelParams& p, const TexParams& t,
                                                const float* __restrict__ shape_tab,
                                                const float* __restrict__ cov_tab,
@@ -2995,9 +2963,9 @@ __device__ __forceinline__ unsigned texg_knots(const MegakernelParams& p, const 
           ++tex_samples[ch.mode == MK_FLOOR];
         }
       } else if (fld == 0) {
-        value = field(p.coverage, coverage_point(p, pos));
+        value = field<EXT>(p.coverage, coverage_point(p, pos));
       } else {
-        value = field(p.shape, fld == 1 ? mul(pos, p.cloud_shape_scale) : detail_point(p, pos));
+        value = field<EXT>(p.shape, fld == 1 ? mul(pos, p.cloud_shape_scale) : detail_point(p, pos));
       }
       k_row[k * T] = value;
       if (fld == 0) cov_max = k == 0 ? value : fmaxf(cov_max, value);
@@ -3023,7 +2991,7 @@ __device__ __forceinline__ unsigned texg_knots(const MegakernelParams& p, const 
 // against 8 (64, 164 B of spills) full quality took 16 % less, the others
 // within 2 % either way (an H100 at 700 W; compare_megakernel.py, PERF.md).
 constexpr int texg_min_blocks = 6;
-template <bool WIDE>
+template <bool EXT>
 __global__ void __launch_bounds__(MK_TILE_COLS, texg_min_blocks)
     megakernel_tex_general(const __grid_constant__ MegakernelParams p, const TexParams t,
                            const float* __restrict__ shape_tab, const float* __restrict__ cov_tab,
@@ -3073,7 +3041,7 @@ __global__ void __launch_bounds__(MK_TILE_COLS, texg_min_blocks)
   clk.mark(MK_STAGE_COARSE);
 
   // 2. the knots and the cull
-  const unsigned marches = texg_knots(p, t, shape_tab, cov_tab, batch, gi, smem + tid, n_groups,
+  const unsigned marches = texg_knots<EXT>(p, t, shape_tab, cov_tab, batch, gi, smem + tid, n_groups,
                                       n_shape_knots, n_detail_knots, tex_samples, cov_samples);
   clk.mark(MK_STAGE_KNOTS);
 
@@ -3091,7 +3059,7 @@ __global__ void __launch_bounds__(MK_TILE_COLS, texg_min_blocks)
       shp_k = kn;
       if (full) det_k = kn + (p.shape_knots + 1) * T;
     }
-    const TexGenFields<WIDE> fields{cov_k, shp_k, det_k, p.coverage_knots, p.shape_knots, T, full,
+    const TexGenFields<EXT> fields{cov_k, shp_k, det_k, p.coverage_knots, p.shape_knots, T, full,
                                     &fw};
     // megakernel_gen's stage 3 (shared through one device function, it
     // reordered megakernel_gen's SASS, so each kernel keeps its loop)
@@ -3298,16 +3266,22 @@ static GenLayout gen_layout(const MegakernelParams* p) {
   if (rows > MK_SMEM_ROWS) return out;
   out.row_cache = rows + MK_GEN_CACHE_ROWS * G <= MK_SMEM_ROWS;
   out.smem = (rows + (out.row_cache ? MK_GEN_CACHE_ROWS * G : 0)) * MK_TILE_COLS * (int)sizeof(float);
-  const bool wide = wide_noise(*p);
+  const bool ext = scene_buffer(*p);
   switch (C) {
-    case 1: out.kernel = wide ? megakernel_gen<1, true> : megakernel_gen<1, false>; break;
-    case 2: out.kernel = wide ? megakernel_gen<2, true> : megakernel_gen<2, false>; break;
-    case 4: out.kernel = wide ? megakernel_gen<4, true> : megakernel_gen<4, false>; break;
-    case 8: out.kernel = wide ? megakernel_gen<8, true> : megakernel_gen<8, false>; break;
-    case 16: out.kernel = wide ? megakernel_gen<16, true> : megakernel_gen<16, false>; break;
-    case 32: out.kernel = wide ? megakernel_gen<32, true> : megakernel_gen<32, false>; break;
+    case 1: out.kernel = ext ? megakernel_gen<1, true> : megakernel_gen<1, false>; break;
+    case 2: out.kernel = ext ? megakernel_gen<2, true> : megakernel_gen<2, false>; break;
+    case 4: out.kernel = ext ? megakernel_gen<4, true> : megakernel_gen<4, false>; break;
+    case 8: out.kernel = ext ? megakernel_gen<8, true> : megakernel_gen<8, false>; break;
+    case 16: out.kernel = ext ? megakernel_gen<16, true> : megakernel_gen<16, false>; break;
+    case 32: out.kernel = ext ? megakernel_gen<32, true> : megakernel_gen<32, false>; break;
   }
   return out;
+}
+
+// the cloud-free instance for a launch's params (EXT where it reads the
+// scene's buffer)
+static auto clear_kernel(const MegakernelParams* p) {
+  return scene_buffer(*p) ? megakernel_clear<true> : megakernel_clear<false>;
 }
 
 // dynamic shared memory above the default 48 KB needs the kernel's
@@ -3339,8 +3313,8 @@ extern "C" int megakernel_launch(const MegakernelParams* params, const TexParams
   cudaStream_t s = (cudaStream_t)stream;
   unsigned long long* w = (unsigned long long*)work;
   if (!clouds) {
-    megakernel_clear<<<grid, block, 0, s>>>(*params, sky_t, blue, sky_r, sky_g, sky_b, sky_choices,
-                                            color, alpha, depth, w);
+    clear_kernel(params)<<<grid, block, 0, s>>>(*params, sky_t, blue, sky_r, sky_g, sky_b,
+                                                sky_choices, color, alpha, depth, w);
     return (int)cudaGetLastError();
   }
   const cudaError_t err = gen_smem_attribute(gen);
@@ -3376,10 +3350,11 @@ extern "C" int megakernel_gen_info(const MegakernelParams* params, int* out) {
 // blocks per SM, threads per block, blocks of the launch for params}.
 extern "C" int megakernel_clear_info(const MegakernelParams* params, int* out) {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, megakernel_clear);
+  cudaError_t err = cudaFuncGetAttributes(&attr, clear_kernel(params));
   int blocks = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, megakernel_clear, MK_TILE_COLS, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, clear_kernel(params), MK_TILE_COLS,
+                                                        0);
   if (err != cudaSuccess) return (int)err;
   const int info[5] = {attr.numRegs, (int)attr.localSizeBytes, blocks, MK_TILE_COLS,
                        (params->width + MK_TILE_COLS - 1) / MK_TILE_COLS * params->rows};
@@ -3394,7 +3369,8 @@ static int launch_tex(const MegakernelParams* p, const TexParams* t, const TexPa
                       float* alpha, float* depth, cudaStream_t stream,
                       unsigned long long* work) {
   constexpr int smem = tex_smem(G);
-  auto kernel = megakernel_tex<MK_KNOTS, MK_SHAPE_KNOTS, G>;
+  auto kernel = scene_buffer(*p) ? megakernel_tex<MK_KNOTS, MK_SHAPE_KNOTS, G, true>
+                                 : megakernel_tex<MK_KNOTS, MK_SHAPE_KNOTS, G, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem);
   if (err != cudaSuccess) return (int)err;
@@ -3457,14 +3433,14 @@ static TexgLayout texg_layout(const MegakernelParams* p, const TexParams* t) {
   return out;
 }
 
-// the general instance's frame kernel for a launch's params (the wide
-// build where its procedural fields hold buffered octaves)
-using TexgFrameKernel = void (*)(const MegakernelParams, const TexParams, const float*,
-                                 const float*, const int*, const TexgScratch, float*, float*,
-                                 unsigned long long*);
+// the general instance's tile pass and frame kernel for a launch's params
+// (EXT where it reads the scene's buffer)
+static auto texg_choice_kernel(const MegakernelParams* p) {
+  return scene_buffer(*p) ? tex_choice_kernel<true> : tex_choice_kernel<false>;
+}
 
-static TexgFrameKernel texg_frame_kernel(const MegakernelParams* p) {
-  return wide_noise(*p) ? megakernel_tex_general<true> : megakernel_tex_general<false>;
+static auto texg_frame_kernel(const MegakernelParams* p) {
+  return scene_buffer(*p) ? megakernel_tex_general<true> : megakernel_tex_general<false>;
 }
 
 // dynamic shared memory above the default 48 KB needs each kernel's
@@ -3475,7 +3451,7 @@ static cudaError_t texg_smem_attribute(const MegakernelParams* p, const TexgLayo
     err = cudaFuncSetAttribute(texg_frame_kernel(p), cudaFuncAttributeMaxDynamicSharedMemorySize,
                                lay.smem);
   if (err == cudaSuccess && lay.choice_smem > 48 * 1024)
-    err = cudaFuncSetAttribute(tex_choice_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(texg_choice_kernel(p), cudaFuncAttributeMaxDynamicSharedMemorySize,
                                lay.choice_smem);
   return err;
 }
@@ -3505,7 +3481,8 @@ static int launch_tex_general(const MegakernelParams* p, const TexParams* t, con
     return -1;
   cudaError_t err = texg_smem_attribute(p, lay);
   if (err != cudaSuccess) return (int)err;
-  tex_choice_kernel<<<tiles, dim3(MK_TILE_COLS, lay.choice_rows, 1), lay.choice_smem, stream>>>(
+  texg_choice_kernel(p)<<<tiles, dim3(MK_TILE_COLS, lay.choice_rows, 1), lay.choice_smem,
+                          stream>>>(
       *p, *t, sky, blue, sky_r, sky_g, sky_b, color, depth, sc, choices, work);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -3579,9 +3556,9 @@ extern "C" int megakernel_tex_info(const MegakernelParams* params, const TexPara
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, texg_frame_kernel(params),
                                                           MK_TILE_COLS, lay.smem);
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&choice_attr, tex_choice_kernel);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&choice_attr, texg_choice_kernel(params));
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&choice_blocks, tex_choice_kernel,
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&choice_blocks, texg_choice_kernel(params),
                                                           choice_threads, lay.choice_smem);
     if (err != cudaSuccess) return (int)err;
     const int info[11] = {G, attr.numRegs, (int)attr.localSizeBytes, blocks, lay.smem,
@@ -3591,8 +3568,11 @@ extern "C" int megakernel_tex_info(const MegakernelParams* params, const TexPara
     return 0;
   }
   const int nt = tex_threads(G), smem = tex_smem(G);
-  auto kernel = G == 4 ? megakernel_tex<MK_KNOTS, MK_SHAPE_KNOTS, 4>
-                       : megakernel_tex<MK_KNOTS, MK_SHAPE_KNOTS, 8>;
+  const bool ext = scene_buffer(*params);
+  auto kernel = G == 4 ? (ext ? megakernel_tex<MK_KNOTS, MK_SHAPE_KNOTS, 4, true>
+                              : megakernel_tex<MK_KNOTS, MK_SHAPE_KNOTS, 4, false>)
+                       : (ext ? megakernel_tex<MK_KNOTS, MK_SHAPE_KNOTS, 8, true>
+                              : megakernel_tex<MK_KNOTS, MK_SHAPE_KNOTS, 8, false>);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
   if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, nt, smem);

@@ -93,9 +93,9 @@ SOURCE = os.path.join(library.CSRC, "megakernel.cu")
 # the launch structs' inline entries (the #defines of csrc/megakernel.cu):
 # a scene's first INLINE_SPHERES spheres, INLINE_BOXES boxes and each noise
 # spec's first INLINE_OCTAVES octaves sit in the struct, the rest in the
-# scene's float buffer on the device (:func:`scene_buffer`; a spec with
-# buffered octaves takes the wide builds of the procedural and general
-# texture instances, ``megakernel_gen<C, true>``): GEOM_SPHERE
+# scene's float buffer on the device (:func:`scene_buffer`; a launch that
+# reads it takes each kernel's EXT instance, ``megakernel_gen<C, true>``,
+# the others the struct's code alone): GEOM_SPHERE
 # floats per sphere (center, radius², albedo, unshaded), GEOM_BOX per box
 # (world_to_box row-major, half size, albedo), EXT_OCTAVE per octave (amp,
 # warp_amp, warp_freq)

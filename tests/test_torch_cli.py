@@ -87,16 +87,18 @@ def test_export_cubemap(tmp_path):
 
 
 def test_fly_writes_its_frames(tmp_path):
-    """``fly`` writes one PNG per frame; with ``--taa`` a square side that
-    is not a multiple of the resolve's 128 columns renders widened and
-    keeps the central columns (the JAX CLI refuses such a size)."""
+    """``fly`` writes one PNG per frame; with ``--taa`` the side must be a
+    multiple of the resolve's 128 columns, as the JAX CLI's."""
     prefix = str(tmp_path / "f_")
+    with pytest.raises(ValueError, match="width % 128"):
+        tcli.main(["--device", "cpu", "fly", "--taa", "--frames", "2", "--size", "24", "-o",
+                   prefix + "refused_"])
     mk.counters.reset()
-    assert tcli.main(["--device", "cpu", "fly", "--taa", "--frames", "2", "--size", "24",
+    assert tcli.main(["--device", "cpu", "fly", "--taa", "--frames", "2", "--size", "128",
                       "-o", prefix]) == 0
     assert mk.counters.plain_calls == 2
     frames = [read_png(f"{prefix}{i:04d}.png") for i in range(2)]
-    assert all(f.shape == (24, 24, 3) for f in frames) and frames[1].max() > 0
+    assert all(f.shape == (128, 128, 3) for f in frames) and frames[1].max() > 0
     assert tcli.main(["--device", "cpu", "fly", "--frames", "1", "--size", "16", "-o",
                       prefix + "plain_"]) == 0
     assert read_png(f"{prefix}plain_0000.png").shape == (16, 16, 3)

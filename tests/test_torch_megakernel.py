@@ -212,14 +212,14 @@ _GROUPS = [(g, lod) for g in (1, 2, 4, 8, 16, 32) for lod in (1, 2, 4, 8, 16, 32
 def test_launcher_instantiates_every_coarse_count(clouds_high, group, lod):
     """``check_config`` passes every LOD group dividing the 32-row tile, and
     the launcher (``gen_layout``) has the instances ``megakernel_gen<C,
-    WIDE>`` (the spec's octaves in the struct or also in the scene buffer)
-    for its C = cloud_coverage_lod coarse pixels per thread."""
+    EXT>`` (the launch reads the scene buffer or not) for its C =
+    cloud_coverage_lod coarse pixels per thread."""
     cfg = dataclasses.replace(clouds_high[1][1], cloud_lod=lod, cloud_coverage_lod=group // lod,
                               cloud_lod_interior=0)
     mk.check_config(cfg)
     body = re.search(r"static GenLayout gen_layout\(.*?\n\}", _cu_source(), re.S).group(0)
     cases = {int(a): (int(b), int(c)) for a, b, c in re.findall(
-        r"case (\d+): out\.kernel = wide \? megakernel_gen<(\d+), true> : "
+        r"case (\d+): out\.kernel = ext \? megakernel_gen<(\d+), true> : "
         r"megakernel_gen<(\d+), false>;", body)}
     assert all(a == b == c for a, (b, c) in cases.items())
     assert set(cases) == set(mk.GEN_COARSE)
@@ -348,17 +348,18 @@ def test_texture_layout_matches_wrapper():
 
 def test_texture_launcher_has_an_instance_per_group():
     """``megakernel_tex_launch`` dispatches each G of TEXTURE_GROUPS to its
-    own ``megakernel_tex<K, KS, G>``, and nothing else; so does the
-    occupancy query."""
+    own ``megakernel_tex<K, KS, G, EXT>`` (EXT: the launch reads the scene
+    buffer or not), and nothing else; so does the occupancy query."""
     src = _cu_source()
     launch = re.search(r'extern "C" int megakernel_tex_launch\(.*?\n\}', src, re.S).group(0)
     assert re.findall(r"if \(G == (\d+)\)\s*return launch_tex<(\d+)>", launch) == [
         (str(g), str(g)) for g in mk.TEXTURE_GROUPS]
     body = re.search(r"static int launch_tex\(.*?\n\}", src, re.S).group(0)
-    assert "megakernel_tex<MK_KNOTS, MK_SHAPE_KNOTS, G>" in body
+    assert re.findall(r"megakernel_tex<MK_KNOTS, MK_SHAPE_KNOTS, G, (\w+)>", body) == [
+        "true", "false"]
     info = re.search(r'extern "C" int megakernel_tex_info\(.*?\n\}', src, re.S).group(0)
-    assert tuple(int(g) for g in re.findall(r"megakernel_tex<MK_KNOTS, MK_SHAPE_KNOTS, (\d+)>",
-                                            info)) == mk.TEXTURE_GROUPS
+    assert re.findall(r"megakernel_tex<MK_KNOTS, MK_SHAPE_KNOTS, (\d+), (\w+)>", info) == [
+        (str(g), ext) for g in mk.TEXTURE_GROUPS for ext in ("true", "false")]
 
 
 @pytest.mark.parametrize("group,coverage_lod", [(g, c) for g in mk.TEXTURE_GROUPS
