@@ -269,11 +269,34 @@ two more phases:
    ``fly --taa --frames 8 --size 1152`` (K3 8 times), ``bake-lut`` and
    ``export-cubemap``, each writing its file.
 
+Inverse rendering (``models/inverse.py``, ``train_step_sharded``), which
+differentiates the plain frame (autograd; the kernels have no backward, as
+the Pallas ones have none), runs last:
+
+9. 9a: the CLI's ``fit`` at the JAX defaults (``no_clouds``/exterior,
+   128², 60 steps, lr 0.05, no ``--device``): one plain frame a step plus
+   the target's, no K1 launch, the last loss below 0.2 × the first and the
+   density moved toward the true 0.5; ms a step, peak memory and the idle
+   share of a ``torch.profiler`` trace of 3 steps.  9b: one step's loss and
+   gradients on ``clouds_high``/avatar at 256×384 over the seven knobs, on
+   the card and on the CPU from the same inputs: the loss at rtol 1e-5 and
+   each gradient element within 1e-3 of its |g| plus 1e-4 of the largest
+   |g|, or twice what one ulp of the camera moves the card's gradient by
+   where that is more (measured first); all finite.  9c: 10 steps of the
+   fit on that problem, then the start and the fitted parameters through
+   K1 (no plain call): the fitted kernel frame against the plain one at
+   the cloud tolerance, and its loss below the start's.  9d: the sharded
+   step on 2 shards of the local mesh and on NCCL at world size 1 against
+   the unsharded step (rtol 1e-5; world size 1 bit for bit).  9e: one
+   step at 1080×1920 where 9b's peak memory, scaled by pixels, stays under
+   60 GB: ms, peak memory, idle share.
+
 Prints a JSON line describing each kernel (with its roofline bound from
 this run's work counters), then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
 line.  Run from the repository root: ``python3 chip_smoke.py``
-(``--quick`` stops after phase 3j).
+(``--quick`` stops after phase 3j; ``--fit-only`` builds, then runs phase
+9 alone).
 """
 
 from __future__ import annotations
@@ -498,6 +521,20 @@ GAS_GIANT_SHARE = 3e-3
 GAS_GIANT_MAX = 5e-4
 GAS_GIANT_ULP_MARGIN = 2.0
 ULP_MOVES = tuple((axis, sign) for axis in range(3) for sign in (1, -1))
+# phase 9, inverse rendering: the CLI's fit at its defaults (FIT_CLI_STEPS
+# steps at FIT_CLI_SIZE²; its step timed over FIT_TIMED_STEPS and traced over
+# FIT_TRACE_STEPS), the fit of clouds_high/avatar at CHECK_SIZE through K1
+# (FIT_K1_STEPS), the sharded step on FIT_SHARDS shards, and the 1080p step
+# where the estimate of its memory stays under FIT_MEMORY_LIMIT.  A
+# clouds_high step is ~120,000 kernels: it is timed over FIT_BIG_TIMED_STEPS
+# and traced once (a trace of one takes tens of seconds to read)
+FIT_CLI_STEPS, FIT_CLI_SIZE = 60, 128
+FIT_K1_STEPS = 10
+FIT_TIMED_STEPS = 5
+FIT_TRACE_STEPS = 3
+FIT_BIG_TIMED_STEPS = 2
+FIT_SHARDS = 2
+FIT_MEMORY_LIMIT = 60e9
 # K1 slice (i), the texture envelope: the texture clouds_high scene (both
 # fields baked, the demo's profile) changed as each case says; phase 3h's
 # cases at TEX_ENVELOPE_SIZE, phase 4g's frames at 1080p
@@ -792,6 +829,11 @@ def translated_scene(scene, cam, offset, large_world=True):
 
 def log(*args):
     print(*args, flush=True)
+
+
+def clock(phase: str, start: float):
+    """Where the run stands: the seconds since ``start`` as ``phase`` begins."""
+    log(f"[clock] phase {phase} at {time.time() - start:.1f} s")
 
 
 def cloud_deltas(got: np.ndarray, ref: np.ndarray) -> dict:
@@ -2341,11 +2383,10 @@ def taa_band_check(device, h: int, w: int, n: int, halo: int) -> dict:
     return t
 
 
-def nccl_world_of_one(device, frame, flight) -> dict:
+@contextlib.contextmanager
+def nccl_world_of_one_mesh(device):
     """The distributed mesh of one rank on NCCL (file rendezvous under
-    ``build/``) against the local mesh of one shard: ``frame(mesh)`` and
-    ``flight(mesh)`` must be equal bit for bit.  A failed initialisation
-    raises."""
+    ``build/``); a failed initialisation raises."""
     import torch.distributed as dist
 
     from godot_atmosphere_shader_tpu_torch.parallel.sharding import make_mesh
@@ -2357,12 +2398,23 @@ def nccl_world_of_one(device, frame, flight) -> dict:
     torch.cuda.set_device(device)
     dist.init_process_group("nccl", init_method=f"file://{rendezvous}", world_size=1, rank=0)
     try:
-        mesh = make_mesh(group=dist.group.WORLD)
-        got = (frame(mesh), flight(mesh))
+        yield make_mesh(group=dist.group.WORLD)
         torch.cuda.synchronize()
-        backend = dist.get_backend()
     finally:
         dist.destroy_process_group()
+
+
+def nccl_world_of_one(device, frame, flight) -> dict:
+    """The distributed mesh of one rank on NCCL against the local mesh of
+    one shard: ``frame(mesh)`` and ``flight(mesh)`` must be equal bit for
+    bit."""
+    import torch.distributed as dist
+
+    from godot_atmosphere_shader_tpu_torch.parallel.sharding import make_mesh
+
+    with nccl_world_of_one_mesh(device) as mesh:
+        got = (frame(mesh), flight(mesh))
+        backend = dist.get_backend()
     local = (frame(make_mesh(1)), flight(make_mesh(1)))
     same = {name: all(bool(torch.equal(a[k], b[k])) for k in ("color", "alpha"))
             for name, a, b in zip(("frame", "flight"), got, local)}
@@ -2858,12 +2910,14 @@ def tight_deltas(got: np.ndarray, ref: np.ndarray) -> dict:
 
 
 def ulp_move(scene, cam, h: int, w: int, renderer: str = "plain", t: float = 0.5,
-             moves=ULP_MOVES) -> dict:
+             moves=ULP_MOVES, base=None) -> dict:
     """The largest move (by mean |Δ|) of the scene's frame (``renderer``'s)
     when the camera's position moves one ulp of a coordinate (``moves``:
-    axis and sign pairs), the scene updated at ``t``."""
+    axis and sign pairs), the scene updated at ``t``; ``base``: the frame
+    at ``cam``, where the caller has rendered it already."""
     scene.update(t, cam)
-    base = frame_array(scene.render(cam, h, w, renderer=renderer))
+    if base is None:
+        base = frame_array(scene.render(cam, h, w, renderer=renderer))
     worst = None
     for axis, sign in moves:
         v2w = cam.view_to_world.clone()
@@ -3141,16 +3195,17 @@ def kernel_against_plain(scene, cam, label: str) -> tuple:
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     H, W = FULL_SIZE
-    ulp = ulp_move(scene, cam, H, W, t=0.0, moves=camera_moves(cam))
+    scene.update(0.0, cam)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ref = frame_array(scene.render(cam, H, W, renderer="plain"))
+    plain_s = time.time() - t0
+    ulp = ulp_move(scene, cam, H, W, t=0.0, moves=camera_moves(cam), base=ref)
     mk.counters.reset()
     got = frame_array(scene.render(cam, H, W, renderer="kernel"))
     if mk.counters.megakernel_launches < 1 or mk.counters.plain_calls:
         raise RuntimeError(f"{label} did not render through the kernel")
     check_frame(got, label)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    ref = frame_array(scene.render(cam, H, W, renderer="plain"))
-    plain_s = time.time() - t0
     st = cloud_deltas(got, ref)
     return got, ref, plain_s, ulp, st, ulp_tolerance_ok(st, ulp)
 
@@ -3392,6 +3447,318 @@ def cli_phase(device, card: str, tmp: str) -> dict:
     return out
 
 
+# -- phase 9: inverse rendering ---------------------------------------------------
+
+
+def fit_inputs(variant: str, pose: str, h: int, w: int, device) -> dict:
+    """The CLI fit's problem on ``device``: the demo scene's true params
+    (at t = 0), the start point (density 0.2, scattering strength 0.5), the
+    plain frame of the true params as the target, the config, camera and
+    opaque scene."""
+    from godot_atmosphere_shader_tpu_torch.models.demo import build_demo_scene, demo_camera
+    from godot_atmosphere_shader_tpu_torch.ops.kernels.megakernel import render_scene_plain
+
+    scene = build_demo_scene(variant, procedural=True, device=device)
+    cam = demo_camera(pose, device=device)
+    scene.update(0.0, cam)
+    atmo = scene.atmospheres[0]
+    true = atmo.build_params().resolve_frame_state()
+    with torch.no_grad():
+        target = render_scene_plain((true,), (atmo.config,), cam, scene.opaque, h, w)["color"]
+    start = dataclasses.replace(true, density=torch.tensor(0.2, device=device),
+                                scattering_strength=torch.tensor(0.5, device=device))
+    return {"true": true, "start": start, "config": atmo.config, "camera": cam,
+            "opaque": scene.opaque, "target": target}
+
+
+def fit_args(inp: dict, camera=None) -> tuple:
+    """``loss_and_gradients``'s arguments but the size: the start's seven
+    knobs, the start, config, camera (or ``camera``), opaque scene, target."""
+    from godot_atmosphere_shader_tpu_torch.models.inverse import DEFAULT_TRAINABLE
+
+    train = {k: getattr(inp["start"], k) for k in DEFAULT_TRAINABLE}
+    return (train, inp["start"], inp["config"], camera or inp["camera"], inp["opaque"],
+            inp["target"])
+
+
+def on_device(obj, device):
+    """A dataclass with each tensor field moved to ``device``."""
+    return dataclasses.replace(obj, **{f.name: getattr(obj, f.name).to(device)
+                                       for f in dataclasses.fields(obj)
+                                       if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+
+def step_trace(fn, steps: int) -> dict:
+    """``steps`` calls of ``fn`` under ``torch.profiler``: device busy ms a
+    call (the union of device intervals) and device kernels a call.  A
+    small kernel and a synchronisation come first, as in
+    :func:`flight_trace`.  Device activity alone: a fit step is ~120,000
+    kernels, and reading their host ops too takes minutes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1.0)
+        torch.cuda.synchronize()
+        for i in range(steps):
+            fn(i)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in events if "Memcpy" not in e.name and "Memset" not in e.name]
+    return {"device_busy_ms": busy_us(events) / 1e3 / steps,
+            "kernels_per_step": (len(kernels) - 1) / steps}
+
+
+def fit_step_profile(inp: dict, h: int, w: int, timed: int = FIT_TIMED_STEPS,
+                     traced: int = FIT_TRACE_STEPS) -> dict:
+    """One ``fit_step`` of ``inp``'s problem at ``h × w``: its peak memory
+    (``max_memory_allocated`` over one step, and above what was allocated
+    before it), ms a step by CUDA events over ``timed`` steps, and the
+    device's busy ms, kernels and idle share a step in a trace of
+    ``traced``."""
+    from godot_atmosphere_shader_tpu_torch.models.inverse import fit_step
+
+    args = fit_args(inp)
+
+    def step(_):
+        fit_step(*args, h, w)
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    out = {"size": [h, w], "peak_bytes": peak, "step_bytes": peak - before,
+           "ms_per_step": time_cuda(step, timed, warmup=0)}
+    out.update(step_trace(step, traced))
+    out["idle_share"] = 1.0 - out["device_busy_ms"] / out["ms_per_step"]
+    return out
+
+
+def fit_cli_check(device, card: str) -> dict:
+    """9a: ``cli.main(["fit"])`` at the JAX defaults on the card (no
+    ``--device``): one plain frame a step plus the target's, no K1 launch,
+    the last loss below 0.2 × the first, the density moved toward its true
+    value; then the step's ms, memory and idle share."""
+    import re
+
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    mk.counters.reset()
+    t0 = time.perf_counter()
+    rc, lines = cli_render(["fit"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"plain": mk.counters.plain_calls, "K1": mk.counters.megakernel_launches}
+    nums = [[float(x) for x in re.findall(r"-?\d+\.\d+", line)] for line in lines]
+    out = {"rc": rc, "lines": lines, "counters": counts, "wall_s": wall,
+           "wall_ms_per_step": wall * 1e3 / FIT_CLI_STEPS}
+    if rc or len(nums) != 3 or len(nums[0]) != 2 or len(nums[1]) != 3:
+        raise RuntimeError(f"the CLI's fit printed something else: {out}")
+    (first, last), (true_density, start_density, fitted_density) = nums[0], nums[1]
+    out.update(first_loss=first, last_loss=last, fitted_density=fitted_density)
+    out["profile"] = fit_step_profile(
+        fit_inputs("no_clouds", "exterior", FIT_CLI_SIZE, FIT_CLI_SIZE, device),
+        FIT_CLI_SIZE, FIT_CLI_SIZE)
+    log(f"[fit] 9a cli fit on {card}: {json.dumps(out)}")
+    if counts != {"plain": FIT_CLI_STEPS + 1, "K1": 0}:
+        raise RuntimeError(f"the CLI's fit did not render one plain frame a step: {counts}")
+    if not (last < 0.2 * first and abs(fitted_density - true_density)
+            < abs(start_density - true_density)):
+        raise RuntimeError(f"the CLI's fit did not recover the parameters: {lines}")
+    return out
+
+
+def fit_gradient_check(device, card: str) -> dict:
+    """9b: one step's loss and gradients on ``clouds_high``/avatar at
+    CHECK_SIZE, on the card and on the CPU from the same inputs (the card's
+    tensors copied).  One ulp of the camera (its nonzero coordinates, each
+    way) moves the card's loss and gradients first: each gradient element
+    is held to 1e-3 of its CPU |g| plus 1e-4 of the largest CPU |g| over the
+    knobs, or to twice that move where it is larger; the loss to rtol 1e-5,
+    or twice its move.  Also the step's profile at this size."""
+    from godot_atmosphere_shader_tpu_torch.models.inverse import loss_and_gradients
+
+    h, w = CHECK_SIZE
+    inp = fit_inputs("clouds_high", "avatar", h, w, device)
+    out = {"profile": fit_step_profile(inp, h, w, timed=FIT_BIG_TIMED_STEPS, traced=1)}
+    loss, grads = loss_and_gradients(*fit_args(inp), h, w)
+    move = {k: torch.zeros_like(v) for k, v in grads.items()}
+    loss_move = 0.0
+    cam = inp["camera"]
+    for axis, sign in camera_moves(cam):
+        v2w = cam.view_to_world.clone()
+        v2w[axis, 3] = torch.nextafter(v2w[axis, 3], torch.tensor(sign * 1e9, device=device))
+        moved_loss, moved = loss_and_gradients(
+            *fit_args(inp, dataclasses.replace(cam, view_to_world=v2w)), h, w)
+        loss_move = max(loss_move, abs(float(moved_loss) - float(loss)))
+        for k in move:
+            move[k] = torch.maximum(move[k], (moved[k] - grads[k]).abs())
+    cpu = {k: on_device(inp[k], "cpu") for k in ("start", "camera", "opaque")}
+    cpu.update(config=inp["config"], target=inp["target"].cpu())
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = loss_and_gradients(*fit_args(cpu), h, w)
+    out["cpu_s"] = time.perf_counter() - t0
+    top = max(float(g.abs().max()) for g in cpu_grads.values())
+    ok = all(bool(torch.isfinite(g).all()) for g in (*grads.values(), *cpu_grads.values()))
+    out["knobs"] = {}
+    for k, g in grads.items():
+        ref, g = cpu_grads[k].double(), g.cpu().double()
+        base = 1e-3 * ref.abs() + 1e-4 * top
+        tol = torch.maximum(base, 2.0 * move[k].cpu().double())
+        err = (g - ref).abs()
+        ok = ok and bool((err <= tol).all())
+        out["knobs"][k] = {"card": g.tolist(), "cpu": ref.tolist(),
+                           "max_abs_err": float(err.max()),
+                           "err_over_tolerance": float((err / tol).max()),
+                           "ulp_move": float(move[k].max()),
+                           "ulp_bound": bool((tol > base).any())}
+    loss_tol = max(1e-5 * abs(float(cpu_loss)), 2.0 * loss_move)
+    out.update(loss=float(loss), cpu_loss=float(cpu_loss), loss_ulp_move=loss_move,
+               loss_tolerance=loss_tol, largest_cpu_grad=top)
+    log(f"[fit] 9b gradients clouds_high/avatar {h}x{w}, card against CPU, on {card}: "
+        f"{json.dumps(out)}")
+    if not ok or abs(float(loss) - float(cpu_loss)) > loss_tol:
+        raise RuntimeError("the card's fit gradients disagree with the CPU's")
+    return out
+
+
+def fit_through_k1(device, card: str) -> dict:
+    """9c: FIT_K1_STEPS steps of the fit (the seven default knobs) on
+    ``clouds_high``/avatar at CHECK_SIZE (plain frames only), then the
+    start and the fitted params through K1 (``render_frame_megakernel``,
+    what ``Scene.render`` launches; no plain call): the fitted kernel frame
+    against the plain frame of the same params at the cloud tolerance, and
+    its loss against the target below the start's, through the kernel too.
+    The losses the fit returns alternate: ``atmosphere_ambient_color``
+    (about 0.002) takes sign steps of lr = 0.05 and bounces off 0 every
+    other step, so an even FIT_K1_STEPS ends in the low phase."""
+    from godot_atmosphere_shader_tpu_torch.models.inverse import fit
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    h, w = CHECK_SIZE
+    inp = fit_inputs("clouds_high", "avatar", h, w, device)
+    cfg, cam, opaque, target = inp["config"], inp["camera"], inp["opaque"], inp["target"]
+    mk.counters.reset()
+    t0 = time.perf_counter()
+    fitted, losses = fit(inp["start"], cfg, cam, opaque, target, h, w, steps=FIT_K1_STEPS)
+    fit_s = time.perf_counter() - t0
+    fit_counts = (mk.counters.plain_calls, mk.counters.megakernel_launches)
+    mk.counters.reset()
+    k_start = mk.render_frame_megakernel(inp["start"], cfg, cam, opaque, h, w)
+    k_fit = mk.render_frame_megakernel(fitted, cfg, cam, opaque, h, w)
+    torch.cuda.synchronize()
+    k_counts = (mk.counters.megakernel_launches, mk.counters.plain_calls)
+    with torch.no_grad():
+        p_fit = mk.render_frame_plain(fitted, cfg, cam, opaque, h, w)
+    got, ref = frame_array(k_fit), frame_array(p_fit)
+    check_frame(got, "the fitted kernel frame")
+    st = cloud_deltas(got, ref)
+
+    def loss_of(out):
+        return float(torch.mean((out["color"] - target) ** 2))
+
+    out = {"losses": losses, "fit_s": fit_s, "fit_counters": {"plain": fit_counts[0],
+                                                             "K1": fit_counts[1]},
+           "kernel_counters": {"K1": k_counts[0], "plain": k_counts[1]},
+           "fitted": {k: getattr(fitted, k).tolist() for k in ("density",
+                                                               "scattering_strength")},
+           "kernel_vs_plain": st, "kernel_loss_start": loss_of(k_start),
+           "kernel_loss_fitted": loss_of(k_fit), "plain_loss_fitted": loss_of(p_fit)}
+    log(f"[fit] 9c {FIT_K1_STEPS} steps of clouds_high/avatar {h}x{w}, then K1, on {card}: "
+        f"{json.dumps(out)}")
+    if fit_counts != (FIT_K1_STEPS, 0) or k_counts != (2, 0):
+        raise RuntimeError(f"the fit or its K1 frames took another route: {out}")
+    if not cloud_tolerance_ok(st):
+        raise RuntimeError("the fitted params' K1 frame disagrees with their plain frame")
+    if not (out["kernel_loss_fitted"] < out["kernel_loss_start"]
+            and out["plain_loss_fitted"] < losses[0]):
+        raise RuntimeError("the fit did not lower the loss through K1")
+    return out
+
+
+def sharded_step_check(device, card: str) -> dict:
+    """9d: the sharded step on ``clouds_high``/avatar at CHECK_SIZE:
+    FIT_SHARDS shards of the local mesh against the unsharded step (the
+    fitter's ``loss_and_gradients``), loss and gradients at rtol 1e-5 (the
+    mean of equal shard means against the whole frame's mean), the updated
+    knobs finite; the step on NCCL at world size 1 against the step on the
+    local mesh of one shard, loss and updated knobs bit for bit, whose loss
+    is the unsharded one's, bit for bit."""
+    from godot_atmosphere_shader_tpu_torch.models.inverse import loss_and_gradients
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+    from godot_atmosphere_shader_tpu_torch.parallel.sharding import (
+        make_mesh, sharded_loss_and_gradients, train_step_sharded)
+
+    h, w = CHECK_SIZE
+    inp = fit_inputs("clouds_high", "avatar", h, w, device)
+    train, params, cfg, cam, opaque, target = fit_args(inp)
+    args = (train, params, (cfg,), cam, opaque, target, h, w)
+    whole_loss, whole = loss_and_gradients(*fit_args(inp), h, w)
+    mk.counters.reset()
+    loss, grads = sharded_loss_and_gradients(*args, make_mesh(FIT_SHARDS))
+    counts = (mk.counters.plain_calls, mk.counters.megakernel_launches)
+    _, new = train_step_sharded(*args, make_mesh(FIT_SHARDS))
+    with nccl_world_of_one_mesh(device) as mesh:
+        nccl_loss, nccl_new = train_step_sharded(*args, mesh)
+    one_loss, one_new = train_step_sharded(*args, make_mesh(1))
+
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+
+    out = {"counters": {"plain": counts[0], "K1": counts[1]}, "loss": float(loss),
+           "whole_loss": float(whole_loss),
+           "loss_rel_err": rel(loss, whole_loss),
+           "grad_rel_err": {k: rel(grads[k], whole[k]) for k in grads},
+           "nccl_bit_equal": bool(torch.equal(nccl_loss, one_loss) and all(
+               torch.equal(nccl_new[k], one_new[k]) for k in one_new)),
+           "one_shard_loss_bit_equal": bool(torch.equal(one_loss, whole_loss)),
+           "finite": all(bool(torch.isfinite(v).all()) for v in new.values())}
+    log(f"[fit] 9d sharded step {FIT_SHARDS} shards and NCCL world size 1, {h}x{w}, on "
+        f"{card}: {json.dumps(out)}")
+    if (counts != (FIT_SHARDS, 0) or not out["finite"] or not out["nccl_bit_equal"]
+            or not out["one_shard_loss_bit_equal"]):
+        raise RuntimeError(f"the sharded step took another route or differs: {out}")
+    if out["loss_rel_err"] > 1e-5 or max(out["grad_rel_err"].values()) > 1e-5:
+        raise RuntimeError("the sharded step disagrees with the unsharded one")
+    return out
+
+
+def fit_full_size(device, card: str, small: dict) -> dict:
+    """9e: the estimate of a 1080p step's memory (9b's step at CHECK_SIZE,
+    its bytes above the inputs scaled by pixels, plus those inputs), and,
+    where it stays under FIT_MEMORY_LIMIT, one step's profile at 1080p."""
+    H, W = FULL_SIZE
+    h, w = CHECK_SIZE
+    p = small["profile"]
+    estimate = (p["peak_bytes"] - p["step_bytes"]) + p["step_bytes"] * (H * W) / (h * w)
+    out = {"estimate_bytes": estimate, "limit_bytes": FIT_MEMORY_LIMIT,
+           "ran": estimate < FIT_MEMORY_LIMIT}
+    if out["ran"]:
+        out["profile"] = fit_step_profile(fit_inputs("clouds_high", "avatar", H, W, device), H,
+                                          W, timed=FIT_BIG_TIMED_STEPS, traced=1)
+    log(f"[fit] 9e 1080p step of clouds_high/avatar on {card}: {json.dumps(out)}")
+    return out
+
+
+def fit_phase(device, card: str) -> dict:
+    """Phase 9: inverse rendering on the card, 9a to 9e, each one's
+    seconds in ``out["seconds"]``."""
+    out, seconds = {}, {}
+    for key, check in (("cli", fit_cli_check), ("gradients", fit_gradient_check),
+                       ("k1", fit_through_k1), ("sharded", sharded_step_check)):
+        t0 = time.perf_counter()
+        out[key] = check(device, card)
+        seconds[key] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["full_size"] = fit_full_size(device, card, out["gradients"])
+    seconds["full_size"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    log(f"[fit] phase 9 seconds: {json.dumps(seconds)}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -3400,7 +3767,10 @@ def main(argv=None) -> int:
                          "row shards, the procedural and texture envelopes, the gas "
                          "giant's band, the geometry and octave cases and the LUT "
                          "(phases 7b, 3 to 3j)")
+    ap.add_argument("--fit-only", action="store_true",
+                    help="build, then run phase 9 (inverse rendering) alone")
     args = ap.parse_args(argv)
+    run_start = time.time()
 
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3424,19 +3794,26 @@ def main(argv=None) -> int:
     from godot_atmosphere_shader_tpu_torch.render.glow import GlowSettings, apply_glow
     from godot_atmosphere_shader_tpu_torch.utils.camera import Camera
 
+    clock("2", run_start)
     # -- 2. build -----------------------------------------------------------
     t0 = time.time()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:  # both builds' nvcc at once
-        measure = pool.submit(library.build, sources=(mk.SOURCE,), defines=mk.MEASURE_DEFINES)
+        measure = None if args.fit_only else pool.submit(
+            library.build, sources=(mk.SOURCE,), defines=mk.MEASURE_DEFINES)
         path, ptxas = library.build(ptxas_info=True)
-        measure_path = measure.result()[0]
+        measure_path = measure.result()[0] if measure else path
     log(f"[build] {os.path.relpath(path, ROOT)} and the measurement build "
         f"{os.path.relpath(measure_path, ROOT)} in {time.time() - t0:.1f} s")
     for line in ptxas.splitlines():
         if any(k in line for k in ("Compiling entry", "registers", "spill", "stack", "smem")):
             log(f"[ptxas] {line.strip()}")
     mk.load_library()
+    if args.fit_only:
+        fit_phase(device, card)
+        log(card)
+        return 0
 
+    clock("7b", run_start)
     # -- 7b (run first: every bound divides by its rates). T2, the peak probe:
     # each chain against its plain version, then the measured rates ------------
     peak = peak_probe(device)
@@ -3453,6 +3830,7 @@ def main(argv=None) -> int:
         f"sampled clock {peak['clock_int32_per_s'] / 1e12:.3f}, spec-derived "
         f"{SPEC_INT32 / 1e12:.3f}); the clocks under load: {peak['clocks_under_load']}")
 
+    clock("3", run_start)
     # -- 3. kernel against plain, small --------------------------------------
     h, w = CHECK_SIZE
     for variant, pose in CHECK_CASES:
@@ -3468,6 +3846,7 @@ def main(argv=None) -> int:
         if not cloud_tolerance_ok(st):
             raise RuntimeError(f"kernel disagrees with plain on {variant}/{pose}")
 
+    clock("3b", run_start)
     # -- 3b. texture mode, small: K2 alone, then the texture scene ------------
     k2_err = k2_check(device)
     torch.cuda.synchronize()
@@ -3489,6 +3868,7 @@ def main(argv=None) -> int:
             raise RuntimeError(f"texture kernel disagrees with plain on {pose}")
     k2_t = k2_timing(device)
     log(f"[k2-time] K2 alone, 1080p-sized batches on {card}: {json.dumps(k2_t)}")
+    clock("3c", run_start)
     # -- 3c. flight mode, small: K3 alone at 1080p, a 4-frame TAA flight -------
     taa_err, taa_flips = taa_check(device, *FULL_SIZE)
     scene, _ = scene_and_camera("clouds_high", "avatar", device)
@@ -3508,6 +3888,7 @@ def main(argv=None) -> int:
     check_flight(f"clouds_high TAA {h}x{w}", out,
                  plain_flight(scene, cam, times, stack, h, w, FLIGHT_BLEND))
 
+    clock("3d", run_start)
     # -- 3d. exterior and multi-planet frames, small ------------------------------
     scene_err = opaque_only_check(device, h, w)
     for kind, pose in SCENE_CASES:
@@ -3536,6 +3917,7 @@ def main(argv=None) -> int:
                                             plain_flight(scene, cam, times, stack, h, w,
                                                          FLIGHT_BLEND)))
 
+    clock("3e", run_start)
     # -- 3e. the panorama sky, small ------------------------------------------------
     t0 = time.time()
     pano = synthetic_panorama(*PANO_SIZE)
@@ -3581,6 +3963,7 @@ def main(argv=None) -> int:
                                         plain_flight(scene, cam, times, stack, h, w,
                                                      FLIGHT_BLEND)))
 
+    clock("3f", run_start)
     # -- 3f. row shards (K1 slice (g)) and the sharded TAA flight, small ----------
     from godot_atmosphere_shader_tpu_torch.parallel import sharding
 
@@ -3608,6 +3991,7 @@ def main(argv=None) -> int:
         f"clouds_high sharded TAA with the sky {h}x{w}", out,
         plain_flight(scene, cam, times, stack, h, w, FLIGHT_BLEND, mesh=mesh)))
 
+    clock("3g", run_start)
     # -- 3g. K1 slice (h), the procedural envelope, small -------------------------
     conditioning = detail_conditioning(device, h, w)
     log(f"[envelope] one ulp of the camera's z, plain against plain {h}x{w}: "
@@ -3621,6 +4005,7 @@ def main(argv=None) -> int:
     knot_groups = knot_group_check(device, h, w, span)
     log(f"[envelope] {len(knot_groups)} knot-group cases {h}x{w}: {json.dumps(knot_groups)}")
 
+    clock("3h", run_start)
     # -- 3h. K1 slice (i), the texture envelope, small -------------------------
     th, tw = TEX_ENVELOPE_SIZE
     tex_cond = tex_envelope_conditioning(device, textures, th, tw)
@@ -3630,8 +4015,10 @@ def main(argv=None) -> int:
     log(f"[tex-envelope] {len(tex_small)} cases {th}x{tw}, one texture launch each, no plain "
         f"call: {json.dumps(tex_small)}")
 
+    clock("3i", run_start)
     # -- 3i. the gas giant's limb band against three references -----------------
     gas_giant = gas_giant_check(device)
+    clock("3j", run_start)
     # -- 3j. K1 sized per scene: spheres, boxes and octaves past the launch
     # struct's inline ones through each instance; the LUT's route ----------------
     geometry = geometry_check(device, textures)
@@ -3640,6 +4027,7 @@ def main(argv=None) -> int:
     if args.quick:
         return 1
 
+    clock("4", run_start)
     # -- 4. the procedural slice at 1080p through Scene.render -----------------
     H, W = FULL_SIZE
     runs = {}
@@ -3670,6 +4058,7 @@ def main(argv=None) -> int:
     check_signature(frame_array(runs[("clouds_high", "avatar")][2])[..., :3], SIG_PATH,
                     "clouds_high/avatar 1080p")
 
+    clock("4b", run_start)
     # -- 4b. the texture slice at 1080p through Scene.render ---------------------
     tex_runs = {}
     pyramid_s = {}
@@ -3716,6 +4105,7 @@ def main(argv=None) -> int:
         if not err <= BAKE_ATOL:
             raise RuntimeError(f"the card's bake disagrees with the CPU bake at {size}")
 
+    clock("4c", run_start)
     # -- 4c. the JAX bench cells 1, 2, 5 and 7 through Scene.render ---------------
     cells = {}
     mk.counters.reset()
@@ -3734,6 +4124,7 @@ def main(argv=None) -> int:
         cell_launches += expected_launches(plan)
         cells[cell] = (kind, scene, cam, ch, cw, plan)
 
+    clock("4d", run_start)
     # -- 4d. the panorama sky at 1080p through Scene.render, and the glow ----------
     sky_runs, sky_launches, choice_launches = {}, 0, 0
     pyramid_s = {}
@@ -3812,6 +4203,7 @@ def main(argv=None) -> int:
     if not glow_change["clouds_high/sunward"] > 1e-2:
         raise RuntimeError("the sunward frame's HDR sun disc did not bloom")
 
+    clock("4e", run_start)
     # -- 4e. row shards at full size: the sharded frame, the 1080p flagship on
     # two shards, the sharded TAA flight, NCCL world size 1, K3's band mode ----
     SH, SW = SHARD_SIZE
@@ -3909,6 +4301,7 @@ def main(argv=None) -> int:
     log(f"[taa-band] K3 band mode alone {SH}x{SW}, {SHARDS} shards, halo {TAA_HALO} on "
         f"{card}: {json.dumps(taa_band)}")
 
+    clock("4f", run_start)
     # -- 4f. K1 slice (h): the envelope's four frames at 1080p through Scene.render
     env_runs = {}
     mk.counters.reset()
@@ -3930,6 +4323,7 @@ def main(argv=None) -> int:
         check_frame(img, f"1080p {name}")
         env_check[name] = check_envelope_frame(name, scene, cam, img, H, W)
 
+    clock("4g", run_start)
     # -- 4g. K1 slice (i): the texture envelope's frames at 1080p, each against
     # the whole plain frame, then timed ------------------------------------------
     tex_env = tex_envelope_frames(device, textures, H, W, tex_cond)
@@ -3943,6 +4337,7 @@ def main(argv=None) -> int:
     log(f"[tex-envelope-time] after timing: "
         f"{smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
+    clock("5", run_start)
     # -- 5. timing -------------------------------------------------------------
     timings, bounds = {}, {}
     cases = [("clouds_high", "avatar", None), ("clouds_high", "interior", None),
@@ -3987,6 +4382,7 @@ def main(argv=None) -> int:
         log(f"[bound] {label}: {json.dumps(bounds[label])}")
     log(f"[time] after timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
+    clock("5b", run_start)
     # -- 5b. the bench cells' timing: per launch, per frame, plain ---------------------
     cell_t = {}
     for cell, (kind, scene, cam, ch, cw, plan) in cells.items():
@@ -4032,6 +4428,7 @@ def main(argv=None) -> int:
     log(f"[cell-time] cell 5 comparisons on {card}: {json.dumps(cell5_cmp)}")
     log(f"[cell-time] after timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
+    clock("5c", run_start)
     # -- 5c. the sky's timing: per launch, per frame, plain; glow; the sky's cost ------
     from godot_atmosphere_shader_tpu_torch.render.renderer import opaque_only_config, render_frame
 
@@ -4106,6 +4503,7 @@ def main(argv=None) -> int:
         log(f"[sky-time] pre-pass alone on {label} 1080p on {card}: {json.dumps(choice_t[label])}")
     log(f"[sky-time] after timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
+    clock("5d", run_start)
     # -- 5d. row shards' timing: per-shard K1 with its bound, the sharded frame
     # against the single-card frame, the sharded flight ------------------------
     shard_t = {"everything-on": band_timing(allon, allon_cam, SH, SW, SHARDS, device),
@@ -4143,6 +4541,7 @@ def main(argv=None) -> int:
     log(f"[shard-time] after timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
     band_flag = shard_t["clouds_high/avatar 1080p"]
 
+    clock("5e", run_start)
     # -- 5e. the envelope's timing: per frame kernel ms and bound, Scene.render ms
     # and idle share, plain ms ---------------------------------------------------
     env_t = {}
@@ -4151,6 +4550,7 @@ def main(argv=None) -> int:
         log(f"[envelope-time] {name} 1080p on {card}: {json.dumps(env_t[name])}")
     log(f"[envelope-time] after timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
+    clock("5f", run_start)
     # -- 5f. the procedural and texture instances per stage: what each instance
     # uses, the march's lane utilisation and the measurement build's cycles per
     # stage --------------------------------------------------------------------
@@ -4194,6 +4594,7 @@ def main(argv=None) -> int:
         check_parent_work(label, [x["work"] for x in stages[label]])
     log("[stages] every cloud launch's work counts equal the previous design's")
 
+    clock("6", run_start)
     # -- 6. the flight slice at 1080p through Scene.render_flight ----------------
     K = FLIGHT_FRAMES
     stack = fly_path(K)
@@ -4224,6 +4625,7 @@ def main(argv=None) -> int:
     flight_tex = mk.counters.texture_launches
     flight_k3 = taa.counters.launches
 
+    clock("7", run_start)
     # -- 7. flight timing, K3 alone, the launch floor -----------------------------
     flight_timing = {}
     for label, (tx, blend) in flights.items():
@@ -4317,11 +4719,27 @@ def main(argv=None) -> int:
         raise RuntimeError("the fill kernel disagrees with torch.full")
     log(f"[flight-time] after timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
+    clock("8", run_start)
     # -- 8. the CLI and the Godot scene importer at 1080p, large worlds ------------
     with tempfile.TemporaryDirectory() as tmp:
         imported = import_phase(device, card, tmp)
+        clock("8 large worlds", run_start)
         large = large_world_phase(device, card)
+        clock("8 cli", run_start)
         cli_out = cli_phase(device, card, tmp)
+
+    clock("9", run_start)
+    # -- 9. inverse rendering: the CLI's fit, gradients, the fitted frame
+    # through K1, the sharded step, the 1080p step ------------------------------------
+    fit_out = fit_phase(device, card)
+    log(f"[fit] summary on {card}: " + json.dumps({
+        "cli_ms_per_step": fit_out["cli"]["profile"]["ms_per_step"],
+        "cli_idle_share": fit_out["cli"]["profile"]["idle_share"],
+        "cli_peak_bytes": fit_out["cli"]["profile"]["peak_bytes"],
+        "check_size_ms_per_step": fit_out["gradients"]["profile"]["ms_per_step"],
+        "check_size_idle_share": fit_out["gradients"]["profile"]["idle_share"],
+        "check_size_peak_bytes": fit_out["gradients"]["profile"]["peak_bytes"],
+        "full_size": fit_out["full_size"], "seconds": fit_out["seconds"]}))
 
     # 7b: T2 (measured before phase 3; every bound above divides by it)
     log(f"[peak] T2 on {card}: fp32 {peak['fp32_flops'] / 1e12:.3f} TFLOP/s "
@@ -4337,6 +4755,7 @@ def main(argv=None) -> int:
     band7 = next(x for x in cell_t["7"]["launches"] if x["kind"] != "opaque")
     if not all(clear_launches.values()):
         raise RuntimeError(f"the main path launched no cloud-free instance: {clear_launches}")
+    clock("end", run_start)
     log(json.dumps({"kernels": [{
         "name": "megakernel",
         "route": "cuda",

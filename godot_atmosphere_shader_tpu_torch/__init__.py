@@ -5,7 +5,8 @@ each module is tested against.  This package imports ``torch`` and numpy,
 never JAX.  The frame's hot path is one CUDA megakernel written for Hopper
 (``csrc/megakernel.cu``, ``ops/kernels/megakernel.py``); CPU tensors take
 its plain PyTorch version.  The output stage, the environment's glow
-(:class:`GlowSettings`, ``Scene(environment=...)``), is plain PyTorch.
+(:class:`GlowSettings`, ``Scene(environment=...)``), is plain PyTorch, and
+so is inverse rendering (:func:`fit`: autograd through the plain frame).
 Everything runs on the card unless the caller asks for the CPU
 (``device="cpu"``).
 
@@ -30,6 +31,7 @@ Or migrate an existing Godot scene directly::
 """
 
 from .models.demo import build_demo_scene, default_node_scene, demo_camera
+from .models.inverse import fit
 from .models.noise_cubemap import NoiseCubemap
 from .models.params import VARIANTS, AtmosphereParams, ProceduralField, VariantConfig
 from .models.scene import Node3D, PlanetAtmosphere, Scene
@@ -47,7 +49,7 @@ __all__ = [
     "AtmosphereParams", "Camera", "FlyCamera", "GlowSettings", "NoiseCubemap", "NoiseSpec",
     "Node3D", "OpaqueScene", "PlanetAtmosphere", "ProceduralField", "Scene",
     "VariantConfig", "VARIANTS", "apply_glow", "approach_path", "bake_optical_depth",
-    "build_demo_scene", "default_node_scene", "demo_camera", "load_scene", "load_tscn",
+    "build_demo_scene", "default_node_scene", "demo_camera", "fit", "load_scene", "load_tscn",
     "look_at", "orbit_path", "render_frame", "save_scene",
 ]
 

@@ -1,8 +1,9 @@
-"""Command-line tools: render, fly, bake-lut and export-cubemap.
+"""Command-line tools: render, fly, fit, bake-lut and export-cubemap.
 
     python -m godot_atmosphere_shader_tpu_torch.cli render --variant clouds --pose space -o out.png
     python -m godot_atmosphere_shader_tpu_torch.cli render --scene planet.tscn --stats 8 -o out.png
     python -m godot_atmosphere_shader_tpu_torch.cli fly --taa --frames 8 -o flight_
+    python -m godot_atmosphere_shader_tpu_torch.cli fit --variant no_clouds --steps 60
     python -m godot_atmosphere_shader_tpu_torch.cli bake-lut --radius 100 --height 8 -o lut.npy
     python -m godot_atmosphere_shader_tpu_torch.cli export-cubemap -o coverage.png
 
@@ -149,6 +150,37 @@ def cmd_fly(args) -> None:
     print(f"rendered {args.frames} frames to {args.output_prefix}NNNN.png in {dt:.1f}s")
 
 
+def cmd_fit(args) -> None:
+    """Inverse rendering: recover atmosphere params from a target frame."""
+    from .models.demo import build_demo_scene, demo_camera
+    from .models.inverse import fit
+    from .ops.kernels.megakernel import render_scene_plain
+
+    device = args.device
+    # ground-truth scene with perturbed parameters as the "unknown"; the
+    # target is the plain frame, the one the fit differentiates
+    scene = build_demo_scene(variant=args.variant, procedural=True, device=device)
+    cam = demo_camera(args.pose, device=device)
+    scene.update(0.0, cam)
+    atmo = scene.atmospheres[0]
+    true_params = atmo.build_params().resolve_frame_state()
+    with torch.no_grad():
+        target = render_scene_plain((true_params,), (atmo.config,), cam, scene.opaque,
+                                    args.size, args.size)["color"]
+
+    # start from the shader defaults and descend
+    start = dataclasses.replace(
+        true_params, density=torch.tensor(0.2, device=device),
+        scattering_strength=torch.tensor(0.5, device=device))
+    fitted, losses = fit(start, atmo.config, cam, scene.opaque, target, args.size, args.size,
+                         steps=args.steps, lr=args.lr)
+    print(f"loss {losses[0]:.6f} -> {losses[-1]:.6f} over {args.steps} steps")
+    print(f"density: true {float(true_params.density):.4f} "
+          f"start 0.2000 fitted {float(fitted.density):.4f}")
+    print(f"scattering_strength: true {float(true_params.scattering_strength):.4f} "
+          f"start 0.5000 fitted {float(fitted.scattering_strength):.4f}")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="godot_atmosphere_shader_tpu_torch")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -214,6 +246,14 @@ def main(argv=None) -> int:
     f.add_argument("--taa-depth-eps", type=float, default=0.2,
                    help="relative depth-mismatch tolerance of the disocclusion check")
     f.set_defaults(fn=cmd_fly)
+
+    t = sub.add_parser("fit", help="inverse rendering: fit params to a target")
+    t.add_argument("--variant", default="no_clouds")
+    t.add_argument("--pose", default="exterior")
+    t.add_argument("--size", type=int, default=128)
+    t.add_argument("--steps", type=int, default=60)
+    t.add_argument("--lr", type=float, default=0.05)
+    t.set_defaults(fn=cmd_fit)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -29,6 +29,11 @@ Entries, each returning the whole frame on every process:
   on CUDA tensors); :func:`render_flight_taa_sharded_plain` is its plain
   version on any device.
 
+:func:`train_step_sharded` is inverse rendering's training step over the
+row shards, :func:`sharded_loss_and_gradients` its loss and gradients (the
+plain chain per shard, differentiated): the local mesh takes one graph of
+every shard, the distributed mesh all-reduces each rank's gradients.
+
 The host functions that size the halo (:func:`reprojection_row_bound`,
 :func:`derive_taa_halo`, ``_scene_min_depth``) are host numpy, copied from
 the JAX module, and return the same numbers.
@@ -44,6 +49,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..models.inverse import gradients, leaves
 from ..models.params import AtmosphereParams, VariantConfig
 from ..ops.kernels import megakernel as mk
 from ..ops.kernels import taa
@@ -183,6 +189,60 @@ def render_frame_sharded(atmospheres, configs, camera: Camera, opaque: Optional[
     parts = [render_scene_band(atmospheres, configs, camera, opaque, height, width, s * h,
                                h)["color"] for s in mesh.shards()]
     return _gather(mesh, parts, 0)
+
+
+# -- training -------------------------------------------------------------------------
+
+
+def sharded_loss_and_gradients(train, params: AtmosphereParams, configs, camera: Camera,
+                               opaque: Optional[OpaqueScene], target: torch.Tensor,
+                               height: int, width: int, mesh: RowMesh):
+    """``(loss, grads)`` of inverse rendering's loss with the rows sharded
+    over ``mesh`` (``__graft_entry__.py::dryrun_multichip``'s
+    ``loss_fn``): each shard's loss is the mean of ``(render − target)²``
+    over its rows (the plain band chain, ``render_scene_band``, the twin of
+    ``_shade_slice``), the loss the mean over shards.  ``train``: knobs of
+    the one layer ``params``; ``target``: the whole ``(H, W, 3)`` frame.
+    The local mesh differentiates one graph of every shard; on the
+    distributed mesh each rank differentiates its own rows and the ranks
+    all-reduce the loss and the gradients, so every rank returns the same."""
+    if isinstance(configs, VariantConfig):
+        configs = (configs,)
+    if len(configs) != 1:
+        raise ValueError(f"the training step fits one layer, got {len(configs)} configs")
+    h = _shard_rows(height, mesh)
+    _check_lod_alignment(configs, h)
+    _check_device(mesh, camera.view_to_world.device)
+    train = leaves(train)
+    p = dataclasses.replace(params, **train)
+    losses = []
+    for s in mesh.shards():
+        color = mk.render_scene_band_plain((p,), configs, camera, opaque, height, width, s * h,
+                                           h)["color"]
+        losses.append(torch.mean((color - target[s * h:(s + 1) * h]) ** 2))
+    loss = torch.mean(torch.stack(losses))
+    grads = gradients(loss, train)
+    loss = loss.detach()
+    if mesh.group is not None:
+        # the one collective training adds: the mean over ranks
+        for t in [loss, *grads.values()]:
+            dist.all_reduce(t, group=mesh.group)
+            t /= mesh.size
+    return loss, grads
+
+
+def train_step_sharded(train, params: AtmosphereParams, configs, camera: Camera,
+                       opaque: Optional[OpaqueScene], target: torch.Tensor, height: int,
+                       width: int, mesh: RowMesh, lr: float = 1e-3):
+    """One SGD step of inverse rendering with the rows sharded over ``mesh``
+    (``dryrun_multichip``'s ``train_step``): every knob of ``train`` takes
+    ``v − lr·g`` on :func:`sharded_loss_and_gradients`.  Returns ``(loss,
+    train)``, detached, the same on every rank."""
+    loss, grads = sharded_loss_and_gradients(train, params, configs, camera, opaque, target,
+                                             height, width, mesh)
+    with torch.no_grad():
+        new_train = {k: v.detach() - lr * grads[k] for k, v in train.items()}
+    return loss, new_train
 
 
 # -- the TAA halo -------------------------------------------------------------------

@@ -102,3 +102,38 @@ def test_fly_writes_its_frames(tmp_path):
     assert tcli.main(["--device", "cpu", "fly", "--frames", "1", "--size", "16", "-o",
                       prefix + "plain_"]) == 0
     assert read_png(f"{prefix}plain_0000.png").shape == (16, 16, 3)
+
+
+def test_fit_prints_the_jax_cli_lines(capsys):
+    """``fit --size 32 --steps 5`` (the JAX defaults otherwise: no_clouds,
+    exterior, lr 0.05) prints the JAX CLI's three lines, each number within
+    rtol 1e-4 (and one unit of its last printed digit) of JAX's; the fit
+    renders one plain frame a step plus the target's and launches no K1."""
+    import re
+
+    args = ["fit", "--size", "32", "--steps", "5"]
+    mk.counters.reset()
+    assert tcli.main(["--device", "cpu"] + args) == 0
+    assert (mk.counters.plain_calls, mk.counters.megakernel_launches) == (6, 0)
+    port = capsys.readouterr().out.strip().splitlines()
+    jcli.main(args)
+    ref = capsys.readouterr().out.strip().splitlines()
+    number = re.compile(r"\d+\.\d+")
+    assert len(port) == len(ref) == 3
+    assert [number.sub("#", x) for x in port] == [number.sub("#", x) for x in ref]
+    assert port[0].startswith("loss ") and port[0].endswith("over 5 steps")
+    for got, want in zip(port, ref):
+        for a, b in zip(number.findall(got), number.findall(want)):
+            last_digit = 10.0 ** -len(b.split(".")[1])
+            assert abs(float(a) - float(b)) <= 1e-4 * abs(float(b)) + last_digit, (got, want)
+    first, last = (float(x) for x in number.findall(port[0])[:2])
+    assert last < first
+
+
+def test_fit_defaults_to_the_card_and_the_jax_arguments(monkeypatch):
+    seen = {}
+    monkeypatch.setattr(tcli, "cmd_fit", lambda args: seen.update(vars(args)))
+    assert tcli.main(["fit"]) == 0
+    assert seen["device"] == "cuda"
+    assert {k: seen[k] for k in ("variant", "pose", "size", "steps", "lr")} == dict(
+        variant="no_clouds", pose="exterior", size=128, steps=60, lr=0.05)
