@@ -280,9 +280,8 @@ the Pallas ones have none), runs last:
    share of a ``torch.profiler`` trace of 3 steps.  9b: one step's loss and
    gradients on ``clouds_high``/avatar at 256×384 over the seven knobs, on
    the card and on the CPU from the same inputs: the loss at rtol 1e-5 and
-   each gradient element within 1e-3 of its |g| plus 1e-4 of the largest
-   |g|, or twice what one ulp of the camera moves the card's gradient by
-   where that is more (measured first); all finite.  9c: 10 steps of the
+   each gradient element within 1e-3 of its CPU |g| plus 1e-4 of the
+   largest CPU |g|; all finite.  9c: 10 steps of the
    fit on that problem, then the start and the fitted parameters through
    K1 (no plain call): the fitted kernel frame against the plain one at
    the cloud tolerance, and its loss below the start's.  9d: the sharded
@@ -295,8 +294,7 @@ Prints a JSON line describing each kernel (with its roofline bound from
 this run's work counters), then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
 line.  Run from the repository root: ``python3 chip_smoke.py``
-(``--quick`` stops after phase 3j; ``--fit-only`` builds, then runs phase
-9 alone).
+(``--quick`` stops after phase 3j).
 """
 
 from __future__ import annotations
@@ -449,6 +447,7 @@ TAA_MAX_FLIPS = 1e-4     # share of pixels whose validity may differ
 FLIGHT_FRAMES = 8
 FLIGHT_BLEND = 0.15
 FLIGHT_REPS = 2
+FLIGHT_TRACE_TRIES = 3  # traces of a flight until one holds all its kernels
 SMALL_FLIGHT_FRAMES = 4
 FILL_LAUNCHES = 32
 # the moon's atmosphere of the multi-planet cells (bench.py:270-274)
@@ -1459,8 +1458,8 @@ def flight_trace(fn) -> dict:
     """One call of ``fn`` under ``torch.profiler``: device busy ms (union of
     device intervals), and the device→host copies in all and between the
     first and the last frame kernel (K1 or K3) of the flight.  A small
-    kernel and a synchronisation come first inside the trace: a trace can
-    miss its first device events otherwise."""
+    kernel and a synchronisation come first and last inside the trace: a
+    trace can miss its first or its last device events otherwise."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1468,6 +1467,8 @@ def flight_trace(fn) -> dict:
         torch.ones(1, device="cuda").add_(1.0)
         torch.cuda.synchronize()
         fn()
+        torch.cuda.synchronize()
+        torch.ones(1, device="cuda").add_(1.0)
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     frames = [e for e in events if "megakernel" in e.name or "taa_kernel" in e.name]
@@ -3471,14 +3472,13 @@ def fit_inputs(variant: str, pose: str, h: int, w: int, device) -> dict:
             "opaque": scene.opaque, "target": target}
 
 
-def fit_args(inp: dict, camera=None) -> tuple:
+def fit_args(inp: dict) -> tuple:
     """``loss_and_gradients``'s arguments but the size: the start's seven
-    knobs, the start, config, camera (or ``camera``), opaque scene, target."""
+    knobs, the start, config, camera, opaque scene, target."""
     from godot_atmosphere_shader_tpu_torch.models.inverse import DEFAULT_TRAINABLE
 
     train = {k: getattr(inp["start"], k) for k in DEFAULT_TRAINABLE}
-    return (train, inp["start"], inp["config"], camera or inp["camera"], inp["opaque"],
-            inp["target"])
+    return train, inp["start"], inp["config"], inp["camera"], inp["opaque"], inp["target"]
 
 
 def on_device(obj, device):
@@ -3573,28 +3573,15 @@ def fit_cli_check(device, card: str) -> dict:
 def fit_gradient_check(device, card: str) -> dict:
     """9b: one step's loss and gradients on ``clouds_high``/avatar at
     CHECK_SIZE, on the card and on the CPU from the same inputs (the card's
-    tensors copied).  One ulp of the camera (its nonzero coordinates, each
-    way) moves the card's loss and gradients first: each gradient element
-    is held to 1e-3 of its CPU |g| plus 1e-4 of the largest CPU |g| over the
-    knobs, or to twice that move where it is larger; the loss to rtol 1e-5,
-    or twice its move.  Also the step's profile at this size."""
+    tensors copied): each gradient element within 1e-3 of its CPU |g| plus
+    1e-4 of the largest CPU |g| over the knobs, the loss within rtol 1e-5.
+    Also the step's profile at this size."""
     from godot_atmosphere_shader_tpu_torch.models.inverse import loss_and_gradients
 
     h, w = CHECK_SIZE
     inp = fit_inputs("clouds_high", "avatar", h, w, device)
     out = {"profile": fit_step_profile(inp, h, w, timed=FIT_BIG_TIMED_STEPS, traced=1)}
     loss, grads = loss_and_gradients(*fit_args(inp), h, w)
-    move = {k: torch.zeros_like(v) for k, v in grads.items()}
-    loss_move = 0.0
-    cam = inp["camera"]
-    for axis, sign in camera_moves(cam):
-        v2w = cam.view_to_world.clone()
-        v2w[axis, 3] = torch.nextafter(v2w[axis, 3], torch.tensor(sign * 1e9, device=device))
-        moved_loss, moved = loss_and_gradients(
-            *fit_args(inp, dataclasses.replace(cam, view_to_world=v2w)), h, w)
-        loss_move = max(loss_move, abs(float(moved_loss) - float(loss)))
-        for k in move:
-            move[k] = torch.maximum(move[k], (moved[k] - grads[k]).abs())
     cpu = {k: on_device(inp[k], "cpu") for k in ("start", "camera", "opaque")}
     cpu.update(config=inp["config"], target=inp["target"].cpu())
     t0 = time.perf_counter()
@@ -3605,18 +3592,15 @@ def fit_gradient_check(device, card: str) -> dict:
     out["knobs"] = {}
     for k, g in grads.items():
         ref, g = cpu_grads[k].double(), g.cpu().double()
-        base = 1e-3 * ref.abs() + 1e-4 * top
-        tol = torch.maximum(base, 2.0 * move[k].cpu().double())
+        tol = 1e-3 * ref.abs() + 1e-4 * top
         err = (g - ref).abs()
         ok = ok and bool((err <= tol).all())
         out["knobs"][k] = {"card": g.tolist(), "cpu": ref.tolist(),
                            "max_abs_err": float(err.max()),
-                           "err_over_tolerance": float((err / tol).max()),
-                           "ulp_move": float(move[k].max()),
-                           "ulp_bound": bool((tol > base).any())}
-    loss_tol = max(1e-5 * abs(float(cpu_loss)), 2.0 * loss_move)
-    out.update(loss=float(loss), cpu_loss=float(cpu_loss), loss_ulp_move=loss_move,
-               loss_tolerance=loss_tol, largest_cpu_grad=top)
+                           "err_over_tolerance": float((err / tol).max())}
+    loss_tol = 1e-5 * abs(float(cpu_loss))
+    out.update(loss=float(loss), cpu_loss=float(cpu_loss), loss_tolerance=loss_tol,
+               largest_cpu_grad=top)
     log(f"[fit] 9b gradients clouds_high/avatar {h}x{w}, card against CPU, on {card}: "
         f"{json.dumps(out)}")
     if not ok or abs(float(loss) - float(cpu_loss)) > loss_tol:
@@ -3693,9 +3677,8 @@ def sharded_step_check(device, card: str) -> dict:
 
     h, w = CHECK_SIZE
     inp = fit_inputs("clouds_high", "avatar", h, w, device)
-    train, params, cfg, cam, opaque, target = fit_args(inp)
-    args = (train, params, (cfg,), cam, opaque, target, h, w)
-    whole_loss, whole = loss_and_gradients(*fit_args(inp), h, w)
+    args = (*fit_args(inp), h, w)
+    whole_loss, whole = loss_and_gradients(*args)
     mk.counters.reset()
     loss, grads = sharded_loss_and_gradients(*args, make_mesh(FIT_SHARDS))
     counts = (mk.counters.plain_calls, mk.counters.megakernel_launches)
@@ -3767,8 +3750,6 @@ def main(argv=None) -> int:
                          "row shards, the procedural and texture envelopes, the gas "
                          "giant's band, the geometry and octave cases and the LUT "
                          "(phases 7b, 3 to 3j)")
-    ap.add_argument("--fit-only", action="store_true",
-                    help="build, then run phase 9 (inverse rendering) alone")
     args = ap.parse_args(argv)
     run_start = time.time()
 
@@ -3798,20 +3779,16 @@ def main(argv=None) -> int:
     # -- 2. build -----------------------------------------------------------
     t0 = time.time()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:  # both builds' nvcc at once
-        measure = None if args.fit_only else pool.submit(
-            library.build, sources=(mk.SOURCE,), defines=mk.MEASURE_DEFINES)
+        measure = pool.submit(library.build, sources=(mk.SOURCE,),
+                              defines=mk.MEASURE_DEFINES)
         path, ptxas = library.build(ptxas_info=True)
-        measure_path = measure.result()[0] if measure else path
+        measure_path = measure.result()[0]
     log(f"[build] {os.path.relpath(path, ROOT)} and the measurement build "
         f"{os.path.relpath(measure_path, ROOT)} in {time.time() - t0:.1f} s")
     for line in ptxas.splitlines():
         if any(k in line for k in ("Compiling entry", "registers", "spill", "stack", "smem")):
             log(f"[ptxas] {line.strip()}")
     mk.load_library()
-    if args.fit_only:
-        fit_phase(device, card)
-        log(card)
-        return 0
 
     clock("7b", run_start)
     # -- 7b (run first: every bound divides by its rates). T2, the peak probe:
@@ -4646,10 +4623,13 @@ def main(argv=None) -> int:
                 cam, flight_times(K, t0), H, W, cam_transforms=stack, taa_blend=blend))
 
         trace = traced(5.0)
-        if trace["frame_kernels"] != K * (2 if blend else 1):  # the trace missed events
+        for retry in range(1, FLIGHT_TRACE_TRIES):
+            if trace["frame_kernels"] == K * (2 if blend else 1):
+                break
+            # the trace missed events
             log(f"[flight-time] {label}: a trace caught {trace['frame_kernels']} of the "
                 f"flight's kernels; tracing once more")
-            trace = traced(6.0)
+            trace = traced(5.0 + retry)
         t = {"flight_ms_per_frame": best[1] / K * 1e3, "host_ms_per_frame": best[0] / K * 1e3,
              "device_busy_ms_per_frame": trace["device_busy_ms"] / K,
              "idle_share": 1.0 - trace["device_busy_ms"] / (best[1] * 1e3),

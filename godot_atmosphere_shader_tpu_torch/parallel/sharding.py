@@ -194,31 +194,28 @@ def render_frame_sharded(atmospheres, configs, camera: Camera, opaque: Optional[
 # -- training -------------------------------------------------------------------------
 
 
-def sharded_loss_and_gradients(train, params: AtmosphereParams, configs, camera: Camera,
-                               opaque: Optional[OpaqueScene], target: torch.Tensor,
-                               height: int, width: int, mesh: RowMesh):
+def sharded_loss_and_gradients(train, params: AtmosphereParams, config: VariantConfig,
+                               camera: Camera, opaque: Optional[OpaqueScene],
+                               target: torch.Tensor, height: int, width: int, mesh: RowMesh):
     """``(loss, grads)`` of inverse rendering's loss with the rows sharded
     over ``mesh`` (``__graft_entry__.py::dryrun_multichip``'s
     ``loss_fn``): each shard's loss is the mean of ``(render − target)²``
     over its rows (the plain band chain, ``render_scene_band``, the twin of
     ``_shade_slice``), the loss the mean over shards.  ``train``: knobs of
-    the one layer ``params``; ``target``: the whole ``(H, W, 3)`` frame.
+    ``params``, the one layer, shaded by ``config``; ``target``: the whole
+    ``(H, W, 3)`` frame.
     The local mesh differentiates one graph of every shard; on the
     distributed mesh each rank differentiates its own rows and the ranks
     all-reduce the loss and the gradients, so every rank returns the same."""
-    if isinstance(configs, VariantConfig):
-        configs = (configs,)
-    if len(configs) != 1:
-        raise ValueError(f"the training step fits one layer, got {len(configs)} configs")
     h = _shard_rows(height, mesh)
-    _check_lod_alignment(configs, h)
+    _check_lod_alignment((config,), h)
     _check_device(mesh, camera.view_to_world.device)
     train = leaves(train)
     p = dataclasses.replace(params, **train)
     losses = []
     for s in mesh.shards():
-        color = mk.render_scene_band_plain((p,), configs, camera, opaque, height, width, s * h,
-                                           h)["color"]
+        color = mk.render_scene_band_plain((p,), (config,), camera, opaque, height, width,
+                                           s * h, h)["color"]
         losses.append(torch.mean((color - target[s * h:(s + 1) * h]) ** 2))
     loss = torch.mean(torch.stack(losses))
     grads = gradients(loss, train)
@@ -231,14 +228,14 @@ def sharded_loss_and_gradients(train, params: AtmosphereParams, configs, camera:
     return loss, grads
 
 
-def train_step_sharded(train, params: AtmosphereParams, configs, camera: Camera,
+def train_step_sharded(train, params: AtmosphereParams, config: VariantConfig, camera: Camera,
                        opaque: Optional[OpaqueScene], target: torch.Tensor, height: int,
                        width: int, mesh: RowMesh, lr: float = 1e-3):
     """One SGD step of inverse rendering with the rows sharded over ``mesh``
     (``dryrun_multichip``'s ``train_step``): every knob of ``train`` takes
     ``v − lr·g`` on :func:`sharded_loss_and_gradients`.  Returns ``(loss,
     train)``, detached, the same on every rank."""
-    loss, grads = sharded_loss_and_gradients(train, params, configs, camera, opaque, target,
+    loss, grads = sharded_loss_and_gradients(train, params, config, camera, opaque, target,
                                              height, width, mesh)
     with torch.no_grad():
         new_train = {k: v.detach() - lr * grads[k] for k, v in train.items()}

@@ -247,8 +247,8 @@ def test_fit_recovers_density():
 
 
 def _sharded(t, h, w, mesh, lr=1e-3):
-    return tsh.train_step_sharded(_train(t["params"]), t["params"], (t["config"],),
-                                  t["camera"], t["opaque"], t["target"], h, w, mesh, lr=lr)
+    return tsh.train_step_sharded(_train(t["params"]), t["params"], t["config"], t["camera"],
+                                  t["opaque"], t["target"], h, w, mesh, lr=lr)
 
 
 def _dryrun_value_and_grad(j, h, w, n):
@@ -299,7 +299,7 @@ def test_sharded_step_equals_the_unsharded_step(variant, pose, h, w):
     is the fitter's own loss, bit for bit): loss and gradients rtol 1e-5;
     the updated knobs finite."""
     _, t = _inputs(variant, pose, h, w)
-    args = (_train(t["params"]), t["params"], (t["config"],), t["camera"], t["opaque"],
+    args = (_train(t["params"]), t["params"], t["config"], t["camera"], t["opaque"],
             t["target"], h, w)
     l1, g1 = tsh.sharded_loss_and_gradients(*args, tsh.make_mesh(1))
     l2, g2 = tsh.sharded_loss_and_gradients(*args, tsh.make_mesh(2))
