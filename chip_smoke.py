@@ -17,8 +17,7 @@ on one CUDA card and checks every step:
    the plain samplers on the planes of ``tests/test_torch_texsample.py``
    (same mode and level, atol 2e-6); then the ``clouds_high`` texture scene
    (textures baked on the card) at avatar and interior, 256×384, kernel
-   against plain at the cloud tolerance; K2 alone timed on 1080p-sized
-   batches with its bound (T1);
+   against plain at the cloud tolerance;
 3c. flight mode, small: the TAA resolve K3 alone at 1080×1920 against its
    plain version on the cases of ``tests/test_torch_taa.py`` (max |Δ| ≤ 1e-4
    where validity agrees, validity flips ≤ 0.01 % of pixels); a 4-frame TAA
@@ -53,7 +52,13 @@ on one CUDA card and checks every step:
    events and device time (``torch.profiler``) and what it uses
    (``taa.info``: CTAs per tile, registers, stack, CTAs per SM, shared
    memory); the launch floor T3 (``probes.py``'s fill kernel, launched back
-   to back).
+   to back, its events and device time, ``fill_`` in turns with it; both replayed
+   from a CUDA graph of the K launches) and the launch route's host cost
+   step by step, the old route beside the one every launcher takes
+   (``library.launch``); K2 alone (T1) on 1080p-sized batches of both
+   kinds against the plain samplers (same mode and level in every batch,
+   atol 2e-6), with its events and device ms, the wrapper's host ms per
+   call and its bound.
 
 The exterior and multi-planet frames (far-mode row bands, the opaque-only
 pass, the far→near layer chain, v1, raymarched cloud lighting) run in three
@@ -388,6 +393,7 @@ OPS_TEX3D = 110            # trilinear sample, position and footprint pass
 OPS_TEX3D_FLOOR = 57       # nearest floor-level sample
 OPS_LATLONG = 205          # polynomial (u, v) twice and a bilinear sample
 OPS_LATLONG_FLOOR = 190
+OPS_K2_LATLONG = OPS_LATLONG - 62  # K2 alone computes a sample's (u, v) once
 # one sun-march sample of raymarched lighting (sun_march): position 7,
 # length 6, height ratio 3, density 23, exp 5, alpha and step 6; plus the
 # procedural fields where they are evaluated
@@ -450,6 +456,8 @@ FLIGHT_REPS = 2
 FLIGHT_TRACE_TRIES = 3  # traces of a flight until one holds all its kernels
 SMALL_FLIGHT_FRAMES = 4
 FILL_LAUNCHES = 32
+FILL_ROUNDS = 9    # fill_kernel and fill_ timed in turns; the medians compared
+FILL_REPLAYS = 20  # replays of the K = FILL_LAUNCHES fills captured in a CUDA graph
 # the moon's atmosphere of the multi-planet cells (bench.py:270-274)
 MOON = dict(planet_radius=10.0, atmosphere_height=2.0, position=(-188.991, 0.0, 192.584))
 # JAX bench cells (bench.py:75-94): (cell, scene, pose, height, width)
@@ -1472,12 +1480,188 @@ def flight_trace(fn) -> dict:
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     frames = [e for e in events if "megakernel" in e.name or "taa_kernel" in e.name]
-    first = min(e.time_range.start for e in frames)
-    last = max(e.time_range.end for e in frames)
+    # a trace that caught no frame kernel reports 0 of them (and is taken again)
+    first = min((e.time_range.start for e in frames), default=0.0)
+    last = max((e.time_range.end for e in frames), default=0.0)
     d2h = [e for e in events if "DtoH" in e.name]
     inside = [e for e in d2h if first <= e.time_range.start <= last]
     return {"device_busy_ms": busy_us(events) / 1e3, "frame_kernels": len(frames),
             "d2h_copies": len(d2h), "d2h_copies_in_loop": len(inside)}
+
+
+# -- T3: the launch route and the launch floor ---------------------------------
+
+ROUTE_CALLS = 10_000  # calls per step of the launch route, in ROUTE_ROUNDS rounds
+ROUTE_ROUNDS = 5      # the steps in turns, each round ROUTE_CALLS / ROUTE_ROUNDS calls a step
+
+
+def legacy_launch_fill(fn, value: float, out: torch.Tensor) -> int:
+    """The launch route every launcher of the port took before
+    ``library.launch`` (``probes.launch_fill`` at d8f31fc, without its
+    counter): the argument checks, a device guard, a ``Stream`` object for
+    the current stream, then the ctypes call ``fn``.  Measured beside the
+    route that replaced it, never used by the port."""
+    if out.device.type != "cuda" or out.dtype != torch.float32 or out.dim() != 2 \
+            or not out.is_contiguous():
+        raise ValueError("fill needs a contiguous (h, w) float32 CUDA tensor")
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        return fn(float(value), out.data_ptr(), out.shape[0], out.shape[1], stream)
+
+
+def route_step_us(fn, calls: int) -> float:
+    """Host µs per call of ``fn()`` over ``calls`` calls
+    (``time.perf_counter_ns``), after a synchronisation."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter_ns() - t0) / calls / 1e3
+    torch.cuda.synchronize()
+    return us
+
+
+def launch_route_breakdown(device) -> dict:
+    """Each step of a fill launch on the host, µs per call, the median of
+    :data:`ROUTE_ROUNDS` rounds that take the steps in turns (the host's
+    speed drifts between seconds), :data:`ROUTE_CALLS` calls a step in
+    all, on one 32×128 tile (its kernel takes less
+    device time than a launch takes host time, so the launch queue never
+    fills): the old route's steps (device guard, ``current_stream`` with its
+    ``Stream`` object, the argument checks and ``data_ptr``), the new
+    route's (the card count, the current device where there are several,
+    the raw stream, its checks), a ctypes call
+    into a C function that only returns (``megakernel_work_slots``), the
+    ctypes call into ``fill_launch`` with its arguments ready, refused
+    before the launch (an empty plane) and launching, each whole route
+    (:func:`legacy_launch_fill`, ``probes.launch_fill``) and ``fill_`` on
+    the same tile."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import library, probes
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+
+    out = torch.empty((TILE, 128), device=device)
+    index = out.get_device()
+    fn = library.function("fill_launch", probes.FILL_ARGTYPES)
+    null = mk.load_library().megakernel_work_slots
+    ptr, stream = out.data_ptr(), torch._C._cuda_getCurrentRawStream(index)
+
+    def guard():
+        with torch.cuda.device(out.device):
+            pass
+
+    def old_checks():
+        return (out.device.type != "cuda" or out.dtype != torch.float32 or out.dim() != 2
+                or not out.is_contiguous(), out.data_ptr())
+
+    def new_checks():
+        return (out.dim() != 2, out.dtype != torch.float32 or not out.is_contiguous(),
+                not out.is_cuda, out.get_device(), out.data_ptr())
+
+    probes.launch_fill(0.0, out)  # warm
+    steps = {
+        "old_device_guard": guard,
+        "old_current_stream_object": lambda: torch.cuda.current_stream(out.device).cuda_stream,
+        "old_checks_and_data_ptr": old_checks,
+        "new_current_device": torch._C._cuda_getDevice,
+        "new_device_count": torch.cuda.device_count,
+        "new_raw_stream": lambda: torch._C._cuda_getCurrentRawStream(index),
+        "new_checks_and_data_ptr": new_checks,
+        "ctypes_null_call": null,
+        "ctypes_call_refused": lambda: fn(0.5, ptr, 0, 128, stream),  # returns before a launch
+        "launch_only": lambda: fn(0.5, ptr, TILE, 128, stream),
+        "library_fill_": lambda: out.fill_(0.5),
+        "old_route": lambda: legacy_launch_fill(fn, 0.5, out),
+        "new_route": lambda: probes.launch_fill(0.5, out),
+    }
+    rounds = {name: [] for name in steps}
+    for _ in range(ROUTE_ROUNDS):
+        for name, f in steps.items():
+            rounds[name].append(route_step_us(f, ROUTE_CALLS // ROUTE_ROUNDS))
+    t = {name: float(np.median(v)) for name, v in rounds.items()}
+    t["rounds"] = rounds
+    t["calls"] = ROUTE_CALLS
+    t["plane"] = [TILE, 128]
+    return t
+
+
+def graph_floor(launch, k: int, replays: int) -> tuple:
+    """``(ms a launch, graph)``: ``launch(i)``, i < ``k``, captured once
+    into a ``torch.cuda.CUDAGraph`` and replayed ``replays`` times (CUDA
+    events): the floor as the TPU probe's ``lax.map`` measured it, K
+    launches inside one program.  Warmed up on a side stream first, as
+    capture asks."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(k):
+            launch(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(k):
+            launch(i)
+    return time_cuda(lambda i: graph.replay(), replays) / k, graph
+
+
+def fill_phase(device, card: str) -> tuple:
+    """T3 at 1080p: the fill kernel K times back to back into K planes, as
+    the TPU probe's ``lax.map`` did (events ms a launch, in turns with
+    ``fill_``; device µs; the plain version), both replayed from a CUDA graph
+    of the K launches (the graph's planes checked), each against
+    ``torch.full``; then :func:`launch_route_breakdown`.  Returns
+    ``(fill timings, route breakdown)``."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import probes
+
+    H, W = FULL_SIZE
+    planes = torch.empty((FILL_LAUNCHES, H, W), device=device)
+    views = list(planes)  # plane i by a list index: no tensor indexing in the timed loop
+    for i in range(FILL_LAUNCHES):  # warm: the first launches load the module
+        probes.launch_fill(float(i), views[i])
+        views[i].fill_(float(i))
+    torch.cuda.synchronize()
+    probes.counters.reset()
+    fill_rounds = {"kernel": [], "library": []}
+    for r in range(FILL_ROUNDS):  # fill_kernel and fill_ in turns, K launches each
+        fill_rounds["kernel"].append(time_cuda(
+            lambda i: probes.launch_fill(float(i), views[i % FILL_LAUNCHES]), FILL_LAUNCHES,
+            warmup=0))
+        if r == 0:
+            fill_launches = probes.counters.launches
+        fill_rounds["library"].append(time_cuda(
+            lambda i: views[i % FILL_LAUNCHES].fill_(float(i)), FILL_LAUNCHES, warmup=0))
+    fill_t = {"kernel_ms": float(np.median(fill_rounds["kernel"])),
+              "library_ms": float(np.median(fill_rounds["library"])), "rounds_ms": fill_rounds,
+              "plain_ms": time_cuda(lambda i: probes.fill_plain(float(i), H, W, device=device),
+                                    FILL_LAUNCHES)}
+    fill_trace = kernel_trace(lambda: [probes.launch_fill(float(i), planes[i])
+                                       for i in range(FILL_LAUNCHES)], "fill_kernel")
+    library_trace = kernel_trace(lambda: [planes[i].fill_(float(i))
+                                          for i in range(FILL_LAUNCHES)], "")
+    probes.launch_fill(0.25, planes[0])
+    fill_err = float((planes[0] - probes.fill_plain(0.25, H, W, device=device)).abs().max())
+    fill_t["graph_kernel_ms"], graph = graph_floor(
+        lambda i: probes.launch_fill(float(i), planes[i]), FILL_LAUNCHES, FILL_REPLAYS)
+    planes.zero_()
+    graph.replay()  # the captured launches write the planes
+    torch.cuda.synchronize()
+    graph_err = max(float((planes[i] - i).abs().max()) for i in range(FILL_LAUNCHES))
+    fill_t["graph_library_ms"] = graph_floor(lambda i: planes[i].fill_(float(i)),
+                                             FILL_LAUNCHES, FILL_REPLAYS)[0]
+    del graph
+    fill_t.update(us_per_launch=fill_t["kernel_ms"] * 1e3, launches=fill_launches,
+                  device_us=fill_trace["device_us"],
+                  device_interval_us=fill_trace["interval_us"],
+                  library_device_us=library_trace["device_us"],
+                  library_device_interval_us=library_trace["interval_us"],
+                  bound_ms=(H * W * 4 + 4) / PEAK_BYTES * 1e3, max_abs_err=fill_err,
+                  graph_max_abs_err=graph_err)
+    log(f"[fill-time] T3 launch floor 1080p on {card}: {json.dumps(fill_t)}")
+    route = launch_route_breakdown(device)
+    log(f"[launch-route] host us a call on {card}: {json.dumps(route)}")
+    if fill_err != 0.0 or graph_err != 0.0 or fill_launches != FILL_LAUNCHES:
+        raise RuntimeError("the fill kernel disagrees with torch.full")
+    return fill_t, route
 
 
 # -- multi-layer scenes: the JAX bench cells ------------------------------------
@@ -2123,45 +2307,113 @@ def launch_timing(plan, scene, cam, h, w, device) -> dict:
             "frame_bound_ms": bound, "launches_per_frame": len(launches)}
 
 
+def k2_planes(kind: str, device, b: int, n: int) -> list:
+    """``(b, n)`` coordinate planes of K2 alone at 1080p-sized batches:
+    for ``tex3d`` the banded case's coordinate range; for ``latlong`` unit
+    directions, each batch within its own patch of 0.02 (windowed) to 0.3
+    rad (coarser levels or the floor) at a seeded latitude and longitude."""
+    g = torch.Generator(device=device).manual_seed(11)
+    if kind == "tex3d":
+        _, _, lo, ext, _, _ = K2_TEX3D_CASES[2]
+        return [lo[a] + ext[a] * torch.rand((b, n), device=device, generator=g)
+                for a in range(3)]
+    theta0, phi0 = (torch.rand((2, b, 1), device=device, generator=g) - 0.5) * \
+        torch.tensor([6.0, 2.4], device=device)[:, None, None]
+    span = torch.tensor([0.02, 0.1, 0.3], device=device)[torch.arange(b, device=device) % 3, None]
+    theta, phi = (x0 + span * torch.rand((b, n), device=device, generator=g)
+                  for x0 in (theta0, phi0))
+    return [torch.cos(phi) * torch.cos(theta), torch.sin(phi), torch.cos(phi) * torch.sin(theta)]
+
+
 def k2_timing(device) -> dict:
-    """K2 alone (T1: ``sample_batches``) on the demo's 64³ shape pyramid at
-    1080p-sized batches: one per 32×128 tile and shape knot group (34 × 15
-    tiles × 3 groups of up to 8 knots), 8 × 1024 samples each, on the
-    banded case's coordinate range; its plain samplers on the same planes;
-    the bound from the samples' operations and bytes."""
+    """K2 alone (T1: ``sample_batches``) at 1080p-sized batches: one per
+    32×128 tile and shape knot group (34 × 15 tiles × 3 groups of up to 8
+    knots), 8 × 1024 samples each, on the demo's 64³ shape pyramid
+    (``tex3d``, the banded case's coordinate range) and on a 6×64² cubemap's
+    lat-long pyramid (``latlong``, :func:`k2_planes`).  Per kind: the
+    plain samplers on the same planes (the same mode and level in every
+    batch, values within ``K2_ATOL``), ms by CUDA events, device ms
+    (``torch.profiler``), the wrapper's host ms per call (all of it; its
+    ``VariantConfig`` and ``tex_constants``; the two ``.long()`` of the
+    choices), the plan (``mk.texsample_plan``) and the bound from the
+    samples' operations and bytes."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
     from godot_atmosphere_shader_tpu_torch.ops.kernels import texsample as ts
+    from godot_atmosphere_shader_tpu_torch.utils.vecmath import Vec3
 
-    data, meta = ts.build_tex3d_pyramid(
-        np.random.default_rng(5).random((64, 64, 64)).astype(np.float32))
-    table = torch.as_tensor(data, device=device)
-    name, _, lo, ext, _, kw = K2_TEX3D_CASES[2]
+    rng = np.random.default_rng(5)
+    pyramids = {"tex3d": ts.build_tex3d_pyramid(rng.random((64, 64, 64)).astype(np.float32)),
+                "latlong": ts.build_latlong_pyramid(rng.random((6, 64, 64)).astype(np.float32),
+                                                    width=512)}
+    kw = {"tex3d": K2_TEX3D_CASES[2][5], "latlong": {}}
     b, n = 34 * 15 * 3, 8 * 1024
-    g = torch.Generator(device=device).manual_seed(11)
-    planes = [lo[a] + ext[a] * torch.rand((b, n), device=device, generator=g) for a in range(3)]
-    mk.counters.reset()
-    got, mode, level = mk.sample_batches(table, meta, *planes, **kw)
-    ref = ts._tex3d_batches(table.reshape(-1), meta, *planes, kw["window_rows"],
-                            kw["band_rows"], kw.get("band_max_slices", 32))
-    torch.cuda.synchronize()
-    err = float((got - ref[0]).abs().max())
-    same = bool(torch.equal(mode, ref[1].to(mode.device).long().reshape(mode.shape))
-                and torch.equal(level, ref[2].to(level.device).long().reshape(level.shape)))
-    t = {"batches": b, "samples_per_batch": n, "case": name, "max_abs_err": err,
-         "same_mode_and_level": same,
-         "modes": {int(m): int((mode == m).sum()) for m in mode.unique()},
-         "ms": time_cuda(lambda i: mk.sample_batches(table, meta, *planes, **kw), KERNEL_FRAMES),
-         "plain_ms": time_cuda(lambda i: ts._tex3d_batches(
-             table.reshape(-1), meta, *planes, kw["window_rows"], kw["band_rows"],
-             kw.get("band_max_slices", 32)), 1, warmup=0),
-         "library_ms": None, "launches": mk.counters.texsample_launches}
-    samples = b * n
-    t_ops = ops_time_ms(samples * OPS_TEX3D)
-    t_bytes = (samples * 16 + table.numel() * 4) / PEAK_BYTES * 1e3
-    t.update(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
-    if not (err <= K2_ATOL and same):
-        raise RuntimeError("K2 alone disagrees with its plain samplers at 1080p-sized batches")
-    return t
+    out = {}
+    for kind, (data, meta) in pyramids.items():
+        table = torch.as_tensor(data, device=device)
+        planes = k2_planes(kind, device, b, n)
+        args = dict(window_rows=16, band_rows=16, band_max_slices=32)
+        args.update(kw[kind])
+
+        def plain():
+            if kind == "tex3d":
+                return ts._tex3d_batches(table.reshape(-1), meta, *planes, args["window_rows"],
+                                         args["band_rows"], args["band_max_slices"])
+            return ts._latlong_batches(table.reshape(-1), meta, Vec3(*planes),
+                                       args["window_rows"])
+
+        def kernel(i=0):
+            return mk.sample_batches(table, meta, *planes, **args)
+
+        mk.counters.reset()
+        got, mode, level = kernel()
+        ref = plain()
+        torch.cuda.synchronize()
+        err = float((got - ref[0]).abs().max())
+        same = bool(torch.equal(mode, ref[1].long().reshape(mode.shape))
+                    and torch.equal(level, ref[2].long().reshape(level.shape)))
+        host = []
+        for i in range(KERNEL_FRAMES):
+            t0 = time.perf_counter()
+            kernel()
+            host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(1000):
+            cfg = mk.VariantConfig(texture_window_rows=args["window_rows"],
+                                   texture_band_rows=args["band_rows"],
+                                   texture_band_max_slices=args["band_max_slices"])
+            (mk.tex_constants(cfg, shape=meta) if kind == "tex3d"
+             else mk.tex_constants(cfg, coverage=meta))
+        constants_ms = time.perf_counter() - t0  # s for 1000 calls: ms a call
+        choice = torch.zeros((b, 2), dtype=torch.int32, device=device)
+        t0 = time.perf_counter()
+        for i in range(1000):
+            choice[:, 0].long(), choice[:, 1].long()
+        long_ms = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t = {"batches": b, "samples_per_batch": n, "max_abs_err": err,
+             "same_mode_and_level": same,
+             "modes": {int(m): int((mode == m).sum()) for m in mode.unique()},
+             "plan": mk.texsample_plan(b, n, True, kind == "tex3d"),
+             "ms": time_cuda(kernel, KERNEL_FRAMES),
+             "device_ms": kernel_trace(lambda: [kernel() for _ in range(KERNEL_FRAMES)],
+                                       "texsample_kernel")["device_us"] / 1e3,
+             "host_ms": sorted(host)[len(host) // 2] * 1e3,
+             "host_constants_ms": constants_ms, "host_long_ms": long_ms,
+             "plain_ms": time_cuda(lambda i: plain(), 1, warmup=0),
+             "library_ms": None, "launches": mk.counters.texsample_launches}
+        if kind == "tex3d":
+            t["case"] = K2_TEX3D_CASES[2][0]
+        samples = b * n
+        t_ops = ops_time_ms(samples * (OPS_TEX3D if kind == "tex3d" else OPS_K2_LATLONG))
+        t_bytes = (samples * 16 + table.numel() * 4) / PEAK_BYTES * 1e3
+        t.update(bound_ms=max(t_ops, t_bytes),
+                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+        if not (err <= K2_ATOL and same):
+            raise RuntimeError(f"K2 alone ({kind}) disagrees with its plain samplers at "
+                               "1080p-sized batches")
+        out[kind] = t
+    return out
 
 
 # -- row shards (K1 slice (g)) and K3's band mode ------------------------------------
@@ -3843,8 +4095,6 @@ def main(argv=None) -> int:
         log(f"[check] clouds_high texture/{pose} {h}x{w} kernel vs plain: {json.dumps(st)}")
         if not cloud_tolerance_ok(st):
             raise RuntimeError(f"texture kernel disagrees with plain on {pose}")
-    k2_t = k2_timing(device)
-    log(f"[k2-time] K2 alone, 1080p-sized batches on {card}: {json.dumps(k2_t)}")
     clock("3c", run_start)
     # -- 3c. flight mode, small: K3 alone at 1080p, a 4-frame TAA flight -------
     taa_err, taa_flips = taa_check(device, *FULL_SIZE)
@@ -4670,33 +4920,13 @@ def main(argv=None) -> int:
                  bound_by="bytes" if t_bytes >= t_ops else "operations")
     log(f"[taa-time] K3 alone 1080p on {card}: {json.dumps(taa_t)}")
 
-    # T3: the fill kernel K times back to back into K planes, as lax.map did
-    planes = torch.empty((FILL_LAUNCHES, H, W), device=device)
-    probes.launch_fill(0.0, planes[0])  # warm: the first launch loads the module
-    torch.cuda.synchronize()
-    probes.counters.reset()
-    fill_t = {"kernel_ms": time_cuda(lambda i: probes.launch_fill(float(i), planes[i]),
-                                     FILL_LAUNCHES, warmup=0),
-              "plain_ms": time_cuda(lambda i: probes.fill_plain(float(i), H, W, device=device),
-                                    FILL_LAUNCHES),
-              "library_ms": time_cuda(lambda i: planes[i % FILL_LAUNCHES].fill_(float(i)),
-                                      FILL_LAUNCHES)}
-    fill_launches = probes.counters.launches
-    fill_trace = kernel_trace(lambda: [probes.launch_fill(float(i), planes[i])
-                                       for i in range(FILL_LAUNCHES)], "fill_kernel")
-    library_trace = kernel_trace(lambda: [planes[i].fill_(float(i))
-                                          for i in range(FILL_LAUNCHES)], "")
-    probes.launch_fill(0.25, planes[0])
-    fill_err = float((planes[0] - probes.fill_plain(0.25, H, W, device=device)).abs().max())
-    fill_t.update(us_per_launch=fill_t["kernel_ms"] * 1e3, launches=fill_launches,
-                  device_us=fill_trace["device_us"],
-                  device_interval_us=fill_trace["interval_us"],
-                  library_device_us=library_trace["device_us"],
-                  library_device_interval_us=library_trace["interval_us"],
-                  bound_ms=(H * W * 4 + 4) / PEAK_BYTES * 1e3, max_abs_err=fill_err)
-    log(f"[fill-time] T3 launch floor 1080p on {card}: {json.dumps(fill_t)}")
-    if fill_err != 0.0 or fill_launches != FILL_LAUNCHES:
-        raise RuntimeError("the fill kernel disagrees with torch.full")
+    fill_t, route = fill_phase(device, card)
+    fill_launches, fill_err = fill_t["launches"], fill_t["max_abs_err"]
+    # T1: K2 alone at 1080p-sized batches (here, after the run's first
+    # torch.profiler trace in phase 4e, as every trace of the run comes)
+    k2_t = k2_timing(device)
+    for kind, t in k2_t.items():
+        log(f"[k2-time] K2 alone ({kind}), 1080p-sized batches on {card}: {json.dumps(t)}")
     log(f"[flight-time] after timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
     clock("8", run_start)
@@ -5024,6 +5254,26 @@ def main(argv=None) -> int:
         "clocks_under_load": peak["clocks_under_load"],
         "library_ms": None,
     }, {
+        "name": "texsample",
+        "slice": ("T1: K2 alone (texsample_kernel through mk.sample_batches) on 1530 batches "
+                  "x 8192 samples; ms, device_ms, bound_ms, plain_ms: the 3D texture's banded "
+                  "case; latlong: the lat-long map's"),
+        "route": "cuda",
+        "source": "godot_atmosphere_shader_tpu_torch/csrc/megakernel.cu",
+        "replaces": ("tests/test_texsample.py:40 (the harness around "
+                     "godot_atmosphere_shader_tpu/ops/pallas/texsample.py:348 and :544)"),
+        "launches": k2_t["tex3d"]["launches"] + k2_t["latlong"]["launches"],
+        "max_abs_err": max(k2_t["tex3d"]["max_abs_err"], k2_t["latlong"]["max_abs_err"]),
+        "ms": k2_t["tex3d"]["ms"],
+        "device_ms": k2_t["tex3d"]["device_ms"],
+        "host_ms": k2_t["tex3d"]["host_ms"],
+        "plain_ms": k2_t["tex3d"]["plain_ms"],
+        "bound_ms": k2_t["tex3d"]["bound_ms"],
+        "bound_by": k2_t["tex3d"]["bound_by"],
+        "latlong": {k: k2_t["latlong"][k] for k in ("ms", "device_ms", "host_ms", "plain_ms",
+                                                      "bound_ms", "bound_by", "max_abs_err")},
+        "library_ms": None,
+    }, {
         "name": "launch_floor",
         "route": "cuda",
         "source": "godot_atmosphere_shader_tpu_torch/csrc/probes.cu",
@@ -5031,10 +5281,14 @@ def main(argv=None) -> int:
         "launches": fill_launches,
         "max_abs_err": fill_err,
         "ms": fill_t["kernel_ms"],
+        "device_ms": fill_t["device_us"] / 1e3,
+        "graph_ms": fill_t["graph_kernel_ms"],
         "plain_ms": fill_t["plain_ms"],
         "bound_ms": fill_t["bound_ms"],
         "bound_by": "bytes",
         "library_ms": fill_t["library_ms"],
+        "library_graph_ms": fill_t["graph_library_ms"],
+        "route_us": {k: route[k] for k in ("old_route", "new_route", "launch_only")},
     }]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

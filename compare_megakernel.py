@@ -3,6 +3,7 @@
 of the TAA resolve (``taa_kernel``) on one card, in turns.
 
     python3 compare_megakernel.py PARENT_MEGAKERNEL_CU [PARENT_TAA_CU]
+    python3 compare_megakernel.py --parent-tree PARENT_CHECKOUT
 
 Builds, all ``nvcc`` at once, the checkout's kernel library and one of the
 parent's sources (another commit's ``csrc/megakernel.cu`` and, when given,
@@ -12,9 +13,12 @@ queries ``megakernel_gen_info``, ``megakernel_tex_info``,
 appended where it has none, and the checkout's layout of the launch
 structs where it predates it (the texture struct's fields, the scene
 buffer's pointers), beside the checkout's other kernel
-sources), and each side's measurement build.  Then the sides run in turns,
-``parent, change, change, parent``; each pass takes, through that side's
-library:
+sources), and each side's measurement build.  ``--parent-tree`` takes a
+checkout of the parent commit (``git archive``) instead: its
+``megakernel.cu``, ``taa.cu`` and ``probes.cu``, and its package, whose
+wrappers and launch route the parent's passes then run.  Then the sides
+run in turns, ``parent, change, change, parent``; each pass takes,
+through that side's library:
 
 * the main path's 1080p frames (the flagship
   ``clouds_high``/avatar, ``clouds_high``/interior, ``clouds``/avatar,
@@ -41,6 +45,8 @@ library:
   7's inputs (the flight's second frame, rendered by the plain path, a
   seeded history) and on one 256-row shard of 1920×1024 with its 32-row
   halo (phase 4e's inputs), each with both clamp modes;
+* K2 alone (T1) on phase 7's 1080p-sized batches of both kinds, and the
+  fill kernel (T3) back to back at 1080p beside ``fill_`` (phase 7's);
 
 each K1 launch's kernel ms (CUDA events) and device ms (``torch.profiler``;
 the general texture instance's two launches together, its tile pass's
@@ -184,7 +190,7 @@ SHIMS = {"megakernel.cu": (("megakernel_gen_info", GEN_INFO_SHIM),
 
 
 REPORTED = ("megakernel_gen", "megakernel_tex", "megakernel_clear", "taa_kernel",
-            "tex_choice_kernel", "sky_choice_kernel")
+            "tex_choice_kernel", "sky_choice_kernel", "texsample_kernel", "fill_kernel")
 
 
 def gen_report(ptxas: str) -> dict:
@@ -261,20 +267,21 @@ def parent_copy(path: str, name: str, parent_dir: str) -> str:
     return copy
 
 
-def build_sides(parent_cu: str, parent_taa=None) -> tuple:
+def build_sides(parent_cu: str, parent_taa=None, parent_probes=None) -> tuple:
     """The libraries of all the kernel sources: the parent's (its
-    ``megakernel.cu`` and, where given, its ``taa.cu``, each with the
-    queries it lacks appended, beside the checkout's other sources), the
-    checkout's (the package's own build) and each one's measurement build.
-    All ``nvcc`` at once.  Returns ``({side: path}, {side:
-    compiler report})``."""
+    ``megakernel.cu`` and, where given, its ``taa.cu`` and ``probes.cu``,
+    each with the queries it lacks appended, beside the checkout's other
+    sources), the checkout's (the package's own build) and each one's
+    measurement build.  All ``nvcc`` at once.  Returns ``({side: path},
+    {side: compiler report})``."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import library
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     parent_dir = os.path.join(COMPARE_DIR, "parent")
     os.makedirs(parent_dir)
     copies = {name: parent_copy(path, name, parent_dir)
-              for name, path in (("megakernel.cu", parent_cu), ("taa.cu", parent_taa)) if path}
+              for name, path in (("megakernel.cu", parent_cu), ("taa.cu", parent_taa),
+                                 ("probes.cu", parent_probes)) if path}
     parent_sources = tuple(copies.get(os.path.basename(s), s) for s in library.SOURCES)
     jobs = {"change": dict(ptxas_info=True),
             "parent": dict(build_dir=parent_dir, sources=parent_sources, ptxas_info=True),
@@ -628,6 +635,70 @@ def resolve_pass(all_resolves: dict, ref_dir: str) -> dict:
     return out
 
 
+def probe_pass(device, ref_dir: str) -> dict:
+    """The small kernels through this process's library and wrappers:
+    K2 alone (T1, ``sample_batches``) on ``chip_smoke.py`` phase 7's
+    1080p-sized batches of both kinds and the fill kernel (T3) launched
+    ``FILL_LAUNCHES`` times back to back into 1080p planes, as phase 7
+    times them; each one's events ms (by the wrapper, its launch route
+    included) and device ms, its bound, and its output against the first
+    pass's (``equal_to_reference``); the fill also beside ``fill_``."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import probes
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import texsample as ts
+
+    def same(name: str, got: dict) -> dict:
+        equal = {}
+        for k, v in got.items():
+            ref_path = os.path.join(ref_dir, f"{name}-{k}.npy")
+            if not os.path.exists(ref_path):
+                np.save(ref_path, v)
+            equal[k] = bool(np.array_equal(v, np.load(ref_path)))
+        return equal
+
+    rng = np.random.default_rng(5)
+    pyramids = {"tex3d": ts.build_tex3d_pyramid(rng.random((64, 64, 64)).astype(np.float32)),
+                "latlong": ts.build_latlong_pyramid(rng.random((6, 64, 64)).astype(np.float32),
+                                                    width=512)}
+    b, n = 34 * 15 * 3, 8 * 1024
+    out = {}
+    for kind, (data, meta) in pyramids.items():
+        table = torch.as_tensor(data, device=device)
+        planes = cs.k2_planes(kind, device, b, n)
+        kw = cs.K2_TEX3D_CASES[2][5] if kind == "tex3d" else {}
+        values, mode, level = mk.sample_batches(table, meta, *planes, **kw)
+        torch.cuda.synchronize()
+        equal = same(f"k2-{kind}", {"values": values.cpu().numpy(), "mode": mode.cpu().numpy(),
+                                    "level": level.cpu().numpy()})
+        ms = cs.time_cuda(lambda i: mk.sample_batches(table, meta, *planes, **kw), KERNEL_FRAMES)
+        trace = cs.kernel_trace(lambda: [mk.sample_batches(table, meta, *planes, **kw)
+                                         for _ in range(KERNEL_FRAMES)], "texsample_kernel")
+        ops = cs.OPS_TEX3D if kind == "tex3d" else cs.OPS_K2_LATLONG
+        t_ops = cs.ops_time_ms(b * n * ops)
+        t_bytes = (b * n * 16 + table.numel() * 4) / cs.PEAK_BYTES * 1e3
+        out[f"T1 K2 alone {kind} {b}x{n}"] = {
+            "ms": ms, "device_ms": trace["device_us"] / 1e3, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "equal_to_reference": equal, "instance": None}
+    H, W = cs.FULL_SIZE
+    planes = torch.empty((cs.FILL_LAUNCHES, H, W), device=device)
+    probes.launch_fill(0.5, planes[0])
+    torch.cuda.synchronize()
+    equal = same("fill", {"plane": planes[0].cpu().numpy()})
+    ms = cs.time_cuda(lambda i: probes.launch_fill(float(i), planes[i % cs.FILL_LAUNCHES]),
+                      cs.FILL_LAUNCHES)
+    library_ms = cs.time_cuda(lambda i: planes[i % cs.FILL_LAUNCHES].fill_(float(i)),
+                              cs.FILL_LAUNCHES)
+    trace = cs.kernel_trace(lambda: [probes.launch_fill(float(i), planes[i])
+                                     for i in range(cs.FILL_LAUNCHES)], "fill_kernel")
+    out[f"T3 fill {H}x{W}"] = {"ms": ms, "device_ms": trace["device_us"] / 1e3,
+                               "library_ms": library_ms,
+                               "bound_ms": (H * W * 4 + 4) / cs.PEAK_BYTES * 1e3,
+                               "bound_by": "bytes", "equal_to_reference": equal,
+                               "instance": None}
+    return out
+
+
 def bound(case: Case, i: int, work: dict) -> dict:
     """The launch's roofline bound as ``chip_smoke.py`` takes it (the
     general texture instance's: its tile pass's plus its frame's, each
@@ -741,6 +812,8 @@ def run_pass(args) -> int:
     alone; its result as JSON to ``args.out``.  A library that writes
     fewer work slots than the checkout names (a parent's) is read with the
     slots it writes, the first ones."""
+    if args.package_root:  # the parent's package: its wrappers and launch route
+        sys.path.insert(0, os.path.abspath(args.package_root))
     from godot_atmosphere_shader_tpu_torch.models.demo import bake_demo_textures
     from godot_atmosphere_shader_tpu_torch.ops.kernels import library
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
@@ -759,6 +832,9 @@ def run_pass(args) -> int:
     else:
         result = one_pass(all_cases, flights(device, textures), args.reference)
         result.update(resolve_pass(resolves(device), args.reference))
+        result.update(probe_pass(device, args.reference))
+    cs.log(f"[compare] pass through {args.library} and the wrappers of "
+           f"{os.path.dirname(os.path.dirname(os.path.dirname(mk.__file__)))}")
     with open(args.out, "w") as f:
         json.dump(result, f)
     return 0
@@ -862,6 +938,9 @@ def main(argv=None) -> int:
     ap.add_argument("parent_cu", nargs="?", help="the parent commit's csrc/megakernel.cu")
     ap.add_argument("parent_taa", nargs="?", help="the parent commit's csrc/taa.cu (default: "
                     "the checkout's)")
+    ap.add_argument("--parent-tree", help="a checkout of the parent commit (git archive): "
+                    "its three kernel sources, and its package's wrappers for the parent's "
+                    "passes")
     # one pass in a process of its own (the comparison starts these)
     ap.add_argument("--library", help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)
@@ -870,13 +949,20 @@ def main(argv=None) -> int:
     ap.add_argument("--peak-fp32", type=float, help=argparse.SUPPRESS)
     ap.add_argument("--peak-int32", type=float, help=argparse.SUPPRESS)
     ap.add_argument("--without-tex-envelope", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--package-root", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the comparison needs one GPU")
     if args.library:
         return run_pass(args)
+    parent_probes = None
+    if args.parent_tree:
+        csrc = os.path.join(args.parent_tree, "godot_atmosphere_shader_tpu_torch", "csrc")
+        args.parent_cu = args.parent_cu or os.path.join(csrc, "megakernel.cu")
+        args.parent_taa = args.parent_taa or os.path.join(csrc, "taa.cu")
+        parent_probes = os.path.join(csrc, "probes.cu")
     if not args.parent_cu:
-        ap.error("the parent's megakernel.cu is required")
+        ap.error("the parent's megakernel.cu (or --parent-tree) is required")
 
     device = torch.device("cuda", 0)
     card = cs.smi("name,power.limit")
@@ -884,7 +970,7 @@ def main(argv=None) -> int:
     from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 
     shutil.rmtree(COMPARE_DIR, ignore_errors=True)
-    paths, reports = build_sides(args.parent_cu, args.parent_taa)
+    paths, reports = build_sides(args.parent_cu, args.parent_taa, parent_probes)
     cs.log(f"[compare] compiler report of {', '.join(REPORTED)} per side: "
            f"{json.dumps(reports)}")
     for side, path in paths.items():
@@ -913,7 +999,9 @@ def main(argv=None) -> int:
         cmd = [sys.executable, os.path.abspath(__file__), "--library", lib, "--out", out,
                "--reference", ref_dir, "--peak-fp32", repr(cs.PEAK["fp32"]),
                "--peak-int32", repr(cs.PEAK["int32"])] + (["--stages"] if stages else []) + (
-                   ["--without-tex-envelope"] if alone else [])
+                   ["--without-tex-envelope"] if alone else []) + (
+                   ["--package-root", args.parent_tree]
+                   if args.parent_tree and side.startswith("parent") else [])
         subprocess.run(cmd, check=True)
         with open(out) as f:
             return json.load(f)

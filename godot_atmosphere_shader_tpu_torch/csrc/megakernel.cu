@@ -3148,57 +3148,290 @@ __global__ void __launch_bounds__(MK_TILE_COLS * MK_SKY_CHOICE_THREADS_Y)
 }
 
 
-// K2 alone: one block per caller-given batch of n samples (coordinates in
-// periods for the 3D texture, unit directions for the lat-long map), the
-// same choice and lookups as the texture-mode frame.
+// K2 alone (T1): caller-given batches of n samples, one block per batch
+// (coordinates in periods for the 3D texture, unit directions for the
+// lat-long map), with the choice and lookups of the texture-mode frame.
+// Replaces the harnesses around the TPU samplers (tests/test_texsample.py:40,
+// :54; tools/tpu_checks.py:138; tools/measure_band_fidelity.py:181, each a
+// pallas_call around ops/pallas/texsample.py's sample_tex3d or
+// sample_latlong).  Plain version: ops/kernels/texsample.py::_tex3d_batches
+// and _latlong_batches, through ops/kernels/megakernel.py::sample_batches.
+//
+// What bounds it on an H100: bytes, 16 a sample (three coordinates read,
+// one value written) plus the pyramid; about 110 operations a sample take a
+// third of that time.  Next come the lookups: 8 (3D) or 4 (lat-long)
+// gathers a sample, whose lanes spread over many cache lines when a batch's
+// positions are scattered.  What the design does about it:
+//   * a batch's coordinates are read once: each thread wraps its samples
+//     (or turns them into lat-long (u, v)), folds them into its min and max
+//     and keeps them in dynamic shared memory, and the lookups read them
+//     back from there after the choice (TS_KEEP samples at most: 96 KB for
+//     the 3D texture).  A longer batch is read twice, once for the choice
+//     and once for the lookups;
+//   * after the choice, the texels a windowed or banded batch can touch (the
+//     box of its min and max at the chosen level, which the choice's window
+//     test already bounds) are copied into shared memory, at most TS_BOX,
+//     and the lookups gather from there with the samplers' operations in
+//     their order (tex3d_box_sample, latlong_box_sample); a floor-mode batch
+//     or a larger box gathers from global memory (tex3d_sample,
+//     latlong_sample);
+//   * two blocks of TS_THREADS per SM (registers and shared memory sized for
+//     it), so one block's loads run under the other's lookups, and a grid
+//     of 1530 batches fills 5.8 waves of 264;
+//   * rows whose planes start 16-byte aligned (VEC: n % 4 == 0 and every
+//     plane's address) move 16 bytes a load and a store, each thread four
+//     consecutive samples; any other row moves 4 bytes, a sample a thread;
+//   * the choice is reduced by warp shuffles (warp_minmax): one barrier for
+//     the warps' partials, one for the choice and box the first warp makes,
+//     one after the box is copied.
+// Every sample keeps the frame's operations, so values, modes and levels
+// are those of the texture-mode frame and of the plain samplers.
+#define TS_THREADS 512
+#define TS_KEEP 8192
+#define TS_BOX 4096
+
+// W consecutive samples from index i of the coordinate planes, wrapped (3D)
+// or turned into lat-long (u, v): f[axis][sample]
+template <bool SHAPE, bool VEC>
+__device__ __forceinline__ void ts_load(const float* __restrict__ a, const float* __restrict__ b,
+                                        const float* __restrict__ c, size_t i,
+                                        float (&f)[SHAPE ? 3 : 2][VEC ? 4 : 1]) {
+  constexpr int W = VEC ? 4 : 1;
+  float x[W], y[W], z[W];
+  if constexpr (VEC) {
+    const float4 va = __ldg(reinterpret_cast<const float4*>(a + i));
+    const float4 vb = __ldg(reinterpret_cast<const float4*>(b + i));
+    const float4 vc = __ldg(reinterpret_cast<const float4*>(c + i));
+    x[0] = va.x, x[1] = va.y, x[2] = va.z, x[3] = va.w;
+    y[0] = vb.x, y[1] = vb.y, y[2] = vb.z, y[3] = vb.w;
+    z[0] = vc.x, z[1] = vc.y, z[2] = vc.z, z[3] = vc.w;
+  } else {
+    x[0] = __ldg(a + i);
+    y[0] = __ldg(b + i);
+    z[0] = __ldg(c + i);
+  }
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    if constexpr (SHAPE) {
+      f[0][j] = wrap01(x[j]);
+      f[1][j] = wrap01(y[j]);
+      f[2][j] = wrap01(z[j]);
+    } else {
+      latlong_uv(x[j], y[j], z[j], f[0][j], f[1][j]);
+    }
+  }
+}
+
+// A batch's texel box at its chosen level: texels [lo, lo + dim) of each
+// axis (x, y, z; lat-long: u, v and one plane), x fastest in shared memory.
+struct TsBox {
+  int lo[3];
+  int dim[3];  // dim[0] == 0: no box (floor mode, or more than TS_BOX texels)
+};
+
+// The box of a windowed or banded batch: per axis the first and last texel
+// index the choice's window test takes (tex3d_choose, latlong_choose) for
+// the batch's min and max, which bound every tap of its samples.
 template <bool SHAPE>
-__global__ void __launch_bounds__(256) texsample_kernel(const TexParams t,
-                                                        const float* __restrict__ tab,
-                                                        const float* __restrict__ a,
-                                                        const float* __restrict__ b,
-                                                        const float* __restrict__ c, int n,
-                                                        float* __restrict__ out,
-                                                        int* __restrict__ choice) {
-  __shared__ float red[2 * 3 * 8];
+__device__ __forceinline__ TsBox ts_box(const TexParams& t, TexChoice ch, const float* mn,
+                                        const float* mx) {
+  TsBox box{{0, 0, 0}, {0, 1, 1}};
+  if (ch.mode == MK_FLOOR) return box;
+  int vol = 1;
+  if constexpr (SHAPE) {
+    const float S = (float)t.shape_size[ch.level];
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      box.lo[ax] = (int)floorf(mn[ax] * S - 0.5f);
+      box.dim[ax] = (int)floorf(mx[ax] * S - 0.5f) + 2 - box.lo[ax];
+      vol *= box.dim[ax];
+    }
+  } else {
+    const float Hl = (float)t.cov_height[ch.level], Wl = (float)t.cov_width[ch.level];
+    box.lo[0] = (int)floorf(mn[0] * Wl - 0.5f);
+    box.dim[0] = (int)floorf(mx[0] * Wl - 0.5f) + 2 - box.lo[0];
+    box.lo[1] = (int)fmaxf(floorf(mn[1] * Hl - 0.5f), 0.0f);
+    box.dim[1] = (int)fminf(floorf(mx[1] * Hl - 0.5f) + 1.0f, Hl - 1.0f) + 1 - box.lo[1];
+    vol = box.dim[0] * box.dim[1];
+  }
+  if (vol > TS_BOX) box.dim[0] = 0;
+  return box;
+}
+
+// tex3d_sample's windowed and banded lookups from the box: the same
+// operations in the same order, the eight taps from shared memory
+__device__ __forceinline__ float tex3d_box_sample(const TexParams& t, const float* box,
+                                                  const TsBox& bx, TexChoice ch, float fx,
+                                                  float fy, float fz) {
+  const float Sf = (float)t.shape_size[ch.level];
+  const float tx = fx * Sf - 0.5f, ty = fy * Sf - 0.5f, tz = fz * Sf - 0.5f;
+  const float ix = floorf(tx), iy = floorf(ty), iz = floorf(tz);
+  const float wx = tx - ix, wy = ty - iy, wz = tz - iz;
+  const int nx = bx.dim[0], nxy = bx.dim[0] * bx.dim[1];
+  const int l00 = ((int)iz - bx.lo[2]) * nxy + ((int)iy - bx.lo[1]) * nx + (int)ix - bx.lo[0];
+  const int l01 = l00 + nx, l10 = l00 + nxy, l11 = l10 + nx;
+  const float ax = 1.0f - wx, ay = 1.0f - wy, az = 1.0f - wz;
+  const float c[8] = {box[l00], box[l00 + 1], box[l01], box[l01 + 1],
+                      box[l10], box[l10 + 1], box[l11], box[l11 + 1]};
+  const float w[8] = {__fmul_rn(__fmul_rn(az, ay), ax), __fmul_rn(__fmul_rn(az, ay), wx),
+                      __fmul_rn(__fmul_rn(az, wy), ax), __fmul_rn(__fmul_rn(az, wy), wx),
+                      __fmul_rn(__fmul_rn(wz, ay), ax), __fmul_rn(__fmul_rn(wz, ay), wx),
+                      __fmul_rn(__fmul_rn(wz, wy), ax), __fmul_rn(__fmul_rn(wz, wy), wx)};
+  float lo = __fmul_rn(c[0], w[0]);
+#pragma unroll
+  for (int k = 1; k < 4; ++k) lo = __fadd_rn(lo, __fmul_rn(c[k], w[k]));
+  if (ch.mode == MK_BANDED) {  // the two z-slices' partial sums
+    float hi = __fmul_rn(c[4], w[4]);
+#pragma unroll
+    for (int k = 5; k < 8; ++k) hi = __fadd_rn(hi, __fmul_rn(c[k], w[k]));
+    return __fadd_rn(lo, hi);
+  }
+#pragma unroll
+  for (int k = 4; k < 8; ++k) lo = __fadd_rn(lo, __fmul_rn(c[k], w[k]));
+  return lo;
+}
+
+// latlong_sample's windowed lookup from the box: the same operations in the
+// same order, the four taps from shared memory
+__device__ __forceinline__ float latlong_box_sample(const TexParams& t, const float* box,
+                                                    const TsBox& bx, TexChoice ch, float fu,
+                                                    float v) {
+  const int Hi = t.cov_height[ch.level];
+  const float Hs = (float)Hi, Ws = (float)t.cov_width[ch.level];
+  const float tu = fu * Ws - 0.5f;
+  const float u0f = floorf(tu);
+  const float wu = tu - u0f;
+  const int u0 = (int)u0f - bx.lo[0];
+  const float tv = v * Hs - 0.5f;
+  const float v0f = fminf(fmaxf(floorf(tv), 0.0f), Hs - 1.0f);
+  const float wv = fminf(fmaxf(tv - v0f, 0.0f), 1.0f);
+  const int v0 = (int)v0f;
+  const int v1 = min(v0 + 1, Hi - 1);
+  const int r0 = (v0 - bx.lo[1]) * bx.dim[0] + u0, r1 = (v1 - bx.lo[1]) * bx.dim[0] + u0;
+  const float au = 1.0f - wu, av = 1.0f - wv;
+  float s = __fmul_rn(box[r0], __fmul_rn(av, au));
+  s = __fadd_rn(s, __fmul_rn(box[r0 + 1], __fmul_rn(av, wu)));
+  s = __fadd_rn(s, __fmul_rn(box[r1], __fmul_rn(wv, au)));
+  return __fadd_rn(s, __fmul_rn(box[r1 + 1], __fmul_rn(wv, wu)));
+}
+
+// keep != 0 (n <= TS_KEEP): the coordinates stay in dynamic shared memory,
+// N planes of n floats, and the box follows them; else only the box.
+template <bool SHAPE, bool VEC>
+__global__ void __launch_bounds__(TS_THREADS, 2)
+    texsample_kernel(const TexParams t, const float* __restrict__ tab,
+                     const float* __restrict__ a, const float* __restrict__ b,
+                     const float* __restrict__ c, int n, int keep, float* __restrict__ out,
+                     int* __restrict__ choice) {
+  constexpr int N = SHAPE ? 3 : 2;  // coordinates a sample keeps
+  constexpr int W = VEC ? 4 : 1;    // consecutive samples a thread takes at once
+  constexpr int NW = TS_THREADS / 32;
+  extern __shared__ float4 ts_smem[];
+  __shared__ float part[NW * 2 * N];
+  __shared__ int pick[8];  // mode, level, the box's lo and dim
+  float* kept = reinterpret_cast<float*>(ts_smem);
+  float* box = kept + (keep ? N * n : 0);
   const size_t off = (size_t)blockIdx.x * n;
-  constexpr int N = SHAPE ? 3 : 2;
+  const int groups = n / W;  // VEC: n % 4 == 0
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float mn[N], mx[N];
 #pragma unroll
   for (int k = 0; k < N; ++k) {
     mn[k] = 3.0e38f;
     mx[k] = -3.0e38f;
   }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    float f[N];
-    if (SHAPE) {
-      f[0] = wrap01(a[off + i]);
-      f[1] = wrap01(b[off + i]);
-      f[N - 1] = wrap01(c[off + i]);
-    } else {
-      latlong_uv(a[off + i], b[off + i], c[off + i], f[0], f[N - 1]);
-    }
+  for (int q = threadIdx.x; q < groups; q += TS_THREADS) {
+    float f[N][W];
+    ts_load<SHAPE, VEC>(a, b, c, off + (size_t)q * W, f);
 #pragma unroll
     for (int k = 0; k < N; ++k) {
-      mn[k] = fminf(mn[k], f[k]);
-      mx[k] = fmaxf(mx[k], f[k]);
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        mn[k] = fminf(mn[k], f[k][j]);
+        mx[k] = fmaxf(mx[k], f[k][j]);
+      }
+      if (keep) {
+        if constexpr (VEC)
+          reinterpret_cast<float4*>(kept + k * n)[q] = make_float4(f[k][0], f[k][1], f[k][2], f[k][3]);
+        else
+          kept[k * n + q] = f[k][0];
+      }
     }
   }
-  block_minmax<N>(mn, mx, red);
-  const TexChoice ch = SHAPE ? tex3d_choose(t, mn, mx)
-                             : latlong_choose(t, mn[0], mx[0], mn[N - 1], mx[N - 1]);
-  if (threadIdx.x == 0) {
-    choice[2 * blockIdx.x] = ch.mode;
-    choice[2 * blockIdx.x + 1] = ch.level;
+  warp_minmax<N>(mn, mx);
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      part[warp * 2 * N + k] = mn[k];
+      part[warp * 2 * N + N + k] = mx[k];
+    }
   }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    if (SHAPE) {
-      out[off + i] = tex3d_sample(t, tab, ch, wrap01(a[off + i]), wrap01(b[off + i]),
-                                  wrap01(c[off + i]));
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      mn[k] = lane < NW ? part[lane * 2 * N + k] : 3.0e38f;
+      mx[k] = lane < NW ? part[lane * 2 * N + N + k] : -3.0e38f;
+    }
+    warp_minmax<N>(mn, mx);
+    if (lane == 0) {
+      const TexChoice ch = SHAPE ? tex3d_choose(t, mn, mx)
+                                 : latlong_choose(t, mn[0], mx[0], mn[N - 1], mx[N - 1]);
+      const TsBox bx = ts_box<SHAPE>(t, ch, mn, mx);
+      pick[0] = ch.mode;
+      pick[1] = ch.level;
+#pragma unroll
+      for (int ax = 0; ax < 3; ++ax) {
+        pick[2 + ax] = bx.lo[ax];
+        pick[5 + ax] = bx.dim[ax];
+      }
+      choice[2 * blockIdx.x] = ch.mode;
+      choice[2 * blockIdx.x + 1] = ch.level;
+    }
+  }
+  __syncthreads();
+  const TexChoice ch{pick[0], pick[1]};
+  const TsBox bx{{pick[2], pick[3], pick[4]}, {pick[5], pick[6], pick[7]}};
+  if (bx.dim[0]) {  // copy the box's texels, x fastest
+    const int plane = SHAPE ? t.shape_size[ch.level] : t.cov_width[ch.level];
+    const float* level = tab + (SHAPE ? t.shape_base[ch.level] : t.cov_base[ch.level]) * 128;
+    const int vol = bx.dim[0] * bx.dim[1] * bx.dim[2];
+    for (int i = threadIdx.x; i < vol; i += TS_THREADS) {
+      const int x = i % bx.dim[0], r = i / bx.dim[0];
+      const int y = r % bx.dim[1], z = r / bx.dim[1];
+      box[i] = __ldg(level + ((bx.lo[2] + z) * plane + bx.lo[1] + y) * plane + bx.lo[0] + x);
+    }
+    __syncthreads();
+  }
+  for (int q = threadIdx.x; q < groups; q += TS_THREADS) {
+    float f[N][W];
+    if (keep) {
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        if constexpr (VEC) {
+          const float4 v = reinterpret_cast<const float4*>(kept + k * n)[q];
+          f[k][0] = v.x, f[k][1] = v.y, f[k][2] = v.z, f[k][3] = v.w;
+        } else {
+          f[k][0] = kept[k * n + q];
+        }
+      }
     } else {
-      float fu, v;
-      latlong_uv(a[off + i], b[off + i], c[off + i], fu, v);
-      out[off + i] = latlong_sample(t, tab, ch, fu, v);
+      ts_load<SHAPE, VEC>(a, b, c, off + (size_t)q * W, f);
     }
+    float v[W];
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      if constexpr (SHAPE)
+        v[j] = bx.dim[0] ? tex3d_box_sample(t, box, bx, ch, f[0][j], f[1][j], f[2][j])
+                         : tex3d_sample(t, tab, ch, f[0][j], f[1][j], f[2][j]);
+      else
+        v[j] = bx.dim[0] ? latlong_box_sample(t, box, bx, ch, f[0][j], f[1][j])
+                         : latlong_sample(t, tab, ch, f[0][j], f[1][j]);
+    }
+    if constexpr (VEC)
+      reinterpret_cast<float4*>(out + off)[q] = make_float4(v[0], v[1], v[2], v[3]);
+    else
+      out[off + q] = v[0];
   }
 }
 
@@ -3582,17 +3815,42 @@ extern "C" int megakernel_tex_info(const MegakernelParams* params, const TexPara
   return 0;
 }
 
+template <bool SHAPE, bool VEC>
+static int launch_texsample(const TexParams& t, const float* table, const float* a,
+                            const float* b, const float* c, int n_batches, int n, float* out,
+                            int* choice, cudaStream_t s) {
+  constexpr int N = SHAPE ? 3 : 2;
+  const int keep = n <= TS_KEEP;
+  const int smem = ((keep ? N * n : 0) + TS_BOX) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(texsample_kernel<SHAPE, VEC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (N * TS_KEEP + TS_BOX) * (int)sizeof(float));
+  if (err == cudaSuccess)  // the SM's whole shared memory, for two blocks
+    err = cudaFuncSetAttribute(texsample_kernel<SHAPE, VEC>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  texsample_kernel<SHAPE, VEC><<<n_batches, TS_THREADS, smem, s>>>(t, table, a, b, c, n, keep,
+                                                                  out, choice);
+  return (int)cudaGetLastError();
+}
+
+// vector: 16-byte loads and stores (n % 4 == 0, and a, b, c and out 16-byte
+// aligned, else -1).
 extern "C" int texsample_launch(const TexParams* tex, int shape, const float* table,
                                 const float* a, const float* b, const float* c,
-                                int n_batches, int batch_size, float* out, int* choice,
-                                void* stream) {
+                                int n_batches, int batch_size, int vector, float* out,
+                                int* choice, void* stream) {
   if (n_batches < 1 || batch_size < 1) return -1;
+  if (vector && (batch_size % 4 ||
+                 ((uintptr_t)a | (uintptr_t)b | (uintptr_t)c | (uintptr_t)out) % 16))
+    return -1;
   cudaStream_t s = (cudaStream_t)stream;
   if (shape)
-    texsample_kernel<true><<<n_batches, 256, 0, s>>>(*tex, table, a, b, c, batch_size, out, choice);
-  else
-    texsample_kernel<false><<<n_batches, 256, 0, s>>>(*tex, table, a, b, c, batch_size, out, choice);
-  return (int)cudaGetLastError();
+    return vector ? launch_texsample<true, true>(*tex, table, a, b, c, n_batches, batch_size, out, choice, s)
+                  : launch_texsample<true, false>(*tex, table, a, b, c, n_batches, batch_size, out, choice, s);
+  return vector ? launch_texsample<false, true>(*tex, table, a, b, c, n_batches, batch_size, out, choice, s)
+                : launch_texsample<false, false>(*tex, table, a, b, c, n_batches, batch_size, out, choice, s);
 }
 
 // the work counter slots the instances write (MK_WORK_SLOTS), so the wrapper

@@ -33,6 +33,11 @@
 // What bounds it: bytes (4 per pixel written; 8.3 MB at 1080p, 2.5 us at
 // 3.35 TB/s) plus the launch itself.  Design: one block of 128 x 8 threads
 // per tile, four rows per thread, a warp writes 128 contiguous bytes.
+// 16-byte stores (a float4 a thread and row where the rows start aligned)
+// were measured and not kept: 3.220 against 3.228 us of device time at
+// 1080p, within the spread of either (compare_megakernel.py, six passes).
+// The launch's host side is the port's one route
+// (ops/kernels/library.py::launch).
 //
 // Built with the other kernels (ops/kernels/library.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3

@@ -6,7 +6,8 @@ interface), all started together, into an object; one more ``nvcc`` links
 the objects into ``build/torch_kernels/libkernels-<hash>.so`` at the root of
 the checkout.  The hash covers every source and the flags, so an edit of
 any source rebuilds.  The library is loaded with ``ctypes``; each wrapper
-module binds its own launchers (:func:`function`).
+module binds its own launchers (:func:`function`) and calls every one of
+them through :func:`launch`, the one launch route.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -113,3 +116,26 @@ def function(name: str, argtypes):
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def launch(fn, anchor: torch.Tensor, head, tail=(), dtype=torch.float32) -> int:
+    """The launch route every launcher takes: ``fn(*head, stream, *tail)``
+    with ``stream`` the raw handle of PyTorch's current stream on the
+    device of ``anchor``, a tensor the kernel writes.  The handle is read
+    anew at every call, since ``torch.cuda.stream(...)`` and graph capture
+    change the current stream, and no ``Stream`` object is built for it; a
+    device guard is opened only where ``anchor``'s device is not the
+    current one (on a process with one card it always is, and the current
+    device is not read).  ``anchor`` must be a contiguous ``dtype`` CUDA tensor,
+    else ``ValueError``.  Returns ``fn``'s CUDA error code, which the
+    launcher checks."""
+    index = anchor.get_device()  # -1 on the CPU
+    if anchor.dtype != dtype or not anchor.is_contiguous():
+        raise ValueError(f"a kernel launch writes a contiguous {dtype} tensor "
+                         f"(got {anchor.dtype}, contiguous {anchor.is_contiguous()})")
+    if index < 0:
+        raise ValueError(f"a kernel launch needs a CUDA tensor (got {anchor.device})")
+    if torch.cuda.device_count() == 1 or index == torch._C._cuda_getDevice():
+        return fn(*head, torch._C._cuda_getCurrentRawStream(index), *tail)
+    with torch.cuda.device(index):
+        return fn(*head, torch._C._cuda_getCurrentRawStream(index), *tail)

@@ -54,7 +54,8 @@ tiles' choices (:func:`launch` returns them), then the frame.
 
 The kernel builds at first use with the port's other kernels
 (``library.py``: ``nvcc`` for ``sm_90a``, plain C interface, bound with
-``ctypes``) into ``build/`` at the root of the checkout.
+``ctypes``) into ``build/`` at the root of the checkout; every launcher goes
+through ``library.launch``.
 
 The per-frame scalar preamble (ray scale, planet center, sun direction,
 radii, model-space camera, march clamp, noise amplitudes) is computed once
@@ -397,7 +398,7 @@ TEX_LAUNCHER_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.POINTER(TexPar
                          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                          ctypes.c_int)
 TEXSAMPLE_ARGTYPES = (ctypes.POINTER(TexParams), ctypes.c_int, *(ctypes.c_void_p,) * 4,
-                      ctypes.c_int, ctypes.c_int, *(ctypes.c_void_p,) * 3)
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int, *(ctypes.c_void_p,) * 3)
 GEN_INFO_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.c_void_p)
 TEX_INFO_ARGTYPES = (ctypes.POINTER(MegakernelParams), ctypes.POINTER(TexParams), ctypes.c_void_p,
                      ctypes.c_int)
@@ -1080,7 +1081,7 @@ _BLUE_NOISE = {}
 
 
 def _ptr(t: Optional[torch.Tensor]):
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
+    return None if t is None else t.data_ptr()
 
 
 def _plane_ptr(t: Optional[torch.Tensor], struct: MegakernelParams):
@@ -1095,7 +1096,7 @@ def _plane_ptr(t: Optional[torch.Tensor], struct: MegakernelParams):
     if t.shape[0] != struct.rows or not t.is_contiguous():
         raise ValueError(f"a frame plane holds the frame's {struct.height} rows or the "
                          f"launch's {struct.rows}, contiguous; got {tuple(t.shape)}")
-    return ctypes.c_void_p(t.data_ptr() - struct.row0 * t.stride(0) * t.element_size())
+    return t.data_ptr() - struct.row0 * t.stride(0) * t.element_size()
 
 
 def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
@@ -1103,7 +1104,7 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
            depth: Optional[torch.Tensor] = None, sky=None, general: bool = False):
     """Launch the kernel for one launch struct into preallocated CUDA
     frame planes (``color`` (H, W, 3), ``alpha`` (H, W), float32) on the
-    current stream of their device; counted in
+    current stream of their device (:func:`library.launch`); counted in
     ``counters.megakernel_launches``.  It writes the struct's rows
     ``[row0, row0 + rows)`` only; each plane holds either the whole frame
     or just those rows (a row shard's planes).  ``tex``: ``(TexParams, shape table,
@@ -1146,22 +1147,19 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
         choices = torch.empty(tex_choice_shape(struct, tex[0]), dtype=torch.int32, device=device)
         scratch = torch.empty(tex_scratch_floats(struct), dtype=torch.float32, device=device)
     instance = ctypes.c_int(-1)  # the texture instance the launcher reports
-    with torch.cuda.device(device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-        planes = [_plane_ptr(t, struct) for t in (color, alpha, depth)]
-        if tex is None:
-            rc = lib.megakernel_launch(ctypes.byref(struct), sky_ref, _ptr(blue), _ptr(sky_r),
-                                       _ptr(sky_g), _ptr(sky_b), _ptr(choices), *planes, stream,
-                                       _ptr(work))
-        else:
-            tparams, shape_table, cov_table = tex
-            rc = lib.megakernel_tex_launch(ctypes.byref(struct), ctypes.byref(tparams),
-                                           sky_ref, _ptr(blue), _ptr(shape_table),
-                                           _ptr(cov_table), _ptr(sky_r), _ptr(sky_g),
-                                           _ptr(sky_b), *planes, stream, _ptr(work),
-                                           int(general), ctypes.byref(instance), _ptr(choices),
-                                           0 if choices is None else choices.numel(),
-                                           _ptr(scratch), 0 if scratch is None else scratch.numel())
+    planes = tuple(_plane_ptr(t, struct) for t in (color, alpha, depth))
+    if tex is None:
+        rc = library.launch(lib.megakernel_launch, color, (
+            ctypes.byref(struct), sky_ref, _ptr(blue), _ptr(sky_r), _ptr(sky_g), _ptr(sky_b),
+            _ptr(choices), *planes), (_ptr(work),))
+    else:
+        tparams, shape_table, cov_table = tex
+        rc = library.launch(lib.megakernel_tex_launch, color, (
+            ctypes.byref(struct), ctypes.byref(tparams), sky_ref, _ptr(blue), _ptr(shape_table),
+            _ptr(cov_table), _ptr(sky_r), _ptr(sky_g), _ptr(sky_b), *planes), (
+            _ptr(work), int(general), ctypes.byref(instance), _ptr(choices),
+            0 if choices is None else choices.numel(), _ptr(scratch),
+            0 if scratch is None else scratch.numel()))
     if rc != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {rc}")
     counters.megakernel_launches += 1
@@ -1195,10 +1193,8 @@ def sky_choices(struct: MegakernelParams, sky_params: TexParams, device) -> torc
     ty, tx = tile_grid(struct.rows, struct.width)
     out = torch.empty((ty * tx, 2), dtype=torch.int32, device=device)
     lib = load_library()
-    with torch.cuda.device(device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-        rc = lib.sky_choice_launch(ctypes.byref(struct), ctypes.byref(sky_params), _ptr(out),
-                                   stream)
+    rc = library.launch(lib.sky_choice_launch, out, (
+        ctypes.byref(struct), ctypes.byref(sky_params), _ptr(out)), dtype=torch.int32)
     if rc != 0:
         raise RuntimeError(f"sky choice launch failed: CUDA error {rc}")
     counters.sky_choice_launches += 1
@@ -1714,6 +1710,31 @@ def work_counts(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tens
 
 # -- K2 alone -------------------------------------------------------------------
 
+#: ``texsample_kernel``'s threads a block, the samples of a batch it keeps
+#: in shared memory, and the texels of a batch's box it copies there
+#: (``TS_THREADS``, ``TS_KEEP``, ``TS_BOX`` in megakernel.cu)
+TEXSAMPLE_THREADS, TEXSAMPLE_KEEP, TEXSAMPLE_BOX = 512, 8192, 4096
+
+
+def texsample_plan(batches: int, n: int, aligned: bool, shape: bool = True) -> dict:
+    """How ``texsample_kernel`` takes ``batches`` batches of ``n`` samples:
+    one block of :data:`TEXSAMPLE_THREADS` a batch; 16-byte loads and
+    stores, four samples at once, where ``n % 4 == 0`` and every plane is
+    16-byte ``aligned`` (``vector``), else one sample at once; a batch of at
+    most :data:`TEXSAMPLE_KEEP` samples read once and kept on chip (3
+    floats a sample for ``tex3d``, 2 for ``latlong``), a longer one read
+    twice; ``smem_bytes``: the kept samples and the box of
+    :data:`TEXSAMPLE_BOX` texels the lookups gather from (the kernel fills
+    it where the batch's texels fit).  ``samples_per_thread``: the most any
+    thread takes."""
+    vector = aligned and n % 4 == 0
+    width = 4 if vector else 1
+    keep = n <= TEXSAMPLE_KEEP
+    return {"blocks": batches, "threads": TEXSAMPLE_THREADS, "vector": vector,
+            "samples_per_thread": width * -(-n // (width * TEXSAMPLE_THREADS)),
+            "reads": 1 if keep else 2,
+            "smem_bytes": 4 * (((3 if shape else 2) * n if keep else 0) + TEXSAMPLE_BOX)}
+
 
 def sample_batches(table: torch.Tensor, meta: texsample.TexMeta, a, b, c,
                    window_rows: int = 16, band_rows: int = 16,
@@ -1723,7 +1744,7 @@ def sample_batches(table: torch.Tensor, meta: texsample.TexMeta, a, b, c,
     pyramid, unit directions for a ``latlong`` one.  Returns ``(values
     (B, N), mode (B,), level (B,))``.  CPU tensors take the plain samplers;
     CUDA tensors launch the kernel's device functions (counted in
-    ``counters.texsample_launches``)."""
+    ``counters.texsample_launches``), as :func:`texsample_plan` says."""
     device = a.device
     if any(t.shape != a.shape or t.dim() != 2 or t.device != device for t in (a, b, c)):
         raise ValueError("a, b, c must be (B, N) planes on one device")
@@ -1744,12 +1765,11 @@ def sample_batches(table: torch.Tensor, meta: texsample.TexMeta, a, b, c,
                else tex_constants(cfg, coverage=meta))
     out = torch.empty_like(a)
     choice = torch.empty((a.shape[0], 2), dtype=torch.int32, device=device)
-    lib = load_library()
-    with torch.cuda.device(device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-        rc = lib.texsample_launch(ctypes.byref(tparams), int(shape), _ptr(table), _ptr(a),
-                                  _ptr(b), _ptr(c), a.shape[0], a.shape[1], _ptr(out),
-                                  _ptr(choice), stream)
+    plan = texsample_plan(a.shape[0], a.shape[1],
+                          not any(t.data_ptr() % 16 for t in (a, b, c, out)), shape)
+    rc = library.launch(load_library().texsample_launch, out, (
+        ctypes.byref(tparams), int(shape), _ptr(table), _ptr(a), _ptr(b), _ptr(c), a.shape[0],
+        a.shape[1], int(plan["vector"]), _ptr(out), _ptr(choice)))
     if rc != 0:
         raise RuntimeError(f"texsample launch failed: CUDA error {rc}")
     counters.texsample_launches += 1

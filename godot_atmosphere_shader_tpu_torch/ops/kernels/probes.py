@@ -62,17 +62,16 @@ _LAUNCHER = None
 
 def launch_fill(value: float, out: torch.Tensor):
     """One launch into a preallocated contiguous ``(h, w)`` float32 CUDA
-    plane, on the current stream of its device."""
+    plane, on the current stream of its device (:func:`library.launch`)."""
     global _LAUNCHER
-    if out.device.type != "cuda" or out.dtype != torch.float32 or out.dim() != 2 \
-            or not out.is_contiguous():
-        raise ValueError("fill needs a contiguous (h, w) float32 CUDA tensor")
+    if out.dim() != 2:
+        raise ValueError(f"fill writes an (h, w) plane (got {tuple(out.shape)})")
     if _LAUNCHER is None:
+        if not out.is_cuda:  # the route refuses it; no build for it either
+            raise ValueError(f"fill launches on a CUDA plane (got {out.device})")
         _LAUNCHER = library.function("fill_launch", FILL_ARGTYPES)
-    fn = _LAUNCHER
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        rc = fn(float(value), out.data_ptr(), out.shape[0], out.shape[1], stream)
+    h, w = out.shape
+    rc = library.launch(_LAUNCHER, out, (float(value), out.data_ptr(), h, w))
     if rc != 0:
         raise RuntimeError(f"fill launch failed: CUDA error {rc}")
     counters.launches += 1
@@ -147,10 +146,8 @@ def peak_chains(a: torch.Tensor, b: torch.Tensor, op: str, iters: int,
         _PEAK = library.function("peak_launch", PEAK_ARGTYPES)
     a, b = a.contiguous(), b.contiguous()
     out = torch.empty(n, dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = _PEAK(PEAK_OPS[op], a.data_ptr(), b.data_ptr(), int(iters), int(blocks),
-                   out.data_ptr(), stream)
+    rc = library.launch(_PEAK, out, (PEAK_OPS[op], a.data_ptr(), b.data_ptr(), int(iters),
+                                     int(blocks), out.data_ptr()))
     if rc != 0:
         raise RuntimeError(f"peak launch failed: CUDA error {rc}")
     counters.peak_launches += 1

@@ -353,7 +353,8 @@ def launch(p: TaaParams, cur: torch.Tensor, linear_depth: torch.Tensor,
     """One kernel launch on launch struct ``p`` into preallocated CUDA
     outputs (``out`` (H, W, 3), ``depth_out`` (H, W); ``valid``: an
     optional (H, W) uint8 plane for each pixel's validity), on the current
-    stream of their device; counted in ``counters.launches``.  The caller
+    stream of their device (:func:`library.launch`); counted in
+    ``counters.launches``.  The caller
     guarantees contiguous float32 tensors of the struct's shapes on one
     device, and that ``depth_out`` and ``out`` alias no input.  ``cur`` and
     ``out`` move 16 bytes at a time: a plane that is not 16-byte aligned
@@ -361,13 +362,10 @@ def launch(p: TaaParams, cur: torch.Tensor, linear_depth: torch.Tensor,
     if cur.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError("taa launch: the current and output rgb planes must be 16-byte "
                          "aligned")
-    fn = _launcher()
-    device = out.device
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(ctypes.byref(p), cur.data_ptr(), linear_depth.data_ptr(), history.data_ptr(),
-                history_depth.data_ptr(), out.data_ptr(), depth_out.data_ptr(),
-                None if valid is None else valid.data_ptr(), stream)
+    rc = library.launch(_launcher(), out, (
+        ctypes.byref(p), cur.data_ptr(), linear_depth.data_ptr(), history.data_ptr(),
+        history_depth.data_ptr(), out.data_ptr(), depth_out.data_ptr(),
+        None if valid is None else valid.data_ptr()))
     if rc != 0:
         raise RuntimeError(f"taa launch failed: CUDA error {rc}")
     counters.launches += 1

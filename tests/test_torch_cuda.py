@@ -116,6 +116,45 @@ def test_k2_alone_matches_plain(cuda, kind):
     assert (got[0].cpu() - ref[0]).abs().max() <= 2e-6
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tex3d", "latlong"])
+@pytest.mark.parametrize("n", [1, 1023, 8192, 8193, 20000])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_k2_alone_any_batch_length_and_alignment(cuda, kind, n, offset):
+    """Every path of ``texsample_kernel``: 16-byte loads (n % 4 == 0 on
+    aligned planes) or 4-byte ones (any other n, or planes one float off
+    16-byte alignment), a batch kept on chip (n ≤ TEXSAMPLE_KEEP) or read
+    twice, against the plain samplers on the same CUDA inputs: the same
+    mode and level in every batch, values at atol 2e-6, one launch."""
+    gen = torch.Generator(device="cpu").manual_seed(n + offset)
+    if kind == "tex3d":
+        data, meta = ts.build_tex3d_pyramid(torch.rand((64,) * 3, generator=gen).numpy())
+    else:
+        data, meta = ts.build_latlong_pyramid(torch.rand((6, 64, 64), generator=gen).numpy())
+    table = torch.as_tensor(data, device=cuda)
+    b = 8
+    lo = torch.rand((3, b, 1), generator=gen)
+    ext = torch.tensor([0.01, 0.05, 0.3, 1.0]).repeat(2)[:, None]
+    planes = [lo[a] + ext * torch.rand((b, n), generator=gen) for a in range(3)]
+    if kind == "latlong":
+        planes = [p - 0.5 for p in planes]
+        norm = torch.sqrt(sum(p * p for p in planes))
+        planes = [p / norm for p in planes]
+    flats = [torch.empty(b * n + offset, device=cuda) for _ in range(3)]
+    for f, p in zip(flats, planes):
+        f[offset:].copy_(p.reshape(-1))
+    views = [f[offset:].view(b, n) for f in flats]
+    aligned = not any(v.data_ptr() % 16 for v in views)
+    plan = mk.texsample_plan(b, n, aligned, kind == "tex3d")
+    assert plan["vector"] == (offset == 0 and n % 4 == 0)
+    mk.counters.reset()
+    got = mk.sample_batches(table, meta, *views)
+    ref = mk.sample_batches(table.cpu(), meta, *planes)
+    assert mk.counters.texsample_launches == 1
+    assert torch.equal(got[1].cpu(), ref[1]) and torch.equal(got[2].cpu(), ref[2])
+    assert (got[0].cpu() - ref[0]).abs().max() <= 2e-6
+
+
 @pytest.fixture(scope="module")
 def baked():
     if not torch.cuda.is_available():
@@ -466,13 +505,61 @@ def test_two_layer_taa_flight_matches_plain_flight(cuda):
 
 
 @pytest.mark.cuda
-def test_fill_probe_matches_torch_full(cuda):
+@pytest.mark.parametrize("h,w,offset", [(1, 1, 0), (1080, 1920, 0), (1081, 1923, 0),
+                                        (1080, 1920, 1)])
+def test_fill_probe_matches_torch_full(cuda, h, w, offset):
+    """A plane of one pixel, 1080p, a ragged width and height, and a plane
+    one float off 16-byte alignment; nothing outside the plane written."""
     from godot_atmosphere_shader_tpu_torch.ops.kernels import probes
 
+    flat = torch.zeros(h * w + offset, device=cuda)
     probes.counters.reset()
-    got = probes.fill(0.25, 1080, 1920, device=cuda)
+    probes.launch_fill(0.25, flat[offset:].view(h, w))
     assert probes.counters.launches == 1
-    assert torch.equal(got, torch.full((1080, 1920), 0.25, device=cuda))
+    assert torch.equal(flat[offset:].view(h, w), torch.full((h, w), 0.25, device=cuda))
+    assert not flat[:offset].any()
+    assert torch.equal(probes.fill(0.5, h, w, device=cuda), torch.full((h, w), 0.5, device=cuda))
+
+
+@pytest.mark.cuda
+def test_fill_probe_under_graph_capture(cuda):
+    """Captured into a CUDA graph, the launches go to the capture stream:
+    each replay writes the planes."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import probes
+
+    planes = torch.zeros((3, 64, 256), device=cuda)
+    probes.launch_fill(0.0, planes[0])  # the module loaded before capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(3):
+            probes.launch_fill(float(i + 1), planes[i])
+    planes.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(planes[i], torch.full_like(planes[i], i + 1.0)) for i in range(3))
+
+
+@pytest.mark.cuda
+def test_fill_probe_on_a_side_stream(cuda):
+    """Under ``torch.cuda.stream(s)`` the launch goes to ``s``: it runs
+    while the default stream sleeps, and work on the default stream that
+    waits for ``s`` sees it."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import probes
+
+    side = torch.cuda.Stream()
+    plane = torch.zeros((256, 512), device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)  # about a second on the default stream
+    with torch.cuda.stream(side):
+        probes.launch_fill(1.0, plane)
+        seen = plane.cpu()  # copied on the side stream
+    busy = not torch.cuda.current_stream().query()
+    torch.cuda.current_stream().wait_stream(side)
+    plane.add_(1.0)
+    torch.cuda.synchronize()
+    assert busy and torch.equal(seen, torch.ones((256, 512)))
+    assert torch.equal(plane, torch.full_like(plane, 2.0))
 
 
 # -- the panorama sky (K1 slice (f)) ---------------------------------------------
