@@ -249,6 +249,22 @@ two more phases:
    ``clouds`` with ``od_mode="lut"`` at 256×384: ``renderer="auto"``
    takes the plain route on the card (no K1 launch), held against the
    CPU's frame at the cloud tolerance, and ``renderer="kernel"`` raises;
+3k. the GPU gate (``godot_atmosphere_shader_tpu_torch/tools/gpu_checks.py``,
+   the twin of the JAX package's ``tools/tpu_checks.py``) at 256×384 in
+   this process, with the run's baked textures: the seven variant poses
+   through ``Scene.render`` against plain (p99.9 ≤ 1e-3, max ≤ 4e-3, or
+   the tolerance one ulp of the camera keeps), texture mode against exact
+   sampling, the banded sampler, the sharded band (Δ = 0), the 1080p and
+   everything-on signatures and the sharded everything-on frame; each
+   result on a line of its own, any failure fails the run;
+7c. (after phase 7) the band-fidelity tool
+   (``godot_atmosphere_shader_tpu_torch/tools/measure_band_fidelity.py``)
+   at the interior pose: each of the 1530 batches' level, windowed alone
+   and banded, K2's choice equal to the plain one in every batch whose
+   pixels all hit, the field error of K2 with ``band_rows`` 0 and 16
+   against exact trilinear on the first 16 engaged batches and on every
+   one (K2 against the plain samplers at atol 2e-6, the same mode and
+   level), then K2 alone timed on the tool's batches;
 8. 1080p: the importer's test scene with 12 spheres, 6 boxes, 10 octaves
    and 10 warp octaves (``tscn_fixture``, written to a temporary
    directory) through ``cli.main(["render", "--scene", ...,
@@ -299,7 +315,7 @@ Prints a JSON line describing each kernel (with its roofline bound from
 this run's work counters), then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
 line.  Run from the repository root: ``python3 chip_smoke.py``
-(``--quick`` stops after phase 3j).
+(``--quick`` stops after phase 3k).
 """
 
 from __future__ import annotations
@@ -318,19 +334,20 @@ import time
 import numpy as np
 import torch
 
+from godot_atmosphere_shader_tpu_torch.tools.gpu_checks import (  # the gate's statistics
+    ALLON_SIG_PATH, MOON, SIG_MAX_TOL, SIG_MEAN_TOL, SIG_PATH, allon_panorama, block_signature,
+    cloud_deltas, cloud_tolerance_ok, detail_tolerance_ok, frame_array, ulp_tolerance_name,
+    ulp_tolerance_ok)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SIG_PATH = os.path.join(ROOT, "tests", "golden_1080p_sig.npz")
-ALLON_SIG_PATH = os.path.join(ROOT, "tests", "golden_allon_sig.npz")
-SIG_BLOCK = (8, 128)
 TILE = 32  # rows of the kernel's tile
-SIG_MEAN_TOL = 3e-3
-SIG_MAX_TOL = 3e-2
 CHECK_SIZE = (256, 384)
 FULL_SIZE = (1080, 1920)
 CHECK_CASES = (("no_clouds", "avatar"), ("clouds", "avatar"),
                ("clouds_high", "avatar"), ("clouds_high", "interior"))
 TEXTURE_POSES = ("avatar", "interior")
 K2_ATOL = 2e-6
+BAND_FIELD_BATCHES = 16  # the JAX band-fidelity tool's default --max-batches
 BAKE_ATOL = 1e-5
 KERNEL_FRAMES = 10
 PLAIN_FRAMES = 2
@@ -458,8 +475,6 @@ SMALL_FLIGHT_FRAMES = 4
 FILL_LAUNCHES = 32
 FILL_ROUNDS = 9    # fill_kernel and fill_ timed in turns; the medians compared
 FILL_REPLAYS = 20  # replays of the K = FILL_LAUNCHES fills captured in a CUDA graph
-# the moon's atmosphere of the multi-planet cells (bench.py:270-274)
-MOON = dict(planet_radius=10.0, atmosphere_height=2.0, position=(-188.991, 0.0, 192.584))
 # JAX bench cells (bench.py:75-94): (cell, scene, pose, height, width)
 BENCH_CELLS = (("1", "v1_no_clouds", "exterior", 256, 256),
                ("2", "no_clouds", "exterior", 512, 512),
@@ -843,32 +858,6 @@ def clock(phase: str, start: float):
     log(f"[clock] phase {phase} at {time.time() - start:.1f} s")
 
 
-def cloud_deltas(got: np.ndarray, ref: np.ndarray) -> dict:
-    """The cloud tolerance's statistics over all color and alpha values."""
-    d = np.abs(got.astype(np.float64) - ref.astype(np.float64))
-    per_pixel = d.reshape(d.shape[0], d.shape[1], -1).max(axis=-1)
-    worst = np.unravel_index(int(per_pixel.argmax()), per_pixel.shape)
-    return {"max": float(d.max()), "mean": float(d.mean()),
-            "p99": float(np.percentile(d, 99.0)), "p999": float(np.percentile(d, 99.9)),
-            "frac_above_1e-2": float((per_pixel > 1e-2).mean()),
-            "worst_pixel": [int(worst[0]), int(worst[1])]}
-
-
-def cloud_tolerance_ok(st: dict) -> bool:
-    return (st["p999"] <= 1e-3 and st["mean"] <= 1e-4
-            and st["frac_above_1e-2"] <= 1e-3)
-
-
-def detail_tolerance_ok(st: dict) -> bool:
-    """Full-quality frames: the detail field samples the shape field at
-    pos·15, so one ulp of a march position moves a cloud pixel by ~1e-3
-    (phase 3g measures it: the plain frame against itself with the camera
-    one ulp away).  p99 takes the place of p99.9; the rest is the cloud
-    tolerance."""
-    return (st["p99"] <= 1e-3 and st["mean"] <= 1e-4
-            and st["frac_above_1e-2"] <= 1e-3)
-
-
 def knot_group_tolerance_ok(st: dict) -> bool:
     """Procedural shape knots over a coverage group of 32 rows
     (:data:`KNOT_GROUP_CASES`): the group's knots lie along its mean march
@@ -881,11 +870,6 @@ def knot_group_tolerance_ok(st: dict) -> bool:
             and st["frac_above_1e-2"] <= KNOT_GROUP_SHARE)
 
 
-def frame_array(out: dict) -> np.ndarray:
-    """color (H, W, 3) and alpha stacked to (H, W, 4) on the host."""
-    return torch.cat([out["color"], out["alpha"][..., None]], dim=-1).cpu().numpy()
-
-
 def check_frame(img: np.ndarray, what: str):
     if not np.isfinite(img).all():
         raise RuntimeError(f"{what}: non-finite values")
@@ -894,15 +878,6 @@ def check_frame(img: np.ndarray, what: str):
         raise RuntimeError(f"{what}: alpha outside [0, 1] ({a.min()}, {a.max()})")
     if float(img[..., :3].max()) <= 0.0:
         raise RuntimeError(f"{what}: blank frame")
-
-
-def block_signature(img: np.ndarray):
-    """Per-(8, 128)-block (mean, max) of an (H, W, 3) frame, as float16."""
-    bh, bw = SIG_BLOCK
-    h, w, c = img.shape
-    blocks = img.reshape(h // bh, bh, w // bw, bw, c)
-    return (blocks.mean(axis=(1, 3)).astype(np.float16),
-            blocks.max(axis=(1, 3)).astype(np.float16))
 
 
 def check_signature(img: np.ndarray, path: str, label: str):
@@ -945,13 +920,6 @@ def synthetic_panorama(height: int, width: int, seed: int = 0) -> np.ndarray:
     n = height * width // 500
     img[rng.integers(0, height, n), rng.integers(0, width, n)] = rng.uniform(0.2, 2.0, (n, 1))
     return np.ascontiguousarray(img, np.float32)
-
-
-def allon_panorama() -> np.ndarray:
-    """The everything-on check's own 32×64 panorama (``tools/tpu_checks.py:331-334``)."""
-    return np.stack([np.tile((np.arange(64) + 0.5) / 64, (32, 1)),
-                     np.tile(((np.arange(32) + 0.5) / 32)[:, None], (1, 64)),
-                     np.full((32, 64), 0.25)], -1).astype(np.float32)
 
 
 def with_panorama(scene, pano: np.ndarray):
@@ -3154,6 +3122,12 @@ def peak_probe(device) -> dict:
 # the optical-depth LUT ------------------------------------------------------------
 
 
+def camera_moves(cam) -> tuple:
+    """The ULP_MOVES along the camera position's nonzero coordinates: one
+    ulp of a zero coordinate is a denormal, which moves no frame."""
+    return tuple((a, s) for a, s in ULP_MOVES if float(cam.view_to_world[a, 3]) != 0.0)
+
+
 def tight_deltas(got: np.ndarray, ref: np.ndarray) -> dict:
     """A cloud-free frame against its reference at atol 1e-5, rtol 1e-4:
     the largest |Δ| and the share of values beyond the bound."""
@@ -3183,44 +3157,6 @@ def ulp_move(scene, cam, h: int, w: int, renderer: str = "plain", t: float = 0.5
             worst = st
     scene.update(t, cam)
     return worst
-
-
-def ulp_tolerance_ok(st: dict, ulp: dict) -> bool:
-    """Kernel against plain on a frame whose conditioning one ulp of the
-    camera measured first (``ulp``: :func:`ulp_move` of the plain frame):
-    the strictest tolerance that move does not itself break: the cloud
-    tolerance; else, where only p99.9 breaks (a few ill-conditioned pixels:
-    cellular cell edges), p99 in its place (:func:`detail_tolerance_ok`);
-    else :func:`conditioned_tolerance_ok`."""
-    if cloud_tolerance_ok(ulp):
-        return cloud_tolerance_ok(st)
-    if detail_tolerance_ok(ulp):
-        return detail_tolerance_ok(st)
-    return conditioned_tolerance_ok(st, ulp)
-
-
-def ulp_tolerance_name(ulp: dict) -> str:
-    """The name of the tolerance :func:`ulp_tolerance_ok` holds to."""
-    return ("cloud" if cloud_tolerance_ok(ulp) else "p99 for p99.9"
-            if detail_tolerance_ok(ulp) else "conditioned")
-
-
-def camera_moves(cam) -> tuple:
-    """The ULP_MOVES along the camera position's nonzero coordinates: one
-    ulp of a zero coordinate is a denormal, which moves no frame."""
-    return tuple((a, s) for a, s in ULP_MOVES if float(cam.view_to_world[a, 3]) != 0.0)
-
-
-def conditioned_tolerance_ok(st: dict, ulp: dict) -> bool:
-    """Kernel against plain on a frame that one ulp of the camera moves
-    beyond the cloud tolerance (``ulp``: :func:`ulp_move` of the plain
-    frame, so the kernel under test sets no bound of its own): each statistic
-    of the cloud tolerance held to the larger of its bound and twice what
-    that one ulp moves it by (two frames rounded apart, each within such a
-    move of the exact one), as the gas giant's max |Δ| is."""
-    return (st["p999"] <= max(1e-3, 2.0 * ulp["p999"])
-            and st["mean"] <= max(1e-4, 2.0 * ulp["mean"])
-            and st["frac_above_1e-2"] <= max(1e-3, 2.0 * ulp["frac_above_1e-2"]))
 
 
 def geometry_conditioning(device) -> dict:
@@ -3994,6 +3930,79 @@ def fit_phase(device, card: str) -> dict:
     return out
 
 
+def gate_phase(device, textures) -> list:
+    """Phase 3k: the GPU gate's checks (``gpu_checks.run_checks`` at
+    CHECK_SIZE, the run's baked textures), each result on a line of its
+    own; any failed check fails the run."""
+    from godot_atmosphere_shader_tpu_torch.tools import gpu_checks
+
+    results = gpu_checks.run_checks(*CHECK_SIZE, device=device, textures=textures)
+    for r in results:
+        log(f"[gate] {gpu_checks.summary(r)}")
+        log(f"[gate] {json.dumps(r)}")
+    failed = [f"{r['variant']}/{r['pose']}" for r in results if not r["pass"]]
+    if failed:
+        raise RuntimeError(f"the GPU gate failed: {failed}")
+    return results
+
+
+def band_fidelity_phase(device, card: str, textures) -> dict:
+    """Phase 7c: the band-fidelity tool (``tools/measure_band_fidelity.py``)
+    at the interior pose with the run's baked textures: ``run_fits`` (K2's
+    choice equal to the plain choice in every batch whose pixels all hit)
+    and ``run_field_err`` on the JAX tool's first BAND_FIELD_BATCHES engaged
+    batches and on every one (K2's values within K2_ATOL of the plain
+    samplers, the same mode and level); K2's launches in them; then K2
+    alone timed on one of the tool's calls (a tile row's 8-knot batches)
+    and on the frame's 8-knot batches of every full tile row in one call,
+    events and device ms, with the bound of the latter."""
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
+    from godot_atmosphere_shader_tpu_torch.tools import measure_band_fidelity as bf
+
+    geom = bf.batch_geometry("interior", device, textures=textures)
+    mk.counters.reset()
+    fits = bf.run_fits(geom)
+    field = {"first": bf.run_field_err(geom, BAND_FIELD_BATCHES),
+             "every": bf.run_field_err(geom, None)}
+    torch.cuda.synchronize()
+    out = {"batches": fits["batches"], "windowed": fits["windowed"], "banded": fits["banded"],
+           "k2_full_batches": fits["k2_full_batches"], "k2_same_choice": fits["k2_same_choice"],
+           "launches": mk.counters.texsample_launches}
+    for name, res in field.items():
+        out[f"field_err_{name}"] = res
+    log(f"[band-fidelity] interior on {card}: {json.dumps(out)}")
+    bad = [name for name, res in field.items()
+           if not (res["k2_vs_plain_max"] <= K2_ATOL and res["k2_vs_plain_same_choice"])]
+    if fits["k2_same_choice"] != fits["k2_full_batches"] or bad:
+        raise RuntimeError(f"K2 disagrees with the plain choice or samplers in the band-fidelity "
+                           f"run (fits {fits['k2_same_choice']} of {fits['k2_full_batches']}, "
+                           f"field error {bad})")
+    table, meta = bf._pyramid(geom)
+    row = next(bf.iter_batches(geom, require_full=True))
+    rows = [b for b in bf.iter_batches(geom, require_full=True)
+            if b.x.shape[1] == row.x.shape[1] and int(b.index[0]) % len(bf.GROUPS) == 0]
+    frame = [torch.cat([getattr(b, a) for b in rows]) for a in ("x", "y", "z")]
+    timed = {}
+    for name, planes in (("call", (row.x, row.y, row.z)), ("frame", frame)):
+        def k2(i=0, planes=planes):
+            return mk.sample_batches(table, meta, *planes, bf.WINDOW_ROWS, bf.BAND_ROWS,
+                                     bf.BAND_MAX_SLICES)
+
+        samples = planes[0].numel()
+        t_ops = ops_time_ms(samples * OPS_TEX3D)
+        t_bytes = (samples * 16 + table.numel() * 4) / PEAK_BYTES * 1e3
+        timed[name] = {"batches": planes[0].shape[0], "samples_per_batch": planes[0].shape[1],
+                       "ms": time_cuda(k2, KERNEL_FRAMES),
+                       "device_ms": kernel_trace(lambda: [k2() for _ in range(KERNEL_FRAMES)],
+                                                 "texsample_kernel")["device_us"] / 1e3,
+                       "plan": mk.texsample_plan(planes[0].shape[0], planes[0].shape[1], True),
+                       "bound_ms": max(t_ops, t_bytes),
+                       "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    out["timing"] = timed
+    log(f"[band-fidelity] K2 alone on the tool's batches on {card}: {json.dumps(timed)}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -4001,7 +4010,7 @@ def main(argv=None) -> int:
                          "TAA flights, the exterior and multi-planet frames, the sky, the "
                          "row shards, the procedural and texture envelopes, the gas "
                          "giant's band, the geometry and octave cases and the LUT "
-                         "(phases 7b, 3 to 3j)")
+                         "(phases 7b, 3 to 3j) and the GPU gate (3k)")
     args = ap.parse_args(argv)
     run_start = time.time()
 
@@ -4251,6 +4260,9 @@ def main(argv=None) -> int:
     geometry = geometry_check(device, textures)
     lut = lut_check(device)
     log(f"[lut] on {card}: {json.dumps(lut)}")
+    clock("3k", run_start)
+    # -- 3k. the GPU gate (the port's tools/gpu_checks.py), in this process -------
+    gate = gate_phase(device, textures)
     if args.quick:
         return 1
 
@@ -4929,6 +4941,10 @@ def main(argv=None) -> int:
         log(f"[k2-time] K2 alone ({kind}), 1080p-sized batches on {card}: {json.dumps(t)}")
     log(f"[flight-time] after timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
+    clock("7c", run_start)
+    # -- 7c. T1 on the demo frame's own batches: the band-fidelity tool --------------
+    band_t = band_fidelity_phase(device, card, textures)
+
     clock("8", run_start)
     # -- 8. the CLI and the Godot scene importer at 1080p, large worlds ------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -5002,6 +5018,8 @@ def main(argv=None) -> int:
             "lut": {k: lut[k] for k in ("bake_ms", "bake_rel_err", "plain_ms")},
             "cli": cli_out,
         },
+        "gpu_gate": [{"check": f"{r['variant']}/{r['pose']}", "pass": r["pass"],
+                      "tolerance": r.get("tolerance")} for r in gate],
         "ms": timings[flagship]["kernel_ms"],
         "plain_ms": timings[flagship]["plain_ms"],
         "bound_ms": bounds[flagship]["bound_ms"],
@@ -5257,13 +5275,23 @@ def main(argv=None) -> int:
         "name": "texsample",
         "slice": ("T1: K2 alone (texsample_kernel through mk.sample_batches) on 1530 batches "
                   "x 8192 samples; ms, device_ms, bound_ms, plain_ms: the 3D texture's banded "
-                  "case; latlong: the lat-long map's"),
+                  "case; latlong: the lat-long map's; band_fidelity: the band-fidelity tool on "
+                  "the demo frame's 1530 batches at the interior pose (phase 7c; launches "
+                  "counts its K2 launches too); the GPU gate's banded sampler ran in phase 3k"),
         "route": "cuda",
         "source": "godot_atmosphere_shader_tpu_torch/csrc/megakernel.cu",
-        "replaces": ("tests/test_texsample.py:40 (the harness around "
+        "replaces": ("tests/test_texsample.py:40, tools/tpu_checks.py:138, "
+                     "tools/measure_band_fidelity.py:181 (the harnesses around "
                      "godot_atmosphere_shader_tpu/ops/pallas/texsample.py:348 and :544)"),
-        "launches": k2_t["tex3d"]["launches"] + k2_t["latlong"]["launches"],
-        "max_abs_err": max(k2_t["tex3d"]["max_abs_err"], k2_t["latlong"]["max_abs_err"]),
+        "launches": (k2_t["tex3d"]["launches"] + k2_t["latlong"]["launches"]
+                     + band_t["launches"]),
+        "band_fidelity": {k: band_t[k] for k in ("launches", "windowed", "banded",
+                                                  "k2_same_choice", "k2_full_batches", "timing")}
+        | {"field_err": {k: {x: band_t[f"field_err_{k}"].get(x) for x in (
+            "engaged_batches", "windowed", "banded", "k2_vs_plain_max")}
+            for k in ("first", "every")}},
+        "max_abs_err": max(k2_t["tex3d"]["max_abs_err"], k2_t["latlong"]["max_abs_err"],
+                           band_t["field_err_every"]["k2_vs_plain_max"]),
         "ms": k2_t["tex3d"]["ms"],
         "device_ms": k2_t["tex3d"]["device_ms"],
         "host_ms": k2_t["tex3d"]["host_ms"],

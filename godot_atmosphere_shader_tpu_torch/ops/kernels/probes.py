@@ -95,7 +95,12 @@ def chains_plain(a: torch.Tensor, b: torch.Tensor, op: str, iters: int) -> torch
     ``i % 2048``), ``iters · PEAK_INNER[op]`` steps each: the sum over the
     chains, as the kernel writes it (``imad``: the uint32 sum >> 8).  The
     chains are advanced together, one ``(PEAK_CHAINS, 2048)`` tensor per
-    step."""
+    step, except the ``exp`` chains of CPU tensors: PyTorch's CPU ``exp``
+    splits a tensor of more than 2048 elements across threads, and the
+    first such call in a process can take one thread's share through a
+    far less accurate exp (relative error ~1e-4, seen in about 1 process
+    of 12 under load); each chain is advanced as its own (2048,) row there,
+    which the calling thread takes whole."""
     if op not in PEAK_OPS:
         raise ValueError(f"op must be one of {sorted(PEAK_OPS)}")
     steps = iters * PEAK_INNER[op]
@@ -110,8 +115,14 @@ def chains_plain(a: torch.Tensor, b: torch.Tensor, op: str, iters: int) -> torch
     coef = torch.tensor([0.4 + 0.01 * j for j in range(PEAK_CHAINS)], dtype=torch.float32,
                         device=a.device)[:, None]
     ys = a * coef + b
-    for _ in range(steps):
-        ys = ys * a + b if op == "fma" else torch.exp(-ys.abs())
+    if op == "fma":
+        for _ in range(steps):
+            ys = ys * a + b
+    else:
+        parts = (ys,) if ys.is_cuda else ys.unbind(0)
+        for _ in range(steps):
+            parts = [torch.exp(-p.abs()) for p in parts]
+        ys = torch.cat([p.reshape(-1, PEAK_PLANE) for p in parts])
     acc = ys[0]
     for j in range(1, PEAK_CHAINS):
         acc = acc + ys[j]

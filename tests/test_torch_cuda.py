@@ -7,6 +7,7 @@ the port does.  ``chip_smoke.py`` covers the same ground at full size.
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -16,6 +17,8 @@ from godot_atmosphere_shader_tpu_torch.models.demo import (bake_demo_textures,
                                                            build_demo_scene, demo_camera)
 from godot_atmosphere_shader_tpu_torch.ops.kernels import megakernel as mk
 from godot_atmosphere_shader_tpu_torch.ops.kernels import texsample as ts
+from godot_atmosphere_shader_tpu_torch.tools import gpu_checks
+from godot_atmosphere_shader_tpu_torch.tools import measure_band_fidelity as bf
 
 H, W = 64, 128
 
@@ -1380,3 +1383,66 @@ def test_lut_takes_the_plain_route_on_the_card(cuda):
                 scene.render(cam, H, W, renderer="kernel")
     st = cs.cloud_deltas(frames["cuda"], frames["cpu"])
     assert cs.cloud_tolerance_ok(st), st
+
+
+# -- the GPU gate and the band-fidelity tool (godot_atmosphere_shader_tpu_torch/tools) ------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,pose", gpu_checks.VARIANT_POSES)
+def test_gate_variant_matches_plain(cuda, variant, pose):
+    """``gpu_checks.check_variant`` at 64×128: the planned K1 launches, no
+    plain call, the gate's bound (or the tolerance one ulp of the camera
+    keeps, which the verdict names)."""
+    r = gpu_checks.check_variant(variant, pose, H, W, cuda)
+    assert r["launches"]["k1"] == r["launches"]["planned"] and r["launches"]["plain"] == 0
+    assert r["pass"], r
+
+
+@pytest.mark.cuda
+def test_gate_banded_sampler_matches_plain(cuda):
+    """K2 alone on the gate's close-up: the kernel against the plain run on
+    the CPU (atol 2e-6, the same mode and level) and against exact
+    trilinear (1e-5), banding engaged."""
+    r = gpu_checks.check_banded_sampler(cuda)
+    assert r["pass"] and r["launches"] == 2, r
+    card, plain = gpu_checks.sample_banded(cuda), gpu_checks.sample_banded("cpu")
+    for name in ("on", "off"):
+        torch.testing.assert_close(card[name].cpu(), plain[name], rtol=0, atol=2e-6)
+        assert card[f"{name}_choice"] == plain[f"{name}_choice"]
+
+
+@pytest.mark.cuda
+def test_gate_sharded_band_is_the_whole_frame(cuda):
+    r = gpu_checks.check_sharded_band(256, 384, cuda)
+    assert r["pass"] and r["band_vs_full_max_delta"] == 0.0, r
+
+
+@pytest.mark.cuda
+def test_gate_main_writes_its_verdict(cuda, tmp_path):
+    """The whole gate at its default 256×384: exit 0, every check passing,
+    the card's ``nvidia-smi`` name and power limit in the verdict."""
+    out = tmp_path / "GPU_CHECKS.json"
+    assert gpu_checks.main(["-o", str(out)]) == 0
+    verdict = json.loads(out.read_text())
+    assert verdict["all_pass"] and len(verdict["results"]) == len(gpu_checks.VARIANT_POSES) + 6
+    assert verdict["device"] == gpu_checks.card_name() and "W" in verdict["device"]
+
+
+@pytest.mark.cuda
+def test_band_fidelity_on_the_card(cuda, baked):
+    """The band-fidelity tool at the interior pose: K2's choice is the plain
+    choice in every one of the 1530 batches, whose pixels all hit there;
+    the JAX tool's level counts (PARITY #12: 484 batches at level 0); on
+    the first engaged batches K2 within 2e-6 of the plain samplers, and
+    banding brings the field error down."""
+    geom = bf.batch_geometry("interior", cuda, textures=baked)
+    mk.counters.reset()
+    fits = bf.run_fits(geom)
+    assert fits["k2_same_choice"] == fits["k2_full_batches"] == fits["batches"] == 1530
+    assert fits["banded"]["L0(64^3)"] == 484 and fits["windowed"]["floor"] == 1116
+    res = bf.run_field_err(geom, 4)
+    assert res["engaged_batches"] == 4 and res["k2_vs_plain_same_choice"], res
+    assert res["k2_vs_plain_max"] <= 2e-6
+    assert res["banded"]["mean"] < res["windowed"]["mean"] / 10
+    assert mk.counters.texsample_launches > 0

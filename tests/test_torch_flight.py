@@ -17,6 +17,7 @@ import dataclasses
 import inspect
 import os
 import pkgutil
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -279,19 +280,30 @@ def _faults(path):
 
 def test_port_modules_name_neither_jax_nor_the_jax_package():
     """No ``import jax`` and no import, path or string naming the JAX package
-    in any module of the port; ``chip_smoke.py`` imports neither (its
-    kernel line names the TPU kernels it replaces, as data)."""
+    in any module of the port, its command-line tools (``tools/``) among
+    them; ``chip_smoke.py`` and ``compare_megakernel.py`` import neither
+    (their kernel lines name the TPU kernels they replace, as data), and no
+    line of any of these files starts an import of either, at any indent."""
     paths = [os.path.join(os.path.dirname(port.__file__), "__init__.py")]
     for mod in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
         paths.append(inspect.getfile(__import__(mod.name, fromlist=["_"])))
     assert len(paths) >= 25
+    tools = os.path.join(os.path.dirname(port.__file__), "tools")
+    assert {os.path.basename(p) for p in paths if os.path.dirname(p) == tools} == {
+        "__init__.py", "gpu_checks.py", "measure_band_fidelity.py"}
     faults = {p: list(_faults(p)) for p in paths}
     assert not any(faults.values()), {p: f for p, f in faults.items() if f}
-    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
-        tree = ast.parse(f.read())
-    imports = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
-    imports += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
-    assert not [m for m in imports if _names_jax(m)]
+    scripts = [os.path.join(ROOT, name) for name in ("chip_smoke.py", "compare_megakernel.py")]
+    for path in scripts:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        imports = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+        imports += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+        assert not [m for m in imports if _names_jax(m)], path
+    line = re.compile(r"^\s*(import|from) (jax|godot_atmosphere_shader_tpu)\b")
+    for path in paths + scripts:
+        with open(path) as f:
+            assert not [t for t in f if line.match(t)], path
 
 
 @pytest.mark.parametrize("fn", [tdemo.build_demo_scene, tdemo.demo_camera,
