@@ -61,6 +61,7 @@ from ..render.opaque import OpaqueScene
 from ..render.renderer import render_flight_plain, shared_reverse_z
 from ..utils.camera import Camera
 from ..utils.color import linear_to_srgb, srgb_to_linear
+from ..utils.profiling import span
 from .params import DEFAULT_VARIANT, VARIANTS, AtmosphereParams, VariantConfig
 
 MODE_NEAR = 0
@@ -288,18 +289,23 @@ class PlanetAtmosphere(Node3D):
         packed frame state (uploaded to the device).  ``origin`` (float64
         (3,)): the large-world rebase, sun and planet placed relative to
         it in float64 before the cast."""
-        if cam_pos is None and camera is not None:
-            cam_pos = camera.view_to_world.detach().to(torch.float64).cpu().numpy()[:3, 3]
-            cam_near = float(camera.near)
-        elif cam_pos is None:
-            cam_pos = self.position + np.array(
-                [10.0 * (self._radius + self._height + cam_near), 0.0, 0.0], np.float32)
-        self.set_frame_state(self.frame_state_row(time_s, cam_pos, cam_near, origin=origin))
+        with span("port.scene.atmosphere_update"):
+            if cam_pos is None and camera is not None:
+                vtw = camera.view_to_world.detach().to(torch.float64)
+                with span("port.copy.atmosphere_camera", vtw.device):
+                    cam_pos = vtw.cpu().numpy()[:3, 3]
+                with span("port.copy.camera_near", camera.near.device):
+                    cam_near = float(camera.near)
+            elif cam_pos is None:
+                cam_pos = self.position + np.array(
+                    [10.0 * (self._radius + self._height + cam_near), 0.0, 0.0], np.float32)
+            self.set_frame_state(self.frame_state_row(time_s, cam_pos, cam_near, origin=origin))
 
     def set_frame_state(self, row: np.ndarray):
         """Upload one packed frame-state row (24 f32) to the device."""
-        self._params = dataclasses.replace(
-            self._params, frame_state=torch.as_tensor(row, device=self.device))
+        with span("port.copy.frame_state", self.device):
+            frame_state = torch.as_tensor(row, device=self.device)
+        self._params = dataclasses.replace(self._params, frame_state=frame_state)
 
     def frame_state_row(self, time_s: float, cam_pos, cam_near: float = 0.1,
                         origin=None) -> np.ndarray:
@@ -395,8 +401,10 @@ class Scene:
         key = (id(t), t._version, id(f), f._version)
         hit = self._cam_cache.get(key)
         if hit is None:
-            host = torch.cat([t.detach().reshape(-1).to(torch.float64),
-                              f.detach().reshape(-1).to(torch.float64)]).cpu().numpy()
+            flat = torch.cat([t.detach().reshape(-1).to(torch.float64),
+                              f.detach().reshape(-1).to(torch.float64)])
+            with span("port.copy.cam_host", flat.device):
+                host = flat.cpu().numpy()
             # the entry holds the tensors, so their ids are not reused meanwhile
             hit = ((t, f), host[:16].reshape(4, 4), float(host[16]))
             self._remember_camera(key, hit)
@@ -421,13 +429,16 @@ class Scene:
         return m > LARGE_WORLD_THRESHOLD
 
     def update(self, time_s: float, camera: Camera):
-        cam_pos = self._cam_pos(camera)
-        cam_near = float(camera.near)
-        origin = np.array(cam_pos, np.float64) if self._large_world_active(cam_pos) else None
-        self._rebase_origin = origin
-        self._last_update_time = time_s
-        for atmo in self.atmospheres:
-            atmo.update(time_s, cam_pos=cam_pos, cam_near=cam_near, origin=origin)
+        with span("port.scene.update"):
+            cam_pos = self._cam_pos(camera)
+            with span("port.copy.camera_near", camera.near.device):
+                cam_near = float(camera.near)
+            origin = (np.array(cam_pos, np.float64) if self._large_world_active(cam_pos)
+                      else None)
+            self._rebase_origin = origin
+            self._last_update_time = time_s
+            for atmo in self.atmospheres:
+                atmo.update(time_s, cam_pos=cam_pos, cam_near=cam_near, origin=origin)
 
     def _sync_rebase(self, camera: Camera):
         """Make the packed frame states camera-relative where large-world
@@ -456,8 +467,9 @@ class Scene:
         m = m.copy()
         m[:3, 3] -= origin
         m32 = m.astype(np.float32)
-        cam_rel = dataclasses.replace(camera, view_to_world=torch.as_tensor(m32,
-                                                                          device=vtw.device))
+        with span("port.copy.rebased_camera", vtw.device):
+            cam_rel = dataclasses.replace(camera, view_to_world=torch.as_tensor(
+                m32, device=vtw.device))
         t, f = cam_rel.view_to_world, cam_rel.fov_y_rad
         self._remember_camera((id(t), t._version, id(f), f._version),
                               ((t, f), m32.astype(np.float64), fov))
@@ -471,11 +483,12 @@ class Scene:
 
     def _sorted_layers(self, camera: Camera):
         """Atmospheres far → near (Godot's transparent-pass sorting)."""
-        cam_pos = self._cam_pos(camera)
-        order = sorted(self.atmospheres,
-                       key=lambda a: -float(np.linalg.norm(a.position - cam_pos)))
-        return (order, tuple(a.build_params() for a in order),
-                tuple(a.effective_config() for a in order))
+        with span("port.scene.sorted_layers"):
+            cam_pos = self._cam_pos(camera)
+            order = sorted(self.atmospheres,
+                           key=lambda a: -float(np.linalg.norm(a.position - cam_pos)))
+            return (order, tuple(a.build_params() for a in order),
+                    tuple(a.effective_config() for a in order))
 
     def _tex_pyramid(self, t, kind: str):
         """``(table on the scene's device, TexMeta)`` for a baked texture,
@@ -486,11 +499,13 @@ class Scene:
         hit = self._tex_pyr_cache.get(key)
         if hit is not None and hit[0] is t:
             return hit[1]
-        host = t.detach().cpu().numpy()
+        with span("port.copy.tex_pyramid", t.device):
+            host = t.detach().cpu().numpy()
         try:
             data, meta = (build_tex3d_pyramid(host) if kind == "tex3d"
                           else build_latlong_pyramid(host))
-            built = (torch.as_tensor(data, device=self.device), meta)
+            with span("port.copy.tex_pyramid", self.device):
+                built = (torch.as_tensor(data, device=self.device), meta)
         except ValueError:
             built = None
         self._tex_pyr_cache[key] = (t, built)
@@ -510,13 +525,18 @@ class Scene:
         hit = self._tex_pyr_cache.get(key)
         if hit is not None and hit[0] is t:
             return hit[1]
-        host = t.detach().cpu().numpy()
+        with span("port.copy.panorama", t.device):
+            host = t.detach().cpu().numpy()
         if host.ndim != 3 or host.shape[2] != 3:
             raise ValueError(f"panorama must be (H, W, 3), got {host.shape}")
         try:
             width = 1 << int(np.log2(min(2048, max(64, host.shape[1]))))
             datas, meta = build_equirect_pyramid(host, width=width)
-            built = (tuple(torch.as_tensor(d, device=self.device) for d in datas), meta)
+            tables = []
+            for d in datas:
+                with span("port.copy.panorama", self.device):
+                    tables.append(torch.as_tensor(d, device=self.device))
+            built = (tuple(tables), meta)
         except ValueError:
             built = None
         self._tex_pyr_cache[key] = (t, built)
@@ -568,17 +588,19 @@ class Scene:
         or ``None`` where the kernel does not take the scene, which the
         JAX package renders by XLA: the optical-depth LUT, a baked texture
         or a panorama the pyramid builders refuse."""
-        if any(c.od_mode != "analytic" for c in configs):
-            return None
-        plans = [self._texture_plan(p, c) for p, c in zip(params, configs)]
-        for (config, tex), original in zip(plans, configs):
-            if original.clouds_enabled and tex is None and (
-                    original.cloud_shape_noise is None or original.cloud_coverage_noise is None):
+        with span("port.scene.kernel_plan"):
+            if any(c.od_mode != "analytic" for c in configs):
                 return None
-        pano = self._pano_plan()
-        if pano is None:
-            return None
-        return (tuple(c for c, _ in plans), tuple(t for _, t in plans)) + tuple(pano)
+            plans = [self._texture_plan(p, c) for p, c in zip(params, configs)]
+            for (config, tex), original in zip(plans, configs):
+                if original.clouds_enabled and tex is None and (
+                        original.cloud_shape_noise is None
+                        or original.cloud_coverage_noise is None):
+                    return None
+            pano = self._pano_plan()
+            if pano is None:
+                return None
+            return (tuple(c for c, _ in plans), tuple(t for _, t in plans)) + tuple(pano)
 
     @staticmethod
     def _check_layers(configs):
@@ -598,27 +620,28 @@ class Scene:
         the nearest one stays, fullscreen (it shades nothing).  Returns
         ``(order, params, configs, tex_data, bands, band_rows)``, bands and
         rows ``None`` when no layer is banded."""
-        v2w, fov = self._cam_host(camera)
-        origin = self._rebase_origin
-        keep, bands, rows = [], [], []
-        for i, atmo in enumerate(order):
-            center = np.asarray(atmo.position, np.float64)
-            if origin is not None:
-                center = center - origin
-            band = layer_band(atmo.mode, v2w, fov, height, center,
-                              atmo.extra_cull_margin, 0.0, mode_far=MODE_FAR)
-            if band == EMPTY:
-                continue
-            keep.append(i)
-            bands.append(None if band is None else band[1])
-            rows.append(0 if band is None else band[0])
-        if not keep:
-            keep, bands, rows = [len(order) - 1], [None], [0]
-        sel = lambda seq: tuple(seq[i] for i in keep)  # noqa: E731
-        if all(b is None for b in bands):
-            return sel(order), sel(params), sel(configs), sel(tex_data), None, None
-        return (sel(order), sel(params), sel(configs), sel(tex_data), tuple(bands),
-                np.asarray(rows, np.int32))
+        with span("port.scene.layer_bands"):
+            v2w, fov = self._cam_host(camera)
+            origin = self._rebase_origin
+            keep, bands, rows = [], [], []
+            for i, atmo in enumerate(order):
+                center = np.asarray(atmo.position, np.float64)
+                if origin is not None:
+                    center = center - origin
+                band = layer_band(atmo.mode, v2w, fov, height, center,
+                                  atmo.extra_cull_margin, 0.0, mode_far=MODE_FAR)
+                if band == EMPTY:
+                    continue
+                keep.append(i)
+                bands.append(None if band is None else band[1])
+                rows.append(0 if band is None else band[0])
+            if not keep:
+                keep, bands, rows = [len(order) - 1], [None], [0]
+            sel = lambda seq: tuple(seq[i] for i in keep)  # noqa: E731
+            if all(b is None for b in bands):
+                return sel(order), sel(params), sel(configs), sel(tex_data), None, None
+            return (sel(order), sel(params), sel(configs), sel(tex_data), tuple(bands),
+                    np.asarray(rows, np.int32))
 
     def render(self, camera: Camera, height: int, width: int, renderer: str = "auto") -> dict:
         """Render one frame: ``{"color": (H, W, 3), "alpha": (H, W)}``
@@ -633,30 +656,31 @@ class Scene:
         ``"kernel"`` raises ``ValueError`` where the plan refuses the scene;
         ``"plain"`` renders the plain version of the kernel's plan (or, where
         refused, the exact one) on the scene's device."""
-        if renderer not in RENDERERS:
-            raise ValueError(f"renderer must be one of {RENDERERS}, got {renderer!r}")
-        self._sync_rebase(camera)
-        order, params, configs = self._sorted_layers(camera)
-        camera, opaque = self._rebased_view(camera)
-        self._check_layers(configs)
-        plan = self._kernel_plan(params, configs)
-        if plan is None and renderer == "kernel":
-            raise ValueError("the kernel renderer needs analytic optical depth and baked "
-                             "textures and panorama that pack into pyramids")
-        tex_data = (None,) * len(configs)
-        pano_data = pano_meta = None
-        if plan is not None:
-            configs, tex_data, pano_data, pano_meta = plan
-        _, params, configs, tex_data, bands, band_rows = self._layer_bands(
-            order, params, configs, tex_data, camera, height)
-        if plan is not None and renderer != "plain":
-            return render_scene_megakernel(params, configs, camera, opaque, height, width,
-                                           tex_data=tex_data, bands=bands, band_rows=band_rows,
-                                           pano_data=pano_data, pano_meta=pano_meta)
-        out = render_scene_plain(params, configs, camera, opaque, height, width,
-                                 tex_data=tex_data, bands=bands, band_rows=band_rows,
-                                 pano_data=pano_data, pano_meta=pano_meta)
-        return {"color": out["color"], "alpha": out["alpha"]}
+        with span("port.scene.render"):
+            if renderer not in RENDERERS:
+                raise ValueError(f"renderer must be one of {RENDERERS}, got {renderer!r}")
+            self._sync_rebase(camera)
+            order, params, configs = self._sorted_layers(camera)
+            camera, opaque = self._rebased_view(camera)
+            self._check_layers(configs)
+            plan = self._kernel_plan(params, configs)
+            if plan is None and renderer == "kernel":
+                raise ValueError("the kernel renderer needs analytic optical depth and baked "
+                                 "textures and panorama that pack into pyramids")
+            tex_data = (None,) * len(configs)
+            pano_data = pano_meta = None
+            if plan is not None:
+                configs, tex_data, pano_data, pano_meta = plan
+            _, params, configs, tex_data, bands, band_rows = self._layer_bands(
+                order, params, configs, tex_data, camera, height)
+            if plan is not None and renderer != "plain":
+                return render_scene_megakernel(params, configs, camera, opaque, height, width,
+                                               tex_data=tex_data, bands=bands, band_rows=band_rows,
+                                               pano_data=pano_data, pano_meta=pano_meta)
+            out = render_scene_plain(params, configs, camera, opaque, height, width,
+                                     tex_data=tex_data, bands=bands, band_rows=band_rows,
+                                     pano_data=pano_data, pano_meta=pano_meta)
+            return {"color": out["color"], "alpha": out["alpha"]}
 
     def render_flight(self, camera: Camera, times, height: int, width: int,
                       cam_transforms=None, taa_blend=None, taa_depth_eps: float = 0.2,
@@ -686,60 +710,64 @@ class Scene:
         rows with its neighbours per frame (``render_flight_taa_sharded``;
         ``"auto"`` sizes the halo from the camera motion, an int is checked
         against it)."""
-        if mesh is not None and taa_blend is None:
-            raise ValueError("mesh is only honored with taa_blend (the sharded TAA flight); "
-                             "for a sharded non-TAA frame use "
-                             "parallel.sharding.render_scene_megakernel_sharded per frame")
-        times = np.asarray(times, np.float32)
-        cam_pos = self._cam_pos(camera)
-        cam_near = float(camera.near)
-        order, params, configs = self._sorted_layers(camera)
-        self._check_layers(configs)
-        if cam_transforms is not None:
-            if isinstance(cam_transforms, torch.Tensor):
-                cam_transforms = cam_transforms.detach().cpu().numpy()
-            cam_transforms = np.asarray(cam_transforms)
-            if cam_transforms.dtype != np.float64:
+        with span("port.scene.render_flight"):
+            if mesh is not None and taa_blend is None:
+                raise ValueError("mesh is only honored with taa_blend (the sharded TAA flight); "
+                                 "for a sharded non-TAA frame use "
+                                 "parallel.sharding.render_scene_megakernel_sharded per frame")
+            times = np.asarray(times, np.float32)
+            cam_pos = self._cam_pos(camera)
+            with span("port.copy.camera_near", camera.near.device):
+                cam_near = float(camera.near)
+            order, params, configs = self._sorted_layers(camera)
+            self._check_layers(configs)
+            if cam_transforms is not None:
+                if isinstance(cam_transforms, torch.Tensor):
+                    with span("port.copy.flight_transforms", cam_transforms.device):
+                        cam_transforms = cam_transforms.detach().cpu().numpy()
+                cam_transforms = np.asarray(cam_transforms)
+                if cam_transforms.dtype != np.float64:
+                    cam_transforms = cam_transforms.astype(np.float32)
+                if cam_transforms.shape != (len(times), 4, 4):
+                    raise ValueError(f"cam_transforms must be ({len(times)}, 4, 4), got "
+                                     f"{cam_transforms.shape}")
+            origin = None
+            if self._large_world_active(cam_pos):
+                origin = np.array(cam_transforms[0, :3, 3] if cam_transforms is not None
+                                  else cam_pos, np.float64)
+            self._rebase_origin = origin
+            fs_stacks = []
+            with span("port.scene.frame_states"):
+                for atmo in order:
+                    rows = []
+                    for i, t in enumerate(times):
+                        cp = (cam_transforms[i, :3, 3].astype(np.float64)
+                              if cam_transforms is not None else cam_pos)
+                        rows.append(atmo.frame_state_row(float(t), cp, cam_near, origin=origin))
+                    atmo.set_frame_state(rows[-1])
+                    fs_stacks.append(np.stack(rows))
+            camera, opaque = self._rebased_view(camera)
+            if cam_transforms is not None:
+                if origin is not None:
+                    cam_transforms = np.asarray(cam_transforms, np.float64).copy()
+                    cam_transforms[:, :3, 3] -= origin
                 cam_transforms = cam_transforms.astype(np.float32)
-            if cam_transforms.shape != (len(times), 4, 4):
-                raise ValueError(f"cam_transforms must be ({len(times)}, 4, 4), got "
-                                 f"{cam_transforms.shape}")
-        origin = None
-        if self._large_world_active(cam_pos):
-            origin = np.array(cam_transforms[0, :3, 3] if cam_transforms is not None
-                              else cam_pos, np.float64)
-        self._rebase_origin = origin
-        fs_stacks = []
-        for atmo in order:
-            rows = []
-            for i, t in enumerate(times):
-                cp = (cam_transforms[i, :3, 3].astype(np.float64) if cam_transforms is not None
-                      else cam_pos)
-                rows.append(atmo.frame_state_row(float(t), cp, cam_near, origin=origin))
-            atmo.set_frame_state(rows[-1])
-            fs_stacks.append(np.stack(rows))
-        camera, opaque = self._rebased_view(camera)
-        if cam_transforms is not None:
-            if origin is not None:
-                cam_transforms = np.asarray(cam_transforms, np.float64).copy()
-                cam_transforms[:, :3, 3] -= origin
-            cam_transforms = cam_transforms.astype(np.float32)
-        plan = self._kernel_plan(params, configs)
-        kw = dict(cam_stack=cam_transforms)
-        if plan is not None:
-            configs, tex_data, pano_data, pano_meta = plan
-            kw.update(tex_data=tex_data, pano_data=pano_data, pano_meta=pano_meta)
-        args = (params, fs_stacks, configs, camera, opaque, height, width)
-        taa_kw = dict(blend=float(taa_blend), depth_eps=float(taa_depth_eps),
-                      clamp_mode=taa_clamp, clamp_gamma=float(taa_clamp_gamma), **kw) \
-            if taa_blend is not None else None
-        if plan is None:
-            return self._plain_flight(args, cam_transforms, taa_kw, mesh)
-        if taa_blend is None:
-            return render_flight_megakernel(*args, **kw)
-        if mesh is not None:
-            return render_flight_taa_sharded(*args, mesh, halo=taa_halo, **taa_kw)
-        return render_flight_taa(*args, **taa_kw)
+            plan = self._kernel_plan(params, configs)
+            kw = dict(cam_stack=cam_transforms)
+            if plan is not None:
+                configs, tex_data, pano_data, pano_meta = plan
+                kw.update(tex_data=tex_data, pano_data=pano_data, pano_meta=pano_meta)
+            args = (params, fs_stacks, configs, camera, opaque, height, width)
+            taa_kw = dict(blend=float(taa_blend), depth_eps=float(taa_depth_eps),
+                          clamp_mode=taa_clamp, clamp_gamma=float(taa_clamp_gamma), **kw) \
+                if taa_blend is not None else None
+            if plan is None:
+                return self._plain_flight(args, cam_transforms, taa_kw, mesh)
+            if taa_blend is None:
+                return render_flight_megakernel(*args, **kw)
+            if mesh is not None:
+                return render_flight_taa_sharded(*args, mesh, halo=taa_halo, **taa_kw)
+            return render_flight_taa(*args, **taa_kw)
 
     @staticmethod
     def _plain_flight(args, cam_transforms, taa_kw, mesh):

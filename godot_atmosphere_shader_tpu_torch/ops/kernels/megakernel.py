@@ -82,6 +82,7 @@ from ...render.renderer import (TILE_COLS, TILE_ROWS, opaque_only_config, planet
                                 render_flight_plain, render_frame, render_scene,
                                 render_scene_band, shared_reverse_z)
 from ...utils.camera import Camera, ray_scale, transform_dir, transform_point, world_ray_dirs
+from ...utils.profiling import span
 from ...utils.vecmath import Vec3, normalize
 from ..atmosphere_v2 import scattering_coefficients
 from ..clouds import SUN_REACH, SUN_STEPS, cloud_settings, march_distance_limit
@@ -773,7 +774,8 @@ def scene_buffer(opaque, parts, device) -> Optional[torch.Tensor]:
     host = torch.from_numpy(flat)
     if device.type == "cuda":
         host = host.pin_memory()
-    _SCENE_BUFFERS[key] = (opaque, host, host.to(device, non_blocking=True))
+    with span("port.copy.scene_buffer", device):
+        _SCENE_BUFFERS[key] = (opaque, host, host.to(device, non_blocking=True))
     while len(_SCENE_BUFFERS) > _SCENE_BUFFER_ENTRIES:
         _SCENE_BUFFERS.popitem(last=False)
     return _SCENE_BUFFERS[key][2]
@@ -796,11 +798,14 @@ def scene_layout(struct: MegakernelParams) -> dict:
     return out
 
 
-def _to_cpu(obj, names):
+def _to_cpu(obj, names, site: str):
     """Copy the named tensor fields of a dataclass to the CPU in one
-    transfer (one device sync instead of one per field)."""
+    transfer (one device sync instead of one per field), in the span
+    ``site`` where they are on a card."""
     tensors = [getattr(obj, n) for n in names]
-    flat = torch.cat([t.detach().reshape(-1).to(torch.float32) for t in tensors]).cpu()
+    flat = torch.cat([t.detach().reshape(-1).to(torch.float32) for t in tensors])
+    with span(site, flat.device):
+        flat = flat.cpu()
     out, i = {}, 0
     for n, t in zip(names, tensors):
         out[n] = flat[i:i + t.numel()].reshape(t.shape)
@@ -843,114 +848,115 @@ def frame_constants(params: AtmosphereParams, config: VariantConfig,
     or octaves than the struct holds: on ``device`` (default: the
     camera's), cached for ``owner`` (default: ``opaque``; a caller that
     hands over host copies names the scene they came from)."""
-    p = _to_cpu(params.resolve_frame_state(), _PARAM_FIELDS)
-    cam = _to_cpu(camera, _CAMERA_FIELDS)
-    o = None if opaque is None else _to_cpu(opaque, _OPAQUE_FIELDS)
-    s = MegakernelParams()
-    s.height, s.width = height, width
-    s.row0, s.rows = 0, height
-    s.with_atmosphere = 1
-    s.ray_sx, s.ray_sy = ray_scale(cam, height, width)
+    with span("port.megakernel.frame_constants"):
+        p = _to_cpu(params.resolve_frame_state(), _PARAM_FIELDS, "port.copy.params")
+        cam = _to_cpu(camera, _CAMERA_FIELDS, "port.copy.camera")
+        o = None if opaque is None else _to_cpu(opaque, _OPAQUE_FIELDS, "port.copy.opaque")
+        s = MegakernelParams()
+        s.height, s.width = height, width
+        s.row0, s.rows = 0, height
+        s.with_atmosphere = 1
+        s.ray_sx, s.ray_sy = ray_scale(cam, height, width)
 
-    parts = []
-    if o is not None:
-        ns, nb = o.sphere_centers.shape[0], o.box_world_to_box.shape[0]
-        # the struct's spheres and boxes, and how many more the buffer holds
-        s.with_opaque = 1
-        s.n_spheres, s.n_boxes = min(ns, INLINE_SPHERES), min(nb, INLINE_BOXES)
-        s.ext_spheres, s.ext_boxes = ns - s.n_spheres, nb - s.n_boxes
-        spheres = torch.cat([o.sphere_centers.reshape(ns, 3),
-                             (o.sphere_radii * o.sphere_radii).reshape(ns, 1),
-                             o.sphere_albedos.reshape(ns, 3),
-                             o.sphere_unshaded.reshape(ns, 1)], dim=1).numpy()
-        boxes = torch.cat([o.box_world_to_box.reshape(nb, 16), o.box_half_sizes.reshape(nb, 3),
-                           o.box_albedos.reshape(nb, 3)], dim=1).numpy()
-        ni, nj = min(ns, INLINE_SPHERES), min(nb, INLINE_BOXES)
-        _set(s.sphere_center, spheres[:ni, 0:3].reshape(-1).tolist())
-        _set(s.sphere_radius2, spheres[:ni, 3].tolist())
-        _set(s.sphere_albedo, spheres[:ni, 4:7].reshape(-1).tolist())
-        _set(s.sphere_unshaded, spheres[:ni, 7].tolist())
-        _set(s.box_w2b, boxes[:nj, 0:16].reshape(-1).tolist())
-        _set(s.box_half, boxes[:nj, 16:19].reshape(-1).tolist())
-        _set(s.box_albedo, boxes[:nj, 19:22].reshape(-1).tolist())
-        parts += [spheres[ni:], boxes[nj:]]
-        _set(s.light_dir, o.light_dir.tolist())
-        s.ambient = float(o.ambient)
-        _set(s.sky_color, o.sky_color.tolist())
-        s.star_intensity = float(o.star_intensity)
+        parts = []
+        if o is not None:
+            ns, nb = o.sphere_centers.shape[0], o.box_world_to_box.shape[0]
+            # the struct's spheres and boxes, and how many more the buffer holds
+            s.with_opaque = 1
+            s.n_spheres, s.n_boxes = min(ns, INLINE_SPHERES), min(nb, INLINE_BOXES)
+            s.ext_spheres, s.ext_boxes = ns - s.n_spheres, nb - s.n_boxes
+            spheres = torch.cat([o.sphere_centers.reshape(ns, 3),
+                                 (o.sphere_radii * o.sphere_radii).reshape(ns, 1),
+                                 o.sphere_albedos.reshape(ns, 3),
+                                 o.sphere_unshaded.reshape(ns, 1)], dim=1).numpy()
+            boxes = torch.cat([o.box_world_to_box.reshape(nb, 16), o.box_half_sizes.reshape(nb, 3),
+                               o.box_albedos.reshape(nb, 3)], dim=1).numpy()
+            ni, nj = min(ns, INLINE_SPHERES), min(nb, INLINE_BOXES)
+            _set(s.sphere_center, spheres[:ni, 0:3].reshape(-1).tolist())
+            _set(s.sphere_radius2, spheres[:ni, 3].tolist())
+            _set(s.sphere_albedo, spheres[:ni, 4:7].reshape(-1).tolist())
+            _set(s.sphere_unshaded, spheres[:ni, 7].tolist())
+            _set(s.box_w2b, boxes[:nj, 0:16].reshape(-1).tolist())
+            _set(s.box_half, boxes[:nj, 16:19].reshape(-1).tolist())
+            _set(s.box_albedo, boxes[:nj, 19:22].reshape(-1).tolist())
+            parts += [spheres[ni:], boxes[nj:]]
+            _set(s.light_dir, o.light_dir.tolist())
+            s.ambient = float(o.ambient)
+            _set(s.sky_color, o.sky_color.tolist())
+            s.star_intensity = float(o.star_intensity)
 
-    ra = p.planet_radius + p.atmosphere_height
-    s.model = MODELS[config.model]
-    s.atmosphere_steps = config.atmosphere_steps
-    s.planet_radius = float(p.planet_radius)
-    s.atmosphere_height = float(p.atmosphere_height)
-    s.atmosphere_radius = float(ra)
-    s.atmosphere_radius2 = float(ra * ra)
-    s.planet_radius2 = float(p.planet_radius * p.planet_radius)
-    s.inv_height = float(1.0 / p.atmosphere_height)
-    s.density = float(p.density)
-    s.density2 = float(p.density * p.density)
-    s.sphere_depth_factor = float(p.sphere_depth_factor)
-    _set(s.scatter, [float(c) for c in scattering_coefficients(p)])
-    _set(s.ambient_color, p.atmosphere_ambient_color.tolist())
-    _set(s.modulate, p.atmosphere_modulate.tolist())
-    nodes, weights = gauss_legendre_01(QUAD_POINTS)
-    _set(s.quad_x, nodes)
-    _set(s.quad_w, weights)
-    for name in ("day_color0", "day_color1", "night_color0", "night_color1"):
-        _set(getattr(s, name), getattr(p, name).tolist())
-    s.day_night_transition_scale = float(p.day_night_transition_scale)
+        ra = p.planet_radius + p.atmosphere_height
+        s.model = MODELS[config.model]
+        s.atmosphere_steps = config.atmosphere_steps
+        s.planet_radius = float(p.planet_radius)
+        s.atmosphere_height = float(p.atmosphere_height)
+        s.atmosphere_radius = float(ra)
+        s.atmosphere_radius2 = float(ra * ra)
+        s.planet_radius2 = float(p.planet_radius * p.planet_radius)
+        s.inv_height = float(1.0 / p.atmosphere_height)
+        s.density = float(p.density)
+        s.density2 = float(p.density * p.density)
+        s.sphere_depth_factor = float(p.sphere_depth_factor)
+        _set(s.scatter, [float(c) for c in scattering_coefficients(p)])
+        _set(s.ambient_color, p.atmosphere_ambient_color.tolist())
+        _set(s.modulate, p.atmosphere_modulate.tolist())
+        nodes, weights = gauss_legendre_01(QUAD_POINTS)
+        _set(s.quad_x, nodes)
+        _set(s.quad_w, weights)
+        for name in ("day_color0", "day_color1", "night_color0", "night_color1"):
+            _set(getattr(s, name), getattr(p, name).tolist())
+        s.day_night_transition_scale = float(p.day_night_transition_scale)
 
-    if config.clouds_enabled:
-        st = cloud_settings(p)
-        s.clouds_enabled = 1
-        s.cloud_steps = config.cloud_steps
-        s.raymarched_lighting = int(config.raymarched_lighting)
-        s.cloud_lod = config.cloud_lod
-        s.coverage_lod = config.cloud_coverage_lod
-        s.coverage_knots = max(config.cloud_coverage_knots, 1)
-        s.coverage_interp = int(config.cloud_coverage_interp)
-        s.shape_interp = int(config.cloud_shape_interp)
-        s.shape_knots = max(config.cloud_shape_knots, 1)
-        s.always_low = int(config.clouds_always_low_quality)
-        s.cloud_bottom_radius = float(st.bottom_height)
-        s.cloud_top_radius = float(st.top_height)
-        s.cloud_bottom_radius2 = float(st.bottom_height * st.bottom_height)
-        s.cloud_top_radius2 = float(st.top_height * st.top_height)
-        s.cloud_layer = float(st.top_height - st.bottom_height)
-        s.cloud_density_scale = float(p.cloud_density_scale)
-        s.cloud_blend = float(p.cloud_blend)
-        s.cloud_shape_invert = float(p.cloud_shape_invert)
-        s.cloud_coverage_bias = float(p.cloud_coverage_bias)
-        s.cloud_shape_factor = float(p.cloud_shape_factor)
-        s.cloud_shape_scale = float(p.cloud_shape_scale)
-        s.cloud_shape_bound = float(0.5 + 0.575 * p.cloud_shape_factor.abs())
-        # the cull bound's detail term: 0.2 · 0.5 at low quality, 0 at full
-        s.cloud_detail_term = 0.1 if config.clouds_always_low_quality else 0.0
-        # the sun march's first step, (0.15 · layer) / 6 in f32 as
-        # clouds.py::get_light_raymarched computes it
-        layer = st.top_height - st.bottom_height
-        s.sun_step0 = float((layer * SUN_REACH) / float(SUN_STEPS))
-        # procedural fields (texture mode samples its pyramids instead)
-        exts = {}
-        for name, field in (("shape", config.cloud_shape_noise),
-                            ("coverage", config.cloud_coverage_noise)):
-            if field is not None:
-                spec, exts[name] = _noise_params(field.noise, field.scale)
-                setattr(s, name, spec)
-        parts += [exts.get("shape", ()), exts.get("coverage", ())]
-    buf = (scene_buffer(opaque if owner is None else owner, parts,
-                        camera.view_to_world.device if device is None else device)
-           if parts else None)
-    if buf is not None:
-        base = buf.data_ptr()
-        lay = scene_layout(s)
-        s.geom = base if lay["spheres"][1] + lay["boxes"][1] else None
-        for name in ("shape", "coverage"):
-            at, n = lay[name]
-            getattr(s, name).ext = base + 4 * at if n else None
-    _frame_fields(s, p, config, cam, o)
-    return s
+        if config.clouds_enabled:
+            st = cloud_settings(p)
+            s.clouds_enabled = 1
+            s.cloud_steps = config.cloud_steps
+            s.raymarched_lighting = int(config.raymarched_lighting)
+            s.cloud_lod = config.cloud_lod
+            s.coverage_lod = config.cloud_coverage_lod
+            s.coverage_knots = max(config.cloud_coverage_knots, 1)
+            s.coverage_interp = int(config.cloud_coverage_interp)
+            s.shape_interp = int(config.cloud_shape_interp)
+            s.shape_knots = max(config.cloud_shape_knots, 1)
+            s.always_low = int(config.clouds_always_low_quality)
+            s.cloud_bottom_radius = float(st.bottom_height)
+            s.cloud_top_radius = float(st.top_height)
+            s.cloud_bottom_radius2 = float(st.bottom_height * st.bottom_height)
+            s.cloud_top_radius2 = float(st.top_height * st.top_height)
+            s.cloud_layer = float(st.top_height - st.bottom_height)
+            s.cloud_density_scale = float(p.cloud_density_scale)
+            s.cloud_blend = float(p.cloud_blend)
+            s.cloud_shape_invert = float(p.cloud_shape_invert)
+            s.cloud_coverage_bias = float(p.cloud_coverage_bias)
+            s.cloud_shape_factor = float(p.cloud_shape_factor)
+            s.cloud_shape_scale = float(p.cloud_shape_scale)
+            s.cloud_shape_bound = float(0.5 + 0.575 * p.cloud_shape_factor.abs())
+            # the cull bound's detail term: 0.2 · 0.5 at low quality, 0 at full
+            s.cloud_detail_term = 0.1 if config.clouds_always_low_quality else 0.0
+            # the sun march's first step, (0.15 · layer) / 6 in f32 as
+            # clouds.py::get_light_raymarched computes it
+            layer = st.top_height - st.bottom_height
+            s.sun_step0 = float((layer * SUN_REACH) / float(SUN_STEPS))
+            # procedural fields (texture mode samples its pyramids instead)
+            exts = {}
+            for name, field in (("shape", config.cloud_shape_noise),
+                                ("coverage", config.cloud_coverage_noise)):
+                if field is not None:
+                    spec, exts[name] = _noise_params(field.noise, field.scale)
+                    setattr(s, name, spec)
+            parts += [exts.get("shape", ()), exts.get("coverage", ())]
+        buf = (scene_buffer(opaque if owner is None else owner, parts,
+                            camera.view_to_world.device if device is None else device)
+               if parts else None)
+        if buf is not None:
+            base = buf.data_ptr()
+            lay = scene_layout(s)
+            s.geom = base if lay["spheres"][1] + lay["boxes"][1] else None
+            for name in ("shape", "coverage"):
+                at, n = lay[name]
+                getattr(s, name).ext = base + 4 * at if n else None
+        _frame_fields(s, p, config, cam, o)
+        return s
 
 
 def _frame_fields(s: MegakernelParams, p: AtmosphereParams, config: VariantConfig,
@@ -991,21 +997,23 @@ def flight_constants(params: AtmosphereParams, config: VariantConfig, camera: Ca
     whole, then per frame a copy with its per-frame fields patched from the
     host rows ``frame_states`` (K, 24) and transforms ``cam_stack``
     (K, 4, 4).  ``params``' own frame state is ignored."""
-    p = _to_cpu(dataclasses.replace(params, frame_state=None), _PARAM_FIELDS)
-    cam = _to_cpu(camera, _CAMERA_FIELDS)
-    o = None if opaque is None else _to_cpu(opaque, _OPAQUE_FIELDS)
-    structs = []
-    for fs, vtw in zip(frame_states, cam_stack):
-        p_i = dataclasses.replace(p, frame_state=torch.from_numpy(fs)).resolve_frame_state()
-        cam_i = dataclasses.replace(cam, view_to_world=torch.from_numpy(vtw))
-        if not structs:
-            structs.append(frame_constants(p_i, config, cam_i, o, height, width, owner=opaque,
-                                           device=camera.view_to_world.device))
-            continue
-        s = MegakernelParams.from_buffer_copy(structs[0])
-        _frame_fields(s, p_i, config, cam_i, o)
-        structs.append(s)
-    return structs
+    with span("port.megakernel.flight_constants"):
+        p = _to_cpu(dataclasses.replace(params, frame_state=None), _PARAM_FIELDS,
+                    "port.copy.params")
+        cam = _to_cpu(camera, _CAMERA_FIELDS, "port.copy.camera")
+        o = None if opaque is None else _to_cpu(opaque, _OPAQUE_FIELDS, "port.copy.opaque")
+        structs = []
+        for fs, vtw in zip(frame_states, cam_stack):
+            p_i = dataclasses.replace(p, frame_state=torch.from_numpy(fs)).resolve_frame_state()
+            cam_i = dataclasses.replace(cam, view_to_world=torch.from_numpy(vtw))
+            if not structs:
+                structs.append(frame_constants(p_i, config, cam_i, o, height, width, owner=opaque,
+                                               device=camera.view_to_world.device))
+                continue
+            s = MegakernelParams.from_buffer_copy(structs[0])
+            _frame_fields(s, p_i, config, cam_i, o)
+            structs.append(s)
+        return structs
 
 
 def tex_constants(config: VariantConfig, shape: Optional[texsample.TexMeta] = None,
@@ -1134,7 +1142,8 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
     device = color.device
     blue = _BLUE_NOISE.get(str(device))
     if blue is None:
-        blue = _BLUE_NOISE[str(device)] = blue_noise_tensor(device=device)
+        with span("port.copy.blue_noise", device):
+            blue = _BLUE_NOISE[str(device)] = blue_noise_tensor(device=device)
     lib = load_library()
     sky_params, sky_r, sky_g, sky_b = sky if sky is not None else (None, None, None, None)
     sky_ref = None if sky_params is None else ctypes.byref(sky_params)
@@ -1148,18 +1157,20 @@ def launch(struct: MegakernelParams, color: torch.Tensor, alpha: torch.Tensor,
         scratch = torch.empty(tex_scratch_floats(struct), dtype=torch.float32, device=device)
     instance = ctypes.c_int(-1)  # the texture instance the launcher reports
     planes = tuple(_plane_ptr(t, struct) for t in (color, alpha, depth))
-    if tex is None:
-        rc = library.launch(lib.megakernel_launch, color, (
-            ctypes.byref(struct), sky_ref, _ptr(blue), _ptr(sky_r), _ptr(sky_g), _ptr(sky_b),
-            _ptr(choices), *planes), (_ptr(work),))
-    else:
-        tparams, shape_table, cov_table = tex
-        rc = library.launch(lib.megakernel_tex_launch, color, (
-            ctypes.byref(struct), ctypes.byref(tparams), sky_ref, _ptr(blue), _ptr(shape_table),
-            _ptr(cov_table), _ptr(sky_r), _ptr(sky_g), _ptr(sky_b), *planes), (
-            _ptr(work), int(general), ctypes.byref(instance), _ptr(choices),
-            0 if choices is None else choices.numel(), _ptr(scratch),
-            0 if scratch is None else scratch.numel()))
+    with span("port.megakernel.launch"):
+        if tex is None:
+            rc = library.launch(lib.megakernel_launch, color, (
+                ctypes.byref(struct), sky_ref, _ptr(blue), _ptr(sky_r), _ptr(sky_g),
+                _ptr(sky_b), _ptr(choices), *planes), (_ptr(work),))
+        else:
+            tparams, shape_table, cov_table = tex
+            rc = library.launch(lib.megakernel_tex_launch, color, (
+                ctypes.byref(struct), ctypes.byref(tparams), sky_ref, _ptr(blue),
+                _ptr(shape_table), _ptr(cov_table), _ptr(sky_r), _ptr(sky_g), _ptr(sky_b),
+                *planes), (
+                _ptr(work), int(general), ctypes.byref(instance), _ptr(choices),
+                0 if choices is None else choices.numel(), _ptr(scratch),
+                0 if scratch is None else scratch.numel()))
     if rc != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {rc}")
     counters.megakernel_launches += 1
@@ -1627,7 +1638,8 @@ def _flight(params_seq, fs_stacks, configs, camera, opaque, height, width, cam_s
     fs_stacks = [np.ascontiguousarray(fs, np.float32) for fs in fs_stacks]
     k = fs_stacks[0].shape[0]
     if cam_stack is None:
-        vtw = camera.view_to_world.detach().cpu().numpy()
+        with span("port.copy.flight_view", camera.view_to_world.device):
+            vtw = camera.view_to_world.detach().cpu().numpy()
         cam_stack = np.broadcast_to(vtw, (k, 4, 4))
     cam_stack = np.ascontiguousarray(cam_stack, np.float32)
     if (len(fs_stacks) != len(configs) or k < 1 or cam_stack.shape != (k, 4, 4)

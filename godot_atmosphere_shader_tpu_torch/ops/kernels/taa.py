@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ...utils.camera import Camera, ray_scale, rigid_inverse, transform_dir, transform_point
+from ...utils.profiling import span
 from ...utils.vecmath import Vec3
 from . import library
 
@@ -147,7 +148,8 @@ def check_shapes(rows: int, hist_rows: int, width: int, clamp_mode: str):
 
 
 def _host(t: torch.Tensor) -> torch.Tensor:
-    return t.detach().to("cpu", torch.float32)
+    with span("port.copy.taa_camera", t.device):
+        return t.detach().to("cpu", torch.float32)
 
 
 def _row(v) -> int:
@@ -362,10 +364,11 @@ def launch(p: TaaParams, cur: torch.Tensor, linear_depth: torch.Tensor,
     if cur.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError("taa launch: the current and output rgb planes must be 16-byte "
                          "aligned")
-    rc = library.launch(_launcher(), out, (
-        ctypes.byref(p), cur.data_ptr(), linear_depth.data_ptr(), history.data_ptr(),
-        history_depth.data_ptr(), out.data_ptr(), depth_out.data_ptr(),
-        None if valid is None else valid.data_ptr()))
+    with span("port.taa.launch"):
+        rc = library.launch(_launcher(), out, (
+            ctypes.byref(p), cur.data_ptr(), linear_depth.data_ptr(), history.data_ptr(),
+            history_depth.data_ptr(), out.data_ptr(), depth_out.data_ptr(),
+            None if valid is None else valid.data_ptr()))
     if rc != 0:
         raise RuntimeError(f"taa launch failed: CUDA error {rc}")
     counters.launches += 1
@@ -379,15 +382,16 @@ def flight_constants(camera: Camera, cam_stack: np.ndarray, settings: TaaSetting
     blend 1.0: it has no history).  A row shard's flight: ``rows`` rows
     from ``row0``, against a history of those rows and ``halo`` more above
     and below."""
-    rows = height if rows is None else rows
-    cam = Camera(view_to_world=_host(camera.view_to_world), fov_y_rad=_host(camera.fov_y_rad),
-                 near=_host(camera.near), far=_host(camera.far))
-    cams = [dataclasses.replace(cam, view_to_world=torch.from_numpy(np.asarray(m, np.float32)))
-            for m in cam_stack]
-    return [taa_constants(cams[max(i - 1, 0)], cams[i], 1.0 if i == 0 else settings.blend,
-                          height, width, rows + 2 * halo, settings.depth_eps,
-                          settings.clamp_mode, settings.clamp_gamma, rows=rows, row0=row0,
-                          hist_row0=row0 - halo) for i in range(len(cams))]
+    with span("port.taa.flight_constants"):
+        rows = height if rows is None else rows
+        cam = Camera(view_to_world=_host(camera.view_to_world), fov_y_rad=_host(camera.fov_y_rad),
+                     near=_host(camera.near), far=_host(camera.far))
+        cams = [dataclasses.replace(cam, view_to_world=torch.from_numpy(np.asarray(m, np.float32)))
+                for m in cam_stack]
+        return [taa_constants(cams[max(i - 1, 0)], cams[i], 1.0 if i == 0 else settings.blend,
+                              height, width, rows + 2 * halo, settings.depth_eps,
+                              settings.clamp_mode, settings.clamp_gamma, rows=rows, row0=row0,
+                              hist_row0=row0 - halo) for i in range(len(cams))]
 
 
 def _check_planes(cur, linear_depth, history, history_depth, width):

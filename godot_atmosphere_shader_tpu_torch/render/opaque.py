@@ -20,6 +20,7 @@ from ..ops.sampling import sample_equirect_bilinear
 from ..utils.camera import (Camera, background_depth,
                             nonlinear_depth_from_view_z, transform_dir,
                             transform_point, world_ray_dirs)
+from ..utils.profiling import span
 from ..utils.vecmath import Vec3, normalize, ray_box, ray_sphere
 
 #: star cells per unit of ray direction, hash seed, and brightness knee of
@@ -94,8 +95,10 @@ class OpaqueScene:
         if host_cache is not None and "sc" in host_cache:
             sc, bm = host_cache["sc"], host_cache["bm"]
         else:
-            sc = self.sphere_centers.detach().cpu().numpy().astype(np.float64)
-            bm = self.box_world_to_box.detach().cpu().numpy().astype(np.float64)
+            with span("port.copy.opaque_rebase", self.sphere_centers.device):
+                sc = self.sphere_centers.detach().cpu().numpy().astype(np.float64)
+            with span("port.copy.opaque_rebase", self.box_world_to_box.device):
+                bm = self.box_world_to_box.detach().cpu().numpy().astype(np.float64)
             if host_cache is not None:
                 host_cache["sc"], host_cache["bm"] = sc, bm
         o = np.asarray(origin, np.float64)
@@ -105,9 +108,11 @@ class OpaqueScene:
             # box = M·p_world, p_world = p_rel + origin  ⇒  t' = t + R·origin
             bm_rel[:, :3, 3] += bm_rel[:, :3, :3] @ o
         device = self.sphere_centers.device
-        return dataclasses.replace(
-            self, sphere_centers=torch.as_tensor(sc_rel, device=device),
-            box_world_to_box=torch.as_tensor(bm_rel.astype(np.float32), device=device))
+        with span("port.copy.opaque_rebase", device):
+            centers = torch.as_tensor(sc_rel, device=device)
+        with span("port.copy.opaque_rebase", device):
+            boxes = torch.as_tensor(bm_rel.astype(np.float32), device=device)
+        return dataclasses.replace(self, sphere_centers=centers, box_world_to_box=boxes)
 
 
 def starfield(ray_dir: Vec3, star_intensity):

@@ -21,6 +21,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .profiling import span
 from .vecmath import Vec3, normalize
 
 
@@ -41,17 +42,23 @@ class Camera:
         :func:`look_at` returns it for float64 inputs) stays float64, so
         ``Scene`` can rebase the world around it before anything is cast
         to float32."""
-        if view_to_world is None:
-            view_to_world = torch.eye(4, dtype=torch.float32)
-        f32 = dict(dtype=torch.float32, device=device)
-        wide = isinstance(view_to_world, np.ndarray) and view_to_world.dtype == np.float64
-        return Camera(
-            view_to_world=torch.as_tensor(
-                view_to_world, dtype=torch.float64 if wide else torch.float32, device=device),
-            fov_y_rad=torch.deg2rad(torch.as_tensor(fov_y_deg, **f32)),
-            near=torch.as_tensor(near, **f32),
-            far=torch.as_tensor(far, **f32),
-        )
+        def upload(value, dtype=torch.float32):
+            # a host value crosses to ``device``; a tensor on a card stays where it is
+            on_card = isinstance(value, torch.Tensor) and value.is_cuda
+            with span("port.copy.camera_create", "cpu" if on_card else device):
+                return torch.as_tensor(value, dtype=dtype, device=device)
+
+        with span("port.camera.create"):
+            if view_to_world is None:
+                view_to_world = torch.eye(4, dtype=torch.float32)
+            wide = isinstance(view_to_world, np.ndarray) and view_to_world.dtype == np.float64
+            return Camera(
+                view_to_world=upload(view_to_world,
+                                     torch.float64 if wide else torch.float32),
+                fov_y_rad=torch.deg2rad(upload(fov_y_deg)),
+                near=upload(near),
+                far=upload(far),
+            )
 
     @property
     def world_to_view(self) -> torch.Tensor:

@@ -1,10 +1,16 @@
 """Per-frame statistics of a render: rays, worst-case samples per ray,
-frame latency and Mrays/s.
+frame latency and Mrays/s; and the spans that name the program's host work
+in a ``torch.profiler`` trace.
 
 Counterpart of ``FrameStats``, ``samples_per_ray`` and ``FrameTimer`` of
 ``godot_atmosphere_shader_tpu/utils/profiling.py``.  A frame's time is its
 latency: :meth:`FrameTimer.frame` synchronises the device at the end of the
 frame, as the JAX timer's fetch of a pixel does.
+
+:func:`span` marks the host preamble of ``Scene.update``, ``Scene.render``
+and ``Scene.render_flight`` by function (``port.<module>.<function>``) and
+every host↔device copy on those paths (``port.copy.<site>``), so a trace
+says which host work the device waits on.
 """
 
 from __future__ import annotations
@@ -14,8 +20,12 @@ import dataclasses
 import time
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
 
 from ..models.params import VariantConfig
+
+#: what :func:`span` returns while no profiler records
+_OFF = contextlib.nullcontext()
 
 
 @dataclasses.dataclass
@@ -70,3 +80,22 @@ class FrameTimer:
             atmosphere_steps=self.config.atmosphere_steps,
             cloud_steps=self.config.cloud_steps if self.config.clouds_enabled else 0,
             samples_per_ray=samples_per_ray(self.config))
+
+
+def span(name: str, device=None):
+    """A named range of the program's host work in a ``torch.profiler``
+    trace: ``with span("port.scene.render"): ...``.
+
+    While no profiler session records, it costs one check and opens
+    nothing.  While one records, it is a CPU range on the trace's clock,
+    nested under the range around it on the same thread.  The range is
+    recorded at function scope, as PyTorch's operators are, so it puts no
+    event on the device's timeline (``record_function`` would mirror it
+    there, over the kernels launched inside it).  ``device``: the span of
+    a copy between the host and ``device``, opened only where that is a
+    CUDA device (a host tensor's copy to the host copies nothing)."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    if device is not None and torch.device(device).type != "cuda":
+        return _OFF
+    return _RecordFunctionFast(name)

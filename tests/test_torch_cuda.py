@@ -1446,3 +1446,92 @@ def test_band_fidelity_on_the_card(cuda, baked):
     assert res["k2_vs_plain_max"] <= 2e-6
     assert res["banded"]["mean"] < res["windowed"]["mean"] / 10
     assert mk.counters.texsample_launches > 0
+
+
+# -- the program's spans against the device's copies -------------------------------
+
+
+@pytest.mark.cuda
+def test_copy_spans_name_every_transfer(cuda):
+    """One flagship frame (a new camera, ``Scene.update``, ``Scene.render``)
+    and one 8-frame TAA flight at 1080p under ``torch.profiler``, each call
+    inside a ``bench.*`` range as the benchmark's traced run puts it: in each
+    unit the copy spans (``port.copy.*``) are as many as the trace's
+    host↔device copies, one launch span per launch, every program span
+    nests in its unit's ``bench.*`` ranges, and none reaches the device's
+    timeline."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from godot_atmosphere_shader_tpu_torch.ops.kernels import taa
+    from godot_atmosphere_shader_tpu_torch.utils.camera import Camera
+    from godot_atmosphere_shader_tpu_torch.utils.flight import FlyCamera
+
+    h, w, k = 1080, 1920, 8
+    scene = build_demo_scene("clouds_high", device=cuda)
+    fly = FlyCamera(position=(0.0, 0.0, 156.425))
+    poses = []
+    for _ in range(k + 1):
+        poses.append(fly.view_to_world())
+        fly.look(0.002, 0.0).move((0.0, 0.0, -10.0))
+    poses = np.stack(poses).astype(np.float32)
+    times = 0.5 + np.arange(k) / 60.0
+
+    def frame():
+        with record_function("bench.update"):
+            cam = Camera.create(poses[0], device=cuda)
+            scene.update(float(times[0]), cam)
+        with record_function("bench.render"):
+            scene.render(cam, h, w)
+
+    def flight():
+        with record_function("bench.render_flight"):
+            cam = Camera.create(poses[1], device=cuda)
+            scene.render_flight(cam, times, h, w, cam_transforms=poses[1:], taa_blend=0.15)
+
+    frame()  # the library's build, the blue-noise tile: once a process
+    flight()
+    torch.cuda.synchronize()
+    mk.counters.reset()
+    taa.counters.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        frame()
+        torch.cuda.synchronize()
+        flight()
+        torch.cuda.synchronize()
+    on_cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert any("megakernel_gen" in e.name for e in on_card), "the trace holds no K1 launch"
+    assert not [e.name for e in on_card if e.name.startswith("port.")]
+    program = [e for e in on_cpu if e.name.startswith("port.")]
+    for name in {e.name for e in program}:
+        assert not any(s in name for s in ("DtoH", "HtoD", "megakernel_gen", "megakernel_clear",
+                                           "megakernel_tex", "tex_choice_kernel",
+                                           "taa_kernel")), name
+    bench = {}
+    for e in on_cpu:
+        if e.name.startswith("bench."):
+            unit = "flight" if e.name == "bench.render_flight" else "frame"
+            bench.setdefault(unit, []).append((e.time_range.start, e.time_range.end))
+    assert sorted(bench) == ["flight", "frame"] and len(bench["frame"]) == 2
+
+    def inside(e, ranges):
+        return any(s <= e.time_range.start and e.time_range.end <= t for s, t in ranges)
+
+    for e in program:
+        assert inside(e, bench["frame"]) or inside(e, bench["flight"]), e.name
+    counts = {}
+    for unit, ranges in bench.items():
+        window = [(min(s for s, _ in ranges), max(t for _, t in ranges))]
+        copies = [e.name for e in program if e.name.startswith("port.copy.")
+                  and inside(e, ranges)]
+        memcpy = [e.name for e in on_card if ("HtoD" in e.name or "DtoH" in e.name)
+                  and e.time_range.start >= window[0][0]
+                  and e.time_range.start <= window[0][1]]
+        counts[unit] = (len(copies), len(memcpy), sorted(copies))
+        assert copies and len(copies) == len(memcpy), (unit, sorted(copies), memcpy)
+    names = [e.name for e in program]
+    assert names.count("port.megakernel.launch") == mk.counters.megakernel_launches == 1 + k
+    assert names.count("port.taa.launch") == taa.counters.launches == k
+    assert names.count("port.megakernel.frame_constants") == 2  # the frame's, the flight's 0
+    print(json.dumps(counts))
