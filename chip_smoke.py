@@ -841,7 +841,7 @@ def translated_scene(scene, cam, offset, large_world=True):
         o, sphere_centers=torch.as_tensor(sc, device=o.sphere_centers.device),
         box_world_to_box=torch.as_tensor(bm, device=o.sphere_centers.device))
     moved.large_world = large_world
-    moved._cam_cache, moved._rebased, moved._opaque_host_cache = {}, None, {}
+    moved._rebased, moved._opaque_host_cache = None, {}
     moved._rebase_origin = None
     m = cam.view_to_world.double().cpu().numpy()
     m[:3, 3] += offset

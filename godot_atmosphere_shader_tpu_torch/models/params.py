@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..ops.noise import NoiseSpec
+from ..utils import host_mirror
 from ..utils.color import srgb_to_linear
 
 
@@ -104,10 +105,13 @@ class AtmosphereParams:
                cloud_shape_scale=1.0, cloud_coverage_rotation=None,
                world_to_model=None, time=0.0,
                colors_are_srgb: bool = True, *, device) -> "AtmosphereParams":
-        """Params with the shader-declaration defaults on ``device``."""
+        """Params with the shader-declaration defaults on ``device``, each
+        uploaded with its host mirror (``utils/host_mirror.py``) but the
+        sRGB colors, which are converted on ``device``."""
 
         def f32(v):
-            return torch.as_tensor(np.asarray(v, np.float32), device=device)
+            return host_mirror.upload(np.asarray(v, np.float32), device,
+                                      site="port.copy.params_create")
 
         def color(v):
             return srgb_to_linear(v, device=device) if colors_are_srgb else f32(v)

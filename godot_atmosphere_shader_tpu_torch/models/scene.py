@@ -59,6 +59,7 @@ from ..render.glow import GlowSettings, apply_glow
 from ..render.lod import EMPTY, layer_band
 from ..render.opaque import OpaqueScene
 from ..render.renderer import render_flight_plain, shared_reverse_z
+from ..utils import host_mirror
 from ..utils.camera import Camera
 from ..utils.color import linear_to_srgb, srgb_to_linear
 from ..utils.profiling import span
@@ -160,7 +161,8 @@ class PlanetAtmosphere(Node3D):
         self._sun_position_host = np.array([5000.0, 0.0, 0.0], np.float32)
         self._config = VARIANTS[DEFAULT_VARIANT]
         self._uses_baked_optical_depth = False
-        self._density = float(self._params.density.cpu())  # the LUT's key, on the host
+        # the LUT's key, on the host
+        self._density = float(host_mirror.host(self._params.density, "port.copy.density"))
         self._lut_cache = OpticalDepthCache(device=self.device)
         self.clouds_rotation_speed = clouds_rotation_speed
         self.force_fullscreen = force_fullscreen
@@ -239,7 +241,8 @@ class PlanetAtmosphere(Node3D):
         if param_name in _COLOR_PARAMS:
             value = srgb_to_linear(np.asarray(value, np.float32)[:3], device=self.device)
         else:
-            value = torch.as_tensor(np.asarray(value, np.float32), device=self.device)
+            value = host_mirror.upload(np.asarray(value, np.float32), self.device,
+                                       site="port.copy.shader_parameter")
         self._params = dataclasses.replace(self._params, **{field: value})
 
     def set_shader_param(self, param_name: str, value):
@@ -291,20 +294,20 @@ class PlanetAtmosphere(Node3D):
         it in float64 before the cast."""
         with span("port.scene.atmosphere_update"):
             if cam_pos is None and camera is not None:
-                vtw = camera.view_to_world.detach().to(torch.float64)
-                with span("port.copy.atmosphere_camera", vtw.device):
-                    cam_pos = vtw.cpu().numpy()[:3, 3]
-                with span("port.copy.camera_near", camera.near.device):
-                    cam_near = float(camera.near)
+                vtw, near = host_mirror.hosts((camera.view_to_world, camera.near),
+                                              "port.copy.atmosphere_camera")
+                cam_pos = vtw.numpy().astype(np.float64)[:3, 3]
+                cam_near = float(near)
             elif cam_pos is None:
                 cam_pos = self.position + np.array(
                     [10.0 * (self._radius + self._height + cam_near), 0.0, 0.0], np.float32)
             self.set_frame_state(self.frame_state_row(time_s, cam_pos, cam_near, origin=origin))
 
     def set_frame_state(self, row: np.ndarray):
-        """Upload one packed frame-state row (24 f32) to the device."""
-        with span("port.copy.frame_state", self.device):
-            frame_state = torch.as_tensor(row, device=self.device)
+        """Upload one packed frame-state row (24 f32) to the device, with
+        its host mirror."""
+        frame_state = host_mirror.upload(row, self.device, dtype=None,
+                                         site="port.copy.frame_state")
         self._params = dataclasses.replace(self._params, frame_state=frame_state)
 
     def frame_state_row(self, time_s: float, cam_pos, cam_near: float = 0.1,
@@ -390,30 +393,17 @@ class Scene:
         self._opaque_host_cache = {}
         self._rebased = None
         self._tex_pyr_cache = {}
-        self._cam_cache = {}
 
-    def _cam_host(self, camera: Camera) -> tuple:
+    @staticmethod
+    def _cam_host(camera: Camera) -> tuple:
         """The camera's ``view_to_world`` (float64) and vertical fov on the
-        host: one device→host copy per distinct camera (the JAX package's
-        ``_cam_info`` cache; the tensors' versions see in-place edits).  A
-        large-world camera's float64 transform keeps its full precision."""
-        t, f = camera.view_to_world, camera.fov_y_rad
-        key = (id(t), t._version, id(f), f._version)
-        hit = self._cam_cache.get(key)
-        if hit is None:
-            flat = torch.cat([t.detach().reshape(-1).to(torch.float64),
-                              f.detach().reshape(-1).to(torch.float64)])
-            with span("port.copy.cam_host", flat.device):
-                host = flat.cpu().numpy()
-            # the entry holds the tensors, so their ids are not reused meanwhile
-            hit = ((t, f), host[:16].reshape(4, 4), float(host[16]))
-            self._remember_camera(key, hit)
-        return hit[1], hit[2]
-
-    def _remember_camera(self, key, entry):
-        self._cam_cache[key] = entry
-        while len(self._cam_cache) > 4:  # the camera and its rebased view, twice
-            self._cam_cache.pop(next(iter(self._cam_cache)))
+        host: their host mirrors (the JAX package's ``_cam_info`` cache),
+        or one device→host copy of a camera the port did not upload or
+        that was edited since.  A large-world camera's float64 transform
+        keeps its full precision."""
+        m, fov = host_mirror.hosts((camera.view_to_world, camera.fov_y_rad),
+                                   "port.copy.cam_host")
+        return m.numpy().astype(np.float64), float(fov)
 
     def _cam_pos(self, camera: Camera) -> np.ndarray:
         return self._cam_host(camera)[0][:3, 3]
@@ -431,8 +421,7 @@ class Scene:
     def update(self, time_s: float, camera: Camera):
         with span("port.scene.update"):
             cam_pos = self._cam_pos(camera)
-            with span("port.copy.camera_near", camera.near.device):
-                cam_near = float(camera.near)
+            cam_near = float(host_mirror.host(camera.near, "port.copy.camera_near"))
             origin = (np.array(cam_pos, np.float64) if self._large_world_active(cam_pos)
                       else None)
             self._rebase_origin = origin
@@ -463,16 +452,10 @@ class Scene:
             if vtw.dtype != torch.float32:
                 camera = dataclasses.replace(camera, view_to_world=vtw.to(torch.float32))
             return camera, self.opaque
-        m, fov = self._cam_host(camera)
-        m = m.copy()
+        m = self._cam_host(camera)[0]
         m[:3, 3] -= origin
-        m32 = m.astype(np.float32)
-        with span("port.copy.rebased_camera", vtw.device):
-            cam_rel = dataclasses.replace(camera, view_to_world=torch.as_tensor(
-                m32, device=vtw.device))
-        t, f = cam_rel.view_to_world, cam_rel.fov_y_rad
-        self._remember_camera((id(t), t._version, id(f), f._version),
-                              ((t, f), m32.astype(np.float64), fov))
+        cam_rel = dataclasses.replace(camera, view_to_world=host_mirror.upload(
+            m.astype(np.float32), vtw.device, site="port.copy.rebased_camera"))
         key = tuple(float(v) for v in origin)
         if self.opaque is None:
             return cam_rel, None
@@ -717,8 +700,7 @@ class Scene:
                                  "parallel.sharding.render_scene_megakernel_sharded per frame")
             times = np.asarray(times, np.float32)
             cam_pos = self._cam_pos(camera)
-            with span("port.copy.camera_near", camera.near.device):
-                cam_near = float(camera.near)
+            cam_near = float(host_mirror.host(camera.near, "port.copy.camera_near"))
             order, params, configs = self._sorted_layers(camera)
             self._check_layers(configs)
             if cam_transforms is not None:

@@ -81,6 +81,7 @@ from ...render.opaque import OpaqueScene
 from ...render.renderer import (TILE_COLS, TILE_ROWS, opaque_only_config, planet_center,
                                 render_flight_plain, render_frame, render_scene,
                                 render_scene_band, shared_reverse_z)
+from ...utils import host_mirror
 from ...utils.camera import Camera, ray_scale, transform_dir, transform_point, world_ray_dirs
 from ...utils.profiling import span
 from ...utils.vecmath import Vec3, normalize
@@ -799,18 +800,12 @@ def scene_layout(struct: MegakernelParams) -> dict:
 
 
 def _to_cpu(obj, names, site: str):
-    """Copy the named tensor fields of a dataclass to the CPU in one
-    transfer (one device sync instead of one per field), in the span
-    ``site`` where they are on a card."""
-    tensors = [getattr(obj, n) for n in names]
-    flat = torch.cat([t.detach().reshape(-1).to(torch.float32) for t in tensors])
-    with span(site, flat.device):
-        flat = flat.cpu()
-    out, i = {}, 0
-    for n, t in zip(names, tensors):
-        out[n] = flat[i:i + t.numel()].reshape(t.shape)
-        i += t.numel()
-    return dataclasses.replace(obj, **out)
+    """The named tensor fields of a dataclass on the CPU, as float32: their
+    host mirrors, and one transfer of the rest (one device sync instead of
+    one per field), in the span ``site`` where they are on a card
+    (``host_mirror.hosts``)."""
+    host = host_mirror.hosts([getattr(obj, n) for n in names], site)
+    return dataclasses.replace(obj, **{n: t.to(torch.float32) for n, t in zip(names, host)})
 
 
 def _set(arr, values):
@@ -849,7 +844,9 @@ def frame_constants(params: AtmosphereParams, config: VariantConfig,
     camera's), cached for ``owner`` (default: ``opaque``; a caller that
     hands over host copies names the scene they came from)."""
     with span("port.megakernel.frame_constants"):
-        p = _to_cpu(params.resolve_frame_state(), _PARAM_FIELDS, "port.copy.params")
+        # the frame state resolved on the host, from its host copy
+        fields = _PARAM_FIELDS + (() if params.frame_state is None else ("frame_state",))
+        p = _to_cpu(params, fields, "port.copy.params").resolve_frame_state()
         cam = _to_cpu(camera, _CAMERA_FIELDS, "port.copy.camera")
         o = None if opaque is None else _to_cpu(opaque, _OPAQUE_FIELDS, "port.copy.opaque")
         s = MegakernelParams()

@@ -17,6 +17,7 @@ import torch
 
 from ..ops.noise import _hash_to_unit, hash3
 from ..ops.sampling import sample_equirect_bilinear
+from ..utils import host_mirror
 from ..utils.camera import (Camera, background_depth,
                             nonlinear_depth_from_view_z, transform_dir,
                             transform_point, world_ray_dirs)
@@ -75,15 +76,17 @@ class OpaqueScene:
             bm, bh, ba = (np.zeros((0, 4, 4), np.float32),
                           np.zeros((0, 3), np.float32), np.zeros((0, 3), np.float32))
 
-        def t(v):
-            return torch.as_tensor(np.asarray(v, np.float32), device=device)
+        def t(v):  # with its host mirror: the launch structs read it with no copy
+            return host_mirror.upload(np.asarray(v, np.float32), device,
+                                      site="port.copy.opaque_create")
 
         return OpaqueScene(
             sphere_centers=t(sc), sphere_radii=t(sr), sphere_albedos=t(sa),
             sphere_unshaded=t(su), box_world_to_box=t(bm), box_half_sizes=t(bh),
             box_albedos=t(ba), light_dir=t(light_dir), ambient=t(ambient),
             sky_color=t(sky_color), star_intensity=t(star_intensity),
-            panorama=None if panorama is None else t(panorama))
+            panorama=None if panorama is None else torch.as_tensor(
+                np.asarray(panorama, np.float32), device=device))
 
 
     def rebased(self, origin, host_cache: Optional[dict] = None) -> "OpaqueScene":

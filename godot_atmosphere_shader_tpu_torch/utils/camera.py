@@ -21,6 +21,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from . import host_mirror
 from .profiling import span
 from .vecmath import Vec3, normalize
 
@@ -41,21 +42,28 @@ class Camera:
         A float64 numpy ``view_to_world`` (a large-world camera, as
         :func:`look_at` returns it for float64 inputs) stays float64, so
         ``Scene`` can rebase the world around it before anything is cast
-        to float32."""
+        to float32.  A host value is uploaded with its host mirror
+        (``host_mirror.upload``: no copy that waits for the stream), the fov
+        converted to radians on the host first, in float32 as the device
+        would; a tensor on a card stays where it is, with no mirror."""
+        def on_card(value):
+            return isinstance(value, torch.Tensor) and value.is_cuda
+
         def upload(value, dtype=torch.float32):
-            # a host value crosses to ``device``; a tensor on a card stays where it is
-            on_card = isinstance(value, torch.Tensor) and value.is_cuda
-            with span("port.copy.camera_create", "cpu" if on_card else device):
+            if on_card(value):
                 return torch.as_tensor(value, dtype=dtype, device=device)
+            return host_mirror.upload(value, device, dtype, site="port.copy.camera_create")
 
         with span("port.camera.create"):
             if view_to_world is None:
                 view_to_world = torch.eye(4, dtype=torch.float32)
             wide = isinstance(view_to_world, np.ndarray) and view_to_world.dtype == np.float64
+            fov = fov_y_deg if on_card(fov_y_deg) else torch.as_tensor(fov_y_deg,
+                                                                       dtype=torch.float32)
             return Camera(
                 view_to_world=upload(view_to_world,
                                      torch.float64 if wide else torch.float32),
-                fov_y_rad=torch.deg2rad(upload(fov_y_deg)),
+                fov_y_rad=upload(torch.deg2rad(fov)),
                 near=upload(near),
                 far=upload(far),
             )

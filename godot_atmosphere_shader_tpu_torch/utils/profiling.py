@@ -18,11 +18,13 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
+from typing import TYPE_CHECKING
 
 import torch
 from torch._C._profiler import _RecordFunctionFast
 
-from ..models.params import VariantConfig
+if TYPE_CHECKING:  # params uploads through host_mirror, which imports this module
+    from ..models.params import VariantConfig
 
 #: what :func:`span` returns while no profiler records
 _OFF = contextlib.nullcontext()

@@ -1535,3 +1535,68 @@ def test_copy_spans_name_every_transfer(cuda):
     assert names.count("port.taa.launch") == taa.counters.launches == k
     assert names.count("port.megakernel.frame_constants") == 2  # the frame's, the flight's 0
     print(json.dumps(counts))
+
+
+@pytest.mark.cuda
+def test_frame_waits_for_no_copy(cuda):
+    """A warmed flagship frame at 1080p (a new camera, ``Scene.update``,
+    ``Scene.render``) under ``torch.profiler``, inside the ``bench.*``
+    ranges the benchmark puts around it: its preamble reads every tensor
+    from its host mirror, so the device makes no device→host copy, and
+    inside those ranges the host neither waits for the stream nor
+    allocates or frees pinned memory.  What the mirrors hold is what the
+    device holds: the frame is bit for bit the one rendered with every
+    tensor read by a copy, and the fov the host converted equals the
+    device's ``deg2rad``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from godot_atmosphere_shader_tpu_torch.utils import host_mirror
+    from godot_atmosphere_shader_tpu_torch.utils.camera import Camera
+    from godot_atmosphere_shader_tpu_torch.utils.flight import FlyCamera
+
+    h, w = 1080, 1920
+    scene = build_demo_scene("clouds_high", device=cuda)
+    fly = FlyCamera(position=(0.0, 0.0, 156.425))
+    poses = []
+    for _ in range(5):
+        poses.append(fly.view_to_world().astype(np.float32))
+        fly.look(0.002, 0.0).move((0.0, 0.0, -10.0 / 60.0))
+
+    def frame(i):
+        with record_function("bench.update"):
+            cam = Camera.create(poses[i], device=cuda)
+            scene.update(0.5 + i / 60.0, cam)
+        with record_function("bench.render"):
+            return cam, scene.render(cam, h, w)
+
+    for i in range(4):  # the library, the blue-noise tile, pinned blocks, the colors' copy
+        frame(i)
+    torch.cuda.synchronize()
+    host_mirror.counters.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cam, out = frame(4)
+        torch.cuda.synchronize()
+    assert host_mirror.counters.copies == 0 and host_mirror.counters.hits > 0
+    on_cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert any("megakernel_gen" in e.name for e in on_card), "the trace holds no K1 launch"
+    assert not [e.name for e in on_card if "DtoH" in e.name]
+    assert [e.name for e in on_card if "HtoD" in e.name]  # the uploads are still there
+    ranges = [(e.time_range.start, e.time_range.end) for e in on_cpu
+              if e.name in ("bench.update", "bench.render")]
+    assert len(ranges) == 2
+    waits = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+             "cudaMemcpy", "cudaHostAlloc", "cudaMallocHost", "cudaFreeHost")
+    inside = [e.name for e in prof.events()  # the runtime's calls, on the host's thread
+              if any(s <= e.time_range.start <= t for s, t in ranges)]
+    assert any(n.startswith("cudaMemcpyAsync") for n in inside)  # the runtime calls are traced
+    assert not [n for n in inside if n in waits], sorted(set(inside))
+    assert torch.equal(cam.fov_y_rad, torch.deg2rad(torch.tensor(70.0, device=cuda)))
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(host_mirror, "_mirror", lambda t: None)
+        copied = scene.render(cam, h, w)
+    finally:
+        mp.undo()
+    assert torch.equal(out["color"], copied["color"]) and torch.equal(out["alpha"], copied["alpha"])
