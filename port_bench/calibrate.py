@@ -5,6 +5,10 @@ reference's frames in bfloat16, against the same reference (the upper).
 One process for all seeds; the benchmark's own runs never run this.
 
     python3 -m port_bench.calibrate --workload <cell> --seeds 1 2 3 ... --seconds 2 [-o out.jsonl]
+
+or, for a pair that ``BENCHMARK.json`` has no cell of yet (a configuration
+file and a mix file, found by name), ``--config <name> --traffic <name>``
+in place of ``--workload``.
 """
 
 from __future__ import annotations
@@ -19,11 +23,16 @@ CONTROL_SEEDS = 3
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--workload", required=True)
+    what = p.add_mutually_exclusive_group(required=True)
+    what.add_argument("--workload")
+    what.add_argument("--config")
+    p.add_argument("--traffic")
     p.add_argument("--seeds", type=int, nargs="+", required=True)
     p.add_argument("--seconds", type=float, default=2.0)
     p.add_argument("-o", "--output", default=None)
     args = p.parse_args(argv)
+    if (args.config is None) != (args.traffic is None):
+        p.error("--config and --traffic go together, in place of --workload")
 
     import os
 
@@ -34,13 +43,16 @@ def main(argv=None) -> int:
     from .reference import scene as ref
     from .workload import Traffic
 
+    if args.workload is not None:
+        cell = harness.find_cell(harness.load_benchmark(os.getcwd()), args.workload)
+    else:
+        cell = {"name": f"{args.config}.{args.traffic}", "config": args.config,
+                "traffic": args.traffic}
+    config = harness.load_config(cell["config"])
+    mix = harness.load_traffic(cell["traffic"])
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
-    bench = harness.load_benchmark(os.getcwd())
-    cell = harness.find_cell(bench, args.workload)
-    config = harness.load_config(cell["config"])
-    mix = harness.load_traffic(cell["traffic"])
     device = torch.device("cuda", 0)
     program = Program(config, device)
     rs = ref.build(config, device=device)

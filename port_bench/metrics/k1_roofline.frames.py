@@ -3,18 +3,25 @@ sample of the traced frames drawn from the seed: each sampled frame's work
 reckoned from its own pose and time (``roofline/k1_work.py``) at the frozen
 per-unit counts and the data-sheet peaks, against that frame's K1 launch in
 the trace (the traced frames' launches in order, one each).  Only the
-procedural instance is reckoned: another K1 kernel in the trace fails the
-run."""
+procedural instance and the fixed texture instance are reckoned: another K1
+kernel in the trace fails the run."""
 
 import random
 
 from port_bench.harness import kernels
 from port_bench.roofline.k1_work import frame_bound_ms, frame_work
 
-#: the trace names of K1's kernels; this metric reckons the first alone
+#: the trace names of K1's kernels
 K1_NAMES = ("megakernel_gen", "megakernel_clear", "megakernel_tex", "tex_choice_kernel")
 #: traced frames whose work is reckoned
 SAMPLE = 8
+
+
+def reckoned(name: str) -> bool:
+    """The instances this metric reckons: ``megakernel_gen`` and the fixed
+    ``megakernel_tex`` (not ``megakernel_tex_general``)."""
+    return "megakernel_gen" in name or ("megakernel_tex" in name
+                                         and "megakernel_tex_general" not in name)
 
 
 def read(run):
@@ -22,7 +29,7 @@ def read(run):
     if trace is None or run.traffic.mix["mode"] != "frames" or not trace.units:
         return None
     k1 = kernels(trace, K1_NAMES)
-    if not k1 or any(K1_NAMES[0] not in name for name, _, _ in k1):
+    if not k1 or not all(reckoned(name) for name, _, _ in k1):
         return None
     units = trace.units
     if len(k1) != len(units):

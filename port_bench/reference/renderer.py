@@ -61,6 +61,7 @@ from .vecmath import Vec3
 from .atmosphere_pass import composite_over, shade_atmosphere
 from .jitter import apply_temporal_offset, jitter_plane, temporal_offset
 from .opaque import OpaqueScene, render_opaque
+from .texsample import pyramid_samplers
 
 
 def planet_center(params: AtmosphereParams) -> Vec3:
@@ -157,7 +158,7 @@ def render_frame(params: AtmosphereParams, config: VariantConfig,
                              f"divide the tile height {TILE_ROWS}")
         grid_rows = -(-rows // TILE_ROWS) * TILE_ROWS
         cols = -(-width // TILE_COLS) * TILE_COLS
-        raise ValueError("the frozen reference renders procedural fields only")
+        shape_fn, coverage_fn = pyramid_samplers(config, *tex_data, TILE_ROWS // group)
     sky_fn = None
     if pano_data is not None and background is None and opaque is not None:
         grid_rows = -(-rows // TILE_ROWS) * TILE_ROWS

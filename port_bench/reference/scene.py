@@ -9,12 +9,18 @@ traffic's poses and times, as the port's ``models/scene.py`` builds them
 world→model transform and the clouds' rotation of ``clouds_rotation_speed``
 degrees per second).  One layer, drawn fullscreen: the reference refuses a
 camera far enough out for the far-mode band plan.
+
+A configuration whose fields are baked textures carries a ``"textures"``
+block: per baked field its noise, size and (coverage) scale.  The reference
+bakes them itself on the run's device, packs their pyramids and puts the
+layer in texture mode, as the port's ``Scene._texture_plan`` does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -25,7 +31,9 @@ from .noise import NoiseSpec
 from .opaque import OpaqueScene
 from .params import AtmosphereParams, ProceduralField, VariantConfig
 from .renderer import render_flight_plain, render_scene
+from .sampling import bake_noise_cubemap, bake_noise_texture3d
 from .taa import TaaSettings
+from .texsample import build_latlong_pyramid, build_tex3d_pyramid
 
 #: the node's near/far switch margin (planet_atmosphere.gd:11)
 SWITCH_MARGIN_RATIO = 1.1
@@ -56,6 +64,36 @@ def variant(config: dict) -> VariantConfig:
     return VariantConfig(**v)
 
 
+def texture_plan(config: VariantConfig, textures: dict, device) -> tuple:
+    """Texture mode for a layer with a baked cloud field (a copy of the
+    port's ``Scene._texture_plan``): each field without a procedural spec is
+    baked from its entry of ``textures`` on ``device``, its pyramid packed on
+    the host and its table put on ``device``, and gets its meta and its knot
+    flag.  Returns the config and the ``(shape, coverage)`` tables, ``None``
+    for a procedural field (both ``None`` where no field is baked)."""
+    if not config.clouds_enabled or (config.cloud_shape_noise is not None
+                                     and config.cloud_coverage_noise is not None):
+        return config, None
+    change, tables = {}, [None, None]
+    for i, name in enumerate(("shape", "coverage")):
+        if getattr(config, f"cloud_{name}_noise") is not None:
+            continue
+        if name not in textures:
+            raise ValueError(f"clouds need a procedural {name} field or its texture")
+        t = textures[name]
+        spec = NoiseSpec(**t["noise"])
+        if name == "shape":
+            tex = bake_noise_texture3d(spec, int(t["size"]), device=device)
+            data, meta = build_tex3d_pyramid(tex.cpu().numpy())
+        else:
+            tex = bake_noise_cubemap(spec, tuple(t["scale"]), int(t["size"]), device=device)
+            data, meta = build_latlong_pyramid(tex.cpu().numpy())
+        tables[i] = torch.as_tensor(data, device=device)
+        change[f"cloud_{name}_tex_meta"] = meta
+        change[f"cloud_{name}_interp"] = True
+    return dataclasses.replace(config, **change), tuple(tables)
+
+
 @dataclasses.dataclass
 class RefScene:
     params: AtmosphereParams
@@ -65,6 +103,8 @@ class RefScene:
     planet: dict
     sun_position: np.ndarray
     device: torch.device
+    #: the layer's ``(shape, coverage)`` pyramid tables in texture mode, else None
+    tex_data: Optional[tuple] = None
 
     def frame_state(self, time_s: float, cam_pos) -> np.ndarray:
         """The packed 24-float frame state of one frame, as the node packs it."""
@@ -123,9 +163,10 @@ def build(config: dict, *, device) -> RefScene:
     opaque = OpaqueScene.create(spheres=spheres, boxes=boxes, light_dir=tuple(op["light_dir"]),
                                 ambient=op["ambient"], sky_color=tuple(op["sky_color"]),
                                 star_intensity=op["star_intensity"], device=device)
-    return RefScene(params=params, config=variant(config), opaque=opaque, camera=sc["camera"],
+    layer, tex_data = texture_plan(variant(config), config.get("textures", {}), device)
+    return RefScene(params=params, config=layer, opaque=opaque, camera=sc["camera"],
                     planet=planet, sun_position=np.asarray(sc["sun_position"], np.float32),
-                    device=torch.device(device))
+                    device=torch.device(device), tex_data=tex_data)
 
 
 def render_frame(scene: RefScene, view_to_world, time_s: float, height: int,
@@ -136,7 +177,7 @@ def render_frame(scene: RefScene, view_to_world, time_s: float, height: int,
     params = dataclasses.replace(scene.params,
                                  frame_state=torch.as_tensor(fs, device=scene.device))
     out = render_scene((params,), (scene.config,), scene.cam(view_to_world), scene.opaque,
-                       height, width)
+                       height, width, tex_data=(scene.tex_data,))
     return {"color": out["color"], "alpha": out["alpha"]}
 
 
@@ -151,4 +192,5 @@ def render_flight(scene: RefScene, poses, times, height: int, width: int, taa: d
                            float(taa["clamp_gamma"]))
     return render_flight_plain((scene.params,), (fs,), (config,), scene.cam(poses[0]),
                                scene.opaque, height, width,
-                               cam_stack=np.asarray(poses, np.float32), taa=settings)
+                               cam_stack=np.asarray(poses, np.float32),
+                               tex_data=(scene.tex_data,), taa=settings)

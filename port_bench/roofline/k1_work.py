@@ -21,6 +21,22 @@ the demo's configurations) the units are:
 * ``coverage_evals`` / ``shape_evals``: the fields evaluated at every march
   step (coverage only without knots; shape at every step: no shape knots).
 
+For a layer whose two fields are baked (the fixed ``megakernel_tex``
+instance: coverage and shape knots, low quality, cheap light) the frame is
+cut into the kernel's 32×128 tiles, the last ones padded with real rays
+past the edge, and a tile evaluates its knots where any of its coarse
+pixels sees the cloud layer:
+
+* ``knot_groups``: every coverage group of such a tile, padding included;
+* ``tex3d``, ``tex3d_floor``, ``latlong``, ``latlong_floor``: those groups'
+  shape and coverage knots, sampled through the reference's pyramid
+  samplers ``texture_knot_group`` knots a call, each call's tile taking the
+  mode its batch chose (``record_batch_choices``): floor mode, or trilinear
+  (bilinear) at a level;
+* ``march``: the coarse pixels of the padded frame that see the cloud layer
+  and whose group's bound (from its sampled coverage knots) is positive;
+  no per-step field evaluation.
+
 The geometry follows the frozen reference's plain path (``reference/``),
 which the kernel is held to.  Other configurations raise: their units are
 not reckoned here.
@@ -38,7 +54,8 @@ from ..reference.camera import transform_dir, transform_point, world_ray_dirs
 from ..reference.clouds import (_down_mean, clamp_march_distance, cloud_settings, cull_bound,
                                 raw_coverage)
 from ..reference.opaque import render_opaque
-from ..reference.renderer import planet_center
+from ..reference.renderer import TILE_COLS, TILE_ROWS, planet_center
+from ..reference.texsample import FLOOR, LANES, pyramid_samplers, record_batch_choices
 from ..reference.vecmath import Vec3, lerp, normalize, ray_sphere
 from . import counts
 from .peaks import bound_ms
@@ -46,19 +63,34 @@ from .peaks import bound_ms
 #: bytes a fused layer reads and writes once besides its planes: the 256²
 #: float32 blue-noise tile
 BLUE_NOISE_BYTES = 256 * 256 * 4
+#: the fixed texture instance ``megakernel_tex<K, KS, G>``: its coverage and
+#: shape knots and its coverage groups (G = cloud_lod · cloud_coverage_lod)
+TEX_KNOTS, TEX_SHAPE_KNOTS, TEX_GROUPS = 8, 16, (4, 8)
 _ZERO_SLOTS = ("tex3d", "tex3d_floor", "latlong", "latlong_floor", "sun_samples", "v1_atmosphere",
                "opaque_pixels", "sky", "sky_floor", "detail_evals", "shape_knots", "detail_knots")
 
 
+def baked(config) -> bool:
+    """Whether both of the layer's fields are baked textures."""
+    return (config.cloud_shape_tex_meta is not None
+            and config.cloud_coverage_tex_meta is not None)
+
+
 def check_config(config):
     """The configurations whose units this module reckons."""
+    procedural = (not config.cloud_shape_interp and config.cloud_shape_noise is not None
+                  and config.cloud_coverage_noise is not None)
+    fixed_tex = (baked(config) and config.cloud_shape_interp and config.cloud_coverage_interp
+                 and config.cloud_coverage_knots == TEX_KNOTS
+                 and config.cloud_shape_knots == TEX_SHAPE_KNOTS
+                 and config.cloud_lod * config.cloud_coverage_lod in TEX_GROUPS)
     ok = (config.model == "v2" and config.od_mode == "analytic" and config.clouds_enabled
           and not config.raymarched_lighting and config.clouds_always_low_quality
-          and not config.cloud_shape_interp and config.cloud_shape_noise is not None
-          and config.cloud_coverage_noise is not None)
+          and (procedural or fixed_tex))
     if not ok:
-        raise ValueError("K1's units are reckoned for a procedural v2 layer with cheap light, "
-                         "low quality and no shape knots only")
+        raise ValueError("K1's units are reckoned for a v2 layer with cheap light and low "
+                         "quality only: procedural with no shape knots, or both fields baked "
+                         "on the fixed texture instance")
 
 
 def od_segments(pos: Vec3, sun_dir: Vec3, center: Vec3, radius, atmo_radius) -> torch.Tensor:
@@ -91,13 +123,19 @@ def frame_work(scene, view_to_world, time_s: float, height: int, width: int) -> 
     ``reference.scene.RefScene``) at this pose and scene time."""
     config = scene.config
     check_config(config)
+    tex = baked(config)
     fs = scene.frame_state(time_s, np.asarray(view_to_world, np.float64)[:3, 3])
     params = dataclasses.replace(scene.params, frame_state=torch.as_tensor(
         fs, device=scene.device)).resolve_frame_state()
     cam = scene.cam(view_to_world)
-    rd = world_ray_dirs(cam, height, width)
+    rows, cols = height, width
+    if tex:  # the kernel's tiles, the last ones padded with real rays
+        rows, cols = -(-height // TILE_ROWS) * TILE_ROWS, -(-width // TILE_COLS) * TILE_COLS
+        rd = world_ray_dirs(cam, height, width, rows=rows, cols=cols)
+    else:
+        rd = world_ray_dirs(cam, height, width)
     ro = cam.position
-    _, _, linear_depth = render_opaque(scene.opaque, cam, height, width,
+    _, _, linear_depth = render_opaque(scene.opaque, cam, rows, cols,
                                        reverse_z=config.reverse_z, ray_dir=rd)
     pc = planet_center(params)
     radius = params.planet_radius
@@ -118,16 +156,17 @@ def frame_work(scene, view_to_world, time_s: float, height: int, width: int) -> 
     for i in range(n):
         pos = ro + rd * (t_begin + step * float(i))
         segs += od_segments(pos, sun_dir, pc, radius, atmo_radius)
-    segs = torch.where(hit, segs, 0)
+    # the frame's own pixels integrate the atmosphere; the padding's are not counted
+    segs = torch.where(hit, segs, 0)[:height, :width]
 
     # the coarse pixels: cloud_lod rows' renormalized mean ray, their least depth
     lod = config.cloud_lod
-    if height % lod:
-        raise ValueError(f"cloud_lod={lod} must divide the rows ({height})")
+    if rows % lod:
+        raise ValueError(f"cloud_lod={lod} must divide the rows ({rows})")
     rdm = Vec3(*(_down_mean(c, lod) for c in rd))
     inv = 1.0 / torch.sqrt(rdm.x * rdm.x + rdm.y * rdm.y + rdm.z * rdm.z)
     rd_c = Vec3(rdm.x * inv, rdm.y * inv, rdm.z * inv)
-    depth_c = depth.reshape(height // lod, lod, width).amin(dim=1)
+    depth_c = depth.reshape(rows // lod, lod, cols).amin(dim=1)
     settings = cloud_settings(params)
     top0, top1 = ray_sphere(pc, settings.top_height, ro, rd_c)
     bot0, bot1 = ray_sphere(pc, settings.bottom_height, ro, rd_c)
@@ -136,6 +175,7 @@ def frame_work(scene, view_to_world, time_s: float, height: int, width: int) -> 
 
     marching = visible
     knot_groups = 0
+    tex_units = {}
     if config.cloud_coverage_interp:
         group = config.cloud_coverage_lod
         if visible.shape[0] % group:
@@ -147,28 +187,76 @@ def frame_work(scene, view_to_world, time_s: float, height: int, width: int) -> 
         te_c = clamp_march_distance(ro_m, tb_c, te_c, settings)
         g_rd = Vec3(*(_down_mean(c, group) for c in rd_m))
         g_t0, g_t1 = _down_mean(tb_c, group), _down_mean(te_c, group)
-        coverage_fn = make_coverage_fn(config, params)
-        k = max(int(config.cloud_coverage_knots), 1)
-        knots = tuple(raw_coverage(ro_m + g_rd * lerp(g_t0, g_t1, j / float(k)), params,
-                                   coverage_fn) for j in range(k + 1))
+        if tex:
+            knots, tex_units = baked_knots(config, params, scene.tex_data, visible, ro_m, g_rd,
+                                           g_t0, g_t1)
+        else:
+            coverage_fn = make_coverage_fn(config, params)
+            k = max(int(config.cloud_coverage_knots), 1)
+            knots = tuple(raw_coverage(ro_m + g_rd * lerp(g_t0, g_t1, j / float(k)), params,
+                                       coverage_fn) for j in range(k + 1))
+            knot_groups = int(visible.reshape(-1, group, cols).any(dim=1).sum())
         forms = cull_bound(knots, params, config.clouds_always_low_quality) > 0.0
-        vis_g = visible.reshape(-1, group, width).any(dim=1)
-        knot_groups = int(vis_g.sum())
         marching = visible & torch.repeat_interleave(forms, group, dim=0)
     march = int(marching.sum())
     per_step = march * config.cloud_steps
-    work = {"pixels": height * width, "atmosphere": int(hit.sum()),
+    work = {"pixels": height * width, "atmosphere": int(hit[:height, :width].sum()),
             "od_segments": int(segs.sum()), "knot_groups": knot_groups, "march": march,
             "coverage_evals": 0 if config.cloud_coverage_interp else per_step,
-            "shape_evals": per_step}
+            "shape_evals": 0 if config.cloud_shape_interp else per_step}
     work.update({k: 0 for k in _ZERO_SLOTS})
+    work.update(tex_units)
     return work
+
+
+def baked_knots(config, params, tex_data, visible, ro_m: Vec3, rd: Vec3, t0, t1) -> tuple:
+    """The fixed texture instance's knots: each baked field's ``K + 1`` knots
+    on the coverage groups' mean model-space rays ``ro_m + rd·lerp(t0, t1,
+    k/K)``, sampled through the reference's pyramid samplers
+    ``texture_knot_group`` knots a call as the plain path samples them, and
+    the units of the tiles whose coarse pixels (``visible``) see the cloud
+    layer: ``(coverage knots, {knot_groups, tex3d, tex3d_floor, latlong,
+    latlong_floor})``, each sample in its call's batch (tile) mode."""
+    lod = config.cloud_lod
+    batch_rows = TILE_ROWS // (lod * config.cloud_coverage_lod)
+    shape_fn, coverage_fn = pyramid_samplers(config, *tex_data, batch_rows)
+    r, w = visible.shape
+    tile_vis = visible.reshape(r * lod // TILE_ROWS, TILE_ROWS // lod, w // TILE_COLS,
+                               TILE_COLS).any(dim=3).any(dim=1).reshape(-1)
+    groups = batch_rows * LANES  # a tile's coverage groups, one thread each in the kernel
+    units = {"knot_groups": int(tile_vis.sum()) * groups, "tex3d": 0, "tex3d_floor": 0, "latlong": 0,
+             "latlong_floor": 0}
+    fields = (("latlong", lambda p: raw_coverage(p, params, coverage_fn),
+               config.cloud_coverage_knots),
+              ("tex3d", lambda p: shape_fn(p * params.cloud_shape_scale),
+               config.cloud_shape_knots))
+    step = max(int(config.texture_knot_group), 1)
+    knots = {}
+    for slot, field, k in fields:
+        k = max(int(k), 1)
+        pts = [ro_m + rd * lerp(t0, t1, j / float(k)) for j in range(k + 1)]
+        values = []
+        with record_batch_choices() as calls:
+            for j0 in range(0, k + 1, step):
+                grp = pts[j0:j0 + step]
+                values.extend(field(Vec3(*(torch.stack([getattr(p, c) for p in grp])
+                                           for c in "xyz"))).unbind(0))
+        for j0, (mode, _) in zip(range(0, k + 1, step), calls):
+            per_tile = min(step, k + 1 - j0) * groups
+            floor = mode == FLOOR
+            units[slot] += per_tile * int((tile_vis & ~floor).sum())
+            units[slot + "_floor"] += per_tile * int((tile_vis & floor).sum())
+        knots[slot] = tuple(values)
+    return knots["latlong"], units
 
 
 def frame_bound_ms(work: dict, config, height: int, width: int) -> float:
     """The least time of a fused fullscreen layer with this work: its
     operations (``counts.work_ops``) against its planes written once (16 B a
-    pixel) and the blue-noise tile read once."""
+    pixel), the blue-noise tile and a baked layer's pyramid tables read
+    once."""
     ops = counts.work_ops(work, config)
+    tables = sum(m.rows * LANES * 4 for m in (config.cloud_shape_tex_meta,
+                                               config.cloud_coverage_tex_meta) if m is not None)
     return bound_ms(ops["shade"] + ops["blend"] + ops["clouds"], ops["int_ops"],
-                    height * width * counts.BYTES_LAYER_PIXEL + BLUE_NOISE_BYTES)
+                    height * width * counts.BYTES_LAYER_PIXEL + BLUE_NOISE_BYTES + tables)

@@ -22,6 +22,9 @@ from port_bench.workload import Traffic, loop_poses
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CELLS = ("demo_clouds_high.fly_loop", "demo_clouds_high_ref.fly_loop",
          "demo_clouds_high.flight8_taa")
+#: the configuration of baked textures that ``conftest.py`` adds as a file alone, and its cell
+TEX = "demo_clouds_high_tex"
+TEX_CELL = f"{TEX}.fly_loop"
 #: the dry run's frame: whole TAA tiles rows (8) and columns (128), whole LOD groups
 SIZE = (32, 128)
 #: a dry run's window on the CPU: the least, which runs one loop of the dry run's
@@ -60,6 +63,7 @@ def test_window_rate_and_tail_count_only_units_done_in_the_window():
     assert len(r.done()) == 99
     assert frame_ms.read(r) == pytest.approx(1000.0 / 99)
     assert p95.read(r) == pytest.approx(20.0)
+    assert harness.load_metric("frame_p95_ms.host_paced").read(r) == p95.read(r)
     flight = harness.load_metric("flight_frame_ms")
     assert flight.read(r) is None
     r = _run_of([Unit(index=i, frames=8, start=0.1 * i, host_s=0.01, end=0.1 * i + 0.05)
@@ -171,7 +175,7 @@ def test_the_loop_is_closed_and_the_seed_only_moves_its_start():
 # -- the dry run -------------------------------------------------------------------------
 
 
-def _small(monkeypatch, flight_frames=2):
+def _small(monkeypatch, flight_frames=2, root=ROOT):
     real = harness.load_traffic
 
     def load(name, base=harness.HERE):
@@ -184,12 +188,12 @@ def _small(monkeypatch, flight_frames=2):
         return mix
 
     monkeypatch.setattr(harness, "load_traffic", load)
-    monkeypatch.chdir(ROOT)
+    monkeypatch.chdir(root)
 
 
-def _dry(cell, monkeypatch, program=Program, seed=SEED):
+def _dry(cell, monkeypatch, program=Program, seed=SEED, root=ROOT):
     torch.set_num_threads(2)
-    _small(monkeypatch)
+    _small(monkeypatch, root=root)
     out, err = io.StringIO(), io.StringIO()
     args = run.parse(["--workload", cell, "--seed", str(seed), "--seconds", str(SECONDS),
                       "--trace", "0"])
@@ -197,16 +201,26 @@ def _dry(cell, monkeypatch, program=Program, seed=SEED):
     return rc, out.getvalue(), err.getvalue()
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_a_cell_runs_on_the_cpu_and_matches_the_reference(cell, monkeypatch):
-    rc, out, err = _dry(cell, monkeypatch)
+def _root(name, request) -> str:
+    """The checkout a cell or configuration runs in: the texture
+    configuration's, added as a file alone (``conftest.py``), or the repo."""
+    return request.getfixturevalue("tex_checkout") if TEX in name else ROOT
+
+
+@pytest.mark.parametrize("cell", CELLS + (TEX_CELL,))
+def test_a_cell_runs_on_the_cpu_and_matches_the_reference(cell, monkeypatch, request):
+    """Each cell, and a configuration of baked textures added as a file
+    alone: the reference (baking the textures itself) gives the port's plain
+    frame to the last bit."""
+    rc, out, err = _dry(cell, monkeypatch, root=_root(cell, request))
     assert rc == 0, err
     line = json.loads(out.strip().splitlines()[-1])
     assert line["correct"] is True and line["failed"] == 0
     assert list(line)[-1] == "compared"
     assert line["compared"]["p999"]["value"] == 0.0
-    want = {"setup_s", "flight_frame_ms"} if "flight" in cell else {
-        "setup_s", "frame_ms", "frame_p95_ms"}
+    manifest = harness.load_benchmark(_root(cell, request))
+    want = {m["name"] for m in harness.cell_metrics(manifest, cell, False)}
+    assert want >= {"setup_s", "flight_frame_ms" if "flight" in cell else "frame_ms"}
     assert set(line["metrics"]) == want
     assert err.strip().splitlines()[-1].startswith("compared mean")
 
@@ -267,20 +281,38 @@ class _Altered(Program):
 
 
 @pytest.mark.parametrize("fault", [_Stale, _Half, _Altered])
-@pytest.mark.parametrize("cell", [CELLS[0], CELLS[2]])
-def test_a_fault_in_the_timed_path_comes_out_not_correct(cell, fault, monkeypatch):
-    rc, out, err = _dry(cell, monkeypatch, program=fault)
+@pytest.mark.parametrize("cell", [CELLS[0], CELLS[2], TEX_CELL])
+def test_a_fault_in_the_timed_path_comes_out_not_correct(cell, fault, monkeypatch, request):
+    rc, out, err = _dry(cell, monkeypatch, program=fault, root=_root(cell, request))
     assert rc == 0, err
     line = json.loads(out.strip().splitlines()[-1])
     assert line["correct"] is False and line["failed"] >= 1
 
 
-@pytest.mark.parametrize("name", ["demo_clouds_high", "demo_clouds_high_ref"])
+def test_calibration_takes_a_config_and_a_mix_with_no_cell(tex_checkout, monkeypatch):
+    """``calibrate --config --traffic`` finds both by name before it looks for
+    the card, a pair with no cell in ``BENCHMARK.json`` included; an unknown
+    name is refused, and ``--config`` wants ``--traffic``."""
+    from port_bench import calibrate
+
+    monkeypatch.chdir(tex_checkout)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert calibrate.main(["--config", TEX, "--traffic", "fly_loop", "--seeds", "1"]) == 2
+    assert calibrate.main(["--workload", CELLS[0], "--seeds", "1"]) == 2
+    with pytest.raises(harness.Refused):
+        calibrate.main(["--config", "nope", "--traffic", "fly_loop", "--seeds", "1"])
+    with pytest.raises(SystemExit):
+        calibrate.main(["--config", TEX, "--seeds", "1"])
+
+
+@pytest.mark.parametrize("name", ["demo_clouds_high", "demo_clouds_high_ref", TEX])
 @pytest.mark.parametrize("seed", [1, 2, 3])
-def test_the_control_fails_the_limits(name, seed):
+def test_the_control_fails_the_limits(name, seed, request):
     """The control, the reference's frame in bfloat16, against the reference:
     not correct (at a tiny size; on the card at the cell's size, PERF.md)."""
     torch.set_num_threads(2)
+    if name == TEX:
+        request.getfixturevalue("tex_checkout")
     config = harness.load_config(name)
     scene = ref.build(config, device="cpu")
     traffic = Traffic(harness.load_traffic("fly_loop"), seed)

@@ -14,6 +14,7 @@ import torch
 from port_bench import harness
 from port_bench.reference import clouds as ref_clouds
 from port_bench.reference import scene as ref
+from port_bench.reference import texsample
 from port_bench.roofline import counts, k1_work, k3, peaks
 from port_bench.workload import Traffic
 
@@ -100,6 +101,109 @@ def test_march_count_from_geometry_equals_the_references(name, frame, monkeypatc
         assert work["coverage_evals"] == work["march"] * scene.config.cloud_steps
 
 
+#: ``frame_work``'s units (those not 0) on the loop's frames 0, 150 and 300
+#: (seed 0) at 64×128, and on frame 150 at 1080×1920, as the parent of the
+#: texture units reckoned them: the procedural units may not move unseen
+PINNED = {
+    ("demo_clouds_high", 64, 0): dict(atmosphere=5834, od_segments=43462, knot_groups=1364,
+                                       march=2702, shape_evals=172928),
+    ("demo_clouds_high", 64, 150): dict(atmosphere=6198, od_segments=46134, knot_groups=1512,
+                                         march=3008, shape_evals=192512),
+    ("demo_clouds_high", 64, 300): dict(atmosphere=5948, od_segments=44140, knot_groups=1426,
+                                         march=2848, shape_evals=182272),
+    ("demo_clouds_high_ref", 64, 0): dict(atmosphere=5834, od_segments=43462, march=5397,
+                                           coverage_evals=345408, shape_evals=345408),
+    ("demo_clouds_high_ref", 64, 150): dict(atmosphere=6198, od_segments=46134, march=6016,
+                                             coverage_evals=385024, shape_evals=385024),
+    ("demo_clouds_high_ref", 64, 300): dict(atmosphere=5948, od_segments=44140, march=5694,
+                                             coverage_evals=364416, shape_evals=364416),
+    ("demo_clouds_high", 1080, 150): dict(atmosphere=1636150, od_segments=12192007,
+                                           knot_groups=396230, march=792278,
+                                           shape_evals=50705792),
+    ("demo_clouds_high_ref", 1080, 150): dict(atmosphere=1636150, od_segments=12192007,
+                                               march=1584600, coverage_evals=101414400,
+                                               shape_evals=101414400),
+}
+
+
+@pytest.mark.parametrize("name,height,frame", list(PINNED))
+def test_procedural_units_are_pinned(name, height, frame):
+    torch.set_num_threads(2)
+    width = height * 2 if height == 64 else 1920
+    scene = ref.build(harness.load_config(name), device="cpu")
+    pose, t = Traffic(harness.load_traffic("fly_loop"), seed=0).frame(frame)
+    work = k1_work.frame_work(scene, pose, t, height, width)
+    assert {k: v for k, v in work.items() if v} == {"pixels": height * width,
+                                                     **PINNED[name, height, frame]}
+
+
+def _reference_tex_units(scene, pose, time_s, h, w, monkeypatch) -> dict:
+    """Render the reference frame of a baked layer and count its texture
+    units from what it did: each knot sampler call's per-tile choices
+    (``record_batch_choices``) over the tiles that its coarse pixels'
+    visibility lets sample, ``texture_knot_group`` knots a call of each
+    field's K + 1 (coverage's calls first)."""
+    seen = {}
+    real = ref_clouds.render_clouds
+
+    def clouds(*a, **kw):
+        out = real(*a, **kw)
+        seen["visible"] = out[2]
+        return out
+
+    monkeypatch.setattr(ref_clouds, "render_clouds", clouds)
+    with texsample.record_batch_choices() as calls:
+        ref.render_frame(scene, pose, time_s, h, w)
+    c = scene.config
+    tile_rows = 32 // c.cloud_lod
+    vis = seen["visible"]
+    tiles = vis.reshape(vis.shape[0] // tile_rows, tile_rows, vis.shape[1] // 128, 128)
+    tile_vis = tiles.any(dim=3).any(dim=1).reshape(-1)
+    groups = 32 // (c.cloud_lod * c.cloud_coverage_lod) * 128
+    step = c.texture_knot_group
+    sizes = [("latlong", min(step, c.cloud_coverage_knots + 1 - j))
+             for j in range(0, c.cloud_coverage_knots + 1, step)]
+    sizes += [("tex3d", min(step, c.cloud_shape_knots + 1 - j))
+              for j in range(0, c.cloud_shape_knots + 1, step)]
+    assert len(calls) == len(sizes)
+    units = {"knot_groups": int(tile_vis.sum()) * groups, "tex3d": 0, "tex3d_floor": 0,
+             "latlong": 0, "latlong_floor": 0}
+    for (slot, knots), (mode, _) in zip(sizes, calls):
+        floor = mode == texsample.FLOOR
+        units[slot] += knots * groups * int((tile_vis & ~floor).sum())
+        units[slot + "_floor"] += knots * groups * int((tile_vis & floor).sum())
+    return units
+
+
+@pytest.mark.parametrize("frame", [0, 150])
+def test_texture_units_are_the_reference_samplers_choices(frame, tex_checkout, monkeypatch):
+    """A baked layer at 48×128 (two tiles, the second half padding): its
+    texture units and knot groups are those the reference's own samplers
+    chose at the frame's knots, its march the coarse pixels the reference
+    marches (padding included), and its bound adds the tables' bytes."""
+    torch.set_num_threads(2)
+    scene = ref.build(harness.load_config("demo_clouds_high_tex"), device="cpu")
+    c = scene.config
+    assert c.cloud_shape_interp and c.cloud_coverage_interp
+    assert [(m.rows, 128) for m in (c.cloud_shape_tex_meta, c.cloud_coverage_tex_meta)] == [
+        tuple(t.shape) for t in scene.tex_data]
+    pose, t = Traffic(harness.load_traffic("fly_loop"), seed=0).frame(frame)
+    work = k1_work.frame_work(scene, pose, t, 48, 128)
+    want = _reference_tex_units(scene, pose, t, 48, 128, monkeypatch)
+    assert {k: work[k] for k in want} == want
+    assert want["tex3d"] + want["tex3d_floor"] == want["knot_groups"] * 17 > 0
+    assert want["latlong"] + want["latlong_floor"] == want["knot_groups"] * 9
+    assert work["march"] == _reference_marches(scene, pose, t, 48, 128, monkeypatch)
+    assert work["pixels"] == 48 * 128 and work["shape_evals"] == work["coverage_evals"] == 0
+    assert 0 < work["atmosphere"] <= 48 * 128
+    tables = sum(m.rows * 128 * 4 for m in (scene.config.cloud_shape_tex_meta,
+                                             scene.config.cloud_coverage_tex_meta))
+    bound = k1_work.frame_bound_ms(work, scene.config, 48, 128)
+    assert bound == pytest.approx(max(peaks.ops_time_ms(
+        sum(v for k, v in counts.work_ops(work, scene.config).items() if k != "int_ops")),
+        (48 * 128 * 16 + k1_work.BLUE_NOISE_BYTES + tables) / peaks.HBM_BYTES * 1e3))
+
+
 def test_od_segments_of_simple_chords():
     """A sample above the ground facing away from it: one segment; facing
     through the planet: two; on the far side of a miss: one."""
@@ -128,6 +232,16 @@ def test_k1_units_refuse_unreckoned_configs():
         k1_work.check_config(dataclasses.replace(config, raymarched_lighting=True))
     with pytest.raises(ValueError):
         k1_work.check_config(dataclasses.replace(config, cloud_shape_interp=True))
+    meta = texsample.TexMeta(kind="tex3d", levels=((8, 0),), rows=68)
+    baked = dataclasses.replace(config, cloud_shape_noise=None, cloud_coverage_noise=None,
+                                cloud_shape_tex_meta=meta, cloud_coverage_tex_meta=meta,
+                                cloud_shape_interp=True)
+    k1_work.check_config(baked)
+    for change in (dict(cloud_coverage_knots=4), dict(cloud_shape_knots=8),
+                   dict(cloud_lod=1, cloud_coverage_lod=1), dict(cloud_shape_tex_meta=None),
+                   dict(clouds_always_low_quality=False), dict(raymarched_lighting=True)):
+        with pytest.raises(ValueError):
+            k1_work.check_config(dataclasses.replace(baked, **change))
 
 
 def test_peaks_are_the_data_sheet():
